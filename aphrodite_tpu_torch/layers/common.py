@@ -1,0 +1,18 @@
+"""Shared functional layers: norms and activations (plain PyTorch)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to the input dtype. ``offset=1.0`` gives
+    the Gemma convention (weight stored as w-1)."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (xf * (weight.float() + offset)).to(x.dtype)
+
+
+def silu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up

@@ -1,0 +1,68 @@
+"""Rotary position embeddings (HF rotate-half convention).
+
+Only the default (unscaled) frequencies are ported; every rope scaling mode
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class RopeConfig:
+    head_dim: int
+    rotary_dim: int
+    base: float = 10000.0
+    scaling: Optional[dict] = None  # HF rope_scaling dict
+
+    @staticmethod
+    def from_hf_config(hf_config, head_dim: int) -> "RopeConfig":
+        partial = getattr(hf_config, "partial_rotary_factor", 1.0)
+        scaling = getattr(hf_config, "rope_scaling", None)
+        if scaling is not None and not isinstance(scaling, dict):
+            scaling = dict(scaling)
+        return RopeConfig(
+            head_dim=head_dim,
+            rotary_dim=int(head_dim * partial),
+            base=getattr(hf_config, "rope_theta", 10000.0),
+            scaling=scaling,
+        )
+
+
+def compute_inv_freq(cfg: RopeConfig) -> np.ndarray:
+    """inv_freq [rotary_dim//2] float32 (default frequencies only)."""
+    s = cfg.scaling or {}
+    rope_type = s.get("rope_type", s.get("type", "default"))
+    if rope_type != "default":
+        raise NotImplementedError(
+            f"rope scaling {rope_type!r} is not ported yet")
+    dim = cfg.rotary_dim
+    inv_freq = 1.0 / (cfg.base ** (np.arange(0, dim, 2, dtype=np.float64)
+                                   / dim))
+    return inv_freq.astype(np.float32)
+
+
+def compute_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [T] int -> (cos, sin) each [T, rotary_dim//2] float32."""
+    freqs = positions.float()[:, None] * inv_freq[None, :]
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [T, heads, head_dim]; cos/sin: [T, rotary_dim//2]. Rotate-half on
+    the leading ``rotary_dim`` dims in fp32; the tail passes through."""
+    rot = cos.shape[-1] * 2
+    half = rot // 2
+    xf = x[..., :rot].float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    c, s = cos[:, None, :], sin[:, None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+    if x.shape[-1] > rot:
+        out = torch.cat([out, x[..., rot:]], dim=-1)
+    return out

@@ -1,0 +1,185 @@
+"""Llama-family decoder (Llama 1/2/3, Qwen2 via the bias knob) in PyTorch.
+
+Counterpart of the JAX package's ``models/llama.py``. Weights keep that
+package's ``[in, out]`` layout with QKV and gate/up always fused (its
+``maybe_merge_params`` form). Two forwards:
+
+- ``forward``: a prefill or mixed wave. Each layer writes its new K/V into
+  the paged cache, then attends with the ragged paged attention kernel.
+- ``forward_window``: one sub-step of a decode window. The paged cache is
+  frozen; each layer writes its K/V into the window tail and attends with
+  the window decode kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from aphrodite_tpu_torch.attention.backend import (paged_attention,
+                                                   window_attention,
+                                                   write_kv, write_tail)
+from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
+from aphrodite_tpu_torch.config import ModelConfig
+from aphrodite_tpu_torch.layers.common import rms_norm, silu_and_mul
+from aphrodite_tpu_torch.layers.linear import apply_linear, matmul_f32
+from aphrodite_tpu_torch.layers.rotary import (RopeConfig, apply_rope,
+                                               compute_cos_sin,
+                                               compute_inv_freq)
+from aphrodite_tpu_torch.utils import torch_dtype
+
+
+def _param(*shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class LlamaDecoderLayer(nn.Module):
+
+    def __init__(self, H: int, nq: int, nkv: int, hd: int, inter: int,
+                 qkv_bias: bool, dtype, device) -> None:
+        super().__init__()
+        mk = dict(dtype=dtype, device=device)
+        self.input_norm = _param(H, **mk)
+        self.w_qkv = _param(H, (nq + 2 * nkv) * hd, **mk)
+        self.b_qkv = (_param((nq + 2 * nkv) * hd, **mk) if qkv_bias
+                      else None)
+        self.wo = _param(nq * hd, H, **mk)
+        self.post_norm = _param(H, **mk)
+        self.w_gate_up = _param(H, 2 * inter, **mk)
+        self.w_down = _param(inter, H, **mk)
+
+
+class LlamaForCausalLM(nn.Module):
+
+    # Knobs subclasses flip.
+    qkv_bias: bool = False
+    tie_embeddings_default: bool = False
+
+    def __init__(self, config: ModelConfig,
+                 device: torch.device | str = "cpu") -> None:
+        super().__init__()
+        self.config = config
+        self.dtype = torch_dtype(config.dtype)
+        self.hidden_size = config.hidden_size
+        self.num_layers = config.num_layers
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_kv_heads
+        self.head_dim = config.head_dim
+        self.vocab_size = config.vocab_size
+        self.rms_eps = config.get("rms_norm_eps", 1e-6)
+        self.sliding_window = config.sliding_window
+        self.scale = self.head_dim ** -0.5
+        act = config.get("hidden_act", "silu")
+        if act != "silu":
+            raise NotImplementedError(f"activation {act!r} is not ported")
+        self.tie_embeddings = config.get("tie_word_embeddings",
+                                         self.tie_embeddings_default)
+        qkv_bias = config.get("attention_bias", self.qkv_bias)
+        inv_freq = compute_inv_freq(
+            RopeConfig.from_hf_config(config.hf_config, self.head_dim))
+        self.register_buffer("inv_freq",
+                             torch.from_numpy(inv_freq).to(device),
+                             persistent=False)
+        mk = dict(dtype=self.dtype, device=device)
+        self.embed = _param(self.vocab_size, self.hidden_size, **mk)
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(self.hidden_size, self.num_heads,
+                              self.num_kv_heads, self.head_dim,
+                              config.intermediate_size, qkv_bias,
+                              self.dtype, device)
+            for _ in range(self.num_layers)])
+        self.final_norm = _param(self.hidden_size, **mk)
+        self.lm_head = (None if self.tie_embeddings else
+                        _param(self.hidden_size, self.vocab_size, **mk))
+
+    # ------------------------------------------------------------------ params
+    @torch.no_grad()
+    def init_dummy_params(self, generator: torch.Generator) -> None:
+        """Random weights from ``generator`` (N(0, 0.02) drawn in fp32),
+        ones for norms, zeros for biases — the JAX package's recipe. The
+        generator must live on the parameters' device."""
+        for name, p in self.named_parameters():
+            if "norm" in name:
+                p.fill_(1.0)
+            elif name.rsplit(".", 1)[-1].startswith("b_"):
+                p.zero_()
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=generator,
+                                           device=p.device))
+
+    # ----------------------------------------------------------------- forward
+    def _qkv(self, layer: LlamaDecoderLayer, x: torch.Tensor,
+             cos: torch.Tensor, sin: torch.Tensor):
+        nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        T = x.shape[0]
+        h = rms_norm(x, layer.input_norm, self.rms_eps)
+        qkv = apply_linear(h, layer.w_qkv, layer.b_qkv)
+        q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
+        q = apply_rope(q.reshape(T, nq, hd), cos, sin)
+        k = apply_rope(k.reshape(T, nkv, hd), cos, sin)
+        return q.contiguous(), k, v.reshape(T, nkv, hd)
+
+    def _finish(self, layer: LlamaDecoderLayer, x: torch.Tensor,
+                o: torch.Tensor) -> torch.Tensor:
+        x = x + apply_linear(o.reshape(x.shape[0], -1), layer.wo)
+        h = rms_norm(x, layer.post_norm, self.rms_eps)
+        gate, up = apply_linear(h, layer.w_gate_up).chunk(2, dim=-1)
+        return x + apply_linear(silu_and_mul(gate, up), layer.w_down)
+
+    def forward(self, input_ids: torch.Tensor, kv_cache: torch.Tensor,
+                md: AttentionMetadata) -> torch.Tensor:
+        """Prefill / mixed wave: [T] token ids -> [T, H] final hidden. The
+        cache is updated in place."""
+        x = self.embed[input_ids]
+        cos, sin = compute_cos_sin(md.token_pos, self.inv_freq)
+        for li, layer in enumerate(self.layers):
+            q, k, v = self._qkv(layer, x, cos, sin)
+            write_kv(kv_cache, li, k, v, md.slot_mapping)
+            o = paged_attention(q, kv_cache, li, md, self.scale,
+                                sliding_window=self.sliding_window)
+            x = self._finish(layer, x, o)
+        return rms_norm(x, self.final_norm, self.rms_eps)
+
+    def forward_window(self, input_ids: torch.Tensor, kv_cache: torch.Tensor,
+                       tail_k: torch.Tensor, tail_v: torch.Tensor,
+                       md: AttentionMetadata) -> torch.Tensor:
+        """One decode-window sub-step: [R] token ids (one per request, at
+        position paged_lens + window_step) -> [R, H]. The paged cache is
+        only read; the tails [L, R, kvh, Kw, hd] are updated in place."""
+        x = self.embed[input_ids]
+        cos, sin = compute_cos_sin(md.token_pos, self.inv_freq)
+        for li, layer in enumerate(self.layers):
+            q, k, v = self._qkv(layer, x, cos, sin)
+            write_tail(tail_k, k, li, md.window_step)
+            write_tail(tail_v, v, li, md.window_step)
+            o = window_attention(q, kv_cache, tail_k, tail_v, li, md,
+                                 self.scale,
+                                 sliding_window=self.sliding_window)
+            x = self._finish(layer, x, o)
+        return rms_norm(x, self.final_norm, self.rms_eps)
+
+    def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[N, H] -> [N, V] float32 logits, accumulated in fp32."""
+        head = self.embed.t() if self.tie_embeddings else self.lm_head
+        return matmul_f32(hidden, head)
+
+
+class Qwen2ForCausalLM(LlamaForCausalLM):
+    qkv_bias = True
+
+
+MODEL_REGISTRY: dict[str, type[LlamaForCausalLM]] = {
+    "LlamaForCausalLM": LlamaForCausalLM,
+    "Qwen2ForCausalLM": Qwen2ForCausalLM,
+}
+
+
+def model_class(architecture: Optional[str]) -> type[LlamaForCausalLM]:
+    cls = MODEL_REGISTRY.get(architecture or "")
+    if cls is None:
+        raise NotImplementedError(
+            f"architecture {architecture!r} is not ported; the PyTorch "
+            f"port serves {sorted(MODEL_REGISTRY)}")
+    return cls
