@@ -26,6 +26,11 @@ class ModelConfig:
     dtype: str = "bfloat16"
     seed: int = 0
     max_model_len: Optional[int] = None
+    # Weight-only quantization applied on the fly: "gptq" | "awq" (W4A16,
+    # group 128) | "w8a16"; None = full precision.
+    quantization: Optional[str] = None
+    # A quantized lm_head is not ported: True raises at engine start.
+    quantize_lm_head: bool = False
     # HF-style geometry: a dict, or any object with those attributes. When
     # None, ``<model>/config.json`` is read as plain JSON.
     hf_config: Any = None

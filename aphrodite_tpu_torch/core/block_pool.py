@@ -154,6 +154,16 @@ class BlockPool:
             block.block_hash = h
             self.cached_hash_to_block.setdefault(h, block)
 
+    def reset_prefix_cache(self) -> bool:
+        """Drop every cached content hash, so no later prompt hits a page
+        cached before. Only when no request holds a page (else False)."""
+        if self.free_queue.num_free != self.num_blocks - 1:
+            return False
+        self.cached_hash_to_block.clear()
+        for b in self.blocks:
+            b.block_hash = None
+        return True
+
     # ------------------------------------------------------------------- free
     def free_blocks(self, ordered_blocks: list[KVCacheBlock]) -> None:
         """Release references; fully-freed blocks go to the LRU tail in the

@@ -117,5 +117,8 @@ class KVCacheManager:
         # Tail-first so the longest shared prefix is evicted last.
         self.pool.free_blocks(list(reversed(blocks)))
 
+    def reset_prefix_cache(self) -> bool:
+        return self.pool.reset_prefix_cache()
+
     def get_block_ids(self, request_id: str) -> list[int]:
         return [b.block_id for b in self.req_to_blocks.get(request_id, [])]

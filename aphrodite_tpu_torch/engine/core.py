@@ -16,6 +16,9 @@ class EngineCore:
             config.scheduler_config, config.cache_config,
             num_lookahead_tokens=config.max_lookahead_tokens)
 
+    def reset_prefix_cache(self) -> bool:
+        return self.scheduler.kv.reset_prefix_cache()
+
     def step(self) -> list[EngineCoreOutput]:
         if not self.scheduler.has_unfinished_requests():
             return []

@@ -33,6 +33,10 @@ class LLMEngine:
     def step(self) -> list[RequestOutput]:
         return self.output_processor.process_outputs(self.core.step())
 
+    def reset_prefix_cache(self) -> bool:
+        """Forget every cached prefix (False while requests run)."""
+        return self.core.reset_prefix_cache()
+
     def has_unfinished_requests(self) -> bool:
         return (self.core.scheduler.has_unfinished_requests()
                 or self.output_processor.has_requests())

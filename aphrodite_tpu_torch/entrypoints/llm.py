@@ -20,6 +20,8 @@ def build_engine_config(
     dtype: str = "bfloat16",
     seed: int = 0,
     max_model_len: Optional[int] = None,
+    quantization: Optional[str] = None,
+    quantize_lm_head: bool = False,
     hf_config: Any = None,
     block_size: int = 32,
     num_kv_blocks: Optional[int] = None,
@@ -31,7 +33,8 @@ def build_engine_config(
 ) -> EngineConfig:
     mc = ModelConfig(model=model, tokenizer=tokenizer, dtype=dtype,
                      seed=seed, max_model_len=max_model_len,
-                     hf_config=hf_config)
+                     quantization=quantization,
+                     quantize_lm_head=quantize_lm_head, hf_config=hf_config)
     return EngineConfig(
         model_config=mc,
         cache_config=CacheConfig(block_size=block_size,

@@ -1,10 +1,11 @@
 """Rotary position embeddings (HF rotate-half convention).
 
-Only the default (unscaled) frequencies are ported; every rope scaling mode
-raises ``NotImplementedError``.
+The default frequencies and Llama 3's frequency scaling are ported; every
+other rope scaling mode raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -34,15 +35,29 @@ class RopeConfig:
 
 
 def compute_inv_freq(cfg: RopeConfig) -> np.ndarray:
-    """inv_freq [rotary_dim//2] float32 (default frequencies only)."""
+    """inv_freq [rotary_dim//2] float32: default frequencies, or Llama 3's
+    frequency scaling (the JAX package's ``rotary.py:79-91``)."""
     s = cfg.scaling or {}
     rope_type = s.get("rope_type", s.get("type", "default"))
-    if rope_type != "default":
+    if rope_type not in ("default", "llama3"):
         raise NotImplementedError(
             f"rope scaling {rope_type!r} is not ported yet")
     dim = cfg.rotary_dim
     inv_freq = 1.0 / (cfg.base ** (np.arange(0, dim, 2, dtype=np.float64)
                                    / dim))
+    if rope_type == "llama3":
+        factor = s.get("factor", 8.0)
+        low_f = s.get("low_freq_factor", 1.0)
+        high_f = s.get("high_freq_factor", 4.0)
+        orig_max = s.get("original_max_position_embeddings", 8192)
+        wavelen = 2 * math.pi / inv_freq
+        low_wl = orig_max / low_f
+        high_wl = orig_max / high_f
+        smooth = np.clip((orig_max / wavelen - low_f) / (high_f - low_f),
+                         0, 1)
+        interp = (1 - smooth) * inv_freq / factor + smooth * inv_freq
+        inv_freq = np.where(wavelen > low_wl, inv_freq / factor,
+                            np.where(wavelen < high_wl, inv_freq, interp))
     return inv_freq.astype(np.float32)
 
 

@@ -1,17 +1,22 @@
 """Model construction and weight loading.
 
 Only dummy (seeded random) weights and the JAX package's parameter tree are
-ported; loading a checkpoint from disk is not.
+ported; loading a checkpoint from disk is not. With a quantization config,
+the dummy weights are quantized on the fly layer by layer and W4 leaves are
+packed where the JAX loader packs them (``quantization/loader.py``), so a
+``params_from_jax`` tree of the JAX engine carries over leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from aphrodite_tpu_torch.config import LoadConfig, ModelConfig
-from aphrodite_tpu_torch.models.llama import LlamaForCausalLM, model_class
+from aphrodite_tpu_torch.models.llama import (LlamaForCausalLM, QuantWeight,
+                                              model_class)
+from aphrodite_tpu_torch.quantization.base import QuantizationConfig
 
 # JAX per-layer leaves that the port fuses, in concatenation order.
 _FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
@@ -19,18 +24,22 @@ _FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
 _DIRECT = ("input_norm", "wo", "post_norm", "w_down")
 
 
-def create_model(model_config: ModelConfig,
-                 device: torch.device | str) -> LlamaForCausalLM:
-    return model_class(model_config.architecture)(model_config, device=device)
+def create_model(model_config: ModelConfig, device: torch.device | str,
+                 quant_config: Optional[QuantizationConfig] = None
+                 ) -> LlamaForCausalLM:
+    return model_class(model_config.architecture)(
+        model_config, device=device, quant_config=quant_config)
 
 
 def load_model(model_config: ModelConfig, load_config: LoadConfig,
-               device: torch.device | str) -> LlamaForCausalLM:
+               device: torch.device | str,
+               quant_config: Optional[QuantizationConfig] = None
+               ) -> LlamaForCausalLM:
     if load_config.load_format != "dummy":
         raise NotImplementedError(
             f"load_format={load_config.load_format!r}: only dummy weights "
             "are ported (checkpoint loading is not)")
-    model = create_model(model_config, device)
+    model = create_model(model_config, device, quant_config)
     gen = torch.Generator(device=device).manual_seed(model_config.seed)
     model.init_dummy_params(gen)
     return model
@@ -40,31 +49,66 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _quant_leaves(name: str, parts: list) -> dict[str, np.ndarray]:
+    """Quantized leaves of projections fused along N: every leaf
+    concatenates on its last axis (groups run along K); one input_perm
+    serves them all only when they share it."""
+    keys = set(parts[0])
+    if any(set(p) != keys for p in parts):
+        raise ValueError(f"{name}: parts have different quantized leaves")
+    out = {}
+    for k in sorted(keys):
+        arrs = [_np(p[k]) for p in parts]
+        if k == "input_perm":
+            if any(not np.array_equal(a, arrs[0]) for a in arrs):
+                raise NotImplementedError(
+                    f"{name}: fused projections with different desc_act "
+                    "permutations")
+            out[k] = arrs[0]
+        else:
+            out[k] = np.concatenate(arrs, axis=-1)
+    if "qweight_packed" in out:  # the JAX loader stores the bytes as int8
+        out["qweight_packed"] = out["qweight_packed"].view(np.uint8)
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """The JAX package's Llama/Qwen2 parameter tree (leaves: numpy or any
     array convertible with ``np.asarray``) -> the port's state dict. Takes
     both the unmerged ``wq/wk/wv`` + ``w_gate/w_up`` tree and the fused
     ``w_qkv`` / ``w_gate_up`` tree of ``maybe_merge_params``, with or
-    without q/k/v biases."""
+    without q/k/v biases. Quantized projections are dicts of leaves
+    (``qweight`` or ``qweight_packed``, ``scales``, ``zeros``,
+    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``."""
     layers = tree["layers"]
     num_layers = _np(layers["input_norm"]).shape[0]
     out = {"embed": _np(tree["embed"]), "final_norm": _np(tree["final_norm"])}
     if "lm_head" in tree:
+        if isinstance(tree["lm_head"], Mapping):
+            raise NotImplementedError("a quantized lm_head is not ported")
         out["lm_head"] = _np(tree["lm_head"])
     stacked = {}
     for name in _DIRECT:
-        stacked[name] = _np(layers[name])
+        leaf = layers[name]
+        stacked[name] = (_quant_leaves(name, [leaf])
+                         if isinstance(leaf, Mapping) else _np(leaf))
     for fused, parts in _FUSED.items():
         if fused in layers:
             stacked[fused] = _np(layers[fused])
         elif all(p in layers for p in parts):
-            stacked[fused] = np.concatenate([_np(layers[p]) for p in parts],
-                                            axis=-1)
+            vals = [layers[p] for p in parts]
+            stacked[fused] = (
+                _quant_leaves(fused, vals) if isinstance(vals[0], Mapping)
+                else np.concatenate([_np(v) for v in vals], axis=-1))
         elif fused != "b_qkv":
             raise KeyError(f"JAX tree has neither {fused} nor {parts}")
     for name, arr in stacked.items():
         for i in range(num_layers):
-            out[f"layers.{i}.{name}"] = arr[i]
+            if isinstance(arr, dict):
+                for leaf, a in arr.items():
+                    out[f"layers.{i}.{name}.{leaf}"] = a[i]
+            else:
+                out[f"layers.{i}.{name}"] = arr[i]
     return out
 
 
@@ -78,17 +122,30 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 @torch.no_grad()
 def load_params(model: LlamaForCausalLM,
                 state: Mapping[str, np.ndarray]) -> None:
-    """Copy a full state dict into the model's parameters (cast to their
-    dtype and device); every parameter must be given, with its shape."""
-    params = dict(model.named_parameters())
-    missing = set(params) - set(state)
-    extra = set(state) - set(params)
+    """Copy a full state dict into the model's parameters and quantized
+    buffers (cast to their dtype and device); every one must be given,
+    with its shape. An ``input_perm`` leaf is taken where given."""
+    targets = model.state_dict(keep_vars=True)
+    state = dict(state)
+    for name in [n for n in state if n.endswith(".input_perm")]:
+        owner = model.get_submodule(name.rsplit(".", 1)[0])
+        if not isinstance(owner, QuantWeight):
+            raise KeyError(f"{name}: not a quantized projection")
+        owner.input_perm = _to_tensor(state.pop(name)).long().to(
+            owner.scales.device)
+    missing = set(targets) - set(state)
+    missing = {n for n in missing if not n.endswith(".input_perm")}
+    extra = set(state) - set(targets)
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
                        f"unexpected {sorted(extra)}")
-    for name, p in params.items():
+    for name, p in targets.items():
+        if name not in state:
+            continue
         t = _to_tensor(state[name])
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{tuple(p.shape)}")
+        if t.dtype in (torch.int8, torch.uint8) and t.dtype != p.dtype:
+            raise ValueError(f"{name}: dtype {t.dtype} != {p.dtype}")
         p.copy_(t.to(device=p.device, dtype=p.dtype))

@@ -9,6 +9,15 @@ package's ``[in, out]`` layout with QKV and gate/up always fused (its
 - ``forward_window``: one sub-step of a decode window. The paged cache is
   frozen; each layer writes its K/V into the window tail and attends with
   the window decode kernel.
+
+Weight-only quantization (``quant_config``: gptq/awq W4A16, W8A16) turns
+each of the four projection weights of a layer into a ``QuantWeight``:
+buffers holding the quantized leaves, which ``apply_linear`` takes through
+the format tag. Fusion stays on for quantized leaves, unlike in the JAX
+package, which leaves them unfused: groups run along K, so fusing along N
+just concatenates ``qweight`` / ``qweight_packed``, ``scales`` and
+``zeros`` on their last axis, and every output column is computed as the
+unfused projection computes it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,10 @@ from aphrodite_tpu_torch.layers.linear import apply_linear, matmul_f32
 from aphrodite_tpu_torch.layers.rotary import (RopeConfig, apply_rope,
                                                compute_cos_sin,
                                                compute_inv_freq)
+from aphrodite_tpu_torch.quantization.base import (QuantizationConfig,
+                                                   runtime_format)
+from aphrodite_tpu_torch.quantization.loader import (quantize_weight,
+                                                     w4_group, w4_packs)
 from aphrodite_tpu_torch.utils import torch_dtype
 
 
@@ -35,20 +48,65 @@ def _param(*shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+class QuantWeight(nn.Module):
+    """The quantized leaves of one [K, N] projection, as buffers:
+    ``qweight`` int8 [K, N] and ``scales`` fp32 [N] for w8a16;
+    ``qweight`` int8 [K, N] (uint4 values) or ``qweight_packed`` uint8
+    [K/2, N], with ``scales`` and ``zeros`` fp32 [K/group, N], for w4a16.
+    ``input_perm`` (desc_act) is set only when a loaded tree carries one."""
+
+    def __init__(self, qcfg: QuantizationConfig, K: int, N: int,
+                 device) -> None:
+        super().__init__()
+        self.shape = (K, N)
+        mk = lambda shape, dtype: torch.empty(  # noqa: E731
+            shape, dtype=dtype, device=device)
+        if runtime_format(qcfg) == "w8a16":
+            self.register_buffer("qweight", mk((K, N), torch.int8))
+            self.register_buffer("scales", mk((N,), torch.float32))
+        else:
+            group = w4_group(qcfg, K)
+            if w4_packs(K, group):
+                self.register_buffer("qweight_packed",
+                                     mk((K // 2, N), torch.uint8))
+            else:
+                self.register_buffer("qweight", mk((K, N), torch.int8))
+            self.register_buffer("scales", mk((K // group, N), torch.float32))
+            self.register_buffer("zeros", mk((K // group, N), torch.float32))
+        self.register_buffer("input_perm", None)
+
+    def leaves(self) -> dict[str, torch.Tensor]:
+        return {k: v for k, v in self._buffers.items() if v is not None}
+
+    @torch.no_grad()
+    def quantize_from(self, w: torch.Tensor,
+                      qcfg: QuantizationConfig) -> None:
+        """Fill the leaves by quantizing the fp weight w [K, N]."""
+        for name, t in quantize_weight(w, qcfg).items():
+            getattr(self, name).copy_(t)
+
+
 class LlamaDecoderLayer(nn.Module):
 
     def __init__(self, H: int, nq: int, nkv: int, hd: int, inter: int,
-                 qkv_bias: bool, dtype, device) -> None:
+                 qkv_bias: bool, dtype, device,
+                 quant_config: Optional[QuantizationConfig] = None) -> None:
         super().__init__()
         mk = dict(dtype=dtype, device=device)
+
+        def weight(K: int, N: int):
+            if quant_config is None:
+                return _param(K, N, **mk)
+            return QuantWeight(quant_config, K, N, device)
+
         self.input_norm = _param(H, **mk)
-        self.w_qkv = _param(H, (nq + 2 * nkv) * hd, **mk)
+        self.w_qkv = weight(H, (nq + 2 * nkv) * hd)
         self.b_qkv = (_param((nq + 2 * nkv) * hd, **mk) if qkv_bias
                       else None)
-        self.wo = _param(nq * hd, H, **mk)
+        self.wo = weight(nq * hd, H)
         self.post_norm = _param(H, **mk)
-        self.w_gate_up = _param(H, 2 * inter, **mk)
-        self.w_down = _param(inter, H, **mk)
+        self.w_gate_up = weight(H, 2 * inter)
+        self.w_down = weight(inter, H)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -58,9 +116,14 @@ class LlamaForCausalLM(nn.Module):
     tie_embeddings_default: bool = False
 
     def __init__(self, config: ModelConfig,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str = "cpu",
+                 quant_config: Optional[QuantizationConfig] = None) -> None:
         super().__init__()
         self.config = config
+        self.quant_config = quant_config
+        # Format tag of the projection weights; None = full precision.
+        self.quant_fmt = (runtime_format(quant_config) if quant_config
+                          else None)
         self.dtype = torch_dtype(config.dtype)
         self.hidden_size = config.hidden_size
         self.num_layers = config.num_layers
@@ -88,7 +151,7 @@ class LlamaForCausalLM(nn.Module):
             LlamaDecoderLayer(self.hidden_size, self.num_heads,
                               self.num_kv_heads, self.head_dim,
                               config.intermediate_size, qkv_bias,
-                              self.dtype, device)
+                              self.dtype, device, quant_config)
             for _ in range(self.num_layers)])
         self.final_norm = _param(self.hidden_size, **mk)
         self.lm_head = (None if self.tie_embeddings else
@@ -98,8 +161,11 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def init_dummy_params(self, generator: torch.Generator) -> None:
         """Random weights from ``generator`` (N(0, 0.02) drawn in fp32),
-        ones for norms, zeros for biases — the JAX package's recipe. The
-        generator must live on the parameters' device."""
+        ones for norms, zeros for biases — the JAX package's recipe. A
+        quantized projection is drawn in the model's dtype, one at a time,
+        and quantized at once (the JAX package's dummy + quantize path), so
+        the fp weights of the whole model are never resident. The generator
+        must live on the parameters' device."""
         for name, p in self.named_parameters():
             if "norm" in name:
                 p.fill_(1.0)
@@ -108,14 +174,24 @@ class LlamaForCausalLM(nn.Module):
             else:
                 p.copy_(0.02 * torch.randn(p.shape, generator=generator,
                                            device=p.device))
+        for mod in self.modules():
+            if isinstance(mod, QuantWeight):
+                w = 0.02 * torch.randn(mod.shape, generator=generator,
+                                       device=mod.scales.device)
+                mod.quantize_from(w.to(self.dtype), self.quant_config)
 
     # ----------------------------------------------------------------- forward
+    def _lin(self, x: torch.Tensor, w, bias=None) -> torch.Tensor:
+        if isinstance(w, QuantWeight):
+            w = w.leaves()
+        return apply_linear(x, w, bias, fmt=self.quant_fmt)
+
     def _qkv(self, layer: LlamaDecoderLayer, x: torch.Tensor,
              cos: torch.Tensor, sin: torch.Tensor):
         nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         T = x.shape[0]
         h = rms_norm(x, layer.input_norm, self.rms_eps)
-        qkv = apply_linear(h, layer.w_qkv, layer.b_qkv)
+        qkv = self._lin(h, layer.w_qkv, layer.b_qkv)
         q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
         q = apply_rope(q.reshape(T, nq, hd), cos, sin)
         k = apply_rope(k.reshape(T, nkv, hd), cos, sin)
@@ -123,10 +199,10 @@ class LlamaForCausalLM(nn.Module):
 
     def _finish(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                 o: torch.Tensor) -> torch.Tensor:
-        x = x + apply_linear(o.reshape(x.shape[0], -1), layer.wo)
+        x = x + self._lin(o.reshape(x.shape[0], -1), layer.wo)
         h = rms_norm(x, layer.post_norm, self.rms_eps)
-        gate, up = apply_linear(h, layer.w_gate_up).chunk(2, dim=-1)
-        return x + apply_linear(silu_and_mul(gate, up), layer.w_down)
+        gate, up = self._lin(h, layer.w_gate_up).chunk(2, dim=-1)
+        return x + self._lin(silu_and_mul(gate, up), layer.w_down)
 
     def forward(self, input_ids: torch.Tensor, kv_cache: torch.Tensor,
                 md: AttentionMetadata) -> torch.Tensor:

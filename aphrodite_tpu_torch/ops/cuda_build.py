@@ -18,10 +18,13 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], object] = {}
 
 
 def build_dir() -> Path:
@@ -79,6 +82,9 @@ def build_all(names: list[str]) -> float:
 def entry(name: str, symbol: str, argtypes: list):
     """The C entry point `symbol` of csrc/<name>.cu, building and loading
     the library at first use. Every entry returns a cudaError_t."""
+    fn = _FNS.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
@@ -87,6 +93,7 @@ def entry(name: str, symbol: str, argtypes: list):
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _FNS[(name, symbol)] = fn
     return fn
 
 
@@ -94,6 +101,15 @@ def ptxas_report(name: str) -> str:
     """What ptxas said about the kernel's registers and shared memory."""
     path = _lib_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream of ``device`` (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    idx = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        idx if idx is not None else torch.cuda.current_device())
 
 
 def check(err: int, what: str) -> None:

@@ -118,7 +118,7 @@ def ragged_paged_attention(
         out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
         md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
         sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        cuda_build.stream(q.device))
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     return out

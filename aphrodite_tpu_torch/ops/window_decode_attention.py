@@ -127,7 +127,7 @@ def window_decode_attention(
         paged_lens.data_ptr(), block_tables.data_ptr(), R,
         block_tables.shape[1], nq, kvh, page, hd, Kw, step, scale,
         sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        cuda_build.stream(q.device))
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
     return out

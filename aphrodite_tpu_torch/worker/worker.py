@@ -8,6 +8,7 @@ import torch
 
 from aphrodite_tpu_torch.config import EngineConfig
 from aphrodite_tpu_torch.loader.weights import load_model, load_params
+from aphrodite_tpu_torch.quantization.base import get_quantization_config
 from aphrodite_tpu_torch.utils import logger
 from aphrodite_tpu_torch.worker.runner import ModelRunner
 
@@ -22,8 +23,16 @@ class Worker:
     def __init__(self, config: EngineConfig) -> None:
         self.config = config
         self.device = torch.device(config.device_config.resolve())
+        # The format is fixed before the weights are made: the model builds
+        # quantized buffers in place of the projections' fp weights.
+        self.quant_config = get_quantization_config(config.model_config)
+        if self.quant_config is not None:
+            logger.info("quantization: %s (bits=%d group=%d)",
+                        self.quant_config.method,
+                        self.quant_config.weight_bits,
+                        self.quant_config.group_size)
         self.model = load_model(config.model_config, config.load_config,
-                                self.device)
+                                self.device, self.quant_config)
         cc = config.cache_config
         if cc.num_blocks is None:
             cc.num_blocks = self._determine_num_blocks()
@@ -44,6 +53,7 @@ class Worker:
                       * mc.num_layers * self.model.embed.element_size())
         if self.device.type != "cuda":
             return 512  # CPU: small default for tests
+        torch.cuda.empty_cache()  # transient init buffers count as free
         free, _ = torch.cuda.mem_get_info(self.device)
         budget = int(free * _KV_MEMORY_SHARE) - _ACTIVATION_HEADROOM
         num = max(budget // page_bytes, 16)

@@ -6,18 +6,35 @@ CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
-2. Hold each kernel against its plain PyTorch version at the main path's
+2. Hold each kernel against its plain PyTorch version at the main paths'
    shapes, in bf16 and fp32, and time kernel, plain version and a library
-   yardstick (``scaled_dot_product_attention`` over gathered dense K/V,
-   which the port itself never calls).
+   yardstick that the port itself never calls: both attention kernels at
+   the Qwen2.5-1.5B and at the Llama-3.1-8B path's heads, prefill wave and
+   decode window, against ``scaled_dot_product_attention`` over gathered
+   dense K/V; the quantized GEMMs (Llama-3.1-8B decode shapes for the
+   packed W4 kernel, Qwen2.5-1.5B shapes for the unpacked W4 and the W8
+   kernel) against ``torch._weight_int4pack_mm`` /
+   ``torch._weight_int8pack_mm`` where the card's torch has them, else
+   ``torch.matmul`` on the dequantized weight. Also time the W4 prefill
+   product (M > 256) at the 8B wave's shapes.
 3. Run a tiny model end to end in fp32 through the port's ``LLM`` on the
    card and on the CPU with the same weights: greedy tokens must be equal.
-4. The main path: Qwen2.5-1.5B geometry, bf16 dummy weights, block 64,
-   max_num_seqs 32, 64 prompts x (500 + 50) greedy through ``LLM.generate``;
-   one warm-up run, then timed runs. Exactly 3200 tokens must come out and
-   both kernels must have been launched.
+4. Qwen2.5-1.5B geometry, bf16 dummy weights, block 64, max_num_seqs 32,
+   64 prompts x (500 + 50) greedy through ``LLM.generate``; one warm-up
+   run, then timed runs and a profiled run. Exactly 3200 tokens must come
+   out and both attention kernels must have been launched.
+5. Quantized parity: Qwen2.5-1.5B widths at 2 layers, fp32, gptq (the
+   unpacked W4 kernel) and w8a16 (the W8 kernel), card vs CPU with the
+   same quantized weights: greedy tokens must be equal and each kernel
+   launched.
+6. The main path of the quantized slice: Llama-3.1-8B at full width,
+   W4A16 (gptq, group 128; every projection packed), bf16, 32 prompts x
+   (512 + 64) greedy; one warm-up, 3 cold runs (prefix cache reset before
+   each), 3 warm runs, one profiled run. Exactly 2048 tokens a run; the
+   packed W4 kernel and both attention kernels must have been launched.
 
-The last lines are the kernels' JSON record, the card line, and
+The last lines are the kernels' JSON record (one row per kernel and path
+that runs it, with that path's launches and shapes), the card line, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -33,8 +50,42 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
             "float32": 67e12}    # fp32 outside the tensor cores
-PAGE, NQ, KVH, HD = 64, 12, 2, 128
+PAGE, HD = 64, 128
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs, outputs are O(1)
+
+LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
+    vocab_size=128256, hidden_size=4096, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=8, head_dim=128,
+    intermediate_size=14336, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192},
+    max_position_embeddings=131072, tie_word_embeddings=False,
+    architectures=["LlamaForCausalLM"])
+# (K, N) of a layer's four GEMMs with QKV and gate/up fused, M = 32.
+LLAMA8B_GEMMS = {"qkv": (4096, 6144), "o": (4096, 4096),
+                 "gate_up": (4096, 28672), "down": (14336, 4096)}
+QWEN_GEMMS = {"qkv": (1536, 2048), "o": (1536, 1536),
+              "gate_up": (1536, 17920), "down": (8960, 1536)}
+QUANT_KERNELS = {  # name: (replaces, shapes)
+    "w4a16_packed_matmul": (
+        "aphrodite_tpu/ops/quant_matmul_pallas.py:206", LLAMA8B_GEMMS),
+    "w4a16_matmul": (
+        "aphrodite_tpu/ops/quant_matmul_pallas.py:119", QWEN_GEMMS),
+    "w8a16_matmul": (
+        "aphrodite_tpu/ops/quant_matmul_pallas.py:50", QWEN_GEMMS),
+}
+
+# Attention shapes of each path's run: heads, one prefill wave's (context,
+# query) lengths per request, one decode window's paged lengths.
+ATTN_GEOMS = {
+    "qwen2.5-1.5b-bf16": dict(  # phase 4: 28 prompts + 4 decode rows
+        nq=12, kvh=2, ctx=[500] * 28 + [521, 527, 533, 540],
+        qlen=[500] * 28 + [1] * 4,
+        paged=[500 + (37 * r) % 51 for r in range(32)]),
+    "llama-3.1-8b-w4a16": dict(  # phase 6: 32 x 512 in one wave
+        nq=32, kvh=8, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
+}
 
 QWEN25_1P5B = dict(
     vocab_size=151936, hidden_size=1536, num_hidden_layers=28,
@@ -68,14 +119,14 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_cache(gen, ctx_lens, dtype, num_layers=2):
+def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2):
     """Random [L, P, 2, kvh, page, hd] cache and shuffled block tables
     covering ctx_lens tokens per request."""
     import torch
     pages_per = [-(-n // PAGE) for n in ctx_lens]
     max_pages = max(pages_per)
     num_pages = sum(pages_per) + 1
-    cache = torch.randn((num_layers, num_pages, 2, KVH, PAGE, HD),
+    cache = torch.randn((num_layers, num_pages, 2, kvh, PAGE, HD),
                         generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     bt = torch.zeros((len(ctx_lens), max_pages), dtype=torch.int32,
@@ -89,15 +140,14 @@ def paged_cache(gen, ctx_lens, dtype, num_layers=2):
 
 def dense_kv(cache_layer, bt, ctx_lens, s_max):
     """Gather each request's K/V into dense [R, kvh, s_max, hd]."""
-    R = len(ctx_lens)
+    R, kvh = len(ctx_lens), cache_layer.shape[2]
     kv = cache_layer[bt.long()]                 # [R, MP, 2, kvh, page, hd]
-    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, KVH, -1, HD)
+    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, -1, HD)
     return kv[:, 0, :, :s_max].contiguous(), kv[:, 1, :, :s_max].contiguous()
 
 
-def check_ragged(gen, dtype_name: str) -> dict:
-    """Kernel A on one prefill/mixed wave: 28 prompts of 500 tokens plus
-    4 decode rows at context ~530 (32 requests, as the main path's wave)."""
+def check_ragged(gen, dtype_name: str, geom: dict) -> dict:
+    """Kernel A on one prefill/mixed wave of a path (``ATTN_GEOMS``)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
@@ -105,9 +155,8 @@ def check_ragged(gen, dtype_name: str) -> dict:
     from aphrodite_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ref_ragged_paged_attention)
     dtype = getattr(torch, dtype_name)
-    ctx = [500] * 28 + [521, 527, 533, 540]
-    qn = [500] * 28 + [1, 1, 1, 1]
-    cache, bt = paged_cache(gen, ctx, dtype)
+    NQ, KVH, ctx, qn = geom["nq"], geom["kvh"], geom["ctx"], geom["qlen"]
+    cache, bt = paged_cache(gen, ctx, dtype, KVH)
     R, T = len(ctx), sum(qn)
     qsl = np.concatenate([[0], np.cumsum(qn)]).astype(np.int32)
     tok_req = np.repeat(np.arange(R), qn).astype(np.int32)
@@ -136,7 +185,7 @@ def check_ragged(gen, dtype_name: str) -> dict:
     plain_ms = cuda_ms(
         lambda: ref_ragged_paged_attention(q, cache[layer], md, scale), 2)
     # Library yardstick: one SDPA call over the wave padded to a dense
-    # [R, nq, 500, hd] batch with a [R, 1, 500, S] mask.
+    # [R, nq, max qlen, hd] batch with a [R, 1, max qlen, S] mask.
     s_max, lq = max(ctx), max(qn)
     k_d, v_d = dense_kv(cache[layer], bt, ctx, s_max)
     q_d = torch.zeros((R, NQ, lq, HD), dtype=dtype, device="cuda")
@@ -158,17 +207,17 @@ def check_ragged(gen, dtype_name: str) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
-def check_window(gen, dtype_name: str) -> dict:
-    """Kernel B on one decode sub-step: 32 requests at paged lengths
-    500-550 with a 64-slot tail, at several window steps."""
+def check_window(gen, dtype_name: str, geom: dict) -> dict:
+    """Kernel B on one decode window of a path (``ATTN_GEOMS``): its paged
+    lengths with a 64-slot tail, at several window steps."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.window_decode_attention import (
         ref_window_decode_attention, window_decode_attention)
     dtype = getattr(torch, dtype_name)
-    R, Kw, layer = 32, 64, 1
-    plens = [500 + (37 * r) % 51 for r in range(R)]
-    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype)
+    NQ, KVH, plens = geom["nq"], geom["kvh"], geom["paged"]
+    R, Kw, layer = len(plens), 64, 1
+    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, KVH)
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
                          device="cuda").to(dtype)
     tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
@@ -215,6 +264,167 @@ def check_window(gen, dtype_name: str) -> dict:
                 bound_by=b_by, library_ms=lib_ms)
 
 
+def quant_inputs(gen, name: str, K: int, N: int, M: int, dtype):
+    """Random quantized weights and x scaled so that y is O(1) (standard
+    deviation ~0.25: (q - z) has deviation ~6.5, int8 q ~73.6): x, the
+    kernel's weight arguments, the plain version, and the dense fp32 W."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.quantization.loader import pack_w4
+    dev = dict(device="cuda", generator=gen)
+    x = torch.randn((M, K), **dev).to(dtype)
+    if name == "w8a16_matmul":
+        q = torch.randint(-127, 128, (K, N), **dev).to(torch.int8)
+        s = (0.5 + torch.rand((N,), **dev)) / (4 * 73.6 * K ** 0.5)
+        args = (q, s)
+        dense = q.float() * s
+        plain = lambda xf: qm.ref_w8a16_matmul(xf, q, s)  # noqa: E731
+    else:
+        G = K // 128
+        q = torch.randint(0, 16, (K, N), **dev).to(torch.int8)
+        z = torch.randint(0, 16, (G, N), **dev).float()
+        s = (0.5 + torch.rand((G, N), **dev)) / (4 * 6.5 * K ** 0.5)
+        args = ((pack_w4(q) if name == "w4a16_packed_matmul" else q), s, z)
+        dense = qm.dequant_w4(q, s, z)
+        plain = lambda xf: qm.ref_w4a16_matmul(xf, q, s, z)  # noqa: E731
+    return x, args, plain, dense
+
+
+def library_call(name: str, x, args, dense):
+    """(label, fn): one PyTorch call computing the same product, which the
+    port never calls."""
+    import torch
+    if x.dtype == torch.bfloat16:
+        try:
+            if name == "w8a16_matmul":
+                q, s = args
+                qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
+                fn = lambda: torch._weight_int8pack_mm(x, qt, sb)  # noqa
+            else:
+                # Its layout: [N, K/2] bytes of two consecutive k, then
+                # (q - 8) * s + zero' with zero' = (8 - z) * s.
+                from aphrodite_tpu_torch.ops import quant_matmul as qm
+                q = (args[0] if name == "w4a16_matmul"
+                     else qm.unpack_w4(args[0]))
+                s, z = args[1], args[2]
+                qn = q.t().contiguous().to(torch.uint8)          # [N, K]
+                packed = (qn[:, ::2] << 4 | qn[:, 1::2]).contiguous()
+                w4 = torch._convert_weight_to_int4pack(packed, 8)
+                sz = torch.stack([s, (8.0 - z) * s], dim=-1).to(
+                    torch.bfloat16).contiguous()                 # [G, N, 2]
+                fn = lambda: torch._weight_int4pack_mm(  # noqa: E731
+                    x, w4, 128, sz)
+            fn()
+            torch.cuda.synchronize()
+            return ("int8pack_mm" if name == "w8a16_matmul"
+                    else "int4pack_mm"), fn
+        except Exception as e:  # the card's torch lacks the op
+            log(f"# phase 2: {name}: library op unavailable ({e!r:.120}); "
+                "yardstick is torch.matmul on the dequantized weight")
+    w = dense.to(x.dtype)
+    return "matmul", lambda: torch.matmul(x, w)
+
+
+def check_quant(gen, name: str, dtype_name: str) -> dict:
+    """One quant kernel at its path's four GEMM shapes (M = 32): error
+    against the plain version on fp32 copies of the same inputs; times and
+    bounds summed over the four GEMMs of a layer. Then errors only at other
+    M."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    dtype = getattr(torch, dtype_name)
+    kernel = qm.KERNELS[name]
+    M = 32
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0, bytes=0.0, ops=0.0)
+    lib_label = None
+    for gemm, (K, N) in QUANT_KERNELS[name][1].items():
+        x, args, plain, dense = quant_inputs(gen, name, K, N, M, dtype)
+        out = kernel(x, *args)
+        ref = plain(x.float())
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+            raise AssertionError(f"{name} {gemm} {dtype_name}: max_abs_err "
+                                 f"{err} > {TOL[dtype_name]}")
+        ms = cuda_ms(lambda: kernel(x, *args), 50)
+        t_host = time.perf_counter()
+        for _ in range(50):
+            kernel(x, *args)
+        host_ms = (time.perf_counter() - t_host) * 1e3 / 50
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: plain(x), 3)
+        lib_label, lib = library_call(name, x, args, dense)
+        lib_ms = cuda_ms(lib, 50)
+        nbytes = (x.numel() * x.element_size()
+                  + sum(a.numel() * a.element_size() for a in args)
+                  + M * N * x.element_size())
+        ops = 2.0 * M * K * N
+        b_ms, _ = bound_ms(nbytes, ops, dtype_name)
+        log(f"# phase 2: {name} {gemm} {dtype_name} M={M} K={K} N={N}: "
+            f"err {err:.3g}; kernel {ms:.4f} ms (host {host_ms:.4f} ms a "
+            f"call), plain {plain_ms:.4f} ms, "
+            f"{lib_label} {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
+        for k, v in (("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("bytes", nbytes),
+                     ("ops", ops)):
+            tot[k] = max(tot[k], v) if k == "max_abs_err" else tot[k] + v
+    # Other batch sizes (other M tiles and K splits) at the first shape:
+    # correctness only.
+    K, N = next(iter(QUANT_KERNELS[name][1].values()))
+    for M in (1, 5, 13, 40, 200):
+        x, args, plain, _ = quant_inputs(gen, name, K, N, M, dtype)
+        out = kernel(x, *args)
+        err = (out.float() - plain(x.float())).abs().max().item()
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+            raise AssertionError(f"{name} M={M} K={K} N={N} {dtype_name}: "
+                                 f"max_abs_err {err} > {TOL[dtype_name]}")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
+                                                tot.pop("ops"), dtype_name)
+    tot["library"] = lib_label
+    return tot
+
+
+def check_prefill_w4(gen) -> None:
+    """The W4 prefill product (M > 256) at the 8B wave's shapes (M = 16384,
+    packed leaves, bf16): ``quant_gemm.w4a16_matmul``, which dequantizes W
+    a slab of groups at a time straight to bf16, against the same product
+    through a whole-W fp32 dequantize (``dequant_w4``, then a cast). The
+    outputs must be equal; device ms and the peak memory above the inputs
+    (output included) over a layer's four GEMMs."""
+    import torch
+    from aphrodite_tpu_torch.layers.linear import matmul_f32
+    from aphrodite_tpu_torch.ops import quant_gemm, quant_matmul as qm
+    M = 16384
+    ms, peak = {}, {}
+    for gemm, (K, N) in LLAMA8B_GEMMS.items():
+        x, (p, s, z), _, _ = quant_inputs(gen, "w4a16_packed_matmul", K, N,
+                                          M, torch.bfloat16)
+        fns = {"slabs": lambda: quant_gemm.w4a16_matmul(x, None, s, z,
+                                                        qpacked=p),
+               "whole fp32": lambda: matmul_f32(x, qm.dequant_w4(
+                   qm.unpack_w4(p), s, z).to(x.dtype)).to(x.dtype)}
+        outs = {}
+        for label, fn in fns.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs[label] = fn()
+            torch.cuda.synchronize()
+            peak[label] = max(peak.get(label, 0),
+                              torch.cuda.max_memory_allocated() - base)
+            ms[label] = ms.get(label, 0.0) + cuda_ms(fn, 3)
+        if not torch.equal(outs["slabs"], outs["whole fp32"]):
+            raise AssertionError(f"W4 prefill product {gemm}: slab-wise "
+                                 "dequantize differs from the whole-W one")
+        del outs
+    log(f"# phase 2: W4 prefill product, 8B wave M={M} bf16, a layer's 4 "
+        "GEMMs (equal outputs): " + "; ".join(
+            f"{k} dequantize {ms[k]:.4f} ms, peak +{peak[k] / 2**30:.3f} GiB"
+            for k in ms))
+
+
 def tiny_parity() -> None:
     """fp32 greedy tokens through the port on the card and on the CPU, with
     the same weights, across chunked prefill and decode windows."""
@@ -254,6 +464,8 @@ def main_path() -> dict:
     from aphrodite_tpu_torch.ops.window_decode_attention import (
         window_decode_attention)
     num_prompts, prefix_len, decode_len = 64, 500, 50
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM("qwen2.5-1.5b-dummy", hf_config=QWEN25_1P5B,
               tokenizer="unused", dtype="bfloat16", load_format="dummy",
@@ -303,7 +515,131 @@ def main_path() -> dict:
     return counts
 
 
-def profile_run(one_run) -> None:
+QWEN_2L = dict(QWEN25_1P5B, num_hidden_layers=2)
+
+
+def quant_parity() -> dict:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same quantized weights, at Qwen2.5-1.5B widths (K 1536 and 8960:
+    no W4 leaf packs) and 2 layers. Returns each kernel's launches on the
+    card run."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 150000, size=n).tolist()
+               for n in (7, 150, 64, 90, 33)]
+    params = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    launches = {}
+    for quant, kernel in (("gptq", "w4a16_matmul"),
+                          ("w8a16", "w8a16_matmul")):
+        kw = dict(hf_config=QWEN_2L, tokenizer="unused", dtype="float32",
+                  quantization=quant, block_size=64, num_kv_blocks=64,
+                  max_num_seqs=4, max_num_batched_tokens=96,
+                  max_model_len=512)
+        cpu = LLM("qwen-2l", device="cpu", **kw)
+        gpu = LLM("qwen-2l", device="cuda", **kw)
+        state = {k: v.numpy() for k, v in
+                 cpu.engine.core.worker.model.state_dict().items()}
+        gpu.engine.core.worker.load_params(state)
+        a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+        for fn in qm.KERNELS.values():
+            fn.launches = 0
+        b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+        launches[kernel] = qm.KERNELS[kernel].launches
+        if a != b:
+            raise AssertionError(f"{quant}: cuda vs cpu greedy tokens "
+                                 f"differ:\n{a}\n{b}")
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{quant}: {kernel} was not launched")
+        log(f"# phase 5: {quant}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts x 24; {kernel} launches "
+            f"{launches[kernel]}")
+        del cpu, gpu
+    return launches
+
+
+def main_path_8b() -> dict:
+    """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
+    workload (benchmarks/baseline_configs.py:118-128) through the port."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    counted = {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
+               "ragged_paged_attention": ragged_paged_attention,
+               "window_decode_attention": window_decode_attention}
+    num_prompts, prompt_len, decode_len = 32, 512, 64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM("llama-3.1-8b-w4a16-dummy", hf_config=LLAMA31_8B,
+              tokenizer="unused", dtype="bfloat16", load_format="dummy",
+              quantization="gptq", block_size=64, max_num_seqs=32,
+              max_num_batched_tokens=16384, max_model_len=704,
+              device="cuda")
+    torch.cuda.synchronize()
+    log(f"# phase 6: engine init {time.perf_counter() - t0:.2f} s, weights "
+        f"+ KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(10, 100000, size=prompt_len).tolist()
+               for _ in range(num_prompts)]
+    params = SamplingParams(temperature=0.0, max_tokens=decode_len,
+                            ignore_eos=True)
+
+    def one_run() -> float:
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        outs = llm.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        toks = [o.outputs[0].token_ids for o in outs]
+        n = sum(len(x) for x in toks)
+        if n != num_prompts * decode_len:
+            raise AssertionError(f"expected {num_prompts * decode_len} "
+                                 f"tokens, got {n}")
+        if not all(0 <= t < LLAMA31_8B["vocab_size"] for x in toks
+                   for t in x):
+            raise AssertionError("token id out of the vocabulary")
+        one_run.cached = sum(o.num_cached_tokens for o in outs)
+        return dt
+
+    log(f"# phase 6: warm-up run {one_run():.3f} s")
+    cold, warm, counts = [], [], {}
+    for i in range(3):
+        if not llm.engine.reset_prefix_cache():
+            raise AssertionError("reset_prefix_cache refused")
+        cold.append(one_run())
+        counts = {k: fn.launches for k, fn in counted.items()}
+        log(f"# phase 6: cold run {i}: {cold[-1]:.3f} s, cached prompt "
+            f"tokens {one_run.cached}, launches {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {counts}")
+    for i in range(3):
+        warm.append(one_run())
+        log(f"# phase 6: warm run {i}: {warm[-1]:.3f} s, cached prompt "
+            f"tokens {one_run.cached}")
+    n_dec = num_prompts * decode_len
+    n_all = num_prompts * (prompt_len + decode_len)
+    for label, ts in (("cold", cold), ("warm", warm)):
+        s = float(np.mean(ts))
+        log(f"# phase 6: {label} {s:.3f} s/run (runs {ts}); "
+            f"{n_dec / s:.0f} decode tok/s; {n_all / s:.0f} tok/s "
+            "(prefill+decode)")
+    log(f"# phase 6: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    llm.engine.reset_prefix_cache()
+    profile_run(one_run, "phase 6")
+    return counts
+
+
+def profile_run(one_run, phase: str = "phase 4") -> None:
     """One more run under torch.profiler: device busy share of the wall
     time and device time by kernel family."""
     from torch.autograd import DeviceType
@@ -313,20 +649,22 @@ def profile_run(one_run) -> None:
         wall = one_run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    fam = {"ragged": 0.0, "window": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"ragged": 0.0, "window": 0.0, "quant": 0.0, "gemm": 0.0,
+           "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         k = ("ragged" if "rpa_kernel" in n else
              "window" if "wd_kernel" in n else
+             "quant" if "qmm_" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
         fam[k] += e.self_device_time_total / 1e6
     busy = sum(fam.values())
-    log(f"# phase 4 profile: wall {wall:.3f} s (profiled), device busy "
+    log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in fam.items()))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"# phase 4 profile: {e.self_device_time_total / 1e3:9.1f} ms "
+        log(f"# {phase} profile: {e.self_device_time_total / 1e3:9.1f} ms "
             f"x{e.count:<6d} {e.key[:90]}")
 
 
@@ -344,39 +682,69 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    names = ["ragged_paged_attention", "window_decode_attention"]
+    names = ["ragged_paged_attention", "window_decode_attention",
+             "quant_matmul"]
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:  # keep the template arguments
+                log(f"# ptxas {n}: ...{line.strip()[-72:]}")
+            elif "registers" in line or "spill" in line:
                 log(f"# ptxas {n}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dt in ("float32", "bfloat16"):
-        for name, fn in (("ragged_paged_attention", check_ragged),
-                         ("window_decode_attention", check_window)):
-            r = fn(gen, dt)
-            log(f"# phase 2: {name} {dt}: max_abs_err {r['max_abs_err']:.3g}"
-                f" (tol {TOL[dt]}); kernel {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for path, geom in ATTN_GEOMS.items():
+            for name, fn in (("ragged_paged_attention", check_ragged),
+                             ("window_decode_attention", check_window)):
+                r = fn(gen, dt, geom)
+                log(f"# phase 2: {name} {dt} at {path} shapes: max_abs_err "
+                    f"{r['max_abs_err']:.3g} (tol {TOL[dt]}); kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                    f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})")
+                results[(name, path, dt)] = r
+        for name in QUANT_KERNELS:
+            r = check_quant(gen, name, dt)
+            log(f"# phase 2: {name} {dt}, a layer's 4 GEMMs: max_abs_err"
+                f" {r['max_abs_err']:.3g} (tol {TOL[dt]}); kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"{r['library']} {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             results[(name, dt)] = r
-
+    check_prefill_w4(gen)
     tiny_parity()
-    counts = main_path()
+    qwen_counts = main_path()
+    log(f"# phase 4: attention launches per run {qwen_counts}")
+    quant_counts = quant_parity()
+    llama_counts = main_path_8b()
 
+    # One row per kernel and path that runs it: that path's launches, and
+    # times and errors at its shapes and activation dtype.
+    rows = [(name, path, "bfloat16", counts[name], results[(name, path,
+                                                             "bfloat16")])
+            for path, counts in (("qwen2.5-1.5b-bf16", qwen_counts),
+                                 ("llama-3.1-8b-w4a16", llama_counts))
+            for name in ("ragged_paged_attention", "window_decode_attention")]
+    rows.append(("w4a16_packed_matmul", "llama-3.1-8b-w4a16", "bfloat16",
+                 llama_counts["w4a16_packed_matmul"],
+                 results[("w4a16_packed_matmul", "bfloat16")]))
+    rows += [(name, "qwen-2l-quant-parity-fp32", "float32",
+              quant_counts[name], results[(name, "float32")])
+             for name in ("w4a16_matmul", "w8a16_matmul")]
+    replaces = {"ragged_paged_attention":
+                "aphrodite_tpu/ops/ragged_paged_attention.py:247",
+                "window_decode_attention":
+                "aphrodite_tpu/ops/window_decode_attention.py:198",
+                **{n: r for n, (r, _) in QUANT_KERNELS.items()}}
     kernels = []
-    for name, replaces in (
-            ("ragged_paged_attention",
-             "aphrodite_tpu/ops/ragged_paged_attention.py:247"),
-            ("window_decode_attention",
-             "aphrodite_tpu/ops/window_decode_attention.py:198")):
-        r = results[(name, "bfloat16")]
+    for name, path, dt, launches, r in rows:
+        src = "quant_matmul" if name in QUANT_KERNELS else name
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"aphrodite_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": counts[name],
+            "name": name, "path": path, "dtype": dt, "route": "cuda",
+            "source": f"aphrodite_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -73,6 +73,29 @@ def test_chosen_logprobs_match(engines):
         np.testing.assert_allclose(pl, jl, rtol=0, atol=1e-4)
 
 
+def test_reset_prefix_cache(engines):
+    jax_outs, port, prompts = engines
+    first = _port_generate(port, prompts[1:2])      # 40 tokens: 2 full pages
+    hit = _port_generate(port, prompts[1:2])
+    assert hit[0].num_cached_tokens > 0
+    assert port.engine.reset_prefix_cache()
+    cold = _port_generate(port, prompts[1:2])
+    assert cold[0].num_cached_tokens == 0
+    assert cold[0].outputs[0].token_ids == first[0].outputs[0].token_ids \
+        == jax_outs[1].outputs[0].token_ids
+
+
+def test_reset_prefix_cache_refused_while_running(engines):
+    _, port, _ = engines
+    port.engine.add_request("held", [1, 2, 3], SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+    port.engine.step()
+    assert not port.engine.reset_prefix_cache()
+    while port.engine.has_unfinished_requests():
+        port.engine.step()
+    assert port.engine.reset_prefix_cache()
+
+
 @pytest.mark.parametrize("kw", [
     {"temperature": 0.8}, {"temperature": 0.0, "repetition_penalty": 1.2},
     {"temperature": 0.0, "n": 2}, {"temperature": 0.0, "logprobs": 3},
