@@ -14,14 +14,22 @@ import numpy as np
 import torch
 
 from aphrodite_tpu_torch.config import LoadConfig, ModelConfig
-from aphrodite_tpu_torch.models.llama import (LlamaForCausalLM, QuantWeight,
-                                              model_class)
+from aphrodite_tpu_torch.models.llama import LlamaForCausalLM, QuantWeight
+from aphrodite_tpu_torch.models.registry import model_class
 from aphrodite_tpu_torch.quantization.base import QuantizationConfig
 
-# JAX per-layer leaves that the port fuses, in concatenation order.
+# JAX per-layer leaves that the port fuses, in concatenation order, and
+# those it takes as they are; the MLP's are optional (MoE layers have none).
 _FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
           "w_gate_up": ("w_gate", "w_up")}
-_DIRECT = ("input_norm", "wo", "post_norm", "w_down")
+_DIRECT = ("input_norm", "wo", "post_norm", "w_down", "q_norm", "k_norm",
+           "q_norm_flat", "k_norm_flat")
+_REQUIRED = ("w_qkv", "input_norm", "wo", "post_norm")
+# A MoE layer's leaves (``layers.<i>.moe.<name>``): the experts' and the
+# shared expert's gate|up fused on N.
+_MOE_FUSED = {"we_gate_up": ("we_gate", "we_up"),
+              "ws_gate_up": ("ws_gate", "ws_up")}
+_MOE_DIRECT = ("router", "we_down", "ws_down", "ws_route")
 
 
 def create_model(model_config: ModelConfig, device: torch.device | str,
@@ -72,14 +80,43 @@ def _quant_leaves(name: str, parts: list) -> dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """The JAX package's Llama/Qwen2 parameter tree (leaves: numpy or any
-    array convertible with ``np.asarray``) -> the port's state dict. Takes
-    both the unmerged ``wq/wk/wv`` + ``w_gate/w_up`` tree and the fused
-    ``w_qkv`` / ``w_gate_up`` tree of ``maybe_merge_params``, with or
-    without q/k/v biases. Quantized projections are dicts of leaves
-    (``qweight`` or ``qweight_packed``, ``scales``, ``zeros``,
-    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``."""
+def _stack(layers: Mapping[str, Any], fused: dict, direct: tuple
+           ) -> dict[str, Any]:
+    """The leaves of a [L, ...] stack that are present, with the fused
+    ones concatenated on their last axis (quantized leaves: dicts)."""
+    stacked = {}
+    for name in direct:
+        if name in layers:
+            leaf = layers[name]
+            stacked[name] = (_quant_leaves(name, [leaf])
+                             if isinstance(leaf, Mapping) else _np(leaf))
+    for name, parts in fused.items():
+        if name in layers:
+            stacked[name] = _np(layers[name])
+        elif all(p in layers for p in parts):
+            vals = [layers[p] for p in parts]
+            stacked[name] = (
+                _quant_leaves(name, vals) if isinstance(vals[0], Mapping)
+                else np.concatenate([_np(v) for v in vals], axis=-1))
+    return stacked
+
+
+def params_from_jax(tree: Mapping[str, Any],
+                    layer_kinds: Optional[list[str]] = None
+                    ) -> dict[str, np.ndarray]:
+    """The JAX package's Llama/Qwen2 or sparse-MoE parameter tree (leaves:
+    numpy or any array convertible with ``np.asarray``) -> the port's state
+    dict. Takes both the unmerged ``wq/wk/wv`` + ``w_gate/w_up`` tree and
+    the fused ``w_qkv`` / ``w_gate_up`` tree of ``maybe_merge_params``, with
+    or without q/k/v biases and QK norms. Quantized projections are dicts of
+    leaves (``qweight`` or ``qweight_packed``, ``scales``, ``zeros``,
+    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``.
+
+    MoE trees keep ``router``, ``we_*`` and ``ws_*`` stacks: beside the
+    attention leaves under ``layers`` when every layer is MoE, or under
+    ``moe`` (with the dense layers' ``w_*`` under ``dense_mlp``), indexed
+    by position within their kind, for mixed stacks; those need the
+    model's ``layer_kinds``. They become ``layers.<i>.moe.<name>``."""
     layers = tree["layers"]
     num_layers = _np(layers["input_norm"]).shape[0]
     out = {"embed": _np(tree["embed"]), "final_norm": _np(tree["final_norm"])}
@@ -87,28 +124,37 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
         if isinstance(tree["lm_head"], Mapping):
             raise NotImplementedError("a quantized lm_head is not ported")
         out["lm_head"] = _np(tree["lm_head"])
-    stacked = {}
-    for name in _DIRECT:
-        leaf = layers[name]
-        stacked[name] = (_quant_leaves(name, [leaf])
-                         if isinstance(leaf, Mapping) else _np(leaf))
-    for fused, parts in _FUSED.items():
-        if fused in layers:
-            stacked[fused] = _np(layers[fused])
-        elif all(p in layers for p in parts):
-            vals = [layers[p] for p in parts]
-            stacked[fused] = (
-                _quant_leaves(fused, vals) if isinstance(vals[0], Mapping)
-                else np.concatenate([_np(v) for v in vals], axis=-1))
-        elif fused != "b_qkv":
-            raise KeyError(f"JAX tree has neither {fused} nor {parts}")
-    for name, arr in stacked.items():
-        for i in range(num_layers):
-            if isinstance(arr, dict):
-                for leaf, a in arr.items():
-                    out[f"layers.{i}.{name}.{leaf}"] = a[i]
-            else:
-                out[f"layers.{i}.{name}"] = arr[i]
+    everywhere = list(range(num_layers))
+    # (leaves, [(port layer, row of the leaves)]) of each [L, ...] stack.
+    stacks = [(_stack(layers, _FUSED, _DIRECT), "", everywhere)]
+    if "moe" in tree:  # mixed dense/MoE stack
+        if layer_kinds is None or len(layer_kinds) != num_layers:
+            raise ValueError("a mixed dense/MoE tree needs the model's "
+                             "layer_kinds")
+        of_kind = {k: [i for i, kk in enumerate(layer_kinds) if kk == k]
+                   for k in ("dense", "moe")}
+        stacks += [(_stack(tree["dense_mlp"], _FUSED, _DIRECT), "",
+                    of_kind["dense"]),
+                   (_stack(tree["moe"], _MOE_FUSED, _MOE_DIRECT), ".moe",
+                    of_kind["moe"])]
+    elif "router" in layers:  # every layer is MoE
+        stacks.append((_stack(layers, _MOE_FUSED, _MOE_DIRECT), ".moe",
+                       everywhere))
+    have = {name for leaves, sub, _ in stacks if not sub for name in leaves}
+    missing = [k for k in _REQUIRED if k not in have]
+    if "moe" not in tree and "router" not in layers:
+        missing += [k for k in ("w_gate_up", "w_down") if k not in have]
+    if missing:
+        raise KeyError(f"JAX tree lacks {missing} (or their unfused parts)")
+    for leaves, sub, rows in stacks:
+        for name, arr in leaves.items():
+            for j, i in enumerate(rows):
+                prefix = f"layers.{i}{sub}.{name}"
+                if isinstance(arr, dict):
+                    for leaf, a in arr.items():
+                        out[f"{prefix}.{leaf}"] = a[j]
+                else:
+                    out[prefix] = arr[j]
     return out
 
 

@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's ``models/llama.py``. Weights keep that
 package's ``[in, out]`` layout with QKV and gate/up always fused (its
-``maybe_merge_params`` form). Two forwards:
+``maybe_merge_params`` form). The MLP is the ``_mlp`` hook, which the
+sparse-MoE decoders of ``models/mixtral.py`` override; the optional QK
+norms (``qk_norm``: per head after the head reshape, or flat over the
+whole projection before it) serve their attention. Two forwards:
 
 - ``forward``: a prefill or mixed wave. Each layer writes its new K/V into
   the paged cache, then attends with the ragged paged attention kernel.
@@ -88,9 +91,13 @@ class QuantWeight(nn.Module):
 
 class LlamaDecoderLayer(nn.Module):
 
-    def __init__(self, H: int, nq: int, nkv: int, hd: int, inter: int,
-                 qkv_bias: bool, dtype, device,
-                 quant_config: Optional[QuantizationConfig] = None) -> None:
+    def __init__(self, H: int, nq: int, nkv: int, hd: int,
+                 inter: Optional[int], qkv_bias: bool, dtype, device,
+                 quant_config: Optional[QuantizationConfig] = None,
+                 qk_norm: Optional[str] = None) -> None:
+        """``inter`` None: no dense MLP (a MoE layer holds its own block).
+        ``qk_norm``: "head" adds ``q_norm``/``k_norm`` [hd], "flat" adds
+        ``q_norm_flat`` [nq * hd] and ``k_norm_flat`` [nkv * hd]."""
         super().__init__()
         mk = dict(dtype=dtype, device=device)
 
@@ -103,10 +110,19 @@ class LlamaDecoderLayer(nn.Module):
         self.w_qkv = weight(H, (nq + 2 * nkv) * hd)
         self.b_qkv = (_param((nq + 2 * nkv) * hd, **mk) if qkv_bias
                       else None)
+        if qk_norm == "head":
+            self.q_norm = _param(hd, **mk)
+            self.k_norm = _param(hd, **mk)
+        elif qk_norm == "flat":
+            self.q_norm_flat = _param(nq * hd, **mk)
+            self.k_norm_flat = _param(nkv * hd, **mk)
+        elif qk_norm is not None:
+            raise ValueError(f"unknown qk_norm {qk_norm!r}")
         self.wo = weight(nq * hd, H)
         self.post_norm = _param(H, **mk)
-        self.w_gate_up = weight(H, 2 * inter)
-        self.w_down = weight(inter, H)
+        if inter is not None:
+            self.w_gate_up = weight(H, 2 * inter)
+            self.w_down = weight(inter, H)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -114,6 +130,7 @@ class LlamaForCausalLM(nn.Module):
     # Knobs subclasses flip.
     qkv_bias: bool = False
     tie_embeddings_default: bool = False
+    qk_norm: Optional[str] = None  # None | "head" | "flat"
 
     def __init__(self, config: ModelConfig,
                  device: torch.device | str = "cpu",
@@ -139,7 +156,7 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError(f"activation {act!r} is not ported")
         self.tie_embeddings = config.get("tie_word_embeddings",
                                          self.tie_embeddings_default)
-        qkv_bias = config.get("attention_bias", self.qkv_bias)
+        self.qkv_bias = config.get("attention_bias", self.qkv_bias)
         inv_freq = compute_inv_freq(
             RopeConfig.from_hf_config(config.hf_config, self.head_dim))
         self.register_buffer("inv_freq",
@@ -147,15 +164,19 @@ class LlamaForCausalLM(nn.Module):
                              persistent=False)
         mk = dict(dtype=self.dtype, device=device)
         self.embed = _param(self.vocab_size, self.hidden_size, **mk)
-        self.layers = nn.ModuleList([
-            LlamaDecoderLayer(self.hidden_size, self.num_heads,
-                              self.num_kv_heads, self.head_dim,
-                              config.intermediate_size, qkv_bias,
-                              self.dtype, device, quant_config)
-            for _ in range(self.num_layers)])
+        self.layers = nn.ModuleList([self._make_layer(i, device)
+                                     for i in range(self.num_layers)])
         self.final_norm = _param(self.hidden_size, **mk)
         self.lm_head = (None if self.tie_embeddings else
                         _param(self.hidden_size, self.vocab_size, **mk))
+
+    def _make_layer(self, index: int, device) -> LlamaDecoderLayer:
+        """Layer ``index`` with a dense MLP (hook: the MoE decoders give
+        their MoE layers a sparse block instead)."""
+        return LlamaDecoderLayer(
+            self.hidden_size, self.num_heads, self.num_kv_heads,
+            self.head_dim, self.config.intermediate_size, self.qkv_bias,
+            self.dtype, device, self.quant_config, self.qk_norm)
 
     # ------------------------------------------------------------------ params
     @torch.no_grad()
@@ -193,16 +214,26 @@ class LlamaForCausalLM(nn.Module):
         h = rms_norm(x, layer.input_norm, self.rms_eps)
         qkv = self._lin(h, layer.w_qkv, layer.b_qkv)
         q, k, v = qkv.split([nq * hd, nkv * hd, nkv * hd], dim=-1)
-        q = apply_rope(q.reshape(T, nq, hd), cos, sin)
-        k = apply_rope(k.reshape(T, nkv, hd), cos, sin)
+        if self.qk_norm == "flat":  # whole-projection QK norm (OLMoE)
+            q = rms_norm(q, layer.q_norm_flat, self.rms_eps)
+            k = rms_norm(k, layer.k_norm_flat, self.rms_eps)
+        q, k = q.reshape(T, nq, hd), k.reshape(T, nkv, hd)
+        if self.qk_norm == "head":  # per-head QK norm (Qwen3 family)
+            q = rms_norm(q, layer.q_norm, self.rms_eps)
+            k = rms_norm(k, layer.k_norm, self.rms_eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
         return q.contiguous(), k, v.reshape(T, nkv, hd)
+
+    def _mlp(self, layer: LlamaDecoderLayer, h: torch.Tensor) -> torch.Tensor:
+        gate, up = self._lin(h, layer.w_gate_up).chunk(2, dim=-1)
+        return self._lin(silu_and_mul(gate, up), layer.w_down)
 
     def _finish(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                 o: torch.Tensor) -> torch.Tensor:
         x = x + self._lin(o.reshape(x.shape[0], -1), layer.wo)
         h = rms_norm(x, layer.post_norm, self.rms_eps)
-        gate, up = self._lin(h, layer.w_gate_up).chunk(2, dim=-1)
-        return x + self._lin(silu_and_mul(gate, up), layer.w_down)
+        return x + self._mlp(layer, h)
 
     def forward(self, input_ids: torch.Tensor, kv_cache: torch.Tensor,
                 md: AttentionMetadata) -> torch.Tensor:
@@ -245,17 +276,3 @@ class LlamaForCausalLM(nn.Module):
 class Qwen2ForCausalLM(LlamaForCausalLM):
     qkv_bias = True
 
-
-MODEL_REGISTRY: dict[str, type[LlamaForCausalLM]] = {
-    "LlamaForCausalLM": LlamaForCausalLM,
-    "Qwen2ForCausalLM": Qwen2ForCausalLM,
-}
-
-
-def model_class(architecture: Optional[str]) -> type[LlamaForCausalLM]:
-    cls = MODEL_REGISTRY.get(architecture or "")
-    if cls is None:
-        raise NotImplementedError(
-            f"architecture {architecture!r} is not ported; the PyTorch "
-            f"port serves {sorted(MODEL_REGISTRY)}")
-    return cls

@@ -32,6 +32,20 @@ CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
    (512 + 64) greedy; one warm-up, 3 cold runs (prefix cache reset before
    each), 3 warm runs, one profiled run. Exactly 2048 tokens a run; the
    packed W4 kernel and both attention kernels must have been launched.
+7. MoE parity: a tiny Qwen2-MoE (8 experts, top-2, a gated shared expert,
+   one dense layer) in fp32, card vs CPU with the same weights: greedy
+   tokens must be equal and the grouped GEMM launched.
+8. The main path of the MoE slice: Qwen1.5-MoE-A2.7B at full width and
+   depth (60 experts, top-4), bf16, the same traffic and runs as phase 6.
+   Exactly 2048 tokens a run; the grouped GEMM and both attention kernels
+   must have been launched.
+
+Phase 2 also holds the grouped GEMM (which stands in for the megablox
+``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
+prefill wave's 65536 sorted rows over 60 experts, gate|up and down, with
+balanced (random top-4) and skewed group sizes (empty groups, one group
+holding ~45 % of the rows), and at M = 240, where the grouped route
+starts; yardstick ``torch._grouped_mm`` where the card's torch has it.
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -39,6 +53,7 @@ that runs it, with that path's launches and shapes), the card line, and
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -85,7 +100,21 @@ ATTN_GEOMS = {
         paged=[500 + (37 * r) % 51 for r in range(32)]),
     "llama-3.1-8b-w4a16": dict(  # phase 6: 32 x 512 in one wave
         nq=32, kvh=8, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
+    "qwen1.5-moe-a2.7b-bf16": dict(  # phase 8: 32 x 512 in one wave
+        nq=16, kvh=16, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
 }
+
+QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
+    vocab_size=151936, hidden_size=2048, num_hidden_layers=24,
+    num_attention_heads=16, num_key_value_heads=16, intermediate_size=5632,
+    moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+    num_experts=60, num_experts_per_tok=4, norm_topk_prob=False,
+    decoder_sparse_step=1, mlp_only_layers=[], rope_theta=1000000.0,
+    rms_norm_eps=1e-6, max_position_embeddings=8192, use_sliding_window=False,
+    tie_word_embeddings=False, architectures=["Qwen2MoeForCausalLM"])
+# (K, N) of a MoE layer's two grouped GEMMs (gate|up fused on N).
+MOE_GEMMS = {"gate_up": (2048, 2 * 1408), "down": (1408, 2048)}
+MOE_E, MOE_K = 60, 4
 
 QWEN25_1P5B = dict(
     vocab_size=151936, hidden_size=1536, num_hidden_layers=28,
@@ -425,6 +454,118 @@ def check_prefill_w4(gen) -> None:
             for k in ms))
 
 
+def group_offsets(gen, M: int, skewed: bool):
+    """int32 [E + 1] offsets of M sorted rows over MOE_E experts. Balanced:
+    the rows of M / 4 tokens, each routed to 4 distinct random experts.
+    Skewed: expert e drawn with weight (e + 1)^-1.5, every sixth expert
+    empty (expert 0 takes ~45 % of the rows)."""
+    import torch
+    if not skewed:
+        topi = torch.rand((M // MOE_K, MOE_E), generator=gen,
+                          device="cuda").topk(MOE_K, dim=-1).indices
+        ids = torch.sort(topi.reshape(-1)).values
+    else:
+        p = (torch.arange(MOE_E, device="cuda") + 1.0) ** -1.5
+        p[torch.arange(MOE_E, device="cuda") % 6 == 5] = 0.0
+        ids = torch.sort(torch.multinomial(p, M, replacement=True,
+                                           generator=gen)).values
+    return torch.searchsorted(ids, torch.arange(MOE_E + 1, device="cuda"),
+                              out_int32=True)
+
+
+def grouped_library(x, w, off, want):
+    """(label, fn): one PyTorch call for the same grouped product, which the
+    port never calls: ``torch._grouped_mm`` where the card's torch has it
+    (and it agrees with the plain version), else a per-expert
+    ``torch.matmul`` loop."""
+    import torch
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        ends = off[1:].contiguous()
+        for layout, wl in (("row-major", w), ("column-major", w.transpose(
+                1, 2).contiguous().transpose(1, 2))):
+            try:
+                fn = lambda wl=wl: torch._grouped_mm(x, wl, offs=ends)  # noqa
+                err = (fn().float() - want).abs().max().item()
+                if err <= TOL["bfloat16"]:
+                    return f"_grouped_mm ({layout} w)", fn
+                log(f"# phase 2: _grouped_mm ({layout} w) differs by {err}")
+            except Exception as e:  # the card's torch refuses this form
+                log(f"# phase 2: _grouped_mm ({layout} w) unavailable "
+                    f"({e!r:.120})")
+    bounds = off.tolist()
+    spans = [(e, a, b) for e, (a, b) in enumerate(zip(bounds, bounds[1:]))
+             if b > a]
+    return "matmul loop", lambda: torch.cat([x[a:b] @ w[e]
+                                             for e, a, b in spans])
+
+
+def check_grouped(gen, dtype_name: str) -> dict:
+    """The grouped GEMM at phase 8's shapes (a MoE layer's gate|up and down
+    over one prefill wave, M = 65536 rows, 60 experts), balanced and
+    skewed, and at M = 240 (the grouped route's threshold, 4 x 60): error
+    against the plain version on fp32 copies of the same inputs; times and
+    bounds of the balanced wave, summed over the layer's two GEMMs."""
+    import torch
+    from aphrodite_tpu_torch.ops.grouped_matmul import (grouped_matmul,
+                                                        ref_grouped_matmul)
+    dtype = getattr(torch, dtype_name)
+    item = torch.finfo(dtype).bits // 8
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes=0.0, ops=0.0)
+    small = dict(ms=0.0, bytes=0.0, ops=0.0)
+    lib_label = None
+    for M, case in ((65536, "balanced"), (65536, "skewed"), (240, "balanced"),
+                    (240, "skewed")):
+        off = group_offsets(gen, M, case == "skewed")
+        nonempty = int((off[1:] > off[:-1]).sum())
+        for gemm, (K, N) in MOE_GEMMS.items():
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((MOE_E, K, N), generator=gen, device="cuda")
+                 * (0.5 / K ** 0.5)).to(dtype)
+            out = grouped_matmul(x, w, off)
+            ref = ref_grouped_matmul(x.float(), w.float(), off)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+                raise AssertionError(
+                    f"grouped_matmul {gemm} M={M} {case} {dtype_name}: "
+                    f"max_abs_err {err} > {TOL[dtype_name]}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            reps = 50 if M < 4096 else (10 if dtype_name == "bfloat16"
+                                        else 3)
+            ms = cuda_ms(lambda: grouped_matmul(x, w, off), reps)
+            nbytes = item * (M * K + nonempty * K * N + M * N)
+            ops = 2.0 * M * K * N
+            b_ms, _ = bound_ms(nbytes, ops, dtype_name)
+            msg = (f"# phase 2: grouped_matmul {gemm} {dtype_name} M={M} "
+                   f"K={K} N={N} {case} ({nonempty} groups): err {err:.3g};"
+                   f" kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+            if case == "balanced":
+                plain_ms = cuda_ms(lambda: ref_grouped_matmul(x, w, off),
+                                   2 if M > 4096 else 5)
+                lib_label, lib = grouped_library(x, w, off, ref)
+                lib_ms = cuda_ms(lib, reps)
+                msg += (f", plain {plain_ms:.4f} ms, {lib_label} "
+                        f"{lib_ms:.4f} ms")
+                if M == 65536:
+                    for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("bytes", nbytes),
+                                 ("ops", ops)):
+                        tot[k] += v
+                else:
+                    for k, v in (("ms", ms), ("bytes", nbytes), ("ops", ops)):
+                        small[k] += v
+            log(msg)
+            del x, w, out, ref
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
+                                                tot.pop("ops"), dtype_name)
+    tot["library"] = lib_label
+    b_ms, b_by = bound_ms(small["bytes"], small["ops"], dtype_name)
+    log(f"# phase 2: grouped_matmul {dtype_name} M=240, a layer's 2 GEMMs: "
+        f"kernel {small['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return tot
+
+
 def tiny_parity() -> None:
     """fp32 greedy tokens through the port on the card and on the CPU, with
     the same weights, across chunked prefill and decode windows."""
@@ -561,30 +702,73 @@ def quant_parity() -> dict:
     return launches
 
 
-def main_path_8b() -> dict:
-    """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
-    workload (benchmarks/baseline_configs.py:118-128) through the port."""
+def moe_parity() -> int:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same weights for a tiny Qwen2-MoE: 8 experts, top-2, a gated
+    shared expert, layer 1 dense. Waves of up to 96 tokens take the
+    grouped route (T * 2 >= 32), decode windows the dense one. Returns the
+    grouped GEMM's launches on the card run."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
-    from aphrodite_tpu_torch.ops import quant_matmul as qm
-    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention)
-    from aphrodite_tpu_torch.ops.window_decode_attention import (
-        window_decode_attention)
-    counted = {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
-               "ragged_paged_attention": ragged_paged_attention,
-               "window_decode_attention": window_decode_attention}
+    from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(vocab_size=512, hidden_size=128, num_hidden_layers=3,
+               num_attention_heads=8, num_key_value_heads=2,
+               intermediate_size=256, moe_intermediate_size=72,
+               shared_expert_intermediate_size=136, num_experts=8,
+               num_experts_per_tok=2, norm_topk_prob=False,
+               mlp_only_layers=[1], max_position_embeddings=1024,
+               use_sliding_window=False, tie_word_embeddings=False,
+               architectures=["Qwen2MoeForCausalLM"])
+    kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+              block_size=64, num_kv_blocks=64, max_num_seqs=4,
+              max_num_batched_tokens=96, max_model_len=512)
+    cpu = LLM("tiny-moe", device="cpu", **kw)
+    gpu = LLM("tiny-moe", device="cuda", **kw)
+    state = {k: v.numpy() for k, v in
+             cpu.engine.core.worker.model.state_dict().items()}
+    gpu.engine.core.worker.load_params(state)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 500, size=n).tolist()
+               for n in (7, 150, 64, 90, 33)]
+    params = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+    grouped_matmul.launches = 0
+    b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+    launches = grouped_matmul.launches
+    if a != b:
+        raise AssertionError(f"MoE: cuda vs cpu greedy tokens differ:\n{a}"
+                             f"\n{b}")
+    if launches <= 0:
+        raise AssertionError("MoE: grouped_matmul was not launched")
+    log(f"# phase 7: cuda == cpu greedy tokens for {len(prompts)} prompts "
+        f"x 24 (tiny Qwen2-MoE); grouped_matmul launches {launches}")
+    return launches
+
+
+def serve_workload(phase: str, name: str, hf: dict, counted: dict,
+                   **llm_kw) -> dict:
+    """32 prompts x (512 + 64) greedy through ``LLM.generate`` at full
+    width: one warm-up, 3 cold runs (prefix cache reset before each), 3
+    warm runs, one profiled run. Each run must give exactly 2048 tokens
+    in the vocabulary; every kernel in ``counted`` must have launched in
+    the cold runs. Returns the last cold run's launches."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
     num_prompts, prompt_len, decode_len = 32, 512, 64
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    log(f"# {phase}: allocated before init "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
-    llm = LLM("llama-3.1-8b-w4a16-dummy", hf_config=LLAMA31_8B,
-              tokenizer="unused", dtype="bfloat16", load_format="dummy",
-              quantization="gptq", block_size=64, max_num_seqs=32,
+    llm = LLM(name, hf_config=hf, tokenizer="unused", dtype="bfloat16",
+              load_format="dummy", block_size=64, max_num_seqs=32,
               max_num_batched_tokens=16384, max_model_len=704,
-              device="cuda")
+              device="cuda", **llm_kw)
     torch.cuda.synchronize()
-    log(f"# phase 6: engine init {time.perf_counter() - t0:.2f} s, weights "
+    log(f"# {phase}: engine init {time.perf_counter() - t0:.2f} s, weights "
         f"+ KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(10, 100000, size=prompt_len).tolist()
@@ -604,39 +788,68 @@ def main_path_8b() -> dict:
         if n != num_prompts * decode_len:
             raise AssertionError(f"expected {num_prompts * decode_len} "
                                  f"tokens, got {n}")
-        if not all(0 <= t < LLAMA31_8B["vocab_size"] for x in toks
-                   for t in x):
+        if not all(0 <= t < hf["vocab_size"] for x in toks for t in x):
             raise AssertionError("token id out of the vocabulary")
         one_run.cached = sum(o.num_cached_tokens for o in outs)
         return dt
 
-    log(f"# phase 6: warm-up run {one_run():.3f} s")
+    log(f"# {phase}: warm-up run {one_run():.3f} s")
     cold, warm, counts = [], [], {}
     for i in range(3):
         if not llm.engine.reset_prefix_cache():
             raise AssertionError("reset_prefix_cache refused")
         cold.append(one_run())
         counts = {k: fn.launches for k, fn in counted.items()}
-        log(f"# phase 6: cold run {i}: {cold[-1]:.3f} s, cached prompt "
+        log(f"# {phase}: cold run {i}: {cold[-1]:.3f} s, cached prompt "
             f"tokens {one_run.cached}, launches {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
     for i in range(3):
         warm.append(one_run())
-        log(f"# phase 6: warm run {i}: {warm[-1]:.3f} s, cached prompt "
-            f"tokens {one_run.cached}")
+        log(f"# {phase}: warm run {i}: {warm[-1]:.3f} s, cached prompt "
+            f"tokens {one_run.cached}, launches "
+            f"{ {k: fn.launches for k, fn in counted.items()} }")
     n_dec = num_prompts * decode_len
     n_all = num_prompts * (prompt_len + decode_len)
     for label, ts in (("cold", cold), ("warm", warm)):
         s = float(np.mean(ts))
-        log(f"# phase 6: {label} {s:.3f} s/run (runs {ts}); "
+        log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
             f"{n_dec / s:.0f} decode tok/s; {n_all / s:.0f} tok/s "
             "(prefill+decode)")
-    log(f"# phase 6: peak memory "
+    log(f"# {phase}: peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     llm.engine.reset_prefix_cache()
-    profile_run(one_run, "phase 6")
+    profile_run(one_run, phase)
     return counts
+
+
+def attention_kernels() -> dict:
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    return {"ragged_paged_attention": ragged_paged_attention,
+            "window_decode_attention": window_decode_attention}
+
+
+def main_path_8b() -> dict:
+    """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
+    workload (benchmarks/baseline_configs.py:118-128) through the port."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    return serve_workload(
+        "phase 6", "llama-3.1-8b-w4a16-dummy", LLAMA31_8B,
+        {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
+         **attention_kernels()}, quantization="gptq")
+
+
+def main_path_moe() -> dict:
+    """Qwen1.5-MoE-A2.7B bf16 at full width and depth, the same traffic:
+    one prefill wave (65536 sorted rows a MoE layer: the grouped GEMM),
+    then a 63-step decode window (32 rows: the dense expert combine)."""
+    from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    return serve_workload(
+        "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_A27B,
+        {"grouped_matmul": grouped_matmul, **attention_kernels()})
 
 
 def profile_run(one_run, phase: str = "phase 4") -> None:
@@ -649,20 +862,26 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
         wall = one_run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    fam = {"ragged": 0.0, "window": 0.0, "quant": 0.0, "gemm": 0.0,
-           "other": 0.0}
+    fam = {"ragged": 0.0, "window": 0.0, "quant": 0.0, "moe": 0.0,
+           "gemm": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         k = ("ragged" if "rpa_kernel" in n else
              "window" if "wd_kernel" in n else
              "quant" if "qmm_" in n else
+             "moe" if "gmm_" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
         fam[k] += e.self_device_time_total / 1e6
     busy = sum(fam.values())
+    # Device time under aten::bmm: the MoE dense (decode) expert combine's
+    # batched products, the only bmm of the port's forwards.
+    bmm = sum(getattr(e, "device_time_total", 0.0) for e in
+              prof.key_averages() if e.key == "aten::bmm") / 1e6
     log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
-            f"{k} {v:.3f} s" for k, v in fam.items()))
+            f"{k} {v:.3f} s" for k, v in fam.items())
+        + f"; of which aten::bmm {bmm:.3f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"# {phase} profile: {e.self_device_time_total / 1e3:9.1f} ms "
             f"x{e.count:<6d} {e.key[:90]}")
@@ -683,7 +902,7 @@ def main() -> int:
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     names = ["ragged_paged_attention", "window_decode_attention",
-             "quant_matmul"]
+             "quant_matmul", "grouped_matmul"]
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
@@ -713,23 +932,36 @@ def main() -> int:
                 f"{r['library']} {r['library_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             results[(name, dt)] = r
+        r = check_grouped(gen, dt)
+        log(f"# phase 2: grouped_matmul {dt}, a MoE layer's 2 GEMMs over a "
+            f"wave (M=65536, balanced): max_abs_err {r['max_abs_err']:.3g} "
+            f"(tol {TOL[dt]}, all cases); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        results[("grouped_matmul", dt)] = r
     check_prefill_w4(gen)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
     quant_counts = quant_parity()
     llama_counts = main_path_8b()
+    moe_parity()
+    moe_counts = main_path_moe()
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
     rows = [(name, path, "bfloat16", counts[name], results[(name, path,
                                                              "bfloat16")])
             for path, counts in (("qwen2.5-1.5b-bf16", qwen_counts),
-                                 ("llama-3.1-8b-w4a16", llama_counts))
+                                 ("llama-3.1-8b-w4a16", llama_counts),
+                                 ("qwen1.5-moe-a2.7b-bf16", moe_counts))
             for name in ("ragged_paged_attention", "window_decode_attention")]
     rows.append(("w4a16_packed_matmul", "llama-3.1-8b-w4a16", "bfloat16",
                  llama_counts["w4a16_packed_matmul"],
                  results[("w4a16_packed_matmul", "bfloat16")]))
+    rows.append(("grouped_matmul", "qwen1.5-moe-a2.7b-bf16", "bfloat16",
+                 moe_counts["grouped_matmul"],
+                 results[("grouped_matmul", "bfloat16")]))
     rows += [(name, "qwen-2l-quant-parity-fp32", "float32",
               quant_counts[name], results[(name, "float32")])
              for name in ("w4a16_matmul", "w8a16_matmul")]
@@ -737,6 +969,9 @@ def main() -> int:
                 "aphrodite_tpu/ops/ragged_paged_attention.py:247",
                 "window_decode_attention":
                 "aphrodite_tpu/ops/window_decode_attention.py:198",
+                # megablox gmm (jax/experimental/pallas/ops/tpu/megablox/
+                # gmm.py:314), called here:
+                "grouped_matmul": "aphrodite_tpu/models/moe_common.py:208",
                 **{n: r for n, (r, _) in QUANT_KERNELS.items()}}
     kernels = []
     for name, path, dt, launches, r in rows:
