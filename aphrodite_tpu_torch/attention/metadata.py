@@ -21,11 +21,13 @@ class AttentionMetadata:
     # [T] int32: absolute context position of each scheduled token.
     token_pos: torch.Tensor
     # [T] int64: flat KV slot (page * page_size + offset); -1 = dropped.
-    slot_mapping: torch.Tensor
+    # None where no KV is written (decode windows, SSM models).
+    slot_mapping: Optional[torch.Tensor]
     # [R] int32 total context length (computed + newly scheduled).
     seq_lens: torch.Tensor
-    # [R, MAX_PAGES] int32 physical page ids per request.
-    block_tables: torch.Tensor
+    # [R, MAX_PAGES] int32 physical page ids per request; None for SSM
+    # models, which read no pages.
+    block_tables: Optional[torch.Tensor]
     # ---- ragged-kernel work items (ops/ragged_paged_attention.py). ----
     # [N] int32 each: request, first flat token, token count, first
     # context position of each fixed-size q block.
@@ -39,6 +41,19 @@ class AttentionMetadata:
     # window entry. Set only by the runner's window path.
     window_step: Optional[int] = None
     paged_lens: Optional[torch.Tensor] = None
+    # ---- SSM (Mamba) state routing (models/mamba.py). ----
+    # [R + 1] int32 cumulative count of scheduled tokens per request.
+    query_start_loc: Optional[torch.Tensor] = None
+    # [R] int32 recurrent-state slot of each request.
+    state_slots: Optional[torch.Tensor] = None
+    # [R] int32 flat index of each request's first scheduled token. Tokens
+    # lie back to back, so this is query_start_loc[:-1]; the field is kept
+    # so that the mixer reads like the JAX package's.
+    seg_starts: Optional[torch.Tensor] = None
+    # [T] bool: live tokens. None = every token is live. The SSM decode
+    # window marks the rows past their budget False (the JAX package marks
+    # them with slot_mapping -1, which the port's SSM path does not fill).
+    token_valid: Optional[torch.Tensor] = None
 
 
 def build_work_items(seg_starts: np.ndarray, seg_counts: np.ndarray,

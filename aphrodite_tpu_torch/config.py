@@ -62,15 +62,25 @@ class ModelConfig:
         return self.hf_config.num_hidden_layers
 
     @property
+    def is_attention_free(self) -> bool:
+        """Recurrent-state models (Mamba family): no KV cache at all."""
+        return self.get("num_attention_heads") in (None, 0) or self.get(
+            "model_type") in ("mamba", "mamba2", "falcon_mamba")
+
+    @property
     def num_attention_heads(self) -> int:
-        return self.hf_config.num_attention_heads
+        return self.get("num_attention_heads") or 1
 
     @property
     def num_kv_heads(self) -> int:
+        if self.is_attention_free:
+            return 1
         return self.get("num_key_value_heads") or self.num_attention_heads
 
     @property
     def head_dim(self) -> int:
+        if self.is_attention_free:
+            return self.get("state_size", 16)
         return self.get("head_dim") or (self.hidden_size
                                         // self.num_attention_heads)
 
@@ -96,6 +106,9 @@ class CacheConfig:
     block_size: int = 32
     # KV pages in the pool; None = the worker sizes it from free memory.
     num_blocks: Optional[int] = None
+    # Content-hash reuse of full pages; the worker turns it off for
+    # recurrent-state models, whose pages hold nothing to reuse.
+    enable_prefix_caching: bool = True
 
     def __post_init__(self) -> None:
         if self.block_size & (self.block_size - 1):

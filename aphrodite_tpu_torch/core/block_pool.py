@@ -95,10 +95,11 @@ class FreeBlockQueue:
 
 class BlockPool:
 
-    def __init__(self, num_blocks: int) -> None:
+    def __init__(self, num_blocks: int, enable_caching: bool = True) -> None:
         if num_blocks < 2:
             raise ValueError("need at least 2 blocks (one is the null block)")
         self.num_blocks = num_blocks
+        self.enable_caching = enable_caching
         self.blocks = [KVCacheBlock(i) for i in range(num_blocks)]
         # Block 0 is the permanently-pinned null block.
         self.null_block = self.blocks[NULL_BLOCK_ID]
@@ -148,6 +149,8 @@ class BlockPool:
                           num_cached_blocks: int,
                           num_full_blocks: int) -> None:
         """Register content hashes for newly-filled full pages."""
+        if not self.enable_caching:
+            return
         for i in range(num_cached_blocks, num_full_blocks):
             block = blocks[i]
             h = block_hashes[i]

@@ -3,7 +3,8 @@
 Re-design of the reference KVCacheManager
 (aphrodite/v1/core/kv_cache_manager.py:16): prefix-hash lookup at admission
 (`get_computed_blocks`), incremental `allocate_slots` for every scheduling
-step, preempt-by-recompute (no swap). Prefix caching is always on.
+step, preempt-by-recompute (no swap). Prefix caching can be turned off
+(``enable_caching=False``): then no page is hashed and nothing is hit.
 """
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ from aphrodite_tpu_torch.utils import cdiv
 
 class KVCacheManager:
 
-    def __init__(self, num_blocks: int, block_size: int) -> None:
+    def __init__(self, num_blocks: int, block_size: int,
+                 enable_caching: bool = True) -> None:
         self.block_size = block_size
-        self.pool = BlockPool(num_blocks)
+        self.enable_caching = enable_caching
+        self.pool = BlockPool(num_blocks, enable_caching)
         self.req_to_blocks: dict[str, list[KVCacheBlock]] = {}
         self.req_to_hashes: dict[str, list[int]] = {}
 
@@ -28,6 +31,8 @@ class KVCacheManager:
     def get_computed_blocks(self, request: Request
                             ) -> tuple[list[KVCacheBlock], int]:
         """Longest cached prefix (in full pages) for a new request."""
+        if not self.enable_caching:
+            return [], 0
         # Hash over all tokens (not just the prompt) so a preempted request
         # re-admitted after recompute can reuse pages of its own output too.
         hashes = self.req_to_hashes.get(request.request_id)
@@ -88,26 +93,27 @@ class KVCacheManager:
         # Register hashes for pages that will be *full* after this step
         # (speculative lookahead slots are excluded — their contents are not
         # final).
-        hashes = self.req_to_hashes.get(request.request_id)
-        if hashes is None:
-            hashes = hash_request_tokens(self.block_size,
-                                         request.prompt_token_ids)
-            self.req_to_hashes[request.request_id] = hashes
-        # Extend hash chain over generated tokens.
-        all_tokens = request.all_token_ids
-        num_full = min(num_computed + num_new_tokens,
-                       request.num_tokens) // self.block_size
-        parent = hashes[-1] if hashes else None
-        while len(hashes) < num_full:
-            start = len(hashes) * self.block_size
-            parent = hash_block_tokens(
-                parent, tuple(all_tokens[start:start + self.block_size]))
-            hashes.append(parent)
-        num_cached = sum(1 for b in req_blocks
-                         if b.block_hash is not None)
-        self.pool.cache_full_blocks(req_blocks, hashes,
-                                    num_cached_blocks=num_cached,
-                                    num_full_blocks=num_full)
+        if self.enable_caching:
+            hashes = self.req_to_hashes.get(request.request_id)
+            if hashes is None:
+                hashes = hash_request_tokens(self.block_size,
+                                             request.prompt_token_ids)
+                self.req_to_hashes[request.request_id] = hashes
+            # Extend hash chain over generated tokens.
+            all_tokens = request.all_token_ids
+            num_full = min(num_computed + num_new_tokens,
+                           request.num_tokens) // self.block_size
+            parent = hashes[-1] if hashes else None
+            while len(hashes) < num_full:
+                start = len(hashes) * self.block_size
+                parent = hash_block_tokens(
+                    parent, tuple(all_tokens[start:start + self.block_size]))
+                hashes.append(parent)
+            num_cached = sum(1 for b in req_blocks
+                             if b.block_hash is not None)
+            self.pool.cache_full_blocks(req_blocks, hashes,
+                                        num_cached_blocks=num_cached,
+                                        num_full_blocks=num_full)
         return new_blocks
 
     # -------------------------------------------------------------------- free
@@ -118,6 +124,8 @@ class KVCacheManager:
         self.pool.free_blocks(list(reversed(blocks)))
 
     def reset_prefix_cache(self) -> bool:
+        if not self.enable_caching:
+            return True  # nothing is cached
         return self.pool.reset_prefix_cache()
 
     def get_block_ids(self, request_id: str) -> list[int]:

@@ -53,7 +53,8 @@ class Scheduler:
                 "cache_config.num_blocks must be set before scheduler "
                 "creation")
         self.kv = KVCacheManager(cache_config.num_blocks,
-                                 cache_config.block_size)
+                                 cache_config.block_size,
+                                 cache_config.enable_prefix_caching)
         self.block_size = cache_config.block_size
         # Extra empty slots to allocate per request per step (the decode
         # window's lookahead).

@@ -11,10 +11,13 @@ class EngineCore:
     def __init__(self, config: EngineConfig) -> None:
         self.config = config
         self.worker = Worker(config)
-        # Lookahead KV slots cover the decode window.
+        # Lookahead KV slots cover the decode window; a recurrent-state
+        # model writes no KV and needs none.
+        lookahead = (0 if getattr(self.worker.model, "is_ssm", False)
+                     else config.max_lookahead_tokens)
         self.scheduler = Scheduler(
             config.scheduler_config, config.cache_config,
-            num_lookahead_tokens=config.max_lookahead_tokens)
+            num_lookahead_tokens=lookahead)
 
     def reset_prefix_cache(self) -> bool:
         return self.scheduler.kv.reset_prefix_cache()

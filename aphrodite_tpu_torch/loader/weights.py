@@ -1,10 +1,11 @@
 """Model construction and weight loading.
 
-Only dummy (seeded random) weights and the JAX package's parameter tree are
-ported; loading a checkpoint from disk is not. With a quantization config,
-the dummy weights are quantized on the fly layer by layer and W4 leaves are
-packed where the JAX loader packs them (``quantization/loader.py``), so a
-``params_from_jax`` tree of the JAX engine carries over leaf for leaf.
+Only dummy (seeded random) weights and the JAX package's parameter tree
+(dense, quantized, sparse-MoE and Mamba-family) are ported; loading a
+checkpoint from disk is not. With a quantization config, the dummy weights
+are quantized on the fly layer by layer and W4 leaves are packed where the
+JAX loader packs them (``quantization/loader.py``), so a ``params_from_jax``
+tree of the JAX engine carries over leaf for leaf.
 """
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from aphrodite_tpu_torch.config import LoadConfig, ModelConfig
-from aphrodite_tpu_torch.models.llama import LlamaForCausalLM, QuantWeight
+from aphrodite_tpu_torch.models.llama import QuantWeight
 from aphrodite_tpu_torch.models.registry import model_class
 from aphrodite_tpu_torch.quantization.base import QuantizationConfig
 
@@ -30,11 +32,17 @@ _REQUIRED = ("w_qkv", "input_norm", "wo", "post_norm")
 _MOE_FUSED = {"we_gate_up": ("we_gate", "we_up"),
               "ws_gate_up": ("ws_gate", "ws_up")}
 _MOE_DIRECT = ("router", "we_down", "ws_down", "ws_route")
+# A Mamba-family layer's leaves, taken as they are (Mamba-1: x_proj, dt_w,
+# dt_b and the optional biases; Mamba-2: dt_bias and gated_norm_w).
+_SSM_LEAVES = ("norm", "in_proj", "in_b", "conv_w", "conv_b", "x_proj",
+               "dt_w", "dt_b", "dt_bias", "A_log", "D", "gated_norm_w",
+               "out_proj", "out_b")
+_SSM_REQUIRED = ("norm", "in_proj", "conv_w", "A_log", "D", "out_proj")
 
 
 def create_model(model_config: ModelConfig, device: torch.device | str,
                  quant_config: Optional[QuantizationConfig] = None
-                 ) -> LlamaForCausalLM:
+                 ) -> nn.Module:
     return model_class(model_config.architecture)(
         model_config, device=device, quant_config=quant_config)
 
@@ -42,7 +50,7 @@ def create_model(model_config: ModelConfig, device: torch.device | str,
 def load_model(model_config: ModelConfig, load_config: LoadConfig,
                device: torch.device | str,
                quant_config: Optional[QuantizationConfig] = None
-               ) -> LlamaForCausalLM:
+               ) -> nn.Module:
     if load_config.load_format != "dummy":
         raise NotImplementedError(
             f"load_format={load_config.load_format!r}: only dummy weights "
@@ -101,14 +109,29 @@ def _stack(layers: Mapping[str, Any], fused: dict, direct: tuple
     return stacked
 
 
+def _ssm_params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    layers = tree["layers"]
+    missing = [k for k in _SSM_REQUIRED if k not in layers]
+    if missing:
+        raise KeyError(f"JAX Mamba tree lacks {missing}")
+    out = {"embed": _np(tree["embed"]), "final_norm": _np(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = _np(tree["lm_head"])
+    for name in _SSM_LEAVES:
+        if name in layers:
+            for i, row in enumerate(_np(layers[name])):
+                out[f"layers.{i}.{name}"] = row
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     layer_kinds: Optional[list[str]] = None
                     ) -> dict[str, np.ndarray]:
-    """The JAX package's Llama/Qwen2 or sparse-MoE parameter tree (leaves:
-    numpy or any array convertible with ``np.asarray``) -> the port's state
-    dict. Takes both the unmerged ``wq/wk/wv`` + ``w_gate/w_up`` tree and
-    the fused ``w_qkv`` / ``w_gate_up`` tree of ``maybe_merge_params``, with
-    or without q/k/v biases and QK norms. Quantized projections are dicts of
+    """The JAX package's Llama/Qwen2, sparse-MoE or Mamba-family parameter
+    tree (leaves: numpy or any array convertible with ``np.asarray``) -> the
+    port's state dict. Takes both the unmerged ``wq/wk/wv`` +
+    ``w_gate/w_up`` tree and the fused ``w_qkv`` / ``w_gate_up`` tree of
+    ``maybe_merge_params``, with or without q/k/v biases and QK norms. Quantized projections are dicts of
     leaves (``qweight`` or ``qweight_packed``, ``scales``, ``zeros``,
     ``input_perm``); they become ``layers.<i>.<name>.<leaf>``.
 
@@ -116,8 +139,13 @@ def params_from_jax(tree: Mapping[str, Any],
     attention leaves under ``layers`` when every layer is MoE, or under
     ``moe`` (with the dense layers' ``w_*`` under ``dense_mlp``), indexed
     by position within their kind, for mixed stacks; those need the
-    model's ``layer_kinds``. They become ``layers.<i>.moe.<name>``."""
+    model's ``layer_kinds``. They become ``layers.<i>.moe.<name>``.
+
+    Mamba-family trees (an ``A_log`` stack) keep their leaf names:
+    ``layers.<name>[i]`` becomes ``layers.<i>.<name>``."""
     layers = tree["layers"]
+    if "A_log" in layers:
+        return _ssm_params_from_jax(tree)
     num_layers = _np(layers["input_norm"]).shape[0]
     out = {"embed": _np(tree["embed"]), "final_norm": _np(tree["final_norm"])}
     if "lm_head" in tree:
@@ -166,7 +194,7 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 @torch.no_grad()
-def load_params(model: LlamaForCausalLM,
+def load_params(model: nn.Module,
                 state: Mapping[str, np.ndarray]) -> None:
     """Copy a full state dict into the model's parameters and quantized
     buffers (cast to their dtype and device); every one must be given,

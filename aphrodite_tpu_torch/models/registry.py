@@ -16,6 +16,9 @@ MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "Qwen3MoeForCausalLM": ("mixtral", "Qwen3MoeForCausalLM"),
     "OlmoeForCausalLM": ("mixtral", "OlmoeForCausalLM"),
     "DeepseekForCausalLM": ("mixtral", "DeepseekForCausalLM"),
+    "MambaForCausalLM": ("mamba", "MambaForCausalLM"),
+    "FalconMambaForCausalLM": ("mamba", "FalconMambaForCausalLM"),
+    "Mamba2ForCausalLM": ("mamba", "Mamba2ForCausalLM"),
 }
 
 

@@ -17,6 +17,10 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def next_power_of_2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
 class Counter:
     """Monotonic id generator."""
 

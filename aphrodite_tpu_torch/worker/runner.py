@@ -13,6 +13,13 @@ path. Two kinds of step:
   kernel, and the sampled token feeds the next sub-step on the device. At
   the end the tails are flushed into the pages (``runner.py:458-649``).
 
+Recurrent-state (Mamba-family) models have no paged KV cache: the model's
+``{"conv", "ssm"}`` state buffers take its place, each request holds a
+state slot (``_ssm_state_slots``), and the decode window is
+``_execute_ssm_window``: K plain one-token forwards with no tails
+(``runner.py:352-456``). The scheduler's page accounting still runs; the
+model never reads a page.
+
 PyTorch runs eagerly, so there are no shape buckets and no padding: every
 token and request in a step is live.
 """
@@ -32,7 +39,7 @@ from aphrodite_tpu_torch.core.sched_output import (ModelRunnerOutput,
                                                    SchedulerOutput)
 from aphrodite_tpu_torch.sample.sampler import greedy_sample
 from aphrodite_tpu_torch.sampling_params import SamplingParams
-from aphrodite_tpu_torch.utils import logger
+from aphrodite_tpu_torch.utils import logger, next_power_of_2
 
 # Query rows (tokens x query heads of one KV head) per ragged work item.
 _ROWS_PER_ITEM = 128
@@ -67,6 +74,19 @@ class ModelRunner:
         self.block_size = cc.block_size
         self.max_pages_per_req = config.max_blocks_per_req
         self.requests: dict[str, RequestState] = {}
+        self.is_ssm = getattr(model, "is_ssm", False)
+        if self.is_ssm:
+            # ``kv_cache`` holds the recurrent state, as in the JAX runner.
+            self.num_state_slots = next_power_of_2(
+                config.scheduler_config.max_num_seqs)
+            self._free_slots = list(range(self.num_state_slots))
+            self._slot_of: dict[str, int] = {}
+            self.kv_cache = model.init_cache(self.num_state_slots)
+            logger.info("SSM state: %d slots (%.2f GiB)",
+                        self.num_state_slots, sum(
+                            t.numel() * t.element_size()
+                            for t in self.kv_cache.values()) / 2**30)
+            return
         shape = kv_cache_shape(model.num_layers, cc.num_blocks, cc.block_size,
                                model.num_kv_heads, model.head_dim)
         self.kv_cache = torch.zeros(shape, dtype=model.dtype, device=device)
@@ -83,6 +103,10 @@ class ModelRunner:
     def update_states(self, so: SchedulerOutput) -> None:
         for rid in so.finished_req_ids:
             self.requests.pop(rid, None)
+            if self.is_ssm:
+                slot = self._slot_of.pop(rid, None)
+                if slot is not None:
+                    self._free_slots.append(slot)
         cr = so.scheduled_cached_reqs
         for i, rid in enumerate(cr.req_ids):
             st = self.requests.get(rid)
@@ -118,6 +142,8 @@ class ModelRunner:
         order = list(so.num_scheduled_tokens.keys())
         num_steps, budgets = self._window_eligibility(so, order)
         if num_steps > 1:
+            if self.is_ssm:
+                return self._execute_ssm_window(order, num_steps, budgets)
             return self._execute_window(order, num_steps, budgets)
         return self._execute_step(so, order)
 
@@ -150,22 +176,32 @@ class ModelRunner:
             input_ids[t:t + n] = st.token_ids[start:start + n]
             token_req[t:t + n] = r
             token_pos[t:t + n] = pos
-            blocks = np.asarray(st.block_ids, np.int64)
-            slots[t:t + n] = blocks[pos // bs] * bs + pos % bs
+            if not self.is_ssm:
+                blocks = np.asarray(st.block_ids, np.int64)
+                slots[t:t + n] = blocks[pos // bs] * bs + pos % bs
             t += n
             qsl[r + 1] = t
             seq_lens[r] = start + n
             samples_expected.append(start + n >= st.num_tokens)
-        items = build_work_items(qsl[:-1], np.diff(qsl), seq_lens, R,
-                                 self.block_q)
-        md = AttentionMetadata(
-            token_req_idx=self._dev(token_req),
-            token_pos=self._dev(token_pos),
-            slot_mapping=self._dev(slots),
-            seq_lens=self._dev(seq_lens),
-            block_tables=self._dev(self._block_tables(order)),
-            block_q=self.block_q,
-            **{k: self._dev(v) for k, v in items.items()})
+        if self.is_ssm:
+            qsl_d = self._dev(qsl)
+            md = AttentionMetadata(
+                token_req_idx=self._dev(token_req),
+                token_pos=self._dev(token_pos), slot_mapping=None,
+                seq_lens=self._dev(seq_lens), block_tables=None,
+                query_start_loc=qsl_d, seg_starts=qsl_d[:-1],
+                state_slots=self._dev(self._ssm_state_slots(order)))
+        else:
+            items = build_work_items(qsl[:-1], np.diff(qsl), seq_lens, R,
+                                     self.block_q)
+            md = AttentionMetadata(
+                token_req_idx=self._dev(token_req),
+                token_pos=self._dev(token_pos),
+                slot_mapping=self._dev(slots),
+                seq_lens=self._dev(seq_lens),
+                block_tables=self._dev(self._block_tables(order)),
+                block_q=self.block_q,
+                **{k: self._dev(v) for k, v in items.items()})
         hidden = self.model(self._dev(input_ids), self.kv_cache, md)
         if not any(samples_expected):
             # Pure mid-prefill wave: nothing to sample.
@@ -263,7 +299,12 @@ class ModelRunner:
             tok_buf[i] = toks
             lp_buf[i] = lp
         self._flush_tails(tail_k, tail_v, paged_lens, block_tables, budget)
+        return self._window_output(order, counts, tok_buf, lp_buf)
 
+    def _window_output(self, order: list[str], counts: np.ndarray,
+                       tok_buf: torch.Tensor,
+                       lp_buf: torch.Tensor) -> ModelRunnerOutput:
+        """Row r's first counts[r] tokens of a window's [K, R] buffers."""
         tokens_h = tok_buf.cpu().numpy()
         lp_h = lp_buf.cpu().numpy()
         sampled, logprobs = [], []
@@ -280,6 +321,63 @@ class ModelRunner:
             req_ids=order, sampled_token_ids=sampled,
             logprobs=logprobs if any(x is not None for x in logprobs)
             else None)
+
+    # ------------------------------------------------------------------- SSM
+    def _ssm_state_slots(self, order: list[str]) -> np.ndarray:
+        """A recurrent-state slot per request, kept until it finishes. With
+        no slot free, take one from a request not scheduled now (a
+        preempted request recomputes from position 0 when it resumes)
+        (``runner.py:1848-1863``)."""
+        state_slots = np.zeros((len(order),), np.int32)
+        for r, rid in enumerate(order):
+            slot = self._slot_of.get(rid)
+            if slot is None:
+                if not self._free_slots:
+                    sched = set(order)
+                    victim = next(r2 for r2 in self._slot_of
+                                  if r2 not in sched)
+                    self._free_slots.append(self._slot_of.pop(victim))
+                slot = self._free_slots.pop()
+                self._slot_of[rid] = slot
+            state_slots[r] = slot
+        return state_slots
+
+    def _execute_ssm_window(self, order: list[str], num_steps: int,
+                            step_budgets: list[int]) -> ModelRunnerOutput:
+        """K one-token forwards of a recurrent-state model, each request its
+        own segment; the sampled token feeds the next sub-step on the
+        device. Rows past their budget hold their token and get
+        seq_lens 0 and an invalid token, so they touch neither state
+        (``runner.py:352-456``). No tails, no flush."""
+        model, dev = self.model, self.device
+        R, K = len(order), num_steps
+        cur = np.asarray([self.requests[rid].token_ids[-1] for rid in order],
+                         np.int64)
+        seq_lens0 = np.asarray([self.requests[rid].num_tokens
+                                for rid in order], np.int32)
+        counts = np.minimum(np.asarray(step_budgets, np.int32), K)
+        budget = self._dev(counts)
+        state_slots = self._dev(self._ssm_state_slots(order))
+        arange_r = torch.arange(R, dtype=torch.int32, device=dev)
+        qsl = torch.arange(R + 1, dtype=torch.int32, device=dev)
+        seqlens = self._dev(seq_lens0)
+        toks = self._dev(cur)
+        tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
+        lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        for i in range(K):
+            live = i < budget
+            md = AttentionMetadata(
+                token_req_idx=arange_r, token_pos=seqlens - 1,
+                slot_mapping=None, seq_lens=torch.where(live, seqlens, 0),
+                block_tables=None, query_start_loc=qsl, seg_starts=arange_r,
+                state_slots=state_slots, token_valid=live)
+            hidden = model(toks, self.kv_cache, md)
+            new_tok, lp = greedy_sample(model.compute_logits(hidden))
+            toks = torch.where(live, new_tok, toks)
+            tok_buf[i] = toks
+            lp_buf[i] = lp
+            seqlens = seqlens + live.int()
+        return self._window_output(order, counts, tok_buf, lp_buf)
 
     def _flush_tails(self, tail_k: torch.Tensor, tail_v: torch.Tensor,
                      paged_lens: torch.Tensor, block_tables: torch.Tensor,

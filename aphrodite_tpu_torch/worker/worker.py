@@ -34,6 +34,10 @@ class Worker:
         self.model = load_model(config.model_config, config.load_config,
                                 self.device, self.quant_config)
         cc = config.cache_config
+        if getattr(self.model, "is_ssm", False):
+            # Recurrent-state models have no reusable KV pages: a computed
+            # prefix cannot be hit (``aphrodite_tpu/worker/worker.py:190``).
+            cc.enable_prefix_caching = False
         if cc.num_blocks is None:
             cc.num_blocks = self._determine_num_blocks()
         logger.info("KV pages: %d x %d tokens", cc.num_blocks, cc.block_size)
@@ -49,6 +53,11 @@ class Worker:
         are loaded (``aphrodite_tpu/worker/worker.py:279``)."""
         cc = self.config.cache_config
         mc = self.config.model_config
+        max_needed = (self.config.max_blocks_per_req *
+                      self.config.scheduler_config.max_num_seqs + 1)
+        if getattr(self.model, "is_ssm", False):
+            # The pages are accounting only: no memory stands behind them.
+            return max_needed
         page_bytes = (mc.num_kv_heads * 2 * mc.head_dim * cc.block_size
                       * mc.num_layers * self.model.embed.element_size())
         if self.device.type != "cuda":
@@ -57,6 +66,4 @@ class Worker:
         free, _ = torch.cuda.mem_get_info(self.device)
         budget = int(free * _KV_MEMORY_SHARE) - _ACTIVATION_HEADROOM
         num = max(budget // page_bytes, 16)
-        max_needed = (self.config.max_blocks_per_req *
-                      self.config.scheduler_config.max_num_seqs + 1)
         return int(min(num, max_needed))

@@ -39,6 +39,16 @@ CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
    depth (60 experts, top-4), bf16, the same traffic and runs as phase 6.
    Exactly 2048 tokens a run; the grouped GEMM and both attention kernels
    must have been launched.
+9. SSM parity: a tiny Mamba, FalconMamba and Mamba-2 in fp32 (weights
+   redrawn at fan-in scale), card vs CPU with the same weights, chunked
+   prefill at a 16-token budget and decode windows: greedy tokens must be
+   equal and the selective scan launched.
+10. The main path of the SSM slice: Mamba-2.8B (``state-spaces/
+   mamba-2.8b-hf``) at full width and depth, bf16, a 4096-token batch
+   budget, phase 6's traffic. Prefix caching is off for recurrent-state
+   models, so every run is cold: one warm-up, 3 timed runs, one profiled
+   run. Exactly 2048 tokens and no cached prompt token a run; the scan
+   launched 64 times (once a layer) for every forward of the runner.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -46,6 +56,12 @@ prefill wave's 65536 sorted rows over 60 experts, gate|up and down, with
 balanced (random top-4) and skewed group sizes (empty groups, one group
 holding ~45 % of the rows), and at M = 240, where the grouped route
 starts; yardstick ``torch._grouped_mm`` where the card's torch has it.
+It holds the selective scan (which stands in for the TPU
+``selective_scan``) against its plain version in fp32, where the two must
+be equal bit for bit, at phase 10's shapes (a 4096-token wave of 8
+segments of 512 and a 32-row decode step, over 5120 x 16 columns) and at
+a ragged edge; no single PyTorch call computes the recurrence, so it has
+no library yardstick.
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -115,6 +131,14 @@ QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
 # (K, N) of a MoE layer's two grouped GEMMs (gate|up fused on N).
 MOE_GEMMS = {"gate_up": (2048, 2 * 1408), "down": (1408, 2048)}
 MOE_E, MOE_K = 60, 4
+
+MAMBA_2P8B = dict(  # state-spaces/mamba-2.8b-hf config.json
+    vocab_size=50280, hidden_size=2560, num_hidden_layers=64,
+    intermediate_size=5120, state_size=16, conv_kernel=4,
+    time_step_rank=160, use_conv_bias=True, use_bias=False,
+    layer_norm_epsilon=1e-5, tie_word_embeddings=True, model_type="mamba",
+    architectures=["MambaForCausalLM"])
+SCAN_COLUMNS = 5120 * 16  # d_inner x d_state of a Mamba-2.8B layer
 
 QWEN25_1P5B = dict(
     vocab_size=151936, hidden_size=1536, num_hidden_layers=28,
@@ -566,6 +590,43 @@ def check_grouped(gen, dtype_name: str) -> dict:
     return tot
 
 
+def check_scan(gen) -> dict:
+    """The selective scan at phase 10's shapes, fp32: a prefill wave (T =
+    4096, 8 segments of 512, dA = 0 at each segment's first token) and a
+    decode step (T = 32 rows, each its own segment), over a Mamba-2.8B
+    layer's 81920 columns, then a ragged edge (T and C not multiples of
+    the kernel's 8-row unroll or 128-thread block). The kernel must equal
+    its plain version bit for bit. Times and bound of the wave."""
+    import torch
+    from aphrodite_tpu_torch.ops.selective_scan import (ref_selective_scan,
+                                                        selective_scan)
+    res = {}
+    for label, T, C, seg in (("wave", 4096, SCAN_COLUMNS, 512),
+                             ("decode", 32, SCAN_COLUMNS, 1),
+                             ("ragged", 4101, 1003, 700)):
+        dA = 0.5 + 0.5 * torch.rand((T, C), generator=gen, device="cuda")
+        dA[::seg] = 0.0
+        dBx = torch.randn((T, C), generator=gen, device="cuda")
+        out = selective_scan(dA, dBx)
+        ref = ref_selective_scan(dA, dBx)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not (torch.equal(out, ref) and torch.isfinite(out).all()):
+            raise AssertionError(f"selective_scan {label} T={T} C={C}: "
+                                 f"differs from its plain version by {err}")
+        ms = cuda_ms(lambda: selective_scan(dA, dBx), 20)
+        plain_ms = cuda_ms(lambda: ref_selective_scan(dA, dBx), 1)
+        b_ms, b_by = bound_ms(12.0 * T * C, 2.0 * T * C, "float32")
+        log(f"# phase 2: selective_scan {label} fp32 T={T} C={C}: equal to "
+            f"the plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{12.0 * T * C / ms / 1e6:.0f} GB/s")
+        res[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del dA, dBx, out, ref
+    return res["wave"]
+
+
 def tiny_parity() -> None:
     """fp32 greedy tokens through the port on the card and on the CPU, with
     the same weights, across chunked prefill and decode windows."""
@@ -748,12 +809,17 @@ def moe_parity() -> int:
 
 
 def serve_workload(phase: str, name: str, hf: dict, counted: dict,
-                   **llm_kw) -> dict:
+                   batch_tokens: int = 16384,
+                   per_forward: dict | None = None, **llm_kw):
     """32 prompts x (512 + 64) greedy through ``LLM.generate`` at full
     width: one warm-up, 3 cold runs (prefix cache reset before each), 3
-    warm runs, one profiled run. Each run must give exactly 2048 tokens
-    in the vocabulary; every kernel in ``counted`` must have launched in
-    the cold runs. Returns the last cold run's launches."""
+    warm runs (only where the engine caches prefixes; where it does not,
+    every run must find no cached prompt token), one profiled run. Each
+    run must give exactly 2048 tokens in the vocabulary; every kernel in
+    ``counted`` must have
+    launched in the cold runs, and every kernel in ``per_forward`` exactly
+    that many times for each call of the model's ``forward`` in every cold
+    run. Returns the last cold run's launches and the engine."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     num_prompts, prompt_len, decode_len = 32, 512, 64
@@ -765,13 +831,23 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     t0 = time.perf_counter()
     llm = LLM(name, hf_config=hf, tokenizer="unused", dtype="bfloat16",
               load_format="dummy", block_size=64, max_num_seqs=32,
-              max_num_batched_tokens=16384, max_model_len=704,
+              max_num_batched_tokens=batch_tokens, max_model_len=704,
               device="cuda", **llm_kw)
     torch.cuda.synchronize()
     log(f"# {phase}: engine init {time.perf_counter() - t0:.2f} s, weights "
         f"+ KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefix_cache = llm.engine.config.cache_config.enable_prefix_caching
+    model = llm.engine.core.worker.model
+    forward = model.forward
+    forwards = [0]
+
+    def counted_forward(*a, **kw):
+        forwards[0] += 1
+        return forward(*a, **kw)
+    model.forward = counted_forward
     rng = np.random.RandomState(0)
-    prompts = [rng.randint(10, 100000, size=prompt_len).tolist()
+    top = min(100000, hf["vocab_size"] - 10)
+    prompts = [rng.randint(10, top, size=prompt_len).tolist()
                for _ in range(num_prompts)]
     params = SamplingParams(temperature=0.0, max_tokens=decode_len,
                             ignore_eos=True)
@@ -779,6 +855,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     def one_run() -> float:
         for fn in counted.values():
             fn.launches = 0
+        forwards[0] = 0
         t = time.perf_counter()
         outs = llm.generate(prompts, params)
         torch.cuda.synchronize()
@@ -801,10 +878,19 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         cold.append(one_run())
         counts = {k: fn.launches for k, fn in counted.items()}
         log(f"# {phase}: cold run {i}: {cold[-1]:.3f} s, cached prompt "
-            f"tokens {one_run.cached}, launches {counts}")
+            f"tokens {one_run.cached}, launches {counts}, model forwards "
+            f"{forwards[0]}")
+        for k, per in (per_forward or {}).items():
+            if counts[k] != per * forwards[0]:
+                raise AssertionError(f"{k}: {counts[k]} launches for "
+                                     f"{forwards[0]} forwards, want {per} "
+                                     "each")
+        if not prefix_cache and one_run.cached:
+            raise AssertionError(f"{one_run.cached} cached prompt tokens "
+                                 "with prefix caching off")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel was not launched: {counts}")
-    for i in range(3):
+    for i in range(3 if prefix_cache else 0):
         warm.append(one_run())
         log(f"# {phase}: warm run {i}: {warm[-1]:.3f} s, cached prompt "
             f"tokens {one_run.cached}, launches "
@@ -812,6 +898,8 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     n_dec = num_prompts * decode_len
     n_all = num_prompts * (prompt_len + decode_len)
     for label, ts in (("cold", cold), ("warm", warm)):
+        if not ts:
+            continue
         s = float(np.mean(ts))
         log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
             f"{n_dec / s:.0f} decode tok/s; {n_all / s:.0f} tok/s "
@@ -820,7 +908,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     llm.engine.reset_prefix_cache()
     profile_run(one_run, phase)
-    return counts
+    return counts, llm
 
 
 def attention_kernels() -> dict:
@@ -839,7 +927,7 @@ def main_path_8b() -> dict:
     return serve_workload(
         "phase 6", "llama-3.1-8b-w4a16-dummy", LLAMA31_8B,
         {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
-         **attention_kernels()}, quantization="gptq")
+         **attention_kernels()}, quantization="gptq")[0]
 
 
 def main_path_moe() -> dict:
@@ -849,7 +937,98 @@ def main_path_moe() -> dict:
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
     return serve_workload(
         "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_A27B,
-        {"grouped_matmul": grouped_matmul, **attention_kernels()})
+        {"grouped_matmul": grouped_matmul, **attention_kernels()})[0]
+
+
+SSM_TINY = {  # tiny geometries of the three SSM families
+    "MambaForCausalLM": dict(
+        model_type="mamba", intermediate_size=128, time_step_rank=8,
+        use_conv_bias=True, use_bias=True),
+    "FalconMambaForCausalLM": dict(
+        model_type="falcon_mamba", intermediate_size=128, time_step_rank=8,
+        mixer_rms_eps=1e-6),
+    "Mamba2ForCausalLM": dict(
+        model_type="mamba2", expand=2, head_dim=16, num_heads=8, n_groups=2),
+}
+
+
+def redraw_at_fan_in(model, seed: int) -> None:
+    """Weights at fan-in scale from a seeded CPU generator (the dummy
+    recipe's 0.02 and zero biases make a near-identity model whose greedy
+    tokens hardly depend on the state)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("dt_b", "dt_bias"):
+                new = -1.0 - 2.0 * torch.rand(p.shape, generator=g)
+            elif leaf == "A_log":
+                new = p.float() + 0.1 * torch.randn(p.shape, generator=g)
+            elif leaf == "conv_w":
+                new = 0.5 * torch.randn(p.shape, generator=g)
+            elif leaf.endswith("_b"):
+                new = 0.1 * torch.randn(p.shape, generator=g)
+            elif p.dim() == 2:  # [fan_in, fan_out] projections, embed
+                new = torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5
+            else:  # norms, D
+                new = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
+            p.copy_(new.to(p.dtype))
+
+
+def ssm_parity() -> None:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same weights for a tiny Mamba, FalconMamba and Mamba-2: chunked
+    prefill at a 16-token budget (state carried across the seams), ragged
+    max_tokens (frozen rows in decode windows)."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.selective_scan import selective_scan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 250, size=n).tolist()
+               for n in (5, 40, 17, 33, 2, 21)]
+    params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+              for n in (24, 9, 17, 24, 3, 12)]
+    for arch, geom in SSM_TINY.items():
+        cfg = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                   state_size=8, conv_kernel=4, tie_word_embeddings=False,
+                   architectures=[arch], **geom)
+        kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+                  block_size=16, max_num_seqs=4, max_num_batched_tokens=16,
+                  max_model_len=256)
+        cpu = LLM("tiny-ssm", device="cpu", **kw)
+        redraw_at_fan_in(cpu.engine.core.worker.model, 5)
+        gpu = LLM("tiny-ssm", device="cuda", **kw)
+        state = {k: v.numpy() for k, v in
+                 cpu.engine.core.worker.model.state_dict().items()}
+        gpu.engine.core.worker.load_params(state)
+        a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+        selective_scan.launches = 0
+        b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+        if a != b:
+            raise AssertionError(f"{arch}: cuda vs cpu greedy tokens "
+                                 f"differ:\n{a}\n{b}")
+        if selective_scan.launches <= 0:
+            raise AssertionError(f"{arch}: selective_scan was not launched")
+        log(f"# phase 9: {arch}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts (16-token chunks, ragged max_tokens); "
+            f"selective_scan launches {selective_scan.launches}")
+        del cpu, gpu
+
+
+def main_path_mamba() -> dict:
+    """Mamba-2.8B bf16 at full width and depth, phase 6's traffic at the
+    JAX SSM bench's 4096-token budget (benchmarks/ssm_bench.py:52):
+    prefill waves of up to 4096 tokens (each [4096, 5120, 16] fp32 scan
+    input 1.34 GB), then a decode window of 32 one-token rows. The scan must run
+    once a layer in every forward of the runner."""
+    from aphrodite_tpu_torch.ops.selective_scan import selective_scan
+    return serve_workload(
+        "phase 10", "mamba-2.8b-dummy", MAMBA_2P8B,
+        {"selective_scan": selective_scan}, batch_tokens=4096,
+        per_forward={"selective_scan": MAMBA_2P8B["num_hidden_layers"]})[0]
 
 
 def profile_run(one_run, phase: str = "phase 4") -> None:
@@ -860,28 +1039,32 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = one_run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    t0 = time.perf_counter()
+    events = prof.key_averages()  # slow: once, over every event of the run
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     fam = {"ragged": 0.0, "window": 0.0, "quant": 0.0, "moe": 0.0,
-           "gemm": 0.0, "other": 0.0}
+           "scan": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         k = ("ragged" if "rpa_kernel" in n else
              "window" if "wd_kernel" in n else
              "quant" if "qmm_" in n else
              "moe" if "gmm_" in n else
+             "scan" if "scan_kernel" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
         fam[k] += e.self_device_time_total / 1e6
     busy = sum(fam.values())
     # Device time under aten::bmm: the MoE dense (decode) expert combine's
-    # batched products, the only bmm of the port's forwards.
-    bmm = sum(getattr(e, "device_time_total", 0.0) for e in
-              prof.key_averages() if e.key == "aten::bmm") / 1e6
+    # batched products (phase 8) or the Mamba hs . C contraction (phase 10),
+    # the only bmm of the port's forwards.
+    bmm = sum(getattr(e, "device_time_total", 0.0) for e in events
+              if e.key == "aten::bmm") / 1e6
     log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in fam.items())
-        + f"; of which aten::bmm {bmm:.3f} s")
+        + f"; of which aten::bmm {bmm:.3f} s; trace read in "
+        f"{time.perf_counter() - t0:.1f} s")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"# {phase} profile: {e.self_device_time_total / 1e3:9.1f} ms "
             f"x{e.count:<6d} {e.key[:90]}")
@@ -902,7 +1085,7 @@ def main() -> int:
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     names = ["ragged_paged_attention", "window_decode_attention",
-             "quant_matmul", "grouped_matmul"]
+             "quant_matmul", "grouped_matmul", "selective_scan"]
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
@@ -939,6 +1122,12 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
             f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         results[("grouped_matmul", dt)] = r
+    r = check_scan(gen)
+    log(f"# phase 2: selective_scan fp32 at the Mamba-2.8B wave (T=4096, "
+        f"C={SCAN_COLUMNS}): max_abs_err {r['max_abs_err']:.3g} (must be "
+        f"0); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}); no library call")
+    results[("selective_scan", "float32")] = r
     check_prefill_w4(gen)
     tiny_parity()
     qwen_counts = main_path()
@@ -947,6 +1136,8 @@ def main() -> int:
     llama_counts = main_path_8b()
     moe_parity()
     moe_counts = main_path_moe()
+    ssm_parity()
+    mamba_counts = main_path_mamba()
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
@@ -965,6 +1156,9 @@ def main() -> int:
     rows += [(name, "qwen-2l-quant-parity-fp32", "float32",
               quant_counts[name], results[(name, "float32")])
              for name in ("w4a16_matmul", "w8a16_matmul")]
+    rows.append(("selective_scan", "mamba-2.8b-bf16", "float32",
+                 mamba_counts["selective_scan"],
+                 results[("selective_scan", "float32")]))
     replaces = {"ragged_paged_attention":
                 "aphrodite_tpu/ops/ragged_paged_attention.py:247",
                 "window_decode_attention":
@@ -972,6 +1166,7 @@ def main() -> int:
                 # megablox gmm (jax/experimental/pallas/ops/tpu/megablox/
                 # gmm.py:314), called here:
                 "grouped_matmul": "aphrodite_tpu/models/moe_common.py:208",
+                "selective_scan": "aphrodite_tpu/ops/selective_scan.py:64",
                 **{n: r for n, (r, _) in QUANT_KERNELS.items()}}
     kernels = []
     for name, path, dt, launches, r in rows:
