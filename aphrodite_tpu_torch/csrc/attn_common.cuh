@@ -112,3 +112,16 @@ __device__ __forceinline__ int first_visible(int q_lo, int sliding_window,
 
 // dtype codes shared with the Python wrappers.
 enum AttnDtype { kFloat32 = 0, kBFloat16 = 1 };
+
+// The shared memory a block of the current device may opt in to
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 bytes on an H100). Every
+// attention library exports it (each source is built on its own); the
+// wrappers read it once and size their launches to it.
+extern "C" int attn_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}

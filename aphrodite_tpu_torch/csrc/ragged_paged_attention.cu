@@ -16,7 +16,10 @@
 // 64 tokens here, so two tiles per page); all threads stage a tile of K
 // and V into shared memory, then each warp updates its own rows with an
 // online softmax, lane j owning key j. Output goes straight to the flat
-// [T, nq, hd] layout: no per-item buffer and no regather.
+// [T, nq, hd] layout: no per-item buffer and no regather. The wrapper
+// sizes block_q so that this layout fits the card's shared memory
+// (ops/ragged_paged_attention.py: ragged_block_q, ragged_smem_bytes) and
+// passes the bytes: 128 rows at head_dim 128, 80 at head_dim 256.
 //
 // Bound. One prefill wave at the main path's shapes (32 requests x 500
 // tokens, nq 12, kvh 2, hd 128) is ~25 GFLOP of QK^T and PV against
@@ -109,16 +112,11 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
            const int* seq_lens, const int* block_tables, int num_items,
            int max_pages, int nq, int kvh, int page_size, int hd, int block_q,
            float scale, int sliding_window, int chunk_attn, float soft_cap,
-           cudaStream_t stream) {
-  const int rows_max = block_q * (nq / kvh);
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * rows_max * hd + 2 * rows_max +
-                       attn::kTile * (hd + 1) + attn::kTile * hd +
-                       kWarps * attn::kTile);
+           int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      rpa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      rpa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  rpa_kernel<T><<<dim3(num_items, kvh), kWarps * 32, smem, stream>>>(
+  rpa_kernel<T><<<dim3(num_items, kvh), kWarps * 32, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cache),
       static_cast<T*>(out), item_req, item_qstart, item_qlen, item_pos,
       seq_lens, block_tables, max_pages, nq, kvh, page_size, hd, block_q,
@@ -136,19 +134,19 @@ extern "C" int rpa_launch(int dtype, const void* q, const void* cache_layer,
                           int max_pages, int nq, int kvh, int page_size,
                           int hd, int block_q, float scale,
                           int sliding_window, int chunk_attn, float soft_cap,
-                          void* stream) {
+                          int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return launch<float>(q, cache_layer, out, item_req, item_qstart,
                          item_qlen, item_pos, seq_lens, block_tables,
                          num_items, max_pages, nq, kvh, page_size, hd,
                          block_q, scale, sliding_window, chunk_attn,
-                         soft_cap, s);
+                         soft_cap, smem_bytes, s);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(q, cache_layer, out, item_req, item_qstart,
                                  item_qlen, item_pos, seq_lens, block_tables,
                                  num_items, max_pages, nq, kvh, page_size, hd,
                                  block_q, scale, sliding_window, chunk_attn,
-                                 soft_cap, s);
+                                 soft_cap, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

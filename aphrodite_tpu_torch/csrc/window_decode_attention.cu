@@ -11,10 +11,12 @@
 //
 // Design. One block runs one (request, KV head) with its group of query
 // rows (6 at Qwen2.5-1.5B geometry). The visible keys are cut into tiles
-// of 32 (page tiles, then tail tiles); warp w takes tiles w, w + 4, ...
+// of 32 (page tiles, then tail tiles); warp w takes tiles w, w + W, ...
 // and keeps its own online-softmax state for the group rows. Each warp
 // stages its tile of K and V in its own shared memory, lane j owning key
-// j. At the end the block merges the four warps' states.
+// j. At the end the block merges the W warps' states. The wrapper picks W
+// (4, else 2, else 1) so that the tiles fit the card's shared memory
+// (ops/window_decode_attention.py: window_warps): 2 at head_dim 256.
 //
 // Bound. One launch at the main path's shapes (R 32, kvh 2, hd 128,
 // context ~525) reads ~17 MB of K/V in bf16: it is bound by bytes, >= 5 us
@@ -24,10 +26,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kMaxWarps = 4;
 
 template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
           const T* __restrict__ tail_k, const T* __restrict__ tail_v,
           T* __restrict__ out, const int* __restrict__ paged_lens,
@@ -40,6 +42,7 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   const int plen = paged_lens[r], q_pos = plen + step;
   const int tile = min(page_size, kTile);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_warps = blockDim.x / 32;
 
   extern __shared__ float smem[];
   float* q_s = smem;                                    // [group, hd]
@@ -68,7 +71,7 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   const int n_paged = (plen + tile - 1) / tile - t0;
   const int n_tail = (step + 1 + kTile - 1) / kTile;
   const size_t tail_base = ((size_t)r * kvh + h) * kw * hd;
-  for (int t = warp; t < n_paged + n_tail; t += kWarps) {
+  for (int t = warp; t < n_paged + n_tail; t += n_warps) {
     const T *kb, *vb;
     int n, kv0;
     if (t < n_paged) {
@@ -104,12 +107,12 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   for (int i = threadIdx.x; i < group * hd; i += blockDim.x) {
     const int g = i / hd;
     float m = -INFINITY;
-    for (int w = 0; w < kWarps; ++w)
+    for (int w = 0; w < n_warps; ++w)
       m = fmaxf(m, q_s[group * hd + w * per_warp + kTile * (2 * hd + 2) +
                        (size_t)group * hd + g]);
     float acc = 0.f, l = 0.f;
     if (m != -INFINITY) {
-      for (int w = 0; w < kWarps; ++w) {
+      for (int w = 0; w < n_warps; ++w) {
         const float* ws = q_s + (size_t)group * hd + w * per_warp;
         const float* aw = ws + kTile * (2 * hd + 2);
         const float mw = aw[(size_t)group * hd + g];
@@ -129,17 +132,16 @@ int launch(const void* q, const void* cache, const void* tail_k,
            const void* tail_v, void* out, const int* paged_lens,
            const int* block_tables, int num_reqs, int max_pages, int nq,
            int kvh, int page_size, int hd, int kw, int step, float scale,
-           int sliding_window, int chunk_attn, float soft_cap,
-           cudaStream_t stream) {
-  const int group = nq / kvh;
-  const size_t per_warp = (size_t)attn::kTile * (2 * hd + 2) +
-                          (size_t)group * hd + 2 * group;
-  const size_t smem =
-      sizeof(float) * ((size_t)group * hd + kWarps * per_warp);
+           int sliding_window, int chunk_attn, float soft_cap, int warps,
+           int smem_bytes, cudaStream_t stream) {
+  // smem_bytes (computed by the wrapper): q [group, hd], then per warp a K
+  // tile [kTile, hd + 1], a V tile [kTile, hd], p [kTile], acc [group, hd],
+  // m and l [group], all fp32.
+  if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  wd_kernel<T><<<dim3(num_reqs, kvh), kWarps * 32, smem, stream>>>(
+  wd_kernel<T><<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cache),
       static_cast<const T*>(tail_k), static_cast<const T*>(tail_v),
       static_cast<T*>(out), paged_lens, block_tables, max_pages, nq, kvh,
@@ -155,18 +157,19 @@ extern "C" int wd_launch(int dtype, const void* q, const void* cache_layer,
                          const int* block_tables, int num_reqs, int max_pages,
                          int nq, int kvh, int page_size, int hd, int kw,
                          int step, float scale, int sliding_window,
-                         int chunk_attn, float soft_cap, void* stream) {
+                         int chunk_attn, float soft_cap, int warps,
+                         int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return launch<float>(q, cache_layer, tail_k_layer, tail_v_layer, out,
                          paged_lens, block_tables, num_reqs, max_pages, nq,
                          kvh, page_size, hd, kw, step, scale, sliding_window,
-                         chunk_attn, soft_cap, s);
+                         chunk_attn, soft_cap, warps, smem_bytes, s);
   if (dtype == kBFloat16)
     return launch<__nv_bfloat16>(q, cache_layer, tail_k_layer, tail_v_layer,
                                  out, paged_lens, block_tables, num_reqs,
                                  max_pages, nq, kvh, page_size, hd, kw, step,
                                  scale, sliding_window, chunk_attn, soft_cap,
-                                 s);
+                                 warps, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

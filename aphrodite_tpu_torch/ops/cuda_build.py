@@ -115,3 +115,31 @@ def stream(device) -> int:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100: what the runner sizes
+# its launches for when it runs on the CPU, where no card can be asked.
+H100_SMEM_OPTIN = 232448
+_SMEM_OPTIN: list[int] = []
+
+
+def smem_optin() -> int:
+    """The shared memory a block of the card may opt in to, in bytes, read
+    once from the device through an attention library's
+    ``attn_smem_optin`` (``csrc/attn_common.cuh``)."""
+    if not _SMEM_OPTIN:
+        fn = entry("ragged_paged_attention", "attn_smem_optin",
+                   [ctypes.c_void_p])
+        val = ctypes.c_int(0)
+        check(fn(ctypes.addressof(val)), "attn_smem_optin")
+        _SMEM_OPTIN.append(val.value)
+    return _SMEM_OPTIN[0]
+
+
+def check_smem(what: str, need: int, allowed: int) -> None:
+    """Raise, naming both sizes, when a launch needs more shared memory
+    than the card allows a block."""
+    if need > allowed:
+        raise RuntimeError(
+            f"{what} needs {need} bytes of shared memory per block; the card "
+            f"allows {allowed}")

@@ -21,8 +21,36 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _I, _I, _F, _I, _I, _F, _P]
+             _I, _I, _F, _I, _I, _F, _I, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Keys per shared-memory tile and warps per block of the kernel.
+_TILE, _WARPS = 32, 8
+# Query rows (tokens x query heads of one KV head) per work item, at most.
+_MAX_ROWS = 128
+
+
+def ragged_smem_bytes(block_q: int, group: int, hd: int) -> int:
+    """Shared memory of one launch (the kernel's layout): q and acc for
+    block_q * group rows, their m and l, a K tile padded to hd + 1 floats,
+    a V tile and the warps' probabilities, all fp32."""
+    rows = block_q * group
+    return 4 * (2 * rows * hd + 2 * rows + _TILE * (hd + 1) + _TILE * hd
+                + _WARPS * _TILE)
+
+
+def ragged_block_q(group: int, hd: int, smem_limit: int) -> int:
+    """Tokens per work item: as many whole groups of query rows as fit both
+    _MAX_ROWS and the card's shared memory, rows <= (limit/4 - 32(2hd+1)
+    - 256) / (2hd+2): 128 rows at hd 128, 80 at hd 256. Raises, naming the
+    bytes, when not even one token fits."""
+    fit = ((smem_limit // 4 - _TILE * (2 * hd + 1) - _WARPS * _TILE)
+           // (2 * hd + 2))
+    block_q = max(1, min(_MAX_ROWS, fit) // group)
+    cuda_build.check_smem(
+        f"ragged_paged_attention (group {group}, head_dim {hd}, "
+        f"{block_q} tokens a work item)",
+        ragged_smem_bytes(block_q, group, hd), smem_limit)
+    return block_q
 
 
 def ref_ragged_paged_attention(
@@ -111,13 +139,17 @@ def ragged_paged_attention(
     num_items = md.item_req.shape[0]
     if num_items == 0:
         return out
+    smem = ragged_smem_bytes(md.block_q, nq // kvh, hd)
+    cuda_build.check_smem(
+        f"ragged_paged_attention (group {nq // kvh}, head_dim {hd}, "
+        f"{md.block_q} tokens a work item)", smem, cuda_build.smem_optin())
     launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
                               _ARGTYPES)
     err = launch(
         DTYPE_CODES[q.dtype], q.data_ptr(), cache_layer.data_ptr(),
         out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
         md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
-        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, smem,
         cuda_build.stream(q.device))
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1

@@ -20,7 +20,29 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _F, _I, _I, _F, _P]
+             _I, _F, _I, _I, _F, _I, _I, _P]
+_TILE = 32  # keys per warp tile
+
+
+def window_smem_bytes(group: int, hd: int, warps: int) -> int:
+    """Shared memory of one launch (the kernel's layout): q [group, hd],
+    then per warp a K tile [32, hd + 1], a V tile [32, hd], p [32], acc
+    [group, hd], m and l [group], all fp32."""
+    per_warp = _TILE * (2 * hd + 2) + group * hd + 2 * group
+    return 4 * (group * hd + warps * per_warp)
+
+
+def window_warps(group: int, hd: int, smem_limit: int) -> int:
+    """Warps per block: 4, else 2, else 1, the first whose tiles fit the
+    card's shared memory (2 at head_dim 256). Raises, naming the bytes,
+    when not even one warp fits."""
+    for warps in (4, 2):
+        if window_smem_bytes(group, hd, warps) <= smem_limit:
+            return warps
+    cuda_build.check_smem(
+        f"window_decode_attention (group {group}, head_dim {hd})",
+        window_smem_bytes(group, hd, 1), smem_limit)
+    return 1
 
 
 def ref_window_decode_attention(
@@ -119,6 +141,7 @@ def window_decode_attention(
             raise ValueError("metadata must be contiguous int32 on q's "
                              "device")
     out = torch.empty_like(q)
+    warps = window_warps(nq // kvh, hd, cuda_build.smem_optin())
     launch = cuda_build.entry("window_decode_attention", "wd_launch",
                               _ARGTYPES)
     err = launch(
@@ -126,8 +149,8 @@ def window_decode_attention(
         tail_k[layer].data_ptr(), tail_v[layer].data_ptr(), out.data_ptr(),
         paged_lens.data_ptr(), block_tables.data_ptr(), R,
         block_tables.shape[1], nq, kvh, page, hd, Kw, step, scale,
-        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-        cuda_build.stream(q.device))
+        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, warps,
+        window_smem_bytes(nq // kvh, hd, warps), cuda_build.stream(q.device))
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
     return out

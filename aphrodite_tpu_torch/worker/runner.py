@@ -37,12 +37,11 @@ from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
 from aphrodite_tpu_torch.config import EngineConfig
 from aphrodite_tpu_torch.core.sched_output import (ModelRunnerOutput,
                                                    SchedulerOutput)
+from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops.ragged_paged_attention import ragged_block_q
 from aphrodite_tpu_torch.sample.sampler import greedy_sample
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 from aphrodite_tpu_torch.utils import logger, next_power_of_2
-
-# Query rows (tokens x query heads of one KV head) per ragged work item.
-_ROWS_PER_ITEM = 128
 
 
 @dataclass
@@ -93,8 +92,13 @@ class ModelRunner:
         logger.info("KV cache: %s %s (%.2f GiB)", shape, model.dtype,
                     self.kv_cache.numel() * self.kv_cache.element_size()
                     / 2**30)
-        group = model.num_heads // model.num_kv_heads
-        self.block_q = max(1, _ROWS_PER_ITEM // group)
+        # Tokens per ragged work item, sized to the card's shared memory
+        # (the JAX runner sizes its block_q from the geometry too,
+        # ``runner.py:216-245``).
+        self.block_q = ragged_block_q(
+            model.num_heads // model.num_kv_heads, model.head_dim,
+            cuda_build.smem_optin() if device.type == "cuda"
+            else cuda_build.H100_SMEM_OPTIN)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)

@@ -24,10 +24,11 @@ from aphrodite_tpu.ops.window_decode_attention import (
     window_decode_attention as jax_window_kernel)
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.attention.metadata import build_work_items
+from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    ragged_paged_attention)
+    ragged_block_q, ragged_paged_attention, ragged_smem_bytes)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
-    window_decode_attention)
+    window_decode_attention, window_smem_bytes, window_warps)
 
 ATOL = 1e-5
 PAGE, KVH, NQ, L, LAYER = 16, 2, 4, 2, 1
@@ -188,3 +189,54 @@ def test_unported_kernel_options_raise():
             0, torch.ones(1, dtype=torch.int32),
             torch.ones(1, 1, dtype=torch.int32), 0.1,
             cascade_init=(None, None, None))
+
+
+# (group, head_dim): ragged query rows a work item, window warps.
+LAUNCH_GEOMS = {
+    (2, 256): (80, 2),    # Gemma-2-9B
+    (4, 128): (128, 4),   # Llama-3.1-8B
+    (6, 128): (126, 4),   # Qwen2.5-1.5B
+    (8, 256): (80, 2),    # Gemma-2B (MQA)
+    (1, 64): (128, 4),
+}
+
+
+@pytest.mark.parametrize("group,hd", sorted(LAUNCH_GEOMS))
+def test_launches_fit_an_h100(group, hd):
+    rows, w_warps = LAUNCH_GEOMS[(group, hd)]
+    block_q = ragged_block_q(group, hd, H100_SMEM_OPTIN)
+    assert block_q * group == rows
+    assert ragged_smem_bytes(block_q, group, hd) <= H100_SMEM_OPTIN
+    if rows + group <= 128:  # the shared memory, not the row cap, binds
+        assert ragged_smem_bytes(block_q + 1, group, hd) > H100_SMEM_OPTIN
+    assert window_warps(group, hd, H100_SMEM_OPTIN) == w_warps
+    assert window_smem_bytes(group, hd, w_warps) <= H100_SMEM_OPTIN
+
+
+def test_the_old_launch_sizes_overflow_at_head_dim_256():
+    """The sizes the kernels had before: 128 ragged rows and 4 window
+    warps need more than the H100's 232,448 bytes at head_dim 256."""
+    assert ragged_smem_bytes(64, 2, 256) == 329856
+    assert window_smem_bytes(2, 256, 4) == 273472
+    assert ragged_smem_bytes(64, 2, 128) <= H100_SMEM_OPTIN
+
+
+def test_a_geometry_that_cannot_fit_raises():
+    with pytest.raises(RuntimeError, match="needs 8.* bytes of shared "
+                       "memory per block; the card allows 232448"):
+        ragged_block_q(128, 640, H100_SMEM_OPTIN)
+    with pytest.raises(RuntimeError, match="the card allows 232448"):
+        window_warps(128, 640, H100_SMEM_OPTIN)
+
+
+def test_runner_sizes_block_q_to_the_geometry():
+    from aphrodite_tpu_torch import LLM
+    for hd, block_q in ((256, 40), (128, 64)):
+        cfg = dict(vocab_size=64, hidden_size=64, num_hidden_layers=1,
+                   num_attention_heads=8, num_key_value_heads=4, head_dim=hd,
+                   intermediate_size=64, architectures=["LlamaForCausalLM"])
+        llm = LLM("tiny", hf_config=cfg, tokenizer="unused",
+                  dtype="float32", device="cpu", block_size=16,
+                  num_kv_blocks=8, max_num_seqs=2, max_num_batched_tokens=32,
+                  max_model_len=64)
+        assert llm.engine.core.worker.runner.block_q == block_q
