@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
+from aphrodite_tpu_torch.ops.decode_paged_attention import (
+    decode_paged_attention)
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention, ref_ragged_paged_attention)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
@@ -58,11 +60,20 @@ def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int,
                     md: AttentionMetadata, scale: float,
                     sliding_window: Optional[int] = None,
                     logits_soft_cap: Optional[float] = None,
-                    chunk_attn: Optional[int] = None) -> torch.Tensor:
-    """Prefill / mixed-wave attention over the paged cache."""
+                    chunk_attn: Optional[int] = None,
+                    alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over the paged cache: the decode kernel for a pure-decode
+    step (``md.decode_mode``, ``backend.py:335-344`` of the JAX package),
+    else the ragged kernel (prefill and mixed waves). ``alibi``: [nq] fp32
+    slopes or None."""
+    if md.decode_mode:
+        return decode_paged_attention(
+            q, kv_cache, layer, md.block_tables, md.seq_lens, scale,
+            sliding_window=sliding_window, chunk_attn=chunk_attn,
+            logits_soft_cap=logits_soft_cap, alibi=alibi)
     return ragged_paged_attention(
         q, kv_cache, layer, md, scale, sliding_window=sliding_window,
-        logits_soft_cap=logits_soft_cap, chunk_attn=chunk_attn)
+        logits_soft_cap=logits_soft_cap, chunk_attn=chunk_attn, alibi=alibi)
 
 
 def window_attention(q: torch.Tensor, kv_cache: torch.Tensor,

@@ -36,6 +36,12 @@ class AttentionMetadata:
     item_qlen: Optional[torch.Tensor] = None
     item_pos: Optional[torch.Tensor] = None
     block_q: Optional[int] = None
+    # ---- pure-decode step (ops/decode_paged_attention.py). ----
+    # True: one query token per request at position seq_lens[r] - 1, its
+    # K/V already in the pages; attention runs the decode kernel (the JAX
+    # package's ``decode_mode``). Set by the runner's non-window multi-step
+    # decode.
+    decode_mode: bool = False
     # ---- decode window (ops/window_decode_attention.py). ----
     # Step within the window, and [R] int32 tokens frozen in the pages at
     # window entry. Set only by the runner's window path.

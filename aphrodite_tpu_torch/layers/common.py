@@ -16,3 +16,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
 
 def silu_and_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+def gelu_and_mul(gate: torch.Tensor, up: torch.Tensor,
+                 approximate: str = "tanh") -> torch.Tensor:
+    return F.gelu(gate, approximate=approximate) * up
+
+
+# HF activation name -> gated activation (the JAX package's ACT2MUL: its
+# "gelu" is the tanh approximation too).
+ACT2MUL = {
+    "silu": silu_and_mul,
+    "gelu": gelu_and_mul,
+    "gelu_pytorch_tanh": gelu_and_mul,
+}

@@ -1,7 +1,7 @@
 """Rotary position embeddings (HF rotate-half convention).
 
-The default frequencies and Llama 3's frequency scaling are ported; every
-other rope scaling mode raises ``NotImplementedError``.
+The default frequencies, linear scaling and Llama 3's frequency scaling are
+ported; every other rope scaling mode raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,17 +35,20 @@ class RopeConfig:
 
 
 def compute_inv_freq(cfg: RopeConfig) -> np.ndarray:
-    """inv_freq [rotary_dim//2] float32: default frequencies, or Llama 3's
-    frequency scaling (the JAX package's ``rotary.py:79-91``)."""
+    """inv_freq [rotary_dim//2] float32: default frequencies, linear
+    scaling (positions / factor) or Llama 3's frequency scaling (the JAX
+    package's ``rotary.py:74-91``), equal to it bit for bit."""
     s = cfg.scaling or {}
     rope_type = s.get("rope_type", s.get("type", "default"))
-    if rope_type not in ("default", "llama3"):
+    if rope_type not in ("default", "linear", "llama3"):
         raise NotImplementedError(
             f"rope scaling {rope_type!r} is not ported yet")
     dim = cfg.rotary_dim
     inv_freq = 1.0 / (cfg.base ** (np.arange(0, dim, 2, dtype=np.float64)
                                    / dim))
-    if rope_type == "llama3":
+    if rope_type == "linear":
+        inv_freq = inv_freq * (1.0 / s.get("factor", 1.0))
+    elif rope_type == "llama3":
         factor = s.get("factor", 8.0)
         low_f = s.get("low_freq_factor", 1.0)
         high_f = s.get("high_freq_factor", 4.0)

@@ -25,7 +25,8 @@ from aphrodite_tpu_torch.quantization.base import QuantizationConfig
 _FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
           "w_gate_up": ("w_gate", "w_up")}
 _DIRECT = ("input_norm", "wo", "post_norm", "w_down", "q_norm", "k_norm",
-           "q_norm_flat", "k_norm_flat")
+           "q_norm_flat", "k_norm_flat", "post_attn_norm", "pre_ffw_norm",
+           "post_ffw_norm")
 _REQUIRED = ("w_qkv", "input_norm", "wo", "post_norm")
 # A MoE layer's leaves (``layers.<i>.moe.<name>``): the experts' and the
 # shared expert's gate|up fused on N.
@@ -127,13 +128,17 @@ def _ssm_params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
 def params_from_jax(tree: Mapping[str, Any],
                     layer_kinds: Optional[list[str]] = None
                     ) -> dict[str, np.ndarray]:
-    """The JAX package's Llama/Qwen2, sparse-MoE or Mamba-family parameter
-    tree (leaves: numpy or any array convertible with ``np.asarray``) -> the
-    port's state dict. Takes both the unmerged ``wq/wk/wv`` +
-    ``w_gate/w_up`` tree and the fused ``w_qkv`` / ``w_gate_up`` tree of
-    ``maybe_merge_params``, with or without q/k/v biases and QK norms. Quantized projections are dicts of
-    leaves (``qweight`` or ``qweight_packed``, ``scales``, ``zeros``,
-    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``.
+    """The JAX package's Llama/Qwen2, Gemma-family, sparse-MoE or
+    Mamba-family parameter tree (leaves: numpy or any array convertible
+    with ``np.asarray``) -> the port's state dict. Takes both the unmerged
+    ``wq/wk/wv`` + ``w_gate/w_up`` tree and the fused ``w_qkv`` /
+    ``w_gate_up`` tree of ``maybe_merge_params``, with or without q/k/v
+    biases and QK norms. Gemma trees are always unfused and may hold
+    Gemma-2's sandwich norms; their ``is_sliding`` flags are left out:
+    they are no weight, and both packages derive them from the config.
+    Quantized projections are dicts of leaves (``qweight`` or
+    ``qweight_packed``, ``scales``, ``zeros``, ``input_perm``); they become
+    ``layers.<i>.<name>.<leaf>``.
 
     MoE trees keep ``router``, ``we_*`` and ``ws_*`` stacks: beside the
     attention leaves under ``layers`` when every layer is MoE, or under

@@ -34,7 +34,7 @@ from aphrodite_tpu_torch.attention.backend import (paged_attention,
                                                    write_kv, write_tail)
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.config import ModelConfig
-from aphrodite_tpu_torch.layers.common import rms_norm, silu_and_mul
+from aphrodite_tpu_torch.layers.common import ACT2MUL, rms_norm
 from aphrodite_tpu_torch.layers.linear import apply_linear, matmul_f32
 from aphrodite_tpu_torch.layers.rotary import (RopeConfig, apply_rope,
                                                compute_cos_sin,
@@ -131,6 +131,10 @@ class LlamaForCausalLM(nn.Module):
     qkv_bias: bool = False
     tie_embeddings_default: bool = False
     qk_norm: Optional[str] = None  # None | "head" | "flat"
+    # The runner may run decode windows through ``forward_window`` (frozen
+    # cache + tails); a model without it decodes through ``forward`` with
+    # ``md.decode_mode`` (the runner's ``_execute_multi_step``).
+    supports_window_decode: bool = True
 
     def __init__(self, config: ModelConfig,
                  device: torch.device | str = "cpu",
@@ -152,8 +156,9 @@ class LlamaForCausalLM(nn.Module):
         self.sliding_window = config.sliding_window
         self.scale = self.head_dim ** -0.5
         act = config.get("hidden_act", "silu")
-        if act != "silu":
+        if act not in ACT2MUL:
             raise NotImplementedError(f"activation {act!r} is not ported")
+        self.act = ACT2MUL[act]
         self.tie_embeddings = config.get("tie_word_embeddings",
                                          self.tie_embeddings_default)
         self.qkv_bias = config.get("attention_bias", self.qkv_bias)
@@ -227,7 +232,7 @@ class LlamaForCausalLM(nn.Module):
 
     def _mlp(self, layer: LlamaDecoderLayer, h: torch.Tensor) -> torch.Tensor:
         gate, up = self._lin(h, layer.w_gate_up).chunk(2, dim=-1)
-        return self._lin(silu_and_mul(gate, up), layer.w_down)
+        return self._lin(self.act(gate, up), layer.w_down)
 
     def _finish(self, layer: LlamaDecoderLayer, x: torch.Tensor,
                 o: torch.Tensor) -> torch.Tensor:

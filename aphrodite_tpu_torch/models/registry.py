@@ -10,6 +10,9 @@ from typing import Optional
 MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "LlamaForCausalLM": ("llama", "LlamaForCausalLM"),
     "Qwen2ForCausalLM": ("llama", "Qwen2ForCausalLM"),
+    "GemmaForCausalLM": ("gemma", "GemmaForCausalLM"),
+    "Gemma2ForCausalLM": ("gemma", "Gemma2ForCausalLM"),
+    "Gemma3ForCausalLM": ("gemma", "Gemma3ForCausalLM"),
     "MixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
     "QuantMixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
     "Qwen2MoeForCausalLM": ("mixtral", "Qwen2MoeForCausalLM"),

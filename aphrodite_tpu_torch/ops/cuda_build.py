@@ -143,3 +143,14 @@ def check_smem(what: str, need: int, allowed: int) -> None:
         raise RuntimeError(
             f"{what} needs {need} bytes of shared memory per block; the card "
             f"allows {allowed}")
+
+
+def fit_warps(what: str, smem_bytes, allowed: int) -> int:
+    """Warps per block for a kernel whose warps each stage their own tiles:
+    4, else 2, else 1, the first whose ``smem_bytes(warps)`` fits. Raises,
+    naming the bytes, when not even one warp fits."""
+    for warps in (4, 2):
+        if smem_bytes(warps) <= allowed:
+            return warps
+    check_smem(what, smem_bytes(1), allowed)
+    return 1

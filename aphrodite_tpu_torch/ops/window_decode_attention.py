@@ -34,15 +34,10 @@ def window_smem_bytes(group: int, hd: int, warps: int) -> int:
 
 def window_warps(group: int, hd: int, smem_limit: int) -> int:
     """Warps per block: 4, else 2, else 1, the first whose tiles fit the
-    card's shared memory (2 at head_dim 256). Raises, naming the bytes,
-    when not even one warp fits."""
-    for warps in (4, 2):
-        if window_smem_bytes(group, hd, warps) <= smem_limit:
-            return warps
-    cuda_build.check_smem(
+    card's shared memory (2 at head_dim 256); raises when none fits."""
+    return cuda_build.fit_warps(
         f"window_decode_attention (group {group}, head_dim {hd})",
-        window_smem_bytes(group, hd, 1), smem_limit)
-    return 1
+        lambda warps: window_smem_bytes(group, hd, warps), smem_limit)
 
 
 def ref_window_decode_attention(

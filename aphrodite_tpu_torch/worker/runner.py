@@ -1,7 +1,7 @@
 """Model runner: turns a SchedulerOutput into device work, synchronously.
 
 Counterpart of the JAX package's ``worker/runner.py`` for the serving main
-path. Two kinds of step:
+path. Three kinds of step:
 
 - ``_execute_step``: a prefill or mixed wave. The scheduled tokens are laid
   out back to back, K/V go into the paged cache, attention runs the ragged
@@ -12,6 +12,11 @@ path. Two kinds of step:
   sub-step's K/V go into per-layer tails, attention runs the window decode
   kernel, and the sampled token feeds the next sub-step on the device. At
   the end the tails are flushed into the pages (``runner.py:458-649``).
+- ``_execute_multi_step``: the same decode windows for a model without
+  window decode (Gemma family: ``supports_window_decode`` False). Each
+  sub-step writes its K/V straight into the pages and attends with the
+  decode kernel (``md.decode_mode``); no tails, no flush
+  (``runner.py:352-456``).
 
 Recurrent-state (Mamba-family) models have no paged KV cache: the model's
 ``{"conv", "ssm"}`` state buffers take its place, each request holds a
@@ -148,7 +153,9 @@ class ModelRunner:
         if num_steps > 1:
             if self.is_ssm:
                 return self._execute_ssm_window(order, num_steps, budgets)
-            return self._execute_window(order, num_steps, budgets)
+            if self.model.supports_window_decode:
+                return self._execute_window(order, num_steps, budgets)
+            return self._execute_multi_step(order, num_steps, budgets)
         return self._execute_step(so, order)
 
     def _block_tables(self, order: list[str]) -> np.ndarray:
@@ -303,6 +310,47 @@ class ModelRunner:
             tok_buf[i] = toks
             lp_buf[i] = lp
         self._flush_tails(tail_k, tail_v, paged_lens, block_tables, budget)
+        return self._window_output(order, counts, tok_buf, lp_buf)
+
+    def _execute_multi_step(self, order: list[str], num_steps: int,
+                            step_budgets: list[int]) -> ModelRunnerOutput:
+        """K one-token forwards in decode mode (``runner.py:352-456``):
+        sub-step i writes each live row's K/V at its position (the page
+        ``block_tables[pos // page]``, inside the window's lookahead pages),
+        attends positions 0..pos with the decode kernel and samples on the
+        device; the token feeds sub-step i + 1. Rows past their budget get
+        slot -1 (their K/V land in the null page), hold their token and
+        keep their seq_len."""
+        model, dev = self.model, self.device
+        R, K, bs = len(order), num_steps, self.block_size
+        cur = np.asarray([self.requests[rid].token_ids[-1] for rid in order],
+                         np.int64)
+        seq_lens0 = np.asarray([self.requests[rid].num_tokens
+                                for rid in order], np.int32)
+        counts = np.minimum(np.asarray(step_budgets, np.int32), K)
+        budget = self._dev(counts)
+        block_tables = self._dev(self._block_tables(order))
+        bt_long = block_tables.long()
+        arange_r = torch.arange(R, dtype=torch.int32, device=dev)
+        seqlens = self._dev(seq_lens0)
+        toks = self._dev(cur)
+        tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
+        lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        for i in range(K):
+            live = i < budget
+            pos = seqlens - 1
+            pages = torch.gather(bt_long, 1, (pos // bs).long()[:, None])[:, 0]
+            slots = torch.where(live, pages * bs + (pos % bs).long(), -1)
+            md = AttentionMetadata(
+                token_req_idx=arange_r, token_pos=pos, slot_mapping=slots,
+                seq_lens=seqlens, block_tables=block_tables,
+                decode_mode=True)
+            hidden = model(toks, self.kv_cache, md)
+            new_tok, lp = greedy_sample(model.compute_logits(hidden))
+            toks = torch.where(live, new_tok, toks)
+            tok_buf[i] = toks
+            lp_buf[i] = lp
+            seqlens = seqlens + live.int()
         return self._window_output(order, counts, tok_buf, lp_buf)
 
     def _window_output(self, order: list[str], counts: np.ndarray,

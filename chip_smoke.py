@@ -49,6 +49,16 @@ CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
    models, so every run is cold: one warm-up, 3 timed runs, one profiled
    run. Exactly 2048 tokens and no cached prompt token a run; the scan
    launched 64 times (once a layer) for every forward of the runner.
+11. Gemma parity: a tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA, linear
+   rope on its global layer) in fp32 with a 16-token sliding window and
+   soft caps, card vs CPU with the same weights, prompts past the window,
+   16-step decode windows: greedy tokens must be equal and the decode
+   kernel launched.
+12. The main path of the Gemma slice: Gemma-2-9B (``google/gemma-2-9b``)
+   at full width and depth, bf16, phase 6's traffic and runs. Exactly 2048
+   tokens a run; decode runs the non-window multi-step path, so in every
+   cold and warm run the decode kernel launches 42 x 63 = 2646 times, the
+   ragged kernel 42 times and the window kernel never.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -56,6 +66,13 @@ prefill wave's 65536 sorted rows over 60 experts, gate|up and down, with
 balanced (random top-4) and skewed group sizes (empty groups, one group
 holding ~45 % of the rows), and at M = 240, where the grouped route
 starts; yardstick ``torch._grouped_mm`` where the card's torch has it.
+It holds the decode kernel (which stands in for the TPU
+``decode_paged_attention``) in bf16 and fp32 at phase 12's decode step
+(32 rows, 16 / 8 heads of 256, contexts 513-576, soft cap 50), with a
+256-token sliding window over ~1030-token contexts, and with ALiBi and
+chunked local attention at head_dim 128, against
+``scaled_dot_product_attention`` over gathered dense K/V; and the ragged
+and window kernels at head_dim 256 (phase 12's heads).
 It holds the selective scan (which stands in for the TPU
 ``selective_scan``) against its plain version in fp32, where the two must
 be equal bit for bit, at phase 10's shapes (a 4096-token wave of 8
@@ -69,8 +86,10 @@ that runs it, with that path's launches and shapes), the card line, and
 """
 from __future__ import annotations
 
+import bisect
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -118,6 +137,12 @@ ATTN_GEOMS = {
         nq=32, kvh=8, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
     "qwen1.5-moe-a2.7b-bf16": dict(  # phase 8: 32 x 512 in one wave
         nq=16, kvh=16, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
+    # phase 12: 32 x 512 in one wave at head_dim 256 (the ragged kernel's
+    # 80-row items, the window kernel's 2-warp blocks; Gemma decodes on
+    # the decode kernel, so the window kernel is held here only)
+    "gemma-2-9b-bf16": dict(
+        nq=16, kvh=8, hd=256, ctx=[512] * 32, qlen=[512] * 32,
+        paged=[512] * 32),
 }
 
 QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
@@ -172,14 +197,14 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2):
+def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2, hd=HD):
     """Random [L, P, 2, kvh, page, hd] cache and shuffled block tables
     covering ctx_lens tokens per request."""
     import torch
     pages_per = [-(-n // PAGE) for n in ctx_lens]
     max_pages = max(pages_per)
     num_pages = sum(pages_per) + 1
-    cache = torch.randn((num_layers, num_pages, 2, kvh, PAGE, HD),
+    cache = torch.randn((num_layers, num_pages, 2, kvh, PAGE, hd),
                         generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
     bt = torch.zeros((len(ctx_lens), max_pages), dtype=torch.int32,
@@ -193,9 +218,9 @@ def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2):
 
 def dense_kv(cache_layer, bt, ctx_lens, s_max):
     """Gather each request's K/V into dense [R, kvh, s_max, hd]."""
-    R, kvh = len(ctx_lens), cache_layer.shape[2]
+    R, kvh, hd = len(ctx_lens), cache_layer.shape[2], cache_layer.shape[-1]
     kv = cache_layer[bt.long()]                 # [R, MP, 2, kvh, page, hd]
-    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, -1, HD)
+    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, -1, hd)
     return kv[:, 0, :, :s_max].contiguous(), kv[:, 1, :, :s_max].contiguous()
 
 
@@ -205,16 +230,18 @@ def check_ragged(gen, dtype_name: str, geom: dict) -> dict:
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
                                                         build_work_items)
+    from aphrodite_tpu_torch.ops import cuda_build
     from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention, ref_ragged_paged_attention)
+        ragged_block_q, ragged_paged_attention, ref_ragged_paged_attention)
     dtype = getattr(torch, dtype_name)
     NQ, KVH, ctx, qn = geom["nq"], geom["kvh"], geom["ctx"], geom["qlen"]
-    cache, bt = paged_cache(gen, ctx, dtype, KVH)
+    HD = geom.get("hd", 128)
+    cache, bt = paged_cache(gen, ctx, dtype, KVH, hd=HD)
     R, T = len(ctx), sum(qn)
     qsl = np.concatenate([[0], np.cumsum(qn)]).astype(np.int32)
     tok_req = np.repeat(np.arange(R), qn).astype(np.int32)
     tok_pos = np.concatenate([np.arange(c - n, c) for c, n in zip(ctx, qn)])
-    block_q = 128 // (NQ // KVH)
+    block_q = ragged_block_q(NQ // KVH, HD, cuda_build.smem_optin())
     items = build_work_items(qsl[:-1], np.diff(qsl),
                              np.asarray(ctx, np.int32), R, block_q)
     dev = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
@@ -269,8 +296,9 @@ def check_window(gen, dtype_name: str, geom: dict) -> dict:
         ref_window_decode_attention, window_decode_attention)
     dtype = getattr(torch, dtype_name)
     NQ, KVH, plens = geom["nq"], geom["kvh"], geom["paged"]
+    HD = geom.get("hd", 128)
     R, Kw, layer = len(plens), 64, 1
-    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, KVH)
+    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, KVH, hd=HD)
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
                          device="cuda").to(dtype)
     tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
@@ -313,6 +341,90 @@ def check_window(gen, dtype_name: str, geom: dict) -> dict:
     nbytes = item * (2 * R * NQ * HD + 2 * KVH * HD * vis)
     ops = 4.0 * NQ * HD * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+# Decode kernel cases: (heads, head_dim, context lengths, options). The
+# Gemma-2-9B path's decode step (contexts 513-576 while 32 requests decode
+# 64 tokens after 512-token prompts; soft cap 50), the same with a 256-token
+# sliding window over ~1030-token contexts (so the mask bites), and ALiBi
+# and chunked local attention at head_dim 128.
+DECODE_CASES = {
+    "gemma-2-9b": (16, 8, 256, [513 + (37 * r) % 64 for r in range(32)],
+                   dict(logits_soft_cap=50.0)),
+    "gemma-2-9b-window": (16, 8, 256, [1000 + (37 * r) % 64
+                                       for r in range(32)],
+                          dict(logits_soft_cap=50.0, sliding_window=256)),
+    "alibi-hd128": (16, 8, 128, [513 + (37 * r) % 64 for r in range(32)],
+                    dict(alibi=True)),
+    "chunk-hd128": (16, 8, 128, [1000 + (37 * r) % 64 for r in range(32)],
+                    dict(chunk_attn=256)),
+}
+
+
+def check_decode(gen, dtype_name: str, case: str) -> dict:
+    """The decode kernel on one case of ``DECODE_CASES``: error against
+    its plain version, kernel and plain times, the bound (each visible K/V
+    row read once, q read and the output written once) and the yardstick,
+    one ``scaled_dot_product_attention`` call over K/V gathered into dense
+    [R, kvh, S, hd] with the same mask (ALiBi as an additive bias; SDPA has
+    no soft cap, so it computes the uncapped function there)."""
+    import torch
+    import torch.nn.functional as F
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention, ref_decode_paged_attention)
+    dtype = getattr(torch, dtype_name)
+    nq, kvh, hd, ctx, opts = DECODE_CASES[case]
+    opts = dict(opts)
+    if opts.pop("alibi", False):  # the JAX package's slopes for 16 heads
+        opts["alibi"] = torch.tensor([2.0 ** (-0.5 * (h + 1))
+                                      for h in range(nq)], device="cuda")
+    R, layer = len(ctx), 1
+    cache, bt = paged_cache(gen, ctx, dtype, kvh, hd=hd)
+    sl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    q = torch.randn((R, nq, hd), generator=gen, device="cuda").to(dtype)
+    scale = hd ** -0.5
+    out = decode_paged_attention(q, cache, layer, bt, sl, scale, **opts)
+    ref = ref_decode_paged_attention(q, cache[layer], bt, sl, scale, **opts)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+        raise AssertionError(f"decode kernel {case} {dtype_name}: "
+                             f"max_abs_err {err} > {TOL[dtype_name]}")
+    ms = cuda_ms(lambda: decode_paged_attention(q, cache, layer, bt, sl,
+                                                scale, **opts), 200)
+    plain_ms = cuda_ms(lambda: ref_decode_paged_attention(
+        q, cache[layer], bt, sl, scale, **opts), 5)
+    s_max = max(ctx)
+    k_d, v_d = dense_kv(cache[layer], bt, ctx, s_max)
+    j = torch.arange(s_max, device="cuda")[None, :]
+    pos = (sl.long() - 1)[:, None]
+    keep = j <= pos
+    if "sliding_window" in opts:
+        keep &= j > pos - opts["sliding_window"]
+    if "chunk_attn" in opts:
+        keep &= j // opts["chunk_attn"] == pos // opts["chunk_attn"]
+    mask = keep[:, None, None, :]
+    if "alibi" in opts:
+        mask = torch.where(mask, opts["alibi"][None, :, None, None]
+                           * (j - pos).float()[:, None, None, :],
+                           float("-inf")).to(dtype)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k_d, v_d, attn_mask=mask, scale=scale,
+        enable_gqa=True), 50)
+    vis = int(keep.sum().item())   # K/V rows this run's masks let in
+    item = torch.finfo(dtype).bits // 8
+    nbytes = item * (2 * R * nq * hd + 2 * kvh * hd * vis)
+    ops = 4.0 * nq * hd * vis
+    b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
+    log(f"# phase 2: decode_paged_attention {case} {dtype_name} (R {R}, nq "
+        f"{nq}, kvh {kvh}, hd {hd}, contexts {min(ctx)}-{max(ctx)}, "
+        f"{opts if 'alibi' not in opts else 'alibi'}): max_abs_err "
+        f"{err:.3g} (tol {TOL[dtype_name]}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}, {vis} K/V rows), {nbytes / ms / 1e6:.0f} GB/s")
+    del cache, k_d, v_d, ref
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
 
@@ -810,7 +922,8 @@ def moe_parity() -> int:
 
 def serve_workload(phase: str, name: str, hf: dict, counted: dict,
                    batch_tokens: int = 16384,
-                   per_forward: dict | None = None, **llm_kw):
+                   per_forward: dict | None = None,
+                   exact: dict | None = None, **llm_kw):
     """32 prompts x (512 + 64) greedy through ``LLM.generate`` at full
     width: one warm-up, 3 cold runs (prefix cache reset before each), 3
     warm runs (only where the engine caches prefixes; where it does not,
@@ -819,7 +932,9 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     ``counted`` must have
     launched in the cold runs, and every kernel in ``per_forward`` exactly
     that many times for each call of the model's ``forward`` in every cold
-    run. Returns the last cold run's launches and the engine."""
+    run; every kernel in ``exact`` exactly that many times in every cold and
+    warm run (0: never). Returns the last cold run's launches and the
+    engine."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     num_prompts, prompt_len, decode_len = 32, 512, 64
@@ -851,6 +966,12 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
                for _ in range(num_prompts)]
     params = SamplingParams(temperature=0.0, max_tokens=decode_len,
                             ignore_eos=True)
+
+    def check_exact(got: dict) -> None:
+        for k, want in (exact or {}).items():
+            if got[k] != want:
+                raise AssertionError(f"{k}: {got[k]} launches in a run, "
+                                     f"want {want}")
 
     def one_run() -> float:
         for fn in counted.values():
@@ -888,13 +1009,15 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         if not prefix_cache and one_run.cached:
             raise AssertionError(f"{one_run.cached} cached prompt tokens "
                                  "with prefix caching off")
-    if min(counts.values()) <= 0:
+        check_exact(counts)
+    if any(v <= 0 for k, v in counts.items() if k not in (exact or {})):
         raise AssertionError(f"a kernel was not launched: {counts}")
     for i in range(3 if prefix_cache else 0):
         warm.append(one_run())
+        wc = {k: fn.launches for k, fn in counted.items()}
         log(f"# {phase}: warm run {i}: {warm[-1]:.3f} s, cached prompt "
-            f"tokens {one_run.cached}, launches "
-            f"{ {k: fn.launches for k, fn in counted.items()} }")
+            f"tokens {one_run.cached}, launches {wc}")
+        check_exact(wc)
     n_dec = num_prompts * decode_len
     n_all = num_prompts * (prompt_len + decode_len)
     for label, ts in (("cold", cold), ("warm", warm)):
@@ -1031,6 +1154,121 @@ def main_path_mamba() -> dict:
         per_forward={"selective_scan": MAMBA_2P8B["num_hidden_layers"]})[0]
 
 
+GEMMA2_9B = dict(  # google/gemma-2-9b config.json
+    vocab_size=256000, hidden_size=3584, num_hidden_layers=42,
+    num_attention_heads=16, num_key_value_heads=8, head_dim=256,
+    intermediate_size=14336, hidden_act="gelu_pytorch_tanh",
+    hidden_activation="gelu_pytorch_tanh", rms_norm_eps=1e-6,
+    rope_theta=10000.0, query_pre_attn_scalar=256,
+    attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+    sliding_window=4096, max_position_embeddings=8192,
+    tie_word_embeddings=True, model_type="gemma2",
+    architectures=["Gemma2ForCausalLM"])
+
+GEMMA_TINY = {  # phase 11: tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA)
+    "Gemma2ForCausalLM": dict(
+        num_attention_heads=4, num_key_value_heads=2, head_dim=256,
+        model_type="gemma2"),
+    "Gemma3ForCausalLM": dict(
+        num_attention_heads=4, num_key_value_heads=1, head_dim=128,
+        rope_theta=1000000.0, rope_local_base_freq=10000.0,
+        rope_scaling={"rope_type": "linear", "factor": 8.0},
+        layer_types=["sliding_attention", "sliding_attention",
+                     "full_attention"], model_type="gemma3_text"),
+}
+
+
+def redraw_gemma(model, seed: int) -> None:
+    """Weights at fan-in scale from a seeded CPU generator, norms (stored
+    as w - 1) near 0 and the embedding 4x smaller than fan-in scale: with
+    the dummy recipe, and with a fan-in scale embedding that the sqrt(H)
+    input scale makes dominate, Gemma repeats its input token."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "norm" in name:
+                new = 0.1 * torch.randn(p.shape, generator=g)
+            elif name == "embed":
+                new = torch.randn(p.shape, generator=g) / (4 * p.shape[1]
+                                                           ** 0.5)
+            else:  # [fan_in, fan_out] projections
+                new = torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5
+            p.copy_(new.to(p.dtype))
+
+
+def gemma_parity() -> int:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same weights for a tiny Gemma-2 and Gemma-3: a 16-token sliding
+    window, attention and final soft caps, prompts past the window, 16-step
+    decode windows on the decode kernel. Returns the decode kernel's
+    launches on the card runs."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 250, size=n).tolist()
+               for n in (5, 40, 17, 33, 70)]
+    params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+              for n in (24, 9, 30, 17, 24)]
+    total = 0
+    for arch, geom in GEMMA_TINY.items():
+        cfg = dict(vocab_size=256, hidden_size=64, num_hidden_layers=3,
+                   intermediate_size=128, sliding_window=16,
+                   query_pre_attn_scalar=24, attn_logit_softcapping=50.0,
+                   final_logit_softcapping=30.0, max_position_embeddings=512,
+                   architectures=[arch], **geom)
+        kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+                  block_size=16, num_kv_blocks=128, max_num_seqs=4,
+                  max_num_batched_tokens=32, max_model_len=256,
+                  decode_window=16)
+        cpu = LLM("tiny-gemma", device="cpu", **kw)
+        redraw_gemma(cpu.engine.core.worker.model, 6)
+        gpu = LLM("tiny-gemma", device="cuda", **kw)
+        state = {k: v.numpy() for k, v in
+                 cpu.engine.core.worker.model.state_dict().items()}
+        gpu.engine.core.worker.load_params(state)
+        a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+        decode_paged_attention.launches = 0
+        b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+        if a != b:
+            raise AssertionError(f"{arch}: cuda vs cpu greedy tokens "
+                                 f"differ:\n{a}\n{b}")
+        if decode_paged_attention.launches <= 0:
+            raise AssertionError(f"{arch}: decode_paged_attention was not "
+                                 "launched")
+        if len({t for x in a for t in x}) <= 10:
+            raise AssertionError(f"{arch}: the tokens hardly vary: {a}")
+        total += decode_paged_attention.launches
+        log(f"# phase 11: {arch}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts (window 16, soft caps, 16-step decode "
+            f"windows); decode_paged_attention launches "
+            f"{decode_paged_attention.launches}")
+        del cpu, gpu
+    return total
+
+
+def main_path_gemma() -> dict:
+    """Gemma-2-9B bf16 at full width and depth, phase 6's traffic: one
+    16384-token prefill wave (the ragged kernel, 80-row items at head_dim
+    256), then one 63-step decode window through the runner's non-window
+    multi-step path: the decode kernel once a layer a sub-step, 42 x 63 =
+    2646 launches a run, and the window kernel never."""
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    L = GEMMA2_9B["num_hidden_layers"]
+    kernels = {"decode_paged_attention": decode_paged_attention,
+               **attention_kernels()}
+    return serve_workload(
+        "phase 12", "gemma-2-9b-dummy", GEMMA2_9B, kernels,
+        exact={"decode_paged_attention": L * 63,
+               "ragged_paged_attention": L,
+               "window_decode_attention": 0})[0]
+
+
 def profile_run(one_run, phase: str = "phase 4") -> None:
     """One more run under torch.profiler: device busy share of the wall
     time and device time by kernel family."""
@@ -1040,34 +1278,61 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
                              ProfilerActivity.CUDA]) as prof:
         wall = one_run()
     t0 = time.perf_counter()
-    events = prof.key_averages()  # slow: once, over every event of the run
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    fam = {"ragged": 0.0, "window": 0.0, "quant": 0.0, "moe": 0.0,
-           "scan": 0.0, "gemm": 0.0, "other": 0.0}
-    for e in kernels:
-        n = e.key.lower()
+    # The raw events, read once: key_averages() would build a tree over
+    # every host op of the run (minutes for a Mamba run). A device event's
+    # linked_correlation_id is the correlation_id of the host op that
+    # launched it, as key_averages() itself pairs them.
+    kernels: dict[str, list] = {}  # name -> [device ns, launches]
+    links: dict[int, int] = {}     # host op correlation id -> device ns
+    host_ops, bmm_spans = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns = e.end_ns() - e.start_ns()
+            k = kernels.setdefault(e.name(), [0, 0])
+            k[0] += ns
+            k[1] += 1
+            c = e.linked_correlation_id()
+            links[c] = links.get(c, 0) + ns
+        elif e.linked_correlation_id() == 0:
+            host_ops.append(e)
+            if e.name() == "aten::bmm":
+                bmm_spans.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns()))
+    fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "quant": 0.0,
+           "moe": 0.0, "scan": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (ns, _) in kernels.items():
+        n = name.lower()
         k = ("ragged" if "rpa_kernel" in n else
              "window" if "wd_kernel" in n else
+             "decode" if "dpa_kernel" in n else
              "quant" if "qmm_" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
-        fam[k] += e.self_device_time_total / 1e6
+        fam[k] += ns / 1e9
     busy = sum(fam.values())
-    # Device time under aten::bmm: the MoE dense (decode) expert combine's
-    # batched products (phase 8) or the Mamba hs . C contraction (phase 10),
-    # the only bmm of the port's forwards.
-    bmm = sum(getattr(e, "device_time_total", 0.0) for e in events
-              if e.key == "aten::bmm") / 1e6
+    # Device time under aten::bmm, its child ops included: the MoE dense
+    # (decode) expert combine's batched products (phase 8) or the Mamba
+    # hs . C contraction (phase 10), the only bmm of the port's forwards.
+    for spans in bmm_spans.values():
+        spans.sort()
+    bmm = 0
+    for e in host_ops:
+        spans = bmm_spans.get(e.start_thread_id())
+        if spans:
+            i = bisect.bisect_right(spans, (e.start_ns(), math.inf)) - 1
+            if i >= 0 and e.start_ns() <= spans[i][1]:
+                bmm += links.get(e.correlation_id(), 0)
     log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in fam.items())
-        + f"; of which aten::bmm {bmm:.3f} s; trace read in "
+        + f"; of which aten::bmm {bmm / 1e9:.3f} s; trace read in "
         f"{time.perf_counter() - t0:.1f} s")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"# {phase} profile: {e.self_device_time_total / 1e3:9.1f} ms "
-            f"x{e.count:<6d} {e.key[:90]}")
+    for name, (ns, count) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+        log(f"# {phase} profile: {ns / 1e6:9.1f} ms x{count:<6d} "
+            f"{name[:90]}")
 
 
 def main() -> int:
@@ -1085,7 +1350,8 @@ def main() -> int:
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     names = ["ragged_paged_attention", "window_decode_attention",
-             "quant_matmul", "grouped_matmul", "selective_scan"]
+             "decode_paged_attention", "quant_matmul", "grouped_matmul",
+             "selective_scan"]
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
@@ -1115,6 +1381,9 @@ def main() -> int:
                 f"{r['library']} {r['library_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             results[(name, dt)] = r
+        for case in DECODE_CASES:
+            results[("decode_paged_attention", case, dt)] = check_decode(
+                gen, dt, case)
         r = check_grouped(gen, dt)
         log(f"# phase 2: grouped_matmul {dt}, a MoE layer's 2 GEMMs over a "
             f"wave (M=65536, balanced): max_abs_err {r['max_abs_err']:.3g} "
@@ -1138,6 +1407,8 @@ def main() -> int:
     moe_counts = main_path_moe()
     ssm_parity()
     mamba_counts = main_path_mamba()
+    gemma_parity()
+    gemma_counts = main_path_gemma()
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
@@ -1147,6 +1418,14 @@ def main() -> int:
                                  ("llama-3.1-8b-w4a16", llama_counts),
                                  ("qwen1.5-moe-a2.7b-bf16", moe_counts))
             for name in ("ragged_paged_attention", "window_decode_attention")]
+    rows.append(("ragged_paged_attention", "gemma-2-9b-bf16", "bfloat16",
+                 gemma_counts["ragged_paged_attention"],
+                 results[("ragged_paged_attention", "gemma-2-9b-bf16",
+                          "bfloat16")]))
+    rows.append(("decode_paged_attention", "gemma-2-9b-bf16", "bfloat16",
+                 gemma_counts["decode_paged_attention"],
+                 results[("decode_paged_attention", "gemma-2-9b",
+                          "bfloat16")]))
     rows.append(("w4a16_packed_matmul", "llama-3.1-8b-w4a16", "bfloat16",
                  llama_counts["w4a16_packed_matmul"],
                  results[("w4a16_packed_matmul", "bfloat16")]))
@@ -1163,6 +1442,8 @@ def main() -> int:
                 "aphrodite_tpu/ops/ragged_paged_attention.py:247",
                 "window_decode_attention":
                 "aphrodite_tpu/ops/window_decode_attention.py:198",
+                "decode_paged_attention":
+                "aphrodite_tpu/ops/decode_paged_attention.py:138",
                 # megablox gmm (jax/experimental/pallas/ops/tpu/megablox/
                 # gmm.py:314), called here:
                 "grouped_matmul": "aphrodite_tpu/models/moe_common.py:208",
