@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
+from aphrodite_tpu_torch.ops.cascade_attention import shared_prefix_attention
 from aphrodite_tpu_torch.ops.decode_paged_attention import (
     decode_paged_attention)
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
@@ -82,8 +83,22 @@ def window_attention(q: torch.Tensor, kv_cache: torch.Tensor,
                      sliding_window: Optional[int] = None,
                      logits_soft_cap: Optional[float] = None,
                      chunk_attn: Optional[int] = None) -> torch.Tensor:
-    """Decode-window attention: frozen paged cache plus the window tail."""
+    """Decode-window attention: frozen paged cache plus the window tail.
+    When the batch shares a KV prefix (``md.shared_pages`` / ``shared_len``
+    set by the runner) and the layer has no sliding window, chunk or soft
+    cap, the shared pages are attended once for the whole batch
+    (``shared_prefix_attention``) and the window kernel starts from that
+    state: the JAX package's cascade branch (``backend.py:212-273``). On
+    CPU tensors both wrappers run their plain versions, which together
+    compute ``ref_cascade_window_decode``."""
+    init, shared_len = None, 0
+    if (md.shared_pages is not None and sliding_window is None
+            and chunk_attn is None and logits_soft_cap is None):
+        init = shared_prefix_attention(q, kv_cache, layer, md.shared_pages,
+                                       md.shared_len, scale)
+        shared_len = md.shared_len
     return window_decode_attention(
         q, kv_cache, tail_k, tail_v, layer, md.window_step, md.paged_lens,
         md.block_tables, scale, sliding_window=sliding_window,
-        chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap)
+        chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap,
+        cascade_init=init, shared_len=shared_len)

@@ -47,6 +47,12 @@ class AttentionMetadata:
     # window entry. Set only by the runner's window path.
     window_step: Optional[int] = None
     paged_lens: Optional[torch.Tensor] = None
+    # Cascade (shared-prefix) decode: [n] int32 physical pages that every
+    # request of the window holds first, and the shared_len tokens they
+    # cover (a host int, n * page). None: the runner found no shared
+    # prefix (``runner._detect_shared_prefix``).
+    shared_pages: Optional[torch.Tensor] = None
+    shared_len: Optional[int] = None
     # ---- SSM (Mamba) state routing (models/mamba.py). ----
     # [R + 1] int32 cumulative count of scheduled tokens per request.
     query_start_loc: Optional[torch.Tensor] = None

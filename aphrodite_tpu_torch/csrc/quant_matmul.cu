@@ -10,6 +10,9 @@
 //                           same W from uint8 [K/2, N], byte [r, n] holding
 //                           row r in bits 0-3 and row r + K/2 in bits 4-7
 //                           (so the high nibble's group is (r + K/2) / group)
+//   w4a16_int4_launch    <- w4a16_int4_matmul_pallas / _w4i4_kernel: signed
+//                           int4 from uint8 [K/2, N], group-wise form (see
+//                           the note above q4_tc_kernel)
 // x and y are fp32 or bf16 (dtype code 0 / 1); sums are fp32. W is
 // dequantized in registers and never written to device memory. The W4
 // kernels use the direct form (q - z) * s in fp32, not the TPU kernel's
@@ -700,6 +703,344 @@ int launch(int dtype, int mt, int tc, const void* x, const void* w,
                             M, K, N, group, splits, chunk, s);
 }
 
+// ---------------------------------------------------------------------------
+// Native-int4 W4A16 (w4a16_int4_launch) <- w4a16_int4_matmul_pallas /
+// _w4i4_kernel. q4 [K, N] is signed int4 (q - 8), stored as uint8 [K/2, N]
+// with rows 2r and 2r + 1 in the low and high nibble of byte [r, n] (two's
+// complement); the zeros hold z - 8. The TPU kernel's group-wise form: for
+// each segment of a group (the group, or the 256-row x tile when a group
+// is longer) the block takes d = x_seg @ q4_seg in fp32 and folds
+// (d - sum(x_seg) z) s into its running sum, so s and z touch the segment's
+// [MT, N] result once instead of every weight (the per-weight (q - z) s is
+// what bounds qmm_tc_kernel). K splits fall on segment boundaries.
+//
+// Bound. At the Llama-3.1-8B path's decode M = 128 a layer's four GEMMs
+// read ~123 MB (int4 plus fp32 scales and zeros), ~37 us at 3.35 TB/s, and
+// take 55.8 GFLOP, ~56 us at 989 TFLOP/s: operations bind.
+//
+// q4_tc_kernel (bf16): y^T = W^T x^T on mma.sync m16n8k16 as in
+// qmm_tc_kernel, with 4 warps side by side on N (256 columns a block, each
+// warp all MT rows of M) and no K split inside the block. A byte already
+// holds the consecutive k pair of one A register, so no k permutation is
+// needed: lane (g, t) loads byte rows t and t + 4 of each 16-row step,
+// words g and g + 8 of its warp's 16, and byte 2h (2h + 1) of word c stands
+// for fragment row g (g + 8) of subtile 2c + h, as in qmm_tc_kernel. A
+// nibble pair becomes two exact bf16 values with one OR into 0x4300 (128 +
+// u, u = q4 + 8 = nibble ^ 8) and one bf16x2 subtraction of 136. x is
+// staged in shared memory in natural k order (a B register is one 32-bit
+// load) beside its per-(row, segment) sums. Grid x walks the M tiles, so
+// the blocks that share a (column tile, split) run side by side and W
+// comes from HBM about once, then from L2.
+//
+// q4_kernel (fp32): one column a thread and up to 32 rows of M, fp32 FMAs
+// on the CUDA cores; the x tile and its sums in shared memory as above.
+constexpr int kI4BlockN = kWarps * 64;  // bf16: columns per block
+constexpr int kI4TileK = 256;           // rows of K staged at a time
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Byte i of v, whose nibbles are already xor 8 (u = q4 + 8), as the bf16
+// pair (q4 of the low nibble, q4 of the high nibble).
+__device__ __forceinline__ uint32_t int4_pair(uint32_t v, int i) {
+  const uint32_t b = v >> (8 * i);
+  uint32_t r = (b & 0xFu) | ((b & 0xF0u) << 12) | 0x43004300u;
+  const uint32_t k136 = 0x43084308u;  // bf16 136.0 twice
+  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&k136));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// xsum[sg][m] = sum of the staged x row m over segment sg of the tile, in
+// fp32 (a warp a (segment, row) pair). x_at(m, k) reads the staged tile.
+template <int MT, typename XAt>
+__device__ __forceinline__ void segment_sums(float* xsum, int nseg, int seg,
+                                             XAt x_at) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int p = warp; p < nseg * MT; p += kWarps) {
+    const int sg = p / MT, m = p - sg * MT;
+    float v = 0.f;
+    for (int k = lane; k < seg; k += 32) v += x_at(m, sg * seg + k);
+    v = warp_sum(v);
+    if (lane == 0) xsum[sg * MT + m] = v;
+  }
+}
+
+template <int MI>
+__global__ void __launch_bounds__(kThreads)
+q4_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
+             const float* __restrict__ scales, const float* __restrict__ zeros,
+             __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
+             int* __restrict__ counters, int M, int K, int N, int group,
+             int chunk) {
+  constexpr int MT = 8 * MI;
+  constexpr int XPW = kI4TileK / 2 + 4;  // x row pitch in words
+  extern __shared__ uint32_t xs[];       // [MT][XPW] bf16 pairs
+  const uint16_t* xs16 = reinterpret_cast<const uint16_t*>(xs);
+  float* xsum = reinterpret_cast<float*>(xs + MT * XPW);  // [nseg][MT]
+  const int seg = min(group, kI4TileK);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * MT;
+  const int k_begin = blockIdx.y * chunk;
+  const int k_end = min(K, k_begin + chunk);
+  const int words = N / 4;
+  const int col0 = blockIdx.z * kI4BlockN;
+  int wcol[2];
+  bool wok[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    wcol[c] = (col0 + warp * 64) / 4 + g + 8 * c;
+    wok[c] = wcol[c] < words;
+  }
+
+  float acc[4][MI][4], d[4][MI][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mi][e] = d[j][mi][e] = 0.f;
+
+  // next[st][rr][c]: byte row t + 4 rr of 16-row step st of a 32-row unit,
+  // column word c.
+  uint32_t next[2][2][2];
+  auto load_unit = [&](int k0) {
+#pragma unroll
+    for (int st = 0; st < 2; ++st)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int row = k0 / 2 + 8 * st + t + 4 * rr;
+          next[st][rr][c] =  // a zero byte holds two zero weights
+              wok[c] ? __ldg(w + (size_t)row * words + wcol[c]) : 0u;
+        }
+  };
+  load_unit(k_begin);
+  for (int t0 = k_begin; t0 < k_end; t0 += kI4TileK) {
+    const int t1 = min(k_end, t0 + kI4TileK);
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < MT * (kI4TileK / 8); i += kThreads) {
+      const int m = i / (kI4TileK / 8), k8 = 8 * (i % (kI4TileK / 8));
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + m < M && t0 + k8 < t1)
+        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K +
+                                                 t0 + k8));
+      *reinterpret_cast<uint4*>(xs + m * XPW + k8 / 2) = v;
+    }
+    __syncthreads();
+    segment_sums<MT>(xsum, (t1 - t0) / seg, seg, [&](int m, int k) {
+      return __uint_as_float((uint32_t)xs16[m * 2 * XPW + k] << 16);
+    });
+    __syncthreads();
+    for (int k0 = t0; k0 < t1; k0 += 32) {
+      uint32_t wv[2][2][2];
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) wv[st][rr][c] = next[st][rr][c];
+      if (k0 + 32 < k_end) load_unit(k0 + 32);
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const int xw = (k0 - t0) / 2 + 8 * st + t;
+        uint32_t b[MI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const uint32_t* xr = xs + (8 * mi + g) * XPW + xw;
+          b[mi][0] = xr[0];
+          b[mi][1] = xr[4];
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t lo = wv[st][0][c] ^ 0x88888888u;  // k 2t, 2t + 1
+          const uint32_t hi = wv[st][1][c] ^ 0x88888888u;  // k 2t + 8, + 9
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t a[4] = {int4_pair(lo, 2 * h),
+                                   int4_pair(lo, 2 * h + 1),
+                                   int4_pair(hi, 2 * h),
+                                   int4_pair(hi, 2 * h + 1)};
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi)
+              mma_bf16(d[2 * c + h][mi], a, b[mi]);
+          }
+        }
+      }
+      if ((k0 + 32 - t0) % seg != 0) continue;
+      // The segment [k0 + 32 - seg, k0 + 32) ends: fold it.
+      const int gi = (k0 + 32 - seg) / group;
+      const int sg = (k0 + 32 - t0) / seg - 1;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 s2 = make_float2(0.f, 0.f), z2 = s2;
+          if (wok[c]) {
+            const size_t o = (size_t)gi * N + 4 * wcol[c] + 2 * h;
+            s2 = __ldg(reinterpret_cast<const float2*>(scales + o));
+            z2 = __ldg(reinterpret_cast<const float2*>(zeros + o));
+          }
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            float* dj = d[2 * c + h][mi];
+            float* aj = acc[2 * c + h][mi];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float xv = xsum[sg * MT + 8 * mi + 2 * t + e];
+              aj[e] += (dj[e] - xv * z2.x) * s2.x;
+              aj[e + 2] += (dj[e + 2] - xv * z2.y) * s2.y;
+              dj[e] = dj[e + 2] = 0.f;
+            }
+          }
+        }
+    }
+  }
+
+  // Lane (g, t) holds y[m, n], y[m, n + 1] for n = 4 (wcol[c]) + 2 h and m
+  // = 8 mi + 2 t (+ 1).
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (!wok[c]) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 4 * wcol[c] + 2 * h;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const float* a = acc[2 * c + h][mi];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * mi + 2 * t + e;
+          if (m >= M) continue;
+          if (partial != nullptr)
+            *reinterpret_cast<float2*>(
+                partial + ((size_t)blockIdx.y * M + m) * N + n) =
+                make_float2(a[e], a[e + 2]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
+                __floats2bfloat162_rn(a[e], a[e + 2]);
+        }
+      }
+    }
+  }
+  if (partial != nullptr)
+    finish_splits<__nv_bfloat16, kW4>(partial, counters, scales, out, M, N,
+                                      m0, MT, col0, kI4BlockN);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+q4_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
+          const float* __restrict__ scales, const float* __restrict__ zeros,
+          float* __restrict__ out, float* __restrict__ partial,
+          int* __restrict__ counters, int M, int K, int N, int group,
+          int chunk) {
+  extern __shared__ float4 smem4[];
+  float* x_s = reinterpret_cast<float*>(smem4);  // [MT][kI4TileK]
+  float* xsum = x_s + MT * kI4TileK;             // [nseg][MT]
+  const int seg = min(group, kI4TileK);
+  const int n = blockIdx.z * kThreads + threadIdx.x;
+  const bool ok = n < N;
+  const int m0 = blockIdx.x * MT;
+  const int k_begin = blockIdx.y * chunk;
+  const int k_end = min(K, k_begin + chunk);
+  float acc[MT], d[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = d[m] = 0.f;
+
+  for (int t0 = k_begin; t0 < k_end; t0 += kI4TileK) {
+    const int t1 = min(k_end, t0 + kI4TileK);
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < MT * kI4TileK; i += kThreads) {
+      const int m = i / kI4TileK, k = i - m * kI4TileK;
+      x_s[i] = (m0 + m < M && t0 + k < t1)
+                   ? __ldg(x + (size_t)(m0 + m) * K + t0 + k)
+                   : 0.f;
+    }
+    __syncthreads();
+    segment_sums<MT>(xsum, (t1 - t0) / seg, seg,
+                     [&](int m, int k) { return x_s[m * kI4TileK + k]; });
+    __syncthreads();
+    if (!ok) continue;
+#pragma unroll 4
+    for (int k = t0; k < t1; k += 2) {
+      const uint32_t b = __ldg(w + (size_t)(k / 2) * N + n) ^ 0x88u;
+      const float q0 = (float)((int)(b & 0xFu) - 8);
+      const float q1 = (float)((int)(b >> 4) - 8);
+      const float* xk = x_s + (k - t0);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float2 xv = *reinterpret_cast<const float2*>(xk + m * kI4TileK);
+        d[m] = fmaf(xv.y, q1, fmaf(xv.x, q0, d[m]));
+      }
+      if ((k + 2 - t0) % seg != 0) continue;
+      const int gi = (k + 2 - seg) / group;
+      const int sg = (k + 2 - t0) / seg - 1;
+      const float s = __ldg(scales + (size_t)gi * N + n);
+      const float z = __ldg(zeros + (size_t)gi * N + n);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        acc[m] += (d[m] - xsum[sg * MT + m] * z) * s;
+        d[m] = 0.f;
+      }
+    }
+  }
+  if (ok) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m0 + m >= M) break;
+      if (partial != nullptr)
+        partial[((size_t)blockIdx.y * M + m0 + m) * N + n] = acc[m];
+      else
+        out[(size_t)(m0 + m) * N + n] = acc[m];
+    }
+  }
+  if (partial != nullptr)
+    finish_splits<float, kW4>(partial, counters, scales, out, M, N, m0, MT,
+                              blockIdx.z * kThreads, kThreads);
+}
+
+template <int MI>
+int launch_q4_tc(const void* x, const void* w, const float* scales,
+                 const float* zeros, void* out, float* partial, int* counters,
+                 int M, int K, int N, int group, int splits, int chunk,
+                 cudaStream_t stream) {
+  constexpr int MT = 8 * MI;
+  const int nseg = kI4TileK / min(group, kI4TileK);
+  const int smem = MT * (kI4TileK / 2 + 4) * (int)sizeof(uint32_t) +
+                   nseg * MT * (int)sizeof(float);
+  cudaError_t err = allow_smem<q4_tc_kernel<MI>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + MT - 1) / MT, splits,
+                  (N + kI4BlockN - 1) / kI4BlockN);
+  q4_tc_kernel<MI><<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint32_t*>(w),
+      scales, zeros, static_cast<__nv_bfloat16*>(out),
+      splits > 1 ? partial : nullptr, counters, M, K, N, group, chunk);
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int launch_q4(const void* x, const void* w, const float* scales,
+              const float* zeros, void* out, float* partial, int* counters,
+              int M, int K, int N, int group, int splits, int chunk,
+              cudaStream_t stream) {
+  const int nseg = kI4TileK / min(group, kI4TileK);
+  const int smem = (MT * kI4TileK + nseg * MT) * (int)sizeof(float);
+  cudaError_t err = allow_smem<q4_kernel<MT>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((M + MT - 1) / MT, splits, (N + kThreads - 1) / kThreads);
+  q4_kernel<MT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint8_t*>(w), scales,
+      zeros, static_cast<float*>(out), splits > 1 ? partial : nullptr,
+      counters, M, K, N, group, chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Entry points (ctypes). mt: rows of M per block (8, 16 or 32); tc: 1 for
@@ -735,4 +1076,46 @@ extern "C" int w4a16_packed_launch(int dtype, int mt, int tc, const void* x,
   return launch<kW4Packed>(dtype, mt, tc, x, qpacked, scales, zeros, out,
                            partial, counters, M, K, N, group, splits, chunk,
                            stream);
+}
+
+// q4 is uint8 [K/2, N] (rows 2r, 2r + 1 in the low and high nibble of byte
+// [r, n], signed int4), scales and zeros fp32 [K/group, N]. mt: rows of M
+// per block (8, 16 or 32); bf16 runs on q4_tc_kernel (K and the group
+// multiples of 32), fp32 on q4_kernel (an even group). The group divides
+// 256 or is a multiple of it; chunk is a multiple of 256 and of the group.
+// partial, counters, splits as for the launches above.
+extern "C" int w4a16_int4_launch(int dtype, int mt, const void* x,
+                                 const void* q4, const float* scales,
+                                 const float* zeros, void* out,
+                                 float* partial, int* counters, int M, int K,
+                                 int N, int group, int splits, int chunk,
+                                 void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool tc = dtype == kBFloat16;
+  if (N % 4 != 0 || M < 1 || splits < 1 || group < 2 || group % 2 != 0 ||
+      K % group != 0 ||
+      (kI4TileK % group != 0 && group % kI4TileK != 0) ||
+      chunk % kI4TileK != 0 || chunk % group != 0 ||
+      (splits > 1 && (partial == nullptr || counters == nullptr)) ||
+      (dtype != kBFloat16 && dtype != kFloat32) ||
+      (tc && (K % 32 != 0 || group % 32 != 0)))
+    return (int)cudaErrorInvalidValue;
+  switch (mt) {
+    case 8:
+      return tc ? launch_q4_tc<1>(x, q4, scales, zeros, out, partial,
+                                  counters, M, K, N, group, splits, chunk, s)
+                : launch_q4<8>(x, q4, scales, zeros, out, partial, counters,
+                               M, K, N, group, splits, chunk, s);
+    case 16:
+      return tc ? launch_q4_tc<2>(x, q4, scales, zeros, out, partial,
+                                  counters, M, K, N, group, splits, chunk, s)
+                : launch_q4<16>(x, q4, scales, zeros, out, partial, counters,
+                                M, K, N, group, splits, chunk, s);
+    case 32:
+      return tc ? launch_q4_tc<4>(x, q4, scales, zeros, out, partial,
+                                  counters, M, K, N, group, splits, chunk, s)
+                : launch_q4<32>(x, q4, scales, zeros, out, partial, counters,
+                                M, K, N, group, splits, chunk, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,17 @@
 // chunked local attention and logit soft cap mask as in the TPU kernel.
 // Fully masked rows give 0, never NaN.
 //
+// Cascade init state (the TPU kernel's cascade_init / shared_len): when
+// every request shares its first S page positions, the shared-prefix pass
+// (csrc/shared_prefix_attention.cu) has already attended them, and the
+// kernel reads only page positions >= S (its first tile starts at S's
+// tile, the straddling tile masks kv_pos < S). The pass's unnormalized
+// state (acc0, m0, l0) enters once: the block merges it as one more state
+// beside its warps' at the end (starting every warp from it would count the
+// prefix W times). A state with m0 = -inf adds nothing. The option is a
+// template switch: without it the kernel compiles as it did before the
+// option existed (the extra masks cost ~27 % at the 8B decode step).
+//
 // Design. One block runs one (request, KV head) with its group of query
 // rows (6 at Qwen2.5-1.5B geometry). The visible keys are cut into tiles
 // of 32 (page tiles, then tail tiles); warp w takes tiles w, w + W, ...
@@ -28,14 +39,16 @@ namespace {
 
 constexpr int kMaxWarps = 4;
 
-template <typename T>
+template <typename T, bool kCascade>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
           const T* __restrict__ tail_k, const T* __restrict__ tail_v,
           T* __restrict__ out, const int* __restrict__ paged_lens,
           const int* __restrict__ block_tables, int max_pages, int nq,
           int kvh, int page_size, int hd, int kw, int step, float scale,
-          int sliding_window, int chunk_attn, float soft_cap) {
+          int sliding_window, int chunk_attn, float soft_cap,
+          const float* __restrict__ acc0, const float* __restrict__ m0,
+          const float* __restrict__ l0, int shared_len) {
   using namespace attn;
   const int r = blockIdx.x, h = blockIdx.y;
   const int group = nq / kvh;
@@ -66,7 +79,9 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   __syncthreads();
 
   const size_t page_elems = (size_t)page_size * hd;
-  const int lo = min(first_visible(q_pos, sliding_window, chunk_attn), plen);
+  int lo = first_visible(q_pos, sliding_window, chunk_attn);
+  if (kCascade) lo = max(lo, shared_len);
+  lo = min(lo, plen);
   const int t0 = lo / tile;
   const int n_paged = (plen + tile - 1) / tile - t0;
   const int n_tail = (step + 1 + kTile - 1) / kTile;
@@ -94,8 +109,9 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
     load_tile(kb, vb, n, hd, k_s, v_s, lane, 32);
     __syncwarp();
     const int kv_pos = kv0 + lane;
-    const bool valid =
+    bool valid =
         lane < n && local_ok(kv_pos, q_pos, sliding_window, chunk_attn);
+    if (kCascade) valid = valid && (t >= n_paged || kv_pos >= shared_len);
     for (int g = 0; g < group; ++g)
       tile_update(q_s + (size_t)g * hd, k_s, v_s, n, hd, valid, scale,
                   soft_cap, acc_w + (size_t)g * hd, m_w + g, l_w + g, p_w,
@@ -103,15 +119,22 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   }
   __syncthreads();
 
-  // Merge the warps' online-softmax states.
+  // Merge the warps' online-softmax states, and the cascade's init state.
   for (int i = threadIdx.x; i < group * hd; i += blockDim.x) {
     const int g = i / hd;
-    float m = -INFINITY;
+    const size_t row = (size_t)r * nq + h * group + g;  // [R, nq] index
+    const float m_init = kCascade ? m0[row] : -INFINITY;
+    float m = m_init;
     for (int w = 0; w < n_warps; ++w)
       m = fmaxf(m, q_s[group * hd + w * per_warp + kTile * (2 * hd + 2) +
                        (size_t)group * hd + g]);
     float acc = 0.f, l = 0.f;
     if (m != -INFINITY) {
+      if (kCascade && m_init != -INFINITY) {
+        const float c = expf(m_init - m);
+        acc = acc0[row * hd + i - g * hd] * c;
+        l = l0[row] * c;
+      }
       for (int w = 0; w < n_warps; ++w) {
         const float* ws = q_s + (size_t)group * hd + w * per_warp;
         const float* aw = ws + kTile * (2 * hd + 2);
@@ -127,49 +150,76 @@ wd_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   }
 }
 
-template <typename T>
+template <typename T, bool kCascade>
 int launch(const void* q, const void* cache, const void* tail_k,
            const void* tail_v, void* out, const int* paged_lens,
            const int* block_tables, int num_reqs, int max_pages, int nq,
            int kvh, int page_size, int hd, int kw, int step, float scale,
-           int sliding_window, int chunk_attn, float soft_cap, int warps,
-           int smem_bytes, cudaStream_t stream) {
+           int sliding_window, int chunk_attn, float soft_cap,
+           const float* acc0, const float* m0, const float* l0,
+           int shared_len, int warps, int smem_bytes, cudaStream_t stream) {
   // smem_bytes (computed by the wrapper): q [group, hd], then per warp a K
   // tile [kTile, hd + 1], a V tile [kTile, hd], p [kTile], acc [group, hd],
   // m and l [group], all fp32.
   if (warps < 1 || warps > kMaxWarps) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      wd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      wd_kernel<T, kCascade>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  wd_kernel<T><<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache),
-      static_cast<const T*>(tail_k), static_cast<const T*>(tail_v),
-      static_cast<T*>(out), paged_lens, block_tables, max_pages, nq, kvh,
-      page_size, hd, kw, step, scale, sliding_window, chunk_attn, soft_cap);
+  wd_kernel<T, kCascade>
+      <<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(cache),
+          static_cast<const T*>(tail_k), static_cast<const T*>(tail_v),
+          static_cast<T*>(out), paged_lens, block_tables, max_pages, nq, kvh,
+          page_size, hd, kw, step, scale, sliding_window, chunk_attn,
+          soft_cap, acc0, m0, l0, shared_len);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_t(const void* q, const void* cache, const void* tail_k,
+             const void* tail_v, void* out, const int* paged_lens,
+             const int* block_tables, int num_reqs, int max_pages, int nq,
+             int kvh, int page_size, int hd, int kw, int step, float scale,
+             int sliding_window, int chunk_attn, float soft_cap,
+             const float* acc0, const float* m0, const float* l0,
+             int shared_len, int warps, int smem_bytes, cudaStream_t stream) {
+  return (acc0 != nullptr ? launch<T, true> : launch<T, false>)(
+      q, cache, tail_k, tail_v, out, paged_lens, block_tables, num_reqs,
+      max_pages, nq, kvh, page_size, hd, kw, step, scale, sliding_window,
+      chunk_attn, soft_cap, acc0, m0, l0, shared_len, warps, smem_bytes,
+      stream);
 }
 
 }  // namespace
 
+// acc0 [R, nq, hd], m0 and l0 [R, nq] (fp32): the cascade's init state
+// covering page positions < shared_len, or all three null (shared_len 0).
 extern "C" int wd_launch(int dtype, const void* q, const void* cache_layer,
                          const void* tail_k_layer, const void* tail_v_layer,
                          void* out, const int* paged_lens,
                          const int* block_tables, int num_reqs, int max_pages,
                          int nq, int kvh, int page_size, int hd, int kw,
                          int step, float scale, int sliding_window,
-                         int chunk_attn, float soft_cap, int warps,
-                         int smem_bytes, void* stream) {
+                         int chunk_attn, float soft_cap, const float* acc0,
+                         const float* m0, const float* l0, int shared_len,
+                         int warps, int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if ((acc0 == nullptr) != (m0 == nullptr) ||
+      (acc0 == nullptr) != (l0 == nullptr) || shared_len < 0 ||
+      (acc0 == nullptr && shared_len != 0))
+    return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
-    return launch<float>(q, cache_layer, tail_k_layer, tail_v_layer, out,
-                         paged_lens, block_tables, num_reqs, max_pages, nq,
-                         kvh, page_size, hd, kw, step, scale, sliding_window,
-                         chunk_attn, soft_cap, warps, smem_bytes, s);
+    return launch_t<float>(q, cache_layer, tail_k_layer, tail_v_layer, out,
+                           paged_lens, block_tables, num_reqs, max_pages, nq,
+                           kvh, page_size, hd, kw, step, scale,
+                           sliding_window, chunk_attn, soft_cap, acc0, m0, l0,
+                           shared_len, warps, smem_bytes, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, cache_layer, tail_k_layer, tail_v_layer,
-                                 out, paged_lens, block_tables, num_reqs,
-                                 max_pages, nq, kvh, page_size, hd, kw, step,
-                                 scale, sliding_window, chunk_attn, soft_cap,
-                                 warps, smem_bytes, s);
+    return launch_t<__nv_bfloat16>(
+        q, cache_layer, tail_k_layer, tail_v_layer, out, paged_lens,
+        block_tables, num_reqs, max_pages, nq, kvh, page_size, hd, kw, step,
+        scale, sliding_window, chunk_attn, soft_cap, acc0, m0, l0, shared_len,
+        warps, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

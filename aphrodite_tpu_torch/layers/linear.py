@@ -22,7 +22,7 @@ def apply_linear(x: torch.Tensor, w: Weight,
             out = quant_gemm.w4a16_matmul(
                 x, w.get("qweight"), w["scales"], w.get("zeros"),
                 input_perm=w.get("input_perm"),
-                qpacked=w.get("qweight_packed"))
+                qpacked=w.get("qweight_packed"), qweight4=w.get("qweight4"))
         else:
             raise NotImplementedError(
                 f"quantized format {fmt!r} is not ported")

@@ -5,7 +5,9 @@ Only dummy (seeded random) weights and the JAX package's parameter tree
 checkpoint from disk is not. With a quantization config, the dummy weights
 are quantized on the fly layer by layer and W4 leaves are packed where the
 JAX loader packs them (``quantization/loader.py``), so a ``params_from_jax``
-tree of the JAX engine carries over leaf for leaf.
+tree of the JAX engine carries over leaf for leaf. ``realize_int4_leaves``
+turns a loaded model's packed W4 leaves into the native-int4 layout, as
+the JAX package's function of that name does to its tree.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from torch import nn
 from aphrodite_tpu_torch.config import LoadConfig, ModelConfig
 from aphrodite_tpu_torch.models.llama import QuantWeight
 from aphrodite_tpu_torch.models.registry import model_class
+from aphrodite_tpu_torch.ops.quant_matmul import pack_int4, unpack_w4
 from aphrodite_tpu_torch.quantization.base import QuantizationConfig
 
 # JAX per-layer leaves that the port fuses, in concatenation order, and
@@ -86,6 +89,10 @@ def _quant_leaves(name: str, parts: list) -> dict[str, np.ndarray]:
             out[k] = np.concatenate(arrs, axis=-1)
     if "qweight_packed" in out:  # the JAX loader stores the bytes as int8
         out["qweight_packed"] = out["qweight_packed"].view(np.uint8)
+    if "qweight4" in out:  # jnp.int4 [.., K, N] -> pack_int4 bytes
+        q = out["qweight4"].astype(np.int8)
+        out["qweight4"] = ((q[..., 0::2, :] & 0xF)
+                           | ((q[..., 1::2, :] & 0xF) << 4)).astype(np.uint8)
     return out
 
 
@@ -136,9 +143,10 @@ def params_from_jax(tree: Mapping[str, Any],
     biases and QK norms. Gemma trees are always unfused and may hold
     Gemma-2's sandwich norms; their ``is_sliding`` flags are left out:
     they are no weight, and both packages derive them from the config.
-    Quantized projections are dicts of leaves (``qweight`` or
-    ``qweight_packed``, ``scales``, ``zeros``, ``input_perm``); they become
-    ``layers.<i>.<name>.<leaf>``.
+    Quantized projections are dicts of leaves (``qweight``,
+    ``qweight_packed`` or the realized ``qweight4``, ``scales``, ``zeros``,
+    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``, a
+    ``qweight4`` packed as ``ops.quant_matmul.pack_int4`` bytes.
 
     MoE trees keep ``router``, ``we_*`` and ``ws_*`` stacks: beside the
     attention leaves under ``layers`` when every layer is MoE, or under
@@ -189,6 +197,26 @@ def params_from_jax(tree: Mapping[str, Any],
                 else:
                     out[prefix] = arr[j]
     return out
+
+
+@torch.no_grad()
+def realize_int4_leaves(model: nn.Module) -> nn.Module:
+    """The JAX package's ``loader/weights.py:realize_int4_leaves`` on a
+    loaded model, in place: each ``qweight_packed`` leaf (uint8 global-half
+    nibbles [K/2, N]) becomes a ``qweight4`` leaf holding ``q - 8`` in the
+    signed int4 range, stored as ``pack_int4`` bytes [K/2, N], and its zeros
+    become ``z - 8``, so ``(q - z) * s`` is unchanged. Every conversion runs
+    on the leaf's own device; leaves that are not packed stay as they are.
+    The JAX loader applies it only on a single TPU, so here it is the
+    caller's choice; returns the model."""
+    for mod in model.modules():
+        if isinstance(mod, QuantWeight) and \
+                getattr(mod, "qweight_packed", None) is not None:
+            q4 = pack_int4(unpack_w4(mod.qweight_packed) - 8)
+            del mod.qweight_packed
+            mod.register_buffer("qweight4", q4)
+            mod.zeros.sub_(8.0)
+    return model
 
 
 def _to_tensor(arr: np.ndarray) -> torch.Tensor:

@@ -56,7 +56,10 @@ class QuantWeight(nn.Module):
     ``qweight`` int8 [K, N] and ``scales`` fp32 [N] for w8a16;
     ``qweight`` int8 [K, N] (uint4 values) or ``qweight_packed`` uint8
     [K/2, N], with ``scales`` and ``zeros`` fp32 [K/group, N], for w4a16.
-    ``input_perm`` (desc_act) is set only when a loaded tree carries one."""
+    ``loader.weights.realize_int4_leaves`` replaces ``qweight_packed`` with
+    ``qweight4`` (signed int4, ``ops.quant_matmul.pack_int4`` bytes [K/2,
+    N]) and shifts the zeros by -8. ``input_perm`` (desc_act) is set only
+    when a loaded tree carries one."""
 
     def __init__(self, qcfg: QuantizationConfig, K: int, N: int,
                  device) -> None:

@@ -10,14 +10,24 @@ Three wrappers launch the hand-written CUDA kernels of
   ``W = (q - z) * s`` with fp32 scales and zeros [K/group, N];
 - ``w4a16_packed_matmul`` (``w4a16_packed_matmul_pallas``): the same W
   from uint8 [K/2, N], byte [r, n] holding row r in its low nibble and row
-  r + K/2 in its high nibble.
+  r + K/2 in its high nibble;
+- ``w4a16_int4_matmul`` (``w4a16_int4_matmul_pallas``): signed int4
+  ``q4 = q - 8`` and zeros ``z - 8`` (``loader.weights.realize_int4_leaves``),
+  stored as uint8 [K/2, N] of two's-complement nibbles, byte [r, n]
+  holding row 2r in its low nibble and row 2r + 1 in its high nibble: the
+  consecutive pair of k that one 32-bit register of an ``mma.sync``
+  m16n8k16 operand takes.
 
-On CPU tensors each runs its plain PyTorch version (``ref_*``), which
-dequantizes W in fp32 with the direct form ``(q - z) * s``, as the kernels
-do in registers; a CUDA tensor launches the kernel or raises. x and y are
-fp32 or bf16, sums fp32: bf16 runs on the tensor cores (``mma.sync``,
-weights rounded to bf16 after the fp32 dequantize), fp32 on the CUDA cores
-in fp32 throughout. Each wrapper counts its launches.
+On CPU tensors each runs its plain PyTorch version (``ref_*``); a CUDA
+tensor launches the kernel or raises. The first three dequantize W in fp32
+with the direct form ``(q - z) * s``, as their kernels do in registers. The
+int4 one takes the TPU kernel's group-wise form: per group of K rows one
+product ``d = x_g @ q4_g`` in fp32, then ``acc += (d - sum(x_g) * z) * s``,
+so s and z touch the [M, N] group result, not each weight. x and y are
+fp32 or bf16, sums fp32: bf16 runs on the tensor cores (``mma.sync``; the
+int4 values are exact in bf16, the other layouts' weights are rounded to
+bf16 after the fp32 dequantize), fp32 on the CUDA cores in fp32
+throughout. Each wrapper counts its launches.
 """
 from __future__ import annotations
 
@@ -33,10 +43,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _W8_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _W4_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _P]
+_W4I4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              _P]
 # (columns per block, split granularity in stored rows) of the CUDA-core
 # kernel (kBlockN, kTileK) and of the tensor-core one (kTcBlockN, kTcTileK).
 _GRID = {False: (128, 128), True: (128, 256)}
 _PLANS: dict[tuple, tuple[int, int, int]] = {}
+# The int4 kernels: columns per block (bf16: 4 warps of 64; fp32: one a
+# thread) and the rows of K staged at a time, which splits fall on too.
+_I4_BLOCK_N = {True: 256, False: 128}
+_I4_TILE_K = 256
 _BLOCKS_PER_SM = 2   # K splits are added until the grid has this many
 # Per device: fp32 partial sums and the kernels' split counters (zero
 # between launches: the last block of a tile resets its counter).
@@ -48,6 +64,21 @@ def unpack_w4(qpacked: torch.Tensor) -> torch.Tensor:
     """uint8 [K/2, N] -> uint4-in-int8 [K, N] (inverse of ``pack_w4``)."""
     p = qpacked.to(torch.int16)
     return torch.cat([p & 0xF, (p >> 4) & 0xF], dim=0).to(torch.int8)
+
+
+def pack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """int8 [K, N] in [-8, 8) -> uint8 [K/2, N], byte [r, n] holding row 2r
+    in bits 0-3 and row 2r + 1 in bits 4-7 (two's complement nibbles)."""
+    q = q4.to(torch.int16) & 0xF
+    return (q[0::2] | (q[1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(q4p: torch.Tensor) -> torch.Tensor:
+    """uint8 [K/2, N] -> int8 [K, N] in [-8, 8) (inverse of ``pack_int4``)."""
+    b = q4p.to(torch.int16)
+    pair = torch.stack([b & 0xF, (b >> 4) & 0xF], dim=1)   # [K/2, 2, N]
+    return (((pair ^ 8) - 8).to(torch.int8)
+            .reshape(2 * q4p.shape[0], *q4p.shape[1:]))
 
 
 def dequant_w4(q: torch.Tensor, scales: torch.Tensor,
@@ -77,20 +108,35 @@ def ref_w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
     return ref_w4a16_matmul(x, unpack_w4(qpacked), scales, zeros)
 
 
+def ref_w4a16_int4_matmul(x: torch.Tensor, q4p: torch.Tensor,
+                          scales: torch.Tensor,
+                          zeros: torch.Tensor) -> torch.Tensor:
+    """The group-wise form of the TPU ``_w4i4_kernel``, in fp32: y = sum
+    over groups g of (x_g @ q4_g - sum(x_g) z_g) s_g."""
+    M, K = x.shape
+    G, N = scales.shape
+    xg = x.float().reshape(M, G, K // G).transpose(0, 1)       # [G, M, g]
+    d = xg @ unpack_int4(q4p).float().reshape(G, K // G, N)    # [G, M, N]
+    xs = xg.sum(dim=2)                                         # [G, M]
+    y = (d - xs[:, :, None] * zeros.float()[:, None, :]) \
+        * scales.float()[:, None, :]
+    return y.sum(dim=0).to(x.dtype)
+
+
 # -------------------------------------------------------------------- launch
-def _plan(M: int, N: int, rows: int, tc: bool, device: torch.device
-          ) -> tuple[int, int, int]:
+def _plan(M: int, N: int, rows: int, block_n: int, unit: int,
+          device: torch.device) -> tuple[int, int, int]:
     """(MT, splits, chunk): rows of M per block, K splits, and stored
-    weight rows per split. Splits are added until the grid has about two
-    blocks per SM (N = 4096 alone gives 16-32 column blocks)."""
-    key = (M, N, rows, tc, device.index)
+    weight rows per split, a multiple of ``unit``. Splits are added until
+    the grid of ``block_n``-column blocks has about two blocks per SM
+    (N = 4096 alone gives 16-32 column blocks)."""
+    key = (M, N, rows, block_n, unit, device.index)
     plan = _PLANS.get(key)
     if plan is None:
         mt = 8 if M <= 8 else 16 if M <= 16 else 32
         idx = device.index if device.index is not None \
             else torch.cuda.current_device()
         sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        block_n, unit = _GRID[tc]
         blocks = cdiv(N, block_n) * cdiv(M, mt)
         units = cdiv(rows, unit)
         want = max(1, min(units, cdiv(_BLOCKS_PER_SM * sms, blocks)))
@@ -143,7 +189,7 @@ def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
     if tc and (K % 32 or group % 32):
         raise ValueError(f"bf16 needs K ({K}) and the group ({group}) to be "
                          "multiples of 32")
-    mt, splits, chunk = _plan(M, N, rows, tc, x.device)
+    mt, splits, chunk = _plan(M, N, rows, *_GRID[tc], x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     partial = counters = None
     if splits > 1:
@@ -220,10 +266,56 @@ def w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
     return out
 
 
+def w4a16_int4_matmul(x: torch.Tensor, q4p: torch.Tensor,
+                      scales: torch.Tensor,
+                      zeros: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ ((int4 [K, N] - z) * s) -> [M, N], q4 packed as uint8
+    [K/2, N] (``pack_int4``), group-wise as the TPU ``_w4i4_kernel``.
+
+    Every M goes to one kernel: blocks of up to 32 rows of M, 256 columns
+    (bf16) or 128 (fp32), K split on group and 256-row boundaries until the
+    card has about two blocks per SM. bf16 needs K and the group to be
+    multiples of 32, fp32 an even group; the group must divide 256 or be a
+    multiple of it."""
+    if x.device.type == "cpu":
+        return ref_w4a16_int4_matmul(x, q4p, scales, zeros)
+    Kh, N = q4p.shape
+    K = 2 * Kh
+    _check(x, {"qweight4": (q4p, torch.uint8),
+               "scales": (scales, torch.float32),
+               "zeros": (zeros, torch.float32)}, K, N)
+    group = _w4_group(scales, zeros, K, N)
+    tc = x.dtype == torch.bfloat16
+    if (group % (32 if tc else 2)
+            or (_I4_TILE_K % group and group % _I4_TILE_K)):
+        raise ValueError(f"group {group} does not fit the int4 kernel "
+                         f"({'bf16' if tc else 'fp32'}: a multiple of "
+                         f"{32 if tc else 2} dividing {_I4_TILE_K} or a "
+                         f"multiple of it)")
+    M = x.shape[0]
+    mt, splits, chunk = _plan(M, N, K, _I4_BLOCK_N[tc],
+                              max(group, _I4_TILE_K), x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    partial = counters = None
+    if splits > 1:
+        partial, counters = _workspace(
+            x.device, splits * M * N, cdiv(N, _I4_BLOCK_N[tc]) * cdiv(M, mt))
+    fn = cuda_build.entry("quant_matmul", "w4a16_int4_launch", _W4I4_ARGS)
+    err = fn(DTYPE_CODES[x.dtype], mt, x.data_ptr(), q4p.data_ptr(),
+             scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), partial,
+             counters, M, K, N, group, splits, chunk,
+             cuda_build.stream(x.device))
+    cuda_build.check(err, "quant_matmul w4a16_int4_launch")
+    w4a16_int4_matmul.launches += 1
+    return out
+
+
 # Launches of the CUDA kernels (a run sets them to 0 and reads them after).
 w8a16_matmul.launches = 0
 w4a16_matmul.launches = 0
 w4a16_packed_matmul.launches = 0
+w4a16_int4_matmul.launches = 0
 
 KERNELS = {"w8a16_matmul": w8a16_matmul, "w4a16_matmul": w4a16_matmul,
-           "w4a16_packed_matmul": w4a16_packed_matmul}
+           "w4a16_packed_matmul": w4a16_packed_matmul,
+           "w4a16_int4_matmul": w4a16_int4_matmul}

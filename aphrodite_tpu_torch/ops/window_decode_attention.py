@@ -7,6 +7,11 @@ cache plus the window's tail.
 tensors, and runs the plain PyTorch version ``ref_window_decode_attention``
 on CPU tensors. Request r's query sits at position paged_lens[r] + step; it
 attends to page positions < paged_lens[r] and to tail slots j <= step.
+
+With ``cascade_init=(acc0, m0, l0)`` and ``shared_len=S`` (the TPU kernel's
+cascade option) the page positions < S are already covered by that
+unnormalized online-softmax state (``ops/cascade_attention.py``): the
+kernel reads only page positions >= S and merges the state in once.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _F, _I, _I, _F, _I, _I, _P]
+             _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
 _TILE = 32  # keys per warp tile
 
 
@@ -52,9 +57,13 @@ def ref_window_decode_attention(
     sliding_window: Optional[int] = None,
     chunk_attn: Optional[int] = None,
     logits_soft_cap: Optional[float] = None,
+    cascade_init=None,
+    shared_len: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, in fp32 (CPU path and the kernel's yardstick
-    of correctness)."""
+    of correctness). With ``cascade_init`` the page positions <
+    ``shared_len`` are masked and the init state is merged with the
+    suffix's (the JAX package's ``ref_cascade_window_decode``)."""
     _, _, kvh, page, hd = cache_layer.shape
     R, nq, _ = q.shape
     group = nq // kvh
@@ -80,9 +89,23 @@ def ref_window_decode_attention(
         mask &= kv_pos > pos - sliding_window
     if chunk_attn is not None:
         mask &= (kv_pos // chunk_attn) == (pos // chunk_attn)
+    if cascade_init is not None:
+        mask[:, :max_kv] &= kv_pos[:, :max_kv] >= shared_len
     logits = logits.masked_fill(~mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1).nan_to_num(0.0)
-    out = torch.einsum("rhgk,rhkd->rhgd", probs, values)
+    if cascade_init is None:
+        probs = torch.softmax(logits, dim=-1).nan_to_num(0.0)
+        out = torch.einsum("rhgk,rhkd->rhgd", probs, values)
+        return out.reshape(R, nq, hd).to(q.dtype)
+    # Online-softmax merge of the init state with the suffix's.
+    acc0, m0, l0 = cascade_init
+    m = torch.maximum(m0, logits.amax(dim=-1))
+    m_fin = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    a0 = torch.where(torch.isfinite(m0), torch.exp(m0 - m_fin),
+                     torch.zeros_like(m0))
+    p = torch.exp(logits - m_fin[..., None])        # masked keys: 0
+    lsum = l0 * a0 + p.sum(dim=-1)
+    acc = acc0 * a0[..., None] + torch.einsum("rhgk,rhkd->rhgd", p, values)
+    out = acc / lsum.clamp(min=1e-20)[..., None]
     return out.reshape(R, nq, hd).to(q.dtype)
 
 
@@ -100,13 +123,17 @@ def window_decode_attention(
     chunk_attn: Optional[int] = None,
     logits_soft_cap: Optional[float] = None,
     cascade_init=None,
-    shared_len=None,
+    shared_len: int = 0,
 ) -> torch.Tensor:
     """Attention output [R, nq, hd] in q's dtype. The kernel reads the
-    layer's cache and tails through base pointers: nothing is copied."""
-    if cascade_init is not None or shared_len is not None:
-        raise NotImplementedError(
-            "cascade (shared-prefix) init state is not ported yet")
+    layer's cache and tails through base pointers: nothing is copied.
+    ``cascade_init``: (acc0 [R, kvh, group, hd], m0 [R, kvh, group], l0
+    [R, kvh, group]) fp32 covering page positions < ``shared_len``; it
+    takes no sliding window, chunk or soft cap (the shared pass has none)."""
+    if cascade_init is not None and (sliding_window or chunk_attn
+                                     or logits_soft_cap):
+        raise ValueError("the cascade init state takes no sliding window, "
+                         "chunked attention or soft cap")
     if kv_cache.dtype != q.dtype or tail_k.dtype != q.dtype:
         raise NotImplementedError(
             "cache, tails and query must share one dtype (an fp8 cache is "
@@ -115,7 +142,8 @@ def window_decode_attention(
         return ref_window_decode_attention(
             q, kv_cache[layer], tail_k[layer], tail_v[layer], step,
             paged_lens, block_tables, scale, sliding_window=sliding_window,
-            chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap)
+            chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap,
+            cascade_init=cascade_init, shared_len=shared_len)
     if not q.is_cuda or q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported query tensor: {q.device} {q.dtype}")
     for t in (q, kv_cache, tail_k, tail_v):
@@ -135,6 +163,19 @@ def window_decode_attention(
                 or t.device != q.device:
             raise ValueError("metadata must be contiguous int32 on q's "
                              "device")
+    init = (None, None, None)
+    if cascade_init is not None:
+        group = nq // kvh
+        for t, shape in zip(cascade_init, ((R, kvh, group, hd),
+                                           (R, kvh, group), (R, kvh, group))):
+            if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"cascade_init: want contiguous fp32 "
+                                 f"{shape} on {q.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        init = tuple(t.data_ptr() for t in cascade_init)
+    elif shared_len:
+        raise ValueError("shared_len without a cascade init state")
     out = torch.empty_like(q)
     warps = window_warps(nq // kvh, hd, cuda_build.smem_optin())
     launch = cuda_build.entry("window_decode_attention", "wd_launch",
@@ -144,8 +185,9 @@ def window_decode_attention(
         tail_k[layer].data_ptr(), tail_v[layer].data_ptr(), out.data_ptr(),
         paged_lens.data_ptr(), block_tables.data_ptr(), R,
         block_tables.shape[1], nq, kvh, page, hd, Kw, step, scale,
-        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, warps,
-        window_smem_bytes(nq // kvh, hd, warps), cuda_build.stream(q.device))
+        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, *init,
+        shared_len, warps, window_smem_bytes(nq // kvh, hd, warps),
+        cuda_build.stream(q.device))
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
     return out

@@ -12,6 +12,8 @@ path. Three kinds of step:
   sub-step's K/V go into per-layer tails, attention runs the window decode
   kernel, and the sampled token feeds the next sub-step on the device. At
   the end the tails are flushed into the pages (``runner.py:458-649``).
+  When every request holds the same leading pages (``_detect_shared_prefix``)
+  the window attends them once a sub-step for the whole batch (cascade).
 - ``_execute_multi_step``: the same decode windows for a model without
   window decode (Gemma family: ``supports_window_decode`` False). Each
   sub-step writes its K/V straight into the pages and attends with the
@@ -283,6 +285,11 @@ class ModelRunner:
                                 for rid in order], np.int32)
         counts = np.minimum(np.asarray(step_budgets, np.int32), K)
         block_tables = self._dev(self._block_tables(order))
+        shared = self._detect_shared_prefix(order, int(seq_lens0.min()) - 1)
+        shared_pages, shared_len = None, None
+        if shared is not None:
+            shared_pages = self._dev(np.asarray(shared[0], np.int32))
+            shared_len = shared[1]
         # The last token's KV is not in the pages yet: sub-step 0 computes
         # it into tail slot 0 (``runner.py:517``).
         paged_lens = self._dev(seq_lens0 - 1)
@@ -301,7 +308,8 @@ class ModelRunner:
                 token_req_idx=arange_r, token_pos=pos, slot_mapping=None,
                 seq_lens=pos + 1,
                 block_tables=block_tables, window_step=i,
-                paged_lens=paged_lens)
+                paged_lens=paged_lens, shared_pages=shared_pages,
+                shared_len=shared_len)
             hidden = model.forward_window(toks, self.kv_cache, tail_k,
                                           tail_v, md)
             new_tok, lp = greedy_sample(model.compute_logits(hidden))
@@ -311,6 +319,26 @@ class ModelRunner:
             lp_buf[i] = lp
         self._flush_tails(tail_k, tail_v, paged_lens, block_tables, budget)
         return self._window_output(order, counts, tok_buf, lp_buf)
+
+    def _detect_shared_prefix(self, order: list[str], min_plen: int
+                              ) -> Optional[tuple[list[int], int]]:
+        """(shared page ids, shared token count) when every request of the
+        batch holds the same leading block ids (prefix caching dedups them
+        physically), at most ``min_plen // block_size`` of them and at least
+        4; else None (``runner.py:1407-1426``; the JAX runner pads the ids
+        to a power of two for its jit layouts, the port passes them as
+        they are)."""
+        if len(order) < 2:
+            return None
+        tables = [self.requests[rid].block_ids for rid in order]
+        first = tables[0]
+        k = min(min(len(t) for t in tables), min_plen // self.block_size)
+        n = 0
+        while n < k and all(t[n] == first[n] for t in tables):
+            n += 1
+        if n < 4:  # a short shared prefix is not worth the extra pass
+            return None
+        return list(first[:n]), n * self.block_size
 
     def _execute_multi_step(self, order: list[str], num_steps: int,
                             step_budgets: list[int]) -> ModelRunnerOutput:

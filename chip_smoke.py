@@ -59,6 +59,22 @@ CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
    tokens a run; decode runs the non-window multi-step path, so in every
    cold and warm run the decode kernel launches 42 x 63 = 2646 times, the
    ragged kernel 42 times and the window kernel never.
+13. Int4 + cascade parity: a one-layer Llama at K = 2048 (every projection
+   packs under gptq's group of 128), gptq realized to native int4
+   (``realize_int4_leaves``), fp32, 72 prompts sharing a 100-token prefix on
+   16-token pages (decode M = 72 > 64; 6 shared pages), card vs CPU with
+   the same weights: greedy tokens must be equal, the int4 kernel and the
+   shared-prefix pass launched; on the card, the same tokens again with
+   the cascade turned off (``_detect_shared_prefix`` patched to None).
+14. The main path of the int4 + cascade slice: Llama-3.1-8B at full width
+   and depth, W4A16 (gptq, group 128) realized to native int4, bf16, 128
+   requests sharing a seeded 1024-token system prompt, each with a
+   128-token suffix new in every run, 64 greedy tokens. The warm-up caches
+   the prefix, so every timed run prefills one 16384-token wave (131072
+   cached prompt tokens) and runs one 63-step window at R = 128 sharing 16
+   pages: exactly 4 x 32 x 63 = 8064 int4 launches, 32 x 63 = 2016
+   shared-prefix passes and window launches, 32 ragged and 0 packed W4
+   launches a run.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -78,7 +94,16 @@ It holds the selective scan (which stands in for the TPU
 be equal bit for bit, at phase 10's shapes (a 4096-token wave of 8
 segments of 512 and a 32-row decode step, over 5120 x 16 columns) and at
 a ragged edge; no single PyTorch call computes the recurrence, so it has
-no library yardstick.
+no library yardstick. It holds the native-int4 GEMM (which stands in for
+``w4a16_int4_matmul_pallas``) in bf16 and fp32 at the Llama-3.1-8B layer's
+four GEMMs at M = 128, 65 and 256, timed at M = 128 and 32 beside the
+packed W4 kernel on the same weights, with ``torch._weight_int4pack_mm``
+as yardstick; the shared-prefix pass (``shared_prefix_attention``) in
+bf16 and fp32 at phase 14's decode step (R 128, 32 / 8 heads of 128, S =
+1024), against ``scaled_dot_product_attention`` over the gathered shared
+K/V (which returns the normalized output, not the state); and the window
+kernel started from that state against the window kernel over the whole
+context, timed with and without the cascade.
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -125,6 +150,8 @@ QUANT_KERNELS = {  # name: (replaces, shapes)
     "w8a16_matmul": (
         "aphrodite_tpu/ops/quant_matmul_pallas.py:50", QWEN_GEMMS),
 }
+# Phase 14: 128 requests x (1024 shared + 128 own) tokens, 64 generated.
+CASCADE_R, CASCADE_S, CASCADE_SUFFIX, CASCADE_DECODE = 128, 1024, 128, 64
 
 # Attention shapes of each path's run: heads, one prefill wave's (context,
 # query) lengths per request, one decode window's paged lengths.
@@ -143,6 +170,11 @@ ATTN_GEOMS = {
     "gemma-2-9b-bf16": dict(
         nq=16, kvh=8, hd=256, ctx=[512] * 32, qlen=[512] * 32,
         paged=[512] * 32),
+    # phase 14: 128 x 128 new tokens over 1152-token contexts in one wave;
+    # the window kernel here over the whole context (no cascade)
+    "llama-3.1-8b-int4-cascade": dict(
+        nq=32, kvh=8, ctx=[1152] * 128, qlen=[128] * 128,
+        paged=[1152] * 128),
 }
 
 QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
@@ -588,6 +620,241 @@ def check_prefill_w4(gen) -> None:
         "GEMMs (equal outputs): " + "; ".join(
             f"{k} dequantize {ms[k]:.4f} ms, peak +{peak[k] / 2**30:.3f} GiB"
             for k in ms))
+
+
+def int4_inputs(gen, K: int, N: int, M: int, dtype):
+    """Random native-int4 weights (q4 and zeros in [-8, 8), group 128) and
+    x, scaled as in ``quant_inputs``: x, (packed q4, s, z), the plain
+    version, and the same weights as uint4 (q4 + 8, z + 8) for the packed
+    W4 kernel and the library call."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    dev = dict(device="cuda", generator=gen)
+    G = K // 128
+    x = torch.randn((M, K), **dev).to(dtype)
+    q4 = torch.randint(-8, 8, (K, N), **dev).to(torch.int8)
+    z = torch.randint(-8, 8, (G, N), **dev).float()
+    s = (0.5 + torch.rand((G, N), **dev)) / (4 * 6.5 * K ** 0.5)
+    p = qm.pack_int4(q4)
+    plain = lambda xf: qm.ref_w4a16_int4_matmul(xf, p, s, z)  # noqa: E731
+    return x, (p, s, z), plain, (q4 + 8, s, z + 8)
+
+
+def check_int4(gen, dtype_name: str) -> dict:
+    """The native-int4 GEMM at the Llama-3.1-8B layer's four GEMMs at M =
+    128 (phase 14's decode batch): error against the plain version on fp32
+    copies of the same inputs; kernel, plain and library times and the
+    bound summed over the layer. The same weights as uint4 through the
+    packed W4 kernel at M = 128 and 32, and the int4 kernel at M = 32, for
+    comparison (bf16). Then errors only at M = 65 and 256."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.quantization.loader import pack_w4
+    dtype = getattr(torch, dtype_name)
+    tc = dtype_name == "bfloat16"
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes=0.0, ops=0.0)
+    side = {"int4 M=32": 0.0, "packed M=128": 0.0, "packed M=32": 0.0}
+    lib_label = None
+    for gemm, (K, N) in LLAMA8B_GEMMS.items():
+        M = 128
+        x, args, plain, uint4 = int4_inputs(gen, K, N, M, dtype)
+        out = qm.w4a16_int4_matmul(x, *args)
+        ref = plain(x.float())
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+            raise AssertionError(f"w4a16_int4_matmul {gemm} M={M} "
+                                 f"{dtype_name}: max_abs_err {err} > "
+                                 f"{TOL[dtype_name]}")
+        ms = cuda_ms(lambda: qm.w4a16_int4_matmul(x, *args), 50 if tc else 5)
+        plain_ms = cuda_ms(lambda: plain(x), 3)
+        lib_label, lib = library_call("w4a16_matmul", x, uint4,
+                                      qm.dequant_w4(*uint4))
+        lib_ms = cuda_ms(lib, 50 if tc else 5)
+        nbytes = (x.numel() * x.element_size()
+                  + sum(a.numel() * a.element_size() for a in args)
+                  + M * N * x.element_size())
+        ops = 2.0 * M * K * N
+        msg = (f"# phase 2: w4a16_int4_matmul {gemm} {dtype_name} M={M} K={K}"
+               f" N={N}: err {err:.3g}; kernel {ms:.4f} ms, plain "
+               f"{plain_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, bound "
+               f"{bound_ms(nbytes, ops, dtype_name)[0]:.4f} ms")
+        if tc:  # the same weights through the packed W4 kernel
+            packed = (pack_w4(uint4[0]), uint4[1], uint4[2])
+            x32 = x[:32].contiguous()
+            t = {"int4 M=32": cuda_ms(
+                     lambda: qm.w4a16_int4_matmul(x32, *args), 50),
+                 "packed M=128": cuda_ms(
+                     lambda: qm.w4a16_packed_matmul(x, *packed), 50),
+                 "packed M=32": cuda_ms(
+                     lambda: qm.w4a16_packed_matmul(x32, *packed), 50)}
+            msg += "; " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            for k, v in t.items():
+                side[k] += v
+        log(msg)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("bytes", nbytes), ("ops", ops)):
+            tot[k] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del x, args, uint4, out, ref
+        for M in (65, 256):
+            x, args, plain, _ = int4_inputs(gen, K, N, M, dtype)
+            out = qm.w4a16_int4_matmul(x, *args)
+            err = (out.float() - plain(x.float())).abs().max().item()
+            if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+                raise AssertionError(f"w4a16_int4_matmul {gemm} M={M} "
+                                     f"{dtype_name}: max_abs_err {err} > "
+                                     f"{TOL[dtype_name]}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            del x, args, out
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
+                                                tot.pop("ops"), dtype_name)
+    tot["library"] = lib_label
+    if tc:
+        log("# phase 2: a layer's 4 GEMMs, bf16, the same weights: int4 "
+            f"M=128 {tot['ms']:.4f} ms, " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in side.items()))
+    return tot
+
+
+def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
+    """A [2, P, 2, 8, 64, 128] cache whose R requests share their first S //
+    64 pages, each with its own pages past them up to plen + kw, in shuffled
+    order: (cache, shared pages, block tables)."""
+    import torch
+    n_shared = S // PAGE
+    own = -(-(plen + kw) // PAGE) - n_shared
+    num_pages = 1 + n_shared + R * own
+    cache = torch.randn((2, num_pages, 2, 8, PAGE, HD), generator=gen,
+                        device="cuda").to(dtype)
+    perm = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+            + 1).int()
+    shared = perm[:n_shared].contiguous()
+    bt = torch.cat([shared[None].expand(R, n_shared),
+                    perm[n_shared:].reshape(R, own)], dim=1).contiguous()
+    return cache, shared, bt
+
+
+def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
+    """Phase 14's decode step (R 128, 32 / 8 heads of 128, paged lengths
+    1152, 16 shared pages: S = 1024, a 64-slot tail): the shared-prefix
+    pass against its plain version (and an unaligned S = 1000), and the
+    window kernel started from its state against the plain window and the
+    window kernel over the whole context, at several steps. Times: the
+    pass, the window with the init state, both together and the window
+    alone over the whole context (step 24). Returns the pass's and the
+    window-with-init's results."""
+    import torch
+    import torch.nn.functional as F
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        ref_shared_prefix_attention, shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        ref_window_decode_attention, window_decode_attention)
+    dtype = getattr(torch, dtype_name)
+    R, NQ, KVH, S, plen, Kw, layer = 128, 32, 8, CASCADE_S, 1152, 64, 1
+    cache, shared, bt = cascade_cache(gen, dtype, R, S, plen, Kw)
+    q = torch.randn((R, NQ, HD), generator=gen, device="cuda").to(dtype)
+    tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
+                         device="cuda").to(dtype)
+    tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
+                         device="cuda").to(dtype)
+    pl = torch.full((R,), plen, dtype=torch.int32, device="cuda")
+    scale = HD ** -0.5
+    item = torch.finfo(dtype).bits // 8
+    spa = lambda s_len=S: shared_prefix_attention(  # noqa: E731
+        q, cache, layer, shared, s_len, scale)
+    err = 0.0
+    for s_len in (S, 1000):
+        got = spa(s_len)
+        want = ref_shared_prefix_attention(q, cache[layer], shared, s_len,
+                                           scale)
+        torch.cuda.synchronize()
+        # m and l exactly as the plain version's up to rounding; acc is
+        # O(l) = O(S), so its error is taken relative to l.
+        e = max((got[1] - want[1]).abs().max().item(),
+                ((got[0] - want[0]) / want[2][..., None]).abs().max().item(),
+                ((got[2] - want[2]) / want[2]).abs().max().item())
+        if not (e <= TOL[dtype_name] and all(torch.isfinite(t).all()
+                                             for t in got)):
+            raise AssertionError(f"shared_prefix_attention S={s_len} "
+                                 f"{dtype_name}: max error {e} > "
+                                 f"{TOL[dtype_name]}")
+        err = max(err, e)
+    ms = cuda_ms(spa, 200)
+    plain_ms = cuda_ms(lambda: ref_shared_prefix_attention(
+        q, cache[layer], shared, S, scale), 5)
+    # Library yardstick: one SDPA over the gathered shared K/V with every
+    # request's query rows of a KV head as one sequence, no mask. It returns
+    # the normalized output, not (acc, m, l).
+    kv = cache[layer][shared.long()]                 # [16, 2, kvh, 64, hd]
+    kv = kv.permute(1, 2, 0, 3, 4).reshape(2, 1, KVH, S, HD)
+    q_h = q.reshape(R, KVH, NQ // KVH, HD).permute(1, 0, 2, 3).reshape(
+        1, KVH, -1, HD).contiguous()
+    k_d, v_d = kv[0].contiguous(), kv[1].contiguous()
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q_h, k_d, v_d, scale=scale), 200)
+    nbytes = (item * (R * NQ * HD + 2 * KVH * S * HD)
+              + 4 * (R * NQ * HD + 2 * R * NQ))
+    b_ms, b_by = bound_ms(nbytes, 4.0 * R * NQ * HD * S, dtype_name)
+    spa_res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=lib_ms)
+    log(f"# phase 2: shared_prefix_attention {dtype_name} (R {R}, nq {NQ}, "
+        f"kvh {KVH}, S {S}): max error {err:.3g} (tol {TOL[dtype_name]}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (normalized "
+        f"output) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    win = lambda step, init=None: window_decode_attention(  # noqa: E731
+        q, cache, tail_k, tail_v, layer, step, pl, bt, scale,
+        cascade_init=init, shared_len=S if init is not None else 0)
+    err = 0.0
+    for step in (0, 24, 63):
+        init = spa()
+        out = win(step, init)
+        full = win(step)
+        ref = ref_window_decode_attention(q, cache[layer], tail_k[layer],
+                                          tail_v[layer], step, pl, bt, scale)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        e_full = (out.float() - full.float()).abs().max().item()
+        if not (max(e, e_full) <= TOL[dtype_name]
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"window kernel with the cascade init "
+                                 f"{dtype_name} step {step}: max_abs_err "
+                                 f"{e} vs plain, {e_full} vs the kernel over "
+                                 f"the whole context > {TOL[dtype_name]}")
+        err = max(err, e)
+    step = 24
+    init = spa()
+    ms = cuda_ms(lambda: win(step, init), 50)
+    both_ms = cuda_ms(lambda: win(step, spa()), 50)
+    full_ms = cuda_ms(lambda: win(step), 50)
+    plain_ms = cuda_ms(lambda: ref_window_decode_attention(
+        q, cache[layer], tail_k[layer], tail_v[layer], step, pl, bt, scale,
+        cascade_init=init, shared_len=S), 5)
+    # Library yardstick: SDPA over the whole context, gathered dense with a
+    # mask (the same output as the cascade's).
+    k_p, v_p = dense_kv(cache[layer], bt, [plen] * R, plen)
+    k_d = torch.cat([k_p, tail_k[layer]], dim=2)
+    v_d = torch.cat([v_p, tail_v[layer]], dim=2)
+    j = torch.arange(plen + Kw, device="cuda")
+    mask = ((j < plen) | ((j - plen) <= step))[None, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k_d, v_d, attn_mask=mask, scale=scale,
+        enable_gqa=True), 50)
+    vis = R * (plen - S + step + 1)   # K/V rows past the prefix
+    nbytes = (item * (2 * R * NQ * HD + 2 * KVH * HD * vis)
+              + 4 * (R * NQ * HD + 2 * R * NQ))
+    b_ms, b_by = bound_ms(nbytes, 4.0 * NQ * HD * vis, dtype_name)
+    log(f"# phase 2: window_decode_attention with the cascade init "
+        f"{dtype_name} (R {R}, paged 1152, S {S}, step {step}): max_abs_err "
+        f"{err:.3g} (tol {TOL[dtype_name]}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); cascade (pass + window) {both_ms:.4f} ms vs the window "
+        f"kernel over the whole context {full_ms:.4f} ms")
+    del cache, k_d, v_d, kv
+    return spa_res, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
 def group_offsets(gen, M: int, skewed: bool):
@@ -1269,6 +1536,172 @@ def main_path_gemma() -> dict:
                "window_decode_attention": 0})[0]
 
 
+def int4_cascade_parity() -> int:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same weights: a one-layer Llama at K = 2048 (every W4 leaf packs
+    under gptq's group of 128), realized to native int4, 72 prompts sharing
+    a 100-token prefix on 16-token pages (decode M = 72, 6 shared pages).
+    On the card, the tokens again with the cascade turned off. Returns the
+    int4 kernel's launches on the first card run."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.loader.weights import realize_int4_leaves
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dict(vocab_size=512, hidden_size=2048, num_hidden_layers=1,
+               num_attention_heads=16, num_key_value_heads=2,
+               intermediate_size=2048, max_position_embeddings=1024,
+               tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
+    kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+              quantization="gptq", block_size=16, num_kv_blocks=1024,
+              max_num_seqs=80, max_num_batched_tokens=2048,
+              max_model_len=256)
+    rng = np.random.RandomState(7)
+    shared = rng.randint(1, 500, size=100).tolist()
+    prompts = [shared + rng.randint(1, 500, size=1 + i % 9).tolist()
+               for i in range(72)]
+    params = SamplingParams(temperature=0.0, max_tokens=12, ignore_eos=True)
+    cpu = LLM("tiny-int4", device="cpu", **kw)
+    realize_int4_leaves(cpu.engine.core.worker.model)
+    gpu = LLM("tiny-int4", device="cuda", **kw)
+    realize_int4_leaves(gpu.engine.core.worker.model)
+    state = {k: v.numpy() for k, v in
+             cpu.engine.core.worker.model.state_dict().items()}
+    gpu.engine.core.worker.load_params(state)
+    a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+    runner = gpu.engine.core.worker.runner
+    detect = runner._detect_shared_prefix
+    found = []
+    runner._detect_shared_prefix = lambda *x: found.append(detect(*x)) or \
+        found[-1]
+    qm.w4a16_int4_matmul.launches = 0
+    shared_prefix_attention.launches = 0
+    b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+    launches = qm.w4a16_int4_matmul.launches
+    passes = shared_prefix_attention.launches
+    runner._detect_shared_prefix = lambda *x: None
+    gpu.engine.reset_prefix_cache()
+    shared_prefix_attention.launches = 0
+    c = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+    if a != b:
+        raise AssertionError(f"int4 + cascade: cuda vs cpu greedy tokens "
+                             f"differ:\n{a}\n{b}")
+    if b != c or shared_prefix_attention.launches:
+        raise AssertionError(f"cuda tokens with the cascade differ from "
+                             f"those without it:\n{b}\n{c}")
+    if launches <= 0 or passes <= 0 or not any(found):
+        raise AssertionError(f"int4 launches {launches}, shared-prefix "
+                             f"passes {passes}, shared prefixes {found}")
+    if len({t for x in a for t in x}) <= 10:
+        raise AssertionError(f"the tokens hardly vary: {a}")
+    log(f"# phase 13: cuda == cpu greedy tokens for {len(prompts)} prompts "
+        f"x 12 (int4, decode M = 72, shared prefix {found[-1][1]} tokens), "
+        f"and == cuda with the cascade off; w4a16_int4_matmul launches "
+        f"{launches}, shared_prefix_attention launches {passes}")
+    del cpu, gpu
+    return launches
+
+
+def main_path_int4_cascade() -> dict:
+    """Llama-3.1-8B W4A16 (gptq, group 128) realized to native int4, bf16,
+    at full width and depth: 128 requests whose prompts start with one
+    seeded 1024-token system prompt, each with a 128-token suffix new in
+    every run (seeded by the run's index), 64 greedy tokens. A warm-up run
+    caches the prefix; each timed run then prefills one 16384-token wave
+    and decodes one 63-step window at R = 128 whose requests share 16
+    pages. Every run must give exactly 8192 tokens, find 131072 cached
+    prompt tokens and launch each kernel exactly as reckoned."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.loader.weights import realize_int4_leaves
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    phase = "phase 14"
+    R, S, n_suf, n_dec = (CASCADE_R, CASCADE_S, CASCADE_SUFFIX,
+                          CASCADE_DECODE)
+    L = LLAMA31_8B["num_hidden_layers"]
+    steps = n_dec - 1  # the first token comes from the prefill wave
+    kernels = {"w4a16_int4_matmul": qm.w4a16_int4_matmul,
+               "w4a16_packed_matmul": qm.w4a16_packed_matmul,
+               "shared_prefix_attention": shared_prefix_attention,
+               **attention_kernels()}
+    exact = {"w4a16_int4_matmul": 4 * L * steps,
+             "shared_prefix_attention": L * steps,
+             "window_decode_attention": L * steps,
+             "ragged_paged_attention": L, "w4a16_packed_matmul": 0}
+    log(f"# {phase}: launches a run, reckoned: {exact} (4 GEMMs x {L} "
+        f"layers x {steps} window steps; one pass and one window launch a "
+        f"layer a step; one {R * n_suf}-token wave)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM("llama-3.1-8b-w4a16-int4-dummy", hf_config=LLAMA31_8B,
+              tokenizer="unused", dtype="bfloat16", load_format="dummy",
+              quantization="gptq", block_size=PAGE, max_num_seqs=R,
+              max_num_batched_tokens=R * n_suf, max_model_len=1280,
+              device="cuda")
+    realize_int4_leaves(llm.engine.core.worker.model)
+    torch.cuda.synchronize()
+    log(f"# {phase}: engine init + realize {time.perf_counter() - t0:.2f} "
+        f"s, weights + KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    top = LLAMA31_8B["vocab_size"] - 10
+    prefix = np.random.RandomState(0).randint(10, top, size=S).tolist()
+    params = SamplingParams(temperature=0.0, max_tokens=n_dec,
+                            ignore_eos=True)
+    runs = [0]
+
+    def one_run() -> float:
+        rng = np.random.RandomState(1000 + runs[0])
+        runs[0] += 1
+        prompts = [prefix + rng.randint(10, top, size=n_suf).tolist()
+                   for _ in range(R)]
+        for fn in kernels.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        outs = llm.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        toks = [o.outputs[0].token_ids for o in outs]
+        if sum(len(x) for x in toks) != R * n_dec:
+            raise AssertionError(f"expected {R * n_dec} tokens")
+        if not all(0 <= t < LLAMA31_8B["vocab_size"] for x in toks
+                   for t in x):
+            raise AssertionError("token id out of the vocabulary")
+        one_run.cached = sum(o.num_cached_tokens for o in outs)
+        one_run.counts = {k: fn.launches for k, fn in kernels.items()}
+        return dt
+
+    def check(label: str) -> None:
+        if one_run.counts != exact or one_run.cached != R * S:
+            raise AssertionError(
+                f"{label}: launches {one_run.counts}, cached prompt tokens "
+                f"{one_run.cached}; want {exact} and {R * S}")
+
+    log(f"# {phase}: warm-up run {one_run():.3f} s, cached prompt tokens "
+        f"{one_run.cached}, launches {one_run.counts}")
+    times = []
+    for i in range(3):
+        times.append(one_run())
+        log(f"# {phase}: run {i}: {times[-1]:.3f} s, cached prompt tokens "
+            f"{one_run.cached}, launches {one_run.counts}")
+        check(f"run {i}")
+    s_run = float(np.mean(times))
+    log(f"# {phase}: {s_run:.3f} s/run (runs {times}); "
+        f"{R * n_dec / s_run:.0f} decode tok/s; "
+        f"{R * (S + n_suf + n_dec) / s_run:.0f} tok/s (prompt+decode); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_run(one_run, phase)
+    check("profiled run")
+    counts = one_run.counts
+    del llm
+    return counts
+
+
 def profile_run(one_run, phase: str = "phase 4") -> None:
     """One more run under torch.profiler: device busy share of the wall
     time and device time by kernel family."""
@@ -1298,14 +1731,17 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
             if e.name() == "aten::bmm":
                 bmm_spans.setdefault(e.start_thread_id(), []).append(
                     (e.start_ns(), e.end_ns()))
-    fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "quant": 0.0,
-           "moe": 0.0, "scan": 0.0, "gemm": 0.0, "other": 0.0}
+    fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "cascade": 0.0,
+           "quant": 0.0, "int4": 0.0, "moe": 0.0, "scan": 0.0, "gemm": 0.0,
+           "other": 0.0}
     for name, (ns, _) in kernels.items():
         n = name.lower()
         k = ("ragged" if "rpa_kernel" in n else
              "window" if "wd_kernel" in n else
              "decode" if "dpa_kernel" in n else
+             "cascade" if "spa_kernel" in n else
              "quant" if "qmm_" in n else
+             "int4" if "q4_kernel" in n or "q4_tc_kernel" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
@@ -1351,7 +1787,7 @@ def main() -> int:
         f"{torch.version.cuda}")
     names = ["ragged_paged_attention", "window_decode_attention",
              "decode_paged_attention", "quant_matmul", "grouped_matmul",
-             "selective_scan"]
+             "selective_scan", "shared_prefix_attention"]
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
@@ -1384,6 +1820,16 @@ def main() -> int:
         for case in DECODE_CASES:
             results[("decode_paged_attention", case, dt)] = check_decode(
                 gen, dt, case)
+        r = check_int4(gen, dt)
+        log(f"# phase 2: w4a16_int4_matmul {dt}, a Llama-3.1-8B layer's 4 "
+            f"GEMMs at M=128: max_abs_err {r['max_abs_err']:.3g} (tol "
+            f"{TOL[dt]}, M 65 and 256 too); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        results[("w4a16_int4_matmul", dt)] = r
+        (results[("shared_prefix_attention", dt)],
+         results[("window_decode_attention", "cascade", dt)]) = \
+            check_cascade(gen, dt)
         r = check_grouped(gen, dt)
         log(f"# phase 2: grouped_matmul {dt}, a MoE layer's 2 GEMMs over a "
             f"wave (M=65536, balanced): max_abs_err {r['max_abs_err']:.3g} "
@@ -1409,6 +1855,8 @@ def main() -> int:
     mamba_counts = main_path_mamba()
     gemma_parity()
     gemma_counts = main_path_gemma()
+    int4_parity_launches = int4_cascade_parity()
+    cascade_counts = main_path_int4_cascade()
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
@@ -1438,6 +1886,23 @@ def main() -> int:
     rows.append(("selective_scan", "mamba-2.8b-bf16", "float32",
                  mamba_counts["selective_scan"],
                  results[("selective_scan", "float32")]))
+    cascade_path = "llama-3.1-8b-int4-cascade"
+    rows += [
+        ("ragged_paged_attention", cascade_path, "bfloat16",
+         cascade_counts["ragged_paged_attention"],
+         results[("ragged_paged_attention", cascade_path, "bfloat16")]),
+        ("window_decode_attention", cascade_path, "bfloat16",
+         cascade_counts["window_decode_attention"],
+         results[("window_decode_attention", "cascade", "bfloat16")]),
+        ("shared_prefix_attention", cascade_path, "bfloat16",
+         cascade_counts["shared_prefix_attention"],
+         results[("shared_prefix_attention", "bfloat16")]),
+        ("w4a16_int4_matmul", cascade_path, "bfloat16",
+         cascade_counts["w4a16_int4_matmul"],
+         results[("w4a16_int4_matmul", "bfloat16")]),
+        ("w4a16_int4_matmul", "llama-2048-int4-cascade-parity-fp32",
+         "float32", int4_parity_launches,
+         results[("w4a16_int4_matmul", "float32")])]
     replaces = {"ragged_paged_attention":
                 "aphrodite_tpu/ops/ragged_paged_attention.py:247",
                 "window_decode_attention":
@@ -1448,10 +1913,15 @@ def main() -> int:
                 # gmm.py:314), called here:
                 "grouped_matmul": "aphrodite_tpu/models/moe_common.py:208",
                 "selective_scan": "aphrodite_tpu/ops/selective_scan.py:64",
+                "shared_prefix_attention":
+                "aphrodite_tpu/ops/cascade_attention.py:118",
+                "w4a16_int4_matmul":
+                "aphrodite_tpu/ops/quant_matmul_pallas.py:290",
                 **{n: r for n, (r, _) in QUANT_KERNELS.items()}}
     kernels = []
     for name, path, dt, launches, r in rows:
-        src = "quant_matmul" if name in QUANT_KERNELS else name
+        src = ("quant_matmul" if name in QUANT_KERNELS
+               or name == "w4a16_int4_matmul" else name)
         kernels.append({
             "name": name, "path": path, "dtype": dt, "route": "cuda",
             "source": f"aphrodite_tpu_torch/csrc/{src}.cu",

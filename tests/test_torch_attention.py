@@ -182,13 +182,13 @@ def test_unported_kernel_options_raise():
     c = _ragged_case([(8, 8)])
     with pytest.raises(NotImplementedError):
         _port_ragged(c, alibi=torch.ones(NQ))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # an fp8 cache
         window_decode_attention(
-            torch.zeros(1, NQ, 64), torch.zeros(L, 2, 2, KVH, PAGE, 64),
+            torch.zeros(1, NQ, 64),
+            torch.zeros(L, 2, 2, KVH, PAGE, 64, dtype=torch.float8_e4m3fn),
             torch.zeros(L, 1, KVH, 4, 64), torch.zeros(L, 1, KVH, 4, 64), 0,
             0, torch.ones(1, dtype=torch.int32),
-            torch.ones(1, 1, dtype=torch.int32), 0.1,
-            cascade_init=(None, None, None))
+            torch.ones(1, 1, dtype=torch.int32), 0.1)
 
 
 # (group, head_dim): ragged query rows a work item, window warps.
