@@ -101,4 +101,4 @@ def window_attention(q: torch.Tensor, kv_cache: torch.Tensor,
         q, kv_cache, tail_k, tail_v, layer, md.window_step, md.paged_lens,
         md.block_tables, scale, sliding_window=sliding_window,
         chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap,
-        cascade_init=init, shared_len=shared_len)
+        cascade_init=init, shared_len=shared_len, plan=md.window_plan)

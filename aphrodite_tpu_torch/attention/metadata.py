@@ -8,10 +8,13 @@ every token in ``slot_mapping`` is live; ``-1`` slots are still dropped by
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from aphrodite_tpu_torch.ops.window_decode_attention import WindowPlan
 
 
 @dataclass
@@ -47,6 +50,10 @@ class AttentionMetadata:
     # window entry. Set only by the runner's window path.
     window_step: Optional[int] = None
     paged_lens: Optional[torch.Tensor] = None
+    # The window kernel's launch geometry, split plan and scratch, made once
+    # for every layer and sub-step of the window (``window_plan``; None:
+    # each launch makes its own, bounded by the block tables' capacity).
+    window_plan: Optional[WindowPlan] = None
     # Cascade (shared-prefix) decode: [n] int32 physical pages that every
     # request of the window holds first, and the shared_len tokens they
     # cover (a host int, n * page). None: the runner found no shared

@@ -40,11 +40,11 @@
 // Left for later: wgmma with TMA loads and a persistent tile scheduler
 // (the warpgroup products are the only way to the card's full bf16 rate;
 // mma.sync tops out well below it).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
+
+using namespace mma;
 
 enum Dtype { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -93,18 +93,6 @@ __device__ __forceinline__ bool find_item(const int* __restrict__ offsets,
   return false;
 }
 
-// Raise a kernel's dynamic shared memory limit once (the call costs host
-// time per launch).
-template <auto kKernel>
-cudaError_t allow_smem(int bytes) {
-  static int allowed = 0;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
-}
-
 // ------------------------------------------------------------- bf16 kernel
 constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
 constexpr int kAPitch = kBK + 8;  // bf16 per staged x row: 80 B, so the 8
@@ -113,50 +101,6 @@ constexpr int kBPitch = kBN + 8;  // bf16 per staged w row: 272 B, likewise
 constexpr int kAStage = kBM * kAPitch;
 constexpr int kBStage = kBK * kBPitch;
 constexpr int kSmemBf16 = kStages * (kAStage + kBStage) * 2;  // bytes
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __global__ void __launch_bounds__(kThreads)
 gmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,

@@ -42,11 +42,13 @@
 // columns are 32 blocks): each block then writes fp32 partial sums, and
 // the last block of a tile to finish adds them in split order
 // (deterministic) and writes y (finish_splits).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
+
+using mma::allow_smem;
+using mma::mma_bf16;
+using mma::pack_bf16;
 
 enum Layout { kW8 = 0, kW4 = 1, kW4Packed = 2 };
 enum Dtype { kFloat32 = 0, kBFloat16 = 1 };
@@ -78,20 +80,6 @@ __host__ __device__ constexpr int smem_floats(int mt, int halves) {
   return kTileK * halves * (mt + 4) > (kWarps - 1) * mt * kBlockN
              ? kTileK * halves * (mt + 4)
              : (kWarps - 1) * mt * kBlockN;
-}
-
-// Raise a kernel's dynamic shared memory limit to `bytes`, calling the
-// runtime only when the limit grows (the call costs host time per launch).
-// The default limit leaves no room for static shared memory beside 48 KB
-// of dynamic, so the first launch always sets it.
-template <auto kKernel>
-cudaError_t allow_smem(int bytes) {
-  static int allowed = 0;  // one per kernel
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
 }
 
 // Split-K fixup, called by every thread of a block that wrote its fp32
@@ -342,20 +330,6 @@ static_assert(kTcWarpsK == 2, "the epilogue adds exactly two K halves");
 
 __device__ __forceinline__ float magic_float(uint32_t v) {
   return __uint_as_float(0x4B000000u | v);      // 2^23 + v, exact
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The weight at bit `shift` of `word`, dequantized. For W4 zf = 2^23 + z,

@@ -117,10 +117,21 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-# cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100: what the runner sizes
-# its launches for when it runs on the CPU, where no card can be asked.
+# cudaDevAttrMaxSharedMemoryPerBlockOptin and the SM count of an H100: what
+# launches are sized for on the CPU, where no card can be asked.
 H100_SMEM_OPTIN = 232448
+H100_SMS = 132
 _SMEM_OPTIN: list[int] = []
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device, read once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def smem_optin() -> int:

@@ -4,7 +4,11 @@
 (``csrc/ragged_paged_attention.cu``, which replaces the TPU kernel
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
-on CPU tensors. Query token i of request r at position p attends to the
+on CPU tensors. bf16 at head_dim 64, 128 or 256 runs the tensor-core
+instance (``rpa_tc_launch``), everything else the scalar one
+(``rpa_launch``), which keeps fp32 in full fp32; each is sized by its own
+function and the runner asks ``ragged_work_item_tokens`` for the one that
+the model's dtype will run. Query token i of request r at position p attends to the
 request's KV positions j <= p, read through its block table from one layer
 of the paged cache, optionally restricted by a sliding window or chunked
 local attention, with an optional logit soft cap.
@@ -22,11 +26,15 @@ from aphrodite_tpu_torch.ops import cuda_build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, _F, _I, _I, _F, _I, _P]
+_TC_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I, _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Keys per shared-memory tile and warps per block of the kernel.
 _TILE, _WARPS = 32, 8
 # Query rows (tokens x query heads of one KV head) per work item, at most.
 _MAX_ROWS = 128
+# The head dims of the tensor-core instance.
+TC_HEAD_DIMS = (64, 128, 256)
 
 
 def ragged_smem_bytes(block_q: int, group: int, hd: int) -> int:
@@ -51,6 +59,49 @@ def ragged_block_q(group: int, hd: int, smem_limit: int) -> int:
         f"{block_q} tokens a work item)",
         ragged_smem_bytes(block_q, group, hd), smem_limit)
     return block_q
+
+
+def ragged_uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the kernel runs the tensor-core instance for this dtype."""
+    return dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+
+
+def ragged_tc_rows(hd: int) -> int:
+    """Query rows a block of the tensor-core instance: 4 warps of 32 rows
+    at head_dim <= 128, of 16 at 256."""
+    return 128 if hd <= 128 else 64
+
+
+def ragged_tc_smem_bytes(hd: int) -> int:
+    """Shared memory of the tensor-core instance (the kernel's TcCfg): the
+    block's Q rows and a ring of K and V tiles (64 keys, 32 at head_dim
+    256; 3 stages at head_dim 64, else 2), bf16 rows padded by 8."""
+    keys = 64 if hd <= 128 else 32
+    stages = 3 if hd <= 64 else 2
+    return 2 * (hd + 8) * (ragged_tc_rows(hd) + stages * 2 * keys)
+
+
+def ragged_tc_block_q(group: int, hd: int, smem_limit: int) -> int:
+    """Tokens per work item of the tensor-core instance: as many whole
+    groups of query rows as fit its rows (128 at head_dim <= 128, 64 at
+    256). Raises when a group does not fit, or the ring does not fit the
+    card's shared memory."""
+    rows = ragged_tc_rows(hd)
+    what = (f"ragged_paged_attention tensor-core instance (group {group}, "
+            f"head_dim {hd})")
+    if group > rows:
+        raise RuntimeError(f"{what}: a token's {group} query rows exceed "
+                           f"the block's {rows}")
+    cuda_build.check_smem(what, ragged_tc_smem_bytes(hd), smem_limit)
+    return rows // group
+
+
+def ragged_work_item_tokens(dtype: torch.dtype, group: int, hd: int,
+                            smem_limit: int) -> int:
+    """block_q for the instance that ``dtype`` and ``hd`` run."""
+    if ragged_uses_tensor_cores(dtype, hd):
+        return ragged_tc_block_q(group, hd, smem_limit)
+    return ragged_block_q(group, hd, smem_limit)
 
 
 def ref_ragged_paged_attention(
@@ -139,18 +190,40 @@ def ragged_paged_attention(
     num_items = md.item_req.shape[0]
     if num_items == 0:
         return out
-    smem = ragged_smem_bytes(md.block_q, nq // kvh, hd)
-    cuda_build.check_smem(
-        f"ragged_paged_attention (group {nq // kvh}, head_dim {hd}, "
-        f"{md.block_q} tokens a work item)", smem, cuda_build.smem_optin())
-    launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
-                              _ARGTYPES)
-    err = launch(
-        DTYPE_CODES[q.dtype], q.data_ptr(), cache_layer.data_ptr(),
-        out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
-        md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
-        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, smem,
-        cuda_build.stream(q.device))
+    group = nq // kvh
+    what = (f"ragged_paged_attention (group {group}, head_dim {hd}, "
+            f"{md.block_q} tokens a work item)")
+    stream = cuda_build.stream(q.device)
+    if ragged_uses_tensor_cores(q.dtype, hd):
+        if md.block_q * group > ragged_tc_rows(hd):
+            raise ValueError(f"{what}: more rows than the tensor-core "
+                             "instance's block (size block_q with "
+                             "ragged_work_item_tokens)")
+        for t in (q, cache_layer):
+            if t.data_ptr() % 16:
+                raise ValueError("q and the cache layer must be 16-byte "
+                                 "aligned")
+        cuda_build.check_smem(what, ragged_tc_smem_bytes(hd),
+                              cuda_build.smem_optin())
+        launch = cuda_build.entry("ragged_paged_attention", "rpa_tc_launch",
+                                  _TC_ARGTYPES)
+        err = launch(
+            q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in int_args), num_items,
+            md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
+            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+            stream)
+    else:
+        smem = ragged_smem_bytes(md.block_q, group, hd)
+        cuda_build.check_smem(what, smem, cuda_build.smem_optin())
+        launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
+                                  _ARGTYPES)
+        err = launch(
+            DTYPE_CODES[q.dtype], q.data_ptr(), cache_layer.data_ptr(),
+            out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
+            md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
+            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+            smem, stream)
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     return out

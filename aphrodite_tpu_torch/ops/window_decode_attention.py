@@ -12,37 +12,109 @@ With ``cascade_init=(acc0, m0, l0)`` and ``shared_len=S`` (the TPU kernel's
 cascade option) the page positions < S are already covered by that
 unnormalized online-softmax state (``ops/cascade_attention.py``): the
 kernel reads only page positions >= S and merges the state in once.
+
+The kernel splits each request's visible keys into tiles of 64 and the
+tiles into ``splits`` ranges, one block each (``window_split_plan``, the
+last split taking whatever is left); each block writes an unnormalized
+(acc, m, l) state and a second kernel merges them in a fixed order.
+``window_plan`` makes the launch geometry, the plan and the states'
+scratch once for all the layers and sub-steps of a decode window.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+    DTYPE_CODES, TC_HEAD_DIMS)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-             _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
-_TILE = 32  # keys per warp tile
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+             _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _I,
+             _I, _P]
+_TILE = 32  # keys per warp sub-tile of the CUDA-core instance
+SPLIT_KEYS = 64  # keys a tile of the split plan
+TC_MAX_GROUP = 16  # query rows of one mma tile
 
 
 def window_smem_bytes(group: int, hd: int, warps: int) -> int:
-    """Shared memory of one launch (the kernel's layout): q [group, hd],
-    then per warp a K tile [32, hd + 1], a V tile [32, hd], p [32], acc
-    [group, hd], m and l [group], all fp32."""
+    """Shared memory of a CUDA-core split block (``wd_split_kernel``'s
+    layout): q [group, hd], then per warp a K sub-tile [32, hd + 1], a V
+    sub-tile [32, hd], p [32], acc [group, hd], m and l [group], all
+    fp32."""
     per_warp = _TILE * (2 * hd + 2) + group * hd + 2 * group
     return 4 * (group * hd + warps * per_warp)
 
 
 def window_warps(group: int, hd: int, smem_limit: int) -> int:
-    """Warps per block: 4, else 2, else 1, the first whose tiles fit the
-    card's shared memory (2 at head_dim 256); raises when none fits."""
+    """Warps of a CUDA-core split block: 4, else 2, else 1, the first
+    whose sub-tiles fit the card's shared memory (2 at head_dim 256);
+    raises when none fits."""
     return cuda_build.fit_warps(
         f"window_decode_attention (group {group}, head_dim {hd})",
         lambda warps: window_smem_bytes(group, hd, warps), smem_limit)
+
+
+def window_uses_tensor_cores(dtype: torch.dtype, group: int,
+                             hd: int) -> bool:
+    """Whether the kernel runs its tensor-core instance: bf16, head_dim
+    64, 128 or 256, and a group that fits one 16-row mma tile."""
+    return (dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+            and group <= TC_MAX_GROUP)
+
+
+def window_tc_smem_bytes(hd: int) -> int:
+    """Shared memory of the tensor-core instance: 16 query rows and a ring
+    of 2 stages of K and V tiles of 64 keys, bf16 rows padded by 8."""
+    return 2 * (hd + 8) * (16 + 2 * 2 * SPLIT_KEYS)
+
+
+def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
+                           smem_limit: int) -> tuple[bool, int, int]:
+    """(tensor cores, warps, shared-memory bytes) of one split block: 4
+    warps and ``window_tc_smem_bytes`` on the tensor-core instance, else
+    the CUDA-core instance's ``window_warps``. Raises, naming the bytes,
+    when nothing fits the card."""
+    what = f"window_decode_attention (group {group}, head_dim {hd})"
+    if window_uses_tensor_cores(dtype, group, hd):
+        smem = window_tc_smem_bytes(hd)
+        cuda_build.check_smem(what, smem, smem_limit)
+        return True, 4, smem
+    warps = window_warps(group, hd, smem_limit)
+    return False, warps, window_smem_bytes(group, hd, warps)
+
+
+def window_max_tiles(max_paged_len: int, step: int, shared_len: int = 0,
+                     sliding_window: Optional[int] = None,
+                     chunk_attn: Optional[int] = None) -> int:
+    """An upper bound on any request's 64-key tiles: its page tiles from
+    the one holding its first visible position (at least ``shared_len``)
+    to ``max_paged_len``, then its tail tiles. Mirrors the kernel's
+    ``request_tiles``; a chunk bounds the range before a sliding window,
+    as in ``first_visible``."""
+    n_page = -(-max_paged_len // SPLIT_KEYS)
+    if shared_len:  # a request shorter than S keeps at most one tile
+        n_page = max(n_page - shared_len // SPLIT_KEYS, 1)
+    if chunk_attn:
+        n_page = min(n_page, chunk_attn // SPLIT_KEYS + 2)
+    elif sliding_window:
+        n_page = min(n_page, sliding_window // SPLIT_KEYS + 2)
+    return n_page + -(-(step + 1) // SPLIT_KEYS)
+
+
+def window_split_plan(blocks: int, max_tiles: int,
+                      num_sms: int) -> tuple[int, int]:
+    """(splits, tiles a split) for ``blocks`` (request, KV head) pairs
+    whose visible keys span at most ``max_tiles`` tiles: whole tiles a
+    split, as many as still give the card four blocks an SM, but at least
+    two (so that a block's next load overlaps its products) where there
+    are two."""
+    want = max(1, -(-4 * num_sms // blocks))
+    per = max(min(2, max_tiles), max_tiles // want)
+    return -(-max_tiles // per), per
 
 
 def ref_window_decode_attention(
@@ -109,6 +181,41 @@ def ref_window_decode_attention(
     return out.reshape(R, nq, hd).to(q.dtype)
 
 
+class WindowPlan(NamedTuple):
+    """One window launch's geometry and split plan (``window_plan``)."""
+    key: tuple          # (dtype, R, nq, kvh, hd) of the launches it fits
+    tensor_cores: bool
+    warps: int
+    smem: int
+    splits: int
+    tiles_per_split: int
+    part: torch.Tensor  # fp32 scratch of the splits' (acc, m, l)
+
+
+def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
+                hd: int, device, max_paged_len: int, step: int,
+                shared_len: int = 0, sliding_window: Optional[int] = None,
+                chunk_attn: Optional[int] = None) -> WindowPlan:
+    """The launch geometry (``window_launch_geometry``), the split plan
+    for a bound on the paged lengths and the window step (a larger step
+    bounds every smaller one), and the scratch of the splits' states: acc
+    [R, nq, splits, hd], then m and l [R, nq, splits]. A bound below the
+    real lengths costs speed only: the last split takes the rest."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    tc, warps, smem = window_launch_geometry(
+        dtype, nq // kvh, hd,
+        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN)
+    splits, per = window_split_plan(
+        num_reqs * kvh, window_max_tiles(max_paged_len, step, shared_len,
+                                         sliding_window, chunk_attn),
+        cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
+    part = torch.empty(num_reqs * nq * splits * (hd + 2),
+                       dtype=torch.float32, device=device)
+    return WindowPlan((dtype, num_reqs, nq, kvh, hd), tc, warps, smem,
+                      splits, per, part)
+
+
 def window_decode_attention(
     q: torch.Tensor,          # [R, nq, hd]
     kv_cache: torch.Tensor,   # [L, P, 2, kvh, page, hd] (frozen)
@@ -124,12 +231,16 @@ def window_decode_attention(
     logits_soft_cap: Optional[float] = None,
     cascade_init=None,
     shared_len: int = 0,
+    plan: Optional[WindowPlan] = None,
 ) -> torch.Tensor:
     """Attention output [R, nq, hd] in q's dtype. The kernel reads the
     layer's cache and tails through base pointers: nothing is copied.
     ``cascade_init``: (acc0 [R, kvh, group, hd], m0 [R, kvh, group], l0
     [R, kvh, group]) fp32 covering page positions < ``shared_len``; it
-    takes no sliding window, chunk or soft cap (the shared pass has none)."""
+    takes no sliding window, chunk or soft cap (the shared pass has none).
+    ``plan``: the CUDA launch's ``window_plan`` (the runner makes one for
+    every layer of a window); by default one bounded by the block tables'
+    capacity."""
     if cascade_init is not None and (sliding_window or chunk_attn
                                      or logits_soft_cap):
         raise ValueError("the cascade init state takes no sliding window, "
@@ -144,15 +255,16 @@ def window_decode_attention(
             paged_lens, block_tables, scale, sliding_window=sliding_window,
             chunk_attn=chunk_attn, logits_soft_cap=logits_soft_cap,
             cascade_init=cascade_init, shared_len=shared_len)
+    dev = q.device
     if not q.is_cuda or q.dtype not in DTYPE_CODES:
-        raise ValueError(f"unsupported query tensor: {q.device} {q.dtype}")
+        raise ValueError(f"unsupported query tensor: {dev} {q.dtype}")
     for t in (q, kv_cache, tail_k, tail_v):
         if not t.is_contiguous():
             raise ValueError("q, cache and tails must be contiguous")
     R, nq, hd = q.shape
     _, _, _, kvh, page, hd_c = kv_cache.shape
     Kw = tail_k.shape[3]
-    if hd_c != hd or nq % kvh or tuple(tail_k.shape[1:]) != (R, kvh, Kw, hd):
+    if hd_c != hd or nq % kvh or tail_k.shape[1:] != (R, kvh, Kw, hd):
         raise ValueError(f"bad geometry: q {tuple(q.shape)} cache "
                          f"{tuple(kv_cache.shape)} tail "
                          f"{tuple(tail_k.shape)}")
@@ -160,34 +272,55 @@ def window_decode_attention(
         raise ValueError(f"step {step} outside the tail of {Kw} slots")
     for t in (paged_lens, block_tables):
         if t.dtype != torch.int32 or not t.is_contiguous() \
-                or t.device != q.device:
+                or t.device != dev:
             raise ValueError("metadata must be contiguous int32 on q's "
                              "device")
+    group = nq // kvh
     init = (None, None, None)
     if cascade_init is not None:
-        group = nq // kvh
         for t, shape in zip(cascade_init, ((R, kvh, group, hd),
                                            (R, kvh, group), (R, kvh, group))):
-            if t.dtype != torch.float32 or tuple(t.shape) != shape \
-                    or not t.is_contiguous() or t.device != q.device:
+            if t.dtype != torch.float32 or t.shape != shape \
+                    or not t.is_contiguous() or t.device != dev:
                 raise ValueError(f"cascade_init: want contiguous fp32 "
-                                 f"{shape} on {q.device}, got {t.dtype} "
+                                 f"{shape} on {dev}, got {t.dtype} "
                                  f"{tuple(t.shape)} on {t.device}")
         init = tuple(t.data_ptr() for t in cascade_init)
     elif shared_len:
         raise ValueError("shared_len without a cascade init state")
     out = torch.empty_like(q)
-    warps = window_warps(nq // kvh, hd, cuda_build.smem_optin())
+    if R == 0:
+        return out
+    if plan is None:
+        plan = window_plan(q.dtype, R, nq, kvh, hd, dev,
+                           block_tables.shape[1] * page, step, shared_len,
+                           sliding_window, chunk_attn)
+    elif plan.key != (q.dtype, R, nq, kvh, hd) or plan.part.device != dev:
+        raise ValueError(f"the window plan {plan.key} on {plan.part.device} "
+                         f"does not fit q {q.dtype} {tuple(q.shape)}, kvh "
+                         f"{kvh} on {dev}")
+    if plan.tensor_cores:
+        for t in (q, kv_cache, tail_k, tail_v):
+            if t.data_ptr() % 16:
+                raise ValueError("q, cache and tails must be 16-byte "
+                                 "aligned")
+    n_state = R * nq * plan.splits
+    part_m = plan.part.data_ptr() + 4 * n_state * hd
+    # The layer's cache and tails by their offsets in the full tensors.
+    item = q.element_size()
+    cache_l = kv_cache.data_ptr() + layer * kv_cache.stride(0) * item
+    tail_off = layer * tail_k.stride(0) * item
     launch = cuda_build.entry("window_decode_attention", "wd_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], q.data_ptr(), kv_cache[layer].data_ptr(),
-        tail_k[layer].data_ptr(), tail_v[layer].data_ptr(), out.data_ptr(),
-        paged_lens.data_ptr(), block_tables.data_ptr(), R,
-        block_tables.shape[1], nq, kvh, page, hd, Kw, step, scale,
-        sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0, *init,
-        shared_len, warps, window_smem_bytes(nq // kvh, hd, warps),
-        cuda_build.stream(q.device))
+        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(), cache_l,
+        tail_k.data_ptr() + tail_off, tail_v.data_ptr() + tail_off,
+        out.data_ptr(), plan.part.data_ptr(), part_m,
+        part_m + 4 * n_state, paged_lens.data_ptr(),
+        block_tables.data_ptr(), R, block_tables.shape[1], nq, kvh, page, hd,
+        Kw, step, scale, sliding_window or 0, chunk_attn or 0,
+        logits_soft_cap or 0.0, *init, shared_len, plan.splits,
+        plan.tiles_per_split, plan.warps, plan.smem, cuda_build.stream(dev))
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
     return out

@@ -45,7 +45,9 @@ from aphrodite_tpu_torch.config import EngineConfig
 from aphrodite_tpu_torch.core.sched_output import (ModelRunnerOutput,
                                                    SchedulerOutput)
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import ragged_block_q
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+    ragged_work_item_tokens)
+from aphrodite_tpu_torch.ops.window_decode_attention import window_plan
 from aphrodite_tpu_torch.sample.sampler import greedy_sample
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 from aphrodite_tpu_torch.utils import logger, next_power_of_2
@@ -99,11 +101,13 @@ class ModelRunner:
         logger.info("KV cache: %s %s (%.2f GiB)", shape, model.dtype,
                     self.kv_cache.numel() * self.kv_cache.element_size()
                     / 2**30)
-        # Tokens per ragged work item, sized to the card's shared memory
-        # (the JAX runner sizes its block_q from the geometry too,
+        # Tokens per ragged work item, sized for the kernel instance that
+        # the model's dtype runs and to the card's shared memory (the JAX
+        # runner sizes its block_q from the geometry too,
         # ``runner.py:216-245``).
-        self.block_q = ragged_block_q(
-            model.num_heads // model.num_kv_heads, model.head_dim,
+        self.block_q = ragged_work_item_tokens(
+            model.dtype, model.num_heads // model.num_kv_heads,
+            model.head_dim,
             cuda_build.smem_optin() if device.type == "cuda"
             else cuda_build.H100_SMEM_OPTIN)
 
@@ -295,6 +299,18 @@ class ModelRunner:
         paged_lens = self._dev(seq_lens0 - 1)
         budget = self._dev(counts)
         L, kvh, hd = model.num_layers, model.num_kv_heads, model.head_dim
+        plan = None
+        if dev.type == "cuda":
+            # One launch plan for every layer and sub-step, bounded by the
+            # longest paged length and the last sub-step. The splits skip
+            # the shared prefix only where the layers take the cascade: with
+            # no sliding window (``backend.window_attention``).
+            sw = getattr(model, "sliding_window", None)
+            plan = window_plan(
+                self.kv_cache.dtype, R, model.num_heads, kvh, hd, dev,
+                int(seq_lens0.max()) - 1, K - 1,
+                shared_len=shared_len if shared_len and sw is None else 0,
+                sliding_window=sw)
         tail_k = torch.zeros((L, R, kvh, K, hd), dtype=self.kv_cache.dtype,
                              device=dev)
         tail_v = torch.zeros_like(tail_k)
@@ -308,8 +324,8 @@ class ModelRunner:
                 token_req_idx=arange_r, token_pos=pos, slot_mapping=None,
                 seq_lens=pos + 1,
                 block_tables=block_tables, window_step=i,
-                paged_lens=paged_lens, shared_pages=shared_pages,
-                shared_len=shared_len)
+                paged_lens=paged_lens, window_plan=plan,
+                shared_pages=shared_pages, shared_len=shared_len)
             hidden = model.forward_window(toks, self.kv_cache, tail_k,
                                           tail_v, md)
             new_tok, lp = greedy_sample(model.compute_logits(hidden))

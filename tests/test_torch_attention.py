@@ -28,7 +28,8 @@ from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_block_q, ragged_paged_attention, ragged_smem_bytes)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
-    window_decode_attention, window_smem_bytes, window_warps)
+    window_decode_attention, window_launch_geometry, window_smem_bytes,
+    window_tc_smem_bytes, window_warps)
 
 ATOL = 1e-5
 PAGE, KVH, NQ, L, LAYER = 16, 2, 4, 2, 1
@@ -191,7 +192,8 @@ def test_unported_kernel_options_raise():
             torch.ones(1, 1, dtype=torch.int32), 0.1)
 
 
-# (group, head_dim): ragged query rows a work item, window warps.
+# (group, head_dim): ragged query rows a work item, window warps, of the
+# instances that fp32 runs (bf16 runs the tensor-core ones at these).
 LAUNCH_GEOMS = {
     (2, 256): (80, 2),    # Gemma-2-9B
     (4, 128): (128, 4),   # Llama-3.1-8B
@@ -211,6 +213,13 @@ def test_launches_fit_an_h100(group, hd):
         assert ragged_smem_bytes(block_q + 1, group, hd) > H100_SMEM_OPTIN
     assert window_warps(group, hd, H100_SMEM_OPTIN) == w_warps
     assert window_smem_bytes(group, hd, w_warps) <= H100_SMEM_OPTIN
+    assert window_launch_geometry(torch.float32, group, hd,
+                                  H100_SMEM_OPTIN) == \
+        (False, w_warps, window_smem_bytes(group, hd, w_warps))
+    assert window_launch_geometry(torch.bfloat16, group, hd,
+                                  H100_SMEM_OPTIN) == \
+        (True, 4, window_tc_smem_bytes(hd))
+    assert window_tc_smem_bytes(hd) <= H100_SMEM_OPTIN
 
 
 def test_the_old_launch_sizes_overflow_at_head_dim_256():
@@ -227,6 +236,9 @@ def test_a_geometry_that_cannot_fit_raises():
         ragged_block_q(128, 640, H100_SMEM_OPTIN)
     with pytest.raises(RuntimeError, match="the card allows 232448"):
         window_warps(128, 640, H100_SMEM_OPTIN)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(RuntimeError, match="the card allows 232448"):
+            window_launch_geometry(dtype, 128, 640, H100_SMEM_OPTIN)
 
 
 def test_runner_sizes_block_q_to_the_geometry():
