@@ -71,7 +71,8 @@ def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int,
         return decode_paged_attention(
             q, kv_cache, layer, md.block_tables, md.seq_lens, scale,
             sliding_window=sliding_window, chunk_attn=chunk_attn,
-            logits_soft_cap=logits_soft_cap, alibi=alibi)
+            logits_soft_cap=logits_soft_cap, alibi=alibi,
+            plan=md.decode_plan)
     return ragged_paged_attention(
         q, kv_cache, layer, md, scale, sliding_window=sliding_window,
         logits_soft_cap=logits_soft_cap, chunk_attn=chunk_attn, alibi=alibi)
@@ -95,7 +96,7 @@ def window_attention(q: torch.Tensor, kv_cache: torch.Tensor,
     if (md.shared_pages is not None and sliding_window is None
             and chunk_attn is None and logits_soft_cap is None):
         init = shared_prefix_attention(q, kv_cache, layer, md.shared_pages,
-                                       md.shared_len, scale)
+                                       md.shared_len, scale, md.shared_plan)
         shared_len = md.shared_len
     return window_decode_attention(
         q, kv_cache, tail_k, tail_v, layer, md.window_step, md.paged_lens,

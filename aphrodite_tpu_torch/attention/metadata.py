@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
+    from aphrodite_tpu_torch.ops.cascade_attention import SharedPlan
+    from aphrodite_tpu_torch.ops.decode_paged_attention import DecodePlan
     from aphrodite_tpu_torch.ops.window_decode_attention import WindowPlan
 
 
@@ -45,6 +47,10 @@ class AttentionMetadata:
     # package's ``decode_mode``). Set by the runner's non-window multi-step
     # decode.
     decode_mode: bool = False
+    # The decode kernel's launch geometry, split plan and scratch, made once
+    # for every layer and sub-step of the window (``decode_plan``; None:
+    # each launch makes its own, bounded by the block tables' capacity).
+    decode_plan: Optional[DecodePlan] = None
     # ---- decode window (ops/window_decode_attention.py). ----
     # Step within the window, and [R] int32 tokens frozen in the pages at
     # window entry. Set only by the runner's window path.
@@ -60,6 +66,9 @@ class AttentionMetadata:
     # prefix (``runner._detect_shared_prefix``).
     shared_pages: Optional[torch.Tensor] = None
     shared_len: Optional[int] = None
+    # The shared pass's split plan, scratch and counters, made once a window
+    # (``shared_prefix_plan``; None: each launch makes its own).
+    shared_plan: Optional[SharedPlan] = None
     # ---- SSM (Mamba) state routing (models/mamba.py). ----
     # [R + 1] int32 cumulative count of scheduled tokens per request.
     query_start_loc: Optional[torch.Tensor] = None

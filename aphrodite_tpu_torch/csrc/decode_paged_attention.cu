@@ -11,23 +11,36 @@
 // after, backend.py:170-178). A row with seq_len 0 gives zeros; a fully
 // masked row gives 0, never NaN.
 //
-// Design. One block runs one (request, KV head) with its group of query
-// rows (2 at Gemma-2-9B geometry). The visible keys are cut into tiles of
-// 32; warp w takes tiles w, w + W, ... and keeps its own online-softmax
-// state for the group rows; at the end the block merges the W states. Each
-// warp stages its tile in its own shared memory in the cache's dtype, as
-// 32-bit words (two bf16 values each), so a bf16 tile takes half the bytes
-// of an fp32 one and four warps fit at head_dim 256; K rows are padded by
-// one word so that lane j, reading key j, hits a distinct bank. The wrapper
-// (ops/decode_paged_attention.py) picks W (4, else 2, else 1) to fit the
-// card's shared memory and passes the bytes; it raises when none fits.
-//
 // Bound. At the Gemma-2-9B decode step (R 32, kvh 8, hd 256, ~545 keys) a
 // launch reads ~143 MB of bf16 K/V: bound by bytes, >= 43 us at 3.35 TB/s.
-// This first version computes on the CUDA cores in fp32 with R * kvh
-// blocks (256 there) and 4-byte loads; split-KV over more blocks, 16-byte
-// loads and a cp.async ring are the next steps.
-#include "attn_common.cuh"
+//
+// dpa_split_tc_kernel (bf16 at head_dim 64, 128 or 256, groups <= 16):
+// split-KV on the tensor cores, split::tc_split of csrc/split_decode.cuh
+// (shared with the window kernel). A request's visible keys, from
+// first_visible(pos) to pos, are cut into tiles (64 keys; 32 at head_dim
+// 256, so that the 2-stage ring and Q take ~76 KB and three blocks share
+// an SM) and the tiles into splits: grid (request, KV head, split), split
+// s taking tiles [s * tps, (s + 1) * tps) and the last split all the rest,
+// so a plan made from too low a bound on the context costs speed, never
+// keys. The host plan (ops/decode_paged_attention.py: decode_plan) is made
+// once a decode window by the runner. Each split writes its unnormalized
+// state to a scratch buffer and dpa_merge_kernel, launched right after it,
+// merges the splits in a fixed order. The soft cap and ALiBi are template
+// switches (a runtime option once cost ~27 % of a window launch through a
+// spill); only the tiles that hold the first visible key or the query take
+// the mask.
+//
+// dpa_kernel (fp32, and bf16 at other head dims or larger groups): the
+// first version, in full fp32 (tensor cores would take fp32 through TF32),
+// so that the fp32 parity paths stay token-exact. One block runs one
+// (request, KV head) with its group of query rows; the visible keys are
+// cut into tiles of 32 and warp w takes tiles w, w + W, ... with its own
+// online-softmax state, merged by the block at the end. Each warp stages
+// its tile in its own shared memory in the cache's dtype, as 32-bit words,
+// K rows padded by one word so that lane j, reading key j, hits a distinct
+// bank. The wrapper picks W (4, else 2, else 1) to fit the card's shared
+// memory and passes the bytes; it raises when none fits.
+#include "split_decode.cuh"
 
 namespace {
 
@@ -208,6 +221,145 @@ dpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   }
 }
 
+// ------------------------------------------------ tensor-core split (bf16)
+// Keys per tile of the tensor-core instance.
+template <int HD>
+constexpr int kTcKeys = HD <= 128 ? 64 : 32;
+
+// The decode query's keys for split::tc_split: tile it of the split that
+// starts at tile ta holds positions (t0 + ta + it) * KEYS ...; the keys
+// from lo (the window's and the chunk's first) to pos are visible.
+template <int HD, int KEYS>
+struct DecodeKeys {
+  const __nv_bfloat16* cache;
+  const int* bt;
+  int lo, pos, kv_base, kvh, h, page_size, page_shift;
+  size_t page_elems;
+
+  __device__ __forceinline__ int key(int it, int j) const {
+    return kv_base + it * KEYS + j;
+  }
+  __device__ __forceinline__ bool kv(int it, int j, const __nv_bfloat16** k,
+                                     const __nv_bfloat16** v) const {
+    const int p = key(it, j);
+    if (p < lo || p > pos) return false;
+    const int pg = page_shift >= 0 ? p >> page_shift : p / page_size;
+    *k = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
+         (size_t)(p - pg * page_size) * HD;
+    *v = *k + kvh * page_elems;
+    return true;
+  }
+  __device__ __forceinline__ bool full(int it) const {
+    return key(it, 0) >= lo && key(it, KEYS - 1) <= pos;
+  }
+  __device__ __forceinline__ bool visible(int it, int j) const {
+    const int p = key(it, j);
+    return p >= lo && p <= pos;
+  }
+  __device__ __forceinline__ int rel_pos(int it, int j) const {
+    return key(it, j) - pos;
+  }
+};
+
+// Three blocks an SM: at most 170 registers a thread.
+template <int HD, bool kCap, bool kAlibi>
+__global__ void __launch_bounds__(split::kThreads, 3)
+dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ cache,
+                    float* __restrict__ part_acc, float* __restrict__ part_m,
+                    float* __restrict__ part_l,
+                    const int* __restrict__ seq_lens,
+                    const int* __restrict__ block_tables,
+                    const float* __restrict__ alibi, int max_pages, int nq,
+                    int kvh, int page_size, float scale, int sliding_window,
+                    int chunk_attn, float soft_cap, int tiles_per_split) {
+  constexpr int KEYS = kTcKeys<HD>;
+  const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z, group = nq / kvh;
+  DecodeKeys<HD, KEYS> keys;
+  keys.cache = cache;
+  keys.bt = block_tables + (size_t)r * max_pages;
+  keys.pos = seq_lens[r] - 1;  // -1 for an empty row: no tile
+  // The first visible key: both the window's and the chunk's bound hold,
+  // so that [lo, pos] is exactly the visible range.
+  keys.lo = 0;
+  if (sliding_window > 0)
+    keys.lo = max(keys.lo, keys.pos - sliding_window + 1);
+  if (chunk_attn > 0 && keys.pos >= 0)
+    keys.lo = max(keys.lo, keys.pos / chunk_attn * chunk_attn);
+  const int t0 = keys.lo / KEYS;
+  const int n = keys.pos >= 0 ? keys.pos / KEYS + 1 - t0 : 0;
+  const int ta = split * tiles_per_split;
+  keys.kv_base = (t0 + ta) * KEYS;
+  keys.kvh = kvh;
+  keys.h = h;
+  keys.page_size = page_size;
+  keys.page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
+  keys.page_elems = (size_t)page_size * HD;
+  const int n_my = split::my_tiles(n, ta, tiles_per_split, split, splits);
+  extern __shared__ uint4 smem_dpa[];
+  split::tc_split<HD, KEYS, kCap, kAlibi>(
+      q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap,
+      kAlibi ? alibi + h * group : nullptr, keys, part_acc, part_m, part_l,
+      split, splits, smem_dpa);
+}
+
+// One block a query row (r * nq + query head): split::merge_row.
+__global__ void __launch_bounds__(128)
+dpa_merge_kernel(const float* __restrict__ part_acc,
+                 const float* __restrict__ part_m,
+                 const float* __restrict__ part_l,
+                 __nv_bfloat16* __restrict__ out, int hd, int splits) {
+  split::merge_row<__nv_bfloat16, false>(blockIdx.x, part_acc, part_m,
+                                         part_l, out, nullptr, nullptr,
+                                         nullptr, hd, splits);
+}
+
+struct TcArgs {
+  const void *q, *cache;
+  void* out;
+  float *part_acc, *part_m, *part_l;
+  const int *seq_lens, *block_tables;
+  const float* alibi;
+  int num_reqs, max_pages, nq, kvh, page_size, hd;
+  float scale;
+  int sliding_window, chunk_attn;
+  float soft_cap;
+  int splits, tiles_per_split;
+  cudaStream_t stream;
+};
+
+template <int HD, bool kCap, bool kAlibi>
+int split_tc(const TcArgs& a) {
+  constexpr int kSmem = split::TcCfg<HD, kTcKeys<HD>>::kSmem;
+  cudaError_t err =
+      mma::allow_smem<dpa_split_tc_kernel<HD, kCap, kAlibi>>(kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dpa_split_tc_kernel<HD, kCap, kAlibi>
+      <<<dim3(a.num_reqs, a.kvh, a.splits), split::kThreads, kSmem,
+         a.stream>>>(static_cast<const __nv_bfloat16*>(a.q),
+                     static_cast<const __nv_bfloat16*>(a.cache), a.part_acc,
+                     a.part_m, a.part_l, a.seq_lens, a.block_tables, a.alibi,
+                     a.max_pages, a.nq, a.kvh, a.page_size, a.scale,
+                     a.sliding_window, a.chunk_attn, a.soft_cap,
+                     a.tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dpa_merge_kernel<<<a.num_reqs * a.nq, 128, 0, a.stream>>>(
+      a.part_acc, a.part_m, a.part_l, static_cast<__nv_bfloat16*>(a.out),
+      HD, a.splits);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int split_tc(const TcArgs& a) {
+  const bool cap = a.soft_cap > 0.f, alibi = a.alibi != nullptr;
+  if (cap && alibi) return split_tc<HD, true, true>(a);
+  if (cap) return split_tc<HD, true, false>(a);
+  if (alibi) return split_tc<HD, false, true>(a);
+  return split_tc<HD, false, false>(a);
+}
+
 template <typename T>
 int launch(const void* q, const void* cache, void* out, const int* seq_lens,
            const int* block_tables, const float* alibi, int num_reqs,
@@ -218,8 +370,7 @@ int launch(const void* q, const void* cache, void* out, const int* seq_lens,
   // `warps` WarpSmem regions.
   if (warps < 1 || warps > kMaxWarps || (hd * (int)sizeof(T)) % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      dpa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const cudaError_t err = mma::allow_smem<dpa_kernel<T>>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
   dpa_kernel<T><<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(cache),
@@ -230,14 +381,37 @@ int launch(const void* q, const void* cache, void* out, const int* seq_lens,
 
 }  // namespace
 
-extern "C" int dpa_launch(int dtype, const void* q, const void* cache_layer,
-                          void* out, const int* seq_lens,
-                          const int* block_tables, const float* alibi,
-                          int num_reqs, int max_pages, int nq, int kvh,
-                          int page_size, int hd, float scale,
-                          int sliding_window, int chunk_attn, float soft_cap,
+// One call, on `stream`. tensor_cores: the bf16 split instance (head_dim
+// 64, 128 or 256, nq / kvh <= 16): the split kernel over `splits` splits of
+// `tiles_per_split` tiles, then the merge; part_acc [R, nq, splits, hd],
+// part_m and part_l [R, nq, splits] fp32 scratch. Else dpa_kernel with
+// `warps` warps and `smem_bytes` of shared memory (computed by the
+// wrapper: q [group, hd] fp32, then `warps` WarpSmem regions); the split
+// arguments are then unused. alibi: [nq] fp32 slopes or null.
+extern "C" int dpa_launch(int dtype, int tensor_cores, const void* q,
+                          const void* cache_layer, void* out,
+                          float* part_acc, float* part_m, float* part_l,
+                          const int* seq_lens, const int* block_tables,
+                          const float* alibi, int num_reqs, int max_pages,
+                          int nq, int kvh, int page_size, int hd,
+                          float scale, int sliding_window, int chunk_attn,
+                          float soft_cap, int splits, int tiles_per_split,
                           int warps, int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (kvh <= 0 || nq % kvh) return (int)cudaErrorInvalidValue;
+  if (tensor_cores) {
+    if (dtype != kBFloat16 || nq / kvh > 16 || splits < 1 ||
+        tiles_per_split < 1)
+      return (int)cudaErrorInvalidValue;
+    const TcArgs a{q, cache_layer, out, part_acc, part_m, part_l, seq_lens,
+                   block_tables, alibi, num_reqs, max_pages, nq, kvh,
+                   page_size, hd, scale, sliding_window, chunk_attn,
+                   soft_cap, splits, tiles_per_split, s};
+    if (hd == 64) return split_tc<64>(a);
+    if (hd == 128) return split_tc<128>(a);
+    if (hd == 256) return split_tc<256>(a);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == kFloat32)
     return launch<float>(q, cache_layer, out, seq_lens, block_tables, alibi,
                          num_reqs, max_pages, nq, kvh, page_size, hd, scale,

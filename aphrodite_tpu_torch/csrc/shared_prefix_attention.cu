@@ -10,25 +10,41 @@
 // starts each request from that state and reads only the keys past S. With
 // S = 0 a row gets m = -inf, l = 0 and acc = 0.
 //
-// Design. A block of 8 warps runs one (tile of 32 query rows, KV head); a
-// warp owns 4 rows and keeps their acc in registers (lane d holds dims d,
-// d + 32, ...) with their m and l. The shared tokens are walked in tiles of
-// min(page, 32) keys, staged once a block in shared memory as fp32: K
-// transposed [hd][33], so that lane j (key j) reads its column without
-// bank conflicts, and V [32][hd + 1]. The next tile's K and V are loaded
-// into registers while the block computes on this one: thread i takes 16
-// bytes of key i % 32, so that its stores into both tiles, one key a lane,
-// hit 32 banks. Lane j
-// takes the 4 rows' logits for key j (one K value feeds 4 FMAs, q is a
-// broadcast float4), then lane d the 4 rows' PV for its dims (one V value
-// feeds 4 FMAs).
-//
 // Bound. At the Llama-3.1-8B cascade path (R 128, 32 / 8 heads of 128, S =
 // 1024, bf16) a launch reads 4 MB of K/V and 1 MB of q and writes 2 MB of
 // state, ~2.2 us at 3.35 TB/s, and does 2.1 GFLOP, ~2.2 us on the bf16
-// tensor cores. This version runs on the CUDA cores in fp32 (as the other
-// attention kernels of the port); mma.sync for QK^T and PV is the next step.
+// tensor cores: per KV head a dense [R * group, hd] x [hd, S] product.
+//
+// spa_tc_kernel (bf16 at head_dim 64, 128 and 256): FlashAttention-2 on
+// mma.sync m16n8k16. A block is 4 warps of 16 query rows, 64 rows of one
+// KV head, and one split of the shared keys; two blocks share an SM. Q is
+// staged once by cp.async and its A fragments re-read by ldmatrix every
+// tile (in registers they gained nothing); K and V come in tiles of 64 keys
+// (32 at head_dim 256) by 16-byte cp.async into a ring of 2 stages (3 at
+// head_dim 64), each thread finding its key row's page in shared_pages.
+// The softmax takes base-2 exponents with the scale folded in, m and l in
+// registers, and only the last, partial tile takes the mask. 64-row blocks
+// over 8 KV heads give 64 blocks at the cascade path, so the keys are
+// split too: the host plan (ops/cascade_attention.py: shared_split_plan)
+// picks whole tiles a split so that the card gets about two blocks an SM,
+// at least two tiles a split. With one split a block writes its state;
+// with more, each writes it to a scratch buffer and the last block of a
+// (row tile, KV head) to finish (a counter, as the split-K fix-up of
+// csrc/quant_matmul.cu) merges the splits in split order: no float
+// atomics, so a run is deterministic. m is written in natural-exp units.
+//
+// spa_kernel (fp32): the first version on the CUDA cores in full fp32, so
+// that the fp32 parity paths stay token-exact. A block of 8 warps runs one
+// (tile of 32 query rows, KV head); a warp owns 4 rows and keeps their acc
+// in registers (lane d holds dims d, d + 32, ...) with their m and l. The
+// shared tokens are walked in tiles of min(page, 32) keys, staged once a
+// block in shared memory as fp32: K transposed [hd][33], so that lane j
+// (key j) reads its column without bank conflicts, and V [32][hd + 1]. The
+// next tile's K and V are loaded into registers while the block computes
+// on this one: thread i takes 16 bytes of key i % 32, so that its stores
+// into both tiles, one key a lane, hit 32 banks.
 #include "attn_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -180,14 +196,317 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   }
 }
 
+// ------------------------------------------------- tensor-core kernel (bf16)
+constexpr int kMaxSplits = 32;  // the merge keeps a factor a (split, row)
+
+// 4 warps of 16 query rows; two blocks share an SM.
+template <int HD>
+struct SpaCfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRows = kWarps * 16;            // query rows a block
+  static constexpr int kKeys = HD <= 128 ? 64 : 32;    // keys a tile
+  static constexpr int kPitch = HD + 8;                // bf16 a staged row
+  static constexpr int kStages = HD <= 64 ? 3 : 2;
+  static constexpr int kSmem = (kRows + kStages * 2 * kKeys) * kPitch * 2;
+  static_assert(kRows * (1 + kMaxSplits) * 4 <=
+                    kStages * 2 * kKeys * kPitch * 2,
+                "the merge's factors fit the ring");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(SpaCfg<HD>::kThreads, 2)
+spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ cache,
+              const int* __restrict__ shared_pages, int shared_len,
+              float* __restrict__ acc_out, float* __restrict__ m_out,
+              float* __restrict__ l_out, float* __restrict__ part,
+              int* __restrict__ counters, int num_reqs, int nq, int kvh,
+              int page_size, float scale, int tiles_per_split) {
+  using namespace mma;
+  using C = SpaCfg<HD>;
+  constexpr int BN = C::kKeys, P = C::kPitch, CPR = HD / 8;
+  constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
+  const int h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
+  const int group = nq / kvh, rows = num_reqs * group;
+  const int row0 = blockIdx.x * C::kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t page_elems = (size_t)page_size * HD;
+  const int page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
+  const float mult = scale * 1.4426950408889634f;  // raw logit -> log2
+  // Block row i is query head h * group + (row0 + i) % group of request
+  // (row0 + i) / group: the [R, nq, hd] offset of row i is row_off(i) * hd.
+  auto row_off = [&](int row) {
+    return (size_t)(row / group) * nq + h * group + row % group;
+  };
+
+  extern __shared__ uint4 smem_spa[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_spa);  // [64, P]
+  __nv_bfloat16* kv_s = q_s + C::kRows * P;  // [stages][K, V][BN, P]
+
+  for (int i = tid; i < C::kRows * CPR; i += C::kThreads) {
+    const int r = i / CPR, c = i - r * CPR, row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(q_s + r * P + c * 8, ok ? q + row_off(row) * HD + c * 8 : q,
+               ok);
+  }
+  const int n_tiles = (shared_len + BN - 1) / BN;
+  const int ta = split * tiles_per_split;
+  const int n_my =
+      split == splits - 1 ? max(n_tiles - ta, 0)
+                          : max(min(ta + tiles_per_split, n_tiles) - ta, 0);
+  // Tile ta + it into ring stage `stage`; keys at or past S are zero.
+  auto load_tile = [&](int it, int stage) {
+    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * BN * P;
+    __nv_bfloat16* vs = ks + BN * P;
+#pragma unroll
+    for (int u = 0; u < BN * CPR / C::kThreads; ++u) {
+      const int i = tid + u * C::kThreads;
+      const int j = i / CPR, c = i - j * CPR;
+      const int pos = (ta + it) * BN + j;
+      const bool ok = pos < shared_len;
+      const __nv_bfloat16* src = q;
+      if (ok) {
+        const int pg = page_shift >= 0 ? pos >> page_shift : pos / page_size;
+        src = cache + ((size_t)shared_pages[pg] * 2 * kvh + h) * page_elems +
+              (size_t)(pos - pg * page_size) * HD + c * 8;
+      }
+      cp_async16(ks + j * P + c * 8, src, ok);
+      cp_async16(vs + j * P + c * 8, ok ? src + kvh * page_elems : q, ok);
+    }
+  };
+
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  // ldmatrix addresses: A (Q rows, re-read every tile: kept in registers
+  // they gain nothing) and B of K (row-major) and V (.trans).
+  const __nv_bfloat16* q_w =
+      q_s + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
+  const int v_off = (lane & 15) * P + (lane >> 4) * 8;
+
+#pragma unroll
+  for (int st = 0; st < C::kStages - 1; ++st) {
+    if (st < n_my) load_tile(st, st);
+    cp_async_commit();  // group 0 holds Q too
+  }
+  for (int it = 0; it < n_my; ++it) {
+    cp_async_wait<C::kStages - 2>();  // tile it has landed
+    __syncthreads();                  // and tile it - 1 is consumed
+    {
+      const int nx = it + C::kStages - 1;
+      if (nx < n_my) load_tile(nx, nx % C::kStages);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
+    const __nv_bfloat16* vs = ks + BN * P;
+
+    // S = Q K^T for the warp's rows and the tile's keys.
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_w + kc * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + np * 16 * P + kc * 16 + k_off);
+        mma_bf16(s[2 * np], a, b);
+        mma_bf16(s[2 * np + 1], a, b + 2);
+      }
+    }
+    // Only the last tile can hold keys past S (uniform branch).
+    const int kv0 = (ta + it) * BN;
+    if (kv0 + BN > shared_len) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kv0 + j * 8 + 2 * tq + (e & 1) >= shared_len)
+            s[j][e] = -INFINITY;
+    }
+
+    // Online softmax of rows g (c0, c1) and g + 8 (c2, c3); a lane quad
+    // holds one row's keys. m in raw logit units, exponents base 2.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m_r[hf], mx);  // finite: a tile has a key
+      const float base = mn * mult;
+      const float alpha = fast_exp2(m_r[hf] * mult - base);
+      m_r[hf] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * hf] = fast_exp2(fmaf(s[j][2 * hf], mult, -base));
+        s[j][2 * hf + 1] = fast_exp2(fmaf(s[j][2 * hf + 1], mult, -base));
+        rs += s[j][2 * hf] + s[j][2 * hf + 1];
+      }
+      l_r[hf] = l_r[hf] * alpha + rs;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        o[d][2 * hf] *= alpha;
+        o[d][2 * hf + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P's accumulators are the A fragments of 16-key chunks.
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vs + kc * 16 * P + dp * 16 + v_off);
+        mma_bf16(o[2 * dp], a, b);
+        mma_bf16(o[2 * dp + 1], a, b + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // This split's state: to the outputs with one split, else to the
+  // scratch [split][kvh][rows] (acc, then m, then l), m in natural units.
+  const size_t n_state = (size_t)kvh * rows;
+  float* part_m = part + (size_t)splits * n_state * HD;
+  float* part_l = part_m + (size_t)splits * n_state;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float l = l_r[hf];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + warp * 16 + hf * 8 + gq;
+    if (row >= rows) continue;
+    size_t st = row_off(row);
+    float* acc = acc_out;
+    float *mp = m_out, *lp = l_out;
+    if (splits > 1) {
+      st = ((size_t)split * kvh + h) * rows + row;
+      acc = part;
+      mp = part_m;
+      lp = part_l;
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<float2*>(acc + st * HD + d * 8 + 2 * tq) =
+          make_float2(o[d][2 * hf], o[d][2 * hf + 1]);
+    if (tq == 0) {
+      mp[st] = m_r[hf] * scale;
+      lp[st] = l;
+    }
+  }
+  if (splits == 1) return;
+
+  // The last block of this (row tile, KV head) to finish merges the splits
+  // in split order and resets the tile's counter for the next launch.
+  __shared__ int is_last;
+  __threadfence();  // this block's state is visible device-wide
+  __syncthreads();  // (and every warp is done with the ring)
+  int* counter = counters + (size_t)h * gridDim.x + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  float* c_s = reinterpret_cast<float*>(kv_s);  // [splits][64] factors
+  for (int r = tid; r < C::kRows; r += C::kThreads) {
+    const int row = row0 + r;
+    if (row >= rows) continue;
+    float m = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp)
+      m = fmaxf(m, __ldcg(part_m + ((size_t)sp * kvh + h) * rows + row));
+    float l = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const size_t st = ((size_t)sp * kvh + h) * rows + row;
+      const float ms = __ldcg(part_m + st);
+      const float c = ms == -INFINITY ? 0.f : expf(ms - m);
+      c_s[sp * C::kRows + r] = c;
+      l += __ldcg(part_l + st) * c;
+    }
+    m_out[row_off(row)] = m;
+    l_out[row_off(row)] = l;
+  }
+  __syncthreads();
+  // acc: each thread owns kE float4s of the tile, kChunk at a time, and
+  // walks the splits with kChunk loads in flight.
+  constexpr int kE = C::kRows * HD / 4 / C::kThreads;
+  constexpr int kChunk = kE < 8 ? kE : 8;
+  static_assert(kE % kChunk == 0, "whole chunks");
+#pragma unroll 1
+  for (int e0 = 0; e0 < kE; e0 += kChunk) {
+    float4 v[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* base = part + ((size_t)sp * kvh + h) * rows * HD;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k) {
+        const int i = tid + (e0 + k) * C::kThreads;
+        const int r = i / (HD / 4), d = 4 * (i - r * (HD / 4));
+        if (row0 + r >= rows) continue;
+        const float c = c_s[sp * C::kRows + r];
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            base + (size_t)(row0 + r) * HD + d));
+        v[k].x = fmaf(p.x, c, v[k].x);
+        v[k].y = fmaf(p.y, c, v[k].y);
+        v[k].z = fmaf(p.z, c, v[k].z);
+        v[k].w = fmaf(p.w, c, v[k].w);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const int i = tid + (e0 + k) * C::kThreads;
+      const int r = i / (HD / 4), d = 4 * (i - r * (HD / 4));
+      if (row0 + r < rows)
+        *reinterpret_cast<float4*>(acc_out + row_off(row0 + r) * HD + d) =
+            v[k];
+    }
+  }
+  if (tid == 0) *counter = 0;
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* cache, const int* shared_pages,
+              int shared_len, float* acc, float* m, float* l, float* part,
+              int* counters, int num_reqs, int nq, int kvh, int page_size,
+              float scale, int splits, int tiles_per_split,
+              cudaStream_t stream) {
+  using C = SpaCfg<HD>;
+  const cudaError_t err = mma::allow_smem<spa_tc_kernel<HD>>(C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = num_reqs * (nq / kvh);
+  const dim3 grid((rows + C::kRows - 1) / C::kRows, kvh, splits);
+  spa_tc_kernel<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(cache), shared_pages, shared_len,
+      acc, m, l, part, counters, num_reqs, nq, kvh, page_size, scale,
+      tiles_per_split);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int C>
 int launch_c(const void* q, const void* cache, const int* shared_pages,
              int shared_len, float* acc, float* m, float* l, int num_reqs,
              int nq, int kvh, int page_size, float scale, int smem_bytes,
              cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      spa_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+  const cudaError_t err = mma::allow_smem<spa_kernel<T, C>>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int rows = num_reqs * (nq / kvh);
   const dim3 grid((rows + kBlockRows - 1) / kBlockRows, kvh);
@@ -224,17 +543,45 @@ int launch(const void* q, const void* cache, const int* shared_pages,
 // q [R, nq, hd] and the layer's cache [P, 2, kvh, page, hd] in one dtype
 // (code 0 fp32, 1 bf16); shared_pages: the pages holding the prefix's
 // shared_len tokens, in order. acc [R, nq, hd], m and l [R, nq] fp32.
-// smem_bytes (computed by the wrapper): q rows [32][hd], K transposed
-// [hd][33], V [32][hd + 1] and p [8 warps][4 rows][32], all fp32.
-extern "C" int spa_launch(int dtype, const void* q, const void* cache_layer,
-                          const int* shared_pages, int shared_len, float* acc,
-                          float* m, float* l, int num_reqs, int nq, int kvh,
-                          int page_size, int hd, float scale, int smem_bytes,
+// tensor_cores: spa_tc_kernel (bf16, head_dim 64, 128 or 256) over
+// `splits` splits of `tiles_per_split` tiles; with more than one split,
+// part holds splits * kvh * R * group * (hd + 2) floats of scratch and
+// counters ceil(R * group / 64) * kvh ints, zero before the launch (the
+// kernel leaves them zero). Else spa_kernel with smem_bytes (computed by
+// the wrapper): q rows [32][hd], K transposed [hd][33], V [32][hd + 1] and
+// p [8 warps][4 rows][32], all fp32.
+extern "C" int spa_launch(int dtype, int tensor_cores, const void* q,
+                          const void* cache_layer, const int* shared_pages,
+                          int shared_len, float* acc, float* m, float* l,
+                          float* part, int* counters, int num_reqs, int nq,
+                          int kvh, int page_size, int hd, float scale,
+                          int smem_bytes, int splits, int tiles_per_split,
                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (num_reqs < 1 || kvh < 1 || nq % kvh != 0 || shared_len < 0 ||
       page_size < 1)
     return (int)cudaErrorInvalidValue;
+  if (tensor_cores) {
+    if (dtype != kBFloat16 || splits < 1 || splits > kMaxSplits ||
+        tiles_per_split < 1 ||
+        (splits > 1 && (part == nullptr || counters == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    switch (hd) {
+      case 64:
+        return launch_tc<64>(q, cache_layer, shared_pages, shared_len, acc, m,
+                             l, part, counters, num_reqs, nq, kvh, page_size,
+                             scale, splits, tiles_per_split, s);
+      case 128:
+        return launch_tc<128>(q, cache_layer, shared_pages, shared_len, acc,
+                              m, l, part, counters, num_reqs, nq, kvh,
+                              page_size, scale, splits, tiles_per_split, s);
+      case 256:
+        return launch_tc<256>(q, cache_layer, shared_pages, shared_len, acc,
+                              m, l, part, counters, num_reqs, nq, kvh,
+                              page_size, scale, splits, tiles_per_split, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == kFloat32)
     return launch<float>(q, cache_layer, shared_pages, shared_len, acc, m, l,
                          num_reqs, nq, kvh, page_size, hd, scale, smem_bytes,

@@ -36,14 +36,12 @@
 // on the same stream, merges the init state and the splits in a fixed
 // order (init, split 0, 1, ...): no atomics, so a run is deterministic.
 //
-// wd_split_tc_kernel (bf16 at head_dim 64, 128 or 256, groups <= 16): 4
-// warps stage each tile of K and V in bf16 by 16-byte cp.async, double
-// buffered, every thread finding its key row's page through the block
-// table; warp w takes keys [16w, 16w + 16) of every tile with mma.sync
-// m16n8k16, the group's rows padded to 16 as the A operand (kept in
-// registers at head_dim <= 128, re-read from shared memory at 256). The
-// padding is wasted work the bytes bound does not see. At the end the
-// block merges its warps' states in shared memory (the ring's space).
+// wd_split_tc_kernel (bf16 at head_dim 64, 128 or 256, groups <= 16):
+// split::tc_split (csrc/split_decode.cuh, shared with the decode kernel)
+// with 64-key tiles at every head dim, the soft cap a template switch;
+// this file gives it the window's keys (WindowKeys: page tiles from the
+// first visible one, then tail tiles). The padding of the group's rows to
+// 16 is wasted work the bytes bound does not see.
 //
 // wd_split_kernel (fp32; bf16 at other head dims or larger groups): the
 // same tiles and states on the CUDA cores in full fp32 (no TF32), with the
@@ -53,16 +51,18 @@
 // What holds it back (PERF.md): its device time is 1.4-2.6x the bytes
 // bound at the main paths, and a call's host time (the Python wrapper,
 // ~65 us) exceeds it. At head_dim 256 the 143 KB ring leaves one block an
-// SM. Left for later: TMA loads with a producer warp, a smaller ring at
-// head_dim 256, and folding the merge into the last split of each
+// SM (the decode kernel's 32-key tiles there leave three). Left for
+// later: TMA loads with a producer warp, the decode kernel's smaller ring
+// at head_dim 256, and folding the merge into the last split of each
 // (request, head) when there is one split.
-#include "attn_common.cuh"
-#include "mma_common.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr int kKeys = 64;     // keys a tile: the host plan's unit
-constexpr int kMaxWarps = 4;  // warps a block of either split kernel
+constexpr int kKeys = 64;  // keys a tile: the host plan's unit
+using split::kWarps;
+using split::my_tiles;
+using split::write_state;
 
 // A request's tiles: page tiles from the one holding its first visible
 // position lo (>= shared_len, the cascade's prefix), then tail tiles.
@@ -83,72 +83,53 @@ __device__ __forceinline__ Tiles request_tiles(int plen, int step,
   return tl;
 }
 
-// Tiles of the split that starts at tile ta: tiles_per_split, fewer at the
-// request's end, none past it; the last split takes all the rest, so that a
-// plan made from too low a bound on the context costs speed, never keys.
-__device__ __forceinline__ int my_tiles(int n, int ta, int tiles_per_split,
-                                        int split, int splits) {
-  const int end = split == splits - 1 ? n : min(ta + tiles_per_split, n);
-  return max(end - ta, 0);
-}
-
-// Writes the block's state of its group rows: acc [group, hd] at
-// part_acc[row, split], m and l at part_m/part_l[row, split], row = r * nq
-// + h * group + g.
-__device__ __forceinline__ void write_state(float* part_acc, float* part_m,
-                                            float* part_l, size_t row,
-                                            int split, int splits, int hd,
-                                            int d, float acc, float m,
-                                            float l) {
-  part_acc[(row * splits + split) * hd + d] = acc;
-  if (d == 0) {
-    part_m[row * splits + split] = m;
-    part_l[row * splits + split] = l;
-  }
-}
-
-// Merge of W per-warp states in shared memory (acc [W][16][hd], m and l
-// [W][16], pitch 16 rows) into the block's state, written to the scratch.
-__device__ __forceinline__ void merge_warps(const float* acc_w,
-                                            const float* m_w,
-                                            const float* l_w, int n_warps,
-                                            int group, int hd, size_t row0,
-                                            int split, int splits,
-                                            float* part_acc, float* part_m,
-                                            float* part_l) {
-  for (int i = threadIdx.x; i < group * hd; i += blockDim.x) {
-    const int g = i / hd, d = i - g * hd;
-    float m = -INFINITY;
-    for (int w = 0; w < n_warps; ++w) m = fmaxf(m, m_w[w * 16 + g]);
-    float acc = 0.f, l = 0.f;
-    if (m != -INFINITY) {
-      for (int w = 0; w < n_warps; ++w) {
-        const float mw = m_w[w * 16 + g];
-        if (mw == -INFINITY) continue;
-        const float c = expf(mw - m);
-        acc += acc_w[((size_t)w * 16 + g) * hd + d] * c;
-        l += l_w[w * 16 + g] * c;
-      }
-    }
-    write_state(part_acc, part_m, part_l, row0 + g, split, splits, hd, d,
-                acc, m, l);
-  }
-}
-
 // ------------------------------------------------ tensor-core split (bf16)
+// The window's keys for split::tc_split: tile it of the split that starts
+// at tile ta is a page tile (positions from (t0 + t) * 64) or a tail tile
+// (slots from (t - n_paged) * 64). Every tile takes the mask.
 template <int HD>
-struct WdCfg {
-  static constexpr int kPitch = HD + 8;  // bf16 a staged row
-  static constexpr bool kQInRegs = HD <= 128;
-  // Q [16, P], then a ring of 2 stages of K and V [64, P]; after the loop
-  // the ring holds the warps' states (acc [4][16][HD], m and l [4][16]).
-  static constexpr int kSmem = (16 + 2 * 2 * kKeys) * kPitch * 2;
-  static_assert(4 * 16 * HD * 4 + 2 * 4 * 16 * 4 <= 2 * 2 * kKeys * kPitch * 2,
-                "the warps' states fit the ring");
+struct WindowKeys {
+  const __nv_bfloat16 *cache, *tail_k, *tail_v;
+  const int* bt;
+  Tiles tl;
+  int ta, plen, step, q_pos, kvh, h, page_size, page_shift, sliding_window,
+      chunk_attn;
+  size_t page_elems, tail_base;
+
+  __device__ __forceinline__ bool paged(int t) const { return t < tl.n_paged; }
+  __device__ __forceinline__ int kv0(int t) const {
+    return paged(t) ? (tl.t0 + t) * kKeys : (t - tl.n_paged) * kKeys;
+  }
+  __device__ __forceinline__ bool kv(int it, int j, const __nv_bfloat16** k,
+                                     const __nv_bfloat16** v) const {
+    const int t = ta + it, key = kv0(t) + j;  // page position or tail slot
+    if (paged(t)) {
+      if (key < tl.lo || key >= plen) return false;
+      const int pg = page_shift >= 0 ? key >> page_shift : key / page_size;
+      *k = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
+           (size_t)(key - pg * page_size) * HD;
+      *v = *k + kvh * page_elems;
+      return true;
+    }
+    if (key > step) return false;
+    *k = tail_k + tail_base + (size_t)key * HD;
+    *v = tail_v + tail_base + (size_t)key * HD;
+    return true;
+  }
+  __device__ __forceinline__ bool full(int) const { return false; }
+  __device__ __forceinline__ bool visible(int it, int j) const {
+    const int t = ta + it, key = kv0(t) + j;
+    return paged(t) ? key >= tl.lo && key < plen &&
+                          attn::local_ok(key, q_pos, sliding_window,
+                                         chunk_attn)
+                    : key <= step && attn::local_ok(plen + key, q_pos,
+                                                    sliding_window,
+                                                    chunk_attn);
+  }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+template <int HD, bool kCap>
+__global__ void __launch_bounds__(kWarps * 32)
 wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ cache,
                    const __nv_bfloat16* __restrict__ tail_k,
@@ -160,216 +141,38 @@ wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    int nq, int kvh, int page_size, int kw, int step,
                    float scale, int sliding_window, int chunk_attn,
                    float soft_cap, int shared_len, int tiles_per_split) {
-  using namespace attn;
-  using namespace mma;
-  using C = WdCfg<HD>;
-  constexpr int P = C::kPitch, CPR = HD / 8, kThreads = kMaxWarps * 32;
   const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
-  const int plen = paged_lens[r], q_pos = plen + step;
-  const Tiles tl =
-      request_tiles(plen, step, sliding_window, chunk_attn, shared_len);
-  const int ta = split * tiles_per_split;
-  const int n_my = my_tiles(tl.n, ta, tiles_per_split, split, splits);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int* bt = block_tables + (size_t)r * max_pages;
-  const size_t page_elems = (size_t)page_size * HD;
-  const int page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
-  const size_t tail_base = ((size_t)r * kvh + h) * kw * HD;
-  const size_t row0 = (size_t)r * nq + h * group;
-  // Softmax units: the raw logit q.k without a cap (scale folded into the
-  // exponent), the capped scaled logit with one.
-  const float mult = (soft_cap > 0.f ? 1.f : scale) * 1.4426950408889634f;
-  const float cap_scale = soft_cap > 0.f ? scale / soft_cap : 0.f;
-
+  WindowKeys<HD> keys;
+  keys.cache = cache;
+  keys.tail_k = tail_k;
+  keys.tail_v = tail_v;
+  keys.bt = block_tables + (size_t)r * max_pages;
+  keys.plen = paged_lens[r];
+  keys.step = step;
+  keys.q_pos = keys.plen + step;
+  keys.tl = request_tiles(keys.plen, step, sliding_window, chunk_attn,
+                          shared_len);
+  keys.ta = split * tiles_per_split;
+  keys.kvh = kvh;
+  keys.h = h;
+  keys.page_size = page_size;
+  keys.page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
+  keys.sliding_window = sliding_window;
+  keys.chunk_attn = chunk_attn;
+  keys.page_elems = (size_t)page_size * HD;
+  keys.tail_base = ((size_t)r * kvh + h) * kw * HD;
+  const int n_my =
+      my_tiles(keys.tl.n, keys.ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_wd[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_wd);  // [16, P]
-  __nv_bfloat16* kv_s = q_s + 16 * P;  // [2 stages][K, V][64, P]
-
-  for (int i = tid; i < 16 * CPR; i += kThreads) {
-    const int g = i / CPR, c = i - g * CPR;
-    const bool ok = g < group;
-    cp_async16(q_s + g * P + c * 8, ok ? q + (row0 + g) * HD + c * 8 : q, ok);
-  }
-  // Tile ta + it into stage `stage`; masked keys are not read (zeros).
-  auto load_tile = [&](int it, int stage) {
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * kKeys * P;
-    __nv_bfloat16* vs = ks + kKeys * P;
-    const int t = ta + it;
-    const bool paged = t < tl.n_paged;
-    const int kv0 = paged ? (tl.t0 + t) * kKeys : (t - tl.n_paged) * kKeys;
-#pragma unroll
-    for (int u = 0; u < kKeys * CPR / kThreads; ++u) {
-      const int i = tid + u * kThreads;
-      const int j = i / CPR, c = i - j * CPR;
-      const int k = kv0 + j;  // page position or tail slot
-      const __nv_bfloat16 *ksrc = cache, *vsrc = cache;
-      bool ok;
-      if (paged) {
-        ok = k >= tl.lo && k < plen;
-        if (ok) {
-          const int pg = page_shift >= 0 ? k >> page_shift : k / page_size;
-          ksrc = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-                 (size_t)(k - pg * page_size) * HD + c * 8;
-          vsrc = ksrc + kvh * page_elems;
-        }
-      } else {
-        ok = k <= step;
-        if (ok) {
-          ksrc = tail_k + tail_base + (size_t)k * HD + c * 8;
-          vsrc = tail_v + tail_base + (size_t)k * HD + c * 8;
-        }
-      }
-      cp_async16(ks + j * P + c * 8, ksrc, ok);
-      cp_async16(vs + j * P + c * 8, vsrc, ok);
-    }
-  };
-
-  uint32_t qf[C::kQInRegs ? HD / 16 : 1][4];
-  float o[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  const __nv_bfloat16* q_w = q_s + (lane & 15) * P + (lane >> 4) * 8;
-
-  if (n_my > 0) load_tile(0, 0);
-  cp_async_commit();  // with Q
-  for (int it = 0; it < n_my; ++it) {
-    cp_async_wait<0>();  // tile it has landed
-    __syncthreads();     // and tile it - 1 is consumed
-    if (it + 1 < n_my) load_tile(it + 1, (it + 1) & 1);
-    cp_async_commit();
-    if constexpr (C::kQInRegs) {
-      if (it == 0) {
-#pragma unroll
-        for (int kc = 0; kc < HD / 16; ++kc) ldmatrix_x4(qf[kc], q_w + kc * 16);
-      }
-    }
-    // This warp's 16 keys of the tile.
-    const __nv_bfloat16* ks =
-        kv_s + (size_t)(it & 1) * 2 * kKeys * P + warp * 16 * P;
-    const __nv_bfloat16* vs = ks + kKeys * P;
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
-      uint32_t a_s[4];
-      const uint32_t* a = a_s;
-      if constexpr (C::kQInRegs) a = qf[kc];
-      else ldmatrix_x4(a_s, q_w + kc * 16);
-      uint32_t b[4];
-      ldmatrix_x4(b, ks + ((lane & 7) + ((lane >> 4) << 3)) * P + kc * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16(s[0], a, b);
-      mma_bf16(s[1], a, b + 2);
-    }
-    // Soft cap (uniform branch), then the mask: one query position for
-    // every row, so it depends on the key only. m is kept in logit units;
-    // the exponents are base 2 with the scale folded in (mult).
-    if (soft_cap > 0.f) {
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[nt][e] = soft_cap * tanhf(s[nt][e] * cap_scale);
-    }
-    const int t = ta + it;
-    const bool paged = t < tl.n_paged;
-    const int kv0 = (paged ? (tl.t0 + t) * kKeys : (t - tl.n_paged) * kKeys) +
-                    warp * 16;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = kv0 + nt * 8 + 2 * tq + e;
-        const bool ok =
-            paged ? k >= tl.lo && k < plen &&
-                        local_ok(k, q_pos, sliding_window, chunk_attn)
-                  : k <= step &&
-                        local_ok(plen + k, q_pos, sliding_window, chunk_attn);
-        if (!ok) s[nt][e] = s[nt][e + 2] = -INFINITY;
-      }
-    float mx_a = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
-    float mx_b = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a * mult;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b * mult;
-    const float al_a = fast_exp2(m_a * mult - base_a);
-    const float al_b = fast_exp2(m_b * mult - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      s[nt][0] = fast_exp2(fmaf(s[nt][0], mult, -base_a));
-      s[nt][1] = fast_exp2(fmaf(s[nt][1], mult, -base_a));
-      s[nt][2] = fast_exp2(fmaf(s[nt][2], mult, -base_b));
-      s[nt][3] = fast_exp2(fmaf(s[nt][3], mult, -base_b));
-    }
-    l_a = l_a * al_a + s[0][0] + s[0][1] + s[1][0] + s[1][1];
-    l_b = l_b * al_b + s[0][2] + s[0][3] + s[1][2] + s[1][3];
-    uint32_t a[4];
-    a[0] = pack_bf16(s[0][0], s[0][1]);
-    a[1] = pack_bf16(s[0][2], s[0][3]);
-    a[2] = pack_bf16(s[1][0], s[1][1]);
-    a[3] = pack_bf16(s[1][2], s[1][3]);
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      o[2 * dp][0] *= al_a;
-      o[2 * dp][1] *= al_a;
-      o[2 * dp][2] *= al_b;
-      o[2 * dp][3] *= al_b;
-      o[2 * dp + 1][0] *= al_a;
-      o[2 * dp + 1][1] *= al_a;
-      o[2 * dp + 1][2] *= al_b;
-      o[2 * dp + 1][3] *= al_b;
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vs + (lane & 15) * P + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * dp], a, b);
-      mma_bf16(o[2 * dp + 1], a, b + 2);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it takes the warps' states
-
-#pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o_);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
-  }
-  float* acc_w = reinterpret_cast<float*>(kv_s);  // [4][16][HD]
-  float* m_w = acc_w + kMaxWarps * 16 * HD;       // [4][16]
-  float* l_w = m_w + kMaxWarps * 16;              // [4][16]
-  float* aw = acc_w + (size_t)warp * 16 * HD;
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    const int col = d * 8 + 2 * tq;
-    aw[gq * HD + col] = o[d][0];
-    aw[gq * HD + col + 1] = o[d][1];
-    aw[(gq + 8) * HD + col] = o[d][2];
-    aw[(gq + 8) * HD + col + 1] = o[d][3];
-  }
-  if (tq == 0) {  // m in the scaled logit's units, as every merged state
-    const float to_scaled = mult * 0.6931471805599453f;
-    m_w[warp * 16 + gq] = m_a * to_scaled;
-    l_w[warp * 16 + gq] = l_a;
-    m_w[warp * 16 + gq + 8] = m_b * to_scaled;
-    l_w[warp * 16 + gq + 8] = l_b;
-  }
-  __syncthreads();
-  merge_warps(acc_w, m_w, l_w, kMaxWarps, group, HD, row0, split, splits,
-              part_acc, part_m, part_l);
+  split::tc_split<HD, kKeys, kCap, false>(
+      q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap, nullptr,
+      keys, part_acc, part_m, part_l, split, splits, smem_wd);
 }
 
 // ------------------------------------------------------ CUDA-core split
 template <typename T>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32)
 wd_split_kernel(const T* __restrict__ q, const T* __restrict__ cache,
                 const T* __restrict__ tail_k, const T* __restrict__ tail_v,
                 float* __restrict__ part_acc, float* __restrict__ part_m,
@@ -479,8 +282,7 @@ wd_split_kernel(const T* __restrict__ q, const T* __restrict__ cache,
 }
 
 // ---------------------------------------------------------------- merge
-// One block a query row (r * nq + query head): the init state, then the
-// splits in order, each scaled to the common max; out = acc / max(l, 1e-20).
+// One block a query row (r * nq + query head): split::merge_row.
 template <typename T, bool kCascade>
 __global__ void __launch_bounds__(128)
 wd_merge_kernel(const float* __restrict__ part_acc,
@@ -488,29 +290,8 @@ wd_merge_kernel(const float* __restrict__ part_acc,
                 const float* __restrict__ part_l, T* __restrict__ out,
                 const float* __restrict__ acc0, const float* __restrict__ m0,
                 const float* __restrict__ l0, int hd, int splits) {
-  const size_t row = blockIdx.x;
-  const float* pm = part_m + row * splits;
-  const float* pl = part_l + row * splits;
-  const float m_init = kCascade ? m0[row] : -INFINITY;
-  float m = m_init;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, pm[s]);
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float acc = 0.f, l = 0.f;
-    if (m != -INFINITY) {
-      if (kCascade && m_init != -INFINITY) {
-        const float c = expf(m_init - m);
-        acc = acc0[row * hd + d] * c;
-        l = l0[row] * c;
-      }
-      for (int s = 0; s < splits; ++s) {
-        if (pm[s] == -INFINITY) continue;
-        const float c = expf(pm[s] - m);
-        acc += part_acc[(row * splits + s) * hd + d] * c;
-        l += pl[s] * c;
-      }
-    }
-    out[row * hd + d] = attn::from_float<T>(acc / fmaxf(l, 1e-20f));
-  }
+  split::merge_row<T, kCascade>(blockIdx.x, part_acc, part_m, part_l, out,
+                                acc0, m0, l0, hd, splits);
 }
 
 struct Args {
@@ -527,14 +308,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD>
+template <int HD, bool kCap>
 int split_tc(const Args& a) {
+  constexpr int kSmem = split::TcCfg<HD, kKeys>::kSmem;
   const cudaError_t err =
-      mma::allow_smem<wd_split_tc_kernel<HD>>(WdCfg<HD>::kSmem);
+      mma::allow_smem<wd_split_tc_kernel<HD, kCap>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  wd_split_tc_kernel<HD>
-      <<<dim3(a.num_reqs, a.kvh, a.splits), kMaxWarps * 32, WdCfg<HD>::kSmem,
-         a.stream>>>(
+  wd_split_tc_kernel<HD, kCap>
+      <<<dim3(a.num_reqs, a.kvh, a.splits), kWarps * 32, kSmem, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.q),
           static_cast<const __nv_bfloat16*>(a.cache),
           static_cast<const __nv_bfloat16*>(a.tail_k),
@@ -543,6 +324,11 @@ int split_tc(const Args& a) {
           a.page_size, a.kw, a.step, a.scale, a.sliding_window, a.chunk_attn,
           a.soft_cap, a.shared_len, a.tiles_per_split);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int split_tc(const Args& a) {
+  return a.soft_cap > 0.f ? split_tc<HD, true>(a) : split_tc<HD, false>(a);
 }
 
 template <typename T>
@@ -614,7 +400,7 @@ extern "C" int wd_launch(int dtype, int tensor_cores, const void* q,
     if (err != 0) return err;
     return merge<__nv_bfloat16>(a);
   }
-  if (warps < 1 || warps > kMaxWarps) return err;
+  if (warps < 1 || warps > kWarps) return err;
   if (dtype == kFloat32) {
     err = split_cuda_cores<float>(a);
     return err != 0 ? err : merge<float>(a);

@@ -16,10 +16,18 @@ past the prefix. Causality is free: every query sits past the prefix.
 fp32 ``acc [R, kvh, group, hd]`` and ``m, l [R, kvh, group]`` (the TPU
 kernel's 128-lane widening of m and l is not copied). A row with no shared
 token gets m = -inf, l = 0 and acc = 0.
+
+In bf16 the kernel runs 64 query rows of one KV head a block on the
+tensor cores, and splits the shared keys across blocks too
+(``shared_split_plan``); the last block of a row tile to finish merges the
+splits in a fixed order. ``shared_prefix_plan`` makes the plan, its
+scratch and its counters once for all the layers and sub-steps of a decode
+window.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,10 +37,12 @@ from aphrodite_tpu_torch.ops.window_decode_attention import (
     ref_window_decode_attention)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-             _P]
-_TILE = 32         # keys staged at a time
+_ARGTYPES = [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _F, _I, _I, _I, _P]
+_TILE = 32         # keys staged at a time (CUDA-core instance)
 _ROWS = 32         # query rows a block (8 warps of 4)
+TC_ROWS = 64       # query rows a block of the tensor-core instance
+MAX_SPLITS = 32    # splits the kernel's merge takes
 
 
 def spa_smem_bytes(hd: int) -> int:
@@ -41,6 +51,77 @@ def spa_smem_bytes(hd: int) -> int:
     [8 warps, 4 rows, 32]."""
     return 4 * (_ROWS * hd + hd * (_TILE + 1) + _TILE * (hd + 1)
                 + _ROWS * _TILE)
+
+
+def spa_tile_keys(hd: int) -> int:
+    """Keys a tile of the tensor-core instance: 64, 32 at head_dim 256."""
+    return 64 if hd <= 128 else 32
+
+
+def spa_tc_smem_bytes(hd: int) -> int:
+    """Shared memory of the tensor-core instance: 64 query rows and a ring
+    of K and V tiles (3 stages at head_dim 64, else 2), bf16 rows padded
+    by 8."""
+    stages = 3 if hd <= 64 else 2
+    return 2 * (hd + 8) * (TC_ROWS + stages * 2 * spa_tile_keys(hd))
+
+
+def shared_split_plan(blocks: int, tiles: int,
+                      num_sms: int) -> tuple[int, int]:
+    """(splits, tiles a split) for ``blocks`` (row tile, KV head) pairs
+    over ``tiles`` key tiles: whole tiles a split, as many splits as give
+    the card about two blocks an SM, but at least two tiles a split where
+    there are two, and at most ``MAX_SPLITS`` splits. No tile: one
+    split."""
+    if tiles <= 0:
+        return 1, 1
+    want = max(1, -(-2 * num_sms // blocks))
+    per = max(min(2, tiles), -(-tiles // want), -(-tiles // MAX_SPLITS))
+    return -(-tiles // per), per
+
+
+class SharedPlan(NamedTuple):
+    """One shared-prefix launch's geometry and split plan
+    (``shared_prefix_plan``)."""
+    key: tuple          # (dtype, R, nq, kvh, hd, shared_len)
+    tensor_cores: bool
+    smem: int
+    splits: int
+    tiles_per_split: int
+    part: Optional[torch.Tensor]      # fp32 scratch of the splits' states
+    counters: Optional[torch.Tensor]  # int32, one a (row tile, KV head)
+
+
+def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
+                       hd: int, shared_len: int, device) -> SharedPlan:
+    """The launch geometry, the key-split plan and, with more than one
+    split, the scratch of the splits' states (acc [splits, kvh, R * group,
+    hd], then m and l [splits, kvh, R * group]) and the zeroed counters
+    of the kernel's merge (the kernel leaves them zero). bf16 runs the
+    tensor-core instance; fp32 the CUDA-core one, which takes no split."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    smem_limit = (cuda_build.smem_optin() if cuda
+                  else cuda_build.H100_SMEM_OPTIN)
+    key = (dtype, num_reqs, nq, kvh, hd, shared_len)
+    if dtype != torch.bfloat16:
+        smem = spa_smem_bytes(hd)
+        cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
+        return SharedPlan(key, False, smem, 1, 1, None, None)
+    smem = spa_tc_smem_bytes(hd)
+    cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
+    rows = num_reqs * (nq // kvh)
+    row_tiles = -(-rows // TC_ROWS)
+    splits, per = shared_split_plan(
+        row_tiles * kvh, -(-shared_len // spa_tile_keys(hd)),
+        cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(splits * kvh * rows * (hd + 2),
+                           dtype=torch.float32, device=device)
+        counters = torch.zeros(row_tiles * kvh, dtype=torch.int32,
+                               device=device)
+    return SharedPlan(key, True, smem, splits, per, part, counters)
 
 
 def ref_shared_prefix_attention(
@@ -90,11 +171,14 @@ def shared_prefix_attention(
     shared_pages: torch.Tensor,  # [n] int32
     shared_len: int,
     scale: float,
+    plan: Optional[SharedPlan] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The shared prefix's online-softmax state for every request's query:
     (acc [R, kvh, group, hd], m [R, kvh, group], l [R, kvh, group]), fp32,
     reading the shared pages once. The kernel reads the layer's cache
-    through its base pointer: nothing is copied."""
+    through its base pointer: nothing is copied. ``plan``: the CUDA
+    launch's ``shared_prefix_plan`` (the runner makes one a decode
+    window); by default one made here."""
     R, nq, hd = q.shape
     _, _, _, kvh, page, hd_c = kv_cache.shape
     if hd_c != hd or nq % kvh:
@@ -121,20 +205,30 @@ def shared_prefix_attention(
         raise ValueError("shared_pages must be contiguous int32 on q's "
                          "device")
     group = nq // kvh
+    if plan is None:
+        plan = shared_prefix_plan(q.dtype, R, nq, kvh, hd, shared_len,
+                                  q.device)
+    elif plan.key != (q.dtype, R, nq, kvh, hd, shared_len) or (
+            plan.part is not None and plan.part.device != q.device):
+        raise ValueError(f"the shared-prefix plan {plan.key} does not fit "
+                         f"q {q.dtype} {tuple(q.shape)}, kvh {kvh}, "
+                         f"shared_len {shared_len} on {q.device}")
+    if plan.tensor_cores and (q.data_ptr() % 16 or kv_cache.data_ptr() % 16):
+        raise ValueError("q and the cache must be 16-byte aligned")
     acc = torch.empty((R, kvh, group, hd), dtype=torch.float32,
                       device=q.device)
     m = torch.empty((R, kvh, group), dtype=torch.float32, device=q.device)
     lsum = torch.empty_like(m)
-    smem = spa_smem_bytes(hd)
-    cuda_build.check_smem("shared_prefix_attention", smem,
-                          cuda_build.smem_optin())
     launch = cuda_build.entry("shared_prefix_attention", "spa_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], q.data_ptr(), kv_cache[layer].data_ptr(),
-        shared_pages.data_ptr(), shared_len, acc.data_ptr(), m.data_ptr(),
-        lsum.data_ptr(), R, nq, kvh, page, hd, scale, smem,
-        cuda_build.stream(q.device))
+        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(),
+        kv_cache[layer].data_ptr(), shared_pages.data_ptr(), shared_len,
+        acc.data_ptr(), m.data_ptr(), lsum.data_ptr(),
+        plan.part.data_ptr() if plan.part is not None else None,
+        plan.counters.data_ptr() if plan.counters is not None else None,
+        R, nq, kvh, page, hd, scale, plan.smem, plan.splits,
+        plan.tiles_per_split, cuda_build.stream(q.device))
     cuda_build.check(err, "shared_prefix_attention launch")
     shared_prefix_attention.launches += 1
     return acc, m, lsum

@@ -8,21 +8,32 @@ on CPU tensors. Request r's query sits at position seq_lens[r] - 1, whose
 K/V the step has already written; it attends the request's positions
 0..seq_lens[r] - 1. The runner's non-window multi-step decode
 (``worker/runner.py: _execute_multi_step``) is its caller.
+
+In bf16 at head_dim 64, 128 or 256 (groups up to 16) the kernel splits
+each request's visible keys into tiles (``decode_tile_keys``) and the
+tiles into ``splits`` ranges, one block each, the last split taking
+whatever is left; each block writes an unnormalized (acc, m, l) state and
+a second kernel merges them in a fixed order. ``decode_plan`` makes the
+launch geometry, the split plan and the states' scratch once for all the
+layers and sub-steps of a decode window. fp32 (and other head dims or
+larger groups) runs one block a (request, KV head) on the CUDA cores.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.window_decode_attention import (
+    window_split_plan, window_uses_tensor_cores)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-             _F, _I, _I, _P]
-_TILE = 32  # keys per warp tile
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _F, _I, _I, _F, _I, _I, _I, _I, _P]
+_TILE = 32  # keys per warp tile of the CUDA-core instance
 
 
 def decode_smem_bytes(group: int, hd: int, itemsize: int, warps: int) -> int:
@@ -43,6 +54,90 @@ def decode_warps(group: int, hd: int, itemsize: int, smem_limit: int) -> int:
         f"decode_paged_attention (group {group}, head_dim {hd})",
         lambda warps: decode_smem_bytes(group, hd, itemsize, warps),
         smem_limit)
+
+
+def decode_tile_keys(hd: int) -> int:
+    """Keys a tile of the tensor-core instance (the split plan's unit): 64,
+    32 at head_dim 256 (a smaller ring, so that three blocks share an
+    SM)."""
+    return 64 if hd <= 128 else 32
+
+
+def decode_tc_smem_bytes(hd: int) -> int:
+    """Shared memory of the tensor-core instance: 16 query rows and a ring
+    of 2 stages of K and V tiles, bf16 rows padded by 8."""
+    return 2 * (hd + 8) * (16 + 2 * 2 * decode_tile_keys(hd))
+
+
+def decode_launch_geometry(dtype: torch.dtype, group: int, hd: int,
+                           smem_limit: int) -> tuple[bool, int, int]:
+    """(tensor cores, warps, shared-memory bytes) of one block: 4 warps and
+    ``decode_tc_smem_bytes`` on the tensor-core instance (where the window
+    kernel has one: ``window_uses_tensor_cores``), else the CUDA-core
+    instance's ``decode_warps``. Raises, naming the bytes, when nothing
+    fits the card."""
+    if window_uses_tensor_cores(dtype, group, hd):
+        smem = decode_tc_smem_bytes(hd)
+        cuda_build.check_smem(
+            f"decode_paged_attention (group {group}, head_dim {hd})", smem,
+            smem_limit)
+        return True, 4, smem
+    itemsize = torch.finfo(dtype).bits // 8
+    warps = decode_warps(group, hd, itemsize, smem_limit)
+    return False, warps, decode_smem_bytes(group, hd, itemsize, warps)
+
+
+def decode_max_tiles(max_seq_len: int, keys: int,
+                     sliding_window: Optional[int] = None,
+                     chunk_attn: Optional[int] = None) -> int:
+    """An upper bound on any request's tiles of ``keys`` keys when no
+    request holds more than ``max_seq_len`` tokens: from the tile holding
+    its first visible key to the one holding its query. A sliding window
+    or a chunk bounds the visible range to that many keys (a range of n
+    keys spans at most n // keys + 2 tiles). At least 1."""
+    n = -(-max_seq_len // keys)
+    for bound in (sliding_window, chunk_attn):
+        if bound:
+            n = min(n, bound // keys + 2)
+    return max(n, 1)
+
+
+class DecodePlan(NamedTuple):
+    """One decode launch's geometry and split plan (``decode_plan``)."""
+    key: tuple          # (dtype, R, nq, kvh, hd) of the launches it fits
+    tensor_cores: bool
+    warps: int
+    smem: int
+    splits: int
+    tiles_per_split: int
+    part: Optional[torch.Tensor]  # fp32 scratch of the splits' states
+
+
+def decode_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
+                hd: int, device, max_seq_len: int,
+                sliding_window: Optional[int] = None,
+                chunk_attn: Optional[int] = None) -> DecodePlan:
+    """The launch geometry (``decode_launch_geometry``), the split plan
+    for a bound on the requests' lengths (``window_split_plan``: about
+    four blocks an SM, at least two tiles a split) and the scratch of the
+    splits' states: acc [R, nq, splits, hd], then m and l [R, nq,
+    splits]. A bound below the real lengths costs speed only: the last
+    split takes the rest. The CUDA-core instance takes no split."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    tc, warps, smem = decode_launch_geometry(
+        dtype, nq // kvh, hd,
+        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN)
+    key = (dtype, num_reqs, nq, kvh, hd)
+    if not tc:
+        return DecodePlan(key, False, warps, smem, 1, 1, None)
+    splits, per = window_split_plan(
+        num_reqs * kvh, decode_max_tiles(max_seq_len, decode_tile_keys(hd),
+                                         sliding_window, chunk_attn),
+        cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
+    part = torch.empty(num_reqs * nq * splits * (hd + 2),
+                       dtype=torch.float32, device=device)
+    return DecodePlan(key, True, warps, smem, splits, per, part)
 
 
 def ref_decode_paged_attention(
@@ -98,10 +193,14 @@ def decode_paged_attention(
     chunk_attn: Optional[int] = None,
     logits_soft_cap: Optional[float] = None,
     alibi: Optional[torch.Tensor] = None,
+    plan: Optional[DecodePlan] = None,
 ) -> torch.Tensor:
     """Attention output [R, nq, hd] in q's dtype. ``alibi``: [nq] fp32
     slopes on q's device, or None. The kernel reads the layer through its
-    base pointer in the full cache: nothing is copied."""
+    base pointer in the full cache: nothing is copied. ``plan``: the CUDA
+    launch's ``decode_plan`` (the runner makes one for every layer and
+    sub-step of a decode window); by default one bounded by the block
+    tables' capacity."""
     if kv_cache.dtype != q.dtype:
         raise NotImplementedError(
             f"KV cache dtype {kv_cache.dtype} != query dtype {q.dtype} "
@@ -135,17 +234,33 @@ def decode_paged_attention(
     out = torch.empty_like(q)
     if R == 0:
         return out
-    group = nq // kvh
-    warps = decode_warps(group, hd, q.element_size(), cuda_build.smem_optin())
+    if plan is None:
+        plan = decode_plan(q.dtype, R, nq, kvh, hd, q.device,
+                           block_tables.shape[1] * page, sliding_window,
+                           chunk_attn)
+    elif plan.key != (q.dtype, R, nq, kvh, hd) or (
+            plan.part is not None and plan.part.device != q.device):
+        raise ValueError(f"the decode plan {plan.key} does not fit q "
+                         f"{q.dtype} {tuple(q.shape)}, kvh {kvh} on "
+                         f"{q.device}")
+    part = part_m = part_l = None
+    if plan.tensor_cores:
+        if q.data_ptr() % 16 or kv_cache.data_ptr() % 16:
+            raise ValueError("q and the KV cache must be 16-byte aligned")
+        n_state = R * nq * plan.splits
+        part = plan.part.data_ptr()
+        part_m = part + 4 * n_state * hd
+        part_l = part_m + 4 * n_state
     launch = cuda_build.entry("decode_paged_attention", "dpa_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], q.data_ptr(), cache_layer.data_ptr(),
-        out.data_ptr(), seq_lens.data_ptr(), block_tables.data_ptr(),
+        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(),
+        cache_layer.data_ptr(), out.data_ptr(), part, part_m, part_l,
+        seq_lens.data_ptr(), block_tables.data_ptr(),
         alibi.data_ptr() if alibi is not None else None, R,
         block_tables.shape[1], nq, kvh, page, hd, scale, sliding_window or 0,
-        chunk_attn or 0, logits_soft_cap or 0.0, warps,
-        decode_smem_bytes(group, hd, q.element_size(), warps),
+        chunk_attn or 0, logits_soft_cap or 0.0, plan.splits,
+        plan.tiles_per_split, plan.warps, plan.smem,
         cuda_build.stream(q.device))
     cuda_build.check(err, "decode_paged_attention launch")
     decode_paged_attention.launches += 1

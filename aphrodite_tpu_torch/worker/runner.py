@@ -45,6 +45,8 @@ from aphrodite_tpu_torch.config import EngineConfig
 from aphrodite_tpu_torch.core.sched_output import (ModelRunnerOutput,
                                                    SchedulerOutput)
 from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops.cascade_attention import shared_prefix_plan
+from aphrodite_tpu_torch.ops.decode_paged_attention import decode_plan
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import window_plan
@@ -299,7 +301,7 @@ class ModelRunner:
         paged_lens = self._dev(seq_lens0 - 1)
         budget = self._dev(counts)
         L, kvh, hd = model.num_layers, model.num_kv_heads, model.head_dim
-        plan = None
+        plan = shared_plan = None
         if dev.type == "cuda":
             # One launch plan for every layer and sub-step, bounded by the
             # longest paged length and the last sub-step. The splits skip
@@ -311,6 +313,10 @@ class ModelRunner:
                 int(seq_lens0.max()) - 1, K - 1,
                 shared_len=shared_len if shared_len and sw is None else 0,
                 sliding_window=sw)
+            if shared_len:
+                shared_plan = shared_prefix_plan(
+                    self.kv_cache.dtype, R, model.num_heads, kvh, hd,
+                    shared_len, dev)
         tail_k = torch.zeros((L, R, kvh, K, hd), dtype=self.kv_cache.dtype,
                              device=dev)
         tail_v = torch.zeros_like(tail_k)
@@ -325,7 +331,8 @@ class ModelRunner:
                 seq_lens=pos + 1,
                 block_tables=block_tables, window_step=i,
                 paged_lens=paged_lens, window_plan=plan,
-                shared_pages=shared_pages, shared_len=shared_len)
+                shared_pages=shared_pages, shared_len=shared_len,
+                shared_plan=shared_plan)
             hidden = model.forward_window(toks, self.kv_cache, tail_k,
                                           tail_v, md)
             new_tok, lp = greedy_sample(model.compute_logits(hidden))
@@ -380,6 +387,14 @@ class ModelRunner:
         toks = self._dev(cur)
         tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
         lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        plan = None
+        if dev.type == "cuda":
+            # One launch plan for every layer and sub-step, bounded by the
+            # longest context of the last sub-step (a layer's sliding window
+            # only shortens its range).
+            plan = decode_plan(
+                self.kv_cache.dtype, R, model.num_heads, model.num_kv_heads,
+                model.head_dim, dev, int(seq_lens0.max()) + K - 1)
         for i in range(K):
             live = i < budget
             pos = seqlens - 1
@@ -388,7 +403,7 @@ class ModelRunner:
             md = AttentionMetadata(
                 token_req_idx=arange_r, token_pos=pos, slot_mapping=slots,
                 seq_lens=seqlens, block_tables=block_tables,
-                decode_mode=True)
+                decode_mode=True, decode_plan=plan)
             hidden = model(toks, self.kv_cache, md)
             new_tok, lp = greedy_sample(model.compute_logits(hidden))
             toks = torch.where(live, new_tok, toks)

@@ -2,7 +2,11 @@
 """Smoke test of the PyTorch/CUDA port (``aphrodite_tpu_torch``) on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-CUDA card, ``nvcc`` and nothing of JAX. Phases, each fatal on failure:
+CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
+PARENT`` instead runs phases 12 and 14, the attention wrappers' host time
+a call and the window kernel's device time of the checkout unpacked at
+PARENT and of this one, in turns (``compare_serving``). Phases, each
+fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
@@ -85,8 +89,11 @@ starts; yardstick ``torch._grouped_mm`` where the card's torch has it.
 It holds the decode kernel (which stands in for the TPU
 ``decode_paged_attention``) in bf16 and fp32 at phase 12's decode step
 (32 rows, 16 / 8 heads of 256, contexts 513-576, soft cap 50), with a
-256-token sliding window over ~1030-token contexts, and with ALiBi and
-chunked local attention at head_dim 128, against
+256-token sliding window over ~1030-token contexts, with ALiBi and
+chunked local attention at head_dim 128, and at the Llama-3.1-8B heads
+(32 / 8 of 128) without options, each at TOL x min(1, max|ref|) with the
+split plan bounded by the longest context, by the block tables'
+capacity and by 0 (one split, which must take every tile), against
 ``scaled_dot_product_attention`` over gathered dense K/V; and the ragged
 and window kernels at head_dim 256 (phase 12's heads).
 It holds the selective scan (which stands in for the TPU
@@ -100,7 +107,8 @@ four GEMMs at M = 128, 65 and 256, timed at M = 128 and 32 beside the
 packed W4 kernel on the same weights, with ``torch._weight_int4pack_mm``
 as yardstick; the shared-prefix pass (``shared_prefix_attention``) in
 bf16 and fp32 at phase 14's decode step (R 128, 32 / 8 heads of 128, S =
-1024), against ``scaled_dot_product_attention`` over the gathered shared
+1024; also S = 1000 and 64, where one split takes every key), against
+``scaled_dot_product_attention`` over the gathered shared
 K/V (which returns the normalized output, not the state); and the window
 kernel started from that state against the window kernel over the whole
 context, timed with and without the cascade. It holds the ragged and window
@@ -389,25 +397,38 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
                 library_device_ms=lib_dev_ms)
 
 
-def window_tol(dtype_name: str, ref) -> float:
-    """The error limit of a window output: TOL scaled to the reference's
-    largest value where that is below 1. A long context averages many
-    values into a small output (~0.06 at 8192 keys), where an unscaled
-    limit would pass a kernel that lost whole 64-key tiles."""
+def scaled_tol(dtype_name: str, ref) -> float:
+    """The error limit of a decode or window output: TOL scaled to the
+    reference's largest value where that is below 1. A long context
+    averages many values into a small output (~0.06 at 8192 keys), where
+    an unscaled limit would pass a kernel that lost whole tiles or
+    splits."""
     return TOL[dtype_name] * min(1.0, ref.float().abs().max().item())
 
 
 def tol_text(name: str, dtype_name: str) -> str:
     """How a kernel's error limit reads in the log."""
-    if name == "window_decode_attention":
+    if name in ("window_decode_attention", "decode_paged_attention"):
         return f"{TOL[dtype_name]} x min(1, max|ref|)"
     return str(TOL[dtype_name])
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Host time of one call of ``fn`` (launches enqueued, not waited)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
     """Kernel B on one decode window (``ATTN_GEOMS``, or a case of
     ``WINDOW_MASK_CASES``): its paged lengths with a 64-slot tail, at
-    several window steps, each held at ``window_tol``, with the split plan
+    several window steps, each held at ``scaled_tol``, with the split plan
     bounded by the longest paged length as the runner bounds it, by the
     block tables' capacity, and by 0 (one split, which must take every
     tile); at a path's shapes also the times, with the plan made once as
@@ -441,7 +462,7 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
         ref = ref_window_decode_attention(q, cache[layer], tail_k[layer],
                                           tail_v[layer], step, pl, bt, scale,
                                           **opts)
-        limit = window_tol(dtype_name, ref)
+        limit = scaled_tol(dtype_name, ref)
         for bound, p in plans.items():
             out = window_decode_attention(q, cache, tail_k, tail_v, layer,
                                           step, pl, bt, scale, plan=p,
@@ -464,11 +485,7 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
         q, cache, tail_k, tail_v, layer, step, pl, bt, scale, plan=path_plan)
     ms = cuda_ms(win, 200)
     dev_ms = device_ms(win, 50)
-    t_host = time.perf_counter()
-    for _ in range(50):
-        win()
-    host_ms = (time.perf_counter() - t_host) * 1e3 / 50
-    torch.cuda.synchronize()
+    host = host_ms(win)
     plain_ms = cuda_ms(lambda: ref_window_decode_attention(
         q, cache[layer], tail_k[layer], tail_v[layer], step, pl, bt, scale),
         5)
@@ -492,14 +509,15 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                host_ms=host_ms, library_device_ms=lib_dev_ms)
+                host_ms=host, library_device_ms=lib_dev_ms)
 
 
 # Decode kernel cases: (heads, head_dim, context lengths, options). The
 # Gemma-2-9B path's decode step (contexts 513-576 while 32 requests decode
 # 64 tokens after 512-token prompts; soft cap 50), the same with a 256-token
-# sliding window over ~1030-token contexts (so the mask bites), and ALiBi
-# and chunked local attention at head_dim 128.
+# sliding window over ~1030-token contexts (so the mask bites), ALiBi and
+# chunked local attention at head_dim 128, and the Llama-3.1-8B heads (32 /
+# 8 of 128, group 4) with no option.
 DECODE_CASES = {
     "gemma-2-9b": (16, 8, 256, [513 + (37 * r) % 64 for r in range(32)],
                    dict(logits_soft_cap=50.0)),
@@ -510,20 +528,27 @@ DECODE_CASES = {
                     dict(alibi=True)),
     "chunk-hd128": (16, 8, 128, [1000 + (37 * r) % 64 for r in range(32)],
                     dict(chunk_attn=256)),
+    "llama-3.1-8b": (32, 8, 128, [513 + (37 * r) % 64 for r in range(32)],
+                     {}),
 }
 
 
 def check_decode(gen, dtype_name: str, case: str) -> dict:
     """The decode kernel on one case of ``DECODE_CASES``: error against
-    its plain version, kernel and plain times, the bound (each visible K/V
-    row read once, q read and the output written once) and the yardstick,
-    one ``scaled_dot_product_attention`` call over K/V gathered into dense
-    [R, kvh, S, hd] with the same mask (ALiBi as an additive bias; SDPA has
-    no soft cap, so it computes the uncapped function there)."""
+    its plain version at ``scaled_tol``, with the split plan
+    (``decode_plan``) bounded by the longest context, by the block tables'
+    capacity and by 0 (one split, which must take every tile); the
+    kernel's time a call (CUDA events), its device time
+    (profiler) and its host time a call, with the first plan; the plain
+    time; the bound (each visible K/V row read once, q read and the output
+    written once) and the yardstick, one ``scaled_dot_product_attention``
+    call over K/V gathered into dense [R, kvh, S, hd] with the same mask
+    (ALiBi as an additive bias; SDPA has no soft cap, so it computes the
+    uncapped function there)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
-        decode_paged_attention, ref_decode_paged_attention)
+        decode_paged_attention, decode_plan, ref_decode_paged_attention)
     dtype = getattr(torch, dtype_name)
     nq, kvh, hd, ctx, opts = DECODE_CASES[case]
     opts = dict(opts)
@@ -535,15 +560,29 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
     sl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     q = torch.randn((R, nq, hd), generator=gen, device="cuda").to(dtype)
     scale = hd ** -0.5
-    out = decode_paged_attention(q, cache, layer, bt, sl, scale, **opts)
     ref = ref_decode_paged_attention(q, cache[layer], bt, sl, scale, **opts)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
-        raise AssertionError(f"decode kernel {case} {dtype_name}: "
-                             f"max_abs_err {err} > {TOL[dtype_name]}")
-    ms = cuda_ms(lambda: decode_paged_attention(q, cache, layer, bt, sl,
-                                                scale, **opts), 200)
+    limit = scaled_tol(dtype_name, ref)
+    plan = lambda bound: decode_plan(  # noqa: E731
+        dtype, R, nq, kvh, hd, q.device, bound)
+    plans = {"the longest context": plan(max(ctx)),
+             "the block tables": None, "0": plan(0)}
+    err = 0.0
+    for bound, p in plans.items():
+        out = decode_paged_attention(q, cache, layer, bt, sl, scale, plan=p,
+                                     **opts)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        if not (e <= limit and torch.isfinite(out).all()):
+            raise AssertionError(
+                f"decode kernel {case} {dtype_name}, plan bounded by {bound}: "
+                f"max_abs_err {e} > {limit:.3g} (TOL scaled to the output)")
+        err = max(err, e)
+    path_plan = plans["the longest context"]
+    dec = lambda: decode_paged_attention(  # noqa: E731
+        q, cache, layer, bt, sl, scale, plan=path_plan, **opts)
+    ms = cuda_ms(dec, 200)
+    dev_ms = device_ms(dec, 50)
+    host = host_ms(dec)
     plain_ms = cuda_ms(lambda: ref_decode_paged_attention(
         q, cache[layer], bt, sl, scale, **opts), 5)
     s_max = max(ctx)
@@ -560,23 +599,32 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
         mask = torch.where(mask, opts["alibi"][None, :, None, None]
                            * (j - pos).float()[:, None, None, :],
                            float("-inf")).to(dtype)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q[:, :, None, :], k_d, v_d, attn_mask=mask, scale=scale,
-        enable_gqa=True), 50)
+        enable_gqa=True)
+    lib_ms = cuda_ms(sdpa, 50)
+    lib_dev_ms = device_ms(sdpa, 20)
     vis = int(keep.sum().item())   # K/V rows this run's masks let in
     item = torch.finfo(dtype).bits // 8
     nbytes = item * (2 * R * nq * hd + 2 * kvh * hd * vis)
     ops = 4.0 * nq * hd * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
+    how = (f"tensor cores, {path_plan.splits} splits of "
+           f"{path_plan.tiles_per_split} tiles" if path_plan.tensor_cores
+           else "CUDA cores")
     log(f"# phase 2: decode_paged_attention {case} {dtype_name} (R {R}, nq "
         f"{nq}, kvh {kvh}, hd {hd}, contexts {min(ctx)}-{max(ctx)}, "
-        f"{opts if 'alibi' not in opts else 'alibi'}): max_abs_err "
-        f"{err:.3g} (tol {TOL[dtype_name]}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}, {vis} K/V rows), {nbytes / ms / 1e6:.0f} GB/s")
+        f"{opts if 'alibi' not in opts else 'alibi'}; {how}): max_abs_err "
+        f"{err:.3g} (tol {tol_text('decode_paged_attention', dtype_name)} "
+        f"= {limit:.3g}, plans bounded by {', '.join(plans)}); kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f} ms, host {host:.4f} ms a call), "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
+        f"{lib_dev_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}, {vis} K/V "
+        f"rows), {nbytes / dev_ms / 1e6:.0f} GB/s on the device")
     del cache, k_d, v_d, ref
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms)
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                host_ms=host, library_device_ms=lib_dev_ms)
 
 
 def quant_inputs(gen, name: str, K: int, N: int, M: int, dtype):
@@ -857,7 +905,8 @@ def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
 def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     """Phase 14's decode step (R 128, 32 / 8 heads of 128, paged lengths
     1152, 16 shared pages: S = 1024, a 64-slot tail): the shared-prefix
-    pass against its plain version (and an unaligned S = 1000), and the
+    pass, its plan made once as the runner makes it, against its plain
+    version (and an unaligned S = 1000, and S = 64: one split), and the
     window kernel started from its state against the plain window and the
     window kernel over the whole context, at several steps. Times: the
     pass, the window with the init state, both together and the window
@@ -866,7 +915,8 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.cascade_attention import (
-        ref_shared_prefix_attention, shared_prefix_attention)
+        ref_shared_prefix_attention, shared_prefix_attention,
+        shared_prefix_plan)
     from aphrodite_tpu_torch.ops.window_decode_attention import (
         ref_window_decode_attention, window_decode_attention, window_plan)
     dtype = getattr(torch, dtype_name)
@@ -880,10 +930,14 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     pl = torch.full((R,), plen, dtype=torch.int32, device="cuda")
     scale = HD ** -0.5
     item = torch.finfo(dtype).bits // 8
+    # The pass with its plan made once, as the runner makes it a window.
+    spa_plans = {s_len: shared_prefix_plan(dtype, R, NQ, KVH, HD, s_len,
+                                           q.device)
+                 for s_len in (S, 1000, 64)}
     spa = lambda s_len=S: shared_prefix_attention(  # noqa: E731
-        q, cache, layer, shared, s_len, scale)
+        q, cache, layer, shared, s_len, scale, spa_plans[s_len])
     err = 0.0
-    for s_len in (S, 1000):
+    for s_len in spa_plans:
         got = spa(s_len)
         want = ref_shared_prefix_attention(q, cache[layer], shared, s_len,
                                            scale)
@@ -900,6 +954,8 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
                                  f"{TOL[dtype_name]}")
         err = max(err, e)
     ms = cuda_ms(spa, 200)
+    spa_dev_ms = device_ms(spa, 50)
+    spa_host = host_ms(spa)
     plain_ms = cuda_ms(lambda: ref_shared_prefix_attention(
         q, cache[layer], shared, S, scale), 5)
     # Library yardstick: one SDPA over the gathered shared K/V with every
@@ -910,17 +966,26 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     q_h = q.reshape(R, KVH, NQ // KVH, HD).permute(1, 0, 2, 3).reshape(
         1, KVH, -1, HD).contiguous()
     k_d, v_d = kv[0].contiguous(), kv[1].contiguous()
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q_h, k_d, v_d, scale=scale), 200)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q_h, k_d, v_d, scale=scale)
+    lib_ms = cuda_ms(sdpa, 200)
+    lib_dev_ms = device_ms(sdpa, 50)
     nbytes = (item * (R * NQ * HD + 2 * KVH * S * HD)
               + 4 * (R * NQ * HD + 2 * R * NQ))
     b_ms, b_by = bound_ms(nbytes, 4.0 * R * NQ * HD * S, dtype_name)
     spa_res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms)
+                   bound_by=b_by, library_ms=lib_ms, device_ms=spa_dev_ms,
+                   host_ms=spa_host, library_device_ms=lib_dev_ms)
+    p = spa_plans[S]
+    how = (f"tensor cores, {p.splits} splits of {p.tiles_per_split} tiles"
+           if p.tensor_cores else "CUDA cores")
     log(f"# phase 2: shared_prefix_attention {dtype_name} (R {R}, nq {NQ}, "
-        f"kvh {KVH}, S {S}): max error {err:.3g} (tol {TOL[dtype_name]}); "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (normalized "
-        f"output) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"kvh {KVH}, S {S}; {how}): max error {err:.3g} (tol "
+        f"{TOL[dtype_name]}, S {', '.join(map(str, spa_plans))}); kernel "
+        f"{ms:.4f} ms (device {spa_dev_ms:.4f} ms, host {spa_host:.4f} ms a "
+        f"call), plain {plain_ms:.4f} ms, sdpa (normalized output) "
+        f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), bound {b_ms:.4f} ms "
+        f"({b_by})")
 
     # The runner's plans: one from the cascade's state, one over the whole
     # context.
@@ -940,7 +1005,7 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         e = (out.float() - ref.float()).abs().max().item()
         e_full = (out.float() - full.float()).abs().max().item()
-        limit = window_tol(dtype_name, ref)
+        limit = scaled_tol(dtype_name, ref)
         if not (max(e, e_full) <= limit and torch.isfinite(out).all()):
             raise AssertionError(f"window kernel with the cascade init "
                                  f"{dtype_name} step {step}: max_abs_err "
@@ -1866,8 +1931,8 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
         n = name.lower()
         k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n else
              "window" if "wd_split" in n or "wd_merge" in n else
-             "decode" if "dpa_kernel" in n else
-             "cascade" if "spa_kernel" in n else
+             "decode" if "dpa_" in n else
+             "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
              "quant" if "qmm_" in n else
              "int4" if "q4_kernel" in n or "q4_tc_kernel" in n else
              "moe" if "gmm_" in n else
@@ -1899,6 +1964,85 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
             f"{name[:90]}")
 
 
+KERNEL_SOURCES = ["ragged_paged_attention", "window_decode_attention",
+                  "decode_paged_attention", "quant_matmul", "grouped_matmul",
+                  "selective_scan", "shared_prefix_attention"]
+
+
+# Run by each checkout in ``compare_serving``: the host time a call of the
+# decode wrapper (Gemma-2-9B's decode step) and of the shared-prefix
+# wrapper (phase 14's), each called as that checkout's runner calls it
+# (with the window's plan where the checkout has one); then the window
+# kernel's device time at the bf16 paths' shapes.
+HOST_PROBE = """
+import time, torch
+from aphrodite_tpu_torch.ops import cascade_attention as cm
+from aphrodite_tpu_torch.ops import decode_paged_attention as dm
+def per_call(fn, reps=200):
+    fn(); torch.cuda.synchronize(); t0 = time.perf_counter()
+    for _ in range(reps): fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps; torch.cuda.synchronize()
+    return ms
+gen = torch.Generator(device='cuda').manual_seed(0)
+nq, kvh, hd, ctx, opts = c.DECODE_CASES['gemma-2-9b']
+cache, bt = c.paged_cache(gen, ctx, torch.bfloat16, kvh, hd=hd)
+sl = torch.tensor(ctx, dtype=torch.int32, device='cuda')
+q = torch.randn((len(ctx), nq, hd), generator=gen, device='cuda').bfloat16()
+kw = dict(opts)
+if hasattr(dm, 'decode_plan'):
+    kw['plan'] = dm.decode_plan(torch.bfloat16, len(ctx), nq, kvh, hd,
+                                q.device, max(ctx) + 63)
+dec = per_call(lambda: dm.decode_paged_attention(q, cache, 1, bt, sl,
+                                                 hd ** -0.5, **kw))
+cache, shared, bt = c.cascade_cache(gen, torch.bfloat16, 128, 1024, 1152, 64)
+q = torch.randn((128, 32, 128), generator=gen, device='cuda').bfloat16()
+args = [q, cache, 1, shared, 1024, 128 ** -0.5]
+if hasattr(cm, 'shared_prefix_plan'):
+    args.append(cm.shared_prefix_plan(torch.bfloat16, 128, 32, 8, 128, 1024,
+                                      q.device))
+spa = per_call(lambda: cm.shared_prefix_attention(*args))
+print(f'# host a call: decode_paged_attention {dec:.4f} ms, '
+      f'shared_prefix_attention {spa:.4f} ms', flush=True)
+del cache, q, args
+for path in ('qwen2.5-1.5b-bf16', 'llama-3.1-8b-w4a16',
+             'qwen1.5-moe-a2.7b-bf16', 'gemma-2-9b-bf16'):
+    r = c.check_window(gen, 'bfloat16', c.ATTN_GEOMS[path])
+    print(f"# window_decode_attention bf16 at {path}: device "
+          f"{r['device_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}",
+          flush=True)
+"""
+
+
+def compare_serving(parent: str) -> int:
+    """``python3 chip_smoke.py --ab PARENT``: ``HOST_PROBE`` and phases 12 and
+    14 (s/run, device busy and items) of the checkout at PARENT (a commit
+    unpacked with ``git archive``) and of this one, in turns on one card:
+    parent, this, this, parent. Each run is a process of its own, started
+    from its checkout's root, which builds that checkout's kernels into its
+    own build directory. Their logs are printed with a tag; fails if any
+    run fails."""
+    here = Path(__file__).resolve().parent
+    roots = {"parent": Path(parent).resolve(), "change": here}
+    code = "\n".join([
+        "import sys", "sys.path.insert(0, '.')", "import chip_smoke as c",
+        "from aphrodite_tpu_torch.ops import cuda_build",
+        f"t = cuda_build.build_all({KERNEL_SOURCES!r})",
+        "print(f'# kernels built in {t:.1f} s', flush=True)",
+        HOST_PROBE, "c.main_path_gemma()", "c.main_path_int4_cascade()"])
+    for i, tag in enumerate(("parent", "change", "change", "parent")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=roots[tag],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            log(f"[{tag} {i}] {line}")
+        log(f"[{tag} {i}] exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            return 1
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1913,9 +2057,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    names = ["ragged_paged_attention", "window_decode_attention",
-             "decode_paged_attention", "quant_matmul", "grouped_matmul",
-             "selective_scan", "shared_prefix_attention"]
+    if sys.argv[1:2] == ["--ab"]:
+        return compare_serving(sys.argv[2])
+    names = KERNEL_SOURCES
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
