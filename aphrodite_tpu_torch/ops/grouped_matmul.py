@@ -4,12 +4,27 @@
 ``y[off[e]:off[e+1]] = x[off[e]:off[e+1]] @ w[e]`` with fp32 sums and one
 rounding to x's dtype at the end, which is what the JAX package's
 ``gmm(..., preferred_element_type=f32).astype(h.dtype)`` gives. On CUDA
-tensors it launches the hand-written kernel of ``csrc/grouped_matmul.cu``
-(which replaces the megablox ``gmm`` TPU kernel that
+tensors it launches the hand-written kernels of ``csrc/grouped_matmul.cu``
+(which replace the megablox ``gmm`` TPU kernel,
+``jax/experimental/pallas/ops/tpu/megablox/gmm.py:314``, that
 ``aphrodite_tpu/models/moe_common.py`` calls); on CPU tensors it runs the
-plain PyTorch version ``ref_grouped_matmul``. The kernel reads the group
+plain PyTorch version ``ref_grouped_matmul``. The kernels read the group
 offsets on the device: the host never learns the group sizes, so a launch
 does not wait for the card.
+
+At the MoE prefill wave the product is bound by the tensor cores' bf16
+rate (a Qwen1.5-MoE-A2.7B layer's two GEMMs over 65536 rows: 1.15 ms at
+989 TFLOP/s), which only ``wgmma`` reaches. So the bf16 kernel is
+persistent (one block an SM walks the output tiles) and warp-specialised:
+a producer warp loads 128 x 64 slices of x and 64 x 256 slices of the
+expert's w by TMA into a ring of shared-memory stages, and two consumer
+warpgroups multiply them with ``wgmma`` and send y out by TMA stores. The
+blocks run in clusters of two on consecutive items, which share each w
+slice (one load, multicast to both) when the items are of one expert.
+``grouped_schedule`` models the order in which the blocks visit the
+tiles, with the kernel's own arithmetic, for the CPU tests;
+``grouped_smem_bytes`` is its shared memory. fp32 keeps a CUDA-core
+kernel for the parity paths.
 """
 from __future__ import annotations
 
@@ -21,7 +36,75 @@ from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+# The bf16 kernel's tiles (csrc/grouped_matmul.cu, kWg*): rows, columns and
+# depth of a tile, stages of the ring, blocks of a cluster.
+BM, BN, BK, STAGES, CLUSTER = 128, 256, 64, 3, 2
+FIND_CHUNK = 32  # experts a find_item step covers (one a lane)
+
+
+def grouped_smem_bytes(bm: int = BM, bn: int = BN, bk: int = BK,
+                       stages: int = STAGES) -> int:
+    """Dynamic shared memory of the bf16 kernel: the ring of x and w
+    slices, the two consumers' 64 x bn slabs of y on their way out, a
+    "full" and an "empty" barrier a stage, and up to 1024 bytes to align
+    the ring to the 128-byte swizzle's period."""
+    return (stages * (bm * bk + bk * bn) * 2 + bm * bn * 2
+            + 2 * stages * 8 + 1024)
+
+
+def _find_item(off: list[int], E: int, M: int, bm: int, item: int):
+    """``find_item`` of the kernel: (group, row_lo, row_hi) of work item
+    ``item``, or None when it has no work. The kernel's warp walks the
+    experts 32 at a time, a prefix sum of their row-tile counts over its
+    lanes; the first expert whose running count passes ``item`` owns it."""
+    base = 0
+    for e0 in range(0, E, FIND_CHUNK):
+        incl = 0
+        for e in range(e0, min(e0 + FIND_CHUNK, E)):
+            start = min(max(off[e], 0), M)
+            end = min(max(off[e + 1], start), M)
+            tiles = (end - 1) // bm - start // bm + 1 if end > start else 0
+            incl += tiles
+            if tiles and item < base + incl:
+                tile = start // bm + item - base - (incl - tiles)
+                return (e, max(tile * bm, start),
+                        min(tile * bm + bm, end))
+        base += incl
+    return None
+
+
+def grouped_schedule(offsets, M: int, E: int, N: int, bm: int = BM,
+                     bn: int = BN, grid: int = cuda_build.H100_SMS):
+    """The bf16 kernel's schedule, in its own arithmetic: for each of its
+    persistent blocks, the (group, row_lo, row_hi, n0) tiles whose rows
+    [row_lo, row_hi) and columns [n0, min(n0 + bn, N)) of y it writes, in
+    order. Blocks come in clusters of two, at most max(1, grid // 2)
+    clusters (the kernel launches fewer where fewer fit on the card at
+    once). Cluster c takes the pair tiles u = c, c + clusters, ...: items
+    2p and 2p + 1, p = u // n_tiles, at columns (u % n_tiles) * bn, one
+    item a block; a cluster stops at the first pair whose item 2p has no
+    work. The block of an odd last item's missing partner writes
+    nothing."""
+    off = [int(v) for v in offsets]
+    n_tiles = -(-N // bn)
+    items = -(-M // bm) + E - 1
+    max_tiles = -(-items // CLUSTER) * n_tiles
+    clusters = max(1, min(grid // CLUSTER, max_tiles))
+    visits = [[] for _ in range(CLUSTER * clusters)]
+    for cid in range(clusters):
+        for u in range(cid, max_tiles, clusters):
+            p = u // n_tiles
+            pair = [_find_item(off, E, M, bm, CLUSTER * p + r)
+                    for r in range(CLUSTER)]
+            if pair[0] is None:
+                break
+            for r, found in enumerate(pair):
+                if found is not None:
+                    visits[CLUSTER * cid + r].append(
+                        (*found, (u % n_tiles) * bn))
+    return visits
 
 
 def ref_grouped_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -43,7 +126,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
 
     ``group_offsets`` is int32 [E + 1]: group e owns rows
     [off[e], off[e + 1]); off[0] = 0, nondecreasing, off[E] = M. fp32 and
-    bf16; the bf16 kernel needs K and N multiples of 8."""
+    bf16; the bf16 kernel needs K and N multiples of 8 (TMA's 16-byte
+    row strides) and x and w on 16-byte boundaries, and raises otherwise."""
     if x.device.type == "cpu":
         return ref_grouped_matmul(x, w, group_offsets)
     M, K = x.shape
@@ -72,7 +156,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
                           _ARGTYPES)
     err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
              group_offsets.data_ptr(), out.data_ptr(), M, K, N, E,
-             cuda_build.stream(x.device))
+             cuda_build.sm_count(x.device), cuda_build.stream(x.device))
     cuda_build.check(err, "grouped_matmul")
     grouped_matmul.launches += 1
     return out

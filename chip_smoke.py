@@ -3,10 +3,10 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
-PARENT`` instead runs phases 12 and 14, the attention wrappers' host time
-a call and the window kernel's device time of the checkout unpacked at
-PARENT and of this one, in turns (``compare_serving``). Phases, each
-fatal on failure:
+PARENT`` instead runs phases 8, 12 and 14, the attention wrappers' host
+time a call, the window kernel's device time and the bf16 grouped GEMM at
+phase 8's shapes of the checkout unpacked at PARENT and of this one, in
+turns (``compare_serving``). Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
@@ -19,8 +19,9 @@ fatal on failure:
    packed W4 kernel, Qwen2.5-1.5B shapes for the unpacked W4 and the W8
    kernel) against ``torch._weight_int4pack_mm`` /
    ``torch._weight_int8pack_mm`` where the card's torch has them, else
-   ``torch.matmul`` on the dequantized weight. Also time the W4 prefill
-   product (M > 256) at the 8B wave's shapes.
+   ``torch.matmul`` on the dequantized weight, each by its time a call
+   and its device time (profiler). Also time the W4 prefill product (M >
+   256) at the 8B wave's shapes.
 3. Run a tiny model end to end in fp32 through the port's ``LLM`` on the
    card and on the CPU with the same weights: greedy tokens must be equal.
 4. Qwen2.5-1.5B geometry, bf16 dummy weights, block 64, max_num_seqs 32,
@@ -84,8 +85,13 @@ Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
 prefill wave's 65536 sorted rows over 60 experts, gate|up and down, with
 balanced (random top-4) and skewed group sizes (empty groups, one group
-holding ~45 % of the rows), and at M = 240, where the grouped route
-starts; yardstick ``torch._grouped_mm`` where the card's torch has it.
+holding ~45 % of the rows), at M = 240, where the grouped route
+starts, and where the bf16 kernel's tiles, TMA boxes and clusters bite
+(``GROUPED_EDGE_CASES``: M = 65536 - 37, K = 1000, N = 1416, a 1-row group,
+one expert holding every row, E = 33); two launches on the same inputs
+must be bit-equal. It times the balanced cases (call, device and host
+time) beside the plain version, ``torch._grouped_mm`` where the card's
+torch has it, and a dense ``torch.matmul`` of the same operations.
 It holds the decode kernel (which stands in for the TPU
 ``decode_paged_attention``) in bf16 and fp32 at phase 12's decode step
 (32 rows, 16 / 8 heads of 256, contexts 513-576, soft cap 50), with a
@@ -698,8 +704,9 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     kernel = qm.KERNELS[name]
     M = 32
-    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0, bytes=0.0, ops=0.0)
+    tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               bound_ms=0.0, library_ms=0.0, library_device_ms=0.0,
+               bytes=0.0, ops=0.0)
     lib_label = None
     for gemm, (K, N) in QUANT_KERNELS[name][1].items():
         x, args, plain, dense = quant_inputs(gen, name, K, N, M, dtype)
@@ -711,6 +718,7 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
             raise AssertionError(f"{name} {gemm} {dtype_name}: max_abs_err "
                                  f"{err} > {TOL[dtype_name]}")
         ms = cuda_ms(lambda: kernel(x, *args), 50)
+        dev = device_ms(lambda: kernel(x, *args), 20)
         t_host = time.perf_counter()
         for _ in range(50):
             kernel(x, *args)
@@ -719,17 +727,20 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
         plain_ms = cuda_ms(lambda: plain(x), 3)
         lib_label, lib = library_call(name, x, args, dense)
         lib_ms = cuda_ms(lib, 50)
+        lib_dev = device_ms(lib, 20)
         nbytes = (x.numel() * x.element_size()
                   + sum(a.numel() * a.element_size() for a in args)
                   + M * N * x.element_size())
         ops = 2.0 * M * K * N
         b_ms, _ = bound_ms(nbytes, ops, dtype_name)
         log(f"# phase 2: {name} {gemm} {dtype_name} M={M} K={K} N={N}: "
-            f"err {err:.3g}; kernel {ms:.4f} ms (host {host_ms:.4f} ms a "
-            f"call), plain {plain_ms:.4f} ms, "
-            f"{lib_label} {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
-        for k, v in (("max_abs_err", err), ("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("bytes", nbytes),
+            f"err {err:.3g}; kernel {ms:.4f} ms (device {dev:.4f} ms, host "
+            f"{host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
+            f"{lib_label} {lib_ms:.4f} ms (device {lib_dev:.4f} ms), bound "
+            f"{b_ms:.4f} ms")
+        for k, v in (("max_abs_err", err), ("ms", ms), ("device_ms", dev),
+                     ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("library_device_ms", lib_dev), ("bytes", nbytes),
                      ("ops", ops)):
             tot[k] = max(tot[k], v) if k == "max_abs_err" else tot[k] + v
     # Other batch sizes (other M tiles and K splits) at the first shape:
@@ -1049,23 +1060,51 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
                          device_ms=dev_ms)
 
 
-def group_offsets(gen, M: int, skewed: bool):
-    """int32 [E + 1] offsets of M sorted rows over MOE_E experts. Balanced:
+def group_offsets(gen, M: int, skewed: bool, E: int = MOE_E,
+                  uniform: bool = False):
+    """int32 [E + 1] offsets of M sorted rows over E experts. Balanced:
     the rows of M / 4 tokens, each routed to 4 distinct random experts.
     Skewed: expert e drawn with weight (e + 1)^-1.5, every sixth expert
-    empty (expert 0 takes ~45 % of the rows)."""
+    empty (expert 0 takes ~45 % of the rows). Uniform: each row's expert
+    drawn at random (any M)."""
     import torch
-    if not skewed:
-        topi = torch.rand((M // MOE_K, MOE_E), generator=gen,
+    if uniform:
+        ids = torch.sort(torch.randint(0, E, (M,), generator=gen,
+                                       device="cuda")).values
+    elif not skewed:
+        topi = torch.rand((M // MOE_K, E), generator=gen,
                           device="cuda").topk(MOE_K, dim=-1).indices
         ids = torch.sort(topi.reshape(-1)).values
     else:
-        p = (torch.arange(MOE_E, device="cuda") + 1.0) ** -1.5
-        p[torch.arange(MOE_E, device="cuda") % 6 == 5] = 0.0
+        p = (torch.arange(E, device="cuda") + 1.0) ** -1.5
+        p[torch.arange(E, device="cuda") % 6 == 5] = 0.0
         ids = torch.sort(torch.multinomial(p, M, replacement=True,
                                            generator=gen)).values
-    return torch.searchsorted(ids, torch.arange(MOE_E + 1, device="cuda"),
+    return torch.searchsorted(ids, torch.arange(E + 1, device="cuda"),
                               out_int32=True)
+
+
+def sized_offsets(sizes: list[int]):
+    import torch
+    return torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                        dtype=torch.int32, device="cuda")
+
+
+# Where the bf16 kernel's design bites (phase 2, bf16 and fp32, against the
+# plain version): rows past the last tile, K and N past the TMA boxes, a
+# 1-row group, one expert holding every row (every pair of items shares
+# it), and E = 33 (find_item's second 32-expert chunk). name: (M, K, N,
+# E, group sizes or None for a uniform draw).
+GROUPED_EDGE_CASES = {
+    "M=65499": (65536 - 37, 2048, 2816, MOE_E, None),
+    "K=1000": (65536, 1000, 2048, MOE_E, None),
+    "N=1416": (65536, 2048, 1416, MOE_E, None),
+    "1-row group": (1000, 2048, 2816, MOE_E,
+                    [1, 500, 1, 0, 498] + [0] * (MOE_E - 5)),
+    "one expert": (4096, 2048, 2816, MOE_E,
+                   [0] * 7 + [4096] + [0] * (MOE_E - 8)),
+    "E=33": (8000, 1408, 2048, 33, None),
+}
 
 
 def grouped_library(x, w, off, want):
@@ -1097,67 +1136,102 @@ def grouped_library(x, w, off, want):
 def check_grouped(gen, dtype_name: str) -> dict:
     """The grouped GEMM at phase 8's shapes (a MoE layer's gate|up and down
     over one prefill wave, M = 65536 rows, 60 experts), balanced and
-    skewed, and at M = 240 (the grouped route's threshold, 4 x 60): error
-    against the plain version on fp32 copies of the same inputs; times and
-    bounds of the balanced wave, summed over the layer's two GEMMs."""
+    skewed, at M = 240 (the grouped route's threshold, 4 x 60) and at
+    ``GROUPED_EDGE_CASES``: error against the plain version on fp32 copies
+    of the same inputs, and two launches on the same inputs bit-equal.
+    Times and bounds of the balanced wave, summed over the layer's two
+    GEMMs: time a call (CUDA events), device time (profiler), host time a
+    call, the plain version, ``_grouped_mm`` and a dense ``torch.matmul``
+    of the same operations (what the card gives at these shapes)."""
     import torch
     from aphrodite_tpu_torch.ops.grouped_matmul import (grouped_matmul,
                                                         ref_grouped_matmul)
     dtype = getattr(torch, dtype_name)
     item = torch.finfo(dtype).bits // 8
-    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bytes=0.0, ops=0.0)
-    small = dict(ms=0.0, bytes=0.0, ops=0.0)
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+            "dense_ms", "bytes", "ops")
+    tot = dict.fromkeys(keys, 0.0)
+    tot["max_abs_err"] = 0.0
+    small = dict.fromkeys(keys, 0.0)
     lib_label = None
+
+    def held(label, x, w, off):
+        out = grouped_matmul(x, w, off)
+        again = grouped_matmul(x, w, off)
+        ref = ref_grouped_matmul(x.float(), w.float(), off)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
+            raise AssertionError(f"grouped_matmul {label} {dtype_name}: "
+                                 f"max_abs_err {err} > {TOL[dtype_name]}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"grouped_matmul {label} {dtype_name}: two "
+                                 "launches on the same inputs differ")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        return ref, err
+
+    def operands(M, K, N, E):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             * (0.5 / K ** 0.5)).to(dtype)
+        return x, w
+
     for M, case in ((65536, "balanced"), (65536, "skewed"), (240, "balanced"),
                     (240, "skewed")):
         off = group_offsets(gen, M, case == "skewed")
         nonempty = int((off[1:] > off[:-1]).sum())
         for gemm, (K, N) in MOE_GEMMS.items():
-            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((MOE_E, K, N), generator=gen, device="cuda")
-                 * (0.5 / K ** 0.5)).to(dtype)
-            out = grouped_matmul(x, w, off)
-            ref = ref_grouped_matmul(x.float(), w.float(), off)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
-                raise AssertionError(
-                    f"grouped_matmul {gemm} M={M} {case} {dtype_name}: "
-                    f"max_abs_err {err} > {TOL[dtype_name]}")
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            x, w = operands(M, K, N, MOE_E)
+            ref, err = held(f"{gemm} M={M} {case}", x, w, off)
             reps = 50 if M < 4096 else (10 if dtype_name == "bfloat16"
                                         else 3)
-            ms = cuda_ms(lambda: grouped_matmul(x, w, off), reps)
+            call = lambda: grouped_matmul(x, w, off)  # noqa: E731
+            ms = cuda_ms(call, reps)
             nbytes = item * (M * K + nonempty * K * N + M * N)
             ops = 2.0 * M * K * N
             b_ms, _ = bound_ms(nbytes, ops, dtype_name)
             msg = (f"# phase 2: grouped_matmul {gemm} {dtype_name} M={M} "
-                   f"K={K} N={N} {case} ({nonempty} groups): err {err:.3g};"
-                   f" kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+                   f"K={K} N={N} {case} ({nonempty} groups): err {err:.3g},"
+                   f" two launches bit-equal; kernel {ms:.4f} ms, bound "
+                   f"{b_ms:.4f} ms")
             if case == "balanced":
+                dev = device_ms(call, reps)
+                host = host_ms(call, reps)
                 plain_ms = cuda_ms(lambda: ref_grouped_matmul(x, w, off),
                                    2 if M > 4096 else 5)
                 lib_label, lib = grouped_library(x, w, off, ref)
                 lib_ms = cuda_ms(lib, reps)
-                msg += (f", plain {plain_ms:.4f} ms, {lib_label} "
-                        f"{lib_ms:.4f} ms")
-                if M == 65536:
-                    for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                                 ("library_ms", lib_ms), ("bytes", nbytes),
-                                 ("ops", ops)):
-                        tot[k] += v
-                else:
-                    for k, v in (("ms", ms), ("bytes", nbytes), ("ops", ops)):
-                        small[k] += v
+                wd = w[0]
+                dense_ms = cuda_ms(lambda: x @ wd, reps)
+                msg += (f", device {dev:.4f} ms, host {host:.4f} ms a call, "
+                        f"plain {plain_ms:.4f} ms, {lib_label} {lib_ms:.4f} "
+                        f"ms, dense matmul of the same operations "
+                        f"{dense_ms:.4f} ms")
+                acc = tot if M == 65536 else small
+                for k, v in (("ms", ms), ("device_ms", dev),
+                             ("host_ms", host), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("dense_ms", dense_ms),
+                             ("bytes", nbytes), ("ops", ops)):
+                    acc[k] += v
             log(msg)
-            del x, w, out, ref
+            del x, w, ref
+    for label, (M, K, N, E, sizes) in GROUPED_EDGE_CASES.items():
+        off = (sized_offsets(sizes) if sizes is not None
+               else group_offsets(gen, M, False, E, uniform=True))
+        x, w = operands(M, K, N, E)
+        _, err = held(label, x, w, off)
+        log(f"# phase 2: grouped_matmul {label} {dtype_name} (M={M} K={K} "
+            f"N={N} E={E}): err {err:.3g}, two launches bit-equal")
+        del x, w
     tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
                                                 tot.pop("ops"), dtype_name)
     tot["library"] = lib_label
     b_ms, b_by = bound_ms(small["bytes"], small["ops"], dtype_name)
     log(f"# phase 2: grouped_matmul {dtype_name} M=240, a layer's 2 GEMMs: "
-        f"kernel {small['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"kernel {small['ms']:.4f} ms (device {small['device_ms']:.4f} ms, "
+        f"host {small['host_ms']:.4f} ms a call), plain "
+        f"{small['plain_ms']:.4f} ms, {lib_label} {small['library_ms']:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by})")
     return tot
 
 
@@ -2012,10 +2086,21 @@ for path in ('qwen2.5-1.5b-bf16', 'llama-3.1-8b-w4a16',
           flush=True)
 """
 
+# Run by each checkout in ``compare_serving`` after ``HOST_PROBE``: the bf16
+# grouped GEMM at phase 8's shapes, as that checkout's phase 2 holds and
+# times it.
+GROUPED_PROBE = """
+r = c.check_grouped(gen, 'bfloat16')
+print(f"# grouped_matmul bf16, a MoE layer's 2 GEMMs over a wave: "
+      f"{r['ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} ms, bound "
+      f"{r['bound_ms']:.4f} ms", flush=True)
+"""
+
 
 def compare_serving(parent: str) -> int:
-    """``python3 chip_smoke.py --ab PARENT``: ``HOST_PROBE`` and phases 12 and
-    14 (s/run, device busy and items) of the checkout at PARENT (a commit
+    """``python3 chip_smoke.py --ab PARENT``: ``HOST_PROBE``,
+    ``GROUPED_PROBE`` and phases 8, 12 and 14 (s/run, device busy and
+    items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
     parent, this, this, parent. Each run is a process of its own, started
     from its checkout's root, which builds that checkout's kernels into its
@@ -2028,7 +2113,8 @@ def compare_serving(parent: str) -> int:
         "from aphrodite_tpu_torch.ops import cuda_build",
         f"t = cuda_build.build_all({KERNEL_SOURCES!r})",
         "print(f'# kernels built in {t:.1f} s', flush=True)",
-        HOST_PROBE, "c.main_path_gemma()", "c.main_path_int4_cascade()"])
+        HOST_PROBE, GROUPED_PROBE, "c.main_path_moe()", "c.main_path_gemma()",
+        "c.main_path_int4_cascade()"])
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code], cwd=roots[tag],
@@ -2065,7 +2151,8 @@ def main() -> int:
         for line in cuda_build.ptxas_report(n).splitlines():
             if "entry function" in line:  # keep the template arguments
                 log(f"# ptxas {n}: ...{line.strip()[-72:]}")
-            elif "registers" in line or "spill" in line:
+            elif any(k in line for k in ("registers", "spill", "wgmma",
+                                             "setmaxnreg", "arning")):
                 log(f"# ptxas {n}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2098,8 +2185,10 @@ def main() -> int:
             r = check_quant(gen, name, dt)
             log(f"# phase 2: {name} {dt}, a layer's 4 GEMMs: max_abs_err"
                 f" {r['max_abs_err']:.3g} (tol {TOL[dt]}); kernel "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"{r['library']} {r['library_ms']:.4f} ms, bound "
+                f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+                f"{r['plain_ms']:.4f} ms, {r['library']} "
+                f"{r['library_ms']:.4f} ms (device "
+                f"{r['library_device_ms']:.4f} ms), bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             results[(name, dt)] = r
         for case in DECODE_CASES:
@@ -2118,9 +2207,12 @@ def main() -> int:
         r = check_grouped(gen, dt)
         log(f"# phase 2: grouped_matmul {dt}, a MoE layer's 2 GEMMs over a "
             f"wave (M=65536, balanced): max_abs_err {r['max_abs_err']:.3g} "
-            f"(tol {TOL[dt]}, all cases); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"(tol {TOL[dt]}, all cases); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms a call), "
+            f"plain {r['plain_ms']:.4f} ms, {r['library']} "
+            f"{r['library_ms']:.4f} ms, dense matmul of the same operations "
+            f"{r['dense_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
         results[("grouped_matmul", dt)] = r
     r = check_scan(gen)
     log(f"# phase 2: selective_scan fp32 at the Mamba-2.8B wave (T=4096, "

@@ -42,7 +42,8 @@ def test_runtime_imports_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*(ROOT / "aphrodite_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*(ROOT / "aphrodite_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     ROOT / "grouped_variants.py"]))
 def test_sources_import_no_jax(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(text), path
