@@ -1,10 +1,11 @@
 // Hopper's asynchronous machinery, shared by the kernels that use it (the
-// bf16 grouped GEMM first): mbarriers (local and across a cluster),
-// cluster rank and barrier, TMA tensor loads (multicast too) and stores
-// with their bulk groups, the wgmma shared-memory descriptor and products,
-// and setmaxnreg, as raw PTX in the style of mma_common.cuh; and a host
-// helper that encodes a CUtensorMap. sm_90a only (wgmma and setmaxnreg do
-// not exist for plain sm_90).
+// bf16 grouped GEMM and the W4A16 decode GEMMs): mbarriers (local and
+// across a cluster), cluster rank and barrier, TMA tensor loads (multicast
+// too) and stores with their bulk groups, the wgmma shared-memory
+// descriptor and products (A from shared memory or from registers), and
+// setmaxnreg, as raw PTX in the style of mma_common.cuh; and a host helper
+// that encodes a CUtensorMap of any element type. sm_90a only (wgmma and
+// setmaxnreg do not exist for plain sm_90).
 //
 // Layouts, all with the 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B
 // and wgmma's layout type 1 agree on it when a tile starts on a 1024-byte
@@ -19,6 +20,10 @@
 //   64-wide N chunk to the next (the next box); a k16 step moves the start
 //   address by 16 rows, 2048 bytes. The product's transpose-B immediate is
 //   1.
+// - K-major B (x as [M, K] with M the product's N, rows of 64 bf16 along
+//   K), for the products whose A comes from registers: laid out and
+//   described as the K-major A above (stride byte offset 1024, a k16 step
+//   32 bytes); transpose-B immediate 0.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
@@ -145,6 +150,18 @@ __device__ __forceinline__ void tma_load_3d_multicast(
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+    uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "h"(cta_mask)
+      : "memory");
+}
+
 // A box of shared memory at `src` written to the tensor `map` at the given
 // coordinates; what lies past the tensor's edge is not written. The store
 // joins this thread's current bulk group.
@@ -224,6 +241,12 @@ __device__ __forceinline__ void fence_regs(float* d) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // d[0, 128) += A (64 x 16, K-major) * B (16 x 256, MN-major), both
 // read from shared memory through descriptors; scale_d == 0 ignores d.
 __device__ __forceinline__ void wgmma_m64n256k16_tb(float* d, uint64_t da,
@@ -280,6 +303,115 @@ __device__ __forceinline__ void wgmma_m64n256k16_tb(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[0, N / 2) += A (64 x 16) * B (16 x N, K-major, read through db); A is
+// this thread's fragment of four bf16 pairs, laid out as mma.sync's A
+// (mma_common.cuh) for rows [16 w, 16 w + 16) of warp w of the warpgroup;
+// d as the shared-memory form's (d[4 j + 2 h + i]: row 16 w + lane / 4 +
+// 8 h, column 8 j + 2 (lane % 4) + i). scale_d == 0 ignores d. The
+// registers of a and d must stay untouched until the product is waited
+// for.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+
 // ------------------------------------------------------------ setmaxnreg
 // A warpgroup's register budget a thread, moved between warpgroups: a
 // producer gives registers back, consumers take them. All four warps of the
@@ -295,12 +427,12 @@ __device__ __forceinline__ void regs_alloc() {
 }
 
 // ------------------------------------------------------------------ host
-// Encode a bf16 tensor map with the 128-byte swizzle: `rank` dimensions,
-// innermost first, their byte strides (rank - 1 of them, dimension 0 being
-// contiguous) and the box. cuTensorMapEncodeTiled lives in libcuda, which
-// the library does not link: the runtime hands out its address once.
+// Encode a tensor map: `rank` dimensions, innermost first, their byte
+// strides (rank - 1 of them, dimension 0 being contiguous), the box, the
+// element type and the swizzle. cuTensorMapEncodeTiled lives in libcuda,
+// which the library does not link: the runtime hands out its address once.
 // Returns cudaErrorInvalidValue where the map is refused (misaligned base,
-// stride not a multiple of 16 bytes, box too large).
+// stride not a multiple of 16 bytes, box too large for the swizzle).
 using EncodeTiledFn = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -328,10 +460,12 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* out) {
   return cudaSuccess;
 }
 
-inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* base,
-                                     int rank, const uint64_t* dims,
-                                     const uint64_t* strides_bytes,
-                                     const uint32_t* box) {
+inline cudaError_t make_tma_map(CUtensorMap* map, CUtensorMapDataType type,
+                                const void* base, int rank,
+                                const uint64_t* dims,
+                                const uint64_t* strides_bytes,
+                                const uint32_t* box,
+                                CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn;
   const cudaError_t err = encode_tiled_fn(&fn);
   if (err != cudaSuccess) return err;
@@ -343,14 +477,21 @@ inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* base,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides_bytes[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank),
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), d, s, b, e,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 map with the 128-byte swizzle.
+inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* base,
+                                     int rank, const uint64_t* dims,
+                                     const uint64_t* strides_bytes,
+                                     const uint32_t* box) {
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                      dims, strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

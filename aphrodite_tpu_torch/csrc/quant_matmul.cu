@@ -12,22 +12,25 @@
 //                           (so the high nibble's group is (r + K/2) / group)
 //   w4a16_int4_launch    <- w4a16_int4_matmul_pallas / _w4i4_kernel: signed
 //                           int4 from uint8 [K/2, N], group-wise form (see
-//                           the note above q4_tc_kernel)
+//                           the note above q4_kernel)
 // x and y are fp32 or bf16 (dtype code 0 / 1); sums are fp32. W is
-// dequantized in registers and never written to device memory. The W4
-// kernels use the direct form (q - z) * s in fp32, not the TPU kernel's
-// x @ (q * s) - xsum @ (z * s), which in bf16 rounds q * s and then
-// subtracts a large correction term. W8 applies s[n] to the fp32 sum.
+// dequantized in registers and never written to device memory. The W8 and
+// uint4 kernels use the direct form (q - z) * s in fp32, not the TPU
+// kernel's x @ (q * s) - xsum @ (z * s), which in bf16 rounds q * s and
+// then subtracts a large correction term. W8 applies s[n] to the fp32
+// sum. The packed and int4 layouts in bf16 run on w4_wgmma.cu (wgmma, the
+// group-wise form); here they keep only their fp32 kernels.
 //
-// Bound. At decode (M <= 256) the work is the weight stream: at the 8B
-// main path's M = 32 the four GEMMs of a layer move ~127 MB (packed bytes
-// plus fp32 scales and zeros), ~38 us at 3.35 TB/s. Two kernels:
-// - qmm_tc_kernel (bf16 x, K and group multiples of 32): the tensor-core
-//   path described above the kernel. Dequantizing (~4 instructions a
-//   weight) is what bounds it, not the bytes: ~0.26 ms for a layer's four
-//   GEMMs on an H100, ~7x the byte bound (PERF.md).
-// - qmm_kernel (fp32 x): fp32 FMAs on the CUDA cores (2 M K N of them),
-//   bound by operations at M = 32. tf32 would not hold fp32's tolerance.
+// Bound. At decode (M <= 256) the work is the weight stream: at the
+// Qwen2.5-1.5B parity path's M = 32 the four GEMMs of a layer move ~52 MB
+// (uint4 bytes plus fp32 scales and zeros), ~15 us at 3.35 TB/s. Two
+// kernels:
+// - qmm_tc_kernel (bf16 x, W8 and uint4, K and group multiples of 32):
+//   the tensor-core path described above the kernel. Dequantizing (~4
+//   instructions a weight) is what bounds it, not the bytes (PERF.md).
+// - qmm_kernel (fp32 x, every layout): fp32 FMAs on the CUDA cores (2 M K
+//   N of them), bound by operations at M = 32. tf32 would not hold fp32's
+//   tolerance.
 //
 // Design of qmm_kernel. A block of 4 warps owns 128 output columns (4 per
 // lane, one 32-bit load per weight row) and up to 32 rows of M (template
@@ -298,7 +301,8 @@ qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path on the tensor cores (mma.sync m16n8k16, fp32 accumulation).
+// bf16 path of W8 and uint4 on the tensor cores (mma.sync m16n8k16, fp32
+// accumulation).
 //
 // The product is taken transposed, y^T[n, m] = W^T[n, k] x^T[k, m], so that
 // the dequantized weights are the A operand (16 columns of N per mma) and
@@ -343,7 +347,7 @@ __device__ __forceinline__ float dequant(uint32_t word, int shift, float s,
 }
 
 // Groups of scales/zeros a tile of kTcTileK rows (starting on a multiple
-// of kTcUnit <= group) can touch, per half.
+// of kTcUnit <= group) can touch.
 __host__ __device__ constexpr int tc_tile_groups(int group) {
   return kTcTileK / group + 1;
 }
@@ -354,8 +358,7 @@ template <int MI, int L>
 __device__ __forceinline__ void tc_step(float (*acc)[MI][4],
                                         const uint32_t (*wv)[2],
                                         const uint32_t (*b)[2],
-                                        const float4* s, const float4* zf,
-                                        int shift) {
+                                        const float4* s, const float4* zf) {
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const float sc[4] = {s[c].x, s[c].y, s[c].z, s[c].w};
@@ -363,7 +366,7 @@ __device__ __forceinline__ void tc_step(float (*acc)[MI][4],
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int b0 = 2 * h, b1 = 2 * h + 1;  // bytes of fragment rows g, g+8
-      const int s0 = 8 * b0 + shift, s1 = 8 * b1 + shift;
+      const int s0 = 8 * b0, s1 = 8 * b1;
       uint32_t a[4];
       a[0] = pack_bf16(dequant<L>(wv[0][c], s0, sc[b0], zc[b0]),
                        dequant<L>(wv[1][c], s0, sc[b0], zc[b0]));
@@ -386,20 +389,20 @@ qmm_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
               const float* __restrict__ zeros, __nv_bfloat16* __restrict__ out,
               float* __restrict__ partial, int* __restrict__ counters, int M,
               int K, int N, int group, int chunk) {
+  static_assert(L != kW4Packed, "packed W4 in bf16 runs on w4_wgmma.cu");
   constexpr int MT = 8 * MI;
-  constexpr int halves = (L == kW4Packed) ? 2 : 1;
-  constexpr int XPW = halves * kTcTileK / 2 + 4;  // x row pitch (words)
-  extern __shared__ uint32_t xs[];                // [MT][XPW] bf16 pairs
+  constexpr int XPW = kTcTileK / 2 + 4;  // x row pitch (words)
+  extern __shared__ uint32_t xs[];       // [MT][XPW] bf16 pairs
   uint16_t* xs16 = reinterpret_cast<uint16_t*>(xs);
-  // Then [halves][GT][kTcBlockN] scales and the same of 2^23 + zeros.
+  // Then [GT][kTcBlockN] scales and the same of 2^23 + zeros.
   const int GT = (L == kW8) ? 0 : tc_tile_groups(group);
   float* s_s = reinterpret_cast<float*>(xs + MT * XPW);
-  float* z_s = s_s + halves * GT * kTcBlockN;
+  float* z_s = s_s + GT * kTcBlockN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wn = warp % kTcWarpsN, wk = warp / kTcWarpsN;
   const int m0 = blockIdx.z * MT;
-  const int Ks = (L == kW4Packed) ? K / 2 : K;
+  const int Ks = K;
   const int G = (L == kW8) ? 1 : K / group;
   const int r_begin = blockIdx.y * chunk;
   const int r_end = min(Ks, r_begin + chunk);
@@ -443,20 +446,19 @@ qmm_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
   load_unit(r_begin + wk * kRows);
   for (int t0 = r_begin; t0 < r_end; t0 += kTcTileK) {
     __syncthreads();  // the previous tile is consumed
-    // xs16[m * 2 XPW + h * kTcTileK + 16 q + i] = x[m0 + m, t0 + h Ks +
-    // 16 q + perm(i)] with perm(2u) = u, perm(2u + 1) = u + 4 (+ 8 for
-    // i >= 8); each thread moves 8 consecutive x values at a time.
-    constexpr int vecs = MT * halves * kTcTileK / 8;
+    // xs16[m * 2 XPW + 16 q + i] = x[m0 + m, t0 + 16 q + perm(i)] with
+    // perm(2u) = u, perm(2u + 1) = u + 4 (+ 8 for i >= 8); each thread
+    // moves 8 consecutive x values at a time.
+    constexpr int vecs = MT * kTcTileK / 8;
     for (int i = threadIdx.x; i < vecs; i += kThreads) {
-      const int m = i / (halves * kTcTileK / 8);
-      const int hr = 8 * (i - m * (halves * kTcTileK / 8));
-      const int h = hr / kTcTileK, r = hr - h * kTcTileK;
+      const int m = i / (kTcTileK / 8);
+      const int r = 8 * (i - m * (kTcTileK / 8));
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + m < M && t0 + r < r_end)
         v = __ldg(reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + m) * K + t0 + h * Ks + r));
+            x + (size_t)(m0 + m) * K + t0 + r));
       const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
-      uint16_t* row = xs16 + (size_t)m * 2 * XPW + h * kTcTileK;
+      uint16_t* row = xs16 + (size_t)m * 2 * XPW;
 #pragma unroll
       for (int e8 = 0; e8 < 8; ++e8) {
         const int e = (r & 15) + e8;  // source position in its 16-group
@@ -464,10 +466,9 @@ qmm_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
         row[pos] = (uint16_t)(vw[e8 / 2] >> (16 * (e8 & 1)));
       }
     }
-    for (int i = threadIdx.x; i < halves * GT * kTcBlockN / 4;
-         i += kThreads) {
+    for (int i = threadIdx.x; i < GT * kTcBlockN / 4; i += kThreads) {
       const int hg = i / (kTcBlockN / 4), c4 = 4 * (i % (kTcBlockN / 4));
-      const int h = hg / GT, gi = (t0 + h * Ks) / group + hg % GT;
+      const int gi = t0 / group + hg;
       float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), zv = sv;
       if (gi < G && col0 + c4 < N) {
         sv = __ldg(reinterpret_cast<const float4*>(
@@ -496,38 +497,28 @@ qmm_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
       if (u1 < r_end) load_unit(u1);
 
       // This unit's scales and zeros (a unit never straddles a group).
-      float4 sl[2], zl[2], sh[2], zh[2];
+      float4 sl[2], zl[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        sl[c] = zl[c] = sh[c] = zh[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        sl[c] = zl[c] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (L == kW8) continue;
         const int cc = wn * kTcWarpN + 4 * (g + 8 * c);
         const int gl = u0 / group - t0 / group;
         sl[c] = *reinterpret_cast<const float4*>(s_s + gl * kTcBlockN + cc);
         zl[c] = *reinterpret_cast<const float4*>(z_s + gl * kTcBlockN + cc);
-        if (L == kW4Packed) {
-          const int gh = GT + (u0 + Ks) / group - (t0 + Ks) / group;
-          sh[c] = *reinterpret_cast<const float4*>(s_s + gh * kTcBlockN + cc);
-          zh[c] = *reinterpret_cast<const float4*>(z_s + gh * kTcBlockN + cc);
-        }
       }
 #pragma unroll
       for (int st = 0; st < kTcSteps; ++st) {
         // B fragments: words (row - t0) / 2 + t and + 4 of each row of M.
         const int xw = (u0 + 16 * st - t0) / 2 + t;
-        uint32_t bl[MI][2], bh[MI][2];
+        uint32_t bl[MI][2];
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi) {
           const uint32_t* xr = xs + (size_t)(8 * mi + g) * XPW + xw;
           bl[mi][0] = xr[0];
           bl[mi][1] = xr[4];
-          if (L == kW4Packed) {
-            bh[mi][0] = xr[kTcTileK / 2];
-            bh[mi][1] = xr[kTcTileK / 2 + 4];
-          }
         }
-        tc_step<MI, L>(acc, wv[st], bl, sl, zl, 0);
-        if (L == kW4Packed) tc_step<MI, L>(acc, wv[st], bh, sh, zh, 4);
+        tc_step<MI, L>(acc, wv[st], bl, sl, zl);
       }
     }
   }
@@ -596,10 +587,9 @@ int launch_tc(const void* x, const void* w, const float* scales,
               const float* zeros, void* out, float* partial, int* counters,
               int M, int K, int N, int group, int splits, int chunk,
               cudaStream_t stream) {
-  constexpr int halves = (L == kW4Packed) ? 2 : 1;
   const int GT = (L == kW8) ? 0 : tc_tile_groups(group);
-  const int smem = 8 * MI * (halves * kTcTileK / 2 + 4) * sizeof(uint32_t) +
-                   2 * halves * GT * kTcBlockN * sizeof(float);
+  const int smem = 8 * MI * (kTcTileK / 2 + 4) * sizeof(uint32_t) +
+                   2 * GT * kTcBlockN * sizeof(float);
   cudaError_t err = allow_smem<qmm_tc_kernel<MI, L>>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kTcBlockN - 1) / kTcBlockN, splits,
@@ -655,76 +645,49 @@ int launch(int dtype, int mt, int tc, const void* x, const void* w,
   if (N % 4 != 0 || M < 1 || splits < 1 ||
       (splits > 1 && (partial == nullptr || counters == nullptr)) ||
       (L != kW8 && (group < 1 || K % group != 0)) ||
-      (tc && (dtype != kBFloat16 || chunk % kTcTileK != 0 || K % 32 != 0 ||
-              (L != kW8 && group % kTcUnit != 0))) ||
+      (tc && (L == kW4Packed || dtype != kBFloat16 || chunk % kTcTileK != 0 ||
+              K % 32 != 0 || (L != kW8 && group % kTcUnit != 0))) ||
       (!tc && (dtype != kFloat32 || chunk % kTileK != 0)))
     return (int)cudaErrorInvalidValue;
-  if (tc) {
-    switch (mt) {
-      case 8:
-        return launch_tc<1, L>(x, w, scales, zeros, out, partial, counters,
-                               M, K, N, group, splits, chunk, s);
-      case 16:
-        return launch_tc<2, L>(x, w, scales, zeros, out, partial, counters,
-                               M, K, N, group, splits, chunk, s);
-      case 32:
-        return launch_tc<4, L>(x, w, scales, zeros, out, partial, counters,
-                               M, K, N, group, splits, chunk, s);
+  if constexpr (L != kW4Packed) {
+    if (tc) {
+      switch (mt) {
+        case 8:
+          return launch_tc<1, L>(x, w, scales, zeros, out, partial,
+                                 counters, M, K, N, group, splits, chunk, s);
+        case 16:
+          return launch_tc<2, L>(x, w, scales, zeros, out, partial,
+                                 counters, M, K, N, group, splits, chunk, s);
+        case 32:
+          return launch_tc<4, L>(x, w, scales, zeros, out, partial,
+                                 counters, M, K, N, group, splits, chunk, s);
+      }
+      return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaErrorInvalidValue;
   }
   return launch_t<float, L>(mt, x, w, scales, zeros, out, partial, counters,
                             M, K, N, group, splits, chunk, s);
 }
 
 // ---------------------------------------------------------------------------
-// Native-int4 W4A16 (w4a16_int4_launch) <- w4a16_int4_matmul_pallas /
+// Native-int4 W4A16 in fp32 (w4a16_int4_launch) <- w4a16_int4_matmul_pallas /
 // _w4i4_kernel. q4 [K, N] is signed int4 (q - 8), stored as uint8 [K/2, N]
 // with rows 2r and 2r + 1 in the low and high nibble of byte [r, n] (two's
 // complement); the zeros hold z - 8. The TPU kernel's group-wise form: for
 // each segment of a group (the group, or the 256-row x tile when a group
 // is longer) the block takes d = x_seg @ q4_seg in fp32 and folds
-// (d - sum(x_seg) z) s into its running sum, so s and z touch the segment's
-// [MT, N] result once instead of every weight (the per-weight (q - z) s is
-// what bounds qmm_tc_kernel). K splits fall on segment boundaries.
+// (d - sum(x_seg) z) s into its running sum, so s and z touch the
+// segment's [MT, N] result once instead of every weight. K splits fall on
+// segment boundaries. (bf16 runs on w4_wgmma.cu.)
 //
-// Bound. At the Llama-3.1-8B path's decode M = 128 a layer's four GEMMs
-// read ~123 MB (int4 plus fp32 scales and zeros), ~37 us at 3.35 TB/s, and
-// take 55.8 GFLOP, ~56 us at 989 TFLOP/s: operations bind.
-//
-// q4_tc_kernel (bf16): y^T = W^T x^T on mma.sync m16n8k16 as in
-// qmm_tc_kernel, with 4 warps side by side on N (256 columns a block, each
-// warp all MT rows of M) and no K split inside the block. A byte already
-// holds the consecutive k pair of one A register, so no k permutation is
-// needed: lane (g, t) loads byte rows t and t + 4 of each 16-row step,
-// words g and g + 8 of its warp's 16, and byte 2h (2h + 1) of word c stands
-// for fragment row g (g + 8) of subtile 2c + h, as in qmm_tc_kernel. A
-// nibble pair becomes two exact bf16 values with one OR into 0x4300 (128 +
-// u, u = q4 + 8 = nibble ^ 8) and one bf16x2 subtraction of 136. x is
-// staged in shared memory in natural k order (a B register is one 32-bit
-// load) beside its per-(row, segment) sums. Grid x walks the M tiles, so
-// the blocks that share a (column tile, split) run side by side and W
-// comes from HBM about once, then from L2.
-//
-// q4_kernel (fp32): one column a thread and up to 32 rows of M, fp32 FMAs
-// on the CUDA cores; the x tile and its sums in shared memory as above.
-constexpr int kI4BlockN = kWarps * 64;  // bf16: columns per block
-constexpr int kI4TileK = 256;           // rows of K staged at a time
+// q4_kernel: one column a thread and up to 32 rows of M, fp32 FMAs on the
+// CUDA cores (operations bind: 2 M K N FMAs); the x tile and its
+// per-(row, segment) sums in shared memory.
+constexpr int kI4TileK = 256;  // rows of K staged at a time
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Byte i of v, whose nibbles are already xor 8 (u = q4 + 8), as the bf16
-// pair (q4 of the low nibble, q4 of the high nibble).
-__device__ __forceinline__ uint32_t int4_pair(uint32_t v, int i) {
-  const uint32_t b = v >> (8 * i);
-  uint32_t r = (b & 0xFu) | ((b & 0xF0u) << 12) | 0x43004300u;
-  const uint32_t k136 = 0x43084308u;  // bf16 136.0 twice
-  __nv_bfloat162 h = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
-                             *reinterpret_cast<const __nv_bfloat162*>(&k136));
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // xsum[sg][m] = sum of the staged x row m over segment sg of the tile, in
@@ -740,170 +703,6 @@ __device__ __forceinline__ void segment_sums(float* xsum, int nseg, int seg,
     v = warp_sum(v);
     if (lane == 0) xsum[sg * MT + m] = v;
   }
-}
-
-template <int MI>
-__global__ void __launch_bounds__(kThreads)
-q4_tc_kernel(const uint16_t* __restrict__ x, const uint32_t* __restrict__ w,
-             const float* __restrict__ scales, const float* __restrict__ zeros,
-             __nv_bfloat16* __restrict__ out, float* __restrict__ partial,
-             int* __restrict__ counters, int M, int K, int N, int group,
-             int chunk) {
-  constexpr int MT = 8 * MI;
-  constexpr int XPW = kI4TileK / 2 + 4;  // x row pitch in words
-  extern __shared__ uint32_t xs[];       // [MT][XPW] bf16 pairs
-  const uint16_t* xs16 = reinterpret_cast<const uint16_t*>(xs);
-  float* xsum = reinterpret_cast<float*>(xs + MT * XPW);  // [nseg][MT]
-  const int seg = min(group, kI4TileK);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * MT;
-  const int k_begin = blockIdx.y * chunk;
-  const int k_end = min(K, k_begin + chunk);
-  const int words = N / 4;
-  const int col0 = blockIdx.z * kI4BlockN;
-  int wcol[2];
-  bool wok[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    wcol[c] = (col0 + warp * 64) / 4 + g + 8 * c;
-    wok[c] = wcol[c] < words;
-  }
-
-  float acc[4][MI][4], d[4][MI][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][mi][e] = d[j][mi][e] = 0.f;
-
-  // next[st][rr][c]: byte row t + 4 rr of 16-row step st of a 32-row unit,
-  // column word c.
-  uint32_t next[2][2][2];
-  auto load_unit = [&](int k0) {
-#pragma unroll
-    for (int st = 0; st < 2; ++st)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int row = k0 / 2 + 8 * st + t + 4 * rr;
-          next[st][rr][c] =  // a zero byte holds two zero weights
-              wok[c] ? __ldg(w + (size_t)row * words + wcol[c]) : 0u;
-        }
-  };
-  load_unit(k_begin);
-  for (int t0 = k_begin; t0 < k_end; t0 += kI4TileK) {
-    const int t1 = min(k_end, t0 + kI4TileK);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < MT * (kI4TileK / 8); i += kThreads) {
-      const int m = i / (kI4TileK / 8), k8 = 8 * (i % (kI4TileK / 8));
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + m < M && t0 + k8 < t1)
-        v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K +
-                                                 t0 + k8));
-      *reinterpret_cast<uint4*>(xs + m * XPW + k8 / 2) = v;
-    }
-    __syncthreads();
-    segment_sums<MT>(xsum, (t1 - t0) / seg, seg, [&](int m, int k) {
-      return __uint_as_float((uint32_t)xs16[m * 2 * XPW + k] << 16);
-    });
-    __syncthreads();
-    for (int k0 = t0; k0 < t1; k0 += 32) {
-      uint32_t wv[2][2][2];
-#pragma unroll
-      for (int st = 0; st < 2; ++st)
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) wv[st][rr][c] = next[st][rr][c];
-      if (k0 + 32 < k_end) load_unit(k0 + 32);
-#pragma unroll
-      for (int st = 0; st < 2; ++st) {
-        const int xw = (k0 - t0) / 2 + 8 * st + t;
-        uint32_t b[MI][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const uint32_t* xr = xs + (8 * mi + g) * XPW + xw;
-          b[mi][0] = xr[0];
-          b[mi][1] = xr[4];
-        }
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const uint32_t lo = wv[st][0][c] ^ 0x88888888u;  // k 2t, 2t + 1
-          const uint32_t hi = wv[st][1][c] ^ 0x88888888u;  // k 2t + 8, + 9
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint32_t a[4] = {int4_pair(lo, 2 * h),
-                                   int4_pair(lo, 2 * h + 1),
-                                   int4_pair(hi, 2 * h),
-                                   int4_pair(hi, 2 * h + 1)};
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi)
-              mma_bf16(d[2 * c + h][mi], a, b[mi]);
-          }
-        }
-      }
-      if ((k0 + 32 - t0) % seg != 0) continue;
-      // The segment [k0 + 32 - seg, k0 + 32) ends: fold it.
-      const int gi = (k0 + 32 - seg) / group;
-      const int sg = (k0 + 32 - t0) / seg - 1;
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2 s2 = make_float2(0.f, 0.f), z2 = s2;
-          if (wok[c]) {
-            const size_t o = (size_t)gi * N + 4 * wcol[c] + 2 * h;
-            s2 = __ldg(reinterpret_cast<const float2*>(scales + o));
-            z2 = __ldg(reinterpret_cast<const float2*>(zeros + o));
-          }
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi) {
-            float* dj = d[2 * c + h][mi];
-            float* aj = acc[2 * c + h][mi];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float xv = xsum[sg * MT + 8 * mi + 2 * t + e];
-              aj[e] += (dj[e] - xv * z2.x) * s2.x;
-              aj[e + 2] += (dj[e + 2] - xv * z2.y) * s2.y;
-              dj[e] = dj[e + 2] = 0.f;
-            }
-          }
-        }
-    }
-  }
-
-  // Lane (g, t) holds y[m, n], y[m, n + 1] for n = 4 (wcol[c]) + 2 h and m
-  // = 8 mi + 2 t (+ 1).
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    if (!wok[c]) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = 4 * wcol[c] + 2 * h;
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const float* a = acc[2 * c + h][mi];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int m = m0 + 8 * mi + 2 * t + e;
-          if (m >= M) continue;
-          if (partial != nullptr)
-            *reinterpret_cast<float2*>(
-                partial + ((size_t)blockIdx.y * M + m) * N + n) =
-                make_float2(a[e], a[e + 2]);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-                __floats2bfloat162_rn(a[e], a[e + 2]);
-        }
-      }
-    }
-  }
-  if (partial != nullptr)
-    finish_splits<__nv_bfloat16, kW4>(partial, counters, scales, out, M, N,
-                                      m0, MT, col0, kI4BlockN);
 }
 
 template <int MT>
@@ -978,26 +777,6 @@ q4_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                               blockIdx.z * kThreads, kThreads);
 }
 
-template <int MI>
-int launch_q4_tc(const void* x, const void* w, const float* scales,
-                 const float* zeros, void* out, float* partial, int* counters,
-                 int M, int K, int N, int group, int splits, int chunk,
-                 cudaStream_t stream) {
-  constexpr int MT = 8 * MI;
-  const int nseg = kI4TileK / min(group, kI4TileK);
-  const int smem = MT * (kI4TileK / 2 + 4) * (int)sizeof(uint32_t) +
-                   nseg * MT * (int)sizeof(float);
-  cudaError_t err = allow_smem<q4_tc_kernel<MI>>(smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + MT - 1) / MT, splits,
-                  (N + kI4BlockN - 1) / kI4BlockN);
-  q4_tc_kernel<MI><<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint32_t*>(w),
-      scales, zeros, static_cast<__nv_bfloat16*>(out),
-      splits > 1 ? partial : nullptr, counters, M, K, N, group, chunk);
-  return (int)cudaGetLastError();
-}
-
 template <int MT>
 int launch_q4(const void* x, const void* w, const float* scales,
               const float* zeros, void* out, float* partial, int* counters,
@@ -1018,10 +797,10 @@ int launch_q4(const void* x, const void* w, const float* scales,
 }  // namespace
 
 // Entry points (ctypes). mt: rows of M per block (8, 16 or 32); tc: 1 for
-// the bf16 tensor-core kernel, 0 for the fp32 CUDA-core one; out [M, N] in
-// x's dtype. With splits > 1, partial is fp32 [splits, M, N] scratch and
-// counters one int per (column tile, M tile), zero before the launch and
-// zero after it; with splits == 1 both may be null. chunk: stored weight
+// the bf16 tensor-core kernel (W8 and uint4 only), 0 for the fp32
+// CUDA-core one; out [M, N] in x's dtype. With splits > 1, partial is fp32
+// [splits, M, N] scratch and counters one int per (column tile, M tile),
+// zero before the launch and zero after it; with splits == 1 both may be null. chunk: stored weight
 // rows per split (a multiple of 256 with tc, of 128 without). Return a
 // cudaError_t.
 extern "C" int w8a16_launch(int dtype, int mt, int tc, const void* x,
@@ -1053,11 +832,11 @@ extern "C" int w4a16_packed_launch(int dtype, int mt, int tc, const void* x,
 }
 
 // q4 is uint8 [K/2, N] (rows 2r, 2r + 1 in the low and high nibble of byte
-// [r, n], signed int4), scales and zeros fp32 [K/group, N]. mt: rows of M
-// per block (8, 16 or 32); bf16 runs on q4_tc_kernel (K and the group
-// multiples of 32), fp32 on q4_kernel (an even group). The group divides
-// 256 or is a multiple of it; chunk is a multiple of 256 and of the group.
-// partial, counters, splits as for the launches above.
+// [r, n], signed int4), scales and zeros fp32 [K/group, N]; x and out fp32
+// (dtype 0; bf16 runs on w4_wgmma.cu). mt: rows of M per block (8, 16 or
+// 32); an even group that divides 256 or is a multiple of it; chunk is a
+// multiple of 256 and of the group. partial, counters, splits as for the
+// launches above.
 extern "C" int w4a16_int4_launch(int dtype, int mt, const void* x,
                                  const void* q4, const float* scales,
                                  const float* zeros, void* out,
@@ -1065,31 +844,23 @@ extern "C" int w4a16_int4_launch(int dtype, int mt, const void* x,
                                  int N, int group, int splits, int chunk,
                                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const bool tc = dtype == kBFloat16;
   if (N % 4 != 0 || M < 1 || splits < 1 || group < 2 || group % 2 != 0 ||
       K % group != 0 ||
       (kI4TileK % group != 0 && group % kI4TileK != 0) ||
       chunk % kI4TileK != 0 || chunk % group != 0 ||
       (splits > 1 && (partial == nullptr || counters == nullptr)) ||
-      (dtype != kBFloat16 && dtype != kFloat32) ||
-      (tc && (K % 32 != 0 || group % 32 != 0)))
+      dtype != kFloat32)
     return (int)cudaErrorInvalidValue;
   switch (mt) {
     case 8:
-      return tc ? launch_q4_tc<1>(x, q4, scales, zeros, out, partial,
-                                  counters, M, K, N, group, splits, chunk, s)
-                : launch_q4<8>(x, q4, scales, zeros, out, partial, counters,
-                               M, K, N, group, splits, chunk, s);
+      return launch_q4<8>(x, q4, scales, zeros, out, partial, counters, M, K,
+                          N, group, splits, chunk, s);
     case 16:
-      return tc ? launch_q4_tc<2>(x, q4, scales, zeros, out, partial,
-                                  counters, M, K, N, group, splits, chunk, s)
-                : launch_q4<16>(x, q4, scales, zeros, out, partial, counters,
-                                M, K, N, group, splits, chunk, s);
+      return launch_q4<16>(x, q4, scales, zeros, out, partial, counters, M,
+                           K, N, group, splits, chunk, s);
     case 32:
-      return tc ? launch_q4_tc<4>(x, q4, scales, zeros, out, partial,
-                                  counters, M, K, N, group, splits, chunk, s)
-                : launch_q4<32>(x, q4, scales, zeros, out, partial, counters,
-                                M, K, N, group, splits, chunk, s);
+      return launch_q4<32>(x, q4, scales, zeros, out, partial, counters, M,
+                           K, N, group, splits, chunk, s);
   }
   return (int)cudaErrorInvalidValue;
 }

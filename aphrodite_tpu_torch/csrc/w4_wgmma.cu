@@ -1,0 +1,766 @@
+// W4A16 decode GEMMs on Hopper's warpgroup products (CUDA, sm_90a):
+//   y[M, N] = x[M, K] @ W,  W[k, n] = (q[k, n] - z[g, n]) * s[g, n],
+//   g = k / group, x and y bf16, s and z fp32 [K / group, N], M <= 256.
+//
+// Replaces, for bf16 activations, the TPU kernels of
+// aphrodite_tpu/ops/quant_matmul_pallas.py:
+//   kInt4   <- w4a16_int4_matmul_pallas (:290) / _w4i4_kernel (:263): q
+//              signed int4 (q - 8) stored as uint8 [K/2, N], rows 2r and
+//              2r + 1 in the low and high nibble of byte [r, n] (two's
+//              complement), zeros z - 8;
+//   kPacked <- w4a16_packed_matmul_pallas (:206) / _w4p_kernel (:163): q
+//              uint4 stored as uint8 [K/2, N], row r in the low nibble and
+//              row r + K/2 in the high nibble of byte [r, n].
+// (fp32 activations stay on the CUDA-core kernels of quant_matmul.cu.)
+//
+// Form: the TPU int4 kernel's group-wise one, for both layouts. Per group
+// (and per half of K for kPacked) d = x_g @ q_g, with q exact in bf16 and
+// d summed in fp32 by the tensor cores; then acc += (d - sum(x_g) z) s in
+// fp32. Scales touch the [M, N] group result, never a weight. A fold may
+// cover part of a group (a stage, a K split): the parts add up to the same
+// sum. Where every zero is an integer (as the quantizers make them), the
+// template switch ZI takes the zero inside the product instead: q - z is
+// an integer of at most 8 bits, exact in bf16, so d = x_g @ (q_g - z_g)
+// is the same sum of exact products, and acc += d s. That drops the sums
+// of x, which cost a third of the time at M = 128 (PERF.md): the tensor
+// cores and the shared memory that read x once more. The caller reads
+// the zeros at a weight's first call at each M.
+//
+// Bound. At the Llama-3.1-8B int4 path's decode M = 128 a layer's four
+// GEMMs take 55.8 GFLOP (~56 us at 989 TFLOP/s) and read ~123 MB (~37 us
+// at 3.35 TB/s): operations bind. At the packed path's M = 32 the bytes
+// bind (~38 us). So the product runs on wgmma, and the weights stream
+// through a TMA ring deep enough to keep the memory busy at small M.
+//
+// The product is taken transposed, y^T = W^T x^T, with wgmma m64nMTk16:
+// A (64 rows = 64 columns of W, 16 k) comes from registers, B = x from
+// shared memory (K-major: x's own layout, 128-byte swizzle), its N the MT
+// rows of M (16, 32, 64 or 128; M in (128, 256] takes two M tiles).
+//
+// Block: 3 warpgroups, 128 columns of W, clusters of 2 blocks side by
+// side on N.
+// - Warp 0 (producer, setmaxnreg 56) fills a ring of stages under "full"
+//   and "empty" mbarriers by TMA. A stage holds 64 byte rows of the
+//   weights (128 columns, 128-byte swizzle), the stage's scales and zeros
+//   and two x boxes of MT rows x 64 k: kInt4's k [2 r0, 2 r0 + 128), or
+//   kPacked's [r0, r0 + 64) and [K/2 + r0, ...). Both blocks of a cluster
+//   need the same x: each loads one box and multicasts it to both, which
+//   halves x's L2 reads (at M = 128, x is 4x the weights' bytes a tile).
+//   So every consumer warp releases a stage in both blocks.
+// - Without ZI, warps 1-3 sum x over each fold's k range as a stage lands
+//   and signal a "sums" mbarrier: on the tensor cores, mma.sync with x as
+//   A (16 rows of M) and ones as B, fp32 sums as d's (on the CUDA cores
+//   the sums, ~2 instructions a value of x, held the consumers back:
+//   PERF.md).
+// - Warpgroups 1 and 2 (consumers, setmaxnreg 224) own 64 columns each.
+//   Per k16 step a warp takes its 16 columns' bytes with one ldmatrix
+//   (.trans: lane (g, t) gets columns 2g, 2g + 1 of two byte rows, so A
+//   row g stands for column 2g and row g + 8 for 2g + 1) and makes its A
+//   fragment: a nibble pair becomes two exact bf16 by an OR into 0x4300
+//   (128 + u) and one bf16x2 subtraction (of 136 for int4, whose nibble is
+//   xor'd with 8 on the way, or of 128). kInt4's byte already holds one
+//   register's k pair (its ldmatrix rows are byte rows t and t + 4);
+//   kPacked takes a pair from two consecutive byte rows (k and k + 1) with
+//   the same nibble, low nibbles with x's first half, high nibbles, in a
+//   second pass over the stage, with its second. Each step has its own
+//   registers (a stage's half: 8 int4 or 4 packed steps, 32 or 16
+//   registers), so the next step is converted while the products before
+//   it run. A fold's range (F steps, F a template switch: 16 F divides
+//   the group and the halves' starts) is one group of products, waited
+//   for, then folded: no branch lies inside a group in flight (ptxas
+//   serialises wgmma across divergent paths), and the other warpgroup's
+//   products run while this one folds. A short last stage runs whole
+//   too: TMA fills the rows past K/2 with zeros, and the sums of x stop at
+//   the last real row.
+// - Epilogue: the sums go through shared memory (the ring, free by then)
+//   and out in whole 16-byte pieces of rows of y. With K split across
+//   blocks (grid y: N = 4096 alone gives 32 column tiles for 132 SMs) each
+//   writes fp32 partial sums and the last block of a tile to finish adds
+//   them in split order (deterministic).
+// W4_DROP (a bit mask, 0 here) removes parts of the kernel for timing
+// only (chip_smoke.py --variants).
+#include <string.h>
+
+#include "hopper_common.cuh"
+#include "mma_common.cuh"
+
+#ifndef W4_DROP
+#define W4_DROP 0
+#endif
+
+namespace {
+
+using namespace hopper;
+using mma::allow_smem;
+using mma::ldmatrix_x4;
+using mma::mma_bf16;
+using mma::pack_bf16;
+
+enum Layout { kInt4 = 0, kPacked = 1 };
+
+// Parts that W4_DROP removes: the A conversion (A is zero), the fold's
+// arithmetic (acc += d keeps the products alive), the multicast of x, the
+// stores of y (a test of a sum of acc that never holds keeps them alive),
+// the products, the loads, the sums of x, a K split's partial sums and
+// their fix-up (y is then written only where the launch has no split).
+constexpr int kDropConvert = 1, kDropFold = 2, kDropMulticast = 4,
+              kDropStores = 8, kDropProducts = 16, kDropLoads = 32,
+              kDropSums = 64, kDropPartials = 128;
+__host__ __device__ constexpr bool dropped(int part) {
+  return (W4_DROP & part) != 0;
+}
+
+constexpr int kBN = 128;          // columns of W a block
+constexpr int kRows = 64;         // byte rows of W a stage
+constexpr int kWBytes = kRows * kBN;
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumers
+constexpr int kCluster = 2;
+constexpr int kSumThreads = 96;   // warps 1-3
+constexpr int kEmptyArrivals = kCluster * 8;  // consumer warps, both blocks
+constexpr int kPitch = 64 + 4;    // fp32 row pitch of the epilogue's tile
+
+// k16 steps in a stage's half.
+__host__ __device__ constexpr int half_steps(int layout) {
+  return layout == kPacked ? 4 : 8;
+}
+
+// Offsets in a stage (bytes): weights [64][128] at 0, two x boxes of MT x
+// 128 bytes, scales and zeros [halves][gs][128] fp32, sums of x
+// [halves][folds][MT] fp32; gs is the most groups a stage's half can
+// touch, folds = half_steps / F. Mirrored by ops/w4_wgmma.py
+// (stage_bytes).
+struct StageGeo {
+  int x_off, s_off, z_off, xs_off, bytes;
+};
+
+__host__ __device__ __forceinline__ StageGeo stage_geo(int layout, int mt,
+                                                       int gs, int f) {
+  const int halves = layout == kPacked ? 2 : 1;
+  StageGeo g;
+  g.x_off = kWBytes;
+  g.s_off = g.x_off + 2 * mt * 128;
+  g.z_off = g.s_off + halves * gs * kBN * 4;
+  g.xs_off = g.z_off + halves * gs * kBN * 4;
+  g.bytes = (g.xs_off + halves * (half_steps(layout) / f) * mt * 4 + 1023) /
+            1024 * 1024;
+  return g;
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ldmatrix_x1_trans(const void* p) {
+  uint32_t r;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+      : "=r"(r)
+      : "r"(smem_u32(p)));
+  return r;
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// kInt4: v holds bytes (row t, column 2g), (t, 2g + 1), (t + 4, 2g),
+// (t + 4, 2g + 1); byte i is A register i. Its nibbles (k 2t + 8 [i / 2],
+// + 1) become 128 + (n ^ 8) = 136 + n, then n - z: c0 and c1 hold 136 +
+// z of columns 2g and 2g + 1 twice in bf16 (z = 0 without ZI).
+__device__ __forceinline__ void convert_int4(uint32_t v, uint32_t c0,
+                                             uint32_t c1, uint32_t* a) {
+  const uint32_t hi = v >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // byte 0: v's byte i (its low nibble at bits 0-3); byte 2: hi's byte
+    // i (v's high nibble at bits 16-19)
+    const uint32_t p = __byte_perm(v, hi, i | (i << 4) | ((4 + i) << 8) |
+                                              ((4 + i) << 12));
+    a[i] = bf16x2_sub((p & 0x000F000Fu) ^ 0x43084308u, (i & 1) ? c1 : c0);
+  }
+}
+
+// kPacked: v0 holds bytes (row 2t, column 2g), (2t, 2g + 1), (2t + 1, 2g),
+// (2t + 1, 2g + 1) of the step's first 8 byte rows, v1 the same of the
+// next 8; `shift` 0 takes the low nibbles, 4 the high ones. 128 + u, then
+// u - z: c0, c1 hold 128 + z.
+__device__ __forceinline__ void convert_packed(uint32_t v0, uint32_t v1,
+                                               int shift, uint32_t c0,
+                                               uint32_t c1, uint32_t* a) {
+  const uint32_t k128 = 0x43004300u;  // bf16 128.0 twice
+  a[0] = bf16x2_sub(((v0 >> shift) & 0x000F000Fu) | k128, c0);
+  a[1] = bf16x2_sub(((v0 >> (8 + shift)) & 0x000F000Fu) | k128, c1);
+  a[2] = bf16x2_sub(((v1 >> shift) & 0x000F000Fu) | k128, c0);
+  a[3] = bf16x2_sub(((v1 >> (8 + shift)) & 0x000F000Fu) | k128, c1);
+}
+
+// c + z, exact in bf16 (an integer below 256), twice.
+__device__ __forceinline__ uint32_t bf16_twice(float v) {
+  return pack_bf16(v, v);
+}
+
+// The k range of x that half h of a stage starting at byte row r0 covers.
+template <int L>
+__device__ __forceinline__ int half_k0(int r0, int h, int K) {
+  return L == kInt4 ? 2 * r0 : h * (K / 2) + r0;
+}
+
+template <int L, int MT, int F, bool ZI>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, 1)
+    w4_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap s_map,
+                    const __grid_constant__ CUtensorMap z_map,
+                    const __grid_constant__ CUtensorMap x_map,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ partial, int* __restrict__ counters,
+                    int M, int K, int N, int group, int gs, int chunk_rows,
+                    int m_tiles, int stages) {
+  constexpr int kHalves = L == kPacked ? 2 : 1;
+  constexpr int kD = MT / 2;  // accumulator floats a thread
+  constexpr int kSteps = half_steps(L);
+  constexpr int kFolds = kSteps / F;
+  static_assert(kSteps % F == 0, "a fold takes whole steps");
+  // Sums of x: one item is 16 rows of M over one fold's range.
+  constexpr int kSumItems = kHalves * kFolds * (MT / 16);
+  constexpr int kSumRounds = (kSumItems + 2) / 3;  // items a warp, at most
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: TMA, ldmatrix's
+  // addresses and wgmma agree on it for boxes that start on such a
+  // boundary (at the same offset in both blocks, which multicast needs).
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const StageGeo geo = stage_geo(L, MT, gs, F);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * geo.bytes);
+  uint64_t* empty = full + stages;
+  uint64_t* sums = empty + stages;
+  int* last_flag = reinterpret_cast<int*>(sums + stages);
+  const uint32_t rank = cluster_ctarank();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kEmptyArrivals);
+      mbar_init(&sums[s], kSumThreads);
+    }
+    mbar_fence_init();
+  }
+  cluster_sync();  // no block loads into or releases the other's ring early
+
+  // Block (pair, M tile, rank): column tile 2 pair + rank, so that both
+  // blocks of a cluster share the M tile and the K split (and with it x).
+  const int pm = blockIdx.x / kCluster;
+  const int mt_idx = pm % m_tiles, tile = (pm / m_tiles) * kCluster + rank;
+  const int col0 = tile * kBN, m0 = mt_idx * MT;
+  // A block past N (odd tile count) loads the last tile again, for its
+  // partner's sake, and writes nothing.
+  const int col_load = min(col0, (N - 1) / kBN * kBN);
+  const int Kh = K / 2;
+  const int r_begin = blockIdx.y * chunk_rows;
+  const int r_end = min(Kh, r_begin + chunk_rows);
+  const int n_stages = (r_end - r_begin + kRows - 1) / kRows;
+
+  if (threadIdx.x < 128) {
+    regs_dealloc<56>();
+    if (threadIdx.x < 32) {
+      // ------------------------------------------------------ producer
+      if (threadIdx.x == 0) {
+        const uint32_t tx = kWBytes + 2 * kHalves * gs * kBN * 4 +
+                            2 * MT * 128;
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int st = 0; st < n_stages; ++st) {
+          const int r0 = r_begin + st * kRows;
+          uint8_t* sb = ring + stage * geo.bytes;
+          mbar_wait(&empty[stage], phase ^ 1);  // free in both blocks
+          if (dropped(kDropLoads)) {
+            mbar_arrive(&full[stage]);
+          } else {
+            mbar_arrive_expect_tx(&full[stage], tx);
+            tma_load_2d(sb, &w_map, &full[stage], col_load, r0);
+#pragma unroll
+            for (int h = 0; h < kHalves; ++h) {
+              const int g0 = half_k0<L>(r0, h, K) / group;
+              tma_load_2d(sb + geo.s_off + h * gs * kBN * 4, &s_map,
+                          &full[stage], col_load, g0);
+              tma_load_2d(sb + geo.z_off + h * gs * kBN * 4, &z_map,
+                          &full[stage], col_load, g0);
+            }
+            // x box b: kInt4's k [2 r0 + 64 b, + 64), kPacked's half b.
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const int kx =
+                  L == kInt4 ? 2 * r0 + 64 * b : half_k0<L>(r0, b, K);
+              uint8_t* dst = sb + geo.x_off + b * MT * 128;
+              if (dropped(kDropMulticast))
+                tma_load_2d(dst, &x_map, &full[stage], kx, m0);
+              else if (b == (int)rank)
+                tma_load_2d_multicast(dst, &x_map, &full[stage], kx, m0,
+                                      (1 << kCluster) - 1);
+            }
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        // Stay until both blocks' consumers have released every stage:
+        // they arrive on this block's barriers.
+        for (int s = 0; s < stages; ++s) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      // ---------------------------------------------------- sums of x
+      const int xt = threadIdx.x - 32;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int st = 0; st < n_stages; ++st) {
+        const int r0 = r_begin + st * kRows;
+        const int rows = min(kRows, r_end - r0);
+        const uint8_t* sb = ring + stage * geo.bytes;
+        float* xs = reinterpret_cast<float*>(ring + stage * geo.bytes +
+                                             geo.xs_off);
+        mbar_wait(&full[stage], phase);
+        if (!ZI && !dropped(kDropSums)) {
+          // Item (h, f, 16-row group) of warp xw: d = x rows [16 g16, + 16)
+          // times ones over the fold's k16 steps (those before the last
+          // real row: kPacked's last stage would run on into the high
+          // half's x); each row of d then holds the row's sum of x. A
+          // fragments by ldmatrix from the swizzled box (chunk c of row r
+          // at c ^ (r % 8)).
+          const int nk = L == kInt4 ? 2 * rows : rows;
+          const uint32_t ones[2] = {0x3F803F80u, 0x3F803F80u};
+          const int xw = xt >> 5, lane = xt & 31;
+          const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+          const int lchunk = lane >> 4;
+#pragma unroll 1
+          for (int r = 0; r < kSumRounds; ++r) {
+            const int it = xw + 3 * r;
+            if (it >= kSumItems) break;
+            const int hf = it / (MT / 16), g16 = it - hf * (MT / 16);
+            const int h = hf / kFolds, f = hf - h * kFolds;
+            const int m = 16 * g16 + lrow;
+            float dsum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int i = 0; i < F; ++i) {
+              const int k16 = 16 * (F * f + i);
+              if (k16 >= nk) break;
+              const int kl = (L == kInt4 ? 0 : 64 * h) + k16;
+              uint32_t a[4];
+              ldmatrix_x4(a, sb + geo.x_off + (kl >> 6) * MT * 128 +
+                                 m * 128 +
+                                 (((((kl & 63) >> 3) + lchunk) ^ (m & 7))
+                                  << 4));
+              mma_bf16(dsum, a, ones);
+            }
+            // Lane (g, t) holds row g's sum in dsum[0], row g + 8's in
+            // dsum[2] (every column of d is the same).
+            if ((lane & 3) == 0) {
+              float* o = xs + hf * MT + 16 * g16 + (lane >> 2);
+              o[0] = dsum[0];
+              o[8] = dsum[2];
+            }
+          }
+        }
+        mbar_arrive(&sums[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  regs_alloc<224>();
+  const int c = threadIdx.x / 128 - 1;  // columns [64 c, 64 c + 64)
+  const int w = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q = 4 * c + w;  // the warp's 16-column chunk of the box
+  // ldmatrix row addresses: kInt4's matrix row ri is byte row ri / 2 +
+  // 4 (ri % 2) of the step's 8 (so .trans hands lane (g, t) rows t and
+  // t + 4); kPacked's matrix (lane / 8) % 2, row ri is byte row 8 (lane /
+  // 8 % 2) + ri of the step's 16. Chunk q of row r sits at chunk q ^ (r %
+  // 8).
+  const int ri = lane & 7;
+  int lane_off;
+  if (L == kInt4) {
+    const int r = (ri >> 1) + 4 * (ri & 1);
+    lane_off = r * 128 + ((q ^ r) << 4);
+  } else {
+    const int r = 8 * ((lane >> 3) & 1) + ri;
+    lane_off = r * 128 + ((q ^ ri) << 4);
+  }
+  const int n_loc = 64 * c + 16 * w + 2 * g;  // columns of A rows g, g + 8
+
+  float acc[kD], d[kD];
+#pragma unroll
+  for (int i = 0; i < kD; ++i) acc[i] = d[i] = 0.f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int st = 0; st < n_stages; ++st) {
+    const int r0 = r_begin + st * kRows;
+    const int rows = min(kRows, r_end - r0);
+    const uint8_t* sb = ring + stage * geo.bytes;
+    mbar_wait(&full[stage], phase);
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+      const int ks = half_k0<L>(r0, h, K);
+      const int g0 = ks / group;
+      // Step j's A fragment in a[j]; step j + 1 is converted while the
+      // products before it run.
+      uint32_t a[kSteps][4];
+#pragma unroll
+      for (int f = 0; f < kFolds; ++f) {
+        // The fold's group, as a row of the stage's scales (a fold past
+        // the last real row adds zero: its q, d and sums are 0).
+        const int row = h * gs + min((ks + 16 * F * f) / group - g0, gs - 1);
+        const float2 sv = *reinterpret_cast<const float2*>(
+            sb + geo.s_off + (row * kBN + n_loc) * 4);
+        const float2 zv = *reinterpret_cast<const float2*>(
+            sb + geo.z_off + (row * kBN + n_loc) * 4);
+        const float base = L == kInt4 ? 136.f : 128.f;
+        const uint32_t c0 = bf16_twice(base + (ZI ? zv.x : 0.f));
+        const uint32_t c1 = bf16_twice(base + (ZI ? zv.y : 0.f));
+#pragma unroll
+        for (int i = 0; i < F; ++i) {
+          const int j = F * f + i;
+          if (dropped(kDropConvert)) {
+            a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0u;
+          } else if (L == kInt4) {
+            convert_int4(ldmatrix_x1_trans(sb + 1024 * j + lane_off), c0, c1,
+                         a[j]);
+          } else {
+            uint32_t v0, v1;
+            ldmatrix_x2_trans(v0, v1, sb + 2048 * j + lane_off);
+            convert_packed(v0, v1, 4 * h, c0, c1, a[j]);
+            if (ZI) {
+              // Past K/2 the zero-filled bytes would give -z against the
+              // high half's x: those steps' A is zero (a mask, not a
+              // branch, with products in flight).
+              const uint32_t keep = 0u - (uint32_t)(16 * j < rows);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[j][e] &= keep;
+            }
+          }
+          if (!dropped(kDropProducts)) {
+            const int kl = (L == kInt4 ? 0 : 64 * h) + 16 * j;
+            fence_regs<4>(a[j]);
+            fence_regs<kD>(d);
+            wgmma_fence();
+            wgmma_rs<MT>(d, a[j],
+                         wgmma_desc(sb + geo.x_off + (kl >> 6) * MT * 128 +
+                                        (kl & 63) * 2,
+                                    16, 1024),
+                         i == 0 ? 0 : 1);
+          }
+        }
+        if (!dropped(kDropProducts)) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<kD>(d);
+        }
+        if (dropped(kDropFold)) {
+#pragma unroll
+          for (int i = 0; i < kD; ++i) acc[i] += d[i];
+        } else if (ZI) {
+          // acc[4 j + 2 h + i]: column n_loc + h.
+#pragma unroll
+          for (int j8 = 0; j8 < MT / 8; ++j8) {
+            acc[4 * j8 + 0] += d[4 * j8 + 0] * sv.x;
+            acc[4 * j8 + 1] += d[4 * j8 + 1] * sv.x;
+            acc[4 * j8 + 2] += d[4 * j8 + 2] * sv.y;
+            acc[4 * j8 + 3] += d[4 * j8 + 3] * sv.y;
+          }
+        } else {
+          if (h == 0 && f == 0) mbar_wait(&sums[stage], phase);
+          const float* xs = reinterpret_cast<const float*>(
+                                sb + geo.xs_off) +
+                            (h * kFolds + f) * MT + 2 * t;
+#pragma unroll
+          for (int j8 = 0; j8 < MT / 8; ++j8) {
+            const float2 xv = *reinterpret_cast<const float2*>(xs + 8 * j8);
+            acc[4 * j8 + 0] += (d[4 * j8 + 0] - xv.x * zv.x) * sv.x;
+            acc[4 * j8 + 1] += (d[4 * j8 + 1] - xv.y * zv.x) * sv.x;
+            acc[4 * j8 + 2] += (d[4 * j8 + 2] - xv.x * zv.y) * sv.y;
+            acc[4 * j8 + 3] += (d[4 * j8 + 3] - xv.y * zv.y) * sv.y;
+          }
+        }
+        fence_regs<kD>(d);
+      }
+    }
+    // Every product reading this stage is done (each fold waits for its
+    // own): release it in both blocks.
+    __syncwarp();
+    if (lane < kCluster) mbar_arrive_cluster(&empty[stage], lane);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // ------------------------------------------------------------- epilogue
+  if (dropped(kDropStores) ||
+      (dropped(kDropPartials) && partial != nullptr)) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kD; ++i) sum += acc[i];
+    if (sum == 1234.5f) out[0] = __float2bfloat16(sum);
+    return;
+  }
+  if (col0 >= N) return;
+  const int tid = threadIdx.x - 128;  // 0..255 over both consumers
+  named_sync(1, 256);  // both consumers are done with the ring
+  float* tile_s = reinterpret_cast<float*>(ring) + c * MT * kPitch;
+  // acc[4 j + 2 h + i]: column n_loc + h, row 8 j + 2 t + i.
+#pragma unroll
+  for (int j8 = 0; j8 < MT / 8; ++j8)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(tile_s + (8 * j8 + 2 * t + i) * kPitch +
+                                 n_loc - 64 * c) =
+          make_float2(acc[4 * j8 + i], acc[4 * j8 + 2 + i]);
+  named_sync(2 + c, 128);
+  const int wid = threadIdx.x & 127;
+  const int ncol0 = col0 + 64 * c, ncols = N - ncol0;
+  if (partial == nullptr) {
+    for (int it = wid; it < MT * 8; it += 128) {
+      const int m = it >> 3, ch = it & 7, row = m0 + m;
+      if (row >= M || 8 * ch >= ncols) continue;
+      const float4 lo =
+          *reinterpret_cast<const float4*>(tile_s + m * kPitch + 8 * ch);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(tile_s + m * kPitch + 8 * ch + 4);
+      *reinterpret_cast<uint4*>(out + (size_t)row * N + ncol0 + 8 * ch) =
+          make_uint4(pack_bf16(lo.x, lo.y), pack_bf16(lo.z, lo.w),
+                     pack_bf16(hi.x, hi.y), pack_bf16(hi.z, hi.w));
+    }
+    return;
+  }
+  for (int it = wid; it < MT * 16; it += 128) {
+    const int m = it >> 4, ch = it & 15, row = m0 + m;
+    if (row >= M || 4 * ch >= ncols) continue;
+    *reinterpret_cast<float4*>(
+        partial + ((size_t)blockIdx.y * M + row) * N + ncol0 + 4 * ch) =
+        *reinterpret_cast<const float4*>(tile_s + m * kPitch + 4 * ch);
+  }
+  // The last block of this (column tile, M tile) to finish adds the
+  // splits' sums in split order and writes y; it resets the counter for
+  // the next launch.
+  __threadfence();
+  named_sync(1, 256);
+  int* counter = counters + tile * m_tiles + mt_idx;
+  if (tid == 0) *last_flag = atomicAdd(counter, 1) == (int)gridDim.y - 1;
+  named_sync(1, 256);
+  if (!*last_flag) return;
+  __threadfence();
+  for (int it = tid; it < MT * 16; it += 256) {
+    const int m = it >> 4, ch = it & 15, row = m0 + m, col = col0 + 8 * ch;
+    if (row >= M || col >= N) continue;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int sp = 0; sp < (int)gridDim.y; ++sp) {
+      const float* p = partial + ((size_t)sp * M + row) * N + col;
+      const float4 lo = __ldcg(reinterpret_cast<const float4*>(p));
+      const float4 hi = __ldcg(reinterpret_cast<const float4*>(p + 4));
+      v[0] += lo.x;
+      v[1] += lo.y;
+      v[2] += lo.z;
+      v[3] += lo.w;
+      v[4] += hi.x;
+      v[5] += hi.y;
+      v[6] += hi.z;
+      v[7] += hi.w;
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+  if (tid == 0) *counter = 0;
+}
+
+// Dynamic shared memory of a launch: the ring, its three barriers a stage,
+// the last-block flag and up to 1024 bytes to align the ring.
+inline int smem_bytes(int layout, int mt, int gs, int f, int stages) {
+  return stages * stage_geo(layout, mt, gs, f).bytes + 3 * stages * 8 + 16 +
+         1024;
+}
+
+template <int L, int MT, int F, bool ZI>
+int launch(const CUtensorMap* maps, const void* x, void* out,
+           float* partial, int* counters, int M, int K, int N, int group,
+           int gs, int splits, int chunk_rows, int m_tiles, int stages,
+           cudaStream_t stream) {
+  // x [M, K]: boxes of MT rows x 64 k (128 bytes, 128-byte swizzle); rows
+  // past M read zeros.
+  CUtensorMap x_map;
+  const uint64_t dims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t strides[1] = {(uint64_t)K * 2};
+  const uint32_t box[2] = {64, MT};
+  cudaError_t err = make_tma_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                                 2, dims, strides, box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = smem_bytes(L, MT, gs, F, stages);
+  if (stages * stage_geo(L, MT, gs, F).bytes < 2 * MT * kPitch * 4)
+    return (int)cudaErrorInvalidValue;  // the epilogue's tiles must fit
+  err = allow_smem<w4_wgmma_kernel<L, MT, F, ZI>>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int pairs = ((N + kBN - 1) / kBN + kCluster - 1) / kCluster;
+  const dim3 grid(pairs * m_tiles * kCluster, splits);
+  w4_wgmma_kernel<L, MT, F, ZI><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], x_map, static_cast<__nv_bfloat16*>(out),
+      splits > 1 ? partial : nullptr, counters, M, K, N, group, gs,
+      chunk_rows, m_tiles, stages);
+  return (int)cudaGetLastError();
+}
+
+// F: k16 steps a fold (kInt4 2, 4 or 8; kPacked 1, 2 or 4); zi: the
+// zeros are integers, taken inside the product.
+template <int L, int MT>
+int launch_f(int f, int zi, const CUtensorMap* maps, const void* x,
+             void* out, float* partial, int* counters, int M, int K, int N,
+             int group, int gs, int splits, int chunk_rows, int m_tiles,
+             int stages, cudaStream_t s) {
+#define W4_LAUNCH(F_)                                                      \
+  return zi ? launch<L, MT, F_, true>(maps, x, out, partial, counters, M, \
+                                      K, N, group, gs, splits, chunk_rows, \
+                                      m_tiles, stages, s)                  \
+            : launch<L, MT, F_, false>(maps, x, out, partial, counters, M, \
+                                       K, N, group, gs, splits,            \
+                                       chunk_rows, m_tiles, stages, s)
+  if constexpr (L == kInt4) {
+    if (f == 2) W4_LAUNCH(2);
+    if (f == 4) W4_LAUNCH(4);
+    if (f == 8) W4_LAUNCH(8);
+  } else {
+    if (f == 1) W4_LAUNCH(1);
+    if (f == 2) W4_LAUNCH(2);
+    if (f == 4) W4_LAUNCH(4);
+  }
+#undef W4_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int L>
+int launch_mt(int mt, int f, int zi, const CUtensorMap* maps, const void* x,
+              void* out, float* partial, int* counters, int M, int K, int N,
+              int group, int gs, int splits, int chunk_rows, int m_tiles,
+              int stages, cudaStream_t s) {
+  switch (mt) {
+    case 16:
+      return launch_f<L, 16>(f, zi, maps, x, out, partial, counters, M, K, N,
+                             group, gs, splits, chunk_rows, m_tiles, stages,
+                             s);
+    case 32:
+      return launch_f<L, 32>(f, zi, maps, x, out, partial, counters, M, K, N,
+                             group, gs, splits, chunk_rows, m_tiles, stages,
+                             s);
+    case 64:
+      return launch_f<L, 64>(f, zi, maps, x, out, partial, counters, M, K, N,
+                             group, gs, splits, chunk_rows, m_tiles, stages,
+                             s);
+    case 128:
+      return launch_f<L, 128>(f, zi, maps, x, out, partial, counters, M, K, N,
+                              group, gs, splits, chunk_rows, m_tiles,
+                              stages, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Entry points (ctypes); each returns a cudaError_t.
+//
+// w4_weight_maps: the three tensor maps of one weight, written to `maps`
+// (3 x 128 bytes, any alignment), encoded once per weight by the caller:
+// the uint8 [K/2, N] bytes in boxes of 64 rows x 128 columns (128-byte
+// swizzle; N a multiple of 16, TMA's row stride), then the fp32 scales and
+// zeros [K / group, N] in boxes of gs rows x 128 columns.
+extern "C" int w4_weight_maps(const void* q, const float* scales,
+                              const float* zeros, int K, int N, int group,
+                              int gs, void* maps) {
+  if (K < 2 || K % 2 != 0 || N < 16 || N % 16 != 0 || group < 1 ||
+      K % group != 0 || gs < 1 || gs > 256)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[3];
+  const uint64_t w_dims[2] = {(uint64_t)N, (uint64_t)K / 2};
+  const uint64_t w_strides[1] = {(uint64_t)N};
+  const uint32_t w_box[2] = {kBN, kRows};
+  cudaError_t err = make_tma_map(&m[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 2,
+                                 w_dims, w_strides, w_box,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t s_dims[2] = {(uint64_t)N, (uint64_t)(K / group)};
+  const uint64_t s_strides[1] = {(uint64_t)N * 4};
+  const uint32_t s_box[2] = {kBN, (uint32_t)gs};
+  const void* sz[2] = {scales, zeros};
+  for (int i = 0; i < 2; ++i) {
+    err = make_tma_map(&m[1 + i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sz[i], 2,
+                       s_dims, s_strides, s_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return (int)err;
+  }
+  memcpy(maps, m, sizeof(m));
+  return (int)cudaSuccess;
+}
+
+// w4_wgmma_launch: y = x @ W for bf16 x [M, K] and y [M, N] (16-byte
+// aligned), `maps` from w4_weight_maps, the rest of the launch in p[13]
+// (fixed per weight and M, so the caller keeps it): layout (0 int4, 1
+// packed); mt, the rows of M a block (16, 32, 64 or 128); f, the k16 steps
+// a fold (16 f divides the group, and K/2 for packed); M, K, N, the group;
+// gs, the groups a stage's half can touch; splits and chunk_rows, the K
+// splits of chunk_rows byte rows (a multiple of 64); m_tiles (m_tiles * mt
+// >= M); stages, the ring's depth (at least 2); zi, 1 where every zero is
+// an integer with |c + z| < 256 (c = 136 for int4, 128 for packed), which
+// takes the zero inside the product. K is a multiple of 32, N
+// of 16, the group of 32. With splits > 1, partial is fp32 [splits, M, N]
+// scratch and counters one int per (column tile, M tile) (rounded up to
+// an even number of column tiles), zero before and after the launch.
+extern "C" int w4_wgmma_launch(const int* p, const void* maps, const void* x,
+                               void* out, float* partial, int* counters,
+                               void* stream) {
+  const int layout = p[0], mt = p[1], f = p[2], M = p[3], K = p[4], N = p[5],
+            group = p[6], gs = p[7], splits = p[8], chunk_rows = p[9],
+            m_tiles = p[10], stages = p[11], zi = p[12];
+  const int Kh = K / 2;
+  if (M < 1 || K < 32 || K % 32 != 0 || N < 16 || N % 16 != 0 ||
+      group < 32 || group % 32 != 0 || K % group != 0 || gs < 1 || f < 1 ||
+      group % (16 * f) != 0 || (layout == kPacked && Kh % (16 * f) != 0) ||
+      stages < 2 || splits < 1 || chunk_rows < kRows ||
+      chunk_rows % kRows != 0 || (long long)(splits - 1) * chunk_rows >= Kh ||
+      (long long)splits * chunk_rows < Kh || m_tiles < 1 ||
+      (long long)m_tiles * mt < M ||
+      (splits > 1 && (partial == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[3];
+  memcpy(m, maps, sizeof(m));
+  auto s = static_cast<cudaStream_t>(stream);
+  if (layout == kInt4)
+    return launch_mt<kInt4>(mt, f, zi, m, x, out, partial, counters, M, K, N,
+                            group, gs, splits, chunk_rows, m_tiles, stages,
+                            s);
+  if (layout == kPacked)
+    return launch_mt<kPacked>(mt, f, zi, m, x, out, partial, counters, M, K, N,
+                              group, gs, splits, chunk_rows, m_tiles, stages,
+                              s);
+  return (int)cudaErrorInvalidValue;
+}

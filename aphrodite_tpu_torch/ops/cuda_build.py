@@ -117,6 +117,27 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+_SPLIT_WORKSPACE: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_workspace(device, floats: int, tiles: int) -> tuple[int, int]:
+    """Pointers to ``floats`` fp32 of scratch and ``tiles`` zeroed int32
+    counters on ``device``, for the K splits of the quantized GEMMs (fp32
+    partial sums and the counters by which the last block of a tile finds
+    itself; each kernel leaves its counters at zero). Grown as needed and
+    reused by every launch (launches on one stream run one after the
+    other)."""
+    partial, counters = _SPLIT_WORKSPACE.get(device.index, (None, None))
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                              device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                               device=device)
+    _SPLIT_WORKSPACE[device.index] = (partial, counters)
+    return partial.data_ptr(), counters.data_ptr()
+
+
 # cudaDevAttrMaxSharedMemoryPerBlockOptin and the SM count of an H100: what
 # launches are sized for on the CPU, where no card can be asked.
 H100_SMEM_OPTIN = 232448

@@ -4,10 +4,10 @@ Counterpart of ``w8a16_matmul`` and ``w4a16_matmul`` in the JAX package's
 ``ops/quant_gemm.py`` with its Pallas kernels on:
 
 - M <= 256 (decode): the hand-written kernels of ``ops/quant_matmul.py``,
-  one per weight layout. The uint4 and packed layouts dequantize in
-  registers with the direct form ``(q - z) * s`` in fp32; the native-int4
-  layout (``qweight4``, ``loader.weights.realize_int4_leaves``) takes the
-  TPU kernel's group-wise form.
+  one per weight layout. The uint4 layout dequantizes in registers with
+  the direct form ``(q - z) * s`` in fp32; the packed and native-int4
+  layouts (``qweight4``, ``loader.weights.realize_int4_leaves``) take the
+  TPU int4 kernel's group-wise form on the card in bf16.
 - ``qweight4`` on CPU tensors keeps the JAX package's bands: M <= 64 the
   grouped product ``w4a16_int4_grouped`` (its XLA int4 dot), 64 < M <= 256
   the int4 kernel's plain version. On CUDA tensors every M <= 256 goes to

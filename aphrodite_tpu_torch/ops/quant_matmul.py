@@ -1,7 +1,6 @@
 """Weight-only quantized GEMMs for decode-sized M: y = x @ dequant(W).
 
-Three wrappers launch the hand-written CUDA kernels of
-``csrc/quant_matmul.cu`` on CUDA tensors, each replacing one TPU kernel of
+Four wrappers, each replacing one TPU kernel of
 ``aphrodite_tpu/ops/quant_matmul_pallas.py``:
 
 - ``w8a16_matmul`` (``w8a16_matmul_pallas``): int8 [K, N] times fp32
@@ -15,19 +14,21 @@ Three wrappers launch the hand-written CUDA kernels of
   ``q4 = q - 8`` and zeros ``z - 8`` (``loader.weights.realize_int4_leaves``),
   stored as uint8 [K/2, N] of two's-complement nibbles, byte [r, n]
   holding row 2r in its low nibble and row 2r + 1 in its high nibble: the
-  consecutive pair of k that one 32-bit register of an ``mma.sync``
-  m16n8k16 operand takes.
+  consecutive pair of k that one 32-bit register of a tensor-core A
+  operand takes.
 
 On CPU tensors each runs its plain PyTorch version (``ref_*``); a CUDA
-tensor launches the kernel or raises. The first three dequantize W in fp32
-with the direct form ``(q - z) * s``, as their kernels do in registers. The
-int4 one takes the TPU kernel's group-wise form: per group of K rows one
-product ``d = x_g @ q4_g`` in fp32, then ``acc += (d - sum(x_g) * z) * s``,
-so s and z touch the [M, N] group result, not each weight. x and y are
-fp32 or bf16, sums fp32: bf16 runs on the tensor cores (``mma.sync``; the
-int4 values are exact in bf16, the other layouts' weights are rounded to
-bf16 after the fp32 dequantize), fp32 on the CUDA cores in fp32
-throughout. Each wrapper counts its launches.
+tensor launches a kernel or raises. The two W4 layouts of the decode
+path (packed and int4) in bf16 run on ``ops/w4_wgmma.py``
+(``csrc/w4_wgmma.cu``: wgmma with A dequantized in registers, TMA rings,
+x shared across a cluster) in the TPU int4 kernel's group-wise form: per
+group of K rows one product ``d = x_g @ q_g`` in fp32, then ``acc += (d -
+sum(x_g) * z) * s``, so s and z touch the [M, N] group result, not each
+weight. Everything else runs the kernels of ``csrc/quant_matmul.cu``: W8
+and uint4 on the tensor cores in bf16 (``mma.sync``, W dequantized in
+fp32 with the direct form ``(q - z) * s`` and rounded to bf16), and every
+layout on the CUDA cores in fp32 throughout (int4 in the group-wise form,
+the others in the direct one). Each wrapper counts its launches.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import ctypes
 
 import torch
 
-from aphrodite_tpu_torch.ops import cuda_build
+from aphrodite_tpu_torch.ops import cuda_build, w4_wgmma
 from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 from aphrodite_tpu_torch.utils import cdiv
 
@@ -49,14 +50,11 @@ _W4I4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 # kernel (kBlockN, kTileK) and of the tensor-core one (kTcBlockN, kTcTileK).
 _GRID = {False: (128, 128), True: (128, 256)}
 _PLANS: dict[tuple, tuple[int, int, int]] = {}
-# The int4 kernels: columns per block (bf16: 4 warps of 64; fp32: one a
-# thread) and the rows of K staged at a time, which splits fall on too.
-_I4_BLOCK_N = {True: 256, False: 128}
+# The fp32 int4 kernel: columns per block (one a thread) and the rows of
+# K staged at a time, which splits fall on too.
+_I4_BLOCK_N = 128
 _I4_TILE_K = 256
 _BLOCKS_PER_SM = 2   # K splits are added until the grid has this many
-# Per device: fp32 partial sums and the kernels' split counters (zero
-# between launches: the last block of a tile resets its counter).
-_WORKSPACE: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 # ---------------------------------------------------------------- plain twins
@@ -161,29 +159,13 @@ def _check(x: torch.Tensor, tensors: dict, K: int, N: int) -> None:
         raise ValueError("x must be contiguous")
 
 
-def _workspace(device: torch.device, floats: int, tiles: int
-               ) -> tuple[int, int]:
-    """Pointers to ``floats`` fp32 of scratch and ``tiles`` zeroed int32
-    counters on ``device``, grown as needed and reused by every launch
-    (launches on one stream run one after the other)."""
-    partial, counters = _WORKSPACE.get(device.index, (None, None))
-    if partial is None or partial.numel() < floats:
-        partial = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
-                              device=device)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(max(tiles, 4096), dtype=torch.int32,
-                               device=device)
-    _WORKSPACE[device.index] = (partial, counters)
-    return partial.data_ptr(), counters.data_ptr()
-
-
 def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
             N: int, group: int, ptrs: list, dims: list) -> torch.Tensor:
     """Call ``symbol(dtype, mt, tc, x, *ptrs, out, partial, counters,
     *dims, splits, chunk, stream)``; ``rows`` is the number of stored
-    weight rows. bf16 runs on the tensor-core kernel, which loads 32 rows
-    at a time, so K and the group must be multiples of 32; fp32 runs on
-    the CUDA-core one."""
+    weight rows. bf16 runs on the tensor-core kernel (W8 and uint4 only),
+    which loads 32 rows at a time, so K and the group must be multiples of
+    32; fp32 runs on the CUDA-core one."""
     M, K = x.shape
     tc = x.dtype == torch.bfloat16
     if tc and (K % 32 or group % 32):
@@ -194,7 +176,8 @@ def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
     partial = counters = None
     if splits > 1:
         tiles = cdiv(N, _GRID[tc][0]) * cdiv(M, mt)
-        partial, counters = _workspace(x.device, splits * M * N, tiles)
+        partial, counters = cuda_build.split_workspace(
+            x.device, splits * M * N, tiles)
     fn = cuda_build.entry("quant_matmul", symbol, argtypes)
     err = fn(DTYPE_CODES[x.dtype], mt, int(tc), x.data_ptr(), *ptrs,
              out.data_ptr(), partial, counters, *dims, splits, chunk,
@@ -250,9 +233,16 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
 def w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
                         scales: torch.Tensor,
                         zeros: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ dequant(uint8 [K/2, N] global-half packed) -> [M, N]."""
+    """x [M, K] @ dequant(uint8 [K/2, N] global-half packed) -> [M, N].
+
+    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
+    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w4a16_packed_matmul(x, qpacked, scales, zeros)
+    if x.dtype == torch.bfloat16:
+        out = w4_wgmma.matmul("packed", x, qpacked, scales, zeros)
+        w4a16_packed_matmul.launches += 1
+        return out
     Kh, N = qpacked.shape
     K = 2 * Kh
     _check(x, {"qpacked": (qpacked, torch.uint8),
@@ -272,40 +262,42 @@ def w4a16_int4_matmul(x: torch.Tensor, q4p: torch.Tensor,
     """x [M, K] @ ((int4 [K, N] - z) * s) -> [M, N], q4 packed as uint8
     [K/2, N] (``pack_int4``), group-wise as the TPU ``_w4i4_kernel``.
 
-    Every M goes to one kernel: blocks of up to 32 rows of M, 256 columns
-    (bf16) or 128 (fp32), K split on group and 256-row boundaries until the
-    card has about two blocks per SM. bf16 needs K and the group to be
-    multiples of 32, fp32 an even group; the group must divide 256 or be a
-    multiple of it."""
+    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
+    N of 16). fp32 runs on the CUDA-core kernel: blocks of up to 32 rows
+    of M and 128 columns, K split on group and 256-row boundaries until the
+    card has about two blocks per SM; an even group that divides 256 or is
+    a multiple of it."""
     if x.device.type == "cpu":
         return ref_w4a16_int4_matmul(x, q4p, scales, zeros)
+    if x.dtype == torch.bfloat16:
+        out = w4_wgmma.matmul("int4", x, q4p, scales, zeros)
+        w4a16_int4_matmul.launches += 1
+        return out
     Kh, N = q4p.shape
     K = 2 * Kh
     _check(x, {"qweight4": (q4p, torch.uint8),
                "scales": (scales, torch.float32),
                "zeros": (zeros, torch.float32)}, K, N)
     group = _w4_group(scales, zeros, K, N)
-    tc = x.dtype == torch.bfloat16
-    if (group % (32 if tc else 2)
-            or (_I4_TILE_K % group and group % _I4_TILE_K)):
-        raise ValueError(f"group {group} does not fit the int4 kernel "
-                         f"({'bf16' if tc else 'fp32'}: a multiple of "
-                         f"{32 if tc else 2} dividing {_I4_TILE_K} or a "
-                         f"multiple of it)")
+    if group % 2 or (_I4_TILE_K % group and group % _I4_TILE_K):
+        raise ValueError(f"group {group} does not fit the fp32 int4 kernel "
+                         f"(an even group dividing {_I4_TILE_K} or a "
+                         "multiple of it)")
     M = x.shape[0]
-    mt, splits, chunk = _plan(M, N, K, _I4_BLOCK_N[tc],
-                              max(group, _I4_TILE_K), x.device)
+    mt, splits, chunk = _plan(M, N, K, _I4_BLOCK_N, max(group, _I4_TILE_K),
+                              x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     partial = counters = None
     if splits > 1:
-        partial, counters = _workspace(
-            x.device, splits * M * N, cdiv(N, _I4_BLOCK_N[tc]) * cdiv(M, mt))
+        partial, counters = cuda_build.split_workspace(
+            x.device, splits * M * N, cdiv(N, _I4_BLOCK_N) * cdiv(M, mt))
     fn = cuda_build.entry("quant_matmul", "w4a16_int4_launch", _W4I4_ARGS)
     err = fn(DTYPE_CODES[x.dtype], mt, x.data_ptr(), q4p.data_ptr(),
              scales.data_ptr(), zeros.data_ptr(), out.data_ptr(), partial,
              counters, M, K, N, group, splits, chunk,
              cuda_build.stream(x.device))
-    cuda_build.check(err, "quant_matmul w4a16_int4_launch")
+    cuda_build.check(err, f"quant_matmul w4a16_int4_launch M={M} K={K} "
+                          f"N={N} group={group}")
     w4a16_int4_matmul.launches += 1
     return out
 

@@ -3,10 +3,13 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
-PARENT`` instead runs phases 8, 12 and 14, the attention wrappers' host
-time a call, the window kernel's device time and the bf16 grouped GEMM at
-phase 8's shapes of the checkout unpacked at PARENT and of this one, in
-turns (``compare_serving``). Phases, each fatal on failure:
+PARENT [PART ...]`` instead runs phases 8, 12, 14 and 6, the attention
+wrappers' host time a call, the window kernel's device time, the bf16
+grouped GEMM at phase 8's shapes and a Llama-3.1-8B layer's four bf16 W4
+GEMMs (int4 and packed, M = 128 and 32) of the checkout unpacked at PARENT
+and of this one, in turns (``compare_serving``; PARTs from ``AB_PARTS``
+pick some). ``python3 chip_smoke.py --variants`` times the bf16 W4 kernel
+with parts removed (``w4_variants``). Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
@@ -35,8 +38,9 @@ turns (``compare_serving``). Phases, each fatal on failure:
 6. The main path of the quantized slice: Llama-3.1-8B at full width,
    W4A16 (gptq, group 128; every projection packed), bf16, 32 prompts x
    (512 + 64) greedy; one warm-up, 3 cold runs (prefix cache reset before
-   each), 3 warm runs, one profiled run. Exactly 2048 tokens a run; the
-   packed W4 kernel and both attention kernels must have been launched.
+   each), 3 warm runs, one profiled run. Exactly 2048 tokens a run, the
+   packed W4 kernel exactly 4 x 32 x 63 = 8064 times a run, and both
+   attention kernels must have been launched.
 7. MoE parity: a tiny Qwen2-MoE (8 experts, top-2, a gated shared expert,
    one dense layer) in fp32, card vs CPU with the same weights: greedy
    tokens must be equal and the grouped GEMM launched.
@@ -109,9 +113,13 @@ segments of 512 and a 32-row decode step, over 5120 x 16 columns) and at
 a ragged edge; no single PyTorch call computes the recurrence, so it has
 no library yardstick. It holds the native-int4 GEMM (which stands in for
 ``w4a16_int4_matmul_pallas``) in bf16 and fp32 at the Llama-3.1-8B layer's
-four GEMMs at M = 128, 65 and 256, timed at M = 128 and 32 beside the
-packed W4 kernel on the same weights, with ``torch._weight_int4pack_mm``
-as yardstick; the shared-prefix pass (``shared_prefix_attention``) in
+four GEMMs at M = 128, 65 and 256, timed at M = 128 (time a call, device
+and host time) and at 32 beside the packed W4 kernel on the same weights,
+with ``torch._weight_int4pack_mm`` and a dense bf16 ``torch.matmul`` of the
+dequantized weights as yardsticks; the bf16 W4 kernel of both layouts
+(``csrc/w4_wgmma.cu``) at ``W4_CASES`` (M 1-256, groups 32-256, a ragged
+N, forced K splits, both forms of the zero), two launches bit-equal; the
+shared-prefix pass (``shared_prefix_attention``) in
 bf16 and fp32 at phase 14's decode step (R 128, 32 / 8 heads of 128, S =
 1024; also S = 1000 and 64, where one split takes every key), against
 ``scaled_dot_product_attention`` over the gathered shared
@@ -278,20 +286,25 @@ def cuda_ms(fn, reps: int) -> float:
 def device_ms(fn, reps: int) -> float:
     """Device time of one call of ``fn``: the kernels it launches, summed
     from a profiler trace of ``reps`` calls (without the host's time
-    between launches, which ``cuda_ms`` sees when the host is slower)."""
+    between launches, which ``cuda_ms`` sees when the host is slower). A
+    trace that comes back without device events is taken again (up to
+    three times); fails if none has any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ns = sum(e.end_ns() - e.start_ns()
-             for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA)
-    return ns / 1e6 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ns = sum(e.end_ns() - e.start_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA)
+        if ns > 0:
+            return ns / 1e6 / reps
+    raise RuntimeError("device_ms: three traces without a device event")
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -706,7 +719,7 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
     M = 32
     tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
                bound_ms=0.0, library_ms=0.0, library_device_ms=0.0,
-               bytes=0.0, ops=0.0)
+               bytes=0.0, ops=0.0, host_ms=0.0, dense_device_ms=0.0)
     lib_label = None
     for gemm, (K, N) in QUANT_KERNELS[name][1].items():
         x, args, plain, dense = quant_inputs(gen, name, K, N, M, dtype)
@@ -728,6 +741,9 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
         lib_label, lib = library_call(name, x, args, dense)
         lib_ms = cuda_ms(lib, 50)
         lib_dev = device_ms(lib, 20)
+        wd = dense.to(dtype)
+        dense_dev = device_ms(lambda: x @ wd, 20)
+        del wd
         nbytes = (x.numel() * x.element_size()
                   + sum(a.numel() * a.element_size() for a in args)
                   + M * N * x.element_size())
@@ -736,12 +752,14 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
         log(f"# phase 2: {name} {gemm} {dtype_name} M={M} K={K} N={N}: "
             f"err {err:.3g}; kernel {ms:.4f} ms (device {dev:.4f} ms, host "
             f"{host_ms:.4f} ms a call), plain {plain_ms:.4f} ms, "
-            f"{lib_label} {lib_ms:.4f} ms (device {lib_dev:.4f} ms), bound "
+            f"{lib_label} {lib_ms:.4f} ms (device {lib_dev:.4f} ms), dense "
+            f"{dtype_name} matmul device {dense_dev:.4f} ms, bound "
             f"{b_ms:.4f} ms")
         for k, v in (("max_abs_err", err), ("ms", ms), ("device_ms", dev),
                      ("plain_ms", plain_ms), ("library_ms", lib_ms),
                      ("library_device_ms", lib_dev), ("bytes", nbytes),
-                     ("ops", ops)):
+                     ("ops", ops), ("host_ms", host_ms),
+                     ("dense_device_ms", dense_dev)):
             tot[k] = max(tot[k], v) if k == "max_abs_err" else tot[k] + v
     # Other batch sizes (other M tiles and K splits) at the first shape:
     # correctness only.
@@ -830,7 +848,8 @@ def check_int4(gen, dtype_name: str) -> dict:
     dtype = getattr(torch, dtype_name)
     tc = dtype_name == "bfloat16"
     tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bytes=0.0, ops=0.0)
+               bytes=0.0, ops=0.0, device_ms=0.0, host_ms=0.0,
+               library_device_ms=0.0, dense_device_ms=0.0)
     side = {"int4 M=32": 0.0, "packed M=128": 0.0, "packed M=32": 0.0}
     lib_label = None
     for gemm, (K, N) in LLAMA8B_GEMMS.items():
@@ -844,18 +863,28 @@ def check_int4(gen, dtype_name: str) -> dict:
             raise AssertionError(f"w4a16_int4_matmul {gemm} M={M} "
                                  f"{dtype_name}: max_abs_err {err} > "
                                  f"{TOL[dtype_name]}")
-        ms = cuda_ms(lambda: qm.w4a16_int4_matmul(x, *args), 50 if tc else 5)
+        kern = lambda: qm.w4a16_int4_matmul(x, *args)  # noqa: E731
+        ms = cuda_ms(kern, 50 if tc else 5)
+        dev = device_ms(kern, 20 if tc else 3)
+        host = host_ms(kern, 50 if tc else 5)
         plain_ms = cuda_ms(lambda: plain(x), 3)
-        lib_label, lib = library_call("w4a16_matmul", x, uint4,
-                                      qm.dequant_w4(*uint4))
+        dense = qm.dequant_w4(*uint4)
+        lib_label, lib = library_call("w4a16_matmul", x, uint4, dense)
         lib_ms = cuda_ms(lib, 50 if tc else 5)
+        lib_dev = device_ms(lib, 20 if tc else 3)
+        wd = dense.to(dtype)
+        dense_dev = device_ms(lambda: x @ wd, 20 if tc else 3)
+        del wd, dense
         nbytes = (x.numel() * x.element_size()
                   + sum(a.numel() * a.element_size() for a in args)
                   + M * N * x.element_size())
         ops = 2.0 * M * K * N
         msg = (f"# phase 2: w4a16_int4_matmul {gemm} {dtype_name} M={M} K={K}"
-               f" N={N}: err {err:.3g}; kernel {ms:.4f} ms, plain "
-               f"{plain_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms, bound "
+               f" N={N}: err {err:.3g}; kernel {ms:.4f} ms (device "
+               f"{dev:.4f} ms, host {host:.4f} ms a call), plain "
+               f"{plain_ms:.4f} ms, {lib_label} {lib_ms:.4f} ms (device "
+               f"{lib_dev:.4f} ms), dense {dtype_name} matmul device "
+               f"{dense_dev:.4f} ms, bound "
                f"{bound_ms(nbytes, ops, dtype_name)[0]:.4f} ms")
         if tc:  # the same weights through the packed W4 kernel
             packed = (pack_w4(uint4[0]), uint4[1], uint4[2])
@@ -871,7 +900,10 @@ def check_int4(gen, dtype_name: str) -> dict:
                 side[k] += v
         log(msg)
         for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                     ("library_ms", lib_ms), ("bytes", nbytes), ("ops", ops)):
+                     ("library_ms", lib_ms), ("bytes", nbytes), ("ops", ops),
+                     ("device_ms", dev), ("host_ms", host),
+                     ("library_device_ms", lib_dev),
+                     ("dense_device_ms", dense_dev)):
             tot[k] += v
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         del x, args, uint4, out, ref
@@ -893,6 +925,80 @@ def check_int4(gen, dtype_name: str) -> dict:
             f"M=128 {tot['ms']:.4f} ms, " + ", ".join(
                 f"{k} {v:.4f} ms" for k, v in side.items()))
     return tot
+
+
+# Where the bf16 W4 kernel (csrc/w4_wgmma.cu) bites, both layouts (phase 2):
+# (M, K, N, group, forced K splits, zeros inside the product (None: where
+# they are integers), fractional zeros). N = 1424: 12 column tiles, the
+# last 16 wide; K = 4032 (group 96) and 2112: a short last stage, and for
+# packed a high half that starts mid-group.
+W4_BATCHES = (1, 5, 13, 32, 40, 65, 128, 200, 256)
+W4_CASES = ([(M, 2048, 1424, 128, None, None, False) for M in W4_BATCHES]
+            + [(M, 2048, 1424, g, s, None, False) for g in (32, 64, 256)
+               for M, s in ((40, None), (200, 3))]
+            + [(128, 4096, 4096, 128, 5, None, False),
+               (13, 14336, 4096, 128, 7, None, False),
+               (65, 2048, 1424, 128, None, False, False),
+               (32, 2048, 1424, 64, 2, False, False),
+               (13, 2048, 1424, 128, None, None, True),
+               (200, 2048, 1424, 32, 2, None, True),
+               (13, 4032, 272, 96, None, None, False),
+               (200, 2112, 160, 64, 2, None, False),
+               (65, 96, 64, 32, None, None, False)])
+
+
+def w4_inputs(gen, layout: str, M: int, K: int, N: int, group: int,
+              frac: bool):
+    """x and one layout's weights, scaled as in ``int4_inputs``: x, (q, s,
+    z), the plain version. ``frac`` moves every zero by 0.37."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.quantization.loader import pack_w4
+    dev = dict(device="cuda", generator=gen)
+    G = K // group
+    x = torch.randn((M, K), **dev).bfloat16()
+    s = (0.5 + torch.rand((G, N), **dev)) / (4 * 6.5 * K ** 0.5)
+    if layout == "int4":
+        q = qm.pack_int4(torch.randint(-8, 8, (K, N), **dev).to(torch.int8))
+        z = torch.randint(-8, 8, (G, N), **dev).float()
+        ref = qm.ref_w4a16_int4_matmul
+    else:
+        q = pack_w4(torch.randint(0, 16, (K, N), **dev).to(torch.int8))
+        z = torch.randint(0, 16, (G, N), **dev).float()
+        ref = qm.ref_w4a16_packed_matmul
+    if frac:
+        z += 0.37
+    return x, (q, s, z), lambda xf: ref(xf, q, s, z)
+
+
+def check_w4_wgmma(gen) -> float:
+    """The bf16 W4 kernel (``csrc/w4_wgmma.cu``, both layouts) against the
+    plain versions at ``W4_CASES``: every M tile and two M tiles, groups
+    32-256, a ragged N, forced K splits, both forms of the zero; two
+    launches on the same inputs must be bit-equal. Returns the largest
+    error."""
+    import torch
+    from aphrodite_tpu_torch.ops import w4_wgmma
+    worst = 0.0
+    for layout in ("int4", "packed"):
+        for M, K, N, group, splits, zero_in, frac in W4_CASES:
+            x, args, plain = w4_inputs(gen, layout, M, K, N, group, frac)
+            y = w4_wgmma.matmul(layout, x, *args, splits=splits,
+                                zero_in=zero_in)
+            y2 = w4_wgmma.matmul(layout, x, *args, splits=splits,
+                                 zero_in=zero_in)
+            torch.cuda.synchronize()
+            err = (y.float() - plain(x.float())).abs().max().item()
+            what = (f"w4_wgmma {layout} M={M} K={K} N={N} group={group} "
+                    f"splits={splits} zeros in the product {zero_in} "
+                    f"fractional zeros {frac}")
+            if not (err <= TOL["bfloat16"] and torch.isfinite(y).all()):
+                raise AssertionError(f"{what}: max_abs_err {err} > "
+                                     f"{TOL['bfloat16']}")
+            if not torch.equal(y, y2):
+                raise AssertionError(f"{what}: two launches differ")
+            worst = max(worst, err)
+    return worst
 
 
 def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
@@ -1580,10 +1686,13 @@ def main_path_8b() -> dict:
     """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
     workload (benchmarks/baseline_configs.py:118-128) through the port."""
     from aphrodite_tpu_torch.ops import quant_matmul as qm
+    layers, steps = LLAMA31_8B["num_hidden_layers"], 63
     return serve_workload(
         "phase 6", "llama-3.1-8b-w4a16-dummy", LLAMA31_8B,
         {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
-         **attention_kernels()}, quantization="gptq")[0]
+         **attention_kernels()},
+        exact={"w4a16_packed_matmul": 4 * layers * steps},
+        quantization="gptq")[0]
 
 
 def main_path_moe() -> dict:
@@ -2007,8 +2116,8 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
              "window" if "wd_split" in n or "wd_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
-             "quant" if "qmm_" in n else
-             "int4" if "q4_kernel" in n or "q4_tc_kernel" in n else
+             "quant" if "qmm_" in n or "w4_wgmma_kernel<1" in n else
+             "int4" if "q4_kernel" in n or "w4_wgmma_kernel<0" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
@@ -2040,7 +2149,7 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
 
 KERNEL_SOURCES = ["ragged_paged_attention", "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
-                  "selective_scan", "shared_prefix_attention"]
+                  "selective_scan", "shared_prefix_attention", "w4_wgmma"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -2097,10 +2206,43 @@ print(f"# grouped_matmul bf16, a MoE layer's 2 GEMMs over a wave: "
 """
 
 
-def compare_serving(parent: str) -> int:
-    """``python3 chip_smoke.py --ab PARENT``: ``HOST_PROBE``,
-    ``GROUPED_PROBE`` and phases 8, 12 and 14 (s/run, device busy and
-    items) of the checkout at PARENT (a commit
+# Run by each checkout in ``compare_serving``: a Llama-3.1-8B layer's four
+# GEMMs of the bf16 int4 and packed W4 kernels at M = 128 and 32 on the
+# same weights (the int4 phase-14 and the packed phase-6 batch, each at the
+# other's too), as that checkout's wrappers run them: time a call (CUDA
+# events), device time (profiler) and host time a call.
+QUANT_PROBE = """
+from aphrodite_tpu_torch.ops import quant_matmul as qm
+from aphrodite_tpu_torch.quantization.loader import pack_w4
+tot = {}
+for gemm, (K, N) in c.LLAMA8B_GEMMS.items():
+    x, args, _, uint4 = c.int4_inputs(gen, K, N, 128, torch.bfloat16)
+    packed = (pack_w4(uint4[0]), uint4[1], uint4[2])
+    for M in (128, 32):
+        xm = x[:M].contiguous()
+        for name, fn in (('int4', lambda: qm.w4a16_int4_matmul(xm, *args)),
+                         ('packed',
+                          lambda: qm.w4a16_packed_matmul(xm, *packed))):
+            r = (c.cuda_ms(fn, 50), c.device_ms(fn, 20), c.host_ms(fn, 50))
+            k = f'{name} M={M}'
+            tot[k] = [a + b for a, b in zip(tot.get(k, (0, 0, 0)), r)]
+    del x, args, uint4, packed
+for k, (ms, dev, host) in tot.items():
+    print(f"# quant GEMMs, a layer's 4, bf16 {k}: {ms:.4f} ms, device "
+          f"{dev:.4f} ms, host {host:.4f} ms", flush=True)
+"""
+# What ``--ab`` runs, in this order, each by its name on the command line.
+AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE,
+            "quant": QUANT_PROBE, "8": "c.main_path_moe()",
+            "12": "c.main_path_gemma()", "14": "c.main_path_int4_cascade()",
+            "6": "c.main_path_8b()"}
+
+
+def compare_serving(parent: str, parts: list[str]) -> int:
+    """``python3 chip_smoke.py --ab PARENT [PART ...]``: the probes and
+    phases of ``AB_PARTS`` (all, or the PARTs named: ``HOST_PROBE``,
+    ``GROUPED_PROBE``, ``QUANT_PROBE`` and phases 8, 12, 14 and 6: s/run,
+    device busy and items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
     parent, this, this, parent. Each run is a process of its own, started
     from its checkout's root, which builds that checkout's kernels into its
@@ -2108,13 +2250,18 @@ def compare_serving(parent: str) -> int:
     run fails."""
     here = Path(__file__).resolve().parent
     roots = {"parent": Path(parent).resolve(), "change": here}
+    unknown = [p for p in parts if p not in AB_PARTS]
+    if unknown:
+        raise SystemExit(f"--ab: unknown parts {unknown}; known "
+                         f"{list(AB_PARTS)}")
+    chosen = [v for k, v in AB_PARTS.items() if not parts or k in parts]
     code = "\n".join([
         "import sys", "sys.path.insert(0, '.')", "import chip_smoke as c",
+        "import torch",
         "from aphrodite_tpu_torch.ops import cuda_build",
-        f"t = cuda_build.build_all({KERNEL_SOURCES!r})",
+        "t = cuda_build.build_all(c.KERNEL_SOURCES)",
         "print(f'# kernels built in {t:.1f} s', flush=True)",
-        HOST_PROBE, GROUPED_PROBE, "c.main_path_moe()", "c.main_path_gemma()",
-        "c.main_path_int4_cascade()"])
+        "gen = torch.Generator(device='cuda').manual_seed(0)", *chosen])
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", code], cwd=roots[tag],
@@ -2126,6 +2273,122 @@ def compare_serving(parent: str) -> int:
         if proc.returncode != 0:
             log(proc.stderr[-4000:])
             return 1
+    return 0
+
+
+# The int4 kernel's parts, removed for timing (``W4_DROP`` bits in
+# ``csrc/w4_wgmma.cu``): name -> (bits, whether y is still computed).
+W4_VARIANTS = {
+    "kernel": (0, True),
+    "no multicast": (4, True),
+    "no conversion (A zero)": (1, False),
+    "no fold (acc += d)": (2, False),
+    "no sums of x": (64, False),
+    "no fold, no sums": (66, False),
+    "no stores": (8, False),
+    "no K-split partials and fix-up": (128, False),
+    "no products": (16, False),
+    "no loads": (32, False),
+    "loads only": (1 | 2 | 8 | 16 | 64, False),
+    "products only": (1 | 2 | 8 | 32 | 64, False),
+}
+# In every variant's copy an mbarrier wait that spins past 2^26 polls
+# traps, so a variant that breaks the pipeline fails instead of hanging.
+_W4_TRAP = [("  uint32_t done;\n  do {",
+             "  uint32_t done;\n  long long spins = 0;\n  do {"),
+            ("  } while (!done);",
+             "    if (++spins > (1ll << 26)) __trap();\n  } while (!done);")]
+
+
+def w4_variants() -> int:
+    """``python3 chip_smoke.py --variants``: the bf16 W4 kernel
+    (``csrc/w4_wgmma.cu``) with parts removed (``W4_VARIANTS``), each a
+    copy of the sources under ``build/w4_variants/`` built with its
+    ``-DW4_DROP`` (all ``nvcc`` at once). The variants that compute y are
+    held against the plain versions first. Then each is timed on a
+    Llama-3.1-8B layer's four GEMMs, int4 at M = 128 and 32 and packed at
+    M = 32: device time (profiler), 4 rounds in a rotating order, the
+    middle two rounds' mean and the range; beside them a dense bf16
+    ``torch.matmul`` of the same shapes."""
+    import ctypes
+    import shutil
+    import torch
+    from aphrodite_tpu_torch.ops import cuda_build, w4_wgmma
+    src = Path(__file__).resolve().parent / "aphrodite_tpu_torch" / "csrc"
+    jobs = {}
+    for name, (bits, _) in W4_VARIANTS.items():
+        d = Path("build/w4_variants") / name.split(" (")[0].replace(
+            " ", "_").replace(",", "")
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in src.glob("*.cu*"):
+            shutil.copy(f, d / f.name)
+        hc = (d / "hopper_common.cuh").read_text()
+        for a, b in _W4_TRAP:
+            if a not in hc:
+                raise ValueError(f"{a!r} not in hopper_common.cuh")
+            hc = hc.replace(a, b)
+        (d / "hopper_common.cuh").write_text(hc)
+        cmd = [cuda_build._nvcc(), *cuda_build._FLAGS, f"-DW4_DROP={bits}",
+               "-I", str(d), "-o", str(d / "lib.so"), str(d / "w4_wgmma.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      d)
+    t0 = time.perf_counter()
+    libs = {}
+    for name, (proc, d) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out[-3000:]}")
+        libs[name] = ctypes.CDLL(str(d / "lib.so"))
+    log(f"# variants built in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for layout, M in (("int4", 128), ("int4", 13), ("packed", 32),
+                      ("packed", 200)):
+        K, N = 4096, 1424
+        x, args, plain = w4_inputs(gen, layout, M, K, N, 128, False)
+        ref = plain(x.float())
+        for name, (_, computes) in W4_VARIANTS.items():
+            for zero_in in ((None, False) if computes else ()):
+                y = w4_wgmma.matmul(layout, x, *args, lib=libs[name],
+                                    zero_in=zero_in)
+                torch.cuda.synchronize()
+                err = (y.float() - ref).abs().max().item()
+                if not err <= TOL["bfloat16"]:
+                    raise AssertionError(f"{name} {layout} M={M} zeros in "
+                                         f"{zero_in}: max_abs_err {err}")
+        log(f"# {layout} M={M} K={K} N={N}: every variant that computes y "
+            f"within {TOL['bfloat16']} of the plain version")
+
+    for layout, M in (("int4", 128), ("int4", 32), ("packed", 32)):
+        totals: dict[str, float] = {}
+        for gemm, (K, N) in LLAMA8B_GEMMS.items():
+            x, args, _ = w4_inputs(gen, layout, M, K, N, 128, False)
+            wd = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
+            fns = {n: (lambda lib=lib: w4_wgmma.matmul(layout, x, *args,
+                                                       lib=lib))
+                   for n, lib in libs.items()}
+            fns["kernel, zero after the product"] = (
+                lambda: w4_wgmma.matmul(layout, x, *args, lib=libs["kernel"],
+                                        zero_in=False))
+            fns["dense matmul"] = lambda: x @ wd
+            names = list(fns)
+            got = {n: [] for n in names}
+            for r in range(4):
+                order = names[r:] + names[:r]
+                for n in (order[::-1] if r % 2 else order):
+                    got[n].append(device_ms(fns[n], 10))
+            line = f"# {layout} {gemm} M={M}:"
+            for n in names:
+                v = sorted(got[n])
+                mid = (v[1] + v[2]) / 2
+                totals[n] = totals.get(n, 0.0) + mid
+                line += f" {n} {mid:.4f} [{v[0]:.4f}-{v[-1]:.4f}];"
+            log(line)
+            del x, args, wd
+        log(f"# {layout} M={M}, a layer's 4 GEMMs, device ms: " + "; ".join(
+            f"{n} {v:.4f}" for n, v in totals.items()))
     return 0
 
 
@@ -2144,15 +2407,18 @@ def main() -> int:
     log(f"# card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     if sys.argv[1:2] == ["--ab"]:
-        return compare_serving(sys.argv[2])
+        return compare_serving(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--variants"]:
+        return w4_variants()
     names = KERNEL_SOURCES
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
         for line in cuda_build.ptxas_report(n).splitlines():
             if "entry function" in line:  # keep the template arguments
                 log(f"# ptxas {n}: ...{line.strip()[-72:]}")
-            elif any(k in line for k in ("registers", "spill", "wgmma",
-                                             "setmaxnreg", "arning")):
+            elif "Function properties" not in line and any(
+                    k in line for k in ("registers", "spill", "wgmma",
+                                        "setmaxnreg", "arning")):
                 log(f"# ptxas {n}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2185,10 +2451,12 @@ def main() -> int:
             r = check_quant(gen, name, dt)
             log(f"# phase 2: {name} {dt}, a layer's 4 GEMMs: max_abs_err"
                 f" {r['max_abs_err']:.3g} (tol {TOL[dt]}); kernel "
-                f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), plain "
+                f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, host "
+                f"{r['host_ms']:.4f} ms a layer), plain "
                 f"{r['plain_ms']:.4f} ms, {r['library']} "
                 f"{r['library_ms']:.4f} ms (device "
-                f"{r['library_device_ms']:.4f} ms), bound "
+                f"{r['library_device_ms']:.4f} ms), dense {dt} matmul device "
+                f"{r['dense_device_ms']:.4f} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             results[(name, dt)] = r
         for case in DECODE_CASES:
@@ -2197,10 +2465,18 @@ def main() -> int:
         r = check_int4(gen, dt)
         log(f"# phase 2: w4a16_int4_matmul {dt}, a Llama-3.1-8B layer's 4 "
             f"GEMMs at M=128: max_abs_err {r['max_abs_err']:.3g} (tol "
-            f"{TOL[dt]}, M 65 and 256 too); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, {r['library']} {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{TOL[dt]}, M 65 and 256 too); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms a layer), "
+            f"plain {r['plain_ms']:.4f} ms, {r['library']} "
+            f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f} "
+            f"ms), dense {dt} matmul device {r['dense_device_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         results[("w4a16_int4_matmul", dt)] = r
+        if dt == "bfloat16":
+            log(f"# phase 2: w4_wgmma (bf16 int4 and packed) at "
+                f"{len(W4_CASES)} cases a layout: max_abs_err "
+                f"{check_w4_wgmma(gen):.3g} (tol {TOL[dt]}), two launches "
+                "bit-equal")
         (results[("shared_prefix_attention", dt)],
          results[("window_decode_attention", "cascade", dt)]) = \
             check_cascade(gen, dt)
@@ -2299,6 +2575,9 @@ def main() -> int:
     for name, path, dt, launches, r in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
                or name == "w4a16_int4_matmul" else name)
+        if name in ("w4a16_int4_matmul", "w4a16_packed_matmul") \
+                and dt == "bfloat16":
+            src = "w4_wgmma"
         kernels.append({
             "name": name, "path": path, "dtype": dt, "route": "cuda",
             "source": f"aphrodite_tpu_torch/csrc/{src}.cu",
