@@ -18,17 +18,16 @@ Four wrappers, each replacing one TPU kernel of
   operand takes.
 
 On CPU tensors each runs its plain PyTorch version (``ref_*``); a CUDA
-tensor launches a kernel or raises. The two W4 layouts of the decode
-path (packed and int4) in bf16 run on ``ops/w4_wgmma.py``
-(``csrc/w4_wgmma.cu``: wgmma with A dequantized in registers, TMA rings,
-x shared across a cluster) in the TPU int4 kernel's group-wise form: per
-group of K rows one product ``d = x_g @ q_g`` in fp32, then ``acc += (d -
-sum(x_g) * z) * s``, so s and z touch the [M, N] group result, not each
-weight. Everything else runs the kernels of ``csrc/quant_matmul.cu``: W8
-and uint4 on the tensor cores in bf16 (``mma.sync``, W dequantized in
-fp32 with the direct form ``(q - z) * s`` and rounded to bf16), and every
-layout on the CUDA cores in fp32 throughout (int4 in the group-wise form,
-the others in the direct one). Each wrapper counts its launches.
+tensor launches a kernel or raises. In bf16 all four layouts run on
+``ops/w4_wgmma.py`` (``csrc/w4_wgmma.cu``: wgmma with the weights
+converted to bf16 in registers, TMA rings, x shared across a cluster) in
+the TPU int4 kernel's group-wise form: per group of K rows one product
+``d = x_g @ q_g`` in fp32, then ``acc += (d - sum(x_g) * z) * s``, so s
+and z touch the [M, N] group result, not each weight; W8 sums d over the
+whole K and scales the fp32 sum by s[n]. fp32 runs the CUDA-core kernels
+of ``csrc/quant_matmul.cu`` in fp32 throughout (int4 in the group-wise
+form, the others in the direct one ``(q - z) * s``). Each wrapper counts
+its launches.
 """
 from __future__ import annotations
 
@@ -41,14 +40,13 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 from aphrodite_tpu_torch.utils import cdiv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_W8_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_W4_ARGS = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            _P]
+_W8_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_W4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _W4I4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _P]
-# (columns per block, split granularity in stored rows) of the CUDA-core
-# kernel (kBlockN, kTileK) and of the tensor-core one (kTcBlockN, kTcTileK).
-_GRID = {False: (128, 128), True: (128, 256)}
+# Columns per block and the split granularity in stored rows of the fp32
+# CUDA-core kernel (kBlockN, kTileK).
+_BLOCK_N, _TILE_K = 128, 128
 _PLANS: dict[tuple, tuple[int, int, int]] = {}
 # The fp32 int4 kernel: columns per block (one a thread) and the rows of
 # K staged at a time, which splits fall on too.
@@ -160,27 +158,20 @@ def _check(x: torch.Tensor, tensors: dict, K: int, N: int) -> None:
 
 
 def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
-            N: int, group: int, ptrs: list, dims: list) -> torch.Tensor:
-    """Call ``symbol(dtype, mt, tc, x, *ptrs, out, partial, counters,
-    *dims, splits, chunk, stream)``; ``rows`` is the number of stored
-    weight rows. bf16 runs on the tensor-core kernel (W8 and uint4 only),
-    which loads 32 rows at a time, so K and the group must be multiples of
-    32; fp32 runs on the CUDA-core one."""
-    M, K = x.shape
-    tc = x.dtype == torch.bfloat16
-    if tc and (K % 32 or group % 32):
-        raise ValueError(f"bf16 needs K ({K}) and the group ({group}) to be "
-                         "multiples of 32")
-    mt, splits, chunk = _plan(M, N, rows, *_GRID[tc], x.device)
+            N: int, ptrs: list, dims: list) -> torch.Tensor:
+    """Call ``symbol(dtype, mt, x, *ptrs, out, partial, counters, *dims,
+    splits, chunk, stream)`` of the fp32 CUDA-core kernel; ``rows`` is the
+    number of stored weight rows."""
+    M = x.shape[0]
+    mt, splits, chunk = _plan(M, N, rows, _BLOCK_N, _TILE_K, x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     partial = counters = None
     if splits > 1:
-        tiles = cdiv(N, _GRID[tc][0]) * cdiv(M, mt)
         partial, counters = cuda_build.split_workspace(
-            x.device, splits * M * N, tiles)
+            x.device, splits * M * N, cdiv(N, _BLOCK_N) * cdiv(M, mt))
     fn = cuda_build.entry("quant_matmul", symbol, argtypes)
-    err = fn(DTYPE_CODES[x.dtype], mt, int(tc), x.data_ptr(), *ptrs,
-             out.data_ptr(), partial, counters, *dims, splits, chunk,
+    err = fn(DTYPE_CODES[x.dtype], mt, x.data_ptr(), *ptrs, out.data_ptr(),
+             partial, counters, *dims, splits, chunk,
              cuda_build.stream(x.device))
     cuda_build.check(err, f"quant_matmul {symbol}")
     return out
@@ -188,15 +179,22 @@ def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
 
 def w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                  scales: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ (int8 [K, N] * scales [N]) -> [M, N] in x's dtype."""
+    """x [M, K] @ (int8 [K, N] * scales [N]) -> [M, N] in x's dtype.
+
+    bf16 runs on ``w4_wgmma`` (M <= 256, K a multiple of 32, N of 16),
+    fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w8a16_matmul(x, qweight, scales)
+    if x.dtype == torch.bfloat16:
+        out = w4_wgmma.matmul("w8", x, qweight, scales, None)
+        w8a16_matmul.launches += 1
+        return out
     K, N = qweight.shape
     _check(x, {"qweight": (qweight, torch.int8),
                "scales": (scales, torch.float32)}, K, N)
     if tuple(scales.shape) != (N,):
         raise ValueError(f"scales {tuple(scales.shape)} != ({N},)")
-    out = _launch("w8a16_launch", _W8_ARGS, x, K, N, 32,
+    out = _launch("w8a16_launch", _W8_ARGS, x, K, N,
                   [qweight.data_ptr(), scales.data_ptr()],
                   [x.shape[0], K, N])
     w8a16_matmul.launches += 1
@@ -215,15 +213,22 @@ def _w4_group(scales: torch.Tensor, zeros: torch.Tensor, K: int,
 
 def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                  scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ ((uint4-in-int8 [K, N] - z) * s) -> [M, N]."""
+    """x [M, K] @ ((uint4-in-int8 [K, N] - z) * s) -> [M, N].
+
+    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
+    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w4a16_matmul(x, qweight, scales, zeros)
+    if x.dtype == torch.bfloat16:
+        out = w4_wgmma.matmul("uint4", x, qweight, scales, zeros)
+        w4a16_matmul.launches += 1
+        return out
     K, N = qweight.shape
     _check(x, {"qweight": (qweight, torch.int8),
                "scales": (scales, torch.float32),
                "zeros": (zeros, torch.float32)}, K, N)
     group = _w4_group(scales, zeros, K, N)
-    out = _launch("w4a16_launch", _W4_ARGS, x, K, N, group,
+    out = _launch("w4a16_launch", _W4_ARGS, x, K, N,
                   [qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr()],
                   [x.shape[0], K, N, group])
     w4a16_matmul.launches += 1
@@ -249,7 +254,7 @@ def w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
                "scales": (scales, torch.float32),
                "zeros": (zeros, torch.float32)}, K, N)
     group = _w4_group(scales, zeros, K, N)
-    out = _launch("w4a16_packed_launch", _W4_ARGS, x, Kh, N, group,
+    out = _launch("w4a16_packed_launch", _W4_ARGS, x, Kh, N,
                   [qpacked.data_ptr(), scales.data_ptr(), zeros.data_ptr()],
                   [x.shape[0], K, N, group])
     w4a16_packed_matmul.launches += 1

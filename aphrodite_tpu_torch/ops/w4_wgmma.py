@@ -1,22 +1,29 @@
-"""The bf16 W4A16 decode GEMMs on Hopper's warpgroup products.
+"""The bf16 weight-only decode GEMMs on Hopper's warpgroup products.
 
 ``matmul(layout, x, q, scales, zeros)`` launches ``csrc/w4_wgmma.cu`` for
-bf16 CUDA tensors, y [M, N] = x [M, K] @ ((q - z) * s), M <= 256, with q
-stored as uint8 [K/2, N] in one of two layouts:
+bf16 CUDA tensors, y [M, N] = x [M, K] @ W, M <= 256, with W stored in one
+of four layouts, one weight a nibble or a byte:
 
-- ``"int4"``: signed int4 q - 8, rows 2r and 2r + 1 in the low and high
-  nibble of byte [r, n] (``quant_matmul.pack_int4``), zeros z - 8;
-- ``"packed"``: uint4 q, row r in the low nibble and row r + K/2 in the
-  high nibble (``quantization.loader.pack_w4``).
+- ``"int4"``: W = (q - z) s, signed int4 q - 8 as uint8 [K/2, N], rows 2r
+  and 2r + 1 in the low and high nibble of byte [r, n]
+  (``quant_matmul.pack_int4``), zeros z - 8;
+- ``"packed"``: W = (q - z) s, uint4 q as uint8 [K/2, N], row r in the low
+  nibble and row r + K/2 in the high nibble
+  (``quantization.loader.pack_w4``);
+- ``"uint4"``: W = (q - z) s, uint4 q one byte a weight, int8 [K, N];
+- ``"w8"``: W = q s, int8 q [K, N], one fp32 scale a column, s [N], no
+  zeros.
 
-Both take the TPU int4 kernel's group-wise form: per group (and per half
-of K for "packed") d = x_g @ q_g with q exact in bf16, then acc += (d -
-sum(x_g) z) s in fp32. Where every zero is an integer (``zeros_integral``,
-read at a weight's first call at each M; the quantizers make them so) the
-kernel takes the zero inside the product, d = x_g @ (q_g - z_g) with q - z
-exact in bf16, and acc += d s: the same sum of exact products, without the
-sums of x. The wrappers ``w4a16_int4_matmul`` and ``w4a16_packed_matmul`` of
-``ops/quant_matmul.py`` call it; CPU tensors never reach it.
+s and z of the first three are fp32 [K / group, N]. All take the TPU int4
+kernel's group-wise form: per group (and per half of K for "packed") d =
+x_g @ q_g with q exact in bf16, then acc += (d - sum(x_g) z) s in fp32.
+Where every zero is an integer (``zeros_integral``, read at a weight's
+first call at each M; the quantizers make them so) the kernel takes the
+zero inside the product, d = x_g @ (q_g - z_g) with q - z exact in bf16,
+and acc += d s: the same sum of exact products, without the sums of x.
+"w8" has no groups: d sums a K split's whole range and y = d s. The
+wrappers of ``ops/quant_matmul.py`` call it for bf16; CPU tensors never
+reach it.
 
 What the kernel's launch is made of, computed here and held by the CPU
 tests (the kernel runs only on the card):
@@ -29,13 +36,17 @@ tests (the kernel runs only on the card):
   whether it writes y;
 - ``fold_model``: the kernel's arithmetic in plain PyTorch (the k range
   each fold sums, both halves of "packed" folded apart, both forms of the
-  zero).
+  zero, "w8"'s one scale a split);
+- ``int8_model``: the conversion of a signed byte to bf16 as the kernel
+  makes it.
 
 A weight's tensor maps (its bytes, scales, zeros) are encoded once and
-kept with the launch's other fixed arguments (``_CALLS``, keyed by the
-weight's pointers, shapes and M, and held only while the same zeros
-tensor lives, since the form of the zero was read from its values): a
-call checks x, allocates y and encodes only x's map.
+kept with the launch's other fixed arguments (``_CALLS``, keyed by
+``call_key``: the weight's pointers, shapes and version counters, and M;
+held only while the same zeros tensor lives). The form of the zero is read
+from the zeros' values, so an in-place write to them (a weight load) bumps
+their version and prepares the launch anew. A call checks x, allocates y
+and encodes only x's map.
 """
 from __future__ import annotations
 
@@ -49,7 +60,8 @@ import torch
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.utils import cdiv
 
-LAYOUTS = {"int4": 0, "packed": 1}
+LAYOUTS = {"int4": 0, "packed": 1, "uint4": 2, "w8": 3}
+BYTE_LAYOUTS = ("uint4", "w8")  # one byte a weight, [K, N]
 BN = 128          # columns of W a block (two consumer warpgroups of 64)
 ROWS = 64         # byte rows of W a stage
 CLUSTER = 2       # blocks side by side on N sharing x
@@ -59,15 +71,14 @@ MAX_STAGES = 8
 PITCH = 68        # fp32 row pitch of the epilogue's tile
 BARRIER_BYTES = 3 * 8  # full, empty and sums mbarriers a stage
 MAX_SPLITS = 16
-SPLIT_COST = 2    # a block's fixed cost, in stages (prologue, epilogue)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAP_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
-_LAUNCH_ARGS = [_P, _P, _P, _P, _P, _P, _P]
+_LAUNCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P]
 _CALLS: dict[tuple, tuple] = {}
 # The constant that the conversion subtracts before the zero: 136 for int4
-# (128 + (n ^ 8) = 136 + n), 128 for packed (128 + u).
-ZERO_BASE = {"int4": 136.0, "packed": 128.0}
+# (128 + (n ^ 8) = 136 + n), 128 for packed and uint4 (128 + u).
+ZERO_BASE = {"int4": 136.0, "packed": 128.0, "uint4": 128.0}
 
 
 @dataclass(frozen=True)
@@ -85,17 +96,30 @@ def halves(layout: str) -> int:
     return 2 if layout == "packed" else 1
 
 
+def x_boxes(layout: str) -> int:
+    """x boxes (mt rows x 64 k) a stage multiplies."""
+    return 1 if layout in BYTE_LAYOUTS else 2
+
+
+def byte_rows(layout: str, K: int) -> int:
+    """Byte rows of W: K/2 for the nibble layouts, K for the byte ones."""
+    return K if layout in BYTE_LAYOUTS else K // 2
+
+
 def half_steps(layout: str) -> int:
     """k16 steps in one half of a stage (ROWS byte rows)."""
-    return ROWS // 16 if layout == "packed" else 2 * ROWS // 16
+    return 2 * ROWS // 16 if layout == "int4" else ROWS // 16
 
 
 def fold_steps(layout: str, K: int, group: int) -> int:
     """F, the k16 steps a fold sums: the most (up to a stage's half) whose
     k range, 16 F, divides the group and, for "packed", K/2 (where the
-    high half starts), so that no fold straddles a group. The kernel has
-    F in {2, 4, 8} for int4 and {1, 2, 4} for packed."""
+    high half starts), so that no fold straddles a group; "w8", which has
+    no groups, a whole stage. The kernel has F in {2, 4, 8} for int4, {1,
+    2, 4} for packed, {2, 4} for uint4 and 4 for w8."""
     f = half_steps(layout)
+    if layout == "w8":
+        return f
     while group % (16 * f) or (layout == "packed" and (K // 2) % (16 * f)):
         f //= 2
     return f
@@ -113,10 +137,12 @@ def m_tile(M: int) -> tuple[int, int]:
 def half_ranges(layout: str, K: int, r0: int, rows: int):
     """The k ranges of x [k0, k1) that the halves of a stage at byte rows
     [r0, r0 + rows) multiply: int4's rows hold k 2r and 2r + 1, packed's
-    low nibbles k = r and high nibbles k = K/2 + r."""
+    low nibbles k = r and high nibbles k = K/2 + r, a byte row k = r."""
     if layout == "int4":
         return [(2 * r0, 2 * (r0 + rows))]
-    return [(r0, r0 + rows), (K // 2 + r0, K // 2 + r0 + rows)]
+    if layout == "packed":
+        return [(r0, r0 + rows), (K // 2 + r0, K // 2 + r0 + rows)]
+    return [(r0, r0 + rows)]
 
 
 def groups_touched(k0: int, k1: int, group: int) -> int:
@@ -125,29 +151,35 @@ def groups_touched(k0: int, k1: int, group: int) -> int:
 
 def split_unit(layout: str, group: int) -> int:
     """Byte rows a K split is a multiple of: whole stages and whole groups
-    (of the low half for "packed")."""
+    (of the low half for "packed"; "w8" has no groups)."""
+    if layout == "w8":
+        return ROWS
     g_rows = group // 2 if layout == "int4" else group
     return ROWS * g_rows // math.gcd(ROWS, g_rows)
 
 
 def groups_per_stage(layout: str, K: int, group: int) -> int:
     """The most groups that one half of one stage touches (stages start at
-    multiples of ROWS byte rows and run whole; rows past K/2 read zeros):
-    the rows of scales and zeros a stage holds."""
+    multiples of ROWS byte rows and run whole; rows past the end read
+    zeros): the rows of scales and zeros a stage holds, 0 for "w8" (its
+    scales are read by the epilogue)."""
+    if layout == "w8":
+        return 0
     most = 1
-    for r0 in range(0, K // 2, ROWS):
+    for r0 in range(0, byte_rows(layout, K), ROWS):
         for k0, k1 in half_ranges(layout, K, r0, ROWS):
             most = max(most, groups_touched(k0, k1, group))
     return most
 
 
 def stage_bytes(layout: str, mt: int, gs: int, fold: int) -> int:
-    """One stage: the weights, two x boxes of mt x 64 bf16, scales and
+    """One stage: the weights, the x boxes of mt x 64 bf16, scales and
     zeros [halves][gs][BN] fp32, the sums of x [halves][folds][mt] fp32,
     rounded up to the swizzle's 1024-byte period."""
     h = halves(layout)
     folds = half_steps(layout) // fold
-    raw = ROWS * BN + 2 * mt * 128 + 2 * h * gs * BN * 4 + h * folds * mt * 4
+    raw = (ROWS * BN + x_boxes(layout) * mt * 128 + 2 * h * gs * BN * 4
+           + h * folds * mt * 4)
     return cdiv(raw, 1024) * 1024
 
 
@@ -160,10 +192,12 @@ def smem_bytes(layout: str, mt: int, gs: int, fold: int,
 
 
 def ring_stages(layout: str, mt: int, gs: int, fold: int,
-                allowed: int = cuda_build.H100_SMEM_OPTIN) -> int:
-    """The deepest ring (at most MAX_STAGES) that fits ``allowed`` bytes;
-    its stages must also hold the epilogue's two fp32 tiles of mt x 64."""
-    for stages in range(MAX_STAGES, 1, -1):
+                allowed: int = cuda_build.H100_SMEM_OPTIN,
+                most: int = MAX_STAGES) -> int:
+    """The deepest ring (at most ``most`` stages) that fits ``allowed``
+    bytes; its stages must also hold the epilogue's two fp32 tiles of mt x
+    64."""
+    for stages in range(most, 1, -1):
         if smem_bytes(layout, mt, gs, fold, stages) <= allowed:
             if stages * stage_bytes(layout, mt, gs, fold) \
                     < 2 * mt * PITCH * 4:
@@ -178,30 +212,26 @@ def ring_stages(layout: str, mt: int, gs: int, fold: int,
 def plan(layout: str, M: int, K: int, N: int, group: int,
          sms: int = cuda_build.H100_SMS,
          allowed: int = cuda_build.H100_SMEM_OPTIN,
-         splits: int | None = None) -> Plan:
-    """The launch of one call. K splits (on whole stages and groups) are
-    chosen to fill the card's SMs, one block an SM: the fewest splits that
-    minimise waves x (stages a block + SPLIT_COST). ``splits`` forces a
-    count (at most the units K has)."""
+         splits: int | None = None, stages: int | None = None) -> Plan:
+    """The launch of one call. K splits (on whole stages and groups) fill
+    the card with one wave of blocks, one block an SM: as many as keep
+    blocks x splits <= sms, none where the column and M tiles alone fill
+    it (the weights stream at the memory's rate either way; a second,
+    partial wave of split blocks and the splits' fp32 partial sums cost
+    more than a wave of fewer, longer blocks: PERF.md), the chunks
+    as even as K's units allow. ``splits`` forces a count (at most the
+    units K has), ``stages`` caps the ring's depth."""
     mt, m_tiles = m_tile(M)
-    Kh = K // 2
     unit = split_unit(layout, group)
-    units = cdiv(Kh, unit)
+    units = cdiv(byte_rows(layout, K), unit)
     blocks = cdiv(cdiv(N, BN), CLUSTER) * CLUSTER * m_tiles
-    best = None
-    for want in ([splits] if splits else range(1, min(units, MAX_SPLITS) + 1)):
-        want = max(1, min(want, units))
-        per = cdiv(units, want)
-        s_eff = cdiv(units, per)
-        waves = cdiv(blocks * s_eff, sms)
-        cost = waves * (cdiv(per * unit, ROWS) + SPLIT_COST)
-        if best is None or cost < best[0]:
-            best = (cost, s_eff, per * unit)
-    _, s_eff, chunk = best
+    want = splits or min(sms // blocks, MAX_SPLITS)
+    per = cdiv(units, max(1, min(want, units)))
     gs = groups_per_stage(layout, K, group)
     fold = fold_steps(layout, K, group)
-    return Plan(mt, m_tiles, fold, s_eff, chunk, gs,
-                ring_stages(layout, mt, gs, fold, allowed))
+    return Plan(mt, m_tiles, fold, cdiv(units, per), per * unit, gs,
+                ring_stages(layout, mt, gs, fold, allowed,
+                            stages or MAX_STAGES))
 
 
 def schedule(layout: str, p: Plan, M: int, K: int, N: int):
@@ -211,7 +241,7 @@ def schedule(layout: str, p: Plan, M: int, K: int, N: int):
     past N, the odd tile count's partner, writes nothing). With splits
     the last block of a (column tile, M tile) writes y for all of them."""
     pairs = cdiv(cdiv(N, BN), CLUSTER)
-    Kh = K // 2
+    rows = byte_rows(layout, K)
     out = []
     for by in range(p.splits):
         for bx in range(pairs * p.m_tiles * CLUSTER):
@@ -222,7 +252,7 @@ def schedule(layout: str, p: Plan, M: int, K: int, N: int):
                 rank=rank, tile=tile, split=by,
                 cols=(tile * BN, min(N, tile * BN + BN)),
                 rows=(mt_idx * p.mt, min(M, mt_idx * p.mt + p.mt)),
-                k_rows=(r_begin, min(Kh, r_begin + p.chunk_rows)),
+                k_rows=(r_begin, min(rows, r_begin + p.chunk_rows)),
                 writes=tile * BN < N))
     return out
 
@@ -236,31 +266,47 @@ def zeros_integral(layout: str, zeros: torch.Tensor) -> bool:
                 and (ZERO_BASE[layout] + v).abs().max().item() < 256)
 
 
+def int8_model(b: torch.Tensor) -> torch.Tensor:
+    """The kernel's conversion of signed bytes to bf16 (``int8_pair``): the
+    fp32 of bits 0x4B000000 | (b ^ 0x80) is 2^23 + 128 + b, one fp32
+    subtraction of 2^23 + 128 leaves b, and b (at most 8 significant bits)
+    rounds to bf16 exactly. Returns bf16 of b's shape."""
+    bits = 0x4B000000 | ((b.to(torch.int32) & 0xFF) ^ 0x80)
+    return (bits.view(torch.float32) - 8388736.0).to(torch.bfloat16)
+
+
 def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
-               scales: torch.Tensor, zeros: torch.Tensor,
+               scales: torch.Tensor, zeros: torch.Tensor | None,
                p: Plan, zero_in: bool = False) -> torch.Tensor:
     """The kernel's arithmetic in fp32: for each K split, stage and half,
     d = x_f @ q_f over each fold's k range f (16 F k, cut at the last real
     row; q exact, x as given), then acc += (d - sum(x_f) z_g) s_g with g
     the fold's group; with ``zero_in``, d = x_f @ (q_f - z_g) and acc +=
-    d s_g. The splits' sums are added in split order. Returns fp32 [M,
-    N]."""
+    d s_g. "w8" sums d over the split's stages and takes acc = d s. The
+    splits' sums are added in split order. Returns fp32 [M, N]."""
     from aphrodite_tpu_torch.ops.quant_matmul import unpack_int4
     M, K = x.shape
-    Kh, N = q.shape
-    group = K // scales.shape[0]
+    N = q.shape[1]
+    rows = byte_rows(layout, K)
     if layout == "int4":
         qk = unpack_int4(q).float()                       # [K, N], k order
-    else:
+    elif layout == "packed":
         b = q.to(torch.int16)
         qk = torch.cat([b & 0xF, (b >> 4) & 0xF]).float()
-    xf, s, z = x.float(), scales.float(), zeros.float()
+    else:
+        qk = q.float()
+    xf, s = x.float(), scales.float()
     y = torch.zeros((M, N), dtype=torch.float32)
     for sp in range(p.splits):
         acc = torch.zeros((M, N), dtype=torch.float32)
-        r_end = min(Kh, (sp + 1) * p.chunk_rows)
+        r_end = min(rows, (sp + 1) * p.chunk_rows)
         for r0 in range(sp * p.chunk_rows, r_end, ROWS):
             for k0, k1 in half_ranges(layout, K, r0, min(ROWS, r_end - r0)):
+                if layout == "w8":
+                    acc += xf[:, k0:k1] @ qk[k0:k1]
+                    continue
+                group = K // s.shape[0]
+                z = zeros.float()
                 for a in range(k0, k1, 16 * p.fold):
                     b, g = min(k1, a + 16 * p.fold), a // group
                     assert (b - 1) // group == g  # within one group
@@ -270,44 +316,79 @@ def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
                     d = xf[:, a:b] @ qk[a:b]
                     xs = xf[:, a:b].sum(dim=1, keepdim=True)
                     acc += (d - xs * z[g]) * s[g]
-        y += acc
+        y += acc * s if layout == "w8" else acc
     return y
 
 
 # -------------------------------------------------------------------- launch
 def check(layout: str, x: torch.Tensor, q: torch.Tensor,
-          scales: torch.Tensor, zeros: torch.Tensor) -> int:
+          scales: torch.Tensor, zeros: torch.Tensor | None) -> int:
     """Raise ValueError, naming the shape, on what the kernel cannot take;
-    return the group. It takes bf16 x [M, K] with 1 <= M <= 256 and K a
-    multiple of 32, uint8 q [K/2, N] with N a multiple of 16 (TMA's row
-    stride), fp32 scales and zeros [K / group, N] with the group a multiple
-    of 32, all contiguous and 16-byte aligned on x's device."""
+    return the group (K for "w8"). It takes bf16 x [M, K] with 1 <= M <=
+    256 and K a multiple of 32; q uint8 [K/2, N] (int4, packed) or int8 [K,
+    N] (uint4, w8) with N a multiple of 16 (TMA's row stride); fp32 scales
+    and zeros [K / group, N] with the group a multiple of 32, or for "w8"
+    fp32 scales [N] and no zeros; all contiguous and 16-byte aligned on x's
+    device."""
     what = f"w4_wgmma {layout}"
     if x.dtype != torch.bfloat16 or x.dim() != 2:
         raise ValueError(f"{what}: x must be bf16 [M, K], got {x.dtype} "
                          f"{tuple(x.shape)}")
     M, K = x.shape
-    if q.dim() != 2 or q.dtype != torch.uint8 or 2 * q.shape[0] != K:
-        raise ValueError(f"{what}: q must be uint8 [{K // 2}, N], got "
-                         f"{q.dtype} {tuple(q.shape)}")
+    q_dtype = torch.int8 if layout in BYTE_LAYOUTS else torch.uint8
+    if q.dim() != 2 or q.dtype != q_dtype \
+            or q.shape[0] != byte_rows(layout, K):
+        raise ValueError(f"{what}: q must be {q_dtype} "
+                         f"[{byte_rows(layout, K)}, N], got {q.dtype} "
+                         f"{tuple(q.shape)}")
     N = q.shape[1]
-    G = scales.shape[0] if scales.dim() == 2 else 0
     if not (1 <= M <= MAX_M) or K % 32 or N % 16 or N < 16:
         raise ValueError(f"{what}: M={M}, K={K}, N={N}: needs 1 <= M <= "
                          f"{MAX_M}, K a multiple of 32 and N of 16")
-    if G < 1 or K % G or tuple(scales.shape) != (G, N) \
-            or tuple(zeros.shape) != (G, N) or (K // G) % 32:
-        raise ValueError(f"{what}: scales {tuple(scales.shape)} / zeros "
-                         f"{tuple(zeros.shape)} for K={K}, N={N}: want "
-                         "[K / group, N] with the group a multiple of 32")
-    for name, t, dtype in (("x", x, torch.bfloat16), ("q", q, torch.uint8),
+    if layout == "w8":
+        if tuple(scales.shape) != (N,) or zeros is not None:
+            raise ValueError(f"{what}: want scales [{N}] and no zeros, got "
+                             f"{tuple(scales.shape)}")
+        G = 1
+    else:
+        G = scales.shape[0] if scales.dim() == 2 else 0
+        if G < 1 or K % G or tuple(scales.shape) != (G, N) or zeros is None \
+                or tuple(zeros.shape) != (G, N) or (K // G) % 32:
+            raise ValueError(
+                f"{what}: scales {tuple(scales.shape)} / zeros "
+                f"{None if zeros is None else tuple(zeros.shape)} for K={K}, "
+                f"N={N}: want [K / group, N] with the group a multiple of 32")
+    for name, t, dtype in (("x", x, torch.bfloat16), ("q", q, q_dtype),
                            ("scales", scales, torch.float32),
                            ("zeros", zeros, torch.float32)):
+        if t is None:
+            continue
         if t.device != x.device or t.dtype != dtype \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous, 16-byte "
                              f"aligned {dtype} on {x.device}")
     return K // G
+
+
+def _version(t: torch.Tensor | None):
+    """t's version counter, which every in-place write bumps (inference
+    tensors have none: they cannot be written outside inference mode)."""
+    return None if t is None or t.is_inference() else t._version
+
+
+def call_key(layout: str, x: torch.Tensor, q: torch.Tensor,
+             scales: torch.Tensor, zeros: torch.Tensor | None,
+             *extra) -> tuple:
+    """The key of a prepared launch in ``_CALLS``: the layout, x's shape
+    and device, and for q, scales and zeros their address, shape, dtype
+    and version counter (so that a weight written in place, as
+    ``loader.weights.load_params`` does, is prepared anew: its form of the
+    zero was read from the old values), then ``extra``."""
+    key = [layout, tuple(x.shape), x.device.index, *extra]
+    for t in (q, scales, zeros):
+        key += ([None] if t is None else
+                [t.data_ptr(), tuple(t.shape), t.dtype, _version(t)])
+    return tuple(key)
 
 
 def _entries(lib):
@@ -323,55 +404,62 @@ def _entries(lib):
     return fns
 
 
-def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in):
+def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
     """The fixed part of a launch (checked once): the entry point, the
-    weight's tensor maps, the launch's integer arguments, the plan, and a
-    weak reference to the zeros it was made for."""
+    weight's tensor maps, the launch's integer arguments, the plan, w8's
+    column scales, and a weak reference to the zeros it was made for."""
     group = check(layout, x, q, scales, zeros)
-    if zero_in is None:
+    if layout == "w8":
+        zero_in = True  # no zeros: nothing to subtract
+    elif zero_in is None:
         zero_in = zeros_integral(layout, zeros)
     M, K = x.shape
     N = q.shape[1]
     p = plan(layout, M, K, N, group, cuda_build.sm_count(x.device),
-             cuda_build.smem_optin(), splits)
+             cuda_build.smem_optin(), splits, stages)
     map_fn, fn = _entries(lib)
     maps = (ctypes.c_uint8 * 384)()
-    err = map_fn(q.data_ptr(), scales.data_ptr(), zeros.data_ptr(), K, N,
-                 group, p.gs, ctypes.addressof(maps))
+    G = scales.shape[0] if layout != "w8" else 0
+    err = map_fn(q.data_ptr(), scales.data_ptr(),
+                 None if zeros is None else zeros.data_ptr(),
+                 byte_rows(layout, K), N, G, p.gs, ctypes.addressof(maps))
     if err:
         raise RuntimeError(f"w4_wgmma weight maps K={K} N={N} group={group}"
                            f": CUDA error {err}")
     args = (ctypes.c_int * 13)(LAYOUTS[layout], p.mt, p.fold, M, K, N, group,
                                p.gs, p.splits, p.chunk_rows, p.m_tiles,
                                p.stages, int(zero_in))
-    return fn, maps, args, p, N, f"w4_wgmma {layout} M={M} K={K} N={N} " \
-        f"group={group} ({p}, zeros in the product: {bool(zero_in)})", \
-        weakref.ref(zeros)
+    return fn, maps, args, p, N, \
+        scales.data_ptr() if layout == "w8" else None, \
+        f"w4_wgmma {layout} M={M} K={K} N={N} group={group} ({p}, zeros " \
+        f"in the product: {bool(zero_in)})", \
+        None if zeros is None else weakref.ref(zeros)
 
 
 def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
-           scales: torch.Tensor, zeros: torch.Tensor,
+           scales: torch.Tensor, zeros: torch.Tensor | None,
            splits: int | None = None, lib=None,
-           zero_in: bool | None = None) -> torch.Tensor:
-    """y = x @ ((q - z) * s) on the card, bf16 [M, N]. ``splits`` forces a
-    K split count, ``zero_in`` the form of the zero (None: inside the
-    product where ``zeros_integral``); ``lib`` runs another build of the
-    source (the timing variants). Raises on what the kernel cannot take
-    and on a failed launch; nothing falls back."""
+           zero_in: bool | None = None,
+           stages: int | None = None) -> torch.Tensor:
+    """y = x @ W on the card, bf16 [M, N] (``zeros`` None for "w8").
+    ``splits`` forces a K split count, ``zero_in`` the form of the zero
+    (None: inside the product where ``zeros_integral``), ``stages`` caps
+    the ring's depth; ``lib`` runs another build of the source (the timing
+    variants). Raises on what the kernel cannot take and on a failed
+    launch; nothing falls back."""
     dev = x.device
-    key = (layout, x.shape, q.data_ptr(), q.shape, q.dtype,
-           scales.data_ptr(), zeros.data_ptr(), scales.shape, scales.dtype,
-           zeros.dtype, dev.index, splits, lib, zero_in)
+    key = call_key(layout, x, q, scales, zeros, splits, lib, zero_in,
+                   stages)
     call = _CALLS.get(key)
-    if call is None or call[-1]() is not zeros:
+    if call is None or (call[-1] is not None and call[-1]() is not zeros):
         if len(_CALLS) > 4096:
             _CALLS.clear()
         call = _CALLS[key] = _prepare(layout, x, q, scales, zeros, splits,
-                                      lib, zero_in)
+                                      lib, zero_in, stages)
     elif x.dtype != torch.bfloat16 or not x.is_contiguous() \
             or x.data_ptr() % 16:
         check(layout, x, q, scales, zeros)  # raises, naming the fault
-    fn, maps, args, p, N, what, _ = call
+    fn, maps, args, p, N, col_scales, what, _ = call
     out = torch.empty((x.shape[0], N), dtype=torch.bfloat16, device=dev)
     partial = counters = None
     if p.splits > 1:
@@ -379,7 +467,7 @@ def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
         partial, counters = cuda_build.split_workspace(
             dev, p.splits * x.shape[0] * N, tiles)
     err = fn(args, maps, x.data_ptr(), out.data_ptr(), partial, counters,
-             cuda_build.stream(dev))
+             col_scales, cuda_build.stream(dev))
     if err:
         raise RuntimeError(f"{what}: CUDA error {err}")
     return out

@@ -3,28 +3,30 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
-PARENT [PART ...]`` instead runs phases 8, 12, 14 and 6, the attention
-wrappers' host time a call, the window kernel's device time, the bf16
-grouped GEMM at phase 8's shapes and a Llama-3.1-8B layer's four bf16 W4
-GEMMs (int4 and packed, M = 128 and 32) of the checkout unpacked at PARENT
-and of this one, in turns (``compare_serving``; PARTs from ``AB_PARTS``
-pick some). ``python3 chip_smoke.py --variants`` times the bf16 W4 kernel
-with parts removed (``w4_variants``). Phases, each fatal on failure:
+PARENT [PART ...]`` instead runs phases 8, 12, 14, 6, 15 and 16, the
+attention wrappers' host time a call, the window kernel's device time, the
+bf16 grouped GEMM at phase 8's shapes, a Llama-3.1-8B layer's four bf16 W4
+GEMMs (int4 and packed, M = 128 and 32) and a layer's four bf16 W8 and
+uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) of the checkout
+unpacked at PARENT and of this one, in turns (``compare_serving``; PARTs
+from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
+...]`` times the bf16 weight-only kernel with parts removed
+(``w4_variants``). Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Hold each kernel against its plain PyTorch version at the main paths'
    shapes, in bf16 and fp32, and time kernel, plain version and a library
    yardstick that the port itself never calls: both attention kernels at
-   the Qwen2.5-1.5B and at the Llama-3.1-8B path's heads, prefill wave and
-   decode window, against ``scaled_dot_product_attention`` over gathered
-   dense K/V; the quantized GEMMs (Llama-3.1-8B decode shapes for the
-   packed W4 kernel, Qwen2.5-1.5B shapes for the unpacked W4 and the W8
-   kernel) against ``torch._weight_int4pack_mm`` /
-   ``torch._weight_int8pack_mm`` where the card's torch has them, else
-   ``torch.matmul`` on the dequantized weight, each by its time a call
-   and its device time (profiler). Also time the W4 prefill product (M >
-   256) at the 8B wave's shapes.
+   the Qwen2.5-1.5B, Llama-3.1-8B and Qwen2.5-7B paths' heads, prefill
+   wave and decode window, against ``scaled_dot_product_attention`` over
+   gathered dense K/V; the quantized GEMMs (Llama-3.1-8B decode shapes for
+   the packed W4 kernel, Qwen2.5-1.5B shapes for the unpacked W4 and the W8
+   kernel, and phases 15's and 16's for these two in bf16) against
+   ``torch._weight_int4pack_mm`` / ``torch._weight_int8pack_mm`` where
+   the card's torch has them, else ``torch.matmul`` on the dequantized
+   weight, each by its time a call and its device time (profiler). Also
+   time the W4 prefill product (M > 256) at the 8B wave's shapes.
 3. Run a tiny model end to end in fp32 through the port's ``LLM`` on the
    card and on the CPU with the same weights: greedy tokens must be equal.
 4. Qwen2.5-1.5B geometry, bf16 dummy weights, block 64, max_num_seqs 32,
@@ -84,6 +86,18 @@ with parts removed (``w4_variants``). Phases, each fatal on failure:
    pages: exactly 4 x 32 x 63 = 8064 int4 launches, 32 x 63 = 2016
    shared-prefix passes and window launches, 32 ragged and 0 packed W4
    launches a run.
+15. The main path of the W8 layout: Llama-3.1-8B at full width and depth,
+   W8A16 (per-column int8) on seeded dummy weights, bf16, phase 6's
+   traffic and runs. Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 32
+   x 63 = 8064 times in every cold and warm run, the other quantized GEMMs
+   never, both attention kernels launched.
+16. The main path of the uint4 layout: Qwen2.5-7B (``Qwen/Qwen2.5-7B``:
+   28 / 4 heads of 128, qkv bias, untied head) at full width and depth,
+   gptq (group 128; no projection packs at K = 3584 and 18944) on seeded
+   dummy weights, bf16, phase 6's traffic and runs. Exactly 2048 tokens a
+   run, the uint4 GEMM exactly 4 x 28 x 63 = 7056 times, the other
+   quantized GEMMs never, both attention kernels (at 7 query heads a KV
+   head, held in phase 2 first) launched.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -116,9 +130,14 @@ no library yardstick. It holds the native-int4 GEMM (which stands in for
 four GEMMs at M = 128, 65 and 256, timed at M = 128 (time a call, device
 and host time) and at 32 beside the packed W4 kernel on the same weights,
 with ``torch._weight_int4pack_mm`` and a dense bf16 ``torch.matmul`` of the
-dequantized weights as yardsticks; the bf16 W4 kernel of both layouts
-(``csrc/w4_wgmma.cu``) at ``W4_CASES`` (M 1-256, groups 32-256, a ragged
-N, forced K splits, both forms of the zero), two launches bit-equal; the
+dequantized weights as yardsticks; the bf16 kernel of ``csrc/w4_wgmma.cu``
+in its four layouts, int4 and packed at ``W4_CASES`` (M 1-256, groups
+32-256, a ragged N, forced K splits, both forms of the zero), uint4 and w8
+at ``BYTE_CASES`` (the same, groups up to K, w8's bytes -128 and 127 in
+every column, and the shapes of phases 15 and 16), two launches bit-equal,
+and the W8 and uint4 GEMMs timed at a layer of phase 15's and 16's shapes
+(time a call, device and host time, beside ``torch._weight_int8pack_mm``
+/ ``_weight_int4pack_mm`` and a dense bf16 ``torch.matmul``); the
 shared-prefix pass (``shared_prefix_attention``) in
 bf16 and fp32 at phase 14's decode step (R 128, 32 / 8 heads of 128, S =
 1024; also S = 1000 and 64, where one split takes every key), against
@@ -170,6 +189,16 @@ LLAMA8B_GEMMS = {"qkv": (4096, 6144), "o": (4096, 4096),
                  "gate_up": (4096, 28672), "down": (14336, 4096)}
 QWEN_GEMMS = {"qkv": (1536, 2048), "o": (1536, 1536),
               "gate_up": (1536, 17920), "down": (8960, 1536)}
+QWEN25_7B = dict(  # Qwen/Qwen2.5-7B config.json
+    vocab_size=152064, hidden_size=3584, num_hidden_layers=28,
+    num_attention_heads=28, num_key_value_heads=4, intermediate_size=18944,
+    max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, use_sliding_window=False,
+    architectures=["Qwen2ForCausalLM"])
+# Every projection stays unpacked under gptq's group of 128 ((K/2) % 1024
+# != 0 at K = 3584 and 18944): all run the uint4 layout.
+QWEN7B_GEMMS = {"qkv": (3584, 4608), "o": (3584, 3584),
+                "gate_up": (3584, 37888), "down": (18944, 3584)}
 QUANT_KERNELS = {  # name: (replaces, shapes)
     "w4a16_packed_matmul": (
         "aphrodite_tpu/ops/quant_matmul_pallas.py:206", LLAMA8B_GEMMS),
@@ -178,6 +207,9 @@ QUANT_KERNELS = {  # name: (replaces, shapes)
     "w8a16_matmul": (
         "aphrodite_tpu/ops/quant_matmul_pallas.py:50", QWEN_GEMMS),
 }
+# The paths of the byte layouts (phases 15 and 16): name -> (path, shapes).
+BYTE_PATHS = {"w8a16_matmul": ("llama-3.1-8b-w8a16", LLAMA8B_GEMMS),
+              "w4a16_matmul": ("qwen2.5-7b-gptq", QWEN7B_GEMMS)}
 # Phase 14: 128 requests x (1024 shared + 128 own) tokens, 64 generated.
 CASCADE_R, CASCADE_S, CASCADE_SUFFIX, CASCADE_DECODE = 128, 1024, 128, 64
 
@@ -188,8 +220,10 @@ ATTN_GEOMS = {
         nq=12, kvh=2, ctx=[500] * 28 + [521, 527, 533, 540],
         qlen=[500] * 28 + [1] * 4,
         paged=[500 + (37 * r) % 51 for r in range(32)]),
-    "llama-3.1-8b-w4a16": dict(  # phase 6: 32 x 512 in one wave
+    "llama-3.1-8b-w4a16": dict(  # phases 6 and 15: 32 x 512 in one wave
         nq=32, kvh=8, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
+    "qwen2.5-7b-gptq": dict(  # phase 16: 32 x 512, 7 query heads a KV head
+        nq=28, kvh=4, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
     "qwen1.5-moe-a2.7b-bf16": dict(  # phase 8: 32 x 512 in one wave
         nq=16, kvh=16, ctx=[512] * 32, qlen=[512] * 32, paged=[512] * 32),
     # phase 12: 32 x 512 in one wave at head_dim 256 (bf16: the ragged
@@ -707,21 +741,23 @@ def library_call(name: str, x, args, dense):
     return "matmul", lambda: torch.matmul(x, w)
 
 
-def check_quant(gen, name: str, dtype_name: str) -> dict:
-    """One quant kernel at its path's four GEMM shapes (M = 32): error
-    against the plain version on fp32 copies of the same inputs; times and
-    bounds summed over the four GEMMs of a layer. Then errors only at other
-    M."""
+def check_quant(gen, name: str, dtype_name: str,
+                shapes: dict | None = None) -> dict:
+    """One quant kernel at a path's four GEMM shapes (M = 32; ``shapes``,
+    else those of ``QUANT_KERNELS``): error against the plain version on
+    fp32 copies of the same inputs; times and bounds summed over the four
+    GEMMs of a layer. Then errors only at other M."""
     import torch
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     dtype = getattr(torch, dtype_name)
     kernel = qm.KERNELS[name]
+    shapes = shapes or QUANT_KERNELS[name][1]
     M = 32
     tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
                bound_ms=0.0, library_ms=0.0, library_device_ms=0.0,
                bytes=0.0, ops=0.0, host_ms=0.0, dense_device_ms=0.0)
     lib_label = None
-    for gemm, (K, N) in QUANT_KERNELS[name][1].items():
+    for gemm, (K, N) in shapes.items():
         x, args, plain, dense = quant_inputs(gen, name, K, N, M, dtype)
         out = kernel(x, *args)
         ref = plain(x.float())
@@ -763,7 +799,7 @@ def check_quant(gen, name: str, dtype_name: str) -> dict:
             tot[k] = max(tot[k], v) if k == "max_abs_err" else tot[k] + v
     # Other batch sizes (other M tiles and K splits) at the first shape:
     # correctness only.
-    K, N = next(iter(QUANT_KERNELS[name][1].values()))
+    K, N = next(iter(shapes.values()))
     for M in (1, 5, 13, 40, 200):
         x, args, plain, _ = quant_inputs(gen, name, K, N, M, dtype)
         out = kernel(x, *args)
@@ -947,41 +983,78 @@ W4_CASES = ([(M, 2048, 1424, 128, None, None, False) for M in W4_BATCHES]
                (65, 96, 64, 32, None, None, False)])
 
 
+# Where the byte layouts bite (phase 2), as W4_CASES: every M tile and two
+# M tiles, groups 32, 64, 128 and K (one group; w8 reads no group), a
+# ragged N (1424: the last tile 16 wide), forced K splits, both forms of
+# the zero and fractional zeros (uint4; w8 has no zeros), a short last
+# stage (K = 4032, group 96; K = 96), and the two paths' shapes: a Llama-
+# 3.1-8B layer's (phase 15) and a Qwen2.5-7B layer's (phase 16) four GEMMs
+# at M = 32, down also split 7 ways at M = 13. w8's bytes hold -128 and
+# 127 in every column.
+BYTE_CASES = ([(M, 2048, 1424, 128, None, None, False) for M in W4_BATCHES]
+              + [(M, 2048, 1424, g, s, None, False) for g in (32, 64, 2048)
+                 for M, s in ((40, None), (200, 3))]
+              + [(32, K, N, 128, None, None, False)
+                 for K, N in (*LLAMA8B_GEMMS.values(),
+                              *QWEN7B_GEMMS.values())]
+              + [(13, 18944, 3584, 128, 7, None, False),
+                 (13, 14336, 4096, 128, 7, None, False),
+                 (65, 2048, 1424, 128, None, False, False),
+                 (32, 2048, 1424, 64, 2, False, False),
+                 (13, 2048, 1424, 128, None, None, True),
+                 (200, 2048, 1424, 32, 2, None, True),
+                 (13, 4032, 272, 96, None, None, False),
+                 (200, 2112, 160, 64, 2, None, False),
+                 (65, 96, 64, 32, None, None, False)])
+
+
 def w4_inputs(gen, layout: str, M: int, K: int, N: int, group: int,
               frac: bool):
-    """x and one layout's weights, scaled as in ``int4_inputs``: x, (q, s,
-    z), the plain version. ``frac`` moves every zero by 0.37."""
+    """x and one layout's weights, scaled as in ``int4_inputs`` (w8 as in
+    ``quant_inputs``, with -128 and 127 in rows 0 and 1 of every column):
+    x, (q, s, z) (w8: (q, s, None)), the plain version. ``frac`` moves
+    every zero by 0.37."""
     import torch
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     from aphrodite_tpu_torch.quantization.loader import pack_w4
     dev = dict(device="cuda", generator=gen)
     G = K // group
     x = torch.randn((M, K), **dev).bfloat16()
+    if layout == "w8":
+        q = torch.randint(-128, 128, (K, N), **dev).to(torch.int8)
+        q[0], q[1] = -128, 127
+        s = (0.5 + torch.rand((N,), **dev)) / (4 * 73.6 * K ** 0.5)
+        return x, (q, s, None), lambda xf: qm.ref_w8a16_matmul(xf, q, s)
     s = (0.5 + torch.rand((G, N), **dev)) / (4 * 6.5 * K ** 0.5)
     if layout == "int4":
         q = qm.pack_int4(torch.randint(-8, 8, (K, N), **dev).to(torch.int8))
         z = torch.randint(-8, 8, (G, N), **dev).float()
         ref = qm.ref_w4a16_int4_matmul
     else:
-        q = pack_w4(torch.randint(0, 16, (K, N), **dev).to(torch.int8))
+        q = torch.randint(0, 16, (K, N), **dev).to(torch.int8)
         z = torch.randint(0, 16, (G, N), **dev).float()
-        ref = qm.ref_w4a16_packed_matmul
+        ref = qm.ref_w4a16_matmul
+        if layout == "packed":
+            q = pack_w4(q)
+            ref = qm.ref_w4a16_packed_matmul
     if frac:
         z += 0.37
     return x, (q, s, z), lambda xf: ref(xf, q, s, z)
 
 
-def check_w4_wgmma(gen) -> float:
-    """The bf16 W4 kernel (``csrc/w4_wgmma.cu``, both layouts) against the
-    plain versions at ``W4_CASES``: every M tile and two M tiles, groups
-    32-256, a ragged N, forced K splits, both forms of the zero; two
-    launches on the same inputs must be bit-equal. Returns the largest
-    error."""
+def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8")) -> float:
+    """The bf16 kernel (``csrc/w4_wgmma.cu``) in each layout against the
+    plain versions, the nibble layouts at ``W4_CASES`` and the byte ones at
+    ``BYTE_CASES``: every M tile and two M tiles, groups 32-256 (and K), a
+    ragged N, forced K splits, both forms of the zero; two launches on the
+    same inputs must be bit-equal. Returns the largest error (tolerance
+    TOL["bfloat16"], max-abs, the outputs O(1))."""
     import torch
     from aphrodite_tpu_torch.ops import w4_wgmma
     worst = 0.0
-    for layout in ("int4", "packed"):
-        for M, K, N, group, splits, zero_in, frac in W4_CASES:
+    for layout in layouts:
+        cases = BYTE_CASES if layout in w4_wgmma.BYTE_LAYOUTS else W4_CASES
+        for M, K, N, group, splits, zero_in, frac in cases:
             x, args, plain = w4_inputs(gen, layout, M, K, N, group, frac)
             y = w4_wgmma.matmul(layout, x, *args, splits=splits,
                                 zero_in=zero_in)
@@ -998,6 +1071,7 @@ def check_w4_wgmma(gen) -> float:
             if not torch.equal(y, y2):
                 raise AssertionError(f"{what}: two launches differ")
             worst = max(worst, err)
+            del x, args, y, y2
     return worst
 
 
@@ -1705,6 +1779,38 @@ def main_path_moe() -> dict:
         {"grouped_matmul": grouped_matmul, **attention_kernels()})[0]
 
 
+def serve_bytes(phase: str, name: str, hf: dict, quantization: str,
+                kernel: str) -> dict:
+    """A byte layout's path at full width and depth (phases 15 and 16):
+    phase 6's settings, traffic and runs with ``quantization`` on seeded
+    dummy weights. Every decode GEMM is that layout's: ``kernel`` exactly 4
+    x layers x 63 times a run, the other quantized GEMMs never."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    layers, steps = hf["num_hidden_layers"], 63
+    exact = {k: 0 for k in qm.KERNELS}
+    exact[kernel] = 4 * layers * steps
+    log(f"# {phase}: launches a run, reckoned: {exact} (4 GEMMs x {layers} "
+        f"layers x {steps} window steps)")
+    return serve_workload(phase, name, hf, {**qm.KERNELS,
+                                            **attention_kernels()},
+                          exact=exact, quantization=quantization)[0]
+
+
+def main_path_w8() -> dict:
+    """Llama-3.1-8B W8A16 at full width and depth (phase 15): the W8 GEMM
+    at M = 32 in every decode window step."""
+    return serve_bytes("phase 15", "llama-3.1-8b-w8a16-dummy", LLAMA31_8B,
+                       "w8a16", "w8a16_matmul")
+
+
+def main_path_qwen7b_gptq() -> dict:
+    """Qwen2.5-7B GPTQ (group 128) at full width and depth (phase 16): no
+    projection packs, so every decode GEMM is the uint4 one; 7 query heads
+    a KV head in the ragged and window kernels."""
+    return serve_bytes("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B,
+                       "gptq", "w4a16_matmul")
+
+
 SSM_TINY = {  # tiny geometries of the three SSM families
     "MambaForCausalLM": dict(
         model_type="mamba", intermediate_size=128, time_step_rank=8,
@@ -2116,7 +2222,8 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
              "window" if "wd_split" in n or "wd_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
-             "quant" if "qmm_" in n or "w4_wgmma_kernel<1" in n else
+             "quant" if "qmm_" in n or any(f"w4_wgmma_kernel<{i}" in n
+                                            for i in (1, 2, 3)) else
              "int4" if "q4_kernel" in n or "w4_wgmma_kernel<0" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
@@ -2231,11 +2338,54 @@ for k, (ms, dev, host) in tot.items():
     print(f"# quant GEMMs, a layer's 4, bf16 {k}: {ms:.4f} ms, device "
           f"{dev:.4f} ms, host {host:.4f} ms", flush=True)
 """
+# Run by each checkout in ``compare_serving``: a layer's four bf16 GEMMs of
+# rows 5 (W8) and 6 (uint4) at M = 32 as that checkout's wrappers run them,
+# at the new paths' shapes (Llama-3.1-8B W8, Qwen2.5-7B uint4) and at
+# Qwen2.5-1.5B's (phase 5's): time a call, device time and host time a
+# call. The shapes are written out: the parent's script lacks them.
+BYTE_PROBE = f"""
+from aphrodite_tpu_torch.ops import quant_matmul as qm
+for name, path, shapes in (
+        ('w8a16_matmul', 'llama-3.1-8b', {LLAMA8B_GEMMS!r}),
+        ('w4a16_matmul', 'qwen2.5-7b', {QWEN7B_GEMMS!r}),
+        ('w8a16_matmul', 'qwen2.5-1.5b', {QWEN_GEMMS!r}),
+        ('w4a16_matmul', 'qwen2.5-1.5b', {QWEN_GEMMS!r})):
+    tot = (0.0, 0.0, 0.0)
+    for gemm, (K, N) in shapes.items():
+        x, args, _, _ = c.quant_inputs(gen, name, K, N, 32, torch.bfloat16)
+        fn = lambda: qm.KERNELS[name](x, *args)
+        r = (c.cuda_ms(fn, 50), c.device_ms(fn, 20), c.host_ms(fn, 50))
+        tot = tuple(a + b for a, b in zip(tot, r))
+        del x, args
+    print(f"# quant GEMMs, a layer's 4, bf16 {{name}} at {{path}} M=32: "
+          f"{{tot[0]:.4f}} ms, device {{tot[1]:.4f}} ms, host {{tot[2]:.4f}} "
+          "ms", flush=True)
+"""
+
+
+def _ab_serve(phase: str, name: str, hf: dict, quantization: str,
+              kernel: str) -> str:
+    """A byte layout's path (phase 15 or 16) as an ``--ab`` part: the
+    ``serve_workload`` both checkouts have, with the geometry and the exact
+    launches written out (the parent's script lacks the phase)."""
+    exact = {k: 0 for k in ("w8a16_matmul", "w4a16_matmul",
+                            "w4a16_packed_matmul", "w4a16_int4_matmul")}
+    exact[kernel] = 4 * hf["num_hidden_layers"] * 63
+    return ("from aphrodite_tpu_torch.ops import quant_matmul as qm\n"
+            f"c.serve_workload({phase!r}, {name!r}, {hf!r}, "
+            "{**qm.KERNELS, **c.attention_kernels()}, "
+            f"exact={exact!r}, quantization={quantization!r})")
+
+
 # What ``--ab`` runs, in this order, each by its name on the command line.
 AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE,
-            "quant": QUANT_PROBE, "8": "c.main_path_moe()",
-            "12": "c.main_path_gemma()", "14": "c.main_path_int4_cascade()",
-            "6": "c.main_path_8b()"}
+            "quant": QUANT_PROBE, "bytes": BYTE_PROBE,
+            "8": "c.main_path_moe()", "12": "c.main_path_gemma()",
+            "14": "c.main_path_int4_cascade()", "6": "c.main_path_8b()",
+            "15": _ab_serve("phase 15", "llama-3.1-8b-w8a16-dummy",
+                            LLAMA31_8B, "w8a16", "w8a16_matmul"),
+            "16": _ab_serve("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B,
+                            "gptq", "w4a16_matmul")}
 
 
 def compare_serving(parent: str, parts: list[str]) -> int:
@@ -2276,22 +2426,34 @@ def compare_serving(parent: str, parts: list[str]) -> int:
     return 0
 
 
-# The int4 kernel's parts, removed for timing (``W4_DROP`` bits in
-# ``csrc/w4_wgmma.cu``): name -> (bits, whether y is still computed).
+# The kernel's parts, removed for timing (``W4_DROP`` bits in
+# ``csrc/w4_wgmma.cu``), and w8's other conversions (``W8_CONVERT``): name
+# -> (macros, whether y is still computed).
 W4_VARIANTS = {
-    "kernel": (0, True),
-    "no multicast": (4, True),
-    "no conversion (A zero)": (1, False),
-    "no fold (acc += d)": (2, False),
-    "no sums of x": (64, False),
-    "no fold, no sums": (66, False),
-    "no stores": (8, False),
-    "no K-split partials and fix-up": (128, False),
-    "no products": (16, False),
-    "no loads": (32, False),
-    "loads only": (1 | 2 | 8 | 16 | 64, False),
-    "products only": (1 | 2 | 8 | 32 | 64, False),
+    "kernel": ({}, True),
+    "no multicast": ({"W4_DROP": 4}, True),
+    "no conversion (A zero)": ({"W4_DROP": 1}, False),
+    "no fold (acc += d)": ({"W4_DROP": 2}, False),
+    "no sums of x": ({"W4_DROP": 64}, False),
+    "no fold, no sums": ({"W4_DROP": 66}, False),
+    "no stores": ({"W4_DROP": 8}, False),
+    "no K-split partials and fix-up": ({"W4_DROP": 128}, False),
+    "no products": ({"W4_DROP": 16}, False),
+    "no loads": ({"W4_DROP": 32}, False),
+    "loads only": ({"W4_DROP": 1 | 2 | 8 | 16 | 64}, False),
+    "products only": ({"W4_DROP": 1 | 2 | 8 | 32 | 64}, False),
+    "w8 sign split": ({"W8_CONVERT": 1}, True),
+    "w8 nibble split": ({"W8_CONVERT": 2}, True),
 }
+# Variants that change only one layout's code.
+_VARIANT_LAYOUT = {"w8 sign split": "w8", "w8 nibble split": "w8"}
+# What ``--variants`` times: layout -> (M, a layer's GEMMs); the ring
+# depths (stages) timed beside the planned one for the byte layouts.
+VARIANT_PATHS = {"int4": [(128, LLAMA8B_GEMMS), (32, LLAMA8B_GEMMS)],
+                 "packed": [(32, LLAMA8B_GEMMS)],
+                 "w8": [(32, LLAMA8B_GEMMS)],
+                 "uint4": [(32, QWEN7B_GEMMS)]}
+VARIANT_RINGS = (4, 16)
 # In every variant's copy an mbarrier wait that spins past 2^26 polls
 # traps, so a variant that breaks the pipeline fails instead of hanging.
 _W4_TRAP = [("  uint32_t done;\n  do {",
@@ -2300,23 +2462,29 @@ _W4_TRAP = [("  uint32_t done;\n  do {",
              "    if (++spins > (1ll << 26)) __trap();\n  } while (!done);")]
 
 
-def w4_variants() -> int:
-    """``python3 chip_smoke.py --variants``: the bf16 W4 kernel
-    (``csrc/w4_wgmma.cu``) with parts removed (``W4_VARIANTS``), each a
-    copy of the sources under ``build/w4_variants/`` built with its
-    ``-DW4_DROP`` (all ``nvcc`` at once). The variants that compute y are
-    held against the plain versions first. Then each is timed on a
-    Llama-3.1-8B layer's four GEMMs, int4 at M = 128 and 32 and packed at
-    M = 32: device time (profiler), 4 rounds in a rotating order, the
-    middle two rounds' mean and the range; beside them a dense bf16
-    ``torch.matmul`` of the same shapes."""
+def w4_variants(layouts: list[str]) -> int:
+    """``python3 chip_smoke.py --variants [LAYOUT ...]``: the bf16 kernel
+    (``csrc/w4_wgmma.cu``) with parts removed or w8's conversion swapped
+    (``W4_VARIANTS``), each a copy of the sources under
+    ``build/w4_variants/`` built with its macros (all ``nvcc`` at once).
+    The variants that compute y are held against the plain versions
+    first. Then each is timed on a layer's four GEMMs of each layout named
+    (all of ``VARIANT_PATHS`` by default: int4 at M = 128 and 32, packed
+    and w8 on Llama-3.1-8B's, uint4 on Qwen2.5-7B's at M = 32), and for
+    the byte layouts the kernel and its loads alone with the ring capped at
+    ``VARIANT_RINGS`` stages: device time (profiler), 4 rounds in a
+    rotating order, the middle two rounds' mean and the range; beside them
+    a dense bf16 ``torch.matmul`` of the same shapes."""
     import ctypes
     import shutil
     import torch
     from aphrodite_tpu_torch.ops import cuda_build, w4_wgmma
+    layouts = layouts or list(VARIANT_PATHS)
     src = Path(__file__).resolve().parent / "aphrodite_tpu_torch" / "csrc"
     jobs = {}
-    for name, (bits, _) in W4_VARIANTS.items():
+    for name, (macros, _) in W4_VARIANTS.items():
+        if _VARIANT_LAYOUT.get(name, layouts[0]) not in layouts:
+            continue
         d = Path("build/w4_variants") / name.split(" (")[0].replace(
             " ", "_").replace(",", "")
         shutil.rmtree(d, ignore_errors=True)
@@ -2329,8 +2497,9 @@ def w4_variants() -> int:
                 raise ValueError(f"{a!r} not in hopper_common.cuh")
             hc = hc.replace(a, b)
         (d / "hopper_common.cuh").write_text(hc)
-        cmd = [cuda_build._nvcc(), *cuda_build._FLAGS, f"-DW4_DROP={bits}",
-               "-I", str(d), "-o", str(d / "lib.so"), str(d / "w4_wgmma.cu")]
+        cmd = [cuda_build._nvcc(), *cuda_build._FLAGS,
+               *(f"-D{k}={v}" for k, v in macros.items()), "-I", str(d),
+               "-o", str(d / "lib.so"), str(d / "w4_wgmma.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       d)
@@ -2343,52 +2512,68 @@ def w4_variants() -> int:
         libs[name] = ctypes.CDLL(str(d / "lib.so"))
     log(f"# variants built in {time.perf_counter() - t0:.1f} s")
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for layout, M in (("int4", 128), ("int4", 13), ("packed", 32),
-                      ("packed", 200)):
-        K, N = 4096, 1424
-        x, args, plain = w4_inputs(gen, layout, M, K, N, 128, False)
-        ref = plain(x.float())
-        for name, (_, computes) in W4_VARIANTS.items():
-            for zero_in in ((None, False) if computes else ()):
-                y = w4_wgmma.matmul(layout, x, *args, lib=libs[name],
-                                    zero_in=zero_in)
-                torch.cuda.synchronize()
-                err = (y.float() - ref).abs().max().item()
-                if not err <= TOL["bfloat16"]:
-                    raise AssertionError(f"{name} {layout} M={M} zeros in "
-                                         f"{zero_in}: max_abs_err {err}")
-        log(f"# {layout} M={M} K={K} N={N}: every variant that computes y "
-            f"within {TOL['bfloat16']} of the plain version")
+    def applies(name: str, layout: str) -> bool:
+        return name in libs and _VARIANT_LAYOUT.get(name, layout) == layout
 
-    for layout, M in (("int4", 128), ("int4", 32), ("packed", 32)):
-        totals: dict[str, float] = {}
-        for gemm, (K, N) in LLAMA8B_GEMMS.items():
-            x, args, _ = w4_inputs(gen, layout, M, K, N, 128, False)
-            wd = torch.randn((K, N), generator=gen, device="cuda").bfloat16()
-            fns = {n: (lambda lib=lib: w4_wgmma.matmul(layout, x, *args,
-                                                       lib=lib))
-                   for n, lib in libs.items()}
-            fns["kernel, zero after the product"] = (
-                lambda: w4_wgmma.matmul(layout, x, *args, lib=libs["kernel"],
-                                        zero_in=False))
-            fns["dense matmul"] = lambda: x @ wd
-            names = list(fns)
-            got = {n: [] for n in names}
-            for r in range(4):
-                order = names[r:] + names[:r]
-                for n in (order[::-1] if r % 2 else order):
-                    got[n].append(device_ms(fns[n], 10))
-            line = f"# {layout} {gemm} M={M}:"
-            for n in names:
-                v = sorted(got[n])
-                mid = (v[1] + v[2]) / 2
-                totals[n] = totals.get(n, 0.0) + mid
-                line += f" {n} {mid:.4f} [{v[0]:.4f}-{v[-1]:.4f}];"
-            log(line)
-            del x, args, wd
-        log(f"# {layout} M={M}, a layer's 4 GEMMs, device ms: " + "; ".join(
-            f"{n} {v:.4f}" for n, v in totals.items()))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for layout in layouts:
+        for M in (128, 13) if layout == "int4" else (32, 200):
+            K, N = 4096, 1424
+            x, args, plain = w4_inputs(gen, layout, M, K, N, 128, False)
+            ref = plain(x.float())
+            for name, (_, computes) in W4_VARIANTS.items():
+                if not (computes and applies(name, layout)):
+                    continue
+                for zero_in in (None, False) if layout != "w8" else (None,):
+                    y = w4_wgmma.matmul(layout, x, *args, lib=libs[name],
+                                        zero_in=zero_in)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref).abs().max().item()
+                    if not err <= TOL["bfloat16"]:
+                        raise AssertionError(f"{name} {layout} M={M} zeros "
+                                             f"in {zero_in}: max_abs_err "
+                                             f"{err}")
+            log(f"# {layout} M={M} K={K} N={N}: every variant that computes "
+                f"y within {TOL['bfloat16']} of the plain version")
+
+    for layout in layouts:
+        for M, shapes in VARIANT_PATHS[layout]:
+            totals: dict[str, float] = {}
+            for gemm, (K, N) in shapes.items():
+                x, args, _ = w4_inputs(gen, layout, M, K, N, 128, False)
+                wd = torch.randn((K, N), generator=gen,
+                                 device="cuda").bfloat16()
+                fns = {n: (lambda lib=lib: w4_wgmma.matmul(layout, x, *args,
+                                                           lib=lib))
+                       for n, lib in libs.items() if applies(n, layout)}
+                if layout != "w8":
+                    fns["kernel, zero after the product"] = (
+                        lambda: w4_wgmma.matmul(layout, x, *args,
+                                                lib=libs["kernel"],
+                                                zero_in=False))
+                if layout in w4_wgmma.BYTE_LAYOUTS:
+                    for r in VARIANT_RINGS:
+                        for n in ("kernel", "loads only"):
+                            fns[f"{n}, ring {r}"] = (
+                                lambda lib=libs[n], r=r: w4_wgmma.matmul(
+                                    layout, x, *args, lib=lib, stages=r))
+                fns["dense matmul"] = lambda: x @ wd
+                names = list(fns)
+                got = {n: [] for n in names}
+                for r in range(4):
+                    order = names[r:] + names[:r]
+                    for n in (order[::-1] if r % 2 else order):
+                        got[n].append(device_ms(fns[n], 10))
+                line = f"# {layout} {gemm} M={M}:"
+                for n in names:
+                    v = sorted(got[n])
+                    mid = (v[1] + v[2]) / 2
+                    totals[n] = totals.get(n, 0.0) + mid
+                    line += f" {n} {mid:.4f} [{v[0]:.4f}-{v[-1]:.4f}];"
+                log(line)
+                del x, args, wd
+            log(f"# {layout} M={M}, a layer's 4 GEMMs, device ms: "
+                + "; ".join(f"{n} {v:.4f}" for n, v in totals.items()))
     return 0
 
 
@@ -2409,7 +2594,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--ab"]:
         return compare_serving(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--variants"]:
-        return w4_variants()
+        return w4_variants(sys.argv[2:])
     names = KERNEL_SOURCES
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
@@ -2473,10 +2658,22 @@ def main() -> int:
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         results[("w4a16_int4_matmul", dt)] = r
         if dt == "bfloat16":
-            log(f"# phase 2: w4_wgmma (bf16 int4 and packed) at "
-                f"{len(W4_CASES)} cases a layout: max_abs_err "
-                f"{check_w4_wgmma(gen):.3g} (tol {TOL[dt]}), two launches "
-                "bit-equal")
+            log(f"# phase 2: w4_wgmma (bf16 int4 and packed at "
+                f"{len(W4_CASES)} cases, uint4 and w8 at {len(BYTE_CASES)}): "
+                f"max_abs_err {check_w4_wgmma(gen):.3g} (tol {TOL[dt]}), two "
+                "launches bit-equal")
+            for name, (path, shapes) in BYTE_PATHS.items():
+                r = check_quant(gen, name, dt, shapes)
+                log(f"# phase 2: {name} {dt} at {path}, a layer's 4 GEMMs: "
+                    f"max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dt]}); "
+                    f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} "
+                    f"ms, host {r['host_ms']:.4f} ms a layer), plain "
+                    f"{r['plain_ms']:.4f} ms, {r['library']} "
+                    f"{r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f} ms), dense {dt} matmul "
+                    f"device {r['dense_device_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                results[(name, path, dt)] = r
         (results[("shared_prefix_attention", dt)],
          results[("window_decode_attention", "cascade", dt)]) = \
             check_cascade(gen, dt)
@@ -2510,6 +2707,8 @@ def main() -> int:
     gemma_counts = main_path_gemma()
     int4_parity_launches = int4_cascade_parity()
     cascade_counts = main_path_int4_cascade()
+    w8_counts = main_path_w8()
+    qwen7b_counts = main_path_qwen7b_gptq()
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
@@ -2517,8 +2716,17 @@ def main() -> int:
                                                              "bfloat16")])
             for path, counts in (("qwen2.5-1.5b-bf16", qwen_counts),
                                  ("llama-3.1-8b-w4a16", llama_counts),
-                                 ("qwen1.5-moe-a2.7b-bf16", moe_counts))
+                                 ("qwen1.5-moe-a2.7b-bf16", moe_counts),
+                                 ("qwen2.5-7b-gptq", qwen7b_counts))
             for name in ("ragged_paged_attention", "window_decode_attention")]
+    # Phase 15 runs the attention of phase 6's shapes.
+    rows += [(name, "llama-3.1-8b-w8a16", "bfloat16", w8_counts[name],
+              results[(name, "llama-3.1-8b-w4a16", "bfloat16")])
+             for name in ("ragged_paged_attention", "window_decode_attention")]
+    rows += [(name, path, "bfloat16", counts[name],
+              results[(name, path, "bfloat16")])
+             for (name, (path, _)), counts in zip(
+                 BYTE_PATHS.items(), (w8_counts, qwen7b_counts))]
     rows.append(("ragged_paged_attention", "gemma-2-9b-bf16", "bfloat16",
                  gemma_counts["ragged_paged_attention"],
                  results[("ragged_paged_attention", "gemma-2-9b-bf16",
@@ -2575,8 +2783,8 @@ def main() -> int:
     for name, path, dt, launches, r in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
                or name == "w4a16_int4_matmul" else name)
-        if name in ("w4a16_int4_matmul", "w4a16_packed_matmul") \
-                and dt == "bfloat16":
+        if name in ("w4a16_int4_matmul", "w4a16_packed_matmul",
+                    *BYTE_PATHS) and dt == "bfloat16":
             src = "w4_wgmma"
         kernels.append({
             "name": name, "path": path, "dtype": dt, "route": "cuda",

@@ -4,7 +4,11 @@ tree goes through ``params_from_jax`` into the port's worker.
 
 Greedy token ids must be identical (fp32). Cases: gptq at a tiny geometry
 whose W4 leaves stay unpacked, gptq at a packable one (hidden and
-intermediate 2048: every projection packs), and w8a16. A 32-token batch
+intermediate 2048: every projection packs), and w8a16; then gptq and w8a16
+at Qwen2.5-7B's head grouping (7 query heads a KV head: 14 heads of 64 on
+2, Qwen2.5-0.5B's heads) with widths that stay unpacked under gptq's group
+of 128 (hidden 896, intermediate 640), the uint4 and W8 layouts of the
+byte-layout slice. A 32-token batch
 budget forces chunked prefill; 12 new tokens per request run decode
 windows (M <= 256: the kernels' plain versions). A 300-token prompt,
 chunked on the JAX side, goes through the port once more in one wave,
@@ -23,6 +27,8 @@ CASES = {
     "gptq-unpacked": ("gptq", 128, 256, 2, 8, "Qwen2ForCausalLM"),
     "gptq-packed": ("gptq", 2048, 2048, 1, 16, "LlamaForCausalLM"),
     "w8a16": ("w8a16", 128, 256, 2, 8, "LlamaForCausalLM"),
+    "gptq-group7": ("gptq", 896, 640, 2, 14, "Qwen2ForCausalLM"),
+    "w8a16-group7": ("w8a16", 896, 640, 2, 14, "Qwen2ForCausalLM"),
 }
 
 
@@ -47,14 +53,21 @@ def _kwargs(quant, H, inter, layers, heads, arch, budget):
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     quant, *geo = CASES[request.param]
-    jax_llm = JaxLLM("dummy", **_kwargs(quant, *geo, budget=32))
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(1, 500, size=n).tolist()
-               for n in (5, 40, 17, 3, 300)]
-    params = JaxParams(temperature=0.0, max_tokens=MAX_TOKENS,
-                       ignore_eos=True)
-    jax_tokens = [o.outputs[0].token_ids
-                  for o in jax_llm.generate(prompts, params)]
+    with pytest.MonkeyPatch.context() as mp:
+        if request.param.endswith("group7"):
+            # The JAX package's Pallas W8/W4 kernels take K that their
+            # 512-row block divides; at K = 896 and 640 the reference runs
+            # its XLA path, its default off a TPU, whatever an earlier
+            # test set APHRODITE_PALLAS_INTERPRET to.
+            mp.setenv("APHRODITE_QUANT_PALLAS", "0")
+        jax_llm = JaxLLM("dummy", **_kwargs(quant, *geo, budget=32))
+        rng = np.random.RandomState(0)
+        prompts = [rng.randint(1, 500, size=n).tolist()
+                   for n in (5, 40, 17, 3, 300)]
+        params = JaxParams(temperature=0.0, max_tokens=MAX_TOKENS,
+                           ignore_eos=True)
+        jax_tokens = [o.outputs[0].token_ids
+                      for o in jax_llm.generate(prompts, params)]
     tree = jax_llm.engine.core.worker.params
     return request.param, quant, geo, tree, prompts, jax_tokens
 
