@@ -24,15 +24,33 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention, ref_ragged_paged_attention)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_decode_attention)
+from aphrodite_tpu_torch.utils import to_fp8
 
 __all__ = ["kv_cache_shape", "write_kv", "write_tail", "paged_attention",
-           "window_attention", "ref_ragged_paged_attention"]
+           "window_attention", "ref_ragged_paged_attention", "cast_to",
+           "as_bytes"]
 
 
 def kv_cache_shape(num_layers: int, num_pages: int, page_size: int,
                    num_kv_heads: int, head_dim: int
                    ) -> tuple[int, int, int, int, int, int]:
     return (num_layers, num_pages, 2, num_kv_heads, page_size, head_dim)
+
+
+def cast_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x in a cache's or tail's dtype as the reference's ``astype`` gives it
+    (``backend.py:67-74, 105-106, 286``): an fp8 dtype through ``to_fp8``
+    (e4m3fn: NaN where |x| rounds past 448, as XLA casts; torch's own cast
+    saturates), else torch's cast."""
+    if x.dtype == dtype:
+        return x
+    return to_fp8(x, dtype) if dtype.itemsize == 1 else x.to(dtype)
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor viewed as uint8 (index writes take integer tensors on
+    every device), any other as it is."""
+    return t.view(torch.uint8) if t.dtype.itemsize == 1 else t
 
 
 def write_kv(kv_cache: torch.Tensor, layer: int, k: torch.Tensor,
@@ -45,16 +63,16 @@ def write_kv(kv_cache: torch.Tensor, layer: int, k: torch.Tensor,
     slots = slot_mapping.clamp(min=0)
     pages = slots // page_size
     offs = slots % page_size
-    cache_l = kv_cache[layer]                 # view: written in place
-    cache_l[pages, 0, :, offs] = k.to(kv_cache.dtype)
-    cache_l[pages, 1, :, offs] = v.to(kv_cache.dtype)
+    cache_l = as_bytes(kv_cache[layer])       # view: written in place
+    cache_l[pages, 0, :, offs] = as_bytes(cast_to(k, kv_cache.dtype))
+    cache_l[pages, 1, :, offs] = as_bytes(cast_to(v, kv_cache.dtype))
 
 
 def write_tail(tail: torch.Tensor, rows: torch.Tensor, layer: int,
                step: int) -> None:
     """Write this step's K (or V) rows [R, kvh, hd] into the window tail
-    [L, R, kvh, Kw, hd], in place."""
-    tail[layer, :, :, step] = rows.to(tail.dtype)
+    [L, R, kvh, Kw, hd], in place, in the tail's dtype."""
+    as_bytes(tail)[layer, :, :, step] = as_bytes(cast_to(rows, tail.dtype))
 
 
 def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int,

@@ -14,7 +14,10 @@ from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Any, Optional
 
-from aphrodite_tpu_torch.utils import cdiv
+from aphrodite_tpu_torch.utils import cdiv, torch_dtype
+
+# Valid KV-cache dtypes (``aphrodite_tpu/config.py:26``).
+KV_CACHE_DTYPES = ("auto", "fp8", "fp8_e4m3", "fp8_e5m2")
 
 
 @dataclass
@@ -26,8 +29,10 @@ class ModelConfig:
     dtype: str = "bfloat16"
     seed: int = 0
     max_model_len: Optional[int] = None
-    # Weight-only quantization applied on the fly: "gptq" | "awq" (W4A16,
-    # group 128) | "w8a16"; None = full precision.
+    # Quantization applied on the fly: "gptq" | "awq" (W4A16, group 128) |
+    # "w8a16" | "fp8" (e4m3 weights) | "fp8_w8a8" (also e4m3 activations,
+    # dynamic per token) | "int8" (W8A8); None = full precision
+    # (``quantization/base.py``).
     quantization: Optional[str] = None
     # A quantized lm_head is not ported: True raises at engine start.
     quantize_lm_head: bool = False
@@ -101,7 +106,7 @@ class ModelConfig:
 
 @dataclass
 class CacheConfig:
-    """Paged KV cache geometry."""
+    """Paged KV cache geometry and dtype."""
 
     block_size: int = 32
     # KV pages in the pool; None = the worker sizes it from free memory.
@@ -109,10 +114,24 @@ class CacheConfig:
     # Content-hash reuse of full pages; the worker turns it off for
     # recurrent-state models, whose pages hold nothing to reuse.
     enable_prefix_caching: bool = True
+    # "auto" (the model's dtype) or an fp8 cache: "fp8" / "fp8_e4m3"
+    # (e4m3fn) or "fp8_e5m2".
+    cache_dtype: str = "auto"
 
     def __post_init__(self) -> None:
+        if self.cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"cache_dtype must be one of {KV_CACHE_DTYPES}")
         if self.block_size & (self.block_size - 1):
             raise ValueError("block_size must be a power of two")
+
+    def torch_dtype(self, model_dtype):
+        """The cache's torch dtype (``aphrodite_tpu/worker/runner.py:92-96``):
+        the model's for "auto", else e5m2 for "fp8_e5m2" and e4m3fn for
+        "fp8" and "fp8_e4m3"."""
+        if self.cache_dtype == "auto":
+            return torch_dtype(model_dtype)
+        return torch_dtype("float8_e5m2" if self.cache_dtype == "fp8_e5m2"
+                           else "float8_e4m3")
 
 
 @dataclass

@@ -1,12 +1,18 @@
-// Shared helpers of the attention kernels: type conversion, warp
-// reductions, the online-softmax tile update and the C launch glue.
+// Shared helpers of the attention kernels: type conversion (the fp8 K/V
+// cache's too), warp reductions, the online-softmax tile update and the C
+// launch glue.
 // Built with nvcc for sm_90a into one shared library per kernel source
 // (aphrodite_tpu_torch/ops/cuda_build.py); bound with ctypes.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -15,6 +21,75 @@ constexpr int kTile = 32;  // keys per tile: one key per lane
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
+
+// The fp8 KV cache. Every TPU kernel upcasts an fp8 K/V tile to q's dtype
+// before both products (e.g. ragged_paged_attention.py:194-196); e4m3 and
+// e5m2 values are exact in bf16 and fp32, so the kernels here convert the
+// staged bytes once and run their products as on a bf16 cache. One helper
+// for all four kernels: a pair of bytes to a bf16 pair by the hardware's
+// cvt.rn.f16x2.e4m3x2 / .e5m2x2 (exact in f16, NaN kept), then f16 -> fp32
+// -> bf16 (exact).
+template <typename KV>
+constexpr bool is_fp8 = std::is_same<KV, __nv_fp8_e4m3>::value ||
+                        std::is_same<KV, __nv_fp8_e5m2>::value;
+
+// The window's tails: bf16 beside an e5m2 cache, else the cache's dtype
+// (the reference runner's tail dtype, aphrodite_tpu/worker/runner.py:519).
+template <typename KV>
+using tail_t = typename std::conditional<
+    std::is_same<KV, __nv_fp8_e5m2>::value, __nv_bfloat16, KV>::type;
+
+template <typename KV>
+__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(uint32_t two) {
+  constexpr __nv_fp8_interpretation_t kind =
+      std::is_same<KV, __nv_fp8_e5m2>::value ? __NV_E5M2 : __NV_E4M3;
+  const __half2 h =
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two & 0xFFFFu), kind);
+  const float2 f = __half22float2(h);
+  __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
+// Sixteen fp8 values (v, first in its low byte) as sixteen bf16 at dst
+// (32 bytes, 16-byte aligned).
+template <typename KV>
+__device__ __forceinline__ void fp8x16_to_bf16(uint4 v, void* dst) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = fp8x2_to_bf16x2<KV>(w[i]);
+    o[2 * i + 1] = fp8x2_to_bf16x2<KV>(w[i] >> 16);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// The conversion pass of the tensor-core kernels: `rows` staged fp8 rows
+// of HD bytes (K then V of a tile, as cp.async left them, 16 bytes a copy)
+// into the bf16 tile layout that their ldmatrix code reads (rows of `pitch`
+// bf16), by `threads` threads from `tid`. The caller synchronises before
+// and after.
+template <typename KV, int HD>
+__device__ __forceinline__ void convert_rows(const uint8_t* src,
+                                             __nv_bfloat16* dst, int rows,
+                                             int pitch, int tid,
+                                             int threads) {
+  constexpr int kChunks = HD / 16;
+  for (int i = tid; i < rows * kChunks; i += threads) {
+    const int j = i / kChunks, c = i - j * kChunks;
+    fp8x16_to_bf16<KV>(
+        *reinterpret_cast<const uint4*>(src + (size_t)j * HD + c * 16),
+        dst + (size_t)j * pitch + c * 16);
+  }
 }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -110,8 +185,10 @@ __device__ __forceinline__ int first_visible(int q_lo, int sliding_window,
 
 }  // namespace attn
 
-// dtype codes shared with the Python wrappers.
+// dtype codes shared with the Python wrappers: q's, and the cache's (the
+// cache in q's dtype, or fp8 e4m3fn / e5m2).
 enum AttnDtype { kFloat32 = 0, kBFloat16 = 1 };
+enum KvDtype { kKvAuto = 0, kKvE4M3 = 1, kKvE5M2 = 2 };
 
 // The shared memory a block of the current device may opt in to
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 bytes on an H100). Every

@@ -30,6 +30,13 @@
 // spill); only the tiles that hold the first visible key or the query take
 // the mask.
 //
+// An fp8 cache (template type KV, e4m3fn or e5m2; a Gemma model with
+// kv_cache_dtype "fp8" decodes here): the TPU kernel upcasts each K/V tile
+// to q's dtype before both products (:90-92). The tensor-core split stages
+// an fp8 tile's bytes and converts them in shared memory
+// (split_decode.cuh); dpa_kernel stages the bytes as words and converts
+// each value as it reads it. The bytes bound halves.
+//
 // dpa_kernel (fp32, and bf16 at other head dims or larger groups): the
 // first version, in full fp32 (tensor cores would take fp32 through TF32),
 // so that the fp32 parity paths stay token-exact. One block runs one
@@ -46,10 +53,27 @@ namespace {
 
 constexpr int kMaxWarps = 4;
 
-// q_row . key, the key a staged row of 32-bit words.
+// q_row . key, the key a staged row of 32-bit words (of the cache's
+// dtype: here fp8, four values a word).
 template <typename T>
 __device__ __forceinline__ float dot_words(const float* q_row,
-                                           const unsigned* k_row, int words);
+                                           const unsigned* k_row, int words) {
+  float dot = 0.f;
+  for (int w = 0; w < words; ++w) {
+    const unsigned u = k_row[w];
+    const uint32_t lo = attn::fp8x2_to_bf16x2<T>(u);
+    const uint32_t hi = attn::fp8x2_to_bf16x2<T>(u >> 16);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+    dot = fmaf(q_row[4 * w], a.x, dot);
+    dot = fmaf(q_row[4 * w + 1], a.y, dot);
+    dot = fmaf(q_row[4 * w + 2], b.x, dot);
+    dot = fmaf(q_row[4 * w + 3], b.y, dot);
+  }
+  return dot;
+}
 template <>
 __device__ __forceinline__ float dot_words<float>(const float* q_row,
                                                   const unsigned* k_row,
@@ -128,9 +152,9 @@ struct WarpSmem {
   }
 };
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-dpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+dpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
            T* __restrict__ out, const int* __restrict__ seq_lens,
            const int* __restrict__ block_tables,
            const float* __restrict__ alibi, int max_pages, int nq, int kvh,
@@ -149,7 +173,7 @@ dpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
     return;
   }
   const int q_pos = seq_len - 1;
-  const int words = hd * (int)sizeof(T) / 4;  // 32-bit words of a K/V row
+  const int words = hd * (int)sizeof(KV) / 4;  // 32-bit words of a K/V row
   const int tile = min(page_size, kTile);
 
   extern __shared__ float smem[];
@@ -193,7 +217,7 @@ dpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
     for (int g = 0; g < group; ++g) {
       const float bias =
           slopes != nullptr ? slopes[g] * (float)(kv_pos - q_pos) : 0.f;
-      row_update<T>(q_s + g * hd, ws.k, reinterpret_cast<const T*>(ws.v), n,
+      row_update<KV>(q_s + g * hd, ws.k, reinterpret_cast<const KV*>(ws.v), n,
                     hd, words, valid, scale, bias, soft_cap, ws.acc + g * hd,
                     ws.m + g, ws.l + g, ws.p, lane);
     }
@@ -229,9 +253,9 @@ constexpr int kTcKeys = HD <= 128 ? 64 : 32;
 // The decode query's keys for split::tc_split: tile it of the split that
 // starts at tile ta holds positions (t0 + ta + it) * KEYS ...; the keys
 // from lo (the window's and the chunk's first) to pos are visible.
-template <int HD, int KEYS>
+template <int HD, int KEYS, typename KV>
 struct DecodeKeys {
-  const __nv_bfloat16* cache;
+  const KV* cache;
   const int* bt;
   int lo, pos, kv_base, kvh, h, page_size, page_shift;
   size_t page_elems;
@@ -239,14 +263,16 @@ struct DecodeKeys {
   __device__ __forceinline__ int key(int it, int j) const {
     return kv_base + it * KEYS + j;
   }
-  __device__ __forceinline__ bool kv(int it, int j, const __nv_bfloat16** k,
-                                     const __nv_bfloat16** v) const {
+  __device__ __forceinline__ bool fp8(int) const { return attn::is_fp8<KV>; }
+  __device__ __forceinline__ bool kv(int it, int j, const uint8_t** k,
+                                     const uint8_t** v) const {
     const int p = key(it, j);
     if (p < lo || p > pos) return false;
     const int pg = page_shift >= 0 ? p >> page_shift : p / page_size;
-    *k = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-         (size_t)(p - pg * page_size) * HD;
-    *v = *k + kvh * page_elems;
+    const KV* kr = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
+                   (size_t)(p - pg * page_size) * HD;
+    *k = reinterpret_cast<const uint8_t*>(kr);
+    *v = reinterpret_cast<const uint8_t*>(kr + kvh * page_elems);
     return true;
   }
   __device__ __forceinline__ bool full(int it) const {
@@ -262,10 +288,10 @@ struct DecodeKeys {
 };
 
 // Three blocks an SM: at most 170 registers a thread.
-template <int HD, bool kCap, bool kAlibi>
+template <int HD, bool kCap, bool kAlibi, typename KV>
 __global__ void __launch_bounds__(split::kThreads, 3)
 dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ cache,
+                    const KV* __restrict__ cache,
                     float* __restrict__ part_acc, float* __restrict__ part_m,
                     float* __restrict__ part_l,
                     const int* __restrict__ seq_lens,
@@ -276,7 +302,7 @@ dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KEYS = kTcKeys<HD>;
   const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
-  DecodeKeys<HD, KEYS> keys;
+  DecodeKeys<HD, KEYS, KV> keys;
   keys.cache = cache;
   keys.bt = block_tables + (size_t)r * max_pages;
   keys.pos = seq_lens[r] - 1;  // -1 for an empty row: no tile
@@ -298,7 +324,7 @@ dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
   keys.page_elems = (size_t)page_size * HD;
   const int n_my = split::my_tiles(n, ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_dpa[];
-  split::tc_split<HD, KEYS, kCap, kAlibi>(
+  split::tc_split<HD, KEYS, kCap, kAlibi, KV>(
       q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap,
       kAlibi ? alibi + h * group : nullptr, keys, part_acc, part_m, part_l,
       split, splits, smem_dpa);
@@ -329,16 +355,16 @@ struct TcArgs {
   cudaStream_t stream;
 };
 
-template <int HD, bool kCap, bool kAlibi>
+template <int HD, bool kCap, bool kAlibi, typename KV>
 int split_tc(const TcArgs& a) {
-  constexpr int kSmem = split::TcCfg<HD, kTcKeys<HD>>::kSmem;
+  constexpr int kSmem = split::TcCfg<HD, kTcKeys<HD>, KV>::kSmem;
   cudaError_t err =
-      mma::allow_smem<dpa_split_tc_kernel<HD, kCap, kAlibi>>(kSmem);
+      mma::allow_smem<dpa_split_tc_kernel<HD, kCap, kAlibi, KV>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  dpa_split_tc_kernel<HD, kCap, kAlibi>
+  dpa_split_tc_kernel<HD, kCap, kAlibi, KV>
       <<<dim3(a.num_reqs, a.kvh, a.splits), split::kThreads, kSmem,
          a.stream>>>(static_cast<const __nv_bfloat16*>(a.q),
-                     static_cast<const __nv_bfloat16*>(a.cache), a.part_acc,
+                     static_cast<const KV*>(a.cache), a.part_acc,
                      a.part_m, a.part_l, a.seq_lens, a.block_tables, a.alibi,
                      a.max_pages, a.nq, a.kvh, a.page_size, a.scale,
                      a.sliding_window, a.chunk_attn, a.soft_cap,
@@ -351,16 +377,24 @@ int split_tc(const TcArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename KV>
 int split_tc(const TcArgs& a) {
   const bool cap = a.soft_cap > 0.f, alibi = a.alibi != nullptr;
-  if (cap && alibi) return split_tc<HD, true, true>(a);
-  if (cap) return split_tc<HD, true, false>(a);
-  if (alibi) return split_tc<HD, false, true>(a);
-  return split_tc<HD, false, false>(a);
+  if (cap && alibi) return split_tc<HD, true, true, KV>(a);
+  if (cap) return split_tc<HD, true, false, KV>(a);
+  if (alibi) return split_tc<HD, false, true, KV>(a);
+  return split_tc<HD, false, false, KV>(a);
 }
 
-template <typename T>
+template <typename KV>
+int split_tc_hd(const TcArgs& a) {
+  if (a.hd == 64) return split_tc<64, KV>(a);
+  if (a.hd == 128) return split_tc<128, KV>(a);
+  if (a.hd == 256) return split_tc<256, KV>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename KV>
 int launch(const void* q, const void* cache, void* out, const int* seq_lens,
            const int* block_tables, const float* alibi, int num_reqs,
            int max_pages, int nq, int kvh, int page_size, int hd, float scale,
@@ -368,15 +402,35 @@ int launch(const void* q, const void* cache, void* out, const int* seq_lens,
            int smem_bytes, cudaStream_t stream) {
   // smem_bytes (computed by the wrapper): q [group, hd] fp32, then
   // `warps` WarpSmem regions.
-  if (warps < 1 || warps > kMaxWarps || (hd * (int)sizeof(T)) % 4 != 0)
+  if (warps < 1 || warps > kMaxWarps || (hd * (int)sizeof(KV)) % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = mma::allow_smem<dpa_kernel<T>>(smem_bytes);
+  const cudaError_t err = mma::allow_smem<dpa_kernel<T, KV>>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dpa_kernel<T><<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache),
+  dpa_kernel<T, KV><<<dim3(num_reqs, kvh), warps * 32, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), seq_lens, block_tables, alibi, max_pages, nq, kvh,
       page_size, hd, scale, sliding_window, chunk_attn, soft_cap);
   return (int)cudaGetLastError();
+}
+
+// dpa_kernel on a cache in q's dtype or fp8 (a KvDtype code).
+template <typename T>
+int launch_kv(int kv_dtype, const void* q, const void* cache, void* out,
+              const int* seq_lens, const int* block_tables,
+              const float* alibi, int num_reqs, int max_pages, int nq,
+              int kvh, int page_size, int hd, float scale, int sliding_window,
+              int chunk_attn, float soft_cap, int warps, int smem_bytes,
+              cudaStream_t s) {
+#define DPA_KV(KV)                                                        \
+  return launch<T, KV>(q, cache, out, seq_lens, block_tables, alibi,      \
+                       num_reqs, max_pages, nq, kvh, page_size, hd, scale, \
+                       sliding_window, chunk_attn, soft_cap, warps,       \
+                       smem_bytes, s)
+  if (kv_dtype == kKvAuto) DPA_KV(T);
+  if (kv_dtype == kKvE4M3) DPA_KV(__nv_fp8_e4m3);
+  if (kv_dtype == kKvE5M2) DPA_KV(__nv_fp8_e5m2);
+#undef DPA_KV
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -387,8 +441,10 @@ int launch(const void* q, const void* cache, void* out, const int* seq_lens,
 // part_m and part_l [R, nq, splits] fp32 scratch. Else dpa_kernel with
 // `warps` warps and `smem_bytes` of shared memory (computed by the
 // wrapper: q [group, hd] fp32, then `warps` WarpSmem regions); the split
-// arguments are then unused. alibi: [nq] fp32 slopes or null.
-extern "C" int dpa_launch(int dtype, int tensor_cores, const void* q,
+// arguments are then unused. alibi: [nq] fp32 slopes or null. kv_dtype:
+// the cache's KvDtype code (its dtype is q's, or fp8).
+extern "C" int dpa_launch(int dtype, int kv_dtype, int tensor_cores,
+                          const void* q,
                           const void* cache_layer, void* out,
                           float* part_acc, float* part_m, float* part_l,
                           const int* seq_lens, const int* block_tables,
@@ -407,20 +463,21 @@ extern "C" int dpa_launch(int dtype, int tensor_cores, const void* q,
                    block_tables, alibi, num_reqs, max_pages, nq, kvh,
                    page_size, hd, scale, sliding_window, chunk_attn,
                    soft_cap, splits, tiles_per_split, s};
-    if (hd == 64) return split_tc<64>(a);
-    if (hd == 128) return split_tc<128>(a);
-    if (hd == 256) return split_tc<256>(a);
+    if (kv_dtype == kKvAuto) return split_tc_hd<__nv_bfloat16>(a);
+    if (kv_dtype == kKvE4M3) return split_tc_hd<__nv_fp8_e4m3>(a);
+    if (kv_dtype == kKvE5M2) return split_tc_hd<__nv_fp8_e5m2>(a);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kFloat32)
-    return launch<float>(q, cache_layer, out, seq_lens, block_tables, alibi,
-                         num_reqs, max_pages, nq, kvh, page_size, hd, scale,
-                         sliding_window, chunk_attn, soft_cap, warps,
-                         smem_bytes, s);
+    return launch_kv<float>(kv_dtype, q, cache_layer, out, seq_lens,
+                            block_tables, alibi, num_reqs, max_pages, nq,
+                            kvh, page_size, hd, scale, sliding_window,
+                            chunk_attn, soft_cap, warps, smem_bytes, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, cache_layer, out, seq_lens, block_tables,
-                                 alibi, num_reqs, max_pages, nq, kvh,
-                                 page_size, hd, scale, sliding_window,
-                                 chunk_attn, soft_cap, warps, smem_bytes, s);
+    return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, out, seq_lens,
+                                    block_tables, alibi, num_reqs, max_pages,
+                                    nq, kvh, page_size, hd, scale,
+                                    sliding_window, chunk_attn, soft_cap,
+                                    warps, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

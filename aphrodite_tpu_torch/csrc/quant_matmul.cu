@@ -15,10 +15,17 @@
 //   w4a16_int4_launch    <- w4a16_int4_matmul_pallas / _w4i4_kernel: signed
 //                           int4 from uint8 [K/2, N], group-wise form (see
 //                           the note above q4_kernel)
+//   fp8_launch           <- no Pallas kernel (XLA computes fp8_matmul,
+//                           aphrodite_tpu/ops/quant_gemm.py:74-119): W =
+//                           q[k, n] * s[n], q e4m3fn [K, N], s fp32 [N]; an
+//                           optional fp32 scale a row of x, rs [M], makes
+//                           the W8A8 epilogue (acc * rs[m]) * s[n], in
+//                           the reference's order
 // bf16 activations of every layout run on w4_wgmma.cu (wgmma, the
 // group-wise form). Here x, y and the sums are fp32. W is dequantized in
 // registers and never written to device memory. qmm_kernel takes the
-// direct form (q - z) * s; W8 applies s[n] to the fp32 sum.
+// direct form (q - z) * s; W8 and fp8 apply s[n] to the fp32 sum (an e4m3
+// byte converts exactly by the hardware's cvt to f16, then to fp32).
 //
 // Bound. fp32 FMAs on the CUDA cores (2 M K N of them), bound by
 // operations at M = 32: ~0.045 ms a Qwen2.5-1.5B layer's four GEMMs at 67
@@ -37,13 +44,21 @@
 // columns are 32 blocks): each block then writes fp32 partial sums, and
 // the last block of a tile to finish adds them in split order
 // (deterministic) and writes y (finish_splits).
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
 #include "mma_common.cuh"
 
 namespace {
 
 using mma::allow_smem;
 
-enum Layout { kW8 = 0, kW4 = 1, kW4Packed = 2 };
+enum Layout { kW8 = 0, kW4 = 1, kW4Packed = 2, kFp8 = 3 };
+
+// One fp32 scale a column applied to the sum (no groups, no zeros).
+__host__ __device__ constexpr bool col_scaled(int layout) {
+  return layout == kW8 || layout == kFp8;
+}
 enum Dtype { kFloat32 = 0 };
 
 constexpr int kWarps = 4;
@@ -72,11 +87,13 @@ __host__ __device__ constexpr int smem_floats(int mt, int halves) {
 // partial sums [split, M, N] for rows [m0, m0 + mt) and columns [col0,
 // col0 + bn): the last block of the (column tile, M tile) to finish adds
 // the splits' sums in split order (deterministic), applies W8's s[n],
-// writes y, and resets the tile's counter for the next launch.
+// writes y, and resets the tile's counter for the next launch. row_scales:
+// fp8's scale a row of x (or null), applied before s[n].
 template <typename T, int L>
 __device__ void finish_splits(const float* partial, int* counters,
-                              const float* scales, T* out, int M, int N,
-                              int m0, int mt, int col0, int bn) {
+                              const float* scales, const float* row_scales,
+                              T* out, int M, int N, int m0, int mt, int col0,
+                              int bn) {
   __shared__ int is_last;
   __threadfence();  // this block's partial sums are visible device-wide
   __syncthreads();
@@ -98,7 +115,14 @@ __device__ void finish_splits(const float* partial, int* counters,
       v.z += p.z;
       v.w += p.w;
     }
-    if (L == kW8) {
+    if (col_scaled(L)) {
+      if (L == kFp8 && row_scales != nullptr) {
+        const float r = row_scales[m];
+        v.x *= r;
+        v.y *= r;
+        v.z *= r;
+        v.w *= r;
+      }
       const float4 sc = __ldg(reinterpret_cast<const float4*>(scales + n));
       v.x *= sc.x;
       v.y *= sc.y;
@@ -175,6 +199,11 @@ qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
 #pragma unroll
           for (int c = 0; c < kCols; ++c)
             wl[c] = (float)(int8_t)((wv[u] >> (8 * c)) & 0xFFu);
+        } else if (L == kFp8) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            wl[c] = __half2float(__half(__nv_cvt_fp8_to_halfraw(
+                (__nv_fp8_storage_t)((wv[u] >> (8 * c)) & 0xFFu), __NV_E4M3)));
         } else {
           const int g = r / group;
           if (g != g_lo) {
@@ -249,8 +278,10 @@ qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
   __syncthreads();
   if (warp == 0 && col_ok) {
     float4 sn = make_float4(1.f, 1.f, 1.f, 1.f);
-    if (L == kW8 && partial == nullptr)
+    if (col_scaled(L) && partial == nullptr)
       sn = __ldg(reinterpret_cast<const float4*>(scales + n0));
+    // fp8's W8A8 scale of x's rows rides in `zeros` (null: weight-only).
+    const float* rs = L == kFp8 ? zeros : nullptr;
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       float v[kCols];
@@ -270,6 +301,10 @@ qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
             partial + ((size_t)blockIdx.y * M + m0 + m) * N + n0) =
             make_float4(v[0], v[1], v[2], v[3]);
       } else {
+        if (rs != nullptr) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) v[c] *= rs[m0 + m];
+        }
         T* o = out + (size_t)(m0 + m) * N + n0;
         o[0] = from_float<T>(v[0] * sn.x);
         o[1] = from_float<T>(v[1] * sn.y);
@@ -279,7 +314,8 @@ qmm_kernel(const T* __restrict__ x, const uint32_t* __restrict__ w,
     }
   }
   if (partial != nullptr)
-    finish_splits<T, L>(partial, counters, scales, out, M, N, m0, MT,
+    finish_splits<T, L>(partial, counters, scales,
+                        L == kFp8 ? zeros : nullptr, out, M, N, m0, MT,
                         blockIdx.x * kBlockN, kBlockN);
 }
 
@@ -325,7 +361,8 @@ int launch(int dtype, int mt, const void* x, const void* w,
            int splits, int chunk, void* stream) {
   if (N % 4 != 0 || M < 1 || splits < 1 ||
       (splits > 1 && (partial == nullptr || counters == nullptr)) ||
-      (L != kW8 && (group < 1 || K % group != 0)) || dtype != kFloat32 ||
+      (!col_scaled(L) && (group < 1 || K % group != 0)) ||
+      dtype != kFloat32 ||
       chunk % kTileK != 0)
     return (int)cudaErrorInvalidValue;
   return launch_t<float, L>(mt, x, w, scales, zeros, out, partial, counters,
@@ -437,8 +474,8 @@ q4_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     }
   }
   if (partial != nullptr)
-    finish_splits<float, kW4>(partial, counters, scales, out, M, N, m0, MT,
-                              blockIdx.z * kThreads, kThreads);
+    finish_splits<float, kW4>(partial, counters, scales, nullptr, out, M, N,
+                              m0, MT, blockIdx.z * kThreads, kThreads);
 }
 
 template <int MT>
@@ -472,6 +509,16 @@ extern "C" int w8a16_launch(int dtype, int mt, const void* x, const void* q,
                             int chunk, void* stream) {
   return launch<kW8>(dtype, mt, x, q, scales, nullptr, out, partial,
                      counters, M, K, N, 1, splits, chunk, stream);
+}
+
+// fp8: q e4m3fn [K, N], scales [N]; row_scales [M] (W8A8: x's scale a row,
+// applied before s[n]) or null.
+extern "C" int fp8_launch(int dtype, int mt, const void* x, const void* q,
+                          const float* scales, const float* row_scales,
+                          void* out, float* partial, int* counters, int M,
+                          int K, int N, int splits, int chunk, void* stream) {
+  return launch<kFp8>(dtype, mt, x, q, scales, row_scales, out, partial,
+                      counters, M, K, N, 1, splits, chunk, stream);
 }
 
 extern "C" int w4a16_launch(int dtype, int mt, const void* x, const void* q,

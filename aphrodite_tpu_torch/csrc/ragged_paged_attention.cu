@@ -47,6 +47,15 @@
 // tiles wholly in its rows' future or before their window or chunk, and
 // the block starts at the item's first visible tile.
 //
+// An fp8 cache (e4m3fn or e5m2, the template type KV): the TPU kernel
+// upcasts each K/V tile to q's dtype before both products (:194-196), and
+// so do these. The tensor-core instance stages the tile's bytes by 16-byte
+// cp.async (16 keys' values a copy: half the bytes of a bf16 tile) into a
+// ring of its own, converts them once into the bf16 tile that ldmatrix
+// reads (attn::convert_rows, one more barrier a tile), and runs the same
+// products; the scalar one converts to fp32 as it stages. Bound: the K/V
+// bytes halve.
+//
 // rpa_kernel (fp32, and bf16 at other head dims): the first version, kept
 // so that the fp32 parity paths stay exact (tensor cores would take fp32
 // through TF32): rows in shared memory as float, 32-key tiles staged by
@@ -66,9 +75,9 @@ namespace {
 // ------------------------------------ scalar kernel (fp32; other head dims)
 constexpr int kWarps = 8;
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-rpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
            T* __restrict__ out, const int* __restrict__ item_req,
            const int* __restrict__ item_qstart,
            const int* __restrict__ item_qlen,
@@ -139,7 +148,7 @@ rpa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* cache, void* out, const int* item_req,
            const int* item_qstart, const int* item_qlen, const int* item_pos,
            const int* seq_lens, const int* block_tables, int num_items,
@@ -147,10 +156,11 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
            float scale, int sliding_window, int chunk_attn, float soft_cap,
            int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      rpa_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      rpa_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  rpa_kernel<T><<<dim3(num_items, kvh), kWarps * 32, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache),
+  rpa_kernel<T, KV><<<dim3(num_items, kvh), kWarps * 32, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), item_req, item_qstart, item_qlen, item_pos,
       seq_lens, block_tables, max_pages, nq, kvh, page_size, hd, block_q,
       scale, sliding_window, chunk_attn, soft_cap);
@@ -161,22 +171,26 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
 // 4 warps; each owns kMT 16-row m-tiles (2 at head_dim <= 128: the B
 // fragments of K and V serve both; 1 at 256, where O alone is 128
 // registers a thread). Two blocks fit an SM's registers and shared memory.
-template <int HD>
+// An fp8 cache adds a ring of staged bytes.
+template <int HD, typename KV>
 struct TcCfg {
   static constexpr int kMT = HD <= 128 ? 2 : 1;       // m-tiles a warp
   static constexpr int kWarps = 4;
-  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kThreads = kWarps * 32;  // 128: __launch_bounds__
   static constexpr int kRows = kWarps * 16 * kMT;     // query rows a block
   static constexpr int kKeys = HD <= 128 ? 64 : 32;   // keys a tile
   static constexpr int kPitch = HD + 8;               // bf16 a staged row
   static constexpr int kStages = HD <= 64 ? 3 : 2;
-  static constexpr int kSmem = (kRows + kStages * 2 * kKeys) * kPitch * 2;
+  static constexpr int kRing = (kRows + kStages * 2 * kKeys) * kPitch * 2;
+  static constexpr int kStaged =
+      attn::is_fp8<KV> ? kStages * 2 * kKeys * HD : 0;
+  static constexpr int kSmem = kRing + kStaged;
 };
 
-template <int HD, bool kCap>
-__global__ void __launch_bounds__(TcCfg<HD>::kThreads, 2)
+template <int HD, bool kCap, typename KV>
+__global__ void __launch_bounds__(128, 2)
 rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ cache,
+              const KV* __restrict__ cache,
               __nv_bfloat16* __restrict__ out,
               const int* __restrict__ item_req,
               const int* __restrict__ item_qstart,
@@ -188,8 +202,11 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
               int chunk_attn, float soft_cap) {
   using namespace attn;
   using namespace mma;
-  using C = TcCfg<HD>;
+  using C = TcCfg<HD, KV>;
+  constexpr bool kFp8 = is_fp8<KV>;
   constexpr int BN = C::kKeys, P = C::kPitch, CPR = HD / 8, MT = C::kMT;
+  // 16-byte copies a K (or V) row takes: 8 bf16 or 16 fp8 values each.
+  constexpr int KCPR = kFp8 ? HD / 16 : CPR;
   constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
   const int item = blockIdx.x, h = blockIdx.y;
   const int group = nq / kvh;
@@ -210,6 +227,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ uint4 smem_tc[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [rows, P]
   __nv_bfloat16* kv_s = q_s + C::kRows * P;  // [stages][K, V][BN, P]
+  // fp8: [stages][K, V][BN, HD] bytes, converted into kv_s's stage.
+  uint8_t* stg = reinterpret_cast<uint8_t*>(smem_tc) + C::kRing;
 
   // Q, row r = token r / group, query head h * group + r % group; rows
   // past the item are zero.
@@ -225,25 +244,32 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async16(q_s + r * P + c * 8, src, ok);
   }
-  // K/V tile t (keys t * BN ...) into ring stage `stage`, each thread
-  // finding its key rows' pages; keys at or past kv_limit are zero.
+  // K/V tile t (keys t * BN ...) into ring stage `stage` (fp8: its
+  // staged bytes), each thread finding its key rows' pages; keys at or
+  // past kv_limit are zero. Copy c of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int t, int stage) {
     __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * BN * P;
-    __nv_bfloat16* vs = ks + BN * P;
+    uint8_t* kb = stg + (size_t)stage * 2 * BN * HD;
 #pragma unroll
-    for (int k = 0; k < BN * CPR / C::kThreads; ++k) {
+    for (int k = 0; k < BN * KCPR / C::kThreads; ++k) {
       const int i = tid + k * C::kThreads;
-      const int j = i / CPR, c = i - j * CPR;
+      const int j = i / KCPR, c = i - j * KCPR;
       const int pos = t * BN + j;
       const bool ok = pos < kv_limit;
-      const __nv_bfloat16* src = cache;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(cache);
       if (ok) {
         const int pg = page_shift >= 0 ? pos >> page_shift : pos / page_size;
-        src = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-              (size_t)(pos - pg * page_size) * HD + c * 8;
+        src += (((size_t)bt[pg] * 2 * kvh + h) * page_elems +
+                (size_t)(pos - pg * page_size) * HD) * sizeof(KV) + c * 16;
       }
-      cp_async16(ks + j * P + c * 8, src, ok);
-      cp_async16(vs + j * P + c * 8, ok ? src + kvh * page_elems : cache, ok);
+      const uint8_t* vsrc = ok ? src + kvh * page_elems * sizeof(KV) : src;
+      if constexpr (kFp8) {
+        cp_async16(kb + j * HD + c * 16, src, ok);
+        cp_async16(kb + (BN + j) * HD + c * 16, vsrc, ok);
+      } else {
+        cp_async16(ks + j * P + c * 8, src, ok);
+        cp_async16(ks + (BN + j) * P + c * 8, vsrc, ok);
+      }
     }
   };
 
@@ -291,11 +317,16 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<C::kStages - 2>();  // tile it has landed
     __syncthreads();                  // and tile it - 1 is consumed
+    if constexpr (kFp8)  // its bytes into the stage's bf16 tile
+      convert_rows<KV, HD>(stg + (size_t)(it % C::kStages) * 2 * BN * HD,
+                           kv_s + (size_t)(it % C::kStages) * 2 * BN * P,
+                           2 * BN, P, tid, C::kThreads);
     {
       const int nx = it + C::kStages - 1;
       if (nx < n_tiles) load_tile(t_lo + nx, nx % C::kStages);
       cp_async_commit();
     }
+    if constexpr (kFp8) __syncthreads();  // the converted tile is whole
     const int kv0 = (t_lo + it) * BN;
     if (!warp_live || kv0 > w_hi || kv0 + BN <= w_first) continue;
     const __nv_bfloat16* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
@@ -440,58 +471,84 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-template <int HD, bool kCap>
+template <int HD, bool kCap, typename KV>
 int launch_tc(const void* q, const void* cache, void* out,
               const int* item_req, const int* item_qstart,
               const int* item_qlen, const int* item_pos, const int* seq_lens,
               const int* block_tables, int num_items, int max_pages, int nq,
               int kvh, int page_size, float scale, int sliding_window,
               int chunk_attn, float soft_cap, cudaStream_t stream) {
-  using C = TcCfg<HD>;
-  const cudaError_t err = mma::allow_smem<rpa_tc_kernel<HD, kCap>>(C::kSmem);
+  using C = TcCfg<HD, KV>;
+  const cudaError_t err =
+      mma::allow_smem<rpa_tc_kernel<HD, kCap, KV>>(C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  rpa_tc_kernel<HD, kCap>
+  rpa_tc_kernel<HD, kCap, KV>
       <<<dim3(num_items, kvh), C::kThreads, C::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(cache),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(cache),
       static_cast<__nv_bfloat16*>(out), item_req, item_qstart, item_qlen,
       item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size, scale,
       sliding_window, chunk_attn, soft_cap);
   return (int)cudaGetLastError();
 }
 
+// The scalar kernel on a cache in q's dtype or fp8 (a KvDtype code).
+template <typename T>
+int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
+              void* out, const int* item_req, const int* item_qstart,
+              const int* item_qlen, const int* item_pos, const int* seq_lens,
+              const int* block_tables, int num_items, int max_pages, int nq,
+              int kvh, int page_size, int hd, int block_q, float scale,
+              int sliding_window, int chunk_attn, float soft_cap,
+              int smem_bytes, cudaStream_t s) {
+#define RPA_KV(KV)                                                          \
+  return launch<T, KV>(q, cache_layer, out, item_req, item_qstart,          \
+                       item_qlen, item_pos, seq_lens, block_tables,         \
+                       num_items, max_pages, nq, kvh, page_size, hd,        \
+                       block_q, scale, sliding_window, chunk_attn, soft_cap, \
+                       smem_bytes, s)
+  if (kv_dtype == kKvAuto) RPA_KV(T);
+  if (kv_dtype == kKvE4M3) RPA_KV(__nv_fp8_e4m3);
+  if (kv_dtype == kKvE5M2) RPA_KV(__nv_fp8_e5m2);
+#undef RPA_KV
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// The scalar kernel (fp32 or bf16 q and cache, any head_dim).
-extern "C" int rpa_launch(int dtype, const void* q, const void* cache_layer,
-                          void* out, const int* item_req,
-                          const int* item_qstart, const int* item_qlen,
-                          const int* item_pos, const int* seq_lens,
-                          const int* block_tables, int num_items,
-                          int max_pages, int nq, int kvh, int page_size,
-                          int hd, int block_q, float scale,
+// The scalar kernel (fp32 or bf16 q, any head_dim; the cache in q's dtype
+// or fp8, kv_dtype a KvDtype code).
+extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
+                          const void* cache_layer, void* out,
+                          const int* item_req, const int* item_qstart,
+                          const int* item_qlen, const int* item_pos,
+                          const int* seq_lens, const int* block_tables,
+                          int num_items, int max_pages, int nq, int kvh,
+                          int page_size, int hd, int block_q, float scale,
                           int sliding_window, int chunk_attn, float soft_cap,
                           int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch<float>(q, cache_layer, out, item_req, item_qstart,
-                         item_qlen, item_pos, seq_lens, block_tables,
-                         num_items, max_pages, nq, kvh, page_size, hd,
-                         block_q, scale, sliding_window, chunk_attn,
-                         soft_cap, smem_bytes, s);
+    return launch_kv<float>(kv_dtype, q, cache_layer, out, item_req,
+                            item_qstart, item_qlen, item_pos, seq_lens,
+                            block_tables, num_items, max_pages, nq, kvh,
+                            page_size, hd, block_q, scale, sliding_window,
+                            chunk_attn, soft_cap, smem_bytes, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, cache_layer, out, item_req, item_qstart,
-                                 item_qlen, item_pos, seq_lens, block_tables,
-                                 num_items, max_pages, nq, kvh, page_size, hd,
-                                 block_q, scale, sliding_window, chunk_attn,
-                                 soft_cap, smem_bytes, s);
+    return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, out, item_req,
+                                    item_qstart, item_qlen, item_pos,
+                                    seq_lens, block_tables, num_items,
+                                    max_pages, nq, kvh, page_size, hd,
+                                    block_q, scale, sliding_window,
+                                    chunk_attn, soft_cap, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel (bf16 q and cache, head_dim 64, 128 or 256).
-// block_q * (nq / kvh) must fit the instance's rows (128 at head_dim <=
-// 128, 64 at 256: ops/ragged_paged_attention.py ragged_tc_block_q).
-extern "C" int rpa_tc_launch(const void* q, const void* cache_layer,
+// The tensor-core kernel (bf16 q, head_dim 64, 128 or 256; the cache bf16
+// or fp8, kv_dtype a KvDtype code). block_q * (nq / kvh) must fit the
+// instance's rows (128 at head_dim <= 128, 64 at 256:
+// ops/ragged_paged_attention.py ragged_tc_block_q).
+extern "C" int rpa_tc_launch(int kv_dtype, const void* q,
+                             const void* cache_layer,
                              void* out, const int* item_req,
                              const int* item_qstart, const int* item_qlen,
                              const int* item_pos, const int* seq_lens,
@@ -504,17 +561,30 @@ extern "C" int rpa_tc_launch(const void* q, const void* cache_layer,
   if (kvh <= 0 || nq % kvh || block_q <= 0)
     return (int)cudaErrorInvalidValue;
   const int rows = block_q * (nq / kvh);
-#define RPA_TC(HD)                                                          \
+#define RPA_TC(HD, KV)                                                      \
   if (hd == HD) {                                                           \
-    if (rows > TcCfg<HD>::kRows) return (int)cudaErrorInvalidValue;         \
-    return (soft_cap > 0.f ? launch_tc<HD, true> : launch_tc<HD, false>)(   \
+    if (rows > TcCfg<HD, KV>::kRows) return (int)cudaErrorInvalidValue;     \
+    return (soft_cap > 0.f ? launch_tc<HD, true, KV>                        \
+                           : launch_tc<HD, false, KV>)(                     \
         q, cache_layer, out, item_req, item_qstart, item_qlen, item_pos,    \
         seq_lens, block_tables, num_items, max_pages, nq, kvh, page_size,   \
         scale, sliding_window, chunk_attn, soft_cap, s);                    \
   }
-  RPA_TC(64)
-  RPA_TC(128)
-  RPA_TC(256)
+#define RPA_TC_KV(KV) \
+  RPA_TC(64, KV)      \
+  RPA_TC(128, KV)     \
+  RPA_TC(256, KV)     \
+  return (int)cudaErrorInvalidValue;
+  if (kv_dtype == kKvAuto) {
+    RPA_TC_KV(__nv_bfloat16)
+  }
+  if (kv_dtype == kKvE4M3) {
+    RPA_TC_KV(__nv_fp8_e4m3)
+  }
+  if (kv_dtype == kKvE5M2) {
+    RPA_TC_KV(__nv_fp8_e5m2)
+  }
+#undef RPA_TC_KV
 #undef RPA_TC
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,13 @@
 // csrc/quant_matmul.cu) merges the splits in split order: no float
 // atomics, so a run is deterministic. m is written in natural-exp units.
 //
+// An fp8 cache (template type KV, e4m3fn or e5m2; a chat batch on an fp8
+// cache takes this pass): the TPU kernel upcasts each K/V tile to q's dtype
+// before both products (:87-89). spa_tc_kernel stages an fp8 tile's bytes
+// in a ring of its own and converts them into the bf16 tile in shared
+// memory (attn::convert_rows); spa_kernel converts to fp32 as it stages,
+// loading 8 bytes a vector. The bytes bound halves.
+//
 // spa_kernel (fp32): the first version on the CUDA cores in full fp32, so
 // that the fp32 parity paths stay token-exact. A block of 8 warps runs one
 // (tile of 32 query rows, KV head); a warp owns 4 rows and keeps their acc
@@ -53,9 +60,9 @@ constexpr int kRows = 4;                      // query rows a warp
 constexpr int kBlockRows = kWarps * kRows;    // query rows a block
 constexpr int kThreads = kWarps * 32;
 
-template <typename T, int C>  // C = hd / 32
+template <typename T, typename KV, int C>  // C = hd / 32
 __global__ void __launch_bounds__(kThreads)
-spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+spa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
            const int* __restrict__ shared_pages, int shared_len,
            float* __restrict__ acc_out, float* __restrict__ m_out,
            float* __restrict__ l_out, int num_reqs, int nq, int kvh,
@@ -96,12 +103,15 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   const int tile = min(page_size, kTile);
   const int n_tiles = (shared_len + tile - 1) / tile;
   const size_t page_elems = (size_t)page_size * hd;
-  // A tile's K and V in 16-byte vectors of kVec values, kLoads a thread:
-  // vector i is dims [kVec (i / 32), kVec (i / 32 + 1)) of key i % 32.
-  constexpr int kVec = 16 / sizeof(T);
+  // A tile's K and V in vectors of kVec values (16 bytes; 8 for fp8, so
+  // that head_dim 64 still gives every thread whole vectors), kLoads a
+  // thread: vector i is dims [kVec (i / 32), kVec (i / 32 + 1)) of key
+  // i % 32.
+  using Vec = typename std::conditional<sizeof(KV) == 1, uint2, uint4>::type;
+  constexpr int kVec = sizeof(Vec) / sizeof(KV);
   constexpr int kLoads = kTile * hd / kVec / kThreads;
   static_assert(kLoads * kThreads * kVec == kTile * hd, "whole vectors");
-  uint4 k_reg[kLoads], v_reg[kLoads];
+  Vec k_reg[kLoads], v_reg[kLoads];
   const int j_ld = threadIdx.x % kTile;  // the key this thread moves
   auto load_tile = [&](int t) {  // tile t's keys into registers
     const int kv0 = t * tile, n = min(tile, shared_len - kv0);
@@ -112,8 +122,8 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int d0 = kVec * ((threadIdx.x + u * kThreads) / kTile);
-      k_reg[u] = __ldg(reinterpret_cast<const uint4*>(cache + row + d0));
-      v_reg[u] = __ldg(reinterpret_cast<const uint4*>(
+      k_reg[u] = __ldg(reinterpret_cast<const Vec*>(cache + row + d0));
+      v_reg[u] = __ldg(reinterpret_cast<const Vec*>(
           cache + row + kvh * page_elems + d0));
     }
   };
@@ -124,8 +134,8 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
     if (j_ld < n) {
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
-        const T* kv = reinterpret_cast<const T*>(&k_reg[u]);
-        const T* vv = reinterpret_cast<const T*>(&v_reg[u]);
+        const KV* kv = reinterpret_cast<const KV*>(&k_reg[u]);
+        const KV* vv = reinterpret_cast<const KV*>(&v_reg[u]);
         const int d0 = kVec * ((threadIdx.x + u * kThreads) / kTile);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
@@ -199,8 +209,9 @@ spa_kernel(const T* __restrict__ q, const T* __restrict__ cache,
 // ------------------------------------------------- tensor-core kernel (bf16)
 constexpr int kMaxSplits = 32;  // the merge keeps a factor a (split, row)
 
-// 4 warps of 16 query rows; two blocks share an SM.
-template <int HD>
+// 4 warps of 16 query rows; two blocks share an SM. An fp8 cache adds a
+// ring of staged bytes.
+template <int HD, typename KV>
 struct SpaCfg {
   static constexpr int kWarps = 4;
   static constexpr int kThreads = kWarps * 32;
@@ -208,24 +219,29 @@ struct SpaCfg {
   static constexpr int kKeys = HD <= 128 ? 64 : 32;    // keys a tile
   static constexpr int kPitch = HD + 8;                // bf16 a staged row
   static constexpr int kStages = HD <= 64 ? 3 : 2;
-  static constexpr int kSmem = (kRows + kStages * 2 * kKeys) * kPitch * 2;
+  static constexpr int kRing = (kRows + kStages * 2 * kKeys) * kPitch * 2;
+  static constexpr int kSmem =
+      kRing + (attn::is_fp8<KV> ? kStages * 2 * kKeys * HD : 0);
   static_assert(kRows * (1 + kMaxSplits) * 4 <=
                     kStages * 2 * kKeys * kPitch * 2,
                 "the merge's factors fit the ring");
 };
 
-template <int HD>
-__global__ void __launch_bounds__(SpaCfg<HD>::kThreads, 2)
+template <int HD, typename KV>
+__global__ void __launch_bounds__(128, 2)
 spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ cache,
+              const KV* __restrict__ cache,
               const int* __restrict__ shared_pages, int shared_len,
               float* __restrict__ acc_out, float* __restrict__ m_out,
               float* __restrict__ l_out, float* __restrict__ part,
               int* __restrict__ counters, int num_reqs, int nq, int kvh,
               int page_size, float scale, int tiles_per_split) {
   using namespace mma;
-  using C = SpaCfg<HD>;
+  using C = SpaCfg<HD, KV>;
+  constexpr bool kFp8 = attn::is_fp8<KV>;
   constexpr int BN = C::kKeys, P = C::kPitch, CPR = HD / 8;
+  // 16-byte copies a K (or V) row takes: 8 bf16 or 16 fp8 values each.
+  constexpr int KCPR = kFp8 ? HD / 16 : CPR;
   constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
   const int h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int group = nq / kvh, rows = num_reqs * group;
@@ -244,6 +260,8 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ uint4 smem_spa[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_spa);  // [64, P]
   __nv_bfloat16* kv_s = q_s + C::kRows * P;  // [stages][K, V][BN, P]
+  // fp8: [stages][K, V][BN, HD] bytes, converted into kv_s's stage.
+  uint8_t* stg = reinterpret_cast<uint8_t*>(smem_spa) + C::kRing;
 
   for (int i = tid; i < C::kRows * CPR; i += C::kThreads) {
     const int r = i / CPR, c = i - r * CPR, row = row0 + r;
@@ -256,24 +274,35 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_my =
       split == splits - 1 ? max(n_tiles - ta, 0)
                           : max(min(ta + tiles_per_split, n_tiles) - ta, 0);
-  // Tile ta + it into ring stage `stage`; keys at or past S are zero.
+  // Tile ta + it into ring stage `stage` (fp8: its staged bytes); keys
+  // at or past S are zero. Copy c of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int it, int stage) {
     __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * BN * P;
-    __nv_bfloat16* vs = ks + BN * P;
+    uint8_t* kb = stg + (size_t)stage * 2 * BN * HD;
 #pragma unroll
-    for (int u = 0; u < BN * CPR / C::kThreads; ++u) {
+    for (int u = 0; u < BN * KCPR / C::kThreads; ++u) {
       const int i = tid + u * C::kThreads;
-      const int j = i / CPR, c = i - j * CPR;
+      const int j = i / KCPR, c = i - j * KCPR;
       const int pos = (ta + it) * BN + j;
       const bool ok = pos < shared_len;
-      const __nv_bfloat16* src = q;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(q);
+      const uint8_t* vsrc = src;
       if (ok) {
         const int pg = page_shift >= 0 ? pos >> page_shift : pos / page_size;
-        src = cache + ((size_t)shared_pages[pg] * 2 * kvh + h) * page_elems +
-              (size_t)(pos - pg * page_size) * HD + c * 8;
+        const KV* kr = cache +
+                       ((size_t)shared_pages[pg] * 2 * kvh + h) * page_elems +
+                       (size_t)(pos - pg * page_size) * HD;
+        src = reinterpret_cast<const uint8_t*>(kr) + c * 16;
+        vsrc = reinterpret_cast<const uint8_t*>(kr + kvh * page_elems) +
+               c * 16;
       }
-      cp_async16(ks + j * P + c * 8, src, ok);
-      cp_async16(vs + j * P + c * 8, ok ? src + kvh * page_elems : q, ok);
+      if constexpr (kFp8) {
+        cp_async16(kb + j * HD + c * 16, src, ok);
+        cp_async16(kb + (BN + j) * HD + c * 16, vsrc, ok);
+      } else {
+        cp_async16(ks + j * P + c * 8, src, ok);
+        cp_async16(ks + (BN + j) * P + c * 8, vsrc, ok);
+      }
     }
   };
 
@@ -298,11 +327,17 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int it = 0; it < n_my; ++it) {
     cp_async_wait<C::kStages - 2>();  // tile it has landed
     __syncthreads();                  // and tile it - 1 is consumed
+    if constexpr (kFp8)  // its bytes into the stage's bf16 tile
+      attn::convert_rows<KV, HD>(
+          stg + (size_t)(it % C::kStages) * 2 * BN * HD,
+          kv_s + (size_t)(it % C::kStages) * 2 * BN * P, 2 * BN, P, tid,
+          C::kThreads);
     {
       const int nx = it + C::kStages - 1;
       if (nx < n_my) load_tile(nx, nx % C::kStages);
       cp_async_commit();
     }
+    if constexpr (kFp8) __syncthreads();  // the converted tile is whole
     const __nv_bfloat16* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
     const __nv_bfloat16* vs = ks + BN * P;
 
@@ -482,67 +517,100 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) *counter = 0;
 }
 
-template <int HD>
+template <int HD, typename KV>
 int launch_tc(const void* q, const void* cache, const int* shared_pages,
               int shared_len, float* acc, float* m, float* l, float* part,
               int* counters, int num_reqs, int nq, int kvh, int page_size,
               float scale, int splits, int tiles_per_split,
               cudaStream_t stream) {
-  using C = SpaCfg<HD>;
-  const cudaError_t err = mma::allow_smem<spa_tc_kernel<HD>>(C::kSmem);
+  using C = SpaCfg<HD, KV>;
+  const cudaError_t err = mma::allow_smem<spa_tc_kernel<HD, KV>>(C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int rows = num_reqs * (nq / kvh);
   const dim3 grid((rows + C::kRows - 1) / C::kRows, kvh, splits);
-  spa_tc_kernel<HD><<<grid, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(cache), shared_pages, shared_len,
+  spa_tc_kernel<HD, KV><<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(cache),
+      shared_pages, shared_len,
       acc, m, l, part, counters, num_reqs, nq, kvh, page_size, scale,
       tiles_per_split);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int C>
+template <typename T, typename KV, int C>
 int launch_c(const void* q, const void* cache, const int* shared_pages,
              int shared_len, float* acc, float* m, float* l, int num_reqs,
              int nq, int kvh, int page_size, float scale, int smem_bytes,
              cudaStream_t stream) {
-  const cudaError_t err = mma::allow_smem<spa_kernel<T, C>>(smem_bytes);
+  const cudaError_t err = mma::allow_smem<spa_kernel<T, KV, C>>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int rows = num_reqs * (nq / kvh);
   const dim3 grid((rows + kBlockRows - 1) / kBlockRows, kvh);
-  spa_kernel<T, C><<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(cache), shared_pages,
+  spa_kernel<T, KV, C><<<grid, kThreads, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(cache), shared_pages,
       shared_len, acc, m, l, num_reqs, nq, kvh, page_size, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* cache, const int* shared_pages,
            int shared_len, float* acc, float* m, float* l, int num_reqs,
            int nq, int kvh, int page_size, int hd, float scale,
            int smem_bytes, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch_c<T, 2>(q, cache, shared_pages, shared_len, acc, m, l,
+      return launch_c<T, KV, 2>(q, cache, shared_pages, shared_len, acc, m, l,
                             num_reqs, nq, kvh, page_size, scale, smem_bytes,
                             stream);
     case 128:
-      return launch_c<T, 4>(q, cache, shared_pages, shared_len, acc, m, l,
+      return launch_c<T, KV, 4>(q, cache, shared_pages, shared_len, acc, m, l,
                             num_reqs, nq, kvh, page_size, scale, smem_bytes,
                             stream);
     case 256:
-      return launch_c<T, 8>(q, cache, shared_pages, shared_len, acc, m, l,
+      return launch_c<T, KV, 8>(q, cache, shared_pages, shared_len, acc, m, l,
                             num_reqs, nq, kvh, page_size, scale, smem_bytes,
                             stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+template <int HD>
+int launch_tc_kv(int kv_dtype, const void* q, const void* cache,
+                 const int* shared_pages, int shared_len, float* acc,
+                 float* m, float* l, float* part, int* counters, int num_reqs,
+                 int nq, int kvh, int page_size, float scale, int splits,
+                 int tiles_per_split, cudaStream_t s) {
+#define SPA_KV(KV)                                                           \
+  return launch_tc<HD, KV>(q, cache, shared_pages, shared_len, acc, m, l,   \
+                           part, counters, num_reqs, nq, kvh, page_size,    \
+                           scale, splits, tiles_per_split, s)
+  if (kv_dtype == kKvAuto) SPA_KV(__nv_bfloat16);
+  if (kv_dtype == kKvE4M3) SPA_KV(__nv_fp8_e4m3);
+  if (kv_dtype == kKvE5M2) SPA_KV(__nv_fp8_e5m2);
+#undef SPA_KV
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_kv(int kv_dtype, const void* q, const void* cache,
+              const int* shared_pages, int shared_len, float* acc, float* m,
+              float* l, int num_reqs, int nq, int kvh, int page_size, int hd,
+              float scale, int smem_bytes, cudaStream_t s) {
+#define SPA_KV(KV)                                                        \
+  return launch<T, KV>(q, cache, shared_pages, shared_len, acc, m, l,     \
+                       num_reqs, nq, kvh, page_size, hd, scale, smem_bytes, \
+                       s)
+  if (kv_dtype == kKvAuto) SPA_KV(T);
+  if (kv_dtype == kKvE4M3) SPA_KV(__nv_fp8_e4m3);
+  if (kv_dtype == kKvE5M2) SPA_KV(__nv_fp8_e5m2);
+#undef SPA_KV
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// q [R, nq, hd] and the layer's cache [P, 2, kvh, page, hd] in one dtype
-// (code 0 fp32, 1 bf16); shared_pages: the pages holding the prefix's
-// shared_len tokens, in order. acc [R, nq, hd], m and l [R, nq] fp32.
+// q [R, nq, hd] (code 0 fp32, 1 bf16) and the layer's cache [P, 2, kvh,
+// page, hd] in q's dtype or fp8 (kv_dtype, a KvDtype code); shared_pages:
+// the pages holding the prefix's shared_len tokens, in order. acc [R, nq, hd], m and l [R, nq] fp32.
 // tensor_cores: spa_tc_kernel (bf16, head_dim 64, 128 or 256) over
 // `splits` splits of `tiles_per_split` tiles; with more than one split,
 // part holds splits * kvh * R * group * (hd + 2) floats of scratch and
@@ -550,7 +618,8 @@ int launch(const void* q, const void* cache, const int* shared_pages,
 // kernel leaves them zero). Else spa_kernel with smem_bytes (computed by
 // the wrapper): q rows [32][hd], K transposed [hd][33], V [32][hd + 1] and
 // p [8 warps][4 rows][32], all fp32.
-extern "C" int spa_launch(int dtype, int tensor_cores, const void* q,
+extern "C" int spa_launch(int dtype, int kv_dtype, int tensor_cores,
+                          const void* q,
                           const void* cache_layer, const int* shared_pages,
                           int shared_len, float* acc, float* m, float* l,
                           float* part, int* counters, int num_reqs, int nq,
@@ -568,27 +637,30 @@ extern "C" int spa_launch(int dtype, int tensor_cores, const void* q,
       return (int)cudaErrorInvalidValue;
     switch (hd) {
       case 64:
-        return launch_tc<64>(q, cache_layer, shared_pages, shared_len, acc, m,
-                             l, part, counters, num_reqs, nq, kvh, page_size,
-                             scale, splits, tiles_per_split, s);
+        return launch_tc_kv<64>(kv_dtype, q, cache_layer, shared_pages,
+                                shared_len, acc, m, l, part, counters,
+                                num_reqs, nq, kvh, page_size, scale, splits,
+                                tiles_per_split, s);
       case 128:
-        return launch_tc<128>(q, cache_layer, shared_pages, shared_len, acc,
-                              m, l, part, counters, num_reqs, nq, kvh,
-                              page_size, scale, splits, tiles_per_split, s);
+        return launch_tc_kv<128>(kv_dtype, q, cache_layer, shared_pages,
+                                 shared_len, acc, m, l, part, counters,
+                                 num_reqs, nq, kvh, page_size, scale, splits,
+                                 tiles_per_split, s);
       case 256:
-        return launch_tc<256>(q, cache_layer, shared_pages, shared_len, acc,
-                              m, l, part, counters, num_reqs, nq, kvh,
-                              page_size, scale, splits, tiles_per_split, s);
+        return launch_tc_kv<256>(kv_dtype, q, cache_layer, shared_pages,
+                                 shared_len, acc, m, l, part, counters,
+                                 num_reqs, nq, kvh, page_size, scale, splits,
+                                 tiles_per_split, s);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kFloat32)
-    return launch<float>(q, cache_layer, shared_pages, shared_len, acc, m, l,
-                         num_reqs, nq, kvh, page_size, hd, scale, smem_bytes,
-                         s);
+    return launch_kv<float>(kv_dtype, q, cache_layer, shared_pages,
+                            shared_len, acc, m, l, num_reqs, nq, kvh,
+                            page_size, hd, scale, smem_bytes, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, cache_layer, shared_pages, shared_len,
-                                 acc, m, l, num_reqs, nq, kvh, page_size, hd,
-                                 scale, smem_bytes, s);
+    return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, shared_pages,
+                                    shared_len, acc, m, l, num_reqs, nq, kvh,
+                                    page_size, hd, scale, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,11 @@
 // The tile loop (tc_split): 4 warps stage each tile of K and V in bf16 by
 // 16-byte cp.async, double buffered, every thread finding its key row's
 // source through the caller's key policy (pages through the block table,
-// or the window's tail). The group's query rows are padded to 16 as the A
+// or the window's tail). A tile of an fp8 cache (or of the window's e4m3
+// tail) is staged as its bytes in a second double-buffered ring and
+// converted into the bf16 tile once it lands (attn::convert_rows): the
+// products then run as on bf16, as the TPU kernels upcast fp8 K/V to q's
+// dtype before both products. The group's query rows are padded to 16 as the A
 // operand of mma.sync m16n8k16 (in registers at head_dim <= 128, re-read
 // from shared memory at 256). A tile of kKeys keys gives each of kKeys /
 // 16 warps its own 16 keys; where that leaves warps over (32-key tiles),
@@ -118,16 +122,19 @@ __device__ __forceinline__ void merge_row(
 }
 
 // Geometry of a tensor-core split block: kKeys keys a tile in a ring of 2
-// stages; after the loop the ring holds the warps' states (acc
+// stages (and, for an fp8 cache KV, a ring of 2 stages of its staged
+// bytes); after the loop the ring holds the warps' states (acc
 // [kKeyWarps][16][HD], m and l [kKeyWarps][16]).
-template <int HD, int KEYS>
+template <int HD, int KEYS, typename KV>
 struct TcCfg {
   static constexpr int kKeys = KEYS;
   static constexpr int kKeyWarps = KEYS / 16;            // warps along keys
   static constexpr int kDimWarps = kWarps / kKeyWarps;   // along P V's dims
   static constexpr int kPitch = HD + 8;                  // bf16 a staged row
   static constexpr bool kQInRegs = HD <= 128;
-  static constexpr int kSmem = (16 + 2 * 2 * KEYS) * kPitch * 2;
+  static constexpr int kRing = (16 + 2 * 2 * KEYS) * kPitch * 2;
+  static constexpr int kSmem =
+      kRing + (attn::is_fp8<KV> ? 2 * 2 * KEYS * HD : 0);
   static_assert(kKeyWarps * kDimWarps == kWarps, "warps tile the block");
   static_assert(kKeyWarps * 16 * HD * 4 + 2 * kKeyWarps * 16 * 4 <=
                     2 * 2 * KEYS * kPitch * 2,
@@ -137,8 +144,11 @@ struct TcCfg {
 // One block's split on the tensor cores. Rows row0 .. row0 + group - 1 of
 // q [*, HD] are the group's queries; the block walks n_my tiles, tile it
 // of its split. Keys (a policy object) answers, for key j of tile it:
-//   bool kv(it, j, const bf16** k, const bf16** v): its K and V rows, or
-//     false where the key is hidden (it is then not read: zeros);
+//   bool fp8(it): the tile's rows are fp8 of type KV (staged and
+//     converted), else bf16;
+//   bool kv(it, j, const uint8_t** k, const uint8_t** v): the first bytes
+//     of its K and V rows, or false where the key is hidden (it is then
+//     not read: zeros);
 //   bool full(it): every key of the tile is visible (the mask is skipped);
 //   bool visible(it, j): whether the key is visible;
 //   int rel_pos(it, j): its position less the query's (needed by kAlibi
@@ -146,7 +156,7 @@ struct TcCfg {
 // Softmax units: the raw logit q.k (scale folded into the exponent) in the
 // plain instance, the scaled logit with a soft cap or ALiBi. slopes: the
 // group's ALiBi slopes (kAlibi).
-template <int HD, int KEYS, bool kCap, bool kAlibi, class Keys>
+template <int HD, int KEYS, bool kCap, bool kAlibi, typename KV, class Keys>
 __device__ __forceinline__ void tc_split(
     const __nv_bfloat16* __restrict__ q, size_t row0, int group, int n_my,
     float scale, float soft_cap, const float* __restrict__ slopes,
@@ -154,7 +164,7 @@ __device__ __forceinline__ void tc_split(
     float* __restrict__ part_m, float* __restrict__ part_l, int split,
     int splits, uint4* smem) {
   using namespace mma;
-  using C = TcCfg<HD, KEYS>;
+  using C = TcCfg<HD, KEYS, KV>;
   constexpr int P = C::kPitch, CPR = HD / 8;
   constexpr int DW = HD / C::kDimWarps;  // head dims of a warp's P V
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -171,24 +181,42 @@ __device__ __forceinline__ void tc_split(
 
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [16, P]
   __nv_bfloat16* kv_s = q_s + 16 * P;  // [2 stages][K, V][KEYS, P]
+  // [2 stages][K, V][KEYS, HD] staged fp8 bytes (an fp8 KV only).
+  uint8_t* stg = reinterpret_cast<uint8_t*>(smem) + C::kRing;
 
   for (int i = tid; i < 16 * CPR; i += kThreads) {
     const int g = i / CPR, c = i - g * CPR;
     const bool ok = g < group;
     cp_async16(q_s + g * P + c * 8, ok ? q + (row0 + g) * HD + c * 8 : q, ok);
   }
-  // Tile it into stage `stage`; hidden keys are not read (zeros).
+  // Tile it into stage `stage` (an fp8 tile: its bytes into the staging
+  // ring's stage); hidden keys are not read (zeros). Copy c of a row is
+  // its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int it, int stage) {
+    const uint8_t *ksrc = nullptr, *vsrc = nullptr;
+    if (attn::is_fp8<KV> && keys.fp8(it)) {
+      uint8_t* kb = stg + (size_t)stage * 2 * KEYS * HD;
+#pragma unroll
+      for (int u = 0; u < KEYS * HD / 16 / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int j = i / (HD / 16), c = i - j * (HD / 16);
+        const bool ok = keys.kv(it, j, &ksrc, &vsrc);
+        cp_async16(kb + j * HD + c * 16, ok ? ksrc + c * 16 : (const void*)q,
+                   ok);
+        cp_async16(kb + (KEYS + j) * HD + c * 16,
+                   ok ? vsrc + c * 16 : (const void*)q, ok);
+      }
+      return;
+    }
     __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * KEYS * P;
     __nv_bfloat16* vs = ks + KEYS * P;
 #pragma unroll
     for (int u = 0; u < KEYS * CPR / kThreads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / CPR, c = i - j * CPR;
-      const __nv_bfloat16 *ksrc = q, *vsrc = q;
       const bool ok = keys.kv(it, j, &ksrc, &vsrc);
-      cp_async16(ks + j * P + c * 8, ok ? ksrc + c * 8 : q, ok);
-      cp_async16(vs + j * P + c * 8, ok ? vsrc + c * 8 : q, ok);
+      cp_async16(ks + j * P + c * 8, ok ? ksrc + c * 16 : (const void*)q, ok);
+      cp_async16(vs + j * P + c * 8, ok ? vsrc + c * 16 : (const void*)q, ok);
     }
   };
 
@@ -206,8 +234,14 @@ __device__ __forceinline__ void tc_split(
   for (int it = 0; it < n_my; ++it) {
     cp_async_wait<0>();  // tile it has landed
     __syncthreads();     // and tile it - 1 is consumed
+    const bool staged = attn::is_fp8<KV> && keys.fp8(it);  // block-uniform
+    if (staged)
+      attn::convert_rows<KV, HD>(stg + (size_t)(it & 1) * 2 * KEYS * HD,
+                                 kv_s + (size_t)(it & 1) * 2 * KEYS * P,
+                                 2 * KEYS, P, tid, kThreads);
     if (it + 1 < n_my) load_tile(it + 1, (it + 1) & 1);
     cp_async_commit();
+    if (staged) __syncthreads();  // the converted tile is whole
     if constexpr (C::kQInRegs) {
       if (it == 0) {
 #pragma unroll

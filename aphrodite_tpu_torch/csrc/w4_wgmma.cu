@@ -12,12 +12,20 @@
 //   kUint4  <- w4a16_matmul_pallas (:119) / _w4_kernel (:85): q uint4, one
 //              byte a weight, int8 [K, N];
 //   kW8     <- w8a16_matmul_pallas (:50) / _w8_kernel (:31): q int8 [K, N],
-//              one fp32 scale a column, s [N], no zeros.
+//              one fp32 scale a column, s [N], no zeros;
+//   kFp8    <- no Pallas kernel: fp8_matmul of aphrodite_tpu/ops/
+//              quant_gemm.py:74-119 (XLA computes it in JAX): q e4m3fn
+//              [K, N], one fp32 scale a column, s [N], no zeros; with the
+//              template switch RS, also one fp32 scale a row of x, rs [M]
+//              (W8A8: x already rounded to e4m3 and held in bf16, which is
+//              exact), and y = (d rs[m]) s[n] in fp32, the reference's
+//              order (quant_gemm.py:112-118).
 // The first three are W[k, n] = (q[k, n] - z[g, n]) s[g, n], g = k / group,
-// s and z fp32 [K / group, N]; kW8 is W[k, n] = q[k, n] s[n]. The two byte
-// layouts ("one byte a weight") are a third case of the same stage: one
-// byte row is one k, as each of kPacked's halves. (fp32 activations stay on
-// the CUDA-core kernels of quant_matmul.cu.)
+// s and z fp32 [K / group, N]; kW8 and kFp8 are W[k, n] = q[k, n] s[n]. The
+// three byte layouts ("one byte a weight") are a third case of the same
+// stage: one byte row is one k, as each of kPacked's halves; kFp8 has kW8's
+// geometry. (fp32 activations stay on the CUDA-core kernels of
+// quant_matmul.cu.)
 //
 // Form: the TPU int4 kernel's group-wise one. Per group (and per half of K
 // for kPacked) d = x_g @ q_g, with q exact in bf16 and d summed in fp32 by
@@ -30,8 +38,8 @@
 // products, and acc += d s. That drops the sums of x, which cost a third of
 // the time at M = 128 (PERF.md): the tensor cores and the shared memory
 // that read x once more. The caller reads the zeros at a weight's first
-// call at each M. kW8 has no groups: d sums a split's whole range and the
-// epilogue takes y = d s, as _w8_kernel scales its fp32 sum.
+// call at each M. kW8 and kFp8 have no groups: d sums a split's whole
+// range and the epilogue takes y = d s, as _w8_kernel scales its fp32 sum.
 //
 // Bound. At the Llama-3.1-8B int4 path's decode M = 128 a layer's four
 // GEMMs take 55.8 GFLOP (~56 us at 989 TFLOP/s) and read ~123 MB (~37 us
@@ -78,7 +86,12 @@
 //   exact only for u < 128): the fp32 of bits 0x4B000000 | (b ^ 0x80) is
 //   2^23 + 128 + b, one fp32 subtraction leaves b, and a pair rounds to
 //   bf16 exactly in one cvt (W8_CONVERT 0; the other two conversions
-//   timed, 1 and 2 below, were no faster: PERF.md).
+//   timed, 1 and 2 below, were no faster: PERF.md); kFp8 the e4m3 byte,
+//   exact in bf16 for every finite byte (the weights hold no NaN) by a bit
+//   move, (b & 0x80) << 8 | (b & 0x7f) << 4, and one bf16x2 product with
+//   2^120 (subnormals too: bf16 keeps them; the hardware's
+//   cvt.rn.f16x2.e4m3x2 and f16 -> fp32 -> bf16, timed, was slower:
+//   PERF.md).
 //   Each step has its own registers (a stage's half: 8 int4 or 4 steps of
 //   the other layouts, 32 or 16 registers), so the next step is converted
 //   while the products before it run. A fold's range (F steps, F a
@@ -94,7 +107,7 @@
 //   blocks (grid y: N = 4096 alone gives 32 column tiles for 132 SMs) each
 //   writes fp32 partial sums and the last block of a tile to finish adds
 //   them in split order (deterministic).
-// W4_DROP (a bit mask, 0 here) removes parts of the kernel and W8_CONVERT
+// W4_DROP (a bit mask, 0 here) removes parts of the kernel, and W8_CONVERT
 // picks kW8's conversion, for timing only (chip_smoke.py --variants).
 #include <string.h>
 
@@ -121,7 +134,7 @@ using mma::ldmatrix_x4;
 using mma::mma_bf16;
 using mma::pack_bf16;
 
-enum Layout { kInt4 = 0, kPacked = 1, kUint4 = 2, kW8 = 3 };
+enum Layout { kInt4 = 0, kPacked = 1, kUint4 = 2, kW8 = 3, kFp8 = 4 };
 
 // Parts that W4_DROP removes: the A conversion (A is zero), the fold's
 // arithmetic (acc += d keeps the products alive), the multicast of x, the
@@ -145,7 +158,11 @@ constexpr int kEmptyArrivals = kCluster * 8;  // consumer warps, both blocks
 constexpr int kPitch = 64 + 4;    // fp32 row pitch of the epilogue's tile
 
 __host__ __device__ constexpr bool one_byte(int layout) {
-  return layout == kUint4 || layout == kW8;
+  return layout == kUint4 || layout == kW8 || layout == kFp8;
+}
+// No groups and no zeros: one fp32 scale a column, after the sum.
+__host__ __device__ constexpr bool col_scaled(int layout) {
+  return layout == kW8 || layout == kFp8;
 }
 // k16 steps in a stage's half.
 __host__ __device__ constexpr int half_steps(int layout) {
@@ -289,6 +306,28 @@ __device__ __forceinline__ void convert_w8(uint32_t v0, uint32_t v1,
   }
 }
 
+// kFp8: the e4m3 bytes at bits 0-7 and 16-23 of p (k and k + 1 of one
+// column) as a bf16 pair, exact for every finite byte.
+__device__ __forceinline__ uint32_t e4m3_pair(uint32_t p) {
+  // sign to bit 15, exponent and mantissa to bits 7-10 and 4-6: the bf16
+  // 2^-120 times the e4m3 value (a bf16 subnormal where the byte is one);
+  // one product with 2^120 (0x7B80) restores it.
+  uint32_t b = ((p & 0x00800080u) << 8) | ((p & 0x007F007Fu) << 4);
+  const uint32_t k2p120 = 0x7B807B80u;
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&b),
+                             *reinterpret_cast<const __nv_bfloat162*>(&k2p120));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// kFp8 with v0, v1 as for convert_packed: a[0, 4).
+__device__ __forceinline__ void convert_fp8(uint32_t v0, uint32_t v1,
+                                            uint32_t* a) {
+  a[0] = e4m3_pair(v0);
+  a[1] = e4m3_pair(v0 >> 8);
+  a[2] = e4m3_pair(v1);
+  a[3] = e4m3_pair(v1 >> 8);
+}
+
 // c + z, exact in bf16 (an integer below 256), twice.
 __device__ __forceinline__ uint32_t bf16_twice(float v) {
   return pack_bf16(v, v);
@@ -300,7 +339,7 @@ __device__ __forceinline__ int half_k0(int r0, int h, int K) {
   return L == kInt4 ? 2 * r0 : L == kPacked ? h * (K / 2) + r0 : r0;
 }
 
-template <int L, int MT, int F, bool ZI>
+template <int L, int MT, int F, bool ZI, bool RS>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kThreads, 1)
     w4_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
@@ -309,11 +348,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                     const __grid_constant__ CUtensorMap x_map,
                     __nv_bfloat16* __restrict__ out,
                     float* __restrict__ partial, int* __restrict__ counters,
-                    const float* __restrict__ col_scales, int M, int K,
+                    const float* __restrict__ col_scales,
+                    const float* __restrict__ row_scales, int M, int K,
                     int N, int group, int gs, int chunk_rows, int m_tiles,
                     int stages) {
-  static_assert(L != kW8 || (ZI && F == half_steps(kW8)),
-                "kW8 has no zeros and folds once a stage");
+  static_assert(!col_scaled(L) || (ZI && F == half_steps(L)),
+                "kW8 and kFp8 have no zeros and fold once a stage");
+  static_assert(!RS || L == kFp8, "a scale a row of x is kFp8's W8A8");
   constexpr int kHalves = halves(L);
   constexpr int kXBoxes = x_boxes(L);
   constexpr int kD = MT / 2;  // accumulator floats a thread
@@ -375,7 +416,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           } else {
             mbar_arrive_expect_tx(&full[stage], tx);
             tma_load_2d(sb, &w_map, &full[stage], col_load, r0);
-            if (L != kW8) {
+            if (!col_scaled(L)) {
 #pragma unroll
               for (int h = 0; h < kHalves; ++h) {
                 const int g0 = half_k0<L>(r0, h, K) / group;
@@ -523,7 +564,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
         // the last real row adds zero: its q, d and sums are 0).
         float2 sv = make_float2(0.f, 0.f), zv = sv;
         uint32_t c0 = 0u, c1 = 0u;
-        if (L != kW8) {
+        if (!col_scaled(L)) {
           const int row =
               h * gs + min((ks + 16 * F * f) / group - ks / group, gs - 1);
           sv = *reinterpret_cast<const float2*>(
@@ -548,6 +589,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
             ldmatrix_x2_trans(v0, v1, sb + 2048 * j + lane_off);
             if (L == kW8)
               convert_w8(v0, v1, a[j]);
+            else if (L == kFp8)
+              convert_fp8(v0, v1, a[j]);
             else  // kPacked's nibble h; kUint4's low nibble (h == 0)
               convert_packed(v0, v1, 4 * h, c0, c1, a[j]);
             if (L == kPacked && ZI) {
@@ -571,7 +614,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 #pragma unroll
             for (int p = 0; p < kA / 4; ++p)
               wgmma_rs<MT>(d, a[j] + 4 * p, desc,
-                           (L == kW8 || i > 0 || p > 0) ? 1 : 0);
+                           (col_scaled(L) || i > 0 || p > 0) ? 1 : 0);
           }
         }
         if (!dropped(kDropProducts)) {
@@ -579,7 +622,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           wgmma_wait<0>();
           fence_regs<kD>(d);
         }
-        if (L == kW8) {
+        if (col_scaled(L)) {
           // no groups: d runs on over the split; scaled in the epilogue
         } else if (dropped(kDropFold)) {
 #pragma unroll
@@ -621,13 +664,22 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   }
 
   // ------------------------------------------------------------- epilogue
-  if (L == kW8) {  // y = d s: columns n_loc, n_loc + 1 (N % 16 == 0)
+  if (col_scaled(L)) {  // y = d s: columns n_loc, n_loc + 1 (N % 16 == 0)
     const int col = col0 + n_loc;
     const float2 sv =
         col < N ? __ldg(reinterpret_cast<const float2*>(col_scales + col))
                 : make_float2(0.f, 0.f);
 #pragma unroll
     for (int j8 = 0; j8 < MT / 8; ++j8) {
+      if (RS) {  // (d rs[m]) s[n]: rows 8 j + 2 t and + 1 of the M tile
+        const int m = m0 + 8 * j8 + 2 * t;
+        const float r0 = m < M ? __ldg(row_scales + m) : 0.f;
+        const float r1 = m + 1 < M ? __ldg(row_scales + m + 1) : 0.f;
+        d[4 * j8 + 0] *= r0;
+        d[4 * j8 + 1] *= r1;
+        d[4 * j8 + 2] *= r0;
+        d[4 * j8 + 3] *= r1;
+      }
       acc[4 * j8 + 0] = d[4 * j8 + 0] * sv.x;
       acc[4 * j8 + 1] = d[4 * j8 + 1] * sv.x;
       acc[4 * j8 + 2] = d[4 * j8 + 2] * sv.y;
@@ -728,11 +780,12 @@ struct Launch {
   float* partial;
   int* counters;
   const float* col_scales;
+  const float* row_scales;
   int M, K, N, group, gs, splits, chunk_rows, m_tiles, stages;
   cudaStream_t stream;
 };
 
-template <int L, int MT, int F, bool ZI>
+template <int L, int MT, int F, bool ZI, bool RS = false>
 int launch(const Launch& a) {
   // x [M, K]: boxes of MT rows x 64 k (128 bytes, 128-byte swizzle); rows
   // past M and k past K read zeros.
@@ -747,27 +800,32 @@ int launch(const Launch& a) {
   const int smem = smem_bytes(L, MT, a.gs, F, a.stages);
   if (a.stages * stage_geo(L, MT, a.gs, F).bytes < 2 * MT * kPitch * 4)
     return (int)cudaErrorInvalidValue;  // the epilogue's tiles must fit
-  err = allow_smem<w4_wgmma_kernel<L, MT, F, ZI>>(smem);
+  err = allow_smem<w4_wgmma_kernel<L, MT, F, ZI, RS>>(smem);
   if (err != cudaSuccess) return (int)err;
   const int pairs = ((a.N + kBN - 1) / kBN + kCluster - 1) / kCluster;
   const dim3 grid(pairs * a.m_tiles * kCluster, a.splits);
-  w4_wgmma_kernel<L, MT, F, ZI><<<grid, kThreads, smem, a.stream>>>(
+  w4_wgmma_kernel<L, MT, F, ZI, RS><<<grid, kThreads, smem, a.stream>>>(
       a.maps[0], a.maps[1], a.maps[2], x_map,
       static_cast<__nv_bfloat16*>(a.out), a.splits > 1 ? a.partial : nullptr,
-      a.counters, a.col_scales, a.M, a.K, a.N, a.group, a.gs, a.chunk_rows,
-      a.m_tiles, a.stages);
+      a.counters, a.col_scales, a.row_scales, a.M, a.K, a.N, a.group, a.gs,
+      a.chunk_rows, a.m_tiles, a.stages);
   return (int)cudaGetLastError();
 }
 
 // F: k16 steps a fold (kInt4 2, 4 or 8; kPacked 1, 2 or 4; kUint4 2 or 4;
-// kW8 4); zi: the zeros are integers, taken inside the product (always for
-// kW8, which has none).
+// kW8 and kFp8 4); zi: the zeros are integers, taken inside the product
+// (always for kW8 and kFp8, which have none); kFp8 with row scales takes
+// the RS instance.
 template <int L, int MT>
 int launch_f(int f, int zi, const Launch& a) {
 #define W4_LAUNCH(F_) \
   return zi ? launch<L, MT, F_, true>(a) : launch<L, MT, F_, false>(a)
   if constexpr (L == kW8) {
     if (f == 4 && zi) return launch<L, MT, 4, true>(a);
+  } else if constexpr (L == kFp8) {
+    if (f == 4 && zi)
+      return a.row_scales != nullptr ? launch<L, MT, 4, true, true>(a)
+                                     : launch<L, MT, 4, true, false>(a);
   } else if constexpr (L == kInt4) {
     if (f == 2) W4_LAUNCH(2);
     if (f == 4) W4_LAUNCH(4);
@@ -804,11 +862,11 @@ int launch_mt(int mt, int f, int zi, const Launch& a) {
 //
 // w4_weight_maps: the three tensor maps of one weight, written to `maps`
 // (3 x 128 bytes, any alignment), encoded once per weight by the caller:
-// the bytes q [rows, N] (rows = K/2 for int4 and packed, K for uint4 and
-// w8) in boxes of 64 rows x 128 columns (128-byte swizzle; N a multiple of
+// the bytes q [rows, N] (rows = K/2 for int4 and packed, K for uint4, w8
+// and fp8) in boxes of 64 rows x 128 columns (128-byte swizzle; N a multiple of
 // 16, TMA's row stride), then the fp32 scales and zeros [G, N] in boxes of
-// gs rows x 128 columns; with gs = 0 (w8, whose scales the epilogue reads)
-// those two maps are left zero.
+// gs rows x 128 columns; with gs = 0 (w8 and fp8, whose scales the
+// epilogue reads) those two maps are left zero.
 extern "C" int w4_weight_maps(const void* q, const float* scales,
                               const float* zeros, int rows, int N, int G,
                               int gs, void* maps) {
@@ -840,25 +898,31 @@ extern "C" int w4_weight_maps(const void* q, const float* scales,
 // w4_wgmma_launch: y = x @ W for bf16 x [M, K] and y [M, N] (16-byte
 // aligned), `maps` from w4_weight_maps, the rest of the launch in p[13]
 // (fixed per weight and M, so the caller keeps it): layout (0 int4, 1
-// packed, 2 uint4, 3 w8); mt, the rows of M a block (16, 32, 64 or 128);
-// f, the k16 steps a fold (16 f divides the group, and K/2 for packed; 4
-// for w8); M, K, N, the group (unread for w8); gs, the groups a stage's
-// half can touch (0 for w8); splits and chunk_rows, the K splits of
+// packed, 2 uint4, 3 w8, 4 fp8); mt, the rows of M a block (16, 32, 64 or
+// 128); f, the k16 steps a fold (16 f divides the group, and K/2 for
+// packed; 4 for w8 and fp8); M, K, N, the group (unread for w8 and fp8);
+// gs, the groups a stage's half can touch (0 for w8 and fp8); splits and
+// chunk_rows, the K splits of
 // chunk_rows byte rows (a multiple of 64); m_tiles (m_tiles * mt >= M);
 // stages, the ring's depth (at least 2); zi, 1 where every zero is an
 // integer with |c + z| < 256 (c = 136 for int4, 128 for packed and uint4),
-// which takes the zero inside the product (1 for w8). K is a multiple of
-// 32, N of 16, the group of 32. With splits > 1, partial is fp32 [splits,
-// M, N] scratch and counters one int per (column tile, M tile) (rounded up
-// to an even number of column tiles), zero before and after the launch.
-// col_scales: w8's fp32 scales [N] (16-byte aligned), else unread.
+// which takes the zero inside the product (1 for w8 and fp8). K is a
+// multiple of 32, N of 16, the group of 32. With splits > 1, partial is
+// fp32 [splits, M, N] scratch and counters one int per (column tile, M
+// tile) (rounded up to an even number of column tiles), zero before and
+// after the launch. col_scales: w8's and fp8's fp32 scales [N] (16-byte
+// aligned), else unread. row_scales: fp8's W8A8 scales of x's rows [M]
+// (fp32), or null (weight-only; the other layouts take null).
 extern "C" int w4_wgmma_launch(const int* p, const void* maps, const void* x,
                                void* out, float* partial, int* counters,
-                               const float* col_scales, void* stream) {
+                               const float* col_scales,
+                               const float* row_scales, void* stream) {
   const int layout = p[0], mt = p[1], f = p[2], M = p[3], K = p[4], N = p[5],
             group = p[6], gs = p[7], splits = p[8], chunk_rows = p[9],
             m_tiles = p[10], stages = p[11], zi = p[12];
-  if (layout < kInt4 || layout > kW8) return (int)cudaErrorInvalidValue;
+  if (layout < kInt4 || layout > kFp8 ||
+      (row_scales != nullptr && layout != kFp8))
+    return (int)cudaErrorInvalidValue;
   const int rows = byte_rows(layout, K);
   bool bad = M < 1 || K < 32 || K % 32 != 0 || N < 16 || N % 16 != 0 ||
              stages < 2 || splits < 1 || chunk_rows < kRows ||
@@ -867,8 +931,8 @@ extern "C" int w4_wgmma_launch(const int* p, const void* maps, const void* x,
              (long long)splits * chunk_rows < rows || m_tiles < 1 ||
              (long long)m_tiles * mt < M ||
              (splits > 1 && (partial == nullptr || counters == nullptr));
-  if (layout == kW8)
-    bad = bad || f != half_steps(kW8) || !zi || gs != 0 ||
+  if (col_scaled(layout))
+    bad = bad || f != half_steps(layout) || !zi || gs != 0 ||
           col_scales == nullptr;
   else
     bad = bad || group < 32 || group % 32 != 0 || K % group != 0 ||
@@ -877,8 +941,8 @@ extern "C" int w4_wgmma_launch(const int* p, const void* maps, const void* x,
   if (bad) return (int)cudaErrorInvalidValue;
   CUtensorMap m[3];
   memcpy(m, maps, sizeof(m));
-  const Launch a{m, x, out, partial, counters, col_scales, M, K, N, group,
-                 gs, splits, chunk_rows, m_tiles, stages,
+  const Launch a{m, x, out, partial, counters, col_scales, row_scales, M, K,
+                 N, group, gs, splits, chunk_rows, m_tiles, stages,
                  static_cast<cudaStream_t>(stream)};
   switch (layout) {
     case kInt4:
@@ -887,7 +951,9 @@ extern "C" int w4_wgmma_launch(const int* p, const void* maps, const void* x,
       return launch_mt<kPacked>(mt, f, zi, a);
     case kUint4:
       return launch_mt<kUint4>(mt, f, zi, a);
-    default:
+    case kW8:
       return launch_mt<kW8>(mt, f, zi, a);
+    default:
+      return launch_mt<kFp8>(mt, f, zi, a);
   }
 }

@@ -9,6 +9,14 @@
 // chunked local attention and logit soft cap (on the scaled logit, before
 // the mask) as in the TPU kernel. Fully masked rows give 0, never NaN.
 //
+// An fp8 cache (template type KV, e4m3fn or e5m2): the TPU kernel upcasts
+// each K/V tile to q's dtype before both products (:162-164). The tails
+// are in the cache's dtype, or bf16 beside an e5m2 cache (the reference
+// runner's rule, aphrodite_tpu/worker/runner.py:519-520: attn::tail_t), and
+// each tile is read in its own dtype: the tensor-core split stages an fp8
+// tile's bytes and converts them in shared memory (split_decode.cuh), the
+// CUDA-core split converts to fp32 as it stages.
+//
 // Cascade init state (the TPU kernel's cascade_init / shared_len): when
 // every request shares its first S page positions, the shared-prefix pass
 // (csrc/shared_prefix_attention.cu) has already attended them; the splits
@@ -87,9 +95,11 @@ __device__ __forceinline__ Tiles request_tiles(int plen, int step,
 // The window's keys for split::tc_split: tile it of the split that starts
 // at tile ta is a page tile (positions from (t0 + t) * 64) or a tail tile
 // (slots from (t - n_paged) * 64). Every tile takes the mask.
-template <int HD>
+template <int HD, typename KV>
 struct WindowKeys {
-  const __nv_bfloat16 *cache, *tail_k, *tail_v;
+  using TT = attn::tail_t<KV>;
+  const KV* cache;
+  const TT *tail_k, *tail_v;
   const int* bt;
   Tiles tl;
   int ta, plen, step, q_pos, kvh, h, page_size, page_shift, sliding_window,
@@ -100,20 +110,26 @@ struct WindowKeys {
   __device__ __forceinline__ int kv0(int t) const {
     return paged(t) ? (tl.t0 + t) * kKeys : (t - tl.n_paged) * kKeys;
   }
-  __device__ __forceinline__ bool kv(int it, int j, const __nv_bfloat16** k,
-                                     const __nv_bfloat16** v) const {
+  __device__ __forceinline__ bool fp8(int it) const {
+    return paged(ta + it) ? attn::is_fp8<KV> : attn::is_fp8<TT>;
+  }
+  __device__ __forceinline__ bool kv(int it, int j, const uint8_t** k,
+                                     const uint8_t** v) const {
     const int t = ta + it, key = kv0(t) + j;  // page position or tail slot
     if (paged(t)) {
       if (key < tl.lo || key >= plen) return false;
       const int pg = page_shift >= 0 ? key >> page_shift : key / page_size;
-      *k = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-           (size_t)(key - pg * page_size) * HD;
-      *v = *k + kvh * page_elems;
+      const KV* kr = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
+                     (size_t)(key - pg * page_size) * HD;
+      *k = reinterpret_cast<const uint8_t*>(kr);
+      *v = reinterpret_cast<const uint8_t*>(kr + kvh * page_elems);
       return true;
     }
     if (key > step) return false;
-    *k = tail_k + tail_base + (size_t)key * HD;
-    *v = tail_v + tail_base + (size_t)key * HD;
+    *k = reinterpret_cast<const uint8_t*>(tail_k + tail_base +
+                                          (size_t)key * HD);
+    *v = reinterpret_cast<const uint8_t*>(tail_v + tail_base +
+                                          (size_t)key * HD);
     return true;
   }
   __device__ __forceinline__ bool full(int) const { return false; }
@@ -128,12 +144,12 @@ struct WindowKeys {
   }
 };
 
-template <int HD, bool kCap>
+template <int HD, bool kCap, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
 wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ cache,
-                   const __nv_bfloat16* __restrict__ tail_k,
-                   const __nv_bfloat16* __restrict__ tail_v,
+                   const KV* __restrict__ cache,
+                   const attn::tail_t<KV>* __restrict__ tail_k,
+                   const attn::tail_t<KV>* __restrict__ tail_v,
                    float* __restrict__ part_acc, float* __restrict__ part_m,
                    float* __restrict__ part_l,
                    const int* __restrict__ paged_lens,
@@ -143,7 +159,7 @@ wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    float soft_cap, int shared_len, int tiles_per_split) {
   const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
-  WindowKeys<HD> keys;
+  WindowKeys<HD, KV> keys;
   keys.cache = cache;
   keys.tail_k = tail_k;
   keys.tail_v = tail_v;
@@ -165,16 +181,17 @@ wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_my =
       my_tiles(keys.tl.n, keys.ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_wd[];
-  split::tc_split<HD, kKeys, kCap, false>(
+  split::tc_split<HD, kKeys, kCap, false, KV>(
       q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap, nullptr,
       keys, part_acc, part_m, part_l, split, splits, smem_wd);
 }
 
 // ------------------------------------------------------ CUDA-core split
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-wd_split_kernel(const T* __restrict__ q, const T* __restrict__ cache,
-                const T* __restrict__ tail_k, const T* __restrict__ tail_v,
+wd_split_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
+                const attn::tail_t<KV>* __restrict__ tail_k,
+                const attn::tail_t<KV>* __restrict__ tail_v,
                 float* __restrict__ part_acc, float* __restrict__ part_m,
                 float* __restrict__ part_l,
                 const int* __restrict__ paged_lens,
@@ -224,7 +241,6 @@ wd_split_kernel(const T* __restrict__ q, const T* __restrict__ cache,
   const size_t tail_base = ((size_t)r * kvh + h) * kw * hd;
   for (int u = warp; u < n_my * per_tile; u += n_warps) {
     const int t = ta + u / per_tile, k0 = (u % per_tile) * sub;
-    const T *kb, *vb;
     int n, kv0;
     bool paged = t < tl.n_paged;
     if (paged) {
@@ -234,18 +250,19 @@ wd_split_kernel(const T* __restrict__ q, const T* __restrict__ cache,
       const int page_id = block_tables[(size_t)r * max_pages + kv0 / page_size];
       const size_t base = ((size_t)page_id * 2 * kvh + h) * page_elems +
                           (size_t)(kv0 % page_size) * hd;
-      kb = cache + base;
-      vb = cache + base + kvh * page_elems;
+      __syncwarp();  // this warp's previous sub-tile fully consumed
+      load_tile(cache + base, cache + base + kvh * page_elems, n, hd, k_s,
+                v_s, lane, 32);  // in the cache's dtype
     } else {
       const int j0 = (t - tl.n_paged) * kKeys + k0;
       n = min(sub, step + 1 - j0);
       if (n <= 0) continue;
       kv0 = plen + j0;
-      kb = tail_k + tail_base + (size_t)j0 * hd;
-      vb = tail_v + tail_base + (size_t)j0 * hd;
+      __syncwarp();
+      load_tile(tail_k + tail_base + (size_t)j0 * hd,
+                tail_v + tail_base + (size_t)j0 * hd, n, hd, k_s, v_s, lane,
+                32);  // in the tails' dtype
     }
-    __syncwarp();  // this warp's previous sub-tile fully consumed
-    load_tile(kb, vb, n, hd, k_s, v_s, lane, 32);
     __syncwarp();
     const int kv_pos = kv0 + lane;
     const bool valid = lane < n && (!paged || kv_pos >= tl.lo) &&
@@ -308,42 +325,62 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, bool kCap>
+template <int HD, bool kCap, typename KV>
 int split_tc(const Args& a) {
-  constexpr int kSmem = split::TcCfg<HD, kKeys>::kSmem;
+  constexpr int kSmem = split::TcCfg<HD, kKeys, KV>::kSmem;
   const cudaError_t err =
-      mma::allow_smem<wd_split_tc_kernel<HD, kCap>>(kSmem);
+      mma::allow_smem<wd_split_tc_kernel<HD, kCap, KV>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  wd_split_tc_kernel<HD, kCap>
+  using TT = attn::tail_t<KV>;
+  wd_split_tc_kernel<HD, kCap, KV>
       <<<dim3(a.num_reqs, a.kvh, a.splits), kWarps * 32, kSmem, a.stream>>>(
           static_cast<const __nv_bfloat16*>(a.q),
-          static_cast<const __nv_bfloat16*>(a.cache),
-          static_cast<const __nv_bfloat16*>(a.tail_k),
-          static_cast<const __nv_bfloat16*>(a.tail_v), a.part_acc, a.part_m,
+          static_cast<const KV*>(a.cache), static_cast<const TT*>(a.tail_k),
+          static_cast<const TT*>(a.tail_v), a.part_acc, a.part_m,
           a.part_l, a.paged_lens, a.block_tables, a.max_pages, a.nq, a.kvh,
           a.page_size, a.kw, a.step, a.scale, a.sliding_window, a.chunk_attn,
           a.soft_cap, a.shared_len, a.tiles_per_split);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename KV>
 int split_tc(const Args& a) {
-  return a.soft_cap > 0.f ? split_tc<HD, true>(a) : split_tc<HD, false>(a);
+  return a.soft_cap > 0.f ? split_tc<HD, true, KV>(a)
+                          : split_tc<HD, false, KV>(a);
 }
 
-template <typename T>
+template <typename KV>
+int split_tc_hd(const Args& a) {
+  if (a.hd == 64) return split_tc<64, KV>(a);
+  if (a.hd == 128) return split_tc<128, KV>(a);
+  if (a.hd == 256) return split_tc<256, KV>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename KV>
 int split_cuda_cores(const Args& a) {
-  const cudaError_t err = mma::allow_smem<wd_split_kernel<T>>(a.smem_bytes);
+  const cudaError_t err =
+      mma::allow_smem<wd_split_kernel<T, KV>>(a.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  wd_split_kernel<T><<<dim3(a.num_reqs, a.kvh, a.splits), a.warps * 32,
-                       a.smem_bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.cache),
-      static_cast<const T*>(a.tail_k), static_cast<const T*>(a.tail_v),
+  using TT = attn::tail_t<KV>;
+  wd_split_kernel<T, KV><<<dim3(a.num_reqs, a.kvh, a.splits), a.warps * 32,
+                           a.smem_bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.cache),
+      static_cast<const TT*>(a.tail_k), static_cast<const TT*>(a.tail_v),
       a.part_acc, a.part_m, a.part_l, a.paged_lens, a.block_tables,
       a.max_pages, a.nq, a.kvh, a.page_size, a.hd, a.kw, a.step, a.scale,
       a.sliding_window, a.chunk_attn, a.soft_cap, a.shared_len,
       a.tiles_per_split);
   return (int)cudaGetLastError();
+}
+
+// The CUDA-core split on a cache in q's dtype or fp8 (a KvDtype code).
+template <typename T>
+int split_cuda_cores_kv(int kv_dtype, const Args& a) {
+  if (kv_dtype == kKvAuto) return split_cuda_cores<T, T>(a);
+  if (kv_dtype == kKvE4M3) return split_cuda_cores<T, __nv_fp8_e4m3>(a);
+  if (kv_dtype == kKvE5M2) return split_cuda_cores<T, __nv_fp8_e5m2>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -365,11 +402,13 @@ int merge(const Args& a) {
 // One call launches the split kernel, then the merge, on `stream`.
 // tensor_cores: the bf16 instance (head_dim 64, 128 or 256, nq / kvh <=
 // 16); else the CUDA-core one with `warps` warps and `smem_bytes` of shared
-// memory (ops/window_decode_attention.py: window_warps). part_acc
-// [R, nq, splits, hd], part_m and part_l [R, nq, splits] fp32 scratch.
+// memory (ops/window_decode_attention.py: window_warps). kv_dtype: the
+// cache's KvDtype code; the tails are in attn::tail_t of the cache's type.
+// part_acc [R, nq, splits, hd], part_m and part_l [R, nq, splits] fp32 scratch.
 // acc0 [R, nq, hd], m0 and l0 [R, nq] (fp32): the cascade's init state
 // covering page positions < shared_len, or all three null (shared_len 0).
-extern "C" int wd_launch(int dtype, int tensor_cores, const void* q,
+extern "C" int wd_launch(int dtype, int kv_dtype, int tensor_cores,
+                         const void* q,
                          const void* cache_layer, const void* tail_k_layer,
                          const void* tail_v_layer, void* out, float* part_acc,
                          float* part_m, float* part_l, const int* paged_lens,
@@ -394,19 +433,19 @@ extern "C" int wd_launch(int dtype, int tensor_cores, const void* q,
   int err = (int)cudaErrorInvalidValue;
   if (tensor_cores) {
     if (dtype != kBFloat16 || nq / kvh > 16) return err;
-    if (hd == 64) err = split_tc<64>(a);
-    else if (hd == 128) err = split_tc<128>(a);
-    else if (hd == 256) err = split_tc<256>(a);
+    if (kv_dtype == kKvAuto) err = split_tc_hd<__nv_bfloat16>(a);
+    else if (kv_dtype == kKvE4M3) err = split_tc_hd<__nv_fp8_e4m3>(a);
+    else if (kv_dtype == kKvE5M2) err = split_tc_hd<__nv_fp8_e5m2>(a);
     if (err != 0) return err;
     return merge<__nv_bfloat16>(a);
   }
   if (warps < 1 || warps > kWarps) return err;
   if (dtype == kFloat32) {
-    err = split_cuda_cores<float>(a);
+    err = split_cuda_cores_kv<float>(kv_dtype, a);
     return err != 0 ? err : merge<float>(a);
   }
   if (dtype == kBFloat16) {
-    err = split_cuda_cores<__nv_bfloat16>(a);
+    err = split_cuda_cores_kv<__nv_bfloat16>(kv_dtype, a);
     return err != 0 ? err : merge<__nv_bfloat16>(a);
   }
   return err;

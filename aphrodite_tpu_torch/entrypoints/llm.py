@@ -23,6 +23,7 @@ def build_engine_config(
     quantization: Optional[str] = None,
     quantize_lm_head: bool = False,
     hf_config: Any = None,
+    kv_cache_dtype: str = "auto",
     block_size: int = 32,
     num_kv_blocks: Optional[int] = None,
     max_num_seqs: int = 128,
@@ -38,7 +39,8 @@ def build_engine_config(
     return EngineConfig(
         model_config=mc,
         cache_config=CacheConfig(block_size=block_size,
-                                 num_blocks=num_kv_blocks),
+                                 num_blocks=num_kv_blocks,
+                                 cache_dtype=kv_cache_dtype),
         scheduler_config=SchedulerConfig(
             max_num_seqs=max_num_seqs,
             max_num_batched_tokens=max_num_batched_tokens,

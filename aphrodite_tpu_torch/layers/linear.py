@@ -1,7 +1,8 @@
 """Linear application. Weights keep the JAX package's ``[in, out]``
 layout, so a projection is ``x @ w``. A weight is a tensor, or a dict of
-tensors in a quantized layout whose format tag (``"w4a16"`` or
-``"w8a16"``) the caller passes."""
+tensors in a quantized layout whose format tag (``"w4a16"``, ``"w8a16"``,
+``"int8"``, ``"fp8"`` or ``"fp8_w8a8"``, as in
+``aphrodite_tpu/layers/linear.py:29-41``) the caller passes."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -18,6 +19,15 @@ def apply_linear(x: torch.Tensor, w: Weight,
         from aphrodite_tpu_torch.ops import quant_gemm
         if fmt == "w8a16":
             out = quant_gemm.w8a16_matmul(x, w["qweight"], w["scales"])
+        elif fmt == "int8":
+            out = quant_gemm.int8_matmul(x, w["qweight"], w["scales"])
+        elif fmt in ("fp8", "fp8_w8a8"):
+            scale = w.get("weight_scale_block")
+            out = quant_gemm.fp8_matmul(
+                x, w["qweight"],
+                w["weight_scale"] if scale is None else scale,
+                input_scale=w.get("input_scale"),
+                act_quant=fmt == "fp8_w8a8")
         elif fmt == "w4a16":
             out = quant_gemm.w4a16_matmul(
                 x, w.get("qweight"), w["scales"], w.get("zeros"),

@@ -145,7 +145,9 @@ def params_from_jax(tree: Mapping[str, Any],
     they are no weight, and both packages derive them from the config.
     Quantized projections are dicts of leaves (``qweight``,
     ``qweight_packed`` or the realized ``qweight4``, ``scales``, ``zeros``,
-    ``input_perm``); they become ``layers.<i>.<name>.<leaf>``, a
+    ``input_perm``; fp8's ``qweight`` in ml_dtypes' float8_e4m3fn with
+    ``weight_scale``, and a checkpoint's ``weight_scale_block`` and
+    ``input_scale``); they become ``layers.<i>.<name>.<leaf>``, a
     ``qweight4`` packed as ``ops.quant_matmul.pack_int4`` bytes.
 
     MoE trees keep ``router``, ``we_*`` and ``ws_*`` stacks: beside the
@@ -219,29 +221,49 @@ def realize_int4_leaves(model: nn.Module) -> nn.Module:
     return model
 
 
-def _to_tensor(arr: np.ndarray) -> torch.Tensor:
+# ml_dtypes' types (JAX's bf16 and fp8 arrays), by name: viewed as their
+# bytes and then as torch's type, so that no ml_dtypes import is needed.
+_ML_DTYPES = {"bfloat16": (np.uint16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+              "float8_e5m2": (np.uint8, torch.float8_e5m2)}
+
+
+# Leaves a quantized projection takes only where a loaded tree gives them.
+_OPTIONAL_LEAVES = (".input_perm", ".weight_scale_block", ".input_scale")
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    """A leaf given as a numpy array (ml_dtypes' bf16 and fp8 included) or
+    a tensor (another model's state dict: numpy has no fp8), as a CPU
+    tensor of its own dtype."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().contiguous()
     arr = np.array(arr)  # writable, contiguous copy
-    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from JAX
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name in _ML_DTYPES:
+        bits, dtype = _ML_DTYPES[arr.dtype.name]
+        return torch.from_numpy(arr.view(bits)).view(dtype)
     return torch.from_numpy(arr)
 
 
 @torch.no_grad()
-def load_params(model: nn.Module,
-                state: Mapping[str, np.ndarray]) -> None:
+def load_params(model: nn.Module, state: Mapping[str, Any]) -> None:
     """Copy a full state dict into the model's parameters and quantized
-    buffers (cast to their dtype and device); every one must be given,
-    with its shape. An ``input_perm`` leaf is taken where given."""
+    buffers (cast to their dtype and device; fp8 and integer leaves must
+    come in their own dtype and are copied bit for bit); every one must be
+    given, with its shape. The optional leaves ``input_perm`` (W4) and
+    ``weight_scale_block`` / ``input_scale`` (fp8) are taken where given."""
     targets = model.state_dict(keep_vars=True)
     state = dict(state)
-    for name in [n for n in state if n.endswith(".input_perm")]:
+    for name in [n for n in state if n.endswith(_OPTIONAL_LEAVES)]:
         owner = model.get_submodule(name.rsplit(".", 1)[0])
-        if not isinstance(owner, QuantWeight):
-            raise KeyError(f"{name}: not a quantized projection")
-        owner.input_perm = _to_tensor(state.pop(name)).long().to(
-            owner.scales.device)
+        leaf = name.rsplit(".", 1)[1]
+        if not isinstance(owner, QuantWeight) or not hasattr(owner, leaf):
+            raise KeyError(f"{name}: not a leaf of this quantized "
+                           "projection")
+        t = _to_tensor(state.pop(name)).to(owner.device)
+        setattr(owner, leaf, t.long() if leaf == "input_perm" else t.float())
     missing = set(targets) - set(state)
-    missing = {n for n in missing if not n.endswith(".input_perm")}
+    missing = {n for n in missing if not n.endswith(_OPTIONAL_LEAVES)}
     extra = set(state) - set(targets)
     if missing or extra:
         raise KeyError(f"state dict mismatch: missing {sorted(missing)}, "
@@ -253,6 +275,10 @@ def load_params(model: nn.Module,
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != "
                              f"{tuple(p.shape)}")
-        if t.dtype in (torch.int8, torch.uint8) and t.dtype != p.dtype:
-            raise ValueError(f"{name}: dtype {t.dtype} != {p.dtype}")
+        if p.dtype.itemsize == 1 or t.dtype.itemsize == 1:
+            if t.dtype != p.dtype:
+                raise ValueError(f"{name}: dtype {t.dtype} != {p.dtype}")
+            # bytes, not values: an fp8 leaf lands bit for bit
+            p.view(torch.uint8).copy_(t.view(torch.uint8).to(p.device))
+            continue
         p.copy_(t.to(device=p.device, dtype=p.dtype))

@@ -13,10 +13,10 @@ whole projection before it) serve their attention. Two forwards:
   frozen; each layer writes its K/V into the window tail and attends with
   the window decode kernel.
 
-Weight-only quantization (``quant_config``: gptq/awq W4A16, W8A16) turns
-each of the four projection weights of a layer into a ``QuantWeight``:
-buffers holding the quantized leaves, which ``apply_linear`` takes through
-the format tag. Fusion stays on for quantized leaves, unlike in the JAX
+Quantization (``quant_config``: gptq/awq W4A16, W8A16, fp8, int8 W8A8)
+turns each of the four projection weights of a layer into a
+``QuantWeight``: buffers holding the quantized leaves, which
+``apply_linear`` takes through the format tag. Fusion stays on for quantized leaves, unlike in the JAX
 package, which leaves them unfused: groups run along K, so fusing along N
 just concatenates ``qweight`` / ``qweight_packed``, ``scales`` and
 ``zeros`` on their last axis, and every output column is computed as the
@@ -53,7 +53,11 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 class QuantWeight(nn.Module):
     """The quantized leaves of one [K, N] projection, as buffers:
-    ``qweight`` int8 [K, N] and ``scales`` fp32 [N] for w8a16;
+    ``qweight`` int8 [K, N] and ``scales`` fp32 [N] for w8a16 and int8;
+    ``qweight`` float8_e4m3fn [K, N] and ``weight_scale`` fp32 [N] for fp8
+    and fp8_w8a8 (the JAX package's fp8 leaves, ``models/llama.py:72-73,
+    226-229``; a checkpoint's ``weight_scale_block`` and ``input_scale``
+    are taken only where a loaded tree gives them);
     ``qweight`` int8 [K, N] (uint4 values) or ``qweight_packed`` uint8
     [K/2, N], with ``scales`` and ``zeros`` fp32 [K/group, N], for w4a16.
     ``loader.weights.realize_int4_leaves`` replaces ``qweight_packed`` with
@@ -67,9 +71,15 @@ class QuantWeight(nn.Module):
         self.shape = (K, N)
         mk = lambda shape, dtype: torch.empty(  # noqa: E731
             shape, dtype=dtype, device=device)
-        if runtime_format(qcfg) == "w8a16":
+        fmt = runtime_format(qcfg)
+        if fmt in ("w8a16", "int8"):
             self.register_buffer("qweight", mk((K, N), torch.int8))
             self.register_buffer("scales", mk((N,), torch.float32))
+        elif fmt.startswith("fp8"):
+            self.register_buffer("qweight", mk((K, N), torch.float8_e4m3fn))
+            self.register_buffer("weight_scale", mk((N,), torch.float32))
+            self.register_buffer("weight_scale_block", None)
+            self.register_buffer("input_scale", None)
         else:
             group = w4_group(qcfg, K)
             if w4_packs(K, group):
@@ -83,6 +93,10 @@ class QuantWeight(nn.Module):
 
     def leaves(self) -> dict[str, torch.Tensor]:
         return {k: v for k, v in self._buffers.items() if v is not None}
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.leaves().values())).device
 
     @torch.no_grad()
     def quantize_from(self, w: torch.Tensor,
@@ -206,7 +220,7 @@ class LlamaForCausalLM(nn.Module):
         for mod in self.modules():
             if isinstance(mod, QuantWeight):
                 w = 0.02 * torch.randn(mod.shape, generator=generator,
-                                       device=mod.scales.device)
+                                       device=mod.device)
                 mod.quantize_from(w.to(self.dtype), self.quant_config)
 
     # ----------------------------------------------------------------- forward

@@ -23,6 +23,11 @@ tensor cores, and splits the shared keys across blocks too
 splits in a fixed order. ``shared_prefix_plan`` makes the plan, its
 scratch and its counters once for all the layers and sub-steps of a decode
 window.
+
+The cache holds q's dtype or fp8 (e4m3fn or e5m2): both instances upcast
+an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
+(the tensor-core instance stages its bytes in a ring of their own:
+``spa_tc_smem_bytes(hd, fp8=True)``).
 """
 from __future__ import annotations
 
@@ -32,13 +37,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (DTYPE_CODES,
+                                                           KV_CODES, kv_code)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     ref_window_decode_attention)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _F, _I, _I, _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+             _I, _I, _F, _I, _I, _I, _P]
 _TILE = 32         # keys staged at a time (CUDA-core instance)
 _ROWS = 32         # query rows a block (8 warps of 4)
 TC_ROWS = 64       # query rows a block of the tensor-core instance
@@ -58,12 +64,14 @@ def spa_tile_keys(hd: int) -> int:
     return 64 if hd <= 128 else 32
 
 
-def spa_tc_smem_bytes(hd: int) -> int:
+def spa_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
     """Shared memory of the tensor-core instance: 64 query rows and a ring
     of K and V tiles (3 stages at head_dim 64, else 2), bf16 rows padded
-    by 8."""
+    by 8; an fp8 cache adds a ring of the same stages of staged bytes."""
     stages = 3 if hd <= 64 else 2
-    return 2 * (hd + 8) * (TC_ROWS + stages * 2 * spa_tile_keys(hd))
+    keys = spa_tile_keys(hd)
+    return (2 * (hd + 8) * (TC_ROWS + stages * 2 * keys)
+            + (stages * 2 * keys * hd if fp8 else 0))
 
 
 def shared_split_plan(blocks: int, tiles: int,
@@ -90,11 +98,14 @@ class SharedPlan(NamedTuple):
     tiles_per_split: int
     part: Optional[torch.Tensor]      # fp32 scratch of the splits' states
     counters: Optional[torch.Tensor]  # int32, one a (row tile, KV head)
+    kv_dtype: Optional[torch.dtype] = None  # the cache's (None: dtype)
 
 
 def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
-                       hd: int, shared_len: int, device) -> SharedPlan:
-    """The launch geometry, the key-split plan and, with more than one
+                       hd: int, shared_len: int, device,
+                       kv_dtype: Optional[torch.dtype] = None) -> SharedPlan:
+    """The launch geometry for queries of ``dtype`` on a cache of
+    ``kv_dtype`` (None: ``dtype``), the key-split plan and, with more than one
     split, the scratch of the splits' states (acc [splits, kvh, R * group,
     hd], then m and l [splits, kvh, R * group]) and the zeroed counters
     of the kernel's merge (the kernel leaves them zero). bf16 runs the
@@ -103,12 +114,13 @@ def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     cuda = device.type == "cuda"
     smem_limit = (cuda_build.smem_optin() if cuda
                   else cuda_build.H100_SMEM_OPTIN)
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     key = (dtype, num_reqs, nq, kvh, hd, shared_len)
     if dtype != torch.bfloat16:
         smem = spa_smem_bytes(hd)
         cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
-        return SharedPlan(key, False, smem, 1, 1, None, None)
-    smem = spa_tc_smem_bytes(hd)
+        return SharedPlan(key, False, smem, 1, 1, None, None, kv_dtype)
+    smem = spa_tc_smem_bytes(hd, kv_dtype in KV_CODES)
     cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
     rows = num_reqs * (nq // kvh)
     row_tiles = -(-rows // TC_ROWS)
@@ -121,7 +133,8 @@ def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
                            dtype=torch.float32, device=device)
         counters = torch.zeros(row_tiles * kvh, dtype=torch.int32,
                                device=device)
-    return SharedPlan(key, True, smem, splits, per, part, counters)
+    return SharedPlan(key, True, smem, splits, per, part, counters,
+                      kv_dtype)
 
 
 def ref_shared_prefix_attention(
@@ -131,7 +144,8 @@ def ref_shared_prefix_attention(
     shared_len: int,             # tokens of the prefix, <= n * page
     scale: float,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version, in fp32: (acc unnormalized, m, l)."""
+    """Plain PyTorch version, in fp32 (an fp8 cache upcast exactly): (acc
+    unnormalized, m, l)."""
     _, _, kvh, page, hd = cache_layer.shape
     R, nq, _ = q.shape
     group = nq // kvh
@@ -187,10 +201,7 @@ def shared_prefix_attention(
     if not 0 <= shared_len <= shared_pages.numel() * page:
         raise ValueError(f"shared_len {shared_len} outside the "
                          f"{shared_pages.numel()} shared pages of {page}")
-    if kv_cache.dtype != q.dtype:
-        raise NotImplementedError(
-            "cache and query must share one dtype (an fp8 cache is not "
-            "ported yet)")
+    code = kv_code(q.dtype, kv_cache.dtype)
     if q.device.type == "cpu":
         return ref_shared_prefix_attention(q, kv_cache[layer], shared_pages,
                                            shared_len, scale)
@@ -207,8 +218,9 @@ def shared_prefix_attention(
     group = nq // kvh
     if plan is None:
         plan = shared_prefix_plan(q.dtype, R, nq, kvh, hd, shared_len,
-                                  q.device)
-    elif plan.key != (q.dtype, R, nq, kvh, hd, shared_len) or (
+                                  q.device, kv_cache.dtype)
+    elif plan.key != (q.dtype, R, nq, kvh, hd, shared_len) \
+            or (plan.kv_dtype or q.dtype) != kv_cache.dtype or (
             plan.part is not None and plan.part.device != q.device):
         raise ValueError(f"the shared-prefix plan {plan.key} does not fit "
                          f"q {q.dtype} {tuple(q.shape)}, kvh {kvh}, "
@@ -222,7 +234,7 @@ def shared_prefix_attention(
     launch = cuda_build.entry("shared_prefix_attention", "spa_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(),
+        DTYPE_CODES[q.dtype], code, int(plan.tensor_cores), q.data_ptr(),
         kv_cache[layer].data_ptr(), shared_pages.data_ptr(), shared_len,
         acc.data_ptr(), m.data_ptr(), lsum.data_ptr(),
         plan.part.data_ptr() if plan.part is not None else None,

@@ -26,13 +26,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (DTYPE_CODES,
+                                                           KV_CODES, kv_code)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_split_plan, window_uses_tensor_cores)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _I, _F, _I, _I, _F, _I, _I, _I, _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+             _I, _I, _I, _F, _I, _I, _F, _I, _I, _I, _I, _P]
 _TILE = 32  # keys per warp tile of the CUDA-core instance
 
 
@@ -63,26 +64,33 @@ def decode_tile_keys(hd: int) -> int:
     return 64 if hd <= 128 else 32
 
 
-def decode_tc_smem_bytes(hd: int) -> int:
+def decode_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
     """Shared memory of the tensor-core instance: 16 query rows and a ring
-    of 2 stages of K and V tiles, bf16 rows padded by 8."""
-    return 2 * (hd + 8) * (16 + 2 * 2 * decode_tile_keys(hd))
+    of 2 stages of K and V tiles, bf16 rows padded by 8; an fp8 cache adds
+    a ring of 2 stages of staged bytes."""
+    keys = decode_tile_keys(hd)
+    return (2 * (hd + 8) * (16 + 2 * 2 * keys)
+            + (2 * 2 * keys * hd if fp8 else 0))
 
 
 def decode_launch_geometry(dtype: torch.dtype, group: int, hd: int,
-                           smem_limit: int) -> tuple[bool, int, int]:
-    """(tensor cores, warps, shared-memory bytes) of one block: 4 warps and
+                           smem_limit: int,
+                           kv_dtype: Optional[torch.dtype] = None
+                           ) -> tuple[bool, int, int]:
+    """(tensor cores, warps, shared-memory bytes) of one block for queries
+    of ``dtype`` on a cache of ``kv_dtype`` (None: ``dtype``): 4 warps and
     ``decode_tc_smem_bytes`` on the tensor-core instance (where the window
     kernel has one: ``window_uses_tensor_cores``), else the CUDA-core
-    instance's ``decode_warps``. Raises, naming the bytes, when nothing
-    fits the card."""
+    instance's ``decode_warps`` (its tiles in the cache's dtype). Raises,
+    naming the bytes, when nothing fits the card."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     if window_uses_tensor_cores(dtype, group, hd):
-        smem = decode_tc_smem_bytes(hd)
+        smem = decode_tc_smem_bytes(hd, kv_dtype in KV_CODES)
         cuda_build.check_smem(
             f"decode_paged_attention (group {group}, head_dim {hd})", smem,
             smem_limit)
         return True, 4, smem
-    itemsize = torch.finfo(dtype).bits // 8
+    itemsize = kv_dtype.itemsize
     warps = decode_warps(group, hd, itemsize, smem_limit)
     return False, warps, decode_smem_bytes(group, hd, itemsize, warps)
 
@@ -111,13 +119,16 @@ class DecodePlan(NamedTuple):
     splits: int
     tiles_per_split: int
     part: Optional[torch.Tensor]  # fp32 scratch of the splits' states
+    kv_dtype: Optional[torch.dtype] = None  # the cache's (None: dtype)
 
 
 def decode_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
                 hd: int, device, max_seq_len: int,
                 sliding_window: Optional[int] = None,
-                chunk_attn: Optional[int] = None) -> DecodePlan:
-    """The launch geometry (``decode_launch_geometry``), the split plan
+                chunk_attn: Optional[int] = None,
+                kv_dtype: Optional[torch.dtype] = None) -> DecodePlan:
+    """The launch geometry (``decode_launch_geometry``; ``kv_dtype`` the
+    cache's, None for ``dtype``), the split plan
     for a bound on the requests' lengths (``window_split_plan``: about
     four blocks an SM, at least two tiles a split) and the scratch of the
     splits' states: acc [R, nq, splits, hd], then m and l [R, nq,
@@ -125,19 +136,21 @@ def decode_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     split takes the rest. The CUDA-core instance takes no split."""
     device = torch.device(device)
     cuda = device.type == "cuda"
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     tc, warps, smem = decode_launch_geometry(
         dtype, nq // kvh, hd,
-        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN)
+        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN,
+        kv_dtype)
     key = (dtype, num_reqs, nq, kvh, hd)
     if not tc:
-        return DecodePlan(key, False, warps, smem, 1, 1, None)
+        return DecodePlan(key, False, warps, smem, 1, 1, None, kv_dtype)
     splits, per = window_split_plan(
         num_reqs * kvh, decode_max_tiles(max_seq_len, decode_tile_keys(hd),
                                          sliding_window, chunk_attn),
         cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
     part = torch.empty(num_reqs * nq * splits * (hd + 2),
                        dtype=torch.float32, device=device)
-    return DecodePlan(key, True, warps, smem, splits, per, part)
+    return DecodePlan(key, True, warps, smem, splits, per, part, kv_dtype)
 
 
 def ref_decode_paged_attention(
@@ -152,9 +165,10 @@ def ref_decode_paged_attention(
     alibi: Optional[torch.Tensor] = None,  # [nq] fp32 slopes
 ) -> torch.Tensor:
     """Plain PyTorch version, in fp32 (CPU path and the kernel's yardstick
-    of correctness): each request's pages gathered, one masked softmax per
-    query row. ALiBi is added before the soft cap, as the TPU kernel adds
-    it. Rows with seq_len 0, and fully masked rows, give 0."""
+    of correctness): each request's pages gathered (an fp8 cache upcast
+    exactly), one masked softmax per query row. ALiBi is added before the
+    soft cap, as the TPU kernel adds it. Rows with seq_len 0, and fully
+    masked rows, give 0."""
     _, _, kvh, page, hd = cache_layer.shape
     R, nq, _ = q.shape
     group = nq // kvh
@@ -201,10 +215,7 @@ def decode_paged_attention(
     launch's ``decode_plan`` (the runner makes one for every layer and
     sub-step of a decode window); by default one bounded by the block
     tables' capacity."""
-    if kv_cache.dtype != q.dtype:
-        raise NotImplementedError(
-            f"KV cache dtype {kv_cache.dtype} != query dtype {q.dtype} "
-            "(an fp8 cache is not ported yet)")
+    code = kv_code(q.dtype, kv_cache.dtype)
     cache_layer = kv_cache[layer]
     if q.device.type == "cpu":
         return ref_decode_paged_attention(
@@ -217,7 +228,7 @@ def decode_paged_attention(
         raise ValueError("q and the KV cache must be contiguous")
     R, nq, hd = q.shape
     _, _, kvh, page, hd_c = cache_layer.shape
-    if hd_c != hd or nq % kvh or (hd * q.element_size()) % 4:
+    if hd_c != hd or nq % kvh or (hd * kv_cache.element_size()) % 4:
         raise ValueError(f"bad geometry: q {tuple(q.shape)} cache "
                          f"{tuple(cache_layer.shape)}")
     for t in (seq_lens, block_tables):
@@ -237,8 +248,9 @@ def decode_paged_attention(
     if plan is None:
         plan = decode_plan(q.dtype, R, nq, kvh, hd, q.device,
                            block_tables.shape[1] * page, sliding_window,
-                           chunk_attn)
-    elif plan.key != (q.dtype, R, nq, kvh, hd) or (
+                           chunk_attn, kv_cache.dtype)
+    elif plan.key != (q.dtype, R, nq, kvh, hd) \
+            or (plan.kv_dtype or q.dtype) != kv_cache.dtype or (
             plan.part is not None and plan.part.device != q.device):
         raise ValueError(f"the decode plan {plan.key} does not fit q "
                          f"{q.dtype} {tuple(q.shape)}, kvh {kvh} on "
@@ -254,7 +266,7 @@ def decode_paged_attention(
     launch = cuda_build.entry("decode_paged_attention", "dpa_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(),
+        DTYPE_CODES[q.dtype], code, int(plan.tensor_cores), q.data_ptr(),
         cache_layer.data_ptr(), out.data_ptr(), part, part_m, part_l,
         seq_lens.data_ptr(), block_tables.data_ptr(),
         alibi.data_ptr() if alibi is not None else None, R,

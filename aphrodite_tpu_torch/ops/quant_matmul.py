@@ -1,7 +1,9 @@
-"""Weight-only quantized GEMMs for decode-sized M: y = x @ dequant(W).
+"""Quantized GEMMs for decode-sized M: y = x @ dequant(W).
 
 Four wrappers, each replacing one TPU kernel of
-``aphrodite_tpu/ops/quant_matmul_pallas.py``:
+``aphrodite_tpu/ops/quant_matmul_pallas.py``, and a fifth for the fp8
+weights that the JAX package leaves to XLA (``fp8_matmul``,
+``aphrodite_tpu/ops/quant_gemm.py:74-119``):
 
 - ``w8a16_matmul`` (``w8a16_matmul_pallas``): int8 [K, N] times fp32
   per-column scales [N];
@@ -15,7 +17,10 @@ Four wrappers, each replacing one TPU kernel of
   stored as uint8 [K/2, N] of two's-complement nibbles, byte [r, n]
   holding row 2r in its low nibble and row 2r + 1 in its high nibble: the
   consecutive pair of k that one 32-bit register of a tensor-core A
-  operand takes.
+  operand takes;
+- ``fp8_matmul``: e4m3fn [K, N] times fp32 per-column scales [N], and for
+  W8A8 an fp32 scale a row of x [M] (x already rounded to e4m3 and held
+  in x's dtype): y = ((x @ q) rs[m]) s[n].
 
 On CPU tensors each runs its plain PyTorch version (``ref_*``); a CUDA
 tensor launches a kernel or raises. In bf16 all four layouts run on
@@ -24,7 +29,8 @@ converted to bf16 in registers, TMA rings, x shared across a cluster) in
 the TPU int4 kernel's group-wise form: per group of K rows one product
 ``d = x_g @ q_g`` in fp32, then ``acc += (d - sum(x_g) * z) * s``, so s
 and z touch the [M, N] group result, not each weight; W8 sums d over the
-whole K and scales the fp32 sum by s[n]. fp32 runs the CUDA-core kernels
+whole K and scales the fp32 sum by s[n], and fp8 likewise (its rs[m]
+first). fp32 runs the CUDA-core kernels
 of ``csrc/quant_matmul.cu`` in fp32 throughout (int4 in the group-wise
 form, the others in the direct one ``(q - z) * s``). Each wrapper counts
 its launches.
@@ -44,6 +50,7 @@ _W8_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _W4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _W4I4_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
               _P]
+_FP8_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 # Columns per block and the split granularity in stored rows of the fp32
 # CUDA-core kernel (kBlockN, kTileK).
 _BLOCK_N, _TILE_K = 128, 128
@@ -90,6 +97,16 @@ def dequant_w4(q: torch.Tensor, scales: torch.Tensor,
 def ref_w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                      scales: torch.Tensor) -> torch.Tensor:
     return ((x.float() @ qweight.float()) * scales.float()).to(x.dtype)
+
+
+def ref_fp8_matmul(x: torch.Tensor, qweight: torch.Tensor,
+                   scales: torch.Tensor,
+                   row_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """((x @ q) [* rs[m]]) * s[n] in fp32, e4m3 exact in fp32."""
+    acc = x.float() @ qweight.float()
+    if row_scales is not None:
+        acc = acc * row_scales.float()[:, None]
+    return (acc * scales.float()).to(x.dtype)
 
 
 def ref_w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
@@ -198,6 +215,40 @@ def w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                   [qweight.data_ptr(), scales.data_ptr()],
                   [x.shape[0], K, N])
     w8a16_matmul.launches += 1
+    return out
+
+
+def fp8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+               row_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """x [M, K] @ (e4m3fn [K, N] * scales [N]) -> [M, N] in x's dtype; with
+    ``row_scales`` [M] fp32 (W8A8: x holds e4m3 values) each row of the
+    fp32 sum is scaled by rs[m] before s[n].
+
+    bf16 runs on ``w4_wgmma``'s "fp8" layout (M <= 256, K a multiple of 32,
+    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
+    if x.device.type == "cpu":
+        return ref_fp8_matmul(x, qweight, scales, row_scales)
+    if x.dtype == torch.bfloat16:
+        out = w4_wgmma.matmul("fp8", x, qweight, scales, None,
+                              row_scales=row_scales)
+        fp8_matmul.launches += 1
+        return out
+    K, N = qweight.shape
+    tensors = {"qweight": (qweight, torch.float8_e4m3fn),
+               "scales": (scales, torch.float32)}
+    if row_scales is not None:
+        tensors["row_scales"] = (row_scales, torch.float32)
+    _check(x, tensors, K, N)
+    if tuple(scales.shape) != (N,) or (
+            row_scales is not None
+            and tuple(row_scales.shape) != (x.shape[0],)):
+        raise ValueError(f"scales {tuple(scales.shape)} != ({N},) or row "
+                         "scales not [M]")
+    out = _launch("fp8_launch", _FP8_ARGS, x, K, N,
+                  [qweight.data_ptr(), scales.data_ptr(),
+                   None if row_scales is None else row_scales.data_ptr()],
+                  [x.shape[0], K, N])
+    fp8_matmul.launches += 1
     return out
 
 
@@ -312,7 +363,8 @@ w8a16_matmul.launches = 0
 w4a16_matmul.launches = 0
 w4a16_packed_matmul.launches = 0
 w4a16_int4_matmul.launches = 0
+fp8_matmul.launches = 0
 
 KERNELS = {"w8a16_matmul": w8a16_matmul, "w4a16_matmul": w4a16_matmul,
            "w4a16_packed_matmul": w4a16_packed_matmul,
-           "w4a16_int4_matmul": w4a16_int4_matmul}
+           "w4a16_int4_matmul": w4a16_int4_matmul, "fp8_matmul": fp8_matmul}

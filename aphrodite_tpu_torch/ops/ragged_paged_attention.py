@@ -12,6 +12,12 @@ the model's dtype will run. Query token i of request r at position p attends to 
 request's KV positions j <= p, read through its block table from one layer
 of the paged cache, optionally restricted by a sliding window or chunked
 local attention, with an optional logit soft cap.
+
+The cache holds q's dtype or fp8 (e4m3fn or e5m2): both instances upcast
+an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
+(the tensor-core instance through a ring of staged bytes, sized by
+``ragged_tc_smem_bytes(hd, fp8=True)``); the plain version computes in
+fp32, where every fp8 value is exact.
 """
 from __future__ import annotations
 
@@ -24,17 +30,33 @@ from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.ops import cuda_build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             _I, _I, _F, _I, _I, _F, _I, _P]
-_TC_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                _I, _F, _I, _I, _F, _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _I, _I, _F, _I, _I, _F, _I, _P]
+_TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                _I, _I, _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
+# KvDtype): 0 for q's own dtype, or an fp8 cache.
+KV_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 # Keys per shared-memory tile and warps per block of the kernel.
 _TILE, _WARPS = 32, 8
 # Query rows (tokens x query heads of one KV head) per work item, at most.
 _MAX_ROWS = 128
 # The head dims of the tensor-core instance.
 TC_HEAD_DIMS = (64, 128, 256)
+
+
+def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """The kernels' code of a cache of ``kv_dtype`` beside queries of
+    ``q_dtype``: 0 for q's own dtype, 1 e4m3fn, 2 e5m2. Raises on any other
+    pairing."""
+    if kv_dtype == q_dtype:
+        return 0
+    if kv_dtype in KV_CODES:
+        return KV_CODES[kv_dtype]
+    raise NotImplementedError(
+        f"a {kv_dtype} KV cache beside {q_dtype} queries: the cache holds "
+        "the model's dtype or fp8 (e4m3fn, e5m2)")
 
 
 def ragged_smem_bytes(block_q: int, group: int, hd: int) -> int:
@@ -72,35 +94,41 @@ def ragged_tc_rows(hd: int) -> int:
     return 128 if hd <= 128 else 64
 
 
-def ragged_tc_smem_bytes(hd: int) -> int:
+def ragged_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
     """Shared memory of the tensor-core instance (the kernel's TcCfg): the
     block's Q rows and a ring of K and V tiles (64 keys, 32 at head_dim
-    256; 3 stages at head_dim 64, else 2), bf16 rows padded by 8."""
+    256; 3 stages at head_dim 64, else 2), bf16 rows padded by 8; an fp8
+    cache adds a ring of the same stages of staged bytes."""
     keys = 64 if hd <= 128 else 32
     stages = 3 if hd <= 64 else 2
-    return 2 * (hd + 8) * (ragged_tc_rows(hd) + stages * 2 * keys)
+    return (2 * (hd + 8) * (ragged_tc_rows(hd) + stages * 2 * keys)
+            + (stages * 2 * keys * hd if fp8 else 0))
 
 
-def ragged_tc_block_q(group: int, hd: int, smem_limit: int) -> int:
+def ragged_tc_block_q(group: int, hd: int, smem_limit: int,
+                      fp8: bool = False) -> int:
     """Tokens per work item of the tensor-core instance: as many whole
     groups of query rows as fit its rows (128 at head_dim <= 128, 64 at
-    256). Raises when a group does not fit, or the ring does not fit the
-    card's shared memory."""
+    256). Raises when a group does not fit, or the ring (with an fp8
+    cache's staging ring) does not fit the card's shared memory."""
     rows = ragged_tc_rows(hd)
     what = (f"ragged_paged_attention tensor-core instance (group {group}, "
             f"head_dim {hd})")
     if group > rows:
         raise RuntimeError(f"{what}: a token's {group} query rows exceed "
                            f"the block's {rows}")
-    cuda_build.check_smem(what, ragged_tc_smem_bytes(hd), smem_limit)
+    cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, fp8), smem_limit)
     return rows // group
 
 
 def ragged_work_item_tokens(dtype: torch.dtype, group: int, hd: int,
-                            smem_limit: int) -> int:
-    """block_q for the instance that ``dtype`` and ``hd`` run."""
+                            smem_limit: int,
+                            kv_dtype: Optional[torch.dtype] = None) -> int:
+    """block_q for the instance that ``dtype`` and ``hd`` run, on a cache
+    of ``kv_dtype`` (None: q's dtype)."""
     if ragged_uses_tensor_cores(dtype, hd):
-        return ragged_tc_block_q(group, hd, smem_limit)
+        return ragged_tc_block_q(group, hd, smem_limit,
+                                 kv_dtype in KV_CODES)
     return ragged_block_q(group, hd, smem_limit)
 
 
@@ -115,7 +143,7 @@ def ref_ragged_paged_attention(
 ) -> torch.Tensor:
     """Plain PyTorch version (CPU path and the kernel's yardstick of
     correctness): per request, gather its pages and run a masked fp32
-    softmax for its tokens."""
+    softmax for its tokens (an fp8 cache's K/V upcast exactly)."""
     _, _, kvh, page, hd = cache_layer.shape
     T, nq, _ = q.shape
     group = nq // kvh
@@ -161,10 +189,7 @@ def ragged_paged_attention(
         raise NotImplementedError(
             "ALiBi and bidirectional spans are not ported to the CUDA "
             "ragged attention kernel yet")
-    if kv_cache.dtype != q.dtype:
-        raise NotImplementedError(
-            f"KV cache dtype {kv_cache.dtype} != query dtype {q.dtype} "
-            "(an fp8 cache is not ported yet)")
+    code = kv_code(q.dtype, kv_cache.dtype)
     cache_layer = kv_cache[layer]
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
@@ -203,12 +228,12 @@ def ragged_paged_attention(
             if t.data_ptr() % 16:
                 raise ValueError("q and the cache layer must be 16-byte "
                                  "aligned")
-        cuda_build.check_smem(what, ragged_tc_smem_bytes(hd),
+        cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, code > 0),
                               cuda_build.smem_optin())
         launch = cuda_build.entry("ragged_paged_attention", "rpa_tc_launch",
                                   _TC_ARGTYPES)
         err = launch(
-            q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
+            code, q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
@@ -219,7 +244,7 @@ def ragged_paged_attention(
         launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
                                   _ARGTYPES)
         err = launch(
-            DTYPE_CODES[q.dtype], q.data_ptr(), cache_layer.data_ptr(),
+            DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,

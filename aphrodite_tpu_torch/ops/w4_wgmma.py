@@ -2,7 +2,7 @@
 
 ``matmul(layout, x, q, scales, zeros)`` launches ``csrc/w4_wgmma.cu`` for
 bf16 CUDA tensors, y [M, N] = x [M, K] @ W, M <= 256, with W stored in one
-of four layouts, one weight a nibble or a byte:
+of five layouts, one weight a nibble or a byte:
 
 - ``"int4"``: W = (q - z) s, signed int4 q - 8 as uint8 [K/2, N], rows 2r
   and 2r + 1 in the low and high nibble of byte [r, n]
@@ -12,7 +12,11 @@ of four layouts, one weight a nibble or a byte:
   (``quantization.loader.pack_w4``);
 - ``"uint4"``: W = (q - z) s, uint4 q one byte a weight, int8 [K, N];
 - ``"w8"``: W = q s, int8 q [K, N], one fp32 scale a column, s [N], no
-  zeros.
+  zeros;
+- ``"fp8"``: W = q s, e4m3fn q [K, N], s [N], no zeros (``fp8_matmul`` of
+  the JAX package, which XLA computes: no Pallas kernel); with
+  ``row_scales`` rs [M] (W8A8, x already rounded to e4m3 in bf16) y =
+  (d rs[m]) s[n] in fp32, the reference's order.
 
 s and z of the first three are fp32 [K / group, N]. All take the TPU int4
 kernel's group-wise form: per group (and per half of K for "packed") d =
@@ -21,9 +25,9 @@ Where every zero is an integer (``zeros_integral``, read at a weight's
 first call at each M; the quantizers make them so) the kernel takes the
 zero inside the product, d = x_g @ (q_g - z_g) with q - z exact in bf16,
 and acc += d s: the same sum of exact products, without the sums of x.
-"w8" has no groups: d sums a K split's whole range and y = d s. The
-wrappers of ``ops/quant_matmul.py`` call it for bf16; CPU tensors never
-reach it.
+"w8" and "fp8" have no groups: d sums a K split's whole range and y =
+d s. The wrappers of ``ops/quant_matmul.py`` call it for bf16; CPU tensors
+never reach it.
 
 What the kernel's launch is made of, computed here and held by the CPU
 tests (the kernel runs only on the card):
@@ -36,9 +40,9 @@ tests (the kernel runs only on the card):
   whether it writes y;
 - ``fold_model``: the kernel's arithmetic in plain PyTorch (the k range
   each fold sums, both halves of "packed" folded apart, both forms of the
-  zero, "w8"'s one scale a split);
-- ``int8_model``: the conversion of a signed byte to bf16 as the kernel
-  makes it.
+  zero, "w8"'s and "fp8"'s one scale a split);
+- ``int8_model`` and ``fp8_model``: the conversions of a signed byte and of
+  an e4m3 byte to bf16 as the kernel makes them.
 
 A weight's tensor maps (its bytes, scales, zeros) are encoded once and
 kept with the launch's other fixed arguments (``_CALLS``, keyed by
@@ -60,8 +64,11 @@ import torch
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.utils import cdiv
 
-LAYOUTS = {"int4": 0, "packed": 1, "uint4": 2, "w8": 3}
-BYTE_LAYOUTS = ("uint4", "w8")  # one byte a weight, [K, N]
+LAYOUTS = {"int4": 0, "packed": 1, "uint4": 2, "w8": 3, "fp8": 4}
+BYTE_LAYOUTS = ("uint4", "w8", "fp8")  # one byte a weight, [K, N]
+COL_SCALED = ("w8", "fp8")  # no groups or zeros: a scale a column
+Q_DTYPES = {"int4": torch.uint8, "packed": torch.uint8, "uint4": torch.int8,
+            "w8": torch.int8, "fp8": torch.float8_e4m3fn}
 BN = 128          # columns of W a block (two consumer warpgroups of 64)
 ROWS = 64         # byte rows of W a stage
 CLUSTER = 2       # blocks side by side on N sharing x
@@ -74,7 +81,7 @@ MAX_SPLITS = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAP_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
-_LAUNCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P]
+_LAUNCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P]
 _CALLS: dict[tuple, tuple] = {}
 # The constant that the conversion subtracts before the zero: 136 for int4
 # (128 + (n ^ 8) = 136 + n), 128 for packed and uint4 (128 + u).
@@ -114,11 +121,11 @@ def half_steps(layout: str) -> int:
 def fold_steps(layout: str, K: int, group: int) -> int:
     """F, the k16 steps a fold sums: the most (up to a stage's half) whose
     k range, 16 F, divides the group and, for "packed", K/2 (where the
-    high half starts), so that no fold straddles a group; "w8", which has
-    no groups, a whole stage. The kernel has F in {2, 4, 8} for int4, {1,
-    2, 4} for packed, {2, 4} for uint4 and 4 for w8."""
+    high half starts), so that no fold straddles a group; "w8" and "fp8",
+    which have no groups, a whole stage. The kernel has F in {2, 4, 8} for
+    int4, {1, 2, 4} for packed, {2, 4} for uint4 and 4 for w8 and fp8."""
     f = half_steps(layout)
-    if layout == "w8":
+    if layout in COL_SCALED:
         return f
     while group % (16 * f) or (layout == "packed" and (K // 2) % (16 * f)):
         f //= 2
@@ -151,8 +158,8 @@ def groups_touched(k0: int, k1: int, group: int) -> int:
 
 def split_unit(layout: str, group: int) -> int:
     """Byte rows a K split is a multiple of: whole stages and whole groups
-    (of the low half for "packed"; "w8" has no groups)."""
-    if layout == "w8":
+    (of the low half for "packed"; "w8" and "fp8" have no groups)."""
+    if layout in COL_SCALED:
         return ROWS
     g_rows = group // 2 if layout == "int4" else group
     return ROWS * g_rows // math.gcd(ROWS, g_rows)
@@ -161,9 +168,9 @@ def split_unit(layout: str, group: int) -> int:
 def groups_per_stage(layout: str, K: int, group: int) -> int:
     """The most groups that one half of one stage touches (stages start at
     multiples of ROWS byte rows and run whole; rows past the end read
-    zeros): the rows of scales and zeros a stage holds, 0 for "w8" (its
-    scales are read by the epilogue)."""
-    if layout == "w8":
+    zeros): the rows of scales and zeros a stage holds, 0 for "w8" and "fp8"
+    (their scales are read by the epilogue)."""
+    if layout in COL_SCALED:
         return 0
     most = 1
     for r0 in range(0, byte_rows(layout, K), ROWS):
@@ -275,15 +282,29 @@ def int8_model(b: torch.Tensor) -> torch.Tensor:
     return (bits.view(torch.float32) - 8388736.0).to(torch.bfloat16)
 
 
+def fp8_model(b: torch.Tensor) -> torch.Tensor:
+    """The kernel's conversion of e4m3 bytes (uint8) to bf16 (``e4m3_pair``):
+    the bits (b & 0x80) << 8 | (b & 0x7f) << 4 are the bf16
+    of 2^-120 times the e4m3 value (a bf16 subnormal below 2^-126), and one
+    bf16 product with 2^120 restores it, exact for every finite byte.
+    Returns bf16 of b's shape."""
+    v = b.to(torch.int32) & 0xFF
+    bits = ((v & 0x80) << 8) | ((v & 0x7F) << 4)
+    tiny = bits.to(torch.int16).view(torch.bfloat16)
+    return tiny * torch.tensor(2.0 ** 120, dtype=torch.bfloat16)
+
+
 def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
                scales: torch.Tensor, zeros: torch.Tensor | None,
-               p: Plan, zero_in: bool = False) -> torch.Tensor:
+               p: Plan, zero_in: bool = False,
+               row_scales: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel's arithmetic in fp32: for each K split, stage and half,
     d = x_f @ q_f over each fold's k range f (16 F k, cut at the last real
     row; q exact, x as given), then acc += (d - sum(x_f) z_g) s_g with g
     the fold's group; with ``zero_in``, d = x_f @ (q_f - z_g) and acc +=
-    d s_g. "w8" sums d over the split's stages and takes acc = d s. The
-    splits' sums are added in split order. Returns fp32 [M, N]."""
+    d s_g. "w8" and "fp8" sum d over the split's stages and take acc = d s
+    ("fp8" with ``row_scales``: (d rs) s). The splits' sums are added in
+    split order. Returns fp32 [M, N]."""
     from aphrodite_tpu_torch.ops.quant_matmul import unpack_int4
     M, K = x.shape
     N = q.shape[1]
@@ -302,7 +323,7 @@ def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
         r_end = min(rows, (sp + 1) * p.chunk_rows)
         for r0 in range(sp * p.chunk_rows, r_end, ROWS):
             for k0, k1 in half_ranges(layout, K, r0, min(ROWS, r_end - r0)):
-                if layout == "w8":
+                if layout in COL_SCALED:
                     acc += xf[:, k0:k1] @ qk[k0:k1]
                     continue
                 group = K // s.shape[0]
@@ -316,26 +337,30 @@ def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
                     d = xf[:, a:b] @ qk[a:b]
                     xs = xf[:, a:b].sum(dim=1, keepdim=True)
                     acc += (d - xs * z[g]) * s[g]
-        y += acc * s if layout == "w8" else acc
+        if row_scales is not None:
+            acc = acc * row_scales.float()[:, None]
+        y += acc * s if layout in COL_SCALED else acc
     return y
 
 
 # -------------------------------------------------------------------- launch
 def check(layout: str, x: torch.Tensor, q: torch.Tensor,
-          scales: torch.Tensor, zeros: torch.Tensor | None) -> int:
+          scales: torch.Tensor, zeros: torch.Tensor | None,
+          row_scales: torch.Tensor | None = None) -> int:
     """Raise ValueError, naming the shape, on what the kernel cannot take;
-    return the group (K for "w8"). It takes bf16 x [M, K] with 1 <= M <=
-    256 and K a multiple of 32; q uint8 [K/2, N] (int4, packed) or int8 [K,
-    N] (uint4, w8) with N a multiple of 16 (TMA's row stride); fp32 scales
-    and zeros [K / group, N] with the group a multiple of 32, or for "w8"
-    fp32 scales [N] and no zeros; all contiguous and 16-byte aligned on x's
-    device."""
+    return the group (K for "w8" and "fp8"). It takes bf16 x [M, K] with 1
+    <= M <= 256 and K a multiple of 32; q uint8 [K/2, N] (int4, packed),
+    int8 [K, N] (uint4, w8) or e4m3fn [K, N] (fp8) with N a multiple of 16
+    (TMA's row stride); fp32 scales and zeros [K / group, N] with the group
+    a multiple of 32, or for "w8" and "fp8" fp32 scales [N] and no zeros;
+    for "fp8" optionally fp32 row scales [M]; all contiguous and 16-byte
+    aligned on x's device."""
     what = f"w4_wgmma {layout}"
     if x.dtype != torch.bfloat16 or x.dim() != 2:
         raise ValueError(f"{what}: x must be bf16 [M, K], got {x.dtype} "
                          f"{tuple(x.shape)}")
     M, K = x.shape
-    q_dtype = torch.int8 if layout in BYTE_LAYOUTS else torch.uint8
+    q_dtype = Q_DTYPES[layout]
     if q.dim() != 2 or q.dtype != q_dtype \
             or q.shape[0] != byte_rows(layout, K):
         raise ValueError(f"{what}: q must be {q_dtype} "
@@ -345,7 +370,10 @@ def check(layout: str, x: torch.Tensor, q: torch.Tensor,
     if not (1 <= M <= MAX_M) or K % 32 or N % 16 or N < 16:
         raise ValueError(f"{what}: M={M}, K={K}, N={N}: needs 1 <= M <= "
                          f"{MAX_M}, K a multiple of 32 and N of 16")
-    if layout == "w8":
+    if row_scales is not None and (layout != "fp8" or tuple(
+            row_scales.shape) != (M,)):
+        raise ValueError(f"{what}: row scales are fp8's, [{M}]")
+    if layout in COL_SCALED:
         if tuple(scales.shape) != (N,) or zeros is not None:
             raise ValueError(f"{what}: want scales [{N}] and no zeros, got "
                              f"{tuple(scales.shape)}")
@@ -360,7 +388,8 @@ def check(layout: str, x: torch.Tensor, q: torch.Tensor,
                 f"N={N}: want [K / group, N] with the group a multiple of 32")
     for name, t, dtype in (("x", x, torch.bfloat16), ("q", q, q_dtype),
                            ("scales", scales, torch.float32),
-                           ("zeros", zeros, torch.float32)):
+                           ("zeros", zeros, torch.float32),
+                           ("row_scales", row_scales, torch.float32)):
         if t is None:
             continue
         if t.device != x.device or t.dtype != dtype \
@@ -407,9 +436,10 @@ def _entries(lib):
 def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
     """The fixed part of a launch (checked once): the entry point, the
     weight's tensor maps, the launch's integer arguments, the plan, w8's
-    column scales, and a weak reference to the zeros it was made for."""
+    and fp8's column scales, and a weak reference to the zeros it was made
+    for."""
     group = check(layout, x, q, scales, zeros)
-    if layout == "w8":
+    if layout in COL_SCALED:
         zero_in = True  # no zeros: nothing to subtract
     elif zero_in is None:
         zero_in = zeros_integral(layout, zeros)
@@ -419,7 +449,7 @@ def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
              cuda_build.smem_optin(), splits, stages)
     map_fn, fn = _entries(lib)
     maps = (ctypes.c_uint8 * 384)()
-    G = scales.shape[0] if layout != "w8" else 0
+    G = scales.shape[0] if layout not in COL_SCALED else 0
     err = map_fn(q.data_ptr(), scales.data_ptr(),
                  None if zeros is None else zeros.data_ptr(),
                  byte_rows(layout, K), N, G, p.gs, ctypes.addressof(maps))
@@ -430,7 +460,7 @@ def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
                                p.gs, p.splits, p.chunk_rows, p.m_tiles,
                                p.stages, int(zero_in))
     return fn, maps, args, p, N, \
-        scales.data_ptr() if layout == "w8" else None, \
+        scales.data_ptr() if layout in COL_SCALED else None, \
         f"w4_wgmma {layout} M={M} K={K} N={N} group={group} ({p}, zeros " \
         f"in the product: {bool(zero_in)})", \
         None if zeros is None else weakref.ref(zeros)
@@ -440,23 +470,30 @@ def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
            scales: torch.Tensor, zeros: torch.Tensor | None,
            splits: int | None = None, lib=None,
            zero_in: bool | None = None,
-           stages: int | None = None) -> torch.Tensor:
-    """y = x @ W on the card, bf16 [M, N] (``zeros`` None for "w8").
-    ``splits`` forces a K split count, ``zero_in`` the form of the zero
-    (None: inside the product where ``zeros_integral``), ``stages`` caps
-    the ring's depth; ``lib`` runs another build of the source (the timing
-    variants). Raises on what the kernel cannot take and on a failed
-    launch; nothing falls back."""
+           stages: int | None = None,
+           row_scales: torch.Tensor | None = None) -> torch.Tensor:
+    """y = x @ W on the card, bf16 [M, N] (``zeros`` None for "w8" and
+    "fp8"; ``row_scales`` fp32 [M] for fp8's W8A8 epilogue). ``splits``
+    forces a K split count, ``zero_in`` the form of the zero (None: inside
+    the product where ``zeros_integral``), ``stages`` caps the ring's
+    depth; ``lib`` runs another build of the source (the timing variants).
+    Raises on what the kernel cannot take and on a failed launch; nothing
+    falls back."""
     dev = x.device
     key = call_key(layout, x, q, scales, zeros, splits, lib, zero_in,
-                   stages)
+                   stages, row_scales is not None)
     call = _CALLS.get(key)
     if call is None or (call[-1] is not None and call[-1]() is not zeros):
         if len(_CALLS) > 4096:
             _CALLS.clear()
         call = _CALLS[key] = _prepare(layout, x, q, scales, zeros, splits,
                                       lib, zero_in, stages)
-    elif x.dtype != torch.bfloat16 or not x.is_contiguous() \
+    if row_scales is not None and (
+            row_scales.dtype != torch.float32 or row_scales.device != dev
+            or not row_scales.is_contiguous()
+            or tuple(row_scales.shape) != (x.shape[0],)):
+        check(layout, x, q, scales, zeros, row_scales)  # raises
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
             or x.data_ptr() % 16:
         check(layout, x, q, scales, zeros)  # raises, naming the fault
     fn, maps, args, p, N, col_scales, what, _ = call
@@ -467,7 +504,8 @@ def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
         partial, counters = cuda_build.split_workspace(
             dev, p.splits * x.shape[0] * N, tiles)
     err = fn(args, maps, x.data_ptr(), out.data_ptr(), partial, counters,
-             col_scales, cuda_build.stream(dev))
+             col_scales, None if row_scales is None else row_scales.data_ptr(),
+             cuda_build.stream(dev))
     if err:
         raise RuntimeError(f"{what}: CUDA error {err}")
     return out

@@ -19,6 +19,12 @@ last split taking whatever is left); each block writes an unnormalized
 (acc, m, l) state and a second kernel merges them in a fixed order.
 ``window_plan`` makes the launch geometry, the plan and the states'
 scratch once for all the layers and sub-steps of a decode window.
+
+The cache holds q's dtype or fp8 (e4m3fn or e5m2); the tails hold the
+cache's dtype, or bf16 beside an e5m2 cache (``tail_dtype``, the JAX
+runner's rule). Every tile is upcast to q's dtype before both products,
+as the TPU kernel does (the tensor-core instance stages fp8 tiles' bytes
+in a ring of their own: ``window_tc_smem_bytes(hd, fp8=True)``).
 """
 from __future__ import annotations
 
@@ -29,15 +35,22 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, TC_HEAD_DIMS)
+    DTYPE_CODES, KV_CODES, TC_HEAD_DIMS, kv_code)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-             _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _I,
-             _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+             _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
+             _I, _I, _P]
 _TILE = 32  # keys per warp sub-tile of the CUDA-core instance
 SPLIT_KEYS = 64  # keys a tile of the split plan
 TC_MAX_GROUP = 16  # query rows of one mma tile
+
+
+def tail_dtype(kv_dtype: torch.dtype) -> torch.dtype:
+    """The window tails' dtype beside a cache of ``kv_dtype``: bf16 beside
+    e5m2, else the cache's (``aphrodite_tpu/worker/runner.py:519-520``,
+    where an e4m3fn cache is not in the tuple that picks bf16)."""
+    return torch.bfloat16 if kv_dtype == torch.float8_e5m2 else kv_dtype
 
 
 def window_smem_bytes(group: int, hd: int, warps: int) -> int:
@@ -66,21 +79,24 @@ def window_uses_tensor_cores(dtype: torch.dtype, group: int,
             and group <= TC_MAX_GROUP)
 
 
-def window_tc_smem_bytes(hd: int) -> int:
+def window_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
     """Shared memory of the tensor-core instance: 16 query rows and a ring
-    of 2 stages of K and V tiles of 64 keys, bf16 rows padded by 8."""
-    return 2 * (hd + 8) * (16 + 2 * 2 * SPLIT_KEYS)
+    of 2 stages of K and V tiles of 64 keys, bf16 rows padded by 8; an fp8
+    cache adds a ring of 2 stages of staged bytes."""
+    return (2 * (hd + 8) * (16 + 2 * 2 * SPLIT_KEYS)
+            + (2 * 2 * SPLIT_KEYS * hd if fp8 else 0))
 
 
 def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
-                           smem_limit: int) -> tuple[bool, int, int]:
+                           smem_limit: int, fp8: bool = False
+                           ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one split block: 4
     warps and ``window_tc_smem_bytes`` on the tensor-core instance, else
-    the CUDA-core instance's ``window_warps``. Raises, naming the bytes,
-    when nothing fits the card."""
+    the CUDA-core instance's ``window_warps`` (whose tiles are fp32 on any
+    cache). Raises, naming the bytes, when nothing fits the card."""
     what = f"window_decode_attention (group {group}, head_dim {hd})"
     if window_uses_tensor_cores(dtype, group, hd):
-        smem = window_tc_smem_bytes(hd)
+        smem = window_tc_smem_bytes(hd, fp8)
         cuda_build.check_smem(what, smem, smem_limit)
         return True, 4, smem
     warps = window_warps(group, hd, smem_limit)
@@ -133,18 +149,19 @@ def ref_window_decode_attention(
     shared_len: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, in fp32 (CPU path and the kernel's yardstick
-    of correctness). With ``cascade_init`` the page positions <
-    ``shared_len`` are masked and the init state is merged with the
-    suffix's (the JAX package's ``ref_cascade_window_decode``)."""
+    of correctness; pages and tails upcast from their own dtypes, exactly).
+    With ``cascade_init`` the page positions < ``shared_len`` are masked and
+    the init state is merged with the suffix's (the JAX package's
+    ``ref_cascade_window_decode``)."""
     _, _, kvh, page, hd = cache_layer.shape
     R, nq, _ = q.shape
     group = nq // kvh
     max_kv = block_tables.shape[1] * page
     Kw = tail_k_l.shape[2]
     kv = cache_layer[block_tables.long()]     # [R, MP, 2, kvh, page, hd]
-    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, max_kv, hd)
-    keys = torch.cat([kv[:, 0], tail_k_l], dim=2).float()   # [R,kvh,K+,hd]
-    values = torch.cat([kv[:, 1], tail_v_l], dim=2).float()
+    kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, max_kv, hd).float()
+    keys = torch.cat([kv[:, 0], tail_k_l.float()], dim=2)   # [R,kvh,K+,hd]
+    values = torch.cat([kv[:, 1], tail_v_l.float()], dim=2)
     qf = q.float().reshape(R, kvh, group, hd)
     logits = torch.einsum("rhgd,rhkd->rhgk", qf, keys) * scale
     if logits_soft_cap is not None:
@@ -190,22 +207,27 @@ class WindowPlan(NamedTuple):
     splits: int
     tiles_per_split: int
     part: torch.Tensor  # fp32 scratch of the splits' (acc, m, l)
+    kv_dtype: Optional[torch.dtype] = None  # the cache's (None: dtype)
 
 
 def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
                 hd: int, device, max_paged_len: int, step: int,
                 shared_len: int = 0, sliding_window: Optional[int] = None,
-                chunk_attn: Optional[int] = None) -> WindowPlan:
-    """The launch geometry (``window_launch_geometry``), the split plan
+                chunk_attn: Optional[int] = None,
+                kv_dtype: Optional[torch.dtype] = None) -> WindowPlan:
+    """The launch geometry (``window_launch_geometry``) for queries of
+    ``dtype`` on a cache of ``kv_dtype`` (None: ``dtype``), the split plan
     for a bound on the paged lengths and the window step (a larger step
     bounds every smaller one), and the scratch of the splits' states: acc
     [R, nq, splits, hd], then m and l [R, nq, splits]. A bound below the
     real lengths costs speed only: the last split takes the rest."""
     device = torch.device(device)
     cuda = device.type == "cuda"
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     tc, warps, smem = window_launch_geometry(
         dtype, nq // kvh, hd,
-        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN)
+        cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN,
+        kv_dtype in KV_CODES)
     splits, per = window_split_plan(
         num_reqs * kvh, window_max_tiles(max_paged_len, step, shared_len,
                                          sliding_window, chunk_attn),
@@ -213,7 +235,7 @@ def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     part = torch.empty(num_reqs * nq * splits * (hd + 2),
                        dtype=torch.float32, device=device)
     return WindowPlan((dtype, num_reqs, nq, kvh, hd), tc, warps, smem,
-                      splits, per, part)
+                      splits, per, part, kv_dtype)
 
 
 def window_decode_attention(
@@ -245,10 +267,11 @@ def window_decode_attention(
                                      or logits_soft_cap):
         raise ValueError("the cascade init state takes no sliding window, "
                          "chunked attention or soft cap")
-    if kv_cache.dtype != q.dtype or tail_k.dtype != q.dtype:
-        raise NotImplementedError(
-            "cache, tails and query must share one dtype (an fp8 cache is "
-            "not ported yet)")
+    code = kv_code(q.dtype, kv_cache.dtype)
+    want = tail_dtype(kv_cache.dtype)
+    if tail_k.dtype != want or tail_v.dtype != want:
+        raise ValueError(f"tails of {tail_k.dtype} / {tail_v.dtype} beside "
+                         f"a {kv_cache.dtype} cache: want {want}")
     if q.device.type == "cpu":
         return ref_window_decode_attention(
             q, kv_cache[layer], tail_k[layer], tail_v[layer], step,
@@ -294,11 +317,13 @@ def window_decode_attention(
     if plan is None:
         plan = window_plan(q.dtype, R, nq, kvh, hd, dev,
                            block_tables.shape[1] * page, step, shared_len,
-                           sliding_window, chunk_attn)
-    elif plan.key != (q.dtype, R, nq, kvh, hd) or plan.part.device != dev:
+                           sliding_window, chunk_attn, kv_cache.dtype)
+    elif plan.key != (q.dtype, R, nq, kvh, hd) \
+            or (plan.kv_dtype or q.dtype) != kv_cache.dtype \
+            or plan.part.device != dev:
         raise ValueError(f"the window plan {plan.key} on {plan.part.device} "
-                         f"does not fit q {q.dtype} {tuple(q.shape)}, kvh "
-                         f"{kvh} on {dev}")
+                         f"does not fit q {q.dtype} {tuple(q.shape)}, a "
+                         f"{kv_cache.dtype} cache, kvh {kvh} on {dev}")
     if plan.tensor_cores:
         for t in (q, kv_cache, tail_k, tail_v):
             if t.data_ptr() % 16:
@@ -307,13 +332,14 @@ def window_decode_attention(
     n_state = R * nq * plan.splits
     part_m = plan.part.data_ptr() + 4 * n_state * hd
     # The layer's cache and tails by their offsets in the full tensors.
-    item = q.element_size()
-    cache_l = kv_cache.data_ptr() + layer * kv_cache.stride(0) * item
-    tail_off = layer * tail_k.stride(0) * item
+    cache_l = (kv_cache.data_ptr()
+               + layer * kv_cache.stride(0) * kv_cache.element_size())
+    tail_off = layer * tail_k.stride(0) * tail_k.element_size()
     launch = cuda_build.entry("window_decode_attention", "wd_launch",
                               _ARGTYPES)
     err = launch(
-        DTYPE_CODES[q.dtype], int(plan.tensor_cores), q.data_ptr(), cache_l,
+        DTYPE_CODES[q.dtype], code, int(plan.tensor_cores), q.data_ptr(),
+        cache_l,
         tail_k.data_ptr() + tail_off, tail_v.data_ptr() + tail_off,
         out.data_ptr(), plan.part.data_ptr(), part_m,
         part_m + 4 * n_state, paged_lens.data_ptr(),

@@ -1,20 +1,25 @@
 """On-the-fly weight quantization and the true-4-bit packing.
 
 Counterpart of the on-the-fly part of the JAX package's
-``quantization/loader.py:quantize_stacked_params`` (``q_int8`` for w8a16,
-``q_int4`` for gptq/awq) and of ``loader/weights.py:_pack_w4_leaves``.
+``quantization/loader.py:quantize_stacked_params`` (``q_int8`` for w8a16
+and int8, ``q_fp8`` for fp8, ``q_int4`` for gptq/awq) and of
+``loader/weights.py:_pack_w4_leaves``.
 Written in torch on the weights' own device with the same fp32 arithmetic
 and round-half-to-even (``torch.round``), so the leaves equal the JAX
 package's for the same fp weights. XLA compiles a division by a constant
 into a product with the constant's fp32 reciprocal, so the scales here are
 ``range * (1 / 15)`` and ``amax * (1 / 127)``: a true division differs
-from the JAX scales by one ulp in about two of three groups.
+from the JAX scales by one ulp in about two of three groups; fp8's
+``amax * (1 / 448)`` likewise. XLA's cast to e4m3fn rounds to nearest even,
+as torch's does below 464 (``utils.to_fp8``): the bytes are the JAX
+package's.
 """
 from __future__ import annotations
 
 import torch
 
 from aphrodite_tpu_torch.quantization.base import QuantizationConfig
+from aphrodite_tpu_torch.utils import to_fp8
 
 
 def quantize_int8(w: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -24,6 +29,15 @@ def quantize_int8(w: torch.Tensor) -> dict[str, torch.Tensor]:
     scale = torch.clamp(w.abs().amax(dim=0) * (1.0 / 127.0), min=1e-8)
     q = torch.clamp(torch.round(w / scale[None, :]), -128, 127)
     return {"qweight": q.to(torch.int8), "scales": scale}
+
+
+def quantize_fp8(w: torch.Tensor) -> dict[str, torch.Tensor]:
+    """[K, N] -> {"qweight": float8_e4m3fn [K, N], "weight_scale": fp32
+    [N]}: per-output-channel scales amax / 448 (e4m3's largest normal)."""
+    w = w.float()
+    scale = torch.clamp(w.abs().amax(dim=0) * (1.0 / 448.0), min=1e-8)
+    return {"qweight": to_fp8(w / scale[None, :], torch.float8_e4m3fn),
+            "weight_scale": scale}
 
 
 def quantize_int4(w: torch.Tensor, group: int) -> dict[str, torch.Tensor]:
@@ -67,8 +81,10 @@ def quantize_weight(w: torch.Tensor,
                     qcfg: QuantizationConfig) -> dict[str, torch.Tensor]:
     """One fp weight [K, N] -> its quantized leaves, packed where the JAX
     loader packs."""
-    if qcfg.method == "w8a16":
+    if qcfg.method in ("w8a16", "int8"):
         return quantize_int8(w)
+    if qcfg.method == "fp8":
+        return quantize_fp8(w)
     if qcfg.method in ("gptq", "awq"):
         group = w4_group(qcfg, w.shape[0])
         leaves = quantize_int4(w, group)

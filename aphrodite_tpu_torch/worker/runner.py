@@ -38,7 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from aphrodite_tpu_torch.attention.backend import kv_cache_shape
+from aphrodite_tpu_torch.attention.backend import (as_bytes, cast_to,
+                                                   kv_cache_shape)
 from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
                                                     build_work_items)
 from aphrodite_tpu_torch.config import EngineConfig
@@ -49,7 +50,8 @@ from aphrodite_tpu_torch.ops.cascade_attention import shared_prefix_plan
 from aphrodite_tpu_torch.ops.decode_paged_attention import decode_plan
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_work_item_tokens)
-from aphrodite_tpu_torch.ops.window_decode_attention import window_plan
+from aphrodite_tpu_torch.ops.window_decode_attention import (tail_dtype,
+                                                            window_plan)
 from aphrodite_tpu_torch.sample.sampler import greedy_sample
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 from aphrodite_tpu_torch.utils import logger, next_power_of_2
@@ -99,19 +101,24 @@ class ModelRunner:
             return
         shape = kv_cache_shape(model.num_layers, cc.num_blocks, cc.block_size,
                                model.num_kv_heads, model.head_dim)
-        self.kv_cache = torch.zeros(shape, dtype=model.dtype, device=device)
-        logger.info("KV cache: %s %s (%.2f GiB)", shape, model.dtype,
+        # The model's dtype, or fp8 (``runner.py:92-96``).
+        kv_dtype = cc.torch_dtype(config.model_config.dtype)
+        self.kv_cache = torch.zeros(shape, dtype=kv_dtype, device=device)
+        # The window tails: bf16 beside an e5m2 cache, else the cache's
+        # dtype (``runner.py:519-520``).
+        self.tail_dtype = tail_dtype(kv_dtype)
+        logger.info("KV cache: %s %s (%.2f GiB)", shape, kv_dtype,
                     self.kv_cache.numel() * self.kv_cache.element_size()
                     / 2**30)
         # Tokens per ragged work item, sized for the kernel instance that
-        # the model's dtype runs and to the card's shared memory (the JAX
-        # runner sizes its block_q from the geometry too,
+        # the model's dtype and the cache's run and to the card's shared
+        # memory (the JAX runner sizes its block_q from the geometry too,
         # ``runner.py:216-245``).
         self.block_q = ragged_work_item_tokens(
             model.dtype, model.num_heads // model.num_kv_heads,
             model.head_dim,
             cuda_build.smem_optin() if device.type == "cuda"
-            else cuda_build.H100_SMEM_OPTIN)
+            else cuda_build.H100_SMEM_OPTIN, kv_dtype)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
@@ -309,15 +316,15 @@ class ModelRunner:
             # no sliding window (``backend.window_attention``).
             sw = getattr(model, "sliding_window", None)
             plan = window_plan(
-                self.kv_cache.dtype, R, model.num_heads, kvh, hd, dev,
+                model.dtype, R, model.num_heads, kvh, hd, dev,
                 int(seq_lens0.max()) - 1, K - 1,
                 shared_len=shared_len if shared_len and sw is None else 0,
-                sliding_window=sw)
+                sliding_window=sw, kv_dtype=self.kv_cache.dtype)
             if shared_len:
                 shared_plan = shared_prefix_plan(
-                    self.kv_cache.dtype, R, model.num_heads, kvh, hd,
-                    shared_len, dev)
-        tail_k = torch.zeros((L, R, kvh, K, hd), dtype=self.kv_cache.dtype,
+                    model.dtype, R, model.num_heads, kvh, hd, shared_len,
+                    dev, self.kv_cache.dtype)
+        tail_k = torch.zeros((L, R, kvh, K, hd), dtype=self.tail_dtype,
                              device=dev)
         tail_v = torch.zeros_like(tail_k)
         tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
@@ -393,8 +400,9 @@ class ModelRunner:
             # longest context of the last sub-step (a layer's sliding window
             # only shortens its range).
             plan = decode_plan(
-                self.kv_cache.dtype, R, model.num_heads, model.num_kv_heads,
-                model.head_dim, dev, int(seq_lens0.max()) + K - 1)
+                model.dtype, R, model.num_heads, model.num_kv_heads,
+                model.head_dim, dev, int(seq_lens0.max()) + K - 1,
+                kv_dtype=self.kv_cache.dtype)
         for i in range(K):
             live = i < budget
             pos = seqlens - 1
@@ -495,7 +503,8 @@ class ModelRunner:
                      budget: torch.Tensor) -> None:
         """Land every valid tail slot (j < the row's budget) at its
         (page, offset) in every layer, before the next wave reads the
-        pages (``runner.py:623-641``)."""
+        pages (``runner.py:623-641``), cast to the cache's dtype as the
+        reference casts (bf16 tails into an e5m2 cache)."""
         bs = self.block_size
         K = tail_k.shape[3]
         j = torch.arange(K, device=self.device)
@@ -505,5 +514,8 @@ class ModelRunner:
         pf, of = pages[valid], (abs_pos % bs)[valid]
         # tails [L, R, kvh, K, hd] -> [N, L, kvh, hd] rows for the valid
         # (request, slot) pairs; the advanced indices below put N first.
-        self.kv_cache[:, pf, 0, :, of] = tail_k.permute(1, 3, 0, 2, 4)[valid]
-        self.kv_cache[:, pf, 1, :, of] = tail_v.permute(1, 3, 0, 2, 4)[valid]
+        cache = as_bytes(self.kv_cache)
+        for i, tail in enumerate((tail_k, tail_v)):
+            rows = tail.permute(1, 3, 0, 2, 4)[valid]
+            cache[:, pf, i, :, of] = as_bytes(cast_to(rows,
+                                                      self.kv_cache.dtype))

@@ -45,7 +45,8 @@ class Worker:
 
     def load_params(self, state: Mapping[str, np.ndarray]) -> None:
         """Replace the model's weights with a full state dict (for example
-        ``loader.weights.params_from_jax`` of the JAX engine's tree)."""
+        ``loader.weights.params_from_jax`` of the JAX engine's tree, or
+        another port model's ``state_dict()``: numpy has no fp8)."""
         load_params(self.model, state)
 
     def _determine_num_blocks(self) -> int:
@@ -58,8 +59,11 @@ class Worker:
         if getattr(self.model, "is_ssm", False):
             # The pages are accounting only: no memory stands behind them.
             return max_needed
+        # Bytes of one K/V element in the cache's own dtype (the JAX
+        # package's kv_bytes_per_token_per_layer).
+        item = cc.torch_dtype(mc.dtype).itemsize
         page_bytes = (mc.num_kv_heads * 2 * mc.head_dim * cc.block_size
-                      * mc.num_layers * self.model.embed.element_size())
+                      * mc.num_layers * item)
         if self.device.type != "cuda":
             return 512  # CPU: small default for tests
         torch.cuda.empty_cache()  # transient init buffers count as free

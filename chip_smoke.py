@@ -98,6 +98,24 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    run, the uint4 GEMM exactly 4 x 28 x 63 = 7056 times, the other
    quantized GEMMs never, both attention kernels (at 7 query heads a KV
    head, held in phase 2 first) launched.
+17. FP8 parity: fp32 greedy tokens on the card and on the CPU with the
+   same weights for a 2-layer Qwen2.5-1.5B with (quantization,
+   kv_cache_dtype) = (fp8, fp8_e4m3), (fp8_w8a8, fp8_e5m2) and (int8,
+   auto), a tiny Gemma-2 on an e4m3 cache (the decode kernel's fp8
+   instance) and phase 13's int4 + cascade layer on an e4m3 cache (the
+   shared pass's): equal but where the free runs part (``same_tokens``:
+   there the two engines' logprob differences of the two tokens, read
+   from both free runs at that step, lie less than ``GAP`` apart, at most
+   a tenth of the tokens part, and both go on from the CPU's token); the
+   CPU against itself with each prompt alone is logged beside it as the
+   yardstick of such partings; kFp8's fp32 twin and the fp8-cache
+   attention instances launched.
+18. The main path of the FP8 slice, BASELINE config 3: Llama-3.1-8B at full
+   width and depth, fp8 weights (e4m3, a scale a column) and an fp8 e4m3
+   KV cache, bf16, phase 6's traffic and runs. Exactly 2048 tokens a run,
+   kFp8 exactly 4 x 32 x 63 = 8064 times, the other quantized GEMMs never,
+   the ragged kernel 32 and the window kernel 2016 times in every cold and
+   warm run; a profile with an "fp8" family.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -150,7 +168,19 @@ kernels, in bf16 (tensor cores) and fp32, where their masks bite: head_dim
 contexts, chunked attention (256) at head_dim 128, 16-token pages with
 work items that start mid-page and query lengths that are not a multiple
 of block_q, and (the window) one request at an 8192-token context, which
-the split plan cuts into many splits.
+the split plan cuts into many splits. For the FP8 slice it holds every
+attention kernel at its geometries above on e4m3 and e5m2 caches, in bf16
+and fp32 (the window's tails e4m3 beside e4m3, bf16 beside e5m2), timing
+the 8B path's (bf16) and Qwen2.5-1.5B's (fp32) instances beside their
+bf16-cache selves; kFp8 at ``FP8_CASES`` (its e4m3 bytes holding +-448,
++-2^-9 and +-0 in every column) with and without the row scales, two
+launches bit-equal; every finite e4m3 byte through kFp8 and the fp32
+kernel exactly (identity x, unit scales: ``check_fp8_bytes``);
+``fp8_matmul`` at a Llama-3.1-8B layer's four GEMMs (bf16, beside a dense
+bf16 matmul, its library yardstick, and, with row scales,
+``torch._scaled_mm`` with row-wise scales) and a Qwen2.5-1.5B layer's
+(fp32); and whether ``torch._int_mm``
+takes M <= 16 (``int8_matmul`` on the card == on the CPU).
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -348,8 +378,9 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 
 
 def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2, hd=HD, page=PAGE):
-    """Random [L, P, 2, kvh, page, hd] cache and shuffled block tables
-    covering ctx_lens tokens per request."""
+    """Random [L, P, 2, kvh, page, hd] cache (in ``dtype``: q's, or an fp8
+    cache's) and shuffled block tables covering ctx_lens tokens per
+    request."""
     import torch
     pages_per = [-(-n // page) for n in ctx_lens]
     max_pages = max(pages_per)
@@ -366,18 +397,32 @@ def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2, hd=HD, page=PAGE):
     return cache, bt
 
 
+def kv_type(dtype, kv: str | None):
+    """The cache's torch dtype: ``kv`` (an fp8 name) or q's ``dtype``."""
+    import torch
+    return dtype if kv is None else getattr(torch, kv)
+
+
+def kv_label(kv: str | None) -> str:
+    return "" if kv is None else f", {kv} cache"
+
+
 def dense_kv(cache_layer, bt, ctx_lens, s_max):
-    """Gather each request's K/V into dense [R, kvh, s_max, hd]."""
+    """Gather each request's K/V into dense [R, kvh, s_max, hd] (the
+    library yardstick's operands; an fp8 cache's upcast by the caller)."""
     R, kvh, hd = len(ctx_lens), cache_layer.shape[2], cache_layer.shape[-1]
     kv = cache_layer[bt.long()]                 # [R, MP, 2, kvh, page, hd]
     kv = kv.permute(0, 2, 3, 1, 4, 5).reshape(R, 2, kvh, -1, hd)
     return kv[:, 0, :, :s_max].contiguous(), kv[:, 1, :, :s_max].contiguous()
 
 
-def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
+def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
+                 kv: str | None = None):
     """Kernel A on one prefill/mixed wave (``ATTN_GEOMS``, or a case of
-    ``RAGGED_MASK_CASES`` with its page size and masks): its error against
-    the plain version, and at a path's shapes the times."""
+    ``RAGGED_MASK_CASES`` with its page size and masks), on a cache of q's
+    dtype or of the fp8 dtype ``kv``: its error against the plain version,
+    and at a path's shapes the times (the yardstick's K/V upcast to q's
+    dtype once, outside the timing; the bound's K/V bytes the cache's)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
@@ -390,14 +435,15 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
     NQ, KVH, ctx, qn = geom["nq"], geom["kvh"], geom["ctx"], geom["qlen"]
     HD = geom.get("hd", 128)
     opts = geom.get("opts", {})
-    cache, bt = paged_cache(gen, ctx, dtype, KVH, hd=HD,
+    kvd = kv_type(dtype, kv)
+    cache, bt = paged_cache(gen, ctx, kvd, KVH, hd=HD,
                             page=geom.get("page", PAGE))
     R, T = len(ctx), sum(qn)
     qsl = np.concatenate([[0], np.cumsum(qn)]).astype(np.int32)
     tok_req = np.repeat(np.arange(R), qn).astype(np.int32)
     tok_pos = np.concatenate([np.arange(c - n, c) for c, n in zip(ctx, qn)])
     block_q = ragged_work_item_tokens(dtype, NQ // KVH, HD,
-                                      cuda_build.smem_optin())
+                                      cuda_build.smem_optin(), kvd)
     items = build_work_items(qsl[:-1], np.diff(qsl),
                              np.asarray(ctx, np.int32), R, block_q)
     dev = lambda a: torch.from_numpy(np.asarray(a)).cuda()  # noqa: E731
@@ -414,8 +460,9 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
-        raise AssertionError(f"ragged kernel {dtype_name} {opts}: "
-                             f"max_abs_err {err} > {TOL[dtype_name]}")
+        raise AssertionError(f"ragged kernel {dtype_name}{kv_label(kv)} "
+                             f"{opts}: max_abs_err {err} > "
+                             f"{TOL[dtype_name]}")
     if not timed:
         return err
     ms = cuda_ms(lambda: ragged_paged_attention(q, cache, layer, md, scale),
@@ -427,7 +474,7 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
     # Library yardstick: one SDPA call over the wave padded to a dense
     # [R, nq, max qlen, hd] batch with a [R, 1, max qlen, S] mask.
     s_max, lq = max(ctx), max(qn)
-    k_d, v_d = dense_kv(cache[layer], bt, ctx, s_max)
+    k_d, v_d = (t.to(dtype) for t in dense_kv(cache[layer], bt, ctx, s_max))
     q_d = torch.zeros((R, NQ, lq, HD), dtype=dtype, device="cuda")
     mask = torch.zeros((R, 1, lq, s_max), dtype=torch.bool, device="cuda")
     kv_pos = torch.arange(s_max, device="cuda")
@@ -442,7 +489,8 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True):
     lib_dev_ms = device_ms(sdpa, 5)
     item = torch.finfo(dtype).bits // 8
     vis = sum(int(p) + 1 for p in tok_pos)   # causal keys per token
-    nbytes = item * (2 * T * NQ * HD + 2 * KVH * HD * sum(ctx))
+    nbytes = (item * 2 * T * NQ * HD
+              + kvd.itemsize * 2 * KVH * HD * sum(ctx))
     ops = 4.0 * NQ * HD * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -478,9 +526,12 @@ def host_ms(fn, reps: int = 50) -> float:
     return ms
 
 
-def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
+def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
+                 kv: str | None = None):
     """Kernel B on one decode window (``ATTN_GEOMS``, or a case of
-    ``WINDOW_MASK_CASES``): its paged lengths with a 64-slot tail, at
+    ``WINDOW_MASK_CASES``), on a cache of q's dtype or of the fp8 dtype
+    ``kv`` with tails in ``tail_dtype`` of it (e4m3 beside e4m3, bf16
+    beside e5m2): its paged lengths with a 64-slot tail, at
     several window steps, each held at ``scaled_tol``, with the split plan
     bounded by the longest paged length as the runner bounds it, by the
     block tables' capacity, and by 0 (one split, which must take every
@@ -489,25 +540,27 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.window_decode_attention import (
-        ref_window_decode_attention, window_decode_attention, window_plan)
+        ref_window_decode_attention, tail_dtype, window_decode_attention,
+        window_plan)
     dtype = getattr(torch, dtype_name)
     NQ, KVH, plens = geom["nq"], geom["kvh"], geom["paged"]
     HD = geom.get("hd", 128)
     opts = geom.get("opts", {})
     R, Kw, layer = len(plens), 64, 1
-    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, KVH, hd=HD,
+    kvd = kv_type(dtype, kv)
+    cache, bt = paged_cache(gen, [p + Kw for p in plens], kvd, KVH, hd=HD,
                             page=geom.get("page", PAGE))
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
-                         device="cuda").to(dtype)
+                         device="cuda").to(tail_dtype(kvd))
     tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
-                         device="cuda").to(dtype)
+                         device="cuda").to(tail_dtype(kvd))
     q = torch.randn((R, NQ, HD), generator=gen, device="cuda").to(dtype)
     pl = torch.tensor(plens, dtype=torch.int32, device="cuda")
     scale = HD ** -0.5
     plan = lambda bound: window_plan(  # noqa: E731
         dtype, R, NQ, KVH, HD, q.device, bound, Kw - 1,
         sliding_window=opts.get("sliding_window"),
-        chunk_attn=opts.get("chunk_attn"))
+        chunk_attn=opts.get("chunk_attn"), kv_dtype=kvd)
     plans = {"the longest paged length": plan(max(plens)),
              "the block tables": None, "0": plan(0)}
     err = 0.0
@@ -526,9 +579,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
             e = (out.float() - ref.float()).abs().max().item()
             if e > limit:
                 raise AssertionError(
-                    f"window kernel {dtype_name} {opts} step {step}, plan "
-                    f"bounded by {bound}: max_abs_err {e} > {limit:.3g} "
-                    f"(TOL scaled to the output)")
+                    f"window kernel {dtype_name}{kv_label(kv)} {opts} step "
+                    f"{step}, plan bounded by {bound}: max_abs_err {e} > "
+                    f"{limit:.3g} (TOL scaled to the output)")
             err = max(err, e)
     if not timed:
         return err
@@ -545,8 +598,8 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
     # Library yardstick: SDPA over dense [R, kvh, S + Kw, hd] with a mask.
     s_max = max(plens)
     k_p, v_p = dense_kv(cache[layer], bt, plens, s_max)
-    k_d = torch.cat([k_p, tail_k[layer]], dim=2)
-    v_d = torch.cat([v_p, tail_v[layer]], dim=2)
+    k_d = torch.cat([k_p.to(dtype), tail_k[layer].to(dtype)], dim=2)
+    v_d = torch.cat([v_p.to(dtype), tail_v[layer].to(dtype)], dim=2)
     j = torch.arange(s_max + Kw, device="cuda")
     mask = torch.where(j[None, :] < s_max, j[None, :] < pl[:, None].long(),
                        (j[None, :] - s_max) <= step)[:, None, None, :]
@@ -557,7 +610,8 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True):
     lib_dev_ms = device_ms(sdpa, 20)
     item = torch.finfo(dtype).bits // 8
     vis = sum(plens) + R * (step + 1)
-    nbytes = item * (2 * R * NQ * HD + 2 * KVH * HD * vis)
+    nbytes = (item * 2 * R * NQ * HD + 2 * KVH * HD * (
+        kvd.itemsize * sum(plens) + tail_dtype(kvd).itemsize * R * (step + 1)))
     ops = 4.0 * NQ * HD * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -586,7 +640,8 @@ DECODE_CASES = {
 }
 
 
-def check_decode(gen, dtype_name: str, case: str) -> dict:
+def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
+                 timed: bool = True) -> dict:
     """The decode kernel on one case of ``DECODE_CASES``: error against
     its plain version at ``scaled_tol``, with the split plan
     (``decode_plan``) bounded by the longest context, by the block tables'
@@ -597,7 +652,9 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
     written once) and the yardstick, one ``scaled_dot_product_attention``
     call over K/V gathered into dense [R, kvh, S, hd] with the same mask
     (ALiBi as an additive bias; SDPA has no soft cap, so it computes the
-    uncapped function there)."""
+    uncapped function there). ``kv``: an fp8 cache's dtype name (the
+    yardstick's K/V upcast to q's dtype outside the timing; the bound's
+    K/V bytes the cache's)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
@@ -609,14 +666,15 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
         opts["alibi"] = torch.tensor([2.0 ** (-0.5 * (h + 1))
                                       for h in range(nq)], device="cuda")
     R, layer = len(ctx), 1
-    cache, bt = paged_cache(gen, ctx, dtype, kvh, hd=hd)
+    kvd = kv_type(dtype, kv)
+    cache, bt = paged_cache(gen, ctx, kvd, kvh, hd=hd)
     sl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
     q = torch.randn((R, nq, hd), generator=gen, device="cuda").to(dtype)
     scale = hd ** -0.5
     ref = ref_decode_paged_attention(q, cache[layer], bt, sl, scale, **opts)
     limit = scaled_tol(dtype_name, ref)
     plan = lambda bound: decode_plan(  # noqa: E731
-        dtype, R, nq, kvh, hd, q.device, bound)
+        dtype, R, nq, kvh, hd, q.device, bound, kv_dtype=kvd)
     plans = {"the longest context": plan(max(ctx)),
              "the block tables": None, "0": plan(0)}
     err = 0.0
@@ -627,9 +685,12 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
         e = (out.float() - ref.float()).abs().max().item()
         if not (e <= limit and torch.isfinite(out).all()):
             raise AssertionError(
-                f"decode kernel {case} {dtype_name}, plan bounded by {bound}: "
-                f"max_abs_err {e} > {limit:.3g} (TOL scaled to the output)")
+                f"decode kernel {case} {dtype_name}{kv_label(kv)}, plan "
+                f"bounded by {bound}: max_abs_err {e} > {limit:.3g} (TOL "
+                "scaled to the output)")
         err = max(err, e)
+    if not timed:
+        return dict(max_abs_err=err)
     path_plan = plans["the longest context"]
     dec = lambda: decode_paged_attention(  # noqa: E731
         q, cache, layer, bt, sl, scale, plan=path_plan, **opts)
@@ -639,7 +700,7 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
     plain_ms = cuda_ms(lambda: ref_decode_paged_attention(
         q, cache[layer], bt, sl, scale, **opts), 5)
     s_max = max(ctx)
-    k_d, v_d = dense_kv(cache[layer], bt, ctx, s_max)
+    k_d, v_d = (t.to(dtype) for t in dense_kv(cache[layer], bt, ctx, s_max))
     j = torch.arange(s_max, device="cuda")[None, :]
     pos = (sl.long() - 1)[:, None]
     keep = j <= pos
@@ -659,13 +720,14 @@ def check_decode(gen, dtype_name: str, case: str) -> dict:
     lib_dev_ms = device_ms(sdpa, 20)
     vis = int(keep.sum().item())   # K/V rows this run's masks let in
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * (2 * R * nq * hd + 2 * kvh * hd * vis)
+    nbytes = item * 2 * R * nq * hd + kvd.itemsize * 2 * kvh * hd * vis
     ops = 4.0 * nq * hd * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     how = (f"tensor cores, {path_plan.splits} splits of "
            f"{path_plan.tiles_per_split} tiles" if path_plan.tensor_cores
            else "CUDA cores")
-    log(f"# phase 2: decode_paged_attention {case} {dtype_name} (R {R}, nq "
+    log(f"# phase 2: decode_paged_attention {case} {dtype_name}"
+        f"{kv_label(kv)} (R {R}, nq "
         f"{nq}, kvh {kvh}, hd {hd}, contexts {min(ctx)}-{max(ctx)}, "
         f"{opts if 'alibi' not in opts else 'alibi'}; {how}): max_abs_err "
         f"{err:.3g} (tol {tol_text('decode_paged_attention', dtype_name)} "
@@ -1008,18 +1070,36 @@ BYTE_CASES = ([(M, 2048, 1424, 128, None, None, False) for M in W4_BATCHES]
                  (65, 96, 64, 32, None, None, False)])
 
 
+def fp8_weights(gen, K: int, N: int):
+    """e4m3fn weights [K, N] (64 x N(0, 1), so about e4m3's range), rows
+    0-5 of every column +448, -448, +2^-9 and -2^-9 (the smallest
+    subnormal), +0 and -0, and per-column scales that make y O(1)."""
+    import torch
+    from aphrodite_tpu_torch.utils import to_fp8
+    dev = dict(device="cuda", generator=gen)
+    q = to_fp8((64 * torch.randn((K, N), **dev)).clamp(-448, 448),
+               torch.float8_e4m3fn)
+    for r, b in enumerate((0x7E, 0xFE, 0x01, 0x81, 0x00, 0x80)):
+        q.view(torch.uint8)[r] = b
+    s = (0.5 + torch.rand((N,), **dev)) / (4 * 64 * K ** 0.5)
+    return q, s
+
+
 def w4_inputs(gen, layout: str, M: int, K: int, N: int, group: int,
               frac: bool):
     """x and one layout's weights, scaled as in ``int4_inputs`` (w8 as in
-    ``quant_inputs``, with -128 and 127 in rows 0 and 1 of every column):
-    x, (q, s, z) (w8: (q, s, None)), the plain version. ``frac`` moves
-    every zero by 0.37."""
+    ``quant_inputs``, with -128 and 127 in rows 0 and 1 of every column;
+    fp8 as ``fp8_weights``): x, (q, s, z) (w8 and fp8: (q, s, None)), the
+    plain version. ``frac`` moves every zero by 0.37."""
     import torch
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     from aphrodite_tpu_torch.quantization.loader import pack_w4
     dev = dict(device="cuda", generator=gen)
     G = K // group
     x = torch.randn((M, K), **dev).bfloat16()
+    if layout == "fp8":
+        q, s = fp8_weights(gen, K, N)
+        return x, (q, s, None), lambda xf: qm.ref_fp8_matmul(xf, q, s)
     if layout == "w8":
         q = torch.randint(-128, 128, (K, N), **dev).to(torch.int8)
         q[0], q[1] = -128, 127
@@ -1048,7 +1128,8 @@ def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8")) -> float:
     ``BYTE_CASES``: every M tile and two M tiles, groups 32-256 (and K), a
     ragged N, forced K splits, both forms of the zero; two launches on the
     same inputs must be bit-equal. Returns the largest error (tolerance
-    TOL["bfloat16"], max-abs, the outputs O(1))."""
+    TOL["bfloat16"], max-abs, the outputs O(1)). The "fp8" layout takes
+    ``FP8_CASES`` (``check_fp8_layout``)."""
     import torch
     from aphrodite_tpu_torch.ops import w4_wgmma
     worst = 0.0
@@ -1075,6 +1156,234 @@ def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8")) -> float:
     return worst
 
 
+# The "fp8" layout's cases (phase 2): BYTE_CASES's (M, K, N, forced splits)
+# where the zero's form plays no part (fp8 has no zeros or groups): every M
+# tile and two M tiles, a ragged N, forced K splits, a short last stage, and
+# both paths' layers at M = 32.
+FP8_CASES = list(dict.fromkeys((M, K, N, s)
+                               for M, K, N, _, s, zi, fr in BYTE_CASES
+                               if zi is None and not fr))
+
+
+def check_fp8_layout(gen) -> float:
+    """kFp8 (``w4_wgmma``'s "fp8" layout) at ``FP8_CASES``, weight-only and
+    with a scale a row of x (the W8A8 epilogue, kRowScale), against the
+    plain version: the e4m3 bytes of every column include +-448, +-2^-9
+    and +-0 (``fp8_weights``); two launches bit-equal. Returns the largest
+    error (tolerance TOL["bfloat16"], max-abs, outputs O(1))."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops import w4_wgmma
+    worst = 0.0
+    for M, K, N, splits in FP8_CASES:
+        x, (q, s, _), _ = w4_inputs(gen, "fp8", M, K, N, K, False)
+        rs = 0.5 + torch.rand((M,), device="cuda", generator=gen)
+        for r in (None, rs):
+            y = w4_wgmma.matmul("fp8", x, q, s, None, splits=splits,
+                                row_scales=r)
+            y2 = w4_wgmma.matmul("fp8", x, q, s, None, splits=splits,
+                                 row_scales=r)
+            torch.cuda.synchronize()
+            err = (y.float() - qm.ref_fp8_matmul(x.float(), q, s, r)
+                   ).abs().max().item()
+            what = (f"w4_wgmma fp8 M={M} K={K} N={N} splits={splits} row "
+                    f"scales {r is not None}")
+            if not (err <= TOL["bfloat16"] and torch.isfinite(y).all()):
+                raise AssertionError(f"{what}: max_abs_err {err} > "
+                                     f"{TOL['bfloat16']}")
+            if not torch.equal(y, y2):
+                raise AssertionError(f"{what}: two launches differ")
+            worst = max(worst, err)
+        del x, q, s, y, y2
+    return worst
+
+
+def e4m3_table():
+    """The value of every e4m3fn byte by its definition (sign, 4 exponent
+    bits of bias 7, 3 mantissa bits; exponent 0 subnormal, 0x7F and 0xFF
+    NaN), fp32 [256], independent of any conversion in torch or the
+    kernels."""
+    import torch
+    v = []
+    for b in range(256):
+        e, m = (b >> 3) & 15, b & 7
+        mag = (m / 8 * 2.0 ** -6 if e == 0 else (1 + m / 8) * 2.0 ** (e - 7))
+        v.append(float("nan") if b & 0x7F == 0x7F
+                 else -mag if b & 0x80 else mag)
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def check_fp8_bytes() -> str:
+    """Every finite e4m3 byte through both fp8 kernels, exactly: q [256,
+    256] holds byte (k + n) mod 256 at (k, n), its two NaN bytes replaced
+    by 0x00 and 0x80, so each finite byte lies in every row and column; s
+    = 1 and x the identity, so y[k, n] is the byte's value (bf16: kFp8
+    weight-only and with row scales of 1, with no K split and with 4;
+    fp32: ``qmm_kernel``'s e4m3 case). y must equal ``e4m3_table`` by ==
+    at every position (the sign of a zero is not compared: a sum of
+    products keeps no -0). Returns a line for the log."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops import w4_wgmma
+    idx = torch.arange(256, device="cuda")
+    b = (idx[:, None] + idx[None, :]) % 256
+    b = torch.where(b == 0x7F, 0, torch.where(b == 0xFF, 0x80, b))
+    q = b.to(torch.uint8).view(torch.float8_e4m3fn)
+    want = e4m3_table().cuda()[b]
+    eye, ones = torch.eye(256, device="cuda"), torch.ones(256, device="cuda")
+    got = {f"kFp8 splits {sp} row scales {r is not None}":
+           w4_wgmma.matmul("fp8", eye.bfloat16(), q, ones, None, splits=sp,
+                           row_scales=r)
+           for sp in (None, 4) for r in (None, ones)}
+    got["qmm_kernel e4m3 fp32"] = qm.fp8_matmul(eye, q, ones)
+    for what, y in got.items():
+        bad = (y.float() != want).nonzero()
+        if len(bad):
+            k, n = bad[0].tolist()
+            raise AssertionError(
+                f"{what}: {len(bad)} of 65536 values differ from the e4m3 "
+                f"table, e.g. byte {int(b[k, n]):#04x} at ({k}, {n}): "
+                f"{y[k, n].item()!r}, want {want[k, n].item()!r}")
+    return (f"fp8 bytes: all 254 finite e4m3 bytes (+-448, the subnormals "
+            f"+-2^-9 .. +-7 * 2^-9, +-0) at every row and column through "
+            f"{', '.join(got)}: y equals the byte table exactly")
+
+
+def check_fp8(gen, dtype_name: str, shapes: dict) -> dict:
+    """``quant_matmul.fp8_matmul`` at a path's four GEMM shapes (M = 32):
+    weight-only, error against the plain version; time a call, device and
+    host time, plain time, bound (bytes: x, e4m3 W, s and y once), a dense
+    ``torch.matmul`` of the dequantized weights in ``dtype_name`` (the
+    weight-only call's library yardstick, ``library_ms``); then with x's
+    row scales (W8A8: x rounded to e4m3 first), its time beside
+    ``torch._scaled_mm`` with row-wise scales on the same e4m3 x (bf16
+    only), which computes that function (logged, not in ``library_ms``).
+    Errors at other M (1, 5, 13, 40, 200) too. Sums over the layer."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_gemm
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    dtype = getattr(torch, dtype_name)
+    tc = dtype_name == "bfloat16"
+    M = 32
+    tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, host_ms=0.0,
+               plain_ms=0.0, dense_ms=0.0, dense_device_ms=0.0, bytes=0.0,
+               ops=0.0,
+               rs_ms=0.0, rs_device_ms=0.0, scaled_mm_ms=0.0,
+               scaled_mm_device_ms=0.0)
+    scaled_mm = tc
+    for gemm, (K, N) in shapes.items():
+        x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
+        q, s = fp8_weights(gen, K, N)
+        out = qm.fp8_matmul(x, q, s)
+        ref = qm.ref_fp8_matmul(x.float(), q, s)
+        x8, xs = quant_gemm.fp8_quantize_rows(x)
+        rs = xs.reshape(M).contiguous()
+        out_rs = qm.fp8_matmul(x8, q, s, rs)
+        ref_rs = qm.ref_fp8_matmul(x8.float(), q, s, rs)
+        torch.cuda.synchronize()
+        err = max((out.float() - ref).abs().max().item(),
+                  (out_rs.float() - ref_rs).abs().max().item())
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()
+                and torch.isfinite(out_rs).all()):
+            raise AssertionError(f"fp8_matmul {gemm} {dtype_name}: "
+                                 f"max_abs_err {err} > {TOL[dtype_name]}")
+        kern = lambda: qm.fp8_matmul(x, q, s)  # noqa: E731
+        kern_rs = lambda: qm.fp8_matmul(x8, q, s, rs)  # noqa: E731
+        reps = 50 if tc else 5
+        t = dict(ms=cuda_ms(kern, reps), device_ms=device_ms(kern, 20),
+                 host_ms=host_ms(kern, reps),
+                 plain_ms=cuda_ms(lambda: qm.ref_fp8_matmul(x, q, s), 3),
+                 rs_ms=cuda_ms(kern_rs, reps),
+                 rs_device_ms=device_ms(kern_rs, 20))
+        wd = (q.float() * s).to(dtype)
+        t["dense_ms"] = cuda_ms(lambda: x @ wd, reps)
+        t["dense_device_ms"] = device_ms(lambda: x @ wd, 20)
+        del wd
+        if scaled_mm:
+            try:  # the same W8A8 function on the tensor cores' fp8 path
+                a8 = x8.to(torch.float8_e4m3fn)
+                b8 = q.t().contiguous().t()  # column-major [K, N]
+                sa, sb = xs.contiguous(), s.reshape(1, N).contiguous()
+                lib = lambda: torch._scaled_mm(  # noqa: E731
+                    a8, b8, scale_a=sa, scale_b=sb, out_dtype=dtype)
+                e_lib = (lib().float() - ref_rs).abs().max().item()
+                t["scaled_mm_ms"] = cuda_ms(lib, reps)
+                t["scaled_mm_device_ms"] = device_ms(lib, 20)
+                log(f"# phase 2: torch._scaled_mm {gemm} (row-wise scales) "
+                    f"vs the plain version: max_abs_err {e_lib:.3g}")
+            except Exception as ex:  # the card's torch lacks the op
+                scaled_mm = False
+                log(f"# phase 2: torch._scaled_mm with row-wise scales is "
+                    f"unavailable ({ex!r:.160})")
+        nbytes = (x.numel() * x.element_size() + q.numel() + 4 * N
+                  + M * N * x.element_size())
+        ops = 2.0 * M * K * N
+        log(f"# phase 2: fp8_matmul {gemm} {dtype_name} M={M} K={K} N={N}: "
+            f"err {err:.3g}; kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f} ms, host {t['host_ms']:.4f} ms a call), "
+            f"with row scales {t['rs_ms']:.4f} ms (device "
+            f"{t['rs_device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"dense {dtype_name} matmul {t['dense_ms']:.4f} ms (device "
+            f"{t['dense_device_ms']:.4f} ms), bound "
+            f"{bound_ms(nbytes, ops, dtype_name)[0]:.4f} ms")
+        for k, v in t.items():
+            tot[k] += v
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del x, q, s, x8, out, out_rs
+    K, N = next(iter(shapes.values()))
+    for M in (1, 5, 13, 40, 200):
+        x = torch.randn((M, K), device="cuda", generator=gen).to(dtype)
+        q, s = fp8_weights(gen, K, N)
+        x8, xs = quant_gemm.fp8_quantize_rows(x)
+        for a, r in ((x, None), (x8, xs.reshape(M).contiguous())):
+            err = (qm.fp8_matmul(a, q, s, r).float()
+                   - qm.ref_fp8_matmul(a.float(), q, s, r)).abs().max().item()
+            if not err <= TOL[dtype_name]:
+                raise AssertionError(f"fp8_matmul M={M} K={K} N={N} "
+                                     f"{dtype_name}: max_abs_err {err}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
+                                                tot.pop("ops"), dtype_name)
+    tot["library_ms"] = tot["dense_ms"]
+    if not scaled_mm:
+        tot["scaled_mm_ms"] = tot["scaled_mm_device_ms"] = None
+    return tot
+
+
+def check_int_mm() -> str:
+    """Whether ``torch._int_mm`` takes M <= 16 on the card (older releases
+    required M > 16), and ``quant_gemm.int8_matmul`` at M 1-32 (padded to
+    ``INT_MM_MIN_M`` rows where M is below it) against the same int32
+    product on the CPU: equal."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_gemm
+    took = []
+    for M in (1, 2, 8, 16):
+        try:
+            torch._int_mm(torch.ones((M, 64), dtype=torch.int8, device="cuda"),
+                          torch.ones((64, 32), dtype=torch.int8,
+                                     device="cuda"))
+            torch.cuda.synchronize()
+            took.append(M)
+        except Exception:
+            pass
+    g = torch.Generator().manual_seed(11)
+    for M in (1, 5, 16, 17, 32):
+        x = torch.randn((M, 4096), generator=g)
+        q = torch.randint(-128, 128, (4096, 6144), generator=g).to(torch.int8)
+        s = torch.rand((6144,), generator=g) * 1e-3
+        got = quant_gemm.int8_matmul(x.cuda(), q.cuda(), s.cuda()).cpu()
+        want = quant_gemm.int8_matmul(x, q, s)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_matmul M={M}: card != CPU (max "
+                                 f"{(got - want).abs().max().item():.3g})")
+    return (f"torch._int_mm takes M in {took} of (1, 2, 8, 16) unpadded; "
+            f"int8_matmul (padded to {quant_gemm.INT_MM_MIN_M} rows below "
+            "it) == the CPU at M 1, 5, 16, 17, 32")
+
+
 def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
     """A [2, P, 2, 8, 64, 128] cache whose R requests share their first S //
     64 pages, each with its own pages past them up to plen + kw, in shuffled
@@ -1093,7 +1402,8 @@ def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
     return cache, shared, bt
 
 
-def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
+def check_cascade(gen, dtype_name: str, kv: str | None = None,
+                  timed: bool = True) -> tuple[dict, dict]:
     """Phase 14's decode step (R 128, 32 / 8 heads of 128, paged lengths
     1152, 16 shared pages: S = 1024, a 64-slot tail): the shared-prefix
     pass, its plan made once as the runner makes it, against its plain
@@ -1102,28 +1412,33 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     window kernel over the whole context, at several steps. Times: the
     pass, the window with the init state, both together and the window
     alone over the whole context (step 24). Returns the pass's and the
-    window-with-init's results."""
+    window-with-init's results. ``kv``: an fp8 cache's dtype name (tails in
+    ``tail_dtype`` of it; the yardsticks' K/V upcast to q's dtype outside
+    the timing; the bounds' K/V bytes the cache's); ``timed`` False checks
+    errors only."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.cascade_attention import (
         ref_shared_prefix_attention, shared_prefix_attention,
         shared_prefix_plan)
     from aphrodite_tpu_torch.ops.window_decode_attention import (
-        ref_window_decode_attention, window_decode_attention, window_plan)
+        ref_window_decode_attention, tail_dtype, window_decode_attention,
+        window_plan)
     dtype = getattr(torch, dtype_name)
     R, NQ, KVH, S, plen, Kw, layer = 128, 32, 8, CASCADE_S, 1152, 64, 1
-    cache, shared, bt = cascade_cache(gen, dtype, R, S, plen, Kw)
+    kvd = kv_type(dtype, kv)
+    cache, shared, bt = cascade_cache(gen, kvd, R, S, plen, Kw)
     q = torch.randn((R, NQ, HD), generator=gen, device="cuda").to(dtype)
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
-                         device="cuda").to(dtype)
+                         device="cuda").to(tail_dtype(kvd))
     tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
-                         device="cuda").to(dtype)
+                         device="cuda").to(tail_dtype(kvd))
     pl = torch.full((R,), plen, dtype=torch.int32, device="cuda")
     scale = HD ** -0.5
     item = torch.finfo(dtype).bits // 8
     # The pass with its plan made once, as the runner makes it a window.
     spa_plans = {s_len: shared_prefix_plan(dtype, R, NQ, KVH, HD, s_len,
-                                           q.device)
+                                           q.device, kvd)
                  for s_len in (S, 1000, 64)}
     spa = lambda s_len=S: shared_prefix_attention(  # noqa: E731
         q, cache, layer, shared, s_len, scale, spa_plans[s_len])
@@ -1141,47 +1456,55 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
         if not (e <= TOL[dtype_name] and all(torch.isfinite(t).all()
                                              for t in got)):
             raise AssertionError(f"shared_prefix_attention S={s_len} "
-                                 f"{dtype_name}: max error {e} > "
-                                 f"{TOL[dtype_name]}")
+                                 f"{dtype_name}{kv_label(kv)}: max error "
+                                 f"{e} > {TOL[dtype_name]}")
         err = max(err, e)
-    ms = cuda_ms(spa, 200)
-    spa_dev_ms = device_ms(spa, 50)
-    spa_host = host_ms(spa)
-    plain_ms = cuda_ms(lambda: ref_shared_prefix_attention(
-        q, cache[layer], shared, S, scale), 5)
-    # Library yardstick: one SDPA over the gathered shared K/V with every
-    # request's query rows of a KV head as one sequence, no mask. It returns
-    # the normalized output, not (acc, m, l).
-    kv = cache[layer][shared.long()]                 # [16, 2, kvh, 64, hd]
-    kv = kv.permute(1, 2, 0, 3, 4).reshape(2, 1, KVH, S, HD)
-    q_h = q.reshape(R, KVH, NQ // KVH, HD).permute(1, 0, 2, 3).reshape(
-        1, KVH, -1, HD).contiguous()
-    k_d, v_d = kv[0].contiguous(), kv[1].contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q_h, k_d, v_d, scale=scale)
-    lib_ms = cuda_ms(sdpa, 200)
-    lib_dev_ms = device_ms(sdpa, 50)
-    nbytes = (item * (R * NQ * HD + 2 * KVH * S * HD)
-              + 4 * (R * NQ * HD + 2 * R * NQ))
-    b_ms, b_by = bound_ms(nbytes, 4.0 * R * NQ * HD * S, dtype_name)
-    spa_res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, device_ms=spa_dev_ms,
-                   host_ms=spa_host, library_device_ms=lib_dev_ms)
     p = spa_plans[S]
     how = (f"tensor cores, {p.splits} splits of {p.tiles_per_split} tiles"
            if p.tensor_cores else "CUDA cores")
-    log(f"# phase 2: shared_prefix_attention {dtype_name} (R {R}, nq {NQ}, "
-        f"kvh {KVH}, S {S}; {how}): max error {err:.3g} (tol "
-        f"{TOL[dtype_name]}, S {', '.join(map(str, spa_plans))}); kernel "
-        f"{ms:.4f} ms (device {spa_dev_ms:.4f} ms, host {spa_host:.4f} ms a "
-        f"call), plain {plain_ms:.4f} ms, sdpa (normalized output) "
-        f"{lib_ms:.4f} ms (device {lib_dev_ms:.4f} ms), bound {b_ms:.4f} ms "
-        f"({b_by})")
+    spa_res = dict(max_abs_err=err)
+    if timed:
+        ms = cuda_ms(spa, 200)
+        spa_dev_ms = device_ms(spa, 50)
+        spa_host = host_ms(spa)
+        plain_ms = cuda_ms(lambda: ref_shared_prefix_attention(
+            q, cache[layer], shared, S, scale), 5)
+        # Library yardstick: one SDPA over the gathered shared K/V (in q's
+        # dtype) with every request's query rows of a KV head as one
+        # sequence, no mask. It returns the normalized output, not (acc, m,
+        # l).
+        kvs = cache[layer][shared.long()]            # [16, 2, kvh, 64, hd]
+        kvs = kvs.permute(1, 2, 0, 3, 4).reshape(2, 1, KVH, S, HD)
+        q_h = q.reshape(R, KVH, NQ // KVH, HD).permute(1, 0, 2, 3).reshape(
+            1, KVH, -1, HD).contiguous()
+        k_d, v_d = kvs[0].to(dtype).contiguous(), kvs[1].to(dtype).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q_h, k_d, v_d, scale=scale)
+        lib_ms = cuda_ms(sdpa, 200)
+        lib_dev_ms = device_ms(sdpa, 50)
+        nbytes = (item * R * NQ * HD + kvd.itemsize * 2 * KVH * S * HD
+                  + 4 * (R * NQ * HD + 2 * R * NQ))
+        b_ms, b_by = bound_ms(nbytes, 4.0 * R * NQ * HD * S, dtype_name)
+        spa_res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                       device_ms=spa_dev_ms, host_ms=spa_host,
+                       library_device_ms=lib_dev_ms)
+        del kvs, k_d, v_d
+    log(f"# phase 2: shared_prefix_attention {dtype_name}{kv_label(kv)} (R "
+        f"{R}, nq {NQ}, kvh {KVH}, S {S}; {how}): max error {err:.3g} (tol "
+        f"{TOL[dtype_name]}, S {', '.join(map(str, spa_plans))})" + (
+            f"; kernel {spa_res['ms']:.4f} ms (device "
+            f"{spa_res['device_ms']:.4f} ms, host {spa_res['host_ms']:.4f} "
+            f"ms a call), plain {spa_res['plain_ms']:.4f} ms, sdpa "
+            f"(normalized output) {spa_res['library_ms']:.4f} ms (device "
+            f"{spa_res['library_device_ms']:.4f} ms), bound "
+            f"{spa_res['bound_ms']:.4f} ms ({spa_res['bound_by']})"
+            if timed else ""))
 
     # The runner's plans: one from the cascade's state, one over the whole
     # context.
     plans = [window_plan(dtype, R, NQ, KVH, HD, q.device, plen, Kw - 1,
-                         shared_len=s_len) for s_len in (0, S)]
+                         shared_len=s_len, kv_dtype=kvd) for s_len in (0, S)]
     win = lambda step, init=None: window_decode_attention(  # noqa: E731
         q, cache, tail_k, tail_v, layer, step, pl, bt, scale,
         cascade_init=init, shared_len=S if init is not None else 0,
@@ -1199,11 +1522,17 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
         limit = scaled_tol(dtype_name, ref)
         if not (max(e, e_full) <= limit and torch.isfinite(out).all()):
             raise AssertionError(f"window kernel with the cascade init "
-                                 f"{dtype_name} step {step}: max_abs_err "
-                                 f"{e} vs plain, {e_full} vs the kernel over "
-                                 f"the whole context > {limit:.3g} (TOL "
-                                 f"scaled to the output)")
+                                 f"{dtype_name}{kv_label(kv)} step {step}: "
+                                 f"max_abs_err {e} vs plain, {e_full} vs the "
+                                 f"kernel over the whole context > "
+                                 f"{limit:.3g} (TOL scaled to the output)")
         err = max(err, e)
+    if not timed:
+        log(f"# phase 2: window_decode_attention with the cascade init "
+            f"{dtype_name}{kv_label(kv)}: max_abs_err {err:.3g} (tol "
+            f"{TOL[dtype_name]} x min(1, max|ref|))")
+        del cache
+        return spa_res, dict(max_abs_err=err)
     step = 24
     init = spa()
     ms = cuda_ms(lambda: win(step, init), 50)
@@ -1216,25 +1545,26 @@ def check_cascade(gen, dtype_name: str) -> tuple[dict, dict]:
     # Library yardstick: SDPA over the whole context, gathered dense with a
     # mask (the same output as the cascade's).
     k_p, v_p = dense_kv(cache[layer], bt, [plen] * R, plen)
-    k_d = torch.cat([k_p, tail_k[layer]], dim=2)
-    v_d = torch.cat([v_p, tail_v[layer]], dim=2)
+    k_d = torch.cat([k_p.to(dtype), tail_k[layer].to(dtype)], dim=2)
+    v_d = torch.cat([v_p.to(dtype), tail_v[layer].to(dtype)], dim=2)
     j = torch.arange(plen + Kw, device="cuda")
     mask = ((j < plen) | ((j - plen) <= step))[None, None, None, :]
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], k_d, v_d, attn_mask=mask, scale=scale,
         enable_gqa=True), 50)
     vis = R * (plen - S + step + 1)   # K/V rows past the prefix
-    nbytes = (item * (2 * R * NQ * HD + 2 * KVH * HD * vis)
+    nbytes = (item * 2 * R * NQ * HD + kvd.itemsize * 2 * KVH * HD * vis
               + 4 * (R * NQ * HD + 2 * R * NQ))
     b_ms, b_by = bound_ms(nbytes, 4.0 * NQ * HD * vis, dtype_name)
     log(f"# phase 2: window_decode_attention with the cascade init "
-        f"{dtype_name} (R {R}, paged 1152, S {S}, step {step}): max_abs_err "
+        f"{dtype_name}{kv_label(kv)} (R {R}, paged 1152, S {S}, step "
+        f"{step}): max_abs_err "
         f"{err:.3g} (tol {TOL[dtype_name]} x min(1, max|ref|)); kernel "
         f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}); cascade (pass + window) {both_ms:.4f} ms vs the window "
         f"kernel over the whole context {full_ms:.4f} ms")
-    del cache, k_d, v_d, kv
+    del cache, k_d, v_d
     return spa_res, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          device_ms=dev_ms)
@@ -1780,20 +2110,24 @@ def main_path_moe() -> dict:
 
 
 def serve_bytes(phase: str, name: str, hf: dict, quantization: str,
-                kernel: str) -> dict:
-    """A byte layout's path at full width and depth (phases 15 and 16):
+                kernel: str, more_exact: dict | None = None,
+                **llm_kw) -> dict:
+    """A byte layout's path at full width and depth (phases 15, 16 and 18):
     phase 6's settings, traffic and runs with ``quantization`` on seeded
     dummy weights. Every decode GEMM is that layout's: ``kernel`` exactly 4
-    x layers x 63 times a run, the other quantized GEMMs never."""
+    x layers x 63 times a run, the other quantized GEMMs never (and the
+    kernels of ``more_exact`` exactly so many times)."""
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     layers, steps = hf["num_hidden_layers"], 63
     exact = {k: 0 for k in qm.KERNELS}
     exact[kernel] = 4 * layers * steps
+    exact.update(more_exact or {})
     log(f"# {phase}: launches a run, reckoned: {exact} (4 GEMMs x {layers} "
         f"layers x {steps} window steps)")
     return serve_workload(phase, name, hf, {**qm.KERNELS,
                                             **attention_kernels()},
-                          exact=exact, quantization=quantization)[0]
+                          exact=exact, quantization=quantization,
+                          **llm_kw)[0]
 
 
 def main_path_w8() -> dict:
@@ -1945,12 +2279,14 @@ def redraw_gemma(model, seed: int) -> None:
             p.copy_(new.to(p.dtype))
 
 
-def gemma_parity() -> int:
+def gemma_parity(kv: str = "auto", archs=tuple(GEMMA_TINY)) -> int:
     """fp32 greedy tokens through the port on the card and on the CPU with
     the same weights for a tiny Gemma-2 and Gemma-3: a 16-token sliding
     window, attention and final soft caps, prompts past the window, 16-step
-    decode windows on the decode kernel. Returns the decode kernel's
-    launches on the card runs."""
+    decode windows on the decode kernel. ``kv``: the KV cache's dtype
+    (phase 17 runs Gemma-2 on "fp8_e4m3", its tokens compared by
+    ``same_tokens``). Returns the decode kernel's launches on the card
+    runs."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
@@ -1963,7 +2299,9 @@ def gemma_parity() -> int:
     params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
               for n in (24, 9, 30, 17, 24)]
     total = 0
-    for arch, geom in GEMMA_TINY.items():
+    phase = "phase 11" if kv == "auto" else "phase 17"
+    for arch in archs:
+        geom = GEMMA_TINY[arch]
         cfg = dict(vocab_size=256, hidden_size=64, num_hidden_layers=3,
                    intermediate_size=128, sliding_window=16,
                    query_pre_attn_scalar=24, attn_logit_softcapping=50.0,
@@ -1972,29 +2310,35 @@ def gemma_parity() -> int:
         kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
                   block_size=16, num_kv_blocks=128, max_num_seqs=4,
                   max_num_batched_tokens=32, max_model_len=256,
-                  decode_window=16)
+                  decode_window=16, kv_cache_dtype=kv)
         cpu = LLM("tiny-gemma", device="cpu", **kw)
         redraw_gemma(cpu.engine.core.worker.model, 6)
         gpu = LLM("tiny-gemma", device="cuda", **kw)
         state = {k: v.numpy() for k, v in
                  cpu.engine.core.worker.model.state_dict().items()}
         gpu.engine.core.worker.load_params(state)
-        a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+        a = traced(cpu, prompts, params)
         decode_paged_attention.launches = 0
-        b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
-        if a != b:
+        b = traced(gpu, prompts, params)
+        launches = decode_paged_attention.launches
+        found = []
+        if kv != "auto":
+            found = same_tokens(f"{phase} {arch} {kv}", cpu, gpu, prompts,
+                                a, b)
+        elif a[0] != b[0]:
             raise AssertionError(f"{arch}: cuda vs cpu greedy tokens "
-                                 f"differ:\n{a}\n{b}")
-        if decode_paged_attention.launches <= 0:
+                                 f"differ:\n{a[0]}\n{b[0]}")
+        if launches <= 0:
             raise AssertionError(f"{arch}: decode_paged_attention was not "
                                  "launched")
-        if len({t for x in a for t in x}) <= 10:
-            raise AssertionError(f"{arch}: the tokens hardly vary: {a}")
-        total += decode_paged_attention.launches
-        log(f"# phase 11: {arch}: cuda == cpu greedy tokens for "
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"{arch}: the tokens hardly vary: {a[0]}")
+        total += launches
+        log(f"# {phase}: {arch}: cuda == cpu greedy tokens for "
             f"{len(prompts)} prompts (window 16, soft caps, 16-step decode "
-            f"windows); decode_paged_attention launches "
-            f"{decode_paged_attention.launches}")
+            f"windows, {kv} cache"
+            + (f", partings {found}" if found else "")
+            + f"); decode_paged_attention launches {launches}")
         del cpu, gpu
     return total
 
@@ -2018,13 +2362,15 @@ def main_path_gemma() -> dict:
                "window_decode_attention": 0})[0]
 
 
-def int4_cascade_parity() -> int:
+def int4_cascade_parity(kv: str = "auto"):
     """fp32 greedy tokens through the port on the card and on the CPU with
     the same weights: a one-layer Llama at K = 2048 (every W4 leaf packs
     under gptq's group of 128), realized to native int4, 72 prompts sharing
     a 100-token prefix on 16-token pages (decode M = 72, 6 shared pages).
-    On the card, the tokens again with the cascade turned off. Returns the
-    int4 kernel's launches on the first card run."""
+    On the card, the tokens again with the cascade turned off. ``kv``: the
+    KV cache's dtype (phase 17 runs "fp8_e4m3", its tokens compared by
+    ``same_tokens``). Returns the int4 kernel's launches on the first card
+    run (phase 17: the int4 kernel's and the shared pass's)."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.loader.weights import realize_int4_leaves
@@ -2040,7 +2386,8 @@ def int4_cascade_parity() -> int:
     kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
               quantization="gptq", block_size=16, num_kv_blocks=1024,
               max_num_seqs=80, max_num_batched_tokens=2048,
-              max_model_len=256)
+              max_model_len=256, kv_cache_dtype=kv)
+    phase = "phase 13" if kv == "auto" else "phase 17"
     rng = np.random.RandomState(7)
     shared = rng.randint(1, 500, size=100).tolist()
     prompts = [shared + rng.randint(1, 500, size=1 + i % 9).tolist()
@@ -2050,10 +2397,9 @@ def int4_cascade_parity() -> int:
     realize_int4_leaves(cpu.engine.core.worker.model)
     gpu = LLM("tiny-int4", device="cuda", **kw)
     realize_int4_leaves(gpu.engine.core.worker.model)
-    state = {k: v.numpy() for k, v in
-             cpu.engine.core.worker.model.state_dict().items()}
-    gpu.engine.core.worker.load_params(state)
-    a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+    gpu.engine.core.worker.load_params(
+        cpu.engine.core.worker.model.state_dict())
+    a = traced(cpu, prompts, params)
     runner = gpu.engine.core.worker.runner
     detect = runner._detect_shared_prefix
     found = []
@@ -2061,30 +2407,213 @@ def int4_cascade_parity() -> int:
         found[-1]
     qm.w4a16_int4_matmul.launches = 0
     shared_prefix_attention.launches = 0
-    b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+    b = traced(gpu, prompts, params)
     launches = qm.w4a16_int4_matmul.launches
     passes = shared_prefix_attention.launches
     runner._detect_shared_prefix = lambda *x: None
     gpu.engine.reset_prefix_cache()
     shared_prefix_attention.launches = 0
-    c = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
-    if a != b:
+    c = traced(gpu, prompts, params)
+    off_passes = shared_prefix_attention.launches
+    parted = []
+    if kv != "auto":
+        parted = same_tokens(f"{phase} int4 + cascade {kv}", cpu, gpu,
+                             prompts, a, b)
+        parted += same_tokens(f"{phase} int4 cascade off {kv}", cpu, gpu,
+                              prompts, a, c)
+    elif a[0] != b[0]:
         raise AssertionError(f"int4 + cascade: cuda vs cpu greedy tokens "
-                             f"differ:\n{a}\n{b}")
-    if b != c or shared_prefix_attention.launches:
+                             f"differ:\n{a[0]}\n{b[0]}")
+    if (kv == "auto" and b[0] != c[0]) or off_passes:
         raise AssertionError(f"cuda tokens with the cascade differ from "
-                             f"those without it:\n{b}\n{c}")
+                             f"those without it:\n{b[0]}\n{c[0]}")
     if launches <= 0 or passes <= 0 or not any(found):
         raise AssertionError(f"int4 launches {launches}, shared-prefix "
                              f"passes {passes}, shared prefixes {found}")
-    if len({t for x in a for t in x}) <= 10:
-        raise AssertionError(f"the tokens hardly vary: {a}")
-    log(f"# phase 13: cuda == cpu greedy tokens for {len(prompts)} prompts "
-        f"x 12 (int4, decode M = 72, shared prefix {found[-1][1]} tokens), "
-        f"and == cuda with the cascade off; w4a16_int4_matmul launches "
-        f"{launches}, shared_prefix_attention launches {passes}")
+    if len({t for x in a[0] for t in x}) <= 10:
+        raise AssertionError(f"the tokens hardly vary: {a[0]}")
+    log(f"# {phase}: cuda == cpu greedy tokens for {len(prompts)} prompts "
+        f"x 12 (int4, decode M = 72, shared prefix {found[-1][1]} tokens, "
+        f"{kv} cache" + (f", partings {parted}" if parted else "")
+        + "), and == "
+        f"cuda with the cascade off; w4a16_int4_matmul launches {launches}, "
+        f"shared_prefix_attention launches {passes}")
     del cpu, gpu
+    if kv != "auto":
+        return {"w4a16_int4_matmul": launches,
+                "shared_prefix_attention": passes}
     return launches
+
+
+# Phase 17: (quantization, kv_cache_dtype) of the fp32 parity runs at
+# Qwen2.5-1.5B widths, and the bound on the card's and the CPU's
+# disagreement where their greedy runs part (``same_tokens``): W8A8 and an
+# fp8 cache round activations or K/V to 8 bits, so two runs whose fp32
+# products differ in the last bit may pick either of two tokens whose
+# logprobs are close; GAP bounds how far the two engines' logprob
+# differences of those two tokens may lie apart.
+FP8_PARITY = (("fp8", "fp8_e4m3"), ("fp8_w8a8", "fp8_e5m2"), ("int8", "auto"))
+GAP = 5e-2
+
+
+def traced(llm, prompts: list, params) -> tuple:
+    """``llm``'s greedy tokens for ``prompts`` (``params``: one
+    SamplingParams or one a prompt) and, for each request, the log-softmax
+    rows its tokens were picked from: the runner's ``greedy_sample`` is
+    wrapped and its rows matched to requests by each step's output (row r
+    of a step's k-th sample is request ``req_ids[r]``'s k-th token)."""
+    import aphrodite_tpu_torch.worker.runner as runner_mod
+    runner, sample = llm.engine.core.worker.runner, runner_mod.greedy_sample
+    execute = runner.execute_model
+    seen, rows = [], {}
+
+    def spy(logits):
+        seen.append(logits.float().log_softmax(-1).cpu())
+        return sample(logits)
+
+    def step(so):
+        seen.clear()
+        out = execute(so)
+        for r, (rid, toks) in enumerate(zip(out.req_ids,
+                                            out.sampled_token_ids)):
+            rows.setdefault(rid, []).extend(seen[k][r]
+                                            for k in range(len(toks)))
+        return out
+    runner_mod.greedy_sample, runner.execute_model = spy, step
+    try:
+        outs = llm.generate(prompts, params)
+    finally:
+        runner_mod.greedy_sample = sample
+        del runner.execute_model
+    return ([o.outputs[0].token_ids for o in outs],
+            [rows[o.request_id] for o in outs])
+
+
+def partings(cpu, other, prompts: list, a: tuple, b: tuple) -> list:
+    """Where ``other``'s greedy run ``b`` parts from the CPU's ``a`` (each
+    ``traced``: tokens and rows). At a request's first differing step i
+    both picked from the same tokens before i; the gap there is the CPU's
+    logprob margin of its token over the other's plus the other's margin
+    of its own over the CPU's: how far the two engines' logprob
+    differences of the two tokens lie apart. Both then go on from the
+    prompt and the CPU's tokens through i (a new run each, one request
+    alone), compared the same way, so that every later token is compared
+    too. Returns (request, step, cpu token, other token, gap) for each."""
+    from aphrodite_tpu_torch import SamplingParams
+    found = []
+    for r, prompt in enumerate(prompts):
+        base, done = prompt, 0
+        (want, lw), (got, lg) = (a[0][r], a[1][r]), (b[0][r], b[1][r])
+        n = len(want)
+        while True:
+            i = next((i for i in range(len(want)) if want[i] != got[i]),
+                     None)
+            if i is None:
+                break
+            w, g = want[i], got[i]
+            gap = (lw[i][w] - lw[i][g] + lg[i][g] - lg[i][w]).item()
+            found.append((r, done + i, w, g, round(gap, 5)))
+            base, done = base + want[:i + 1], done + i + 1
+            if done == n:
+                break
+            params = SamplingParams(temperature=0.0, max_tokens=n - done,
+                                    ignore_eos=True)
+            (want,), (lw,) = traced(cpu, [base], params)
+            (got,), (lg,) = traced(other, [base], params)
+    return found
+
+
+def same_tokens(what: str, cpu, gpu, prompts: list, a: tuple,
+                b: tuple) -> list:
+    """The card's greedy run ``b`` against the CPU's ``a`` (``traced``)
+    where 8-bit activations or K/V make a run's tokens depend on its
+    products' last bits: every parting's gap (``partings``) must be below
+    GAP, and at most a tenth of the tokens may part. Returns the
+    partings."""
+    found = partings(cpu, gpu, prompts, a, b)
+    wide = [p for p in found if not p[-1] < GAP]
+    if wide or len(found) > sum(map(len, a[0])) // 10:
+        raise AssertionError(
+            f"{what}: partings (request, step, cpu token, card token, gap) "
+            f"{found}; gaps >= {GAP}: {wide}; at most "
+            f"{sum(map(len, a[0])) // 10} may part:\n{a[0]}\n{b[0]}")
+    return found
+
+
+def fp8_parity() -> dict:
+    """Phase 17: fp32 greedy tokens through the port on the card and on the
+    CPU with the same weights (``same_tokens``): a 2-layer Qwen2.5-1.5B
+    (phase 5's widths) for each of ``FP8_PARITY``, a tiny Gemma-2 on an
+    e4m3 cache (the decode kernel's fp8 instance; phase 11's model) and the
+    int4 + cascade layer on an e4m3 cache (the shared pass's; phase 13's
+    model). Returns each kernel's launches on the card runs, keyed by
+    (kernel, run)."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 150000, size=n).tolist()
+               for n in (7, 150, 64, 90, 33)]
+    params = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    kernels = {**qm.KERNELS, **attention_kernels()}
+    launches = {}
+    for quant, kv in FP8_PARITY:
+        kw = dict(hf_config=QWEN_2L, tokenizer="unused", dtype="float32",
+                  quantization=quant, kv_cache_dtype=kv, block_size=64,
+                  num_kv_blocks=64, max_num_seqs=4, max_num_batched_tokens=96,
+                  max_model_len=512)
+        cpu = LLM("qwen-2l", device="cpu", **kw)
+        gpu = LLM("qwen-2l", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        a = traced(cpu, prompts, params)
+        for fn in kernels.values():
+            fn.launches = 0
+        b = traced(gpu, prompts, params)
+        run = f"{quant}/{kv}"
+        got = {k: fn.launches for k, fn in kernels.items()}
+        for k, n in got.items():
+            launches[(k, run)] = n
+        found = same_tokens(f"phase 17 {run}", cpu, gpu, prompts, a, b)
+        # The yardstick: the CPU against itself at another batch
+        # composition, each prompt alone.
+        cpu.engine.reset_prefix_cache()
+        solo = [traced(cpu, [p], params) for p in prompts]
+        noise = partings(cpu, cpu, prompts, a, ([t[0] for t, _ in solo],
+                                                [r[0] for _, r in solo]))
+        want = {"fp8_matmul"} if quant.startswith("fp8") else set()
+        if any(got[k] <= 0 for k in want | set(attention_kernels())) or any(
+                got[k] for k in qm.KERNELS if k not in want):
+            raise AssertionError(f"phase 17 {run}: launches {got}")
+        log(f"# phase 17: {run}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts x 24 but at partings (request, step, "
+            f"cpu token, card token, gap < {GAP}) {found}; the cpu "
+            f"against itself, each prompt alone: {len(noise)} partings "
+            f"{noise}; launches {got}")
+        del cpu, gpu
+    launches[("decode_paged_attention", "gemma2/fp8_e4m3")] = gemma_parity(
+        "fp8_e4m3", archs=("Gemma2ForCausalLM",))
+    launches.update({(k, "int4-cascade/fp8_e4m3"): v for k, v in
+                     int4_cascade_parity("fp8_e4m3").items()})
+    return launches
+
+
+def main_path_fp8() -> dict:
+    """Phase 18: BASELINE config 3 (``benchmarks/baseline_configs.py:
+    137-140``): Llama-3.1-8B with fp8 weights (e4m3, a scale a column,
+    quantized on the fly from seeded dummy weights) and an fp8 e4m3 KV
+    cache at full width and depth, bf16, phase 6's settings, traffic and
+    runs: kFp8 exactly 4 x 32 x 63 = 8064 times a run, the other quantized
+    GEMMs never, the ragged kernel 32 and the window kernel 2016 times (on
+    the e4m3 cache and tails)."""
+    layers, steps = LLAMA31_8B["num_hidden_layers"], 63
+    return serve_bytes("phase 18", "llama-3.1-8b-fp8-dummy", LLAMA31_8B,
+                       "fp8", "fp8_matmul",
+                       {"ragged_paged_attention": layers,
+                        "window_decode_attention": layers * steps},
+                       kv_cache_dtype="fp8_e4m3")
 
 
 def main_path_int4_cascade() -> dict:
@@ -2214,14 +2743,15 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
                 bmm_spans.setdefault(e.start_thread_id(), []).append(
                     (e.start_ns(), e.end_ns()))
     fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "cascade": 0.0,
-           "quant": 0.0, "int4": 0.0, "moe": 0.0, "scan": 0.0, "gemm": 0.0,
-           "other": 0.0}
+           "quant": 0.0, "int4": 0.0, "fp8": 0.0, "moe": 0.0, "scan": 0.0,
+           "gemm": 0.0, "other": 0.0}
     for name, (ns, _) in kernels.items():
         n = name.lower()
         k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n else
              "window" if "wd_split" in n or "wd_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
+             "fp8" if "w4_wgmma_kernel<4" in n else
              "quant" if "qmm_" in n or any(f"w4_wgmma_kernel<{i}" in n
                                             for i in (1, 2, 3)) else
              "int4" if "q4_kernel" in n or "w4_wgmma_kernel<0" in n else
@@ -2452,7 +2982,8 @@ _VARIANT_LAYOUT = {"w8 sign split": "w8", "w8 nibble split": "w8"}
 VARIANT_PATHS = {"int4": [(128, LLAMA8B_GEMMS), (32, LLAMA8B_GEMMS)],
                  "packed": [(32, LLAMA8B_GEMMS)],
                  "w8": [(32, LLAMA8B_GEMMS)],
-                 "uint4": [(32, QWEN7B_GEMMS)]}
+                 "uint4": [(32, QWEN7B_GEMMS)],
+                 "fp8": [(32, LLAMA8B_GEMMS)]}
 VARIANT_RINGS = (4, 16)
 # In every variant's copy an mbarrier wait that spins past 2^26 polls
 # traps, so a variant that breaks the pipeline fails instead of hanging.
@@ -2524,7 +3055,8 @@ def w4_variants(layouts: list[str]) -> int:
             for name, (_, computes) in W4_VARIANTS.items():
                 if not (computes and applies(name, layout)):
                     continue
-                for zero_in in (None, False) if layout != "w8" else (None,):
+                for zero_in in ((None,) if layout in w4_wgmma.COL_SCALED
+                                else (None, False)):
                     y = w4_wgmma.matmul(layout, x, *args, lib=libs[name],
                                         zero_in=zero_in)
                     torch.cuda.synchronize()
@@ -2546,7 +3078,7 @@ def w4_variants(layouts: list[str]) -> int:
                 fns = {n: (lambda lib=lib: w4_wgmma.matmul(layout, x, *args,
                                                            lib=lib))
                        for n, lib in libs.items() if applies(n, layout)}
-                if layout != "w8":
+                if layout not in w4_wgmma.COL_SCALED:
                     fns["kernel, zero after the product"] = (
                         lambda: w4_wgmma.matmul(layout, x, *args,
                                                 lib=libs["kernel"],
@@ -2575,6 +3107,71 @@ def w4_variants(layouts: list[str]) -> int:
             log(f"# {layout} M={M}, a layer's 4 GEMMs, device ms: "
                 + "; ".join(f"{n} {v:.4f}" for n, v in totals.items()))
     return 0
+
+
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The script's elapsed time, logged before a phase."""
+    log(f"# {time.perf_counter() - T0:.0f} s: {what}")
+
+
+KV_FP8 = ("float8_e4m3fn", "float8_e5m2")
+# The fp8-cache instances timed (beside their bf16-cache selves at the same
+# call's shapes): the 8B path's in bf16 (phase 18), Qwen2.5-1.5B's heads in
+# fp32 (phase 17's parity runs); the rest are held for errors only.
+FP8_TIMED = {"bfloat16": "llama-3.1-8b-w4a16", "float32": "qwen2.5-1.5b-bf16"}
+
+
+def fp8_attention_checks(gen, dt: str, results: dict) -> None:
+    """Phase 2 on fp8 caches: every attention kernel at its existing
+    geometries (the paths', the mask cases, the decode cases, the cascade)
+    on e4m3 and e5m2 caches, in ``dt``, against the plain versions at the
+    same tolerances; the window's tails e4m3 beside e4m3 and bf16 beside
+    e5m2. Times as ``FP8_TIMED`` says, the decode kernel at Gemma-2-9B's
+    step and the cascade on e4m3."""
+    for kv in KV_FP8:
+        for path, geom in ATTN_GEOMS.items():
+            timed = FP8_TIMED[dt] == path
+            for name, fn in (("ragged_paged_attention", check_ragged),
+                             ("window_decode_attention", check_window)):
+                r = fn(gen, dt, geom, timed=timed, kv=kv)
+                if not timed:
+                    log(f"# phase 2: {name} {dt}, {kv} cache, at {path} "
+                        f"shapes: max_abs_err {r:.3g} (tol "
+                        f"{tol_text(name, dt)})")
+                    continue
+                log(f"# phase 2: {name} {dt}, {kv} cache, at {path} shapes: "
+                    f"max_abs_err {r['max_abs_err']:.3g} (tol "
+                    f"{tol_text(name, dt)}); kernel {r['ms']:.4f} ms (device "
+                    f"{r['device_ms']:.4f} ms), its {dt}-cache self "
+                    f"{results[(name, path, dt)]['ms']:.4f} ms (device "
+                    f"{results[(name, path, dt)]['device_ms']:.4f} ms), "
+                    f"plain {r['plain_ms']:.4f} ms, sdpa on K/V upcast to "
+                    f"{dt} {r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f} ms), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}, K/V at "
+                    f"{1} byte)")
+                results[(name, path, dt, kv)] = r
+        for cases, fn, name in (
+                (RAGGED_MASK_CASES, check_ragged, "ragged_paged_attention"),
+                (WINDOW_MASK_CASES, check_window,
+                 "window_decode_attention")):
+            for case, geom in cases.items():
+                err = fn(gen, dt, geom, timed=False, kv=kv)
+                log(f"# phase 2: {name} {dt}, {kv} cache, {case}: "
+                    f"max_abs_err {err:.3g} (tol {tol_text(name, dt)})")
+        for case in DECODE_CASES:
+            timed = case == "gemma-2-9b" and kv == KV_FP8[0]
+            r = check_decode(gen, dt, case, kv=kv, timed=timed)
+            if timed:
+                results[("decode_paged_attention", case, dt, kv)] = r
+            else:
+                log(f"# phase 2: decode_paged_attention {case} {dt}, {kv} "
+                    f"cache: max_abs_err {r['max_abs_err']:.3g}")
+        spa, _ = check_cascade(gen, dt, kv=kv, timed=kv == KV_FP8[0])
+        results[("shared_prefix_attention", dt, kv)] = spa
 
 
 def main() -> int:
@@ -2687,6 +3284,30 @@ def main() -> int:
             f"{r['dense_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
         results[("grouped_matmul", dt)] = r
+        fp8_attention_checks(gen, dt, results)
+        shapes = LLAMA8B_GEMMS if dt == "bfloat16" else QWEN_GEMMS
+        model = "Llama-3.1-8B" if dt == "bfloat16" else "Qwen2.5-1.5B"
+        r = check_fp8(gen, dt, shapes)
+        log(f"# phase 2: fp8_matmul {dt} (kFp8 in bf16, qmm_kernel's e4m3 "
+            f"case in fp32), a {model} layer's 4 GEMMs at M=32: max_abs_err "
+            f"{r['max_abs_err']:.3g} (tol {TOL[dt]}, M 1-200 and the row "
+            f"scales too); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms a layer), "
+            f"with row scales {r['rs_ms']:.4f} ms (device "
+            f"{r['rs_device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"torch._scaled_mm (row-wise, e4m3 x) "
+            + (f"{r['scaled_mm_ms']:.4f} ms (device "
+               f"{r['scaled_mm_device_ms']:.4f} ms)"
+               if r['scaled_mm_ms'] is not None else "unavailable")
+            + f", dense {dt} matmul (library_ms) {r['dense_ms']:.4f} ms "
+            f"(device {r['dense_device_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        results[("fp8_matmul", dt)] = r
+    log(f"# phase 2: w4_wgmma fp8 (kFp8) at {len(FP8_CASES)} cases, with "
+        f"and without row scales: max_abs_err {check_fp8_layout(gen):.3g} "
+        f"(tol {TOL['bfloat16']}), two launches bit-equal")
+    log(f"# phase 2: {check_fp8_bytes()}")
+    log(f"# phase 2: {check_int_mm()}")
     r = check_scan(gen)
     log(f"# phase 2: selective_scan fp32 at the Mamba-2.8B wave (T=4096, "
         f"C={SCAN_COLUMNS}): max_abs_err {r['max_abs_err']:.3g} (must be "
@@ -2709,6 +3330,11 @@ def main() -> int:
     cascade_counts = main_path_int4_cascade()
     w8_counts = main_path_w8()
     qwen7b_counts = main_path_qwen7b_gptq()
+    stamp("phase 17")
+    fp8_parity_launches = fp8_parity()
+    stamp("phase 18")
+    fp8_counts = main_path_fp8()
+    stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
     # times and errors at its shapes and activation dtype.
@@ -2779,15 +3405,48 @@ def main() -> int:
                 "w4a16_int4_matmul":
                 "aphrodite_tpu/ops/quant_matmul_pallas.py:290",
                 **{n: r for n, (r, _) in QUANT_KERNELS.items()}}
+    rows = [(*row, "auto") for row in rows]
+    # The slice's kernels: kFp8 (phase 18, and qmm_kernel's e4m3 case in
+    # phase 17's fp32 runs) and the fp8-cache instances of the attention
+    # kernels on the paths that run them.
+    fp8_path, e4, e5 = "llama-3.1-8b-fp8", "float8_e4m3fn", "float8_e5m2"
+    rows.append(("fp8_matmul", fp8_path, "bfloat16",
+                 fp8_counts["fp8_matmul"], results[("fp8_matmul",
+                                                    "bfloat16")], "auto"))
+    rows += [(name, fp8_path, "bfloat16", fp8_counts[name],
+              results[(name, "llama-3.1-8b-w4a16", "bfloat16", e4)], e4)
+             for name in ("ragged_paged_attention", "window_decode_attention")]
+    rows.append(("fp8_matmul", "qwen-2l-fp8-parity-fp32", "float32",
+                 sum(fp8_parity_launches[("fp8_matmul", f"{q}/{k}")]
+                     for q, k in FP8_PARITY), results[("fp8_matmul",
+                                                       "float32")], "auto"))
+    for q, k in FP8_PARITY[:2]:
+        kv = e4 if k == "fp8_e4m3" else e5
+        rows += [(name, f"qwen-2l-{q}-{k}-parity-fp32", "float32",
+                  fp8_parity_launches[(name, f"{q}/{k}")],
+                  results[(name, "qwen2.5-1.5b-bf16", "float32", kv)], kv)
+                 for name in ("ragged_paged_attention",
+                              "window_decode_attention")]
+    rows.append(("decode_paged_attention", "gemma2-tiny-fp8-parity-fp32",
+                 "float32", fp8_parity_launches[("decode_paged_attention",
+                                                 "gemma2/fp8_e4m3")],
+                 results[("decode_paged_attention", "gemma-2-9b", "float32",
+                          e4)], e4))
+    rows.append(("shared_prefix_attention", "int4-cascade-fp8-parity-fp32",
+                 "float32", fp8_parity_launches[("shared_prefix_attention",
+                                                 "int4-cascade/fp8_e4m3")],
+                 results[("shared_prefix_attention", "float32", e4)], e4))
+    replaces["fp8_matmul"] = "aphrodite_tpu/ops/quant_gemm.py:74"
     kernels = []
-    for name, path, dt, launches, r in rows:
+    for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
-               or name == "w4a16_int4_matmul" else name)
-        if name in ("w4a16_int4_matmul", "w4a16_packed_matmul",
+               or name in ("w4a16_int4_matmul", "fp8_matmul") else name)
+        if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
                     *BYTE_PATHS) and dt == "bfloat16":
             src = "w4_wgmma"
         kernels.append({
-            "name": name, "path": path, "dtype": dt, "route": "cuda",
+            "name": name, "path": path, "dtype": dt, "kv_cache": kv,
+            "route": "cuda",
             "source": f"aphrodite_tpu_torch/csrc/{src}.cu",
             "replaces": replaces[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

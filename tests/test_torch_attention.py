@@ -183,11 +183,12 @@ def test_unported_kernel_options_raise():
     c = _ragged_case([(8, 8)])
     with pytest.raises(NotImplementedError):
         _port_ragged(c, alibi=torch.ones(NQ))
-    with pytest.raises(NotImplementedError):  # an fp8 cache
-        window_decode_attention(
+    with pytest.raises(NotImplementedError):  # a cache of neither q's dtype
+        window_decode_attention(                # nor fp8 (fp8 is ported)
             torch.zeros(1, NQ, 64),
-            torch.zeros(L, 2, 2, KVH, PAGE, 64, dtype=torch.float8_e4m3fn),
-            torch.zeros(L, 1, KVH, 4, 64), torch.zeros(L, 1, KVH, 4, 64), 0,
+            torch.zeros(L, 2, 2, KVH, PAGE, 64, dtype=torch.bfloat16),
+            torch.zeros(L, 1, KVH, 4, 64, dtype=torch.bfloat16),
+            torch.zeros(L, 1, KVH, 4, 64, dtype=torch.bfloat16), 0,
             0, torch.ones(1, dtype=torch.int32),
             torch.ones(1, 1, dtype=torch.int32), 0.1)
 

@@ -169,8 +169,9 @@ def test_apply_linear_formats():
                               "zeros": T(z)}, T(b), fmt="w4a16")
     np.testing.assert_allclose(got.numpy(), x @ _dense(q, s, z) + b,
                                rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        apply_linear(T(x), {"qweight": T(q), "scales": T(s[0])}, fmt="fp8")
+    with pytest.raises(NotImplementedError):  # fpx (fp8 is ported now)
+        apply_linear(T(x), {"qweight": T(q), "scales": T(s[0])},
+                     fmt="fpx_e3m2")
 
 
 # ------------------------------------------------ quantizer and packing
@@ -212,8 +213,9 @@ def test_pack_unpack_round_trip():
 
 
 def test_unported_quantization_raises():
-    with pytest.raises(NotImplementedError):
-        QuantizationConfig.from_name("fp8")
+    for name in ("fp6", "deepspeedfp"):  # fpx (fp8 and int8 are ported now)
+        with pytest.raises(NotImplementedError):
+            QuantizationConfig.from_name(name)
     from aphrodite_tpu_torch.config import ModelConfig
     from aphrodite_tpu_torch.quantization.base import get_quantization_config
     geo = dict(vocab_size=64, hidden_size=32, num_hidden_layers=1,
