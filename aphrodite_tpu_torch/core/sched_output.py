@@ -53,3 +53,6 @@ class ModelRunnerOutput:
     sampled_token_ids: list[list[int]]
     # Per request per sampled token: {token_id: logprob} dicts (optional).
     logprobs: Optional[list[Optional[list[dict[int, float]]]]] = None
+    # Request id -> its prompt logprobs ([None, {token: logprob}, ...]),
+    # for the requests that asked and sampled in this step.
+    prompt_logprobs: Optional[dict[str, list]] = None

@@ -28,10 +28,12 @@ class EngineCoreOutput:
     """Per-request result of one engine step (token deltas + finish state)."""
 
     __slots__ = ("req_id", "new_token_ids", "finished", "finish_reason",
-                 "stop_reason", "logprobs", "num_cached_tokens")
+                 "stop_reason", "logprobs", "num_cached_tokens",
+                 "prompt_logprobs")
 
     def __init__(self, req_id, new_token_ids, finished, finish_reason=None,
-                 stop_reason=None, logprobs=None, num_cached_tokens=0):
+                 stop_reason=None, logprobs=None, num_cached_tokens=0,
+                 prompt_logprobs=None):
         self.req_id = req_id
         self.new_token_ids = new_token_ids
         self.finished = finished
@@ -39,6 +41,7 @@ class EngineCoreOutput:
         self.stop_reason = stop_reason
         self.logprobs = logprobs
         self.num_cached_tokens = num_cached_tokens
+        self.prompt_logprobs = prompt_logprobs
 
 
 class Scheduler:
@@ -75,6 +78,23 @@ class Scheduler:
             return
         self.requests[request.request_id] = request
         self.waiting.append(request)
+
+    def finish_requests(self, request_ids, status: RequestStatus =
+                        RequestStatus.FINISHED_ABORTED) -> None:
+        """Finish (by default abort) the named requests, waiting or
+        running; unknown or finished ones are skipped."""
+        for rid in request_ids:
+            req = self.requests.get(rid)
+            if req is None or req.is_finished:
+                continue
+            req.status = status
+            if req in self.running:
+                self._free_request(req)
+                continue
+            self.waiting.remove(req)
+            self.kv.free(req)
+            self._finished_req_ids.add(rid)
+            del self.requests[rid]
 
     def _free_request(self, request: Request) -> None:
         self.kv.free(request)
@@ -217,7 +237,9 @@ class Scheduler:
                     finish_reason=req.get_finish_reason(),
                     stop_reason=req.stop_reason,
                     logprobs=lp,
-                    num_cached_tokens=req.num_cached_tokens))
+                    num_cached_tokens=req.num_cached_tokens,
+                    prompt_logprobs=(runner_out.prompt_logprobs or {}).get(
+                        rid)))
         return outputs
 
     def _append_and_check_stop(self, req: Request,

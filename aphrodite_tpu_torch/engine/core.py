@@ -19,6 +19,9 @@ class EngineCore:
             config.scheduler_config, config.cache_config,
             num_lookahead_tokens=lookahead)
 
+    def abort_requests(self, request_ids: list[str]) -> None:
+        self.scheduler.finish_requests(request_ids)
+
     def reset_prefix_cache(self) -> bool:
         return self.scheduler.kv.reset_prefix_cache()
 

@@ -1,7 +1,11 @@
-"""Output processing: EngineCoreOutput -> RequestOutput deltas.
+"""Output processing: EngineCoreOutput -> RequestOutput deltas, and the
+aggregation of ``n > 1`` children under their parent's id (the JAX
+package's ``engine/output_processor.py`` without detokenization and stop
+strings, which wait for the tokenizer).
 
-Without a tokenizer there is no text: outputs carry token ids (and the
-chosen tokens' logprobs when asked for).
+Without a tokenizer there is no text: outputs carry token ids, their
+logprobs (the chosen token's and the top ``logprobs``) and the prompt
+logprobs when asked for.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from aphrodite_tpu_torch.outputs import (CompletionOutput, Logprob,
 class RequestOutputState:
     request_id: str
     prompt_token_ids: list[int]
+    parent_id: Optional[str] = None  # for n > 1 fan-out
+    index: int = 0
     logprobs: Optional[list[dict]] = None
     cumulative_logprob: Optional[float] = None
 
@@ -27,12 +33,18 @@ class OutputProcessor:
     def __init__(self) -> None:
         self.states: dict[str, RequestOutputState] = {}
 
-    def add_request(self, request: Request) -> None:
+    def add_request(self, request: Request, parent_id: Optional[str] = None,
+                    index: int = 0) -> None:
         self.states[request.request_id] = RequestOutputState(
             request_id=request.request_id,
             prompt_token_ids=request.prompt_token_ids,
+            parent_id=parent_id,
+            index=index,
             logprobs=([] if request.sampling_params.logprobs is not None
                       else None))
+
+    def abort_request(self, request_id: str) -> None:
+        self.states.pop(request_id, None)
 
     def process_outputs(self, core_outputs: list[EngineCoreOutput]
                         ) -> list[RequestOutput]:
@@ -53,12 +65,18 @@ class OutputProcessor:
                 st.logprobs.extend(new_lps)
             if eco.finished:
                 self.states.pop(eco.req_id, None)
+            plp = None
+            if eco.prompt_logprobs:
+                plp = [None if d is None else
+                       {t: Logprob(logprob=v) for t, v in d.items()}
+                       for d in eco.prompt_logprobs]
             outputs.append(RequestOutput(
-                request_id=st.request_id,
+                request_id=st.parent_id or st.request_id,
                 prompt=None,
                 prompt_token_ids=st.prompt_token_ids,
+                prompt_logprobs=plp,
                 outputs=[CompletionOutput(
-                    index=0,
+                    index=st.index,
                     text="",
                     token_ids=new_tokens,
                     cumulative_logprob=st.cumulative_logprob,

@@ -9,6 +9,7 @@ from typing import Union
 
 from aphrodite_tpu_torch.config import EngineConfig
 from aphrodite_tpu_torch.core.request import Request
+from aphrodite_tpu_torch.sample.metadata import MAX_ALLOWED_TOKENS
 from aphrodite_tpu_torch.sample.sampler import check_supported
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 
@@ -20,6 +21,7 @@ class Processor:
     def __init__(self, config: EngineConfig) -> None:
         self.config = config
         self.max_model_len = config.scheduler_config.max_model_len
+        self.vocab_size = config.model_config.vocab_size
 
     def process(self, request_id: str, prompt: PromptType,
                 params: SamplingParams) -> Request:
@@ -41,5 +43,14 @@ class Processor:
         if params.max_tokens is None:
             params = params.clone()
             params.max_tokens = self.max_model_len - len(token_ids)
+        if params.allowed_token_ids is not None:
+            if not params.allowed_token_ids:
+                raise ValueError("allowed_token_ids must be non-empty")
+            if len(params.allowed_token_ids) > MAX_ALLOWED_TOKENS:
+                raise ValueError(f"allowed_token_ids supports up to "
+                                 f"{MAX_ALLOWED_TOKENS} ids")
+            if any(t < 0 or t >= self.vocab_size
+                   for t in params.allowed_token_ids):
+                raise ValueError("allowed_token_ids out of vocab range")
         return Request(request_id=request_id, prompt_token_ids=token_ids,
                        sampling_params=params)

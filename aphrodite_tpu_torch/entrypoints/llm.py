@@ -82,11 +82,29 @@ class LLM:
             rid = str(next(self._counter))
             order.append(rid)
             self.engine.add_request(rid, prompt, params)
-        done: dict[str, RequestOutput] = {}
+        # Request id -> completion index -> merged output (n > 1 children
+        # arrive under their parent's id, each with its index).
+        done: dict[str, dict[int, RequestOutput]] = {}
         while self.engine.has_unfinished_requests():
             for out in self.engine.step():
-                if out.request_id in done:
-                    done[out.request_id].add(out)
+                slot = done.setdefault(out.request_id, {})
+                idx = out.outputs[0].index
+                if idx in slot:
+                    slot[idx].add(out)
                 else:
-                    done[out.request_id] = out
-        return [done[rid] for rid in order]
+                    slot[idx] = out
+        return [_finalize(done[rid]) for rid in order]
+
+
+def _finalize(slot: dict[int, RequestOutput]) -> RequestOutput:
+    """One RequestOutput of a request's per-index outputs."""
+    first = slot[min(slot)]
+    return RequestOutput(
+        request_id=first.request_id,
+        prompt=first.prompt,
+        prompt_token_ids=first.prompt_token_ids,
+        prompt_logprobs=next((o.prompt_logprobs for o in slot.values()
+                              if o.prompt_logprobs), None),
+        outputs=[slot[i].outputs[0] for i in sorted(slot)],
+        finished=all(o.finished for o in slot.values()),
+        num_cached_tokens=first.num_cached_tokens)

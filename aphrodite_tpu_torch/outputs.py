@@ -39,16 +39,21 @@ class RequestOutput:
     prompt_token_ids: list[int]
     outputs: list[CompletionOutput]
     finished: bool
+    prompt_logprobs: Optional[list[Optional[LogprobsDict]]] = None
     num_cached_tokens: int = 0
 
     def add(self, other: "RequestOutput") -> None:
         """Merge a later incremental output into this one (offline API)."""
         self.finished = other.finished
+        if other.prompt_logprobs and not self.prompt_logprobs:
+            self.prompt_logprobs = other.prompt_logprobs
         for o, n in zip(self.outputs, other.outputs):
             o.text += n.text
             o.token_ids.extend(n.token_ids)
             o.finish_reason = n.finish_reason
             o.stop_reason = n.stop_reason
+            if n.cumulative_logprob is not None:
+                o.cumulative_logprob = n.cumulative_logprob
             if n.logprobs is not None:
                 if o.logprobs is None:
                     o.logprobs = []

@@ -1,47 +1,492 @@
-"""Greedy sampling, the only mode the port has.
+"""The Aphrodite sampler pipeline on tensors.
 
-``greedy_sample`` matches the JAX sampler's all-greedy branch
-(``aphrodite_tpu/sample/sampler.py:480-483``): the argmax token (first
-index on ties, as ``jnp.argmax``) and the fp32 log-softmax logprob of that
-token. ``check_supported`` rejects every ``SamplingParams`` that would need
-anything else, so a request never silently runs greedy.
+A port of the JAX package's ``sample/sampler.py``: the default order DRY ->
+penalties -> no-repeat-ngram -> temperature (+dynatemp) -> top-nsigma ->
+top-p/top-k -> top-a -> min-p -> TFS -> eta -> epsilon -> typical ->
+quadratic -> XTC (``temperature_last`` moves temperature after XTC), or the
+batch's ``sampler_priority``; then log-softmax -> skew -> seeded Gumbel-max
+sampling. Every stage is self-masking on per-row parameters and
+``SamplerFlags`` gates whole groups, so an all-greedy batch runs
+``greedy_sample`` alone.
+
+Two parts run as hand-written kernels on the card, where eager PyTorch
+would launch hundreds of small ops a call: the suffix match lengths of DRY
+and no-repeat-ngram (``ops/suffix_match.py``) and the Gumbel-max draw
+(``ops/gumbel_sample.py``, threefry2x32 in registers: no [R, V] noise
+tensor). On CPU tensors both run their plain versions.
+
+Deviations from the JAX package, each with the same results:
+- sorts are ``torch.sort(stable=True)``, as ``jnp.sort``/``argsort`` are
+  stable, and the top-k logprobs a stable sort's head, as
+  ``jax.lax.top_k`` (equal values in index order);
+- scatters with a drop column write into a [R, V + 1] buffer and slice it;
+- XTC's per-row uniform comes packed in the metadata for a window's
+  steps (``metadata.build_sampling_arrays``), from the same keys;
+- an all-greedy batch runs the argmax alone (``SamplerFlags.all_greedy``
+  is set only where that is the sampled branch's result).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from aphrodite_tpu_torch.sampling_params import SamplingParams
+from aphrodite_tpu_torch.ops.gumbel_sample import gumbel_sample
+from aphrodite_tpu_torch.ops.suffix_match import MAX_MATCH, suffix_match
+from aphrodite_tpu_torch.sample.metadata import SamplerFlags, SamplingMetadata
+from aphrodite_tpu_torch.sampling_params import SamplerID, SamplingParams
 
-# Fields that may differ from their defaults: they do not change which
-# token greedy decoding picks. top_p/top_k/min_p are neutralized by
-# SamplingParams itself when temperature is 0.
-_ALLOWED = {"temperature", "top_p", "top_k", "min_p", "seed", "stop_token_ids",
-            "ignore_eos", "max_tokens", "detokenize", "skip_special_tokens",
-            "spaces_between_special_tokens", "include_stop_str_in_output",
-            "logprobs", "extra_args", "sampler_priority"}
-_DEFAULTS = SamplingParams(temperature=0.0)
+_TEMPERATURE_MIN = 2e-2
+NEG_INF = float("-inf")
 
 
 def check_supported(params: SamplingParams) -> None:
-    if params.temperature >= 1e-5:
-        raise NotImplementedError(
-            "only greedy sampling (temperature=0) is ported; "
-            f"temperature={params.temperature}")
-    if params.logprobs:
-        raise NotImplementedError(
-            "top-k logprobs are not ported (logprobs=0 returns the chosen "
-            "token's logprob)")
-    for name, default in vars(_DEFAULTS).items():
-        if name not in _ALLOWED and getattr(params, name) != default:
+    """Raise on the fields whose modules are not ported yet."""
+    unported = (
+        ("guided_decoding", params.guided_decoding is not None,
+         "structured output (guided decoding) is not ported"),
+        ("stop", bool(params.stop),
+         "stop strings need a tokenizer, which is not ported"),
+        ("bad_words", bool(params.bad_words),
+         "bad_words need a tokenizer, which is not ported"),
+        ("logits_processors", bool(params.logits_processors),
+         "logits_processors are not ported"),
+        ("best_of", params.best_of is not None and params.best_of != params.n,
+         "best_of beyond n is not ported"))
+    for name, bad, why in unported:
+        if bad:
             raise NotImplementedError(
-                f"SamplingParams.{name}={getattr(params, name)!r} is not "
-                "ported (greedy sampling only)")
+                f"SamplingParams.{name}={getattr(params, name)!r}: {why}")
 
 
 def greedy_sample(logits: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """logits [R, V] float32 -> (tokens [R] int64, logprob [R] float32)."""
+    """logits [R, V] -> (argmax tokens [R] int64, first index on ties as
+    ``jnp.argmax``; their fp32 log-softmax logprobs [R])."""
     tokens = torch.argmax(logits, dim=-1)
     logprob = torch.log_softmax(logits.float(), dim=-1).gather(
         1, tokens[:, None])[:, 0]
     return tokens, logprob
+
+
+# --------------------------------------------------------------------------
+# token-history stages
+# --------------------------------------------------------------------------
+def _col(x: torch.Tensor) -> torch.Tensor:
+    return x[:, None]
+
+
+def _scatter_drop(R: int, V: int, targets: torch.Tensor, values,
+                  reduce: str, dtype) -> torch.Tensor:
+    """[R, V] result of scattering ``values`` at ``targets`` (V = drop)
+    into zeros, through a [R, V + 1] buffer."""
+    buf = torch.zeros((R, V + 1), dtype=dtype, device=targets.device)
+    # A fill for a constant, not a copy from the host (which would wait
+    # for the device's queue).
+    src = (values.to(dtype) if isinstance(values, torch.Tensor)
+           else torch.full(targets.shape, values, dtype=dtype,
+                           device=targets.device))
+    if reduce == "sum":
+        buf.scatter_add_(1, targets.long(), src)
+    else:
+        buf.scatter_reduce_(1, targets.long(), src, "amax")
+    return buf[:, :V]
+
+
+def _match_lengths(md: SamplingMetadata, dry: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(break_mask, m_plain, m_break) [R, L] of the token history: one
+    suffix-match launch serves DRY (``m_break``, stopping at the rows'
+    breakers; the mask is all False unless ``dry``) and no-repeat-ngram
+    (``m_plain``, which does not read the mask)."""
+    seq = md.token_seq
+    if dry:
+        break_mask = (seq[:, :, None] == md.dry_breakers[:, None, :]).any(-1)
+    else:
+        break_mask = torch.zeros_like(seq, dtype=torch.bool)
+    return (break_mask, *suffix_match(seq, md.total_len, break_mask))
+
+
+def _apply_dry(logits: torch.Tensor, md: SamplingMetadata,
+               break_mask: torch.Tensor, m_break: torch.Tensor
+               ) -> torch.Tensor:
+    """DRY: penalise tokens that would extend a sequence already seen.
+    ``break_mask`` and ``m_break`` come from ``_match_lengths``."""
+    R, V = logits.shape
+    seq, L = md.token_seq, md.token_seq.shape[1]
+    end = md.total_len.long() - 1
+    pos = torch.arange(L, device=seq.device)[None, :]
+
+    # How far back from the tail matching may reach before a breaker: the
+    # first i in [0, MAX_MATCH] with a break at end - i (i = 0: the last
+    # token is a breaker and DRY is off for the row).
+    i_range = torch.arange(MAX_MATCH + 1, device=seq.device)[None, :]
+    tail_idx = (_col(end) - i_range).clamp(min=0)
+    tail_brk = (torch.gather(break_mask, 1, tail_idx)
+                | (_col(end) - i_range < 0))
+    any_brk = tail_brk.any(dim=1)
+    window = (torch.argmax(tail_brk.to(torch.uint8), dim=1)
+              + torch.where(any_brk, 0, MAX_MATCH + 1))
+
+    last_tok = torch.gather(seq, 1, _col(end.clamp(min=0)))
+    range_start = _col(torch.where(md.dry_range > 0,
+                                   md.total_len - md.dry_range, 0))
+
+    m = torch.minimum(m_break, _col(window - 1).clamp(min=0))
+    is_endpoint = ((seq == last_tok) & (pos < _col(end))
+                   & (pos >= range_start) & (m > 0))
+    new_len = torch.where(is_endpoint, m + 1, 0)
+    nxt = torch.gather(seq, 1, (pos + 1).clamp(max=L - 1).expand(R, L))
+    targets = torch.where(is_endpoint, nxt, V)
+    ngram_lens = _scatter_drop(R, V, targets, new_len, "amax", torch.int32)
+
+    row_on = _col((md.dry_multiplier > 0) & (window > md.dry_allowed)
+                  & (md.total_len >= 2))
+    pen = _col(md.dry_multiplier) * torch.pow(
+        _col(md.dry_base), (ngram_lens - _col(md.dry_allowed)).float())
+    return torch.where(row_on & (ngram_lens > 0), logits - pen, logits)
+
+
+def _apply_no_repeat_ngram(logits: torch.Tensor, md: SamplingMetadata,
+                           m_plain: torch.Tensor) -> torch.Tensor:
+    """Ban tokens completing an n-gram already present in context.
+    ``m_plain`` comes from ``_match_lengths``."""
+    R, V = logits.shape
+    seq, L = md.token_seq, md.token_seq.shape[1]
+    end = md.total_len.long() - 1
+    pos = torch.arange(L, device=seq.device)[None, :]
+
+    n = _col(md.no_repeat_ngram)
+    last_tok = torch.gather(seq, 1, _col(end.clamp(min=0)))
+    hit = ((seq == last_tok) & (m_plain >= n - 2) & (pos < _col(end))
+           & (pos >= n - 2))
+    nxt = torch.gather(seq, 1, (pos + 1).clamp(max=L - 1).expand(R, L))
+    targets = torch.where(hit, nxt, V)
+    banned = _scatter_drop(R, V, targets, 1, "amax", torch.int32) > 0
+    row_on = _col((md.no_repeat_ngram > 0)
+                  & (md.total_len >= md.no_repeat_ngram))
+    return torch.where(row_on & banned, NEG_INF, logits)
+
+
+def _apply_penalties(logits: torch.Tensor,
+                     md: SamplingMetadata) -> torch.Tensor:
+    """Presence, frequency and repetition penalties."""
+    R, V = logits.shape
+    seq, L = md.token_seq, md.token_seq.shape[1]
+    pos = torch.arange(L, device=seq.device)[None, :]
+    in_prompt = pos < _col(md.prompt_len)
+    in_output = (pos >= _col(md.prompt_len)) & (pos < _col(md.total_len))
+    prompt_counts = _scatter_drop(R, V, torch.where(in_prompt, seq, V), 1,
+                                  "sum", torch.int32)
+    output_counts = _scatter_drop(R, V, torch.where(in_output, seq, V), 1,
+                                  "sum", torch.int32)
+    prompt_mask = prompt_counts > 0
+    output_mask = output_counts > 0
+    rep = torch.where(prompt_mask | output_mask,
+                      _col(md.repetition_penalty), 1.0)
+    logits = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = logits - _col(md.frequency_penalty) * output_counts
+    logits = logits - _col(md.presence_penalty) * output_mask
+    return logits
+
+
+# --------------------------------------------------------------------------
+# temperature and truncation
+# --------------------------------------------------------------------------
+def _entropy(logits: torch.Tensor) -> torch.Tensor:
+    lsm = torch.log_softmax(logits, dim=-1)
+    p = torch.exp(lsm)
+    plogp = torch.where(torch.isfinite(lsm), p * lsm, 0.0)
+    return -plogp.sum(dim=-1)
+
+
+def _apply_temperature(logits: torch.Tensor, md: SamplingMetadata,
+                       dynatemp: bool) -> torch.Tensor:
+    temps = md.temperature
+    if dynatemp:
+        ent = _entropy(logits)
+        max_ent = torch.log(torch.isfinite(logits).sum(dim=-1).float())
+        norm_ent = torch.where(max_ent > 0, ent / max_ent, 0.0)
+        dyn = md.dynatemp_min + (md.dynatemp_max - md.dynatemp_min) * \
+            torch.pow(norm_ent, md.dynatemp_exp)
+        dyn_on = (md.dynatemp_min != 0) | (md.dynatemp_max != 0)
+        temps = torch.where(dyn_on, dyn, temps)
+    temps = torch.where(torch.isnan(temps) | (temps <= _TEMPERATURE_MIN),
+                        _TEMPERATURE_MIN, temps)
+    # Low temperatures shift the range to [-inf, 1] against saturation.
+    mx = logits.max(dim=-1, keepdim=True).values
+    logits = torch.where(_col(temps < 0.1), logits - (mx - 1), logits)
+    return logits / _col(temps)
+
+
+def _sort(x: torch.Tensor, descending: bool = False):
+    """(values, indices) of a stable sort along the last axis, as
+    ``jnp.sort`` / ``jnp.argsort`` (of -x for descending)."""
+    if descending:
+        vals, idx = torch.sort(-x, dim=-1, stable=True)
+        return -vals, idx
+    return torch.sort(x, dim=-1, stable=True)
+
+
+def topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, as ``jax.lax.top_k``: equal values in
+    index order (``torch.topk`` leaves their order open)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _unsort(sorted_vals: torch.Tensor, sort_idx: torch.Tensor
+            ) -> torch.Tensor:
+    return torch.empty_like(sorted_vals).scatter_(1, sort_idx, sorted_vals)
+
+
+def _apply_top_k_top_p(logits: torch.Tensor,
+                       md: SamplingMetadata) -> torch.Tensor:
+    R, V = logits.shape
+    ls, idx = _sort(logits)  # ascending
+    k = torch.where(md.top_k > 0, md.top_k, V).long()
+    kth = torch.gather(ls, 1, _col(V - k))
+    ls = torch.where(ls < kth, NEG_INF, ls)
+    probs = torch.softmax(ls, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    mask = csum <= _col(1.0 - md.top_p)
+    mask[:, -1] = False  # keep at least one
+    ls = torch.where(mask, NEG_INF, ls)
+    return _unsort(ls, idx)
+
+
+def _apply_min_p(logits, md):
+    probs = torch.softmax(logits, dim=-1)
+    top = probs.max(dim=-1, keepdim=True).values
+    remove = probs < _col(md.min_p) * top
+    return torch.where(remove & _col(md.min_p > 0), NEG_INF, logits)
+
+
+def _apply_top_a(logits, md):
+    probs = torch.softmax(logits, dim=-1)
+    top = probs.max(dim=-1, keepdim=True).values
+    remove = probs < (top * top * _col(md.top_a))
+    return torch.where(remove & _col(md.top_a > 0), NEG_INF, logits)
+
+
+def _apply_tfs(logits, md):
+    R, V = logits.shape
+    ls, idx = _sort(logits, descending=True)
+    probs = torch.softmax(ls, dim=-1)
+    d2 = torch.abs(torch.diff(torch.diff(probs, dim=-1), dim=-1))
+    d2n = d2 / torch.clamp(d2.sum(dim=-1, keepdim=True), min=1e-20)
+    cdf = torch.cumsum(d2n, dim=-1)
+    inner = cdf > _col(md.tfs)
+    mask = torch.cat([torch.zeros((R, 1), dtype=torch.bool,
+                                  device=logits.device), inner,
+                      torch.ones((R, 1), dtype=torch.bool,
+                                 device=logits.device)], dim=-1)
+    ls = torch.where(mask & _col(md.tfs < 1.0), NEG_INF, ls)
+    return _unsort(ls, idx)
+
+
+def _keep_argmax(mask: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    top = torch.argmax(probs, dim=-1, keepdim=True)
+    return mask.scatter(1, top, False)
+
+
+def _apply_eta(logits, md):
+    probs = torch.exp(torch.log_softmax(logits, dim=-1))
+    neg_ent = -_entropy(logits)
+    eps = _col(torch.minimum(md.eta_cutoff,
+                             torch.sqrt(md.eta_cutoff) * torch.exp(neg_ent)))
+    mask = _keep_argmax(probs < eps, probs)
+    return torch.where(mask & _col(md.eta_cutoff > 0), NEG_INF, logits)
+
+
+def _apply_epsilon(logits, md):
+    probs = torch.softmax(logits, dim=-1)
+    mask = _keep_argmax(probs < _col(md.epsilon_cutoff), probs)
+    return torch.where(mask & _col(md.epsilon_cutoff > 0), NEG_INF, logits)
+
+
+def _apply_typical(logits, md):
+    lsm = torch.log_softmax(logits, dim=-1)
+    probs = torch.exp(lsm)
+    neg_ent = _col(-_entropy(logits))
+    dev = torch.abs(neg_ent - torch.where(torch.isfinite(lsm), lsm, -1e30))
+    _, idx = _sort(dev)  # ascending deviation
+    reordered = torch.gather(probs, 1, idx)
+    mask_sorted = torch.cumsum(reordered, dim=-1) >= _col(md.typical_p)
+    mask_sorted[:, 0] = False
+    mask = _unsort(mask_sorted, idx)
+    return torch.where(mask & _col(md.typical_p < 1.0), NEG_INF, logits)
+
+
+def _apply_quadratic(logits, md):
+    sf = _col(md.smoothing_factor)
+    sc = _col(md.smoothing_curve)
+    k = sf * (3 - sc) / 2
+    s = sf * (sc - 1) / 2
+    mx = logits.max(dim=-1, keepdim=True).values
+    diff = logits - mx
+    corr = diff - diff * diff * (s * diff - k)
+    corr = torch.where(torch.isnan(corr), 0.0, corr)
+    return torch.where(sf != 0, logits - corr, logits)
+
+
+def _apply_xtc(logits, md, u):
+    R, V = logits.shape
+    apply_row = (u < md.xtc_probability) & (md.xtc_probability > 0)
+    probs = torch.softmax(logits, dim=-1)
+    sp, sidx = _sort(probs, descending=True)
+    above = sp[:, 1:] >= _col(md.xtc_threshold)
+    count = above.sum(dim=-1)  # tokens to remove from the top
+    mask_sorted = torch.arange(V, device=logits.device)[None, :] < \
+        _col(count)
+    mask = _unsort(mask_sorted, sidx)
+    return torch.where(mask & _col(apply_row), NEG_INF, logits)
+
+
+def _apply_nsigma(logits, md):
+    # torch.std's default: unbiased (ddof = 1), as the JAX stage asks.
+    std = torch.std(logits, dim=-1, keepdim=True)
+    thr = logits.max(dim=-1, keepdim=True).values - _col(md.nsigma) * std
+    return torch.where((logits < thr) & _col(md.nsigma > 0), NEG_INF,
+                       logits)
+
+
+def _apply_min_tokens(logits, md, step_offset):
+    R, V = logits.shape
+    active = (md.out_len + step_offset) < md.min_tokens
+    tgt = torch.where(_col(active), md.stop_tokens, -1)
+    tgt = torch.where(tgt < 0, V, tgt)
+    mask = _scatter_drop(R, V, tgt, 1, "amax", torch.int32) > 0
+    return torch.where(mask, NEG_INF, logits)
+
+
+def _apply_allowed_tokens(logits, md):
+    """Rows with allowed_token_ids keep only those logits (the rest -inf);
+    unrestricted rows pass through."""
+    R, V = logits.shape
+    allowed = md.allowed_tokens
+    has = (allowed >= 0).any(dim=1)
+    vals = torch.gather(logits, 1, allowed.clamp(min=0).long())
+    tgt = torch.where(allowed < 0, V, allowed).long()
+    masked = torch.full((R, V + 1), NEG_INF, dtype=logits.dtype,
+                        device=logits.device).scatter_(1, tgt, vals)[:, :V]
+    return torch.where(_col(has), masked, logits)
+
+
+def _apply_logit_bias(logits, md):
+    R, V = logits.shape
+    tgt = torch.where(md.bias_tokens < 0, V, md.bias_tokens).long()
+    buf = torch.nn.functional.pad(logits, (0, 1))
+    return buf.scatter_add_(1, tgt, md.bias_values)[:, :V]
+
+
+# --------------------------------------------------------------------------
+# the pipeline
+# --------------------------------------------------------------------------
+def sample_tokens(logits: torch.Tensor, md: Optional[SamplingMetadata],
+                  flags: SamplerFlags, max_logprobs: int = 0,
+                  step_offset: int = 0) -> dict:
+    """Run the pipeline; returns a dict with ``tokens`` [R] int64,
+    ``logprob`` [R] fp32 (of the chosen token) and, when max_logprobs > 0,
+    ``topk_values`` / ``topk_indices`` [R, max_logprobs].
+
+    ``step_offset`` advances each row's counter (out_len + step_offset):
+    sub-step i of a decode window passes i, with metadata built once for
+    the window (``num_steps`` > i: XTC reads its draw from
+    ``md.xtc_uniform[i]``). An all-greedy batch (no stage on) runs
+    ``greedy_sample`` alone; its ``md`` may be None."""
+    if flags.all_greedy:
+        tokens, lp = greedy_sample(logits)
+        out = {"tokens": tokens, "logprob": lp}
+        if max_logprobs > 0:
+            out["topk_values"], out["topk_indices"] = topk(
+                torch.log_softmax(logits.float(), dim=-1), max_logprobs)
+        return out
+    logits = logits.float()
+
+    if flags.do_allowed:
+        logits = _apply_allowed_tokens(logits, md)
+    if flags.do_logit_bias:
+        logits = _apply_logit_bias(logits, md)
+    if flags.do_min_tokens:
+        logits = _apply_min_tokens(logits, md, step_offset)
+    if flags.do_dry or flags.do_ngram:
+        break_mask, m_plain, m_break = _match_lengths(md, flags.do_dry)
+    if flags.do_dry:
+        logits = _apply_dry(logits, md, break_mask, m_break)
+    if flags.do_penalties:
+        logits = _apply_penalties(logits, md)
+    if flags.do_ngram:
+        logits = _apply_no_repeat_ngram(logits, md, m_plain)
+
+    def xtc_stage(lg):
+        if not flags.do_xtc:
+            return lg
+        return _apply_xtc(lg, md, md.xtc_uniform[step_offset])
+
+    adv = flags.do_advanced
+    stages = {
+        SamplerID.TEMPERATURE: lambda lg: _apply_temperature(lg, md, adv),
+        SamplerID.TOP_NSIGMA: lambda lg: _apply_nsigma(lg, md) if adv else lg,
+        SamplerID.TOP_K: lambda lg: (_apply_top_k_top_p(lg, md)
+                                     if flags.do_top_k_p else lg),
+        SamplerID.TOP_P: lambda lg: lg,  # fused with TOP_K above
+        SamplerID.TOP_A: lambda lg: _apply_top_a(lg, md) if adv else lg,
+        SamplerID.MIN_P: lambda lg: (_apply_min_p(lg, md)
+                                     if flags.do_min_p else lg),
+        SamplerID.TFS: lambda lg: _apply_tfs(lg, md) if adv else lg,
+        SamplerID.ETA: lambda lg: _apply_eta(lg, md) if adv else lg,
+        SamplerID.EPSILON: lambda lg: _apply_epsilon(lg, md) if adv else lg,
+        SamplerID.TYPICAL: lambda lg: _apply_typical(lg, md) if adv else lg,
+        SamplerID.QUADRATIC: lambda lg: (_apply_quadratic(lg, md)
+                                         if adv else lg),
+        SamplerID.XTC: xtc_stage,
+        # The token-history stages and min_tokens ran above.
+        SamplerID.DRY: lambda lg: lg,
+        SamplerID.PENALTIES: lambda lg: lg,
+        SamplerID.NO_REPEAT_NGRAM: lambda lg: lg,
+        SamplerID.MIN_TOKENS: lambda lg: lg,
+    }
+    if flags.order:
+        for sid in flags.order:
+            logits = stages[SamplerID(sid)](logits)
+    else:
+        if not flags.do_temp_last:
+            logits = _apply_temperature(logits, md, adv)
+        if adv:
+            logits = _apply_nsigma(logits, md)
+        if flags.do_top_k_p:
+            logits = _apply_top_k_top_p(logits, md)
+        if adv:
+            logits = _apply_top_a(logits, md)
+        if flags.do_min_p:
+            logits = _apply_min_p(logits, md)
+        if adv:
+            logits = _apply_tfs(logits, md)
+            logits = _apply_eta(logits, md)
+            logits = _apply_epsilon(logits, md)
+            logits = _apply_typical(logits, md)
+            logits = _apply_quadratic(logits, md)
+        logits = xtc_stage(logits)
+        if flags.do_temp_last:
+            logits = _apply_temperature(logits, md, adv)
+
+    logprobs_final = torch.log_softmax(logits, dim=-1)
+    if flags.do_skew:
+        probs = torch.exp(logprobs_final)
+        cum = torch.cumsum(probs, dim=-1)
+        cum = torch.pow(cum, _col(torch.exp(md.skew)))
+        probs = torch.diff(cum, dim=-1, prepend=torch.zeros_like(cum[:, :1]))
+        logprobs_final = torch.log(torch.clamp(probs, min=1e-30))
+    # Gumbel-max on the final distribution; greedy rows take the argmax of
+    # the processed logits, before the noise.
+    sampled = gumbel_sample(logprobs_final, md.seeds, md.out_len, step_offset)
+    tokens = torch.where(md.is_greedy, torch.argmax(logits, dim=-1), sampled)
+
+    chosen_lp = torch.gather(logprobs_final, 1, tokens[:, None])[:, 0]
+    out = {"tokens": tokens, "logprob": chosen_lp}
+    if max_logprobs > 0:
+        vals, idxs = topk(logprobs_final, max_logprobs)
+        out["topk_values"] = vals
+        out["topk_indices"] = idxs
+    return out

@@ -4,8 +4,11 @@ Behavioral parity target: aphrodite/common/sampling_params.py:346-416 (the
 reference's ~60-field msgspec struct) including the fork's signature samplers:
 DRY, XTC, dynamic temperature, top-nsigma, typical, quadratic/smoothing,
 tail-free (TFS), eta/epsilon cutoffs, top-a, skew, and `sampler_priority`
-re-ordering. Implemented as a plain dataclass. The PyTorch port samples
-greedily only; sample/sampler.py rejects every other setting.
+re-ordering. Implemented as a plain dataclass; the engine packs these into
+batched tensors (sample/metadata.py) and sample/sampler.py runs the whole
+pipeline. ``sampler.check_supported`` rejects the fields whose modules are
+not ported yet: guided decoding, stop strings, bad_words,
+logits_processors and best_of beyond n.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ path. Three kinds of step:
 - ``_execute_step``: a prefill or mixed wave. The scheduled tokens are laid
   out back to back, K/V go into the paged cache, attention runs the ragged
   kernel, and each request whose scheduled tokens reach its end samples one
-  token (``runner.py:277-349``).
+  token (``runner.py:277-349``); requests that ask for prompt logprobs get
+  them for the wave's prompt positions (``runner.py:1104-1126``).
 - ``_execute_window``: when every scheduled request is a plain one-token
   decode, K decode sub-steps run with the paged cache frozen. Each
   sub-step's K/V go into per-layer tails, attention runs the window decode
@@ -27,12 +28,23 @@ state slot (``_ssm_state_slots``), and the decode window is
 (``runner.py:352-456``). The scheduler's page accounting still runs; the
 model never reads a page.
 
+Sampling. Each wave and each window packs the batch's sampling parameters
+once (``sample/metadata.py``, with room for a window's tokens in the
+history) and every sub-step calls ``sample_tokens`` with ``step_offset =
+i``, so row r's i-th token of a window draws from the counter out_len + i,
+as the JAX runner's windows do. Where a stage reads the token history
+(penalties, DRY, no-repeat-ngram) the history rides the sub-steps on the
+device: each live row's token is written at its length, which then grows
+(``runner.py:429-437, 590-601``). Nothing in a sub-step waits on the host.
+An all-greedy batch without top-k logprobs runs ``greedy_sample`` alone and
+uploads no metadata.
+
 PyTorch runs eagerly, so there are no shape buckets and no padding: every
 token and request in a step is live.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -52,7 +64,10 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import (tail_dtype,
                                                             window_plan)
-from aphrodite_tpu_torch.sample.sampler import greedy_sample
+from aphrodite_tpu_torch.sample.metadata import (SamplerFlags,
+                                                 SamplingMetadata,
+                                                 build_sampling_arrays)
+from aphrodite_tpu_torch.sample.sampler import sample_tokens, topk
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 from aphrodite_tpu_torch.utils import logger, next_power_of_2
 
@@ -65,6 +80,9 @@ class RequestState:
     num_computed: int
     block_ids: list[int]
     sampling_params: Optional[SamplingParams]
+    # Prompt logprobs gathered so far ([None] for the first prompt token,
+    # then {token: logprob} a position), emitted when the request samples.
+    prompt_lp: Optional[list] = None
 
     @property
     def num_tokens(self) -> int:
@@ -86,6 +104,8 @@ class ModelRunner:
         self.block_size = cc.block_size
         self.max_pages_per_req = config.max_blocks_per_req
         self.requests: dict[str, RequestState] = {}
+        # Unseeded requests draw from base_seed + r * 7919 (r: the row).
+        self._base_seed = config.model_config.seed
         self.is_ssm = getattr(model, "is_ssm", False)
         if self.is_ssm:
             # ``kv_cache`` holds the recurrent state, as in the JAX runner.
@@ -122,6 +142,48 @@ class ModelRunner:
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(arr).to(self.device)
+
+    def _sampling(self, order: list[str], num_steps: int = 1
+                  ) -> tuple[Optional[SamplingMetadata], SamplerFlags, int]:
+        """(metadata on the device, flags, max_lp) for the batch ``order``
+        and ``num_steps`` draws (``runner.py:901-916``; the history has
+        room for a decode window): max_lp is the next power of two of the
+        largest top-k logprobs asked. The metadata stays on the host (None)
+        where ``sample_tokens`` runs the argmax alone."""
+        reqs, max_logprobs = [], 0
+        for rid in order:
+            st = self.requests[rid]
+            p = st.sampling_params
+            reqs.append((p, st.token_ids, st.prompt_len, st.output_len))
+            if p.logprobs:
+                max_logprobs = max(max_logprobs, p.logprobs)
+        arrays, flags = build_sampling_arrays(
+            reqs, self.model.vocab_size, len(order),
+            base_seed=self._base_seed,
+            extra_len=self.config.decode_window + 1, num_steps=num_steps)
+        max_lp = next_power_of_2(max_logprobs) if max_logprobs else 0
+        md = None
+        if not flags.all_greedy or max_lp:
+            md = SamplingMetadata.from_arrays(arrays, self.device)
+        return md, flags, max_lp
+
+    def _logprob_dicts(self, st: RequestState, toks: list[int], lp_h,
+                       tv_h, ti_h) -> Optional[list[dict[int, float]]]:
+        """{token: logprob} a sampled token, with the top ``logprobs``
+        entries where asked (``runner.py:1300-1313``); None where the
+        request asked for no logprobs. ``lp_h`` [n], ``tv_h``/``ti_h``
+        [n, max_lp] or None, row k for toks[k]."""
+        p = st.sampling_params
+        if p.logprobs is None:
+            return None
+        out = []
+        for k, tok in enumerate(toks):
+            d = {tok: float(lp_h[k])}
+            if p.logprobs and tv_h is not None:
+                for v, i in zip(tv_h[k][:p.logprobs], ti_h[k][:p.logprobs]):
+                    d[int(i)] = float(v)
+            out.append(d)
+        return out
 
     # --------------------------------------------------------- state updates
     def update_states(self, so: SchedulerOutput) -> None:
@@ -229,16 +291,22 @@ class ModelRunner:
                 block_q=self.block_q,
                 **{k: self._dev(v) for k, v in items.items()})
         hidden = self.model(self._dev(input_ids), self.kv_cache, md)
+        self._prompt_logprobs(so, order, qsl, hidden)
         if not any(samples_expected):
             # Pure mid-prefill wave: nothing to sample.
             return ModelRunnerOutput(req_ids=order,
                                      sampled_token_ids=[[] for _ in order])
+        smd, flags, max_lp = self._sampling(order)
         last = self._dev(qsl[1:].astype(np.int64) - 1)
-        tokens, logprob = greedy_sample(
-            self.model.compute_logits(hidden[last]))
-        tokens_h = tokens.cpu().numpy()
-        lp_h = logprob.cpu().numpy()
-        sampled, logprobs = [], []
+        out = sample_tokens(self.model.compute_logits(hidden[last]), smd,
+                            flags, max_lp)
+        tokens_h = out["tokens"].cpu().numpy()
+        lp_h = out["logprob"].cpu().numpy()
+        tv_h = ti_h = None
+        if max_lp:
+            tv_h = out["topk_values"].cpu().numpy()
+            ti_h = out["topk_indices"].cpu().numpy()
+        sampled, logprobs, prompt_lps = [], [], {}
         for r, rid in enumerate(order):
             if not samples_expected[r]:
                 sampled.append([])
@@ -248,13 +316,59 @@ class ModelRunner:
             tok = int(tokens_h[r])
             st.token_ids.append(tok)
             sampled.append([tok])
-            logprobs.append([{tok: float(lp_h[r])}]
-                            if st.sampling_params.logprobs is not None
-                            else None)
+            logprobs.append(self._logprob_dicts(
+                st, [tok], lp_h[r:r + 1],
+                None if tv_h is None else tv_h[r:r + 1],
+                None if ti_h is None else ti_h[r:r + 1]))
+            if st.prompt_lp is not None:
+                prompt_lps[rid] = st.prompt_lp
         return ModelRunnerOutput(
             req_ids=order, sampled_token_ids=sampled,
             logprobs=logprobs if any(x is not None for x in logprobs)
-            else None)
+            else None, prompt_logprobs=prompt_lps or None)
+
+    def _prompt_logprobs(self, so: SchedulerOutput, order: list[str],
+                         qsl: np.ndarray, hidden: torch.Tensor) -> None:
+        """Append the wave's prompt logprobs to each request that asks for
+        them: at scheduled token j (position pos), the log-softmax of its
+        logits at the next prompt token, and the top ``prompt_logprobs``
+        entries (``runner.py:329-340, 1104-1126, 1185-1205``). The JAX
+        runner takes the logits of every scheduled token; here only those
+        of the asking requests' prompt positions, with the same values."""
+        rows, targets, where, plp_k = [], [], [], 0
+        for r, rid in enumerate(order):
+            st = self.requests[rid]
+            k_req = st.sampling_params.prompt_logprobs
+            plp_k = max(plp_k, k_req or 0)
+            if k_req is None or st.num_computed >= st.prompt_len:
+                continue
+            if st.prompt_lp is None:
+                st.prompt_lp = [None]  # the first prompt token
+            for j in range(so.num_scheduled_tokens[rid]):
+                pos = st.num_computed + j + 1
+                if pos >= st.prompt_len:
+                    break
+                rows.append(int(qsl[r]) + j)
+                targets.append(st.token_ids[pos])
+                where.append(r)
+        if not rows:
+            return
+        plp_k = next_power_of_2(plp_k) if plp_k else 0
+        lsm = torch.log_softmax(self.model.compute_logits(
+            hidden[self._dev(np.asarray(rows, np.int64))]).float(), dim=-1)
+        chosen = torch.gather(lsm, 1, self._dev(np.asarray(
+            targets, np.int64))[:, None])[:, 0].cpu().numpy()
+        tv = ti = None
+        if plp_k:
+            tv, ti = (t.cpu().numpy() for t in topk(lsm, plp_k))
+        for n, (r, tok) in enumerate(zip(where, targets)):
+            st = self.requests[order[r]]
+            d = {int(tok): float(chosen[n])}
+            k_req = st.sampling_params.prompt_logprobs
+            if k_req and tv is not None:
+                for v, i in zip(tv[n][:k_req], ti[n][:k_req]):
+                    d[int(i)] = float(v)
+            st.prompt_lp.append(d)
 
     # ------------------------------------------------------ decode windows
     def _window_eligibility(self, so: SchedulerOutput, order: list[str]
@@ -327,10 +441,9 @@ class ModelRunner:
         tail_k = torch.zeros((L, R, kvh, K, hd), dtype=self.tail_dtype,
                              device=dev)
         tail_v = torch.zeros_like(tail_k)
-        tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
-        lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
         toks = self._dev(cur)
         arange_r = torch.arange(R, dtype=torch.int32, device=dev)
+        sampler = _WindowSampler(self, order, K)
         for i in range(K):
             pos = paged_lens + i
             md = AttentionMetadata(
@@ -342,13 +455,11 @@ class ModelRunner:
                 shared_plan=shared_plan)
             hidden = model.forward_window(toks, self.kv_cache, tail_k,
                                           tail_v, md)
-            new_tok, lp = greedy_sample(model.compute_logits(hidden))
             # Rows past their budget hold their token (``runner.py:594``).
-            toks = torch.where(i < budget, new_tok, toks)
-            tok_buf[i] = toks
-            lp_buf[i] = lp
+            toks = sampler.step(i, model.compute_logits(hidden), toks,
+                                i < budget)
         self._flush_tails(tail_k, tail_v, paged_lens, block_tables, budget)
-        return self._window_output(order, counts, tok_buf, lp_buf)
+        return self._window_output(order, counts, sampler)
 
     def _detect_shared_prefix(self, order: list[str], min_plen: int
                               ) -> Optional[tuple[list[int], int]]:
@@ -392,8 +503,7 @@ class ModelRunner:
         arange_r = torch.arange(R, dtype=torch.int32, device=dev)
         seqlens = self._dev(seq_lens0)
         toks = self._dev(cur)
-        tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
-        lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        sampler = _WindowSampler(self, order, K)
         plan = None
         if dev.type == "cuda":
             # One launch plan for every layer and sub-step, bounded by the
@@ -413,29 +523,30 @@ class ModelRunner:
                 seq_lens=seqlens, block_tables=block_tables,
                 decode_mode=True, decode_plan=plan)
             hidden = model(toks, self.kv_cache, md)
-            new_tok, lp = greedy_sample(model.compute_logits(hidden))
-            toks = torch.where(live, new_tok, toks)
-            tok_buf[i] = toks
-            lp_buf[i] = lp
+            toks = sampler.step(i, model.compute_logits(hidden), toks, live)
             seqlens = seqlens + live.int()
-        return self._window_output(order, counts, tok_buf, lp_buf)
+        return self._window_output(order, counts, sampler)
 
     def _window_output(self, order: list[str], counts: np.ndarray,
-                       tok_buf: torch.Tensor,
-                       lp_buf: torch.Tensor) -> ModelRunnerOutput:
+                       sampler: "_WindowSampler") -> ModelRunnerOutput:
         """Row r's first counts[r] tokens of a window's [K, R] buffers."""
-        tokens_h = tok_buf.cpu().numpy()
-        lp_h = lp_buf.cpu().numpy()
+        tokens_h = sampler.tok_buf.cpu().numpy()
+        lp_h = sampler.lp_buf.cpu().numpy()
+        tv_h = ti_h = None
+        if sampler.max_lp:
+            tv_h = sampler.tv_buf.cpu().numpy()
+            ti_h = sampler.ti_buf.cpu().numpy()
         sampled, logprobs = [], []
         for r, rid in enumerate(order):
             st = self.requests[rid]
-            toks_r = [int(x) for x in tokens_h[:counts[r], r]]
+            n = int(counts[r])
+            toks_r = [int(x) for x in tokens_h[:n, r]]
             st.token_ids.extend(toks_r)
             sampled.append(toks_r)
-            logprobs.append([{t: float(lp_h[k, r])}
-                             for k, t in enumerate(toks_r)]
-                            if st.sampling_params.logprobs is not None
-                            else None)
+            logprobs.append(self._logprob_dicts(
+                st, toks_r, lp_h[:n, r],
+                None if tv_h is None else tv_h[:n, r],
+                None if ti_h is None else ti_h[:n, r]))
         return ModelRunnerOutput(
             req_ids=order, sampled_token_ids=sampled,
             logprobs=logprobs if any(x is not None for x in logprobs)
@@ -481,8 +592,7 @@ class ModelRunner:
         qsl = torch.arange(R + 1, dtype=torch.int32, device=dev)
         seqlens = self._dev(seq_lens0)
         toks = self._dev(cur)
-        tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
-        lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        sampler = _WindowSampler(self, order, K)
         for i in range(K):
             live = i < budget
             md = AttentionMetadata(
@@ -491,12 +601,9 @@ class ModelRunner:
                 block_tables=None, query_start_loc=qsl, seg_starts=arange_r,
                 state_slots=state_slots, token_valid=live)
             hidden = model(toks, self.kv_cache, md)
-            new_tok, lp = greedy_sample(model.compute_logits(hidden))
-            toks = torch.where(live, new_tok, toks)
-            tok_buf[i] = toks
-            lp_buf[i] = lp
+            toks = sampler.step(i, model.compute_logits(hidden), toks, live)
             seqlens = seqlens + live.int()
-        return self._window_output(order, counts, tok_buf, lp_buf)
+        return self._window_output(order, counts, sampler)
 
     def _flush_tails(self, tail_k: torch.Tensor, tail_v: torch.Tensor,
                      paged_lens: torch.Tensor, block_tables: torch.Tensor,
@@ -519,3 +626,51 @@ class ModelRunner:
             rows = tail.permute(1, 3, 0, 2, 4)[valid]
             cache[:, pf, i, :, of] = as_bytes(cast_to(rows,
                                                       self.kv_cache.dtype))
+
+
+class _WindowSampler:
+    """A decode window's sampling: the batch's metadata, packed once, and
+    [K, R] buffers of each sub-step's tokens, logprobs and top-k logprobs
+    (``runner.py:383-395``). Where a stage reads the token history, the
+    history rides the sub-steps on the device."""
+
+    def __init__(self, runner: ModelRunner, order: list[str], K: int):
+        dev = runner.device
+        R = len(order)
+        self.md, self.flags, self.max_lp = runner._sampling(order, K)
+        self.track = self.flags.track_tokens
+        if self.track:
+            # The window's own copy: a row's token is written at its
+            # length, which then grows (``runner.py:429-437``).
+            self.hist, self.hlen = self.md.token_seq, self.md.total_len
+        self.tok_buf = torch.empty((K, R), dtype=torch.int64, device=dev)
+        self.lp_buf = torch.empty((K, R), dtype=torch.float32, device=dev)
+        if self.max_lp:
+            self.tv_buf = torch.empty((K, R, self.max_lp),
+                                      dtype=torch.float32, device=dev)
+            self.ti_buf = torch.empty((K, R, self.max_lp), dtype=torch.int64,
+                                      device=dev)
+
+    def step(self, i: int, logits: torch.Tensor, toks: torch.Tensor,
+             live: torch.Tensor) -> torch.Tensor:
+        """Sample sub-step ``i`` (counter out_len + i); rows that are not
+        ``live`` (past their budget) hold ``toks``. Returns the tokens that
+        feed sub-step i + 1."""
+        md = (replace(self.md, token_seq=self.hist, total_len=self.hlen)
+              if self.track else self.md)
+        out = sample_tokens(logits, md, self.flags, self.max_lp,
+                            step_offset=i)
+        toks = torch.where(live, out["tokens"], toks)
+        if self.track:
+            # A held row writes past its length, where no stage reads
+            # (every stage stops at total_len); the buffer has room for a
+            # window's tokens.
+            self.hist.scatter_(1, self.hlen[:, None].long(),
+                               toks[:, None].to(self.hist.dtype))
+            self.hlen = self.hlen + live.to(self.hlen.dtype)
+        self.tok_buf[i] = toks
+        self.lp_buf[i] = out["logprob"]
+        if self.max_lp:
+            self.tv_buf[i] = out["topk_values"]
+            self.ti_buf[i] = out["topk_indices"]
+        return toks

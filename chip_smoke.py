@@ -116,6 +116,26 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    kFp8 exactly 4 x 32 x 63 = 8064 times, the other quantized GEMMs never,
    the ragged kernel 32 and the window kernel 2016 times in every cold and
    warm run; a profile with an "fp8" family.
+19. Sampling parity (run after phase 5): seeded sampled requests through
+   the port on the card and on the CPU with the same weights, fp32: a
+   tiny Qwen2 under the three presets of phase 20 in rotation (a chunked
+   wave, decode windows, one request n = 2, logprobs = 5, one request
+   prompt_logprobs = 3), a tiny Gemma-2 (the multi-step path) and a tiny
+   Mamba (the SSM window) with one preset each. Tokens equal but where a
+   completion parts at a near tie (``sampled_partings``: the CPU's noisy
+   scores of the two tokens within ``SAMPLE_GAP``, at most a tenth of the
+   completions); the Gumbel and suffix-match kernels launched.
+20. The main path of the sampler slice (run right after phase 6, on its
+   engine): Llama-3.1-8B W4A16, phase 6's traffic with every request
+   seeded and the API, creative-chat and penalised presets of
+   ``SAMPLED_PRESETS`` in rotation. Two cold and two warm runs, each
+   exactly 2048 tokens and launches exactly: packed W4 8064, ragged 32,
+   window 2016 (as phase 6), Gumbel 64 (the wave's draw and 63 sub-steps'),
+   suffix match 64 (one launch a draw serves DRY and no-repeat-ngram);
+   the two cold runs' tokens compared; one captured sub-step held against the
+   plain ``sample_tokens`` (every token in its row's support, the kernel's
+   token the plain one's but at gaps < ``NOISE_GAP``); walls beside phase
+   6's and a profile with the sampler's device time ("under sample").
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -181,6 +201,17 @@ bf16 matmul, its library yardstick, and, with row scales,
 ``torch._scaled_mm`` with row-wise scales) and a Qwen2.5-1.5B layer's
 (fp32); and whether ``torch._int_mm``
 takes M <= 16 (``int8_matmul`` on the card == on the CPU).
+
+For the sampler slice phase 2 holds the Gumbel-max kernel (seeded
+threefry noise and the masked argmax, which XLA fuses in JAX) at R in
+(1, 32, 128) x V in (151936, 128256), with top-k masked rows and an all
+-inf row: its noise bits and uniforms equal to the plain stream's, its
+Gumbel values within ``GUMBEL_ULPS`` ulps, its tokens equal but at gaps
+< ``NOISE_GAP``; timed at phase 20's shape beside the plain version and
+``torch.multinomial`` over the same probabilities (another stream), its
+bound the int32 operations at the card's INT32 rate (``int32_ops_per_s``).
+And the suffix match at R = 32, L in (1024, 2048) on random, periodic and
+phase-20-like histories with breakers: bit-equal; no library call.
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -1976,8 +2007,8 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     launched in the cold runs, and every kernel in ``per_forward`` exactly
     that many times for each call of the model's ``forward`` in every cold
     run; every kernel in ``exact`` exactly that many times in every cold and
-    warm run (0: never). Returns the last cold run's launches and the
-    engine."""
+    warm run (0: never). Returns the last cold run's launches, the engine
+    and the mean cold and warm walls."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     num_prompts, prompt_len, decode_len = 32, 512, 64
@@ -2063,10 +2094,11 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         check_exact(wc)
     n_dec = num_prompts * decode_len
     n_all = num_prompts * (prompt_len + decode_len)
+    walls = {}
     for label, ts in (("cold", cold), ("warm", warm)):
         if not ts:
             continue
-        s = float(np.mean(ts))
+        s = walls[label] = float(np.mean(ts))
         log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
             f"{n_dec / s:.0f} decode tok/s; {n_all / s:.0f} tok/s "
             "(prefill+decode)")
@@ -2074,7 +2106,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     llm.engine.reset_prefix_cache()
     profile_run(one_run, phase)
-    return counts, llm
+    return counts, llm, walls
 
 
 def attention_kernels() -> dict:
@@ -2086,17 +2118,22 @@ def attention_kernels() -> dict:
             "window_decode_attention": window_decode_attention}
 
 
-def main_path_8b() -> dict:
+def main_path_8b() -> tuple[dict, dict]:
     """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
-    workload (benchmarks/baseline_configs.py:118-128) through the port."""
+    workload (benchmarks/baseline_configs.py:118-128) through the port;
+    then phase 20 on the same engine (``main_path_sampled``). Returns the
+    launches of phase 6's last cold run and of a phase 20 run."""
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     layers, steps = LLAMA31_8B["num_hidden_layers"], 63
-    return serve_workload(
+    counts, llm, walls = serve_workload(
         "phase 6", "llama-3.1-8b-w4a16-dummy", LLAMA31_8B,
         {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
          **attention_kernels()},
         exact={"w4a16_packed_matmul": 4 * layers * steps},
-        quantization="gptq")[0]
+        quantization="gptq")
+    stamp("phase 20")
+    sampled = main_path_sampled(llm, walls)
+    return counts, sampled
 
 
 def main_path_moe() -> dict:
@@ -2459,10 +2496,11 @@ GAP = 5e-2
 def traced(llm, prompts: list, params) -> tuple:
     """``llm``'s greedy tokens for ``prompts`` (``params``: one
     SamplingParams or one a prompt) and, for each request, the log-softmax
-    rows its tokens were picked from: the runner's ``greedy_sample`` is
-    wrapped and its rows matched to requests by each step's output (row r
-    of a step's k-th sample is request ``req_ids[r]``'s k-th token)."""
-    import aphrodite_tpu_torch.worker.runner as runner_mod
+    rows its tokens were picked from: the sampler's ``greedy_sample`` (which
+    ``sample_tokens`` runs for an all-greedy batch) is wrapped and its rows
+    matched to requests by each step's output (row r of a step's k-th
+    sample is request ``req_ids[r]``'s k-th token)."""
+    import aphrodite_tpu_torch.sample.sampler as runner_mod
     runner, sample = llm.engine.core.worker.runner, runner_mod.greedy_sample
     execute = runner.execute_model
     seen, rows = [], {}
@@ -2713,9 +2751,12 @@ def main_path_int4_cascade() -> dict:
     return counts
 
 
-def profile_run(one_run, phase: str = "phase 4") -> None:
+def profile_run(one_run, phase: str = "phase 4",
+                spans: tuple = ("aten::bmm",)) -> None:
     """One more run under torch.profiler: device busy share of the wall
-    time and device time by kernel family."""
+    time, device time by kernel family, and the device time launched under
+    each host range named in ``spans`` (an op such as ``aten::bmm``, or a
+    ``record_function`` range that ``one_run`` opens)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2728,9 +2769,11 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
     # launched it, as key_averages() itself pairs them.
     kernels: dict[str, list] = {}  # name -> [device ns, launches]
     links: dict[int, int] = {}     # host op correlation id -> device ns
-    host_ops, bmm_spans = [], {}
+    host_ops, span_of = [], {name: {} for name in spans}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
+            if e.name() in span_of:  # a range's mirror on the device
+                continue
             ns = e.end_ns() - e.start_ns()
             k = kernels.setdefault(e.name(), [0, 0])
             k[0] += ns
@@ -2739,12 +2782,12 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
             links[c] = links.get(c, 0) + ns
         elif e.linked_correlation_id() == 0:
             host_ops.append(e)
-            if e.name() == "aten::bmm":
-                bmm_spans.setdefault(e.start_thread_id(), []).append(
+            if e.name() in span_of:
+                span_of[e.name()].setdefault(e.start_thread_id(), []).append(
                     (e.start_ns(), e.end_ns()))
     fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "cascade": 0.0,
            "quant": 0.0, "int4": 0.0, "fp8": 0.0, "moe": 0.0, "scan": 0.0,
-           "gemm": 0.0, "other": 0.0}
+           "sample": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (ns, _) in kernels.items():
         n = name.lower()
         k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n else
@@ -2757,27 +2800,33 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
              "int4" if "q4_kernel" in n or "w4_wgmma_kernel<0" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
+             "sample" if "gumbel_" in n or "suffix_match" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
         fam[k] += ns / 1e9
     busy = sum(fam.values())
-    # Device time under aten::bmm, its child ops included: the MoE dense
-    # (decode) expert combine's batched products (phase 8) or the Mamba
-    # hs . C contraction (phase 10), the only bmm of the port's forwards.
-    for spans in bmm_spans.values():
-        spans.sort()
-    bmm = 0
-    for e in host_ops:
-        spans = bmm_spans.get(e.start_thread_id())
-        if spans:
-            i = bisect.bisect_right(spans, (e.start_ns(), math.inf)) - 1
-            if i >= 0 and e.start_ns() <= spans[i][1]:
-                bmm += links.get(e.correlation_id(), 0)
+    # Device time under each span, its child ops included: under aten::bmm
+    # the MoE dense (decode) expert combine's batched products (phase 8) or
+    # the Mamba hs . C contraction (phase 10), the only bmm of the port's
+    # forwards; under "sample" the sampler (phase 20).
+    under, host = dict.fromkeys(spans, 0), dict.fromkeys(spans, 0)
+    for name, by_thread in span_of.items():
+        for ranges in by_thread.values():
+            ranges.sort()
+            host[name] += sum(b - a for a, b in ranges)
+        for e in host_ops:
+            ranges = by_thread.get(e.start_thread_id())
+            if ranges and e.name() != name:
+                i = bisect.bisect_right(ranges, (e.start_ns(), math.inf)) - 1
+                if i >= 0 and e.start_ns() <= ranges[i][1]:
+                    under[name] += links.get(e.correlation_id(), 0)
     log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in fam.items())
-        + f"; of which aten::bmm {bmm / 1e9:.3f} s; trace read in "
-        f"{time.perf_counter() - t0:.1f} s")
+        + "; of which " + ", ".join(
+            f"under {k} {v / 1e9:.3f} s (its host ranges {host[k] / 1e9:.3f}"
+            " s)" for k, v in under.items())
+        + f"; trace read in {time.perf_counter() - t0:.1f} s")
     for name, (ns, count) in sorted(kernels.items(),
                                     key=lambda kv: -kv[1][0])[:8]:
         log(f"# {phase} profile: {ns / 1e6:9.1f} ms x{count:<6d} "
@@ -2786,7 +2835,8 @@ def profile_run(one_run, phase: str = "phase 4") -> None:
 
 KERNEL_SOURCES = ["ragged_paged_attention", "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
-                  "selective_scan", "shared_prefix_attention", "w4_wgmma"]
+                  "selective_scan", "shared_prefix_attention", "w4_wgmma",
+                  "gumbel_sample", "suffix_match"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -3117,6 +3167,548 @@ def stamp(what: str) -> None:
     log(f"# {time.perf_counter() - T0:.0f} s: {what}")
 
 
+# The sampler slice (phases 2, 19 and 20).
+# INT32 lanes of a Hopper SM (NVIDIA H100 Tensor Core GPU Architecture
+# white paper: 64 INT32 units a streaming multiprocessor). The Gumbel
+# kernel's bound counts its int32 operations as the source writes them, all
+# at this rate; it leaves out adds folded into IADD3 and adds issued as IMAD
+# on the FMA pipe beside the ALU's shifts and LOP3s, so the card's floor may
+# lie below it (down to about half, with both pipes full).
+INT32_LANES_PER_SM = 64
+GUMBEL_ROWS, GUMBEL_VOCABS = (1, 32, 128), (151936, 128256)
+# The kernel's Gumbel values within GUMBEL_ULPS ulps of max(1, |g|) of the
+# plain version's (the logs' last ulp); tokens may differ only where the
+# plain version's two best noisy scores lie within NOISE_GAP (twice the
+# largest such error of a score, |g| < 17).
+GUMBEL_ULPS, NOISE_GAP = 4, 2e-5
+SUFFIX_ROWS, SUFFIX_LENS = 32, (1024, 2048)
+# Phase 20's three presets, in rotation over the 32 requests: illustrative
+# mixes that put every stage group of the path to work (top-k/top-p and top
+# logprobs; min-p, penalties, DRY and XTC; penalties, no-repeat-ngram and
+# temperature last), not the published defaults of any front end. The
+# creative preset's DRY breakers are Llama-3's ".", "," and "\n" tokens.
+SAMPLED_PRESETS = {
+    "api": dict(temperature=0.7, top_p=0.9, top_k=40, logprobs=5),
+    "creative": dict(temperature=1.0, min_p=0.05, repetition_penalty=1.1,
+                     dry_multiplier=0.8, dry_base=1.75, dry_allowed_length=2,
+                     dry_sequence_breaker_ids=[13, 11, 198],
+                     xtc_threshold=0.1, xtc_probability=0.5),
+    "penalised": dict(temperature=0.8, top_p=0.95, presence_penalty=0.5,
+                      frequency_penalty=0.3, no_repeat_ngram_size=3,
+                      temperature_last=True),
+}
+# Phase 19: a completion may part from the CPU's only at a near tie: the
+# CPU's noisy scores of its token and the card's lie within SAMPLE_GAP (fp32
+# forwards in another order move a logprob by ~1e-5), and at most a tenth
+# of the completions part.
+SAMPLE_GAP = 1e-3
+
+
+def int32_ops_per_s() -> float:
+    """The card's INT32 rate: SMs x INT32 lanes x its maximum SM clock
+    (``nvidia-smi``)."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def check_gumbel(gen) -> dict:
+    """Seeded Gumbel-max sampling at R in GUMBEL_ROWS x V in GUMBEL_VOCABS
+    (Qwen's and Llama-3's vocabularies), fp32 logprobs with every fourth
+    row top-k masked (40 finite columns) and, at R = 128, one row all
+    -inf, random seeds and counters: the kernel's noise bits and uniforms
+    equal to the plain stream's, its Gumbel values within GUMBEL_ULPS ulps,
+    its tokens equal but where the plain version's two best noisy scores
+    lie within NOISE_GAP, the -inf row's token 0. Times at phase 20's shape
+    (R = 32, V = 128256): the kernel, the plain version and
+    ``torch.multinomial`` over the same probabilities (another random
+    stream: a yardstick of cost only); the bound counts the kernel's int32
+    operations against ``int32_ops_per_s``."""
+    import torch
+    from aphrodite_tpu_torch.ops.gumbel_sample import (
+        INT_OPS_PER_COLUMN, gumbel_noise, gumbel_sample, ref_gumbel_sample)
+    from aphrodite_tpu_torch.sample import rng as trng
+    rate = int32_ops_per_s()
+    res = {}
+    for R in GUMBEL_ROWS:
+        for V in GUMBEL_VOCABS:
+            lp = torch.log_softmax(3 * torch.randn(
+                (R, V), generator=gen, device="cuda"), dim=-1)
+            for r in range(0, R, 4):
+                kth = lp[r].topk(40).values[-1]
+                lp[r] = torch.where(lp[r] >= kth, lp[r], float("-inf"))
+            if R == 128:
+                lp[-1] = float("-inf")
+            seeds = torch.randint(0, 2**31 - 1, (R,), generator=gen,
+                                  device="cuda")
+            out_len = torch.randint(0, 4096, (R,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+            step = 5
+            bits, unif, noise = gumbel_noise(seeds, out_len, step, V)
+            _, key = trng.sample_keys(seeds, out_len.long() + step)
+            pbits = trng.random_bits(key, V)
+            punif = trng.uniform(key, (V,), minval=trng.TINY)
+            pnoise = -torch.log(-torch.log(punif))
+            if not (torch.equal(bits, pbits) and torch.equal(unif, punif)):
+                raise AssertionError(f"gumbel_sample R={R} V={V}: noise "
+                                     "bits or uniforms differ")
+            ulp = torch.abs(torch.nextafter(
+                torch.clamp(pnoise.abs(), min=1.0),
+                torch.tensor(float("inf"), device="cuda"))
+                - torch.clamp(pnoise.abs(), min=1.0))
+            err = (noise - pnoise).abs()
+            if not bool((err <= GUMBEL_ULPS * ulp).all()):
+                raise AssertionError(f"gumbel_sample R={R} V={V}: Gumbel "
+                                     f"values {err.max().item():.3g} apart")
+            del bits, unif, pbits, punif
+            tok = gumbel_sample(lp, seeds, out_len, step)
+            ref = ref_gumbel_sample(lp, seeds, out_len, step)
+            noisy = torch.where(torch.isfinite(lp), lp + pnoise,
+                                float("-inf"))
+            top2 = noisy.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            part = tok != ref
+            torch.cuda.synchronize()
+            if bool((part & ~(gap < NOISE_GAP)).any()):
+                raise AssertionError(
+                    f"gumbel_sample R={R} V={V}: tokens {tok.tolist()} vs "
+                    f"plain {ref.tolist()}, gaps {gap.tolist()}")
+            if R == 128 and int(tok[-1]) != 0:
+                raise AssertionError("gumbel_sample: an all -inf row gave "
+                                     f"{int(tok[-1])}, want 0")
+            line = (f"# phase 2: gumbel_sample R={R} V={V}: bits and "
+                    f"uniforms equal, Gumbel max_abs_err "
+                    f"{err.max().item():.3g} (<= {GUMBEL_ULPS} ulp), tokens "
+                    f"equal in {R - int(part.sum())} of {R} rows (the rest "
+                    f"at gaps < {NOISE_GAP})")
+            if (R, V) == (32, 128256):
+                probs = lp.exp()
+                ms = cuda_ms(lambda: gumbel_sample(lp, seeds, out_len, step),
+                             50)
+                dev = device_ms(
+                    lambda: gumbel_sample(lp, seeds, out_len, step), 20)
+                plain_ms = cuda_ms(
+                    lambda: ref_gumbel_sample(lp, seeds, out_len, step), 3)
+                lib_ms = cuda_ms(lambda: torch.multinomial(probs, 1), 50)
+                ops = float(R) * V * INT_OPS_PER_COLUMN
+                t_ops = ops / rate * 1e3
+                t_bytes = (4.0 * R * V + 24.0 * R) / HBM_BYTES_PER_S * 1e3
+                b_ms, b_by = ((t_ops, "operations") if t_ops >= t_bytes
+                              else (t_bytes, "bytes"))
+                line += (f"; kernel {ms:.4f} ms (device {dev:.4f} ms), "
+                         f"plain {plain_ms:.4f} ms, torch.multinomial "
+                         f"(another stream) {lib_ms:.4f} ms, bound "
+                         f"{b_ms:.4f} ms ({b_by}: {ops / 1e6:.0f} M int32 "
+                         f"ops at {rate / 1e12:.2f} TOP/s; bytes "
+                         f"{t_bytes:.4f} ms)")
+                res = dict(max_abs_err=err.max().item(), ms=ms,
+                           device_ms=dev, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            log(line)
+            del lp, noise, pnoise, noisy, err, ulp
+    return res
+
+
+def suffix_histories(gen, R: int, L: int, kind: str):
+    """[R, L] int32 histories, their lengths and a break mask. "random":
+    a 6-token alphabet (many short matches); "periodic": repeated units of
+    1-8 tokens with a few breaks (matches up to the cap); "main": phase
+    20's rows, 512 random prompt tokens of Llama-3's vocabulary and up to
+    64 generated, lengths 512-576."""
+    import torch
+    if kind == "main":
+        lens = torch.randint(512, 577, (R,), generator=gen, device="cuda")
+        seq = torch.randint(10, 100000, (R, L), generator=gen,
+                            device="cuda")
+    else:
+        lens = torch.randint(0, L + 1, (R,), generator=gen, device="cuda")
+        lens[:2] = torch.tensor([L, 1])
+        if kind == "random":
+            seq = torch.randint(0, 6, (R, L), generator=gen, device="cuda")
+        else:
+            seq = torch.empty((R, L), dtype=torch.int64, device="cuda")
+            for r in range(R):
+                n = int(torch.randint(1, 9, (1,), generator=gen,
+                                      device="cuda"))
+                unit = torch.randint(0, 5, (n,), generator=gen,
+                                     device="cuda")
+                seq[r] = unit.repeat(L // n + 1)[:L]
+            seq[torch.rand((R, L), generator=gen, device="cuda") < 0.02] = 7
+    pos = torch.arange(L, device="cuda")[None, :]
+    seq = torch.where(pos < lens[:, None], seq, 128256).to(torch.int32)
+    brk = torch.rand((R, L), generator=gen, device="cuda") < 0.05
+    return seq, lens.to(torch.int32), brk
+
+
+def check_suffix(gen) -> dict:
+    """DRY's and no-repeat-ngram's suffix match lengths at R = 32, L in
+    SUFFIX_LENS, on random, periodic and phase-20-like histories with
+    breakers: bit-equal to the plain version. Times at phase 20's shape (L
+    = 1024, "main"); the bound counts 13 bytes a position (the history
+    and the mask read, two counts written) and 4 int32 operations a
+    comparison the data needs (min(m_plain + 1, 64) a position); no
+    PyTorch call computes it."""
+    import torch
+    from aphrodite_tpu_torch.ops.suffix_match import (MAX_MATCH,
+                                                      ref_suffix_match,
+                                                      suffix_match)
+    rate = int32_ops_per_s()
+    res = {}
+    for L in SUFFIX_LENS:
+        for kind in ("random", "periodic", "main"):
+            seq, lens, brk = suffix_histories(gen, SUFFIX_ROWS, L, kind)
+            got = suffix_match(seq, lens, brk)
+            want = ref_suffix_match(seq, lens, brk)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"suffix_match L={L} {kind}: differs "
+                                     "from the plain version")
+            line = (f"# phase 2: suffix_match R={SUFFIX_ROWS} L={L} {kind}: "
+                    f"equal to the plain version (longest match "
+                    f"{int(want[0].max())})")
+            if (L, kind) == (1024, "main"):
+                ms = cuda_ms(lambda: suffix_match(seq, lens, brk), 50)
+                dev = device_ms(lambda: suffix_match(seq, lens, brk), 20)
+                plain_ms = cuda_ms(lambda: ref_suffix_match(seq, lens, brk),
+                                   3)
+                ops = 4.0 * float(torch.clamp(want[0] + 1,
+                                              max=MAX_MATCH).sum())
+                t_ops = ops / rate * 1e3
+                t_bytes = 13.0 * SUFFIX_ROWS * L / HBM_BYTES_PER_S * 1e3
+                b_ms, b_by = ((t_ops, "operations") if t_ops >= t_bytes
+                              else (t_bytes, "bytes"))
+                line += (f"; kernel {ms:.4f} ms (device {dev:.4f} ms), "
+                         f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+                         f"({b_by}); no library call")
+                res = dict(max_abs_err=0.0, ms=ms, device_ms=dev,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=None)
+            log(line)
+    return res
+
+
+def sampled_trace(llm, prompts: list, params) -> tuple:
+    """``llm.generate`` of sampled requests; returns (the outputs, {request
+    id: [noisy score rows]}): the plain Gumbel-max's noisy scores each
+    token was drawn from (``sample_tokens``' draw is wrapped; row r of a
+    step's k-th draw is request ``req_ids[r]``'s k-th token). For the
+    CPU run, where the plain version draws."""
+    import torch
+    import aphrodite_tpu_torch.sample.sampler as sampler_mod
+    from aphrodite_tpu_torch.sample import rng as trng
+    runner, draw = llm.engine.core.worker.runner, sampler_mod.gumbel_sample
+    execute = runner.execute_model
+    seen, rows = [], {}
+
+    def spy(lp, seeds, out_len, step_offset=0):
+        _, key = trng.sample_keys(seeds, out_len.long() + step_offset)
+        noise = trng.gumbel(key, lp.shape[-1:])
+        seen.append(torch.where(torch.isfinite(lp), lp + noise,
+                                float("-inf")).cpu())
+        return draw(lp, seeds, out_len, step_offset)
+
+    def step(so):
+        seen.clear()
+        out = execute(so)
+        for r, (rid, toks) in enumerate(zip(out.req_ids,
+                                            out.sampled_token_ids)):
+            rows.setdefault(rid, []).extend(seen[k][r]
+                                            for k in range(len(toks)))
+        return out
+    sampler_mod.gumbel_sample, runner.execute_model = spy, step
+    try:
+        outs = llm.generate(prompts, params)
+    finally:
+        sampler_mod.gumbel_sample = draw
+        del runner.execute_model
+    return outs, rows
+
+
+def sampled_partings(what: str, cpu_outs, rows, gpu_outs) -> list:
+    """Completions of the card's run that part from the CPU's: at the
+    first differing step, the CPU's noisy scores of its token and the
+    card's must lie within SAMPLE_GAP, and at most a tenth of the
+    completions may part (later tokens of a parted completion follow
+    another history and are not compared). Returns (completion, step,
+    cpu token, card token, gap) for each."""
+    found, n = [], 0
+    for a, b in zip(cpu_outs, gpu_outs):
+        for ca, cb in zip(a.outputs, b.outputs):
+            n += 1
+            if len(ca.token_ids) != len(cb.token_ids):
+                raise AssertionError(f"{what}: lengths differ")
+            i = next((i for i, (x, y) in enumerate(
+                zip(ca.token_ids, cb.token_ids)) if x != y), None)
+            if i is None:
+                continue
+            rid = a.request_id if len(a.outputs) == 1 else \
+                f"{a.request_id}-cld-{ca.index}"
+            sc = rows[rid][i]
+            w, g = ca.token_ids[i], cb.token_ids[i]
+            found.append((rid, i, w, g, round(float(sc[w] - sc[g]), 6)))
+    wide = [p for p in found if not p[-1] < SAMPLE_GAP]
+    if wide or len(found) > n // 10:
+        raise AssertionError(f"{what}: partings (completion, step, cpu "
+                             f"token, card token, gap) {found}; gaps >= "
+                             f"{SAMPLE_GAP}: {wide}; at most {n // 10} of "
+                             f"{n} may part")
+    return found
+
+
+def sample_parity() -> dict:
+    """Phase 19: seeded sampled requests through the port on the card and
+    on the CPU with the same weights, fp32. A tiny Qwen2 (phase 3's) with
+    the three phase-20 presets in rotation over five prompts (a chunked
+    wave, 64-step windows), one request n = 2, logprobs = 5 on the API
+    rows and prompt_logprobs = 3 on one; a tiny Gemma-2 (phase 11's; the
+    multi-step path) under the creative preset and a tiny Mamba (phase 9's;
+    the SSM window) under the penalised one. Tokens equal but at near ties
+    (``sampled_partings``); both kernels launched on every card run.
+    Returns each kernel's launches, summed over the card runs."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.gumbel_sample import gumbel_sample
+    from aphrodite_tpu_torch.ops.suffix_match import suffix_match
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = {"gumbel_sample": gumbel_sample, "suffix_match": suffix_match}
+    total = dict.fromkeys(kernels, 0)
+    presets = list(SAMPLED_PRESETS.values())
+    qwen = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                num_attention_heads=8, num_key_value_heads=2,
+                intermediate_size=256, max_position_embeddings=1024,
+                tie_word_embeddings=False, architectures=["Qwen2ForCausalLM"])
+    gemma = dict(vocab_size=256, hidden_size=64, num_hidden_layers=3,
+                 intermediate_size=128, sliding_window=16,
+                 query_pre_attn_scalar=24, attn_logit_softcapping=50.0,
+                 final_logit_softcapping=30.0, max_position_embeddings=512,
+                 architectures=["Gemma2ForCausalLM"],
+                 **GEMMA_TINY["Gemma2ForCausalLM"])
+    mamba = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                 state_size=8, conv_kernel=4, tie_word_embeddings=False,
+                 architectures=["MambaForCausalLM"],
+                 **SSM_TINY["MambaForCausalLM"])
+    cases = [
+        ("tiny-qwen2", qwen, None, (7, 150, 64, 90, 33), None,
+         dict(block_size=64, num_kv_blocks=64, max_num_batched_tokens=96,
+              max_model_len=512)),
+        ("tiny-gemma2", gemma, redraw_gemma, (5, 40, 17, 33), 1,
+         dict(block_size=16, num_kv_blocks=128, max_num_batched_tokens=32,
+              max_model_len=256, decode_window=16)),
+        ("tiny-mamba", mamba, redraw_at_fan_in, (5, 40, 17, 33), 2,
+         dict(block_size=16, max_num_batched_tokens=16, max_model_len=256)),
+    ]
+    for name, cfg, redraw, lens, preset, extra in cases:
+        kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+                  max_num_seqs=4, **extra)
+        cpu = LLM(name, device="cpu", **kw)
+        if redraw is not None:
+            redraw(cpu.engine.core.worker.model, 6)
+        gpu = LLM(name, device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            {k: v.numpy() for k, v in
+             cpu.engine.core.worker.model.state_dict().items()})
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(1, cfg["vocab_size"] - 6, size=n).tolist()
+                   for n in lens]
+        params = []
+        for i in range(len(prompts)):
+            p = dict(presets[i % 3] if preset is None else presets[preset])
+            if p.get("dry_sequence_breaker_ids"):
+                p["dry_sequence_breaker_ids"] = [1, 2]
+            p.update(seed=500 + i, max_tokens=24, ignore_eos=True)
+            if name == "tiny-qwen2" and i == 1:
+                p["prompt_logprobs"] = 3
+            if name == "tiny-qwen2" and i == 4:
+                p["n"] = 2
+            params.append(SamplingParams(**p))
+        a, rows = sampled_trace(cpu, prompts, params)
+        for fn in kernels.values():
+            fn.launches = 0
+        b = gpu.generate(prompts, params)
+        got = {k: fn.launches for k, fn in kernels.items()}
+        if min(got.values()) <= 0:
+            raise AssertionError(f"phase 19 {name}: launches {got}")
+        found = sampled_partings(f"phase 19 {name}", a, rows, b)
+        lp_err = max((abs(x[t].logprob - y[t].logprob)
+                      for oa, ob in zip(a, b)
+                      for ca, cb in zip(oa.outputs, ob.outputs)
+                      if ca.logprobs and ca.token_ids == cb.token_ids
+                      for x, y in zip(ca.logprobs, cb.logprobs)
+                      for t in x), default=0.0)
+        plp = [o.prompt_logprobs for o in b if o.prompt_logprobs]
+        n_tok = sum(len(c.token_ids) for o in a for c in o.outputs)
+        log(f"# phase 19: {name}: card == cpu sampled tokens for "
+            f"{sum(len(o.outputs) for o in a)} completions ({n_tok} "
+            f"tokens) but at partings (completion, step, cpu token, card "
+            f"token, gap < {SAMPLE_GAP}) {found} ({len(found)} of the "
+            f"completions); top logprobs max |card - cpu| {lp_err:.3g}; "
+            f"prompt logprobs on {len(plp)} request(s); launches {got}")
+        for k in total:
+            total[k] += got[k]
+        del cpu, gpu
+    return total
+
+
+def main_path_sampled(llm, greedy: dict) -> dict:
+    """Phase 20, the sampler slice's main path: phase 6's Llama-3.1-8B
+    W4A16 engine after its greedy runs, the same 32 x (512 + 64) traffic
+    (``ignore_eos``) with each request seeded (2000 + i) and the three
+    ``SAMPLED_PRESETS`` in rotation. Every cold and warm run: exactly 2048
+    tokens, the packed W4 kernel 8064, ragged 32 and window 2016 times (as
+    phase 6), the Gumbel kernel 64 times (one draw for the wave and one
+    for each of the window's 63 sub-steps) and the suffix match 64 (one
+    launch at each of those draws serves DRY and no-repeat-ngram). Two
+    cold runs' tokens are compared (the noise is fixed by the seeds, so only the model's own
+    run-to-run numerics can part them). One captured sub-step (the
+    window's tenth): every token in the support the plain ``sample_tokens``
+    keeps for its row, and the kernel's token the plain version's but at
+    gaps < NOISE_GAP. Walls beside phase 6's greedy walls (``greedy``) and
+    a profiled run with the sampler's device time as a "sample" item."""
+    import dataclasses
+    import torch
+    import aphrodite_tpu_torch.sample.sampler as sampler_mod
+    import aphrodite_tpu_torch.worker.runner as runner_mod
+    from aphrodite_tpu_torch import SamplingParams
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops.gumbel_sample import (gumbel_sample,
+                                                       ref_gumbel_sample)
+    from aphrodite_tpu_torch.ops.suffix_match import (ref_suffix_match,
+                                                      suffix_match)
+    from aphrodite_tpu_torch.sample import rng as trng
+    phase, layers, steps = "phase 20", LLAMA31_8B["num_hidden_layers"], 63
+    num_prompts, prompt_len, decode_len = 32, 512, 64
+    rng = np.random.RandomState(0)  # phase 6's prompts
+    prompts = [rng.randint(10, 100000, size=prompt_len).tolist()
+               for _ in range(num_prompts)]
+    names = list(SAMPLED_PRESETS)
+    params = [SamplingParams(max_tokens=decode_len, ignore_eos=True,
+                             seed=2000 + i,
+                             **SAMPLED_PRESETS[names[i % 3]])
+              for i in range(num_prompts)]
+    counted = {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
+               **attention_kernels(), "gumbel_sample": gumbel_sample,
+               "suffix_match": suffix_match}
+    exact = {"w4a16_packed_matmul": 4 * layers * steps,
+             "ragged_paged_attention": layers,
+             "window_decode_attention": layers * steps,
+             "gumbel_sample": 1 + steps, "suffix_match": 1 + steps}
+    log(f"# {phase}: launches a run, reckoned: {exact}")
+
+    def one_run() -> float:
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        outs = llm.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        toks = [o.outputs[0].token_ids for o in outs]
+        if sum(map(len, toks)) != num_prompts * decode_len:
+            raise AssertionError(f"{phase}: {sum(map(len, toks))} tokens")
+        if not all(0 <= t < LLAMA31_8B["vocab_size"] for x in toks
+                   for t in x):
+            raise AssertionError(f"{phase}: token id out of the vocabulary")
+        got = {k: fn.launches for k, fn in counted.items()}
+        if got != exact:
+            raise AssertionError(f"{phase}: launches {got}, want {exact}")
+        one_run.tokens = toks
+        return dt
+
+    cold, warm, cold_tokens = [], [], []
+    for i in range(2):
+        if not llm.engine.reset_prefix_cache():
+            raise AssertionError("reset_prefix_cache refused")
+        cold.append(one_run())
+        cold_tokens.append(one_run.tokens)
+        log(f"# {phase}: cold run {i}: {cold[-1]:.3f} s")
+    for i in range(2):
+        warm.append(one_run())
+        log(f"# {phase}: warm run {i}: {warm[-1]:.3f} s")
+    same = sum(x == y for a, b in zip(*cold_tokens) for x, y in zip(a, b))
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None) for a, b in zip(*cold_tokens)]
+    log(f"# {phase}: two cold runs agree on {same} of "
+        f"{num_prompts * decode_len} tokens ({same / (num_prompts * decode_len):.1%}); "
+        f"{sum(f is not None for f in first)} of {num_prompts} requests "
+        f"part, first at steps {[f for f in first if f is not None]}")
+    n_dec = num_prompts * decode_len
+    n_all = num_prompts * (prompt_len + decode_len)
+    for label, ts in (("cold", cold), ("warm", warm)):
+        s = float(np.mean(ts))
+        g = greedy.get(label)
+        log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
+            f"{n_dec / s:.0f} decode tok/s; {n_all / s:.0f} tok/s "
+            f"(prefill+decode); phase 6 greedy in this call "
+            + (f"{g:.3f} s/run (+{s - g:.3f} s)" if g else "not run"))
+
+    # One captured sub-step against the plain pipeline on the same tensors.
+    sample, cap = runner_mod.sample_tokens, {}
+
+    def capture(logits, md, flags, max_lp=0, step_offset=0):
+        out = sample(logits, md, flags, max_lp, step_offset)
+        if step_offset == 10 and not cap:
+            cap.update(logits=logits.clone(), md=dataclasses.replace(
+                md, **{f.name: getattr(md, f.name).clone()
+                       for f in dataclasses.fields(md)}),
+                flags=flags, max_lp=max_lp, tokens=out["tokens"].clone())
+        return out
+    runner_mod.sample_tokens = capture
+    try:
+        llm.engine.reset_prefix_cache()
+        one_run()
+    finally:
+        runner_mod.sample_tokens = sample
+    kept = {}
+
+    def plain_draw(lp, seeds, out_len, step_offset=0):
+        _, key = trng.sample_keys(seeds, out_len.long() + step_offset)
+        kept["noisy"] = torch.where(torch.isfinite(lp), lp + trng.gumbel(
+            key, lp.shape[-1:]), float("-inf"))
+        return ref_gumbel_sample(lp, seeds, out_len, step_offset)
+    draw, match = sampler_mod.gumbel_sample, sampler_mod.suffix_match
+    sampler_mod.gumbel_sample, sampler_mod.suffix_match = (plain_draw,
+                                                           ref_suffix_match)
+    try:
+        plain = sample(cap["logits"], cap["md"], cap["flags"],
+                       cap["max_lp"], 10)["tokens"]
+    finally:
+        sampler_mod.gumbel_sample, sampler_mod.suffix_match = draw, match
+    noisy, tok = kept["noisy"], cap["tokens"]
+    support = torch.isfinite(noisy).sum(-1)
+    in_support = torch.isfinite(noisy.gather(1, tok[:, None]))[:, 0]
+    top2 = noisy.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    part = tok != plain
+    if not bool(in_support.all()) or bool((part & ~(gap < NOISE_GAP)).any()):
+        raise AssertionError(
+            f"{phase}: captured sub-step: kernel tokens {tok.tolist()}, "
+            f"plain {plain.tolist()}, in support {in_support.tolist()}, "
+            f"gaps {gap.tolist()}")
+    log(f"# {phase}: captured sub-step 10: every token in its row's "
+        f"support (sizes {support.tolist()}); kernel == plain tokens in "
+        f"{int((~part).sum())} of {num_prompts} rows (the rest at gaps < "
+        f"{NOISE_GAP})")
+
+    def profiled() -> float:
+        from torch.profiler import record_function
+
+        def spanned(*a, **kw):
+            with record_function("sample"):
+                return sample(*a, **kw)
+        runner_mod.sample_tokens = spanned
+        try:
+            return one_run()
+        finally:
+            runner_mod.sample_tokens = sample
+    llm.engine.reset_prefix_cache()
+    profile_run(profiled, phase, spans=("aten::bmm", "sample"))
+    return {k: exact[k] for k in counted}
+
+
 KV_FP8 = ("float8_e4m3fn", "float8_e5m2")
 # The fp8-cache instances timed (beside their bf16-cache selves at the same
 # call's shapes): the 8B path's in bf16 (phase 18), Qwen2.5-1.5B's heads in
@@ -3314,12 +3906,23 @@ def main() -> int:
         f"0); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}); no library call")
     results[("selective_scan", "float32")] = r
+    stamp("phase 2: the sampler's kernels")
+    results[("gumbel_sample", "float32")] = check_gumbel(gen)
+    results[("suffix_match", "int32")] = check_suffix(gen)
+    stamp("phase 2: the W4 prefill product")
     check_prefill_w4(gen)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
     quant_counts = quant_parity()
-    llama_counts = main_path_8b()
+    stamp("phase 19")
+    sample_parity_launches = sample_parity()
+    log(f"# phase 19: launches on the card runs {sample_parity_launches}")
+    stamp("phase 6")
+    llama_counts, sampled_counts = main_path_8b()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("phase 7")
     moe_parity()
     moe_counts = main_path_moe()
     ssm_parity()
@@ -3437,6 +4040,13 @@ def main() -> int:
                                                  "int4-cascade/fp8_e4m3")],
                  results[("shared_prefix_attention", "float32", e4)], e4))
     replaces["fp8_matmul"] = "aphrodite_tpu/ops/quant_gemm.py:74"
+    # The sampler slice's kernels on phase 20's path (phase 2's shapes).
+    rows += [(name, "llama-3.1-8b-w4a16-sampled", dt,
+              sampled_counts[name], results[(name, dt)], "auto")
+             for name, dt in (("gumbel_sample", "float32"),
+                              ("suffix_match", "int32"))]
+    replaces["gumbel_sample"] = "aphrodite_tpu/sample/sampler.py:494"
+    replaces["suffix_match"] = "aphrodite_tpu/sample/sampler.py:38"
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
