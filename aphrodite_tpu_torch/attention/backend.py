@@ -12,6 +12,7 @@ further restricted by a sliding window when configured.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -28,7 +29,7 @@ from aphrodite_tpu_torch.utils import to_fp8
 
 __all__ = ["kv_cache_shape", "write_kv", "write_tail", "paged_attention",
            "window_attention", "ref_ragged_paged_attention", "cast_to",
-           "as_bytes"]
+           "as_bytes", "alibi_slopes"]
 
 
 def kv_cache_shape(num_layers: int, num_pages: int, page_size: int,
@@ -73,6 +74,22 @@ def write_tail(tail: torch.Tensor, rows: torch.Tensor, layer: int,
     """Write this step's K (or V) rows [R, kvh, hd] into the window tail
     [L, R, kvh, Kw, hd], in place, in the tail's dtype."""
     as_bytes(tail)[layer, :, :, step] = as_bytes(cast_to(rows, tail.dtype))
+
+
+def alibi_slopes(num_heads: int) -> torch.Tensor:
+    """Standard ALiBi head slopes [num_heads] fp32 (Press et al.; HF's
+    ``build_alibi_tensor``), computed in float64 and rounded once, as the
+    JAX package's ``alibi_slopes`` (``attention/backend.py:123-134``):
+    base**(i+1) for the largest power of two n <= num_heads, then the odd
+    steps of the next power of two for the heads past n."""
+    n = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+    slopes = [base ** (i + 1) for i in range(n)]
+    if n < num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * n) - 3)))
+        slopes += [extra_base ** (i + 1)
+                   for i in range(1, 2 * (num_heads - n), 2)]
+    return torch.tensor(slopes, dtype=torch.float64).float()
 
 
 def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int,

@@ -19,6 +19,18 @@ from aphrodite_tpu_torch.utils import cdiv, torch_dtype
 # Valid KV-cache dtypes (``aphrodite_tpu/config.py:26``).
 KV_CACHE_DTYPES = ("auto", "fp8", "fp8_e4m3", "fp8_e5m2")
 
+# Remote-code spellings of the geometry, filled into a dict config where
+# the canonical name is missing (``aphrodite_tpu/config.py:116-124``, its
+# generic-config path; a ``transformers`` config maps them itself).
+_ALIASES = {
+    "num_attention_heads": ("n_head", "n_heads"),
+    "num_hidden_layers": ("n_layer", "n_layers", "num_layers"),
+    "hidden_size": ("d_model", "n_embd"),
+    "intermediate_size": ("n_inner",),
+    "max_position_embeddings": ("max_seq_len", "model_max_length",
+                                "seq_length", "n_positions"),
+}
+
 
 @dataclass
 class ModelConfig:
@@ -47,7 +59,12 @@ class ModelConfig:
             with open(os.path.join(str(self.model), "config.json")) as f:
                 self.hf_config = json.load(f)
         if isinstance(self.hf_config, dict):
-            self.hf_config = SimpleNamespace(**self.hf_config)
+            d = dict(self.hf_config)
+            for canon, alts in _ALIASES.items():
+                given = [d[a] for a in alts if a in d]
+                if canon not in d and given:
+                    d[canon] = given[0]
+            self.hf_config = SimpleNamespace(**d)
         archs = getattr(self.hf_config, "architectures", None) or []
         self.architecture: Optional[str] = archs[0] if archs else None
         derived_max = getattr(self.hf_config, "max_position_embeddings",
@@ -78,8 +95,23 @@ class ModelConfig:
 
     @property
     def num_kv_heads(self) -> int:
+        """KV heads (``aphrodite_tpu/config.py:242-251``): MPT's
+        ``attn_config.kv_n_heads`` (the reference reads it for DBRX only:
+        ROADMAP C); Falcon's ``num_kv_heads`` in its new architecture,
+        else one under ``multi_query``; else ``num_key_value_heads``."""
         if self.is_attention_free:
             return 1
+        model_type = self.get("model_type", "")
+        if model_type == "mpt":
+            ac = self.get("attn_config")
+            kv = (ac.get("kv_n_heads") if isinstance(ac, dict)
+                  else getattr(ac, "kv_n_heads", None))
+            return kv or self.num_attention_heads
+        if model_type == "falcon":
+            if self.get("new_decoder_architecture", False):
+                return self.get("num_kv_heads") or self.num_attention_heads
+            return 1 if self.get("multi_query", False) \
+                else self.num_attention_heads
         return self.get("num_key_value_heads") or self.num_attention_heads
 
     @property

@@ -130,17 +130,18 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ kb,
 // Lane j owns key j. q_row: [hd] float; acc_row: [hd] float; m, l: the
 // row's running max and sum (read by every lane, written by lane 0);
 // p_w: this warp's [kTile] scratch. valid: whether key `lane` is visible
-// to this row. Keys whose logit is masked contribute exactly 0.
+// to this row. bias: lane's ALiBi term, added to the scaled logit before
+// the soft cap. Keys whose logit is masked contribute exactly 0.
 __device__ __forceinline__ void tile_update(
     const float* q_row, const float* k_s, const float* v_s, int n, int hd,
     bool valid, float scale, float soft_cap, float* acc_row, float* m,
-    float* l, float* p_w, int lane) {
+    float* l, float* p_w, int lane, float bias = 0.f) {
   float s = -INFINITY;
   if (valid) {
     const float* kr = k_s + lane * (hd + 1);
     float dot = 0.f;
     for (int d = 0; d < hd; ++d) dot = fmaf(q_row[d], kr[d], dot);
-    s = dot * scale;
+    s = dot * scale + bias;
     if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
   }
   const float m_prev = *m;

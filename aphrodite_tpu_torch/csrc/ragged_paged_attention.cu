@@ -5,9 +5,10 @@
 // function: causal attention of a ragged batch of query tokens
 // q [T, nq, hd] over each request's KV pages, read through block_tables
 // from one layer of the cache [P, 2, kvh, page, hd], with optional sliding
-// window, chunked local attention and logit soft cap (cap * tanh(s / cap)
-// on the scaled logit, before the mask). Fully masked rows give 0
-// (acc / max(l, 1e-20)), never NaN.
+// window, chunked local attention, ALiBi and logit soft cap: the bias
+// slope[h * group + g] * (kv_pos - q_pos) on the scaled logit, then
+// cap * tanh(s / cap), then the mask, in the TPU kernel's order (:201-216).
+// Fully masked rows give 0 (acc / max(l, 1e-20)), never NaN.
 //
 // Work items. The host cuts each request's scheduled tokens into items of
 // up to block_q tokens. One block runs one (item, KV head): its rows are
@@ -47,6 +48,23 @@
 // tiles wholly in its rows' future or before their window or chunk, and
 // the block starts at the item's first visible tile.
 //
+// ALiBi (slopes: [nq] fp32, or null) is a template switch of the
+// tensor-core instance, as the soft cap is: as a uniform branch on the
+// pointer it cost the instances without ALiBi 4-5 % (its registers and
+// code in their main loop), and those serve every other path. The scalar
+// instance takes it as that uniform branch. Positions are absolute (the
+// row's token_pos, the key's index), so a chunk of a prompt sees the keys
+// of earlier chunks at their distances. The scalar instance adds the bias
+// to the scaled logit (tile_update). The tensor-core instance reads a
+// row's slope once, divided by the scale, and adds slope/scale * (kv -
+// q_pos) to the raw logit q.k (the distance a float add of small integers,
+// exact; one FMA a score), so both folds stay as they are: without a cap
+// exp2((s + slope/scale * d) * scale * log2e) = exp2((s * scale + slope *
+// d) * log2e); with one cap * tanh((s + slope/scale * d) * scale/cap) =
+// cap * tanh((s * scale + slope * d) / cap). It costs ~10 % at phase 22's
+// wave (PERF.md): one FMA a score with the row's constant taken out of
+// the loop cost as much, and reading the slope each tile cost more.
+//
 // An fp8 cache (e4m3fn or e5m2, the template type KV): the TPU kernel
 // upcasts each K/V tile to q's dtype before both products (:194-196), and
 // so do these. The tensor-core instance stages the tile's bytes by 16-byte
@@ -85,7 +103,8 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
            const int* __restrict__ seq_lens,
            const int* __restrict__ block_tables, int max_pages, int nq,
            int kvh, int page_size, int hd, int block_q, float scale,
-           int sliding_window, int chunk_attn, float soft_cap) {
+           int sliding_window, int chunk_attn, float soft_cap,
+           const float* __restrict__ alibi) {
   using namespace attn;
   const int item = blockIdx.x, h = blockIdx.y;
   const int group = nq / kvh;
@@ -134,9 +153,13 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
       const int kv_pos = kv0 + lane;
       const bool valid = lane < n && kv_pos <= q_pos &&
                          local_ok(kv_pos, q_pos, sliding_window, chunk_attn);
+      const float bias = alibi != nullptr
+                             ? alibi[h * group + r % group] *
+                                   (float)(kv_pos - q_pos)
+                             : 0.f;
       tile_update(q_s + (size_t)r * hd, k_s, v_s, n, hd, valid, scale,
                   soft_cap, acc_s + (size_t)r * hd, m_s + r, l_s + r,
-                  p_s + warp * kTile, lane);
+                  p_s + warp * kTile, lane, bias);
     }
   }
   __syncthreads();
@@ -154,7 +177,7 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
            const int* seq_lens, const int* block_tables, int num_items,
            int max_pages, int nq, int kvh, int page_size, int hd, int block_q,
            float scale, int sliding_window, int chunk_attn, float soft_cap,
-           int smem_bytes, cudaStream_t stream) {
+           const float* alibi, int smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       rpa_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -163,7 +186,7 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), item_req, item_qstart, item_qlen, item_pos,
       seq_lens, block_tables, max_pages, nq, kvh, page_size, hd, block_q,
-      scale, sliding_window, chunk_attn, soft_cap);
+      scale, sliding_window, chunk_attn, soft_cap, alibi);
   return (int)cudaGetLastError();
 }
 
@@ -187,7 +210,7 @@ struct TcCfg {
   static constexpr int kSmem = kRing + kStaged;
 };
 
-template <int HD, bool kCap, typename KV>
+template <int HD, bool kCap, bool kAlibi, typename KV>
 __global__ void __launch_bounds__(128, 2)
 rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
               const KV* __restrict__ cache,
@@ -199,7 +222,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
               const int* __restrict__ seq_lens,
               const int* __restrict__ block_tables, int max_pages, int nq,
               int kvh, int page_size, float scale, int sliding_window,
-              int chunk_attn, float soft_cap) {
+              int chunk_attn, float soft_cap,
+              const float* __restrict__ alibi) {
   using namespace attn;
   using namespace mma;
   using C = TcCfg<HD, KV>;
@@ -284,6 +308,20 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
       qp[mt][hf] = pos0 + min((w_row + mt * 16 + hf * 8 + gq) / group, last);
+  // ALiBi: each row's slope over the scale (raw-logit units), read once,
+  // and its position as a float.
+  [[maybe_unused]] float sl[MT][2], qpf[MT][2];
+  if constexpr (kAlibi) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        sl[mt][hf] =
+            alibi[h * group + (w_row + mt * 16 + hf * 8 + gq) % group] /
+            scale;
+        qpf[mt][hf] = (float)qp[mt][hf];
+      }
+  }
   const bool warp_live = w_row < rows;
   const int w_lo = pos0 + min(w_row / group, last);
   const int w_hi = pos0 + min((w_row + 16 * MT - 1) / group, last);
@@ -358,9 +396,26 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // Soft cap (on the scaled logit), then the mask where some key is
-    // hidden from some row of the warp: uniform branches around whole
-    // loops, so that no lane issues what its tile does not need.
+    // ALiBi, the soft cap (on the scaled logit), then the mask where some
+    // key is hidden from some row of the warp: switches and uniform
+    // branches around whole loops, so that no lane issues what its tile
+    // does not need.
+    if constexpr (kAlibi) {
+      const float kf = (float)(kv0 + 2 * tq);  // this lane's first key
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float d0 = kf - qpf[mt][hf];
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[mt][j][2 * hf + e] =
+                  fmaf(sl[mt][hf], d0 + (float)(j * 8 + e),
+                       s[mt][j][2 * hf + e]);
+        }
+    }
     if constexpr (kCap) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -471,23 +526,24 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 }
 
-template <int HD, bool kCap, typename KV>
+template <int HD, bool kCap, bool kAlibi, typename KV>
 int launch_tc(const void* q, const void* cache, void* out,
               const int* item_req, const int* item_qstart,
               const int* item_qlen, const int* item_pos, const int* seq_lens,
               const int* block_tables, int num_items, int max_pages, int nq,
               int kvh, int page_size, float scale, int sliding_window,
-              int chunk_attn, float soft_cap, cudaStream_t stream) {
+              int chunk_attn, float soft_cap, const float* alibi,
+              cudaStream_t stream) {
   using C = TcCfg<HD, KV>;
   const cudaError_t err =
-      mma::allow_smem<rpa_tc_kernel<HD, kCap, KV>>(C::kSmem);
+      mma::allow_smem<rpa_tc_kernel<HD, kCap, kAlibi, KV>>(C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  rpa_tc_kernel<HD, kCap, KV>
+  rpa_tc_kernel<HD, kCap, kAlibi, KV>
       <<<dim3(num_items, kvh), C::kThreads, C::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(cache),
       static_cast<__nv_bfloat16*>(out), item_req, item_qstart, item_qlen,
       item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size, scale,
-      sliding_window, chunk_attn, soft_cap);
+      sliding_window, chunk_attn, soft_cap, alibi);
   return (int)cudaGetLastError();
 }
 
@@ -499,13 +555,13 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
               const int* block_tables, int num_items, int max_pages, int nq,
               int kvh, int page_size, int hd, int block_q, float scale,
               int sliding_window, int chunk_attn, float soft_cap,
-              int smem_bytes, cudaStream_t s) {
+              const float* alibi, int smem_bytes, cudaStream_t s) {
 #define RPA_KV(KV)                                                          \
   return launch<T, KV>(q, cache_layer, out, item_req, item_qstart,          \
                        item_qlen, item_pos, seq_lens, block_tables,         \
                        num_items, max_pages, nq, kvh, page_size, hd,        \
                        block_q, scale, sliding_window, chunk_attn, soft_cap, \
-                       smem_bytes, s)
+                       alibi, smem_bytes, s)
   if (kv_dtype == kKvAuto) RPA_KV(T);
   if (kv_dtype == kKvE4M3) RPA_KV(__nv_fp8_e4m3);
   if (kv_dtype == kKvE5M2) RPA_KV(__nv_fp8_e5m2);
@@ -516,7 +572,7 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
 }  // namespace
 
 // The scalar kernel (fp32 or bf16 q, any head_dim; the cache in q's dtype
-// or fp8, kv_dtype a KvDtype code).
+// or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null).
 extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
                           const void* cache_layer, void* out,
                           const int* item_req, const int* item_qstart,
@@ -525,26 +581,28 @@ extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
                           int num_items, int max_pages, int nq, int kvh,
                           int page_size, int hd, int block_q, float scale,
                           int sliding_window, int chunk_attn, float soft_cap,
-                          int smem_bytes, void* stream) {
+                          const float* alibi, int smem_bytes, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return launch_kv<float>(kv_dtype, q, cache_layer, out, item_req,
                             item_qstart, item_qlen, item_pos, seq_lens,
                             block_tables, num_items, max_pages, nq, kvh,
                             page_size, hd, block_q, scale, sliding_window,
-                            chunk_attn, soft_cap, smem_bytes, s);
+                            chunk_attn, soft_cap, alibi, smem_bytes, s);
   if (dtype == kBFloat16)
     return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, out, item_req,
                                     item_qstart, item_qlen, item_pos,
                                     seq_lens, block_tables, num_items,
                                     max_pages, nq, kvh, page_size, hd,
                                     block_q, scale, sliding_window,
-                                    chunk_attn, soft_cap, smem_bytes, s);
+                                    chunk_attn, soft_cap, alibi, smem_bytes,
+                                    s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The tensor-core kernel (bf16 q, head_dim 64, 128 or 256; the cache bf16
-// or fp8, kv_dtype a KvDtype code). block_q * (nq / kvh) must fit the
+// or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null).
+// block_q * (nq / kvh) must fit the
 // instance's rows (128 at head_dim <= 128, 64 at 256:
 // ops/ragged_paged_attention.py ragged_tc_block_q).
 extern "C" int rpa_tc_launch(int kv_dtype, const void* q,
@@ -556,19 +614,23 @@ extern "C" int rpa_tc_launch(int kv_dtype, const void* q,
                              int max_pages, int nq, int kvh, int page_size,
                              int hd, int block_q, float scale,
                              int sliding_window, int chunk_attn,
-                             float soft_cap, void* stream) {
+                             float soft_cap, const float* alibi,
+                             void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (kvh <= 0 || nq % kvh || block_q <= 0)
     return (int)cudaErrorInvalidValue;
   const int rows = block_q * (nq / kvh);
+  const bool cap = soft_cap > 0.f, ali = alibi != nullptr;
 #define RPA_TC(HD, KV)                                                      \
   if (hd == HD) {                                                           \
     if (rows > TcCfg<HD, KV>::kRows) return (int)cudaErrorInvalidValue;     \
-    return (soft_cap > 0.f ? launch_tc<HD, true, KV>                        \
-                           : launch_tc<HD, false, KV>)(                     \
+    return (cap ? (ali ? launch_tc<HD, true, true, KV>                      \
+                       : launch_tc<HD, true, false, KV>)                    \
+                : (ali ? launch_tc<HD, false, true, KV>                     \
+                       : launch_tc<HD, false, false, KV>))(                 \
         q, cache_layer, out, item_req, item_qstart, item_qlen, item_pos,    \
         seq_lens, block_tables, num_items, max_pages, nq, kvh, page_size,   \
-        scale, sliding_window, chunk_attn, soft_cap, s);                    \
+        scale, sliding_window, chunk_attn, soft_cap, alibi, s);             \
   }
 #define RPA_TC_KV(KV) \
   RPA_TC(64, KV)      \

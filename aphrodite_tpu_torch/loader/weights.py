@@ -1,7 +1,8 @@
 """Model construction and weight loading.
 
 Only dummy (seeded random) weights and the JAX package's parameter tree
-(dense, quantized, sparse-MoE and Mamba-family) are ported; loading a
+(dense, quantized, sparse-MoE, Mamba-family and ``FlexibleDecoder``) are
+ported; loading a
 checkpoint from disk is not. With a quantization config, the dummy weights
 are quantized on the fly layer by layer and W4 leaves are packed where the
 JAX loader packs them (``quantization/loader.py``), so a ``params_from_jax``
@@ -42,6 +43,16 @@ _SSM_LEAVES = ("norm", "in_proj", "in_b", "conv_w", "conv_b", "x_proj",
                "dt_w", "dt_b", "dt_bias", "A_log", "D", "gated_norm_w",
                "out_proj", "out_b")
 _SSM_REQUIRED = ("norm", "in_proj", "conv_w", "A_log", "D", "out_proj")
+# A FlexibleDecoder layer's leaves (``llama_variants.py:170-222``), named
+# as in the JAX tree, Q/K/V and a gated MLP's gate/up fused on N; and the
+# tree's top-level leaves.
+_FLEX_FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv"),
+               "w_gate_up": ("w_gate", "w_up"),
+               "b_gate_up": ("b_gate", "b_up")}
+_FLEX_DIRECT = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "wo", "bo", "w_down",
+                "b_down", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+_FLEX_TOP = ("embed", "embed_ln_w", "embed_ln_b", "final_norm_w",
+             "final_norm_b", "lm_head")
 
 
 def create_model(model_config: ModelConfig, device: torch.device | str,
@@ -132,6 +143,23 @@ def _ssm_params_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
     return out
 
 
+def _flexible_params_from_jax(tree: Mapping[str, Any]
+                              ) -> dict[str, np.ndarray]:
+    layers = tree["layers"]
+    known = set(_FLEX_DIRECT) | set(_FLEX_FUSED) | {
+        p for parts in _FLEX_FUSED.values() for p in parts}
+    unknown = sorted(set(layers) - known)
+    if unknown:
+        raise NotImplementedError(
+            f"FlexibleDecoder leaves {unknown} are not ported yet "
+            "(ROADMAP A13)")
+    out = {k: _np(tree[k]) for k in _FLEX_TOP if k in tree}
+    for name, arr in _stack(layers, _FLEX_FUSED, _FLEX_DIRECT).items():
+        for i, row in enumerate(arr):
+            out[f"layers.{i}.{name}"] = row
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     layer_kinds: Optional[list[str]] = None
                     ) -> dict[str, np.ndarray]:
@@ -157,10 +185,16 @@ def params_from_jax(tree: Mapping[str, Any],
     model's ``layer_kinds``. They become ``layers.<i>.moe.<name>``.
 
     Mamba-family trees (an ``A_log`` stack) keep their leaf names:
-    ``layers.<name>[i]`` becomes ``layers.<i>.<name>``."""
+    ``layers.<name>[i]`` becomes ``layers.<i>.<name>``; so do
+    ``FlexibleDecoder`` trees (an ``ln1_w`` stack: BLOOM, MPT, Falcon,
+    Baichuan), but for Q/K/V and gate/up, fused as ``w_qkv`` / ``b_qkv``
+    and ``w_gate_up`` / ``b_gate_up``, and its top-level ``embed``,
+    ``embed_ln_w/b``, ``final_norm_w/b`` and ``lm_head``."""
     layers = tree["layers"]
     if "A_log" in layers:
         return _ssm_params_from_jax(tree)
+    if "ln1_w" in layers:
+        return _flexible_params_from_jax(tree)
     num_layers = _np(layers["input_norm"]).shape[0]
     out = {"embed": _np(tree["embed"]), "final_norm": _np(tree["final_norm"])}
     if "lm_head" in tree:

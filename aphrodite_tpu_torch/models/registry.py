@@ -22,6 +22,13 @@ MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "MambaForCausalLM": ("mamba", "MambaForCausalLM"),
     "FalconMambaForCausalLM": ("mamba", "FalconMambaForCausalLM"),
     "Mamba2ForCausalLM": ("mamba", "Mamba2ForCausalLM"),
+    "BloomForCausalLM": ("llama_variants", "BloomForCausalLM"),
+    "MPTForCausalLM": ("llama_variants", "MPTForCausalLM"),
+    "MptForCausalLM": ("llama_variants", "MPTForCausalLM"),
+    "FalconForCausalLM": ("llama_variants", "FalconForCausalLM"),
+    "RWForCausalLM": ("llama_variants", "FalconForCausalLM"),
+    "BaichuanForCausalLM": ("llama_variants", "BaichuanForCausalLM"),
+    "BaiChuanForCausalLM": ("llama_variants", "BaiChuanForCausalLM"),
 }
 
 

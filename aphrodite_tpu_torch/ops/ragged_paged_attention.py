@@ -11,7 +11,11 @@ function and the runner asks ``ragged_work_item_tokens`` for the one that
 the model's dtype will run. Query token i of request r at position p attends to the
 request's KV positions j <= p, read through its block table from one layer
 of the paged cache, optionally restricted by a sliding window or chunked
-local attention, with an optional logit soft cap.
+local attention, with an optional logit soft cap and ALiBi: the bias
+slope[h] * (j - p) on the scaled logit, before the soft cap, as the TPU
+kernel adds it (``ragged_paged_attention.py:201-216``; the JAX oracle
+``attention/backend.py`` adds it after the cap, so the two agree only
+without one).
 
 The cache holds q's dtype or fp8 (e4m3fn or e5m2): both instances upcast
 an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
@@ -31,9 +35,9 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _I, _I, _F, _I, _I, _F, _I, _P]
+             _I, _I, _I, _F, _I, _I, _F, _P, _I, _P]
 _TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                _I, _I, _F, _I, _I, _F, _P]
+                _I, _I, _F, _I, _I, _F, _P, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
@@ -140,10 +144,14 @@ def ref_ragged_paged_attention(
     sliding_window: Optional[int] = None,
     logits_soft_cap: Optional[float] = None,
     chunk_attn: Optional[int] = None,
+    alibi: Optional[torch.Tensor] = None,  # [nq] fp32 slopes
 ) -> torch.Tensor:
     """Plain PyTorch version (CPU path and the kernel's yardstick of
     correctness): per request, gather its pages and run a masked fp32
-    softmax for its tokens (an fp8 cache's K/V upcast exactly)."""
+    softmax for its tokens (an fp8 cache's K/V upcast exactly). ALiBi
+    adds slope[h * group + g] * (kv_pos - q_pos) to the scaled logit
+    before the soft cap, with absolute positions (a chunk's queries sit
+    past the keys of earlier chunks)."""
     _, _, kvh, page, hd = cache_layer.shape
     T, nq, _ = q.shape
     group = nq // kvh
@@ -156,9 +164,14 @@ def ref_ragged_paged_attention(
         kv = kv.permute(1, 2, 0, 3, 4).reshape(2, kvh, max_kv, hd).float()
         qf = q[idx].float().reshape(len(idx), kvh, group, hd)
         logits = torch.einsum("thgd,hkd->thgk", qf, kv[0]) * scale
+        pos = md.token_pos[idx].long()[:, None]
+        if alibi is not None:
+            slopes = alibi.float().reshape(kvh, group)
+            logits = logits + (slopes[None, :, :, None]
+                               * (kv_pos[None, :] - pos).float()[:, None,
+                                                                 None, :])
         if logits_soft_cap is not None:
             logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
-        pos = md.token_pos[idx].long()[:, None]
         mask = kv_pos[None, :] <= pos
         if sliding_window is not None:
             mask &= kv_pos[None, :] > pos - sliding_window
@@ -183,18 +196,21 @@ def ragged_paged_attention(
     alibi: Optional[torch.Tensor] = None,
     mm_bidir_spans: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Attention output [T, nq, hd] in q's dtype. The kernel reads the
-    layer through its base pointer in the full cache: nothing is copied."""
-    if alibi is not None or mm_bidir_spans is not None:
+    """Attention output [T, nq, hd] in q's dtype. ``alibi``: [nq] fp32
+    slopes on q's device, or None. The kernel reads the layer through its
+    base pointer in the full cache: nothing is copied."""
+    if mm_bidir_spans is not None:
         raise NotImplementedError(
-            "ALiBi and bidirectional spans are not ported to the CUDA "
-            "ragged attention kernel yet")
+            "bidirectional image spans are not ported to the ragged "
+            "attention kernel yet: they come with PaliGemma and Gemma-3 "
+            "multimodal (ROADMAP A13)")
     code = kv_code(q.dtype, kv_cache.dtype)
     cache_layer = kv_cache[layer]
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
             q, cache_layer, md, scale, sliding_window=sliding_window,
-            logits_soft_cap=logits_soft_cap, chunk_attn=chunk_attn)
+            logits_soft_cap=logits_soft_cap, chunk_attn=chunk_attn,
+            alibi=alibi)
     if not q.is_cuda or q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported query tensor: {q.device} {q.dtype}")
     if not (q.is_contiguous() and kv_cache.is_contiguous()):
@@ -211,6 +227,13 @@ def ragged_paged_attention(
                 or t.device != q.device:
             raise ValueError("metadata must be contiguous int32 on q's "
                              "device")
+    if alibi is not None and (alibi.dtype != torch.float32
+                              or alibi.shape != (nq,)
+                              or not alibi.is_contiguous()
+                              or alibi.device != q.device):
+        raise ValueError("alibi must be contiguous [nq] float32 on q's "
+                         "device")
+    slopes = alibi.data_ptr() if alibi is not None else None
     out = torch.empty_like(q)
     num_items = md.item_req.shape[0]
     if num_items == 0:
@@ -237,7 +260,7 @@ def ragged_paged_attention(
             *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-            stream)
+            slopes, stream)
     else:
         smem = ragged_smem_bytes(md.block_q, group, hd)
         cuda_build.check_smem(what, smem, cuda_build.smem_optin())
@@ -248,7 +271,7 @@ def ragged_paged_attention(
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-            smem, stream)
+            slopes, smem, stream)
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     return out

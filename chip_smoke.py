@@ -136,6 +136,21 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    plain ``sample_tokens`` (every token in its row's support, the kernel's
    token the plain one's but at gaps < ``NOISE_GAP``); walls beside phase
    6's and a profile with the sampler's device time ("under sample").
+21. ALiBi parity: tiny BLOOM, MPT (clip_qkv), Falcon-rw / 7b / new
+   architecture and Baichuan (ALiBi) in their config.json spellings
+   (``FLEX_TINY``), fp32, weights redrawn (``redraw_flexible``), card vs
+   CPU with the same weights, a 16-token batch budget (mixed waves whose
+   chunks sit past the keys earlier chunks cached) and 8-step decode
+   windows on the multi-step path: greedy tokens must be equal; on the card
+   every call of the ragged and decode kernels carries the model's slopes
+   for the ALiBi families and none for Falcon's rope ones (``SlopeSpy``).
+22. The main path of the ALiBi slice: Baichuan2-13B
+   (``baichuan-inc/Baichuan2-13B-Chat``: 40 / 40 heads of 128, ALiBi on
+   every head, SwiGLU 13696, vocab 125696, untied head) at full width and
+   depth, bf16 dummy weights (27.8 GB), phase 6's traffic and runs.
+   Exactly 2048 tokens a run; in every cold and warm run the ragged kernel
+   exactly 40 and the decode kernel exactly 40 x 63 = 2520 launches, every
+   call with the slopes, the window kernel never; a profiled run.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -212,6 +227,16 @@ Gumbel values within ``GUMBEL_ULPS`` ulps, its tokens equal but at gaps
 bound the int32 operations at the card's INT32 rate (``int32_ops_per_s``).
 And the suffix match at R = 32, L in (1024, 2048) on random, periodic and
 phase-20-like histories with breakers: bit-equal; no library call.
+
+For the ALiBi slice phase 2 holds the ragged kernel with the model's
+slopes (``alibi_slopes``) against its plain version in bf16 (the
+tensor-core instance's ALiBi switch) and fp32 (the scalar one): at phase
+22's wave (timed beside ``scaled_dot_product_attention`` with the bias as a
+float mask, and in bf16 beside the same wave without ALiBi), and at
+``ALIBI_RAGGED_CASES`` (group 8 over later chunks, a soft cap at groups 1
+and 8, head_dim 64 on 16-token pages, head_dim 256 with a cap); and the
+decode kernel at phase 22's step (``DECODE_CASES["baichuan2-13b-alibi"]``;
+every ALiBi case takes ``alibi_slopes(nq)``).
 
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
@@ -450,12 +475,15 @@ def dense_kv(cache_layer, bt, ctx_lens, s_max):
 def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
                  kv: str | None = None):
     """Kernel A on one prefill/mixed wave (``ATTN_GEOMS``, or a case of
-    ``RAGGED_MASK_CASES`` with its page size and masks), on a cache of q's
-    dtype or of the fp8 dtype ``kv``: its error against the plain version,
-    and at a path's shapes the times (the yardstick's K/V upcast to q's
-    dtype once, outside the timing; the bound's K/V bytes the cache's)."""
+    ``RAGGED_MASK_CASES`` or ``ALIBI_RAGGED_CASES`` with its page size,
+    masks and ALiBi), on a cache of q's dtype or of the fp8 dtype ``kv``:
+    its error against the plain version, and at a path's shapes the times
+    (the yardstick's K/V upcast to q's dtype once, outside the timing; the
+    bound's K/V bytes the cache's; with ALiBi the yardstick takes the bias
+    as a float mask, and the bound counts its multiply-add a score)."""
     import torch
     import torch.nn.functional as F
+    from aphrodite_tpu_torch.attention.backend import alibi_slopes
     from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
                                                         build_work_items)
     from aphrodite_tpu_torch.ops import cuda_build
@@ -465,7 +493,9 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     dtype = getattr(torch, dtype_name)
     NQ, KVH, ctx, qn = geom["nq"], geom["kvh"], geom["ctx"], geom["qlen"]
     HD = geom.get("hd", 128)
-    opts = geom.get("opts", {})
+    opts = dict(geom.get("opts", {}))
+    if geom.get("alibi"):  # the model's slopes: alibi_slopes(nq)
+        opts["alibi"] = alibi_slopes(NQ).cuda()
     kvd = kv_type(dtype, kv)
     cache, bt = paged_cache(gen, ctx, kvd, KVH, hd=HD,
                             page=geom.get("page", PAGE))
@@ -490,18 +520,20 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     ref = ref_ragged_paged_attention(q, cache[layer], md, scale, **opts)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
-        raise AssertionError(f"ragged kernel {dtype_name}{kv_label(kv)} "
-                             f"{opts}: max_abs_err {err} > "
-                             f"{TOL[dtype_name]}")
+    limit = alibi_tol(dtype_name, ref) if "alibi" in opts else TOL[dtype_name]
+    if not (err <= limit and torch.isfinite(out).all()):
+        raise AssertionError(
+            f"ragged kernel {dtype_name}{kv_label(kv)} "
+            f"{'alibi' if 'alibi' in opts else opts}: max_abs_err {err} > "
+            f"{limit:.3g}")
     if not timed:
         return err
-    ms = cuda_ms(lambda: ragged_paged_attention(q, cache, layer, md, scale),
-                 20)
-    dev_ms = device_ms(
-        lambda: ragged_paged_attention(q, cache, layer, md, scale), 10)
-    plain_ms = cuda_ms(
-        lambda: ref_ragged_paged_attention(q, cache[layer], md, scale), 2)
+    ms = cuda_ms(lambda: ragged_paged_attention(q, cache, layer, md, scale,
+                                                **opts), 20)
+    dev_ms = device_ms(lambda: ragged_paged_attention(
+        q, cache, layer, md, scale, **opts), 10)
+    plain_ms = cuda_ms(lambda: ref_ragged_paged_attention(
+        q, cache[layer], md, scale, **opts), 2)
     # Library yardstick: one SDPA call over the wave padded to a dense
     # [R, nq, max qlen, hd] batch with a [R, 1, max qlen, S] mask.
     s_max, lq = max(ctx), max(qn)
@@ -509,11 +541,17 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     q_d = torch.zeros((R, NQ, lq, HD), dtype=dtype, device="cuda")
     mask = torch.zeros((R, 1, lq, s_max), dtype=torch.bool, device="cuda")
     kv_pos = torch.arange(s_max, device="cuda")
+    dist = torch.zeros((R, 1, lq, s_max), device="cuda")
     for r in range(R):
         a, b = int(qsl[r]), int(qsl[r + 1])
         q_d[r, :, :b - a] = q[a:b].transpose(0, 1)
         pos = torch.arange(ctx[r] - (b - a), ctx[r], device="cuda")
         mask[r, 0, :b - a] = kv_pos[None, :] <= pos[:, None]
+        dist[r, 0, :b - a] = (kv_pos[None, :] - pos[:, None]).float()
+    if "alibi" in opts:  # [R, nq, lq, S] bias, -inf where masked
+        mask = torch.where(mask, opts["alibi"][None, :, None, None] * dist,
+                           float("-inf")).to(dtype)
+    del dist
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q_d, k_d, v_d, attn_mask=mask, scale=scale, enable_gqa=True)
     lib_ms = cuda_ms(sdpa, 5)
@@ -521,12 +559,23 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     item = torch.finfo(dtype).bits // 8
     vis = sum(int(p) + 1 for p in tok_pos)   # causal keys per token
     nbytes = (item * 2 * T * NQ * HD
-              + kvd.itemsize * 2 * KVH * HD * sum(ctx))
-    ops = 4.0 * NQ * HD * vis
+              + kvd.itemsize * 2 * KVH * HD * sum(ctx)
+              + (4 * NQ if "alibi" in opts else 0))
+    ops = (4.0 * HD + (2 if "alibi" in opts else 0)) * NQ * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
                 library_device_ms=lib_dev_ms)
+
+
+def alibi_tol(dtype_name: str, ref) -> float:
+    """The error limit of a ragged output with ALiBi: TOL scaled to the
+    reference's largest value where that is above 1. A steep slope puts a
+    row's weight on its nearest keys, so the output is one V row rather
+    than an average (values past 4 on randn V, where one bf16 ulp is
+    0.031 and the kernel's and the plain version's roundings may part by
+    one)."""
+    return TOL[dtype_name] * max(1.0, ref.float().abs().max().item())
 
 
 def scaled_tol(dtype_name: str, ref) -> float:
@@ -654,8 +703,10 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
 # Gemma-2-9B path's decode step (contexts 513-576 while 32 requests decode
 # 64 tokens after 512-token prompts; soft cap 50), the same with a 256-token
 # sliding window over ~1030-token contexts (so the mask bites), ALiBi and
-# chunked local attention at head_dim 128, and the Llama-3.1-8B heads (32 /
-# 8 of 128, group 4) with no option.
+# chunked local attention at head_dim 128, the Llama-3.1-8B heads (32 /
+# 8 of 128, group 4) with no option, and the Baichuan2-13B path's decode
+# step (phase 22: 40 / 40 heads of 128 with ALiBi, 32 rows over 513-576
+# token contexts).
 DECODE_CASES = {
     "gemma-2-9b": (16, 8, 256, [513 + (37 * r) % 64 for r in range(32)],
                    dict(logits_soft_cap=50.0)),
@@ -668,6 +719,9 @@ DECODE_CASES = {
                     dict(chunk_attn=256)),
     "llama-3.1-8b": (32, 8, 128, [513 + (37 * r) % 64 for r in range(32)],
                      {}),
+    "baichuan2-13b-alibi": (40, 40, 128,
+                            [513 + (37 * r) % 64 for r in range(32)],
+                            dict(alibi=True)),
 }
 
 
@@ -688,14 +742,14 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
     K/V bytes the cache's)."""
     import torch
     import torch.nn.functional as F
+    from aphrodite_tpu_torch.attention.backend import alibi_slopes
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention, decode_plan, ref_decode_paged_attention)
     dtype = getattr(torch, dtype_name)
     nq, kvh, hd, ctx, opts = DECODE_CASES[case]
     opts = dict(opts)
-    if opts.pop("alibi", False):  # the JAX package's slopes for 16 heads
-        opts["alibi"] = torch.tensor([2.0 ** (-0.5 * (h + 1))
-                                      for h in range(nq)], device="cuda")
+    if opts.pop("alibi", False):  # the model's slopes: alibi_slopes(nq)
+        opts["alibi"] = alibi_slopes(nq).cuda()
     R, layer = len(ctx), 1
     kvd = kv_type(dtype, kv)
     cache, bt = paged_cache(gen, ctx, kvd, kvh, hd=hd)
@@ -751,8 +805,9 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
     lib_dev_ms = device_ms(sdpa, 20)
     vis = int(keep.sum().item())   # K/V rows this run's masks let in
     item = torch.finfo(dtype).bits // 8
-    nbytes = item * 2 * R * nq * hd + kvd.itemsize * 2 * kvh * hd * vis
-    ops = 4.0 * nq * hd * vis
+    nbytes = (item * 2 * R * nq * hd + kvd.itemsize * 2 * kvh * hd * vis
+              + (4 * nq if "alibi" in opts else 0))
+    ops = (4.0 * hd + (2 if "alibi" in opts else 0)) * nq * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     how = (f"tensor cores, {path_plan.splits} splits of "
            f"{path_plan.tiles_per_split} tiles" if path_plan.tensor_cores
@@ -3709,6 +3764,240 @@ def main_path_sampled(llm, greedy: dict) -> dict:
     return {k: exact[k] for k in counted}
 
 
+# The ALiBi slice (phases 2, 21 and 22).
+BAICHUAN2_13B = dict(  # baichuan-inc/Baichuan2-13B-Chat config.json
+    vocab_size=125696, hidden_size=5120, num_hidden_layers=40,
+    num_attention_heads=40, intermediate_size=13696, hidden_act="silu",
+    rms_norm_eps=1e-6, model_max_length=4096, tie_word_embeddings=False,
+    model_type="baichuan", architectures=["BaichuanForCausalLM"])
+# Phase 22's prefill wave: 32 x 512 at 40 / 40 heads of 128.
+B13_WAVE = dict(nq=40, kvh=40, ctx=[512] * 32, qlen=[512] * 32)
+# Where ALiBi meets the ragged kernel's other options (phase 2, bf16 and
+# fp32, against the plain version only): group 8 over later chunks of
+# ~1030-token prompts (queries at absolute positions past the cached keys),
+# with and without a soft cap; a soft cap at group 1; head_dim 64 on
+# 16-token pages with items that start mid-page; head_dim 256 with a cap.
+ALIBI_RAGGED_CASES = {
+    "group8-chunks": dict(
+        nq=40, kvh=5, ctx=_LONG, qlen=_LONG[:4] + [200, 77, 1, 64],
+        alibi=True),
+    "group8-chunks-softcap30": dict(
+        nq=40, kvh=5, ctx=_LONG, qlen=_LONG[:4] + [200, 77, 1, 64],
+        alibi=True, opts=dict(logits_soft_cap=30.0)),
+    "group1-softcap30": dict(
+        nq=40, kvh=40, ctx=[600, 333, 91, 1000], qlen=[600, 100, 91, 37],
+        alibi=True, opts=dict(logits_soft_cap=30.0)),
+    "hd64-page16-mid-page": dict(
+        nq=32, kvh=32, hd=64, page=16, ctx=[517, 300, 45, 1000],
+        qlen=[100, 299, 44, 333], alibi=True),
+    "hd256-softcap50": dict(
+        nq=16, kvh=8, hd=256, ctx=_LONG, qlen=_LONG[:4] + [200, 77, 1, 64],
+        alibi=True, opts=dict(logits_soft_cap=50.0)),
+}
+
+
+def alibi_checks(gen, dt: str, results: dict) -> None:
+    """Phase 2 for the ALiBi slice in ``dt``: the ragged kernel with ALiBi
+    at phase 22's wave (timed; in bf16 beside the same wave without ALiBi,
+    in the same call) and at ``ALIBI_RAGGED_CASES``, each against the plain
+    version. The decode kernel's ALiBi case at the path's step is
+    ``DECODE_CASES["baichuan2-13b-alibi"]``."""
+    name = "ragged_paged_attention"
+    r = check_ragged(gen, dt, dict(B13_WAVE, alibi=True))
+    results[(name, "baichuan2-13b-bf16", dt)] = r
+    line = (f"# phase 2: {name} {dt} with ALiBi at baichuan2-13b shapes: "
+            f"max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dt]} x max(1, "
+            f"max|ref|)); "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, sdpa with the bias as a float "
+            f"mask {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']})")
+    if dt == "bfloat16":
+        r0 = check_ragged(gen, dt, B13_WAVE)
+        line += (f"; the same wave without ALiBi {r0['ms']:.4f} ms (device "
+                 f"{r0['device_ms']:.4f} ms): ALiBi costs "
+                 f"{r['device_ms'] / r0['device_ms'] - 1:+.1%} device time")
+    log(line)
+    for case, geom in ALIBI_RAGGED_CASES.items():
+        err = check_ragged(gen, dt, geom, timed=False)
+        log(f"# phase 2: {name} {dt} ALiBi {case}: max_abs_err {err:.3g} "
+            f"(tol {TOL[dt]} x max(1, max|ref|))")
+
+
+# Phase 21: tiny members of the ALiBi decoder families (and Falcon's rope
+# generations) in their config.json spellings, which the port reads
+# without ``transformers``: 2 layers, vocab 256, 6 or 12 query heads of 16
+# (not a power of two: the slopes' interpolation branch).
+FLEX_TINY = {
+    "bloom": dict(architectures=["BloomForCausalLM"], model_type="bloom",
+                  hidden_size=96, n_head=6, n_layer=2),
+    "mpt-clip-qkv": dict(
+        architectures=["MPTForCausalLM"], model_type="mpt", d_model=192,
+        n_heads=12, n_layers=2, expansion_ratio=2,
+        attn_config={"clip_qkv": 0.6, "alibi_bias_max": 8}),
+    "falcon-rw": dict(
+        architectures=["RWForCausalLM"], model_type="falcon",
+        hidden_size=96, num_attention_heads=6, num_hidden_layers=2,
+        alibi=True, parallel_attn=False, multi_query=False, bias=True),
+    "falcon-7b": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon",
+        hidden_size=96, num_attention_heads=6, num_hidden_layers=2,
+        alibi=False, parallel_attn=True, multi_query=True, bias=False),
+    "falcon-new-arch": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon",
+        hidden_size=96, num_attention_heads=6, num_hidden_layers=2,
+        alibi=False, new_decoder_architecture=True, num_kv_heads=2,
+        bias=False),
+    "baichuan-alibi": dict(
+        architectures=["BaichuanForCausalLM"], model_type="baichuan",
+        hidden_size=192, num_attention_heads=12, num_hidden_layers=2,
+        intermediate_size=256, rms_norm_eps=1e-6, hidden_act="silu",
+        tie_word_embeddings=False, model_max_length=512),
+}
+
+
+def redraw_flexible(model, seed: int) -> None:
+    """Weights from a seeded CPU generator: the embedding at 1/sqrt(H),
+    projections at 3x fan-in scale (with the dummy recipe, or at fan-in
+    scale, a tied head repeats the input token), norm scales near 1 and
+    biases near 0 (as ``tests/test_torch_flexible.perturb`` draws them)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            r = torch.randn(p.shape, generator=g)
+            if leaf.startswith("b") or leaf.endswith("_b"):
+                new = 0.1 * r
+            elif "ln" in leaf or "norm" in leaf:
+                new = 1 + 0.1 * r
+            elif leaf == "embed":
+                new = r / p.shape[1] ** 0.5
+            else:  # [fan_in, fan_out] projections
+                new = 3 * r / p.shape[0] ** 0.5
+            p.copy_(new.to(p.dtype))
+
+
+class SlopeSpy:
+    """The attention backend's two kernel wrappers, patched to count the
+    card calls that carry ALiBi slopes (``launches``, read and reset as a
+    kernel's count is) and those that carry none (``without``)."""
+
+    def __init__(self, name: str) -> None:
+        from aphrodite_tpu_torch.attention import backend
+        self.backend, self.name = backend, name
+        self.fn = getattr(backend, name)
+        self.launches = self.without = 0
+
+    def __call__(self, q, *a, **kw):
+        if q.is_cuda:
+            if kw.get("alibi") is not None:
+                self.launches += 1
+            else:
+                self.without += 1
+        return self.fn(q, *a, **kw)
+
+    def __enter__(self):
+        setattr(self.backend, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.backend, self.name, self.fn)
+
+
+def flexible_parity() -> dict:
+    """fp32 greedy tokens through the port on the card and on the CPU with
+    the same weights for ``FLEX_TINY``: a 16-token batch budget (mixed
+    waves whose chunks sit past keys earlier chunks cached), 8-step decode
+    windows on the multi-step path. Tokens must be equal; for the ALiBi
+    families every card call of the ragged and decode kernels must carry
+    the model's slopes (and no call for the rope ones). Returns the two
+    kernels' launches on the card runs of the ALiBi families."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(1, 250, size=n).tolist()
+               for n in (5, 40, 17, 33, 70)]
+    params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+              for n in (24, 9, 30, 17, 24)]
+    total = {"ragged_paged_attention": 0, "decode_paged_attention": 0}
+    for fam, cfg in FLEX_TINY.items():
+        kw = dict(hf_config=dict(cfg, vocab_size=256), tokenizer="unused",
+                  dtype="float32", block_size=16, num_kv_blocks=128,
+                  max_num_seqs=4, max_num_batched_tokens=16,
+                  max_model_len=256, decode_window=8)
+        cpu = LLM("tiny-flexible", device="cpu", **kw)
+        redraw_flexible(cpu.engine.core.worker.model, 22)
+        gpu = LLM("tiny-flexible", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        alibi = gpu.engine.core.worker.model.alibi is not None
+        a = traced(cpu, prompts, params)
+        ragged_paged_attention.launches = 0
+        decode_paged_attention.launches = 0
+        with SlopeSpy("ragged_paged_attention") as rs, \
+                SlopeSpy("decode_paged_attention") as ds:
+            b = traced(gpu, prompts, params)
+        got = {"ragged_paged_attention": ragged_paged_attention.launches,
+               "decode_paged_attention": decode_paged_attention.launches}
+        if a[0] != b[0]:
+            raise AssertionError(f"{fam}: cuda vs cpu greedy tokens "
+                                 f"differ:\n{a[0]}\n{b[0]}")
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"{fam}: the tokens hardly vary: {a[0]}")
+        with_slopes = (rs.launches, ds.launches)
+        want = tuple(got.values()) if alibi else (0, 0)
+        if min(got.values()) <= 0 or with_slopes != want or (
+                alibi and (rs.without or ds.without)):
+            raise AssertionError(
+                f"{fam}: launches {got}, with slopes {with_slopes}, without "
+                f"{(rs.without, ds.without)}; want every launch "
+                + ("with" if alibi else "without") + " slopes")
+        for k in total:
+            total[k] += got[k] if alibi else 0
+        log(f"# phase 21: {fam}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts (16-token budget, 8-step decode "
+            f"windows, {'ALiBi' if alibi else 'rope'}); launches {got}, "
+            f"with slopes {with_slopes}")
+        del cpu, gpu
+    return total
+
+
+def main_path_baichuan() -> dict:
+    """Baichuan2-13B bf16 at full width and depth (ALiBi on all 40 heads),
+    phase 6's traffic: one 16384-token wave on the ragged kernel with the
+    slopes, then one 63-step window through the non-window multi-step path
+    (the decode kernel with the slopes once a layer a sub-step). In every
+    cold and warm run: ragged exactly 40 and decode exactly 40 x 63 = 2520
+    launches, every one carrying the slopes, and the window kernel
+    never."""
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    L, steps = BAICHUAN2_13B["num_hidden_layers"], 63
+    with SlopeSpy("ragged_paged_attention") as rs, \
+            SlopeSpy("decode_paged_attention") as ds:
+        counts = serve_workload(
+            "phase 22", "baichuan2-13b-dummy", BAICHUAN2_13B,
+            {"decode_paged_attention": decode_paged_attention,
+             **attention_kernels(), "ragged with slopes": rs,
+             "decode with slopes": ds},
+            exact={"ragged_paged_attention": L,
+                   "decode_paged_attention": L * steps,
+                   "window_decode_attention": 0, "ragged with slopes": L,
+                   "decode with slopes": L * steps})[0]
+    if rs.without or ds.without:
+        raise AssertionError(f"phase 22: {rs.without} ragged and "
+                             f"{ds.without} decode calls without slopes")
+    return counts
+
+
 KV_FP8 = ("float8_e4m3fn", "float8_e5m2")
 # The fp8-cache instances timed (beside their bf16-cache selves at the same
 # call's shapes): the 8B path's in bf16 (phase 18), Qwen2.5-1.5B's heads in
@@ -3836,6 +4125,7 @@ def main() -> int:
         for case in DECODE_CASES:
             results[("decode_paged_attention", case, dt)] = check_decode(
                 gen, dt, case)
+        alibi_checks(gen, dt, results)
         r = check_int4(gen, dt)
         log(f"# phase 2: w4a16_int4_matmul {dt}, a Llama-3.1-8B layer's 4 "
             f"GEMMs at M=128: max_abs_err {r['max_abs_err']:.3g} (tol "
@@ -3937,6 +4227,10 @@ def main() -> int:
     fp8_parity_launches = fp8_parity()
     stamp("phase 18")
     fp8_counts = main_path_fp8()
+    stamp("phase 21")
+    flex_parity_launches = flexible_parity()
+    stamp("phase 22")
+    baichuan_counts = main_path_baichuan()
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -4047,6 +4341,22 @@ def main() -> int:
                               ("suffix_match", "int32"))]
     replaces["gumbel_sample"] = "aphrodite_tpu/sample/sampler.py:494"
     replaces["suffix_match"] = "aphrodite_tpu/sample/sampler.py:38"
+    # The ALiBi slice: both attention kernels with the slopes on phase 22's
+    # path, and their fp32 instances on phase 21's (timed at phase 22's
+    # shapes, as the other fp32 parity rows are at a full-width path's).
+    for path, dt, counts in (
+            ("baichuan2-13b-bf16", "bfloat16", baichuan_counts),
+            ("flexible-tiny-alibi-parity-fp32", "float32",
+             flex_parity_launches)):
+        rows += [
+            ("ragged_paged_attention", path, dt,
+             counts["ragged_paged_attention"],
+             results[("ragged_paged_attention", "baichuan2-13b-bf16", dt)],
+             "auto"),
+            ("decode_paged_attention", path, dt,
+             counts["decode_paged_attention"],
+             results[("decode_paged_attention", "baichuan2-13b-alibi", dt)],
+             "auto")]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS

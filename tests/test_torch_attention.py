@@ -181,8 +181,8 @@ def test_window_vs_jax_oracle_and_kernel(name):
 
 def test_unported_kernel_options_raise():
     c = _ragged_case([(8, 8)])
-    with pytest.raises(NotImplementedError):
-        _port_ragged(c, alibi=torch.ones(NQ))
+    with pytest.raises(NotImplementedError):  # ALiBi is ported; spans not
+        _port_ragged(c, mm_bidir_spans=torch.zeros(1, 1, 2, dtype=torch.int32))
     with pytest.raises(NotImplementedError):  # a cache of neither q's dtype
         window_decode_attention(                # nor fp8 (fp8 is ported)
             torch.zeros(1, NQ, 64),
