@@ -94,19 +94,23 @@ class ModelConfig:
         return self.get("num_attention_heads") or 1
 
     @property
+    def uses_mla(self) -> bool:
+        """DeepSeek-style multi-head latent attention
+        (``aphrodite_tpu/config.py:228-234``): the cache holds one latent
+        row a token, kv_lora_rank + qk_rope_head_dim wide, as one KV head."""
+        return self.get("kv_lora_rank") is not None
+
+    @property
     def num_kv_heads(self) -> int:
-        """KV heads (``aphrodite_tpu/config.py:242-251``): MPT's
-        ``attn_config.kv_n_heads`` (the reference reads it for DBRX only:
-        ROADMAP C); Falcon's ``num_kv_heads`` in its new architecture,
-        else one under ``multi_query``; else ``num_key_value_heads``."""
-        if self.is_attention_free:
+        """KV heads (``aphrodite_tpu/config.py:236-251``): one under MLA;
+        Falcon's ``num_kv_heads`` in its new architecture, else one under
+        ``multi_query``; else ``num_key_value_heads``. MPT's
+        ``attn_config.kv_n_heads`` is not read: the reference reads that
+        field for DBRX only, so an MPT that sets it keeps one KV head a
+        query head, as there."""
+        if self.is_attention_free or self.uses_mla:
             return 1
         model_type = self.get("model_type", "")
-        if model_type == "mpt":
-            ac = self.get("attn_config")
-            kv = (ac.get("kv_n_heads") if isinstance(ac, dict)
-                  else getattr(ac, "kv_n_heads", None))
-            return kv or self.num_attention_heads
         if model_type == "falcon":
             if self.get("new_decoder_architecture", False):
                 return self.get("num_kv_heads") or self.num_attention_heads
@@ -116,6 +120,8 @@ class ModelConfig:
 
     @property
     def head_dim(self) -> int:
+        if self.uses_mla:  # the latent head (``config.py:279-281``)
+            return self.get("kv_lora_rank") + self.get("qk_rope_head_dim")
         if self.is_attention_free:
             return self.get("state_size", 16)
         return self.get("head_dim") or (self.hidden_size

@@ -77,7 +77,10 @@
 // rpa_kernel (fp32, and bf16 at other head dims): the first version, kept
 // so that the fp32 parity paths stay exact (tensor cores would take fp32
 // through TF32): rows in shared memory as float, 32-key tiles staged by
-// all threads, one warp a row, lane j owning key j.
+// all threads, one warp a row, lane j owning key j. Where one token's group
+// of rows does not fit a block (MLA: 128 query heads at head_dim 576 would
+// need 739,456 bytes), grid.z cuts the item's rows into slices.
+// The MLA geometry in bf16 (head_dim 576) runs csrc/mla_attention.cu.
 //
 // What holds it back (PERF.md): at the 8B wave the loads and barriers
 // alone take ~60 % of its time, at phase 14 ~half: every 128-row item
@@ -102,7 +105,7 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
            const int* __restrict__ item_pos,
            const int* __restrict__ seq_lens,
            const int* __restrict__ block_tables, int max_pages, int nq,
-           int kvh, int page_size, int hd, int block_q, float scale,
+           int kvh, int page_size, int hd, int block_rows, float scale,
            int sliding_window, int chunk_attn, float soft_cap,
            const float* __restrict__ alibi) {
   using namespace attn;
@@ -110,7 +113,10 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   const int group = nq / kvh;
   const int req = item_req[item], qstart = item_qstart[item];
   const int qlen = item_qlen[item], pos0 = item_pos[item];
-  const int rows = qlen * group, rows_max = block_q * group;
+  // This block's slice of the item's rows: [row_lo, row_lo + rows).
+  const int row_lo = blockIdx.z * block_rows, rows_max = block_rows;
+  const int rows = min(block_rows, qlen * group - row_lo);
+  if (rows <= 0) return;  // block-uniform
   const int kv_limit = min(pos0 + qlen, seq_lens[req]);
   const int tile = min(page_size, kTile);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -124,10 +130,11 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   float* v_s = k_s + kTile * (hd + 1);            // [kTile, hd]
   float* p_s = v_s + kTile * hd;                  // [kWarps, kTile]
 
-  // Row r = token t * group + g reads query head h * group + g.
+  // Block row r is item row R = row_lo + r = token t * group + g, which
+  // reads query head h * group + g.
   for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
     const int r = i / hd, d = i - r * hd;
-    const int t = r / group, g = r - t * group;
+    const int R = row_lo + r, t = R / group, g = R - t * group;
     q_s[i] = to_float(q[((size_t)(qstart + t) * nq + h * group + g) * hd + d]);
     acc_s[i] = 0.f;
   }
@@ -137,7 +144,8 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   }
 
   const size_t page_elems = (size_t)page_size * hd;
-  const int lo = first_visible(pos0, sliding_window, chunk_attn);
+  const int lo =
+      first_visible(pos0 + row_lo / group, sliding_window, chunk_attn);
   for (int kv0 = (lo / tile) * tile; kv0 < kv_limit; kv0 += tile) {
     const int n = min(tile, kv_limit - kv0);
     const int page_id = block_tables[(size_t)req * max_pages + kv0 / page_size];
@@ -148,13 +156,13 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
               v_s, threadIdx.x, blockDim.x);
     __syncthreads();
     for (int r = warp; r < rows; r += kWarps) {
-      const int q_pos = pos0 + r / group;
+      const int q_pos = pos0 + (row_lo + r) / group;
       if (kv0 > q_pos) continue;  // whole tile in this row's future
       const int kv_pos = kv0 + lane;
       const bool valid = lane < n && kv_pos <= q_pos &&
                          local_ok(kv_pos, q_pos, sliding_window, chunk_attn);
       const float bias = alibi != nullptr
-                             ? alibi[h * group + r % group] *
+                             ? alibi[h * group + (row_lo + r) % group] *
                                    (float)(kv_pos - q_pos)
                              : 0.f;
       tile_update(q_s + (size_t)r * hd, k_s, v_s, n, hd, valid, scale,
@@ -165,7 +173,7 @@ rpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   __syncthreads();
   for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
     const int r = i / hd, d = i - r * hd;
-    const int t = r / group, g = r - t * group;
+    const int R = row_lo + r, t = R / group, g = R - t * group;
     out[((size_t)(qstart + t) * nq + h * group + g) * hd + d] =
         from_float<T>(acc_s[i] / fmaxf(l_s[r], 1e-20f));
   }
@@ -176,16 +184,19 @@ int launch(const void* q, const void* cache, void* out, const int* item_req,
            const int* item_qstart, const int* item_qlen, const int* item_pos,
            const int* seq_lens, const int* block_tables, int num_items,
            int max_pages, int nq, int kvh, int page_size, int hd, int block_q,
-           float scale, int sliding_window, int chunk_attn, float soft_cap,
-           const float* alibi, int smem_bytes, cudaStream_t stream) {
+           int block_rows, float scale, int sliding_window, int chunk_attn,
+           float soft_cap, const float* alibi, int smem_bytes,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       rpa_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  rpa_kernel<T, KV><<<dim3(num_items, kvh), kWarps * 32, smem_bytes, stream>>>(
+  const int slices = (block_q * (nq / kvh) + block_rows - 1) / block_rows;
+  rpa_kernel<T, KV><<<dim3(num_items, kvh, slices), kWarps * 32, smem_bytes,
+                      stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), item_req, item_qstart, item_qlen, item_pos,
-      seq_lens, block_tables, max_pages, nq, kvh, page_size, hd, block_q,
+      seq_lens, block_tables, max_pages, nq, kvh, page_size, hd, block_rows,
       scale, sliding_window, chunk_attn, soft_cap, alibi);
   return (int)cudaGetLastError();
 }
@@ -553,15 +564,16 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
               void* out, const int* item_req, const int* item_qstart,
               const int* item_qlen, const int* item_pos, const int* seq_lens,
               const int* block_tables, int num_items, int max_pages, int nq,
-              int kvh, int page_size, int hd, int block_q, float scale,
-              int sliding_window, int chunk_attn, float soft_cap,
-              const float* alibi, int smem_bytes, cudaStream_t s) {
+              int kvh, int page_size, int hd, int block_q, int block_rows,
+              float scale, int sliding_window, int chunk_attn,
+              float soft_cap, const float* alibi, int smem_bytes,
+              cudaStream_t s) {
 #define RPA_KV(KV)                                                          \
   return launch<T, KV>(q, cache_layer, out, item_req, item_qstart,          \
                        item_qlen, item_pos, seq_lens, block_tables,         \
                        num_items, max_pages, nq, kvh, page_size, hd,        \
-                       block_q, scale, sliding_window, chunk_attn, soft_cap, \
-                       alibi, smem_bytes, s)
+                       block_q, block_rows, scale, sliding_window,          \
+                       chunk_attn, soft_cap, alibi, smem_bytes, s)
   if (kv_dtype == kKvAuto) RPA_KV(T);
   if (kv_dtype == kKvE4M3) RPA_KV(__nv_fp8_e4m3);
   if (kv_dtype == kKvE5M2) RPA_KV(__nv_fp8_e5m2);
@@ -572,31 +584,39 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
 }  // namespace
 
 // The scalar kernel (fp32 or bf16 q, any head_dim; the cache in q's dtype
-// or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null).
+// or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null). A work
+// item's block_q * (nq / kvh) rows are cut into slices of block_rows, one
+// block each (grid.z), so that a group larger than a block's rows (MLA's
+// 128 query heads on one KV head) launches
+// (ops/ragged_paged_attention.py ragged_block_rows).
 extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
                           const void* cache_layer, void* out,
                           const int* item_req, const int* item_qstart,
                           const int* item_qlen, const int* item_pos,
                           const int* seq_lens, const int* block_tables,
                           int num_items, int max_pages, int nq, int kvh,
-                          int page_size, int hd, int block_q, float scale,
-                          int sliding_window, int chunk_attn, float soft_cap,
-                          const float* alibi, int smem_bytes, void* stream) {
+                          int page_size, int hd, int block_q, int block_rows,
+                          float scale, int sliding_window, int chunk_attn,
+                          float soft_cap, const float* alibi, int smem_bytes,
+                          void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (kvh <= 0 || nq % kvh || block_q <= 0 || block_rows <= 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)
     return launch_kv<float>(kv_dtype, q, cache_layer, out, item_req,
                             item_qstart, item_qlen, item_pos, seq_lens,
                             block_tables, num_items, max_pages, nq, kvh,
-                            page_size, hd, block_q, scale, sliding_window,
-                            chunk_attn, soft_cap, alibi, smem_bytes, s);
+                            page_size, hd, block_q, block_rows, scale,
+                            sliding_window, chunk_attn, soft_cap, alibi,
+                            smem_bytes, s);
   if (dtype == kBFloat16)
     return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, out, item_req,
                                     item_qstart, item_qlen, item_pos,
                                     seq_lens, block_tables, num_items,
                                     max_pages, nq, kvh, page_size, hd,
-                                    block_q, scale, sliding_window,
-                                    chunk_attn, soft_cap, alibi, smem_bytes,
-                                    s);
+                                    block_q, block_rows, scale,
+                                    sliding_window, chunk_attn, soft_cap,
+                                    alibi, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 

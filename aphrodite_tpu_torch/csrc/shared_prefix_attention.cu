@@ -40,8 +40,9 @@
 // memory (attn::convert_rows); spa_kernel converts to fp32 as it stages,
 // loading 8 bytes a vector. The bytes bound halves.
 //
-// spa_kernel (fp32): the first version on the CUDA cores in full fp32, so
-// that the fp32 parity paths stay token-exact. A block of 8 warps runs one
+// spa_kernel (fp32, and bf16 at MLA's head_dim 576, which has no
+// tensor-core instance): the first version on the CUDA cores in full fp32,
+// so that the fp32 parity paths stay token-exact. A block of 8 warps runs one
 // (tile of 32 query rows, KV head); a warp owns 4 rows and keeps their acc
 // in registers (lane d holds dims d, d + 32, ...) with their m and l. The
 // shared tokens are walked in tiles of min(page, 32) keys, staged once a
@@ -569,6 +570,10 @@ int launch(const void* q, const void* cache, const int* shared_pages,
       return launch_c<T, KV, 8>(q, cache, shared_pages, shared_len, acc, m, l,
                             num_reqs, nq, kvh, page_size, scale, smem_bytes,
                             stream);
+    case 576:  // MLA's latent head (DeepSeek V2/V3), bf16 included
+      return launch_c<T, KV, 18>(q, cache, shared_pages, shared_len, acc, m,
+                                 l, num_reqs, nq, kvh, page_size, scale,
+                                 smem_bytes, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -54,7 +54,12 @@
 // wd_split_kernel (fp32; bf16 at other head dims or larger groups): the
 // same tiles and states on the CUDA cores in full fp32 (no TF32), with the
 // first version's per-warp staging: sub-tiles of up to 32 keys within a
-// page, lane j owning key j, warps taking sub-tiles in turn.
+// page, lane j owning key j, warps taking sub-tiles in turn. A group too
+// large for one block's shared memory (MLA: 128 query heads at head_dim
+// 576) is cut into slices of block_rows query heads, one block each.
+//
+// The bf16 MLA geometry (head_dim 576, any group) runs its own tensor-core
+// instance, csrc/mla_attention.cu.
 //
 // What holds it back (PERF.md): its device time is 1.4-2.6x the bytes
 // bound at the main paths, and a call's host time (the Python wrapper,
@@ -198,10 +203,16 @@ wd_split_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
                 const int* __restrict__ block_tables, int max_pages, int nq,
                 int kvh, int page_size, int hd, int kw, int step,
                 float scale, int sliding_window, int chunk_attn,
-                float soft_cap, int shared_len, int tiles_per_split) {
+                float soft_cap, int shared_len, int tiles_per_split,
+                int block_rows) {
   using namespace attn;
-  const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int r = blockIdx.x, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
+  // grid.y: (KV head, slice of block_rows query heads of its group).
+  const int slices = (group + block_rows - 1) / block_rows;
+  const int h = blockIdx.y / slices;
+  const int g0 = (blockIdx.y - h * slices) * block_rows;
+  const int gb = min(block_rows, group - g0);  // this block's query rows
   const int plen = paged_lens[r], q_pos = plen + step;
   const Tiles tl =
       request_tiles(plen, step, sliding_window, chunk_attn, shared_len);
@@ -214,24 +225,24 @@ wd_split_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   int sub = kTile;
   while (page_size % sub) sub >>= 1;
   const int per_tile = kKeys / sub;
-  const size_t row0 = (size_t)r * nq + h * group;
+  const size_t row0 = (size_t)r * nq + h * group + g0;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                                    // [group, hd]
+  float* q_s = smem;                                    // [block_rows, hd]
   const size_t per_warp = (size_t)kTile * (hd + 1) + kTile * hd + kTile +
-                          (size_t)group * hd + 2 * group;
-  float* w_s = q_s + (size_t)group * hd + warp * per_warp;
+                          (size_t)block_rows * hd + 2 * block_rows;
+  float* w_s = q_s + (size_t)block_rows * hd + warp * per_warp;
   float* k_s = w_s;                                     // [kTile, hd + 1]
   float* v_s = k_s + kTile * (hd + 1);                  // [kTile, hd]
   float* p_w = v_s + kTile * hd;                        // [kTile]
-  float* acc_w = p_w + kTile;                           // [group, hd]
-  float* m_w = acc_w + (size_t)group * hd;              // [group]
-  float* l_w = m_w + group;                             // [group]
+  float* acc_w = p_w + kTile;                           // [block_rows, hd]
+  float* m_w = acc_w + (size_t)block_rows * hd;         // [block_rows]
+  float* l_w = m_w + block_rows;                        // [block_rows]
 
-  for (int i = threadIdx.x; i < group * hd; i += blockDim.x)
+  for (int i = threadIdx.x; i < gb * hd; i += blockDim.x)
     q_s[i] = to_float(q[row0 * hd + i]);
-  for (int i = lane; i < group * hd; i += 32) acc_w[i] = 0.f;
-  for (int g = lane; g < group; g += 32) {
+  for (int i = lane; i < gb * hd; i += 32) acc_w[i] = 0.f;
+  for (int g = lane; g < gb; g += 32) {
     m_w[g] = -INFINITY;
     l_w[g] = 0.f;
   }
@@ -267,7 +278,7 @@ wd_split_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
     const int kv_pos = kv0 + lane;
     const bool valid = lane < n && (!paged || kv_pos >= tl.lo) &&
                        local_ok(kv_pos, q_pos, sliding_window, chunk_attn);
-    for (int g = 0; g < group; ++g)
+    for (int g = 0; g < gb; ++g)
       tile_update(q_s + (size_t)g * hd, k_s, v_s, n, hd, valid, scale,
                   soft_cap, acc_w + (size_t)g * hd, m_w + g, l_w + g, p_w,
                   lane);
@@ -275,22 +286,22 @@ wd_split_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   __syncthreads();
 
   // Merge the warps' states into the block's.
-  for (int i = threadIdx.x; i < group * hd; i += blockDim.x) {
+  for (int i = threadIdx.x; i < gb * hd; i += blockDim.x) {
     const int g = i / hd, d = i - g * hd;
     float m = -INFINITY;
     for (int w = 0; w < n_warps; ++w)
-      m = fmaxf(m, q_s[group * hd + w * per_warp + kTile * (2 * hd + 2) +
-                       (size_t)group * hd + g]);
+      m = fmaxf(m, q_s[(size_t)block_rows * hd + w * per_warp +
+                       kTile * (2 * hd + 2) + (size_t)block_rows * hd + g]);
     float acc = 0.f, l = 0.f;
     if (m != -INFINITY) {
       for (int w = 0; w < n_warps; ++w) {
-        const float* ws = q_s + (size_t)group * hd + w * per_warp;
+        const float* ws = q_s + (size_t)block_rows * hd + w * per_warp;
         const float* aw = ws + kTile * (2 * hd + 2);
-        const float mw = aw[(size_t)group * hd + g];
+        const float mw = aw[(size_t)block_rows * hd + g];
         if (mw == -INFINITY) continue;
         const float c = expf(mw - m);
         acc += aw[i] * c;
-        l += aw[(size_t)group * hd + group + g] * c;
+        l += aw[(size_t)block_rows * hd + block_rows + g] * c;
       }
     }
     write_state(part_acc, part_m, part_l, row0 + g, split, splits, hd, d,
@@ -321,7 +332,7 @@ struct Args {
   int sliding_window, chunk_attn;
   float soft_cap;
   const float *acc0, *m0, *l0;
-  int shared_len, splits, tiles_per_split, warps, smem_bytes;
+  int shared_len, splits, tiles_per_split, warps, smem_bytes, block_rows;
   cudaStream_t stream;
 };
 
@@ -363,14 +374,15 @@ int split_cuda_cores(const Args& a) {
       mma::allow_smem<wd_split_kernel<T, KV>>(a.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   using TT = attn::tail_t<KV>;
-  wd_split_kernel<T, KV><<<dim3(a.num_reqs, a.kvh, a.splits), a.warps * 32,
-                           a.smem_bytes, a.stream>>>(
+  const int slices = (a.nq / a.kvh + a.block_rows - 1) / a.block_rows;
+  wd_split_kernel<T, KV><<<dim3(a.num_reqs, a.kvh * slices, a.splits),
+                           a.warps * 32, a.smem_bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const KV*>(a.cache),
       static_cast<const TT*>(a.tail_k), static_cast<const TT*>(a.tail_v),
       a.part_acc, a.part_m, a.part_l, a.paged_lens, a.block_tables,
       a.max_pages, a.nq, a.kvh, a.page_size, a.hd, a.kw, a.step, a.scale,
       a.sliding_window, a.chunk_attn, a.soft_cap, a.shared_len,
-      a.tiles_per_split);
+      a.tiles_per_split, a.block_rows);
   return (int)cudaGetLastError();
 }
 
@@ -402,7 +414,9 @@ int merge(const Args& a) {
 // One call launches the split kernel, then the merge, on `stream`.
 // tensor_cores: the bf16 instance (head_dim 64, 128 or 256, nq / kvh <=
 // 16); else the CUDA-core one with `warps` warps and `smem_bytes` of shared
-// memory (ops/window_decode_attention.py: window_warps). kv_dtype: the
+// memory, each block taking `block_rows` query heads of a KV head's group
+// (ops/window_decode_attention.py: window_warps, window_block_rows; the
+// bf16 MLA geometry runs csrc/mla_attention.cu). kv_dtype: the
 // cache's KvDtype code; the tails are in attn::tail_t of the cache's type.
 // part_acc [R, nq, splits, hd], part_m and part_l [R, nq, splits] fp32 scratch.
 // acc0 [R, nq, hd], m0 and l0 [R, nq] (fp32): the cascade's init state
@@ -418,17 +432,17 @@ extern "C" int wd_launch(int dtype, int kv_dtype, int tensor_cores,
                          int chunk_attn, float soft_cap, const float* acc0,
                          const float* m0, const float* l0, int shared_len,
                          int splits, int tiles_per_split, int warps,
-                         int smem_bytes, void* stream) {
+                         int smem_bytes, int block_rows, void* stream) {
   if ((acc0 == nullptr) != (m0 == nullptr) ||
       (acc0 == nullptr) != (l0 == nullptr) || shared_len < 0 ||
       (acc0 == nullptr && shared_len != 0) || kvh <= 0 || nq % kvh ||
-      splits < 1 || tiles_per_split < 1)
+      splits < 1 || tiles_per_split < 1 || block_rows < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{q, cache_layer, tail_k_layer, tail_v_layer, out, part_acc,
                part_m, part_l, paged_lens, block_tables, num_reqs, max_pages,
                nq, kvh, page_size, hd, kw, step, scale, sliding_window,
                chunk_attn, soft_cap, acc0, m0, l0, shared_len, splits,
-               tiles_per_split, warps, smem_bytes,
+               tiles_per_split, warps, smem_bytes, block_rows,
                static_cast<cudaStream_t>(stream)};
   int err = (int)cudaErrorInvalidValue;
   if (tensor_cores) {

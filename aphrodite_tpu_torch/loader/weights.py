@@ -1,8 +1,8 @@
 """Model construction and weight loading.
 
 Only dummy (seeded random) weights and the JAX package's parameter tree
-(dense, quantized, sparse-MoE, Mamba-family and ``FlexibleDecoder``) are
-ported; loading a
+(dense, quantized, sparse-MoE, DeepSeek V2/V3, Mamba-family and
+``FlexibleDecoder``) are ported; loading a
 checkpoint from disk is not. With a quantization config, the dummy weights
 are quantized on the fly layer by layer and W4 leaves are packed where the
 JAX loader packs them (``quantization/loader.py``), so a ``params_from_jax``
@@ -53,6 +53,14 @@ _FLEX_DIRECT = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "wo", "bo", "w_down",
                 "b_down", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 _FLEX_TOP = ("embed", "embed_ln_w", "embed_ln_b", "final_norm_w",
              "final_norm_b", "lm_head")
+# A DeepSeek V2/V3 layer's MLA leaves (``deepseek.py:162-205`` of the JAX
+# package), taken as they are but for the absorbed einsums' weights, which
+# the port keeps for batched products over the heads: the JAX [R, nq, d]
+# permuted to w_uk [nq, nope, R] and w_uv [nq, R, v].
+_MLA_DIRECT = ("input_norm", "post_norm", "wkv_a", "kv_a_norm", "wo", "wq",
+               "wq_a", "q_a_norm", "wq_b")
+_MLA_PERMUTED = {"w_uk": (1, 2, 0), "w_uv": (1, 0, 2)}
+_MLA_MOE_DIRECT = _MOE_DIRECT + ("router_bias",)
 
 
 def create_model(model_config: ModelConfig, device: torch.device | str,
@@ -160,6 +168,36 @@ def _flexible_params_from_jax(tree: Mapping[str, Any]
     return out
 
 
+def _deepseek_params_from_jax(tree: Mapping[str, Any],
+                              layer_kinds: Optional[list[str]]
+                              ) -> dict[str, np.ndarray]:
+    layers = tree["layers"]
+    if any(isinstance(v, Mapping) for part in ("layers", "dense_mlp", "moe")
+           for v in tree.get(part, {}).values()):
+        raise NotImplementedError("a quantized DeepSeek tree: quantized "
+                                  "DeepSeek is not ported (ROADMAP A10)")
+    num_layers = _np(layers["input_norm"]).shape[0]
+    if layer_kinds is None or len(layer_kinds) != num_layers:
+        raise ValueError("a DeepSeek tree needs the model's layer_kinds")
+    out = {k: _np(tree[k]) for k in ("embed", "final_norm", "lm_head")
+           if k in tree}
+    leaves = {k: _np(layers[k]) for k in _MLA_DIRECT if k in layers}
+    leaves.update({k: _np(layers[k]).transpose(0, *(a + 1 for a in perm))
+                   for k, perm in _MLA_PERMUTED.items()})
+    for name, arr in leaves.items():
+        for i, row in enumerate(arr):
+            out[f"layers.{i}.{name}"] = row
+    for part, sub, fused, direct in (
+            ("dense_mlp", "", _FUSED, _DIRECT),
+            ("moe", ".moe", _MOE_FUSED, _MLA_MOE_DIRECT)):
+        rows = [i for i, k in enumerate(layer_kinds)
+                if k == part.split("_")[0]]
+        for name, arr in _stack(tree.get(part, {}), fused, direct).items():
+            for j, i in enumerate(rows):
+                out[f"layers.{i}{sub}.{name}"] = arr[j]
+    return out
+
+
 def params_from_jax(tree: Mapping[str, Any],
                     layer_kinds: Optional[list[str]] = None
                     ) -> dict[str, np.ndarray]:
@@ -184,6 +222,11 @@ def params_from_jax(tree: Mapping[str, Any],
     by position within their kind, for mixed stacks; those need the
     model's ``layer_kinds``. They become ``layers.<i>.moe.<name>``.
 
+    DeepSeek V2/V3 trees (a ``wkv_a`` stack; the model's ``layer_kinds``)
+    keep their MLA leaves under ``layers.<i>``, ``w_uk`` and ``w_uv``
+    permuted to the port's [nq, ., .] layouts, the ``dense_mlp`` and
+    ``moe`` stacks as the mixed MoE trees', V3's ``router_bias`` too.
+
     Mamba-family trees (an ``A_log`` stack) keep their leaf names:
     ``layers.<name>[i]`` becomes ``layers.<i>.<name>``; so do
     ``FlexibleDecoder`` trees (an ``ln1_w`` stack: BLOOM, MPT, Falcon,
@@ -191,6 +234,8 @@ def params_from_jax(tree: Mapping[str, Any],
     and ``w_gate_up`` / ``b_gate_up``, and its top-level ``embed``,
     ``embed_ln_w/b``, ``final_norm_w/b`` and ``lm_head``."""
     layers = tree["layers"]
+    if "wkv_a" in layers:
+        return _deepseek_params_from_jax(tree, layer_kinds)
     if "A_log" in layers:
         return _ssm_params_from_jax(tree)
     if "ln1_w" in layers:

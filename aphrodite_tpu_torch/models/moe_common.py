@@ -1,8 +1,10 @@
 """Shared sparse-MoE routing and expert combine.
 
 Counterpart of the JAX package's ``models/moe_common.py`` for one card.
-Routing (which experts, with what weights) is softmax top-k; the expert
-compute has two routes, chosen by the JAX rule (``moe_combine``):
+Routing (which experts, with what weights) is softmax top-k, or DeepSeek
+V2/V3's (``deepseek_routing``: group-limited, V3's sigmoid with its score
+correction); the expert compute has two routes, chosen by the JAX rule
+(``moe_combine``):
 
 - grouped (T * k >= 4 E, prefill waves): the T * k (token, choice) rows
   are sorted by expert and the expert projections run as two grouped GEMMs
@@ -18,6 +20,8 @@ concatenated on N) and down ``[E, I, H]``. Quantized experts and expert
 parallelism are not ported.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,6 +44,50 @@ def softmax_topk_routing(h: torch.Tensor, router: torch.Tensor, top_k: int,
     if norm_topk:
         topw = topw / topw.sum(dim=-1, keepdim=True)
     return topi, topw
+
+
+def deepseek_routing(h: torch.Tensor, router: torch.Tensor, top_k: int,
+                     style: str, n_group: Optional[int] = None,
+                     topk_group: Optional[int] = None,
+                     norm_topk: bool = False, routed_scaling: float = 1.0,
+                     bias: Optional[torch.Tensor] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek V2/V3 routing, the JAX package's ``_route``
+    (``models/deepseek.py:425-455``), in fp32: logits h @ router [H, E];
+    V2 (``style`` "v2"): softmax scores, chosen as they are (greedy) or
+    within the ``topk_group`` best of ``n_group`` groups by their best
+    score (group_limited_greedy), weighted by the chosen scores; V3 ("v3"):
+    sigmoid scores, chosen by score + ``bias`` (the e_score correction)
+    within the groups whose two best such values sum highest, weighted by
+    the plain scores, renormalized with ``norm_topk``. Both scale by
+    ``routed_scaling``. Returns (topi [T, k] int64, topw [T, k] fp32), best
+    first."""
+    E = router.shape[1]
+    logits = matmul_f32(h, router)
+    if style == "v3":
+        scores = torch.sigmoid(logits)
+        choice = scores + bias.float()[None, :]
+    else:
+        scores = torch.softmax(logits, dim=-1)
+        choice = scores
+    if n_group and topk_group and topk_group < n_group:
+        grouped = choice.reshape(-1, n_group, E // n_group)
+        if style == "v3":  # the sum of each group's two best
+            g_scores = torch.topk(grouped, 2, dim=-1).values.sum(dim=-1)
+        else:  # each group's best
+            g_scores = grouped.amax(dim=-1)
+        g_idx = torch.topk(g_scores, topk_group, dim=-1).indices
+        g_mask = torch.zeros_like(g_scores).scatter_(1, g_idx, 1.0)
+        mask = g_mask.repeat_interleave(E // n_group, dim=-1)
+        choice = torch.where(mask > 0, choice, 0.0)
+    topc, topi = torch.topk(choice, top_k, dim=-1)
+    if style == "v3":
+        topw = torch.gather(scores, 1, topi)
+        if norm_topk:
+            topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-20)
+    else:
+        topw = topc
+    return topi, topw * routed_scaling
 
 
 def moe_combine(h: torch.Tensor, w_gate_up: torch.Tensor,

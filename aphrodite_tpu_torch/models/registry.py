@@ -19,6 +19,8 @@ MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "Qwen3MoeForCausalLM": ("mixtral", "Qwen3MoeForCausalLM"),
     "OlmoeForCausalLM": ("mixtral", "OlmoeForCausalLM"),
     "DeepseekForCausalLM": ("mixtral", "DeepseekForCausalLM"),
+    "DeepseekV2ForCausalLM": ("deepseek", "DeepseekV2ForCausalLM"),
+    "DeepseekV3ForCausalLM": ("deepseek", "DeepseekV3ForCausalLM"),
     "MambaForCausalLM": ("mamba", "MambaForCausalLM"),
     "FalconMambaForCausalLM": ("mamba", "FalconMambaForCausalLM"),
     "Mamba2ForCausalLM": ("mamba", "Mamba2ForCausalLM"),

@@ -17,8 +17,9 @@ fp32 ``acc [R, kvh, group, hd]`` and ``m, l [R, kvh, group]`` (the TPU
 kernel's 128-lane widening of m and l is not copied). A row with no shared
 token gets m = -inf, l = 0 and acc = 0.
 
-In bf16 the kernel runs 64 query rows of one KV head a block on the
-tensor cores, and splits the shared keys across blocks too
+In bf16 at head_dim 64, 128 or 256 the kernel runs 64 query rows of one
+KV head a block on the tensor cores (at MLA's 576 the CUDA-core instance),
+and splits the shared keys across blocks too
 (``shared_split_plan``); the last block of a row tile to finish merges the
 splits in a fixed order. ``shared_prefix_plan`` makes the plan, its
 scratch and its counters once for all the layers and sub-steps of a decode
@@ -49,6 +50,10 @@ _TILE = 32         # keys staged at a time (CUDA-core instance)
 _ROWS = 32         # query rows a block (8 warps of 4)
 TC_ROWS = 64       # query rows a block of the tensor-core instance
 MAX_SPLITS = 32    # splits the kernel's merge takes
+TC_HEAD_DIMS = (64, 128, 256)  # the tensor-core instance's head dims
+# The head dims the kernel takes: the tensor-core ones and MLA's latent
+# head (576), which runs the CUDA-core instance in bf16 too.
+HEAD_DIMS = TC_HEAD_DIMS + (576,)
 
 
 def spa_smem_bytes(hd: int) -> int:
@@ -109,14 +114,15 @@ def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     split, the scratch of the splits' states (acc [splits, kvh, R * group,
     hd], then m and l [splits, kvh, R * group]) and the zeroed counters
     of the kernel's merge (the kernel leaves them zero). bf16 runs the
-    tensor-core instance; fp32 the CUDA-core one, which takes no split."""
+    tensor-core instance (at head_dim 64, 128 or 256; at MLA's 576 the
+    CUDA-core one); fp32 the CUDA-core one, which takes no split."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     smem_limit = (cuda_build.smem_optin() if cuda
                   else cuda_build.H100_SMEM_OPTIN)
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     key = (dtype, num_reqs, nq, kvh, hd, shared_len)
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS:
         smem = spa_smem_bytes(hd)
         cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
         return SharedPlan(key, False, smem, 1, 1, None, None, kv_dtype)
@@ -207,8 +213,8 @@ def shared_prefix_attention(
                                            shared_len, scale)
     if not q.is_cuda or q.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported query tensor: {q.device} {q.dtype}")
-    if hd not in (64, 128, 256):
-        raise ValueError(f"head_dim {hd}: the kernel takes 64, 128 or 256")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
     if not (q.is_contiguous() and kv_cache.is_contiguous()):
         raise ValueError("q and cache must be contiguous")
     if shared_pages.dtype != torch.int32 or not shared_pages.is_contiguous() \

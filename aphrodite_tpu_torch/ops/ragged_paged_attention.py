@@ -5,10 +5,14 @@
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
 on CPU tensors. bf16 at head_dim 64, 128 or 256 runs the tensor-core
-instance (``rpa_tc_launch``), everything else the scalar one
-(``rpa_launch``), which keeps fp32 in full fp32; each is sized by its own
-function and the runner asks ``ragged_work_item_tokens`` for the one that
-the model's dtype will run. Query token i of request r at position p attends to the
+instance (``rpa_tc_launch``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
+any group on one latent KV head) the MLA instance
+(``csrc/mla_attention.cu``, ``mla_ragged_launch``), everything else the
+scalar one (``rpa_launch``), which keeps fp32 in full fp32; each is sized
+by its own function and the runner asks ``ragged_work_item_tokens`` for
+the one that the model's dtype will run. Where a work item's rows exceed
+an instance's block (a group of 128 query heads), its rows are cut into
+slices, one block each. Query token i of request r at position p attends to the
 request's KV positions j <= p, read through its block table from one layer
 of the paged cache, optionally restricted by a sliding window or chunked
 local attention, with an optional logit soft cap and ALiBi: the bias
@@ -35,9 +39,11 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _I, _I, _F, _I, _I, _F, _P, _I, _P]
+             _I, _I, _I, _I, _F, _I, _I, _F, _P, _I, _P]
 _TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                 _I, _I, _F, _I, _I, _F, _P, _P]
+_MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
@@ -48,6 +54,11 @@ _TILE, _WARPS = 32, 8
 _MAX_ROWS = 128
 # The head dims of the tensor-core instance.
 TC_HEAD_DIMS = (64, 128, 256)
+# MLA's latent head (kv_lora_rank 512 + rope 64): its own instance in bf16.
+MLA_HEAD_DIM = 576
+MLA_ROWS = 64  # query rows a block of the MLA instance
+# Where an fp8 cache at the MLA geometry is queued.
+MLA_FP8_ITEM = "ROADMAP A10"
 
 
 def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
@@ -64,27 +75,83 @@ def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
 
 
 def ragged_smem_bytes(block_q: int, group: int, hd: int) -> int:
-    """Shared memory of one launch (the kernel's layout): q and acc for
-    block_q * group rows, their m and l, a K tile padded to hd + 1 floats,
-    a V tile and the warps' probabilities, all fp32."""
+    """Shared memory of one launch of the scalar instance whose blocks
+    hold block_q * group query rows (the kernel's layout): q and acc for
+    those rows, their m and l, a K tile padded to hd + 1 floats, a V tile
+    and the warps' probabilities, all fp32."""
     rows = block_q * group
     return 4 * (2 * rows * hd + 2 * rows + _TILE * (hd + 1) + _TILE * hd
                 + _WARPS * _TILE)
 
 
+def _ragged_fit_rows(hd: int, smem_limit: int) -> int:
+    """Query rows of the scalar instance that fit _MAX_ROWS and the card's
+    shared memory: rows <= (limit/4 - 32(2hd+1) - 256) / (2hd+2)."""
+    return min(_MAX_ROWS, (smem_limit // 4 - _TILE * (2 * hd + 1)
+                           - _WARPS * _TILE) // (2 * hd + 2))
+
+
 def ragged_block_q(group: int, hd: int, smem_limit: int) -> int:
-    """Tokens per work item: as many whole groups of query rows as fit both
-    _MAX_ROWS and the card's shared memory, rows <= (limit/4 - 32(2hd+1)
-    - 256) / (2hd+2): 128 rows at hd 128, 80 at hd 256. Raises, naming the
-    bytes, when not even one token fits."""
-    fit = ((smem_limit // 4 - _TILE * (2 * hd + 1) - _WARPS * _TILE)
-           // (2 * hd + 2))
-    block_q = max(1, min(_MAX_ROWS, fit) // group)
+    """Tokens per work item of the scalar instance: as many whole groups
+    of query rows as fit (``_ragged_fit_rows``: 128 rows at hd 128, 80 at
+    hd 256), else one token, whose rows the kernel cuts into slices
+    (``ragged_block_rows``: 18 rows a block at MLA's head_dim 576). Raises,
+    naming the bytes, when not even one row fits."""
+    block_q = max(1, _ragged_fit_rows(hd, smem_limit) // group)
+    rows = ragged_block_rows(group, hd, smem_limit, block_q)
     cuda_build.check_smem(
         f"ragged_paged_attention (group {group}, head_dim {hd}, "
-        f"{block_q} tokens a work item)",
-        ragged_smem_bytes(block_q, group, hd), smem_limit)
+        f"{block_q} tokens a work item, {rows} rows a block)",
+        ragged_smem_bytes(1, rows, hd), smem_limit)
     return block_q
+
+
+def ragged_block_rows(group: int, hd: int, smem_limit: int,
+                      block_q: int) -> int:
+    """Query rows a block of the scalar instance holds for work items of
+    block_q tokens: all block_q * group of them where they fit, else as
+    many as fit (at least one): the kernel then cuts an item's rows into
+    slices (grid.z)."""
+    return max(1, min(block_q * group, _ragged_fit_rows(hd, smem_limit)))
+
+
+def ragged_uses_mla(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the kernel runs the MLA instance for this dtype."""
+    return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
+
+
+def ragged_mla_smem_bytes() -> int:
+    """Shared memory of the MLA instance (``mla_attention.cu`` rg::kSmem):
+    64 query rows and a ring of 2 stages of 32-key K and V tiles, bf16
+    rows padded to 584, then the exchange of the warps' P fragments (8
+    warps x 32 lanes x 16 bytes) and row maxima (8 x 16 floats)."""
+    return (2 * (MLA_HEAD_DIM + 8) * (MLA_ROWS + 2 * 2 * 32)
+            + 8 * 32 * 16 + 8 * 16 * 4)
+
+
+def check_mla_cache(fp8: bool) -> None:
+    """Raise ``NotImplementedError`` for an fp8 cache at the MLA geometry:
+    the MLA instances have no room for a staging ring beside their tiles
+    (queued as ``MLA_FP8_ITEM``)."""
+    if fp8:
+        raise NotImplementedError(
+            f"an fp8 KV cache at the MLA geometry (bf16, head_dim "
+            f"{MLA_HEAD_DIM}): the MLA attention instances take a bf16 cache "
+            f"only ({MLA_FP8_ITEM})")
+
+
+def ragged_mla_block_q(group: int, smem_limit: int,
+                       kv_dtype: Optional[torch.dtype] = None) -> int:
+    """Tokens per work item of the MLA instance: as many whole groups as
+    fill its 64 rows, else one token, whose group the kernel cuts into
+    slices of 64 rows (V3's 128 query heads: two). An fp8 cache raises
+    ``NotImplementedError``: the instance has no room for a staging ring
+    (``MLA_FP8_ITEM``)."""
+    check_mla_cache(kv_dtype in KV_CODES)
+    cuda_build.check_smem(
+        f"ragged_paged_attention MLA instance (group {group}, head_dim "
+        f"{MLA_HEAD_DIM})", ragged_mla_smem_bytes(), smem_limit)
+    return max(1, MLA_ROWS // group)
 
 
 def ragged_uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
@@ -130,6 +197,8 @@ def ragged_work_item_tokens(dtype: torch.dtype, group: int, hd: int,
                             kv_dtype: Optional[torch.dtype] = None) -> int:
     """block_q for the instance that ``dtype`` and ``hd`` run, on a cache
     of ``kv_dtype`` (None: q's dtype)."""
+    if ragged_uses_mla(dtype, hd):
+        return ragged_mla_block_q(group, smem_limit, kv_dtype)
     if ragged_uses_tensor_cores(dtype, hd):
         return ragged_tc_block_q(group, hd, smem_limit,
                                  kv_dtype in KV_CODES)
@@ -242,7 +311,27 @@ def ragged_paged_attention(
     what = (f"ragged_paged_attention (group {group}, head_dim {hd}, "
             f"{md.block_q} tokens a work item)")
     stream = cuda_build.stream(q.device)
-    if ragged_uses_tensor_cores(q.dtype, hd):
+    if ragged_uses_mla(q.dtype, hd):
+        check_mla_cache(code > 0)
+        if alibi is not None:
+            raise NotImplementedError(
+                "ALiBi at the MLA geometry: no MLA model uses it")
+        for t in (q, cache_layer):
+            if t.data_ptr() % 16:
+                raise ValueError("q and the cache layer must be 16-byte "
+                                 "aligned")
+        cuda_build.check_smem(what, ragged_mla_smem_bytes(),
+                              cuda_build.smem_optin())
+        launch = cuda_build.entry("mla_attention", "mla_ragged_launch",
+                                  _MLA_ARGTYPES)
+        err = launch(
+            q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() for t in int_args), num_items,
+            md.block_tables.shape[1], nq, kvh, page, md.block_q, scale,
+            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+            stream)
+        instance = "mla"
+    elif ragged_uses_tensor_cores(q.dtype, hd):
         if md.block_q * group > ragged_tc_rows(hd):
             raise ValueError(f"{what}: more rows than the tensor-core "
                              "instance's block (size block_q with "
@@ -261,21 +350,29 @@ def ragged_paged_attention(
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
             slopes, stream)
+        instance = "tensor_cores"
     else:
-        smem = ragged_smem_bytes(md.block_q, group, hd)
-        cuda_build.check_smem(what, smem, cuda_build.smem_optin())
+        smem_limit = cuda_build.smem_optin()
+        rows = ragged_block_rows(group, hd, smem_limit, md.block_q)
+        smem = ragged_smem_bytes(1, rows, hd)
+        cuda_build.check_smem(what, smem, smem_limit)
         launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
                                   _ARGTYPES)
         err = launch(
             DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
-            md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
-            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-            slopes, smem, stream)
+            md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, rows,
+            scale, sliding_window or 0, chunk_attn or 0,
+            logits_soft_cap or 0.0, slopes, smem, stream)
+        instance = "scalar"
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
+    ragged_paged_attention.instance_launches[instance] += 1
     return out
 
 
-# Launches of the CUDA kernel (a run sets it to 0 and reads it after).
+# Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
+# all and by instance.
 ragged_paged_attention.launches = 0
+ragged_paged_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
+                                            "scalar": 0}

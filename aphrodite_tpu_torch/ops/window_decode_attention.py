@@ -20,6 +20,12 @@ last split taking whatever is left); each block writes an unnormalized
 ``window_plan`` makes the launch geometry, the plan and the states'
 scratch once for all the layers and sub-steps of a decode window.
 
+bf16 at MLA's head_dim 576 (DeepSeek V2/V3: any group on one latent KV
+head) runs the MLA instance (``csrc/mla_attention.cu``,
+``mla_window_launch``): one 16-row tile of the group a block, the plan's
+64-key tiles walked as two of 32. A group larger than a block's rows is cut
+into row slices, one block each (grid.y), in every instance.
+
 The cache holds q's dtype or fp8 (e4m3fn or e5m2); the tails hold the
 cache's dtype, or bf16 beside an e5m2 cache (``tail_dtype``, the JAX
 runner's rule). Every tile is upcast to q's dtype before both products,
@@ -35,15 +41,19 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, KV_CODES, TC_HEAD_DIMS, kv_code)
+    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, TC_HEAD_DIMS, check_mla_cache,
+    kv_code)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
              _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
-             _I, _I, _P]
+             _I, _I, _I, _P]
+_MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
 _TILE = 32  # keys per warp sub-tile of the CUDA-core instance
 SPLIT_KEYS = 64  # keys a tile of the split plan
 TC_MAX_GROUP = 16  # query rows of one mma tile
+MLA_ROWS = 16  # query rows a block of the MLA instance
 
 
 def tail_dtype(kv_dtype: torch.dtype) -> torch.dtype:
@@ -62,19 +72,49 @@ def window_smem_bytes(group: int, hd: int, warps: int) -> int:
     return 4 * (group * hd + warps * per_warp)
 
 
+def window_block_rows(group: int, hd: int, smem_limit: int) -> int:
+    """Query rows a CUDA-core split block holds: the whole group where it
+    fits with one warp, else as many as fit (at least one; 18 at MLA's
+    head_dim 576): the kernel then cuts the group into slices."""
+    if window_smem_bytes(group, hd, 1) <= smem_limit:
+        return group
+    per_row = 4 * (2 * hd + 2)  # q, acc, m and l of a row, one warp
+    fixed = window_smem_bytes(0, hd, 1)
+    return max(1, min(group, (smem_limit - fixed) // per_row))
+
+
 def window_warps(group: int, hd: int, smem_limit: int) -> int:
-    """Warps of a CUDA-core split block: 4, else 2, else 1, the first
-    whose sub-tiles fit the card's shared memory (2 at head_dim 256);
-    raises when none fits."""
+    """Warps of a CUDA-core split block of ``window_block_rows`` rows: 4,
+    else 2, else 1, the first whose sub-tiles fit the card's shared memory
+    (2 at head_dim 256); raises when none fits."""
+    rows = window_block_rows(group, hd, smem_limit)
     return cuda_build.fit_warps(
-        f"window_decode_attention (group {group}, head_dim {hd})",
-        lambda warps: window_smem_bytes(group, hd, warps), smem_limit)
+        f"window_decode_attention (group {group}, head_dim {hd}, {rows} "
+        "rows a block)",
+        lambda warps: window_smem_bytes(rows, hd, warps), smem_limit)
+
+
+def window_uses_mla(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the kernel runs its MLA instance (bf16, head_dim 576)."""
+    return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
+
+
+def window_mla_smem_bytes() -> int:
+    """Shared memory of the MLA instance (``mla_attention.cu``
+    wd::kSmem): 16 query rows and a ring of 2 stages of 32-key K and V
+    tiles, bf16 rows padded to 584, then the exchange of the warps' P
+    fragments (4 warps x 32 lanes x 8 bytes) and row maxima (4 x 16
+    floats)."""
+    return (2 * (MLA_HEAD_DIM + 8) * (MLA_ROWS + 2 * 2 * 32)
+            + 4 * 32 * 8 + 4 * 16 * 4)
 
 
 def window_uses_tensor_cores(dtype: torch.dtype, group: int,
                              hd: int) -> bool:
-    """Whether the kernel runs its tensor-core instance: bf16, head_dim
-    64, 128 or 256, and a group that fits one 16-row mma tile."""
+    """Whether the kernel runs its tensor-core instance of
+    ``csrc/split_decode.cuh``: bf16, head_dim 64, 128 or 256, and a group
+    that fits one 16-row mma tile (MLA's head_dim 576 runs its own
+    instance: ``window_uses_mla``)."""
     return (dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
             and group <= TC_MAX_GROUP)
 
@@ -87,20 +127,35 @@ def window_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
             + (2 * 2 * SPLIT_KEYS * hd if fp8 else 0))
 
 
+def _window_geometry(dtype: torch.dtype, group: int, hd: int,
+                     smem_limit: int, fp8: bool = False
+                     ) -> tuple[bool, int, int, int]:
+    """``window_launch_geometry`` and the query rows a block holds."""
+    what = f"window_decode_attention (group {group}, head_dim {hd})"
+    if window_uses_mla(dtype, hd):
+        check_mla_cache(fp8)
+        smem = window_mla_smem_bytes()
+        cuda_build.check_smem(what + " MLA instance", smem, smem_limit)
+        return True, 4, smem, MLA_ROWS
+    if window_uses_tensor_cores(dtype, group, hd):
+        smem = window_tc_smem_bytes(hd, fp8)
+        cuda_build.check_smem(what, smem, smem_limit)
+        return True, 4, smem, group
+    rows = window_block_rows(group, hd, smem_limit)
+    warps = window_warps(group, hd, smem_limit)
+    return False, warps, window_smem_bytes(rows, hd, warps), rows
+
+
 def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
                            smem_limit: int, fp8: bool = False
                            ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one split block: 4
-    warps and ``window_tc_smem_bytes`` on the tensor-core instance, else
-    the CUDA-core instance's ``window_warps`` (whose tiles are fp32 on any
-    cache). Raises, naming the bytes, when nothing fits the card."""
-    what = f"window_decode_attention (group {group}, head_dim {hd})"
-    if window_uses_tensor_cores(dtype, group, hd):
-        smem = window_tc_smem_bytes(hd, fp8)
-        cuda_build.check_smem(what, smem, smem_limit)
-        return True, 4, smem
-    warps = window_warps(group, hd, smem_limit)
-    return False, warps, window_smem_bytes(group, hd, warps)
+    warps and ``window_tc_smem_bytes`` (``window_mla_smem_bytes`` at MLA's
+    geometry, which raises on an fp8 cache) on a tensor-core instance,
+    else the CUDA-core instance's ``window_warps`` (whose tiles are fp32 on
+    any cache) for ``window_block_rows`` rows. Raises, naming the bytes,
+    when nothing fits the card."""
+    return _window_geometry(dtype, group, hd, smem_limit, fp8)[:3]
 
 
 def window_max_tiles(max_paged_len: int, step: int, shared_len: int = 0,
@@ -208,6 +263,7 @@ class WindowPlan(NamedTuple):
     tiles_per_split: int
     part: torch.Tensor  # fp32 scratch of the splits' (acc, m, l)
     kv_dtype: Optional[torch.dtype] = None  # the cache's (None: dtype)
+    rows: int = 0       # query rows a block (0: the whole group)
 
 
 def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
@@ -224,18 +280,20 @@ def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     device = torch.device(device)
     cuda = device.type == "cuda"
     kv_dtype = dtype if kv_dtype is None else kv_dtype
-    tc, warps, smem = window_launch_geometry(
-        dtype, nq // kvh, hd,
+    group = nq // kvh
+    tc, warps, smem, rows = _window_geometry(
+        dtype, group, hd,
         cuda_build.smem_optin() if cuda else cuda_build.H100_SMEM_OPTIN,
         kv_dtype in KV_CODES)
     splits, per = window_split_plan(
-        num_reqs * kvh, window_max_tiles(max_paged_len, step, shared_len,
-                                         sliding_window, chunk_attn),
+        num_reqs * kvh * -(-group // rows),
+        window_max_tiles(max_paged_len, step, shared_len, sliding_window,
+                         chunk_attn),
         cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
     part = torch.empty(num_reqs * nq * splits * (hd + 2),
                        dtype=torch.float32, device=device)
     return WindowPlan((dtype, num_reqs, nq, kvh, hd), tc, warps, smem,
-                      splits, per, part, kv_dtype)
+                      splits, per, part, kv_dtype, rows)
 
 
 def window_decode_attention(
@@ -335,22 +393,43 @@ def window_decode_attention(
     cache_l = (kv_cache.data_ptr()
                + layer * kv_cache.stride(0) * kv_cache.element_size())
     tail_off = layer * tail_k.stride(0) * tail_k.element_size()
-    launch = cuda_build.entry("window_decode_attention", "wd_launch",
-                              _ARGTYPES)
-    err = launch(
-        DTYPE_CODES[q.dtype], code, int(plan.tensor_cores), q.data_ptr(),
-        cache_l,
-        tail_k.data_ptr() + tail_off, tail_v.data_ptr() + tail_off,
-        out.data_ptr(), plan.part.data_ptr(), part_m,
-        part_m + 4 * n_state, paged_lens.data_ptr(),
-        block_tables.data_ptr(), R, block_tables.shape[1], nq, kvh, page, hd,
-        Kw, step, scale, sliding_window or 0, chunk_attn or 0,
-        logits_soft_cap or 0.0, *init, shared_len, plan.splits,
-        plan.tiles_per_split, plan.warps, plan.smem, cuda_build.stream(dev))
+    if window_uses_mla(q.dtype, hd):
+        check_mla_cache(code > 0)
+        launch = cuda_build.entry("mla_attention", "mla_window_launch",
+                                  _MLA_ARGTYPES)
+        err = launch(
+            q.data_ptr(), cache_l, tail_k.data_ptr() + tail_off,
+            tail_v.data_ptr() + tail_off, out.data_ptr(),
+            plan.part.data_ptr(), part_m, part_m + 4 * n_state,
+            paged_lens.data_ptr(), block_tables.data_ptr(), R,
+            block_tables.shape[1], nq, kvh, page, Kw, step, scale,
+            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+            *init, shared_len, plan.splits, plan.tiles_per_split,
+            cuda_build.stream(dev))
+        instance = "mla"
+    else:
+        launch = cuda_build.entry("window_decode_attention", "wd_launch",
+                                  _ARGTYPES)
+        err = launch(
+            DTYPE_CODES[q.dtype], code, int(plan.tensor_cores), q.data_ptr(),
+            cache_l,
+            tail_k.data_ptr() + tail_off, tail_v.data_ptr() + tail_off,
+            out.data_ptr(), plan.part.data_ptr(), part_m,
+            part_m + 4 * n_state, paged_lens.data_ptr(),
+            block_tables.data_ptr(), R, block_tables.shape[1], nq, kvh, page,
+            hd, Kw, step, scale, sliding_window or 0, chunk_attn or 0,
+            logits_soft_cap or 0.0, *init, shared_len, plan.splits,
+            plan.tiles_per_split, plan.warps, plan.smem,
+            plan.rows or group, cuda_build.stream(dev))
+        instance = "tensor_cores" if plan.tensor_cores else "scalar"
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
+    window_decode_attention.instance_launches[instance] += 1
     return out
 
 
-# Launches of the CUDA kernel (a run sets it to 0 and reads it after).
+# Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
+# all and by instance.
 window_decode_attention.launches = 0
+window_decode_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
+                                             "scalar": 0}

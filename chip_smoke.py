@@ -151,6 +151,37 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    Exactly 2048 tokens a run; in every cold and warm run the ragged kernel
    exactly 40 and the decode kernel exactly 40 x 63 = 2520 launches, every
    call with the slopes, the window kernel never; a profiled run.
+23. DeepSeek parity (``deepseek_parity``): tiny DeepSeek V2 (greedy, and
+   q_lora with group-limited routing) and V3 in fp32 (``DS_TINY``:
+   weights redrawn, ``redraw_deepseek``), card vs CPU with the same
+   weights, a 32-token batch budget, 16-step windows and a second batch of
+   three requests sharing a 4-page prompt (the cascade at the latent
+   head): greedy tokens equal, every attention launch on the scalar
+   instances; then ``DS_TINY_BF16`` (16 heads on one latent head of 512 +
+   64, dense MLPs) in bf16 on the MLA instances only, its logprobs within
+   ``DS_BF16_LOGPROB_TOL`` of the CPU's up to the first token where the
+   runs part.
+24. The main path of the MLA slice: DeepSeek-V2-Lite
+   (``deepseek-ai/DeepSeek-V2-Lite`` config.json: 27 layers, 16 query
+   heads on one latent head of 576, 64 experts top-6 with 2 shared, a
+   dense first layer, DeepSeek-YaRN) at full width and depth, bf16 dummy
+   weights (31.4 GB), phase 6's traffic and runs. Exactly 2048 tokens a
+   run; in every cold and warm run the ragged kernel exactly 27 and the
+   window kernel exactly 27 x 63 = 1701 launches, all on their MLA
+   instances, the grouped GEMM 52 (26 MoE layers x 2, the wave only), the
+   other attention instances never; a profiled run.
+
+For the MLA slice phase 2 (``mla_checks``) holds both MLA instances
+(``csrc/mla_attention.cu``) against their plain versions at phase 24's
+wave and window and at V3's group of 128 (``MLA_GEOMS``), each timed beside
+SDPA over the gathered K/V (the backend its dispatch picks named) and, at
+phase 24's shapes, beside the bf16 scalar instances they replace
+(``scalar_instances``: the "before"); the fp32 scalar instances at the same
+geometries (a group cut into row slices); both instances with a soft cap
+and a sliding window on 16-token pages (``MLA_MASK_CASE``); the
+shared-prefix pass at head_dim 576 and the window from its state (pages of
+16 and 64); and the grouped GEMM at V2-Lite's MoE wave (98,304 rows, 64
+experts, top-6: ``V2_LITE_MOE``) beside ``_grouped_mm``.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -245,6 +276,7 @@ that runs it, with that path's launches and shapes), the card line, and
 from __future__ import annotations
 
 import bisect
+import contextlib
 import gc
 import json
 import math
@@ -514,7 +546,7 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         seq_lens=dev(np.asarray(ctx, np.int32)), block_tables=bt,
         block_q=block_q, **{k: dev(v) for k, v in items.items()})
     q = torch.randn((T, NQ, HD), generator=gen, device="cuda").to(dtype)
-    scale = HD ** -0.5
+    scale = geom.get("scale", HD ** -0.5)
     layer = 1
     out = ragged_paged_attention(q, cache, layer, md, scale, **opts)
     ref = ref_ragged_paged_attention(q, cache[layer], md, scale, **opts)
@@ -552,10 +584,15 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         mask = torch.where(mask, opts["alibi"][None, :, None, None] * dist,
                            float("-inf")).to(dtype)
     del dist
+    gqa = not geom.get("mla")
+    if not gqa:  # the fused backends take one K/V head a query head only
+        k_d, v_d = (t.expand(-1, NQ, -1, -1) for t in (k_d, v_d))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q_d, k_d, v_d, attn_mask=mask, scale=scale, enable_gqa=True)
+        q_d, k_d, v_d, attn_mask=mask, scale=scale, enable_gqa=gqa)
     lib_ms = cuda_ms(sdpa, 5)
     lib_dev_ms = device_ms(sdpa, 5)
+    backends = (None if gqa else
+                sdpa_backends(sdpa, q_d, k_d, v_d, mask, scale))
     item = torch.finfo(dtype).bits // 8
     vis = sum(int(p) + 1 for p in tok_pos)   # causal keys per token
     nbytes = (item * 2 * T * NQ * HD
@@ -565,7 +602,32 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                library_device_ms=lib_dev_ms)
+                library_device_ms=lib_dev_ms, sdpa_backends=backends)
+
+
+def sdpa_backends(sdpa, q, k, v, mask, scale) -> str:
+    """Which backend SDPA's dispatch picks for this call (K/V expanded to
+    the query heads: ``torch._fused_sdp_choice``) and which of its
+    backends take the call, each tried alone: MLA's head_dim 576 is past
+    the flash backend's 256."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took, refused = [], []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                sdpa()
+            torch.cuda.synchronize()
+            took.append(b.name)
+        except RuntimeError:
+            refused.append(b.name)
+    try:
+        pick = SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, False, scale=scale)).name
+    except Exception as e:  # noqa: BLE001 (a private entry point)
+        pick = f"not read ({e!r:.80})"
+    return f"picks {pick}; takes {took}; refuses {refused}"
 
 
 def alibi_tol(dtype_name: str, ref) -> float:
@@ -636,7 +698,7 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
                          device="cuda").to(tail_dtype(kvd))
     q = torch.randn((R, NQ, HD), generator=gen, device="cuda").to(dtype)
     pl = torch.tensor(plens, dtype=torch.int32, device="cuda")
-    scale = HD ** -0.5
+    scale = geom.get("scale", HD ** -0.5)
     plan = lambda bound: window_plan(  # noqa: E731
         dtype, R, NQ, KVH, HD, q.device, bound, Kw - 1,
         sliding_window=opts.get("sliding_window"),
@@ -684,10 +746,15 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     mask = torch.where(j[None, :] < s_max, j[None, :] < pl[:, None].long(),
                        (j[None, :] - s_max) <= step)[:, None, None, :]
     q_d = q[:, :, None, :]
+    gqa = not geom.get("mla")
+    if not gqa:  # the fused backends take one K/V head a query head only
+        k_d, v_d = (t.expand(-1, NQ, -1, -1) for t in (k_d, v_d))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q_d, k_d, v_d, attn_mask=mask, scale=scale, enable_gqa=True)
+        q_d, k_d, v_d, attn_mask=mask, scale=scale, enable_gqa=gqa)
     lib_ms = cuda_ms(sdpa, 50)
     lib_dev_ms = device_ms(sdpa, 20)
+    backends = (None if gqa else
+                sdpa_backends(sdpa, q_d, k_d, v_d, mask, scale))
     item = torch.finfo(dtype).bits // 8
     vis = sum(plens) + R * (step + 1)
     nbytes = (item * 2 * R * NQ * HD + 2 * KVH * HD * (
@@ -696,7 +763,8 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                host_ms=host, library_device_ms=lib_dev_ms)
+                host_ms=host, library_device_ms=lib_dev_ms,
+                sdpa_backends=backends)
 
 
 # Decode kernel cases: (heads, head_dim, context lengths, options). The
@@ -1657,9 +1725,9 @@ def check_cascade(gen, dtype_name: str, kv: str | None = None,
 
 
 def group_offsets(gen, M: int, skewed: bool, E: int = MOE_E,
-                  uniform: bool = False):
+                  uniform: bool = False, k: int = MOE_K):
     """int32 [E + 1] offsets of M sorted rows over E experts. Balanced:
-    the rows of M / 4 tokens, each routed to 4 distinct random experts.
+    the rows of M / k tokens, each routed to k distinct random experts.
     Skewed: expert e drawn with weight (e + 1)^-1.5, every sixth expert
     empty (expert 0 takes ~45 % of the rows). Uniform: each row's expert
     drawn at random (any M)."""
@@ -1668,8 +1736,8 @@ def group_offsets(gen, M: int, skewed: bool, E: int = MOE_E,
         ids = torch.sort(torch.randint(0, E, (M,), generator=gen,
                                        device="cuda")).values
     elif not skewed:
-        topi = torch.rand((M // MOE_K, E), generator=gen,
-                          device="cuda").topk(MOE_K, dim=-1).indices
+        topi = torch.rand((M // k, E), generator=gen,
+                          device="cuda").topk(k, dim=-1).indices
         ids = torch.sort(topi.reshape(-1)).values
     else:
         p = (torch.arange(E, device="cuda") + 1.0) ** -1.5
@@ -2845,8 +2913,10 @@ def profile_run(one_run, phase: str = "phase 4",
            "sample": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (ns, _) in kernels.items():
         n = name.lower()
-        k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n else
-             "window" if "wd_split" in n or "wd_merge" in n else
+        k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
+             or "mla_ragged" in n else
+             "window" if "wd_split" in n or "wd_merge" in n
+             or "mla_window" in n or "mla_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
              "fp8" if "w4_wgmma_kernel<4" in n else
@@ -2891,7 +2961,7 @@ def profile_run(one_run, phase: str = "phase 4",
 KERNEL_SOURCES = ["ragged_paged_attention", "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
-                  "gumbel_sample", "suffix_match"]
+                  "gumbel_sample", "suffix_match", "mla_attention"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -4055,6 +4125,437 @@ def fp8_attention_checks(gen, dt: str, results: dict) -> None:
         results[("shared_prefix_attention", dt, kv)] = spa
 
 
+# ----------------------------------------------------------- the MLA slice
+DEEPSEEK_V2_LITE = dict(  # deepseek-ai/DeepSeek-V2-Lite config.json
+    vocab_size=102400, hidden_size=2048, num_hidden_layers=27,
+    num_attention_heads=16, num_key_value_heads=16, intermediate_size=10944,
+    moe_intermediate_size=1408, n_routed_experts=64, num_experts_per_tok=6,
+    n_shared_experts=2, first_k_dense_replace=1, moe_layer_freq=1,
+    topk_method="greedy", n_group=1, topk_group=1, norm_topk_prob=False,
+    routed_scaling_factor=1.0, scoring_func="softmax", q_lora_rank=None,
+    kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+    v_head_dim=128, hidden_act="silu", rms_norm_eps=1e-6, rope_theta=10000,
+    rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                  "beta_slow": 1, "mscale": 0.707, "mscale_all_dim": 0.707,
+                  "original_max_position_embeddings": 4096},
+    max_position_embeddings=163840, tie_word_embeddings=False,
+    architectures=["DeepseekV2ForCausalLM"])
+# The model's softmax scale: qk_head_dim (192)^-0.5 times DeepSeek-YaRN's
+# mscale_all_dim correction squared (models/deepseek.py).
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+# The MLA instances' shapes (phase 2): phase 24's wave (32 x 512 tokens,
+# 16 query heads on one latent head of 576) and its window sub-steps (R =
+# 32 over 513-576 keys: 512 frozen and a 64-slot tail); V3's group of 128
+# (128 query heads on the one head) over a few requests of a few hundred
+# tokens, the window at R = 4.
+MLA_GEOMS = {
+    "deepseek-v2-lite-bf16": dict(
+        nq=16, kvh=1, hd=576, ctx=[512] * 32, qlen=[512] * 32,
+        paged=[512] * 32, scale=MLA_SCALE, mla=True),
+    "deepseek-v3-group128": dict(
+        nq=128, kvh=1, hd=576, ctx=[300, 200, 257, 64],
+        qlen=[300, 200, 257, 64], paged=[300, 200, 257, 64],
+        scale=MLA_SCALE, mla=True),
+}
+# Where the MLA instances' masks bite (bf16 and fp32, errors only): a soft
+# cap and a sliding window across a later chunk and decode rows, on
+# 16-token pages (a 32-key tile spans two).
+MLA_MASK_CASE = dict(nq=16, kvh=1, hd=576, ctx=[400, 130, 77],
+                     qlen=[400, 3, 1], paged=[400, 130, 77], page=16,
+                     opts=dict(logits_soft_cap=30.0, sliding_window=100))
+# (K, N) of a V2-Lite MoE layer's two grouped GEMMs over its wave (32 x 512
+# tokens x top-6 = 98,304 sorted rows, 64 experts).
+V2_LITE_MOE = dict(M=32 * 512 * 6, E=64, k=6,
+                   gemms={"gate_up": (2048, 2 * 1408), "down": (1408, 2048)})
+
+
+class InstanceCount:
+    """The launches of one instance of an attention wrapper
+    (``instance_launches``), counted as a kernel of its own."""
+
+    def __init__(self, fn, instance: str) -> None:
+        self.fn, self.instance = fn, instance
+
+    @property
+    def launches(self) -> int:
+        return self.fn.instance_launches[self.instance]
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.instance_launches[self.instance] = value
+
+
+def instance_counts() -> dict:
+    """Each instance of the ragged and window kernels as a counted kernel:
+    "ragged mla", "window scalar", ..."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    return {f"{kind} {inst}": InstanceCount(fn, inst)
+            for kind, fn in (("ragged", ragged_paged_attention),
+                             ("window", window_decode_attention))
+            for inst in ("mla", "tensor_cores", "scalar")}
+
+
+@contextlib.contextmanager
+def scalar_instances():
+    """Within it, bf16 at head_dim 576 sizes and launches the scalar
+    instances (the "before" of the MLA instances): the wrappers' MLA
+    predicates answer False."""
+    from aphrodite_tpu_torch.ops import ragged_paged_attention as rm
+    from aphrodite_tpu_torch.ops import window_decode_attention as wm
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (rm, "ragged_uses_mla"), (wm, "window_uses_mla"))]
+    for m, n, _ in saved:
+        setattr(m, n, lambda *a: False)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def check_mla_cascade(gen, dtype_name: str, page: int) -> float:
+    """The shared-prefix pass at head_dim 576 (its CUDA-core instance, bf16
+    too) and the window kernel started from its state (the MLA instance in
+    bf16): 8 requests of 16 heads sharing 4 pages, against the plain
+    cascade; returns the error (held at ``scaled_tol``)."""
+    import torch
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        ref_cascade_window_decode, shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    dtype = getattr(torch, dtype_name)
+    R, nq, hd, S, Kw = 8, 16, 576, 4 * page, 64
+    plens = [S + 40 + 7 * r for r in range(R)]
+    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, 1, hd=hd,
+                            page=page)
+    bt[:, :S // page] = bt[0, :S // page]
+    tk, tv = (torch.randn((2, R, 1, Kw, hd), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    q = torch.randn((R, nq, hd), generator=gen, device="cuda").to(dtype)
+    pl = torch.tensor(plens, dtype=torch.int32, device="cuda")
+    sp = bt[0, :S // page].contiguous()
+    err = 0.0
+    for step in (0, 10, 63):
+        init = shared_prefix_attention(q, cache, 1, sp, S, MLA_SCALE)
+        out = window_decode_attention(q, cache, tk, tv, 1, step, pl, bt,
+                                      MLA_SCALE, cascade_init=init,
+                                      shared_len=S)
+        ref = ref_cascade_window_decode(q, cache[1], tk[1], tv[1], step, pl,
+                                        bt, sp, S, MLA_SCALE)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        if not (e <= scaled_tol(dtype_name, ref)
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"MLA cascade {dtype_name} step {step}: "
+                                 f"max_abs_err {e}")
+        err = max(err, e)
+    return err
+
+
+def check_grouped_v2lite(gen) -> dict:
+    """The bf16 grouped GEMM at phase 24's MoE wave (``V2_LITE_MOE``: a
+    layer's gate|up and down over 98,304 rows sorted over 64 experts, each
+    token routed to 6 distinct random experts): error against the plain
+    version on fp32 copies, two launches bit-equal; time a call, device
+    time, the plain version, ``_grouped_mm``, and the bound, summed over
+    the two GEMMs."""
+    import torch
+    from aphrodite_tpu_torch.ops.grouped_matmul import (grouped_matmul,
+                                                        ref_grouped_matmul)
+    M, E, k = V2_LITE_MOE["M"], V2_LITE_MOE["E"], V2_LITE_MOE["k"]
+    off = group_offsets(gen, M, False, E, k=k)
+    nonempty = int((off[1:] > off[:-1]).sum())
+    tot = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               library_ms=0.0)
+    nbytes = ops = 0.0
+    for gemm, (K, N) in V2_LITE_MOE["gemms"].items():
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((E, K, N), generator=gen, device="cuda")
+             * (0.5 / K ** 0.5)).bfloat16()
+        out, again = grouped_matmul(x, w, off), grouped_matmul(x, w, off)
+        ref = ref_grouped_matmul(x.float(), w.float(), off)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not (err <= TOL["bfloat16"] and torch.isfinite(out).all()
+                and torch.equal(out, again)):
+            raise AssertionError(f"grouped_matmul {gemm} at V2-Lite's wave: "
+                                 f"max_abs_err {err}, or two launches "
+                                 "differ")
+        call = lambda: grouped_matmul(x, w, off)  # noqa: E731
+        label, lib = grouped_library(x, w, off, ref)
+        del ref, out, again
+        for key, val in (("ms", cuda_ms(call, 10)),
+                         ("device_ms", device_ms(call, 10)),
+                         ("plain_ms", cuda_ms(
+                             lambda: ref_grouped_matmul(x, w, off), 2)),
+                         ("library_ms", cuda_ms(lib, 10))):
+            tot[key] += val
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        nbytes += 2 * (M * K + nonempty * K * N + M * N)
+        ops += 2.0 * M * K * N
+        del x, w
+    tot["bound_ms"], tot["bound_by"] = bound_ms(nbytes, ops, "bfloat16")
+    tot["library"] = label
+    log(f"# phase 2: grouped_matmul bfloat16 at DeepSeek-V2-Lite's MoE wave "
+        f"(M={M}, E={E}, {nonempty} groups), a layer's 2 GEMMs: max_abs_err "
+        f"{tot['max_abs_err']:.3g} (tol {TOL['bfloat16']}), two launches "
+        f"bit-equal; kernel {tot['ms']:.4f} ms (device "
+        f"{tot['device_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
+        f"{label} {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+        f"ms ({tot['bound_by']})")
+    return tot
+
+
+def mla_checks(gen, results: dict) -> None:
+    """Phase 2 for the MLA slice: each MLA instance (bf16) at
+    ``MLA_GEOMS`` against its plain version (ragged at TOL, the window at
+    ``scaled_tol``), timed beside SDPA over the gathered K/V (its backend
+    named) and, at phase 24's shapes, beside the scalar instances in bf16
+    (the "before": one token a work item, one warp a split block); the
+    fp32 scalar instances at the same geometries (row slices at group
+    128); both at ``MLA_MASK_CASE``; the cascade at 576; the grouped GEMM
+    at V2-Lite's MoE wave."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    for path, geom in MLA_GEOMS.items():
+        for name, fn, wrapper in (
+                ("ragged_paged_attention", check_ragged,
+                 ragged_paged_attention),
+                ("window_decode_attention", check_window,
+                 window_decode_attention)):
+            wrapper.instance_launches.update(mla=0, tensor_cores=0, scalar=0)
+            r = fn(gen, "bfloat16", geom)
+            if not (wrapper.instance_launches["mla"] > 0
+                    and wrapper.instance_launches["scalar"] == 0):
+                raise AssertionError(f"{name} at {path}: instances "
+                                     f"{wrapper.instance_launches}")
+            before = ""
+            if path == "deepseek-v2-lite-bf16":
+                with scalar_instances():
+                    b = fn(gen, "bfloat16", geom)
+                r["before"] = b
+                before = (f"; the bf16 scalar instance (before): "
+                          f"{b['ms']:.4f} ms (device {b['device_ms']:.4f} "
+                          f"ms), max_abs_err {b['max_abs_err']:.3g}")
+            extra = (f"device {r['device_ms']:.4f} ms" + (
+                f", host {r['host_ms']:.4f} ms a call"
+                if "host_ms" in r else ""))
+            log(f"# phase 2: {name} MLA instance bf16 at {path} shapes: "
+                f"max_abs_err {r['max_abs_err']:.3g} (tol "
+                f"{tol_text(name, 'bfloat16')}); kernel {r['ms']:.4f} ms "
+                f"({extra}), plain {r['plain_ms']:.4f} ms, sdpa "
+                f"{r['library_ms']:.4f} ms (device "
+                f"{r['library_device_ms']:.4f} ms; {r['sdpa_backends']}), "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){before}")
+            results[(f"{name}_mla", path, "bfloat16")] = r
+            err = fn(gen, "float32", geom, timed=False)
+            log(f"# phase 2: {name} scalar instance float32 at {path} "
+                f"shapes (row slices): max_abs_err {err:.3g} (tol "
+                f"{tol_text(name, 'float32')})")
+    for dt in ("bfloat16", "float32"):
+        for name, fn in (("ragged_paged_attention", check_ragged),
+                         ("window_decode_attention", check_window)):
+            err = fn(gen, dt, MLA_MASK_CASE, timed=False)
+            log(f"# phase 2: {name} {dt} at head_dim 576 on 16-token pages, "
+                f"soft cap 30 and a 100-token window: max_abs_err "
+                f"{err:.3g} (tol {tol_text(name, dt)})")
+        for page in (16, PAGE):
+            log(f"# phase 2: shared_prefix_attention + window at head_dim "
+                f"576 {dt} (4 shared pages of {page}, R = 8): max_abs_err "
+                f"{check_mla_cascade(gen, dt, page):.3g} (tol {TOL[dt]} x "
+                "min(1, max|ref|))")
+    results[("grouped_matmul", "deepseek-v2-lite-bf16", "bfloat16")] = \
+        check_grouped_v2lite(gen)
+
+
+# Phase 23's tiny DeepSeek geometries (fp32): V2 greedy without q_lora, V2
+# with q_lora and group-limited routing, V3's sigmoid routing; latent 56 +
+# rope 8 = 64 lanes, so that the shared-prefix pass's CUDA-core instance
+# (head_dim 64, 128, 256 or 576) takes the cascade batch.
+DS_TINY_BASE = dict(
+    vocab_size=512, hidden_size=128, num_hidden_layers=3,
+    num_attention_heads=8, num_key_value_heads=8, intermediate_size=192,
+    kv_lora_rank=56, q_lora_rank=None, qk_nope_head_dim=32,
+    qk_rope_head_dim=8, v_head_dim=32, n_routed_experts=8,
+    num_experts_per_tok=2, moe_intermediate_size=64, n_shared_experts=1,
+    first_k_dense_replace=1, max_position_embeddings=1024,
+    rope_scaling=dict(DEEPSEEK_V2_LITE["rope_scaling"],
+                      original_max_position_embeddings=256),
+    tie_word_embeddings=False, architectures=["DeepseekV2ForCausalLM"])
+DS_TINY = {
+    "v2": {},
+    "v2-qlora-group-limited": dict(q_lora_rank=48, n_group=4, topk_group=2,
+                                   routed_scaling_factor=2.0),
+    "v3": dict(q_lora_rank=48, n_group=4, topk_group=2, norm_topk_prob=True,
+               routed_scaling_factor=2.5,
+               architectures=["DeepseekV3ForCausalLM"]),
+}
+# The bf16 tiny config at the real attention geometry: 16 heads on one
+# latent head of 512 + 64, 2 layers, narrow dense MLPs. Dense, because a
+# router's top-k flips between two experts at a near tie under bf16
+# rounding: one step's logprobs then move by ~0.3 and come back (seen on
+# the card between its own runs with the cascade on and off, and between
+# the card and the CPU; the fp32 configs keep their experts).
+DS_TINY_BF16 = dict(DS_TINY_BASE, num_hidden_layers=2, hidden_size=256,
+                    num_attention_heads=16, num_key_value_heads=16,
+                    kv_lora_rank=512, qk_nope_head_dim=128,
+                    qk_rope_head_dim=64, v_head_dim=128,
+                    n_routed_experts=None)
+# bf16 logprobs, card vs CPU, where the two runs fed the same tokens: the
+# card's bf16 products (P rounded to bf16 before P V, bf16 GEMM outputs)
+# against the CPU's fp32 attention and its own bf16 GEMMs. The two differ
+# by 0.03-0.06 at every step of this model, as much as the CPU's bf16 run
+# differs from its fp32 one (0.03-0.10); a lost key tile or split moves
+# the attention output, and a logprob, by far more.
+DS_BF16_LOGPROB_TOL = 0.25
+
+
+def redraw_deepseek(model, seed: int) -> None:
+    """Weights from a seeded CPU generator at fan-in scale (the dummy
+    recipe's 0.02 makes a model that repeats a few tokens): norms near 1,
+    V3's score correction near 0, products at 1/sqrt(fan-in) (the expert
+    and absorbed-einsum stacks' fan-in is their middle axis)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=g)
+            if name.endswith("router_bias"):
+                new = 0.1 * r
+            elif p.dim() == 1:
+                new = 1.0 + 0.1 * r
+            elif p.dim() == 3:
+                new = r / p.shape[1] ** 0.5
+            else:
+                new = r / p.shape[0] ** 0.5
+            p.copy_(new.to(p.dtype))
+
+
+def deepseek_parity() -> dict:
+    """Phase 23: tiny DeepSeek V2 / V3 through the port on the card and on
+    the CPU with the same weights (``DS_TINY``: fp32, greedy tokens
+    equal; the scalar attention instances), with a 32-token batch budget,
+    16-step decode windows and a second batch of three requests sharing a
+    4-page prompt (the cascade: the shared-prefix pass, the window from its
+    state); then ``DS_TINY_BF16`` (dense MLPs) in bf16, whose every
+    attention launch must be on the MLA instances and whose logprobs, up
+    to the first token where the runs part, must lie within
+    ``DS_BF16_LOGPROB_TOL`` of the CPU's. Returns the card runs'
+    launches."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(23)
+    shared = rng.randint(10, 500, size=4 * 16).tolist()
+    batches = {"plain": [rng.randint(1, 500, size=n).tolist()
+                         for n in (5, 40, 17, 70)],
+               "shared prompt": [shared + rng.randint(10, 500, size=3 + i)
+                                 .tolist() for i in range(3)]}
+    params = SamplingParams(temperature=0.0, max_tokens=20, ignore_eos=True)
+    counted = {**instance_counts(), **attention_kernels(),
+               "grouped_matmul": grouped_matmul,
+               "shared_prefix_attention": shared_prefix_attention}
+    total = dict.fromkeys(counted, 0)
+
+    def engines(cfg, dtype):
+        kw = dict(hf_config=cfg, tokenizer="unused", dtype=dtype,
+                  block_size=16, num_kv_blocks=128, max_num_seqs=4,
+                  max_num_batched_tokens=32, max_model_len=256,
+                  decode_window=16)
+        cpu = LLM("tiny-deepseek", device="cpu", **kw)
+        redraw_deepseek(cpu.engine.core.worker.model, 24)
+        gpu = LLM("tiny-deepseek", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        return cpu, gpu
+
+    def card_run(gpu, prompts):
+        for fn in counted.values():
+            fn.launches = 0
+        out = traced(gpu, prompts, params)
+        got = {k: fn.launches for k, fn in counted.items()}
+        for k, v in got.items():
+            total[k] += v
+        return out, got
+
+    for name, extra in DS_TINY.items():
+        cpu, gpu = engines(dict(DS_TINY_BASE, **extra), "float32")
+        for what, prompts in batches.items():
+            a = traced(cpu, prompts, params)
+            b, got = card_run(gpu, prompts)
+            if a[0] != b[0]:
+                raise AssertionError(f"{name} {what}: cuda vs cpu greedy "
+                                     f"tokens differ:\n{a[0]}\n{b[0]}")
+            if len({t for x in a[0] for t in x}) <= 10:
+                raise AssertionError(f"{name}: the tokens hardly vary")
+            if got["ragged scalar"] <= 0 or got["window scalar"] <= 0 or \
+                    got["ragged mla"] or got["window mla"] or (
+                    what == "shared prompt"
+                    and got["shared_prefix_attention"] <= 0):
+                raise AssertionError(f"{name} {what}: launches {got}")
+            log(f"# phase 23: {name} fp32 {what}: cuda == cpu greedy tokens "
+                f"for {len(prompts)} prompts x 20; launches {got}")
+        del cpu, gpu
+    cpu, gpu = engines(DS_TINY_BF16, "bfloat16")
+    for what, prompts in batches.items():
+        a = traced(cpu, prompts, params)
+        b, got = card_run(gpu, prompts)
+        worst, parted = 0.0, 0
+        for (ta, ra), (tb, rb) in zip(zip(*a), zip(*b)):
+            i = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                     len(ta))
+            parted += i < len(ta)
+            for j in range(min(i + 1, len(ta))):
+                worst = max(worst, (ra[j] - rb[j]).abs().max().item())
+        mla = got["ragged mla"] + got["window mla"]
+        if not (worst <= DS_BF16_LOGPROB_TOL and mla > 0
+                and mla == got["ragged_paged_attention"]
+                + got["window_decode_attention"]
+                and got["ragged scalar"] == got["window scalar"] == 0):
+            raise AssertionError(
+                f"bf16 {what}: logprobs up to the first parting differ by "
+                f"{worst} (tol {DS_BF16_LOGPROB_TOL}); launches {got}")
+        log(f"# phase 23: bf16 at the MLA geometry (16 / 1 heads of 576) "
+            f"{what}: logprobs within {worst:.4f} of the CPU's up to the "
+            f"first parting (tol {DS_BF16_LOGPROB_TOL}; {parted} of "
+            f"{len(prompts)} requests part); every attention launch on the "
+            f"MLA instances: {got}")
+    return total
+
+
+def main_path_deepseek() -> dict:
+    """Phase 24: DeepSeek-V2-Lite bf16 at full width and depth (27 layers,
+    16 heads on one latent head of 576, 64 experts top-6 and 2 shared,
+    15.7 B parameters of seeded dummy weights), phase 6's traffic: one
+    16384-token wave (the ragged MLA instance once a layer, the grouped
+    GEMM twice a MoE layer), then one 63-step window (the window MLA
+    instance once a layer a sub-step; the MoE on the dense route). In
+    every cold and warm run exactly: ragged 27 and window 1701, all on the
+    MLA instances; grouped 52; 0 on the other instances."""
+    from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    L, steps = DEEPSEEK_V2_LITE["num_hidden_layers"], 63
+    moe = L - DEEPSEEK_V2_LITE["first_k_dense_replace"]
+    exact = {"ragged_paged_attention": L, "ragged mla": L,
+             "window_decode_attention": L * steps, "window mla": L * steps,
+             "grouped_matmul": 2 * moe}
+    exact.update({f"{k} {i}": 0 for k in ("ragged", "window")
+                  for i in ("tensor_cores", "scalar")})
+    log(f"# phase 24: launches a run, reckoned: {exact}")
+    return serve_workload(
+        "phase 24", "deepseek-v2-lite-dummy", DEEPSEEK_V2_LITE,
+        {**attention_kernels(), **instance_counts(),
+         "grouped_matmul": grouped_matmul}, exact=exact)[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4196,6 +4697,8 @@ def main() -> int:
         f"0); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}); no library call")
     results[("selective_scan", "float32")] = r
+    stamp("phase 2: the MLA instances")
+    mla_checks(gen, results)
     stamp("phase 2: the sampler's kernels")
     results[("gumbel_sample", "float32")] = check_gumbel(gen)
     results[("suffix_match", "int32")] = check_suffix(gen)
@@ -4231,6 +4734,11 @@ def main() -> int:
     flex_parity_launches = flexible_parity()
     stamp("phase 22")
     baichuan_counts = main_path_baichuan()
+    stamp("phase 23")
+    ds_parity_launches = deepseek_parity()
+    log(f"# phase 23: launches on the card runs {ds_parity_launches}")
+    stamp("phase 24")
+    deepseek_counts = main_path_deepseek()
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -4357,10 +4865,26 @@ def main() -> int:
              counts["decode_paged_attention"],
              results[("decode_paged_attention", "baichuan2-13b-alibi", dt)],
              "auto")]
+    # The MLA slice: both attention kernels' MLA instances and the grouped
+    # GEMM on phase 24's path (phase 2's shapes; the V3 geometry's times
+    # are in the log).
+    ds_path = "deepseek-v2-lite-bf16"
+    rows += [(f"{name}_mla", ds_path, "bfloat16",
+              deepseek_counts[f"{kind} mla"],
+              results[(f"{name}_mla", ds_path, "bfloat16")], "auto")
+             for name, kind in (("ragged_paged_attention", "ragged"),
+                                ("window_decode_attention", "window"))]
+    rows.append(("grouped_matmul", ds_path, "bfloat16",
+                 deepseek_counts["grouped_matmul"],
+                 results[("grouped_matmul", ds_path, "bfloat16")], "auto"))
+    for name in ("ragged_paged_attention", "window_decode_attention"):
+        replaces[f"{name}_mla"] = replaces[name]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
                or name in ("w4a16_int4_matmul", "fp8_matmul") else name)
+        if name.endswith("_mla"):
+            src = "mla_attention"
         if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
                     *BYTE_PATHS) and dt == "bfloat16":
             src = "w4_wgmma"

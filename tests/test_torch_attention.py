@@ -232,14 +232,16 @@ def test_the_old_launch_sizes_overflow_at_head_dim_256():
 
 
 def test_a_geometry_that_cannot_fit_raises():
-    with pytest.raises(RuntimeError, match="needs 8.* bytes of shared "
+    # Since the scalar instances cut a group into row slices (MLA), only a
+    # head_dim at which not even one query row fits raises.
+    with pytest.raises(RuntimeError, match="needs 271496 bytes of shared "
                        "memory per block; the card allows 232448"):
-        ragged_block_q(128, 640, H100_SMEM_OPTIN)
+        ragged_block_q(128, 1024, H100_SMEM_OPTIN)
     with pytest.raises(RuntimeError, match="the card allows 232448"):
-        window_warps(128, 640, H100_SMEM_OPTIN)
+        window_warps(128, 1024, H100_SMEM_OPTIN)
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(RuntimeError, match="the card allows 232448"):
-            window_launch_geometry(dtype, 128, 640, H100_SMEM_OPTIN)
+            window_launch_geometry(dtype, 128, 1024, H100_SMEM_OPTIN)
 
 
 def test_runner_sizes_block_q_to_the_geometry():

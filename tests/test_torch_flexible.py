@@ -235,6 +235,59 @@ def test_model_knobs_match(models):
         assert tmodel.clip_qkv == 0.6
 
 
+def test_mpt_kv_n_heads_is_not_read():
+    """An MPT config that sets ``attn_config.kv_n_heads`` (llm-foundry's
+    grouped-query MPT): the reference reads that field for DBRX only, so it
+    builds one KV head a query head (``aphrodite_tpu/config.py:236-245``),
+    and so does the port (ROADMAP C: fixed). The geometry
+    and a prefill wave's logits match the JAX model's."""
+    import transformers as tf
+    fields = dict(FAMILIES["mpt_clip"][2])
+    fields["attn_config"] = dict(fields["attn_config"], kv_n_heads=2)
+    d = dict(architectures=["MPTForCausalLM"], vocab_size=VOCAB, **fields)
+    hf = tf.MptConfig(**d)
+    jmodel = jax_model(hf)
+    assert jmodel.num_kv_heads == 12
+    for cfg in (hf, dict(d, model_type="mpt")):
+        assert ModelConfig(model="dummy", hf_config=cfg).num_kv_heads == 12
+    tmodel = create_model(ModelConfig(model="dummy", hf_config=hf,
+                                      dtype="float32"), "cpu")
+    assert tmodel.num_kv_heads == 12
+    params = perturb(jax.eval_shape(jmodel.init_dummy_params,
+                                    jax.random.PRNGKey(0)), 5)
+    load_params(tmodel, params_from_jax(params))
+    params = jax.tree.map(jnp.asarray, params)
+    rng = np.random.RandomState(1)
+    lens = [30, 9]
+    bt, slot, num_pages = _layout(lens)
+    tok_req = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    tok_pos = np.concatenate([np.arange(n) for n in lens]).astype(np.int32)
+    slots = np.asarray([slot(r, q) for r, q in zip(tok_req, tok_pos)],
+                       np.int32)
+    ids = rng.randint(1, 250, size=sum(lens)).astype(np.int32)
+    sl = np.asarray(lens, np.int32)
+    qsl = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    jcache = jnp.zeros((LAYERS, num_pages, 2, 12, BLOCK, H // 12),
+                       jnp.float32)
+    jh, _ = jmodel.apply(params, jnp.asarray(ids), jcache, JaxMD(
+        token_req_idx=jnp.asarray(tok_req), token_pos=jnp.asarray(tok_pos),
+        slot_mapping=jnp.asarray(slots), query_start_loc=jnp.asarray(qsl),
+        seq_lens=jnp.asarray(sl), block_tables=jnp.asarray(bt),
+        num_reqs=jnp.asarray(len(lens), jnp.int32),
+        num_tokens=jnp.asarray(len(ids), jnp.int32)))
+    t = torch.from_numpy
+    last = qsl[1:].astype(np.int64) - 1
+    with torch.inference_mode():
+        th = tmodel(t(ids.astype(np.int64)), torch.zeros(tuple(jcache.shape)),
+                    AttentionMetadata(
+                        token_req_idx=t(tok_req), token_pos=t(tok_pos),
+                        slot_mapping=t(slots.astype(np.int64)),
+                        seq_lens=t(sl), block_tables=t(bt)))
+        tl = tmodel.compute_logits(th[t(last)])
+    jl = jmodel.compute_logits(params, jh[jnp.asarray(last)])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_dict_config_spelling_gives_the_same_model(name):
     """The config.json spelling (``n_head``, ``d_model``, ``model_max_length``,

@@ -1,0 +1,186 @@
+"""The MLA geometry of the port's ragged and window attention: the plain
+PyTorch versions (which the CUDA wrappers run on CPU tensors, and which
+``chip_smoke.py`` holds the MLA instances against) vs the JAX package's
+Pallas kernels in interpret mode, at one KV head of 576 lanes (DeepSeek's
+latent head: 512 + 64) with groups of 16 (V2-Lite) and 128 (V2 / V3), over
+a mixed wave with later chunks and over decode windows. Where interpret
+mode wants 128-lane rows, the JAX runner's zero padding to 640 is used
+(``aphrodite_tpu/attention/backend.py:33-41``) and the first 576 lanes
+compared. Tolerance: fp32, atol 1e-5 on outputs of O(0.1).
+
+Also the launch sizing: both MLA instances fit an H100 at groups 16 and
+128, and the scalar instances, which sized one block for a whole group
+before (739,456 bytes at group 128), now cut a group into row slices."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aphrodite_tpu.attention.metadata import AttentionMetadata as JaxMD
+from aphrodite_tpu.attention.metadata import build_work_items as jax_items
+from aphrodite_tpu.ops.ragged_paged_attention import (
+    ragged_paged_attention as jax_ragged_kernel)
+from aphrodite_tpu.ops.window_decode_attention import (
+    window_decode_attention as jax_window_kernel)
+from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
+                                                    build_work_items)
+from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+    ragged_block_q, ragged_block_rows, ragged_mla_smem_bytes,
+    ragged_paged_attention, ragged_smem_bytes,
+    ragged_uses_mla, ragged_work_item_tokens)
+from aphrodite_tpu_torch.ops.window_decode_attention import (
+    window_block_rows, window_decode_attention, window_launch_geometry,
+    window_mla_smem_bytes, window_plan, window_smem_bytes, window_warps)
+
+ATOL = 1e-5
+HD, PAD, PAGE, L, LAYER = 576, 640, 16, 2, 1
+
+
+def _pad(a):
+    """Zero lanes 576..639, as the JAX runner pads the latent head."""
+    width = [(0, 0)] * (a.ndim - 1) + [(0, PAD - HD)]
+    return np.pad(a, width)
+
+
+def _tables(rng, ctx):
+    """Shuffled block tables covering ctx tokens a request (page 0 null)."""
+    pages = [-(-c // PAGE) for c in ctx]
+    P = sum(pages) + 1
+    perm = rng.permutation(np.arange(1, P))
+    bt = np.zeros((len(ctx), max(pages) + 1), np.int32)
+    o = 0
+    for r, n in enumerate(pages):
+        bt[r, :n] = perm[o:o + n]
+        o += n
+    return bt, P
+
+
+RAGGED = {  # nq: [(context, new tokens)] (chunks sit past cached keys)
+    "group16-mixed": (16, [(40, 40), (37, 17), (25, 1)]),
+    "group128-chunks": (128, [(21, 21), (35, 6), (9, 1)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED))
+def test_ragged_plain_matches_pallas_at_mla_geometry(name):
+    nq, reqs = RAGGED[name]
+    rng = np.random.RandomState(0)
+    ctx = [c for c, _ in reqs]
+    bt, P = _tables(rng, ctx)
+    counts = [n for _, n in reqs]
+    R = len(reqs)
+    qsl = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    seq_lens = np.asarray(ctx, np.int32)
+    tok_req = np.repeat(np.arange(R), counts).astype(np.int32)
+    tok_pos = np.concatenate([np.arange(c - n, c) for c, n in reqs]
+                             ).astype(np.int32)
+    slots = (bt[tok_req, tok_pos // PAGE] * PAGE + tok_pos % PAGE
+             ).astype(np.int32)
+    T = len(tok_pos)
+    cache = (rng.randn(L, P, 2, 1, PAGE, HD) * 0.3).astype(np.float32)
+    q = (rng.randn(T, nq, HD) * 0.3).astype(np.float32)
+    scale = 192 ** -0.5  # DeepSeek's qk_head_dim, not the latent width
+    t = torch.from_numpy
+    items = build_work_items(qsl[:-1], np.diff(qsl), seq_lens, R, 4)
+    md = AttentionMetadata(
+        token_req_idx=t(tok_req), token_pos=t(tok_pos),
+        slot_mapping=t(slots.astype(np.int64)), seq_lens=t(seq_lens),
+        block_tables=t(bt), block_q=4, **{k: t(v) for k, v in items.items()})
+    got = ragged_paged_attention(t(q), t(cache), LAYER, md, scale).numpy()
+    jmd = JaxMD(
+        token_req_idx=jnp.asarray(tok_req), token_pos=jnp.asarray(tok_pos),
+        slot_mapping=jnp.asarray(slots), query_start_loc=jnp.asarray(qsl),
+        seq_lens=jnp.asarray(seq_lens), block_tables=jnp.asarray(bt),
+        num_reqs=jnp.asarray(R, jnp.int32), num_tokens=jnp.asarray(T,
+                                                                   jnp.int32))
+    block_q = 1 if nq > 16 else 8
+    jmd = dataclasses.replace(jmd, **{
+        k: jnp.asarray(v) for k, v in jax_items(
+            qsl[:-1], np.diff(qsl), seq_lens, R, T, block_q, R).items()})
+    kern, _ = jax_ragged_kernel(jnp.asarray(_pad(q)),
+                                jnp.asarray(_pad(cache)), jmd, scale,
+                                block_q=block_q, chunk_pages=2,
+                                interpret=True, layer_idx=LAYER)
+    kern = np.asarray(kern)
+    np.testing.assert_array_equal(kern[..., HD:], 0)
+    np.testing.assert_allclose(got, kern[..., :HD], rtol=0, atol=ATOL)
+
+
+WINDOW = {  # nq: paged lengths, window step
+    "group16": (16, [40, 13, 70], 2),
+    "group128": (128, [33, 5], 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW))
+def test_window_plain_matches_pallas_at_mla_geometry(name):
+    nq, plens, step = WINDOW[name]
+    rng = np.random.RandomState(1)
+    kw, R = 4, len(plens)
+    bt, P = _tables(rng, plens)
+    cache = (rng.randn(L, P, 2, 1, PAGE, HD) * 0.3).astype(np.float32)
+    tk = (rng.randn(L, R, 1, kw, HD) * 0.3).astype(np.float32)
+    tv = (rng.randn(L, R, 1, kw, HD) * 0.3).astype(np.float32)
+    q = (rng.randn(R, nq, HD) * 0.3).astype(np.float32)
+    pl = np.asarray(plens, np.int32)
+    scale = 192 ** -0.5
+    t = torch.from_numpy
+    got = window_decode_attention(t(q), t(cache), t(tk), t(tv), LAYER, step,
+                                  t(pl), t(bt), scale).numpy()
+    kern = np.asarray(jax_window_kernel(
+        jnp.asarray(_pad(q)), jnp.asarray(_pad(cache)), jnp.asarray(_pad(tk)),
+        jnp.asarray(_pad(tv)), jnp.int32(LAYER), jnp.int32(step),
+        jnp.asarray(pl), jnp.asarray(bt), scale, chunk_pages=2,
+        interpret=True))
+    np.testing.assert_array_equal(kern[..., HD:], 0)
+    np.testing.assert_allclose(got, kern[..., :HD], rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------------ sizing
+@pytest.mark.parametrize("group", [16, 128])
+def test_mla_instances_fit_an_h100(group):
+    assert ragged_uses_mla(torch.bfloat16, HD)
+    assert ragged_mla_smem_bytes() == 228864 <= H100_SMEM_OPTIN
+    block_q = ragged_work_item_tokens(torch.bfloat16, group, HD,
+                                      H100_SMEM_OPTIN)
+    assert block_q == max(1, 64 // group)  # V3: one token, two slices
+    assert window_mla_smem_bytes() == 169472 <= H100_SMEM_OPTIN
+    assert window_launch_geometry(torch.bfloat16, group, HD,
+                                  H100_SMEM_OPTIN) == (True, 4, 169472)
+    plan = window_plan(torch.bfloat16, 32, group, 1, HD, "cpu", 576, 62)
+    assert plan.tensor_cores and plan.rows == 16
+
+
+def test_the_old_scalar_sizing_raised_at_group_128():
+    """One block for a token's whole group: 739,456 bytes for the ragged
+    instance, ~738 KB for the window's, against the H100's 232,448."""
+    assert ragged_smem_bytes(1, 128, HD) == 739456 > H100_SMEM_OPTIN
+    assert window_smem_bytes(128, HD, 1) > H100_SMEM_OPTIN
+    # V2-Lite's group of 16 fitted, at one token a work item, one warp.
+    assert ragged_smem_bytes(1, 16, HD) == 222464
+    assert window_smem_bytes(16, HD, 1) == 221568
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [16, 128])
+def test_scalar_instances_cut_a_group_into_row_slices(dtype, group):
+    """No geometry of either dtype raises at group 128 any more: the
+    scalar instances (fp32, and bf16 at head dims without a tensor-core
+    instance) take 18 rows a block at head_dim 576."""
+    block_q = ragged_block_q(group, HD, H100_SMEM_OPTIN)
+    rows = ragged_block_rows(group, HD, H100_SMEM_OPTIN, block_q)
+    assert (block_q, rows) == (1, min(group, 18))
+    assert ragged_smem_bytes(1, rows, HD) <= H100_SMEM_OPTIN
+    assert ragged_smem_bytes(1, rows + 1, HD) > H100_SMEM_OPTIN or \
+        rows == group
+    assert window_block_rows(group, HD, H100_SMEM_OPTIN) == min(group, 18)
+    assert window_warps(group, HD, H100_SMEM_OPTIN) == 1
+    tc, warps, smem = window_launch_geometry(torch.float32, group, HD,
+                                             H100_SMEM_OPTIN)
+    assert (tc, warps) == (False, 1) and smem <= H100_SMEM_OPTIN
+    if dtype == torch.float32:
+        plan = window_plan(dtype, 4, group, 1, HD, "cpu", 300, 3)
+        assert not plan.tensor_cores and plan.rows == min(group, 18)
