@@ -100,8 +100,9 @@ def paged_attention(q: torch.Tensor, kv_cache: torch.Tensor, layer: int,
                     alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over the paged cache: the decode kernel for a pure-decode
     step (``md.decode_mode``, ``backend.py:335-344`` of the JAX package),
-    else the ragged kernel (prefill and mixed waves). ``alibi``: [nq] fp32
-    slopes or None."""
+    else the ragged kernel (prefill and mixed waves), which alone takes the
+    image spans ``md.mm_bidir_spans``: decode queries sit past every span
+    (``backend.py:336-337``). ``alibi``: [nq] fp32 slopes or None."""
     if md.decode_mode:
         return decode_paged_attention(
             q, kv_cache, layer, md.block_tables, md.seq_lens, scale,

@@ -41,6 +41,10 @@ class AttentionMetadata:
     item_qlen: Optional[torch.Tensor] = None
     item_pos: Optional[torch.Tensor] = None
     block_q: Optional[int] = None
+    # [R, M, 2] int32 bidirectional image spans (lo, hi) of each request,
+    # -1 padding (Gemma-3 multimodal, ``needs_bidir_mm``); None: causal.
+    # Read by the ragged kernel only: decode queries sit past every span.
+    mm_bidir_spans: Optional[torch.Tensor] = None
     # ---- pure-decode step (ops/decode_paged_attention.py). ----
     # True: one query token per request at position seq_lens[r] - 1, its
     # K/V already in the pages; attention runs the decode kernel (the JAX

@@ -4,7 +4,10 @@ The subset of the JAX package's ``aphrodite_tpu/config.py`` that the
 serving main path reads. ``ModelConfig`` takes the HF-style geometry as a
 plain ``dict`` or as any object with the same attributes (a
 ``transformers`` config works too), so nothing here needs the
-``transformers`` package.
+``transformers`` package. A multimodal config nests its language model's
+geometry under ``text_config`` and its vision tower's under
+``vision_config`` (as dicts or objects); the geometry properties and
+``get`` read the text config (``aphrodite_tpu/config.py:193-200``).
 """
 from __future__ import annotations
 
@@ -30,6 +33,22 @@ _ALIASES = {
     "max_position_embeddings": ("max_seq_len", "model_max_length",
                                 "seq_length", "n_positions"),
 }
+
+
+# Nested sub-configs of a multimodal dict config, made namespaces as the
+# top level is (``aphrodite_tpu/config.py:132-145``).
+_SUBCONFIGS = ("text_config", "vision_config")
+
+
+def _namespace(d: dict) -> SimpleNamespace:
+    """A dict config as a namespace, with the remote-code spellings of the
+    geometry filled in where the canonical name is missing."""
+    d = dict(d)
+    for canon, alts in _ALIASES.items():
+        given = [d[a] for a in alts if a in d]
+        if canon not in d and given:
+            d[canon] = given[0]
+    return SimpleNamespace(**d)
 
 
 @dataclass
@@ -59,29 +78,32 @@ class ModelConfig:
             with open(os.path.join(str(self.model), "config.json")) as f:
                 self.hf_config = json.load(f)
         if isinstance(self.hf_config, dict):
-            d = dict(self.hf_config)
-            for canon, alts in _ALIASES.items():
-                given = [d[a] for a in alts if a in d]
-                if canon not in d and given:
-                    d[canon] = given[0]
-            self.hf_config = SimpleNamespace(**d)
+            d = {k: _namespace(v) if k in _SUBCONFIGS and isinstance(v, dict)
+                 else v for k, v in self.hf_config.items()}
+            self.hf_config = _namespace(d)
         archs = getattr(self.hf_config, "architectures", None) or []
         self.architecture: Optional[str] = archs[0] if archs else None
-        derived_max = getattr(self.hf_config, "max_position_embeddings",
-                              None) or 2048
+        derived_max = self.get("max_position_embeddings") or 2048
         if self.max_model_len is None:
             self.max_model_len = derived_max
 
+    @property
+    def text_config(self):
+        """The language model's config: ``text_config`` of a multimodal
+        config, else the config itself."""
+        return getattr(self.hf_config, "text_config", None) or self.hf_config
+
     def get(self, name: str, default=None):
-        return getattr(self.hf_config, name, default)
+        """A field of the text config (``text_config``)."""
+        return getattr(self.text_config, name, default)
 
     @property
     def hidden_size(self) -> int:
-        return self.hf_config.hidden_size
+        return self.text_config.hidden_size
 
     @property
     def num_layers(self) -> int:
-        return self.hf_config.num_hidden_layers
+        return self.text_config.num_hidden_layers
 
     @property
     def is_attention_free(self) -> bool:
@@ -129,11 +151,11 @@ class ModelConfig:
 
     @property
     def vocab_size(self) -> int:
-        return self.hf_config.vocab_size
+        return self.text_config.vocab_size
 
     @property
     def intermediate_size(self) -> int:
-        return self.hf_config.intermediate_size
+        return self.text_config.intermediate_size
 
     @property
     def sliding_window(self) -> Optional[int]:

@@ -5,6 +5,9 @@ Re-design of the reference KVCacheManager
 (`get_computed_blocks`), incremental `allocate_slots` for every scheduling
 step, preempt-by-recompute (no swap). Prefix caching can be turned off
 (``enable_caching=False``): then no page is hashed and nothing is hit.
+Every page hash of a request with images mixes in their content hash
+(``request.mm_hash``; ``kv_cache_manager.py:45, 107, 119`` of the JAX
+package), so equal placeholder ids with other images never hit.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ class KVCacheManager:
         hashes = self.req_to_hashes.get(request.request_id)
         if hashes is None:
             hashes = hash_request_tokens(self.block_size,
-                                         request.all_token_ids)
+                                         request.all_token_ids,
+                                         extra_key=request.mm_hash)
             self.req_to_hashes[request.request_id] = hashes
         computed: list[KVCacheBlock] = []
         for h in hashes:
@@ -97,7 +101,8 @@ class KVCacheManager:
             hashes = self.req_to_hashes.get(request.request_id)
             if hashes is None:
                 hashes = hash_request_tokens(self.block_size,
-                                             request.prompt_token_ids)
+                                             request.prompt_token_ids,
+                                             extra_key=request.mm_hash)
                 self.req_to_hashes[request.request_id] = hashes
             # Extend hash chain over generated tokens.
             all_tokens = request.all_token_ids
@@ -107,7 +112,8 @@ class KVCacheManager:
             while len(hashes) < num_full:
                 start = len(hashes) * self.block_size
                 parent = hash_block_tokens(
-                    parent, tuple(all_tokens[start:start + self.block_size]))
+                    parent, tuple(all_tokens[start:start + self.block_size]),
+                    extra_key=request.mm_hash)
                 hashes.append(parent)
             num_cached = sum(1 for b in req_blocks
                              if b.block_hash is not None)

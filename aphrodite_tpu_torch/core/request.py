@@ -2,9 +2,12 @@
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from aphrodite_tpu_torch.sampling_params import SamplingParams
+
+if TYPE_CHECKING:
+    from aphrodite_tpu_torch.multimodal import MMInputs
 
 
 class RequestStatus(enum.IntEnum):
@@ -37,11 +40,17 @@ class Request:
         prompt_token_ids: list[int],
         sampling_params: SamplingParams,
         eos_token_id: Optional[int] = None,
+        mm_inputs: Optional["MMInputs"] = None,
     ) -> None:
         self.request_id = request_id
         self.prompt_token_ids = list(prompt_token_ids)
         self.sampling_params = sampling_params
         self.eos_token_id = eos_token_id
+        # Images of the prompt (``multimodal.MMInputs``) or None; mm_hash
+        # feeds the KV page hashes, so that images tell apart prompts of
+        # equal placeholder ids (``core/request.py:58-61``).
+        self.mm_inputs = mm_inputs
+        self.mm_hash = mm_inputs.content_hash() if mm_inputs else None
         self.status = RequestStatus.WAITING
         self.stop_reason: Optional[object] = None
 

@@ -2,9 +2,12 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from aphrodite_tpu_torch.sampling_params import SamplingParams
+
+if TYPE_CHECKING:
+    from aphrodite_tpu_torch.multimodal import MMInputs
 
 
 @dataclass
@@ -15,6 +18,8 @@ class NewRequestData:
     sampling_params: SamplingParams
     block_ids: list[int]
     num_computed_tokens: int  # prefix-cache hit length
+    # The prompt's images, or None (``core/sched_output.py:21``).
+    mm_inputs: Optional["MMInputs"] = None
 
 
 @dataclass

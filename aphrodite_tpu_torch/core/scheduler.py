@@ -182,7 +182,8 @@ class Scheduler:
                         prompt_token_ids=req.prompt_token_ids,
                         sampling_params=req.sampling_params,
                         block_ids=all_block_ids,
-                        num_computed_tokens=num_computed))
+                        num_computed_tokens=num_computed,
+                        mm_inputs=req.mm_inputs))
 
         finished_ids = self._finished_req_ids
         self._finished_req_ids = set()

@@ -61,6 +61,11 @@ _MLA_DIRECT = ("input_norm", "post_norm", "wkv_a", "kv_a_norm", "wo", "wq",
                "wq_a", "q_a_norm", "wq_b")
 _MLA_PERMUTED = {"w_uk": (1, 2, 0), "w_uv": (1, 0, 2)}
 _MLA_MOE_DIRECT = _MOE_DIRECT + ("router_bias",)
+# A vision tower's layer leaves (``models/vision.py:67-78`` of the JAX
+# package), taken as they are but for Q/K/V and their biases, fused on N.
+_VISION_FUSED = {"w_qkv": ("wq", "wk", "wv"), "b_qkv": ("bq", "bk", "bv")}
+_VISION_DIRECT = ("ln1_w", "ln1_b", "wo", "bo", "ln2_w", "ln2_b", "fc1_w",
+                  "fc1_b", "fc2_w", "fc2_b")
 
 
 def create_model(model_config: ModelConfig, device: torch.device | str,
@@ -232,7 +237,27 @@ def params_from_jax(tree: Mapping[str, Any],
     ``FlexibleDecoder`` trees (an ``ln1_w`` stack: BLOOM, MPT, Falcon,
     Baichuan), but for Q/K/V and gate/up, fused as ``w_qkv`` / ``b_qkv``
     and ``w_gate_up`` / ``b_gate_up``, and its top-level ``embed``,
-    ``embed_ln_w/b``, ``final_norm_w/b`` and ``lm_head``."""
+    ``embed_ln_w/b``, ``final_norm_w/b`` and ``lm_head``.
+
+    A vision model's tree (Gemma-3 MM, PaliGemma) adds ``vision`` (the
+    tower: top-level leaves as they are, its ``layers`` stacks with Q/K/V
+    fused) and ``projector``; they become ``vision.<name>``,
+    ``vision.layers.<name>`` and ``projector.<name>``."""
+    out = _text_params_from_jax(tree, layer_kinds)
+    if "vision" in tree:
+        vision = tree["vision"]
+        out.update({f"vision.{k}": _np(v) for k, v in vision.items()
+                    if k != "layers"})
+        out.update({f"vision.layers.{k}": v for k, v in _stack(
+            vision["layers"], _VISION_FUSED, _VISION_DIRECT).items()})
+        out.update({f"projector.{k}": _np(v)
+                    for k, v in tree["projector"].items()})
+    return out
+
+
+def _text_params_from_jax(tree: Mapping[str, Any],
+                          layer_kinds: Optional[list[str]]
+                          ) -> dict[str, np.ndarray]:
     layers = tree["layers"]
     if "wkv_a" in layers:
         return _deepseek_params_from_jax(tree, layer_kinds)

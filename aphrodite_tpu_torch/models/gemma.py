@@ -98,14 +98,23 @@ class GemmaForCausalLM(LlamaForCausalLM):
         return rms_norm(x, w, self.rms_eps, offset=1.0)
 
     def forward(self, input_ids: torch.Tensor, kv_cache: torch.Tensor,
-                md: AttentionMetadata) -> torch.Tensor:
+                md: AttentionMetadata,
+                mm: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """Prefill / mixed wave, or one decode sub-step (``md.decode_mode``):
         [T] token ids -> [T, H] final hidden. The cache is updated in
-        place."""
+        place. ``mm``: (image embedding rows [M, H], their token rows [M]),
+        scattered over the token embeddings before the embedding scale;
+        rows at T or past drop (``gemma.py:54-56``)."""
         nq, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         x = self.embed[input_ids]
-        x = (x.float() * self.embed_scale).to(x.dtype)
         T = x.shape[0]
+        if mm is not None:
+            embeds, idx = mm
+            x = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+            x.index_copy_(0, idx.clamp(max=T), embeds.to(x.dtype))
+            x = x[:T]
+        x = (x.float() * self.embed_scale).to(x.dtype)
         rope = compute_cos_sin(md.token_pos, self.inv_freq)
         rope_local = (rope if self.inv_freq_local is None else
                       compute_cos_sin(md.token_pos, self.inv_freq_local))

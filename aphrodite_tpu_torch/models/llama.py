@@ -180,7 +180,7 @@ class LlamaForCausalLM(nn.Module):
                                          self.tie_embeddings_default)
         self.qkv_bias = config.get("attention_bias", self.qkv_bias)
         inv_freq = compute_inv_freq(
-            RopeConfig.from_hf_config(config.hf_config, self.head_dim))
+            RopeConfig.from_hf_config(config.text_config, self.head_dim))
         self.register_buffer("inv_freq",
                              torch.from_numpy(inv_freq).to(device),
                              persistent=False)

@@ -13,6 +13,10 @@ MODEL_REGISTRY: dict[str, tuple[str, str]] = {
     "GemmaForCausalLM": ("gemma", "GemmaForCausalLM"),
     "Gemma2ForCausalLM": ("gemma", "Gemma2ForCausalLM"),
     "Gemma3ForCausalLM": ("gemma", "Gemma3ForCausalLM"),
+    "Gemma3ForConditionalGeneration": ("gemma3_mm",
+                                       "Gemma3ForConditionalGeneration"),
+    "PaliGemmaForConditionalGeneration": (
+        "paligemma", "PaliGemmaForConditionalGeneration"),
     "MixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
     "QuantMixtralForCausalLM": ("mixtral", "MixtralForCausalLM"),
     "Qwen2MoeForCausalLM": ("mixtral", "Qwen2MoeForCausalLM"),

@@ -5,7 +5,8 @@
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
 on CPU tensors. bf16 at head_dim 64, 128 or 256 runs the tensor-core
-instance (``rpa_tc_launch``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
+instance (``rpa_tc_launch``; with image spans ``rpa_tc_spans_launch`` of
+``csrc/ragged_spans.cu``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
 any group on one latent KV head) the MLA instance
 (``csrc/mla_attention.cu``, ``mla_ragged_launch``), everything else the
 scalar one (``rpa_launch``), which keeps fp32 in full fp32; each is sized
@@ -20,6 +21,18 @@ slope[h] * (j - p) on the scaled logit, before the soft cap, as the TPU
 kernel adds it (``ragged_paged_attention.py:201-216``; the JAX oracle
 ``attention/backend.py`` adds it after the cap, so the two agree only
 without one).
+
+Bidirectional image spans (``md.mm_bidir_spans``: int32 [R, M, 2], (lo,
+hi) per image of each request and -1 padding; Gemma-3 multimodal): a
+query and a key that both lie in one span of the query's request see each
+other in either order, below the request's seq_len, before the sliding
+window and the chunk: the TPU kernel's mask
+(``ragged_paged_attention.py:173-184``) and the JAX oracle's
+(``attention/backend.py:179-191``). The tensor-core
+instance takes them as a template switch, the scalar one as a uniform
+branch; the MLA instance does not take them (``MLA_SPANS_ITEM``), nor does
+the tensor-core instance beside ALiBi (no model has both: the scalar
+instance takes the pair).
 
 The cache holds q's dtype or fp8 (e4m3fn or e5m2): both instances upcast
 an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
@@ -39,9 +52,9 @@ from aphrodite_tpu_torch.ops import cuda_build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-             _I, _I, _I, _I, _F, _I, _I, _F, _P, _I, _P]
+             _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _I, _P]
 _TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                _I, _I, _F, _I, _I, _F, _P, _P]
+                _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
 _MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                  _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,6 +72,8 @@ MLA_HEAD_DIM = 576
 MLA_ROWS = 64  # query rows a block of the MLA instance
 # Where an fp8 cache at the MLA geometry is queued.
 MLA_FP8_ITEM = "ROADMAP A10"
+# Where image spans at the MLA geometry are queued.
+MLA_SPANS_ITEM = "ROADMAP B"
 
 
 def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
@@ -138,6 +153,24 @@ def check_mla_cache(fp8: bool) -> None:
             f"an fp8 KV cache at the MLA geometry (bf16, head_dim "
             f"{MLA_HEAD_DIM}): the MLA attention instances take a bf16 cache "
             f"only ({MLA_FP8_ITEM})")
+
+
+def check_spans(spans: bool, dtype: torch.dtype, hd: int,
+                alibi: bool) -> None:
+    """Raise ``NotImplementedError`` for image spans where the instance
+    that ``dtype`` and ``hd`` run does not take them, on every device: the
+    MLA instance (no MLA model has images; ``MLA_SPANS_ITEM``), and the
+    tensor-core one beside ALiBi (no model has both; the pair is not
+    instantiated)."""
+    if spans and ragged_uses_mla(dtype, hd):
+        raise NotImplementedError(
+            f"bidirectional image spans at the MLA geometry (bf16, head_dim "
+            f"{MLA_HEAD_DIM}): the MLA instance does not take them; no MLA "
+            f"model has image spans ({MLA_SPANS_ITEM})")
+    if spans and alibi and ragged_uses_tensor_cores(dtype, hd):
+        raise NotImplementedError(
+            "ALiBi with image spans on the ragged kernel's tensor-core "
+            "instance: no model has both")
 
 
 def ragged_mla_block_q(group: int, smem_limit: int,
@@ -220,7 +253,9 @@ def ref_ragged_paged_attention(
     softmax for its tokens (an fp8 cache's K/V upcast exactly). ALiBi
     adds slope[h * group + g] * (kv_pos - q_pos) to the scaled logit
     before the soft cap, with absolute positions (a chunk's queries sit
-    past the keys of earlier chunks)."""
+    past the keys of earlier chunks). Image spans (``md.mm_bidir_spans``)
+    add to the causal mask the keys below seq_len that share a span with
+    the query (the JAX oracle's mask, ``attention/backend.py:179-191``)."""
     _, _, kvh, page, hd = cache_layer.shape
     T, nq, _ = q.shape
     group = nq // kvh
@@ -242,6 +277,13 @@ def ref_ragged_paged_attention(
         if logits_soft_cap is not None:
             logits = logits_soft_cap * torch.tanh(logits / logits_soft_cap)
         mask = kv_pos[None, :] <= pos
+        if md.mm_bidir_spans is not None:
+            sp = md.mm_bidir_spans[r].long()                   # [M, 2]
+            q_in = (sp[None, :, 0] <= pos) & (pos < sp[None, :, 1])
+            k_in = ((sp[:, 0, None] <= kv_pos[None, :])
+                    & (kv_pos[None, :] < sp[:, 1, None]))       # [M, K]
+            bidir = (q_in[:, :, None] & k_in[None]).any(dim=1)  # [t, K]
+            mask |= bidir & (kv_pos[None, :] < md.seq_lens[r].long())
         if sliding_window is not None:
             mask &= kv_pos[None, :] > pos - sliding_window
         if chunk_attn is not None:
@@ -263,18 +305,16 @@ def ragged_paged_attention(
     logits_soft_cap: Optional[float] = None,
     chunk_attn: Optional[int] = None,
     alibi: Optional[torch.Tensor] = None,
-    mm_bidir_spans: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention output [T, nq, hd] in q's dtype. ``alibi``: [nq] fp32
-    slopes on q's device, or None. The kernel reads the layer through its
-    base pointer in the full cache: nothing is copied."""
-    if mm_bidir_spans is not None:
-        raise NotImplementedError(
-            "bidirectional image spans are not ported to the ragged "
-            "attention kernel yet: they come with PaliGemma and Gemma-3 "
-            "multimodal (ROADMAP A13)")
+    slopes on q's device, or None; ``md.mm_bidir_spans``: contiguous int32
+    [R, M, 2] image spans on q's device, or None. The kernel reads the
+    layer through its base pointer in the full cache: nothing is
+    copied."""
     code = kv_code(q.dtype, kv_cache.dtype)
     cache_layer = kv_cache[layer]
+    check_spans(md.mm_bidir_spans is not None, q.dtype, q.shape[-1],
+                alibi is not None)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
             q, cache_layer, md, scale, sliding_window=sliding_window,
@@ -303,6 +343,16 @@ def ragged_paged_attention(
         raise ValueError("alibi must be contiguous [nq] float32 on q's "
                          "device")
     slopes = alibi.data_ptr() if alibi is not None else None
+    spans, num_spans = None, 0
+    if md.mm_bidir_spans is not None:
+        sp = md.mm_bidir_spans
+        if (sp.dtype != torch.int32 or not sp.is_contiguous()
+                or sp.device != q.device or sp.dim() != 3
+                or sp.shape[0] != md.seq_lens.shape[0] or sp.shape[2] != 2
+                or sp.shape[1] < 1):
+            raise ValueError("mm_bidir_spans must be contiguous int32 [R, M, "
+                             "2] on q's device, M >= 1")
+        spans, num_spans = sp.data_ptr(), sp.shape[1]
     out = torch.empty_like(q)
     num_items = md.item_req.shape[0]
     if num_items == 0:
@@ -342,14 +392,17 @@ def ragged_paged_attention(
                                  "aligned")
         cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, code > 0),
                               cuda_build.smem_optin())
-        launch = cuda_build.entry("ragged_paged_attention", "rpa_tc_launch",
-                                  _TC_ARGTYPES)
+        # The span instances are a library of their own (built beside).
+        launch = (cuda_build.entry("ragged_spans", "rpa_tc_spans_launch",
+                                   _TC_ARGTYPES) if spans is not None else
+                  cuda_build.entry("ragged_paged_attention", "rpa_tc_launch",
+                                   _TC_ARGTYPES))
         err = launch(
             code, q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-            slopes, stream)
+            slopes, spans, num_spans, stream)
         instance = "tensor_cores"
     else:
         smem_limit = cuda_build.smem_optin()
@@ -363,16 +416,19 @@ def ragged_paged_attention(
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, rows,
             scale, sliding_window or 0, chunk_attn or 0,
-            logits_soft_cap or 0.0, slopes, smem, stream)
+            logits_soft_cap or 0.0, slopes, spans, num_spans, smem, stream)
         instance = "scalar"
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     ragged_paged_attention.instance_launches[instance] += 1
+    if spans is not None:
+        ragged_paged_attention.span_launches += 1
     return out
 
 
 # Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
-# all and by instance.
+# all, by instance, and those with image spans.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
                                             "scalar": 0}
+ragged_paged_attention.span_launches = 0

@@ -41,6 +41,15 @@ uploads no metadata.
 
 PyTorch runs eagerly, so there are no shape buckets and no padding: every
 token and request in a step is live.
+
+Images (a multimodal model: ``is_multimodal``). A request's images are
+encoded at the first wave that schedules a token of theirs, through the
+shared ``EncoderCache`` keyed by their content hash; each wave scatters
+the image rows that its token ranges cover (``mm``: rows and their token
+indices, ``runner.py:687-814``) and, for a model that sets
+``needs_bidir_mm`` (Gemma-3), fills ``md.mm_bidir_spans`` with each
+request's image spans (``runner.py:1054-1066``). A request drops its rows
+once its prompt is computed. Decode sub-steps carry neither.
 """
 from __future__ import annotations
 
@@ -70,6 +79,7 @@ from aphrodite_tpu_torch.sample.metadata import (SamplerFlags,
 from aphrodite_tpu_torch.sample.sampler import sample_tokens, topk
 from aphrodite_tpu_torch.sampling_params import SamplingParams
 from aphrodite_tpu_torch.utils import logger, next_power_of_2
+from aphrodite_tpu_torch.worker.encoder_cache import EncoderCache
 
 
 @dataclass
@@ -83,6 +93,11 @@ class RequestState:
     # Prompt logprobs gathered so far ([None] for the first prompt token,
     # then {token: logprob} a position), emitted when the request samples.
     prompt_lp: Optional[list] = None
+    # The prompt's images (``multimodal.MMInputs``) and their encoded rows
+    # [n image tokens, hidden] on the device, made at first use and dropped
+    # once the prompt is computed.
+    mm: Optional[object] = None
+    mm_embeds: Optional[torch.Tensor] = None
 
     @property
     def num_tokens(self) -> int:
@@ -107,6 +122,8 @@ class ModelRunner:
         # Unseeded requests draw from base_seed + r * 7919 (r: the row).
         self._base_seed = config.model_config.seed
         self.is_ssm = getattr(model, "is_ssm", False)
+        # Encoded images shared across requests (``runner.py:164-166``).
+        self.encoder_cache = EncoderCache()
         if self.is_ssm:
             # ``kv_cache`` holds the recurrent state, as in the JAX runner.
             self.num_state_slots = next_power_of_2(
@@ -207,7 +224,8 @@ class ModelRunner:
                                 len(cr.all_token_ids[i])),
                     num_computed=cr.num_computed_tokens[i],
                     block_ids=list(cr.new_block_ids[i]),
-                    sampling_params=st.sampling_params if st else None)
+                    sampling_params=st.sampling_params if st else None,
+                    mm=st.mm if st else None)
             else:
                 st.block_ids.extend(cr.new_block_ids[i])
                 st.num_computed = cr.num_computed_tokens[i]
@@ -218,7 +236,7 @@ class ModelRunner:
                 prompt_len=len(nr.prompt_token_ids),
                 num_computed=nr.num_computed_tokens,
                 block_ids=list(nr.block_ids),
-                sampling_params=nr.sampling_params)
+                sampling_params=nr.sampling_params, mm=nr.mm_inputs)
 
     @torch.inference_mode()
     def execute_model(self, so: SchedulerOutput) -> ModelRunnerOutput:
@@ -289,8 +307,18 @@ class ModelRunner:
                 seq_lens=self._dev(seq_lens),
                 block_tables=self._dev(self._block_tables(order)),
                 block_q=self.block_q,
+                mm_bidir_spans=self._span_rows(order),
                 **{k: self._dev(v) for k, v in items.items()})
-        hidden = self.model(self._dev(input_ids), self.kv_cache, md)
+        mm = self._build_mm_arg(so, order, qsl)
+        hidden = self.model(self._dev(input_ids), self.kv_cache, md,
+                            **({} if mm is None else {"mm": mm}))
+        if mm is not None:
+            # Image rows are read only by prefill (``runner.py:1157-1167``).
+            for rid in order:
+                st = self.requests[rid]
+                if st.num_computed + so.num_scheduled_tokens[rid] \
+                        >= st.prompt_len:
+                    st.mm_embeds = None
         self._prompt_logprobs(so, order, qsl, hidden)
         if not any(samples_expected):
             # Pure mid-prefill wave: nothing to sample.
@@ -326,6 +354,64 @@ class ModelRunner:
             req_ids=order, sampled_token_ids=sampled,
             logprobs=logprobs if any(x is not None for x in logprobs)
             else None, prompt_logprobs=prompt_lps or None)
+
+    # ------------------------------------------------------------ images
+    def _mm_embeds(self, st: RequestState) -> torch.Tensor:
+        """The request's image rows: its own, else the encoder cache's
+        entry for its images, else encoded now and cached
+        (``runner.py:687-740``)."""
+        if st.mm_embeds is None:
+            key = st.mm.content_hash()
+            st.mm_embeds = self.encoder_cache.get(key)
+            if st.mm_embeds is None:
+                st.mm_embeds = self.model.encode_images(
+                    torch.from_numpy(st.mm.pixel_values).to(self.device))
+                self.encoder_cache.put(key, st.mm_embeds)
+        return st.mm_embeds
+
+    def _build_mm_arg(self, so: SchedulerOutput, order: list[str],
+                      qsl: np.ndarray
+                      ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+        """(image rows, their flat token indices) that this wave's token
+        ranges cover, or None (``runner.py:742-814``)."""
+        pieces, idx_parts = [], []
+        for r, rid in enumerate(order):
+            st = self.requests[rid]
+            if st.mm is None or st.num_computed >= st.prompt_len:
+                continue
+            start, n = st.num_computed, so.num_scheduled_tokens[rid]
+            base = 0
+            for off, ln in st.mm.spans:
+                lo, hi = max(off, start), min(off + ln, start + n)
+                if lo < hi:
+                    emb = self._mm_embeds(st)
+                    pieces.append(emb[base + lo - off:base + hi - off])
+                    t0 = int(qsl[r]) + lo - start
+                    idx_parts.append(np.arange(t0, t0 + hi - lo))
+                base += ln
+        if not pieces:
+            return None
+        return (torch.cat(pieces),
+                self._dev(np.concatenate(idx_parts).astype(np.int64)))
+
+    def _span_rows(self, order: list[str]) -> Optional[torch.Tensor]:
+        """[R, M, 2] int32 image spans (lo, hi) of each request, -1
+        padding, M the next power of two (at least 2) of the most images a
+        request has; None where the model attends causally or no request
+        has an image (``runner.py:1054-1066``)."""
+        if not getattr(self.model, "needs_bidir_mm", False):
+            return None
+        spans = [self.requests[rid].mm.spans
+                 if self.requests[rid].mm is not None else [] for rid in order]
+        most = max((len(s) for s in spans), default=0)
+        if not most:
+            return None
+        arr = np.full((len(order), next_power_of_2(max(most, 2)), 2), -1,
+                      np.int32)
+        for r, sp in enumerate(spans):
+            for j, (off, ln) in enumerate(sp):
+                arr[r, j] = (off, off + ln)
+        return self._dev(arr)
 
     def _prompt_logprobs(self, so: SchedulerOutput, order: list[str],
                          qsl: np.ndarray, hidden: torch.Tensor) -> None:

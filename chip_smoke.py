@@ -39,8 +39,8 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    launched.
 6. The main path of the quantized slice: Llama-3.1-8B at full width,
    W4A16 (gptq, group 128; every projection packed), bf16, 32 prompts x
-   (512 + 64) greedy; one warm-up, 3 cold runs (prefix cache reset before
-   each), 3 warm runs, one profiled run. Exactly 2048 tokens a run, the
+   (512 + 64) greedy; one warm-up, 2 cold runs (prefix cache reset before
+   each), 2 warm runs, one profiled run. Exactly 2048 tokens a run, the
    packed W4 kernel exactly 4 x 32 x 63 = 8064 times a run, and both
    attention kernels must have been launched.
 7. MoE parity: a tiny Qwen2-MoE (8 experts, top-2, a gated shared expert,
@@ -170,6 +170,29 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    window kernel exactly 27 x 63 = 1701 launches, all on their MLA
    instances, the grouped GEMM 52 (26 MoE layers x 2, the wave only), the
    other attention instances never; a profiled run.
+25. Vision parity (``mm_parity``): tiny Gemma-3 multimodal and PaliGemma
+   on a Gemma and a Gemma-2 base (``MM_TINY``, dict configs with nested
+   ``text_config`` / ``vision_config``), fp32, weights redrawn
+   (``redraw_mm``), card vs CPU with the same weights: a batch with one
+   image, two images and a text-only row, a 16-token batch budget that
+   cuts a prompt inside an image span, 16-step decode windows; greedy
+   tokens must be equal; on the card Gemma-3's ragged launches all carry
+   the spans (the scalar instance's span branch), PaliGemma's none.
+26. The main path of the vision slice: Gemma-3-4B-it (``GEMMA3_4B_IT``,
+   ``google/gemma-3-4b-it`` config.json written out: 34 layers, 8 / 4
+   heads of 256, five sliding layers to one global, a SigLIP tower of 27
+   layers on 896 x 896 images, 256 image tokens) at full width and depth,
+   bf16 dummy weights redrawn at fan-in scale on the card (``redraw_mm``),
+   32 requests of 512 prompt tokens (one seeded 896 x 896 uint8 image
+   each, expanded to its 256-token span between boi and eoi) + 64 decode
+   tokens, ``block_size=64``, a 16384-token budget (one wave). A warm-up,
+   2 cold runs (prefix and encoder caches emptied), 2 warm runs, a batch
+   of the same ids with other images (no prefix hit, other tokens), and a
+   profiled cold run (the tower's device time under its ``vision`` host
+   range, "ragged (spans)", "decode"). Exactly 2048 tokens a run; in
+   every run the ragged kernel exactly 34 launches, all with the spans on
+   the tensor-core instance, the decode kernel 34 x 63 = 2142, the window
+   kernel never; the tower 32 images in a cold run and none in a warm one.
 
 For the MLA slice phase 2 (``mla_checks``) holds both MLA instances
 (``csrc/mla_attention.cu``) against their plain versions at phase 24's
@@ -259,6 +282,17 @@ bound the int32 operations at the card's INT32 rate (``int32_ops_per_s``).
 And the suffix match at R = 32, L in (1024, 2048) on random, periodic and
 phase-20-like histories with breakers: bit-equal; no library call.
 
+For the vision slice phase 2 holds the ragged kernel with image spans
+against its plain version in bf16 (the tensor-core instance's span switch)
+and fp32 (the scalar instance's span branch): at phase 26's wave (timed
+beside ``scaled_dot_product_attention`` with (causal OR span) as a boolean
+mask, and in bf16 beside the same wave without spans), at
+``SPAN_RAGGED_CASES`` (spans across 32/64-key tiles, work items and a
+warp's rows; later chunks whose span began earlier or runs past the keys
+written; two spans in a request beside requests without; a 64-key window
+shorter than a span; a soft cap on 16-token pages; head_dim 64, 128 and
+256), and in bf16 on an e4m3 cache.
+
 For the ALiBi slice phase 2 holds the ragged kernel with the model's
 slopes (``alibi_slopes``) against its plain version in bf16 (the
 tensor-core instance's ALiBi switch) and fp32 (the scalar one): at phase
@@ -280,6 +314,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -512,7 +547,10 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     its error against the plain version, and at a path's shapes the times
     (the yardstick's K/V upcast to q's dtype once, outside the timing; the
     bound's K/V bytes the cache's; with ALiBi the yardstick takes the bias
-    as a float mask, and the bound counts its multiply-add a score)."""
+    as a float mask, and the bound counts its multiply-add a score; with
+    image spans, ``geom["spans"]`` a list of (lo, hi) a request, the
+    yardstick's mask is (causal OR inside one span) below the context and
+    the bound counts the keys each row sees)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
@@ -528,6 +566,7 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     opts = dict(geom.get("opts", {}))
     if geom.get("alibi"):  # the model's slopes: alibi_slopes(nq)
         opts["alibi"] = alibi_slopes(NQ).cuda()
+    spans = geom.get("spans")
     kvd = kv_type(dtype, kv)
     cache, bt = paged_cache(gen, ctx, kvd, KVH, hd=HD,
                             page=geom.get("page", PAGE))
@@ -544,7 +583,9 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         token_req_idx=dev(tok_req), token_pos=dev(tok_pos.astype(np.int32)),
         slot_mapping=None,
         seq_lens=dev(np.asarray(ctx, np.int32)), block_tables=bt,
-        block_q=block_q, **{k: dev(v) for k, v in items.items()})
+        block_q=block_q,
+        mm_bidir_spans=span_rows(spans) if spans is not None else None,
+        **{k: dev(v) for k, v in items.items()})
     q = torch.randn((T, NQ, HD), generator=gen, device="cuda").to(dtype)
     scale = geom.get("scale", HD ** -0.5)
     layer = 1
@@ -579,6 +620,10 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         q_d[r, :, :b - a] = q[a:b].transpose(0, 1)
         pos = torch.arange(ctx[r] - (b - a), ctx[r], device="cuda")
         mask[r, 0, :b - a] = kv_pos[None, :] <= pos[:, None]
+        for lo, hi in (spans[r] if spans is not None else ()):
+            mask[r, 0, :b - a] |= (((pos >= lo) & (pos < hi))[:, None]
+                                   & ((kv_pos >= lo) & (kv_pos < hi)
+                                      & (kv_pos < ctx[r]))[None, :])
         dist[r, 0, :b - a] = (kv_pos[None, :] - pos[:, None]).float()
     if "alibi" in opts:  # [R, nq, lq, S] bias, -inf where masked
         mask = torch.where(mask, opts["alibi"][None, :, None, None] * dist,
@@ -594,10 +639,12 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     backends = (None if gqa else
                 sdpa_backends(sdpa, q_d, k_d, v_d, mask, scale))
     item = torch.finfo(dtype).bits // 8
-    vis = sum(int(p) + 1 for p in tok_pos)   # causal keys per token
+    vis = (int(mask.sum()) if spans is not None   # the keys each row sees
+           else sum(int(p) + 1 for p in tok_pos))
     nbytes = (item * 2 * T * NQ * HD
               + kvd.itemsize * 2 * KVH * HD * sum(ctx)
-              + (4 * NQ if "alibi" in opts else 0))
+              + (4 * NQ if "alibi" in opts else 0)
+              + (md.mm_bidir_spans.nbytes if spans is not None else 0))
     ops = (4.0 * HD + (2 if "alibi" in opts else 0)) * NQ * vis
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -790,6 +837,7 @@ DECODE_CASES = {
     "baichuan2-13b-alibi": (40, 40, 128,
                             [513 + (37 * r) % 64 for r in range(32)],
                             dict(alibi=True)),
+    "gemma-3-4b": (8, 4, 256, [513 + (37 * r) % 64 for r in range(32)], {}),
 }
 
 
@@ -2117,13 +2165,20 @@ def moe_parity() -> int:
     return launches
 
 
+# Cold and warm runs of each serving phase through ``serve_workload``
+# after its warm-up: two of each keep the whole script well inside its
+# time limit.
+SERVE_RUNS = 2
+
+
 def serve_workload(phase: str, name: str, hf: dict, counted: dict,
                    batch_tokens: int = 16384,
                    per_forward: dict | None = None,
                    exact: dict | None = None, **llm_kw):
     """32 prompts x (512 + 64) greedy through ``LLM.generate`` at full
-    width: one warm-up, 3 cold runs (prefix cache reset before each), 3
-    warm runs (only where the engine caches prefixes; where it does not,
+    width: one warm-up, ``SERVE_RUNS`` cold runs (prefix cache reset before
+    each), as many warm runs (only where the engine caches prefixes; where
+    it does not,
     every run must find no cached prompt token), one profiled run. Each
     run must give exactly 2048 tokens in the vocabulary; every kernel in
     ``counted`` must have
@@ -2190,7 +2245,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
 
     log(f"# {phase}: warm-up run {one_run():.3f} s")
     cold, warm, counts = [], [], {}
-    for i in range(3):
+    for i in range(SERVE_RUNS):
         if not llm.engine.reset_prefix_cache():
             raise AssertionError("reset_prefix_cache refused")
         cold.append(one_run())
@@ -2209,7 +2264,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
         check_exact(counts)
     if any(v <= 0 for k, v in counts.items() if k not in (exact or {})):
         raise AssertionError(f"a kernel was not launched: {counts}")
-    for i in range(3 if prefix_cache else 0):
+    for i in range(SERVE_RUNS if prefix_cache else 0):
         warm.append(one_run())
         wc = {k: fn.launches for k, fn in counted.items()}
         log(f"# {phase}: warm run {i}: {warm[-1]:.3f} s, cached prompt "
@@ -2908,12 +2963,16 @@ def profile_run(one_run, phase: str = "phase 4",
             if e.name() in span_of:
                 span_of[e.name()].setdefault(e.start_thread_id(), []).append(
                     (e.start_ns(), e.end_ns()))
-    fam = {"ragged": 0.0, "window": 0.0, "decode": 0.0, "cascade": 0.0,
+    fam = {"ragged": 0.0, "ragged (spans)": 0.0, "window": 0.0,
+           "decode": 0.0, "cascade": 0.0,
            "quant": 0.0, "int4": 0.0, "fp8": 0.0, "moe": 0.0, "scan": 0.0,
            "sample": 0.0, "gemm": 0.0, "other": 0.0}
     for name, (ns, _) in kernels.items():
         n = name.lower()
-        k = ("ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
+        # the tensor-core instance's span switch: its 4th template argument
+        k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\d+, \w+, \w+, "
+                                           r"true", n) else
+             "ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
              or "mla_ragged" in n else
              "window" if "wd_split" in n or "wd_merge" in n
              or "mla_window" in n or "mla_merge" in n else
@@ -2958,7 +3017,8 @@ def profile_run(one_run, phase: str = "phase 4",
             f"{name[:90]}")
 
 
-KERNEL_SOURCES = ["ragged_paged_attention", "window_decode_attention",
+KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans",
+                  "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
                   "gumbel_sample", "suffix_match", "mla_attention"]
@@ -3895,6 +3955,99 @@ def alibi_checks(gen, dt: str, results: dict) -> None:
             f"(tol {TOL[dt]} x max(1, max|ref|))")
 
 
+def span_rows(spans: list):
+    """[R, M, 2] int32 image spans on the card, -1 padding, M the next
+    power of two (at least 2) of the most spans a request has (the
+    runner's ``_span_rows``)."""
+    import torch
+    most = max(len(s) for s in spans)
+    arr = np.full((len(spans), 1 << max(1, (most - 1).bit_length()), 2), -1,
+                  np.int32)
+    for r, sp in enumerate(spans):
+        for j, (lo, hi) in enumerate(sp):
+            arr[r, j] = (lo, hi)
+    return torch.from_numpy(arr).cuda()
+
+
+# Phase 26's prompt: 512 tokens, one 896 x 896 image expanded to its 256
+# placeholder tokens between boi and eoi (bos, 99 text tokens, boi, the
+# span at 101-356, eoi, 154 text tokens).
+G3_SPAN = (101, 357)
+# Phase 26's prefill wave: 32 x 512 at 8 / 4 heads of 256, one span each.
+G3_WAVE = dict(nq=8, kvh=4, hd=256, ctx=[512] * 32, qlen=[512] * 32,
+               scale=256 ** -0.5, spans=[[G3_SPAN]] * 32)
+# Where image spans meet the ragged kernel's other options (phase 2, bf16
+# and fp32, against the plain version only): spans that start and end
+# inside a 32/64-key tile, a work item and a warp's rows (5-300, 37-171);
+# later chunks whose span began in an earlier chunk (250-450 at a chunk of
+# 300-599) or runs past the keys written so far (350-500 at a context of
+# 400); two spans in one request beside requests without any; a sliding
+# window (64) shorter than a span; a soft cap; 16-token pages; head_dim
+# 128 at group 4 and 256 at group 2 (Gemma-3-4B).
+_SPAN_CTX = [600, 400, 517, 300, 45, 1000]
+_SPAN_QLEN = [300, 150, 517, 299, 44, 333]
+_SPAN_SETS = [[(250, 450)], [(350, 500)], [(5, 300), (301, 410)],
+              [(37, 171)], [], []]
+SPAN_RAGGED_CASES = {
+    "hd256-group2": dict(nq=8, kvh=4, hd=256, ctx=_SPAN_CTX,
+                         qlen=_SPAN_QLEN, spans=_SPAN_SETS),
+    "hd128-group4": dict(nq=16, kvh=4, ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
+                         spans=_SPAN_SETS),
+    "hd256-window64": dict(nq=8, kvh=4, hd=256, ctx=_SPAN_CTX,
+                           qlen=_SPAN_QLEN, spans=_SPAN_SETS,
+                           opts=dict(sliding_window=64)),
+    "hd256-softcap50-page16": dict(nq=8, kvh=4, hd=256, page=16,
+                                   ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
+                                   spans=_SPAN_SETS,
+                                   opts=dict(logits_soft_cap=50.0)),
+    "hd64-group1": dict(nq=4, kvh=4, hd=64, ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
+                        spans=_SPAN_SETS),
+}
+
+
+def span_checks(gen, dt: str, results: dict) -> None:
+    """Phase 2 for the image-span option of the ragged kernel in ``dt``:
+    phase 26's wave (timed, beside SDPA with (causal OR span) as a boolean
+    mask, and in bf16 beside the same wave without spans, in the same
+    call), the ``SPAN_RAGGED_CASES`` and, in bf16, the wave and two cases
+    on an e4m3 cache, each against the plain version."""
+    name = "ragged_paged_attention"
+    r = check_ragged(gen, dt, G3_WAVE)
+    results[(name, "gemma-3-4b-it-bf16", dt)] = r
+    line = (f"# phase 2: {name} {dt} with image spans at gemma-3-4b-it "
+            f"shapes: max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dt]}); "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+            f"plain {r['plain_ms']:.4f} ms, sdpa with (causal OR span) as a "
+            f"boolean mask {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']})")
+    if dt == "bfloat16":
+        r0 = check_ragged(gen, dt, {k: v for k, v in G3_WAVE.items()
+                                    if k != "spans"})
+        line += (f"; the same wave without spans {r0['ms']:.4f} ms (device "
+                 f"{r0['device_ms']:.4f} ms): spans cost "
+                 f"{r['device_ms'] / r0['device_ms'] - 1:+.1%} device time")
+    log(line)
+    for case, geom in SPAN_RAGGED_CASES.items():
+        err = check_ragged(gen, dt, geom, timed=False)
+        log(f"# phase 2: {name} {dt} spans {case}: max_abs_err {err:.3g} "
+            f"(tol {TOL[dt]})")
+    if dt == "bfloat16":
+        kv = "float8_e4m3fn"
+        r = check_ragged(gen, dt, G3_WAVE, kv=kv)
+        results[(name, "gemma-3-4b-it-bf16", dt, kv)] = r
+        log(f"# phase 2: {name} {dt}, {kv} cache, with image spans at "
+            f"gemma-3-4b-it shapes: max_abs_err {r['max_abs_err']:.3g} (tol "
+            f"{TOL[dt]}); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        for case in ("hd256-group2", "hd256-window64"):
+            err = check_ragged(gen, dt, SPAN_RAGGED_CASES[case], timed=False,
+                               kv=kv)
+            log(f"# phase 2: {name} {dt}, {kv} cache, spans {case}: "
+                f"max_abs_err {err:.3g} (tol {TOL[dt]})")
+
+
 # Phase 21: tiny members of the ALiBi decoder families (and Falcon's rope
 # generations) in their config.json spellings, which the port reads
 # without ``transformers``: 2 layers, vocab 256, 6 or 12 query heads of 16
@@ -4556,6 +4709,341 @@ def main_path_deepseek() -> dict:
          "grouped_matmul": grouped_matmul}, exact=exact)[0]
 
 
+# Phase 25: tiny Gemma-3 multimodal and PaliGemma (Gemma and Gemma-2
+# bases) in config.json spellings, nested text and vision configs, which
+# the port reads without ``transformers``.
+_MM_TINY_VISION = dict(hidden_size=32, num_hidden_layers=2,
+                       num_attention_heads=2, intermediate_size=64,
+                       image_size=16, hidden_act="gelu_pytorch_tanh",
+                       layer_norm_eps=1e-6)
+_MM_TINY_TEXT = dict(vocab_size=256, hidden_size=64, num_hidden_layers=3,
+                     num_attention_heads=4, num_key_value_heads=2,
+                     head_dim=32, intermediate_size=128,
+                     max_position_embeddings=512,
+                     hidden_activation="gelu_pytorch_tanh")
+MM_IMG, MM_BOI, MM_EOI = 255, 253, 254
+MM_TINY = {
+    "gemma3": dict(
+        architectures=["Gemma3ForConditionalGeneration"],
+        image_token_index=MM_IMG, boi_token_index=MM_BOI,
+        eoi_token_index=MM_EOI, mm_tokens_per_image=4,
+        vision_config=dict(_MM_TINY_VISION, patch_size=4),
+        text_config=dict(
+            _MM_TINY_TEXT, model_type="gemma3_text", sliding_window=8,
+            query_pre_attn_scalar=32, rope_theta=1e6,
+            rope_local_base_freq=1e4,
+            rope_scaling={"rope_type": "linear", "factor": 8.0},
+            layer_types=["sliding_attention", "sliding_attention",
+                         "full_attention"])),
+    "paligemma": dict(
+        architectures=["PaliGemmaForConditionalGeneration"],
+        image_token_index=MM_IMG, projection_dim=64,
+        vision_config=dict(_MM_TINY_VISION, patch_size=8),
+        text_config=dict(_MM_TINY_TEXT, model_type="gemma")),
+    "paligemma2": dict(
+        architectures=["PaliGemmaForConditionalGeneration"],
+        image_token_index=MM_IMG, projection_dim=64,
+        vision_config=dict(_MM_TINY_VISION, patch_size=8),
+        text_config=dict(
+            _MM_TINY_TEXT, model_type="gemma2", sliding_window=8,
+            query_pre_attn_scalar=24, attn_logit_softcapping=50.0,
+            final_logit_softcapping=30.0,
+            layer_types=["sliding_attention", "full_attention",
+                         "sliding_attention"])),
+}
+
+
+def redraw_mm(model, seed: int) -> None:
+    """A vision model's weights redrawn from a seeded generator on their
+    device: the text decoder as ``redraw_gemma`` does; the tower's
+    LayerNorm weights near 1, its biases and positions small, its weights
+    [.., fan_in, fan_out] at fan-in scale; the projector's weights at
+    fan-in scale, its norm (stored as w - 1) near 0."""
+    import torch
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            r = torch.randn(p.shape, generator=g, device=dev)
+            if name.startswith(("vision.", "projector.")) \
+                    and "norm" not in leaf:
+                if "ln" in leaf and leaf.endswith("_w"):
+                    new = 1 + 0.1 * r
+                elif p.dim() == 1 or leaf.startswith("b") \
+                        or leaf.endswith("_b") or leaf == "pos":
+                    new = 0.1 * r
+                else:  # [.., fan_in, fan_out]
+                    new = r / p.shape[-2] ** 0.5
+            elif "norm" in name:
+                new = 0.1 * r
+            elif name == "embed":
+                new = r / (4 * p.shape[1] ** 0.5)
+            else:  # [fan_in, fan_out] projections
+                new = r / p.shape[0] ** 0.5
+            p.copy_(new.to(p.dtype))
+
+
+def mm_prompts(arch: str, seed: int, size: int) -> list:
+    """Phase 25's batch: one image after 12 text tokens (its span crosses
+    the 16-token chunk edge), two images, and a text-only row."""
+    rng = np.random.RandomState(seed)
+    words = lambda n: rng.randint(10, 250, size=n).tolist()  # noqa: E731
+    img = ([MM_BOI, MM_IMG, MM_EOI] if arch == "gemma3" else [MM_IMG])
+    imgs = rng.randint(0, 256, size=(3, size, size, 3)).astype(np.uint8)
+    return [
+        {"prompt_token_ids": [2] + words(12) + img + words(5),
+         "multi_modal_data": {"image": imgs[0]}},
+        {"prompt_token_ids": [2] + words(3) + img + words(2) + img
+         + words(4), "multi_modal_data": {"image": [imgs[1], imgs[2]]}},
+        [2] + words(17)]
+
+
+def mm_parity() -> dict:
+    """Phase 25: fp32 greedy tokens through the port on the card and on the
+    CPU with the same weights for ``MM_TINY``: one image, two images and a
+    text row in one batch, a 16-token budget that cuts a prompt inside an
+    image span, 16-step decode windows. On the card every ragged launch of
+    Gemma-3 carries the image spans, none of PaliGemma's does. Returns the
+    card runs' launches, all and with spans."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as rpa)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+              for n in (20, 12, 24)]
+    total = {"ragged_paged_attention": 0, "ragged spans": 0}
+    for arch, cfg in MM_TINY.items():
+        kw = dict(hf_config=cfg, tokenizer="unused", dtype="float32",
+                  block_size=16, num_kv_blocks=128, max_num_seqs=4,
+                  max_num_batched_tokens=16, max_model_len=256,
+                  decode_window=16)
+        cpu = LLM("tiny-vlm", device="cpu", **kw)
+        redraw_mm(cpu.engine.core.worker.model, 7)
+        gpu = LLM("tiny-vlm", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        prompts = mm_prompts(arch, 8, 16)
+        a = [o.outputs[0].token_ids for o in cpu.generate(prompts, params)]
+        rpa.launches = rpa.span_launches = 0
+        b = [o.outputs[0].token_ids for o in gpu.generate(prompts, params)]
+        if a != b:
+            raise AssertionError(f"phase 25 {arch}: cuda vs cpu greedy "
+                                 f"tokens differ:\n{a}\n{b}")
+        if len({t for x in a for t in x}) <= 10:
+            raise AssertionError(f"phase 25 {arch}: the tokens hardly "
+                                 f"vary: {a}")
+        want = rpa.launches if arch == "gemma3" else 0
+        if rpa.launches <= 0 or rpa.span_launches != want:
+            raise AssertionError(f"phase 25 {arch}: ragged launches "
+                                 f"{rpa.launches}, with spans "
+                                 f"{rpa.span_launches}, want {want}")
+        total["ragged_paged_attention"] += rpa.launches
+        total["ragged spans"] += rpa.span_launches
+        log(f"# phase 25: {arch}: cuda == cpu greedy tokens for "
+            f"{len(prompts)} prompts (one image, two images, a text row; "
+            f"16-token chunks, one cutting an image's tokens); ragged "
+            f"launches {rpa.launches}, with spans {rpa.span_launches}")
+        del cpu, gpu
+    return total
+
+
+GEMMA3_4B_IT = dict(  # google/gemma-3-4b-it config.json
+    architectures=["Gemma3ForConditionalGeneration"], model_type="gemma3",
+    image_token_index=262144, boi_token_index=255999,
+    eoi_token_index=256000, mm_tokens_per_image=256,
+    text_config=dict(
+        model_type="gemma3_text", vocab_size=262208, hidden_size=2560,
+        num_hidden_layers=34, num_attention_heads=8, num_key_value_heads=4,
+        head_dim=256, intermediate_size=10240,
+        hidden_activation="gelu_pytorch_tanh", query_pre_attn_scalar=256,
+        rms_norm_eps=1e-6, rope_theta=1000000.0,
+        rope_scaling={"rope_type": "linear", "factor": 8.0},
+        rope_local_base_freq=10000.0, sliding_window=1024,
+        # sliding_window_pattern 6: every sixth layer global
+        layer_types=["full_attention" if (i + 1) % 6 == 0
+                     else "sliding_attention" for i in range(34)],
+        attn_logit_softcapping=None, final_logit_softcapping=None,
+        max_position_embeddings=131072, tie_word_embeddings=True),
+    vision_config=dict(
+        model_type="siglip_vision_model", hidden_size=1152,
+        num_hidden_layers=27, num_attention_heads=16,
+        intermediate_size=4304, image_size=896, patch_size=14,
+        hidden_act="gelu_pytorch_tanh", layer_norm_eps=1e-6))
+
+
+def g3_prompts(seed: int, images_seed: int) -> list:
+    """Phase 26's 32 prompts: bos, 99 text tokens, boi, the image
+    placeholder, eoi, 154 text tokens (512 once the placeholder is
+    expanded: the span at ``G3_SPAN``), each with a seeded 896 x 896 uint8
+    image (``images_seed``: another seed gives other images, the same
+    ids)."""
+    tc = GEMMA3_4B_IT
+    S = tc["vision_config"]["image_size"]
+    rng, irng = (np.random.RandomState(seed),
+                 np.random.RandomState(images_seed))
+    out = []
+    for _ in range(32):
+        ids = ([2] + rng.randint(10, 200000, size=99).tolist()
+               + [tc["boi_token_index"], tc["image_token_index"],
+                  tc["eoi_token_index"]]
+               + rng.randint(10, 200000, size=154).tolist())
+        img = irng.randint(0, 256, size=(S, S, 3)).astype(np.uint8)
+        out.append({"prompt_token_ids": ids,
+                    "multi_modal_data": {"image": img}})
+    return out
+
+
+def main_path_gemma3_mm() -> dict:
+    """Phase 26, the vision slice's main path: Gemma-3-4B-it bf16 at full
+    width and depth with one image a request (see the module docstring).
+    Returns a cold run's launches."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    from aphrodite_tpu_torch.worker.encoder_cache import EncoderCache
+    phase = "phase 26"
+    L = GEMMA3_4B_IT["text_config"]["num_hidden_layers"]
+    kernels = {"decode_paged_attention": decode_paged_attention,
+               **attention_kernels()}
+    rpa = kernels["ragged_paged_attention"]
+    counted = {**kernels, "ragged spans": SpanCount(rpa),
+               "ragged tensor_cores": InstanceCount(rpa, "tensor_cores")}
+    exact = {"ragged_paged_attention": L, "ragged spans": L,
+             "ragged tensor_cores": L, "decode_paged_attention": L * 63,
+             "window_decode_attention": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM("gemma-3-4b-it-dummy", hf_config=GEMMA3_4B_IT,
+              tokenizer="unused", dtype="bfloat16", load_format="dummy",
+              block_size=64, max_num_seqs=32, max_num_batched_tokens=16384,
+              max_model_len=704, device="cuda")
+    model = llm.engine.core.worker.model
+    redraw_mm(model, 26)
+    torch.cuda.synchronize()
+    log(f"# {phase}: engine init and redraw {time.perf_counter() - t0:.2f} "
+        f"s, weights + KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"(weights {sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30:.2f} GiB, "
+        f"of which the tower {sum(p.numel() * p.element_size() for p in model.vision.parameters()) / 2**30:.2f})")
+    runner = llm.engine.core.worker.runner
+    encode = model.encode_images
+    images = [0]
+
+    def traced_encode(pv):
+        images[0] += pv.shape[0]
+        with torch.profiler.record_function("vision"):
+            return encode(pv)
+    model.encode_images = traced_encode
+    # The host's time in the processor: the images' preprocessing, the
+    # placeholders' expansion and the content hash, a request at a time.
+    processor = llm.engine.processor
+    process = processor.process
+    host = [0.0]
+
+    def timed_process(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return process(*a, **kw)
+        finally:
+            host[0] += time.perf_counter() - t
+    processor.process = timed_process
+    prompts = g3_prompts(26, 27)
+    others = g3_prompts(26, 28)
+    params = SamplingParams(temperature=0.0, max_tokens=64, ignore_eos=True)
+    V = GEMMA3_4B_IT["text_config"]["vocab_size"]
+
+    def one_run(batch=prompts, cold=True):
+        if cold:
+            if not llm.engine.reset_prefix_cache():
+                raise AssertionError("reset_prefix_cache refused")
+            runner.encoder_cache = EncoderCache()
+        for fn in counted.values():
+            fn.launches = 0
+        images[0] = 0
+        host[0] = 0.0
+        t = time.perf_counter()
+        outs = llm.generate(batch, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        toks = [o.outputs[0].token_ids for o in outs]
+        if sum(len(x) for x in toks) != 32 * 64:
+            raise AssertionError(f"{phase}: expected 2048 tokens")
+        if not all(0 <= t < V for x in toks for t in x):
+            raise AssertionError(f"{phase}: token id out of the vocabulary")
+        one_run.toks = toks
+        one_run.cached = sum(o.num_cached_tokens for o in outs)
+        one_run.counts = {k: fn.launches for k, fn in counted.items()}
+        for k, want in exact.items():
+            if one_run.counts[k] != want:
+                raise AssertionError(f"{phase}: {k}: {one_run.counts[k]} "
+                                     f"launches in a run, want {want}")
+        return dt
+
+    log(f"# {phase}: warm-up run {one_run():.3f} s, images encoded "
+        f"{images[0]}")
+    walls = {"cold": [], "warm": []}
+    for label in ("cold", "cold", "warm", "warm"):
+        walls[label].append(one_run(cold=label == "cold"))
+        want = 32 if label == "cold" else 0
+        if images[0] != want:
+            raise AssertionError(f"{phase}: {images[0]} images encoded in a "
+                                 f"{label} run, want {want}")
+        if (one_run.cached == 0) != (label == "cold"):
+            raise AssertionError(f"{phase}: {one_run.cached} cached prompt "
+                                 f"tokens in a {label} run")
+        log(f"# {phase}: {label} run: {walls[label][-1]:.3f} s (of which "
+            f"the processor's host time {host[0]:.3f} s), cached prompt "
+            f"tokens {one_run.cached}, images encoded {images[0]}, launches "
+            f"{one_run.counts}")
+    warm_toks = one_run.toks
+    dt = one_run(others, cold=False)
+    if one_run.cached != 0 or images[0] != 32:
+        raise AssertionError(f"{phase}: the same ids with other images hit "
+                             f"{one_run.cached} cached tokens, encoded "
+                             f"{images[0]} images")
+    differ = sum(a != b for a, b in zip(one_run.toks, warm_toks))
+    if not differ:
+        raise AssertionError(f"{phase}: other images gave the same tokens")
+    log(f"# {phase}: the same ids with other images: {dt:.3f} s, cached "
+        f"prompt tokens 0, images encoded 32, {differ} of 32 requests' "
+        f"tokens differ")
+    for label, ts in walls.items():
+        s = float(np.mean(ts))
+        log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
+            f"{32 * 64 / s:.0f} decode tok/s; {32 * 576 / s:.0f} tok/s "
+            "(prefill+decode)")
+    log(f"# {phase}: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_run(one_run, phase, spans=("vision",))
+    counts = dict(one_run.counts)
+    model.encode_images, processor.process = encode, process
+    del llm, model, runner, processor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+class SpanCount:
+    """The ragged wrapper's launches with image spans (``span_launches``),
+    counted as a kernel of its own."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.span_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.span_launches = value
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4627,6 +5115,7 @@ def main() -> int:
             results[("decode_paged_attention", case, dt)] = check_decode(
                 gen, dt, case)
         alibi_checks(gen, dt, results)
+        span_checks(gen, dt, results)
         r = check_int4(gen, dt)
         log(f"# phase 2: w4a16_int4_matmul {dt}, a Llama-3.1-8B layer's 4 "
             f"GEMMs at M=128: max_abs_err {r['max_abs_err']:.3g} (tol "
@@ -4739,6 +5228,10 @@ def main() -> int:
     log(f"# phase 23: launches on the card runs {ds_parity_launches}")
     stamp("phase 24")
     deepseek_counts = main_path_deepseek()
+    stamp("phase 25")
+    mm_parity_launches = mm_parity()
+    stamp("phase 26")
+    gemma3_counts = main_path_gemma3_mm()
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -4879,12 +5372,30 @@ def main() -> int:
                  results[("grouped_matmul", ds_path, "bfloat16")], "auto"))
     for name in ("ragged_paged_attention", "window_decode_attention"):
         replaces[f"{name}_mla"] = replaces[name]
+    # The vision slice: the ragged kernel's span instances on phase 26's
+    # path (the tensor-core one) and phase 25's (the scalar one in fp32,
+    # timed at phase 26's wave), and the decode kernel at phase 26's step.
+    g3_path, g3_rpa = "gemma-3-4b-it-bf16", "ragged_paged_attention"
+    rows += [(f"{g3_rpa}_spans", path, dt, launches,
+              results[(g3_rpa, g3_path, dt)], "auto")
+             for path, dt, launches in (
+                 (g3_path, "bfloat16", gemma3_counts["ragged spans"]),
+                 ("mm-tiny-parity-fp32", "float32",
+                  mm_parity_launches["ragged spans"]))]
+    rows.append(("decode_paged_attention", g3_path, "bfloat16",
+                 gemma3_counts["decode_paged_attention"],
+                 results[("decode_paged_attention", "gemma-3-4b",
+                          "bfloat16")], "auto"))
+    replaces[f"{g3_rpa}_spans"] = replaces[g3_rpa]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
                or name in ("w4a16_int4_matmul", "fp8_matmul") else name)
         if name.endswith("_mla"):
             src = "mla_attention"
+        if name.endswith("_spans"):  # the tensor-core or scalar instance
+            src = ("ragged_spans" if dt == "bfloat16"
+                   else "ragged_paged_attention")
         if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
                     *BYTE_PATHS) and dt == "bfloat16":
             src = "w4_wgmma"

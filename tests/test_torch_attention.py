@@ -64,7 +64,7 @@ def _ragged_case(reqs, hd=64, seed=0):
                 tok_req=tok_req, tok_pos=tok_pos, slots=slots, R=R, T=T)
 
 
-def _port_ragged(c, **kw):
+def _port_ragged(c, spans=None, **kw):
     items = build_work_items(c["qsl"][:-1], np.diff(c["qsl"]),
                              c["seq_lens"], c["R"], 32)
     t = torch.from_numpy
@@ -73,6 +73,7 @@ def _port_ragged(c, **kw):
         slot_mapping=t(c["slots"].astype(np.int64)),
         seq_lens=t(c["seq_lens"]),
         block_tables=t(c["bt"]), block_q=32,
+        mm_bidir_spans=None if spans is None else t(spans),
         **{k: t(v) for k, v in items.items()})
     hd = c["q"].shape[-1]
     return ragged_paged_attention(t(c["q"]), t(c["cache"]), LAYER, md,
@@ -180,9 +181,16 @@ def test_window_vs_jax_oracle_and_kernel(name):
 
 
 def test_unported_kernel_options_raise():
+    # Image spans are ported (and ALiBi): they compute what the JAX oracle
+    # computes; tests/test_torch_mm_attention.py holds them further.
     c = _ragged_case([(8, 8)])
-    with pytest.raises(NotImplementedError):  # ALiBi is ported; spans not
-        _port_ragged(c, mm_bidir_spans=torch.zeros(1, 1, 2, dtype=torch.int32))
+    spans = np.asarray([[[2, 6]]], np.int32)
+    got = _port_ragged(c, spans=spans)
+    md = dataclasses.replace(_jax_md(c), mm_bidir_spans=jnp.asarray(spans))
+    ref = jax_ref_ragged(jnp.asarray(c["q"]), jnp.asarray(c["cache"][LAYER]),
+                         md, 64 ** -0.5)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=ATOL)
+    assert np.abs(got - _port_ragged(c)).max() > 1e-3
     with pytest.raises(NotImplementedError):  # a cache of neither q's dtype
         window_decode_attention(                # nor fp8 (fp8 is ported)
             torch.zeros(1, NQ, 64),
@@ -191,6 +199,32 @@ def test_unported_kernel_options_raise():
             torch.zeros(L, 1, KVH, 4, 64, dtype=torch.bfloat16), 0,
             0, torch.ones(1, dtype=torch.int32),
             torch.ones(1, 1, dtype=torch.int32), 0.1)
+
+
+def test_spans_at_the_mla_geometry_raise():
+    """bf16 at head_dim 576 runs the MLA instance, which takes no image
+    spans (no MLA model has images: ROADMAP B): the wrapper refuses them on
+    every device. fp32 at 576 runs the scalar instance, which takes them;
+    so does bf16 at 576 without spans."""
+    c = _ragged_case([(8, 8)], hd=576)
+    spans = np.asarray([[[2, 6]]], np.int32)
+    items = build_work_items(c["qsl"][:-1], np.diff(c["qsl"]),
+                             c["seq_lens"], c["R"], 32)
+    t = torch.from_numpy
+    md = AttentionMetadata(
+        token_req_idx=t(c["tok_req"]), token_pos=t(c["tok_pos"]),
+        slot_mapping=None, seq_lens=t(c["seq_lens"]),
+        block_tables=t(c["bt"]), block_q=32, mm_bidir_spans=t(spans),
+        **{k: t(v) for k, v in items.items()})
+    q, cache = t(c["q"]), t(c["cache"])
+    with pytest.raises(NotImplementedError, match="MLA geometry"):
+        ragged_paged_attention(q.bfloat16(), cache.bfloat16(), LAYER, md,
+                               0.1)
+    assert torch.isfinite(ragged_paged_attention(q, cache, LAYER, md,
+                                                 0.1)).all()
+    md.mm_bidir_spans = None
+    assert torch.isfinite(ragged_paged_attention(
+        q.bfloat16(), cache.bfloat16(), LAYER, md, 0.1)).all()
 
 
 # (group, head_dim): ragged query rows a work item, window warps, of the
