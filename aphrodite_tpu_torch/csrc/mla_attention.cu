@@ -1,6 +1,6 @@
-// The MLA geometry of the ragged and window attention kernels on the
-// tensor cores (CUDA, sm_90a): bf16 queries of any group on one KV head of
-// head_dim 576.
+// The MLA geometry of the ragged and window attention kernels on Hopper's
+// warpgroup products (CUDA, sm_90a): bf16 queries of any group on one KV
+// head of head_dim 576.
 //
 // Replaces the MLA geometry of the TPU kernels `ragged_paged_attention` /
 // `_rpa_kernel` (aphrodite_tpu/ops/ragged_paged_attention.py) and
@@ -15,566 +15,795 @@
 // mask), fully masked rows 0. V is read as the cache holds it: the kernels
 // assume neither its zero lanes nor its equality to K.
 //
-// What the geometry forces. At head_dim 576 a warp's fp32 O fragment for
-// 16 rows is 16 x 576 / 32 = 288 registers a thread, more than a thread
-// has (255), so O's columns are split across warps that share one P through
-// shared memory (not across blocks, which would each recompute S: 1.5x
-// the products). Each warp computes S for its own keys of the tile over all
-// 576 dims, the warps exchange their row maxima and their P fragments
-// (bf16, the A operand of P V) in shared memory, and each accumulates P V
-// for its own columns over all the tile's keys. The softmax state (m, l)
-// is then the same in every warp: m is the max of the exchanged maxima and
-// each warp's l is the sum over its own keys, added up at the end. The
-// cost: two barriers a tile and 4.5 KB of exchange; every mma is done once.
+// One block shape serves both instances (mla_kernel<kCap, kWindow>): 64
+// query rows (one wgmma M) against 32-key tiles of K and V.
+// - Warp 0 (the producer warpgroup's; setmaxnreg 24) reads the block table
+//   itself and loads each tile by TMA from one tensor map over the cache
+//   layer, [P 2 kvh page, 576] rows, in boxes of 64 columns (128 bytes,
+//   128-byte swizzle; 576 = 9 x 64) and min(page, 32) rows, so a tile on
+//   16-token pages takes two boxes a chunk; the window's tail tiles come
+//   from two more maps over [R kvh kw, 576]. Its lanes issue a tile's boxes
+//   side by side after lane 0 has armed the mbarrier with their bytes; the
+//   page ids are read before the producer waits for the stage.
+// - A ring of two stages of a K and a V tile (36,864 bytes each) under
+//   "full" and "empty" mbarriers, so the next tile's loads run under this
+//   one's products. A box whose keys all lie at or past the tile's last
+//   loadable key (the context's end, or an unwritten tail slot) is not
+//   loaded; the rows past that key hold stale bytes (another page's, or
+//   garbage), so each consumer zeroes them in its own columns of V before P
+//   V (0 x Inf would be NaN) and the mask takes them out of S.
+// - Three consumer warpgroups (setmaxnreg 160) own 192 columns of O each
+//   (three whole 64-column atoms of the swizzle, 96 fp32 a thread: the 576
+//   columns fit no fewer warpgroups' registers) and multiply P (bf16, from
+//   registers: the S accumulator is the A fragment) by their columns of V
+//   (MN-major B, one m64n192k16 a k16 step). S = Q K^T (m64n32k16, Q and K
+//   K-major from shared memory):
+//   ragged: each warpgroup takes the part over its own three chunks (12 of
+//     the 36 products: three chains side by side, where one warpgroup would
+//     wait on 36 in a row), writes it into its own chunks of the K tile it
+//     has just read, and after one barrier adds the three parts in
+//     warpgroup order: the same S, softmax and P in each, and no hand-off;
+//   window: warpgroup 0 takes S and the softmax and hands P and the rescale
+//     factors on through shared memory (two tiles deep): less work a tile,
+//     where a block walks a few tiles from HBM (each instance timed with
+//     both schemes on an H100: each kept the faster).
+//   The rows of a warp's 16 live in that warp alone, so the softmax needs
+//   no shared memory; O's rescale is skipped where no row of a warp moved
+//   its maximum (alpha exactly 1).
+// - Q (64 rows) is staged once by the consumers with cp.async into the
+//   swizzled layout (rows past the block's, zeros); the ragged output goes
+//   out through each warpgroup's own chunks of Q in whole 16-byte pieces.
+// Shared memory: Q 73,728 bytes, the ring 147,456, the window's hand-off
+// 8,704, twelve mbarriers and 1024 bytes to align the swizzle: 231,008
+// bytes, one block an SM. Registers: 24 x 128 + 160 x 384 = 64,512 of
+// 65,536.
 //
-// mla_ragged_kernel (B1's MLA instance). A block is 8 warps and 64 query
-// rows (the item's tokens times the group, token-major), four row tiles of
-// 16; warps w and w + 4 own row tile w % 4, split the tile's 32 keys into
-// halves for S and O's 576 columns into halves of 288 for P V (36 n-tiles,
-// 144 registers). Q (64 rows) and a 2-stage cp.async ring of 32-key K and V
-// tiles, rows padded to 584 bf16, take 224,256 bytes, the exchange 4,608:
-// one block an SM. A token's rows may exceed the block's (V3: 128 query
-// heads on one KV head): grid.z cuts the item's rows into slices of 64.
-//
-// mla_window_kernel (B2's MLA instance): the window's split-KV scheme
-// (csrc/window_decode_attention.cu: the same 64-key plan tiles, splits,
-// cascade start and merge), each plan tile walked as two 32-key tiles. A
-// block is 4 warps and one 16-row tile of the group (grid.y: KV head x row
-// tile, so any group launches); warp w takes keys 8w..8w+7 of a tile for S
-// and O's columns 144w..144w+143 for P V. 16 query rows and the ring take
-// 168,192 bytes. Each block writes its split's unnormalized state and
-// mla_merge_kernel adds the init state (the cascade's) and the splits in a
-// fixed order (csrc/split_decode.cuh merge_row).
+// mla_ragged (B1's MLA instance): a block is a work item's rows (tokens x
+// group, token-major) or a slice of 64 of them (grid.z: V3's 128 query
+// heads on one KV head take two), writing out normalized bf16.
+// mla_window (B2's MLA instance): the window's split-KV scheme
+// (csrc/window_decode_attention.cu: the host's 64-key plan tiles, each
+// walked as two of 32, the page / tail split, the cascade start at
+// shared_len), a block per (request, 64-row tile of the group, split); at
+// group 16 the wgmma's other 48 rows are idle (zero queries). Each block
+// writes its split's unnormalized state and mla_merge_kernel adds the init
+// state (the cascade's) and the splits in a fixed order
+// (csrc/split_decode.cuh merge_row): no float atomics, two launches are
+// bit-equal. (A merge by the last block of a row tile to finish, on its
+// 384 threads, was slower than this second launch.) The host plans the
+// splits for one block an SM
+// (ops/window_decode_attention.py window_split_plan): at most one wave.
 //
 // Bound. DeepSeek-V2-Lite's wave (32 x 512 tokens, 16 heads) moves ~0.64 GB
 // (q and out 302 MB each, K/V 38 MB): >= 0.19 ms; its products are 155
-// GFLOP, >= 0.16 ms at the bf16 peak. A window sub-step at R = 32 reads
-// ~40 MB of K/V: >= 0.012 ms. mma.sync reaches well below the card's bf16
-// rate and each K/V fragment serves 16 rows; wgmma with TMA and a producer
-// warp (FlashMLA's shape) is later work.
+// GFLOP, >= 0.16 ms at the bf16 peak. A window sub-step at R = 32 reads ~40
+// MB of K/V: >= 0.012 ms. Neither instance reaches its bound (PERF.md):
+// with the loads under the ring, what is left is each 32-key tile's fixed
+// work (the barrier and the parts of S, or the hand-off; the softmax; O's
+// rescale) and each block's Q load and output, which no other work hides
+// (a ragged block walks ~9 tiles at 4-token items).
+#include <string.h>
+
+#include <algorithm>
+
+#include "hopper_common.cuh"
 #include "split_decode.cuh"
 
 namespace {
 
-using namespace mma;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
+using mma::allow_smem;
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
+using mma::fast_exp2;
+using mma::pack_bf16;
 
 constexpr int kHD = 576;
-constexpr int kP = kHD + 8;       // bf16 a staged row: 8 rows of an ldmatrix
-                                  // land in 8 distinct bank groups
-constexpr int kCPR = kHD / 8;     // 16-byte copies a row
-constexpr int kKeys = 32;         // keys a tile
+constexpr int kChunks = kHD / 64;               // 128-byte column chunks
+constexpr int kRows = 64;                       // query rows a block
+constexpr int kKeys = 32;                       // keys a K or V tile
+constexpr int kStages = 2;                      // tiles of K and V in flight
+constexpr int kQChunk = kRows * 128;            // a chunk of Q's 64 rows
+constexpr int kQBytes = kChunks * kQChunk;      // 73,728
+constexpr int kKVChunk = kKeys * 128;           // a chunk of a tile's keys
+constexpr int kKVBytes = kChunks * kKVChunk;    // 36,864: K or V
+constexpr int kConsumers = 3;                   // warpgroups of 3 chunks
+constexpr int kThreads = 128 * (1 + kConsumers);  // with the producer
+constexpr int kConsumerWarps = 4 * kConsumers;  // arrive on "empty"
+constexpr int kBars = 4 * kStages;              // K, V x full, empty
+constexpr int kExchange = 2 * 2 * 128 * 16 + 2 * kRows * 4;  // Handoff
+// Q, the ring, the window's hand-off of P, the mbarriers (the ring's, P
+// full and P empty twice) and 1024 bytes to align the swizzle; mirrored in
+// Python.
+constexpr int kSmem =
+    kQBytes + 2 * kStages * kKVBytes + kExchange + (kBars + 4) * 8 + 1024;
+constexpr int kPlanKeys = 64;  // keys a tile of the window's host plan
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A barrier of `threads` threads under the id `id` (0 is __syncthreads).
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+// d[0, 16) (+)= A (64 x 16, K-major) * B (16 x 32, K-major), both from
+// shared memory through descriptors; scale_d == 0 ignores d.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// ------------------------------------------------------------------ ragged
-namespace rg {
-constexpr int kWarps = 8, kThreads = kWarps * 32;
-constexpr int kRows = 64;               // query rows a block
-constexpr int kCols = kHD / 2;          // O columns a warp
-constexpr int kNT = kCols / 8;          // O n-tiles a warp
-constexpr int kRing = (kRows + 2 * 2 * kKeys) * kP * 2;
-constexpr int kSmem = kRing + kWarps * 32 * 16 + kWarps * 16 * 4;
-}  // namespace rg
 
-template <bool kCap>
-__global__ void __launch_bounds__(rg::kThreads, 1)
-mla_ragged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
-                  bf16* __restrict__ out, const int* __restrict__ item_req,
-                  const int* __restrict__ item_qstart,
-                  const int* __restrict__ item_qlen,
-                  const int* __restrict__ item_pos,
-                  const int* __restrict__ seq_lens,
-                  const int* __restrict__ block_tables, int max_pages,
-                  int nq, int kvh, int page_size, float scale,
-                  int sliding_window, int chunk_attn, float soft_cap) {
-  using namespace attn;
-  using namespace rg;
-  const int item = blockIdx.x, h = blockIdx.y;
-  const int group = nq / kvh;
-  const int req = item_req[item], qstart = item_qstart[item];
-  const int qlen = item_qlen[item], pos0 = item_pos[item];
-  const int row_lo = blockIdx.z * kRows;  // this slice's first item row
-  const int rows = min(kRows, qlen * group - row_lo);
-  if (rows <= 0) return;  // block-uniform
-  const int kv_limit = min(pos0 + qlen, seq_lens[req]);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int rt = warp & 3, half = warp >> 2, partner = warp ^ 4;
-  const int* bt = block_tables + (size_t)req * max_pages;
-  const size_t page_elems = (size_t)page_size * kHD;
-  const int page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
-  const float mult = (kCap ? 1.f : scale) * kLog2e;
-  const float cap_scale = kCap ? scale / soft_cap : 0.f;
+// d[0, 96) += A (64 x 16, this thread's fragment, as wgmma_rs) * B
+// (16 x 192, MN-major, read through db).
+__device__ __forceinline__ void wgmma_rs_mn192(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-  extern __shared__ uint4 smem_mla[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mla);  // [kRows, kP]
-  bf16* kv_s = q_s + kRows * kP;                  // [2][K, V][kKeys, kP]
-  uint4* px = reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(smem_mla) +
-                                       kRing);   // [kWarps][32] P fragments
-  float* mx = reinterpret_cast<float*>(px + kWarps * 32);  // [kWarps][16]
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 
-  // Q: block row r is item row row_lo + r = token t, query head g.
-#pragma unroll 2
-  for (int k = 0; k < kRows * kCPR / kThreads; ++k) {
-    const int i = tid + k * kThreads;
-    const int r = i / kCPR, c = i - r * kCPR;
-    const bool ok = r < rows;
-    const bf16* src = q;
-    if (ok) {
-      const int R = row_lo + r, t = R / group, g = R - t * group;
-      src = q + ((size_t)(qstart + t) * nq + h * group + g) * kHD + c * 8;
-    }
-    cp_async16(q_s + r * kP + c * 8, src, ok);
+// mbar_wait that traps where a phase never completes (a fault in the
+// ring's bookkeeping would otherwise hang the card): ~2^26 polls, seconds.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
   }
-  // K/V tile t into ring stage `stage`; keys at or past kv_limit are zero.
-  auto load_tile = [&](int t, int stage) {
-    bf16* ks = kv_s + (size_t)stage * 2 * kKeys * kP;
-#pragma unroll
-    for (int k = 0; k < kKeys * kCPR / kThreads; ++k) {
-      const int i = tid + k * kThreads;
-      const int j = i / kCPR, c = i - j * kCPR;
-      const int pos = t * kKeys + j;
-      const bool ok = pos < kv_limit;
-      const bf16* src = cache;
-      if (ok) {
-        const int pg = page_shift >= 0 ? pos >> page_shift : pos / page_size;
-        src = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-              (size_t)(pos - pg * page_size) * kHD + c * 8;
-      }
-      cp_async16(ks + j * kP + c * 8, src, ok);
-      cp_async16(ks + (kKeys + j) * kP + c * 8,
-                 ok ? src + kvh * page_elems : src, ok);
+}
+
+// K-major operand (Q, or K as B of S): chunk c of a tile whose chunks are
+// `chunk` bytes apart, k16 step k 32 bytes in.
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile, int chunk,
+                                           int c, int k) {
+  return wgmma_desc(tile + c * chunk + 32 * k, 16, 1024);
+}
+
+// V as the MN-major B of P V: k16 step ks (keys 16 ks..) from chunk c on,
+// the next 64 columns one chunk on.
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int c,
+                                            int ks) {
+  return wgmma_desc(tile + c * kKVChunk + 2048 * ks, kKVChunk, 1024);
+}
+
+// Everything the launch passes besides the tensor maps.
+struct Args {
+  const bf16* q;
+  bf16* out;                            // ragged
+  float *part_acc, *part_m, *part_l;    // window
+  const int *item_req, *item_qstart, *item_qlen, *item_pos, *seq_lens;
+  const int* paged_lens;                // window
+  const int* block_tables;
+  int max_pages, nq, kvh, page_size, box_rows, kw, step;
+  float scale;
+  int sliding_window, chunk_attn;
+  float soft_cap;
+  int shared_len, tiles_per_split;
+};
+
+// A block's query rows and key tiles.
+struct Block {
+  int h, group, rows;  // rows: the block's query rows (<= 64; 0: none)
+  int req;             // the request
+  const int* bt;       // its block table
+  // ragged: the item and its slice
+  int qstart, qlen, pos0, row_lo, kv_limit, t_lo;
+  // window: the split's plan tiles from ta on, past the row tile g0
+  int plen, q_pos, lo, t0, n_paged, ta, g0;
+  int n_tiles;  // 32-key tiles to walk (the window: two a plan tile)
+};
+
+template <bool kWindow>
+__device__ __forceinline__ Block block_of(const Args& a) {
+  Block b;
+  b.group = a.nq / a.kvh;
+  if constexpr (!kWindow) {
+    const int item = blockIdx.x;
+    b.h = blockIdx.y;
+    b.req = a.item_req[item];
+    b.qstart = a.item_qstart[item];
+    b.qlen = a.item_qlen[item];
+    b.pos0 = a.item_pos[item];
+    b.row_lo = blockIdx.z * kRows;
+    b.rows = min(kRows, b.qlen * b.group - b.row_lo);
+    b.kv_limit = min(b.pos0 + b.qlen, a.seq_lens[b.req]);
+    b.t_lo = attn::first_visible(b.pos0 + b.row_lo / b.group,
+                                 a.sliding_window, a.chunk_attn) /
+             kKeys;
+    b.n_tiles = b.rows > 0 && b.kv_limit > 0
+                    ? max((b.kv_limit - 1) / kKeys - b.t_lo + 1, 0)
+                    : 0;
+  } else {
+    // The request's 64-key plan tiles (window_decode_attention.cu
+    // request_tiles): page tiles from the one holding its first visible
+    // position lo (>= shared_len), then tail tiles.
+    const int row_tiles = (b.group + kRows - 1) / kRows;
+    b.req = blockIdx.x;
+    b.h = blockIdx.y / row_tiles;
+    b.g0 = (blockIdx.y - b.h * row_tiles) * kRows;
+    b.rows = min(kRows, b.group - b.g0);
+    b.plen = a.paged_lens[b.req];
+    b.q_pos = b.plen + a.step;
+    const int lo =
+        attn::first_visible(b.q_pos, a.sliding_window, a.chunk_attn);
+    b.lo = min(max(lo, a.shared_len), b.plen);
+    b.t0 = b.lo / kPlanKeys;
+    b.n_paged = (b.plen + kPlanKeys - 1) / kPlanKeys - b.t0;
+    const int n = b.n_paged + (a.step + kPlanKeys) / kPlanKeys;
+    b.ta = blockIdx.z * a.tiles_per_split;
+    b.n_tiles = 2 * split::my_tiles(n, b.ta, a.tiles_per_split, blockIdx.z,
+                                    gridDim.z);
+  }
+  b.bt = a.block_tables + (size_t)b.req * a.max_pages;
+  return b;
+}
+
+// Tile i of a block: page positions from kv0 or tail slots from kv0, of
+// which the first n_valid may be read (the rest lie past the context or
+// the written tail; a window tile with none is skipped by both roles).
+struct Tile {
+  bool paged;
+  int kv0, n_valid;
+};
+
+template <bool kWindow>
+__device__ __forceinline__ Tile tile_of(const Block& b, const Args& a,
+                                        int i) {
+  Tile t;
+  if constexpr (!kWindow) {
+    t.paged = true;
+    t.kv0 = (b.t_lo + i) * kKeys;
+    t.n_valid = min(kKeys, b.kv_limit - t.kv0);
+  } else {
+    const int u = b.ta + (i >> 1), half = (i & 1) * kKeys;
+    t.paged = u < b.n_paged;
+    if (t.paged) {
+      t.kv0 = (b.t0 + u) * kPlanKeys + half;
+      t.n_valid = min(kKeys, b.plen - t.kv0);
+    } else {
+      t.kv0 = (u - b.n_paged) * kPlanKeys + half;
+      t.n_valid = min(kKeys, a.step + 1 - t.kv0);
     }
-  };
+  }
+  return t;
+}
 
-  // This lane's rows g and g + 8 of the warp's row tile, their positions;
-  // rows past the block take the last token's (never stored).
-  const int last = qlen - 1;
-  const int w_row = rt * 16;
-  int qp[2];
+// The producer warp: K and V of every tile by TMA into the ring, lane by
+// lane.
+template <bool kWindow>
+__device__ __forceinline__ void produce(const Args& a, const Block& b,
+                        const CUtensorMap* cache, const CUtensorMap* tail_k,
+                        const CUtensorMap* tail_v, uint8_t* kv_s,
+                        uint64_t* bars) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;  // tiles through the ring
+  for (int i = 0; i < b.n_tiles; ++i) {
+    const Tile t = tile_of<kWindow>(b, a, i);
+    if (t.n_valid <= 0) continue;
+    // Boxes of `box` rows: page ones (several a tile on 8- or 16-token
+    // pages), or one of the tail's; lane item e = lane + 32 k is box e / 9,
+    // chunk e % 9. Its row in the map is read before the stage is free.
+    const int box = t.paged ? a.box_rows : min(kKeys, a.kw);
+    const int n_items =
+        (t.paged ? (t.n_valid + box - 1) / box : 1) * kChunks;
+    int row[2];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-    qp[hf] = pos0 + min((row_lo + w_row + hf * 8 + gq) / group, last);
-  const bool warp_live = w_row < rows;
-  const int w_lo = pos0 + min((row_lo + w_row) / group, last);
-  const int w_hi = pos0 + min((row_lo + w_row + 15) / group, last);
-  const int w_first = first_visible(w_lo, sliding_window, chunk_attn);
-  const int t_lo =
-      first_visible(pos0 + row_lo / group, sliding_window, chunk_attn) /
-      kKeys;
-  const int n_tiles = (kv_limit - 1) / kKeys - t_lo + 1;
-
-  float o[kNT][4];
-#pragma unroll
-  for (int d = 0; d < kNT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
-  const bf16* q_w = q_s + (w_row + (lane & 15)) * kP + (lane >> 4) * 8;
-  const int k_off =
-      (half * 16 + (lane & 7) + ((lane >> 4) << 3)) * kP + ((lane >> 3) & 1) * 8;
-  const int v_off = (lane & 15) * kP + (lane >> 4) * 8 + half * kCols;
-
-  if (n_tiles > 0) load_tile(t_lo, 0);
-  cp_async_commit();  // with Q
-  for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<0>();  // tile it has landed
-    __syncthreads();     // and tile it - 1 is consumed
-    if (it + 1 < n_tiles) load_tile(t_lo + it + 1, (it + 1) & 1);
-    cp_async_commit();
-    const int kv0 = (t_lo + it) * kKeys;
-    // Both warps of a row tile take the same branch here.
-    if (!warp_live || kv0 > w_hi || kv0 + kKeys <= w_first) continue;
-    const bf16* ks = kv_s + (size_t)(it & 1) * 2 * kKeys * kP;
-    const bf16* vs = ks + kKeys * kP;
-
-    // S = Q K^T for the row tile and this warp's 16 keys.
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kc = 0; kc < kHD / 16; ++kc) {
-      uint32_t a[4], b[4];
-      ldmatrix_x4(a, q_w + kc * 16);
-      ldmatrix_x4(b, ks + k_off + kc * 16);
-      mma_bf16(s[0], a, b);
-      mma_bf16(s[1], a, b + 2);
-    }
-    if constexpr (kCap) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = soft_cap * tanhf(s[j][e] * cap_scale);
-    }
-    const bool full =
-        kv0 + kKeys - 1 <= w_lo &&
-        (sliding_window <= 0 || kv0 > w_hi - sliding_window) &&
-        (chunk_attn <= 0 ||
-         (kv0 / chunk_attn == (kv0 + kKeys - 1) / chunk_attn &&
-          kv0 / chunk_attn == w_lo / chunk_attn &&
-          w_lo / chunk_attn == w_hi / chunk_attn));
-    if (!full) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kv = kv0 + half * 16 + j * 8 + 2 * tq + (e & 1);
-          const int qpos = qp[e >> 1];
-          if (kv > qpos || !local_ok(kv, qpos, sliding_window, chunk_attn))
-            s[j][e] = -INFINITY;
+    for (int k = 0; k < 2; ++k) {
+      const int e = lane + 32 * k;
+      row[k] = 0;
+      if (e < n_items) {
+        const int key = t.kv0 + (e / kChunks) * box;
+        if (t.paged) {
+          const int pg = key / a.page_size;
+          row[k] = (b.bt[pg] * 2 * a.kvh + b.h) * a.page_size + key -
+                   pg * a.page_size;
+        } else {
+          row[k] = (b.req * a.kvh + b.h) * a.kw + key;
         }
+      }
     }
-
-    // Row maxima over the tile's 32 keys: this warp's 16, then its
-    // partner's through shared memory (fmaxf commutes: both warps agree).
-    float mx_a = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
-    float mx_b = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+    const int st = n % kStages;
+    uint8_t* k_s = kv_s + st * 2 * kKVBytes;
+    uint64_t* bar = bars + 4 * st;  // K full, K empty, V full, V empty
+    const uint32_t bytes = (uint32_t)(n_items * box * 128);
+    const uint32_t parity = ((n / kStages) & 1) ^ 1;
 #pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
-    }
-    if (tq == 0) {
-      mx[warp * 16 + gq] = mx_a;
-      mx[warp * 16 + gq + 8] = mx_b;
-    }
-    named_sync(1 + rt, 64);
-    mx_a = fmaxf(mx_a, mx[partner * 16 + gq]);
-    mx_b = fmaxf(mx_b, mx[partner * 16 + gq + 8]);
-    const float mn_a = fmaxf(m_r[0], mx_a), mn_b = fmaxf(m_r[1], mx_b);
-    // A row with no visible key yet keeps m = -inf: p = 0, alpha = 0.
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a * mult;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b * mult;
-    const float al_a = fast_exp2(m_r[0] * mult - base_a);
-    const float al_b = fast_exp2(m_r[1] * mult - base_b);
-    m_r[0] = mn_a;
-    m_r[1] = mn_b;
+    for (int kv = 0; kv < 2; ++kv) {
+      wait_phase(&bar[2 * kv + 1], parity);  // the stage's K (V) is free
+      if (lane == 0) mbar_arrive_expect_tx(&bar[2 * kv], bytes);
+      __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      s[j][0] = fast_exp2(fmaf(s[j][0], mult, -base_a));
-      s[j][1] = fast_exp2(fmaf(s[j][1], mult, -base_a));
-      s[j][2] = fast_exp2(fmaf(s[j][2], mult, -base_b));
-      s[j][3] = fast_exp2(fmaf(s[j][3], mult, -base_b));
+      for (int k = 0; k < 2; ++k) {
+        const int e = lane + 32 * k;
+        if (e < n_items) {
+          const int c = e % kChunks;
+          tma_load_2d(k_s + kv * kKVBytes + c * kKVChunk +
+                          (e / kChunks) * box * 128,
+                      t.paged ? cache : (kv ? tail_v : tail_k), &bar[2 * kv],
+                      64 * c,
+                      t.paged && kv ? row[k] + a.kvh * a.page_size : row[k]);
+        }
+      }
     }
-    l_r[0] = l_r[0] * al_a + s[0][0] + s[0][1] + s[1][0] + s[1][1];
-    l_r[1] = l_r[1] * al_b + s[0][2] + s[0][3] + s[1][2] + s[1][3];
-#pragma unroll
-    for (int d = 0; d < kNT; ++d) {
-      o[d][0] *= al_a;
-      o[d][1] *= al_a;
-      o[d][2] *= al_b;
-      o[d][3] *= al_b;
-    }
-    // P's A fragments: this warp's 16 keys are k-step `half` of P V.
-    const uint4 mine = make_uint4(pack_bf16(s[0][0], s[0][1]),
-                                  pack_bf16(s[0][2], s[0][3]),
-                                  pack_bf16(s[1][0], s[1][1]),
-                                  pack_bf16(s[1][2], s[1][3]));
-    px[warp * 32 + lane] = mine;
-    named_sync(1 + rt, 64);
-    const uint4 theirs = px[partner * 32 + lane];
-    const uint4 p0 = half ? theirs : mine, p1 = half ? mine : theirs;
-    const uint32_t a0[4] = {p0.x, p0.y, p0.z, p0.w};
-    const uint32_t a1[4] = {p1.x, p1.y, p1.z, p1.w};
-
-    // O[:, my columns] += P V over the tile's 32 keys.
-#pragma unroll
-    for (int dp = 0; dp < kNT / 2; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vs + dp * 16 + v_off);
-      mma_bf16(o[2 * dp], a0, b);
-      mma_bf16(o[2 * dp + 1], a0, b + 2);
-      ldmatrix_x4_trans(b, vs + 16 * kP + dp * 16 + v_off);
-      mma_bf16(o[2 * dp], a1, b);
-      mma_bf16(o[2 * dp + 1], a1, b + 2);
-    }
+    ++n;
   }
-  cp_async_wait<0>();
-  if (!warp_live) return;  // both warps of the row tile
+}
 
-  // l: this warp's keys, then its partner's (the row maxima are read).
-  float l_a = l_r[0], l_b = l_r[1];
+// The window's hand-off of P from consumer warpgroup 0 to the other two
+// (shared memory past the ring), two tiles deep: P (bf16, thread t's A
+// fragments of both k16 steps at [ks][t]) and the rows' rescale factors.
+struct Handoff {
+  uint4 p[2][2][128];
+  float alpha[2][kRows];
+};
+static_assert(sizeof(Handoff) == kExchange, "the hand-off's bytes");
+
+// A consumer thread's place: warpgroup c of the three (O's columns 192 c..
+// 192 c + 191, chunks 3c..3c+2), its rows r0 and r0 + 8 of the block, and
+// for the ragged instance their positions (rows past the block's take the
+// last token's; never stored) and the warp's lowest and highest.
+struct Lane {
+  int c, tid, warp, lane, tq, r0;
+  int qp[2], w_lo, w_hi;
+};
+
+// The tile's logits (s[4 j + 2 h + i]: row r0 + 8 h, key kv0 + 8 j + 2 tq +
+// i): the soft cap, the mask, then the online softmax of the rows (their
+// values live in the four lanes of a quad). s becomes P in fp32, m and l
+// move on, alpha rescales O; alpha is 1 exactly where a row's maximum
+// held.
+template <bool kCap, bool kWindow>
+__device__ __forceinline__ void softmax_tile(float* s, const Tile& t,
+                                             const Block& b, const Args& a,
+                                             const Lane& ln, float* m,
+                                             float* l, float* alpha) {
+  const int sw = a.sliding_window, ch = a.chunk_attn;
+  const float mult = (kCap ? 1.f : a.scale) * kLog2e;
+  if constexpr (kCap) {
+    const float cap_scale = a.scale / a.soft_cap;
 #pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o_);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
+    for (int i = 0; i < 16; ++i) s[i] = a.soft_cap * tanhf(s[i] * cap_scale);
   }
-  if (tq == 0) {
-    mx[warp * 16 + gq] = l_a;
-    mx[warp * 16 + gq + 8] = l_b;
+  // Tiles wholly visible to the warp's rows skip the mask.
+  bool full = t.n_valid == kKeys;
+  if constexpr (!kWindow)
+    full = full && t.kv0 + kKeys - 1 <= ln.w_lo &&
+           (sw <= 0 || t.kv0 > ln.w_hi - sw) &&
+           (ch <= 0 || (t.kv0 / ch == (t.kv0 + kKeys - 1) / ch &&
+                        t.kv0 / ch == ln.w_lo / ch &&
+                        ln.w_lo / ch == ln.w_hi / ch));
+  else
+    full = full && (t.paged ? t.kv0 >= b.lo && t.kv0 + kKeys <= b.plen &&
+                                  attn::local_ok(t.kv0, b.q_pos, sw, ch)
+                            : t.kv0 + kKeys - 1 <= a.step &&
+                                  attn::local_ok(b.plen + t.kv0, b.q_pos, sw,
+                                                 ch));
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = t.kv0 + 8 * j + 2 * ln.tq + i;
+        if constexpr (!kWindow) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (key >= b.kv_limit || key > ln.qp[hf] ||
+                !attn::local_ok(key, ln.qp[hf], sw, ch))
+              s[4 * j + 2 * hf + i] = -INFINITY;
+        } else {
+          const bool vis =
+              t.paged ? key >= b.lo && key < b.plen &&
+                            attn::local_ok(key, b.q_pos, sw, ch)
+                      : key <= a.step &&
+                            attn::local_ok(b.plen + key, b.q_pos, sw, ch);
+          if (!vis) s[4 * j + i] = s[4 * j + 2 + i] = -INFINITY;
+        }
+      }
   }
-  named_sync(1 + rt, 64);
-  l_a += mx[partner * 16 + gq];
-  l_b += mx[partner * 16 + gq + 8];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int row = w_row + hf * 8 + gq;
-    if (row >= rows) continue;
-    const float inv = 1.f / fmaxf(hf ? l_b : l_a, 1e-20f);
-    const int R = row_lo + row, t = R / group, g = R - t * group;
-    bf16* dst = out + ((size_t)(qstart + t) * nq + h * group + g) * kHD +
-                half * kCols + 2 * tq;
+    float v = -INFINITY;
 #pragma unroll
-    for (int d = 0; d < kNT; ++d)
-      *reinterpret_cast<uint32_t*>(dst + d * 8) =
-          pack_bf16(o[d][2 * hf] * inv, o[d][2 * hf + 1] * inv);
+    for (int j = 0; j < 4; ++j)
+      v = fmaxf(v, fmaxf(s[4 * j + 2 * hf], s[4 * j + 2 * hf + 1]));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float mn = fmaxf(m[hf], v);
+    // A row with no visible key yet keeps m = -inf: p = 0.
+    const float base = mn == -INFINITY ? 0.f : mn * mult;
+    alpha[hf] = mn == m[hf] ? 1.f : fast_exp2(m[hf] * mult - base);
+    m[hf] = mn;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float& p = s[4 * j + 2 * hf + i];
+        p = fast_exp2(fmaf(p, mult, -base));
+        sum += p;
+      }
+    l[hf] = l[hf] * alpha[hf] + sum;
   }
 }
 
-// ------------------------------------------------------------------ window
-namespace wd {
-constexpr int kWarps = 4, kThreads = kWarps * 32;
-constexpr int kRows = 16;               // query rows a block
-constexpr int kCols = kHD / kWarps;     // O columns a warp
-constexpr int kNT = kCols / 8;          // O n-tiles a warp
-constexpr int kPlanKeys = 64;           // keys a tile of the host's plan
-constexpr int kRing = (kRows + 2 * 2 * kKeys) * kP * 2;
-constexpr int kSmem = kRing + kWarps * 32 * 8 + kWarps * 16 * 4;
-}  // namespace wd
-
-template <bool kCap>
-__global__ void __launch_bounds__(wd::kThreads, 1)
-mla_window_kernel(const bf16* __restrict__ q, const bf16* __restrict__ cache,
-                  const bf16* __restrict__ tail_k,
-                  const bf16* __restrict__ tail_v,
-                  float* __restrict__ part_acc, float* __restrict__ part_m,
-                  float* __restrict__ part_l,
-                  const int* __restrict__ paged_lens,
-                  const int* __restrict__ block_tables, int max_pages, int nq,
-                  int kvh, int page_size, int kw, int step, float scale,
-                  int sliding_window, int chunk_attn, float soft_cap,
-                  int shared_len, int tiles_per_split) {
-  using namespace attn;
-  using namespace wd;
-  const int group = nq / kvh, row_tiles = (group + kRows - 1) / kRows;
-  const int r = blockIdx.x, h = blockIdx.y / row_tiles;
-  const int g0 = (blockIdx.y - h * row_tiles) * kRows;
-  const int nrows = min(kRows, group - g0);
-  const int split = blockIdx.z, splits = gridDim.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int plen = paged_lens[r], q_pos = plen + step;
-  // The request's 64-key plan tiles (window_decode_attention.cu
-  // request_tiles): page tiles from the one holding its first visible
-  // position lo (>= shared_len), then tail tiles.
-  int lo = first_visible(q_pos, sliding_window, chunk_attn);
-  lo = min(max(lo, shared_len), plen);
-  const int t0 = lo / kPlanKeys;
-  const int n_paged = (plen + kPlanKeys - 1) / kPlanKeys - t0;
-  const int n_tiles = n_paged + (step + kPlanKeys) / kPlanKeys;
-  const int ta = split * tiles_per_split;
-  const int n_sub =
-      2 * split::my_tiles(n_tiles, ta, tiles_per_split, split, splits);
-  const int* bt = block_tables + (size_t)r * max_pages;
-  const size_t page_elems = (size_t)page_size * kHD;
-  const size_t tail_base = ((size_t)r * kvh + h) * kw * kHD;
-  const int page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
-  const size_t row0 = (size_t)r * nq + h * group + g0;
-  const float mult = (kCap ? 1.f : scale) * kLog2e;
-  const float cap_scale = kCap ? scale / soft_cap : 0.f;
-
-  extern __shared__ uint4 smem_mla[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mla);  // [kRows, kP]
-  bf16* kv_s = q_s + kRows * kP;                  // [2][K, V][kKeys, kP]
-  uint2* px = reinterpret_cast<uint2*>(reinterpret_cast<uint8_t*>(smem_mla) +
-                                       kRing);   // [kWarps][32]
-  float* mx = reinterpret_cast<float*>(px + kWarps * 32);  // [kWarps][16]
-
-  // Key j of sub-tile u (the half u & 1 of plan tile ta + u / 2): a page
-  // position or a tail slot; `paged` says which.
-  auto key_of = [&](int u, int j, bool* paged) {
-    const int t = ta + (u >> 1);
-    *paged = t < n_paged;
-    return (*paged ? (t0 + t) * kPlanKeys : (t - n_paged) * kPlanKeys) +
-           (u & 1) * kKeys + j;
-  };
-  for (int i = tid; i < kRows * kCPR; i += kThreads) {
-    const int g = i / kCPR, c = i - g * kCPR;
-    const bool ok = g < nrows;
-    cp_async16(q_s + g * kP + c * 8, ok ? q + (row0 + g) * kHD + c * 8 : q,
-               ok);
+// P (fp32, as softmax_tile leaves it) as the A fragments of P V's two k16
+// steps.
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    pa[ks][0] = pack_bf16(s[8 * ks + 0], s[8 * ks + 1]);
+    pa[ks][1] = pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+    pa[ks][2] = pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+    pa[ks][3] = pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
   }
-  // Sub-tile u into stage `stage`; keys hidden by position are not read.
-  auto load_tile = [&](int u, int stage) {
-    bf16* ks = kv_s + (size_t)stage * 2 * kKeys * kP;
-#pragma unroll 3
-    for (int k = 0; k < kKeys * kCPR / kThreads; ++k) {
-      const int i = tid + k * kThreads;
-      const int j = i / kCPR, c = i - j * kCPR;
-      bool paged;
-      const int key = key_of(u, j, &paged);
-      const bf16 *ksrc = q, *vsrc = q;
-      bool ok;
-      if (paged) {
-        ok = key >= lo && key < plen;
-        if (ok) {
-          const int pg = page_shift >= 0 ? key >> page_shift : key / page_size;
-          ksrc = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-                 (size_t)(key - pg * page_size) * kHD + c * 8;
-          vsrc = ksrc + kvh * page_elems;
-        }
-      } else {
-        ok = key <= step;
-        if (ok) {
-          ksrc = tail_k + tail_base + (size_t)key * kHD + c * 8;
-          vsrc = tail_v + tail_base + (size_t)key * kHD + c * 8;
-        }
+}
+
+// S = Q K^T over chunks c0..c0 + kN - 1 (all nine, or a warpgroup's
+// three), into s.
+template <int kN>
+__device__ __forceinline__ void s_products(float* s, const uint8_t* q_s,
+                                           const uint8_t* k_s, int c0) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.f;
+  fence_regs<16>(s);
+  wgmma_fence();
+  // A k16 step or a chunk moves only the start address field (16-byte
+  // units) of the first descriptor.
+  const uint64_t dq = kmajor(q_s, kQChunk, c0, 0);
+  const uint64_t dk = kmajor(k_s, kKVChunk, c0, 0);
+#pragma unroll
+  for (int cc = 0; cc < kN; ++cc)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_ss_n32(s, dq + ((cc * kQChunk + 32 * k) >> 4),
+                   dk + ((cc * kKVChunk + 32 * k) >> 4), (cc | k) != 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<16>(s);
+}
+
+// The three consumer warpgroups: every tile's S = Q K^T, its softmax and
+// O += P V for the warpgroup's columns, then the block's output (ragged)
+// or split state (window).
+// - Ragged: each warpgroup takes the part of S over its own chunks (12 of
+//   the 36 products: three chains side by side, where one warpgroup
+//   alone would wait on 36 in a row), writes it to its own chunks of the
+//   K tile it has just read (nobody else reads them), and after one
+//   barrier adds the three parts in warpgroup order: the same S, softmax
+//   and P in each warpgroup, and no hand-off.
+// - Window: warpgroup 0 takes S and the softmax and hands P and the rescale
+//   factors to the other two (bars[kBars + 0, 1]: P full, [kBars + 2, 3]:
+//   P empty, a buffer each): less work a tile (the scheme each instance
+//   was faster with on an H100).
+template <bool kCap, bool kWindow>
+__device__ __forceinline__ void consume(const Args& a, const Block b,
+                                        uint8_t* q_s, uint8_t* kv_s,
+                                        uint64_t* bars, Handoff* x) {
+  constexpr int kO = 3 * 32;  // fp32 of O a thread: 64 rows x 192
+  Lane ln;
+  ln.c = threadIdx.x / 128 - 1;
+  ln.tid = threadIdx.x & 127;
+  ln.warp = ln.tid >> 5;
+  ln.lane = ln.tid & 31;
+  ln.tq = ln.lane & 3;
+  ln.r0 = 16 * ln.warp + (ln.lane >> 2);
+  ln.qp[0] = ln.qp[1] = ln.w_lo = ln.w_hi = 0;
+  if constexpr (!kWindow) {
+    const int last = b.qlen - 1;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      ln.qp[hf] = b.pos0 + min((b.row_lo + ln.r0 + 8 * hf) / b.group, last);
+    ln.w_lo = b.pos0 + min((b.row_lo + 16 * ln.warp) / b.group, last);
+    ln.w_hi = b.pos0 + min((b.row_lo + 16 * ln.warp + 15) / b.group, last);
+  }
+  const int c = ln.c, tid = ln.tid;
+  uint64_t* p_full = bars + kBars;
+  uint64_t* p_empty = bars + kBars + 2;
+
+  float o[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  int n = 0;  // tiles through the ring
+  for (int it = 0; it < b.n_tiles; ++it) {
+    const Tile t = tile_of<kWindow>(b, a, it);
+    if (t.n_valid <= 0) continue;  // as the producer skips it
+    const int st = n % kStages, pb = n & 1;
+    uint8_t* k_s = kv_s + st * 2 * kKVBytes;
+    uint8_t* v_s = k_s + kKVBytes;
+    uint64_t* bar = bars + 4 * st;  // K full, K empty, V full, V empty
+    const uint32_t parity = (n / kStages) & 1, p_parity = (n >> 1) & 1;
+    ++n;
+    float alpha[2];
+    uint32_t pa[2][4];
+
+    if constexpr (!kWindow) {
+      float s[16];
+      wait_phase(&bar[0], parity);
+      s_products<3>(s, q_s, k_s, 3 * c);
+      // The parts meet in the K tile (float4 i of thread t of warpgroup w
+      // at 768 w + 128 i + t, in w's chunks 3w and 3w + 1).
+      float4* part = reinterpret_cast<float4*>(k_s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[768 * c + 128 * i + tid] =
+            make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      named_sync(1, 128 * kConsumers);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float4 v[kConsumers];
+#pragma unroll
+        for (int w = 0; w < kConsumers; ++w)
+          v[w] = w == c ? make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2],
+                                      s[4 * i + 3])
+                        : part[768 * w + 128 * i + tid];
+        s[4 * i] = (v[0].x + v[1].x) + v[2].x;
+        s[4 * i + 1] = (v[0].y + v[1].y) + v[2].y;
+        s[4 * i + 2] = (v[0].z + v[1].z) + v[2].z;
+        s[4 * i + 3] = (v[0].w + v[1].w) + v[2].w;
       }
-      cp_async16(ks + j * kP + c * 8, ksrc, ok);
-      cp_async16(ks + (kKeys + j) * kP + c * 8, vsrc, ok);
+      fence_proxy_async();  // these reads, before TMA writes the stage
+      __syncwarp();
+      if (ln.lane == 0) mbar_arrive(&bar[1]);  // K is read
+      softmax_tile<kCap, kWindow>(s, t, b, a, ln, m_r, l_r, alpha);
+      pack_p(s, pa);
+    } else if (c == 0) {
+      float s[16];
+      wait_phase(&bar[0], parity);
+      s_products<kChunks>(s, q_s, k_s, 0);
+      __syncwarp();
+      if (ln.lane == 0) mbar_arrive(&bar[1]);  // K is read
+      softmax_tile<kCap, kWindow>(s, t, b, a, ln, m_r, l_r, alpha);
+      pack_p(s, pa);
+      // Hand P and alpha on: thread tid of warpgroups 1 and 2 holds the
+      // same rows and fragments.
+      wait_phase(&p_empty[pb], p_parity ^ 1);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+        x->p[pb][ks][tid] = make_uint4(pa[ks][0], pa[ks][1], pa[ks][2],
+                                       pa[ks][3]);
+      if (ln.tq == 0) {
+        x->alpha[pb][ln.r0] = alpha[0];
+        x->alpha[pb][ln.r0 + 8] = alpha[1];
+      }
+      mbar_arrive(&p_full[pb]);
+    } else {
+      wait_phase(&p_full[pb], p_parity);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint4 v = x->p[pb][ks][tid];
+        pa[ks][0] = v.x;
+        pa[ks][1] = v.y;
+        pa[ks][2] = v.z;
+        pa[ks][3] = v.w;
+      }
+      alpha[0] = x->alpha[pb][ln.r0];
+      alpha[1] = x->alpha[pb][ln.r0 + 8];
+      mbar_arrive(&p_empty[pb]);
     }
-  };
-
-  float o[kNT][4];
+    // O *= alpha, skipped where no row of the warp moved its maximum.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-  for (int d = 0; d < kNT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  const bf16* q_w = q_s + (lane & 15) * kP + (lane >> 4) * 8;
-  // B of S: keys 8w + (lane & 7), dims of two k-steps, 8 a matrix.
-  const int k_off = (warp * 8 + (lane & 7)) * kP + (lane >> 3) * 8;
-  const int v_off = (lane & 15) * kP + (lane >> 4) * 8 + warp * kCols;
-
-  if (n_sub > 0) load_tile(0, 0);
-  cp_async_commit();  // with Q
-  for (int u = 0; u < n_sub; ++u) {
-    cp_async_wait<0>();  // sub-tile u has landed
-    __syncthreads();     // and sub-tile u - 1 is consumed
-    if (u + 1 < n_sub) load_tile(u + 1, (u + 1) & 1);
-    cp_async_commit();
-    const bf16* ks = kv_s + (size_t)(u & 1) * 2 * kKeys * kP;
-    const bf16* vs = ks + kKeys * kP;
-
-    // S for the 16 rows and this warp's 8 keys.
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int k2 = 0; k2 < kHD / 32; ++k2) {
-      uint32_t a[4], b[4];
-      ldmatrix_x4(b, ks + k_off + k2 * 32);
-      ldmatrix_x4(a, q_w + k2 * 32);
-      mma_bf16(s, a, b);
-      ldmatrix_x4(a, q_w + k2 * 32 + 16);
-      mma_bf16(s, a, b + 2);
-    }
-    if constexpr (kCap) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[e] = soft_cap * tanhf(s[e] * cap_scale);
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      bool paged;
-      const int key = key_of(u, warp * 8 + 2 * tq + e, &paged);
-      const bool vis =
-          paged ? key >= lo && key < plen &&
-                      local_ok(key, q_pos, sliding_window, chunk_attn)
-                : key <= step &&
-                      local_ok(plen + key, q_pos, sliding_window, chunk_attn);
-      if (!vis) s[e] = s[e + 2] = -INFINITY;
-    }
-
-    // Row maxima over the tile's keys: every warp reads the four partial
-    // maxima in the same order, so all agree.
-    float mx_a = fmaxf(s[0], s[1]), mx_b = fmaxf(s[2], s[3]);
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o_));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o_));
-    }
-    if (tq == 0) {
-      mx[warp * 16 + gq] = mx_a;
-      mx[warp * 16 + gq + 8] = mx_b;
-    }
-    __syncthreads();
-    mx_a = fmaxf(fmaxf(mx[gq], mx[16 + gq]), fmaxf(mx[32 + gq], mx[48 + gq]));
-    mx_b = fmaxf(fmaxf(mx[gq + 8], mx[24 + gq]),
-                 fmaxf(mx[40 + gq], mx[56 + gq]));
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a * mult;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b * mult;
-    const float al_a = fast_exp2(m_a * mult - base_a);
-    const float al_b = fast_exp2(m_b * mult - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    s[0] = fast_exp2(fmaf(s[0], mult, -base_a));
-    s[1] = fast_exp2(fmaf(s[1], mult, -base_a));
-    s[2] = fast_exp2(fmaf(s[2], mult, -base_b));
-    s[3] = fast_exp2(fmaf(s[3], mult, -base_b));
-    l_a = l_a * al_a + s[0] + s[1];
-    l_b = l_b * al_b + s[2] + s[3];
-#pragma unroll
-    for (int d = 0; d < kNT; ++d) {
-      o[d][0] *= al_a;
-      o[d][1] *= al_a;
-      o[d][2] *= al_b;
-      o[d][3] *= al_b;
-    }
-    // This warp's keys are n-tile `warp` of P: half of k-step warp / 2's
-    // A fragment (a0, a1 from even warps, a2, a3 from odd ones).
-    px[warp * 32 + lane] =
-        make_uint2(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]));
-    __syncthreads();
-    uint32_t a[2][4];
-#pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {
-      const uint2 lo2 = px[(2 * kc) * 32 + lane];
-      const uint2 hi2 = px[(2 * kc + 1) * 32 + lane];
-      a[kc][0] = lo2.x;
-      a[kc][1] = lo2.y;
-      a[kc][2] = hi2.x;
-      a[kc][3] = hi2.y;
-    }
-
-    // O[:, my columns] += P V over the tile's 32 keys.
-#pragma unroll
-    for (int dp = 0; dp < kNT / 2; ++dp) {
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vs + kc * 16 * kP + dp * 16 + v_off);
-        mma_bf16(o[2 * dp], a[kc], b);
-        mma_bf16(o[2 * dp + 1], a[kc], b + 2);
+      for (int j = 0; j < kO / 4; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
     }
-  }
-  cp_async_wait<0>();
 
-  // l: each warp's keys, summed in warp order (the same in every warp).
+    wait_phase(&bar[2], parity);
+    if (t.n_valid < kKeys) {
+      // Rows past the loadable keys hold stale bytes (0 x Inf would be
+      // NaN): zero this warpgroup's columns of them.
+      const int dead = kKeys - t.n_valid;
+      for (int e = tid; e < dead * 3 * 8; e += 128) {
+        const int piece = e & 7, rc = e >> 3;
+        const int cc = 3 * c + rc / dead, row = t.n_valid + rc % dead;
+        *reinterpret_cast<uint4*>(v_s + cc * kKVChunk + row * 128 +
+                                  piece * 16) = make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_sync(2 + c, 128);
+    }
+    fence_regs<kO>(o);
 #pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o_);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o_);
+    for (int ks = 0; ks < 2; ++ks) fence_regs<4>(pa[ks]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_rs_mn192(o, pa[ks], mnmajor(v_s, 3 * c, ks));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<kO>(o);
+    __syncwarp();
+    if (ln.lane == 0) mbar_arrive(&bar[3]);  // V is read
   }
-  __syncthreads();  // the last tile's maxima are read
-  if (tq == 0) {
-    mx[warp * 16 + gq] = l_a;
-    mx[warp * 16 + gq + 8] = l_b;
+
+  // l: the quad's partial sums (of warpgroup 0 in the window).
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 1);
+    l_r[hf] += __shfl_xor_sync(0xffffffffu, l_r[hf], 2);
+  }
+  if constexpr (!kWindow) {
+    // Normalized O goes out through this warpgroup's chunks of Q, which
+    // only its own part of S read: in Q's layout (chunk cc of row r at
+    // 8192 cc + 128 r, 16-byte piece p at p ^ (r % 8)), then in whole
+    // 16-byte pieces of the block's rows.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = ln.r0 + 8 * hf;
+      const float inv = 1.f / fmaxf(l_r[hf], 1e-20f);
+#pragma unroll
+      for (int j = 0; j < kO / 4; ++j)
+        *reinterpret_cast<uint32_t*>(
+            q_s + (3 * c + j / 8) * kQChunk + row * 128 +
+            (((j & 7) ^ (row & 7)) << 4) + 4 * ln.tq) =
+            pack_bf16(o[4 * j + 2 * hf] * inv, o[4 * j + 2 * hf + 1] * inv);
+    }
+    named_sync(2 + c, 128);
+    for (int e = tid; e < b.rows * 24; e += 128) {
+      const int r = e / 24, rem = e - r * 24;
+      const int cc = 3 * c + (rem >> 3), p = rem & 7;
+      const int R = b.row_lo + r, tt = R / b.group, g = R - tt * b.group;
+      *reinterpret_cast<uint4*>(
+          a.out + ((size_t)(b.qstart + tt) * a.nq + b.h * b.group + g) * kHD +
+          cc * 64 + p * 8) = *reinterpret_cast<const uint4*>(
+          q_s + cc * kQChunk + r * 128 + ((p ^ (r & 7)) << 4));
+    }
+  } else {
+    // The split's unnormalized state: acc for these columns, m (in the
+    // scaled logit's units) and l by warpgroup 0.
+    const int split = blockIdx.z, splits = gridDim.z;
+    const float to_scaled = kCap ? 1.f : a.scale;  // mult x ln 2
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = ln.r0 + 8 * hf;
+      if (row >= b.rows) continue;
+      const size_t qrow = (size_t)b.req * a.nq + b.h * b.group + b.g0 + row;
+      float* dst =
+          a.part_acc + (qrow * splits + split) * kHD + 192 * c + 2 * ln.tq;
+#pragma unroll
+      for (int j = 0; j < kO / 4; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * hf], o[4 * j + 2 * hf + 1]);
+      if (c == 0 && ln.tq == 0) {
+        a.part_m[qrow * splits + split] = m_r[hf] * to_scaled;
+        a.part_l[qrow * splits + split] = l_r[hf];
+      }
+    }
+  }
+}
+
+template <bool kCap, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+    mla_kernel(const __grid_constant__ CUtensorMap cache_map,
+               const __grid_constant__ CUtensorMap tail_k_map,
+               const __grid_constant__ CUtensorMap tail_v_map,
+               const __grid_constant__ Args a) {
+  const Block b = block_of<kWindow>(a);
+  if (b.rows <= 0) return;  // a ragged slice past its item's rows
+  extern __shared__ uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: TMA, the cp.async of Q
+  // and wgmma agree on it for tiles that start on such a boundary.
+  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* kv_s = q_s + kQBytes;  // [stage][K, V]
+  Handoff* x = reinterpret_cast<Handoff*>(kv_s + kStages * 2 * kKVBytes);
+  // [stage][K full, K empty, V full, V empty], P full [2], P empty [2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(x + 1);
+  if (threadIdx.x == 0) {
+    // Full: the producer's arrival; empty: each consumer warp's, but for
+    // the window's K, which warpgroup 0 alone reads.
+    for (int i = 0; i < kBars; ++i)
+      mbar_init(&bars[i], (i & 1) == 0              ? 1
+                          : (kWindow && i % 4 == 1) ? 4
+                                                    : kConsumerWarps);
+    mbar_init(&bars[kBars], 128);
+    mbar_init(&bars[kBars + 1], 128);
+    mbar_init(&bars[kBars + 2], 128 * (kConsumers - 1));
+    mbar_init(&bars[kBars + 3], 128 * (kConsumers - 1));
+    mbar_fence_init();
   }
   __syncthreads();
-  // The split's unnormalized state: acc for this warp's columns, m (in the
-  // scaled logit's units) and l by warp 0.
-  const float to_scaled = mult * 0.6931471805599453f;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int g = gq + hf * 8;
-    if (g >= nrows) continue;
-    const size_t row = row0 + g;
-    float* dst = part_acc + (row * splits + split) * kHD + warp * kCols + 2 * tq;
-#pragma unroll
-    for (int d = 0; d < kNT; ++d) {
-      dst[d * 8] = o[d][2 * hf];
-      dst[d * 8 + 1] = o[d][2 * hf + 1];
-    }
-    if (warp == 0 && tq == 0) {
-      part_m[row * splits + split] = (hf ? m_b : m_a) * to_scaled;
-      part_l[row * splits + split] =
-          ((mx[g] + mx[16 + g]) + mx[32 + g]) + mx[48 + g];
-    }
+
+  if (threadIdx.x < 128) {
+    regs_dealloc<24>();
+    if (threadIdx.x < 32)
+      produce<kWindow>(a, b, &cache_map, &tail_k_map, &tail_v_map, kv_s,
+                       bars);
+    return;
   }
+  regs_alloc<160>();
+  // Q: block row r is query row q_row(r); chunk c of row r at 8192 c + 128
+  // r, its 16-byte piece p at p ^ (r % 8).
+  const int ct = threadIdx.x - 128;
+  for (int e = ct; e < kRows * kChunks * 8; e += 128 * kConsumers) {
+    const int r = e / (kChunks * 8), rem = e - r * (kChunks * 8);
+    const int c = rem >> 3, p = rem & 7;
+    const bool ok = r < b.rows;
+    const bf16* src = a.q;
+    if (ok) {
+      size_t row;
+      if constexpr (!kWindow) {
+        const int R = b.row_lo + r, tt = R / b.group, g = R - tt * b.group;
+        row = (size_t)(b.qstart + tt) * a.nq + b.h * b.group + g;
+      } else {
+        row = (size_t)b.req * a.nq + b.h * b.group + b.g0 + r;
+      }
+      src = a.q + row * kHD + c * 64 + p * 8;
+    }
+    cp_async16(q_s + c * kQChunk + r * 128 + ((p ^ (r & 7)) << 4), src, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();  // Q's writes, before the products read it
+  named_sync(1, 128 * kConsumers);
+  consume<kCap, kWindow>(a, b, q_s, kv_s, bars, x);
 }
 
 // One block a query row (r * nq + query head): split::merge_row.
@@ -589,103 +818,172 @@ mla_merge_kernel(const float* __restrict__ part_acc,
                                    acc0, m0, l0, kHD, splits);
 }
 
-template <bool kCap>
-int ragged(const void* q, const void* cache, void* out, const int* item_req,
-           const int* item_qstart, const int* item_qlen, const int* item_pos,
-           const int* seq_lens, const int* block_tables, int num_items,
-           int max_pages, int nq, int kvh, int page_size, int slices,
-           float scale, int sliding_window, int chunk_attn, float soft_cap,
-           cudaStream_t stream) {
-  const cudaError_t err = allow_smem<mla_ragged_kernel<kCap>>(rg::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  mla_ragged_kernel<kCap>
-      <<<dim3(num_items, kvh, slices), rg::kThreads, rg::kSmem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
-          static_cast<bf16*>(out), item_req, item_qstart, item_qlen,
-          item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size,
-          scale, sliding_window, chunk_attn, soft_cap);
-  return (int)cudaGetLastError();
+// Tensor maps over [rows, 576] bf16 in boxes of 64 columns x `box` rows,
+// encoded once per (base, rows, box) and kept in a direct-mapped table: a
+// map says where the bytes lie, not what they hold, so a tensor written in
+// place needs no new one. The window's layers take three each.
+struct MapSlot {
+  const void* base;
+  uint64_t rows;
+  uint32_t box;
+  CUtensorMap map;
+};
+constexpr int kMapSlots = 512;
+MapSlot g_maps[kMapSlots];
+
+cudaError_t row_map(CUtensorMap* out, const void* base, uint64_t rows,
+                    uint32_t box) {
+  const uint64_t h = (reinterpret_cast<uint64_t>(base) >> 8) * 31 + rows * 7 +
+                     box;
+  MapSlot& slot = g_maps[(h ^ (h >> 17)) % kMapSlots];
+  if (slot.base != base || slot.rows != rows || slot.box != box) {
+    const uint64_t dims[2] = {(uint64_t)kHD, rows};
+    const uint64_t strides[1] = {(uint64_t)kHD * 2};
+    const uint32_t boxd[2] = {64, box};
+    const cudaError_t err =
+        make_tma_map_bf16(&slot.map, base, 2, dims, strides, boxd);
+    if (err != cudaSuccess) {
+      slot.base = nullptr;
+      return err;
+    }
+    slot.base = base;
+    slot.rows = rows;
+    slot.box = box;
+  }
+  *out = slot.map;
+  return cudaSuccess;
 }
 
-template <bool kCap>
-int window_split(const void* q, const void* cache, const void* tail_k,
-                 const void* tail_v, float* part_acc, float* part_m,
-                 float* part_l, const int* paged_lens,
-                 const int* block_tables, int num_reqs, int max_pages, int nq,
-                 int kvh, int page_size, int kw, int step, float scale,
-                 int sliding_window, int chunk_attn, float soft_cap,
-                 int shared_len, int splits, int tiles_per_split,
-                 cudaStream_t stream) {
-  const cudaError_t err = allow_smem<mla_window_kernel<kCap>>(wd::kSmem);
+// Pages the instances take: a multiple of 32 tokens, or 8 or 16 (a tile
+// takes whole pages, each box 1024-byte aligned in the swizzle).
+bool page_ok(int page) {
+  return page > 0 && (page % kKeys == 0 || page == 8 || page == 16);
+}
+
+template <bool kCap, bool kWindow>
+int launch(const Args& a, const CUtensorMap& cache, const CUtensorMap& tk,
+           const CUtensorMap& tv, dim3 grid, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<mla_kernel<kCap, kWindow>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int row_tiles = (nq / kvh + wd::kRows - 1) / wd::kRows;
-  mla_window_kernel<kCap><<<dim3(num_reqs, kvh * row_tiles, splits),
-                            wd::kThreads, wd::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
-      static_cast<const bf16*>(tail_k), static_cast<const bf16*>(tail_v),
-      part_acc, part_m, part_l, paged_lens, block_tables, max_pages, nq, kvh,
-      page_size, kw, step, scale, sliding_window, chunk_attn, soft_cap,
-      shared_len, tiles_per_split);
+  mla_kernel<kCap, kWindow><<<grid, kThreads, kSmem, stream>>>(cache, tk, tv,
+                                                                a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The ragged kernel's MLA instance: bf16 q [T, nq, 576] and cache layer
-// [P, 2, kvh, page, 576]; block_q tokens a work item, whose block_q * (nq /
-// kvh) rows are cut into slices of 64 (grid.z).
+// [P, 2, kvh, page, 576] (num_pages = P); block_q tokens a work item, whose
+// block_q * (nq / kvh) rows are cut into slices of 64 (grid.z).
 extern "C" int mla_ragged_launch(const void* q, const void* cache_layer,
                                  void* out, const int* item_req,
                                  const int* item_qstart,
                                  const int* item_qlen, const int* item_pos,
                                  const int* seq_lens,
                                  const int* block_tables, int num_items,
-                                 int max_pages, int nq, int kvh,
-                                 int page_size, int block_q, float scale,
-                                 int sliding_window, int chunk_attn,
-                                 float soft_cap, void* stream) {
-  if (kvh <= 0 || nq % kvh || block_q <= 0 || num_items <= 0)
+                                 int max_pages, int num_pages, int nq,
+                                 int kvh, int page_size, int block_q,
+                                 float scale, int sliding_window,
+                                 int chunk_attn, float soft_cap,
+                                 void* stream) {
+  if (kvh <= 0 || nq % kvh || block_q <= 0 || num_items <= 0 ||
+      num_pages <= 0 || !page_ok(page_size))
     return (int)cudaErrorInvalidValue;
-  const int slices = (block_q * (nq / kvh) + rg::kRows - 1) / rg::kRows;
+  CUtensorMap cache;
+  const cudaError_t err =
+      row_map(&cache, cache_layer, (uint64_t)num_pages * 2 * kvh * page_size,
+              (uint32_t)std::min(page_size, kKeys));
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  memset(&a, 0, sizeof(a));
+  a.q = static_cast<const bf16*>(q);
+  a.out = static_cast<bf16*>(out);
+  a.item_req = item_req;
+  a.item_qstart = item_qstart;
+  a.item_qlen = item_qlen;
+  a.item_pos = item_pos;
+  a.seq_lens = seq_lens;
+  a.block_tables = block_tables;
+  a.max_pages = max_pages;
+  a.nq = nq;
+  a.kvh = kvh;
+  a.page_size = page_size;
+  a.box_rows = std::min(page_size, kKeys);
+  a.scale = scale;
+  a.sliding_window = sliding_window;
+  a.chunk_attn = chunk_attn;
+  a.soft_cap = soft_cap;
+  const int slices = (block_q * (nq / kvh) + kRows - 1) / kRows;
+  const dim3 grid(num_items, kvh, slices);
   auto s = static_cast<cudaStream_t>(stream);
-  return (soft_cap > 0.f ? ragged<true> : ragged<false>)(
-      q, cache_layer, out, item_req, item_qstart, item_qlen, item_pos,
-      seq_lens, block_tables, num_items, max_pages, nq, kvh, page_size,
-      slices, scale, sliding_window, chunk_attn, soft_cap, s);
+  return soft_cap > 0.f ? launch<true, false>(a, cache, cache, cache, grid, s)
+                        : launch<false, false>(a, cache, cache, cache, grid, s);
 }
 
 // The window kernel's MLA instance, then its merge, on `stream`: bf16 q
-// [R, nq, 576], cache layer and tails [R, kvh, kw, 576] in bf16.
-// part_acc [R, nq, splits, 576], part_m and part_l [R, nq, splits] fp32
-// scratch; acc0 [R, nq, 576], m0 and l0 [R, nq]: the cascade's init state
-// covering page positions < shared_len, or all three null.
+// [R, nq, 576], cache layer (num_pages pages) and tails [R, kvh, kw, 576]
+// in bf16, out [R, nq, 576]. part_acc [R, nq, splits, 576], part_m and
+// part_l [R, nq, splits] fp32 scratch; acc0 [R, nq, 576], m0 and l0 [R,
+// nq]: the cascade's init state covering page positions < shared_len, or
+// all three null.
 extern "C" int mla_window_launch(
     const void* q, const void* cache_layer, const void* tail_k_layer,
     const void* tail_v_layer, void* out, float* part_acc, float* part_m,
     float* part_l, const int* paged_lens, const int* block_tables,
-    int num_reqs, int max_pages, int nq, int kvh, int page_size, int kw,
-    int step, float scale, int sliding_window, int chunk_attn,
-    float soft_cap, const float* acc0, const float* m0, const float* l0,
-    int shared_len, int splits, int tiles_per_split, void* stream) {
+    int num_reqs, int max_pages, int num_pages, int nq, int kvh,
+    int page_size, int kw, int step, float scale, int sliding_window,
+    int chunk_attn, float soft_cap, const float* acc0, const float* m0,
+    const float* l0, int shared_len, int splits, int tiles_per_split,
+    void* stream) {
   if ((acc0 == nullptr) != (m0 == nullptr) ||
       (acc0 == nullptr) != (l0 == nullptr) || shared_len < 0 ||
       (acc0 == nullptr && shared_len != 0) || kvh <= 0 || nq % kvh ||
-      splits < 1 || tiles_per_split < 1 || num_reqs <= 0)
+      splits < 1 || tiles_per_split < 1 || num_reqs <= 0 || kw <= 0 ||
+      num_pages <= 0 || !page_ok(page_size))
     return (int)cudaErrorInvalidValue;
+  CUtensorMap cache, tk, tv;
+  const uint64_t tail_rows = (uint64_t)num_reqs * kvh * kw;
+  const uint32_t tail_box = (uint32_t)std::min(kw, kKeys);
+  cudaError_t err =
+      row_map(&cache, cache_layer, (uint64_t)num_pages * 2 * kvh * page_size,
+              (uint32_t)std::min(page_size, kKeys));
+  if (err == cudaSuccess) err = row_map(&tk, tail_k_layer, tail_rows, tail_box);
+  if (err == cudaSuccess) err = row_map(&tv, tail_v_layer, tail_rows, tail_box);
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  memset(&a, 0, sizeof(a));
+  a.q = static_cast<const bf16*>(q);
+  a.part_acc = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.paged_lens = paged_lens;
+  a.block_tables = block_tables;
+  a.max_pages = max_pages;
+  a.nq = nq;
+  a.kvh = kvh;
+  a.page_size = page_size;
+  a.box_rows = std::min(page_size, kKeys);
+  a.kw = kw;
+  a.step = step;
+  a.scale = scale;
+  a.sliding_window = sliding_window;
+  a.chunk_attn = chunk_attn;
+  a.soft_cap = soft_cap;
+  a.shared_len = shared_len;
+  a.tiles_per_split = tiles_per_split;
+  const int row_tiles = (nq / kvh + kRows - 1) / kRows;
+  const dim3 grid(num_reqs, kvh * row_tiles, splits);
   auto s = static_cast<cudaStream_t>(stream);
-  int err = (soft_cap > 0.f ? window_split<true> : window_split<false>)(
-      q, cache_layer, tail_k_layer, tail_v_layer, part_acc, part_m, part_l,
-      paged_lens, block_tables, num_reqs, max_pages, nq, kvh, page_size, kw,
-      step, scale, sliding_window, chunk_attn, soft_cap, shared_len, splits,
-      tiles_per_split, s);
-  if (err != 0) return err;
-  const dim3 grid(num_reqs * nq);
+  const int e = soft_cap > 0.f ? launch<true, true>(a, cache, tk, tv, grid, s)
+                               : launch<false, true>(a, cache, tk, tv, grid, s);
+  if (e != 0) return e;
+  const dim3 mgrid(num_reqs * nq);
   if (acc0 != nullptr)
-    mla_merge_kernel<true><<<grid, 128, 0, s>>>(
+    mla_merge_kernel<true><<<mgrid, 128, 0, s>>>(
         part_acc, part_m, part_l, static_cast<bf16*>(out), acc0, m0, l0,
         splits);
   else
-    mla_merge_kernel<false><<<grid, 128, 0, s>>>(
+    mla_merge_kernel<false><<<mgrid, 128, 0, s>>>(
         part_acc, part_m, part_l, static_cast<bf16*>(out), nullptr, nullptr,
         nullptr, splits);
   return (int)cudaGetLastError();

@@ -56,7 +56,7 @@ _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 _TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                 _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
 _MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 _F, _I, _I, _F, _P]
+                 _I, _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
@@ -69,7 +69,9 @@ _MAX_ROWS = 128
 TC_HEAD_DIMS = (64, 128, 256)
 # MLA's latent head (kv_lora_rank 512 + rope 64): its own instance in bf16.
 MLA_HEAD_DIM = 576
-MLA_ROWS = 64  # query rows a block of the MLA instance
+MLA_ROWS = 64  # query rows a block of the MLA instance (one wgmma M)
+MLA_KEYS = 32  # keys a K or V tile of the MLA instances
+MLA_STAGES = 2  # K and V tiles in flight (the ring's depth)
 # Where an fp8 cache at the MLA geometry is queued.
 MLA_FP8_ITEM = "ROADMAP A10"
 # Where image spans at the MLA geometry are queued.
@@ -135,19 +137,39 @@ def ragged_uses_mla(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
 
 
-def ragged_mla_smem_bytes() -> int:
-    """Shared memory of the MLA instance (``mla_attention.cu`` rg::kSmem):
-    64 query rows and a ring of 2 stages of 32-key K and V tiles, bf16
-    rows padded to 584, then the exchange of the warps' P fragments (8
-    warps x 32 lanes x 16 bytes) and row maxima (8 x 16 floats)."""
-    return (2 * (MLA_HEAD_DIM + 8) * (MLA_ROWS + 2 * 2 * 32)
-            + 8 * 32 * 16 + 8 * 16 * 4)
+def mla_smem_bytes() -> int:
+    """Shared memory of a block of either MLA instance (``mla_attention.cu``
+    kSmem): Q (64 rows, 73,728 bytes) and a ring of two stages of a
+    32-key K tile and a 32-key V tile (36,864 bytes each), 576 bf16 a row
+    in 128-byte swizzled chunks; the window's hand-off of P from the
+    warpgroup that computes S to the other two (P of a tile in bf16 and
+    its rows' rescale factors, two of each: 8,704 bytes); four mbarriers a
+    stage and four for the hand-off; 1024 bytes to align the swizzle."""
+    exchange = 2 * (MLA_ROWS * MLA_KEYS * 2 + MLA_ROWS * 4)
+    return (2 * MLA_HEAD_DIM * (MLA_ROWS + 2 * MLA_STAGES * MLA_KEYS)
+            + exchange + (4 * MLA_STAGES + 4) * 8 + 1024)
+
+
+def mla_page_boxes(page: int) -> tuple[int, int]:
+    """(rows a box, boxes a 32-key tile) of the MLA instances' TMA loads
+    on pages of ``page`` tokens: a tile takes whole pages of 8 or 16
+    tokens (each box 1024-byte aligned in the swizzle), one 32-row box of
+    a page of any multiple of 32. Raises ``ValueError`` on another page
+    size."""
+    if page > 0 and page % MLA_KEYS == 0:
+        return MLA_KEYS, 1
+    if page in (8, 16):
+        return page, MLA_KEYS // page
+    raise ValueError(
+        f"the MLA attention instances take pages of 8 or 16 tokens or a "
+        f"multiple of {MLA_KEYS}, not {page}")
 
 
 def check_mla_cache(fp8: bool) -> None:
     """Raise ``NotImplementedError`` for an fp8 cache at the MLA geometry:
-    the MLA instances have no room for a staging ring beside their tiles
-    (queued as ``MLA_FP8_ITEM``)."""
+    the MLA instances' block (``mla_smem_bytes``: 231,008 of the H100's
+    232,448 bytes) leaves no room to stage fp8 tiles beside their bf16
+    ones (queued as ``MLA_FP8_ITEM``)."""
     if fp8:
         raise NotImplementedError(
             f"an fp8 KV cache at the MLA geometry (bf16, head_dim "
@@ -176,14 +198,14 @@ def check_spans(spans: bool, dtype: torch.dtype, hd: int,
 def ragged_mla_block_q(group: int, smem_limit: int,
                        kv_dtype: Optional[torch.dtype] = None) -> int:
     """Tokens per work item of the MLA instance: as many whole groups as
-    fill its 64 rows, else one token, whose group the kernel cuts into
-    slices of 64 rows (V3's 128 query heads: two). An fp8 cache raises
-    ``NotImplementedError``: the instance has no room for a staging ring
-    (``MLA_FP8_ITEM``)."""
+    fill its 64 rows (4 at V2-Lite's group of 16), else one token, whose
+    group the kernel cuts into slices of 64 rows (V3's 128 query heads:
+    two). An fp8 cache raises ``NotImplementedError``: the instance has no
+    room for a staging ring (``MLA_FP8_ITEM``)."""
     check_mla_cache(kv_dtype in KV_CODES)
     cuda_build.check_smem(
         f"ragged_paged_attention MLA instance (group {group}, head_dim "
-        f"{MLA_HEAD_DIM})", ragged_mla_smem_bytes(), smem_limit)
+        f"{MLA_HEAD_DIM})", mla_smem_bytes(), smem_limit)
     return max(1, MLA_ROWS // group)
 
 
@@ -370,16 +392,17 @@ def ragged_paged_attention(
             if t.data_ptr() % 16:
                 raise ValueError("q and the cache layer must be 16-byte "
                                  "aligned")
-        cuda_build.check_smem(what, ragged_mla_smem_bytes(),
+        mla_page_boxes(page)  # raises on a page size TMA cannot tile
+        cuda_build.check_smem(what, mla_smem_bytes(),
                               cuda_build.smem_optin())
         launch = cuda_build.entry("mla_attention", "mla_ragged_launch",
                                   _MLA_ARGTYPES)
         err = launch(
             q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in int_args), num_items,
-            md.block_tables.shape[1], nq, kvh, page, md.block_q, scale,
-            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
-            stream)
+            md.block_tables.shape[1], cache_layer.shape[0], nq, kvh, page,
+            md.block_q, scale, sliding_window or 0, chunk_attn or 0,
+            logits_soft_cap or 0.0, stream)
         instance = "mla"
     elif ragged_uses_tensor_cores(q.dtype, hd):
         if md.block_q * group > ragged_tc_rows(hd):

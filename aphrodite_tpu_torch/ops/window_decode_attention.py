@@ -22,9 +22,11 @@ scratch once for all the layers and sub-steps of a decode window.
 
 bf16 at MLA's head_dim 576 (DeepSeek V2/V3: any group on one latent KV
 head) runs the MLA instance (``csrc/mla_attention.cu``,
-``mla_window_launch``): one 16-row tile of the group a block, the plan's
-64-key tiles walked as two of 32. A group larger than a block's rows is cut
-into row slices, one block each (grid.y), in every instance.
+``mla_window_launch``: wgmma over one 64-row tile of the group a block,
+each of the plan's 64-key tiles loaded by TMA as two of 32), one block an
+SM, its splits planned for one wave (``window_split_plan(...,
+per_sm=1)``). A group larger than a block's rows is cut into row slices,
+one block each (grid.y), in every instance.
 
 The cache holds q's dtype or fp8 (e4m3fn or e5m2); the tails hold the
 cache's dtype, or bf16 beside an e5m2 cache (``tail_dtype``, the JAX
@@ -41,19 +43,19 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, TC_HEAD_DIMS, check_mla_cache,
-    kv_code)
+    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS,
+    check_mla_cache, kv_code, mla_page_boxes, mla_smem_bytes)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
              _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
              _I, _I, _I, _P]
 _MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
+                 _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
 _TILE = 32  # keys per warp sub-tile of the CUDA-core instance
 SPLIT_KEYS = 64  # keys a tile of the split plan
 TC_MAX_GROUP = 16  # query rows of one mma tile
-MLA_ROWS = 16  # query rows a block of the MLA instance
+MLA_WARPS = 16  # a producer warpgroup and three consumer warpgroups
 
 
 def tail_dtype(kv_dtype: torch.dtype) -> torch.dtype:
@@ -99,16 +101,6 @@ def window_uses_mla(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
 
 
-def window_mla_smem_bytes() -> int:
-    """Shared memory of the MLA instance (``mla_attention.cu``
-    wd::kSmem): 16 query rows and a ring of 2 stages of 32-key K and V
-    tiles, bf16 rows padded to 584, then the exchange of the warps' P
-    fragments (4 warps x 32 lanes x 8 bytes) and row maxima (4 x 16
-    floats)."""
-    return (2 * (MLA_HEAD_DIM + 8) * (MLA_ROWS + 2 * 2 * 32)
-            + 4 * 32 * 8 + 4 * 16 * 4)
-
-
 def window_uses_tensor_cores(dtype: torch.dtype, group: int,
                              hd: int) -> bool:
     """Whether the kernel runs its tensor-core instance of
@@ -134,9 +126,9 @@ def _window_geometry(dtype: torch.dtype, group: int, hd: int,
     what = f"window_decode_attention (group {group}, head_dim {hd})"
     if window_uses_mla(dtype, hd):
         check_mla_cache(fp8)
-        smem = window_mla_smem_bytes()
+        smem = mla_smem_bytes()
         cuda_build.check_smem(what + " MLA instance", smem, smem_limit)
-        return True, 4, smem, MLA_ROWS
+        return True, MLA_WARPS, smem, MLA_ROWS
     if window_uses_tensor_cores(dtype, group, hd):
         smem = window_tc_smem_bytes(hd, fp8)
         cuda_build.check_smem(what, smem, smem_limit)
@@ -150,11 +142,11 @@ def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
                            smem_limit: int, fp8: bool = False
                            ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one split block: 4
-    warps and ``window_tc_smem_bytes`` (``window_mla_smem_bytes`` at MLA's
-    geometry, which raises on an fp8 cache) on a tensor-core instance,
-    else the CUDA-core instance's ``window_warps`` (whose tiles are fp32 on
-    any cache) for ``window_block_rows`` rows. Raises, naming the bytes,
-    when nothing fits the card."""
+    warps and ``window_tc_smem_bytes`` (16 warps and ``mla_smem_bytes``
+    at MLA's geometry, which raises on an fp8 cache) on a tensor-core
+    instance, else the CUDA-core instance's ``window_warps`` (whose tiles
+    are fp32 on any cache) for ``window_block_rows`` rows. Raises, naming
+    the bytes, when nothing fits the card."""
     return _window_geometry(dtype, group, hd, smem_limit, fp8)[:3]
 
 
@@ -176,14 +168,22 @@ def window_max_tiles(max_paged_len: int, step: int, shared_len: int = 0,
     return n_page + -(-(step + 1) // SPLIT_KEYS)
 
 
-def window_split_plan(blocks: int, max_tiles: int,
-                      num_sms: int) -> tuple[int, int]:
+def window_split_plan(blocks: int, max_tiles: int, num_sms: int,
+                      per_sm: int = 4) -> tuple[int, int]:
     """(splits, tiles a split) for ``blocks`` (request, KV head) pairs
-    whose visible keys span at most ``max_tiles`` tiles: whole tiles a
-    split, as many as still give the card four blocks an SM, but at least
-    two (so that a block's next load overlaps its products) where there
-    are two."""
-    want = max(1, -(-4 * num_sms // blocks))
+    whose visible keys span at most ``max_tiles`` tiles, for an instance
+    of which ``per_sm`` blocks fit an SM. Four (the tensor-core and
+    CUDA-core instances): whole tiles a split, as many as still give the
+    card four blocks an SM, but at least two (so that a block's next load
+    overlaps its products) where there are two. One (the MLA instance,
+    whose K and V loads overlap within a tile): as many splits as fill at
+    most one wave of the card (``num_sms`` blocks) where the pairs fit
+    one, one split where they do not, the tiles spread evenly over them."""
+    if per_sm == 1:
+        want = max(1, num_sms // blocks)
+        per = -(-max_tiles // min(want, max(max_tiles, 1)))
+        return -(-max_tiles // per), per
+    want = max(1, -(-per_sm * num_sms // blocks))
     per = max(min(2, max_tiles), max_tiles // want)
     return -(-max_tiles // per), per
 
@@ -289,7 +289,8 @@ def window_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
         num_reqs * kvh * -(-group // rows),
         window_max_tiles(max_paged_len, step, shared_len, sliding_window,
                          chunk_attn),
-        cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
+        cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS,
+        1 if window_uses_mla(dtype, hd) else 4)
     part = torch.empty(num_reqs * nq * splits * (hd + 2),
                        dtype=torch.float32, device=device)
     return WindowPlan((dtype, num_reqs, nq, kvh, hd), tc, warps, smem,
@@ -395,6 +396,7 @@ def window_decode_attention(
     tail_off = layer * tail_k.stride(0) * tail_k.element_size()
     if window_uses_mla(q.dtype, hd):
         check_mla_cache(code > 0)
+        mla_page_boxes(page)  # raises on a page size TMA cannot tile
         launch = cuda_build.entry("mla_attention", "mla_window_launch",
                                   _MLA_ARGTYPES)
         err = launch(
@@ -402,8 +404,9 @@ def window_decode_attention(
             tail_v.data_ptr() + tail_off, out.data_ptr(),
             plan.part.data_ptr(), part_m, part_m + 4 * n_state,
             paged_lens.data_ptr(), block_tables.data_ptr(), R,
-            block_tables.shape[1], nq, kvh, page, Kw, step, scale,
-            sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
+            block_tables.shape[1], kv_cache.shape[1], nq, kvh, page, Kw,
+            step, scale, sliding_window or 0, chunk_attn or 0,
+            logits_soft_cap or 0.0,
             *init, shared_len, plan.splits, plan.tiles_per_split,
             cuda_build.stream(dev))
         instance = "mla"

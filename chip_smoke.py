@@ -3,8 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
-PARENT [PART ...]`` instead runs phases 8, 12, 14, 6, 15 and 16, the
-attention wrappers' host time a call, the window kernel's device time, the
+PARENT [PART ...]`` instead runs phases 8, 12, 14, 6, 15, 16 and 24, the
+attention wrappers' host time a call, the window kernel's device time, both
+MLA instances at ``MLA_GEOMS``, the
 bf16 grouped GEMM at phase 8's shapes, a Llama-3.1-8B layer's four bf16 W4
 GEMMs (int4 and packed, M = 128 and 32) and a layer's four bf16 W8 and
 uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) of the checkout
@@ -195,16 +196,21 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    kernel never; the tower 32 images in a cold run and none in a warm one.
 
 For the MLA slice phase 2 (``mla_checks``) holds both MLA instances
-(``csrc/mla_attention.cu``) against their plain versions at phase 24's
-wave and window and at V3's group of 128 (``MLA_GEOMS``), each timed beside
-SDPA over the gathered K/V (the backend its dispatch picks named) and, at
-phase 24's shapes, beside the bf16 scalar instances they replace
-(``scalar_instances``: the "before"); the fp32 scalar instances at the same
-geometries (a group cut into row slices); both instances with a soft cap
-and a sliding window on 16-token pages (``MLA_MASK_CASE``); the
-shared-prefix pass at head_dim 576 and the window from its state (pages of
-16 and 64); and the grouped GEMM at V2-Lite's MoE wave (98,304 rows, 64
-experts, top-6: ``V2_LITE_MOE``) beside ``_grouped_mm``.
+(``csrc/mla_attention.cu``: wgmma, TMA and a producer warp) against their
+plain versions at phase 24's wave and window and at V3's group of 128
+(``MLA_GEOMS``), two launches of each bit-equal, each timed beside SDPA
+over the gathered K/V (the backend its dispatch picks named) and, at
+phase 24's shapes, beside the bf16 scalar instances
+(``scalar_instances``); the fp32 scalar instances at the same geometries
+(a group cut into row slices); both instances with a soft cap and a
+sliding window on 16-token pages (``MLA_MASK_CASE``), and again with NaN
+in every cache slot past the contexts, in the null page and in the
+window tail's unwritten slots (``poison_stale``) on pages of 16 and 64;
+the shared-prefix pass at head_dim 576 and the window from its state
+(pages of 16 and 64); and the grouped GEMM at V2-Lite's MoE wave (98,304
+rows, 64 experts, top-6: ``V2_LITE_MOE``) beside ``_grouped_mm``.
+``--ab PARENT mla 24`` times the MLA instances (``MLA_PROBE``) and phase
+24 of a parent checkout and of this one in turns.
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -520,6 +526,20 @@ def paged_cache(gen, ctx_lens, dtype, kvh, num_layers=2, hd=HD, page=PAGE):
     return cache, bt
 
 
+def poison_stale(cache, bt, lens) -> None:
+    """NaN in every slot of ``cache`` [L, P, 2, kvh, page, hd] past each
+    request's length in its last page, and in the null page 0 (block table
+    entries past a request's pages): what a kernel that loads whole pages
+    or boxes finds there in a real cache, where those slots were never
+    written. Only masked keys lie there."""
+    page = cache.shape[-2]
+    cache[:, 0] = float("nan")
+    for r, n in enumerate(lens):
+        pg, off = divmod(int(n), page)
+        if off:
+            cache[:, int(bt[r, pg]), :, :, off:] = float("nan")
+
+
 def kv_type(dtype, kv: str | None):
     """The cache's torch dtype: ``kv`` (an fp8 name) or q's ``dtype``."""
     import torch
@@ -589,10 +609,15 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     q = torch.randn((T, NQ, HD), generator=gen, device="cuda").to(dtype)
     scale = geom.get("scale", HD ** -0.5)
     layer = 1
-    out = ragged_paged_attention(q, cache, layer, md, scale, **opts)
     ref = ref_ragged_paged_attention(q, cache[layer], md, scale, **opts)
+    if geom.get("stale"):  # the plain version read the clean cache
+        poison_stale(cache, bt, ctx)
+    out = ragged_paged_attention(q, cache, layer, md, scale, **opts)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    if geom.get("mla") and dtype == torch.bfloat16 and not torch.equal(
+            out, ragged_paged_attention(q, cache, layer, md, scale, **opts)):
+        raise AssertionError("ragged MLA instance: two launches differ")
     limit = alibi_tol(dtype_name, ref) if "alibi" in opts else TOL[dtype_name]
     if not (err <= limit and torch.isfinite(out).all()):
         raise AssertionError(
@@ -752,10 +777,19 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
         chunk_attn=opts.get("chunk_attn"), kv_dtype=kvd)
     plans = {"the longest paged length": plan(max(plens)),
              "the block tables": None, "0": plan(0)}
+    stale = geom.get("stale")
+    clean = (cache.clone(), tail_k, tail_v) if stale else None
+    if stale:  # page slots past the paged lengths and the null page
+        poison_stale(cache, bt, plens)
     err = 0.0
     for step in (0, 1, 31, 48, 63):
-        ref = ref_window_decode_attention(q, cache[layer], tail_k[layer],
-                                          tail_v[layer], step, pl, bt, scale,
+        if stale:  # and the tail's slots past the step
+            tail_k, tail_v = (t.clone() for t in clean[1:])
+            tail_k[:, :, :, step + 1:] = tail_v[:, :, :, step + 1:] = \
+                float("nan")
+        src = clean if stale else (cache, tail_k, tail_v)
+        ref = ref_window_decode_attention(q, src[0][layer], src[1][layer],
+                                          src[2][layer], step, pl, bt, scale,
                                           **opts)
         limit = scaled_tol(dtype_name, ref)
         for bound, p in plans.items():
@@ -765,6 +799,12 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 raise AssertionError("window kernel: non-finite output")
+            if geom.get("mla") and dtype == torch.bfloat16 and \
+                    not torch.equal(out, window_decode_attention(
+                        q, cache, tail_k, tail_v, layer, step, pl, bt, scale,
+                        plan=p, **opts)):
+                raise AssertionError("window MLA instance: two launches "
+                                     "differ")
             e = (out.float() - ref.float()).abs().max().item()
             if e > limit:
                 raise AssertionError(
@@ -2973,9 +3013,10 @@ def profile_run(one_run, phase: str = "phase 4",
         k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\d+, \w+, \w+, "
                                            r"true", n) else
              "ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
-             or "mla_ragged" in n else
+             or re.search(r"mla_kernel<\w+, false>", n) else
              "window" if "wd_split" in n or "wd_merge" in n
-             or "mla_window" in n or "mla_merge" in n else
+             or re.search(r"mla_kernel<\w+, true>", n)
+             or "mla_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
              "fp8" if "w4_wgmma_kernel<4" in n else
@@ -3142,21 +3183,40 @@ def _ab_serve(phase: str, name: str, hf: dict, quantization: str,
             f"exact={exact!r}, quantization={quantization!r})")
 
 
+# Run by each checkout in ``compare_serving``: both MLA instances at
+# ``MLA_GEOMS`` (phase 24's wave and window, V3's group of 128) as that
+# checkout's phase 2 holds and times them: device time (profiler), time a
+# call, the window's host time a call, and the error against the plain
+# version.
+MLA_PROBE = """
+for path, geom in c.MLA_GEOMS.items():
+    for name, fn in (('ragged_paged_attention', c.check_ragged),
+                     ('window_decode_attention', c.check_window)):
+        r = fn(gen, 'bfloat16', geom)
+        host = f", host {r['host_ms']:.4f} ms" if 'host_ms' in r else ''
+        print(f"# {name} MLA instance bf16 at {path}: device "
+              f"{r['device_ms']:.4f} ms, call {r['ms']:.4f} ms{host}, "
+              f"max_abs_err {r['max_abs_err']:.3g}", flush=True)
+"""
+
+
 # What ``--ab`` runs, in this order, each by its name on the command line.
-AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE,
+AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
             "quant": QUANT_PROBE, "bytes": BYTE_PROBE,
             "8": "c.main_path_moe()", "12": "c.main_path_gemma()",
             "14": "c.main_path_int4_cascade()", "6": "c.main_path_8b()",
             "15": _ab_serve("phase 15", "llama-3.1-8b-w8a16-dummy",
                             LLAMA31_8B, "w8a16", "w8a16_matmul"),
             "16": _ab_serve("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B,
-                            "gptq", "w4a16_matmul")}
+                            "gptq", "w4a16_matmul"),
+            "24": "c.main_path_deepseek()"}
 
 
 def compare_serving(parent: str, parts: list[str]) -> int:
     """``python3 chip_smoke.py --ab PARENT [PART ...]``: the probes and
     phases of ``AB_PARTS`` (all, or the PARTs named: ``HOST_PROBE``,
-    ``GROUPED_PROBE``, ``QUANT_PROBE`` and phases 8, 12, 14 and 6: s/run,
+    ``GROUPED_PROBE``, ``MLA_PROBE``, ``QUANT_PROBE`` and phases 8, 12,
+    14, 6, 15, 16 and 24: s/run,
     device busy and items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
     parent, this, this, parent. Each run is a process of its own, started
@@ -4315,7 +4375,8 @@ MLA_GEOMS = {
 # 16-token pages (a 32-key tile spans two).
 MLA_MASK_CASE = dict(nq=16, kvh=1, hd=576, ctx=[400, 130, 77],
                      qlen=[400, 3, 1], paged=[400, 130, 77], page=16,
-                     opts=dict(logits_soft_cap=30.0, sliding_window=100))
+                     opts=dict(logits_soft_cap=30.0, sliding_window=100),
+                     mla=True)
 # (K, N) of a V2-Lite MoE layer's two grouped GEMMs over its wave (32 x 512
 # tokens x top-6 = 98,304 sorted rows, 64 experts).
 V2_LITE_MOE = dict(M=32 * 512 * 6, E=64, k=6,
@@ -4372,8 +4433,9 @@ def scalar_instances():
 def check_mla_cascade(gen, dtype_name: str, page: int) -> float:
     """The shared-prefix pass at head_dim 576 (its CUDA-core instance, bf16
     too) and the window kernel started from its state (the MLA instance in
-    bf16): 8 requests of 16 heads sharing 4 pages, against the plain
-    cascade; returns the error (held at ``scaled_tol``)."""
+    bf16, two launches bit-equal): 8 requests of 16 heads sharing 4
+    pages, against the plain cascade; returns the error (held at
+    ``scaled_tol``)."""
     import torch
     from aphrodite_tpu_torch.ops.cascade_attention import (
         ref_cascade_window_decode, shared_prefix_attention)
@@ -4404,6 +4466,12 @@ def check_mla_cascade(gen, dtype_name: str, page: int) -> float:
                 and torch.isfinite(out).all()):
             raise AssertionError(f"MLA cascade {dtype_name} step {step}: "
                                  f"max_abs_err {e}")
+        if dtype == torch.bfloat16 and not torch.equal(
+                out, window_decode_attention(
+                    q, cache, tk, tv, 1, step, pl, bt, MLA_SCALE,
+                    cascade_init=init, shared_len=S)):
+            raise AssertionError(f"MLA cascade step {step}: two launches "
+                                 "of the window MLA instance differ")
         err = max(err, e)
     return err
 
@@ -4465,12 +4533,13 @@ def check_grouped_v2lite(gen) -> dict:
 def mla_checks(gen, results: dict) -> None:
     """Phase 2 for the MLA slice: each MLA instance (bf16) at
     ``MLA_GEOMS`` against its plain version (ragged at TOL, the window at
-    ``scaled_tol``), timed beside SDPA over the gathered K/V (its backend
-    named) and, at phase 24's shapes, beside the scalar instances in bf16
-    (the "before": one token a work item, one warp a split block); the
-    fp32 scalar instances at the same geometries (row slices at group
-    128); both at ``MLA_MASK_CASE``; the cascade at 576; the grouped GEMM
-    at V2-Lite's MoE wave."""
+    ``scaled_tol``), two launches bit-equal, timed beside SDPA over the
+    gathered K/V (its backend named) and, at phase 24's shapes, beside the
+    scalar instances in bf16 (one token a work item, one warp a split
+    block); the fp32 scalar instances at the same geometries (row slices
+    at group 128); both at ``MLA_MASK_CASE``, and the MLA instances there
+    with NaN in the stale slots (``poison_stale``) on pages of 16 and 64;
+    the cascade at 576; the grouped GEMM at V2-Lite's MoE wave."""
     from aphrodite_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention)
     from aphrodite_tpu_torch.ops.window_decode_attention import (
@@ -4517,6 +4586,13 @@ def mla_checks(gen, results: dict) -> None:
             log(f"# phase 2: {name} {dt} at head_dim 576 on 16-token pages, "
                 f"soft cap 30 and a 100-token window: max_abs_err "
                 f"{err:.3g} (tol {tol_text(name, dt)})")
+            if dt == "bfloat16":  # the MLA instances load whole boxes
+                for page in (16, PAGE):
+                    err = fn(gen, dt, dict(MLA_MASK_CASE, page=page,
+                                           stale=True), timed=False)
+                    log(f"# phase 2: {name} MLA instance, the same with NaN "
+                        f"in the stale slots, pages of {page}: max_abs_err "
+                        f"{err:.3g} (tol {tol_text(name, dt)})")
         for page in (16, PAGE):
             log(f"# phase 2: shared_prefix_attention + window at head_dim "
                 f"576 {dt} (4 shared pages of {page}, R = 8): max_abs_err "

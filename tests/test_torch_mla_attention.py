@@ -9,7 +9,8 @@ mode wants 128-lane rows, the JAX runner's zero padding to 640 is used
 compared. Tolerance: fp32, atol 1e-5 on outputs of O(0.1).
 
 Also the launch sizing: both MLA instances fit an H100 at groups 16 and
-128, and the scalar instances, which sized one block for a whole group
+128 (one block an SM), their work items, window split plan and TMA page
+boxes, and the scalar instances, which sized one block for a whole group
 before (739,456 bytes at group 128), now cut a group into row slices."""
 import dataclasses
 
@@ -26,14 +27,14 @@ from aphrodite_tpu.ops.window_decode_attention import (
     window_decode_attention as jax_window_kernel)
 from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
                                                     build_work_items)
-from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
+from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN, H100_SMS
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    ragged_block_q, ragged_block_rows, ragged_mla_smem_bytes,
-    ragged_paged_attention, ragged_smem_bytes,
+    MLA_KEYS, MLA_ROWS, mla_page_boxes, mla_smem_bytes, ragged_block_q,
+    ragged_block_rows, ragged_paged_attention, ragged_smem_bytes,
     ragged_uses_mla, ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_block_rows, window_decode_attention, window_launch_geometry,
-    window_mla_smem_bytes, window_plan, window_smem_bytes, window_warps)
+    window_plan, window_smem_bytes, window_split_plan, window_warps)
 
 ATOL = 1e-5
 HD, PAD, PAGE, L, LAYER = 576, 640, 16, 2, 1
@@ -142,16 +143,76 @@ def test_window_plain_matches_pallas_at_mla_geometry(name):
 # ------------------------------------------------------------------ sizing
 @pytest.mark.parametrize("group", [16, 128])
 def test_mla_instances_fit_an_h100(group):
+    """One block shape for both instances: Q (73,728 bytes), a two-stage
+    ring of 32-key K and V tiles (147,456), the window's hand-off of P
+    (8,704), twelve mbarriers and 1024 bytes of alignment: one block an
+    SM, of 16 warps."""
     assert ragged_uses_mla(torch.bfloat16, HD)
-    assert ragged_mla_smem_bytes() == 228864 <= H100_SMEM_OPTIN
+    assert mla_smem_bytes() == 231008 <= H100_SMEM_OPTIN
     block_q = ragged_work_item_tokens(torch.bfloat16, group, HD,
                                       H100_SMEM_OPTIN)
     assert block_q == max(1, 64 // group)  # V3: one token, two slices
-    assert window_mla_smem_bytes() == 169472 <= H100_SMEM_OPTIN
+    assert 2 * mla_smem_bytes() > H100_SMEM_OPTIN
     assert window_launch_geometry(torch.bfloat16, group, HD,
-                                  H100_SMEM_OPTIN) == (True, 4, 169472)
+                                  H100_SMEM_OPTIN) == (True, 16, 231008)
     plan = window_plan(torch.bfloat16, 32, group, 1, HD, "cpu", 576, 62)
-    assert plan.tensor_cores and plan.rows == 16
+    assert plan.tensor_cores and plan.rows == 64
+
+
+@pytest.mark.parametrize("group,tokens,slices", [(16, 4, 1), (128, 1, 2),
+                                                 (64, 1, 1), (24, 2, 1)])
+def test_mla_work_item_tokens(group, tokens, slices):
+    """A work item fills the block's 64 rows with whole groups (V2-Lite's
+    16 heads: 4 tokens), else takes one token whose group the kernel cuts
+    into slices of 64 rows (V3's 128 heads: 2)."""
+    block_q = ragged_work_item_tokens(torch.bfloat16, group, HD,
+                                      H100_SMEM_OPTIN)
+    assert block_q == tokens
+    assert -(-block_q * group // MLA_ROWS) == slices
+
+
+@pytest.mark.parametrize("reqs,group,tiles,waves_before", [
+    (32, 16, 9, 2),    # V2-Lite's window sub-step: 513-576 keys
+    (4, 128, 6, 1),    # V3's group of 128 at R = 4
+    (256, 16, 9, 6),   # more (request, row tile) pairs than SMs
+])
+def test_mla_window_plans_whole_waves(reqs, group, tiles, waves_before):
+    """The MLA instance fits one block an SM: its split plan fills at most
+    one wave of 132 SMs where the pairs fit one (the four-a-SM plan left
+    V2-Lite's sub-step a second wave of 28 blocks), with the fewest tiles
+    a split that allows, and the splits cover the tiles."""
+    pairs = reqs * -(-group // MLA_ROWS)
+    splits, per = window_split_plan(pairs, tiles, H100_SMS, per_sm=1)
+    assert splits * per >= tiles > (splits - 1) * per
+    if pairs <= H100_SMS:
+        assert pairs * splits <= H100_SMS
+        # the fewest tiles a split that one wave allows
+        assert per == -(-tiles // min(H100_SMS // pairs, tiles))
+    else:
+        assert splits == 1
+    old = window_split_plan(pairs, tiles, H100_SMS)
+    assert -(-pairs * old[0] // H100_SMS) == waves_before
+    plan = window_plan(torch.bfloat16, reqs, group, 1, HD, "cpu",
+                       64 * (tiles - 1), 63)
+    assert (plan.splits, plan.tiles_per_split) == (splits, per)
+
+
+@pytest.mark.parametrize("page,want", [(8, (8, 4)), (16, (16, 2)),
+                                       (32, (32, 1)), (64, (32, 1)),
+                                       (128, (32, 1))])
+def test_mla_page_boxes(page, want):
+    """A 32-key tile's TMA boxes: whole pages of 8 or 16 tokens (each box
+    1024-byte aligned in the 128-byte swizzle), one 32-row box of a page
+    of a multiple of 32 tokens."""
+    rows, boxes = mla_page_boxes(page)
+    assert (rows, boxes) == want and rows * boxes == MLA_KEYS
+    assert rows * 128 % 1024 == 0
+
+
+@pytest.mark.parametrize("page", [4, 24, 48, 100])
+def test_mla_page_boxes_refuse_other_pages(page):
+    with pytest.raises(ValueError, match="MLA attention instances"):
+        mla_page_boxes(page)
 
 
 def test_the_old_scalar_sizing_raised_at_group_128():
