@@ -494,4 +494,15 @@ inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* base,
                       dims, strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// A one-byte map (fp8 or int8 bytes) without a swizzle: a box lands as
+// its rows one after another, box[0] bytes each (a multiple of 16, at most
+// 256), 128-byte aligned in shared memory.
+inline cudaError_t make_tma_map_bytes(CUtensorMap* map, const void* base,
+                                      int rank, const uint64_t* dims,
+                                      const uint64_t* strides_bytes,
+                                      const uint32_t* box) {
+  return make_tma_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims,
+                      strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 }  // namespace hopper

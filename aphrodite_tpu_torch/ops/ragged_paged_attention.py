@@ -7,7 +7,7 @@ tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
 on CPU tensors. bf16 at head_dim 64, 128 or 256 runs the tensor-core
 instance (``rpa_tc_launch``; with image spans ``rpa_tc_spans_launch`` of
 ``csrc/ragged_spans.cu``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
-any group on one latent KV head) the MLA instance
+any group on one latent KV head, on a bf16 or fp8 cache) the MLA instance
 (``csrc/mla_attention.cu``, ``mla_ragged_launch``), everything else the
 scalar one (``rpa_launch``), which keeps fp32 in full fp32; each is sized
 by its own function and the runner asks ``ragged_work_item_tokens`` for
@@ -34,11 +34,13 @@ branch; the MLA instance does not take them (``MLA_SPANS_ITEM``), nor does
 the tensor-core instance beside ALiBi (no model has both: the scalar
 instance takes the pair).
 
-The cache holds q's dtype or fp8 (e4m3fn or e5m2): both instances upcast
+The cache holds q's dtype or fp8 (e4m3fn or e5m2): every instance upcasts
 an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
 (the tensor-core instance through a ring of staged bytes, sized by
-``ragged_tc_smem_bytes(hd, fp8=True)``); the plain version computes in
-fp32, where every fp8 value is exact.
+``ragged_tc_smem_bytes(hd, fp8=True)``; the MLA instance through a ring of
+staged bytes and two bf16 tiles in its bf16 ring's bytes,
+``mla_smem_bytes(fp8=True)``); the plain version computes in fp32, where
+every fp8 value is exact.
 """
 from __future__ import annotations
 
@@ -55,8 +57,8 @@ _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _I, _P]
 _TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                 _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
-_MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 _I, _F, _I, _I, _F, _P]
+_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _F, _I, _I, _F, _P]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
@@ -72,8 +74,6 @@ MLA_HEAD_DIM = 576
 MLA_ROWS = 64  # query rows a block of the MLA instance (one wgmma M)
 MLA_KEYS = 32  # keys a K or V tile of the MLA instances
 MLA_STAGES = 2  # K and V tiles in flight (the ring's depth)
-# Where an fp8 cache at the MLA geometry is queued.
-MLA_FP8_ITEM = "ROADMAP A10"
 # Where image spans at the MLA geometry are queued.
 MLA_SPANS_ITEM = "ROADMAP B"
 
@@ -137,17 +137,23 @@ def ragged_uses_mla(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
 
 
-def mla_smem_bytes() -> int:
+def mla_smem_bytes(fp8: bool = False) -> int:
     """Shared memory of a block of either MLA instance (``mla_attention.cu``
     kSmem): Q (64 rows, 73,728 bytes) and a ring of two stages of a
     32-key K tile and a 32-key V tile (36,864 bytes each), 576 bf16 a row
-    in 128-byte swizzled chunks; the window's hand-off of P from the
-    warpgroup that computes S to the other two (P of a tile in bf16 and
-    its rows' rescale factors, two of each: 8,704 bytes); four mbarriers a
-    stage and four for the hand-off; 1024 bytes to align the swizzle."""
+    in 128-byte swizzled chunks, or, on an fp8 cache, a ring of two stages
+    of their staged bytes (18,432 each) and one bf16 K and one bf16 V tile
+    to convert them into (the same 147,456 bytes); the window's hand-off
+    of P from the warpgroup that computes S to the other two (P of a tile
+    in bf16 and its rows' rescale factors, two of each: 8,704 bytes); four
+    mbarriers a stage and four for the hand-off; 1024 bytes to align the
+    swizzle."""
     exchange = 2 * (MLA_ROWS * MLA_KEYS * 2 + MLA_ROWS * 4)
-    return (2 * MLA_HEAD_DIM * (MLA_ROWS + 2 * MLA_STAGES * MLA_KEYS)
-            + exchange + (4 * MLA_STAGES + 4) * 8 + 1024)
+    tile = MLA_KEYS * MLA_HEAD_DIM  # a K or V tile's elements
+    tiles = (2 * MLA_STAGES * tile + 2 * 2 * tile if fp8
+             else 2 * MLA_STAGES * 2 * tile)
+    return (2 * MLA_HEAD_DIM * MLA_ROWS + tiles + exchange
+            + (4 * MLA_STAGES + 4) * 8 + 1024)
 
 
 def mla_page_boxes(page: int) -> tuple[int, int]:
@@ -163,18 +169,6 @@ def mla_page_boxes(page: int) -> tuple[int, int]:
     raise ValueError(
         f"the MLA attention instances take pages of 8 or 16 tokens or a "
         f"multiple of {MLA_KEYS}, not {page}")
-
-
-def check_mla_cache(fp8: bool) -> None:
-    """Raise ``NotImplementedError`` for an fp8 cache at the MLA geometry:
-    the MLA instances' block (``mla_smem_bytes``: 231,008 of the H100's
-    232,448 bytes) leaves no room to stage fp8 tiles beside their bf16
-    ones (queued as ``MLA_FP8_ITEM``)."""
-    if fp8:
-        raise NotImplementedError(
-            f"an fp8 KV cache at the MLA geometry (bf16, head_dim "
-            f"{MLA_HEAD_DIM}): the MLA attention instances take a bf16 cache "
-            f"only ({MLA_FP8_ITEM})")
 
 
 def check_spans(spans: bool, dtype: torch.dtype, hd: int,
@@ -200,12 +194,10 @@ def ragged_mla_block_q(group: int, smem_limit: int,
     """Tokens per work item of the MLA instance: as many whole groups as
     fill its 64 rows (4 at V2-Lite's group of 16), else one token, whose
     group the kernel cuts into slices of 64 rows (V3's 128 query heads:
-    two). An fp8 cache raises ``NotImplementedError``: the instance has no
-    room for a staging ring (``MLA_FP8_ITEM``)."""
-    check_mla_cache(kv_dtype in KV_CODES)
+    two), on a bf16 or fp8 cache (``kv_dtype``) alike."""
     cuda_build.check_smem(
         f"ragged_paged_attention MLA instance (group {group}, head_dim "
-        f"{MLA_HEAD_DIM})", mla_smem_bytes(), smem_limit)
+        f"{MLA_HEAD_DIM})", mla_smem_bytes(kv_dtype in KV_CODES), smem_limit)
     return max(1, MLA_ROWS // group)
 
 
@@ -384,7 +376,6 @@ def ragged_paged_attention(
             f"{md.block_q} tokens a work item)")
     stream = cuda_build.stream(q.device)
     if ragged_uses_mla(q.dtype, hd):
-        check_mla_cache(code > 0)
         if alibi is not None:
             raise NotImplementedError(
                 "ALiBi at the MLA geometry: no MLA model uses it")
@@ -393,12 +384,12 @@ def ragged_paged_attention(
                 raise ValueError("q and the cache layer must be 16-byte "
                                  "aligned")
         mla_page_boxes(page)  # raises on a page size TMA cannot tile
-        cuda_build.check_smem(what, mla_smem_bytes(),
+        cuda_build.check_smem(what, mla_smem_bytes(code > 0),
                               cuda_build.smem_optin())
         launch = cuda_build.entry("mla_attention", "mla_ragged_launch",
                                   _MLA_ARGTYPES)
         err = launch(
-            q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
+            code, q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], cache_layer.shape[0], nq, kvh, page,
             md.block_q, scale, sliding_window or 0, chunk_attn or 0,

@@ -32,7 +32,10 @@ The cache holds q's dtype or fp8 (e4m3fn or e5m2); the tails hold the
 cache's dtype, or bf16 beside an e5m2 cache (``tail_dtype``, the JAX
 runner's rule). Every tile is upcast to q's dtype before both products,
 as the TPU kernel does (the tensor-core instance stages fp8 tiles' bytes
-in a ring of their own: ``window_tc_smem_bytes(hd, fp8=True)``).
+in a ring of their own: ``window_tc_smem_bytes(hd, fp8=True)``; the MLA
+instance stages them in its ring and converts them into two bf16 tiles,
+``mla_smem_bytes(fp8=True)``, and copies bf16 tails beside e5m2 straight
+into those tiles).
 """
 from __future__ import annotations
 
@@ -43,15 +46,15 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS,
-    check_mla_cache, kv_code, mla_page_boxes, mla_smem_bytes)
+    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS, kv_code,
+    mla_page_boxes, mla_smem_bytes)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
              _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
              _I, _I, _I, _P]
-_MLA_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
+_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
 _TILE = 32  # keys per warp sub-tile of the CUDA-core instance
 SPLIT_KEYS = 64  # keys a tile of the split plan
 TC_MAX_GROUP = 16  # query rows of one mma tile
@@ -125,8 +128,7 @@ def _window_geometry(dtype: torch.dtype, group: int, hd: int,
     """``window_launch_geometry`` and the query rows a block holds."""
     what = f"window_decode_attention (group {group}, head_dim {hd})"
     if window_uses_mla(dtype, hd):
-        check_mla_cache(fp8)
-        smem = mla_smem_bytes()
+        smem = mla_smem_bytes(fp8)
         cuda_build.check_smem(what + " MLA instance", smem, smem_limit)
         return True, MLA_WARPS, smem, MLA_ROWS
     if window_uses_tensor_cores(dtype, group, hd):
@@ -143,7 +145,7 @@ def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
                            ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one split block: 4
     warps and ``window_tc_smem_bytes`` (16 warps and ``mla_smem_bytes``
-    at MLA's geometry, which raises on an fp8 cache) on a tensor-core
+    at MLA's geometry, on a bf16 or fp8 cache) on a tensor-core
     instance, else the CUDA-core instance's ``window_warps`` (whose tiles
     are fp32 on any cache) for ``window_block_rows`` rows. Raises, naming
     the bytes, when nothing fits the card."""
@@ -395,12 +397,11 @@ def window_decode_attention(
                + layer * kv_cache.stride(0) * kv_cache.element_size())
     tail_off = layer * tail_k.stride(0) * tail_k.element_size()
     if window_uses_mla(q.dtype, hd):
-        check_mla_cache(code > 0)
         mla_page_boxes(page)  # raises on a page size TMA cannot tile
         launch = cuda_build.entry("mla_attention", "mla_window_launch",
                                   _MLA_ARGTYPES)
         err = launch(
-            q.data_ptr(), cache_l, tail_k.data_ptr() + tail_off,
+            code, q.data_ptr(), cache_l, tail_k.data_ptr() + tail_off,
             tail_v.data_ptr() + tail_off, out.data_ptr(),
             plan.part.data_ptr(), part_m, part_m + 4 * n_state,
             paged_lens.data_ptr(), block_tables.data_ptr(), R,

@@ -56,11 +56,12 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    prefill at a 16-token budget and decode windows: greedy tokens must be
    equal and the selective scan launched.
 10. The main path of the SSM slice: Mamba-2.8B (``state-spaces/
-   mamba-2.8b-hf``) at full width and depth, bf16, a 4096-token batch
-   budget, phase 6's traffic. Prefix caching is off for recurrent-state
-   models, so every run is cold: one warm-up, 3 timed runs, one profiled
-   run. Exactly 2048 tokens and no cached prompt token a run; the scan
-   launched 64 times (once a layer) for every forward of the runner.
+   mamba-2.8b-hf``) at full width, its depth cut to ``MAMBA_DEPTH`` (32 of
+   64 layers), bf16, a 4096-token batch budget, phase 6's traffic. Prefix
+   caching is off for recurrent-state models, so every run is cold: one
+   warm-up, 2 timed runs, one profiled run. Exactly 2048 tokens and no
+   cached prompt token a run; the scan launched 32 times (once a layer)
+   for every forward of the runner.
 11. Gemma parity: a tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA, linear
    rope on its global layer) in fp32 with a 16-token sliding window and
    soft caps, card vs CPU with the same weights, prompts past the window,
@@ -158,8 +159,10 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    weights, a 32-token batch budget, 16-step windows and a second batch of
    three requests sharing a 4-page prompt (the cascade at the latent
    head): greedy tokens equal, every attention launch on the scalar
-   instances; then ``DS_TINY_BF16`` (16 heads on one latent head of 512 +
-   64, dense MLPs) in bf16 on the MLA instances only, its logprobs within
+   instances; V2 and V3 again on e4m3 and e5m2 caches (tokens equal but
+   at ties, ``same_tokens``); then ``DS_TINY_BF16`` (16 heads on one
+   latent head of 512 + 64, dense MLPs) in bf16, on a bf16 and an e4m3
+   cache, on the MLA instances only, its logprobs within
    ``DS_BF16_LOGPROB_TOL`` of the CPU's up to the first token where the
    runs part.
 24. The main path of the MLA slice: DeepSeek-V2-Lite
@@ -194,6 +197,12 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    every run the ragged kernel exactly 34 launches, all with the spans on
    the tensor-core instance, the decode kernel 34 x 63 = 2142, the window
    kernel never; the tower 32 images in a cold run and none in a warm one.
+27. The main path of the fp8 MLA slice (run after phase 24): phase 24's
+   model, traffic and runs with ``kv_cache_dtype="fp8_e4m3"`` (the KV pool
+   at one byte an element: 31,104 bytes a token against phase 24's
+   62,208). In every cold and warm run exactly: ragged 27 and window 1701,
+   all on the MLA instances' e4m3 ones, grouped 52, 0 on the other
+   instances; the pool's bytes a token logged; a profiled run.
 
 For the MLA slice phase 2 (``mla_checks``) holds both MLA instances
 (``csrc/mla_attention.cu``: wgmma, TMA and a producer warp) against their
@@ -208,7 +217,17 @@ in every cache slot past the contexts, in the null page and in the
 window tail's unwritten slots (``poison_stale``) on pages of 16 and 64;
 the shared-prefix pass at head_dim 576 and the window from its state
 (pages of 16 and 64); and the grouped GEMM at V2-Lite's MoE wave (98,304
-rows, 64 experts, top-6: ``V2_LITE_MOE``) beside ``_grouped_mm``.
+rows, 64 experts, top-6: ``V2_LITE_MOE``) beside ``_grouped_mm``. For the
+fp8 MLA slice (``mla_fp8_checks``) it holds both MLA instances on e4m3
+and e5m2 caches (the window's tails e4m3 beside e4m3, bf16 beside e5m2)
+at ``MLA_GEOMS`` and ``MLA_MASK_CASE`` (NaN bytes in the stale slots on
+pages of 16 and 64) and the cascade at 576 on them, each against its
+plain version, bit-equal to its bf16 self on the cache upcast to bf16
+and two launches bit-equal, timed beside its bf16 self and SDPA on the
+upcast K/V (the bound with K/V at one byte); and bf16 and e4m3 launches
+in turns over one allocation whose layer has one base and row count in
+both views (``OneAllocation``: the tensor maps' key must hold the
+element type).
 ``--ab PARENT mla 24`` times the MLA instances (``MLA_PROBE``) and phase
 24 of a parent checkout and of this one in turns.
 
@@ -449,6 +468,9 @@ MAMBA_2P8B = dict(  # state-spaces/mamba-2.8b-hf config.json
     layer_norm_epsilon=1e-5, tie_word_embeddings=True, model_type="mamba",
     architectures=["MambaForCausalLM"])
 SCAN_COLUMNS = 5120 * 16  # d_inner x d_state of a Mamba-2.8B layer
+# Phase 10's layers: half the published 64, which keeps the script's time
+# inside its limit as it grows (every layer runs the same scan).
+MAMBA_DEPTH = 32
 
 QWEN25_1P5B = dict(
     vocab_size=151936, hidden_size=1536, num_hidden_layers=28,
@@ -560,7 +582,7 @@ def dense_kv(cache_layer, bt, ctx_lens, s_max):
 
 
 def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
-                 kv: str | None = None):
+                 kv: str | None = None, make_cache=None):
     """Kernel A on one prefill/mixed wave (``ATTN_GEOMS``, or a case of
     ``RAGGED_MASK_CASES`` or ``ALIBI_RAGGED_CASES`` with its page size,
     masks and ALiBi), on a cache of q's dtype or of the fp8 dtype ``kv``:
@@ -570,7 +592,9 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     as a float mask, and the bound counts its multiply-add a score; with
     image spans, ``geom["spans"]`` a list of (lo, hi) a request, the
     yardstick's mask is (causal OR inside one span) below the context and
-    the bound counts the keys each row sees)."""
+    the bound counts the keys each row sees). The MLA instance on an fp8
+    cache must equal its bf16 self on the cache upcast to bf16, bit for
+    bit. ``make_cache``: ``paged_cache``'s stand-in (``OneAllocation``)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
@@ -588,8 +612,8 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         opts["alibi"] = alibi_slopes(NQ).cuda()
     spans = geom.get("spans")
     kvd = kv_type(dtype, kv)
-    cache, bt = paged_cache(gen, ctx, kvd, KVH, hd=HD,
-                            page=geom.get("page", PAGE))
+    cache, bt = (make_cache or paged_cache)(gen, ctx, kvd, KVH, hd=HD,
+                                            page=geom.get("page", PAGE))
     R, T = len(ctx), sum(qn)
     qsl = np.concatenate([[0], np.cumsum(qn)]).astype(np.int32)
     tok_req = np.repeat(np.arange(R), qn).astype(np.int32)
@@ -618,7 +642,14 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     if geom.get("mla") and dtype == torch.bfloat16 and not torch.equal(
             out, ragged_paged_attention(q, cache, layer, md, scale, **opts)):
         raise AssertionError("ragged MLA instance: two launches differ")
-    limit = alibi_tol(dtype_name, ref) if "alibi" in opts else TOL[dtype_name]
+    if geom.get("mla") and dtype == torch.bfloat16 and kv is not None and \
+            not torch.equal(out, ragged_paged_attention(
+                q, cache.to(dtype), layer, md, scale, **opts)):
+        raise AssertionError(f"ragged MLA instance on a {kv} cache: not its "
+                             "bf16 self on the upcast cache, bit for bit")
+    limit = (large_tol(dtype_name, ref)
+             if "alibi" in opts or (geom.get("mla") and kv is not None)
+             else TOL[dtype_name])
     if not (err <= limit and torch.isfinite(out).all()):
         raise AssertionError(
             f"ragged kernel {dtype_name}{kv_label(kv)} "
@@ -702,13 +733,14 @@ def sdpa_backends(sdpa, q, k, v, mask, scale) -> str:
     return f"picks {pick}; takes {took}; refuses {refused}"
 
 
-def alibi_tol(dtype_name: str, ref) -> float:
-    """The error limit of a ragged output with ALiBi: TOL scaled to the
-    reference's largest value where that is above 1. A steep slope puts a
-    row's weight on its nearest keys, so the output is one V row rather
-    than an average (values past 4 on randn V, where one bf16 ulp is
-    0.031 and the kernel's and the plain version's roundings may part by
-    one)."""
+def large_tol(dtype_name: str, ref) -> float:
+    """The error limit of a ragged output that may hold single V rows:
+    TOL scaled to the reference's largest value where that is above 1.
+    With ALiBi a steep slope puts a row's weight on its nearest keys, and
+    at the MLA geometry V3's early rows see a few keys each, so the output
+    is one V row rather than an average (values past 4 on randn V, where
+    one bf16 ulp is 0.031 and the kernel's and the plain version's
+    roundings may part by one; e5m2 rounds such values up to 4 or 5)."""
     return TOL[dtype_name] * max(1.0, ref.float().abs().max().item())
 
 
@@ -741,7 +773,7 @@ def host_ms(fn, reps: int = 50) -> float:
 
 
 def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
-                 kv: str | None = None):
+                 kv: str | None = None, make_cache=None):
     """Kernel B on one decode window (``ATTN_GEOMS``, or a case of
     ``WINDOW_MASK_CASES``), on a cache of q's dtype or of the fp8 dtype
     ``kv`` with tails in ``tail_dtype`` of it (e4m3 beside e4m3, bf16
@@ -750,7 +782,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     bounded by the longest paged length as the runner bounds it, by the
     block tables' capacity, and by 0 (one split, which must take every
     tile); at a path's shapes also the times, with the plan made once as
-    the runner makes it."""
+    the runner makes it. The MLA instance on an fp8 cache must equal its
+    bf16 self on the cache and tails upcast to bf16, bit for bit, at every
+    step and plan. ``make_cache``: ``paged_cache``'s stand-in."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.window_decode_attention import (
@@ -762,8 +796,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     opts = geom.get("opts", {})
     R, Kw, layer = len(plens), 64, 1
     kvd = kv_type(dtype, kv)
-    cache, bt = paged_cache(gen, [p + Kw for p in plens], kvd, KVH, hd=HD,
-                            page=geom.get("page", PAGE))
+    cache, bt = (make_cache or paged_cache)(
+        gen, [p + Kw for p in plens], kvd, KVH, hd=HD,
+        page=geom.get("page", PAGE))
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
                          device="cuda").to(tail_dtype(kvd))
     tail_v = torch.randn((2, R, KVH, Kw, HD), generator=gen,
@@ -781,6 +816,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     clean = (cache.clone(), tail_k, tail_v) if stale else None
     if stale:  # page slots past the paged lengths and the null page
         poison_stale(cache, bt, plens)
+    # The bf16 self of an fp8 MLA instance: the upcast cache, its own plans.
+    upcast = geom.get("mla") and dtype == torch.bfloat16 and kv is not None
+    up_cache = cache.to(dtype) if upcast else None
     err = 0.0
     for step in (0, 1, 31, 48, 63):
         if stale:  # and the tail's slots past the step
@@ -805,6 +843,14 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
                         plan=p, **opts)):
                 raise AssertionError("window MLA instance: two launches "
                                      "differ")
+            if upcast and not torch.equal(out, window_decode_attention(
+                    q, up_cache, tail_k.to(dtype), tail_v.to(dtype), layer,
+                    step, pl, bt, scale,
+                    plan=p and p._replace(kv_dtype=dtype), **opts)):
+                raise AssertionError(
+                    f"window MLA instance on a {kv} cache, step {step}, plan "
+                    f"bounded by {bound}: not its bf16 self on the upcast "
+                    "cache and tails, bit for bit")
             e = (out.float() - ref.float()).abs().max().item()
             if e > limit:
                 raise AssertionError(
@@ -2479,16 +2525,20 @@ def ssm_parity() -> None:
 
 
 def main_path_mamba() -> dict:
-    """Mamba-2.8B bf16 at full width and depth, phase 6's traffic at the
+    """Mamba-2.8B bf16 at full width (``MAMBA_DEPTH`` of its 64 layers:
+    every layer runs the same scan), phase 6's traffic at the
     JAX SSM bench's 4096-token budget (benchmarks/ssm_bench.py:52):
     prefill waves of up to 4096 tokens (each [4096, 5120, 16] fp32 scan
     input 1.34 GB), then a decode window of 32 one-token rows. The scan must run
     once a layer in every forward of the runner."""
     from aphrodite_tpu_torch.ops.selective_scan import selective_scan
+    hf = dict(MAMBA_2P8B, num_hidden_layers=MAMBA_DEPTH)
+    log(f"# phase 10: depth cut to {MAMBA_DEPTH} of "
+        f"{MAMBA_2P8B['num_hidden_layers']} layers")
     return serve_workload(
-        "phase 10", "mamba-2.8b-dummy", MAMBA_2P8B,
+        "phase 10", "mamba-2.8b-dummy", hf,
         {"selective_scan": selective_scan}, batch_tokens=4096,
-        per_forward={"selective_scan": MAMBA_2P8B["num_hidden_layers"]})[0]
+        per_forward={"selective_scan": MAMBA_DEPTH})[0]
 
 
 GEMMA2_9B = dict(  # google/gemma-2-9b config.json
@@ -3013,9 +3063,9 @@ def profile_run(one_run, phase: str = "phase 4",
         k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\d+, \w+, \w+, "
                                            r"true", n) else
              "ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
-             or re.search(r"mla_kernel<\w+, false>", n) else
+             or re.search(r"mla_kernel<\w+, false, \w+>", n) else
              "window" if "wd_split" in n or "wd_merge" in n
-             or re.search(r"mla_kernel<\w+, true>", n)
+             or re.search(r"mla_kernel<\w+, true, \w+>", n)
              or "mla_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
@@ -4430,25 +4480,29 @@ def scalar_instances():
             setattr(m, n, fn)
 
 
-def check_mla_cascade(gen, dtype_name: str, page: int) -> float:
+def check_mla_cascade(gen, dtype_name: str, page: int,
+                      kv: str | None = None) -> float:
     """The shared-prefix pass at head_dim 576 (its CUDA-core instance, bf16
     too) and the window kernel started from its state (the MLA instance in
     bf16, two launches bit-equal): 8 requests of 16 heads sharing 4
-    pages, against the plain cascade; returns the error (held at
-    ``scaled_tol``)."""
+    pages, on a cache of q's dtype or of the fp8 dtype ``kv`` (tails in
+    ``tail_dtype`` of it), against the plain cascade; returns the error
+    (held at ``scaled_tol``)."""
     import torch
     from aphrodite_tpu_torch.ops.cascade_attention import (
         ref_cascade_window_decode, shared_prefix_attention)
     from aphrodite_tpu_torch.ops.window_decode_attention import (
-        window_decode_attention)
+        tail_dtype, window_decode_attention)
     dtype = getattr(torch, dtype_name)
+    kvd = kv_type(dtype, kv)
     R, nq, hd, S, Kw = 8, 16, 576, 4 * page, 64
     plens = [S + 40 + 7 * r for r in range(R)]
-    cache, bt = paged_cache(gen, [p + Kw for p in plens], dtype, 1, hd=hd,
+    cache, bt = paged_cache(gen, [p + Kw for p in plens], kvd, 1, hd=hd,
                             page=page)
     bt[:, :S // page] = bt[0, :S // page]
     tk, tv = (torch.randn((2, R, 1, Kw, hd), generator=gen,
-                          device="cuda").to(dtype) for _ in range(2))
+                          device="cuda").to(tail_dtype(kvd))
+              for _ in range(2))
     q = torch.randn((R, nq, hd), generator=gen, device="cuda").to(dtype)
     pl = torch.tensor(plens, dtype=torch.int32, device="cuda")
     sp = bt[0, :S // page].contiguous()
@@ -4464,8 +4518,8 @@ def check_mla_cascade(gen, dtype_name: str, page: int) -> float:
         e = (out.float() - ref.float()).abs().max().item()
         if not (e <= scaled_tol(dtype_name, ref)
                 and torch.isfinite(out).all()):
-            raise AssertionError(f"MLA cascade {dtype_name} step {step}: "
-                                 f"max_abs_err {e}")
+            raise AssertionError(f"MLA cascade {dtype_name}{kv_label(kv)} "
+                                 f"step {step}: max_abs_err {e}")
         if dtype == torch.bfloat16 and not torch.equal(
                 out, window_decode_attention(
                     q, cache, tk, tv, 1, step, pl, bt, MLA_SCALE,
@@ -4528,6 +4582,122 @@ def check_grouped_v2lite(gen) -> dict:
         f"{label} {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
         f"ms ({tot['bound_by']})")
     return tot
+
+
+class OneAllocation:
+    """``paged_cache``'s caches, bf16 and fp8 alike, copied into one
+    allocation so that layer 1 (the checks' layer) of each starts at the
+    same address: a bf16 and an fp8 cache of the same pages then share the
+    MLA instances' tensor-map key but for the element type."""
+
+    def __init__(self) -> None:
+        self.bufs = {}  # by the elements of a layer
+
+    def __call__(self, gen, ctx, dtype, kvh, hd=HD, page=PAGE):
+        import torch
+        cache, bt = paged_cache(gen, ctx, dtype, kvh, hd=hd, page=page)
+        layer = cache[0].numel()
+        if layer not in self.bufs:  # two bf16 layers
+            self.bufs[layer] = torch.empty(4 * layer, dtype=torch.uint8,
+                                           device="cuda")
+        off = 2 * layer - layer * cache.element_size()
+        view = self.bufs[layer][off:off + cache.numel()
+                                * cache.element_size()]
+        view = view.view(cache.dtype).view(cache.shape)
+        view.copy_(cache)
+        return view, bt
+
+
+def check_mla_map_key(gen) -> float:
+    """Both MLA instances at ``MLA_MASK_CASE``, bf16 and e4m3 caches in
+    turns (bf16, e4m3, bf16, e4m3) over one allocation whose layer 1 has
+    one base and one row count in both views (``OneAllocation``): each
+    launch against its plain version (and the e4m3 ones against their bf16
+    selves on the upcast cache). A tensor-map cache keyed without the
+    element type hands the second launch the first one's bf16 map.
+    Returns the largest error."""
+    one, err = OneAllocation(), 0.0
+    for kv in (None, KV_FP8[0], None, KV_FP8[0]):
+        for fn in (check_ragged, check_window):
+            err = max(err, fn(gen, "bfloat16", MLA_MASK_CASE, timed=False,
+                              kv=kv, make_cache=one))
+    return err
+
+
+def fp8_tol(name: str) -> str:
+    """How an fp8 MLA instance's error limit reads in the log."""
+    if name == "ragged_paged_attention":
+        return f"{TOL['bfloat16']} x max(1, max|ref|)"
+    return tol_text(name, "bfloat16")
+
+
+def mla_fp8_checks(gen, results: dict) -> None:
+    """Phase 2 for the fp8 cache at the MLA geometry: each MLA instance on
+    e4m3 and e5m2 caches (the window's tails e4m3 beside e4m3, bf16 beside
+    e5m2) at ``MLA_GEOMS`` against its plain version, bit-equal to its bf16
+    self on the upcast cache, two launches bit-equal, timed beside its
+    bf16 self (``results``) and SDPA on the upcast K/V, the bound with K/V
+    at one byte; at ``MLA_MASK_CASE`` with NaN in the stale slots on pages
+    of 16 and 64; the cascade at 576 on the fp8 cache; and bf16 and fp8
+    launches in turns over one allocation (``check_mla_map_key``)."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    for kv in KV_FP8:
+        for path, geom in MLA_GEOMS.items():
+            for name, fn, wrapper in (
+                    ("ragged_paged_attention", check_ragged,
+                     ragged_paged_attention),
+                    ("window_decode_attention", check_window,
+                     window_decode_attention)):
+                wrapper.instance_launches.update(mla=0, tensor_cores=0,
+                                                 scalar=0)
+                r = fn(gen, "bfloat16", geom, kv=kv)
+                inst = wrapper.instance_launches
+                if not (inst["mla"] > 0
+                        and inst["scalar"] == inst["tensor_cores"] == 0):
+                    raise AssertionError(f"{name} at {path}, {kv} cache: "
+                                         f"{wrapper.instance_launches}")
+                self_ = results[(f"{name}_mla", path, "bfloat16")]
+                extra = (f"device {r['device_ms']:.4f} ms" + (
+                    f", host {r['host_ms']:.4f} ms a call"
+                    if "host_ms" in r else ""))
+                log(f"# phase 2: {name} MLA instance bf16, {kv} cache, at "
+                    f"{path} shapes: max_abs_err {r['max_abs_err']:.3g} (tol "
+                    f"{fp8_tol(name)}), bit-equal to its bf16 "
+                    f"self on the upcast cache; kernel {r['ms']:.4f} ms "
+                    f"({extra}), its bf16-cache self {self_['ms']:.4f} ms "
+                    f"(device {self_['device_ms']:.4f} ms), plain "
+                    f"{r['plain_ms']:.4f} ms, sdpa on K/V upcast to bf16 "
+                    f"{r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f} ms), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}, K/V at 1 "
+                    "byte)")
+                results[(f"{name}_mla", path, "bfloat16", kv)] = r
+        for name, fn in (("ragged_paged_attention", check_ragged),
+                         ("window_decode_attention", check_window)):
+            for page in (16, PAGE):
+                for stale in (False, True):
+                    err = fn(gen, "bfloat16", dict(MLA_MASK_CASE, page=page,
+                                                   stale=stale),
+                             timed=False, kv=kv)
+                    log(f"# phase 2: {name} MLA instance, {kv} cache, at "
+                        f"head_dim 576 on {page}-token pages, soft cap 30 "
+                        f"and a 100-token window"
+                        f"{', NaN in the stale slots' if stale else ''}: "
+                        f"max_abs_err {err:.3g} (tol {fp8_tol(name)}), "
+                        "bit-equal to its bf16 self on the upcast cache")
+        for page in (16, PAGE):
+            log(f"# phase 2: shared_prefix_attention + window at head_dim "
+                f"576 bfloat16, {kv} cache (4 shared pages of {page}, R = "
+                f"8): max_abs_err "
+                f"{check_mla_cascade(gen, 'bfloat16', page, kv):.3g} (tol "
+                f"{TOL['bfloat16']} x min(1, max|ref|))")
+    log(f"# phase 2: both MLA instances, bf16 and {KV_FP8[0]} caches in "
+        f"turns over one allocation (one tensor-map key but the element): "
+        f"max_abs_err {check_mla_map_key(gen):.3g} (tol as above), each "
+        "right")
 
 
 def mla_checks(gen, results: dict) -> None:
@@ -4600,6 +4770,7 @@ def mla_checks(gen, results: dict) -> None:
                 "min(1, max|ref|))")
     results[("grouped_matmul", "deepseek-v2-lite-bf16", "bfloat16")] = \
         check_grouped_v2lite(gen)
+    mla_fp8_checks(gen, results)
 
 
 # Phase 23's tiny DeepSeek geometries (fp32): V2 greedy without q_lora, V2
@@ -4624,6 +4795,8 @@ DS_TINY = {
                routed_scaling_factor=2.5,
                architectures=["DeepseekV3ForCausalLM"]),
 }
+# The tiny configs phase 23 runs again on fp8 caches.
+DS_FP8_TINY = ("v2", "v3")
 # The bf16 tiny config at the real attention geometry: 16 heads on one
 # latent head of 512 + 64, 2 layers, narrow dense MLPs. Dense, because a
 # router's top-k flips between two experts at a near tie under bf16
@@ -4671,11 +4844,13 @@ def deepseek_parity() -> dict:
     equal; the scalar attention instances), with a 32-token batch budget,
     16-step decode windows and a second batch of three requests sharing a
     4-page prompt (the cascade: the shared-prefix pass, the window from its
-    state); then ``DS_TINY_BF16`` (dense MLPs) in bf16, whose every
-    attention launch must be on the MLA instances and whose logprobs, up
-    to the first token where the runs part, must lie within
-    ``DS_BF16_LOGPROB_TOL`` of the CPU's. Returns the card runs'
-    launches."""
+    state); ``DS_FP8_TINY`` (V2 and V3) again on e4m3 and e5m2 caches,
+    where the tokens may part only at ties (``same_tokens``: K/V rounded
+    to 8 bits); then ``DS_TINY_BF16`` (dense MLPs) in bf16, on a bf16 and
+    an e4m3 cache, whose every attention launch must be on the MLA
+    instances and whose logprobs, up to the first token where the runs
+    part, must lie within ``DS_BF16_LOGPROB_TOL`` of the CPU's. Returns the
+    card runs' launches."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.cascade_attention import (
@@ -4695,11 +4870,11 @@ def deepseek_parity() -> dict:
                "shared_prefix_attention": shared_prefix_attention}
     total = dict.fromkeys(counted, 0)
 
-    def engines(cfg, dtype):
+    def engines(cfg, dtype, kv="auto"):
         kw = dict(hf_config=cfg, tokenizer="unused", dtype=dtype,
                   block_size=16, num_kv_blocks=128, max_num_seqs=4,
                   max_num_batched_tokens=32, max_model_len=256,
-                  decode_window=16)
+                  decode_window=16, kv_cache_dtype=kv)
         cpu = LLM("tiny-deepseek", device="cpu", **kw)
         redraw_deepseek(cpu.engine.core.worker.model, 24)
         gpu = LLM("tiny-deepseek", device="cuda", **kw)
@@ -4716,14 +4891,22 @@ def deepseek_parity() -> dict:
             total[k] += v
         return out, got
 
-    for name, extra in DS_TINY.items():
-        cpu, gpu = engines(dict(DS_TINY_BASE, **extra), "float32")
+    runs = [(name, "auto") for name in DS_TINY]
+    runs += [(name, kv) for kv in ("fp8_e4m3", "fp8_e5m2")
+             for name in DS_FP8_TINY]
+    for name, kv in runs:
+        cpu, gpu = engines(dict(DS_TINY_BASE, **DS_TINY[name]), "float32",
+                           kv)
         for what, prompts in batches.items():
             a = traced(cpu, prompts, params)
             b, got = card_run(gpu, prompts)
-            if a[0] != b[0]:
+            parted = []
+            if kv == "auto" and a[0] != b[0]:
                 raise AssertionError(f"{name} {what}: cuda vs cpu greedy "
                                      f"tokens differ:\n{a[0]}\n{b[0]}")
+            if kv != "auto":  # K/V rounded to 8 bits: ties may part
+                parted = same_tokens(f"phase 23 {name} {kv} {what}", cpu,
+                                     gpu, prompts, a, b)
             if len({t for x in a[0] for t in x}) <= 10:
                 raise AssertionError(f"{name}: the tokens hardly vary")
             if got["ragged scalar"] <= 0 or got["window scalar"] <= 0 or \
@@ -4731,37 +4914,43 @@ def deepseek_parity() -> dict:
                     what == "shared prompt"
                     and got["shared_prefix_attention"] <= 0):
                 raise AssertionError(f"{name} {what}: launches {got}")
-            log(f"# phase 23: {name} fp32 {what}: cuda == cpu greedy tokens "
-                f"for {len(prompts)} prompts x 20; launches {got}")
+            log(f"# phase 23: {name} fp32, {kv} cache, {what}: cuda == cpu "
+                f"greedy tokens for {len(prompts)} prompts x 20"
+                + (f" but at partings (request, step, cpu, card, gap < "
+                   f"{GAP}) {parted}" if parted else "")
+                + f"; launches {got}")
         del cpu, gpu
-    cpu, gpu = engines(DS_TINY_BF16, "bfloat16")
-    for what, prompts in batches.items():
-        a = traced(cpu, prompts, params)
-        b, got = card_run(gpu, prompts)
-        worst, parted = 0.0, 0
-        for (ta, ra), (tb, rb) in zip(zip(*a), zip(*b)):
-            i = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
-                     len(ta))
-            parted += i < len(ta)
-            for j in range(min(i + 1, len(ta))):
-                worst = max(worst, (ra[j] - rb[j]).abs().max().item())
-        mla = got["ragged mla"] + got["window mla"]
-        if not (worst <= DS_BF16_LOGPROB_TOL and mla > 0
-                and mla == got["ragged_paged_attention"]
-                + got["window_decode_attention"]
-                and got["ragged scalar"] == got["window scalar"] == 0):
-            raise AssertionError(
-                f"bf16 {what}: logprobs up to the first parting differ by "
-                f"{worst} (tol {DS_BF16_LOGPROB_TOL}); launches {got}")
-        log(f"# phase 23: bf16 at the MLA geometry (16 / 1 heads of 576) "
-            f"{what}: logprobs within {worst:.4f} of the CPU's up to the "
-            f"first parting (tol {DS_BF16_LOGPROB_TOL}; {parted} of "
-            f"{len(prompts)} requests part); every attention launch on the "
-            f"MLA instances: {got}")
+    for kv in ("auto", "fp8_e4m3"):
+        cpu, gpu = engines(DS_TINY_BF16, "bfloat16", kv)
+        for what, prompts in batches.items():
+            a = traced(cpu, prompts, params)
+            b, got = card_run(gpu, prompts)
+            worst, parted = 0.0, 0
+            for (ta, ra), (tb, rb) in zip(zip(*a), zip(*b)):
+                i = next((i for i, (x, y) in enumerate(zip(ta, tb))
+                          if x != y), len(ta))
+                parted += i < len(ta)
+                for j in range(min(i + 1, len(ta))):
+                    worst = max(worst, (ra[j] - rb[j]).abs().max().item())
+            mla = got["ragged mla"] + got["window mla"]
+            if not (worst <= DS_BF16_LOGPROB_TOL and mla > 0
+                    and mla == got["ragged_paged_attention"]
+                    + got["window_decode_attention"]
+                    and got["ragged scalar"] == got["window scalar"] == 0):
+                raise AssertionError(
+                    f"bf16, {kv} cache, {what}: logprobs up to the first "
+                    f"parting differ by {worst} (tol {DS_BF16_LOGPROB_TOL}); "
+                    f"launches {got}")
+            log(f"# phase 23: bf16 at the MLA geometry (16 / 1 heads of "
+                f"576), {kv} cache, {what}: logprobs within {worst:.4f} of "
+                f"the CPU's up to the first parting (tol "
+                f"{DS_BF16_LOGPROB_TOL}; {parted} of {len(prompts)} requests "
+                f"part); every attention launch on the MLA instances: {got}")
+        del cpu, gpu
     return total
 
 
-def main_path_deepseek() -> dict:
+def main_path_deepseek(kv: str = "auto") -> dict:
     """Phase 24: DeepSeek-V2-Lite bf16 at full width and depth (27 layers,
     16 heads on one latent head of 576, 64 experts top-6 and 2 shared,
     15.7 B parameters of seeded dummy weights), phase 6's traffic: one
@@ -4769,8 +4958,11 @@ def main_path_deepseek() -> dict:
     GEMM twice a MoE layer), then one 63-step window (the window MLA
     instance once a layer a sub-step; the MoE on the dense route). In
     every cold and warm run exactly: ragged 27 and window 1701, all on the
-    MLA instances; grouped 52; 0 on the other instances."""
+    MLA instances; grouped 52; 0 on the other instances. Phase 27 (``kv``
+    "fp8_e4m3"): the same on an FP8-E4M3 cache, the MLA instances' fp8
+    ones. Logs the KV pool's bytes a token."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    phase = "phase 24" if kv == "auto" else "phase 27"
     L, steps = DEEPSEEK_V2_LITE["num_hidden_layers"], 63
     moe = L - DEEPSEEK_V2_LITE["first_k_dense_replace"]
     exact = {"ragged_paged_attention": L, "ragged mla": L,
@@ -4778,11 +4970,19 @@ def main_path_deepseek() -> dict:
              "grouped_matmul": 2 * moe}
     exact.update({f"{k} {i}": 0 for k in ("ragged", "window")
                   for i in ("tensor_cores", "scalar")})
-    log(f"# phase 24: launches a run, reckoned: {exact}")
-    return serve_workload(
-        "phase 24", "deepseek-v2-lite-dummy", DEEPSEEK_V2_LITE,
+    log(f"# {phase}: launches a run, reckoned: {exact}")
+    counts, llm, _ = serve_workload(
+        phase, "deepseek-v2-lite-dummy", DEEPSEEK_V2_LITE,
         {**attention_kernels(), **instance_counts(),
-         "grouped_matmul": grouped_matmul}, exact=exact)[0]
+         "grouped_matmul": grouped_matmul}, exact=exact, kv_cache_dtype=kv)
+    pool = llm.engine.core.worker.runner.kv_cache
+    L_, pages, _, kvh, page, hd = pool.shape
+    log(f"# {phase}: KV pool {pool.dtype} {tuple(pool.shape)}: "
+        f"{pool.numel() * pool.element_size() / 2**30:.2f} GiB, "
+        f"{L_ * 2 * kvh * hd * pool.element_size()} bytes a token, "
+        f"{pages * page} tokens")
+    del llm, pool
+    return counts
 
 
 # Phase 25: tiny Gemma-3 multimodal and PaliGemma (Gemma and Gemma-2
@@ -5304,6 +5504,8 @@ def main() -> int:
     log(f"# phase 23: launches on the card runs {ds_parity_launches}")
     stamp("phase 24")
     deepseek_counts = main_path_deepseek()
+    stamp("phase 27")
+    deepseek_fp8_counts = main_path_deepseek("fp8_e4m3")
     stamp("phase 25")
     mm_parity_launches = mm_parity()
     stamp("phase 26")
@@ -5446,6 +5648,12 @@ def main() -> int:
     rows.append(("grouped_matmul", ds_path, "bfloat16",
                  deepseek_counts["grouped_matmul"],
                  results[("grouped_matmul", ds_path, "bfloat16")], "auto"))
+    # The fp8 MLA slice: both MLA instances' e4m3 ones on phase 27's path.
+    rows += [(f"{name}_mla", "deepseek-v2-lite-bf16-fp8-e4m3", "bfloat16",
+              deepseek_fp8_counts[f"{kind} mla"],
+              results[(f"{name}_mla", ds_path, "bfloat16", e4)], e4)
+             for name, kind in (("ragged_paged_attention", "ragged"),
+                                ("window_decode_attention", "window"))]
     for name in ("ragged_paged_attention", "window_decode_attention"):
         replaces[f"{name}_mla"] = replaces[name]
     # The vision slice: the ragged kernel's span instances on phase 26's

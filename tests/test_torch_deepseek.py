@@ -12,7 +12,8 @@ inputs (fp32):
   group-limited) and V3 models with non-trivial norms, DeepSeek-YaRN rope:
   logits and hidden states to 1e-4, the latent K/V written to 1e-5;
 - the geometry (one 576-wide latent KV head, the scale from qk_head_dim)
-  and what this slice leaves raising.
+  and what still raises (quantized DeepSeek, MiniCPM3), while an fp8
+  cache at the MLA geometry sizes the MLA instances.
 """
 import jax
 import jax.numpy as jnp
@@ -244,7 +245,7 @@ def test_prefill_and_window_match(models):
                                atol=1e-5)
 
 
-# ------------------------------------------------------- what still raises
+# ------------------------------------ what still raises, and what no longer
 def _llm(hf, **kw):
     return LLM("dummy", hf_config=hf, tokenizer="unused", device="cpu",
                block_size=16, num_kv_blocks=16, max_num_seqs=2,
@@ -267,14 +268,17 @@ def test_quantized_deepseek_raises(quant):
 
 
 def test_fp8_cache_on_the_mla_instances_raises():
-    """bf16 at the MLA geometry sizes the MLA instances, which take a bf16
-    cache only; fp32 runs the scalar instances, which take fp8."""
+    """An fp8 cache at the MLA geometry no longer raises: bf16 at 576 sizes
+    the MLA instances on e4m3 and e5m2 caches as on a bf16 one (4 tokens a
+    work item at V2-Lite's group of 16), and an engine with such a cache
+    builds; fp32 runs the scalar instances, which take fp8 too."""
     hf = ds_config(kv_lora_rank=512, qk_rope_head_dim=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        _llm(hf, dtype="bfloat16", kv_cache_dtype="fp8")
+    runner = _llm(hf, dtype="bfloat16",
+                  kv_cache_dtype="fp8").engine.core.worker.runner
+    assert runner.kv_cache.dtype == torch.float8_e4m3fn
     for kv in (torch.float8_e4m3fn, torch.float8_e5m2):
-        with pytest.raises(NotImplementedError, match="MLA"):
-            ragged_work_item_tokens(torch.bfloat16, 16, 576, 232448, kv)
+        assert ragged_work_item_tokens(torch.bfloat16, 16, 576, 232448,
+                                       kv) == 4
         assert ragged_work_item_tokens(torch.float32, 16, 576, 232448,
                                        kv) == 1
 

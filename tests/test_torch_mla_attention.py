@@ -65,10 +65,11 @@ RAGGED = {  # nq: [(context, new tokens)] (chunks sit past cached keys)
 }
 
 
-@pytest.mark.parametrize("name", sorted(RAGGED))
-def test_ragged_plain_matches_pallas_at_mla_geometry(name):
-    nq, reqs = RAGGED[name]
-    rng = np.random.RandomState(0)
+def _ragged_inputs(nq, reqs, rng):
+    """A mixed wave over requests of (context, new tokens) at the MLA
+    geometry, drawn from ``rng``: its fp32 cache and q, the port's ragged
+    wrapper and the Pallas kernel (interpret mode, 640 lanes) on them,
+    each as a function of (q, cache) in its own framework."""
     ctx = [c for c, _ in reqs]
     bt, P = _tables(rng, ctx)
     counts = [n for _, n in reqs]
@@ -90,7 +91,6 @@ def test_ragged_plain_matches_pallas_at_mla_geometry(name):
         token_req_idx=t(tok_req), token_pos=t(tok_pos),
         slot_mapping=t(slots.astype(np.int64)), seq_lens=t(seq_lens),
         block_tables=t(bt), block_q=4, **{k: t(v) for k, v in items.items()})
-    got = ragged_paged_attention(t(q), t(cache), LAYER, md, scale).numpy()
     jmd = JaxMD(
         token_req_idx=jnp.asarray(tok_req), token_pos=jnp.asarray(tok_pos),
         slot_mapping=jnp.asarray(slots), query_start_loc=jnp.asarray(qsl),
@@ -101,11 +101,22 @@ def test_ragged_plain_matches_pallas_at_mla_geometry(name):
     jmd = dataclasses.replace(jmd, **{
         k: jnp.asarray(v) for k, v in jax_items(
             qsl[:-1], np.diff(qsl), seq_lens, R, T, block_q, R).items()})
-    kern, _ = jax_ragged_kernel(jnp.asarray(_pad(q)),
-                                jnp.asarray(_pad(cache)), jmd, scale,
-                                block_q=block_q, chunk_pages=2,
-                                interpret=True, layer_idx=LAYER)
-    kern = np.asarray(kern)
+    return dict(
+        cache=cache, q=q,
+        port=lambda q_, c_: ragged_paged_attention(q_, c_, LAYER, md, scale),
+        pallas=lambda q_, c_: jax_ragged_kernel(
+            q_, c_, jmd, scale, block_q=block_q, chunk_pages=2,
+            interpret=True, layer_idx=LAYER)[0])
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED))
+def test_ragged_plain_matches_pallas_at_mla_geometry(name):
+    nq, reqs = RAGGED[name]
+    inp = _ragged_inputs(nq, reqs, np.random.RandomState(0))
+    t = torch.from_numpy
+    got = inp["port"](t(inp["q"]), t(inp["cache"])).numpy()
+    kern = np.asarray(inp["pallas"](jnp.asarray(_pad(inp["q"])),
+                                    jnp.asarray(_pad(inp["cache"]))))
     np.testing.assert_array_equal(kern[..., HD:], 0)
     np.testing.assert_allclose(got, kern[..., :HD], rtol=0, atol=ATOL)
 
