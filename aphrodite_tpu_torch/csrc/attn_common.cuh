@@ -22,6 +22,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
   return static_cast<float>(x);
 }
@@ -31,11 +32,11 @@ __device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) {
 
 // The fp8 KV cache. Every TPU kernel upcasts an fp8 K/V tile to q's dtype
 // before both products (e.g. ragged_paged_attention.py:194-196); e4m3 and
-// e5m2 values are exact in bf16 and fp32, so the kernels here convert the
-// staged bytes once and run their products as on a bf16 cache. One helper
-// for all four kernels: a pair of bytes to a bf16 pair by the hardware's
-// cvt.rn.f16x2.e4m3x2 / .e5m2x2 (exact in f16, NaN kept), then f16 -> fp32
-// -> bf16 (exact).
+// e5m2 values are exact in fp16, bf16 and fp32, so the kernels here convert
+// the staged bytes once and run their products as on a cache of q's dtype.
+// One helper for all four kernels: a pair of bytes to an f16 pair by the
+// hardware's cvt.rn.f16x2.e4m3x2 / .e5m2x2 (exact, NaN kept); for bf16
+// queries then f16 -> fp32 -> bf16 (exact).
 template <typename KV>
 constexpr bool is_fp8 = std::is_same<KV, __nv_fp8_e4m3>::value ||
                         std::is_same<KV, __nv_fp8_e5m2>::value;
@@ -46,27 +47,33 @@ template <typename KV>
 using tail_t = typename std::conditional<
     std::is_same<KV, __nv_fp8_e5m2>::value, __nv_bfloat16, KV>::type;
 
-template <typename KV>
-__device__ __forceinline__ uint32_t fp8x2_to_bf16x2(uint32_t two) {
+// Two fp8 values (the low 16 bits of `two`, the first in the low byte) as
+// two values of T (__nv_bfloat16 or __half) in one register.
+template <typename KV, typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t fp8x2_to(uint32_t two) {
   constexpr __nv_fp8_interpretation_t kind =
       std::is_same<KV, __nv_fp8_e5m2>::value ? __NV_E5M2 : __NV_E4M3;
-  const __half2 h =
+  __half2 h =
       __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two & 0xFFFFu), kind);
-  const float2 f = __half22float2(h);
-  __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
-  return *reinterpret_cast<uint32_t*>(&b);
+  if constexpr (std::is_same<T, __half>::value) {
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    const float2 f = __half22float2(h);
+    __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+    return *reinterpret_cast<uint32_t*>(&b);
+  }
 }
 
-// Sixteen fp8 values (v, first in its low byte) as sixteen bf16 at dst
+// Sixteen fp8 values (v, first in its low byte) as sixteen T at dst
 // (32 bytes, 16-byte aligned).
-template <typename KV>
-__device__ __forceinline__ void fp8x16_to_bf16(uint4 v, void* dst) {
+template <typename KV, typename T>
+__device__ __forceinline__ void fp8x16_to(uint4 v, void* dst) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
   uint32_t o[8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    o[2 * i] = fp8x2_to_bf16x2<KV>(w[i]);
-    o[2 * i + 1] = fp8x2_to_bf16x2<KV>(w[i] >> 16);
+    o[2 * i] = fp8x2_to<KV, T>(w[i]);
+    o[2 * i + 1] = fp8x2_to<KV, T>(w[i] >> 16);
   }
   uint4* d = reinterpret_cast<uint4*>(dst);
   d[0] = make_uint4(o[0], o[1], o[2], o[3]);
@@ -75,20 +82,56 @@ __device__ __forceinline__ void fp8x16_to_bf16(uint4 v, void* dst) {
 
 // The conversion pass of the tensor-core kernels: `rows` staged fp8 rows
 // of HD bytes (K then V of a tile, as cp.async left them, 16 bytes a copy)
-// into the bf16 tile layout that their ldmatrix code reads (rows of `pitch`
-// bf16), by `threads` threads from `tid`. The caller synchronises before
-// and after.
-template <typename KV, int HD>
-__device__ __forceinline__ void convert_rows(const uint8_t* src,
-                                             __nv_bfloat16* dst, int rows,
-                                             int pitch, int tid,
+// into the tile layout of T that their ldmatrix code reads (rows of
+// `pitch` elements), by `threads` threads from `tid`. The caller
+// synchronises before and after.
+template <typename KV, int HD, typename T>
+__device__ __forceinline__ void convert_rows(const uint8_t* src, T* dst,
+                                             int rows, int pitch, int tid,
                                              int threads) {
   constexpr int kChunks = HD / 16;
   for (int i = tid; i < rows * kChunks; i += threads) {
     const int j = i / kChunks, c = i - j * kChunks;
-    fp8x16_to_bf16<KV>(
+    fp8x16_to<KV, T>(
         *reinterpret_cast<const uint4*>(src + (size_t)j * HD + c * 16),
         dst + (size_t)j * pitch + c * 16);
+  }
+}
+
+// bf16 -> fp16, exact inside fp16's range. A finite bf16 value past fp16's
+// largest (65504) would round to inf; it saturates to +-65504 instead.
+// Such a value reaches a kernel only as an fp16 K or V row that the bf16
+// tail rounded up (at most to 65536), so saturation returns the row's
+// magnitude to within 0.05 %; inf and NaN stay as they are.
+__device__ __forceinline__ uint32_t bf16x2_to_f16x2(uint32_t two) {
+  float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&two));
+  if (fabsf(f.x) > 65504.f && fabsf(f.x) != INFINITY)
+    f.x = copysignf(65504.f, f.x);
+  if (fabsf(f.y) > 65504.f && fabsf(f.y) != INFINITY)
+    f.y = copysignf(65504.f, f.y);
+  __half2 h = __floats2half2_rn(f.x, f.y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The window's bf16 tail tile under fp16 queries (beside an e5m2 cache),
+// converted in place in the fp16 tile that ldmatrix reads: `rows` rows of
+// HD values at `pitch` elements, each 16-byte chunk by one thread. The
+// caller synchronises before and after.
+template <int HD>
+__device__ __forceinline__ void bf16_rows_to_f16(void* tile, int rows,
+                                                 int pitch, int tid,
+                                                 int threads) {
+  constexpr int kChunks = HD / 8;
+  for (int i = tid; i < rows * kChunks; i += threads) {
+    const int j = i / kChunks, c = i - j * kChunks;
+    uint4* p = reinterpret_cast<uint4*>(reinterpret_cast<uint16_t*>(tile) +
+                                        (size_t)j * pitch + c * 8);
+    uint4 v = *p;
+    v.x = bf16x2_to_f16x2(v.x);
+    v.y = bf16x2_to_f16x2(v.y);
+    v.z = bf16x2_to_f16x2(v.z);
+    v.w = bf16x2_to_f16x2(v.w);
+    *p = v;
   }
 }
 template <typename T> __device__ __forceinline__ T from_float(float x);
@@ -98,6 +141,9 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -188,7 +234,7 @@ __device__ __forceinline__ int first_visible(int q_lo, int sliding_window,
 
 // dtype codes shared with the Python wrappers: q's, and the cache's (the
 // cache in q's dtype, or fp8 e4m3fn / e5m2).
-enum AttnDtype { kFloat32 = 0, kBFloat16 = 1 };
+enum AttnDtype { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 enum KvDtype { kKvAuto = 0, kKvE4M3 = 1, kKvE5M2 = 2 };
 
 // The shared memory a block of the current device may opt in to

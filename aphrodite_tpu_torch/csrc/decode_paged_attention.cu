@@ -14,21 +14,21 @@
 // Bound. At the Gemma-2-9B decode step (R 32, kvh 8, hd 256, ~545 keys) a
 // launch reads ~143 MB of bf16 K/V: bound by bytes, >= 43 us at 3.35 TB/s.
 //
-// dpa_split_tc_kernel (bf16 at head_dim 64, 128 or 256, groups <= 16):
+// dpa_split_tc_kernel (bf16 and fp16 at head_dim 64, 128 or 256, groups <= 16):
 // split-KV on the tensor cores, split::tc_split of csrc/split_decode.cuh
-// (shared with the window kernel). A request's visible keys, from
-// first_visible(pos) to pos, are cut into tiles (64 keys; 32 at head_dim
-// 256, so that the 2-stage ring and Q take ~76 KB and three blocks share
-// an SM) and the tiles into splits: grid (request, KV head, split), split
-// s taking tiles [s * tps, (s + 1) * tps) and the last split all the rest,
-// so a plan made from too low a bound on the context costs speed, never
-// keys. The host plan (ops/decode_paged_attention.py: decode_plan) is made
-// once a decode window by the runner. Each split writes its unnormalized
-// state to a scratch buffer and dpa_merge_kernel, launched right after it,
-// merges the splits in a fixed order. The soft cap and ALiBi are template
-// switches (a runtime option once cost ~27 % of a window launch through a
-// spill); only the tiles that hold the first visible key or the query take
-// the mask.
+// (shared with the window kernel; q's dtype a template parameter, fp16's
+// products f32.f16.f16.f32). A request's visible keys, from first_visible(pos)
+// to pos, are cut into tiles (64 keys; 32 at head_dim 256, so that the 2-stage
+// ring and Q take ~76 KB and three blocks share an SM) and the tiles into
+// splits: grid (request, KV head, split), split s taking tiles [s * tps, (s +
+// 1) * tps) and the last split all the rest, so a plan made from too low a
+// bound on the context costs speed, never keys. The host plan
+// (ops/decode_paged_attention.py: decode_plan) is made once a decode window by
+// the runner. Each split writes its unnormalized state to a scratch buffer and
+// dpa_merge_kernel, launched right after it, merges the splits in a fixed
+// order. The soft cap and ALiBi are template switches (a runtime option once
+// cost ~27 % of a window launch through a spill); only the tiles that hold the
+// first visible key or the query take the mask.
 //
 // An fp8 cache (template type KV, e4m3fn or e5m2; a Gemma model with
 // kv_cache_dtype "fp8" decodes here): the TPU kernel upcasts each K/V tile
@@ -37,7 +37,8 @@
 // (split_decode.cuh); dpa_kernel stages the bytes as words and converts
 // each value as it reads it. The bytes bound halves.
 //
-// dpa_kernel (fp32, and bf16 at other head dims or larger groups): the
+// dpa_kernel (fp32, and bf16 or fp16 at other head dims or larger
+// groups): the
 // first version, in full fp32 (tensor cores would take fp32 through TF32),
 // so that the fp32 parity paths stay token-exact. One block runs one
 // (request, KV head) with its group of query rows; the visible keys are
@@ -61,8 +62,8 @@ __device__ __forceinline__ float dot_words(const float* q_row,
   float dot = 0.f;
   for (int w = 0; w < words; ++w) {
     const unsigned u = k_row[w];
-    const uint32_t lo = attn::fp8x2_to_bf16x2<T>(u);
-    const uint32_t hi = attn::fp8x2_to_bf16x2<T>(u >> 16);
+    const uint32_t lo = attn::fp8x2_to<T>(u);
+    const uint32_t hi = attn::fp8x2_to<T>(u >> 16);
     const float2 a =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
     const float2 b =
@@ -81,6 +82,19 @@ __device__ __forceinline__ float dot_words<float>(const float* q_row,
   float dot = 0.f;
   for (int w = 0; w < words; ++w)
     dot = fmaf(q_row[w], __uint_as_float(k_row[w]), dot);
+  return dot;
+}
+template <>
+__device__ __forceinline__ float dot_words<__half>(const float* q_row,
+                                                   const unsigned* k_row,
+                                                   int words) {
+  float dot = 0.f;
+  for (int w = 0; w < words; ++w) {
+    const unsigned u = k_row[w];
+    const float2 k = __half22float2(*reinterpret_cast<const __half2*>(&u));
+    dot = fmaf(q_row[2 * w], k.x, dot);
+    dot = fmaf(q_row[2 * w + 1], k.y, dot);
+  }
   return dot;
 }
 template <>
@@ -245,7 +259,7 @@ dpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   }
 }
 
-// ------------------------------------------------ tensor-core split (bf16)
+// ------------------------------------------ tensor-core split (bf16, fp16)
 // Keys per tile of the tensor-core instance.
 template <int HD>
 constexpr int kTcKeys = HD <= 128 ? 64 : 32;
@@ -264,6 +278,7 @@ struct DecodeKeys {
     return kv_base + it * KEYS + j;
   }
   __device__ __forceinline__ bool fp8(int) const { return attn::is_fp8<KV>; }
+  __device__ __forceinline__ bool recast(int) const { return false; }
   __device__ __forceinline__ bool kv(int it, int j, const uint8_t** k,
                                      const uint8_t** v) const {
     const int p = key(it, j);
@@ -288,9 +303,9 @@ struct DecodeKeys {
 };
 
 // Three blocks an SM: at most 170 registers a thread.
-template <int HD, bool kCap, bool kAlibi, typename KV>
+template <typename T, int HD, bool kCap, bool kAlibi, typename KV>
 __global__ void __launch_bounds__(split::kThreads, 3)
-dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
+dpa_split_tc_kernel(const T* __restrict__ q,
                     const KV* __restrict__ cache,
                     float* __restrict__ part_acc, float* __restrict__ part_m,
                     float* __restrict__ part_l,
@@ -324,21 +339,21 @@ dpa_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
   keys.page_elems = (size_t)page_size * HD;
   const int n_my = split::my_tiles(n, ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_dpa[];
-  split::tc_split<HD, KEYS, kCap, kAlibi, KV>(
+  split::tc_split<T, HD, KEYS, kCap, kAlibi, KV>(
       q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap,
       kAlibi ? alibi + h * group : nullptr, keys, part_acc, part_m, part_l,
       split, splits, smem_dpa);
 }
 
 // One block a query row (r * nq + query head): split::merge_row.
+template <typename T>
 __global__ void __launch_bounds__(128)
 dpa_merge_kernel(const float* __restrict__ part_acc,
                  const float* __restrict__ part_m,
-                 const float* __restrict__ part_l,
-                 __nv_bfloat16* __restrict__ out, int hd, int splits) {
-  split::merge_row<__nv_bfloat16, false>(blockIdx.x, part_acc, part_m,
-                                         part_l, out, nullptr, nullptr,
-                                         nullptr, hd, splits);
+                 const float* __restrict__ part_l, T* __restrict__ out,
+                 int hd, int splits) {
+  split::merge_row<T, false>(blockIdx.x, part_acc, part_m, part_l, out,
+                             nullptr, nullptr, nullptr, hd, splits);
 }
 
 struct TcArgs {
@@ -355,15 +370,15 @@ struct TcArgs {
   cudaStream_t stream;
 };
 
-template <int HD, bool kCap, bool kAlibi, typename KV>
+template <typename T, int HD, bool kCap, bool kAlibi, typename KV>
 int split_tc(const TcArgs& a) {
   constexpr int kSmem = split::TcCfg<HD, kTcKeys<HD>, KV>::kSmem;
   cudaError_t err =
-      mma::allow_smem<dpa_split_tc_kernel<HD, kCap, kAlibi, KV>>(kSmem);
+      mma::allow_smem<dpa_split_tc_kernel<T, HD, kCap, kAlibi, KV>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  dpa_split_tc_kernel<HD, kCap, kAlibi, KV>
+  dpa_split_tc_kernel<T, HD, kCap, kAlibi, KV>
       <<<dim3(a.num_reqs, a.kvh, a.splits), split::kThreads, kSmem,
-         a.stream>>>(static_cast<const __nv_bfloat16*>(a.q),
+         a.stream>>>(static_cast<const T*>(a.q),
                      static_cast<const KV*>(a.cache), a.part_acc,
                      a.part_m, a.part_l, a.seq_lens, a.block_tables, a.alibi,
                      a.max_pages, a.nq, a.kvh, a.page_size, a.scale,
@@ -371,26 +386,36 @@ int split_tc(const TcArgs& a) {
                      a.tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dpa_merge_kernel<<<a.num_reqs * a.nq, 128, 0, a.stream>>>(
-      a.part_acc, a.part_m, a.part_l, static_cast<__nv_bfloat16*>(a.out),
-      HD, a.splits);
+  dpa_merge_kernel<T><<<a.num_reqs * a.nq, 128, 0, a.stream>>>(
+      a.part_acc, a.part_m, a.part_l, static_cast<T*>(a.out), HD,
+      a.splits);
   return (int)cudaGetLastError();
 }
 
-template <int HD, typename KV>
+template <typename T, int HD, typename KV>
 int split_tc(const TcArgs& a) {
   const bool cap = a.soft_cap > 0.f, alibi = a.alibi != nullptr;
-  if (cap && alibi) return split_tc<HD, true, true, KV>(a);
-  if (cap) return split_tc<HD, true, false, KV>(a);
-  if (alibi) return split_tc<HD, false, true, KV>(a);
-  return split_tc<HD, false, false, KV>(a);
+  if (cap && alibi) return split_tc<T, HD, true, true, KV>(a);
+  if (cap) return split_tc<T, HD, true, false, KV>(a);
+  if (alibi) return split_tc<T, HD, false, true, KV>(a);
+  return split_tc<T, HD, false, false, KV>(a);
 }
 
-template <typename KV>
+template <typename T, typename KV>
 int split_tc_hd(const TcArgs& a) {
-  if (a.hd == 64) return split_tc<64, KV>(a);
-  if (a.hd == 128) return split_tc<128, KV>(a);
-  if (a.hd == 256) return split_tc<256, KV>(a);
+  if (a.hd == 64) return split_tc<T, 64, KV>(a);
+  if (a.hd == 128) return split_tc<T, 128, KV>(a);
+  if (a.hd == 256) return split_tc<T, 256, KV>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core split and its merge for queries of T, on a cache in T
+// or fp8 (a KvDtype code).
+template <typename T>
+int split_tc_kv(int kv_dtype, const TcArgs& a) {
+  if (kv_dtype == kKvAuto) return split_tc_hd<T, T>(a);
+  if (kv_dtype == kKvE4M3) return split_tc_hd<T, __nv_fp8_e4m3>(a);
+  if (kv_dtype == kKvE5M2) return split_tc_hd<T, __nv_fp8_e5m2>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -435,14 +460,14 @@ int launch_kv(int kv_dtype, const void* q, const void* cache, void* out,
 
 }  // namespace
 
-// One call, on `stream`. tensor_cores: the bf16 split instance (head_dim
-// 64, 128 or 256, nq / kvh <= 16): the split kernel over `splits` splits of
-// `tiles_per_split` tiles, then the merge; part_acc [R, nq, splits, hd],
-// part_m and part_l [R, nq, splits] fp32 scratch. Else dpa_kernel with
-// `warps` warps and `smem_bytes` of shared memory (computed by the
+// One call, on `stream`. tensor_cores: the bf16 or fp16 split instance (dtype 1
+// or 2; head_dim 64, 128 or 256, nq / kvh <= 16): the split kernel over
+// `splits` splits of `tiles_per_split` tiles, then the merge; part_acc [R, nq,
+// splits, hd], part_m and part_l [R, nq, splits] fp32 scratch. Else dpa_kernel
+// with `warps` warps and `smem_bytes` of shared memory (computed by the
 // wrapper: q [group, hd] fp32, then `warps` WarpSmem regions); the split
-// arguments are then unused. alibi: [nq] fp32 slopes or null. kv_dtype:
-// the cache's KvDtype code (its dtype is q's, or fp8).
+// arguments are then unused. alibi: [nq] fp32 slopes or null. kv_dtype: the
+// cache's KvDtype code (its dtype is q's, or fp8).
 extern "C" int dpa_launch(int dtype, int kv_dtype, int tensor_cores,
                           const void* q,
                           const void* cache_layer, void* out,
@@ -456,16 +481,14 @@ extern "C" int dpa_launch(int dtype, int kv_dtype, int tensor_cores,
   auto s = static_cast<cudaStream_t>(stream);
   if (kvh <= 0 || nq % kvh) return (int)cudaErrorInvalidValue;
   if (tensor_cores) {
-    if (dtype != kBFloat16 || nq / kvh > 16 || splits < 1 ||
-        tiles_per_split < 1)
+    if (nq / kvh > 16 || splits < 1 || tiles_per_split < 1)
       return (int)cudaErrorInvalidValue;
     const TcArgs a{q, cache_layer, out, part_acc, part_m, part_l, seq_lens,
                    block_tables, alibi, num_reqs, max_pages, nq, kvh,
                    page_size, hd, scale, sliding_window, chunk_attn,
                    soft_cap, splits, tiles_per_split, s};
-    if (kv_dtype == kKvAuto) return split_tc_hd<__nv_bfloat16>(a);
-    if (kv_dtype == kKvE4M3) return split_tc_hd<__nv_fp8_e4m3>(a);
-    if (kv_dtype == kKvE5M2) return split_tc_hd<__nv_fp8_e5m2>(a);
+    if (dtype == kBFloat16) return split_tc_kv<__nv_bfloat16>(kv_dtype, a);
+    if (dtype == kFloat16) return split_tc_kv<__half>(kv_dtype, a);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kFloat32)
@@ -479,5 +502,10 @@ extern "C" int dpa_launch(int dtype, int kv_dtype, int tensor_cores,
                                     nq, kvh, page_size, hd, scale,
                                     sliding_window, chunk_attn, soft_cap,
                                     warps, smem_bytes, s);
+  if (dtype == kFloat16)
+    return launch_kv<__half>(kv_dtype, q, cache_layer, out, seq_lens,
+                             block_tables, alibi, num_reqs, max_pages, nq,
+                             kvh, page_size, hd, scale, sliding_window,
+                             chunk_attn, soft_cap, warps, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -87,7 +87,7 @@
 // an fp8 K/V tile to q's dtype before both products
 // (ragged_paged_attention.py:194-196, window_decode_attention.py:162-164),
 // and wgmma has no bf16 x fp8 form, so the bytes become bf16 in shared
-// memory, exactly (attn::fp8x2_to_bf16x2), in the same 147,456 bytes:
+// memory, exactly (attn::fp8x2_to), in the same 147,456 bytes:
 // - the ring holds the staged bytes, two stages of a K and a V tile of
 //   18,432 bytes each, loaded by TMA in boxes of 192 columns (a consumer
 //   warpgroup's three chunks; 192 bytes a row, no swizzle) from one-byte
@@ -484,14 +484,14 @@ __device__ __forceinline__ void convert_third(const uint8_t* src,
     if (row < n) {
       const uint4 v = *reinterpret_cast<const uint4*>(
           src + w * kKV8Third + row * kThirdCols + (4 * cc + q4) * 16);
-      lo = make_uint4(attn::fp8x2_to_bf16x2<KV>(v.x),
-                      attn::fp8x2_to_bf16x2<KV>(v.x >> 16),
-                      attn::fp8x2_to_bf16x2<KV>(v.y),
-                      attn::fp8x2_to_bf16x2<KV>(v.y >> 16));
-      hi = make_uint4(attn::fp8x2_to_bf16x2<KV>(v.z),
-                      attn::fp8x2_to_bf16x2<KV>(v.z >> 16),
-                      attn::fp8x2_to_bf16x2<KV>(v.w),
-                      attn::fp8x2_to_bf16x2<KV>(v.w >> 16));
+      lo = make_uint4(attn::fp8x2_to<KV>(v.x),
+                      attn::fp8x2_to<KV>(v.x >> 16),
+                      attn::fp8x2_to<KV>(v.y),
+                      attn::fp8x2_to<KV>(v.y >> 16));
+      hi = make_uint4(attn::fp8x2_to<KV>(v.z),
+                      attn::fp8x2_to<KV>(v.z >> 16),
+                      attn::fp8x2_to<KV>(v.w),
+                      attn::fp8x2_to<KV>(v.w >> 16));
     } else if (!kZero) {
       continue;
     }

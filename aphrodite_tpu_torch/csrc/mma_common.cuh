@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 kernels
 // (attention, grouped GEMM, quantized GEMMs): 16-byte cp.async into shared
-// memory, ldmatrix fragments and mma.sync m16n8k16 (bf16 in, fp32
+// memory, ldmatrix fragments and mma.sync m16n8k16 (bf16 or fp16 in, fp32
 // accumulate), and the host's shared-memory opt-in. Fragment layouts, for lane l, g = l / 4 and t = l % 4:
 //   A (16 x 16, row-major): a0 (row g, k 2t..2t+1), a1 (row g + 8, same k),
 //     a2 (row g, k 2t + 8..), a3 (row g + 8, k 2t + 8..);
@@ -9,8 +9,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mma {
 
@@ -65,6 +68,25 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same with fp16 operands (the attention kernels' fp16 instances).
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b with operands of the element type T (__nv_bfloat16 or
+// __half): one source serves both instances of a kernel.
+template <typename T>
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  if constexpr (std::is_same<T, __half>::value) mma_f16(c, a, b);
+  else mma_bf16(c, a, b);
+}
+
 // 2^x by the special-function unit (ex2.approx: 2 ulp; 2^-inf = +0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -76,6 +98,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to fp16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to T (__nv_bfloat16 or __half) in one register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) return pack_f16(lo, hi);
+  else return pack_bf16(lo, hi);
 }
 
 // Raise a kernel's dynamic shared memory limit to `bytes`, calling the

@@ -22,8 +22,10 @@
 // bf16 tensor-core peak. The 8B wave (32 x 512) is ~0.34 GB against
 // ~69 GFLOP: bound by bytes, >= 0.10 ms.
 //
-// rpa_tc_kernel (bf16 at head_dim 64, 128 and 256): FlashAttention-2 on
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate). A block is 4 warps and
+// rpa_tc_kernel (bf16 and fp16 at head_dim 64, 128 and 256):
+// FlashAttention-2 on mma.sync m16n8k16 (bf16 or fp16 in, fp32
+// accumulate; the element type T a template parameter, so one source
+// serves both). A block is 4 warps and
 // two blocks share an SM, so that one block's loads and barriers overlap
 // the other's products. At head_dim <= 128 each warp owns 32 rows (two
 // 16-row m-tiles, so every K and V fragment read from shared memory
@@ -37,8 +39,9 @@
 // its key row's page through the block table, so a tile may span pages
 // of 16, 32 or 64 tokens. Rows are padded by 8 bf16 (16 bytes) so that
 // the 8 rows an ldmatrix reads fall in 8 distinct bank groups. S = Q K^T
-// reads K with ldmatrix, PV takes P in registers (rounded to bf16) as the
-// A operand and V through ldmatrix.trans. The online softmax (m, l) lives
+// reads K with ldmatrix, PV takes P in registers (rounded to q's dtype, as
+// the TPU kernel rounds P to V's, :225-227) as the A operand and V through
+// ldmatrix.trans. The online softmax (m, l) lives
 // in registers, reduced across the lane quad by shuffles, with base-2
 // exponents and the scale folded into one FFMA. The soft cap is a
 // template switch and the mask a uniform branch around its loop, applied
@@ -89,12 +92,22 @@
 // upcasts each K/V tile to q's dtype before both products (:194-196), and
 // so do these. The tensor-core instance stages the tile's bytes by 16-byte
 // cp.async (16 keys' values a copy: half the bytes of a bf16 tile) into a
-// ring of its own, converts them once into the bf16 tile that ldmatrix
-// reads (attn::convert_rows, one more barrier a tile), and runs the same
+// ring of its own, converts them once into the tile of q's dtype that
+// ldmatrix reads (attn::convert_rows, one more barrier a tile: under fp16
+// one cvt a pair of values, under bf16 three steps), and runs the same
 // products; the scalar one converts to fp32 as it stages. Bound: the K/V
 // bytes halve.
 //
-// rpa_kernel (fp32, and bf16 at other head dims): the first version, kept
+// fp16 queries (an fp16 model): the same tensor-core instances with
+// T = __half, their products f32.f16.f16.f32 (the TPU kernel computes in
+// q's dtype with fp32 accumulation, :194-200), built in a translation unit
+// of their own (csrc/ragged_f16.cu, entry rpa_tc_f16_launch) so that nvcc
+// compiles them beside the bf16 ones. The span switch is not instantiated
+// in fp16 (the wrapper raises), nor is the MLA geometry. The scalar
+// instance takes __half as one more type, where bf16 would go there too.
+//
+// rpa_kernel (fp32, and bf16 or fp16 at other head dims): the first
+// version, kept
 // so that the fp32 parity paths stay exact (tensor cores would take fp32
 // through TF32): rows in shared memory as float, 32-key tiles staged by
 // all threads, one warp a row, lane j owning key j. Where one token's group
@@ -256,7 +269,8 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
 
 }  // namespace
 
-// The scalar kernel (fp32 or bf16 q, any head_dim; the cache in q's dtype
+// The scalar kernel (fp32, bf16 or fp16 q, any head_dim; the cache in q's
+// dtype
 // or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null; spans
 // int32 [R, num_spans, 2] image spans or null). A work
 // item's block_q * (nq / kvh) rows are cut into slices of block_rows, one
@@ -293,15 +307,23 @@ extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
                                     block_q, block_rows, scale,
                                     sliding_window, chunk_attn, soft_cap,
                                     alibi, spans, num_spans, smem_bytes, s);
+  if (dtype == kFloat16)
+    return launch_kv<__half>(kv_dtype, q, cache_layer, out, item_req,
+                             item_qstart, item_qlen, item_pos, seq_lens,
+                             block_tables, num_items, max_pages, nq, kvh,
+                             page_size, hd, block_q, block_rows, scale,
+                             sliding_window, chunk_attn, soft_cap, alibi,
+                             spans, num_spans, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel without image spans (bf16 q, head_dim 64, 128 or
-// 256; the cache bf16 or fp8, kv_dtype a KvDtype code; alibi [nq] fp32
-// slopes or null; spans must be null: csrc/ragged_spans.cu takes them).
-// block_q * (nq / kvh) must fit the instance's rows (128 at head_dim <=
-// 128, 64 at 256: ops/ragged_paged_attention.py ragged_tc_block_q).
-extern "C" int rpa_tc_launch(int kv_dtype, const void* q,
+// The bf16 tensor-core kernel without image spans (dtype must be
+// kBFloat16: csrc/ragged_f16.cu takes fp16; head_dim 64, 128 or 256; the
+// cache bf16 or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or
+// null; spans must be null: csrc/ragged_spans.cu takes them). block_q *
+// (nq / kvh) must fit the instance's rows (128 at head_dim <= 128, 64 at
+// 256: ops/ragged_paged_attention.py ragged_tc_block_q).
+extern "C" int rpa_tc_launch(int dtype, int kv_dtype, const void* q,
                              const void* cache_layer, void* out,
                              const int* item_req, const int* item_qstart,
                              const int* item_qlen, const int* item_pos,
@@ -311,8 +333,8 @@ extern "C" int rpa_tc_launch(int kv_dtype, const void* q,
                              int sliding_window, int chunk_attn,
                              float soft_cap, const float* alibi,
                              const int* spans, int num_spans, void* stream) {
-  return rpa_tc_dispatch<false>(
-      kv_dtype, q, cache_layer, out, item_req, item_qstart, item_qlen,
+  return rpa_tc_dispatch<false, __nv_bfloat16>(
+      dtype, kv_dtype, q, cache_layer, out, item_req, item_qstart, item_qlen,
       item_pos, seq_lens, block_tables, num_items, max_pages, nq, kvh,
       page_size, hd, block_q, scale, sliding_window, chunk_attn, soft_cap,
       alibi, spans, num_spans, static_cast<cudaStream_t>(stream));

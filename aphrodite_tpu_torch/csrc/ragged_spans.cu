@@ -5,11 +5,12 @@
 // instances without spans.
 #include "ragged_tc.cuh"
 
-// The tensor-core kernel with image spans (bf16 q, head_dim 64, 128 or 256;
+// The tensor-core kernel with image spans (dtype must be kBFloat16: no
+// fp16 instance takes spans; head_dim 64, 128 or 256;
 // the cache bf16 or fp8, kv_dtype a KvDtype code; spans int32 [R,
 // num_spans, 2] (lo, hi) per image, -1 padding; alibi must be null: no
 // model has both). block_q * (nq / kvh) must fit the instance's rows.
-extern "C" int rpa_tc_spans_launch(int kv_dtype, const void* q,
+extern "C" int rpa_tc_spans_launch(int dtype, int kv_dtype, const void* q,
                                    const void* cache_layer, void* out,
                                    const int* item_req,
                                    const int* item_qstart,
@@ -22,8 +23,8 @@ extern "C" int rpa_tc_spans_launch(int kv_dtype, const void* q,
                                    int chunk_attn, float soft_cap,
                                    const float* alibi, const int* spans,
                                    int num_spans, void* stream) {
-  return rpa_tc_dispatch<true>(
-      kv_dtype, q, cache_layer, out, item_req, item_qstart, item_qlen,
+  return rpa_tc_dispatch<true, __nv_bfloat16>(
+      dtype, kv_dtype, q, cache_layer, out, item_req, item_qstart, item_qlen,
       item_pos, seq_lens, block_tables, num_items, max_pages, nq, kvh,
       page_size, hd, block_q, scale, sliding_window, chunk_attn, soft_cap,
       alibi, spans, num_spans, static_cast<cudaStream_t>(stream));

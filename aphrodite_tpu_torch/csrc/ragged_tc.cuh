@@ -1,9 +1,10 @@
-// The ragged kernel's tensor-core instance (rpa_tc_kernel, bf16 at
-// head_dim 64, 128 and 256) and the image-span helpers, shared by the two
-// translation units that instantiate it: csrc/ragged_paged_attention.cu
-// (no spans; the scalar instance too) and csrc/ragged_spans.cu (the span
-// instances, kSpans), built side by side so that neither holds the whole
-// set of instances. csrc/ragged_paged_attention.cu describes the kernels.
+// The ragged kernel's tensor-core instance (rpa_tc_kernel, bf16 and fp16
+// at head_dim 64, 128 and 256) and the image-span helpers, shared by the
+// three translation units that instantiate it: csrc/ragged_paged_attention.cu
+// (bf16 without spans; the scalar instance too), csrc/ragged_spans.cu (the
+// bf16 span instances, kSpans) and csrc/ragged_f16.cu (fp16 without spans),
+// built side by side so that none holds the whole set of instances.
+// csrc/ragged_paged_attention.cu describes the kernels.
 #pragma once
 
 #include "attn_common.cuh"
@@ -42,7 +43,7 @@ __device__ __forceinline__ void row_span(const int* __restrict__ sp,
   }
 }
 
-// ------------------------------------------------- tensor-core kernel (bf16)
+// ------------------------------------------ tensor-core kernel (bf16, fp16)
 // 4 warps; each owns kMT 16-row m-tiles (2 at head_dim <= 128: the B
 // fragments of K and V serve both; 1 at 256, where O alone is 128
 // registers a thread). Two blocks fit an SM's registers and shared memory.
@@ -54,7 +55,7 @@ struct TcCfg {
   static constexpr int kThreads = kWarps * 32;  // 128: __launch_bounds__
   static constexpr int kRows = kWarps * 16 * kMT;     // query rows a block
   static constexpr int kKeys = HD <= 128 ? 64 : 32;   // keys a tile
-  static constexpr int kPitch = HD + 8;               // bf16 a staged row
+  static constexpr int kPitch = HD + 8;               // 16-bit elements a row
   static constexpr int kStages = HD <= 64 ? 3 : 2;
   static constexpr int kRing = (kRows + kStages * 2 * kKeys) * kPitch * 2;
   static constexpr int kStaged =
@@ -62,11 +63,14 @@ struct TcCfg {
   static constexpr int kSmem = kRing + kStaged;
 };
 
-template <int HD, bool kCap, bool kAlibi, bool kSpans, typename KV>
+// T: q's and the output's element type (__nv_bfloat16 or __half), which
+// the products take; K/V in T or fp8 (KV), converted to T in shared memory.
+template <typename T, int HD, bool kCap, bool kAlibi, bool kSpans,
+          typename KV>
 __global__ void __launch_bounds__(128, 2)
-rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
+rpa_tc_kernel(const T* __restrict__ q,
               const KV* __restrict__ cache,
-              __nv_bfloat16* __restrict__ out,
+              T* __restrict__ out,
               const int* __restrict__ item_req,
               const int* __restrict__ item_qstart,
               const int* __restrict__ item_qlen,
@@ -82,7 +86,7 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using C = TcCfg<HD, KV>;
   constexpr bool kFp8 = is_fp8<KV>;
   constexpr int BN = C::kKeys, P = C::kPitch, CPR = HD / 8, MT = C::kMT;
-  // 16-byte copies a K (or V) row takes: 8 bf16 or 16 fp8 values each.
+  // 16-byte copies a K (or V) row takes: 8 16-bit or 16 fp8 values each.
   constexpr int KCPR = kFp8 ? HD / 16 : CPR;
   constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
   const int item = blockIdx.x, h = blockIdx.y;
@@ -106,8 +110,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const float cap_scale = kCap ? scale / soft_cap : 0.f;
 
   extern __shared__ uint4 smem_tc[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [rows, P]
-  __nv_bfloat16* kv_s = q_s + C::kRows * P;  // [stages][K, V][BN, P]
+  T* q_s = reinterpret_cast<T*>(smem_tc);  // [rows, P]
+  T* kv_s = q_s + C::kRows * P;             // [stages][K, V][BN, P]
   // fp8: [stages][K, V][BN, HD] bytes, converted into kv_s's stage.
   uint8_t* stg = reinterpret_cast<uint8_t*>(smem_tc) + C::kRing;
 
@@ -118,7 +122,7 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int i = tid + k * C::kThreads;
     const int r = i / CPR, c = i - r * CPR;
     const bool ok = r < rows;
-    const __nv_bfloat16* src = q;
+    const T* src = q;
     if (ok) {
       const int t = r / group, g = r - t * group;
       src = q + ((size_t)(qstart + t) * nq + h * group + g) * HD + c * 8;
@@ -129,7 +133,7 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // staged bytes), each thread finding its key rows' pages; keys at or
   // past kv_limit are zero. Copy c of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int t, int stage) {
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * BN * P;
+    T* ks = kv_s + (size_t)stage * 2 * BN * P;
     uint8_t* kb = stg + (size_t)stage * 2 * BN * HD;
 #pragma unroll
     for (int k = 0; k < BN * KCPR / C::kThreads; ++k) {
@@ -216,7 +220,7 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l_r[mt][0] = l_r[mt][1] = 0.f;
   }
   // ldmatrix addresses: A (Q rows) and B of K (row-major) and V (.trans).
-  const __nv_bfloat16* q_w = q_s + (w_row + (lane & 15)) * P + (lane >> 4) * 8;
+  const T* q_w = q_s + (w_row + (lane & 15)) * P + (lane >> 4) * 8;
   const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
   const int v_off = (lane & 15) * P + (lane >> 4) * 8;
 
@@ -228,10 +232,10 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int it = 0; it < n_tiles; ++it) {
     cp_async_wait<C::kStages - 2>();  // tile it has landed
     __syncthreads();                  // and tile it - 1 is consumed
-    if constexpr (kFp8)  // its bytes into the stage's bf16 tile
-      convert_rows<KV, HD>(stg + (size_t)(it % C::kStages) * 2 * BN * HD,
-                           kv_s + (size_t)(it % C::kStages) * 2 * BN * P,
-                           2 * BN, P, tid, C::kThreads);
+    if constexpr (kFp8)  // its bytes into the stage's tile of T
+      convert_rows<KV, HD, T>(stg + (size_t)(it % C::kStages) * 2 * BN * HD,
+                              kv_s + (size_t)(it % C::kStages) * 2 * BN * P,
+                              2 * BN, P, tid, C::kThreads);
     {
       const int nx = it + C::kStages - 1;
       if (nx < n_tiles) load_tile(t_lo + nx, nx % C::kStages);
@@ -240,8 +244,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (kFp8) __syncthreads();  // the converted tile is whole
     const int kv0 = (t_lo + it) * BN;
     if (!warp_live || kv0 > w_end || kv0 + BN <= w_first) continue;
-    const __nv_bfloat16* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
-    const __nv_bfloat16* vs = ks + BN * P;
+    const T* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
+    const T* vs = ks + BN * P;
 
     // S = Q K^T for the warp's rows and the tile's keys.
     float s[MT][NT][4];
@@ -263,8 +267,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4(b, ks + np * 16 * P + kc * 16 + k_off);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * np], a[mt], b);
-          mma_bf16(s[mt][2 * np + 1], a[mt], b + 2);
+          mma16816<T>(s[mt][2 * np], a[mt], b);
+          mma16816<T>(s[mt][2 * np + 1], a[mt], b + 2);
         }
       }
     }
@@ -360,16 +364,17 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
 
-    // O += P V: P's accumulators are the A fragments of 16-key chunks.
+    // O += P V: P's accumulators, rounded to T (the TPU kernel rounds P to
+    // V's dtype, :225-227), are the A fragments of 16-key chunks.
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
       uint32_t a[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        a[mt][0] = pack_bf16(s[mt][2 * kc][0], s[mt][2 * kc][1]);
-        a[mt][1] = pack_bf16(s[mt][2 * kc][2], s[mt][2 * kc][3]);
-        a[mt][2] = pack_bf16(s[mt][2 * kc + 1][0], s[mt][2 * kc + 1][1]);
-        a[mt][3] = pack_bf16(s[mt][2 * kc + 1][2], s[mt][2 * kc + 1][3]);
+        a[mt][0] = pack<T>(s[mt][2 * kc][0], s[mt][2 * kc][1]);
+        a[mt][1] = pack<T>(s[mt][2 * kc][2], s[mt][2 * kc][3]);
+        a[mt][2] = pack<T>(s[mt][2 * kc + 1][0], s[mt][2 * kc + 1][1]);
+        a[mt][3] = pack<T>(s[mt][2 * kc + 1][2], s[mt][2 * kc + 1][3]);
       }
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
@@ -377,8 +382,8 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4_trans(b, vs + kc * 16 * P + dp * 16 + v_off);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][2 * dp], a[mt], b);
-          mma_bf16(o[mt][2 * dp + 1], a[mt], b + 2);
+          mma16816<T>(o[mt][2 * dp], a[mt], b);
+          mma16816<T>(o[mt][2 * dp + 1], a[mt], b + 2);
         }
       }
     }
@@ -397,16 +402,17 @@ rpa_tc_kernel(const __nv_bfloat16* __restrict__ q,
       if (row >= rows) continue;
       const float inv = 1.f / fmaxf(l, 1e-20f);
       const int t = row / group, g = row - t * group;
-      __nv_bfloat16* dst =
+      T* dst =
           out + ((size_t)(qstart + t) * nq + h * group + g) * HD + 2 * tq;
 #pragma unroll
       for (int d = 0; d < DT; ++d)
         *reinterpret_cast<uint32_t*>(dst + d * 8) =
-            pack_bf16(o[mt][d][2 * hf] * inv, o[mt][d][2 * hf + 1] * inv);
+            pack<T>(o[mt][d][2 * hf] * inv, o[mt][d][2 * hf + 1] * inv);
     }
 }
 
-template <int HD, bool kCap, bool kAlibi, bool kSpans, typename KV>
+template <typename T, int HD, bool kCap, bool kAlibi, bool kSpans,
+          typename KV>
 int launch_tc(const void* q, const void* cache, void* out,
               const int* item_req, const int* item_qstart,
               const int* item_qlen, const int* item_pos, const int* seq_lens,
@@ -416,24 +422,27 @@ int launch_tc(const void* q, const void* cache, void* out,
               const int* spans, int num_spans, cudaStream_t stream) {
   using C = TcCfg<HD, KV>;
   const cudaError_t err =
-      mma::allow_smem<rpa_tc_kernel<HD, kCap, kAlibi, kSpans, KV>>(C::kSmem);
+      mma::allow_smem<rpa_tc_kernel<T, HD, kCap, kAlibi, kSpans, KV>>(
+          C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  rpa_tc_kernel<HD, kCap, kAlibi, kSpans, KV>
+  rpa_tc_kernel<T, HD, kCap, kAlibi, kSpans, KV>
       <<<dim3(num_items, kvh), C::kThreads, C::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(cache),
-      static_cast<__nv_bfloat16*>(out), item_req, item_qstart, item_qlen,
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
+      static_cast<T*>(out), item_req, item_qstart, item_qlen,
       item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size, scale,
       sliding_window, chunk_attn, soft_cap, alibi, spans, num_spans);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel's launch for the instances with (kSpans) or
-// without image spans: the switches of head_dim, the cache's dtype, the
-// soft cap and ALiBi (ALiBi beside spans is not instantiated: no model has
-// both). Returns a cudaError_t.
-template <bool kSpans>
-int rpa_tc_dispatch(int kv_dtype, const void* q, const void* cache_layer,
-                    void* out, const int* item_req, const int* item_qstart,
+// The tensor-core kernel's launch for the instances of element type T
+// (q's dtype code `dtype` must name it: the entry runs no other type's
+// instance) with (kSpans) or without image spans: the switches of head_dim,
+// the cache's dtype, the soft cap and ALiBi (ALiBi beside spans is not
+// instantiated: no model has both). Returns a cudaError_t.
+template <bool kSpans, typename T>
+int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
+                    const void* cache_layer, void* out,
+                    const int* item_req, const int* item_qstart,
                     const int* item_qlen, const int* item_pos,
                     const int* seq_lens, const int* block_tables,
                     int num_items, int max_pages, int nq, int kvh,
@@ -442,17 +451,19 @@ int rpa_tc_dispatch(int kv_dtype, const void* q, const void* cache_layer,
                     const float* alibi, const int* spans, int num_spans,
                     cudaStream_t s) {
   const bool cap = soft_cap > 0.f, ali = alibi != nullptr;
-  if (kvh <= 0 || nq % kvh || block_q <= 0 || (spans != nullptr) != kSpans ||
-      (kSpans && (ali || num_spans <= 0)))
+  constexpr int kCode =
+      std::is_same<T, __half>::value ? kFloat16 : kBFloat16;
+  if (dtype != kCode || kvh <= 0 || nq % kvh || block_q <= 0 ||
+      (spans != nullptr) != kSpans || (kSpans && (ali || num_spans <= 0)))
     return (int)cudaErrorInvalidValue;
   const int rows = block_q * (nq / kvh);
 #define RPA_TC(HD, KV)                                                      \
   if (hd == HD) {                                                           \
     if (rows > TcCfg<HD, KV>::kRows) return (int)cudaErrorInvalidValue;     \
-    return (cap ? (ali ? launch_tc<HD, true, !kSpans, kSpans, KV>           \
-                       : launch_tc<HD, true, false, kSpans, KV>)            \
-                : (ali ? launch_tc<HD, false, !kSpans, kSpans, KV>          \
-                       : launch_tc<HD, false, false, kSpans, KV>))(         \
+    return (cap ? (ali ? launch_tc<T, HD, true, !kSpans, kSpans, KV>        \
+                       : launch_tc<T, HD, true, false, kSpans, KV>)         \
+                : (ali ? launch_tc<T, HD, false, !kSpans, kSpans, KV>       \
+                       : launch_tc<T, HD, false, false, kSpans, KV>))(      \
         q, cache_layer, out, item_req, item_qstart, item_qlen, item_pos,    \
         seq_lens, block_tables, num_items, max_pages, nq, kvh, page_size,   \
         scale, sliding_window, chunk_attn, soft_cap, alibi, spans,          \
@@ -464,7 +475,7 @@ int rpa_tc_dispatch(int kv_dtype, const void* q, const void* cache_layer,
   RPA_TC(256, KV)     \
   return (int)cudaErrorInvalidValue;
   if (kv_dtype == kKvAuto) {
-    RPA_TC_KV(__nv_bfloat16)
+    RPA_TC_KV(T)
   }
   if (kv_dtype == kKvE4M3) {
     RPA_TC_KV(__nv_fp8_e4m3)

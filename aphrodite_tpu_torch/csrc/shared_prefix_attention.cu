@@ -15,8 +15,10 @@
 // state, ~2.2 us at 3.35 TB/s, and does 2.1 GFLOP, ~2.2 us on the bf16
 // tensor cores: per KV head a dense [R * group, hd] x [hd, S] product.
 //
-// spa_tc_kernel (bf16 at head_dim 64, 128 and 256): FlashAttention-2 on
-// mma.sync m16n8k16. A block is 4 warps of 16 query rows, 64 rows of one
+// spa_tc_kernel (bf16 and fp16 at head_dim 64, 128 and 256):
+// FlashAttention-2 on mma.sync m16n8k16, q's dtype a template parameter
+// (fp16's products f32.f16.f16.f32, P rounded to fp16 as the TPU kernel
+// rounds it to V's dtype). A block is 4 warps of 16 query rows, 64 rows of one
 // KV head, and one split of the shared keys; two blocks share an SM. Q is
 // staged once by cp.async and its A fragments re-read by ldmatrix every
 // tile (in registers they gained nothing); K and V come in tiles of 64 keys
@@ -40,7 +42,7 @@
 // memory (attn::convert_rows); spa_kernel converts to fp32 as it stages,
 // loading 8 bytes a vector. The bytes bound halves.
 //
-// spa_kernel (fp32, and bf16 at MLA's head_dim 576, which has no
+// spa_kernel (fp32, and bf16 or fp16 at MLA's head_dim 576, which has no
 // tensor-core instance): the first version on the CUDA cores in full fp32,
 // so that the fp32 parity paths stay token-exact. A block of 8 warps runs one
 // (tile of 32 query rows, KV head); a warp owns 4 rows and keeps their acc
@@ -207,7 +209,7 @@ spa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
   }
 }
 
-// ------------------------------------------------- tensor-core kernel (bf16)
+// ------------------------------------------ tensor-core kernel (bf16, fp16)
 constexpr int kMaxSplits = 32;  // the merge keeps a factor a (split, row)
 
 // 4 warps of 16 query rows; two blocks share an SM. An fp8 cache adds a
@@ -218,7 +220,7 @@ struct SpaCfg {
   static constexpr int kThreads = kWarps * 32;
   static constexpr int kRows = kWarps * 16;            // query rows a block
   static constexpr int kKeys = HD <= 128 ? 64 : 32;    // keys a tile
-  static constexpr int kPitch = HD + 8;                // bf16 a staged row
+  static constexpr int kPitch = HD + 8;                // 16-bit elements a row
   static constexpr int kStages = HD <= 64 ? 3 : 2;
   static constexpr int kRing = (kRows + kStages * 2 * kKeys) * kPitch * 2;
   static constexpr int kSmem =
@@ -228,9 +230,9 @@ struct SpaCfg {
                 "the merge's factors fit the ring");
 };
 
-template <int HD, typename KV>
+template <typename T, int HD, typename KV>
 __global__ void __launch_bounds__(128, 2)
-spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
+spa_tc_kernel(const T* __restrict__ q,
               const KV* __restrict__ cache,
               const int* __restrict__ shared_pages, int shared_len,
               float* __restrict__ acc_out, float* __restrict__ m_out,
@@ -241,7 +243,7 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using C = SpaCfg<HD, KV>;
   constexpr bool kFp8 = attn::is_fp8<KV>;
   constexpr int BN = C::kKeys, P = C::kPitch, CPR = HD / 8;
-  // 16-byte copies a K (or V) row takes: 8 bf16 or 16 fp8 values each.
+  // 16-byte copies a K (or V) row takes: 8 16-bit or 16 fp8 values each.
   constexpr int KCPR = kFp8 ? HD / 16 : CPR;
   constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
   const int h = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
@@ -259,8 +261,8 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   extern __shared__ uint4 smem_spa[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_spa);  // [64, P]
-  __nv_bfloat16* kv_s = q_s + C::kRows * P;  // [stages][K, V][BN, P]
+  T* q_s = reinterpret_cast<T*>(smem_spa);  // [64, P]
+  T* kv_s = q_s + C::kRows * P;              // [stages][K, V][BN, P]
   // fp8: [stages][K, V][BN, HD] bytes, converted into kv_s's stage.
   uint8_t* stg = reinterpret_cast<uint8_t*>(smem_spa) + C::kRing;
 
@@ -278,7 +280,7 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // Tile ta + it into ring stage `stage` (fp8: its staged bytes); keys
   // at or past S are zero. Copy c of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int it, int stage) {
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * BN * P;
+    T* ks = kv_s + (size_t)stage * 2 * BN * P;
     uint8_t* kb = stg + (size_t)stage * 2 * BN * HD;
 #pragma unroll
     for (int u = 0; u < BN * KCPR / C::kThreads; ++u) {
@@ -315,8 +317,7 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
   // ldmatrix addresses: A (Q rows, re-read every tile: kept in registers
   // they gain nothing) and B of K (row-major) and V (.trans).
-  const __nv_bfloat16* q_w =
-      q_s + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
+  const T* q_w = q_s + (warp * 16 + (lane & 15)) * P + (lane >> 4) * 8;
   const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
   const int v_off = (lane & 15) * P + (lane >> 4) * 8;
 
@@ -328,8 +329,8 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int it = 0; it < n_my; ++it) {
     cp_async_wait<C::kStages - 2>();  // tile it has landed
     __syncthreads();                  // and tile it - 1 is consumed
-    if constexpr (kFp8)  // its bytes into the stage's bf16 tile
-      attn::convert_rows<KV, HD>(
+    if constexpr (kFp8)  // its bytes into the stage's tile of T
+      attn::convert_rows<KV, HD, T>(
           stg + (size_t)(it % C::kStages) * 2 * BN * HD,
           kv_s + (size_t)(it % C::kStages) * 2 * BN * P, 2 * BN, P, tid,
           C::kThreads);
@@ -339,8 +340,8 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_commit();
     }
     if constexpr (kFp8) __syncthreads();  // the converted tile is whole
-    const __nv_bfloat16* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
-    const __nv_bfloat16* vs = ks + BN * P;
+    const T* ks = kv_s + (size_t)(it % C::kStages) * 2 * BN * P;
+    const T* vs = ks + BN * P;
 
     // S = Q K^T for the warp's rows and the tile's keys.
     float s[NT][4];
@@ -356,8 +357,8 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, ks + np * 16 * P + kc * 16 + k_off);
-        mma_bf16(s[2 * np], a, b);
-        mma_bf16(s[2 * np + 1], a, b + 2);
+        mma16816<T>(s[2 * np], a, b);
+        mma16816<T>(s[2 * np + 1], a, b + 2);
       }
     }
     // Only the last tile can hold keys past S (uniform branch).
@@ -404,16 +405,16 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      a[0] = pack<T>(s[2 * kc][0], s[2 * kc][1]);
+      a[1] = pack<T>(s[2 * kc][2], s[2 * kc][3]);
+      a[2] = pack<T>(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      a[3] = pack<T>(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 #pragma unroll
       for (int dp = 0; dp < HD / 16; ++dp) {
         uint32_t b[4];
         ldmatrix_x4_trans(b, vs + kc * 16 * P + dp * 16 + v_off);
-        mma_bf16(o[2 * dp], a, b);
-        mma_bf16(o[2 * dp + 1], a, b + 2);
+        mma16816<T>(o[2 * dp], a, b);
+        mma16816<T>(o[2 * dp + 1], a, b + 2);
       }
     }
   }
@@ -518,19 +519,20 @@ spa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) *counter = 0;
 }
 
-template <int HD, typename KV>
+template <typename T, int HD, typename KV>
 int launch_tc(const void* q, const void* cache, const int* shared_pages,
               int shared_len, float* acc, float* m, float* l, float* part,
               int* counters, int num_reqs, int nq, int kvh, int page_size,
               float scale, int splits, int tiles_per_split,
               cudaStream_t stream) {
   using C = SpaCfg<HD, KV>;
-  const cudaError_t err = mma::allow_smem<spa_tc_kernel<HD, KV>>(C::kSmem);
+  const cudaError_t err =
+      mma::allow_smem<spa_tc_kernel<T, HD, KV>>(C::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int rows = num_reqs * (nq / kvh);
   const dim3 grid((rows + C::kRows - 1) / C::kRows, kvh, splits);
-  spa_tc_kernel<HD, KV><<<grid, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(cache),
+  spa_tc_kernel<T, HD, KV><<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(cache),
       shared_pages, shared_len,
       acc, m, l, part, counters, num_reqs, nq, kvh, page_size, scale,
       tiles_per_split);
@@ -578,20 +580,39 @@ int launch(const void* q, const void* cache, const int* shared_pages,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_tc_kv(int kv_dtype, const void* q, const void* cache,
                  const int* shared_pages, int shared_len, float* acc,
                  float* m, float* l, float* part, int* counters, int num_reqs,
                  int nq, int kvh, int page_size, float scale, int splits,
                  int tiles_per_split, cudaStream_t s) {
-#define SPA_KV(KV)                                                           \
-  return launch_tc<HD, KV>(q, cache, shared_pages, shared_len, acc, m, l,   \
-                           part, counters, num_reqs, nq, kvh, page_size,    \
-                           scale, splits, tiles_per_split, s)
-  if (kv_dtype == kKvAuto) SPA_KV(__nv_bfloat16);
+#define SPA_KV(KV)                                                         \
+  return launch_tc<T, HD, KV>(q, cache, shared_pages, shared_len, acc, m, l, \
+                              part, counters, num_reqs, nq, kvh, page_size, \
+                              scale, splits, tiles_per_split, s)
+  if (kv_dtype == kKvAuto) SPA_KV(T);
   if (kv_dtype == kKvE4M3) SPA_KV(__nv_fp8_e4m3);
   if (kv_dtype == kKvE5M2) SPA_KV(__nv_fp8_e5m2);
 #undef SPA_KV
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel for queries of T at head_dim 64, 128 or 256.
+template <typename T>
+int launch_tc_hd(int kv_dtype, const void* q, const void* cache,
+                 const int* shared_pages, int shared_len, float* acc,
+                 float* m, float* l, float* part, int* counters, int num_reqs,
+                 int nq, int kvh, int page_size, int hd, float scale,
+                 int splits, int tiles_per_split, cudaStream_t s) {
+#define SPA_HD(HD)                                                          \
+  if (hd == HD)                                                             \
+    return launch_tc_kv<T, HD>(kv_dtype, q, cache, shared_pages, shared_len, \
+                               acc, m, l, part, counters, num_reqs, nq, kvh, \
+                               page_size, scale, splits, tiles_per_split, s);
+  SPA_HD(64)
+  SPA_HD(128)
+  SPA_HD(256)
+#undef SPA_HD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -613,10 +634,10 @@ int launch_kv(int kv_dtype, const void* q, const void* cache,
 
 }  // namespace
 
-// q [R, nq, hd] (code 0 fp32, 1 bf16) and the layer's cache [P, 2, kvh,
+// q [R, nq, hd] (code 0 fp32, 1 bf16, 2 fp16) and the layer's cache [P, 2, kvh,
 // page, hd] in q's dtype or fp8 (kv_dtype, a KvDtype code); shared_pages:
 // the pages holding the prefix's shared_len tokens, in order. acc [R, nq, hd], m and l [R, nq] fp32.
-// tensor_cores: spa_tc_kernel (bf16, head_dim 64, 128 or 256) over
+// tensor_cores: spa_tc_kernel (bf16 or fp16, head_dim 64, 128 or 256) over
 // `splits` splits of `tiles_per_split` tiles; with more than one split,
 // part holds splits * kvh * R * group * (hd + 2) floats of scratch and
 // counters ceil(R * group / 64) * kvh ints, zero before the launch (the
@@ -636,27 +657,19 @@ extern "C" int spa_launch(int dtype, int kv_dtype, int tensor_cores,
       page_size < 1)
     return (int)cudaErrorInvalidValue;
   if (tensor_cores) {
-    if (dtype != kBFloat16 || splits < 1 || splits > kMaxSplits ||
-        tiles_per_split < 1 ||
+    if (splits < 1 || splits > kMaxSplits || tiles_per_split < 1 ||
         (splits > 1 && (part == nullptr || counters == nullptr)))
       return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 64:
-        return launch_tc_kv<64>(kv_dtype, q, cache_layer, shared_pages,
-                                shared_len, acc, m, l, part, counters,
-                                num_reqs, nq, kvh, page_size, scale, splits,
-                                tiles_per_split, s);
-      case 128:
-        return launch_tc_kv<128>(kv_dtype, q, cache_layer, shared_pages,
-                                 shared_len, acc, m, l, part, counters,
-                                 num_reqs, nq, kvh, page_size, scale, splits,
-                                 tiles_per_split, s);
-      case 256:
-        return launch_tc_kv<256>(kv_dtype, q, cache_layer, shared_pages,
-                                 shared_len, acc, m, l, part, counters,
-                                 num_reqs, nq, kvh, page_size, scale, splits,
-                                 tiles_per_split, s);
-    }
+    if (dtype == kBFloat16)
+      return launch_tc_hd<__nv_bfloat16>(
+          kv_dtype, q, cache_layer, shared_pages, shared_len, acc, m, l,
+          part, counters, num_reqs, nq, kvh, page_size, hd, scale, splits,
+          tiles_per_split, s);
+    if (dtype == kFloat16)
+      return launch_tc_hd<__half>(
+          kv_dtype, q, cache_layer, shared_pages, shared_len, acc, m, l,
+          part, counters, num_reqs, nq, kvh, page_size, hd, scale, splits,
+          tiles_per_split, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == kFloat32)
@@ -667,5 +680,9 @@ extern "C" int spa_launch(int dtype, int kv_dtype, int tensor_cores,
     return launch_kv<__nv_bfloat16>(kv_dtype, q, cache_layer, shared_pages,
                                     shared_len, acc, m, l, num_reqs, nq, kvh,
                                     page_size, hd, scale, smem_bytes, s);
+  if (dtype == kFloat16)
+    return launch_kv<__half>(kv_dtype, q, cache_layer, shared_pages,
+                             shared_len, acc, m, l, num_reqs, nq, kvh,
+                             page_size, hd, scale, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,15 +8,22 @@
 // splits in a fixed order (an init state first where there is one): no
 // atomics, so a run is deterministic.
 //
-// The tile loop (tc_split): 4 warps stage each tile of K and V in bf16 by
-// 16-byte cp.async, double buffered, every thread finding its key row's
+// The tile loop (tc_split): 4 warps stage each tile of K and V in q's
+// dtype T (bf16 or fp16, a template parameter) by 16-byte cp.async,
+// double buffered, every thread finding its key row's
 // source through the caller's key policy (pages through the block table,
 // or the window's tail). A tile of an fp8 cache (or of the window's e4m3
 // tail) is staged as its bytes in a second double-buffered ring and
-// converted into the bf16 tile once it lands (attn::convert_rows): the
-// products then run as on bf16, as the TPU kernels upcast fp8 K/V to q's
-// dtype before both products. The group's query rows are padded to 16 as the A
-// operand of mma.sync m16n8k16 (in registers at head_dim <= 128, re-read
+// converted into the tile of T once it lands (attn::convert_rows): the
+// products then run as on a cache of q's dtype, as the TPU kernels upcast
+// fp8 K/V to q's dtype before both products. Under fp16 queries the
+// window's bf16 tails (beside an e5m2 cache) are staged as they are and
+// converted to fp16 in place (attn::bf16_rows_to_f16: exact inside fp16's
+// range), so that both products of every tile take fp16 operands; the
+// Pallas kernel multiplies fp16 q by the bf16 tail in fp32 and rounds the
+// tail's P to bf16 (window_decode_attention.py:182-187, 127-129), which
+// this kernel rounds to fp16. The group's query rows are padded to 16 as
+// the A operand of mma.sync m16n8k16 (in registers at head_dim <= 128, re-read
 // from shared memory at 256). A tile of kKeys keys gives each of kKeys /
 // 16 warps its own 16 keys; where that leaves warps over (32-key tiles),
 // the warps that share 16 keys split the head dim of P V between them
@@ -130,7 +137,7 @@ struct TcCfg {
   static constexpr int kKeys = KEYS;
   static constexpr int kKeyWarps = KEYS / 16;            // warps along keys
   static constexpr int kDimWarps = kWarps / kKeyWarps;   // along P V's dims
-  static constexpr int kPitch = HD + 8;                  // bf16 a staged row
+  static constexpr int kPitch = HD + 8;         // 16-bit elements a row
   static constexpr bool kQInRegs = HD <= 128;
   static constexpr int kRing = (16 + 2 * 2 * KEYS) * kPitch * 2;
   static constexpr int kSmem =
@@ -142,10 +149,13 @@ struct TcCfg {
 };
 
 // One block's split on the tensor cores. Rows row0 .. row0 + group - 1 of
-// q [*, HD] are the group's queries; the block walks n_my tiles, tile it
-// of its split. Keys (a policy object) answers, for key j of tile it:
+// q [*, HD] (of T: __nv_bfloat16 or __half) are the group's queries; the
+// block walks n_my tiles, tile it of its split. Keys (a policy object)
+// answers, for key j of tile it:
 //   bool fp8(it): the tile's rows are fp8 of type KV (staged and
-//     converted), else bf16;
+//     converted), else 16-bit;
+//   bool recast(it): the 16-bit rows are bf16 under fp16 queries
+//     (converted in place);
 //   bool kv(it, j, const uint8_t** k, const uint8_t** v): the first bytes
 //     of its K and V rows, or false where the key is hidden (it is then
 //     not read: zeros);
@@ -156,9 +166,10 @@ struct TcCfg {
 // Softmax units: the raw logit q.k (scale folded into the exponent) in the
 // plain instance, the scaled logit with a soft cap or ALiBi. slopes: the
 // group's ALiBi slopes (kAlibi).
-template <int HD, int KEYS, bool kCap, bool kAlibi, typename KV, class Keys>
+template <typename T, int HD, int KEYS, bool kCap, bool kAlibi, typename KV,
+          class Keys>
 __device__ __forceinline__ void tc_split(
-    const __nv_bfloat16* __restrict__ q, size_t row0, int group, int n_my,
+    const T* __restrict__ q, size_t row0, int group, int n_my,
     float scale, float soft_cap, const float* __restrict__ slopes,
     const Keys& keys, float* __restrict__ part_acc,
     float* __restrict__ part_m, float* __restrict__ part_l, int split,
@@ -179,8 +190,8 @@ __device__ __forceinline__ void tc_split(
     if (gq + 8 < group) slope_b = slopes[gq + 8];
   }
 
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [16, P]
-  __nv_bfloat16* kv_s = q_s + 16 * P;  // [2 stages][K, V][KEYS, P]
+  T* q_s = reinterpret_cast<T*>(smem);  // [16, P]
+  T* kv_s = q_s + 16 * P;               // [2 stages][K, V][KEYS, P]
   // [2 stages][K, V][KEYS, HD] staged fp8 bytes (an fp8 KV only).
   uint8_t* stg = reinterpret_cast<uint8_t*>(smem) + C::kRing;
 
@@ -208,8 +219,8 @@ __device__ __forceinline__ void tc_split(
       }
       return;
     }
-    __nv_bfloat16* ks = kv_s + (size_t)stage * 2 * KEYS * P;
-    __nv_bfloat16* vs = ks + KEYS * P;
+    T* ks = kv_s + (size_t)stage * 2 * KEYS * P;
+    T* vs = ks + KEYS * P;
 #pragma unroll
     for (int u = 0; u < KEYS * CPR / kThreads; ++u) {
       const int i = tid + u * kThreads;
@@ -227,21 +238,26 @@ __device__ __forceinline__ void tc_split(
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  const __nv_bfloat16* q_w = q_s + (lane & 15) * P + (lane >> 4) * 8;
+  const T* q_w = q_s + (lane & 15) * P + (lane >> 4) * 8;
 
   if (n_my > 0) load_tile(0, 0);
   cp_async_commit();  // with Q
   for (int it = 0; it < n_my; ++it) {
     cp_async_wait<0>();  // tile it has landed
     __syncthreads();     // and tile it - 1 is consumed
-    const bool staged = attn::is_fp8<KV> && keys.fp8(it);  // block-uniform
+    // Block-uniform: the tile's bytes to convert, or its bf16 to recast.
+    const bool staged = attn::is_fp8<KV> && keys.fp8(it);
+    const bool recast = !staged && keys.recast(it);
     if (staged)
-      attn::convert_rows<KV, HD>(stg + (size_t)(it & 1) * 2 * KEYS * HD,
-                                 kv_s + (size_t)(it & 1) * 2 * KEYS * P,
+      attn::convert_rows<KV, HD, T>(stg + (size_t)(it & 1) * 2 * KEYS * HD,
+                                    kv_s + (size_t)(it & 1) * 2 * KEYS * P,
+                                    2 * KEYS, P, tid, kThreads);
+    if (recast)
+      attn::bf16_rows_to_f16<HD>(kv_s + (size_t)(it & 1) * 2 * KEYS * P,
                                  2 * KEYS, P, tid, kThreads);
     if (it + 1 < n_my) load_tile(it + 1, (it + 1) & 1);
     cp_async_commit();
-    if (staged) __syncthreads();  // the converted tile is whole
+    if (staged || recast) __syncthreads();  // the converted tile is whole
     if constexpr (C::kQInRegs) {
       if (it == 0) {
 #pragma unroll
@@ -249,9 +265,8 @@ __device__ __forceinline__ void tc_split(
       }
     }
     // This warp's 16 keys of the tile.
-    const __nv_bfloat16* ks =
-        kv_s + (size_t)(it & 1) * 2 * KEYS * P + kw * 16 * P;
-    const __nv_bfloat16* vs = ks + KEYS * P;
+    const T* ks = kv_s + (size_t)(it & 1) * 2 * KEYS * P + kw * 16 * P;
+    const T* vs = ks + KEYS * P;
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kc = 0; kc < HD / 16; ++kc) {
@@ -262,8 +277,8 @@ __device__ __forceinline__ void tc_split(
       uint32_t b[4];
       ldmatrix_x4(b, ks + ((lane & 7) + ((lane >> 4) << 3)) * P + kc * 16 +
                          ((lane >> 3) & 1) * 8);
-      mma_bf16(s[0], a, b);
-      mma_bf16(s[1], a, b + 2);
+      mma16816<T>(s[0], a, b);
+      mma16816<T>(s[1], a, b + 2);
     }
     // ALiBi on the scaled logit, then the soft cap, then the mask: one
     // query position for every row, so the mask depends on the key only.
@@ -317,10 +332,10 @@ __device__ __forceinline__ void tc_split(
     l_a = l_a * al_a + s[0][0] + s[0][1] + s[1][0] + s[1][1];
     l_b = l_b * al_b + s[0][2] + s[0][3] + s[1][2] + s[1][3];
     uint32_t a[4];
-    a[0] = pack_bf16(s[0][0], s[0][1]);
-    a[1] = pack_bf16(s[0][2], s[0][3]);
-    a[2] = pack_bf16(s[1][0], s[1][1]);
-    a[3] = pack_bf16(s[1][2], s[1][3]);
+    a[0] = pack<T>(s[0][0], s[0][1]);  // P rounded to T
+    a[1] = pack<T>(s[0][2], s[0][3]);
+    a[2] = pack<T>(s[1][0], s[1][1]);
+    a[3] = pack<T>(s[1][2], s[1][3]);
 #pragma unroll
     for (int dp = 0; dp < DW / 16; ++dp) {
       o[2 * dp][0] *= al_a;
@@ -334,8 +349,8 @@ __device__ __forceinline__ void tc_split(
       uint32_t b[4];
       ldmatrix_x4_trans(b, vs + (lane & 15) * P + dw * DW + dp * 16 +
                                (lane >> 4) * 8);
-      mma_bf16(o[2 * dp], a, b);
-      mma_bf16(o[2 * dp + 1], a, b + 2);
+      mma16816<T>(o[2 * dp], a, b);
+      mma16816<T>(o[2 * dp + 1], a, b + 2);
     }
   }
   cp_async_wait<0>();

@@ -44,14 +44,19 @@
 // on the same stream, merges the init state and the splits in a fixed
 // order (init, split 0, 1, ...): no atomics, so a run is deterministic.
 //
-// wd_split_tc_kernel (bf16 at head_dim 64, 128 or 256, groups <= 16):
-// split::tc_split (csrc/split_decode.cuh, shared with the decode kernel)
-// with 64-key tiles at every head dim, the soft cap a template switch;
+// wd_split_tc_kernel (bf16 and fp16 at head_dim 64, 128 or 256, groups
+// <= 16): split::tc_split (csrc/split_decode.cuh, shared with the decode
+// kernel) with 64-key tiles at every head dim, q's dtype a template
+// parameter (fp16's products f32.f16.f16.f32), the soft cap a template
+// switch;
 // this file gives it the window's keys (WindowKeys: page tiles from the
-// first visible one, then tail tiles). The padding of the group's rows to
+// first visible one, then tail tiles; under fp16 queries its bf16 tails
+// beside an e5m2 cache are converted to fp16 in shared memory,
+// split_decode.cuh). The padding of the group's rows to
 // 16 is wasted work the bytes bound does not see.
 //
-// wd_split_kernel (fp32; bf16 at other head dims or larger groups): the
+// wd_split_kernel (fp32; bf16 and fp16 at other head dims or larger
+// groups): the
 // same tiles and states on the CUDA cores in full fp32 (no TF32), with the
 // first version's per-warp staging: sub-tiles of up to 32 keys within a
 // page, lane j owning key j, warps taking sub-tiles in turn. A group too
@@ -96,11 +101,12 @@ __device__ __forceinline__ Tiles request_tiles(int plen, int step,
   return tl;
 }
 
-// ------------------------------------------------ tensor-core split (bf16)
-// The window's keys for split::tc_split: tile it of the split that starts
-// at tile ta is a page tile (positions from (t0 + t) * 64) or a tail tile
-// (slots from (t - n_paged) * 64). Every tile takes the mask.
-template <int HD, typename KV>
+// ------------------------------------------ tensor-core split (bf16, fp16)
+// The window's keys for split::tc_split under queries of T: tile it of the
+// split that starts at tile ta is a page tile (positions from (t0 + t) *
+// 64) or a tail tile (slots from (t - n_paged) * 64). Every tile takes the
+// mask.
+template <typename T, int HD, typename KV>
 struct WindowKeys {
   using TT = attn::tail_t<KV>;
   const KV* cache;
@@ -117,6 +123,11 @@ struct WindowKeys {
   }
   __device__ __forceinline__ bool fp8(int it) const {
     return paged(ta + it) ? attn::is_fp8<KV> : attn::is_fp8<TT>;
+  }
+  // A bf16 tail tile under fp16 queries (beside an e5m2 cache).
+  __device__ __forceinline__ bool recast(int it) const {
+    return std::is_same<T, __half>::value &&
+           std::is_same<TT, __nv_bfloat16>::value && !paged(ta + it);
   }
   __device__ __forceinline__ bool kv(int it, int j, const uint8_t** k,
                                      const uint8_t** v) const {
@@ -149,9 +160,9 @@ struct WindowKeys {
   }
 };
 
-template <int HD, bool kCap, typename KV>
+template <typename T, int HD, bool kCap, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
-wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
+wd_split_tc_kernel(const T* __restrict__ q,
                    const KV* __restrict__ cache,
                    const attn::tail_t<KV>* __restrict__ tail_k,
                    const attn::tail_t<KV>* __restrict__ tail_v,
@@ -164,7 +175,7 @@ wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
                    float soft_cap, int shared_len, int tiles_per_split) {
   const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
-  WindowKeys<HD, KV> keys;
+  WindowKeys<T, HD, KV> keys;
   keys.cache = cache;
   keys.tail_k = tail_k;
   keys.tail_v = tail_v;
@@ -186,7 +197,7 @@ wd_split_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_my =
       my_tiles(keys.tl.n, keys.ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_wd[];
-  split::tc_split<HD, kKeys, kCap, false, KV>(
+  split::tc_split<T, HD, kKeys, kCap, false, KV>(
       q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap, nullptr,
       keys, part_acc, part_m, part_l, split, splits, smem_wd);
 }
@@ -336,16 +347,16 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, bool kCap, typename KV>
+template <typename T, int HD, bool kCap, typename KV>
 int split_tc(const Args& a) {
   constexpr int kSmem = split::TcCfg<HD, kKeys, KV>::kSmem;
   const cudaError_t err =
-      mma::allow_smem<wd_split_tc_kernel<HD, kCap, KV>>(kSmem);
+      mma::allow_smem<wd_split_tc_kernel<T, HD, kCap, KV>>(kSmem);
   if (err != cudaSuccess) return (int)err;
   using TT = attn::tail_t<KV>;
-  wd_split_tc_kernel<HD, kCap, KV>
+  wd_split_tc_kernel<T, HD, kCap, KV>
       <<<dim3(a.num_reqs, a.kvh, a.splits), kWarps * 32, kSmem, a.stream>>>(
-          static_cast<const __nv_bfloat16*>(a.q),
+          static_cast<const T*>(a.q),
           static_cast<const KV*>(a.cache), static_cast<const TT*>(a.tail_k),
           static_cast<const TT*>(a.tail_v), a.part_acc, a.part_m,
           a.part_l, a.paged_lens, a.block_tables, a.max_pages, a.nq, a.kvh,
@@ -354,17 +365,17 @@ int split_tc(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int HD, typename KV>
+template <typename T, int HD, typename KV>
 int split_tc(const Args& a) {
-  return a.soft_cap > 0.f ? split_tc<HD, true, KV>(a)
-                          : split_tc<HD, false, KV>(a);
+  return a.soft_cap > 0.f ? split_tc<T, HD, true, KV>(a)
+                          : split_tc<T, HD, false, KV>(a);
 }
 
-template <typename KV>
+template <typename T, typename KV>
 int split_tc_hd(const Args& a) {
-  if (a.hd == 64) return split_tc<64, KV>(a);
-  if (a.hd == 128) return split_tc<128, KV>(a);
-  if (a.hd == 256) return split_tc<256, KV>(a);
+  if (a.hd == 64) return split_tc<T, 64, KV>(a);
+  if (a.hd == 128) return split_tc<T, 128, KV>(a);
+  if (a.hd == 256) return split_tc<T, 256, KV>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -409,14 +420,26 @@ int merge(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// The tensor-core split on a cache in q's dtype T or fp8 (a KvDtype code),
+// then the merge.
+template <typename T>
+int tensor_cores_kv(int kv_dtype, const Args& a) {
+  int err = (int)cudaErrorInvalidValue;
+  if (kv_dtype == kKvAuto) err = split_tc_hd<T, T>(a);
+  else if (kv_dtype == kKvE4M3) err = split_tc_hd<T, __nv_fp8_e4m3>(a);
+  else if (kv_dtype == kKvE5M2) err = split_tc_hd<T, __nv_fp8_e5m2>(a);
+  return err != 0 ? err : merge<T>(a);
+}
+
 }  // namespace
 
 // One call launches the split kernel, then the merge, on `stream`.
-// tensor_cores: the bf16 instance (head_dim 64, 128 or 256, nq / kvh <=
-// 16); else the CUDA-core one with `warps` warps and `smem_bytes` of shared
-// memory, each block taking `block_rows` query heads of a KV head's group
-// (ops/window_decode_attention.py: window_warps, window_block_rows; the
-// bf16 MLA geometry runs csrc/mla_attention.cu). kv_dtype: the
+// tensor_cores: the bf16 or fp16 instance (dtype 1 or 2; head_dim 64, 128
+// or 256, nq / kvh <= 16); else the CUDA-core one (fp32, bf16 or fp16)
+// with `warps` warps and `smem_bytes` of shared memory, each block taking
+// `block_rows` query heads of a KV head's group (ops/
+// window_decode_attention.py: window_warps, window_block_rows; the bf16
+// MLA geometry runs csrc/mla_attention.cu). kv_dtype: the
 // cache's KvDtype code; the tails are in attn::tail_t of the cache's type.
 // part_acc [R, nq, splits, hd], part_m and part_l [R, nq, splits] fp32 scratch.
 // acc0 [R, nq, hd], m0 and l0 [R, nq] (fp32): the cascade's init state
@@ -446,12 +469,10 @@ extern "C" int wd_launch(int dtype, int kv_dtype, int tensor_cores,
                static_cast<cudaStream_t>(stream)};
   int err = (int)cudaErrorInvalidValue;
   if (tensor_cores) {
-    if (dtype != kBFloat16 || nq / kvh > 16) return err;
-    if (kv_dtype == kKvAuto) err = split_tc_hd<__nv_bfloat16>(a);
-    else if (kv_dtype == kKvE4M3) err = split_tc_hd<__nv_fp8_e4m3>(a);
-    else if (kv_dtype == kKvE5M2) err = split_tc_hd<__nv_fp8_e5m2>(a);
-    if (err != 0) return err;
-    return merge<__nv_bfloat16>(a);
+    if (nq / kvh > 16) return err;
+    if (dtype == kBFloat16) return tensor_cores_kv<__nv_bfloat16>(kv_dtype, a);
+    if (dtype == kFloat16) return tensor_cores_kv<__half>(kv_dtype, a);
+    return err;
   }
   if (warps < 1 || warps > kWarps) return err;
   if (dtype == kFloat32) {
@@ -461,6 +482,10 @@ extern "C" int wd_launch(int dtype, int kv_dtype, int tensor_cores,
   if (dtype == kBFloat16) {
     err = split_cuda_cores_kv<__nv_bfloat16>(kv_dtype, a);
     return err != 0 ? err : merge<__nv_bfloat16>(a);
+  }
+  if (dtype == kFloat16) {
+    err = split_cuda_cores_kv<__half>(kv_dtype, a);
+    return err != 0 ? err : merge<__half>(a);
   }
   return err;
 }

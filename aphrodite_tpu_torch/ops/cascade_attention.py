@@ -17,8 +17,9 @@ fp32 ``acc [R, kvh, group, hd]`` and ``m, l [R, kvh, group]`` (the TPU
 kernel's 128-lane widening of m and l is not copied). A row with no shared
 token gets m = -inf, l = 0 and acc = 0.
 
-In bf16 at head_dim 64, 128 or 256 the kernel runs 64 query rows of one
-KV head a block on the tensor cores (at MLA's 576 the CUDA-core instance),
+In bf16 and fp16 at head_dim 64, 128 or 256 the kernel runs 64 query
+rows of one KV head a block on the tensor cores (fp16's products on fp16
+operands; at MLA's 576 the CUDA-core instance),
 and splits the shared keys across blocks too
 (``shared_split_plan``); the last block of a row tile to finish merges the
 splits in a fixed order. ``shared_prefix_plan`` makes the plan, its
@@ -113,8 +114,8 @@ def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     ``kv_dtype`` (None: ``dtype``), the key-split plan and, with more than one
     split, the scratch of the splits' states (acc [splits, kvh, R * group,
     hd], then m and l [splits, kvh, R * group]) and the zeroed counters
-    of the kernel's merge (the kernel leaves them zero). bf16 runs the
-    tensor-core instance (at head_dim 64, 128 or 256; at MLA's 576 the
+    of the kernel's merge (the kernel leaves them zero). bf16 and fp16 run
+    the tensor-core instance (at head_dim 64, 128 or 256; at MLA's 576 the
     CUDA-core one); fp32 the CUDA-core one, which takes no split."""
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -122,7 +123,8 @@ def shared_prefix_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
                   else cuda_build.H100_SMEM_OPTIN)
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     key = (dtype, num_reqs, nq, kvh, hd, shared_len)
-    if dtype != torch.bfloat16 or hd not in TC_HEAD_DIMS:
+    if dtype not in (torch.bfloat16, torch.float16) \
+            or hd not in TC_HEAD_DIMS:
         smem = spa_smem_bytes(hd)
         cuda_build.check_smem("shared_prefix_attention", smem, smem_limit)
         return SharedPlan(key, False, smem, 1, 1, None, None, kv_dtype)

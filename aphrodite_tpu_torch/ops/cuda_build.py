@@ -24,6 +24,10 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIBS: dict[str, ctypes.CDLL] = {}
+# x's dtype codes of the GEMM kernels (grouped, quantized): fp32 and bf16.
+# fp16 is still to port there (ROADMAP.md B item 3); the attention
+# kernels keep their own table, which has fp16.
+GEMM_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS: dict[tuple[str, str], object] = {}
 
 

@@ -9,14 +9,17 @@ K/V the step has already written; it attends the request's positions
 0..seq_lens[r] - 1. The runner's non-window multi-step decode
 (``worker/runner.py: _execute_multi_step``) is its caller.
 
-In bf16 at head_dim 64, 128 or 256 (groups up to 16) the kernel splits
-each request's visible keys into tiles (``decode_tile_keys``) and the
-tiles into ``splits`` ranges, one block each, the last split taking
+In bf16 and fp16 at head_dim 64, 128 or 256 (groups up to 16) the kernel
+splits each request's visible keys into tiles (``decode_tile_keys``) and
+the tiles into ``splits`` ranges, one block each, the last split taking
 whatever is left; each block writes an unnormalized (acc, m, l) state and
 a second kernel merges them in a fixed order. ``decode_plan`` makes the
 launch geometry, the split plan and the states' scratch once for all the
 layers and sub-steps of a decode window. fp32 (and other head dims or
 larger groups) runs one block a (request, KV head) on the CUDA cores.
+fp16 computes as the TPU kernel does in q's dtype: fp16 products (K/V
+upcast from fp8 where the cache is), fp32 accumulation, P rounded to
+fp16.
 """
 from __future__ import annotations
 

@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.cuda_build import GEMM_DTYPE_CODES as DTYPE_CODES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
@@ -134,8 +134,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     E, Kw, N = w.shape
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype or Kw != K:
         raise ValueError(f"want x [M, K] and w [E, K, N] of one dtype "
-                         f"(fp32 or bf16), got {x.dtype} {tuple(x.shape)} "
-                         f"and {w.dtype} {tuple(w.shape)}")
+                         f"(fp32 or bf16; fp16 is queued in ROADMAP.md B), "
+                         f"got {x.dtype} {tuple(x.shape)} and {w.dtype} "
+                         f"{tuple(w.shape)}")
     if x.dtype == torch.bfloat16 and (K % 8 or N % 8):
         raise ValueError(f"bf16 needs K ({K}) and N ({N}) to be multiples "
                          "of 8")

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build, w4_wgmma
-from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
+from aphrodite_tpu_torch.ops.cuda_build import GEMM_DTYPE_CODES as DTYPE_CODES
 from aphrodite_tpu_torch.utils import cdiv
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -160,8 +160,9 @@ def _plan(M: int, N: int, rows: int, block_n: int, unit: int,
 
 def _check(x: torch.Tensor, tensors: dict, K: int, N: int) -> None:
     if x.dtype not in DTYPE_CODES or x.dim() != 2 or x.shape[1] != K:
-        raise ValueError(f"x must be fp32/bf16 [M, {K}], got "
-                         f"{x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"x must be fp32/bf16 [M, {K}] (fp16 is queued "
+                         f"in ROADMAP.md B), got {x.dtype} "
+                         f"{tuple(x.shape)}")
     if N % 4:
         raise ValueError(f"N = {N} must be a multiple of 4")
     for name, (t, dtype) in tensors.items():

@@ -4,8 +4,9 @@
 (``csrc/ragged_paged_attention.cu``, which replaces the TPU kernel
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
-on CPU tensors. bf16 at head_dim 64, 128 or 256 runs the tensor-core
-instance (``rpa_tc_launch``; with image spans ``rpa_tc_spans_launch`` of
+on CPU tensors. bf16 and fp16 at head_dim 64, 128 or 256 run the
+tensor-core instance (``rpa_tc_launch``; fp16 ``rpa_tc_f16_launch`` of
+``csrc/ragged_f16.cu``; bf16 with image spans ``rpa_tc_spans_launch`` of
 ``csrc/ragged_spans.cu``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
 any group on one latent KV head, on a bf16 or fp8 cache) the MLA instance
 (``csrc/mla_attention.cu``, ``mla_ragged_launch``), everything else the
@@ -41,6 +42,12 @@ an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
 staged bytes and two bf16 tiles in its bf16 ring's bytes,
 ``mla_smem_bytes(fp8=True)``); the plain version computes in fp32, where
 every fp8 value is exact.
+
+fp16 queries compute as the TPU kernel does in q's dtype: K/V in fp16
+(or fp8 upcast to fp16), products accumulated in fp32, P rounded to fp16.
+On a CUDA tensor, fp16 at MLA's head_dim 576 and fp16 with image spans
+raise (``check_unported``, ``FP16_ITEM``): no instance of theirs is
+built; on the CPU the plain version computes them.
 """
 from __future__ import annotations
 
@@ -55,11 +62,13 @@ from aphrodite_tpu_torch.ops import cuda_build
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _I, _P]
-_TC_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
+_TC_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
 _MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                  _I, _I, _F, _I, _I, _F, _P]
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# q's dtype codes of the attention kernels (csrc/attn_common.cuh
+# AttnDtype). The GEMM wrappers keep their own table (fp32 and bf16).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
 KV_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
@@ -76,6 +85,8 @@ MLA_KEYS = 32  # keys a K or V tile of the MLA instances
 MLA_STAGES = 2  # K and V tiles in flight (the ring's depth)
 # Where image spans at the MLA geometry are queued.
 MLA_SPANS_ITEM = "ROADMAP B"
+# Where fp16 at the MLA geometry and fp16 with image spans are queued.
+FP16_ITEM = "ROADMAP.md B, item 3"
 
 
 def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
@@ -189,6 +200,26 @@ def check_spans(spans: bool, dtype: torch.dtype, hd: int,
             "instance: no model has both")
 
 
+def check_unported(device_type: str, dtype: torch.dtype, hd: int,
+                    spans: bool) -> None:
+    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` where no CUDA
+    instance takes the call: on a ``"cuda"`` device, fp16 at MLA's head_dim
+    576 (the MLA instances are bf16 only) and fp16 with image spans (the
+    span switch is bf16 only). The scalar instance would compute both, far
+    too slowly to serve (44 ms at DeepSeek-V2-Lite's bf16 wave); the CPU's
+    plain version computes them as the JAX package does."""
+    if device_type != "cuda" or dtype != torch.float16:
+        return
+    if hd == MLA_HEAD_DIM:
+        raise NotImplementedError(
+            f"fp16 at the MLA geometry (head_dim {MLA_HEAD_DIM}): its "
+            f"instances are bf16 only ({FP16_ITEM})")
+    if spans:
+        raise NotImplementedError(
+            f"fp16 with bidirectional image spans: the span instances are "
+            f"bf16 only ({FP16_ITEM})")
+
+
 def ragged_mla_block_q(group: int, smem_limit: int,
                        kv_dtype: Optional[torch.dtype] = None) -> int:
     """Tokens per work item of the MLA instance: as many whole groups as
@@ -202,8 +233,9 @@ def ragged_mla_block_q(group: int, smem_limit: int,
 
 
 def ragged_uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
-    """Whether the kernel runs the tensor-core instance for this dtype."""
-    return dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+    """Whether the kernel runs the tensor-core instance for this dtype
+    (bf16 or fp16)."""
+    return dtype in (torch.bfloat16, torch.float16) and hd in TC_HEAD_DIMS
 
 
 def ragged_tc_rows(hd: int) -> int:
@@ -329,6 +361,8 @@ def ragged_paged_attention(
     cache_layer = kv_cache[layer]
     check_spans(md.mm_bidir_spans is not None, q.dtype, q.shape[-1],
                 alibi is not None)
+    check_unported(q.device.type, q.dtype, q.shape[-1],
+                   md.mm_bidir_spans is not None)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
             q, cache_layer, md, scale, sliding_window=sliding_window,
@@ -406,14 +440,17 @@ def ragged_paged_attention(
                                  "aligned")
         cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, code > 0),
                               cuda_build.smem_optin())
-        # The span instances are a library of their own (built beside).
-        launch = (cuda_build.entry("ragged_spans", "rpa_tc_spans_launch",
-                                   _TC_ARGTYPES) if spans is not None else
-                  cuda_build.entry("ragged_paged_attention", "rpa_tc_launch",
-                                   _TC_ARGTYPES))
+        # The span and fp16 instances are libraries of their own (built
+        # beside).
+        lib, sym = (("ragged_spans", "rpa_tc_spans_launch")
+                    if spans is not None else
+                    ("ragged_f16", "rpa_tc_f16_launch")
+                    if q.dtype == torch.float16 else
+                    ("ragged_paged_attention", "rpa_tc_launch"))
+        launch = cuda_build.entry(lib, sym, _TC_ARGTYPES)
         err = launch(
-            code, q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in int_args), num_items,
+            DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
+            out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
             slopes, spans, num_spans, stream)

@@ -357,7 +357,8 @@ def check(layout: str, x: torch.Tensor, q: torch.Tensor,
     aligned on x's device."""
     what = f"w4_wgmma {layout}"
     if x.dtype != torch.bfloat16 or x.dim() != 2:
-        raise ValueError(f"{what}: x must be bf16 [M, K], got {x.dtype} "
+        raise ValueError(f"{what}: x must be bf16 [M, K] (fp16 is queued "
+                         f"in ROADMAP.md B), got {x.dtype} "
                          f"{tuple(x.shape)}")
     M, K = x.shape
     q_dtype = Q_DTYPES[layout]

@@ -36,6 +36,12 @@ in a ring of their own: ``window_tc_smem_bytes(hd, fp8=True)``; the MLA
 instance stages them in its ring and converts them into two bf16 tiles,
 ``mla_smem_bytes(fp8=True)``, and copies bf16 tails beside e5m2 straight
 into those tiles).
+
+fp16 queries run the tensor-core instance with fp16 operands (beside an
+e5m2 cache the tails stay bf16, as the JAX runner keeps them, and the
+kernel converts each tail tile to fp16 in shared memory, exact inside
+fp16's range); on a CUDA tensor fp16 at MLA's head_dim 576 raises
+(``check_unported``).
 """
 from __future__ import annotations
 
@@ -46,8 +52,8 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS, kv_code,
-    mla_page_boxes, mla_smem_bytes)
+    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS,
+    check_unported, kv_code, mla_page_boxes, mla_smem_bytes)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -107,10 +113,10 @@ def window_uses_mla(dtype: torch.dtype, hd: int) -> bool:
 def window_uses_tensor_cores(dtype: torch.dtype, group: int,
                              hd: int) -> bool:
     """Whether the kernel runs its tensor-core instance of
-    ``csrc/split_decode.cuh``: bf16, head_dim 64, 128 or 256, and a group
-    that fits one 16-row mma tile (MLA's head_dim 576 runs its own
-    instance: ``window_uses_mla``)."""
-    return (dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+    ``csrc/split_decode.cuh``: bf16 or fp16, head_dim 64, 128 or 256, and a
+    group that fits one 16-row mma tile (MLA's head_dim 576 runs its own
+    instance in bf16: ``window_uses_mla``)."""
+    return (dtype in (torch.bfloat16, torch.float16) and hd in TC_HEAD_DIMS
             and group <= TC_MAX_GROUP)
 
 
@@ -329,6 +335,7 @@ def window_decode_attention(
         raise ValueError("the cascade init state takes no sliding window, "
                          "chunked attention or soft cap")
     code = kv_code(q.dtype, kv_cache.dtype)
+    check_unported(q.device.type, q.dtype, q.shape[-1], False)
     want = tail_dtype(kv_cache.dtype)
     if tail_k.dtype != want or tail_v.dtype != want:
         raise ValueError(f"tails of {tail_k.dtype} / {tail_v.dtype} beside "

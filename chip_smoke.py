@@ -203,6 +203,36 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    62,208). In every cold and warm run exactly: ragged 27 and window 1701,
    all on the MLA instances' e4m3 ones, grouped 52, 0 on the other
    instances; the pool's bytes a token logged; a profiled run.
+28. fp16 parity (``fp16_parity``): fp16 greedy runs on the card and on the
+   CPU with the same weights, every model with heads of 64 (the fp16
+   tensor-core instances): a tiny Llama on fp16, e4m3 and e5m2 caches (20
+   prompts sharing a 96-token prefix on 16-token pages, a 128-token
+   budget: chunked prefill, decode windows, the shared pass and the window
+   from its state) and a tiny BLOOM (ALiBi; the decode kernel). Tokens
+   equal but where the runs part at a gap below ``GAP``
+   (``same_tokens``); chosen logprobs within ``F16_LOGPROB_TOL`` where
+   they agree; every kernel's card launches exactly its CPU twin's calls
+   (``CallSpy``), all on the tensor-core instances.
+29. The main path of the fp16 slice (``main_path_llama2_fp16``):
+   Llama-2-7B (``LLAMA2_7B``: 32 / 32 heads of 128, published in fp16)
+   at full width and depth in fp16 on seeded dummy weights, phase 6's
+   traffic, cold and warm (ragged 32 and window 2016 a run, all on the
+   tensor-core instances, every logprob finite), then on the same engine
+   32 requests sharing a seeded 1024-token system prompt, a 64-token
+   suffix each and 64 new tokens (ragged 32, shared pass 2016, window
+   2016 from its state a run; 32768 cached prompt tokens); the KV bytes a
+   token logged (524,288); a profiled run of each.
+
+For the fp16 slice phase 2 (``fp16_checks``) holds each fp16 instance of
+the ragged, window, decode and shared-prefix kernels against its plain
+version at ``TOL["float16"]`` (5e-3) at phase 29's shapes on fp16, e4m3
+and e5m2 caches, timed beside its bf16 self at the same shapes and cache
+and beside SDPA in fp16: the ragged kernel at the wave (``F16_WAVE``;
+with ALiBi too), the window at sub-step 24, the decode kernel with ALiBi
+at 32 heads of 128 (``F16_DECODE_CASES``), the shared pass over a
+1024-token prefix at R = 32 and the window from its state
+(``F16_SHARED``); and the ragged and window kernels' mask cases and two
+ALiBi cases in fp16.
 
 For the MLA slice phase 2 (``mla_checks``) holds both MLA instances
 (``csrc/mla_attention.cu``: wgmma, TMA and a producer warp) against their
@@ -349,9 +379,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"bfloat16": 989e12,  # dense bf16 tensor cores
+            "float16": 989e12,   # dense fp16 tensor cores
             "float32": 67e12}    # fp32 outside the tensor cores
 PAGE, HD = 64, 128
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs, outputs are O(1)
+# max-abs, outputs are O(1); fp16 keeps 3 more bits than bf16 (P and the
+# output rounded at 2^-11 rather than 2^-8): 5e-3.
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 
 LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
     vocab_size=128256, hidden_size=4096, num_hidden_layers=32,
@@ -948,7 +981,7 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention, decode_plan, ref_decode_paged_attention)
     dtype = getattr(torch, dtype_name)
-    nq, kvh, hd, ctx, opts = DECODE_CASES[case]
+    nq, kvh, hd, ctx, opts = {**DECODE_CASES, **F16_DECODE_CASES}[case]
     opts = dict(opts)
     if opts.pop("alibi", False):  # the model's slopes: alibi_slopes(nq)
         opts["alibi"] = alibi_slopes(nq).cuda()
@@ -1672,15 +1705,16 @@ def check_int_mm() -> str:
             "it) == the CPU at M 1, 5, 16, 17, 32")
 
 
-def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
-    """A [2, P, 2, 8, 64, 128] cache whose R requests share their first S //
-    64 pages, each with its own pages past them up to plen + kw, in shuffled
-    order: (cache, shared pages, block tables)."""
+def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int,
+                  kvh: int = 8):
+    """A [2, P, 2, kvh, 64, 128] cache whose R requests share their first
+    S // 64 pages, each with its own pages past them up to plen + kw, in
+    shuffled order: (cache, shared pages, block tables)."""
     import torch
     n_shared = S // PAGE
     own = -(-(plen + kw) // PAGE) - n_shared
     num_pages = 1 + n_shared + R * own
-    cache = torch.randn((2, num_pages, 2, 8, PAGE, HD), generator=gen,
+    cache = torch.randn((2, num_pages, 2, kvh, PAGE, HD), generator=gen,
                         device="cuda").to(dtype)
     perm = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
             + 1).int()
@@ -1691,9 +1725,11 @@ def cascade_cache(gen, dtype, R: int, S: int, plen: int, kw: int):
 
 
 def check_cascade(gen, dtype_name: str, kv: str | None = None,
-                  timed: bool = True) -> tuple[dict, dict]:
-    """Phase 14's decode step (R 128, 32 / 8 heads of 128, paged lengths
-    1152, 16 shared pages: S = 1024, a 64-slot tail): the shared-prefix
+                  timed: bool = True, R: int = CASCADE_R, NQ: int = 32,
+                  KVH: int = 8, plen: int = 1152) -> tuple[dict, dict]:
+    """Phase 14's decode step (by default R 128, 32 / 8 heads of 128,
+    paged lengths 1152; phase 29's shared-prompt run: R 32, 32 / 32 heads,
+    1088), 16 shared pages (S = 1024) and a 64-slot tail: the shared-prefix
     pass, its plan made once as the runner makes it, against its plain
     version (and an unaligned S = 1000, and S = 64: one split), and the
     window kernel started from its state against the plain window and the
@@ -1713,9 +1749,9 @@ def check_cascade(gen, dtype_name: str, kv: str | None = None,
         ref_window_decode_attention, tail_dtype, window_decode_attention,
         window_plan)
     dtype = getattr(torch, dtype_name)
-    R, NQ, KVH, S, plen, Kw, layer = 128, 32, 8, CASCADE_S, 1152, 64, 1
+    S, Kw, layer = CASCADE_S, 64, 1
     kvd = kv_type(dtype, kv)
-    cache, shared, bt = cascade_cache(gen, kvd, R, S, plen, Kw)
+    cache, shared, bt = cascade_cache(gen, kvd, R, S, plen, Kw, KVH)
     q = torch.randn((R, NQ, HD), generator=gen, device="cuda").to(dtype)
     tail_k = torch.randn((2, R, KVH, Kw, HD), generator=gen,
                          device="cuda").to(tail_dtype(kvd))
@@ -1845,7 +1881,7 @@ def check_cascade(gen, dtype_name: str, kv: str | None = None,
               + 4 * (R * NQ * HD + 2 * R * NQ))
     b_ms, b_by = bound_ms(nbytes, 4.0 * NQ * HD * vis, dtype_name)
     log(f"# phase 2: window_decode_attention with the cascade init "
-        f"{dtype_name}{kv_label(kv)} (R {R}, paged 1152, S {S}, step "
+        f"{dtype_name}{kv_label(kv)} (R {R}, paged {plen}, S {S}, step "
         f"{step}): max_abs_err "
         f"{err:.3g} (tol {TOL[dtype_name]} x min(1, max|ref|)); kernel "
         f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain "
@@ -2260,7 +2296,9 @@ SERVE_RUNS = 2
 def serve_workload(phase: str, name: str, hf: dict, counted: dict,
                    batch_tokens: int = 16384,
                    per_forward: dict | None = None,
-                   exact: dict | None = None, **llm_kw):
+                   exact: dict | None = None, dtype: str = "bfloat16",
+                   max_model_len: int = 704, logprobs: bool = False,
+                   **llm_kw):
     """32 prompts x (512 + 64) greedy through ``LLM.generate`` at full
     width: one warm-up, ``SERVE_RUNS`` cold runs (prefix cache reset before
     each), as many warm runs (only where the engine caches prefixes; where
@@ -2271,8 +2309,9 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     launched in the cold runs, and every kernel in ``per_forward`` exactly
     that many times for each call of the model's ``forward`` in every cold
     run; every kernel in ``exact`` exactly that many times in every cold and
-    warm run (0: never). Returns the last cold run's launches, the engine
-    and the mean cold and warm walls."""
+    warm run (0: never). With ``logprobs`` every token's logprob must be
+    finite. Returns the last cold run's launches, the engine and the mean
+    cold and warm walls."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     num_prompts, prompt_len, decode_len = 32, 512, 64
@@ -2282,10 +2321,10 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     log(f"# {phase}: allocated before init "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
-    llm = LLM(name, hf_config=hf, tokenizer="unused", dtype="bfloat16",
+    llm = LLM(name, hf_config=hf, tokenizer="unused", dtype=dtype,
               load_format="dummy", block_size=64, max_num_seqs=32,
-              max_num_batched_tokens=batch_tokens, max_model_len=704,
-              device="cuda", **llm_kw)
+              max_num_batched_tokens=batch_tokens,
+              max_model_len=max_model_len, device="cuda", **llm_kw)
     torch.cuda.synchronize()
     log(f"# {phase}: engine init {time.perf_counter() - t0:.2f} s, weights "
         f"+ KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2303,7 +2342,7 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
     prompts = [rng.randint(10, top, size=prompt_len).tolist()
                for _ in range(num_prompts)]
     params = SamplingParams(temperature=0.0, max_tokens=decode_len,
-                            ignore_eos=True)
+                            ignore_eos=True, logprobs=1 if logprobs else None)
 
     def check_exact(got: dict) -> None:
         for k, want in (exact or {}).items():
@@ -2326,6 +2365,8 @@ def serve_workload(phase: str, name: str, hf: dict, counted: dict,
                                  f"tokens, got {n}")
         if not all(0 <= t < hf["vocab_size"] for x in toks for t in x):
             raise AssertionError("token id out of the vocabulary")
+        if logprobs:
+            finite_logprobs(phase, outs)
         one_run.cached = sum(o.num_cached_tokens for o in outs)
         return dt
 
@@ -3060,8 +3101,8 @@ def profile_run(one_run, phase: str = "phase 4",
     for name, (ns, _) in kernels.items():
         n = name.lower()
         # the tensor-core instance's span switch: its 4th template argument
-        k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\d+, \w+, \w+, "
-                                           r"true", n) else
+        k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\w+, \d+, \w+, "
+                                           r"\w+, true", n) else
              "ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
              or re.search(r"mla_kernel<\w+, false, \w+>", n) else
              "window" if "wd_split" in n or "wd_merge" in n
@@ -3108,7 +3149,7 @@ def profile_run(one_run, phase: str = "phase 4",
             f"{name[:90]}")
 
 
-KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans",
+KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans", "ragged_f16",
                   "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
@@ -4149,8 +4190,10 @@ def span_checks(gen, dt: str, results: dict) -> None:
         log(f"# phase 2: {name} {dt}, {kv} cache, with image spans at "
             f"gemma-3-4b-it shapes: max_abs_err {r['max_abs_err']:.3g} (tol "
             f"{TOL[dt]}); kernel {r['ms']:.4f} ms (device "
-            f"{r['device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"{r['device_ms']:.4f} ms), sdpa on K/V upcast to {dt} with "
+            f"(causal OR span) as a boolean mask {r['library_ms']:.4f} ms "
+            f"(device {r['library_device_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
         for case in ("hd256-group2", "hd256-window64"):
             err = check_ragged(gen, dt, SPAN_RAGGED_CASES[case], timed=False,
                                kv=kv)
@@ -5320,6 +5363,333 @@ class SpanCount:
         self.fn.span_launches = value
 
 
+# ----------------------------------------------------------- the fp16 slice
+LLAMA2_7B = dict(  # meta-llama/Llama-2-7b-hf config.json ("float16")
+    vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
+    hidden_act="silu", rms_norm_eps=1e-5, rope_theta=10000.0,
+    max_position_embeddings=4096, tie_word_embeddings=False,
+    architectures=["LlamaForCausalLM"])
+F16_PATH = "llama-2-7b-fp16"
+F16_SHARED_PATH = "llama-2-7b-fp16-shared-prompt"
+# Phase 29's prefill wave and decode window: 32 x 512, 32 / 32 heads of 128.
+F16_WAVE = dict(nq=32, kvh=32, ctx=[512] * 32, qlen=[512] * 32,
+                paged=[512] * 32)
+# Phase 29's shared-prompt run: 32 requests, a 1024-token prefix and a
+# 64-token suffix each (paged lengths 1088), 32 / 32 heads.
+F16_SHARED = dict(R=32, NQ=32, KVH=32, plen=CASCADE_S + 64)
+# The decode kernel with ALiBi at 32 heads of 128 (a 7B ALiBi model's
+# step: BLOOM-7B1's heads, the family that decodes on this kernel).
+F16_DECODE_CASES = {
+    "alibi-32x128": (32, 32, 128, [513 + (37 * r) % 64 for r in range(32)],
+                     dict(alibi=True)),
+}
+# Phase 28: tiny fp16 models with heads of 64, so that the fp16 tensor-core
+# instances run (the ALiBi families of phase 21 have heads of 16).
+F16_TINY_LLAMA = dict(
+    vocab_size=512, hidden_size=256, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, intermediate_size=512,
+    max_position_embeddings=1024, rms_norm_eps=1e-5,
+    tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
+F16_TINY_BLOOM = dict(architectures=["BloomForCausalLM"], model_type="bloom",
+                      hidden_size=256, n_head=4, n_layer=2, vocab_size=512)
+# Phase 28's bound on the chosen tokens' logprobs, card against CPU where
+# the tokens agree: the card rounds P to fp16 and sums its GEMMs in
+# another order, each a few fp16 ulps (2^-11) of a logit; a tenth of a nat.
+F16_LOGPROB_TOL = 0.1
+# Phase 28's runs: (model, kv_cache_dtype).
+F16_PARITY = {"llama/auto": ("llama", "auto"),
+              "llama/fp8_e4m3": ("llama", "fp8_e4m3"),
+              "llama/fp8_e5m2": ("llama", "fp8_e5m2"),
+              "bloom/auto": ("bloom", "auto")}
+
+
+def finite_logprobs(what: str, outs) -> None:
+    """Every generated token's logprob in ``outs`` finite."""
+    bad = [(o.request_id, i) for o in outs
+           for i, (t, lp) in enumerate(zip(o.outputs[0].token_ids,
+                                           o.outputs[0].logprobs or []))
+           if not math.isfinite(lp[t].logprob)]
+    if bad or any(o.outputs[0].logprobs is None for o in outs):
+        raise AssertionError(f"{what}: logprobs missing or not finite at "
+                             f"(request, step) {bad[:10]}")
+
+
+def fp16_checks(gen, results: dict) -> None:
+    """Phase 2 for the fp16 slice: each fp16 tensor-core instance against
+    its plain version at phase 29's shapes on fp16, e4m3 and e5m2 caches,
+    timed beside its bf16 self at the same shapes and cache in the same
+    call: the ragged kernel at the wave (and with ALiBi, the slopes of 32
+    heads, timed on the fp16 cache and checked on the fp8 ones), the window
+    at sub-step 24, the decode kernel with ALiBi at 32 heads of 128
+    (``F16_DECODE_CASES``), the shared pass over a 1024-token prefix at R
+    32 and the window from its state (``F16_SHARED``); then the ragged and
+    window kernels' mask cases and two ALiBi cases in fp16, untimed."""
+    f16, b16 = "float16", "bfloat16"
+    for kv in (None, *KV_FP8):
+        for name, fn, geom, path in (
+                ("ragged_paged_attention", check_ragged, F16_WAVE, F16_PATH),
+                ("ragged_paged_attention", check_ragged,
+                 dict(F16_WAVE, alibi=True), f"{F16_PATH}-alibi"),
+                ("window_decode_attention", check_window, F16_WAVE,
+                 F16_PATH)):
+            if geom.get("alibi") and kv is not None:
+                err = fn(gen, f16, geom, timed=False, kv=kv)
+                log(f"# phase 2: {name} {f16}{kv_label(kv)} with ALiBi at "
+                    f"{F16_PATH} shapes: max_abs_err {err:.3g} (tol "
+                    f"{TOL[f16]} x max(1, max|ref|))")
+                continue
+            r, s = fn(gen, f16, geom, kv=kv), fn(gen, b16, geom, kv=kv)
+            results[(name, path, f16, kv)] = r
+            log(f"# phase 2: {name} {f16}{kv_label(kv)} at {path} shapes: "
+                f"max_abs_err {r['max_abs_err']:.3g} (tol "
+                f"{tol_text(name, f16)}); kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms), its bf16 self {s['ms']:.4f} ms "
+                f"(device {s['device_ms']:.4f} ms, fp16 / bf16 "
+                f"{r['device_ms'] / s['device_ms']:.3f}); plain "
+                f"{r['plain_ms']:.4f} ms, sdpa in fp16 on K/V upcast "
+                f"{r['library_ms']:.4f} ms (device "
+                f"{r['library_device_ms']:.4f} ms), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        case = "alibi-32x128"
+        r, s = (check_decode(gen, dt, case, kv=kv) for dt in (f16, b16))
+        results[("decode_paged_attention", case, f16, kv)] = r
+        log(f"# phase 2: decode_paged_attention {case} {f16}{kv_label(kv)}: "
+            f"device {r['device_ms']:.4f} ms against its bf16 self "
+            f"{s['device_ms']:.4f} ms (fp16 / bf16 "
+            f"{r['device_ms'] / s['device_ms']:.3f})")
+        (spa, win), (spa_b, win_b) = (
+            check_cascade(gen, dt, kv=kv, **F16_SHARED) for dt in (f16, b16))
+        results[("shared_prefix_attention", F16_SHARED_PATH, f16, kv)] = spa
+        results[("window_decode_attention", F16_SHARED_PATH, f16, kv)] = win
+        log(f"# phase 2: fp16{kv_label(kv)} at {F16_SHARED_PATH} against "
+            f"bf16: shared_prefix_attention device {spa['device_ms']:.4f} "
+            f"ms / {spa_b['device_ms']:.4f} ms, window from its state "
+            f"{win['device_ms']:.4f} ms / {win_b['device_ms']:.4f} ms")
+    for cases, fn, name in (
+            (RAGGED_MASK_CASES, check_ragged, "ragged_paged_attention"),
+            (WINDOW_MASK_CASES, check_window, "window_decode_attention")):
+        for case, geom in cases.items():
+            err = fn(gen, f16, geom, timed=False)
+            log(f"# phase 2: {name} {f16} {case}: max_abs_err {err:.3g} "
+                f"(tol {tol_text(name, f16)})")
+    for case in ("hd64-page16-mid-page", "group8-chunks-softcap30"):
+        err = check_ragged(gen, f16, ALIBI_RAGGED_CASES[case], timed=False)
+        log(f"# phase 2: ragged_paged_attention {f16} ALiBi {case}: "
+            f"max_abs_err {err:.3g} (tol {TOL[f16]} x max(1, max|ref|))")
+
+
+class CallSpy:
+    """The attention backend's four kernel wrappers, patched to count every
+    call (on either device) by wrapper: the reckoning of a card run's
+    launches is its CPU twin's calls, since greedy runs with
+    ``ignore_eos`` schedule the same forwards whatever their tokens."""
+
+    NAMES = ("ragged_paged_attention", "window_decode_attention",
+             "decode_paged_attention", "shared_prefix_attention")
+
+    def __init__(self) -> None:
+        from aphrodite_tpu_torch.attention import backend
+        self.backend = backend
+        self.fns = {n: getattr(backend, n) for n in self.NAMES}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        for n, fn in self.fns.items():
+            def spy(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(self.backend, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.fns.items():
+            setattr(self.backend, n, fn)
+
+
+def fp16_parity() -> dict:
+    """Phase 28: fp16 greedy runs through the port on the card and on the
+    CPU from one seed (the CPU's weights loaded on the card), each model
+    with heads of 64 (the fp16 tensor-core instances): a tiny Llama on an
+    fp16, an e4m3 and an e5m2 cache (a 128-token batch budget over 20
+    prompts that share a 96-token prefix on 16-token pages, one of them
+    300 tokens: chunked prefill, decode windows, the cascade's shared pass
+    and the window from its state) and a tiny BLOOM (ALiBi; a 16-token
+    budget, 8-step decode windows on the decode kernel). Tokens equal but
+    where the runs part at a gap below ``GAP`` (``same_tokens``); the
+    chosen tokens' logprobs within ``F16_LOGPROB_TOL`` where they agree;
+    every kernel's card launches exactly its CPU twin's calls
+    (``CallSpy``), all on the tensor-core instances. Returns each kernel's
+    launches, keyed by (kernel, run)."""
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    kernels = {**attention_kernels(),
+               "decode_paged_attention": decode_paged_attention,
+               "shared_prefix_attention": shared_prefix_attention}
+    rng = np.random.RandomState(28)
+    shared = rng.randint(1, 500, size=96).tolist()
+    prompts = {"llama": [shared + rng.randint(1, 500, size=n).tolist()
+                         for n in [1 + (7 * i) % 23 for i in range(19)]
+                         + [204]],
+               "bloom": [rng.randint(1, 500, size=n).tolist()
+                         for n in (5, 40, 17, 33, 70)]}
+    params = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    launches = {}
+    for run, (model, kv) in F16_PARITY.items():
+        if model == "llama":
+            kw = dict(hf_config=F16_TINY_LLAMA, block_size=16,
+                      num_kv_blocks=512, max_num_seqs=20,
+                      max_num_batched_tokens=128, max_model_len=512,
+                      decode_window=16)
+        else:
+            kw = dict(hf_config=F16_TINY_BLOOM, block_size=16,
+                      num_kv_blocks=128, max_num_seqs=4,
+                      max_num_batched_tokens=16, max_model_len=256,
+                      decode_window=8)
+        kw.update(tokenizer="unused", dtype="float16", kv_cache_dtype=kv)
+        cpu = LLM(f"tiny-{model}-fp16", device="cpu", **kw)
+        if model == "bloom":
+            redraw_flexible(cpu.engine.core.worker.model, 28)
+        gpu = LLM(f"tiny-{model}-fp16", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        ps = prompts[model]
+        with CallSpy() as want:
+            a = traced(cpu, ps, params)
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in attention_kernels().values():
+            fn.instance_launches = dict.fromkeys(fn.instance_launches, 0)
+        with CallSpy() as calls:
+            b = traced(gpu, ps, params)
+        got = {k: fn.launches for k, fn in kernels.items()}
+        tc = {k: fn.instance_launches["tensor_cores"]
+              for k, fn in attention_kernels().items()}
+        launches.update({(k, run): v for k, v in got.items()})
+        need = (("ragged_paged_attention", "window_decode_attention",
+                 "shared_prefix_attention") if model == "llama"
+                else ("ragged_paged_attention", "decode_paged_attention"))
+        if got != want.calls or got != calls.calls or any(
+                got[k] <= 0 for k in need) or any(
+                tc[k] != got[k] for k in tc):
+            raise AssertionError(
+                f"phase 28 {run}: launches {got}, tensor-core instances "
+                f"{tc}; the card's calls {calls.calls}, the CPU's "
+                f"{want.calls}")
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"phase 28 {run}: the tokens hardly vary: "
+                                 f"{a[0]}")
+        found = same_tokens(f"phase 28 {run}", cpu, gpu, ps, a, b)
+        gaps = [abs(float(la[i][t]) - float(lb[i][t]))
+                for ta, tb, la, lb in zip(a[0], b[0], a[1], b[1])
+                for i, t in enumerate(ta) if ta[:i + 1] == tb[:i + 1]]
+        worst = max(gaps)
+        if not worst <= F16_LOGPROB_TOL:
+            raise AssertionError(f"phase 28 {run}: chosen logprobs card vs "
+                                 f"CPU up to {worst:.4g} > {F16_LOGPROB_TOL}")
+        log(f"# phase 28: {run}: cuda == cpu greedy fp16 tokens for "
+            f"{len(ps)} prompts x 24 but at partings (request, step, cpu "
+            f"token, card token, gap < {GAP}) {found}; chosen logprobs "
+            f"within {worst:.4g} (tol {F16_LOGPROB_TOL}) over {len(gaps)} "
+            f"agreeing tokens; launches {got} (= the CPU's calls), all on "
+            f"the tensor-core instances")
+        del cpu, gpu
+    return launches
+
+
+def main_path_llama2_fp16() -> tuple[dict, dict]:
+    """Phase 29: Llama-2-7B (``meta-llama/Llama-2-7b-hf``, published in
+    fp16) at full width and depth in fp16, seeded dummy weights: phase 6's
+    traffic, cold and warm (ragged 32 and window 2016 a run, all on the
+    fp16 tensor-core instances; every logprob finite), then on the same
+    engine 32 requests that share a seeded 1024-token system prompt, each
+    with a 64-token suffix new in every run and 64 new tokens: a warm-up
+    caches the prefix, then each of 2 runs prefills one 2048-token wave
+    and decodes one 63-step window from the shared pass's state (ragged
+    32, shared pass 2016, window 2016, decode 0; 32768 cached prompt
+    tokens a run). Logs the KV bytes a token. Returns the launches of the
+    last cold run of phase 6's traffic and of the last shared-prompt
+    run."""
+    import torch
+    from aphrodite_tpu_torch import SamplingParams
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    phase = "phase 29"
+    L, steps = LLAMA2_7B["num_hidden_layers"], 63
+    R, S, n_suf, n_dec = 32, CASCADE_S, 64, 64
+    kernels = {**attention_kernels(), **instance_counts(),
+               "decode_paged_attention": decode_paged_attention,
+               "shared_prefix_attention": shared_prefix_attention}
+    exact = {"ragged_paged_attention": L, "ragged tensor_cores": L,
+             "window_decode_attention": L * steps,
+             "window tensor_cores": L * steps,
+             "decode_paged_attention": 0, "shared_prefix_attention": 0,
+             **{f"{k} {i}": 0 for k in ("ragged", "window")
+                for i in ("mla", "scalar")}}
+    log(f"# {phase}: launches a run, reckoned: {exact}")
+    counts, llm, _ = serve_workload(
+        phase, "llama-2-7b-fp16-dummy", LLAMA2_7B, kernels, exact=exact,
+        dtype="float16", max_model_len=S + n_suf + n_dec, logprobs=True)
+    pool = llm.engine.core.worker.runner.kv_cache
+    L_, pages, _, kvh, page, hd = pool.shape
+    log(f"# {phase}: KV pool {pool.dtype} {tuple(pool.shape)}: "
+        f"{L_ * 2 * kvh * hd * pool.element_size()} bytes a token, "
+        f"{pages * page} tokens")
+    exact = dict(exact, shared_prefix_attention=L * steps)
+    log(f"# {phase}: the shared-prompt run's launches, reckoned: {exact}")
+    top = LLAMA2_7B["vocab_size"] - 10
+    prefix = np.random.RandomState(29).randint(10, top, size=S).tolist()
+    params = SamplingParams(temperature=0.0, max_tokens=n_dec,
+                            ignore_eos=True, logprobs=1)
+    runs = [0]
+
+    def one_run() -> float:
+        rng = np.random.RandomState(2900 + runs[0])
+        runs[0] += 1
+        prompts = [prefix + rng.randint(10, top, size=n_suf).tolist()
+                   for _ in range(R)]
+        for fn in kernels.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        outs = llm.generate(prompts, params)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if sum(len(o.outputs[0].token_ids) for o in outs) != R * n_dec:
+            raise AssertionError(f"expected {R * n_dec} tokens")
+        finite_logprobs(phase, outs)
+        one_run.cached = sum(o.num_cached_tokens for o in outs)
+        one_run.counts = {k: fn.launches for k, fn in kernels.items()}
+        return dt
+
+    def check(label: str) -> None:
+        if one_run.counts != exact or one_run.cached != R * S:
+            raise AssertionError(
+                f"{phase} {label}: launches {one_run.counts}, cached prompt "
+                f"tokens {one_run.cached}; want {exact} and {R * S}")
+
+    log(f"# {phase}: shared-prompt warm-up run {one_run():.3f} s, cached "
+        f"prompt tokens {one_run.cached}, launches {one_run.counts}")
+    times = []
+    for i in range(SERVE_RUNS):
+        times.append(one_run())
+        log(f"# {phase}: shared-prompt run {i}: {times[-1]:.3f} s, cached "
+            f"prompt tokens {one_run.cached}, launches {one_run.counts}")
+        check(f"shared-prompt run {i}")
+    s_run = float(np.mean(times))
+    log(f"# {phase}: shared prompt {s_run:.3f} s/run (runs {times}); "
+        f"{R * n_dec / s_run:.0f} decode tok/s")
+    profile_run(one_run, f"{phase} shared prompt")
+    check("profiled shared-prompt run")
+    shared = one_run.counts
+    del llm, pool
+    return counts, shared
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5469,6 +5839,8 @@ def main() -> int:
     results[("suffix_match", "int32")] = check_suffix(gen)
     stamp("phase 2: the W4 prefill product")
     check_prefill_w4(gen)
+    stamp("phase 2: the fp16 instances")
+    fp16_checks(gen, results)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
@@ -5510,6 +5882,10 @@ def main() -> int:
     mm_parity_launches = mm_parity()
     stamp("phase 26")
     gemma3_counts = main_path_gemma3_mm()
+    stamp("phase 28")
+    f16_parity_launches = fp16_parity()
+    stamp("phase 29")
+    f16_counts, f16_shared_counts = main_path_llama2_fp16()
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -5671,6 +6047,33 @@ def main() -> int:
                  results[("decode_paged_attention", "gemma-3-4b",
                           "bfloat16")], "auto"))
     replaces[f"{g3_rpa}_spans"] = replaces[g3_rpa]
+    # The fp16 slice: the fp16 tensor-core instances on phase 29's path
+    # (phase 2's shapes), on phase 28's fp8-cache runs (phase 2's shapes
+    # on those caches) and on its BLOOM run (ALiBi; the decode kernel at 32
+    # heads of 128).
+    f16, rpa, wda, spa, dpa = ("float16", "ragged_paged_attention",
+                               "window_decode_attention",
+                               "shared_prefix_attention",
+                               "decode_paged_attention")
+    rows += [(name, F16_PATH, f16, f16_counts[name],
+              results[(name, F16_PATH, f16, None)], "auto")
+             for name in (rpa, wda)]
+    rows += [(name, F16_SHARED_PATH, f16, f16_shared_counts[name],
+              results[(name, F16_SHARED_PATH, f16, None)], "auto")
+             for name in (spa, wda)]
+    for kv_name, kvd in (("fp8_e4m3", e4), ("fp8_e5m2", e5)):
+        run = f"llama/{kv_name}"
+        rows += [(name, f"llama-tiny-fp16-{kv_name}-parity", f16,
+                  f16_parity_launches[(name, run)],
+                  results[(name, path, f16, kvd)], kvd)
+                 for name, path in ((rpa, F16_PATH), (wda, F16_PATH),
+                                    (spa, F16_SHARED_PATH))]
+    rows += [(rpa, "bloom-tiny-fp16-parity", f16,
+              f16_parity_launches[(rpa, "bloom/auto")],
+              results[(rpa, f"{F16_PATH}-alibi", f16, None)], "auto"),
+             (dpa, "bloom-tiny-fp16-parity", f16,
+              f16_parity_launches[(dpa, "bloom/auto")],
+              results[(dpa, "alibi-32x128", f16, None)], "auto")]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
@@ -5680,6 +6083,8 @@ def main() -> int:
         if name.endswith("_spans"):  # the tensor-core or scalar instance
             src = ("ragged_spans" if dt == "bfloat16"
                    else "ragged_paged_attention")
+        if name == "ragged_paged_attention" and dt == "float16":
+            src = "ragged_f16"  # the fp16 tensor-core instances
         if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
                     *BYTE_PATHS) and dt == "bfloat16":
             src = "w4_wgmma"
