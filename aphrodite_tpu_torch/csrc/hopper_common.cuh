@@ -27,6 +27,8 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -303,114 +305,150 @@ __device__ __forceinline__ void wgmma_m64n256k16_tb(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[0, N / 2) += A (64 x 16) * B (16 x N, K-major, read through db); A is
-// this thread's fragment of four bf16 pairs, laid out as mma.sync's A
-// (mma_common.cuh) for rows [16 w, 16 w + 16) of warp w of the warpgroup;
-// d as the shared-memory form's (d[4 j + 2 h + i]: row 16 w + lane / 4 +
-// 8 h, column 8 j + 2 (lane % 4) + i). scale_d == 0 ignores d. The
-// registers of a and d must stay untouched until the product is waited
-// for.
-template <int N>
+// d[0, N / 2) += A (64 x 16) * B (16 x N, K-major, read through db), both
+// of the element type T (__nv_bfloat16 or __half); A is this thread's
+// fragment of four pairs, laid out as mma.sync's A (mma_common.cuh) for
+// rows [16 w, 16 w + 16) of warp w of the warpgroup; d as the
+// shared-memory form's (d[4 j + 2 h + i]: row 16 w + lane / 4 + 8 h,
+// column 8 j + 2 (lane % 4) + i). scale_d == 0 ignores d. The registers of
+// a and d must stay untouched until the product is waited for. Each N's
+// asm is written once (HOPPER_WGMMA_RS_N) with the operand type a string.
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int scale_d);
 
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+#define HOPPER_WGMMA_RS_16(TY)                                      \
+  asm volatile(                                                     \
+      "{\n"                                                         \
+      ".reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %13, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                              \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"                   \
+      "}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
         "r"(scale_d));
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16, __nv_bfloat16>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_16("bf16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+__device__ __forceinline__ void wgmma_rs<16, __half>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_16("f16");
+}
+
+#define HOPPER_WGMMA_RS_32(TY)                                           \
+  asm volatile(                                                          \
+      "{\n"                                                              \
+      ".reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %21, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                             \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"                      \
+      "}\n"                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15])                                                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
         "r"(scale_d));
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32, __nv_bfloat16>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_32("bf16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+__device__ __forceinline__ void wgmma_rs<32, __half>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_32("f16");
+}
+
+#define HOPPER_WGMMA_RS_64(TY)                                           \
+  asm volatile(                                                          \
+      "{\n"                                                              \
+      ".reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %37, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                           \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"                      \
+      "}\n"                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31])                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
         "r"(scale_d));
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, __nv_bfloat16>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_64("bf16");
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
+__device__ __forceinline__ void wgmma_rs<64, __half>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_64("f16");
 }
 
+#define HOPPER_WGMMA_RS_128(TY)                                          \
+  asm volatile(                                                          \
+      "{\n"                                                              \
+      ".reg .pred p;\n"                                                  \
+      "setp.ne.b32 p, %69, 0;\n"                                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"      \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                          \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                          \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                          \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                          \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                           \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"                      \
+      "}\n"                                                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),             \
+        "r"(scale_d));
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, __nv_bfloat16>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_128("bf16");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128, __half>(
+    float* d, const uint32_t* a, uint64_t db, int scale_d) {
+  HOPPER_WGMMA_RS_128("f16");
+}
 
 // ------------------------------------------------------------ setmaxnreg
 // A warpgroup's register budget a thread, moved between warpgroups: a

@@ -8,13 +8,14 @@ kernels on:
   one per weight layout. The uint4 layout dequantizes in registers with
   the direct form ``(q - z) * s`` in fp32; the packed and native-int4
   layouts (``qweight4``, ``loader.weights.realize_int4_leaves``) take the
-  TPU int4 kernel's group-wise form on the card in bf16.
+  TPU int4 kernel's group-wise form on the card in bf16 and fp16; every
+  layout computes in x's dtype and returns it, as the TPU kernels do.
 - ``qweight4`` on CPU tensors keeps the JAX package's bands: M <= 64 the
   grouped product ``w4a16_int4_grouped`` (its XLA int4 dot), 64 < M <= 256
   the int4 kernel's plain version. On CUDA tensors every M <= 256 goes to
   the int4 kernel, which computes the same function at any M: XLA's fused
   int4 dot has no counterpart on the card that avoids writing W out in
-  bf16.
+  x's dtype.
 - M > 256 (prefill waves), every layout: W is dequantized with the direct
   form in fp32, eight groups of rows at a time, each slab cast once into a
   [K, N] tensor of x's dtype (no fp32 copy of the whole W), and multiplied
@@ -26,14 +27,14 @@ kernels on:
 FP8 (``fp8_matmul``, ``quant_gemm.py:74-119``, which XLA computes in JAX):
 with per-column weight scales and no static input scale, M <= 256 runs the
 hand-written e4m3 kernel (``quant_matmul.fp8_matmul``: ``w4_wgmma``'s
-"fp8" layout in bf16); for W8A8 the activations are first rounded to e4m3
-per token (torch ops: one row reduction and an elementwise pass, as XLA
-computes them; the kernel takes x held in x's dtype, exact, and the row
-scales). Everything else (M > 256, blockwise weight scales, a static input
-scale; the last two reach the port only with checkpoints) runs the JAX
-function's own torch ops: the weights cast to x's dtype (e4m3 is exact in
-bf16) and an fp32-accumulating ``matmul_f32``, scaled as JAX scales.
-int8 W8A8 (``int8_matmul``, ``:60-71``) is an XLA dot in JAX: here
+"fp8" layout in bf16 or fp16); for W8A8 the activations are first rounded
+to e4m3 per token (torch ops: one row reduction and an elementwise pass, as
+XLA computes them; the kernel takes x held in x's dtype, exact, and the
+row scales). Everything else (M > 256, blockwise weight scales, a static
+input scale; the last two reach the port only with checkpoints) runs the
+JAX function's own torch ops: the weights cast to x's dtype (e4m3 is exact
+in bf16 and fp16) and an fp32-accumulating ``matmul_f32``, scaled as JAX
+scales. int8 W8A8 (``int8_matmul``, ``:60-71``) is an XLA dot in JAX: here
 ``torch._int_mm`` (int32 accumulation, exact) at every M.
 """
 from __future__ import annotations
@@ -59,7 +60,7 @@ def w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     """Weight-only int8 [K, N] with per-output-channel scales [N]."""
     if x.shape[0] <= DECODE_M:
         return qm.w8a16_matmul(x, qweight, scales)
-    acc = matmul_f32(x, qweight.to(x.dtype))  # int8 is exact in bf16
+    acc = matmul_f32(x, qweight.to(x.dtype))  # int8: exact in bf16, fp16
     return (acc * scales.float()[None, :]).to(x.dtype)
 
 

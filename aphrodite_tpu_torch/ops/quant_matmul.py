@@ -23,9 +23,10 @@ weights that the JAX package leaves to XLA (``fp8_matmul``,
   in x's dtype): y = ((x @ q) rs[m]) s[n].
 
 On CPU tensors each runs its plain PyTorch version (``ref_*``); a CUDA
-tensor launches a kernel or raises. In bf16 all four layouts run on
-``ops/w4_wgmma.py`` (``csrc/w4_wgmma.cu``: wgmma with the weights
-converted to bf16 in registers, TMA rings, x shared across a cluster) in
+tensor launches a kernel or raises. In bf16 and fp16 all five layouts run
+on ``ops/w4_wgmma.py`` (``csrc/w4_wgmma.cuh``: wgmma with the weights
+converted to x's dtype in registers, TMA rings, x shared across a
+cluster; y in x's dtype, as the TPU kernels return it) in
 the TPU int4 kernel's group-wise form: per group of K rows one product
 ``d = x_g @ q_g`` in fp32, then ``acc += (d - sum(x_g) * z) * s``, so s
 and z touch the [M, N] group result, not each weight; W8 sums d over the
@@ -33,7 +34,7 @@ whole K and scales the fp32 sum by s[n], and fp8 likewise (its rs[m]
 first). fp32 runs the CUDA-core kernels
 of ``csrc/quant_matmul.cu`` in fp32 throughout (int4 in the group-wise
 form, the others in the direct one ``(q - z) * s``). Each wrapper counts
-its launches.
+its launches, and by x's dtype (``dtype_launches``: which instance ran).
 """
 from __future__ import annotations
 
@@ -160,9 +161,8 @@ def _plan(M: int, N: int, rows: int, block_n: int, unit: int,
 
 def _check(x: torch.Tensor, tensors: dict, K: int, N: int) -> None:
     if x.dtype not in DTYPE_CODES or x.dim() != 2 or x.shape[1] != K:
-        raise ValueError(f"x must be fp32/bf16 [M, {K}] (fp16 is queued "
-                         f"in ROADMAP.md B), got {x.dtype} "
-                         f"{tuple(x.shape)}")
+        raise ValueError(f"x must be fp32, bf16 or fp16 [M, {K}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
     if N % 4:
         raise ValueError(f"N = {N} must be a multiple of 4")
     for name, (t, dtype) in tensors.items():
@@ -173,6 +173,19 @@ def _check(x: torch.Tensor, tensors: dict, K: int, N: int) -> None:
                              f"{t.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+
+
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of wrapper ``fn`` on x's dtype."""
+    fn.launches += 1
+    fn.dtype_launches[str(x.dtype).removeprefix("torch.")] += 1
+
+
+def _wgmma(fn, layout: str, x: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``fn``'s bf16 or fp16 launch: ``w4_wgmma.matmul``, counted."""
+    out = w4_wgmma.matmul(layout, x, *args, **kw)
+    _count(fn, x)
+    return out
 
 
 def _launch(symbol: str, argtypes: list, x: torch.Tensor, rows: int,
@@ -199,14 +212,12 @@ def w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                  scales: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ (int8 [K, N] * scales [N]) -> [M, N] in x's dtype.
 
-    bf16 runs on ``w4_wgmma`` (M <= 256, K a multiple of 32, N of 16),
-    fp32 on the CUDA-core kernel (N a multiple of 4)."""
+    bf16 and fp16 run on ``w4_wgmma`` (M <= 256, K a multiple of 32, N of
+    16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w8a16_matmul(x, qweight, scales)
-    if x.dtype == torch.bfloat16:
-        out = w4_wgmma.matmul("w8", x, qweight, scales, None)
-        w8a16_matmul.launches += 1
-        return out
+    if x.dtype in w4_wgmma.DTYPE_CODES:
+        return _wgmma(w8a16_matmul, "w8", x, qweight, scales, None)
     K, N = qweight.shape
     _check(x, {"qweight": (qweight, torch.int8),
                "scales": (scales, torch.float32)}, K, N)
@@ -215,7 +226,7 @@ def w8a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = _launch("w8a16_launch", _W8_ARGS, x, K, N,
                   [qweight.data_ptr(), scales.data_ptr()],
                   [x.shape[0], K, N])
-    w8a16_matmul.launches += 1
+    _count(w8a16_matmul, x)
     return out
 
 
@@ -225,15 +236,14 @@ def fp8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     ``row_scales`` [M] fp32 (W8A8: x holds e4m3 values) each row of the
     fp32 sum is scaled by rs[m] before s[n].
 
-    bf16 runs on ``w4_wgmma``'s "fp8" layout (M <= 256, K a multiple of 32,
-    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
+    bf16 and fp16 run on ``w4_wgmma``'s "fp8" layout (M <= 256, K a
+    multiple of 32, N of 16), fp32 on the CUDA-core kernel (N a multiple of
+    4)."""
     if x.device.type == "cpu":
         return ref_fp8_matmul(x, qweight, scales, row_scales)
-    if x.dtype == torch.bfloat16:
-        out = w4_wgmma.matmul("fp8", x, qweight, scales, None,
-                              row_scales=row_scales)
-        fp8_matmul.launches += 1
-        return out
+    if x.dtype in w4_wgmma.DTYPE_CODES:
+        return _wgmma(fp8_matmul, "fp8", x, qweight, scales, None,
+                      row_scales=row_scales)
     K, N = qweight.shape
     tensors = {"qweight": (qweight, torch.float8_e4m3fn),
                "scales": (scales, torch.float32)}
@@ -249,7 +259,7 @@ def fp8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                   [qweight.data_ptr(), scales.data_ptr(),
                    None if row_scales is None else row_scales.data_ptr()],
                   [x.shape[0], K, N])
-    fp8_matmul.launches += 1
+    _count(fp8_matmul, x)
     return out
 
 
@@ -267,14 +277,12 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                  scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ ((uint4-in-int8 [K, N] - z) * s) -> [M, N].
 
-    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
-    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
+    bf16 and fp16 run on ``w4_wgmma`` (M <= 256, K and the group multiples
+    of 32, N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w4a16_matmul(x, qweight, scales, zeros)
-    if x.dtype == torch.bfloat16:
-        out = w4_wgmma.matmul("uint4", x, qweight, scales, zeros)
-        w4a16_matmul.launches += 1
-        return out
+    if x.dtype in w4_wgmma.DTYPE_CODES:
+        return _wgmma(w4a16_matmul, "uint4", x, qweight, scales, zeros)
     K, N = qweight.shape
     _check(x, {"qweight": (qweight, torch.int8),
                "scales": (scales, torch.float32),
@@ -283,7 +291,7 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     out = _launch("w4a16_launch", _W4_ARGS, x, K, N,
                   [qweight.data_ptr(), scales.data_ptr(), zeros.data_ptr()],
                   [x.shape[0], K, N, group])
-    w4a16_matmul.launches += 1
+    _count(w4a16_matmul, x)
     return out
 
 
@@ -292,14 +300,13 @@ def w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
                         zeros: torch.Tensor) -> torch.Tensor:
     """x [M, K] @ dequant(uint8 [K/2, N] global-half packed) -> [M, N].
 
-    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
-    N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
+    bf16 and fp16 run on ``w4_wgmma`` (M <= 256, K and the group multiples
+    of 32, N of 16), fp32 on the CUDA-core kernel (N a multiple of 4)."""
     if x.device.type == "cpu":
         return ref_w4a16_packed_matmul(x, qpacked, scales, zeros)
-    if x.dtype == torch.bfloat16:
-        out = w4_wgmma.matmul("packed", x, qpacked, scales, zeros)
-        w4a16_packed_matmul.launches += 1
-        return out
+    if x.dtype in w4_wgmma.DTYPE_CODES:
+        return _wgmma(w4a16_packed_matmul, "packed", x, qpacked, scales,
+                      zeros)
     Kh, N = qpacked.shape
     K = 2 * Kh
     _check(x, {"qpacked": (qpacked, torch.uint8),
@@ -309,7 +316,7 @@ def w4a16_packed_matmul(x: torch.Tensor, qpacked: torch.Tensor,
     out = _launch("w4a16_packed_launch", _W4_ARGS, x, Kh, N,
                   [qpacked.data_ptr(), scales.data_ptr(), zeros.data_ptr()],
                   [x.shape[0], K, N, group])
-    w4a16_packed_matmul.launches += 1
+    _count(w4a16_packed_matmul, x)
     return out
 
 
@@ -319,17 +326,15 @@ def w4a16_int4_matmul(x: torch.Tensor, q4p: torch.Tensor,
     """x [M, K] @ ((int4 [K, N] - z) * s) -> [M, N], q4 packed as uint8
     [K/2, N] (``pack_int4``), group-wise as the TPU ``_w4i4_kernel``.
 
-    bf16 runs on ``w4_wgmma`` (M <= 256, K and the group multiples of 32,
-    N of 16). fp32 runs on the CUDA-core kernel: blocks of up to 32 rows
-    of M and 128 columns, K split on group and 256-row boundaries until the
-    card has about two blocks per SM; an even group that divides 256 or is
-    a multiple of it."""
+    bf16 and fp16 run on ``w4_wgmma`` (M <= 256, K and the group multiples
+    of 32, N of 16). fp32 runs on the CUDA-core kernel: blocks of up to 32
+    rows of M and 128 columns, K split on group and 256-row boundaries until
+    the card has about two blocks per SM; an even group that divides 256 or
+    is a multiple of it."""
     if x.device.type == "cpu":
         return ref_w4a16_int4_matmul(x, q4p, scales, zeros)
-    if x.dtype == torch.bfloat16:
-        out = w4_wgmma.matmul("int4", x, q4p, scales, zeros)
-        w4a16_int4_matmul.launches += 1
-        return out
+    if x.dtype in w4_wgmma.DTYPE_CODES:
+        return _wgmma(w4a16_int4_matmul, "int4", x, q4p, scales, zeros)
     Kh, N = q4p.shape
     K = 2 * Kh
     _check(x, {"qweight4": (q4p, torch.uint8),
@@ -355,17 +360,16 @@ def w4a16_int4_matmul(x: torch.Tensor, q4p: torch.Tensor,
              cuda_build.stream(x.device))
     cuda_build.check(err, f"quant_matmul w4a16_int4_launch M={M} K={K} "
                           f"N={N} group={group}")
-    w4a16_int4_matmul.launches += 1
+    _count(w4a16_int4_matmul, x)
     return out
 
-
-# Launches of the CUDA kernels (a run sets them to 0 and reads them after).
-w8a16_matmul.launches = 0
-w4a16_matmul.launches = 0
-w4a16_packed_matmul.launches = 0
-w4a16_int4_matmul.launches = 0
-fp8_matmul.launches = 0
 
 KERNELS = {"w8a16_matmul": w8a16_matmul, "w4a16_matmul": w4a16_matmul,
            "w4a16_packed_matmul": w4a16_packed_matmul,
            "w4a16_int4_matmul": w4a16_int4_matmul, "fp8_matmul": fp8_matmul}
+# Launches of the CUDA kernels (a run sets them to 0 and reads them after),
+# and the same by x's dtype: fp32 (the CUDA-core kernels), bf16 and fp16
+# (``w4_wgmma``'s instances of that element type).
+for _fn in KERNELS.values():
+    _fn.launches = 0
+    _fn.dtype_launches = {"float32": 0, "bfloat16": 0, "float16": 0}

@@ -1,8 +1,10 @@
-"""The bf16 weight-only decode GEMMs on Hopper's warpgroup products.
+"""The weight-only decode GEMMs on Hopper's warpgroup products, bf16 or
+fp16.
 
-``matmul(layout, x, q, scales, zeros)`` launches ``csrc/w4_wgmma.cu`` for
-bf16 CUDA tensors, y [M, N] = x [M, K] @ W, M <= 256, with W stored in one
-of five layouts, one weight a nibble or a byte:
+``matmul(layout, x, q, scales, zeros)`` launches ``csrc/w4_wgmma.cuh`` for
+CUDA tensors, y [M, N] = x [M, K] @ W in x's dtype, bf16 (the instances of
+``csrc/w4_wgmma.cu``) or fp16 (``csrc/w4_wgmma_f16.cu``), M <= 256, with W
+stored in one of five layouts, one weight a nibble or a byte:
 
 - ``"int4"``: W = (q - z) s, signed int4 q - 8 as uint8 [K/2, N], rows 2r
   and 2r + 1 in the low and high nibble of byte [r, n]
@@ -15,19 +17,21 @@ of five layouts, one weight a nibble or a byte:
   zeros;
 - ``"fp8"``: W = q s, e4m3fn q [K, N], s [N], no zeros (``fp8_matmul`` of
   the JAX package, which XLA computes: no Pallas kernel); with
-  ``row_scales`` rs [M] (W8A8, x already rounded to e4m3 in bf16) y =
+  ``row_scales`` rs [M] (W8A8, x already rounded to e4m3 in x's dtype) y =
   (d rs[m]) s[n] in fp32, the reference's order.
 
 s and z of the first three are fp32 [K / group, N]. All take the TPU int4
 kernel's group-wise form: per group (and per half of K for "packed") d =
-x_g @ q_g with q exact in bf16, then acc += (d - sum(x_g) z) s in fp32.
-Where every zero is an integer (``zeros_integral``, read at a weight's
-first call at each M; the quantizers make them so) the kernel takes the
-zero inside the product, d = x_g @ (q_g - z_g) with q - z exact in bf16,
+x_g @ q_g with q exact in x's dtype, then acc += (d - sum(x_g) z) s in
+fp32, and y rounded once to x's dtype, as the TPU kernels compute in x's
+dtype (``quant_matmul_pallas.py:38-40, 76``). Where every zero is an
+integer that keeps the conversion exact (``zeros_integral``, read at a
+weight's first call at each M; the quantizers make them so) the kernel
+takes the zero inside the product, d = x_g @ (q_g - z_g) with q - z exact,
 and acc += d s: the same sum of exact products, without the sums of x.
 "w8" and "fp8" have no groups: d sums a K split's whole range and y =
-d s. The wrappers of ``ops/quant_matmul.py`` call it for bf16; CPU tensors
-never reach it.
+d s. The wrappers of ``ops/quant_matmul.py`` call it for bf16 and fp16;
+CPU tensors never reach it.
 
 What the kernel's launch is made of, computed here and held by the CPU
 tests (the kernel runs only on the card):
@@ -41,16 +45,21 @@ tests (the kernel runs only on the card):
 - ``fold_model``: the kernel's arithmetic in plain PyTorch (the k range
   each fold sums, both halves of "packed" folded apart, both forms of the
   zero, "w8"'s and "fp8"'s one scale a split);
-- ``int8_model`` and ``fp8_model``: the conversions of a signed byte and of
-  an e4m3 byte to bf16 as the kernel makes them.
+- ``nibble_model``, ``int8_model`` and ``fp8_model``: the conversions of a
+  nibble less its zero, of a signed byte and of an e4m3 byte to bf16 or
+  fp16 as the kernel makes them.
+
+``plan``, ``schedule`` and the shared memory do not depend on the dtype:
+x's boxes are 2-byte elements in both.
 
 A weight's tensor maps (its bytes, scales, zeros) are encoded once and
 kept with the launch's other fixed arguments (``_CALLS``, keyed by
 ``call_key``: the weight's pointers, shapes and version counters, and M;
-held only while the same zeros tensor lives). The form of the zero is read
-from the zeros' values, so an in-place write to them (a weight load) bumps
-their version and prepares the launch anew. A call checks x, allocates y
-and encodes only x's map.
+held only while the same zeros tensor lives; x's dtype is part of the
+key, since it picks the entry and the form of the zero). The form of the
+zero is read from the zeros' values, so an in-place write to them (a
+weight load) bumps their version and prepares the launch anew. A call
+checks x, allocates y and encodes only x's map.
 """
 from __future__ import annotations
 
@@ -79,13 +88,28 @@ PITCH = 68        # fp32 row pitch of the epilogue's tile
 BARRIER_BYTES = 3 * 8  # full, empty and sums mbarriers a stage
 MAX_SPLITS = 16
 
+# x's dtype code of the launch (the attention kernels' codes), and the
+# library and entry of its instances.
+DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
+_LAUNCH_ENTRY = {torch.bfloat16: ("w4_wgmma", "w4_wgmma_launch"),
+                 torch.float16: ("w4_wgmma_f16", "w4_wgmma_f16_launch")}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MAP_ARGS = [_P, _P, _P, _I, _I, _I, _I, _P]
 _LAUNCH_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P]
 _CALLS: dict[tuple, tuple] = {}
-# The constant that the conversion subtracts before the zero: 136 for int4
-# (128 + (n ^ 8) = 136 + n), 128 for packed and uint4 (128 + u).
-ZERO_BASE = {"int4": 136.0, "packed": 128.0, "uint4": 128.0}
+# The magic number OR'd under a nibble, whose ulp is 1: bf16 0x4300 (128),
+# fp16 0x6400 (1024).
+MAGIC = {torch.bfloat16: 0x4300, torch.float16: 0x6400}
+# The constant that the conversion subtracts before the zero, by x's
+# dtype: c + 8 for int4 (c + (n ^ 8) = c + 8 + n), c for packed and uint4
+# (c + u).
+ZERO_BASE = {dt: {"int4": c + 8.0, "packed": c, "uint4": c}
+             for dt, c in ((torch.bfloat16, 128.0), (torch.float16, 1024.0))}
+# Every integer of at most this magnitude is exact: 2^8 in bf16, 2^11 in
+# fp16 (their significands' bits).
+EXACT_INT = {torch.bfloat16: 256, torch.float16: 2048}
+# The values q of the nibble layouts (int4's signed, the others' unsigned).
+Q_RANGE = {"int4": (-8, 7), "packed": (0, 15), "uint4": (0, 15)}
 
 
 @dataclass(frozen=True)
@@ -264,34 +288,74 @@ def schedule(layout: str, p: Plan, M: int, K: int, N: int):
     return out
 
 
-def zeros_integral(layout: str, zeros: torch.Tensor) -> bool:
-    """Whether the kernel may take the zeros inside the product: every zero
-    an integer with |ZERO_BASE + z| < 256, so that the conversion's
-    subtrahend and every q - z are exact in bf16. Reads the zeros once."""
+def zeros_integral(layout: str, zeros: torch.Tensor,
+                   dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernel may take the zeros inside the product for x of
+    ``dtype``: every zero z an integer with the conversion's subtrahend
+    ZERO_BASE + z and every q - z (q over ``Q_RANGE``) at most
+    ``EXACT_INT`` in magnitude (256 in bf16, 2048 in fp16), so that both
+    are exact in ``dtype`` and so is the subtraction (``nibble_model``).
+    Reads the zeros once."""
     v = zeros.float()
+    lo, hi = Q_RANGE[layout]
+    most = EXACT_INT[dtype]
     return bool(torch.equal(v, v.round())
-                and (ZERO_BASE[layout] + v).abs().max().item() < 256)
+                and (ZERO_BASE[dtype][layout] + v).abs().max().item() <= most
+                and torch.maximum((v - lo).abs(), (v - hi).abs()).max()
+                .item() <= most)
 
 
-def int8_model(b: torch.Tensor) -> torch.Tensor:
-    """The kernel's conversion of signed bytes to bf16 (``int8_pair``): the
-    fp32 of bits 0x4B000000 | (b ^ 0x80) is 2^23 + 128 + b, one fp32
-    subtraction of 2^23 + 128 leaves b, and b (at most 8 significant bits)
-    rounds to bf16 exactly. Returns bf16 of b's shape."""
+def _bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """16-bit patterns (int32 holding 0..0xFFFF) as values of ``dtype``
+    (the cast to int16 wraps the sign bit)."""
+    return bits.to(torch.int16).view(dtype)
+
+
+def nibble_model(layout: str, n: torch.Tensor, z: torch.Tensor,
+                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel's conversion of stored nibbles n (0..15) less their zeros
+    z into ``dtype`` (``convert_int4``, ``convert_packed``): the bits
+    MAGIC | n (int4: MAGIC | (n ^ 8)) are c + u with c 128 (bf16) or 1024
+    (fp16), whose ulp is 1; one subtraction of ZERO_BASE + z, rounded to
+    ``dtype`` as the kernel packs it, leaves q - z (int4's q the signed
+    n ^ 8 - 8). Without the zero inside the product z is 0. Returns
+    ``dtype`` of the broadcast shape."""
+    u = n.to(torch.int32) & 0xF
+    c_u = _bits((u ^ 8 if layout == "int4" else u) | MAGIC[dtype], dtype)
+    sub = (ZERO_BASE[dtype][layout] + z.float()).to(dtype)
+    return c_u - sub
+
+
+def int8_model(b: torch.Tensor,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel's conversion of signed bytes to ``dtype`` (``int8_pair``).
+    bf16: the fp32 of bits 0x4B000000 | (b ^ 0x80) is 2^23 + 128 + b, one
+    fp32 subtraction of 2^23 + 128 leaves b, and b (at most 8 significant
+    bits) rounds to bf16 exactly. fp16: the bits 0x6400 | (b ^ 0x80) are
+    1024 + 128 + b (ulp 1 below 2048), and one fp16 subtraction of 1152
+    leaves b. Returns ``dtype`` of b's shape."""
+    if dtype == torch.float16:
+        f = _bits(0x6400 | ((b.to(torch.int32) & 0xFF) ^ 0x80), dtype)
+        return f - torch.tensor(1152.0, dtype=dtype)
     bits = 0x4B000000 | ((b.to(torch.int32) & 0xFF) ^ 0x80)
     return (bits.view(torch.float32) - 8388736.0).to(torch.bfloat16)
 
 
-def fp8_model(b: torch.Tensor) -> torch.Tensor:
-    """The kernel's conversion of e4m3 bytes (uint8) to bf16 (``e4m3_pair``):
-    the bits (b & 0x80) << 8 | (b & 0x7f) << 4 are the bf16
-    of 2^-120 times the e4m3 value (a bf16 subnormal below 2^-126), and one
-    bf16 product with 2^120 restores it, exact for every finite byte.
-    Returns bf16 of b's shape."""
+def fp8_model(b: torch.Tensor,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The kernel's conversion of e4m3 bytes (uint8) to ``dtype``
+    (``e4m3_pair``). bf16: the bits (b & 0x80) << 8 | (b & 0x7f) << 4 are
+    the bf16 of 2^-120 times the e4m3 value (a bf16 subnormal below
+    2^-126), and one bf16 product with 2^120 restores it. fp16: the kernel
+    takes the hardware's cvt.rn.f16x2.e4m3x2, which is exact; modelled by
+    the bits (b & 0x80) << 8 | (b & 0x7f) << 7, the fp16 of 2^-8 times the
+    e4m3 value (exponent biases 15 and 7; subnormals map to subnormals),
+    and one product with 2^8. Both exact for every finite byte. Returns
+    ``dtype`` of b's shape."""
     v = b.to(torch.int32) & 0xFF
-    bits = ((v & 0x80) << 8) | ((v & 0x7F) << 4)
-    tiny = bits.to(torch.int16).view(torch.bfloat16)
-    return tiny * torch.tensor(2.0 ** 120, dtype=torch.bfloat16)
+    shift, scale = (7, 2.0 ** 8) if dtype == torch.float16 else (4, 2.0 ** 120)
+    tiny = _bits(((v & 0x80) << 8) | ((v & 0x7F) << shift), dtype)
+    return tiny * torch.tensor(scale, dtype=dtype)
 
 
 def fold_model(layout: str, x: torch.Tensor, q: torch.Tensor,
@@ -348,18 +412,17 @@ def check(layout: str, x: torch.Tensor, q: torch.Tensor,
           scales: torch.Tensor, zeros: torch.Tensor | None,
           row_scales: torch.Tensor | None = None) -> int:
     """Raise ValueError, naming the shape, on what the kernel cannot take;
-    return the group (K for "w8" and "fp8"). It takes bf16 x [M, K] with 1
-    <= M <= 256 and K a multiple of 32; q uint8 [K/2, N] (int4, packed),
+    return the group (K for "w8" and "fp8"). It takes bf16 or fp16 x [M, K]
+    with 1 <= M <= 256 and K a multiple of 32; q uint8 [K/2, N] (int4, packed),
     int8 [K, N] (uint4, w8) or e4m3fn [K, N] (fp8) with N a multiple of 16
     (TMA's row stride); fp32 scales and zeros [K / group, N] with the group
     a multiple of 32, or for "w8" and "fp8" fp32 scales [N] and no zeros;
     for "fp8" optionally fp32 row scales [M]; all contiguous and 16-byte
     aligned on x's device."""
     what = f"w4_wgmma {layout}"
-    if x.dtype != torch.bfloat16 or x.dim() != 2:
-        raise ValueError(f"{what}: x must be bf16 [M, K] (fp16 is queued "
-                         f"in ROADMAP.md B), got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dtype not in DTYPE_CODES or x.dim() != 2:
+        raise ValueError(f"{what}: x must be bf16 or fp16 [M, K], got "
+                         f"{x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     q_dtype = Q_DTYPES[layout]
     if q.dim() != 2 or q.dtype != q_dtype \
@@ -387,7 +450,7 @@ def check(layout: str, x: torch.Tensor, q: torch.Tensor,
                 f"{what}: scales {tuple(scales.shape)} / zeros "
                 f"{None if zeros is None else tuple(zeros.shape)} for K={K}, "
                 f"N={N}: want [K / group, N] with the group a multiple of 32")
-    for name, t, dtype in (("x", x, torch.bfloat16), ("q", q, q_dtype),
+    for name, t, dtype in (("x", x, x.dtype), ("q", q, q_dtype),
                            ("scales", scales, torch.float32),
                            ("zeros", zeros, torch.float32),
                            ("row_scales", row_scales, torch.float32)):
@@ -409,25 +472,29 @@ def _version(t: torch.Tensor | None):
 def call_key(layout: str, x: torch.Tensor, q: torch.Tensor,
              scales: torch.Tensor, zeros: torch.Tensor | None,
              *extra) -> tuple:
-    """The key of a prepared launch in ``_CALLS``: the layout, x's shape
+    """The key of a prepared launch in ``_CALLS``: the layout, x's shape,
+    dtype (which picks the entry, the instance and the form of the zero)
     and device, and for q, scales and zeros their address, shape, dtype
     and version counter (so that a weight written in place, as
     ``loader.weights.load_params`` does, is prepared anew: its form of the
     zero was read from the old values), then ``extra``."""
-    key = [layout, tuple(x.shape), x.device.index, *extra]
+    key = [layout, tuple(x.shape), x.dtype, x.device.index, *extra]
     for t in (q, scales, zeros):
         key += ([None] if t is None else
                 [t.data_ptr(), tuple(t.shape), t.dtype, _version(t)])
     return tuple(key)
 
 
-def _entries(lib):
-    """(w4_weight_maps, w4_wgmma_launch) of the package's build, or of
-    ``lib``, a ``ctypes.CDLL`` of another build of the same source."""
+def _entries(lib, dtype: torch.dtype):
+    """(w4_weight_maps, the launch entry of x's ``dtype``) of the package's
+    builds, or of ``lib``, a ``ctypes.CDLL`` of another build of
+    ``csrc/w4_wgmma.cu`` (the timing variants: bf16 only)."""
     if lib is None:
         return (cuda_build.entry("w4_wgmma", "w4_weight_maps", _MAP_ARGS),
-                cuda_build.entry("w4_wgmma", "w4_wgmma_launch",
-                                 _LAUNCH_ARGS))
+                cuda_build.entry(*_LAUNCH_ENTRY[dtype], _LAUNCH_ARGS))
+    if dtype != torch.bfloat16:
+        raise ValueError("w4_wgmma: the timing variants build the bf16 "
+                         f"instances only, got {dtype}")
     fns = (lib.w4_weight_maps, lib.w4_wgmma_launch)
     for fn, args in zip(fns, (_MAP_ARGS, _LAUNCH_ARGS)):
         fn.argtypes, fn.restype = args, ctypes.c_int
@@ -435,20 +502,20 @@ def _entries(lib):
 
 
 def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
-    """The fixed part of a launch (checked once): the entry point, the
-    weight's tensor maps, the launch's integer arguments, the plan, w8's
-    and fp8's column scales, and a weak reference to the zeros it was made
-    for."""
+    """The fixed part of a launch (checked once): the entry point of x's
+    dtype, the weight's tensor maps, the launch's integer arguments, the
+    plan, w8's and fp8's column scales, and a weak reference to the zeros
+    it was made for."""
     group = check(layout, x, q, scales, zeros)
     if layout in COL_SCALED:
         zero_in = True  # no zeros: nothing to subtract
     elif zero_in is None:
-        zero_in = zeros_integral(layout, zeros)
+        zero_in = zeros_integral(layout, zeros, x.dtype)
     M, K = x.shape
     N = q.shape[1]
     p = plan(layout, M, K, N, group, cuda_build.sm_count(x.device),
              cuda_build.smem_optin(), splits, stages)
-    map_fn, fn = _entries(lib)
+    map_fn, fn = _entries(lib, x.dtype)
     maps = (ctypes.c_uint8 * 384)()
     G = scales.shape[0] if layout not in COL_SCALED else 0
     err = map_fn(q.data_ptr(), scales.data_ptr(),
@@ -457,13 +524,13 @@ def _prepare(layout, x, q, scales, zeros, splits, lib, zero_in, stages):
     if err:
         raise RuntimeError(f"w4_wgmma weight maps K={K} N={N} group={group}"
                            f": CUDA error {err}")
-    args = (ctypes.c_int * 13)(LAYOUTS[layout], p.mt, p.fold, M, K, N, group,
+    args = (ctypes.c_int * 14)(LAYOUTS[layout], p.mt, p.fold, M, K, N, group,
                                p.gs, p.splits, p.chunk_rows, p.m_tiles,
-                               p.stages, int(zero_in))
+                               p.stages, int(zero_in), DTYPE_CODES[x.dtype])
     return fn, maps, args, p, N, \
         scales.data_ptr() if layout in COL_SCALED else None, \
-        f"w4_wgmma {layout} M={M} K={K} N={N} group={group} ({p}, zeros " \
-        f"in the product: {bool(zero_in)})", \
+        f"w4_wgmma {layout} {x.dtype} M={M} K={K} N={N} group={group} " \
+        f"({p}, zeros in the product: {bool(zero_in)})", \
         None if zeros is None else weakref.ref(zeros)
 
 
@@ -473,7 +540,7 @@ def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
            zero_in: bool | None = None,
            stages: int | None = None,
            row_scales: torch.Tensor | None = None) -> torch.Tensor:
-    """y = x @ W on the card, bf16 [M, N] (``zeros`` None for "w8" and
+    """y = x @ W on the card, [M, N] in x's dtype (``zeros`` None for "w8" and
     "fp8"; ``row_scales`` fp32 [M] for fp8's W8A8 epilogue). ``splits``
     forces a K split count, ``zero_in`` the form of the zero (None: inside
     the product where ``zeros_integral``), ``stages`` caps the ring's
@@ -494,11 +561,10 @@ def matmul(layout: str, x: torch.Tensor, q: torch.Tensor,
             or not row_scales.is_contiguous()
             or tuple(row_scales.shape) != (x.shape[0],)):
         check(layout, x, q, scales, zeros, row_scales)  # raises
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() \
-            or x.data_ptr() % 16:
+    if not x.is_contiguous() or x.data_ptr() % 16:
         check(layout, x, q, scales, zeros)  # raises, naming the fault
     fn, maps, args, p, N, col_scales, what, _ = call
-    out = torch.empty((x.shape[0], N), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((x.shape[0], N), dtype=x.dtype, device=dev)
     partial = counters = None
     if p.splits > 1:
         tiles = cdiv(cdiv(N, BN), CLUSTER) * CLUSTER * p.m_tiles

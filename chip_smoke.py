@@ -17,7 +17,8 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Hold each kernel against its plain PyTorch version at the main paths'
-   shapes, in bf16 and fp32, and time kernel, plain version and a library
+   shapes, in bf16 and fp32 (fp16: the paragraphs after the list), and
+   time kernel, plain version and a library
    yardstick that the port itself never calls: both attention kernels at
    the Qwen2.5-1.5B, Llama-3.1-8B and Qwen2.5-7B paths' heads, prefill
    wave and decode window, against ``scaled_dot_product_attention`` over
@@ -168,12 +169,13 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
 24. The main path of the MLA slice: DeepSeek-V2-Lite
    (``deepseek-ai/DeepSeek-V2-Lite`` config.json: 27 layers, 16 query
    heads on one latent head of 576, 64 experts top-6 with 2 shared, a
-   dense first layer, DeepSeek-YaRN) at full width and depth, bf16 dummy
-   weights (31.4 GB), phase 6's traffic and runs. Exactly 2048 tokens a
-   run; in every cold and warm run the ragged kernel exactly 27 and the
-   window kernel exactly 27 x 63 = 1701 launches, all on their MLA
-   instances, the grouped GEMM 52 (26 MoE layers x 2, the wave only), the
-   other attention instances never; a profiled run.
+   dense first layer, DeepSeek-YaRN) at full width, its depth cut to
+   ``DEEPSEEK_DEPTH`` = 14 layers (phase 27 serves all 27 again), bf16
+   dummy weights, phase 6's traffic and runs. Exactly 2048 tokens a run;
+   in every cold and warm run the ragged kernel exactly 14 and the window
+   kernel exactly 14 x 63 = 882 launches, all on their MLA instances, the
+   grouped GEMM 26 (13 MoE layers x 2, the wave only), the other attention
+   instances never; a profiled run.
 25. Vision parity (``mm_parity``): tiny Gemma-3 multimodal and PaliGemma
    on a Gemma and a Gemma-2 base (``MM_TINY``, dict configs with nested
    ``text_config`` / ``vision_config``), fp32, weights redrawn
@@ -198,7 +200,8 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    the tensor-core instance, the decode kernel 34 x 63 = 2142, the window
    kernel never; the tower 32 images in a cold run and none in a warm one.
 27. The main path of the fp8 MLA slice (run after phase 24): phase 24's
-   model, traffic and runs with ``kv_cache_dtype="fp8_e4m3"`` (the KV pool
+   model at full depth (27 layers), traffic and runs with
+   ``kv_cache_dtype="fp8_e4m3"`` (the KV pool
    at one byte an element: 31,104 bytes a token against phase 24's
    62,208). In every cold and warm run exactly: ragged 27 and window 1701,
    all on the MLA instances' e4m3 ones, grouped 52, 0 on the other
@@ -222,6 +225,36 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    suffix each and 64 new tokens (ragged 32, shared pass 2016, window
    2016 from its state a run; 32768 cached prompt tokens); the KV bytes a
    token logged (524,288); a profiled run of each.
+30. fp16 quantized parity (``fp16_quant_parity``): fp16 greedy runs on the
+   card and on the CPU with the same weights (``F16_QUANT_TINY``: a tiny
+   Qwen2 whose projections stay uint4, a one-layer Llama at K = 2048 whose
+   projections pack): gptq at both, awq packed, the packed leaves realized
+   to int4, w8a16, fp8, fp8_w8a8 and int8; 12 prompts, a 64-token budget,
+   16-step windows. Tokens equal (but where activations round to 8 bits:
+   partings at gaps below ``GAP``, ``same_tokens``); chosen logprobs within
+   ``F16_LOGPROB_TOL``; every quantized GEMM's card launches exactly its
+   CPU twin's calls (``GemmSpy``), all on the fp16 instance.
+31. The main path of the fp16 GEMM slice (``main_path_awq_fp16``):
+   Llama-3.1-8B-Instruct AWQ-INT4's geometry (``LLAMA31_8B``; the
+   checkpoint ``hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4`` is
+   published in fp16) at full width and depth in fp16, ``quantization=
+   "awq"`` (group 128, zero points) on seeded dummy weights, phase 6's
+   traffic and runs, cold and warm: exactly 8064 packed-GEMM launches a
+   run, all on the fp16 instance, ragged 32 and window 2016, all on the
+   fp16 tensor-core instances, the other quantized GEMMs never; every
+   logprob finite; walls beside phase 6's; the KV bytes a token (131,072);
+   a profiled run.
+
+For the fp16 GEMM slice phase 2 (``fp16_gemm_checks``) holds each layout's
+fp16 instance (``csrc/w4_wgmma_f16.cu``) against its plain version at
+``W4_CASES``, ``BYTE_CASES`` and ``FP8_CASES`` (every M tile, forced K
+splits, integral and fractional zeros, row scales) within ``gemm_tol``,
+two launches bit-equal; every e4m3 and int8 byte and every nibble less
+every admitted zero (fp16 and bf16) bit for bit against the CPU models
+(``check_gemm_bytes_f16``); and times a layer's four GEMMs of each of
+``F16_GEMM_TIMED`` beside the bf16 instance on the same weights, the plain
+version, a dense fp16 ``torch.matmul`` of the dequantized weights and
+``_weight_int4pack_mm`` where the card's torch takes fp16 x.
 
 For the fp16 slice phase 2 (``fp16_checks``) holds each fp16 instance of
 the ragged, window, decode and shared-prefix kernels against its plain
@@ -1093,11 +1126,11 @@ def library_call(name: str, x, args, dense):
     """(label, fn): one PyTorch call computing the same product, which the
     port never calls."""
     import torch
-    if x.dtype == torch.bfloat16:
+    if x.dtype in (torch.bfloat16, torch.float16):
         try:
             if name == "w8a16_matmul":
                 q, s = args
-                qt, sb = q.t().contiguous(), s.to(torch.bfloat16)
+                qt, sb = q.t().contiguous(), s.to(x.dtype)
                 fn = lambda: torch._weight_int8pack_mm(x, qt, sb)  # noqa
             else:
                 # Its layout: [N, K/2] bytes of two consecutive k, then
@@ -1110,7 +1143,7 @@ def library_call(name: str, x, args, dense):
                 packed = (qn[:, ::2] << 4 | qn[:, 1::2]).contiguous()
                 w4 = torch._convert_weight_to_int4pack(packed, 8)
                 sz = torch.stack([s, (8.0 - z) * s], dim=-1).to(
-                    torch.bfloat16).contiguous()                 # [G, N, 2]
+                    x.dtype).contiguous()                        # [G, N, 2]
                 fn = lambda: torch._weight_int4pack_mm(  # noqa: E731
                     x, w4, 128, sz)
             fn()
@@ -1407,17 +1440,18 @@ def fp8_weights(gen, K: int, N: int):
 
 
 def w4_inputs(gen, layout: str, M: int, K: int, N: int, group: int,
-              frac: bool):
-    """x and one layout's weights, scaled as in ``int4_inputs`` (w8 as in
-    ``quant_inputs``, with -128 and 127 in rows 0 and 1 of every column;
-    fp8 as ``fp8_weights``): x, (q, s, z) (w8 and fp8: (q, s, None)), the
-    plain version. ``frac`` moves every zero by 0.37."""
+              frac: bool, dtype_name: str = "bfloat16"):
+    """x in ``dtype_name`` and one layout's weights, scaled as in
+    ``int4_inputs`` (w8 as in ``quant_inputs``, with -128 and 127 in rows 0
+    and 1 of every column; fp8 as ``fp8_weights``): x, (q, s, z) (w8 and
+    fp8: (q, s, None)), the plain version. ``frac`` moves every zero by
+    0.37."""
     import torch
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     from aphrodite_tpu_torch.quantization.loader import pack_w4
     dev = dict(device="cuda", generator=gen)
     G = K // group
-    x = torch.randn((M, K), **dev).bfloat16()
+    x = torch.randn((M, K), **dev).to(getattr(torch, dtype_name))
     if layout == "fp8":
         q, s = fp8_weights(gen, K, N)
         return x, (q, s, None), lambda xf: qm.ref_fp8_matmul(xf, q, s)
@@ -1443,13 +1477,23 @@ def w4_inputs(gen, layout: str, M: int, K: int, N: int, group: int,
     return x, (q, s, z), lambda xf: ref(xf, q, s, z)
 
 
-def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8")) -> float:
-    """The bf16 kernel (``csrc/w4_wgmma.cu``) in each layout against the
-    plain versions, the nibble layouts at ``W4_CASES`` and the byte ones at
+def gemm_tol(dtype_name: str, ref) -> float:
+    """The error limit of a quantized GEMM's output (O(1) by construction):
+    bf16 TOL["bfloat16"]; fp16 TOL["float16"] scaled to the reference's
+    largest value where that is below 1 (``scaled_tol``)."""
+    return (TOL[dtype_name] if dtype_name == "bfloat16"
+            else scaled_tol(dtype_name, ref))
+
+
+def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8"),
+                   dtype_name: str = "bfloat16") -> float:
+    """The kernel's instances of x's dtype (``csrc/w4_wgmma.cu`` bf16,
+    ``csrc/w4_wgmma_f16.cu`` fp16) in each layout against the plain
+    versions, the nibble layouts at ``W4_CASES`` and the byte ones at
     ``BYTE_CASES``: every M tile and two M tiles, groups 32-256 (and K), a
     ragged N, forced K splits, both forms of the zero; two launches on the
     same inputs must be bit-equal. Returns the largest error (tolerance
-    TOL["bfloat16"], max-abs, the outputs O(1)). The "fp8" layout takes
+    ``gemm_tol``, max-abs, the outputs O(1)). The "fp8" layout takes
     ``FP8_CASES`` (``check_fp8_layout``)."""
     import torch
     from aphrodite_tpu_torch.ops import w4_wgmma
@@ -1457,19 +1501,22 @@ def check_w4_wgmma(gen, layouts=("int4", "packed", "uint4", "w8")) -> float:
     for layout in layouts:
         cases = BYTE_CASES if layout in w4_wgmma.BYTE_LAYOUTS else W4_CASES
         for M, K, N, group, splits, zero_in, frac in cases:
-            x, args, plain = w4_inputs(gen, layout, M, K, N, group, frac)
+            x, args, plain = w4_inputs(gen, layout, M, K, N, group, frac,
+                                       dtype_name)
             y = w4_wgmma.matmul(layout, x, *args, splits=splits,
                                 zero_in=zero_in)
             y2 = w4_wgmma.matmul(layout, x, *args, splits=splits,
                                  zero_in=zero_in)
             torch.cuda.synchronize()
-            err = (y.float() - plain(x.float())).abs().max().item()
-            what = (f"w4_wgmma {layout} M={M} K={K} N={N} group={group} "
-                    f"splits={splits} zeros in the product {zero_in} "
-                    f"fractional zeros {frac}")
-            if not (err <= TOL["bfloat16"] and torch.isfinite(y).all()):
-                raise AssertionError(f"{what}: max_abs_err {err} > "
-                                     f"{TOL['bfloat16']}")
+            ref = plain(x.float())
+            err = (y.float() - ref).abs().max().item()
+            tol = gemm_tol(dtype_name, ref)
+            what = (f"w4_wgmma {layout} {dtype_name} M={M} K={K} N={N} "
+                    f"group={group} splits={splits} zeros in the product "
+                    f"{zero_in} fractional zeros {frac}")
+            if not (err <= tol and torch.isfinite(y).all()
+                    and y.dtype == x.dtype):
+                raise AssertionError(f"{what}: max_abs_err {err} > {tol}")
             if not torch.equal(y, y2):
                 raise AssertionError(f"{what}: two launches differ")
             worst = max(worst, err)
@@ -1486,18 +1533,20 @@ FP8_CASES = list(dict.fromkeys((M, K, N, s)
                                if zi is None and not fr))
 
 
-def check_fp8_layout(gen) -> float:
-    """kFp8 (``w4_wgmma``'s "fp8" layout) at ``FP8_CASES``, weight-only and
-    with a scale a row of x (the W8A8 epilogue, kRowScale), against the
-    plain version: the e4m3 bytes of every column include +-448, +-2^-9
-    and +-0 (``fp8_weights``); two launches bit-equal. Returns the largest
-    error (tolerance TOL["bfloat16"], max-abs, outputs O(1))."""
+def check_fp8_layout(gen, dtype_name: str = "bfloat16") -> float:
+    """kFp8 (``w4_wgmma``'s "fp8" layout) of x's dtype at ``FP8_CASES``,
+    weight-only and with a scale a row of x (the W8A8 epilogue, kRowScale),
+    against the plain version: the e4m3 bytes of every column include
+    +-448, +-2^-9 and +-0 (``fp8_weights``); two launches bit-equal.
+    Returns the largest error (tolerance ``gemm_tol``, max-abs, outputs
+    O(1))."""
     import torch
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     from aphrodite_tpu_torch.ops import w4_wgmma
     worst = 0.0
     for M, K, N, splits in FP8_CASES:
-        x, (q, s, _), _ = w4_inputs(gen, "fp8", M, K, N, K, False)
+        x, (q, s, _), _ = w4_inputs(gen, "fp8", M, K, N, K, False,
+                                    dtype_name)
         rs = 0.5 + torch.rand((M,), device="cuda", generator=gen)
         for r in (None, rs):
             y = w4_wgmma.matmul("fp8", x, q, s, None, splits=splits,
@@ -1505,13 +1554,14 @@ def check_fp8_layout(gen) -> float:
             y2 = w4_wgmma.matmul("fp8", x, q, s, None, splits=splits,
                                  row_scales=r)
             torch.cuda.synchronize()
-            err = (y.float() - qm.ref_fp8_matmul(x.float(), q, s, r)
-                   ).abs().max().item()
-            what = (f"w4_wgmma fp8 M={M} K={K} N={N} splits={splits} row "
-                    f"scales {r is not None}")
-            if not (err <= TOL["bfloat16"] and torch.isfinite(y).all()):
-                raise AssertionError(f"{what}: max_abs_err {err} > "
-                                     f"{TOL['bfloat16']}")
+            ref = qm.ref_fp8_matmul(x.float(), q, s, r)
+            err = (y.float() - ref).abs().max().item()
+            tol = gemm_tol(dtype_name, ref)
+            what = (f"w4_wgmma fp8 {dtype_name} M={M} K={K} N={N} "
+                    f"splits={splits} row scales {r is not None}")
+            if not (err <= tol and torch.isfinite(y).all()
+                    and y.dtype == x.dtype):
+                raise AssertionError(f"{what}: max_abs_err {err} > {tol}")
             if not torch.equal(y, y2):
                 raise AssertionError(f"{what}: two launches differ")
             worst = max(worst, err)
@@ -2423,11 +2473,12 @@ def attention_kernels() -> dict:
             "window_decode_attention": window_decode_attention}
 
 
-def main_path_8b() -> tuple[dict, dict]:
+def main_path_8b() -> tuple[dict, dict, dict]:
     """Llama-3.1-8B W4A16 at full width: the repo's BASELINE config 2
     workload (benchmarks/baseline_configs.py:118-128) through the port;
     then phase 20 on the same engine (``main_path_sampled``). Returns the
-    launches of phase 6's last cold run and of a phase 20 run."""
+    launches of phase 6's last cold run and of a phase 20 run, and phase
+    6's mean cold and warm walls."""
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     layers, steps = LLAMA31_8B["num_hidden_layers"], 63
     counts, llm, walls = serve_workload(
@@ -2438,7 +2489,7 @@ def main_path_8b() -> tuple[dict, dict]:
         quantization="gptq")
     stamp("phase 20")
     sampled = main_path_sampled(llm, walls)
-    return counts, sampled
+    return counts, sampled, walls
 
 
 def main_path_moe() -> dict:
@@ -3153,7 +3204,8 @@ KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans", "ragged_f16",
                   "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
-                  "gumbel_sample", "suffix_match", "mla_attention"]
+                  "w4_wgmma_f16", "gumbel_sample", "suffix_match",
+                  "mla_attention"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -4446,6 +4498,11 @@ DEEPSEEK_V2_LITE = dict(  # deepseek-ai/DeepSeek-V2-Lite config.json
                   "original_max_position_embeddings": 4096},
     max_position_embeddings=163840, tie_word_embeddings=False,
     architectures=["DeepseekV2ForCausalLM"])
+# Phase 24's layers: about half the published 27 (the dense first layer
+# and 13 MoE layers), which keeps the script inside its time limit as it
+# grows; phase 27 serves the model again at full depth on an fp8 cache,
+# and every MoE layer runs the same kernels.
+DEEPSEEK_DEPTH = 14
 # The model's softmax scale: qk_head_dim (192)^-0.5 times DeepSeek-YaRN's
 # mscale_all_dim correction squared (models/deepseek.py).
 MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
@@ -4477,19 +4534,21 @@ V2_LITE_MOE = dict(M=32 * 512 * 6, E=64, k=6,
 
 
 class InstanceCount:
-    """The launches of one instance of an attention wrapper
-    (``instance_launches``), counted as a kernel of its own."""
+    """The launches of one instance of a wrapper, counted as a kernel of
+    its own: an attention wrapper's ``instance_launches`` (by instance) or
+    a quantized GEMM's ``dtype_launches`` (by x's dtype)."""
 
-    def __init__(self, fn, instance: str) -> None:
-        self.fn, self.instance = fn, instance
+    def __init__(self, fn, instance: str,
+                 table: str = "instance_launches") -> None:
+        self.fn, self.instance, self.table = fn, instance, table
 
     @property
     def launches(self) -> int:
-        return self.fn.instance_launches[self.instance]
+        return getattr(self.fn, self.table)[self.instance]
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.fn.instance_launches[self.instance] = value
+        getattr(self.fn, self.table)[self.instance] = value
 
 
 def instance_counts() -> dict:
@@ -4994,20 +5053,23 @@ def deepseek_parity() -> dict:
 
 
 def main_path_deepseek(kv: str = "auto") -> dict:
-    """Phase 24: DeepSeek-V2-Lite bf16 at full width and depth (27 layers,
-    16 heads on one latent head of 576, 64 experts top-6 and 2 shared,
-    15.7 B parameters of seeded dummy weights), phase 6's traffic: one
-    16384-token wave (the ragged MLA instance once a layer, the grouped
-    GEMM twice a MoE layer), then one 63-step window (the window MLA
-    instance once a layer a sub-step; the MoE on the dense route). In
-    every cold and warm run exactly: ragged 27 and window 1701, all on the
-    MLA instances; grouped 52; 0 on the other instances. Phase 27 (``kv``
-    "fp8_e4m3"): the same on an FP8-E4M3 cache, the MLA instances' fp8
-    ones. Logs the KV pool's bytes a token."""
+    """Phase 24: DeepSeek-V2-Lite bf16 at full width (16 heads on one
+    latent head of 576, 64 experts top-6 and 2 shared; seeded dummy
+    weights), its depth cut to ``DEEPSEEK_DEPTH`` of 27 layers, phase 6's
+    traffic: one 16384-token wave (the ragged MLA instance once a layer,
+    the grouped GEMM twice a MoE layer), then one 63-step window (the
+    window MLA instance once a layer a sub-step; the MoE on the dense
+    route). In every cold and warm run exactly: ragged L and window 63 L,
+    all on the MLA instances; grouped 2 (L - 1); 0 on the other
+    instances (L = 14: 14, 882, 26). Phase 27 (``kv`` "fp8_e4m3"): the
+    same at full depth (27 layers: 27, 1701, 52) on an FP8-E4M3 cache, the
+    MLA instances' fp8 ones. Logs the KV pool's bytes a token."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
     phase = "phase 24" if kv == "auto" else "phase 27"
-    L, steps = DEEPSEEK_V2_LITE["num_hidden_layers"], 63
-    moe = L - DEEPSEEK_V2_LITE["first_k_dense_replace"]
+    hf = (dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_DEPTH)
+          if kv == "auto" else DEEPSEEK_V2_LITE)
+    L, steps = hf["num_hidden_layers"], 63
+    moe = L - hf["first_k_dense_replace"]
     exact = {"ragged_paged_attention": L, "ragged mla": L,
              "window_decode_attention": L * steps, "window mla": L * steps,
              "grouped_matmul": 2 * moe}
@@ -5015,7 +5077,7 @@ def main_path_deepseek(kv: str = "auto") -> dict:
                   for i in ("tensor_cores", "scalar")})
     log(f"# {phase}: launches a run, reckoned: {exact}")
     counts, llm, _ = serve_workload(
-        phase, "deepseek-v2-lite-dummy", DEEPSEEK_V2_LITE,
+        phase, "deepseek-v2-lite-dummy", hf,
         {**attention_kernels(), **instance_counts(),
          "grouped_matmul": grouped_matmul}, exact=exact, kv_cache_dtype=kv)
     pool = llm.engine.core.worker.runner.kv_cache
@@ -5690,6 +5752,477 @@ def main_path_llama2_fp16() -> tuple[dict, dict]:
     return counts, shared
 
 
+# ------------------------------------------- the fp16 decode GEMM slice
+# Each layout's wrapper in ops/quant_matmul.py.
+LAYOUT_WRAPPER = {"int4": "w4a16_int4_matmul", "packed": "w4a16_packed_matmul",
+                  "uint4": "w4a16_matmul", "w8": "w8a16_matmul",
+                  "fp8": "fp8_matmul"}
+F16_GEMM_PATH = "llama-3.1-8b-awq-fp16"       # phase 31
+F16_GEMM_PARITY_PATH = "tiny-fp16-quant-parity"  # phase 30
+# Phase 2's timed fp16 GEMMs, each beside its bf16 self on the same
+# weights: (layout, a layer's shapes, M, with W8A8 row scales). The
+# kernels line takes packed at M = 32 (phase 31's decode batch), int4 at
+# M = 128 (phase 14's), the others at M = 32 (phases 15, 16 and 18's).
+F16_GEMM_TIMED = (("packed", "LLAMA8B", 32, False),
+                  ("packed", "LLAMA8B", 128, False),
+                  ("int4", "LLAMA8B", 128, False),
+                  ("int4", "LLAMA8B", 32, False),
+                  ("uint4", "QWEN7B", 32, False),
+                  ("w8", "LLAMA8B", 32, False),
+                  ("fp8", "LLAMA8B", 32, False),
+                  ("fp8", "LLAMA8B", 32, True))
+F16_GEMM_ROW = {"packed": 32, "int4": 128, "uint4": 32, "w8": 32, "fp8": 32}
+
+
+def as_uint4(layout: str, args):
+    """A W4 layout's (q, s, z) as one byte a uint4 weight, [K, N]: the
+    arguments of ``w4a16_matmul`` (and ``library_call``'s)."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    q, s, z = args
+    if layout == "int4":
+        return qm.unpack_int4(q) + 8, s, z + 8
+    return (qm.unpack_w4(q) if layout == "packed" else q), s, z
+
+
+def dequantized(layout: str, args):
+    """The fp32 [K, N] weight of one layout's arguments (q, s, z)."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    q, s, _ = args
+    if layout in ("w8", "fp8"):
+        return q.float() * s
+    return qm.dequant_w4(*as_uint4(layout, args))
+
+
+def check_gemm_f16(gen, layout: str, shapes: dict, M: int,
+                   row_scales: bool = False) -> dict:
+    """One layout's fp16 instance at a layer's four GEMMs (``shapes``, M
+    rows, group 128), through its wrapper: error against the plain version
+    (fp32 from the same fp16 x) within ``gemm_tol``; time a call, device
+    and host time, beside the bf16 instance on the same weights (x cast to
+    bf16: device time and its error); the plain version; the library
+    yardstick, a dense fp16 ``torch.matmul`` of the dequantized weights
+    (``library_ms``), and ``_weight_int4pack_mm`` on fp16 x where the card's
+    torch takes it (W4 layouts); the bound (x, the weight's bytes, scales
+    and zeros and y once; 2 M K N operations at the fp16 rate). "fp8" with
+    ``row_scales``: W8A8, x rounded to e4m3 per token first. Sums over the
+    layer."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_gemm
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    f16 = "float16"
+    fn = qm.KERNELS[LAYOUT_WRAPPER[layout]]
+    tot = dict(max_abs_err=0.0, bf16_err=0.0, ms=0.0, device_ms=0.0,
+               bf16_device_ms=0.0, host_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               library_device_ms=0.0, int4pack_ms=0.0, bytes=0.0, ops=0.0)
+    tol = 0.0
+    w4 = layout in ("int4", "packed", "uint4")
+    int4pack = w4  # tried until the card's torch refuses it
+    for gemm, (K, N) in shapes.items():
+        x, args, plain = w4_inputs(gen, layout, M, K, N, 128, False, f16)
+        wargs = args if args[2] is not None else args[:2]
+        kw = {}
+        if row_scales:
+            x, xs = quant_gemm.fp8_quantize_rows(x)
+            kw["row_scales"] = rs = xs.reshape(M).contiguous()
+            plain = lambda xf, q=args[0], s=args[1], rs=rs: (  # noqa: E731
+                qm.ref_fp8_matmul(xf, q, s, rs))
+        xb = x.bfloat16()  # e4m3 values stay exact
+        kern = lambda: fn(x, *wargs, **kw)  # noqa: E731
+        kern_b = lambda: fn(xb, *wargs, **kw)  # noqa: E731
+        y, yb = kern(), kern_b()
+        ref, ref_b = plain(x.float()), plain(xb.float())
+        torch.cuda.synchronize()
+        err = (y.float() - ref).abs().max().item()
+        err_b = (yb.float() - ref_b).abs().max().item()
+        tol = max(tol, gemm_tol(f16, ref))
+        if not (err <= gemm_tol(f16, ref) and y.dtype == torch.float16
+                and torch.isfinite(y).all()
+                and err_b <= TOL["bfloat16"]):
+            raise AssertionError(
+                f"{layout} {gemm} fp16 M={M}: max_abs_err {err} > "
+                f"{gemm_tol(f16, ref)} (its bf16 self {err_b})")
+        wd32 = dequantized(layout, args)
+        wd = wd32.half()
+        lib = lambda: x @ wd  # noqa: E731
+        t = dict(ms=cuda_ms(kern, 50), device_ms=device_ms(kern, 20),
+                 bf16_device_ms=device_ms(kern_b, 20),
+                 host_ms=host_ms(kern, 50),
+                 plain_ms=cuda_ms(lambda: plain(x.float()), 3),
+                 library_ms=cuda_ms(lib, 50),
+                 library_device_ms=device_ms(lib, 20))
+        if int4pack:  # logs why where the card's torch refuses fp16 x
+            label, lib4 = library_call("w4a16_matmul", x,
+                                       as_uint4(layout, args), wd32)
+            int4pack = label == "int4pack_mm"
+            if int4pack:
+                t["int4pack_ms"] = cuda_ms(lib4, 50)
+            del lib4
+        del wd, wd32
+        nbytes = (x.numel() * 2 + sum(a.numel() * a.element_size()
+                                      for a in wargs) + M * N * 2
+                  + (4 * M if row_scales else 0))
+        ops = 2.0 * M * K * N
+        log(f"# phase 2: {LAYOUT_WRAPPER[layout]} fp16 {gemm} M={M} K={K} "
+            f"N={N}{' (row scales)' if row_scales else ''}: err {err:.3g} "
+            f"(tol {gemm_tol(f16, ref):.3g}); kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f} ms, host {t['host_ms']:.4f} ms a "
+            f"call), its bf16 self device {t['bf16_device_ms']:.4f} ms "
+            f"(fp16 / bf16 {t['device_ms'] / t['bf16_device_ms']:.3f}); "
+            f"plain {t['plain_ms']:.4f} ms; dense fp16 matmul "
+            f"{t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f} ms); bound "
+            f"{bound_ms(nbytes, ops, f16)[0]:.4f} ms")
+        for k, v in t.items():
+            tot[k] += v
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["bf16_err"] = max(tot["bf16_err"], err_b)
+        del x, xb, args, wargs, y, yb, ref, ref_b
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("bytes"),
+                                                tot.pop("ops"), f16)
+    tot["tol"] = tol
+    tot["int4pack"] = (f"{tot['int4pack_ms']:.4f} ms" if int4pack else
+                       "unavailable on fp16 x (logged above)" if w4 else
+                       "not a W4 layout")
+    return tot
+
+
+def check_gemm_bytes_f16() -> str:
+    """Every conversion of the fp16 instances bit for bit against the CPU
+    models (``w4_wgmma.fp8_model``, ``int8_model``, ``nibble_model``),
+    through identity x (so y[k, n] is the converted weight, scales of 1):
+    every e4m3 byte (kFp8, q [256, 256] holding byte (k + n) mod 256, its
+    NaN bytes replaced by 0x00 and 0x80; with no K split and with 4, with
+    and without row scales of 1) and every int8 byte (kW8, the same
+    pattern); and every nibble less every zero that ``zeros_integral``
+    admits, for int4, packed and uint4 in fp16 and bf16 (K = 256, group
+    32, N = 512: zero [g, n] = lo + (512 g + n) mod (hi - lo + 1) covers
+    the admitted range [lo, hi]; nibble (k + n) mod 16), with the zero
+    inside the product and after it. Returns a line for the log."""
+    import torch
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    from aphrodite_tpu_torch.ops import w4_wgmma
+    from aphrodite_tpu_torch.quantization.loader import pack_w4
+    f16 = torch.float16
+    idx = torch.arange(256, device="cuda")
+    b = (idx[:, None] + idx[None, :]) % 256
+    ones = torch.ones(256, device="cuda")
+    eye = torch.eye(256, device="cuda", dtype=f16)
+    fin = torch.where(b == 0x7F, 0, torch.where(b == 0xFF, 0x80, b))
+    got = {}
+    q8 = fin.to(torch.uint8).view(torch.float8_e4m3fn)
+    want8 = w4_wgmma.fp8_model(fin.cpu(), f16)
+    if not torch.equal(want8.float(), e4m3_table()[fin.cpu()]):
+        raise AssertionError("fp8_model in fp16 differs from the e4m3 table")
+    for sp in (None, 4):
+        for r in (None, ones):
+            got[f"kFp8 fp16 splits {sp} row scales {r is not None}"] = (
+                w4_wgmma.matmul("fp8", eye, q8, ones, None, splits=sp,
+                                row_scales=r), want8)
+    qi = b.to(torch.uint8).view(torch.int8)
+    for sp in (None, 4):
+        got[f"kW8 fp16 splits {sp}"] = (
+            w4_wgmma.matmul("w8", eye, qi, ones, None, splits=sp),
+            w4_wgmma.int8_model(qi.cpu(), f16))
+    K, N, group = 256, 512, 32
+    G = K // group
+    u = (torch.arange(K)[:, None] + torch.arange(N)[None, :]) % 16
+    ones_gn = torch.ones((G, N), device="cuda")
+    for dt in (f16, torch.bfloat16):
+        x = torch.eye(K, device="cuda", dtype=dt)
+        for layout in ("int4", "packed", "uint4"):
+            lo, hi = z_range(layout, dt)
+            z = (lo + torch.arange(G * N) % (hi - lo + 1)).reshape(G, N)
+            z = z.float()
+            if not w4_wgmma.zeros_integral(layout, z, dt):
+                raise AssertionError(f"{layout} {dt}: zeros {lo}..{hi} not "
+                                     "admitted")
+            q = {"int4": lambda: qm.pack_int4((u ^ 8) - 8),
+                 "packed": lambda: pack_w4(u.to(torch.int8)),
+                 "uint4": lambda: u.to(torch.int8)}[layout]()
+            want = w4_wgmma.nibble_model(layout, u, z.repeat_interleave(
+                group, dim=0), dt)
+            for zero_in in (None, False):
+                got[f"{layout} {str(dt)[6:]} zeros {lo}..{hi} in the "
+                    f"product {zero_in is None}"] = (
+                    w4_wgmma.matmul(layout, x, q.cuda(), ones_gn, z.cuda(),
+                                    zero_in=zero_in), want)
+    for what, (y, want) in got.items():
+        y = y.cpu()
+        if y.dtype != want.dtype or not torch.equal(y, want):
+            bad = (y.float() != want.float()).nonzero()
+            k, n = bad[0].tolist() if len(bad) else (0, 0)
+            raise AssertionError(
+                f"{what}: {len(bad)} of {y.numel()} values differ from the "
+                f"CPU model, e.g. at ({k}, {n}): {y[k, n].item()!r}, want "
+                f"{want[k, n].item()!r}")
+    return (f"fp16 GEMM conversions: all 254 finite e4m3 bytes and all 256 "
+            f"int8 bytes at every row and column (fp16), and every nibble "
+            f"less every admitted zero (int4, packed, uint4 in fp16 and "
+            f"bf16; both forms of the zero): y equals the CPU models "
+            f"bit for bit in {len(got)} launches")
+
+
+def z_range(layout: str, dtype) -> tuple[int, int]:
+    """The integer zeros that ``w4_wgmma.zeros_integral`` admits for
+    ``layout`` and x's ``dtype``: one interval [lo, hi] (its tests hold it
+    tight: fp16 uint4 [-2033, 1024], bf16 [-241, 128])."""
+    import torch
+    from aphrodite_tpu_torch.ops import w4_wgmma
+    ok = [z for z in range(-4096, 4096) if w4_wgmma.zeros_integral(
+        layout, torch.tensor([float(z)]), dtype)]
+    if ok != list(range(ok[0], ok[-1] + 1)):
+        raise AssertionError(f"{layout} {dtype}: admitted zeros not one "
+                             "interval")
+    return ok[0], ok[-1]
+
+
+def fp16_gemm_checks(gen, results: dict) -> None:
+    """Phase 2 for the fp16 GEMM slice: every layout's fp16 instance
+    (``csrc/w4_wgmma_f16.cu``) against its plain version at ``W4_CASES``,
+    ``BYTE_CASES`` and ``FP8_CASES`` (every M tile, forced splits, both
+    forms of the zero, fractional zeros), two launches bit-equal; the
+    conversions bit for bit (``check_gemm_bytes_f16``); then a layer's
+    four GEMMs of each of ``F16_GEMM_TIMED``, timed beside the bf16
+    instance on the same weights (``check_gemm_f16``)."""
+    f16 = "float16"
+    log(f"# phase 2: w4_wgmma fp16 (int4 and packed at {len(W4_CASES)} "
+        f"cases, uint4 and w8 at {len(BYTE_CASES)}): max_abs_err "
+        f"{check_w4_wgmma(gen, dtype_name=f16):.3g} (tol {TOL[f16]} x "
+        f"min(1, max|ref|)), two launches bit-equal")
+    log(f"# phase 2: w4_wgmma fp16 fp8 (kFp8) at {len(FP8_CASES)} cases, "
+        f"with and without row scales: max_abs_err "
+        f"{check_fp8_layout(gen, f16):.3g} (tol {TOL[f16]} x min(1, "
+        f"max|ref|)), two launches bit-equal")
+    log(f"# phase 2: {check_gemm_bytes_f16()}")
+    shapes = {"LLAMA8B": LLAMA8B_GEMMS, "QWEN7B": QWEN7B_GEMMS}
+    for layout, model, M, rs in F16_GEMM_TIMED:
+        r = check_gemm_f16(gen, layout, shapes[model], M, rs)
+        log(f"# phase 2: {LAYOUT_WRAPPER[layout]} fp16 at {model} M={M}"
+            f"{' with row scales' if rs else ''}, a layer's 4 GEMMs: "
+            f"max_abs_err {r['max_abs_err']:.3g} (tol up to "
+            f"{r['tol']:.3g}); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms, host {r['host_ms']:.4f} ms a layer), "
+            f"its bf16 self device {r['bf16_device_ms']:.4f} ms (fp16 / bf16 "
+            f"{r['device_ms'] / r['bf16_device_ms']:.3f}; its error "
+            f"{r['bf16_err']:.3g}); plain {r['plain_ms']:.4f} ms; dense "
+            f"fp16 matmul (library_ms) {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms); _weight_int4pack_mm "
+            f"{r['int4pack']}; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+        if M == F16_GEMM_ROW[layout] and not rs:
+            results[(LAYOUT_WRAPPER[layout], "float16")] = r
+
+
+class GemmSpy:
+    """The quantized matmuls of ``ops/quant_gemm.py`` that the linear
+    layers call, patched to count every call (on either device) by the
+    hand-written GEMM it reaches on the card: a decode call (M <= 256)
+    with per-column scales goes to ``LAYOUT_WRAPPER``'s wrapper of its
+    layout (int4, packed or uint4 by the leaf it carries; int8 W8A8 to
+    ``torch._int_mm``, none). The reckoning of a card run's GEMM launches
+    is its CPU twin's calls."""
+
+    NAMES = ("w8a16_matmul", "fp8_matmul", "w4a16_matmul")
+
+    def __init__(self) -> None:
+        from aphrodite_tpu_torch.ops import quant_gemm
+        self.mod = quant_gemm
+        self.fns = {n: getattr(quant_gemm, n) for n in self.NAMES}
+        self.calls = dict.fromkeys(LAYOUT_WRAPPER.values(), 0)
+
+    def kernel(self, name: str, x, a, kw) -> str | None:
+        if x.shape[0] > self.mod.DECODE_M:
+            return None
+        if name == "w8a16_matmul":
+            return name
+        if name == "fp8_matmul":
+            ws = a[2]
+            blockwise = ws.dim() == 2 and tuple(ws.shape) != (1, ws.shape[1])
+            return (None if blockwise or kw.get("input_scale") is not None
+                    else name)
+        return ("w4a16_int4_matmul" if kw.get("qweight4") is not None
+                else "w4a16_packed_matmul" if kw.get("qpacked") is not None
+                else "w4a16_matmul")
+
+    def __enter__(self):
+        for n, fn in self.fns.items():
+            def spy(x, *a, _n=n, _fn=fn, **kw):
+                k = self.kernel(_n, x, (x, *a), kw)
+                if k is not None:
+                    self.calls[k] += 1
+                return _fn(x, *a, **kw)
+            setattr(self.mod, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.fns.items():
+            setattr(self.mod, n, fn)
+
+
+# Phase 30: tiny fp16 models, every attention head 64 wide (the fp16
+# tensor-core instances): a Qwen2 whose projections stay unpacked under
+# group 128 (K 256 and 512: uint4) and a one-layer Llama at K = 2048, where
+# every W4 leaf packs (phase 31's layout; realized to int4 for "int4").
+F16_QUANT_TINY = {
+    "qwen": dict(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2,
+                 intermediate_size=512, max_position_embeddings=1024,
+                 rms_norm_eps=1e-6, tie_word_embeddings=False,
+                 use_sliding_window=False,
+                 architectures=["Qwen2ForCausalLM"]),
+    "llama2048": dict(vocab_size=512, hidden_size=2048, num_hidden_layers=1,
+                      num_attention_heads=32, num_key_value_heads=4,
+                      intermediate_size=2048, max_position_embeddings=1024,
+                      rms_norm_eps=1e-5, tie_word_embeddings=False,
+                      architectures=["LlamaForCausalLM"])}
+# Phase 30's runs: name -> (model, quantization, the GEMM it runs, whether
+# activations round to 8 bits: there tokens may part at ties, as in phase
+# 17).
+F16_QUANT_PARITY = {
+    "gptq-unpacked": ("qwen", "gptq", "w4a16_matmul", False),
+    "gptq-packed": ("llama2048", "gptq", "w4a16_packed_matmul", False),
+    "awq-packed": ("llama2048", "awq", "w4a16_packed_matmul", False),
+    "int4": ("llama2048", "gptq", "w4a16_int4_matmul", False),
+    "w8a16": ("qwen", "w8a16", "w8a16_matmul", False),
+    "fp8": ("qwen", "fp8", "fp8_matmul", False),
+    "fp8_w8a8": ("qwen", "fp8_w8a8", "fp8_matmul", True),
+    "int8": ("qwen", "int8", None, True),
+}
+
+
+def fp16_quant_parity() -> dict:
+    """Phase 30: fp16 greedy runs through the port on the card and on the
+    CPU from one seed (the CPU's weights loaded on the card), for each of
+    ``F16_QUANT_PARITY`` (``F16_QUANT_TINY``'s models; "int4" the packed
+    leaves realized to int4 on both, ``realize_int4_leaves``): 12 prompts
+    of 5-120 tokens, a 64-token batch budget (chunked prefill), 16-step
+    decode windows, 16 new tokens. Tokens equal (but where activations
+    round to 8 bits: partings at gaps below ``GAP``, ``same_tokens``); the
+    chosen tokens' logprobs within ``F16_LOGPROB_TOL`` where they agree;
+    every quantized GEMM's card launches exactly its CPU twin's calls
+    (``GemmSpy``), every one on the fp16 instance (``dtype_launches``).
+    Returns each GEMM's launches summed over the runs."""
+    import torch
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.loader.weights import realize_int4_leaves
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    rng = np.random.RandomState(30)
+    prompts = [rng.randint(1, 500, size=n).tolist()
+               for n in (5, 120, 17, 64, 33, 90, 8, 47, 101, 12, 70, 29)]
+    params = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    total = dict.fromkeys(qm.KERNELS, 0)
+    for run, (model, quant, kernel, eight_bit) in F16_QUANT_PARITY.items():
+        kw = dict(hf_config=F16_QUANT_TINY[model], tokenizer="unused",
+                  dtype="float16", quantization=quant, block_size=16,
+                  num_kv_blocks=256, max_num_seqs=12,
+                  max_num_batched_tokens=64, max_model_len=256,
+                  decode_window=16)
+        cpu = LLM(f"tiny-{model}-{quant}-fp16", device="cpu", **kw)
+        gpu = LLM(f"tiny-{model}-{quant}-fp16", device="cuda", **kw)
+        if run == "int4":
+            for llm in (cpu, gpu):
+                realize_int4_leaves(llm.engine.core.worker.model)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        with GemmSpy() as want:
+            a = traced(cpu, prompts, params)
+        for fn in qm.KERNELS.values():
+            fn.launches = 0
+            fn.dtype_launches = dict.fromkeys(fn.dtype_launches, 0)
+        with GemmSpy() as calls:
+            b = traced(gpu, prompts, params)
+        got = {k: fn.launches for k, fn in qm.KERNELS.items()}
+        f16 = {k: fn.dtype_launches["float16"]
+               for k, fn in qm.KERNELS.items()}
+        if got != want.calls or got != calls.calls or got != f16 or any(
+                v for k, v in got.items() if k != kernel) or (
+                kernel is not None and got[kernel] <= 0):
+            raise AssertionError(
+                f"phase 30 {run}: launches {got}, on the fp16 instances "
+                f"{f16}; the card's calls {calls.calls}, the CPU's "
+                f"{want.calls}")
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"phase 30 {run}: the tokens hardly vary: "
+                                 f"{a[0]}")
+        found = []
+        if eight_bit:
+            found = same_tokens(f"phase 30 {run}", cpu, gpu, prompts, a, b)
+        elif a[0] != b[0]:
+            raise AssertionError(
+                f"phase 30 {run}: cuda vs cpu greedy fp16 tokens differ "
+                f"(partings {partings(cpu, gpu, prompts, a, b)}):\n{a[0]}"
+                f"\n{b[0]}")
+        gaps = [abs(float(la[i][t]) - float(lb[i][t]))
+                for ta, tb, la, lb in zip(a[0], b[0], a[1], b[1])
+                for i, t in enumerate(ta) if ta[:i + 1] == tb[:i + 1]]
+        margins = [float(r.topk(2).values[0] - r.topk(2).values[1])
+                   for rows in a[1] for r in rows]
+        if not max(gaps) <= F16_LOGPROB_TOL:
+            raise AssertionError(f"phase 30 {run}: chosen logprobs card vs "
+                                 f"CPU up to {max(gaps):.4g} > "
+                                 f"{F16_LOGPROB_TOL}")
+        for k, v in got.items():
+            total[k] += v
+        log(f"# phase 30: {run}: cuda == cpu greedy fp16 tokens for "
+            f"{len(prompts)} prompts x 16"
+            + (f" but at partings (request, step, cpu token, card token, "
+               f"gap < {GAP}) {found}" if eight_bit else "")
+            + f"; chosen logprobs within {max(gaps):.4g} (tol "
+            f"{F16_LOGPROB_TOL}) over {len(gaps)} agreeing tokens; the CPU's "
+            f"smallest top-2 margin {min(margins):.4g}; launches "
+            f"{ {k: v for k, v in got.items() if v} } (= the CPU's calls, "
+            f"all on the fp16 instance)")
+        del cpu, gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def main_path_awq_fp16(phase6_walls: dict) -> dict:
+    """Phase 31: Llama-3.1-8B-Instruct AWQ-INT4's geometry (``LLAMA31_8B``;
+    ``hugging-quants/Meta-Llama-3.1-8B-Instruct-AWQ-INT4`` is published in
+    fp16) at full width and depth in fp16 with ``quantization="awq"``
+    (group 128, zero points, quantized on the fly from seeded weights;
+    every projection packs), phase 6's traffic and runs, cold and warm:
+    exactly 4 x 32 x 63 = 8064 packed-GEMM launches a run, all on the fp16
+    instance, ragged 32 and window 2016, all on the fp16 tensor-core
+    instances, the other quantized GEMMs never; every logprob finite. Logs
+    the walls beside phase 6's bf16 ones of the same call and the KV bytes
+    a token. Returns the last cold run's launches."""
+    from aphrodite_tpu_torch.ops import quant_matmul as qm
+    phase = "phase 31"
+    L, steps = LLAMA31_8B["num_hidden_layers"], 63
+    packed = qm.w4a16_packed_matmul
+    kernels = {**qm.KERNELS, **attention_kernels(), **instance_counts(),
+               **{f"w4a16_packed_matmul {dt}": InstanceCount(
+                   packed, dt, "dtype_launches")
+                  for dt in ("float16", "bfloat16")}}
+    exact = {k: 0 for k in kernels}
+    exact.update({"w4a16_packed_matmul": 4 * L * steps,
+                  "w4a16_packed_matmul float16": 4 * L * steps,
+                  "ragged_paged_attention": L, "ragged tensor_cores": L,
+                  "window_decode_attention": L * steps,
+                  "window tensor_cores": L * steps})
+    log(f"# {phase}: launches a run, reckoned: {exact}")
+    counts, llm, walls = serve_workload(
+        phase, "llama-3.1-8b-instruct-awq-fp16-dummy", LLAMA31_8B, kernels,
+        exact=exact, dtype="float16", quantization="awq", logprobs=True)
+    pool = llm.engine.core.worker.runner.kv_cache
+    L_, pages, _, kvh, page, hd = pool.shape
+    log(f"# {phase}: KV pool {pool.dtype} {tuple(pool.shape)}: "
+        f"{L_ * 2 * kvh * hd * pool.element_size()} bytes a token, "
+        f"{pages * page} tokens")
+    n_dec = 32 * 64
+    log(f"# {phase}: fp16 AWQ " + "; ".join(
+        f"{k} {walls[k]:.3f} s/run ({n_dec / walls[k]:.0f} decode tok/s) "
+        f"against phase 6's bf16 GPTQ {phase6_walls[k]:.3f} "
+        f"({n_dec / phase6_walls[k]:.0f})" for k in walls))
+    del llm, pool
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5841,6 +6374,8 @@ def main() -> int:
     check_prefill_w4(gen)
     stamp("phase 2: the fp16 instances")
     fp16_checks(gen, results)
+    stamp("phase 2: the fp16 GEMM instances")
+    fp16_gemm_checks(gen, results)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
@@ -5849,7 +6384,7 @@ def main() -> int:
     sample_parity_launches = sample_parity()
     log(f"# phase 19: launches on the card runs {sample_parity_launches}")
     stamp("phase 6")
-    llama_counts, sampled_counts = main_path_8b()
+    llama_counts, sampled_counts, llama_walls = main_path_8b()
     gc.collect()
     torch.cuda.empty_cache()
     stamp("phase 7")
@@ -5886,6 +6421,10 @@ def main() -> int:
     f16_parity_launches = fp16_parity()
     stamp("phase 29")
     f16_counts, f16_shared_counts = main_path_llama2_fp16()
+    stamp("phase 30")
+    f16_gemm_parity = fp16_quant_parity()
+    stamp("phase 31")
+    f16_gemm_counts = main_path_awq_fp16(llama_walls)
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -6074,6 +6613,15 @@ def main() -> int:
              (dpa, "bloom-tiny-fp16-parity", f16,
               f16_parity_launches[(dpa, "bloom/auto")],
               results[(dpa, "alibi-32x128", f16, None)], "auto")]
+    # The fp16 GEMM slice: each layout's fp16 instance on phase 31's path
+    # (packed) and on phase 30's runs (the others), at phase 2's shapes.
+    rows.append(("w4a16_packed_matmul", F16_GEMM_PATH, f16,
+                 f16_gemm_counts["w4a16_packed_matmul float16"],
+                 results[("w4a16_packed_matmul", f16)], "auto"))
+    rows += [(name, F16_GEMM_PARITY_PATH, f16, f16_gemm_parity[name],
+              results[(name, f16)], "auto")
+             for name in ("w4a16_int4_matmul", "w4a16_matmul",
+                          "w8a16_matmul", "fp8_matmul")]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
@@ -6086,8 +6634,8 @@ def main() -> int:
         if name == "ragged_paged_attention" and dt == "float16":
             src = "ragged_f16"  # the fp16 tensor-core instances
         if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
-                    *BYTE_PATHS) and dt == "bfloat16":
-            src = "w4_wgmma"
+                    *BYTE_PATHS) and dt in ("bfloat16", "float16"):
+            src = "w4_wgmma" if dt == "bfloat16" else "w4_wgmma_f16"
         kernels.append({
             "name": name, "path": path, "dtype": dt, "kv_cache": kv,
             "route": "cuda",

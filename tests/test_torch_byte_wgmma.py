@@ -134,7 +134,8 @@ def test_byte_layout_geometry():
     assert w.groups_per_stage("uint4", 4032, 96) == 2
     assert [w.fold_steps("uint4", 4096, g) for g in (32, 64, 96, 128)] \
         == [2, 4, 2, 4]
-    assert w.ZERO_BASE["uint4"] == 128.0
+    assert w.ZERO_BASE[torch.bfloat16]["uint4"] == 128.0
+    assert w.ZERO_BASE[torch.float16]["uint4"] == 1024.0
 
 
 FOLDS = {"uint4": (2, 4), "w8": (4,)}  # the kernel's instances

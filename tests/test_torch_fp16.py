@@ -21,9 +21,9 @@ versions):
   and 256 and fits an H100's shared memory on every cache; on a CUDA
   device fp16 at MLA's head_dim 576 or with image spans raises
   ``NotImplementedError`` naming ROADMAP.md (``check_unported``, held here
-  without a card); the GEMM wrappers keep their own dtype table, without
-  fp16, and raise ``ValueError`` naming ROADMAP.md on fp16 before any
-  launch;
+  without a card); the grouped GEMM keeps its own dtype table, without
+  fp16, and raises ``ValueError`` naming ROADMAP.md on fp16 before any
+  launch, while the quantized GEMMs take fp16 (``test_torch_fp16_gemm.py``);
 - ``LLM.generate`` in fp16 against ``aphrodite_tpu.LLM`` in fp16 on the
   same weights (the JAX engine's tree through ``params_from_jax``): a tiny
   Llama with chunked prefill, decode windows and a shared prompt (the
@@ -307,23 +307,30 @@ def test_fp16_mla_and_spans_raise_on_cuda_only():
     check_unported("cuda", f16, 128, False)
 
 
-def test_gemm_wrappers_refuse_fp16_naming_the_roadmap():
-    # Their own dtype tables: the attention kernels' fp16 code (2) is no
-    # GEMM kernel's.
+def test_gemm_wrappers_refuse_fp16_naming_the_roadmap(monkeypatch):
+    # The grouped GEMM still refuses fp16, naming ROADMAP.md; the GEMM
+    # dtype table that it and the CUDA-core quantized kernels read keeps
+    # fp32 and bf16. The quantized wrappers no longer refuse fp16: it goes
+    # to w4_wgmma's fp16 instances (its own codes; the attention kernels'
+    # fp16 code, 2).
     for table in (gm.DTYPE_CODES, qm.DTYPE_CODES, GEMM_DTYPE_CODES):
         assert table == {torch.float32: 0, torch.bfloat16: 1}
+    assert w.DTYPE_CODES == {torch.bfloat16: 1, torch.float16: 2}
     meta = dict(device="meta")
     x = torch.empty((4, 64), dtype=torch.float16, **meta)
     with pytest.raises(ValueError, match="ROADMAP.md"):
         gm.grouped_matmul(x, torch.empty((2, 64, 32), dtype=torch.float16,
                                          **meta),
                           torch.empty(3, dtype=torch.int32, **meta))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        qm.w8a16_matmul(x, torch.empty((64, 32), dtype=torch.int8, **meta),
-                        torch.empty(32, dtype=torch.float32, **meta))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        w.check("w8", x, torch.empty((64, 32), dtype=torch.int8, **meta),
-                torch.empty(32, dtype=torch.float32, **meta), None)
+    q = torch.empty((64, 32), dtype=torch.int8, **meta)
+    s = torch.empty(32, dtype=torch.float32, **meta)
+    assert w.check("w8", x, q, s, None) == 64
+    routed = []
+    monkeypatch.setattr(w, "matmul", lambda layout, x, *a, **kw: (
+        routed.append((layout, x.dtype))
+        or torch.empty((x.shape[0], 32), dtype=x.dtype, **meta)))
+    assert qm.w8a16_matmul(x, q, s).dtype == torch.float16
+    assert routed == [("w8", torch.float16)]
 
 
 # ------------------------------------------------------- LLM.generate

@@ -141,7 +141,8 @@ def test_w4a16_route_vs_jax_xla(packed, M, perm):
     _close_to_scale(got.numpy(), xp.astype(np.float64) @ _dense(q, s, z))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("packed,K,group", [(False, 1152, 128),
                                             (False, 96, 32), (True, 512, 32),
                                             (True, 2048, 128)])
