@@ -43,6 +43,20 @@ def apply_linear(x: torch.Tensor, w: Weight,
     return out
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product a [B, M, K] @ b [B, K, N] with fp32 sums,
+    returned in float32: what ``jnp.einsum(...,
+    preferred_element_type=f32)`` gives before its cast. A 16-bit CUDA
+    ``torch.bmm`` may reduce in 16 bits (PyTorch's default
+    ``allow_{bf16,fp16}_reduced_precision_reduction``), so on the card the
+    product asks cuBLAS for fp32 output."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b.float())
+    if a.device.type != "cpu":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w accumulated and returned in float32 (no rounding of the
     product to a 16-bit type)."""

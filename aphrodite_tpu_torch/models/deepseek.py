@@ -5,10 +5,13 @@ MQA over one latent head: queries are projected into the KV latent space
 (``q_lat = q_nope @ W_UK``, the absorbed up-projection) and each token
 caches K = [c_kv, k_pe] and V = [c_kv, 0], one KV head of kv_lora_rank +
 qk_rope_head_dim lanes (512 + 64 = 576 for every published model), so
-both attention kernels run at that geometry (their MLA instances in bf16,
-``csrc/mla_attention.cu``). The attention output is the latent context;
-``W_UV`` and ``wo`` unproject it. The softmax scale is qk_head_dim^-0.5,
-times DeepSeek-YaRN's mscale_all_dim correction squared, never head_dim's.
+both attention kernels run at that geometry (their MLA instances in bf16 and
+fp16, ``csrc/mla_attention.cuh``). The attention output is the latent context;
+``W_UV`` and ``wo`` unproject it. The two absorbed products sum in fp32 and
+round once to the model's dtype, as the reference's einsums with
+``preferred_element_type=f32`` do (``layers.linear.bmm_f32``). The softmax
+scale is qk_head_dim^-0.5, times DeepSeek-YaRN's mscale_all_dim correction
+squared, never head_dim's.
 
 The rope (qk_rope_head_dim lanes of q and k) is pair-interleaved, and a
 checkpoint's ``rope_scaling`` is read as ``deepseek_yarn``. The first
@@ -40,7 +43,7 @@ from aphrodite_tpu_torch.attention.backend import (paged_attention,
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.config import ModelConfig
 from aphrodite_tpu_torch.layers.common import ACT2MUL, rms_norm
-from aphrodite_tpu_torch.layers.linear import matmul_f32
+from aphrodite_tpu_torch.layers.linear import bmm_f32, matmul_f32
 from aphrodite_tpu_torch.layers.rotary import (RopeConfig,
                                                apply_rope_interleaved,
                                                compute_cos_sin,
@@ -211,8 +214,8 @@ class DeepseekV2ForCausalLM(nn.Module):
         ckv = rms_norm(kv_a[:, :R], layer.kv_a_norm, self.rms_eps)
         k_pe = apply_rope_interleaved(kv_a[:, None, R:], cos, sin)
         # The absorbed W_UK, one product a head (fp32 sums, rounded once).
-        q_lat = torch.bmm(q[..., :nope].transpose(0, 1),
-                          layer.w_uk).transpose(0, 1)
+        q_lat = bmm_f32(q[..., :nope].transpose(0, 1),
+                        layer.w_uk).to(x.dtype).transpose(0, 1)
         q_cat = torch.cat([q_lat, q_pe], dim=-1)
         k_cat = torch.cat([ckv[:, None], k_pe], dim=-1)
         v_cat = torch.cat([ckv[:, None], torch.zeros_like(k_pe)], dim=-1)
@@ -238,8 +241,8 @@ class DeepseekV2ForCausalLM(nn.Module):
         """The latent context o [T, nq, 576] through W_UV and wo, then the
         MLP (``deepseek.py:419-423, 123-139``)."""
         T = x.shape[0]
-        o = torch.bmm(o[..., :self.kv_lora_rank].transpose(0, 1),
-                      layer.w_uv).transpose(0, 1)
+        o = bmm_f32(o[..., :self.kv_lora_rank].transpose(0, 1),
+                    layer.w_uv).to(x.dtype).transpose(0, 1)
         x = x + o.reshape(T, -1) @ layer.wo
         h = rms_norm(x, layer.post_norm, self.rms_eps)
         return x + self._mlp(layer, h)

@@ -24,12 +24,12 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIBS: dict[str, ctypes.CDLL] = {}
-# x's dtype codes of the grouped GEMM and of the quantized GEMMs' CUDA-core
-# kernels (csrc/quant_matmul.cu, fp32 only in fact): fp32 and bf16. The
-# grouped GEMM's fp16 is still to port (ROADMAP.md B item 3); the attention
-# kernels and ops/w4_wgmma.py (the quantized GEMMs' bf16 and fp16
-# instances) keep their own tables, which have fp16.
-GEMM_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# x's dtype code of the quantized GEMMs' CUDA-core kernels
+# (csrc/quant_matmul.cu): fp32 alone. bf16 and fp16 x run on
+# ops/w4_wgmma.py's instances, and the grouped GEMM and the attention
+# kernels take the attention table (ops/ragged_paged_attention.py
+# DTYPE_CODES: fp32 0, bf16 1, fp16 2).
+GEMM_DTYPE_CODES = {torch.float32: 0}
 _FNS: dict[tuple[str, str], object] = {}
 
 

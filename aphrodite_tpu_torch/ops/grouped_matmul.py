@@ -13,8 +13,11 @@ offsets on the device: the host never learns the group sizes, so a launch
 does not wait for the card.
 
 At the MoE prefill wave the product is bound by the tensor cores' bf16
-rate (a Qwen1.5-MoE-A2.7B layer's two GEMMs over 65536 rows: 1.15 ms at
-989 TFLOP/s), which only ``wgmma`` reaches. So the bf16 kernel is
+and fp16 rate (a Qwen1.5-MoE-A2.7B layer's two GEMMs over 65536 rows:
+1.15 ms at 989 TFLOP/s), which only ``wgmma`` reaches. So the bf16 and
+fp16 kernel (one source, ``csrc/grouped_matmul.cuh``, x's element type a
+template parameter; the fp16 instance built in
+``csrc/grouped_matmul_f16.cu``, ``grouped_matmul_f16_launch``) is
 persistent (one block an SM walks the output tiles) and warp-specialised:
 a producer warp loads 128 x 64 slices of x and 64 x 256 slices of the
 expert's w by TMA into a ring of shared-memory stages, and two consumer
@@ -24,7 +27,9 @@ slice (one load, multicast to both) when the items are of one expert.
 ``grouped_schedule`` models the order in which the blocks visit the
 tiles, with the kernel's own arithmetic, for the CPU tests;
 ``grouped_smem_bytes`` is its shared memory. fp32 keeps a CUDA-core
-kernel for the parity paths.
+kernel for the parity paths. x's dtype goes to the kernels as the
+attention kernels' code (fp32 0, bf16 1, fp16 2), and the wrapper counts
+launches by dtype (``dtype_launches``) beside ``launches``.
 """
 from __future__ import annotations
 
@@ -33,12 +38,12 @@ import ctypes
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.cuda_build import GEMM_DTYPE_CODES as DTYPE_CODES
+from aphrodite_tpu_torch.ops.ragged_paged_attention import DTYPE_CODES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
-# The bf16 kernel's tiles (csrc/grouped_matmul.cu, kWg*): rows, columns and
+# The wgmma kernel's tiles (csrc/grouped_matmul.cuh, kWg*): rows, columns and
 # depth of a tile, stages of the ring, blocks of a cluster.
 BM, BN, BK, STAGES, CLUSTER = 128, 256, 64, 3, 2
 FIND_CHUNK = 32  # experts a find_item step covers (one a lane)
@@ -46,10 +51,10 @@ FIND_CHUNK = 32  # experts a find_item step covers (one a lane)
 
 def grouped_smem_bytes(bm: int = BM, bn: int = BN, bk: int = BK,
                        stages: int = STAGES) -> int:
-    """Dynamic shared memory of the bf16 kernel: the ring of x and w
-    slices, the two consumers' 64 x bn slabs of y on their way out, a
-    "full" and an "empty" barrier a stage, and up to 1024 bytes to align
-    the ring to the 128-byte swizzle's period."""
+    """Dynamic shared memory of the wgmma kernel (bf16 and fp16 alike):
+    the ring of x and w slices, the two consumers' 64 x bn slabs of y on
+    their way out, a "full" and an "empty" barrier a stage, and up to 1024
+    bytes to align the ring to the 128-byte swizzle's period."""
     return (stages * (bm * bk + bk * bn) * 2 + bm * bn * 2
             + 2 * stages * 8 + 1024)
 
@@ -77,7 +82,7 @@ def _find_item(off: list[int], E: int, M: int, bm: int, item: int):
 
 def grouped_schedule(offsets, M: int, E: int, N: int, bm: int = BM,
                      bn: int = BN, grid: int = cuda_build.H100_SMS):
-    """The bf16 kernel's schedule, in its own arithmetic: for each of its
+    """The wgmma kernel's schedule, in its own arithmetic: for each of its
     persistent blocks, the (group, row_lo, row_hi, n0) tiles whose rows
     [row_lo, row_hi) and columns [n0, min(n0 + bn, N)) of y it writes, in
     order. Blocks come in clusters of two, at most max(1, grid // 2)
@@ -125,21 +130,21 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     """x [M, K] (rows sorted by group) @ w [E, K, N] -> [M, N] in x's dtype.
 
     ``group_offsets`` is int32 [E + 1]: group e owns rows
-    [off[e], off[e + 1]); off[0] = 0, nondecreasing, off[E] = M. fp32 and
-    bf16; the bf16 kernel needs K and N multiples of 8 (TMA's 16-byte
-    row strides) and x and w on 16-byte boundaries, and raises otherwise."""
+    [off[e], off[e + 1]); off[0] = 0, nondecreasing, off[E] = M. fp32,
+    bf16 and fp16; the bf16 and fp16 kernel needs K and N multiples of 8
+    (TMA's 16-byte row strides) and x and w on 16-byte boundaries, and
+    raises otherwise."""
     if x.device.type == "cpu":
         return ref_grouped_matmul(x, w, group_offsets)
     M, K = x.shape
     E, Kw, N = w.shape
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype or Kw != K:
         raise ValueError(f"want x [M, K] and w [E, K, N] of one dtype "
-                         f"(fp32 or bf16; fp16 is queued in ROADMAP.md B), "
-                         f"got {x.dtype} {tuple(x.shape)} and {w.dtype} "
-                         f"{tuple(w.shape)}")
-    if x.dtype == torch.bfloat16 and (K % 8 or N % 8):
-        raise ValueError(f"bf16 needs K ({K}) and N ({N}) to be multiples "
-                         "of 8")
+                         f"(fp32, bf16 or fp16), got {x.dtype} "
+                         f"{tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
+    if x.dtype != torch.float32 and (K % 8 or N % 8):
+        raise ValueError(f"{x.dtype} needs K ({K}) and N ({N}) to be "
+                         "multiples of 8")
     if group_offsets.dtype != torch.int32 \
             or tuple(group_offsets.shape) != (E + 1,):
         raise ValueError(f"group_offsets must be int32 [{E + 1}], got "
@@ -153,15 +158,21 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
-    fn = cuda_build.entry("grouped_matmul", "grouped_matmul_launch",
-                          _ARGTYPES)
+    # The fp16 instance is a library of its own (built beside).
+    fn = (cuda_build.entry("grouped_matmul_f16", "grouped_matmul_f16_launch",
+                           _ARGTYPES) if x.dtype == torch.float16 else
+          cuda_build.entry("grouped_matmul", "grouped_matmul_launch",
+                           _ARGTYPES))
     err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
              group_offsets.data_ptr(), out.data_ptr(), M, K, N, E,
              cuda_build.sm_count(x.device), cuda_build.stream(x.device))
     cuda_build.check(err, "grouped_matmul")
     grouped_matmul.launches += 1
+    grouped_matmul.dtype_launches[str(x.dtype).removeprefix("torch.")] += 1
     return out
 
 
-# Launches of the CUDA kernel (a run sets it to 0 and reads it after).
+# Launches of the CUDA kernels (a run sets them to 0 and reads them
+# after), in all and by x's dtype.
 grouped_matmul.launches = 0
+grouped_matmul.dtype_launches = {"float32": 0, "bfloat16": 0, "float16": 0}

@@ -7,9 +7,11 @@ tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
 on CPU tensors. bf16 and fp16 at head_dim 64, 128 or 256 run the
 tensor-core instance (``rpa_tc_launch``; fp16 ``rpa_tc_f16_launch`` of
 ``csrc/ragged_f16.cu``; bf16 with image spans ``rpa_tc_spans_launch`` of
-``csrc/ragged_spans.cu``), bf16 at MLA's head_dim 576 (DeepSeek V2/V3:
-any group on one latent KV head, on a bf16 or fp8 cache) the MLA instance
-(``csrc/mla_attention.cu``, ``mla_ragged_launch``), everything else the
+``csrc/ragged_spans.cu``), bf16 and fp16 at MLA's head_dim 576 (DeepSeek
+V2/V3: any group on one latent KV head, on a cache of q's dtype or fp8)
+the MLA instance (``csrc/mla_attention.cuh``: bf16 ``mla_ragged_launch``
+of ``csrc/mla_attention.cu``, fp16 ``mla_ragged_f16_launch`` of
+``csrc/mla_attention_f16.cu``), everything else the
 scalar one (``rpa_launch``), which keeps fp32 in full fp32; each is sized
 by its own function and the runner asks ``ragged_work_item_tokens`` for
 the one that the model's dtype will run. Where a work item's rows exceed
@@ -39,15 +41,16 @@ The cache holds q's dtype or fp8 (e4m3fn or e5m2): every instance upcasts
 an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
 (the tensor-core instance through a ring of staged bytes, sized by
 ``ragged_tc_smem_bytes(hd, fp8=True)``; the MLA instance through a ring of
-staged bytes and two bf16 tiles in its bf16 ring's bytes,
+staged bytes and two tiles of q's dtype in its 16-bit ring's bytes,
 ``mla_smem_bytes(fp8=True)``); the plain version computes in fp32, where
 every fp8 value is exact.
 
 fp16 queries compute as the TPU kernel does in q's dtype: K/V in fp16
-(or fp8 upcast to fp16), products accumulated in fp32, P rounded to fp16.
-On a CUDA tensor, fp16 at MLA's head_dim 576 and fp16 with image spans
-raise (``check_unported``, ``FP16_ITEM``): no instance of theirs is
-built; on the CPU the plain version computes them.
+(or fp8 upcast to fp16), products accumulated in fp32, P rounded to fp16,
+on the tensor-core and the MLA instances alike. On a CUDA tensor, fp16
+with image spans raises (``check_unported``, ``FP16_ITEM``): the span
+switch is built in bf16 only; on the CPU the plain version computes
+them.
 """
 from __future__ import annotations
 
@@ -64,10 +67,10 @@ _ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
              _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _I, _P]
 _TC_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                 _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
-_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 _I, _I, _F, _I, _I, _F, _P]
+_MLA_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                 _I, _I, _I, _F, _I, _I, _F, _P]
 # q's dtype codes of the attention kernels (csrc/attn_common.cuh
-# AttnDtype). The GEMM wrappers keep their own table (fp32 and bf16).
+# AttnDtype), which the grouped GEMM takes too (ops/grouped_matmul.py).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The cache's dtype codes of the attention kernels (csrc/attn_common.cuh
 # KvDtype): 0 for q's own dtype, or an fp8 cache.
@@ -78,15 +81,16 @@ _TILE, _WARPS = 32, 8
 _MAX_ROWS = 128
 # The head dims of the tensor-core instance.
 TC_HEAD_DIMS = (64, 128, 256)
-# MLA's latent head (kv_lora_rank 512 + rope 64): its own instance in bf16.
+# MLA's latent head (kv_lora_rank 512 + rope 64): its own instances in bf16
+# and fp16.
 MLA_HEAD_DIM = 576
 MLA_ROWS = 64  # query rows a block of the MLA instance (one wgmma M)
 MLA_KEYS = 32  # keys a K or V tile of the MLA instances
 MLA_STAGES = 2  # K and V tiles in flight (the ring's depth)
 # Where image spans at the MLA geometry are queued.
 MLA_SPANS_ITEM = "ROADMAP B"
-# Where fp16 at the MLA geometry and fp16 with image spans are queued.
-FP16_ITEM = "ROADMAP.md B, item 3"
+# Where fp16 with image spans is queued.
+FP16_ITEM = "ROADMAP.md B, item 1"
 
 
 def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
@@ -144,19 +148,21 @@ def ragged_block_rows(group: int, hd: int, smem_limit: int,
 
 
 def ragged_uses_mla(dtype: torch.dtype, hd: int) -> bool:
-    """Whether the kernel runs the MLA instance for this dtype."""
-    return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
+    """Whether the kernel runs the MLA instance for this dtype (bf16 or
+    fp16, head_dim 576)."""
+    return dtype in (torch.bfloat16, torch.float16) and hd == MLA_HEAD_DIM
 
 
 def mla_smem_bytes(fp8: bool = False) -> int:
-    """Shared memory of a block of either MLA instance (``mla_attention.cu``
+    """Shared memory of a block of either MLA instance (``mla_attention.cuh``
     kSmem): Q (64 rows, 73,728 bytes) and a ring of two stages of a
-    32-key K tile and a 32-key V tile (36,864 bytes each), 576 bf16 a row
-    in 128-byte swizzled chunks, or, on an fp8 cache, a ring of two stages
-    of their staged bytes (18,432 each) and one bf16 K and one bf16 V tile
-    to convert them into (the same 147,456 bytes); the window's hand-off
-    of P from the warpgroup that computes S to the other two (P of a tile
-    in bf16 and its rows' rescale factors, two of each: 8,704 bytes); four
+    32-key K tile and a 32-key V tile (36,864 bytes each), 576 bf16 or
+    fp16 a row in 128-byte swizzled chunks, or, on an fp8 cache, a ring of
+    two stages of their staged bytes (18,432 each) and one K and one V
+    tile of q's dtype to convert them into (the same 147,456 bytes); the
+    window's hand-off of P from the warpgroup that computes S to the other
+    two (P of a tile in q's dtype and its rows' rescale factors, two of
+    each: 8,704 bytes); four
     mbarriers a stage and four for the hand-off; 1024 bytes to align the
     swizzle."""
     exchange = 2 * (MLA_ROWS * MLA_KEYS * 2 + MLA_ROWS * 4)
@@ -186,10 +192,11 @@ def check_spans(spans: bool, dtype: torch.dtype, hd: int,
                 alibi: bool) -> None:
     """Raise ``NotImplementedError`` for image spans where the instance
     that ``dtype`` and ``hd`` run does not take them, on every device: the
-    MLA instance (no MLA model has images; ``MLA_SPANS_ITEM``), and the
-    tensor-core one beside ALiBi (no model has both; the pair is not
-    instantiated)."""
-    if spans and ragged_uses_mla(dtype, hd):
+    bf16 MLA instance (no MLA model has images; ``MLA_SPANS_ITEM``), and
+    the tensor-core one beside ALiBi (no model has both; the pair is not
+    instantiated). fp16 with spans raises on a CUDA device alone
+    (``check_unported``), at head_dim 576 too."""
+    if spans and dtype == torch.bfloat16 and hd == MLA_HEAD_DIM:
         raise NotImplementedError(
             f"bidirectional image spans at the MLA geometry (bf16, head_dim "
             f"{MLA_HEAD_DIM}): the MLA instance does not take them; no MLA "
@@ -200,21 +207,13 @@ def check_spans(spans: bool, dtype: torch.dtype, hd: int,
             "instance: no model has both")
 
 
-def check_unported(device_type: str, dtype: torch.dtype, hd: int,
-                    spans: bool) -> None:
+def check_unported(device_type: str, dtype: torch.dtype,
+                   spans: bool) -> None:
     """Raise ``NotImplementedError`` naming ``ROADMAP.md`` where no CUDA
-    instance takes the call: on a ``"cuda"`` device, fp16 at MLA's head_dim
-    576 (the MLA instances are bf16 only) and fp16 with image spans (the
-    span switch is bf16 only). The scalar instance would compute both, far
-    too slowly to serve (44 ms at DeepSeek-V2-Lite's bf16 wave); the CPU's
-    plain version computes them as the JAX package does."""
-    if device_type != "cuda" or dtype != torch.float16:
-        return
-    if hd == MLA_HEAD_DIM:
-        raise NotImplementedError(
-            f"fp16 at the MLA geometry (head_dim {MLA_HEAD_DIM}): its "
-            f"instances are bf16 only ({FP16_ITEM})")
-    if spans:
+    instance takes the call: on a ``"cuda"`` device, fp16 with image spans
+    (the span switch is bf16 only), at any head_dim. The CPU's plain
+    version computes it as the JAX package does."""
+    if device_type == "cuda" and dtype == torch.float16 and spans:
         raise NotImplementedError(
             f"fp16 with bidirectional image spans: the span instances are "
             f"bf16 only ({FP16_ITEM})")
@@ -225,7 +224,8 @@ def ragged_mla_block_q(group: int, smem_limit: int,
     """Tokens per work item of the MLA instance: as many whole groups as
     fill its 64 rows (4 at V2-Lite's group of 16), else one token, whose
     group the kernel cuts into slices of 64 rows (V3's 128 query heads:
-    two), on a bf16 or fp8 cache (``kv_dtype``) alike."""
+    two), in bf16 or fp16, on a cache of q's dtype or fp8 (``kv_dtype``)
+    alike."""
     cuda_build.check_smem(
         f"ragged_paged_attention MLA instance (group {group}, head_dim "
         f"{MLA_HEAD_DIM})", mla_smem_bytes(kv_dtype in KV_CODES), smem_limit)
@@ -361,8 +361,7 @@ def ragged_paged_attention(
     cache_layer = kv_cache[layer]
     check_spans(md.mm_bidir_spans is not None, q.dtype, q.shape[-1],
                 alibi is not None)
-    check_unported(q.device.type, q.dtype, q.shape[-1],
-                   md.mm_bidir_spans is not None)
+    check_unported(q.device.type, q.dtype, md.mm_bidir_spans is not None)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
             q, cache_layer, md, scale, sliding_window=sliding_window,
@@ -420,10 +419,15 @@ def ragged_paged_attention(
         mla_page_boxes(page)  # raises on a page size TMA cannot tile
         cuda_build.check_smem(what, mla_smem_bytes(code > 0),
                               cuda_build.smem_optin())
-        launch = cuda_build.entry("mla_attention", "mla_ragged_launch",
-                                  _MLA_ARGTYPES)
+        # The fp16 instances are a library of their own (built beside).
+        launch = (cuda_build.entry("mla_attention_f16",
+                                   "mla_ragged_f16_launch", _MLA_ARGTYPES)
+                  if q.dtype == torch.float16 else
+                  cuda_build.entry("mla_attention", "mla_ragged_launch",
+                                   _MLA_ARGTYPES))
         err = launch(
-            code, q.data_ptr(), cache_layer.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
+            out.data_ptr(),
             *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], cache_layer.shape[0], nq, kvh, page,
             md.block_q, scale, sliding_window or 0, chunk_attn or 0,
@@ -472,14 +476,18 @@ def ragged_paged_attention(
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     ragged_paged_attention.instance_launches[instance] += 1
+    ragged_paged_attention.dtype_launches[str(q.dtype).removeprefix(
+        "torch.")] += 1
     if spans is not None:
         ragged_paged_attention.span_launches += 1
     return out
 
 
 # Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
-# all, by instance, and those with image spans.
+# all, by instance, by q's dtype, and those with image spans.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
                                             "scalar": 0}
+ragged_paged_attention.dtype_launches = {"float32": 0, "bfloat16": 0,
+                                         "float16": 0}
 ragged_paged_attention.span_launches = 0

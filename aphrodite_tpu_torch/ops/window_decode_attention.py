@@ -20,9 +20,11 @@ last split taking whatever is left); each block writes an unnormalized
 ``window_plan`` makes the launch geometry, the plan and the states'
 scratch once for all the layers and sub-steps of a decode window.
 
-bf16 at MLA's head_dim 576 (DeepSeek V2/V3: any group on one latent KV
-head) runs the MLA instance (``csrc/mla_attention.cu``,
-``mla_window_launch``: wgmma over one 64-row tile of the group a block,
+bf16 and fp16 at MLA's head_dim 576 (DeepSeek V2/V3: any group on one
+latent KV head) run the MLA instance (``csrc/mla_attention.cuh``: bf16
+``mla_window_launch`` of ``csrc/mla_attention.cu``, fp16
+``mla_window_f16_launch`` of ``csrc/mla_attention_f16.cu``: wgmma over
+one 64-row tile of the group a block,
 each of the plan's 64-key tiles loaded by TMA as two of 32), one block an
 SM, its splits planned for one wave (``window_split_plan(...,
 per_sm=1)``). A group larger than a block's rows is cut into row slices,
@@ -33,15 +35,14 @@ cache's dtype, or bf16 beside an e5m2 cache (``tail_dtype``, the JAX
 runner's rule). Every tile is upcast to q's dtype before both products,
 as the TPU kernel does (the tensor-core instance stages fp8 tiles' bytes
 in a ring of their own: ``window_tc_smem_bytes(hd, fp8=True)``; the MLA
-instance stages them in its ring and converts them into two bf16 tiles,
-``mla_smem_bytes(fp8=True)``, and copies bf16 tails beside e5m2 straight
-into those tiles).
+instance stages them in its ring and converts them into two tiles of q's
+dtype, ``mla_smem_bytes(fp8=True)``, and copies bf16 tails beside e5m2
+straight into those tiles).
 
-fp16 queries run the tensor-core instance with fp16 operands (beside an
-e5m2 cache the tails stay bf16, as the JAX runner keeps them, and the
-kernel converts each tail tile to fp16 in shared memory, exact inside
-fp16's range); on a CUDA tensor fp16 at MLA's head_dim 576 raises
-(``check_unported``).
+fp16 queries run the tensor-core instance, or at head_dim 576 the MLA
+one, with fp16 operands and P rounded to fp16 (beside an e5m2 cache the
+tails stay bf16, as the JAX runner keeps them, and the kernel converts
+each tail tile to fp16 in shared memory, exact inside fp16's range).
 """
 from __future__ import annotations
 
@@ -52,15 +53,16 @@ import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS,
-    check_unported, kv_code, mla_page_boxes, mla_smem_bytes)
+    DTYPE_CODES, KV_CODES, MLA_HEAD_DIM, MLA_ROWS, TC_HEAD_DIMS, kv_code,
+    mla_page_boxes, mla_smem_bytes)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
              _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
              _I, _I, _I, _P]
-_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                 _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I, _P]
+_MLA_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                 _I, _I, _I, _I, _I, _F, _I, _I, _F, _P, _P, _P, _I, _I, _I,
+                 _P]
 _TILE = 32  # keys per warp sub-tile of the CUDA-core instance
 SPLIT_KEYS = 64  # keys a tile of the split plan
 TC_MAX_GROUP = 16  # query rows of one mma tile
@@ -106,8 +108,9 @@ def window_warps(group: int, hd: int, smem_limit: int) -> int:
 
 
 def window_uses_mla(dtype: torch.dtype, hd: int) -> bool:
-    """Whether the kernel runs its MLA instance (bf16, head_dim 576)."""
-    return dtype == torch.bfloat16 and hd == MLA_HEAD_DIM
+    """Whether the kernel runs its MLA instance (bf16 or fp16, head_dim
+    576)."""
+    return dtype in (torch.bfloat16, torch.float16) and hd == MLA_HEAD_DIM
 
 
 def window_uses_tensor_cores(dtype: torch.dtype, group: int,
@@ -115,7 +118,7 @@ def window_uses_tensor_cores(dtype: torch.dtype, group: int,
     """Whether the kernel runs its tensor-core instance of
     ``csrc/split_decode.cuh``: bf16 or fp16, head_dim 64, 128 or 256, and a
     group that fits one 16-row mma tile (MLA's head_dim 576 runs its own
-    instance in bf16: ``window_uses_mla``)."""
+    instance in bf16 and fp16: ``window_uses_mla``)."""
     return (dtype in (torch.bfloat16, torch.float16) and hd in TC_HEAD_DIMS
             and group <= TC_MAX_GROUP)
 
@@ -151,7 +154,7 @@ def window_launch_geometry(dtype: torch.dtype, group: int, hd: int,
                            ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one split block: 4
     warps and ``window_tc_smem_bytes`` (16 warps and ``mla_smem_bytes``
-    at MLA's geometry, on a bf16 or fp8 cache) on a tensor-core
+    at MLA's geometry, on a cache of q's dtype or fp8) on a tensor-core
     instance, else the CUDA-core instance's ``window_warps`` (whose tiles
     are fp32 on any cache) for ``window_block_rows`` rows. Raises, naming
     the bytes, when nothing fits the card."""
@@ -335,7 +338,6 @@ def window_decode_attention(
         raise ValueError("the cascade init state takes no sliding window, "
                          "chunked attention or soft cap")
     code = kv_code(q.dtype, kv_cache.dtype)
-    check_unported(q.device.type, q.dtype, q.shape[-1], False)
     want = tail_dtype(kv_cache.dtype)
     if tail_k.dtype != want or tail_v.dtype != want:
         raise ValueError(f"tails of {tail_k.dtype} / {tail_v.dtype} beside "
@@ -405,10 +407,15 @@ def window_decode_attention(
     tail_off = layer * tail_k.stride(0) * tail_k.element_size()
     if window_uses_mla(q.dtype, hd):
         mla_page_boxes(page)  # raises on a page size TMA cannot tile
-        launch = cuda_build.entry("mla_attention", "mla_window_launch",
-                                  _MLA_ARGTYPES)
+        # The fp16 instances are a library of their own (built beside).
+        launch = (cuda_build.entry("mla_attention_f16",
+                                   "mla_window_f16_launch", _MLA_ARGTYPES)
+                  if q.dtype == torch.float16 else
+                  cuda_build.entry("mla_attention", "mla_window_launch",
+                                   _MLA_ARGTYPES))
         err = launch(
-            code, q.data_ptr(), cache_l, tail_k.data_ptr() + tail_off,
+            DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_l,
+            tail_k.data_ptr() + tail_off,
             tail_v.data_ptr() + tail_off, out.data_ptr(),
             plan.part.data_ptr(), part_m, part_m + 4 * n_state,
             paged_lens.data_ptr(), block_tables.data_ptr(), R,
@@ -436,11 +443,15 @@ def window_decode_attention(
     cuda_build.check(err, "window_decode_attention launch")
     window_decode_attention.launches += 1
     window_decode_attention.instance_launches[instance] += 1
+    window_decode_attention.dtype_launches[str(q.dtype).removeprefix(
+        "torch.")] += 1
     return out
 
 
 # Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
-# all and by instance.
+# all, by instance and by q's dtype.
 window_decode_attention.launches = 0
 window_decode_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
                                              "scalar": 0}
+window_decode_attention.dtype_launches = {"float32": 0, "bfloat16": 0,
+                                          "float16": 0}

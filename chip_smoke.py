@@ -81,14 +81,14 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    shared-prefix pass launched; on the card, the same tokens again with
    the cascade turned off (``_detect_shared_prefix`` patched to None).
 14. The main path of the int4 + cascade slice: Llama-3.1-8B at full width
-   and depth, W4A16 (gptq, group 128) realized to native int4, bf16, 128
-   requests sharing a seeded 1024-token system prompt, each with a
-   128-token suffix new in every run, 64 greedy tokens. The warm-up caches
-   the prefix, so every timed run prefills one 16384-token wave (131072
-   cached prompt tokens) and runs one 63-step window at R = 128 sharing 16
-   pages: exactly 4 x 32 x 63 = 8064 int4 launches, 32 x 63 = 2016
-   shared-prefix passes and window launches, 32 ragged and 0 packed W4
-   launches a run.
+   and half its depth (16 of 32 layers, ``LLAMA31_8B_HALF``), W4A16 (gptq,
+   group 128) realized to native int4, bf16, 128 requests sharing a
+   seeded 1024-token system prompt, each with a 128-token suffix new in
+   every run, 64 greedy tokens. The warm-up caches the prefix, so every
+   timed run prefills one 16384-token wave (131072 cached prompt tokens)
+   and runs one 63-step window at R = 128 sharing 16 pages: exactly 4 x 16
+   x 63 = 4032 int4 launches, 16 x 63 = 1008 shared-prefix passes and
+   window launches, 16 ragged and 0 packed W4 launches a run.
 15. The main path of the W8 layout: Llama-3.1-8B at full width and depth,
    W8A16 (per-column int8) on seeded dummy weights, bf16, phase 6's
    traffic and runs. Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 32
@@ -114,11 +114,12 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    yardstick of such partings; kFp8's fp32 twin and the fp8-cache
    attention instances launched.
 18. The main path of the FP8 slice, BASELINE config 3: Llama-3.1-8B at full
-   width and depth, fp8 weights (e4m3, a scale a column) and an fp8 e4m3
-   KV cache, bf16, phase 6's traffic and runs. Exactly 2048 tokens a run,
-   kFp8 exactly 4 x 32 x 63 = 8064 times, the other quantized GEMMs never,
-   the ragged kernel 32 and the window kernel 2016 times in every cold and
-   warm run; a profile with an "fp8" family.
+   width and half its depth (16 of 32 layers, ``LLAMA31_8B_HALF``), fp8
+   weights (e4m3, a scale a column) and an fp8 e4m3 KV cache, bf16, phase
+   6's traffic and runs. Exactly 2048 tokens a run, kFp8 exactly 4 x 16 x
+   63 = 4032 times, the other quantized GEMMs never, the ragged kernel 16
+   and the window kernel 1008 times in every cold and warm run; a profile
+   with an "fp8" family.
 19. Sampling parity (run after phase 5): seeded sampled requests through
    the port on the card and on the CPU with the same weights, fp32: a
    tiny Qwen2 under the three presets of phase 20 in rotation (a chunked
@@ -244,6 +245,26 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    fp16 tensor-core instances, the other quantized GEMMs never; every
    logprob finite; walls beside phase 6's; the KV bytes a token (131,072);
    a profiled run.
+32. fp16 MoE and MLA parity (``moe_mla_fp16_parity``): fp16 greedy runs on
+   the card and on the CPU with the same weights (``F16_MOE_TINY``): tiny
+   DeepSeek V2 and V3 at the MLA geometry (16 heads on one latent head of
+   576) with a MoE layer, on fp16, e4m3 and e5m2 caches, and a tiny
+   Qwen2-MoE (heads of 64), every token on all 8 experts (no top-k choice
+   that a rounding could flip), the grouped route from 4 tokens a wave;
+   phase 23's plain batch (a 32-token budget, 16-step windows) in each run
+   and its shared 4-page prompt (the cascade at 576) in V2's on the fp16
+   cache. Tokens equal but where the runs part at a gap below ``GAP``;
+   chosen logprobs within ``F16_LOGPROB_TOL`` where they agree; every
+   attention kernel's and the grouped GEMM's card launches exactly its CPU
+   twin's calls (``CallSpy``, ``GroupedSpy``), all fp16, the attention at
+   head_dim 576 all on the MLA instances.
+33. The main path of the fp16 MoE and MLA slice (``main_path_deepseek(
+   dtype="float16")``): DeepSeek-V2-Lite at full width and depth (27
+   layers) in fp16 on an fp16 cache, phase 6's traffic and runs, cold and
+   warm. In every run exactly: ragged 27 and window 1701, all on the MLA
+   instances' fp16 ones, grouped 52, all fp16, 0 on the other instances
+   and in bf16; every logprob finite; the KV bytes a token; a profiled
+   run.
 
 For the fp16 GEMM slice phase 2 (``fp16_gemm_checks``) holds each layout's
 fp16 instance (``csrc/w4_wgmma_f16.cu``) against its plain version at
@@ -293,6 +314,18 @@ both views (``OneAllocation``: the tensor maps' key must hold the
 element type).
 ``--ab PARENT mla 24`` times the MLA instances (``MLA_PROBE``) and phase
 24 of a parent checkout and of this one in turns.
+
+For the fp16 MoE and MLA slice phase 2 (``moe_mla_fp16_checks``) holds
+the grouped GEMM's fp16 instance (``csrc/grouped_matmul_f16.cu``) at phase
+8's shapes and cases (``GROUPED_EDGE_CASES``: empty groups, rows that no
+group covers) and at V2-Lite's wave, and both MLA instances' fp16 ones
+(``csrc/mla_attention_f16.cu``) at ``MLA_GEOMS`` on fp16, e4m3 and e5m2
+caches (the fp8 ones bit-equal to their fp16 selves on the upcast cache),
+at ``MLA_MASK_CASE`` with NaN in the stale slots, from the cascade's
+state, two launches bit-equal, against their plain versions at
+``TOL["float16"]``, each timed beside its bf16 self in the same call; and
+bf16 and fp16 launches in turns over one allocation
+(``check_mla_map_key_f16``).
 
 Phase 2 also holds the grouped GEMM (which stands in for the megablox
 ``gmm`` TPU kernel) against its plain version at phase 8's shapes: one
@@ -428,6 +461,11 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
                   "original_max_position_embeddings": 8192},
     max_position_embeddings=131072, tie_word_embeddings=False,
     architectures=["LlamaForCausalLM"])
+# Phases 14 and 18 serve Llama-3.1-8B at half its depth (16 of its 32
+# layers), which keeps the script inside its time limit as it grows:
+# phases 6 and 31 serve the same model at full depth, every layer runs the
+# same kernels, and each launch count is reckoned for the depth served.
+LLAMA31_8B_HALF = dict(LLAMA31_8B, num_hidden_layers=16)
 # (K, N) of a layer's four GEMMs with QKV and gate/up fused, M = 32.
 LLAMA8B_GEMMS = {"qkv": (4096, 6144), "o": (4096, 4096),
                  "gate_up": (4096, 28672), "down": (14336, 4096)}
@@ -569,13 +607,15 @@ def device_ms(fn, reps: int) -> float:
     from a profiler trace of ``reps`` calls (without the host's time
     between launches, which ``cuda_ms`` sees when the host is slower). A
     trace that comes back without device events is taken again (up to
-    three times); fails if none has any."""
+    five times); if none has any (the profiler's CUPTI trace has come back
+    empty on that machine), the call is timed with CUDA events instead
+    (``cuda_ms``) and the log says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -585,7 +625,9 @@ def device_ms(fn, reps: int) -> float:
                  if e.device_type() == DeviceType.CUDA)
         if ns > 0:
             return ns / 1e6 / reps
-    raise RuntimeError("device_ms: three traces without a device event")
+    log("# device_ms: five traces without a device event; timed with CUDA "
+        "events instead")
+    return cuda_ms(fn, reps)
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -659,8 +701,9 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     image spans, ``geom["spans"]`` a list of (lo, hi) a request, the
     yardstick's mask is (causal OR inside one span) below the context and
     the bound counts the keys each row sees). The MLA instance on an fp8
-    cache must equal its bf16 self on the cache upcast to bf16, bit for
-    bit. ``make_cache``: ``paged_cache``'s stand-in (``OneAllocation``)."""
+    cache must equal its self on the cache upcast to q's dtype (bf16 or
+    fp16), bit for bit. ``make_cache``: ``paged_cache``'s stand-in
+    (``OneAllocation``)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
@@ -705,14 +748,16 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     out = ragged_paged_attention(q, cache, layer, md, scale, **opts)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    if geom.get("mla") and dtype == torch.bfloat16 and not torch.equal(
+    mla16 = geom.get("mla") and dtype in (torch.bfloat16, torch.float16)
+    if mla16 and not torch.equal(
             out, ragged_paged_attention(q, cache, layer, md, scale, **opts)):
         raise AssertionError("ragged MLA instance: two launches differ")
-    if geom.get("mla") and dtype == torch.bfloat16 and kv is not None and \
-            not torch.equal(out, ragged_paged_attention(
-                q, cache.to(dtype), layer, md, scale, **opts)):
-        raise AssertionError(f"ragged MLA instance on a {kv} cache: not its "
-                             "bf16 self on the upcast cache, bit for bit")
+    if mla16 and kv is not None and not torch.equal(
+            out, ragged_paged_attention(q, cache.to(dtype), layer, md, scale,
+                                        **opts)):
+        raise AssertionError(f"ragged MLA instance {dtype_name} on a {kv} "
+                             f"cache: not its {dtype_name}-cache self on the "
+                             "upcast cache, bit for bit")
     limit = (large_tol(dtype_name, ref)
              if "alibi" in opts or (geom.get("mla") and kv is not None)
              else TOL[dtype_name])
@@ -849,8 +894,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     block tables' capacity, and by 0 (one split, which must take every
     tile); at a path's shapes also the times, with the plan made once as
     the runner makes it. The MLA instance on an fp8 cache must equal its
-    bf16 self on the cache and tails upcast to bf16, bit for bit, at every
-    step and plan. ``make_cache``: ``paged_cache``'s stand-in."""
+    self on the cache and tails upcast to q's dtype (bf16 or fp16), bit for
+    bit, at every step and plan. ``make_cache``: ``paged_cache``'s
+    stand-in."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.ops.window_decode_attention import (
@@ -882,8 +928,10 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
     clean = (cache.clone(), tail_k, tail_v) if stale else None
     if stale:  # page slots past the paged lengths and the null page
         poison_stale(cache, bt, plens)
-    # The bf16 self of an fp8 MLA instance: the upcast cache, its own plans.
-    upcast = geom.get("mla") and dtype == torch.bfloat16 and kv is not None
+    # The 16-bit self of an fp8 MLA instance: the upcast cache, its own
+    # plans.
+    mla16 = geom.get("mla") and dtype in (torch.bfloat16, torch.float16)
+    upcast = mla16 and kv is not None
     up_cache = cache.to(dtype) if upcast else None
     err = 0.0
     for step in (0, 1, 31, 48, 63):
@@ -903,10 +951,9 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 raise AssertionError("window kernel: non-finite output")
-            if geom.get("mla") and dtype == torch.bfloat16 and \
-                    not torch.equal(out, window_decode_attention(
-                        q, cache, tail_k, tail_v, layer, step, pl, bt, scale,
-                        plan=p, **opts)):
+            if mla16 and not torch.equal(out, window_decode_attention(
+                    q, cache, tail_k, tail_v, layer, step, pl, bt, scale,
+                    plan=p, **opts)):
                 raise AssertionError("window MLA instance: two launches "
                                      "differ")
             if upcast and not torch.equal(out, window_decode_attention(
@@ -914,9 +961,10 @@ def check_window(gen, dtype_name: str, geom: dict, timed: bool = True,
                     step, pl, bt, scale,
                     plan=p and p._replace(kv_dtype=dtype), **opts)):
                 raise AssertionError(
-                    f"window MLA instance on a {kv} cache, step {step}, plan "
-                    f"bounded by {bound}: not its bf16 self on the upcast "
-                    "cache and tails, bit for bit")
+                    f"window MLA instance {dtype_name} on a {kv} cache, step "
+                    f"{step}, plan bounded by {bound}: not its "
+                    f"{dtype_name}-cache self on the upcast cache and tails, "
+                    "bit for bit")
             e = (out.float() - ref.float()).abs().max().item()
             if e > limit:
                 raise AssertionError(
@@ -1974,11 +2022,13 @@ def sized_offsets(sizes: list[int]):
                         dtype=torch.int32, device="cuda")
 
 
-# Where the bf16 kernel's design bites (phase 2, bf16 and fp32, against the
-# plain version): rows past the last tile, K and N past the TMA boxes, a
-# 1-row group, one expert holding every row (every pair of items shares
-# it), and E = 33 (find_item's second 32-expert chunk). name: (M, K, N,
-# E, group sizes or None for a uniform draw).
+# Where the wgmma kernel's design bites (phase 2, bf16, fp16 and fp32,
+# against the plain version): rows past the last tile, K and N past the TMA
+# boxes, a 1-row group, one expert holding every row (every pair of items
+# shares it), E = 33 (find_item's second 32-expert chunk), and empty groups
+# with 300 rows past the last group, which no group covers (the kernels
+# write none of them; the plain version's zeros there are not compared).
+# name: (M, K, N, E, group sizes or None for a uniform draw).
 GROUPED_EDGE_CASES = {
     "M=65499": (65536 - 37, 2048, 2816, MOE_E, None),
     "K=1000": (65536, 1000, 2048, MOE_E, None),
@@ -1988,6 +2038,8 @@ GROUPED_EDGE_CASES = {
     "one expert": (4096, 2048, 2816, MOE_E,
                    [0] * 7 + [4096] + [0] * (MOE_E - 8)),
     "E=33": (8000, 1408, 2048, 33, None),
+    "uncovered rows": (4396, 2048, 2816, MOE_E,
+                       [0, 1200, 0, 0, 37, 2859] + [0] * (MOE_E - 6)),
 }
 
 
@@ -1997,14 +2049,15 @@ def grouped_library(x, w, off, want):
     (and it agrees with the plain version), else a per-expert
     ``torch.matmul`` loop."""
     import torch
-    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+    if x.dtype in (torch.bfloat16, torch.float16) and hasattr(
+            torch, "_grouped_mm"):
         ends = off[1:].contiguous()
         for layout, wl in (("row-major", w), ("column-major", w.transpose(
                 1, 2).contiguous().transpose(1, 2))):
             try:
                 fn = lambda wl=wl: torch._grouped_mm(x, wl, offs=ends)  # noqa
                 err = (fn().float() - want).abs().max().item()
-                if err <= TOL["bfloat16"]:
+                if err <= TOL[str(x.dtype).removeprefix("torch.")]:
                     return f"_grouped_mm ({layout} w)", fn
                 log(f"# phase 2: _grouped_mm ({layout} w) differs by {err}")
             except Exception as e:  # the card's torch refuses this form
@@ -2040,11 +2093,12 @@ def check_grouped(gen, dtype_name: str) -> dict:
     lib_label = None
 
     def held(label, x, w, off):
-        out = grouped_matmul(x, w, off)
-        again = grouped_matmul(x, w, off)
+        covered = int(off[-1])  # the rows some group covers
+        out = grouped_matmul(x, w, off)[:covered]
+        again = grouped_matmul(x, w, off)[:covered]
         ref = ref_grouped_matmul(x.float(), w.float(), off)
         torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
+        err = (out.float() - ref[:covered]).abs().max().item()
         if not (err <= TOL[dtype_name] and torch.isfinite(out).all()):
             raise AssertionError(f"grouped_matmul {label} {dtype_name}: "
                                  f"max_abs_err {err} > {TOL[dtype_name]}")
@@ -2067,8 +2121,8 @@ def check_grouped(gen, dtype_name: str) -> dict:
         for gemm, (K, N) in MOE_GEMMS.items():
             x, w = operands(M, K, N, MOE_E)
             ref, err = held(f"{gemm} M={M} {case}", x, w, off)
-            reps = 50 if M < 4096 else (10 if dtype_name == "bfloat16"
-                                        else 3)
+            reps = 50 if M < 4096 else (3 if dtype_name == "float32"
+                                        else 10)
             call = lambda: grouped_matmul(x, w, off)  # noqa: E731
             ms = cuda_ms(call, reps)
             nbytes = item * (M * K + nonempty * K * N + M * N)
@@ -3002,12 +3056,12 @@ def main_path_fp8() -> dict:
     """Phase 18: BASELINE config 3 (``benchmarks/baseline_configs.py:
     137-140``): Llama-3.1-8B with fp8 weights (e4m3, a scale a column,
     quantized on the fly from seeded dummy weights) and an fp8 e4m3 KV
-    cache at full width and depth, bf16, phase 6's settings, traffic and
-    runs: kFp8 exactly 4 x 32 x 63 = 8064 times a run, the other quantized
-    GEMMs never, the ragged kernel 32 and the window kernel 2016 times (on
-    the e4m3 cache and tails)."""
-    layers, steps = LLAMA31_8B["num_hidden_layers"], 63
-    return serve_bytes("phase 18", "llama-3.1-8b-fp8-dummy", LLAMA31_8B,
+    cache at full width and half its depth (``LLAMA31_8B_HALF``), bf16,
+    phase 6's settings, traffic and runs: kFp8 exactly 4 x 16 x 63 = 4032
+    times a run, the other quantized GEMMs never, the ragged kernel 16 and
+    the window kernel 1008 times (on the e4m3 cache and tails)."""
+    layers, steps = LLAMA31_8B_HALF["num_hidden_layers"], 63
+    return serve_bytes("phase 18", "llama-3.1-8b-fp8-dummy", LLAMA31_8B_HALF,
                        "fp8", "fp8_matmul",
                        {"ragged_paged_attention": layers,
                         "window_decode_attention": layers * steps},
@@ -3016,12 +3070,12 @@ def main_path_fp8() -> dict:
 
 def main_path_int4_cascade() -> dict:
     """Llama-3.1-8B W4A16 (gptq, group 128) realized to native int4, bf16,
-    at full width and depth: 128 requests whose prompts start with one
-    seeded 1024-token system prompt, each with a 128-token suffix new in
-    every run (seeded by the run's index), 64 greedy tokens. A warm-up run
-    caches the prefix; each timed run then prefills one 16384-token wave
-    and decodes one 63-step window at R = 128 whose requests share 16
-    pages. Every run must give exactly 8192 tokens, find 131072 cached
+    at full width and half its depth (``LLAMA31_8B_HALF``): 128 requests whose
+    prompts start with one seeded 1024-token system prompt, each with a
+    128-token suffix new in every run (seeded by the run's index), 64 greedy
+    tokens. A warm-up run caches the prefix; each timed run then prefills one
+    16384-token wave and decodes one 63-step window at R = 128 whose requests
+    share 16 pages. Every run must give exactly 8192 tokens, find 131072 cached
     prompt tokens and launch each kernel exactly as reckoned."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
@@ -3032,7 +3086,7 @@ def main_path_int4_cascade() -> dict:
     phase = "phase 14"
     R, S, n_suf, n_dec = (CASCADE_R, CASCADE_S, CASCADE_SUFFIX,
                           CASCADE_DECODE)
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = LLAMA31_8B_HALF["num_hidden_layers"]
     steps = n_dec - 1  # the first token comes from the prefill wave
     kernels = {"w4a16_int4_matmul": qm.w4a16_int4_matmul,
                "w4a16_packed_matmul": qm.w4a16_packed_matmul,
@@ -3049,7 +3103,7 @@ def main_path_int4_cascade() -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM("llama-3.1-8b-w4a16-int4-dummy", hf_config=LLAMA31_8B,
+    llm = LLM("llama-3.1-8b-w4a16-int4-dummy", hf_config=LLAMA31_8B_HALF,
               tokenizer="unused", dtype="bfloat16", load_format="dummy",
               quantization="gptq", block_size=PAGE, max_num_seqs=R,
               max_num_batched_tokens=R * n_suf, max_model_len=1280,
@@ -3058,7 +3112,7 @@ def main_path_int4_cascade() -> dict:
     torch.cuda.synchronize()
     log(f"# {phase}: engine init + realize {time.perf_counter() - t0:.2f} "
         f"s, weights + KV {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    top = LLAMA31_8B["vocab_size"] - 10
+    top = LLAMA31_8B_HALF["vocab_size"] - 10
     prefix = np.random.RandomState(0).randint(10, top, size=S).tolist()
     params = SamplingParams(temperature=0.0, max_tokens=n_dec,
                             ignore_eos=True)
@@ -3078,7 +3132,7 @@ def main_path_int4_cascade() -> dict:
         toks = [o.outputs[0].token_ids for o in outs]
         if sum(len(x) for x in toks) != R * n_dec:
             raise AssertionError(f"expected {R * n_dec} tokens")
-        if not all(0 <= t < LLAMA31_8B["vocab_size"] for x in toks
+        if not all(0 <= t < LLAMA31_8B_HALF["vocab_size"] for x in toks
                    for t in x):
             raise AssertionError("token id out of the vocabulary")
         one_run.cached = sum(o.num_cached_tokens for o in outs)
@@ -3155,9 +3209,9 @@ def profile_run(one_run, phase: str = "phase 4",
         k = ("ragged (spans)" if re.search(r"rpa_tc_kernel<\w+, \d+, \w+, "
                                            r"\w+, true", n) else
              "ragged" if "rpa_kernel" in n or "rpa_tc_kernel" in n
-             or re.search(r"mla_kernel<\w+, false, \w+>", n) else
+             or re.search(r"mla_kernel<\w+, false,", n) else
              "window" if "wd_split" in n or "wd_merge" in n
-             or re.search(r"mla_kernel<\w+, true, \w+>", n)
+             or re.search(r"mla_kernel<\w+, true,", n)
              or "mla_merge" in n else
              "decode" if "dpa_" in n else
              "cascade" if "spa_kernel" in n or "spa_tc_kernel" in n else
@@ -3205,7 +3259,7 @@ KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans", "ragged_f16",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
                   "w4_wgmma_f16", "gumbel_sample", "suffix_match",
-                  "mla_attention"]
+                  "mla_attention", "mla_attention_f16", "grouped_matmul_f16"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -4585,10 +4639,10 @@ def scalar_instances():
 def check_mla_cascade(gen, dtype_name: str, page: int,
                       kv: str | None = None) -> float:
     """The shared-prefix pass at head_dim 576 (its CUDA-core instance, bf16
-    too) and the window kernel started from its state (the MLA instance in
-    bf16, two launches bit-equal): 8 requests of 16 heads sharing 4
-    pages, on a cache of q's dtype or of the fp8 dtype ``kv`` (tails in
-    ``tail_dtype`` of it), against the plain cascade; returns the error
+    and fp16 too) and the window kernel started from its state (the MLA
+    instance in bf16 or fp16, two launches bit-equal): 8 requests of 16 heads
+    sharing 4 pages, on a cache of q's dtype or of the fp8 dtype ``kv`` (tails
+    in ``tail_dtype`` of it), against the plain cascade; returns the error
     (held at ``scaled_tol``)."""
     import torch
     from aphrodite_tpu_torch.ops.cascade_attention import (
@@ -4622,7 +4676,7 @@ def check_mla_cascade(gen, dtype_name: str, page: int,
                 and torch.isfinite(out).all()):
             raise AssertionError(f"MLA cascade {dtype_name}{kv_label(kv)} "
                                  f"step {step}: max_abs_err {e}")
-        if dtype == torch.bfloat16 and not torch.equal(
+        if dtype != torch.float32 and not torch.equal(
                 out, window_decode_attention(
                     q, cache, tk, tv, 1, step, pl, bt, MLA_SCALE,
                     cascade_init=init, shared_len=S)):
@@ -4632,13 +4686,13 @@ def check_mla_cascade(gen, dtype_name: str, page: int,
     return err
 
 
-def check_grouped_v2lite(gen) -> dict:
-    """The bf16 grouped GEMM at phase 24's MoE wave (``V2_LITE_MOE``: a
-    layer's gate|up and down over 98,304 rows sorted over 64 experts, each
-    token routed to 6 distinct random experts): error against the plain
-    version on fp32 copies, two launches bit-equal; time a call, device
-    time, the plain version, ``_grouped_mm``, and the bound, summed over
-    the two GEMMs."""
+def check_grouped_v2lite(gen, dtype_name: str = "bfloat16") -> dict:
+    """The grouped GEMM (bf16 or fp16) at phase 24's MoE wave
+    (``V2_LITE_MOE``: a layer's gate|up and down over 98,304 rows sorted
+    over 64 experts, each token routed to 6 distinct random experts): error
+    against the plain version on fp32 copies, two launches bit-equal; time
+    a call, device time, the plain version, ``_grouped_mm`` (or a matmul
+    loop), and the bound, summed over the two GEMMs."""
     import torch
     from aphrodite_tpu_torch.ops.grouped_matmul import (grouped_matmul,
                                                         ref_grouped_matmul)
@@ -4649,18 +4703,19 @@ def check_grouped_v2lite(gen) -> dict:
                library_ms=0.0)
     nbytes = ops = 0.0
     for gemm, (K, N) in V2_LITE_MOE["gemms"].items():
-        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
         w = (torch.randn((E, K, N), generator=gen, device="cuda")
-             * (0.5 / K ** 0.5)).bfloat16()
+             * (0.5 / K ** 0.5)).to(dtype)
         out, again = grouped_matmul(x, w, off), grouped_matmul(x, w, off)
         ref = ref_grouped_matmul(x.float(), w.float(), off)
         torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
-        if not (err <= TOL["bfloat16"] and torch.isfinite(out).all()
+        if not (err <= TOL[dtype_name] and torch.isfinite(out).all()
                 and torch.equal(out, again)):
-            raise AssertionError(f"grouped_matmul {gemm} at V2-Lite's wave: "
-                                 f"max_abs_err {err}, or two launches "
-                                 "differ")
+            raise AssertionError(f"grouped_matmul {gemm} {dtype_name} at "
+                                 f"V2-Lite's wave: max_abs_err {err}, or two "
+                                 "launches differ")
         call = lambda: grouped_matmul(x, w, off)  # noqa: E731
         label, lib = grouped_library(x, w, off, ref)
         del ref, out, again
@@ -4674,12 +4729,12 @@ def check_grouped_v2lite(gen) -> dict:
         nbytes += 2 * (M * K + nonempty * K * N + M * N)
         ops += 2.0 * M * K * N
         del x, w
-    tot["bound_ms"], tot["bound_by"] = bound_ms(nbytes, ops, "bfloat16")
+    tot["bound_ms"], tot["bound_by"] = bound_ms(nbytes, ops, dtype_name)
     tot["library"] = label
-    log(f"# phase 2: grouped_matmul bfloat16 at DeepSeek-V2-Lite's MoE wave "
-        f"(M={M}, E={E}, {nonempty} groups), a layer's 2 GEMMs: max_abs_err "
-        f"{tot['max_abs_err']:.3g} (tol {TOL['bfloat16']}), two launches "
-        f"bit-equal; kernel {tot['ms']:.4f} ms (device "
+    log(f"# phase 2: grouped_matmul {dtype_name} at DeepSeek-V2-Lite's MoE "
+        f"wave (M={M}, E={E}, {nonempty} groups), a layer's 2 GEMMs: "
+        f"max_abs_err {tot['max_abs_err']:.3g} (tol {TOL[dtype_name]}), two "
+        f"launches bit-equal; kernel {tot['ms']:.4f} ms (device "
         f"{tot['device_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
         f"{label} {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
         f"ms ({tot['bound_by']})")
@@ -4922,14 +4977,16 @@ DS_BF16_LOGPROB_TOL = 0.25
 def redraw_deepseek(model, seed: int) -> None:
     """Weights from a seeded CPU generator at fan-in scale (the dummy
     recipe's 0.02 makes a model that repeats a few tokens): norms near 1,
-    V3's score correction near 0, products at 1/sqrt(fan-in) (the expert
-    and absorbed-einsum stacks' fan-in is their middle axis)."""
+    V3's score correction and biases (``b_qkv``: phase 32's Qwen2-MoE)
+    near 0, products at 1/sqrt(fan-in) (the expert and absorbed-einsum
+    stacks' fan-in is their middle axis)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             r = torch.randn(p.shape, generator=g)
-            if name.endswith("router_bias"):
+            if name.endswith("router_bias") or \
+                    name.rsplit(".", 1)[-1].startswith("b_"):
                 new = 0.1 * r
             elif p.dim() == 1:
                 new = 1.0 + 0.1 * r
@@ -5052,7 +5109,11 @@ def deepseek_parity() -> dict:
     return total
 
 
-def main_path_deepseek(kv: str = "auto") -> dict:
+# The cold and warm walls of phases 24, 27 and 33 in this call, by phase.
+DS_WALLS: dict = {}
+
+
+def main_path_deepseek(kv: str = "auto", dtype: str = "bfloat16") -> dict:
     """Phase 24: DeepSeek-V2-Lite bf16 at full width (16 heads on one
     latent head of 576, 64 experts top-6 and 2 shared; seeded dummy
     weights), its depth cut to ``DEEPSEEK_DEPTH`` of 27 layers, phase 6's
@@ -5063,11 +5124,15 @@ def main_path_deepseek(kv: str = "auto") -> dict:
     all on the MLA instances; grouped 2 (L - 1); 0 on the other
     instances (L = 14: 14, 882, 26). Phase 27 (``kv`` "fp8_e4m3"): the
     same at full depth (27 layers: 27, 1701, 52) on an FP8-E4M3 cache, the
-    MLA instances' fp8 ones. Logs the KV pool's bytes a token."""
+    MLA instances' fp8 ones. Phase 33 (``dtype`` "float16"): the same at
+    full depth in fp16 on an fp16 cache, every launch of the three kernels
+    on its fp16 instance (``dtype_launches``), every logprob finite. Logs
+    the KV pool's bytes a token."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
-    phase = "phase 24" if kv == "auto" else "phase 27"
+    phase = ("phase 33" if dtype == "float16" else
+             "phase 24" if kv == "auto" else "phase 27")
     hf = (dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_DEPTH)
-          if kv == "auto" else DEEPSEEK_V2_LITE)
+          if phase == "phase 24" else DEEPSEEK_V2_LITE)
     L, steps = hf["num_hidden_layers"], 63
     moe = L - hf["first_k_dense_replace"]
     exact = {"ragged_paged_attention": L, "ragged mla": L,
@@ -5075,11 +5140,28 @@ def main_path_deepseek(kv: str = "auto") -> dict:
              "grouped_matmul": 2 * moe}
     exact.update({f"{k} {i}": 0 for k in ("ragged", "window")
                   for i in ("tensor_cores", "scalar")})
+    counted = {**attention_kernels(), **instance_counts(),
+               "grouped_matmul": grouped_matmul}
+    # Launches by the activations' dtype: all of them in ``dtype``.
+    for k, fn in (("ragged", counted["ragged_paged_attention"]),
+                  ("window", counted["window_decode_attention"]),
+                  ("grouped", grouped_matmul)):
+        for dt in ("bfloat16", "float16"):
+            counted[f"{k} {dt}"] = InstanceCount(fn, dt, "dtype_launches")
+            exact[f"{k} {dt}"] = (exact[f"{k} mla"] if k != "grouped"
+                                  else exact["grouped_matmul"]) \
+                if dt == dtype else 0
     log(f"# {phase}: launches a run, reckoned: {exact}")
-    counts, llm, _ = serve_workload(
-        phase, "deepseek-v2-lite-dummy", hf,
-        {**attention_kernels(), **instance_counts(),
-         "grouped_matmul": grouped_matmul}, exact=exact, kv_cache_dtype=kv)
+    counts, llm, walls = serve_workload(
+        phase, "deepseek-v2-lite-dummy", hf, counted, exact=exact,
+        kv_cache_dtype=kv, dtype=dtype, logprobs=dtype == "float16")
+    DS_WALLS[phase] = walls
+    if phase == "phase 33" and "phase 27" in DS_WALLS:
+        log(f"# {phase}: walls in fp16 against phase 27's (bf16, e4m3 "
+            f"cache, 27 layers) in this call: " + ", ".join(
+                f"{k} {walls[k]:.3f} / {DS_WALLS['phase 27'][k]:.3f} s/run "
+                f"({walls[k] / DS_WALLS['phase 27'][k]:.3f})"
+                for k in walls))
     pool = llm.engine.core.worker.runner.kv_cache
     L_, pages, _, kvh, page, hd = pool.shape
     log(f"# {phase}: KV pool {pool.dtype} {tuple(pool.shape)}: "
@@ -6223,6 +6305,283 @@ def main_path_awq_fp16(phase6_walls: dict) -> dict:
     return counts
 
 
+# ------------------------------------------ the fp16 MoE and MLA slice
+F16_DS_PATH = "deepseek-v2-lite-fp16"          # phase 33
+F16_MOE_PARITY_PATH = "tiny-moe-mla-fp16-parity"  # phase 32
+# Phase 32's tiny models, fp16: DeepSeek V2 and V3 at the real attention
+# geometry (16 heads on one latent head of 512 + 64; ``DS_TINY_BF16``) with
+# a MoE second layer, and a tiny Qwen2-MoE (heads of 64: the fp16
+# tensor-core attention). Every token takes all 8 experts (top-k = E),
+# so that no top-k choice hinges on a rounding (ROADMAP C's trap: a
+# router's flip at a near tie moves a step's logprobs by ~0.3); the
+# grouped route still runs from 4 tokens a wave on (T * 8 >= 4 x 8), each
+# expert's group as large as the wave, and the experts' weights still
+# differ. V3 routes by sigmoid scores without group limits (a group pick
+# is a top-k choice too).
+_F16_MOE = dict(n_routed_experts=8, num_experts_per_tok=8,
+                moe_intermediate_size=64, n_shared_experts=1,
+                first_k_dense_replace=1)
+F16_MOE_TINY = {
+    "deepseek-v2": dict(DS_TINY_BF16, **_F16_MOE),
+    "deepseek-v3": dict(DS_TINY_BF16, **_F16_MOE, q_lora_rank=48,
+                        norm_topk_prob=True, routed_scaling_factor=2.5,
+                        architectures=["DeepseekV3ForCausalLM"]),
+    "qwen2-moe": dict(vocab_size=512, hidden_size=256, num_hidden_layers=3,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      intermediate_size=256, moe_intermediate_size=72,
+                      shared_expert_intermediate_size=136, num_experts=8,
+                      num_experts_per_tok=8, norm_topk_prob=False,
+                      mlp_only_layers=[1], max_position_embeddings=1024,
+                      use_sliding_window=False, tie_word_embeddings=False,
+                      architectures=["Qwen2MoeForCausalLM"]),
+}
+# Phase 32's runs: (model, KV cache dtype, batches): the MLA instances'
+# fp16 ones on an fp16 cache (with the shared prompt: the cascade at 576),
+# an e4m3 and an e5m2 cache; V2 and V3 routing; the CPU's plain attention
+# at 576 is what this phase's time goes to, so each batch is run once.
+F16_MOE_PARITY = {
+    "deepseek-v2/auto": ("deepseek-v2", "auto", ("plain", "shared prompt")),
+    "deepseek-v3/fp8_e4m3": ("deepseek-v3", "fp8_e4m3", ("plain",)),
+    "deepseek-v2/fp8_e5m2": ("deepseek-v2", "fp8_e5m2", ("plain",)),
+    "qwen2-moe/auto": ("qwen2-moe", "auto", ("plain",))}
+
+
+def check_mla_map_key_f16(gen) -> float:
+    """Both MLA instances at ``MLA_MASK_CASE`` over one allocation whose
+    layer 1 has one base and one row count in every view
+    (``OneAllocation``): bf16 and fp16 queries on a cache of their own
+    dtype in turns, then fp16 on an e4m3 cache and on fp16 again, each
+    against its plain version (the e4m3 one also against its fp16 self on
+    the upcast cache). A tensor map or a prepared launch keyed without the
+    element type would hand a launch another's. Returns the largest
+    error."""
+    one, err = OneAllocation(), 0.0
+    for dt, kv in (("bfloat16", None), ("float16", None), ("bfloat16", None),
+                   ("float16", None), ("float16", KV_FP8[0]),
+                   ("float16", None)):
+        for fn in (check_ragged, check_window):
+            err = max(err, fn(gen, dt, MLA_MASK_CASE, timed=False, kv=kv,
+                              make_cache=one))
+    return err
+
+
+def moe_mla_fp16_checks(gen, results: dict) -> None:
+    """Phase 2 for the fp16 MoE and MLA slice, each fp16 instance against
+    its plain version and timed beside its bf16 self (``results``, this
+    call's): the grouped GEMM at phase 8's shapes and cases
+    (``check_grouped``: balanced and skewed waves, M = 240, empty groups,
+    rows no group covers) and at V2-Lite's wave; both MLA instances at
+    ``MLA_GEOMS`` on fp16, e4m3 and e5m2 caches (the fp8 ones bit-equal to
+    their fp16 selves on the upcast cache; two launches bit-equal), at
+    ``MLA_MASK_CASE`` (soft cap, sliding window) with NaN in the stale
+    slots on pages of 16 and 64, the window from the cascade's state, and
+    bf16 / fp16 launches in turns over one allocation. fp16 errors are
+    held at TOL["float16"] = 5e-3 (bf16: 2e-2; fp16 keeps 3 more bits)."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_decode_attention)
+    f16, b16 = "float16", "bfloat16"
+    r, s = check_grouped(gen, f16), results[("grouped_matmul", b16)]
+    results[("grouped_matmul", f16)] = r
+    log(f"# phase 2: grouped_matmul {f16}, a MoE layer's 2 GEMMs over a wave "
+        f"(M=65536, balanced): max_abs_err {r['max_abs_err']:.3g} (tol "
+        f"{TOL[f16]}, all cases); kernel {r['ms']:.4f} ms (device "
+        f"{r['device_ms']:.4f} ms), its bf16 self {s['ms']:.4f} ms (device "
+        f"{s['device_ms']:.4f} ms, fp16 / bf16 "
+        f"{r['device_ms'] / s['device_ms']:.3f}); plain {r['plain_ms']:.4f} "
+        f"ms, {r['library']} {r['library_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    r = check_grouped_v2lite(gen, f16)
+    s = results[("grouped_matmul", "deepseek-v2-lite-bf16", b16)]
+    results[("grouped_matmul", F16_DS_PATH, f16)] = r
+    log(f"# phase 2: grouped_matmul {f16} at V2-Lite's wave against its "
+        f"bf16 self: device {r['device_ms']:.4f} / {s['device_ms']:.4f} ms "
+        f"({r['device_ms'] / s['device_ms']:.3f})")
+    for kv in (None, *KV_FP8):
+        for path, geom in MLA_GEOMS.items():
+            for name, fn, wrapper in (
+                    ("ragged_paged_attention", check_ragged,
+                     ragged_paged_attention),
+                    ("window_decode_attention", check_window,
+                     window_decode_attention)):
+                wrapper.launches = 0
+                wrapper.instance_launches.update(mla=0, tensor_cores=0,
+                                                 scalar=0)
+                wrapper.dtype_launches.update(float32=0, bfloat16=0,
+                                              float16=0)
+                r = fn(gen, f16, geom, kv=kv)
+                inst, dts = wrapper.instance_launches, wrapper.dtype_launches
+                if not (0 < inst["mla"] == dts["float16"] == wrapper.launches
+                        and inst["scalar"] == inst["tensor_cores"] == 0):
+                    raise AssertionError(f"{name} {f16} at {path}"
+                                         f"{kv_label(kv)}: instances {inst}, "
+                                         f"dtypes {dts}")
+                s = results[(f"{name}_mla", path, b16) if kv is None
+                            else (f"{name}_mla", path, b16, kv)]
+                results[(f"{name}_mla", path, f16, kv)] = r
+                extra = (f"device {r['device_ms']:.4f} ms" + (
+                    f", host {r['host_ms']:.4f} ms a call"
+                    if "host_ms" in r else ""))
+                tol = (f"{TOL[f16]} x max(1, max|ref|)"
+                       if kv is not None and "ragged" in name
+                       else tol_text(name, f16))
+                log(f"# phase 2: {name} MLA instance {f16}{kv_label(kv)} at "
+                    f"{path} shapes: max_abs_err {r['max_abs_err']:.3g} (tol "
+                    f"{tol}; its bf16 self's {s['max_abs_err']:.3g})"
+                    + ("" if kv is None else ", bit-equal to its fp16 self "
+                       "on the upcast cache")
+                    + f"; kernel {r['ms']:.4f} ms ({extra}), its bf16 self "
+                    f"{s['ms']:.4f} ms (device {s['device_ms']:.4f} ms, fp16 "
+                    f"/ bf16 {r['device_ms'] / s['device_ms']:.3f}); plain "
+                    f"{r['plain_ms']:.4f} ms, sdpa in fp16 "
+                    f"{r['library_ms']:.4f} ms (device "
+                    f"{r['library_device_ms']:.4f} ms), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for name, fn in (("ragged_paged_attention", check_ragged),
+                         ("window_decode_attention", check_window)):
+            for page in (16, PAGE):
+                for stale in (False, True):
+                    err = fn(gen, f16, dict(MLA_MASK_CASE, page=page,
+                                            stale=stale),
+                             timed=False, kv=kv)
+                    log(f"# phase 2: {name} MLA instance {f16}"
+                        f"{kv_label(kv)} at head_dim 576 on {page}-token "
+                        f"pages, soft cap 30 and a 100-token window"
+                        f"{', NaN in the stale slots' if stale else ''}: "
+                        f"max_abs_err {err:.3g}")
+        for page in (16, PAGE):
+            log(f"# phase 2: shared_prefix_attention + window MLA instance "
+                f"at head_dim 576 {f16}{kv_label(kv)} (4 shared pages of "
+                f"{page}, R = 8): max_abs_err "
+                f"{check_mla_cascade(gen, f16, page, kv):.3g} (tol "
+                f"{TOL[f16]} x min(1, max|ref|)), two launches bit-equal")
+    log(f"# phase 2: both MLA instances, bf16 and fp16 (and fp16 on "
+        f"{KV_FP8[0]}) in turns over one allocation: max_abs_err "
+        f"{check_mla_map_key_f16(gen):.3g}, each right")
+
+
+class GroupedSpy:
+    """``moe_common.grouped_matmul`` patched to count every call (on either
+    device): the reckoning of a card run's grouped launches is its CPU
+    twin's calls."""
+
+    def __init__(self) -> None:
+        from aphrodite_tpu_torch.models import moe_common
+        self.mod, self.fn, self.calls = moe_common, \
+            moe_common.grouped_matmul, 0
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            self.calls += 1
+            return self.fn(*a, **kw)
+        self.mod.grouped_matmul = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_matmul = self.fn
+
+
+def moe_mla_fp16_parity() -> dict:
+    """Phase 32: fp16 greedy runs through the port on the card and on the
+    CPU from one seed (``redraw_deepseek``; the CPU's weights loaded on the
+    card), ``F16_MOE_PARITY``: tiny DeepSeek V2 and V3 at the MLA geometry (the
+    MLA instances' fp16 ones on fp16, e4m3 and e5m2 caches; a MoE layer on the
+    grouped route; phase 23's batches: a 32-token budget, 16-step windows, and
+    on V2's fp16-cache run three requests sharing a 4-page prompt for the
+    cascade) and a tiny Qwen2-MoE (the fp16 tensor-core attention, the grouped
+    route). Tokens equal but where the runs part at a gap below ``GAP``
+    (``same_tokens``); chosen logprobs within ``F16_LOGPROB_TOL`` where the
+    tokens agree; every attention kernel's and the grouped GEMM's card launches
+    exactly its CPU twin's calls (``CallSpy``, ``GroupedSpy``), all in fp16,
+    the attention at head_dim 576 all on the MLA instances. Returns each
+    kernel's launches, keyed by (kernel, run)."""
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.cascade_attention import (
+        shared_prefix_attention)
+    from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
+    kernels = {**attention_kernels(),
+               "shared_prefix_attention": shared_prefix_attention,
+               "grouped_matmul": grouped_matmul}
+    rng = np.random.RandomState(32)
+    shared = rng.randint(10, 500, size=4 * 16).tolist()
+    batches = {"plain": [rng.randint(1, 500, size=n).tolist()
+                         for n in (5, 40, 17, 70)],
+               "shared prompt": [shared + rng.randint(10, 500, size=3 + i)
+                                 .tolist() for i in range(3)]}
+    params = SamplingParams(temperature=0.0, max_tokens=20, ignore_eos=True)
+    launches = {}
+    for run, (model, kv, names) in F16_MOE_PARITY.items():
+        kw = dict(hf_config=F16_MOE_TINY[model], tokenizer="unused",
+                  dtype="float16", block_size=16, num_kv_blocks=128,
+                  max_num_seqs=4, max_num_batched_tokens=32,
+                  max_model_len=256, decode_window=16, kv_cache_dtype=kv)
+        cpu = LLM(f"tiny-{model}-fp16", device="cpu", **kw)
+        redraw_deepseek(cpu.engine.core.worker.model, 32)
+        gpu = LLM(f"tiny-{model}-fp16", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        mla = model.startswith("deepseek")
+        total = dict.fromkeys(kernels, 0)
+        for what in names:
+            ps = batches[what]
+            with CallSpy() as want, GroupedSpy() as g_want:
+                a = traced(cpu, ps, params)
+            for fn in kernels.values():
+                fn.launches = 0
+            for fn in (grouped_matmul, *attention_kernels().values()):
+                fn.dtype_launches = dict.fromkeys(fn.dtype_launches, 0)
+            for fn in attention_kernels().values():
+                fn.instance_launches = dict.fromkeys(fn.instance_launches, 0)
+            with CallSpy() as calls, GroupedSpy() as g_calls:
+                b = traced(gpu, ps, params)
+            got = {k: fn.launches for k, fn in kernels.items()}
+            want_calls = {**want.calls, "grouped_matmul": g_want.calls}
+            card_calls = {**calls.calls, "grouped_matmul": g_calls.calls}
+            inst = "mla" if mla else "tensor_cores"
+            on_inst = {k: fn.instance_launches[inst]
+                       for k, fn in attention_kernels().items()}
+            f16 = {k: fn.dtype_launches["float16"]
+                   for k, fn in (("grouped_matmul", grouped_matmul),
+                                 *attention_kernels().items())}
+            need = ["ragged_paged_attention", "window_decode_attention",
+                    "grouped_matmul"]
+            if mla and what == "shared prompt":
+                need.append("shared_prefix_attention")
+            if any(got[k] != want_calls.get(k, 0)
+                   or got[k] != card_calls.get(k, 0) for k in got) or any(
+                    got[k] <= 0 for k in need) or any(
+                    on_inst[k] != got[k] for k in on_inst) or any(
+                    f16[k] != got[k] for k in f16):
+                raise AssertionError(
+                    f"phase 32 {run} {what}: launches {got}, on the {inst} "
+                    f"instances {on_inst}, fp16 {f16}; the card's calls "
+                    f"{card_calls}, the CPU's {want_calls}")
+            if len({t for x in a[0] for t in x}) <= 10:
+                raise AssertionError(f"phase 32 {run} {what}: the tokens "
+                                     f"hardly vary: {a[0]}")
+            found = same_tokens(f"phase 32 {run} {what}", cpu, gpu, ps, a, b)
+            gaps = [abs(float(la[i][t]) - float(lb[i][t]))
+                    for ta, tb, la, lb in zip(a[0], b[0], a[1], b[1])
+                    for i, t in enumerate(ta) if ta[:i + 1] == tb[:i + 1]]
+            worst = max(gaps)
+            if not worst <= F16_LOGPROB_TOL:
+                raise AssertionError(
+                    f"phase 32 {run} {what}: chosen logprobs card vs CPU up "
+                    f"to {worst:.4g} > {F16_LOGPROB_TOL}")
+            for k, v in got.items():
+                total[k] += v
+            log(f"# phase 32: {run}, {what}: cuda == cpu greedy fp16 tokens "
+                f"for {len(ps)} prompts x 20 but at partings (request, "
+                f"step, cpu token, card token, gap < {GAP}) {found}; chosen "
+                f"logprobs within {worst:.4g} (tol {F16_LOGPROB_TOL}) over "
+                f"{len(gaps)} agreeing tokens; launches {got} (= the CPU's "
+                f"calls), all fp16, the attention on the {inst} instances")
+        launches.update({(k, run): v for k, v in total.items()})
+        del cpu, gpu
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6376,6 +6735,8 @@ def main() -> int:
     fp16_checks(gen, results)
     stamp("phase 2: the fp16 GEMM instances")
     fp16_gemm_checks(gen, results)
+    stamp("phase 2: the fp16 grouped GEMM and MLA instances")
+    moe_mla_fp16_checks(gen, results)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
@@ -6425,6 +6786,10 @@ def main() -> int:
     f16_gemm_parity = fp16_quant_parity()
     stamp("phase 31")
     f16_gemm_counts = main_path_awq_fp16(llama_walls)
+    stamp("phase 32")
+    f16_moe_parity = moe_mla_fp16_parity()
+    stamp("phase 33")
+    f16_ds_counts = main_path_deepseek(dtype="float16")
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -6622,12 +6987,35 @@ def main() -> int:
               results[(name, f16)], "auto")
              for name in ("w4a16_int4_matmul", "w4a16_matmul",
                           "w8a16_matmul", "fp8_matmul")]
+    # The fp16 MoE and MLA slice: the grouped GEMM's and both MLA
+    # instances' fp16 ones on phase 33's path (phase 2's V2-Lite shapes),
+    # the grouped GEMM's on phase 32's runs (phase 8's shapes), and the MLA
+    # instances' fp16 ones on phase 32's fp8-cache runs (phase 2's V2-Lite
+    # shapes on those caches).
+    rows.append(("grouped_matmul", F16_DS_PATH, f16,
+                 f16_ds_counts["grouped float16"],
+                 results[("grouped_matmul", F16_DS_PATH, f16)], "auto"))
+    rows.append(("grouped_matmul", F16_MOE_PARITY_PATH, f16,
+                 sum(f16_moe_parity[("grouped_matmul", run)]
+                     for run in F16_MOE_PARITY),
+                 results[("grouped_matmul", f16)], "auto"))
+    rows += [(f"{name}_mla", F16_DS_PATH, f16, f16_ds_counts[f"{kind} mla"],
+              results[(f"{name}_mla", ds_path, f16, None)], "auto")
+             for name, kind in ((rpa, "ragged"), (wda, "window"))]
+    for run, kvd in (("deepseek-v3/fp8_e4m3", e4),
+                     ("deepseek-v2/fp8_e5m2", e5)):
+        rows += [(f"{name}_mla", f"{F16_MOE_PARITY_PATH}-{run}", f16,
+                  f16_moe_parity[(name, run)],
+                  results[(f"{name}_mla", ds_path, f16, kvd)], kvd)
+                 for name in (rpa, wda)]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
                or name in ("w4a16_int4_matmul", "fp8_matmul") else name)
         if name.endswith("_mla"):
-            src = "mla_attention"
+            src = "mla_attention" if dt != "float16" else "mla_attention_f16"
+        if name == "grouped_matmul" and dt == "float16":
+            src = "grouped_matmul_f16"
         if name.endswith("_spans"):  # the tensor-core or scalar instance
             src = ("ragged_spans" if dt == "bfloat16"
                    else "ragged_paged_attention")

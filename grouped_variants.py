@@ -5,7 +5,7 @@ Run from the root of a checkout on one CUDA card:
 ``python3 grouped_variants.py [--parent DIR]``. It copies
 ``aphrodite_tpu_torch/csrc`` once per variant into
 ``build/grouped_variants/<name>/``, edits the copy of
-``grouped_matmul.cu`` (``VARIANTS``: text replaced in the source), builds
+``grouped_matmul.cuh`` (``VARIANTS``: text replaced in the source), builds
 every copy with ``nvcc`` at once and calls each library's
 ``grouped_matmul_launch`` directly. ``--parent DIR`` adds the kernel of the
 checkout unpacked at DIR (e.g. ``git archive <commit> | tar -x -C
@@ -79,17 +79,17 @@ def start_build(name: str, src: Path, edits: list):
     d.mkdir(parents=True)
     for f in src.glob("*.cu*"):
         shutil.copy(f, d / f.name)
-    for f, reps in (("grouped_matmul.cu", edits), ("hopper_common.cuh",
-                                                     _TRAP)):
-        p = d / f
-        if not p.exists():
-            continue
-        text = p.read_text()
+    # The kernel lives in grouped_matmul.cuh (grouped_matmul.cu in
+    # checkouts from before the fp16 instance): each edit goes to the file
+    # that holds its text.
+    for files, reps in ((("grouped_matmul.cuh", "grouped_matmul.cu"), edits),
+                        (("hopper_common.cuh",), _TRAP)):
+        paths = [d / f for f in files if (d / f).exists()]
         for a, b in reps:
-            if a not in text:
-                raise ValueError(f"{name}: {a!r} not in {f}")
-            text = text.replace(a, b)
-        p.write_text(text)
+            hit = [p for p in paths if a in p.read_text()]
+            if not hit:
+                raise ValueError(f"{name}: {a!r} not in {files}")
+            hit[0].write_text(hit[0].read_text().replace(a, b))
     lib = d / "lib.so"
     cmd = [cuda_build._nvcc(), *cuda_build._FLAGS, "-I", str(d), "-o",
            str(lib), str(d / "grouped_matmul.cu")]

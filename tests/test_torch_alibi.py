@@ -15,6 +15,7 @@ where there is no cap. Tolerance: fp32, atol 1e-5 (the one
 chunk in the kernel, one softmax in the plain version)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +35,12 @@ from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
 from aphrodite_tpu_torch.models.llama_variants import MPTForCausalLM
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention)
+
+# The JAX oracles under jit, as the JAX package runs them (eager, each of
+# their jnp ops compiles on its own: most of these tests' time).
+jax_ref_ragged = jax.jit(jax_ref_ragged, static_argnames=(
+    "scale", "sliding_window", "logits_soft_cap", "chunk_attn",
+    "blocksparse"))
 
 ATOL = 1e-5
 PAGE, L, LAYER, HD, BLOCK_Q = 16, 2, 1, 32, 16

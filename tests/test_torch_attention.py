@@ -7,6 +7,7 @@ kernels accumulate an online softmax block by block; the port's plain
 versions take one softmax; both in fp32."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,14 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import (
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_decode_attention, window_launch_geometry, window_smem_bytes,
     window_tc_smem_bytes, window_warps)
+
+# The JAX oracles under jit, as the JAX package runs them (eager, each of
+# their jnp ops compiles on its own: most of these tests' time).
+jax_ref_ragged = jax.jit(jax_ref_ragged, static_argnames=(
+    "scale", "sliding_window", "logits_soft_cap", "chunk_attn",
+    "blocksparse"))
+jax_ref_window = jax.jit(jax_ref_window, static_argnames=(
+    "scale", "sliding_window", "chunk_attn", "logits_soft_cap"))
 
 ATOL = 1e-5
 PAGE, KVH, NQ, L, LAYER = 16, 2, 4, 2, 1

@@ -5,6 +5,7 @@ order) against the JAX package's window references.
 
 Tolerance: fp32, atol 1e-5 (the two sum the same terms in another order).
 The inputs are made from a seed with numpy."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -213,28 +214,36 @@ def _jnp(t):
     return jnp.asarray(t.numpy())
 
 
+# The JAX references under jit, as the JAX package runs them (eager, each
+# of their jnp ops compiles on its own: most of this file's time).
+_REF_WINDOW = jax.jit(jax_ref_window, static_argnames=(
+    "scale", "sliding_window", "chunk_attn", "logits_soft_cap"))
+_REF_CASCADE = jax.jit(jax_ref_cascade, static_argnames=("scale",))
+_REF_SHARED = jax.jit(jax_ref_shared, static_argnames=("scale",))
+
+
 def jax_window(args, **opts):
     """The JAX package's plain window over the whole context."""
     q, cache, tk, tv, step, pl, bt, scale = args
-    return np.asarray(jax_ref_window(
+    return np.asarray(_REF_WINDOW(
         _jnp(q), _jnp(cache), _jnp(tk), _jnp(tv), jnp.int32(step), _jnp(pl),
-        _jnp(bt), scale, **opts))
+        _jnp(bt), scale=scale, **opts))
 
 
 def jax_cascade(args, pages, S):
     """The JAX package's cascade: the shared pass's state merged with the
     window over page positions >= S."""
     q, cache, tk, tv, step, pl, bt, scale = args[:8]
-    return np.asarray(jax_ref_cascade(
+    return np.asarray(_REF_CASCADE(
         _jnp(q), _jnp(cache), _jnp(tk), _jnp(tv), jnp.int32(step), _jnp(pl),
-        _jnp(bt), _jnp(pages), jnp.int32(S), scale))
+        _jnp(bt), _jnp(pages), jnp.int32(S), scale=scale))
 
 
 def jax_shared_state(args, pages, S):
     """The JAX shared-prefix pass's (acc, m, l) as torch tensors."""
     q, cache, scale = args[0], args[1], args[7]
-    return tuple(torch.from_numpy(np.array(t)) for t in jax_ref_shared(
-        _jnp(q), _jnp(cache), _jnp(pages), jnp.int32(S), scale))
+    return tuple(torch.from_numpy(np.array(t)) for t in _REF_SHARED(
+        _jnp(q), _jnp(cache), _jnp(pages), jnp.int32(S), scale=scale))
 
 
 def _window_case(plens, step, page, seed, shared=0, kw=8, kvh=2, nq=6,

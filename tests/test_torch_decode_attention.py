@@ -12,6 +12,7 @@ Tolerance: fp32, atol 1e-5 (online softmax chunk by chunk in the kernel, one
 softmax in the plain versions). ALiBi goes in before the soft cap, as in the
 TPU kernel; the JAX oracle adds it after, so the ALiBi case holds no soft
 cap when it is compared with the oracle."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,12 @@ from aphrodite_tpu_torch.ops.decode_paged_attention import (
     decode_warps)
 from aphrodite_tpu_torch.ops.window_decode_attention import window_split_plan
 from tests.test_torch_attention_split import merge_states
+
+# The JAX oracles under jit, as the JAX package runs them (eager, each of
+# their jnp ops compiles on its own: most of these tests' time).
+jax_ref_ragged = jax.jit(jax_ref_ragged, static_argnames=(
+    "scale", "sliding_window", "logits_soft_cap", "chunk_attn",
+    "blocksparse"))
 
 ATOL = 1e-5
 PAGE, KVH, NQ, L, LAYER = 16, 2, 4, 2, 1

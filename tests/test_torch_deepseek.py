@@ -13,7 +13,7 @@ inputs (fp32):
   logits and hidden states to 1e-4, the latent K/V written to 1e-5;
 - the geometry (one 576-wide latent KV head, the scale from qk_head_dim)
   and what still raises (quantized DeepSeek, MiniCPM3), while an fp8
-  cache at the MLA geometry sizes the MLA instances.
+  cache and fp16 at the MLA geometry size the MLA instances.
 """
 import jax
 import jax.numpy as jnp
@@ -267,18 +267,29 @@ def test_quantized_deepseek_raises(quant):
         _llm(ds_config(), quantization=quant)
 
 
-def test_fp8_cache_on_the_mla_instances_raises():
-    """An fp8 cache at the MLA geometry no longer raises: bf16 at 576 sizes
-    the MLA instances on e4m3 and e5m2 caches as on a bf16 one (4 tokens a
-    work item at V2-Lite's group of 16), and an engine with such a cache
-    builds; fp32 runs the scalar instances, which take fp8 too."""
+def test_mla_instances_take_fp8_caches_and_fp16():
+    """An fp8 cache at the MLA geometry and fp16 queries at head_dim 576
+    raise nowhere: bf16 and fp16 at 576 size the MLA instances on a cache
+    of their own dtype and on e4m3 and e5m2 caches alike (4 tokens a work
+    item at V2-Lite's group of 16), and engines with an e4m3 cache (bf16)
+    and in fp16 build; fp32 runs the scalar instances, which take fp8
+    too."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        check_unported, ragged_uses_mla)
+    from aphrodite_tpu_torch.ops.window_decode_attention import (
+        window_uses_mla)
     hf = ds_config(kv_lora_rank=512, qk_rope_head_dim=64)
     runner = _llm(hf, dtype="bfloat16",
                   kv_cache_dtype="fp8").engine.core.worker.runner
     assert runner.kv_cache.dtype == torch.float8_e4m3fn
+    runner = _llm(hf, dtype="float16").engine.core.worker.runner
+    assert runner.kv_cache.dtype == torch.float16
+    for dt in (torch.bfloat16, torch.float16):
+        assert ragged_uses_mla(dt, 576) and window_uses_mla(dt, 576)
+        check_unported("cuda", dt, False)
+        for kv in (None, torch.float8_e4m3fn, torch.float8_e5m2):
+            assert ragged_work_item_tokens(dt, 16, 576, 232448, kv) == 4
     for kv in (torch.float8_e4m3fn, torch.float8_e5m2):
-        assert ragged_work_item_tokens(torch.bfloat16, 16, 576, 232448,
-                                       kv) == 4
         assert ragged_work_item_tokens(torch.float32, 16, 576, 232448,
                                        kv) == 1
 

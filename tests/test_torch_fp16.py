@@ -18,12 +18,13 @@ versions):
   ``test_window_fp8`` states: 5e-3 there. The shared pass's state is fp32:
   acc and l rtol 2e-3 (P in fp16 in the kernel), m 1e-3;
 - the routing: fp16 takes the tensor-core instances at head_dim 64, 128
-  and 256 and fits an H100's shared memory on every cache; on a CUDA
-  device fp16 at MLA's head_dim 576 or with image spans raises
+  and 256 and fits an H100's shared memory on every cache; fp16 at MLA's
+  head_dim 576 takes the MLA instances (``test_torch_fp16_moe_mla.py``
+  holds them); on a CUDA device fp16 with image spans raises
   ``NotImplementedError`` naming ROADMAP.md (``check_unported``, held here
-  without a card); the grouped GEMM keeps its own dtype table, without
-  fp16, and raises ``ValueError`` naming ROADMAP.md on fp16 before any
-  launch, while the quantized GEMMs take fp16 (``test_torch_fp16_gemm.py``);
+  without a card); the grouped GEMM takes the attention kernels' dtype
+  codes, fp16 among them, and the quantized GEMMs take fp16
+  (``test_torch_fp16_gemm.py``);
 - ``LLM.generate`` in fp16 against ``aphrodite_tpu.LLM`` in fp16 on the
   same weights (the JAX engine's tree through ``params_from_jax``): a tiny
   Llama with chunked prefill, decode windows and a shared prompt (the
@@ -75,6 +76,14 @@ from tests.test_torch_attention import (KVH, LAYER, NQ, PAGE, RAGGED_CASES,
 from tests.test_torch_flexible import family_config, perturb
 from tests.test_torch_fp8 import _port_md, to_torch
 from tests.test_torch_fp8_llm import _margin, assert_tokens_match
+
+# The JAX oracles under jit, as the JAX package runs them (eager, each of
+# their jnp ops compiles on its own: most of these tests' time).
+jax_ref_ragged = jax.jit(jax_ref_ragged, static_argnames=(
+    "scale", "sliding_window", "logits_soft_cap", "chunk_attn",
+    "blocksparse"))
+jax_ref_window = jax.jit(jax_ref_window, static_argnames=(
+    "scale", "sliding_window", "chunk_attn", "logits_soft_cap"))
 
 T = torch.from_numpy
 ATOL = 2e-3
@@ -297,31 +306,39 @@ def test_fp16_takes_the_tensor_core_instances(hd):
 
 
 def test_fp16_mla_and_spans_raise_on_cuda_only():
+    # fp16 at the MLA geometry runs the MLA instances' fp16 ones and no
+    # longer raises; fp16 with image spans still raises on a CUDA device
+    # alone, at head_dim 576 too, naming ROADMAP.md.
     f16 = torch.float16
-    assert not ragged_uses_mla(f16, 576)
-    for hd, spans in ((576, False), (576, True), (128, True), (64, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            check_unported("cuda", f16, hd, spans)
-        check_unported("cpu", f16, hd, spans)   # the plain version's
-        check_unported("cuda", torch.bfloat16, hd, spans)
-    check_unported("cuda", f16, 128, False)
+    assert ragged_uses_mla(f16, 576)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_unported("cuda", f16, True)
+    check_unported("cpu", f16, True)   # the plain version's
+    check_unported("cuda", torch.bfloat16, True)
+    check_unported("cuda", f16, False)
 
 
 def test_gemm_wrappers_refuse_fp16_naming_the_roadmap(monkeypatch):
-    # The grouped GEMM still refuses fp16, naming ROADMAP.md; the GEMM
-    # dtype table that it and the CUDA-core quantized kernels read keeps
-    # fp32 and bf16. The quantized wrappers no longer refuse fp16: it goes
-    # to w4_wgmma's fp16 instances (its own codes; the attention kernels'
+    # No GEMM wrapper refuses fp16 any more. The grouped GEMM takes the
+    # attention kernels' codes (fp32 0, bf16 1, fp16 2): fp16 passes its
+    # dtype check and meets the kernel's own constraint (K and N multiples
+    # of 8) before any launch. ``GEMM_DTYPE_CODES`` serves the CUDA-core
+    # quantized kernels alone: fp32. The quantized wrappers send fp16 to
+    # w4_wgmma's fp16 instances (its own codes; the attention kernels'
     # fp16 code, 2).
-    for table in (gm.DTYPE_CODES, qm.DTYPE_CODES, GEMM_DTYPE_CODES):
-        assert table == {torch.float32: 0, torch.bfloat16: 1}
+    assert gm.DTYPE_CODES is DTYPE_CODES
+    assert gm.DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1,
+                              torch.float16: 2}
+    for table in (qm.DTYPE_CODES, GEMM_DTYPE_CODES):
+        assert table == {torch.float32: 0}
     assert w.DTYPE_CODES == {torch.bfloat16: 1, torch.float16: 2}
     meta = dict(device="meta")
-    x = torch.empty((4, 64), dtype=torch.float16, **meta)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        gm.grouped_matmul(x, torch.empty((2, 64, 32), dtype=torch.float16,
+    x = torch.empty((4, 60), dtype=torch.float16, **meta)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.grouped_matmul(x, torch.empty((2, 60, 32), dtype=torch.float16,
                                          **meta),
                           torch.empty(3, dtype=torch.int32, **meta))
+    x = torch.empty((4, 64), dtype=torch.float16, **meta)
     q = torch.empty((64, 32), dtype=torch.int8, **meta)
     s = torch.empty(32, dtype=torch.float32, **meta)
     assert w.check("w8", x, q, s, None) == 64

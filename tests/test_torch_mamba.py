@@ -127,7 +127,9 @@ def test_scan_matches_pallas_interpret(T, shape):
 def test_scan_matches_associative_branch(T, shape, monkeypatch):
     monkeypatch.setenv("APHRODITE_PALLAS_INTERPRET", "0")
     dA, dBx = _scan_inputs(T, shape, resets=(0, T // 3, T // 3 + 1))
-    want = jax_scan.ssm_scan(jnp.asarray(dA), jnp.asarray(dBx))
+    # Under jit, as the JAX package runs it (eager, each of the
+    # associative scan's many small ops compiles on its own: ~12x slower).
+    want = jax.jit(jax_scan.ssm_scan)(jnp.asarray(dA), jnp.asarray(dBx))
     got = selective_scan(torch.from_numpy(dA), torch.from_numpy(dBx))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
