@@ -230,6 +230,42 @@ __device__ __forceinline__ int first_visible(int q_lo, int sliding_window,
   return lo > 0 ? lo : 0;
 }
 
+// Bidirectional image spans (Gemma-3 multimodal: sp [M, 2], (lo, hi) per
+// image of one request, -1 padding), shared by the ragged kernel's
+// instances (csrc/ragged_tc.cuh, csrc/ragged_paged_attention.cu,
+// csrc/mla_attention.cuh).
+//
+// Keys a block of the item [pos0, pos0 + qlen) of a request with image
+// spans sp scans: its causal keys, and the keys of every span that meets
+// its positions, below seq_len.
+__device__ __forceinline__ int span_kv_limit(const int* __restrict__ sp,
+                                             int num_spans, int pos0,
+                                             int qlen, int seq_len) {
+  int end = pos0 + qlen;
+  for (int m = 0; m < num_spans; ++m) {
+    const int lo = sp[2 * m], hi = sp[2 * m + 1];
+    if (lo < pos0 + qlen && hi > pos0) end = max(end, hi);
+  }
+  return min(end, seq_len);
+}
+
+// The keys [lo, hi) a row at q_pos sees through the spans sp [M, 2]: the
+// union of the spans that hold it (they overlap in q_pos, so the union is
+// one interval); lo > hi where none does.
+__device__ __forceinline__ void row_span(const int* __restrict__ sp,
+                                         int num_spans, int q_pos, int& lo,
+                                         int& hi) {
+  lo = 0x7fffffff;
+  hi = -1;
+  for (int m = 0; m < num_spans; ++m) {
+    const int a = sp[2 * m], b = sp[2 * m + 1];
+    if (a <= q_pos && q_pos < b) {
+      lo = min(lo, a);
+      hi = max(hi, b);
+    }
+  }
+}
+
 }  // namespace attn
 
 // dtype codes shared with the Python wrappers: q's, and the cache's (the

@@ -136,6 +136,27 @@
 // csrc/mla_attention_f16.cu (entries mla_ragged_f16_launch and
 // mla_window_f16_launch), each library with its own table of tensor maps;
 // each entry checks q's dtype code against its T.
+//
+// The ragged options (mla_kernel<kCap, false, T, KV, kOpts = true>): the TPU
+// kernel has one body for every head_dim, so at 576 too it masks image
+// spans (ragged_paged_attention.py:173-184) and adds ALiBi before the soft
+// cap (:201-216). The option instances read the slopes and the spans
+// through pointers in Args, either null (uniform branches); the instances
+// without them keep their code as it was (kOpts false: DeepSeek's paths).
+// - Spans: a block scans keys up to the end of the spans that meet its
+//   item (attn::span_kv_limit, at most seq_len), so n_tiles, the
+//   producer's box skipping and V's zeroed rows follow kv_limit as they did
+//   the causal limit; each consumer thread keeps its two rows' span
+//   [s_lo, s_hi) (attn::row_span), and the mask is (causal OR span) AND
+//   key < kv_limit, then the window and the chunk. The whole-tile test is
+//   kept: spans only add keys past a row.
+// - ALiBi: each thread reads its two rows' slopes once (query head h *
+//   group + (row_lo + row) % group); S is scaled, the slope times (key -
+//   q_pos) added, then capped, and the exponent's factor is log2(e) alone
+//   (the instances without options fold the scale into it).
+// They are built in csrc/mla_opts.cu (bf16) and csrc/mla_opts_f16.cu
+// (fp16), on the three caches, beside the other instances. The window's
+// JAX kernel has neither option: its MLA instance has none.
 #pragma once
 
 #include <string.h>
@@ -325,6 +346,11 @@ struct Args {
   int sliding_window, chunk_attn;
   float soft_cap;
   int shared_len, tiles_per_split;
+  // ragged, kOpts: ALiBi's [nq] fp32 slopes and the image spans [R,
+  // num_spans, 2], either null
+  const float* alibi;
+  const int* spans;
+  int num_spans;
 };
 
 // A block's query rows and key tiles.
@@ -339,7 +365,7 @@ struct Block {
   int n_tiles;  // 32-key tiles to walk (the window: two a plan tile)
 };
 
-template <bool kWindow>
+template <bool kWindow, bool kOpts = false>
 __device__ __forceinline__ Block block_of(const Args& a) {
   Block b;
   b.group = a.nq / a.kvh;
@@ -352,7 +378,15 @@ __device__ __forceinline__ Block block_of(const Args& a) {
     b.pos0 = a.item_pos[item];
     b.row_lo = blockIdx.z * kRows;
     b.rows = min(kRows, b.qlen * b.group - b.row_lo);
-    b.kv_limit = min(b.pos0 + b.qlen, a.seq_lens[b.req]);
+    // With image spans the keys of every span that meets the item's
+    // positions, below seq_len (attn::span_kv_limit, as the tensor-core
+    // instance scans them); n_tiles follows.
+    b.kv_limit =
+        kOpts && a.spans != nullptr
+            ? attn::span_kv_limit(a.spans + (size_t)b.req * a.num_spans * 2,
+                                  a.num_spans, b.pos0, b.qlen,
+                                  a.seq_lens[b.req])
+            : min(b.pos0 + b.qlen, a.seq_lens[b.req]);
     b.t_lo = attn::first_visible(b.pos0 + b.row_lo / b.group,
                                  a.sliding_window, a.chunk_attn) /
              kKeys;
@@ -591,21 +625,52 @@ static_assert(sizeof(Handoff) == kExchange, "the hand-off's bytes");
 struct Lane {
   int c, tid, warp, lane, tq, r0;
   int qp[2], w_lo, w_hi;
+  // kOpts: the keys [s_lo, s_hi) each row sees through its spans (empty
+  // without), and its ALiBi slope (0 without)
+  int s_lo[2], s_hi[2];
+  float sl[2];
 };
 
 // The tile's logits (s[4 j + 2 h + i]: row r0 + 8 h, key kv0 + 8 j + 2 tq +
 // i): the soft cap, the mask, then the online softmax of the rows (their
 // values live in the four lanes of a quad). s becomes P in fp32, m and l
 // move on, alpha rescales O; alpha is 1 exactly where a row's maximum
-// held.
-template <bool kCap, bool kWindow>
+// held. The option instances (kOpts, ragged) scale s first, add ALiBi's
+// slope * (key - q_pos) where slopes are given, then cap, as the TPU kernel
+// orders them (ragged_paged_attention.py:201-216): m is then in the scaled
+// logit's units and the exponent's factor is log2(e) alone. A key past a
+// row is visible where both lie in one span of the row's request
+// (ln.s_lo, ln.s_hi), below kv_limit, before the window and the chunk
+// (:173-189); spans only add keys past a row, so a tile at or below every
+// row of the warp (`full`) stays whole.
+template <bool kCap, bool kWindow, bool kOpts = false>
 __device__ __forceinline__ void softmax_tile(float* s, const Tile& t,
                                              const Block& b, const Args& a,
                                              const Lane& ln, float* m,
                                              float* l, float* alpha) {
   const int sw = a.sliding_window, ch = a.chunk_attn;
-  const float mult = (kCap ? 1.f : a.scale) * kLog2e;
-  if constexpr (kCap) {
+  const float mult = kOpts ? kLog2e : (kCap ? 1.f : a.scale) * kLog2e;
+  if constexpr (kOpts) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] *= a.scale;
+    if (a.alibi != nullptr) {  // block-uniform
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            s[4 * j + 2 * hf + i] = fmaf(
+                ln.sl[hf],
+                (float)(t.kv0 + 8 * j + 2 * ln.tq + i - ln.qp[hf]),
+                s[4 * j + 2 * hf + i]);
+    }
+    if constexpr (kCap) {
+      const float inv_cap = 1.f / a.soft_cap;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s[i] = a.soft_cap * tanhf(s[i] * inv_cap);
+    }
+  } else if constexpr (kCap) {
     const float cap_scale = a.scale / a.soft_cap;
 #pragma unroll
     for (int i = 0; i < 16; ++i) s[i] = a.soft_cap * tanhf(s[i] * cap_scale);
@@ -632,10 +697,14 @@ __device__ __forceinline__ void softmax_tile(float* s, const Tile& t,
         const int key = t.kv0 + 8 * j + 2 * ln.tq + i;
         if constexpr (!kWindow) {
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-            if (key >= b.kv_limit || key > ln.qp[hf] ||
+          for (int hf = 0; hf < 2; ++hf) {
+            bool vis = key <= ln.qp[hf];
+            if constexpr (kOpts)
+              vis = vis || (key >= ln.s_lo[hf] && key < ln.s_hi[hf]);
+            if (key >= b.kv_limit || !vis ||
                 !attn::local_ok(key, ln.qp[hf], sw, ch))
               s[4 * j + 2 * hf + i] = -INFINITY;
+          }
         } else {
           const bool vis =
               t.paged ? key >= b.lo && key < b.plen &&
@@ -803,7 +872,7 @@ __device__ __forceinline__ float4* part_at(uint8_t* k8, int w, int i,
 
 // The tiles of warpgroup ln.c on a cache of q's type T (consume's
 // schemes).
-template <bool kCap, bool kWindow, typename T>
+template <bool kCap, bool kWindow, typename T, bool kOpts = false>
 __device__ __forceinline__ void tiles16(const Args& a, const Block& b,
                                         uint8_t* q_s, uint8_t* kv_s,
                                         uint64_t* bars, Handoff* x,
@@ -853,7 +922,7 @@ __device__ __forceinline__ void tiles16(const Args& a, const Block& b,
       fence_proxy_async();  // these reads, before TMA writes the stage
       __syncwarp();
       if (ln.lane == 0) mbar_arrive(&bar[1]);  // K is read
-      softmax_tile<kCap, kWindow>(s, t, b, a, ln, m_r, l_r, alpha);
+      softmax_tile<kCap, kWindow, kOpts>(s, t, b, a, ln, m_r, l_r, alpha);
       pack_p<T>(s, pa);
     } else if (c == 0) {
       float s[16];
@@ -919,7 +988,7 @@ __device__ __forceinline__ void tiles16(const Args& a, const Block& b,
 // its own thirds of the tile's stage (converted by then), which the
 // stage's empty barriers give back once every warpgroup has added the
 // parts.
-template <bool kCap, typename KV, typename T>
+template <bool kCap, typename KV, typename T, bool kOpts = false>
 __device__ __forceinline__ void ragged_fp8(const Args& a, const Block& b,
                                            uint8_t* q_s, uint8_t* kv_s,
                                            uint64_t* bars, const Lane& ln,
@@ -967,7 +1036,7 @@ __device__ __forceinline__ void ragged_fp8(const Args& a, const Block& b,
       mbar_arrive(&bar[1]);  // the stage's K and V are free
       mbar_arrive(&bar[3]);
     }
-    softmax_tile<kCap, false>(s, t, b, a, ln, m_r, l_r, alpha);
+    softmax_tile<kCap, false, kOpts>(s, t, b, a, ln, m_r, l_r, alpha);
     pack_p<T>(s, pa);
     rescale_o(o, alpha);
     pv_begin<T>(o, pa, vt, c);
@@ -1091,7 +1160,8 @@ __device__ __forceinline__ void window_fp8(const Args& a, const Block& b,
 //   was faster with on an H100).
 // On an fp8 cache the tiles are converted into two bf16 tiles first
 // (ragged_fp8, window_fp8; the file's head).
-template <bool kCap, bool kWindow, typename T, typename KV>
+template <bool kCap, bool kWindow, typename T, typename KV,
+          bool kOpts = false>
 __device__ __forceinline__ void consume(const Args& a, const Block b,
                                         uint8_t* q_s, uint8_t* kv_s,
                                         uint64_t* bars, Handoff* x) {
@@ -1110,6 +1180,21 @@ __device__ __forceinline__ void consume(const Args& a, const Block b,
       ln.qp[hf] = b.pos0 + min((b.row_lo + ln.r0 + 8 * hf) / b.group, last);
     ln.w_lo = b.pos0 + min((b.row_lo + 16 * ln.warp) / b.group, last);
     ln.w_hi = b.pos0 + min((b.row_lo + 16 * ln.warp + 15) / b.group, last);
+    if constexpr (kOpts) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        ln.s_lo[hf] = 0x7fffffff;
+        ln.s_hi[hf] = -1;
+        if (a.spans != nullptr)
+          attn::row_span(a.spans + (size_t)b.req * a.num_spans * 2,
+                         a.num_spans, ln.qp[hf], ln.s_lo[hf], ln.s_hi[hf]);
+        // The row's query head: h * group + (row_lo + row) % group.
+        ln.sl[hf] = a.alibi != nullptr
+                        ? a.alibi[b.h * b.group +
+                                  (b.row_lo + ln.r0 + 8 * hf) % b.group]
+                        : 0.f;
+      }
+    }
   }
   const int c = ln.c, tid = ln.tid;
 
@@ -1122,9 +1207,11 @@ __device__ __forceinline__ void consume(const Args& a, const Block b,
     if constexpr (kWindow)
       window_fp8<kCap, KV, T>(a, b, q_s, kv_s, bars, x, ln, o, m_r, l_r);
     else
-      ragged_fp8<kCap, KV, T>(a, b, q_s, kv_s, bars, ln, o, m_r, l_r);
+      ragged_fp8<kCap, KV, T, kOpts>(a, b, q_s, kv_s, bars, ln, o, m_r,
+                                     l_r);
   } else {
-    tiles16<kCap, kWindow, T>(a, b, q_s, kv_s, bars, x, ln, o, m_r, l_r);
+    tiles16<kCap, kWindow, T, kOpts>(a, b, q_s, kv_s, bars, x, ln, o, m_r,
+                                     l_r);
   }
 
   // l: the quad's partial sums (of warpgroup 0 in the window).
@@ -1185,13 +1272,14 @@ __device__ __forceinline__ void consume(const Args& a, const Block b,
   }
 }
 
-template <bool kCap, bool kWindow, typename T, typename KV>
+template <bool kCap, bool kWindow, typename T, typename KV,
+          bool kOpts = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mla_kernel(const __grid_constant__ CUtensorMap cache_map,
                const __grid_constant__ CUtensorMap tail_k_map,
                const __grid_constant__ CUtensorMap tail_v_map,
                const __grid_constant__ Args a) {
-  const Block b = block_of<kWindow>(a);
+  const Block b = block_of<kWindow, kOpts>(a);
   if (b.rows <= 0) return;  // a ragged slice past its item's rows
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: TMA, the cp.async of Q
@@ -1250,7 +1338,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
   fence_proxy_async();  // Q's writes, before the products read it
   named_sync(1, 128 * kConsumers);
-  consume<kCap, kWindow, T, KV>(a, b, q_s, kv_s, bars, x);
+  consume<kCap, kWindow, T, KV, kOpts>(a, b, q_s, kv_s, bars, x);
 }
 
 // One block a query row (r * nq + query head): split::merge_row.
@@ -1329,38 +1417,40 @@ bool page_ok(int page) {
   return page > 0 && (page % kKeys == 0 || page == 8 || page == 16);
 }
 
-template <bool kCap, bool kWindow, typename T, typename KV>
+template <bool kCap, bool kWindow, typename T, typename KV, bool kOpts>
 int launch(const Args& a, const CUtensorMap& cache, const CUtensorMap& tk,
            const CUtensorMap& tv, dim3 grid, cudaStream_t stream) {
   const cudaError_t err =
-      allow_smem<mla_kernel<kCap, kWindow, T, KV>>(kSmem);
+      allow_smem<mla_kernel<kCap, kWindow, T, KV, kOpts>>(kSmem);
   if (err != cudaSuccess) return (int)err;
-  mla_kernel<kCap, kWindow, T, KV><<<grid, kThreads, kSmem, stream>>>(
-      cache, tk, tv, a);
+  mla_kernel<kCap, kWindow, T, KV, kOpts>
+      <<<grid, kThreads, kSmem, stream>>>(cache, tk, tv, a);
   return (int)cudaGetLastError();
 }
 
 // The instance of q's type T for the cache's dtype code (attn_common.cuh
-// KvDtype) and the soft cap.
-template <typename T, bool kWindow>
+// KvDtype) and the soft cap, with (kOpts) or without the ragged options.
+template <typename T, bool kWindow, bool kOpts = false>
 int launch_kv(int kv_code, const Args& a, const CUtensorMap& cache,
               const CUtensorMap& tk, const CUtensorMap& tv, dim3 grid,
               cudaStream_t s) {
   const bool cap = a.soft_cap > 0.f;
   switch (kv_code) {
     case kKvAuto:
-      return cap ? launch<true, kWindow, T, T>(a, cache, tk, tv, grid, s)
-                 : launch<false, kWindow, T, T>(a, cache, tk, tv, grid, s);
+      return cap ? launch<true, kWindow, T, T, kOpts>(a, cache, tk, tv, grid,
+                                                      s)
+                 : launch<false, kWindow, T, T, kOpts>(a, cache, tk, tv,
+                                                       grid, s);
     case kKvE4M3:
-      return cap ? launch<true, kWindow, T, __nv_fp8_e4m3>(a, cache, tk, tv,
-                                                           grid, s)
-                 : launch<false, kWindow, T, __nv_fp8_e4m3>(a, cache, tk, tv,
-                                                            grid, s);
+      return cap ? launch<true, kWindow, T, __nv_fp8_e4m3, kOpts>(
+                       a, cache, tk, tv, grid, s)
+                 : launch<false, kWindow, T, __nv_fp8_e4m3, kOpts>(
+                       a, cache, tk, tv, grid, s);
     case kKvE5M2:
-      return cap ? launch<true, kWindow, T, __nv_fp8_e5m2>(a, cache, tk, tv,
-                                                           grid, s)
-                 : launch<false, kWindow, T, __nv_fp8_e5m2>(a, cache, tk, tv,
-                                                            grid, s);
+      return cap ? launch<true, kWindow, T, __nv_fp8_e5m2, kOpts>(
+                       a, cache, tk, tv, grid, s)
+                 : launch<false, kWindow, T, __nv_fp8_e5m2, kOpts>(
+                       a, cache, tk, tv, grid, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1369,8 +1459,11 @@ int launch_kv(int kv_code, const Args& a, const CUtensorMap& cache,
 // T's dtype code, bf16 1 or fp16 2) and cache layer [P, 2, kvh, page, 576]
 // (num_pages = P) in T or fp8 (kv_code: 0, or e4m3fn 1, e5m2 2); block_q
 // tokens a work item, whose block_q * (nq / kvh) rows are cut into slices
-// of 64 (grid.z). The arguments as the entry points' (mla_attention.cu).
-template <typename T>
+// of 64 (grid.z). The option instances (kOpts) take ALiBi's slopes alibi
+// [nq] fp32 and the image spans [R, num_spans, 2] int32 (num_spans >= 1),
+// either null; the others take neither. The arguments as the entry
+// points' (mla_attention.cu, mla_opts.cu).
+template <typename T, bool kOpts = false>
 int ragged_entry(int q_code, int kv_code, const void* q,
                  const void* cache_layer, void* out, const int* item_req,
                  const int* item_qstart, const int* item_qlen,
@@ -1378,10 +1471,13 @@ int ragged_entry(int q_code, int kv_code, const void* q,
                  const int* block_tables, int num_items, int max_pages,
                  int num_pages, int nq, int kvh, int page_size, int block_q,
                  float scale, int sliding_window, int chunk_attn,
-                 float soft_cap, void* stream) {
+                 float soft_cap, void* stream, const float* alibi = nullptr,
+                 const int* spans = nullptr, int num_spans = 0) {
   if (q_code != kQCode<T> || kvh <= 0 || nq % kvh || block_q <= 0 ||
       num_items <= 0 || num_pages <= 0 || !page_ok(page_size) ||
-      kv_code < kKvAuto || kv_code > kKvE5M2)
+      kv_code < kKvAuto || kv_code > kKvE5M2 ||
+      (!kOpts && (alibi != nullptr || spans != nullptr)) ||
+      (spans != nullptr && num_spans <= 0))
     return (int)cudaErrorInvalidValue;
   CUtensorMap cache;
   const cudaError_t err =
@@ -1408,10 +1504,13 @@ int ragged_entry(int q_code, int kv_code, const void* q,
   a.sliding_window = sliding_window;
   a.chunk_attn = chunk_attn;
   a.soft_cap = soft_cap;
+  a.alibi = alibi;
+  a.spans = spans;
+  a.num_spans = num_spans;
   const int slices = (block_q * (nq / kvh) + kRows - 1) / kRows;
   const dim3 grid(num_items, kvh, slices);
-  return launch_kv<T, false>(kv_code, a, cache, cache, cache, grid,
-                             static_cast<cudaStream_t>(stream));
+  return launch_kv<T, false, kOpts>(kv_code, a, cache, cache, cache, grid,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // The window kernel's MLA instance of q's type T, then its merge, on

@@ -2,13 +2,14 @@
 // __half: fp16 queries and output, products f32.f16.f16.f32), CUDA,
 // sm_90a. csrc/ragged_paged_attention.cu describes the kernel; the
 // instances are built here, in a translation unit of their own, so that
-// nvcc compiles them beside the bf16 ones. No span instance: image spans
-// in fp16 raise in the wrapper (ROADMAP.md).
+// nvcc compiles them beside the bf16 ones. The fp16 span instances are
+// built in csrc/ragged_spans_f16.cu.
 #include "ragged_tc.cuh"
 
 // The fp16 tensor-core kernel without image spans (dtype must be
 // kFloat16; head_dim 64, 128 or 256; the cache fp16 or fp8, kv_dtype a
-// KvDtype code; alibi [nq] fp32 slopes or null; spans must be null).
+// KvDtype code; alibi [nq] fp32 slopes or null; spans must be null:
+// csrc/ragged_spans_f16.cu takes them).
 // block_q * (nq / kvh) must fit the instance's rows, as rpa_tc_launch's.
 extern "C" int rpa_tc_f16_launch(int dtype, int kv_dtype, const void* q,
                                  const void* cache_layer, void* out,

@@ -84,9 +84,15 @@
 // in its rows' future to the end of its rows' spans; the masked branch
 // tests (causal OR span) per element, and the full-tile test is kept
 // (spans only add visible keys). The scalar instance takes them as a
-// uniform branch on the pointer. The tensor-core kernel is in
-// csrc/ragged_tc.cuh; its span instances are built in csrc/ragged_spans.cu,
-// beside this file's, so that the two halves compile in parallel.
+// uniform branch on the pointer. The span instances take ALiBi beside
+// spans (the bias on every visible key, those past the row through a span
+// too, as the TPU kernel adds it) as a uniform branch on the slopes'
+// pointer: as a third switch it doubled their count and added 35 s to the
+// parallel build (PERF.md). The tensor-core kernel is in
+// csrc/ragged_tc.cuh; its span instances are built in csrc/ragged_spans.cu
+// (bf16) and csrc/ragged_spans_f16.cu (fp16), beside this file's, so that
+// the parts compile in parallel. The MLA instance takes spans and ALiBi
+// in instances of its own (csrc/mla_attention.cuh, kOpts).
 //
 // An fp8 cache (e4m3fn or e5m2, the template type KV): the TPU kernel
 // upcasts each K/V tile to q's dtype before both products (:194-196), and
@@ -102,9 +108,10 @@
 // T = __half, their products f32.f16.f16.f32 (the TPU kernel computes in
 // q's dtype with fp32 accumulation, :194-200), built in a translation unit
 // of their own (csrc/ragged_f16.cu, entry rpa_tc_f16_launch) so that nvcc
-// compiles them beside the bf16 ones. The span switch is not instantiated
-// in fp16 (the wrapper raises), nor is the MLA geometry. The scalar
-// instance takes __half as one more type, where bf16 would go there too.
+// compiles them beside the bf16 ones; the fp16 span instances are in
+// csrc/ragged_spans_f16.cu. The MLA geometry is csrc/mla_attention.cuh's.
+// The scalar instance takes __half as one more type, where bf16 would go
+// there too.
 //
 // rpa_kernel (fp32, and bf16 or fp16 at other head dims): the first
 // version, kept

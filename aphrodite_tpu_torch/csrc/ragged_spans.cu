@@ -1,15 +1,17 @@
-// The ragged kernel's tensor-core instances with bidirectional image spans
-// (kSpans; Gemma-3 multimodal), CUDA, sm_90a. csrc/ragged_paged_attention.cu
-// describes the kernel and its span mask; the instances are built here, in
-// a translation unit of their own, so that nvcc compiles them beside the
-// instances without spans.
+// The ragged kernel's bf16 tensor-core instances with bidirectional image
+// spans (kSpans; Gemma-3 multimodal), ALiBi a uniform branch in them,
+// CUDA, sm_90a.
+// csrc/ragged_paged_attention.cu describes the kernel and its span mask;
+// the instances are built here, in a translation unit of their own, so
+// that nvcc compiles them beside the instances without spans (the fp16
+// ones: csrc/ragged_spans_f16.cu).
 #include "ragged_tc.cuh"
 
-// The tensor-core kernel with image spans (dtype must be kBFloat16: no
-// fp16 instance takes spans; head_dim 64, 128 or 256;
-// the cache bf16 or fp8, kv_dtype a KvDtype code; spans int32 [R,
-// num_spans, 2] (lo, hi) per image, -1 padding; alibi must be null: no
-// model has both). block_q * (nq / kvh) must fit the instance's rows.
+// The bf16 tensor-core kernel with image spans (dtype must be kBFloat16:
+// csrc/ragged_spans_f16.cu takes fp16; head_dim 64, 128 or 256; the cache
+// bf16 or fp8, kv_dtype a KvDtype code; spans int32 [R, num_spans, 2] (lo,
+// hi) per image, -1 padding; alibi [nq] fp32 slopes or null). block_q *
+// (nq / kvh) must fit the instance's rows.
 extern "C" int rpa_tc_spans_launch(int dtype, int kv_dtype, const void* q,
                                    const void* cache_layer, void* out,
                                    const int* item_req,

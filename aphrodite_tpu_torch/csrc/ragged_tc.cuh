@@ -1,47 +1,18 @@
 // The ragged kernel's tensor-core instance (rpa_tc_kernel, bf16 and fp16
-// at head_dim 64, 128 and 256) and the image-span helpers, shared by the
-// three translation units that instantiate it: csrc/ragged_paged_attention.cu
-// (bf16 without spans; the scalar instance too), csrc/ragged_spans.cu (the
-// bf16 span instances, kSpans) and csrc/ragged_f16.cu (fp16 without spans),
-// built side by side so that none holds the whole set of instances.
-// csrc/ragged_paged_attention.cu describes the kernels.
+// at head_dim 64, 128 and 256), shared by the four translation units that
+// instantiate it: csrc/ragged_paged_attention.cu (bf16 without spans; the
+// scalar instance too), csrc/ragged_f16.cu (fp16 without spans),
+// csrc/ragged_spans.cu and csrc/ragged_spans_f16.cu (the bf16 and fp16
+// span instances, kSpans, which take ALiBi too), built side by side so
+// that none holds the whole set of instances. The span helpers are in
+// csrc/attn_common.cuh. csrc/ragged_paged_attention.cu describes the
+// kernels.
 #pragma once
 
 #include "attn_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
-
-// Keys a block of the item [pos0, pos0 + qlen) of a request with image
-// spans sp [M, 2] scans: its causal keys, and the keys of every span that
-// meets its positions, below seq_len.
-__device__ __forceinline__ int span_kv_limit(const int* __restrict__ sp,
-                                             int num_spans, int pos0,
-                                             int qlen, int seq_len) {
-  int end = pos0 + qlen;
-  for (int m = 0; m < num_spans; ++m) {
-    const int lo = sp[2 * m], hi = sp[2 * m + 1];
-    if (lo < pos0 + qlen && hi > pos0) end = max(end, hi);
-  }
-  return min(end, seq_len);
-}
-
-// The keys [lo, hi) a row at q_pos sees through the spans sp [M, 2]: the
-// union of the spans that hold it (they overlap in q_pos, so the union is
-// one interval); lo > hi where none does.
-__device__ __forceinline__ void row_span(const int* __restrict__ sp,
-                                         int num_spans, int q_pos, int& lo,
-                                         int& hi) {
-  lo = 0x7fffffff;
-  hi = -1;
-  for (int m = 0; m < num_spans; ++m) {
-    const int a = sp[2 * m], b = sp[2 * m + 1];
-    if (a <= q_pos && q_pos < b) {
-      lo = min(lo, a);
-      hi = max(hi, b);
-    }
-  }
-}
 
 // ------------------------------------------ tensor-core kernel (bf16, fp16)
 // 4 warps; each owns kMT 16-row m-tiles (2 at head_dim <= 128: the B
@@ -65,6 +36,10 @@ struct TcCfg {
 
 // T: q's and the output's element type (__nv_bfloat16 or __half), which
 // the products take; K/V in T or fp8 (KV), converted to T in shared memory.
+// ALiBi is a template switch (kAlibi) of the instances without spans and a
+// uniform branch on the slopes' pointer in the span instances (kSpans,
+// kAlibi false), as in the scalar instance: a switch there doubled their
+// count and phase 1's build of csrc/ragged_spans.cu (PERF.md).
 template <typename T, int HD, bool kCap, bool kAlibi, bool kSpans,
           typename KV>
 __global__ void __launch_bounds__(128, 2)
@@ -171,8 +146,9 @@ rpa_tc_kernel(const T* __restrict__ q,
       qp[mt][hf] = pos0 + min((w_row + mt * 16 + hf * 8 + gq) / group, last);
   // ALiBi: each row's slope over the scale (raw-logit units), read once,
   // and its position as a float.
+  const bool ali = kAlibi || (kSpans && alibi != nullptr);  // block-uniform
   [[maybe_unused]] float sl[MT][2], qpf[MT][2];
-  if constexpr (kAlibi) {
+  if (ali) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -279,7 +255,7 @@ rpa_tc_kernel(const T* __restrict__ q,
     // does not need. Spans only add visible keys, so a full tile stays
     // full; past the diagonal a key is visible where it lies in its row's
     // span and below kv_limit (the tile's keys past it are zeros).
-    if constexpr (kAlibi) {
+    if (ali) {
       const float kf = (float)(kv0 + 2 * tq);  // this lane's first key
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -437,8 +413,8 @@ int launch_tc(const void* q, const void* cache, void* out,
 // The tensor-core kernel's launch for the instances of element type T
 // (q's dtype code `dtype` must name it: the entry runs no other type's
 // instance) with (kSpans) or without image spans: the switches of head_dim,
-// the cache's dtype, the soft cap and ALiBi (ALiBi beside spans is not
-// instantiated: no model has both). Returns a cudaError_t.
+// the cache's dtype, the soft cap and ALiBi (the span instances take the
+// slopes as a uniform branch). Returns a cudaError_t.
 template <bool kSpans, typename T>
 int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
                     const void* cache_layer, void* out,
@@ -454,7 +430,7 @@ int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
   constexpr int kCode =
       std::is_same<T, __half>::value ? kFloat16 : kBFloat16;
   if (dtype != kCode || kvh <= 0 || nq % kvh || block_q <= 0 ||
-      (spans != nullptr) != kSpans || (kSpans && (ali || num_spans <= 0)))
+      (spans != nullptr) != kSpans || (kSpans && num_spans <= 0))
     return (int)cudaErrorInvalidValue;
   const int rows = block_q * (nq / kvh);
 #define RPA_TC(HD, KV)                                                      \

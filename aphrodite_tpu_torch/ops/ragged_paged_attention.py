@@ -4,24 +4,30 @@
 (``csrc/ragged_paged_attention.cu``, which replaces the TPU kernel
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
-on CPU tensors. bf16 and fp16 at head_dim 64, 128 or 256 run the
-tensor-core instance (``rpa_tc_launch``; fp16 ``rpa_tc_f16_launch`` of
-``csrc/ragged_f16.cu``; bf16 with image spans ``rpa_tc_spans_launch`` of
-``csrc/ragged_spans.cu``), bf16 and fp16 at MLA's head_dim 576 (DeepSeek
-V2/V3: any group on one latent KV head, on a cache of q's dtype or fp8)
-the MLA instance (``csrc/mla_attention.cuh``: bf16 ``mla_ragged_launch``
-of ``csrc/mla_attention.cu``, fp16 ``mla_ragged_f16_launch`` of
-``csrc/mla_attention_f16.cu``), everything else the
-scalar one (``rpa_launch``), which keeps fp32 in full fp32; each is sized
-by its own function and the runner asks ``ragged_work_item_tokens`` for
-the one that the model's dtype will run. Where a work item's rows exceed
-an instance's block (a group of 128 query heads), its rows are cut into
-slices, one block each. Query token i of request r at position p attends to the
-request's KV positions j <= p, read through its block table from one layer
-of the paged cache, optionally restricted by a sliding window or chunked
-local attention, with an optional logit soft cap and ALiBi: the bias
-slope[h] * (j - p) on the scaled logit, before the soft cap, as the TPU
-kernel adds it (``ragged_paged_attention.py:201-216``; the JAX oracle
+on CPU tensors. ``ragged_route`` names the library and entry that take a
+call: bf16 and fp16 at head_dim 64, 128 or 256 run the tensor-core
+instance (bf16 ``rpa_tc_launch``, fp16 ``rpa_tc_f16_launch`` of
+``csrc/ragged_f16.cu``; with image spans ``rpa_tc_spans_launch`` of
+``csrc/ragged_spans.cu`` and ``rpa_tc_spans_f16_launch`` of
+``csrc/ragged_spans_f16.cu``, with or without ALiBi), bf16 and fp16 at
+MLA's head_dim 576 (DeepSeek V2/V3: any group on one latent KV head, on a
+cache of q's dtype or fp8) the MLA instance (``csrc/mla_attention.cuh``:
+bf16 ``mla_ragged_launch`` of ``csrc/mla_attention.cu``, fp16
+``mla_ragged_f16_launch`` of ``csrc/mla_attention_f16.cu``; with image
+spans or ALiBi its option instances, ``mla_ragged_opts_launch`` of
+``csrc/mla_opts.cu`` and ``mla_ragged_opts_f16_launch`` of
+``csrc/mla_opts_f16.cu``), everything else the scalar one
+(``rpa_launch``), which keeps fp32 in full fp32; each is sized by its own
+function and the runner asks ``ragged_work_item_tokens`` for the one that
+the model's dtype will run. No option of the TPU kernel is refused.
+Where a work item's rows exceed an instance's block (a group of 128 query
+heads), its rows are cut into slices, one block each. Query token i of
+request r at position p attends to the request's KV positions j <= p,
+read through its block table from one layer of the paged cache, optionally
+restricted by a sliding window or chunked local attention, with an
+optional logit soft cap and ALiBi: the bias slope[h] * (j - p) on the
+scaled logit, before the soft cap, as the TPU kernel adds it
+(``ragged_paged_attention.py:201-216``; the JAX oracle
 ``attention/backend.py`` adds it after the cap, so the two agree only
 without one).
 
@@ -31,11 +37,14 @@ query and a key that both lie in one span of the query's request see each
 other in either order, below the request's seq_len, before the sliding
 window and the chunk: the TPU kernel's mask
 (``ragged_paged_attention.py:173-184``) and the JAX oracle's
-(``attention/backend.py:179-191``). The tensor-core
-instance takes them as a template switch, the scalar one as a uniform
-branch; the MLA instance does not take them (``MLA_SPANS_ITEM``), nor does
-the tensor-core instance beside ALiBi (no model has both: the scalar
-instance takes the pair).
+(``attention/backend.py:179-191``). The tensor-core instance takes them
+as a template switch (ALiBi, a switch elsewhere, is a uniform branch in
+those instances), the scalar one as a uniform branch,
+the MLA instance in its option instances (spans and slopes through
+pointers, either null). Only Gemma-3 multimodal has spans; no model has
+them at the MLA geometry or beside ALiBi, and ALiBi at the MLA geometry
+neither: ``chip_smoke.py`` phase 2 holds those instances against the plain
+version.
 
 The cache holds q's dtype or fp8 (e4m3fn or e5m2): every instance upcasts
 an fp8 K/V tile to q's dtype before both products, as the TPU kernel does
@@ -47,10 +56,8 @@ every fp8 value is exact.
 
 fp16 queries compute as the TPU kernel does in q's dtype: K/V in fp16
 (or fp8 upcast to fp16), products accumulated in fp32, P rounded to fp16,
-on the tensor-core and the MLA instances alike. On a CUDA tensor, fp16
-with image spans raises (``check_unported``, ``FP16_ITEM``): the span
-switch is built in bf16 only; on the CPU the plain version computes
-them.
+on the tensor-core and the MLA instances alike, with or without the
+options.
 """
 from __future__ import annotations
 
@@ -69,6 +76,9 @@ _TC_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                 _I, _I, _I, _F, _I, _I, _F, _P, _P, _I, _P]
 _MLA_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                  _I, _I, _I, _F, _I, _I, _F, _P]
+# The MLA option instances': the slopes, the spans and their count before
+# the stream.
+_MLA_OPTS_ARGTYPES = _MLA_ARGTYPES[:-1] + [_P, _P, _I, _P]
 # q's dtype codes of the attention kernels (csrc/attn_common.cuh
 # AttnDtype), which the grouped GEMM takes too (ops/grouped_matmul.py).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -87,10 +97,6 @@ MLA_HEAD_DIM = 576
 MLA_ROWS = 64  # query rows a block of the MLA instance (one wgmma M)
 MLA_KEYS = 32  # keys a K or V tile of the MLA instances
 MLA_STAGES = 2  # K and V tiles in flight (the ring's depth)
-# Where image spans at the MLA geometry are queued.
-MLA_SPANS_ITEM = "ROADMAP B"
-# Where fp16 with image spans is queued.
-FP16_ITEM = "ROADMAP.md B, item 1"
 
 
 def kv_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
@@ -188,37 +194,6 @@ def mla_page_boxes(page: int) -> tuple[int, int]:
         f"multiple of {MLA_KEYS}, not {page}")
 
 
-def check_spans(spans: bool, dtype: torch.dtype, hd: int,
-                alibi: bool) -> None:
-    """Raise ``NotImplementedError`` for image spans where the instance
-    that ``dtype`` and ``hd`` run does not take them, on every device: the
-    bf16 MLA instance (no MLA model has images; ``MLA_SPANS_ITEM``), and
-    the tensor-core one beside ALiBi (no model has both; the pair is not
-    instantiated). fp16 with spans raises on a CUDA device alone
-    (``check_unported``), at head_dim 576 too."""
-    if spans and dtype == torch.bfloat16 and hd == MLA_HEAD_DIM:
-        raise NotImplementedError(
-            f"bidirectional image spans at the MLA geometry (bf16, head_dim "
-            f"{MLA_HEAD_DIM}): the MLA instance does not take them; no MLA "
-            f"model has image spans ({MLA_SPANS_ITEM})")
-    if spans and alibi and ragged_uses_tensor_cores(dtype, hd):
-        raise NotImplementedError(
-            "ALiBi with image spans on the ragged kernel's tensor-core "
-            "instance: no model has both")
-
-
-def check_unported(device_type: str, dtype: torch.dtype,
-                   spans: bool) -> None:
-    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` where no CUDA
-    instance takes the call: on a ``"cuda"`` device, fp16 with image spans
-    (the span switch is bf16 only), at any head_dim. The CPU's plain
-    version computes it as the JAX package does."""
-    if device_type == "cuda" and dtype == torch.float16 and spans:
-        raise NotImplementedError(
-            f"fp16 with bidirectional image spans: the span instances are "
-            f"bf16 only ({FP16_ITEM})")
-
-
 def ragged_mla_block_q(group: int, smem_limit: int,
                        kv_dtype: Optional[torch.dtype] = None) -> int:
     """Tokens per work item of the MLA instance: as many whole groups as
@@ -269,6 +244,32 @@ def ragged_tc_block_q(group: int, hd: int, smem_limit: int,
                            f"the block's {rows}")
     cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, fp8), smem_limit)
     return rows // group
+
+
+def ragged_route(dtype: torch.dtype, hd: int, spans: bool,
+                 alibi: bool) -> tuple[str, str, str]:
+    """(library, entry, instance) of the CUDA kernel that takes a call on
+    the card: the library a ``csrc/<library>.cu``, the instance "mla",
+    "tensor_cores" or "scalar" (``instance_launches``). Each option of the
+    TPU kernel has an instance in every dtype: spans and ALiBi, alone or
+    together, at every head_dim."""
+    f16 = dtype == torch.float16
+    if ragged_uses_mla(dtype, hd):
+        if spans or alibi:
+            return (("mla_opts_f16", "mla_ragged_opts_f16_launch", "mla")
+                    if f16 else
+                    ("mla_opts", "mla_ragged_opts_launch", "mla"))
+        return (("mla_attention_f16", "mla_ragged_f16_launch", "mla") if f16
+                else ("mla_attention", "mla_ragged_launch", "mla"))
+    if ragged_uses_tensor_cores(dtype, hd):
+        if spans:
+            return (("ragged_spans_f16", "rpa_tc_spans_f16_launch",
+                     "tensor_cores") if f16 else
+                    ("ragged_spans", "rpa_tc_spans_launch", "tensor_cores"))
+        return (("ragged_f16", "rpa_tc_f16_launch", "tensor_cores") if f16
+                else ("ragged_paged_attention", "rpa_tc_launch",
+                      "tensor_cores"))
+    return "ragged_paged_attention", "rpa_launch", "scalar"
 
 
 def ragged_work_item_tokens(dtype: torch.dtype, group: int, hd: int,
@@ -359,9 +360,6 @@ def ragged_paged_attention(
     copied."""
     code = kv_code(q.dtype, kv_cache.dtype)
     cache_layer = kv_cache[layer]
-    check_spans(md.mm_bidir_spans is not None, q.dtype, q.shape[-1],
-                alibi is not None)
-    check_unported(q.device.type, q.dtype, md.mm_bidir_spans is not None)
     if q.device.type == "cpu":
         return ref_ragged_paged_attention(
             q, cache_layer, md, scale, sliding_window=sliding_window,
@@ -408,10 +406,9 @@ def ragged_paged_attention(
     what = (f"ragged_paged_attention (group {group}, head_dim {hd}, "
             f"{md.block_q} tokens a work item)")
     stream = cuda_build.stream(q.device)
-    if ragged_uses_mla(q.dtype, hd):
-        if alibi is not None:
-            raise NotImplementedError(
-                "ALiBi at the MLA geometry: no MLA model uses it")
+    lib, sym, instance = ragged_route(q.dtype, hd, spans is not None,
+                                      alibi is not None)
+    if instance == "mla":
         for t in (q, cache_layer):
             if t.data_ptr() % 16:
                 raise ValueError("q and the cache layer must be 16-byte "
@@ -419,21 +416,18 @@ def ragged_paged_attention(
         mla_page_boxes(page)  # raises on a page size TMA cannot tile
         cuda_build.check_smem(what, mla_smem_bytes(code > 0),
                               cuda_build.smem_optin())
-        # The fp16 instances are a library of their own (built beside).
-        launch = (cuda_build.entry("mla_attention_f16",
-                                   "mla_ragged_f16_launch", _MLA_ARGTYPES)
-                  if q.dtype == torch.float16 else
-                  cuda_build.entry("mla_attention", "mla_ragged_launch",
-                                   _MLA_ARGTYPES))
-        err = launch(
-            DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
-            out.data_ptr(),
-            *(t.data_ptr() for t in int_args), num_items,
-            md.block_tables.shape[1], cache_layer.shape[0], nq, kvh, page,
-            md.block_q, scale, sliding_window or 0, chunk_attn or 0,
-            logits_soft_cap or 0.0, stream)
-        instance = "mla"
-    elif ragged_uses_tensor_cores(q.dtype, hd):
+        args = (DTYPE_CODES[q.dtype], code, q.data_ptr(),
+                cache_layer.data_ptr(), out.data_ptr(),
+                *(t.data_ptr() for t in int_args), num_items,
+                md.block_tables.shape[1], cache_layer.shape[0], nq, kvh, page,
+                md.block_q, scale, sliding_window or 0, chunk_attn or 0,
+                logits_soft_cap or 0.0)
+        if lib.startswith("mla_opts"):
+            err = cuda_build.entry(lib, sym, _MLA_OPTS_ARGTYPES)(
+                *args, slopes, spans, num_spans, stream)
+        else:
+            err = cuda_build.entry(lib, sym, _MLA_ARGTYPES)(*args, stream)
+    elif instance == "tensor_cores":
         if md.block_q * group > ragged_tc_rows(hd):
             raise ValueError(f"{what}: more rows than the tensor-core "
                              "instance's block (size block_q with "
@@ -444,38 +438,27 @@ def ragged_paged_attention(
                                  "aligned")
         cuda_build.check_smem(what, ragged_tc_smem_bytes(hd, code > 0),
                               cuda_build.smem_optin())
-        # The span and fp16 instances are libraries of their own (built
-        # beside).
-        lib, sym = (("ragged_spans", "rpa_tc_spans_launch")
-                    if spans is not None else
-                    ("ragged_f16", "rpa_tc_f16_launch")
-                    if q.dtype == torch.float16 else
-                    ("ragged_paged_attention", "rpa_tc_launch"))
-        launch = cuda_build.entry(lib, sym, _TC_ARGTYPES)
-        err = launch(
+        err = cuda_build.entry(lib, sym, _TC_ARGTYPES)(
             DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, scale,
             sliding_window or 0, chunk_attn or 0, logits_soft_cap or 0.0,
             slopes, spans, num_spans, stream)
-        instance = "tensor_cores"
     else:
         smem_limit = cuda_build.smem_optin()
         rows = ragged_block_rows(group, hd, smem_limit, md.block_q)
         smem = ragged_smem_bytes(1, rows, hd)
         cuda_build.check_smem(what, smem, smem_limit)
-        launch = cuda_build.entry("ragged_paged_attention", "rpa_launch",
-                                  _ARGTYPES)
-        err = launch(
+        err = cuda_build.entry(lib, sym, _ARGTYPES)(
             DTYPE_CODES[q.dtype], code, q.data_ptr(), cache_layer.data_ptr(),
             out.data_ptr(), *(t.data_ptr() for t in int_args), num_items,
             md.block_tables.shape[1], nq, kvh, page, hd, md.block_q, rows,
             scale, sliding_window or 0, chunk_attn or 0,
             logits_soft_cap or 0.0, slopes, spans, num_spans, smem, stream)
-        instance = "scalar"
     cuda_build.check(err, "ragged_paged_attention launch")
     ragged_paged_attention.launches += 1
     ragged_paged_attention.instance_launches[instance] += 1
+    ragged_paged_attention.source_launches[lib] += 1
     ragged_paged_attention.dtype_launches[str(q.dtype).removeprefix(
         "torch.")] += 1
     if spans is not None:
@@ -484,10 +467,23 @@ def ragged_paged_attention(
 
 
 # Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
-# all, by instance, by q's dtype, and those with image spans.
+# all, by instance, by library (``ragged_route``'s: the csrc/<library>.cu
+# it was built from), by q's dtype, and those with image spans.
 ragged_paged_attention.launches = 0
 ragged_paged_attention.instance_launches = {"tensor_cores": 0, "mla": 0,
                                             "scalar": 0}
+ragged_paged_attention.source_launches = dict.fromkeys(
+    ("ragged_paged_attention", "ragged_f16", "ragged_spans",
+     "ragged_spans_f16", "mla_attention", "mla_attention_f16", "mla_opts",
+     "mla_opts_f16"), 0)
 ragged_paged_attention.dtype_launches = {"float32": 0, "bfloat16": 0,
                                          "float16": 0}
 ragged_paged_attention.span_launches = 0
+
+
+def reset_launches() -> None:
+    """Set every launch count of ``ragged_paged_attention`` to 0."""
+    f = ragged_paged_attention
+    f.launches = f.span_launches = 0
+    for table in (f.instance_launches, f.source_launches, f.dtype_launches):
+        table.update(dict.fromkeys(table, 0))

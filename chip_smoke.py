@@ -5,14 +5,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
 PARENT [PART ...]`` instead runs phases 8, 12, 14, 6, 15, 16 and 24, the
 attention wrappers' host time a call, the window kernel's device time, both
-MLA instances at ``MLA_GEOMS``, the
+MLA instances at ``MLA_GEOMS``, the bf16 span instance at phase 26's wave
+with and without the spans, the
 bf16 grouped GEMM at phase 8's shapes, a Llama-3.1-8B layer's four bf16 W4
 GEMMs (int4 and packed, M = 128 and 32) and a layer's four bf16 W8 and
 uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) of the checkout
 unpacked at PARENT and of this one, in turns (``compare_serving``; PARTs
 from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
 ...]`` times the bf16 weight-only kernel with parts removed
-(``w4_variants``). Phases, each fatal on failure:
+(``w4_variants``); ``python3 chip_smoke.py --span-builds`` times phase 1's
+build with ALiBi in the span instances as a uniform branch and as a
+template switch (``span_build_times``). Phases, each fatal on failure:
 
 1. Print the card's name and power limit; build the CUDA kernels from
    ``aphrodite_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel).
@@ -49,7 +52,8 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    one dense layer) in fp32, card vs CPU with the same weights: greedy
    tokens must be equal and the grouped GEMM launched.
 8. The main path of the MoE slice: Qwen1.5-MoE-A2.7B at full width and
-   depth (60 experts, top-4), bf16, the same traffic and runs as phase 6.
+   12 of its 24 layers (``QWEN15_MOE_HALF``; 60 experts, top-4), bf16, the
+   same traffic and runs as phase 6.
    Exactly 2048 tokens a run; the grouped GEMM and both attention kernels
    must have been launched.
 9. SSM parity: a tiny Mamba, FalconMamba and Mamba-2 in fp32 (weights
@@ -69,10 +73,11 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    16-step decode windows: greedy tokens must be equal and the decode
    kernel launched.
 12. The main path of the Gemma slice: Gemma-2-9B (``google/gemma-2-9b``)
-   at full width and depth, bf16, phase 6's traffic and runs. Exactly 2048
-   tokens a run; decode runs the non-window multi-step path, so in every
-   cold and warm run the decode kernel launches 42 x 63 = 2646 times, the
-   ragged kernel 42 times and the window kernel never.
+   at full width and 21 of its 42 layers (``GEMMA2_9B_HALF``), bf16, phase
+   6's traffic and runs. Exactly 2048 tokens a run; decode runs the
+   non-window multi-step path, so in every cold and warm run the decode
+   kernel launches 21 x 63 = 1323 times, the ragged kernel 21 times and
+   the window kernel never.
 13. Int4 + cascade parity: a one-layer Llama at K = 2048 (every projection
    packs under gptq's group of 128), gptq realized to native int4
    (``realize_int4_leaves``), fp32, 72 prompts sharing a 100-token prefix on
@@ -89,23 +94,25 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    and runs one 63-step window at R = 128 sharing 16 pages: exactly 4 x 16
    x 63 = 4032 int4 launches, 16 x 63 = 1008 shared-prefix passes and
    window launches, 16 ragged and 0 packed W4 launches a run.
-15. The main path of the W8 layout: Llama-3.1-8B at full width and depth,
-   W8A16 (per-column int8) on seeded dummy weights, bf16, phase 6's
-   traffic and runs. Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 32
-   x 63 = 8064 times in every cold and warm run, the other quantized GEMMs
-   never, both attention kernels launched.
+15. The main path of the W8 layout: Llama-3.1-8B at full width and half
+   its depth (16 of 32 layers, ``LLAMA31_8B_HALF``), W8A16 (per-column
+   int8) on seeded dummy weights, bf16, phase 6's traffic and runs.
+   Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 16 x 63 = 4032 times
+   in every cold and warm run, the other quantized GEMMs never, both
+   attention kernels launched.
 16. The main path of the uint4 layout: Qwen2.5-7B (``Qwen/Qwen2.5-7B``:
-   28 / 4 heads of 128, qkv bias, untied head) at full width and depth,
+   28 / 4 heads of 128, qkv bias, untied head) at full width and half its
+   depth (14 of 28 layers, ``QWEN25_7B_HALF``),
    gptq (group 128; no projection packs at K = 3584 and 18944) on seeded
    dummy weights, bf16, phase 6's traffic and runs. Exactly 2048 tokens a
-   run, the uint4 GEMM exactly 4 x 28 x 63 = 7056 times, the other
+   run, the uint4 GEMM exactly 4 x 14 x 63 = 3528 times, the other
    quantized GEMMs never, both attention kernels (at 7 query heads a KV
    head, held in phase 2 first) launched.
 17. FP8 parity: fp32 greedy tokens on the card and on the CPU with the
    same weights for a 2-layer Qwen2.5-1.5B with (quantization,
-   kv_cache_dtype) = (fp8, fp8_e4m3), (fp8_w8a8, fp8_e5m2) and (int8,
-   auto), a tiny Gemma-2 on an e4m3 cache (the decode kernel's fp8
-   instance) and phase 13's int4 + cascade layer on an e4m3 cache (the
+   kv_cache_dtype) = (fp8, fp8_e4m3) and (fp8_w8a8, fp8_e5m2) (int8 W8A8
+   is held card = CPU in phase 30, in fp16), a tiny Gemma-2 on an e4m3
+   cache (the decode kernel's fp8 instance) and phase 13's int4 + cascade layer on an e4m3 cache (the
    shared pass's): equal but where the free runs part (``same_tokens``:
    there the two engines' logprob differences of the two tokens, read
    from both free runs at that step, lie less than ``GAP`` apart, at most
@@ -188,7 +195,8 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
 26. The main path of the vision slice: Gemma-3-4B-it (``GEMMA3_4B_IT``,
    ``google/gemma-3-4b-it`` config.json written out: 34 layers, 8 / 4
    heads of 256, five sliding layers to one global, a SigLIP tower of 27
-   layers on 896 x 896 images, 256 image tokens) at full width and depth,
+   layers on 896 x 896 images, 256 image tokens) at full width and 17 of
+   its 34 text layers (``GEMMA3_HALF_DEPTH``; phase 35 serves all 34),
    bf16 dummy weights redrawn at fan-in scale on the card (``redraw_mm``),
    32 requests of 512 prompt tokens (one seeded 896 x 896 uint8 image
    each, expanded to its 256-token span between boi and eoi) + 64 decode
@@ -197,9 +205,10 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    of the same ids with other images (no prefix hit, other tokens), and a
    profiled cold run (the tower's device time under its ``vision`` host
    range, "ragged (spans)", "decode"). Exactly 2048 tokens a run; in
-   every run the ragged kernel exactly 34 launches, all with the spans on
-   the tensor-core instance, the decode kernel 34 x 63 = 2142, the window
-   kernel never; the tower 32 images in a cold run and none in a warm one.
+   every run the ragged kernel exactly 17 launches, all bf16 with the
+   spans on the tensor-core instance (``csrc/ragged_spans.cu``), the decode
+   kernel 17 x 63 = 1071, the window kernel never; the tower 32 images in
+   a cold run and none in a warm one.
 27. The main path of the fp8 MLA slice (run after phase 24): phase 24's
    model at full depth (27 layers), traffic and runs with
    ``kv_cache_dtype="fp8_e4m3"`` (the KV pool
@@ -219,13 +228,14 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    (``CallSpy``), all on the tensor-core instances.
 29. The main path of the fp16 slice (``main_path_llama2_fp16``):
    Llama-2-7B (``LLAMA2_7B``: 32 / 32 heads of 128, published in fp16)
-   at full width and depth in fp16 on seeded dummy weights, phase 6's
-   traffic, cold and warm (ragged 32 and window 2016 a run, all on the
-   tensor-core instances, every logprob finite), then on the same engine
-   32 requests sharing a seeded 1024-token system prompt, a 64-token
-   suffix each and 64 new tokens (ragged 32, shared pass 2016, window
-   2016 from its state a run; 32768 cached prompt tokens); the KV bytes a
-   token logged (524,288); a profiled run of each.
+   at full width and 16 of its 32 layers (``LLAMA2_7B_HALF``) in fp16 on
+   seeded dummy weights, phase 6's traffic, cold and warm (ragged 16 and
+   window 1008 a run, all on the tensor-core instances, every logprob
+   finite), then on the same engine 32 requests sharing a seeded
+   1024-token system prompt, a 64-token suffix each and 64 new tokens
+   (ragged 16, shared pass 1008, window 1008 from its state a run; 32768
+   cached prompt tokens); the KV bytes a token logged (262,144); a
+   profiled run of each.
 30. fp16 quantized parity (``fp16_quant_parity``): fp16 greedy runs on the
    card and on the CPU with the same weights (``F16_QUANT_TINY``: a tiny
    Qwen2 whose projections stay uint4, a one-layer Llama at K = 2048 whose
@@ -259,12 +269,31 @@ from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
    twin's calls (``CallSpy``, ``GroupedSpy``), all fp16, the attention at
    head_dim 576 all on the MLA instances.
 33. The main path of the fp16 MoE and MLA slice (``main_path_deepseek(
-   dtype="float16")``): DeepSeek-V2-Lite at full width and depth (27
-   layers) in fp16 on an fp16 cache, phase 6's traffic and runs, cold and
-   warm. In every run exactly: ragged 27 and window 1701, all on the MLA
-   instances' fp16 ones, grouped 52, all fp16, 0 on the other instances
+   dtype="float16")``): DeepSeek-V2-Lite at full width and
+   ``DEEPSEEK_DEPTH`` = 14 of its 27 layers (phase 27 serves all 27) in
+   fp16 on an fp16 cache, phase 6's traffic and runs, cold and warm. In
+   every run exactly: ragged 14 and window 882, all on the MLA instances'
+   fp16 ones, grouped 26, all fp16, 0 on the other instances
    and in bf16; every logprob finite; the KV bytes a token; a profiled
    run.
+34. fp16 multimodal parity (``mm_fp16_parity``): fp16 greedy runs on the
+   card and on the CPU with the same weights (``F16_MM_TINY``, phase 25's
+   batch and settings): a tiny Gemma-3 at head_dim 64 (the fp16 span
+   instances of ``csrc/ragged_spans_f16.cu``) on fp16 and e4m3 caches, at
+   head_dim 32 (the scalar instance's span branch in fp16), and a tiny
+   PaliGemma-2. Tokens equal but where the runs part at a gap below
+   ``GAP`` (``same_tokens``; a parting's continuation keeps the images);
+   chosen logprobs within ``F16_LOGPROB_TOL``; every attention kernel's
+   card launches exactly its CPU twin's calls (``CallSpy``), every ragged
+   launch fp16 from its run's library, Gemma-3's all with the spans.
+35. The main path of the slice of the ragged kernel's last options
+   (``main_path_gemma3_mm(dtype="float16")``): Gemma-3-4B-it at full
+   width and depth (34 layers) in fp16, phase 26's traffic, images and
+   runs (not the batch with other images: phase 26 holds the content
+   hash). In every run exactly: ragged 34, all fp16 with the spans on the
+   fp16 span instances (``csrc/ragged_spans_f16.cu``), decode 2142, window
+   0; 32 images encoded a cold run and none a warm one; every logprob
+   finite; its walls beside phase 26's; a profiled run.
 
 For the fp16 GEMM slice phase 2 (``fp16_gemm_checks``) holds each layout's
 fp16 instance (``csrc/w4_wgmma_f16.cu``) against its plain version at
@@ -414,6 +443,26 @@ written; two spans in a request beside requests without; a 64-key window
 shorter than a span; a soft cap on 16-token pages; head_dim 64, 128 and
 256), and in bf16 on an e4m3 cache.
 
+For the slice of the ragged kernel's last options phase 2
+(``ragged_option_checks``) holds, each against its plain version and
+every launch counted by the library it came from (``only_source``): the
+fp16 span instances (``csrc/ragged_spans_f16.cu``) at phase 26's wave on
+fp16, e4m3 and e5m2 caches, timed beside the bf16 selves, SDPA in fp16
+with (causal OR span) as a boolean mask and the bound, and at
+``SPAN_RAGGED_CASES`` (head_dim 32: the scalar instance in fp16); ALiBi
+beside spans on the tensor-core span instances in bf16 and fp16
+(``ALIBI_SPAN_CASES``: head_dim 64, 128 and 256, with and without a soft
+cap; phase 26's wave with its heads' slopes, timed beside spans alone);
+and the MLA option instances (``csrc/mla_opts.cu``,
+``csrc/mla_opts_f16.cu``) in bf16 and fp16 on three caches at
+``MLA_SPAN_CASES`` and ``MLA_ALIBI_CASES`` (V2-Lite's 16 and V3's 128
+heads, pages of 16 and 64, a sliding window and a soft cap, NaN in the
+stale slots), two launches bit-equal; V2-Lite's wave with a 256-token span
+a request (``V2L_SPAN_WAVE``) timed beside the instances without options
+in the same call, SDPA on expanded K/V with the mask and the bound; the
+same wave without options on the option instances
+(``option_instances``), and in bf16 with ALiBi.
+
 For the ALiBi slice phase 2 holds the ragged kernel with the model's
 slopes (``alibi_slopes``) against its plain version in bf16 (the
 tensor-core instance's ALiBi switch) and fp32 (the scalar one): at phase
@@ -432,6 +481,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -477,6 +527,9 @@ QWEN25_7B = dict(  # Qwen/Qwen2.5-7B config.json
     max_position_embeddings=131072, rope_theta=1000000.0, rms_norm_eps=1e-6,
     tie_word_embeddings=False, use_sliding_window=False,
     architectures=["Qwen2ForCausalLM"])
+# Phase 16's layers: half the published 28, which keeps the script inside
+# its time limit (every layer runs the same kernels).
+QWEN25_7B_HALF = dict(QWEN25_7B, num_hidden_layers=14)
 # Every projection stays unpacked under gptq's group of 128 ((K/2) % 1024
 # != 0 at K = 3584 and 18944): all run the uint4 layout.
 QWEN7B_GEMMS = {"qkv": (3584, 4608), "o": (3584, 3584),
@@ -561,6 +614,9 @@ QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
     decoder_sparse_step=1, mlp_only_layers=[], rope_theta=1000000.0,
     rms_norm_eps=1e-6, max_position_embeddings=8192, use_sliding_window=False,
     tie_word_embeddings=False, architectures=["Qwen2MoeForCausalLM"])
+# Phase 8's layers: half the published 24 (every layer is a MoE layer
+# with the same kernels), to keep the script inside its time limit.
+QWEN15_MOE_HALF = dict(QWEN15_MOE_A27B, num_hidden_layers=12)
 # (K, N) of a MoE layer's two grouped GEMMs (gate|up fused on N).
 MOE_GEMMS = {"gate_up": (2048, 2 * 1408), "down": (1408, 2048)}
 MOE_E, MOE_K = 60, 4
@@ -702,8 +758,13 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     yardstick's mask is (causal OR inside one span) below the context and
     the bound counts the keys each row sees). The MLA instance on an fp8
     cache must equal its self on the cache upcast to q's dtype (bf16 or
-    fp16), bit for bit. ``make_cache``: ``paged_cache``'s stand-in
-    (``OneAllocation``)."""
+    fp16), bit for bit. The limit is TOL, or ``large_tol`` row by row with
+    ALiBi and at the MLA geometry on an fp8 cache or with image spans (rows
+    that see a few keys give a few V rows' values, past 1). With spans, at
+    a path's shapes, the plain version without them (what a kernel that
+    ignored the spans would give) must break that limit, and its error is
+    returned (``blind_err``, ``blind_over``: the values past the limit).
+    ``make_cache``: ``paged_cache``'s stand-in (``OneAllocation``)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
@@ -747,7 +808,8 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         poison_stale(cache, bt, ctx)
     out = ragged_paged_attention(q, cache, layer, md, scale, **opts)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
     mla16 = geom.get("mla") and dtype in (torch.bfloat16, torch.float16)
     if mla16 and not torch.equal(
             out, ragged_paged_attention(q, cache, layer, md, scale, **opts)):
@@ -758,16 +820,33 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
         raise AssertionError(f"ragged MLA instance {dtype_name} on a {kv} "
                              f"cache: not its {dtype_name}-cache self on the "
                              "upcast cache, bit for bit")
-    limit = (large_tol(dtype_name, ref)
-             if "alibi" in opts or (geom.get("mla") and kv is not None)
-             else TOL[dtype_name])
-    if not (err <= limit and torch.isfinite(out).all()):
+    scaled = "alibi" in opts or (geom.get("mla") and (
+        kv is not None or spans is not None))
+    limit = large_tol(dtype_name, ref) if scaled else TOL[dtype_name]
+    over = int((diff > limit).sum())
+    del diff
+    if not (over == 0 and torch.isfinite(out).all()):
         raise AssertionError(
             f"ragged kernel {dtype_name}{kv_label(kv)} "
-            f"{'alibi' if 'alibi' in opts else opts}: max_abs_err {err} > "
-            f"{limit:.3g}")
+            f"{'alibi' if 'alibi' in opts else opts}: max_abs_err {err}, "
+            f"{over} values past the limit (TOL {TOL[dtype_name]}"
+            f"{' x max(1, max|ref row|)' if scaled else ''})")
     if not timed:
         return err
+    blind = {}
+    if spans is not None:  # the limit must fail a kernel blind to spans
+        md0 = dataclasses.replace(md, mm_bidir_spans=None)
+        d0 = (ref_ragged_paged_attention(q, cache[layer], md0, scale, **opts)
+              .float() - ref.float()).abs()
+        blind = dict(blind_err=d0.max().item(),
+                     blind_over=int((d0 > limit).sum()))
+        del d0, md0
+        if blind["blind_over"] == 0:
+            raise AssertionError(
+                f"ragged kernel {dtype_name}{kv_label(kv)} with spans: the "
+                f"plain version without spans is within the limit "
+                f"(max_abs_err {blind['blind_err']:.3g}): the check cannot "
+                "see the span mask")
     ms = cuda_ms(lambda: ragged_paged_attention(q, cache, layer, md, scale,
                                                 **opts), 20)
     dev_ms = device_ms(lambda: ragged_paged_attention(
@@ -792,6 +871,8 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
                                    & ((kv_pos >= lo) & (kv_pos < hi)
                                       & (kv_pos < ctx[r]))[None, :])
         dist[r, 0, :b - a] = (kv_pos[None, :] - pos[:, None]).float()
+    vis = (int(mask.sum()) if spans is not None   # the keys each row sees
+           else sum(int(p) + 1 for p in tok_pos))
     if "alibi" in opts:  # [R, nq, lq, S] bias, -inf where masked
         mask = torch.where(mask, opts["alibi"][None, :, None, None] * dist,
                            float("-inf")).to(dtype)
@@ -806,8 +887,6 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     backends = (None if gqa else
                 sdpa_backends(sdpa, q_d, k_d, v_d, mask, scale))
     item = torch.finfo(dtype).bits // 8
-    vis = (int(mask.sum()) if spans is not None   # the keys each row sees
-           else sum(int(p) + 1 for p in tok_pos))
     nbytes = (item * 2 * T * NQ * HD
               + kvd.itemsize * 2 * KVH * HD * sum(ctx)
               + (4 * NQ if "alibi" in opts else 0)
@@ -816,7 +895,15 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     b_ms, b_by = bound_ms(nbytes, ops, dtype_name)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                library_device_ms=lib_dev_ms, sdpa_backends=backends)
+                library_device_ms=lib_dev_ms, sdpa_backends=backends,
+                **blind)
+
+
+def blind_text(r: dict) -> str:
+    """How the check of a timed wave with spans reads against the plain
+    version without them (``check_ragged``'s ``blind_err``)."""
+    return (f"the plain version without spans reads max_abs_err "
+            f"{r['blind_err']:.3g}, {r['blind_over']} values past the limit")
 
 
 def sdpa_backends(sdpa, q, k, v, mask, scale) -> str:
@@ -844,15 +931,18 @@ def sdpa_backends(sdpa, q, k, v, mask, scale) -> str:
     return f"picks {pick}; takes {took}; refuses {refused}"
 
 
-def large_tol(dtype_name: str, ref) -> float:
-    """The error limit of a ragged output that may hold single V rows:
-    TOL scaled to the reference's largest value where that is above 1.
-    With ALiBi a steep slope puts a row's weight on its nearest keys, and
-    at the MLA geometry V3's early rows see a few keys each, so the output
-    is one V row rather than an average (values past 4 on randn V, where
-    one bf16 ulp is 0.031 and the kernel's and the plain version's
-    roundings may part by one; e5m2 rounds such values up to 4 or 5)."""
-    return TOL[dtype_name] * max(1.0, ref.float().abs().max().item())
+def large_tol(dtype_name: str, ref):
+    """The error limits of a ragged output that may hold single V rows, one
+    a row (a query token's head): TOL scaled to the reference row's largest
+    value where that is above 1, TOL itself elsewhere. With ALiBi a steep
+    slope puts a row's weight on its nearest keys, and at the MLA geometry
+    V3's early rows and the first rows of an image span see a few keys
+    each, so such a row is one V row rather than an average (values past 4
+    on randn V, where one bf16 ulp is 0.031 and the kernel's and the plain
+    version's roundings may part by one; e5m2 rounds such values up to 4
+    or 5); the rows that average many keys keep TOL."""
+    return TOL[dtype_name] * ref.float().abs().amax(
+        -1, keepdim=True).clamp(min=1.0)
 
 
 def scaled_tol(dtype_name: str, ref) -> float:
@@ -2547,12 +2637,13 @@ def main_path_8b() -> tuple[dict, dict, dict]:
 
 
 def main_path_moe() -> dict:
-    """Qwen1.5-MoE-A2.7B bf16 at full width and depth, the same traffic:
-    one prefill wave (65536 sorted rows a MoE layer: the grouped GEMM),
-    then a 63-step decode window (32 rows: the dense expert combine)."""
+    """Qwen1.5-MoE-A2.7B bf16 at full width and 12 of its 24 layers
+    (``QWEN15_MOE_HALF``), the same traffic: one prefill wave (65536
+    sorted rows a MoE layer: the grouped GEMM), then a 63-step decode
+    window (32 rows: the dense expert combine)."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
     return serve_workload(
-        "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_A27B,
+        "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_HALF,
         {"grouped_matmul": grouped_matmul, **attention_kernels()})[0]
 
 
@@ -2578,17 +2669,19 @@ def serve_bytes(phase: str, name: str, hf: dict, quantization: str,
 
 
 def main_path_w8() -> dict:
-    """Llama-3.1-8B W8A16 at full width and depth (phase 15): the W8 GEMM
-    at M = 32 in every decode window step."""
-    return serve_bytes("phase 15", "llama-3.1-8b-w8a16-dummy", LLAMA31_8B,
-                       "w8a16", "w8a16_matmul")
+    """Llama-3.1-8B W8A16 at full width and 16 of its 32 layers
+    (``LLAMA31_8B_HALF``; phase 15): the W8 GEMM at M = 32 in every decode
+    window step (every layer runs the same GEMMs)."""
+    return serve_bytes("phase 15", "llama-3.1-8b-w8a16-dummy",
+                       LLAMA31_8B_HALF, "w8a16", "w8a16_matmul")
 
 
 def main_path_qwen7b_gptq() -> dict:
-    """Qwen2.5-7B GPTQ (group 128) at full width and depth (phase 16): no
-    projection packs, so every decode GEMM is the uint4 one; 7 query heads
-    a KV head in the ragged and window kernels."""
-    return serve_bytes("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B,
+    """Qwen2.5-7B GPTQ (group 128) at full width and 14 of its 28 layers
+    (``QWEN25_7B_HALF``; phase 16): no projection packs, so every decode
+    GEMM is the uint4 one; 7 query heads a KV head in the ragged and
+    window kernels."""
+    return serve_bytes("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B_HALF,
                        "gptq", "w4a16_matmul")
 
 
@@ -2697,6 +2790,10 @@ GEMMA2_9B = dict(  # google/gemma-2-9b config.json
     sliding_window=4096, max_position_embeddings=8192,
     tie_word_embeddings=True, model_type="gemma2",
     architectures=["Gemma2ForCausalLM"])
+# Phase 12's layers: half the published 42 (every layer runs the same
+# kernels; the sliding and global layers alternate), to keep the script
+# inside its time limit.
+GEMMA2_9B_HALF = dict(GEMMA2_9B, num_hidden_layers=21)
 
 GEMMA_TINY = {  # phase 11: tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA)
     "Gemma2ForCausalLM": dict(
@@ -2795,19 +2892,19 @@ def gemma_parity(kv: str = "auto", archs=tuple(GEMMA_TINY)) -> int:
 
 
 def main_path_gemma() -> dict:
-    """Gemma-2-9B bf16 at full width and depth, phase 6's traffic: one
-    16384-token prefill wave (the ragged kernel's tensor-core instance,
-    64-row items at head_dim 256), then one 63-step decode window through
-    the runner's non-window multi-step path: the decode kernel once a layer
-    a sub-step, 42 x 63 = 2646 launches a run, and the window kernel
-    never."""
+    """Gemma-2-9B bf16 at full width and 21 of its 42 layers
+    (``GEMMA2_9B_HALF``), phase 6's traffic: one 16384-token prefill wave
+    (the ragged kernel's tensor-core instance, 64-row items at head_dim
+    256), then one 63-step decode window through the runner's non-window
+    multi-step path: the decode kernel once a layer a sub-step, 21 x 63 =
+    1323 launches a run, and the window kernel never."""
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention)
-    L = GEMMA2_9B["num_hidden_layers"]
+    L = GEMMA2_9B_HALF["num_hidden_layers"]
     kernels = {"decode_paged_attention": decode_paged_attention,
                **attention_kernels()}
     return serve_workload(
-        "phase 12", "gemma-2-9b-dummy", GEMMA2_9B, kernels,
+        "phase 12", "gemma-2-9b-dummy", GEMMA2_9B_HALF, kernels,
         exact={"decode_paged_attention": L * 63,
                "ragged_paged_attention": L,
                "window_decode_attention": 0})[0]
@@ -2903,7 +3000,10 @@ def int4_cascade_parity(kv: str = "auto"):
 # products differ in the last bit may pick either of two tokens whose
 # logprobs are close; GAP bounds how far the two engines' logprob
 # differences of those two tokens may lie apart.
-FP8_PARITY = (("fp8", "fp8_e4m3"), ("fp8_w8a8", "fp8_e5m2"), ("int8", "auto"))
+# Phase 17's quantized runs (fp32): int8 W8A8 (``torch._int_mm``, a
+# library call) is held card = CPU in phase 30 (fp16) and in phase 2
+# (``check_int_mm``).
+FP8_PARITY = (("fp8", "fp8_e4m3"), ("fp8_w8a8", "fp8_e5m2"))
 GAP = 5e-2
 
 
@@ -2949,9 +3049,16 @@ def partings(cpu, other, prompts: list, a: tuple, b: tuple) -> list:
     of its own over the CPU's: how far the two engines' logprob
     differences of the two tokens lie apart. Both then go on from the
     prompt and the CPU's tokens through i (a new run each, one request
-    alone), compared the same way, so that every later token is compared
-    too. Returns (request, step, cpu token, other token, gap) for each."""
+    alone; a prompt with images keeps them), compared the same way, so that
+    every later token is compared too. Returns (request, step, cpu token,
+    other token, gap) for each."""
     from aphrodite_tpu_torch import SamplingParams
+
+    def extended(prompt, toks: list):
+        if isinstance(prompt, dict):
+            return dict(prompt,
+                        prompt_token_ids=prompt["prompt_token_ids"] + toks)
+        return prompt + toks
     found = []
     for r, prompt in enumerate(prompts):
         base, done = prompt, 0
@@ -2965,7 +3072,7 @@ def partings(cpu, other, prompts: list, a: tuple, b: tuple) -> list:
             w, g = want[i], got[i]
             gap = (lw[i][w] - lw[i][g] + lg[i][g] - lg[i][w]).item()
             found.append((r, done + i, w, g, round(gap, 5)))
-            base, done = base + want[:i + 1], done + i + 1
+            base, done = extended(base, want[:i + 1]), done + i + 1
             if done == n:
                 break
             params = SamplingParams(temperature=0.0, max_tokens=n - done,
@@ -3255,11 +3362,12 @@ def profile_run(one_run, phase: str = "phase 4",
 
 
 KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans", "ragged_f16",
-                  "window_decode_attention",
+                  "ragged_spans_f16", "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
                   "w4_wgmma_f16", "gumbel_sample", "suffix_match",
-                  "mla_attention", "mla_attention_f16", "grouped_matmul_f16"]
+                  "mla_attention", "mla_attention_f16", "mla_opts",
+                  "mla_opts_f16", "grouped_matmul_f16"]
 
 
 # Run by each checkout in ``compare_serving``: the host time a call of the
@@ -3397,8 +3505,21 @@ for path, geom in c.MLA_GEOMS.items():
 """
 
 
+# Run by each checkout in ``compare_serving``: the bf16 span instance's
+# device time at phase 26's wave, with the spans and without them.
+SPAN_PROBE = """
+r = c.check_ragged(gen, 'bfloat16', c.G3_WAVE)
+r0 = c.check_ragged(gen, 'bfloat16',
+                    {k: v for k, v in c.G3_WAVE.items() if k != 'spans'})
+print(f"# ragged_paged_attention bf16 at gemma-3-4b-it shapes: device "
+      f"{r['device_ms']:.4f} ms with the spans, {r0['device_ms']:.4f} ms "
+      f"without", flush=True)
+"""
+
+
 # What ``--ab`` runs, in this order, each by its name on the command line.
 AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
+            "spans": SPAN_PROBE,
             "quant": QUANT_PROBE, "bytes": BYTE_PROBE,
             "8": "c.main_path_moe()", "12": "c.main_path_gemma()",
             "14": "c.main_path_int4_cascade()", "6": "c.main_path_8b()",
@@ -3412,14 +3533,15 @@ AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
 def compare_serving(parent: str, parts: list[str]) -> int:
     """``python3 chip_smoke.py --ab PARENT [PART ...]``: the probes and
     phases of ``AB_PARTS`` (all, or the PARTs named: ``HOST_PROBE``,
-    ``GROUPED_PROBE``, ``MLA_PROBE``, ``QUANT_PROBE`` and phases 8, 12,
-    14, 6, 15, 16 and 24: s/run,
+    ``GROUPED_PROBE``, ``MLA_PROBE``, ``SPAN_PROBE``, ``QUANT_PROBE`` and
+    phases 8, 12, 14, 6, 15, 16 and 24: s/run,
     device busy and items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
     parent, this, this, parent. Each run is a process of its own, started
     from its checkout's root, which builds that checkout's kernels into its
-    own build directory. Their logs are printed with a tag; fails if any
-    run fails."""
+    own build directory (the first run of each logs its kernels' parallel
+    build time: phase 1 of both checkouts). Their logs are printed with a
+    tag; fails if any run fails."""
     here = Path(__file__).resolve().parent
     roots = {"parent": Path(parent).resolve(), "change": here}
     unknown = [p for p in parts if p not in AB_PARTS]
@@ -3445,6 +3567,67 @@ def compare_serving(parent: str, parts: list[str]) -> int:
         if proc.returncode != 0:
             log(proc.stderr[-4000:])
             return 1
+    return 0
+
+
+# The two designs of ALiBi in the tensor-core span instances
+# (``csrc/ragged_tc.cuh``): a uniform branch on the slopes' pointer (the
+# sources as they are) and a template switch (the dispatch instantiates
+# kAlibi beside kSpans, twice the span instances): name -> the dispatch's
+# text and what replaces it.
+SPAN_ALIBI_DESIGNS = {"uniform branch": None,
+                      "template switch": ("!kSpans, kSpans, KV>",
+                                          "true, kSpans, KV>")}
+
+
+def span_build_times() -> int:
+    """``python3 chip_smoke.py --span-builds``: phase 1's build (one
+    ``nvcc`` per library of ``KERNEL_SOURCES``, all started together) of
+    each design of ``SPAN_ALIBI_DESIGNS``, each a copy of the sources under
+    ``build/span_builds/``, in turns: branch, switch, switch, branch. Logs
+    each build's wall and each span library's own time (from the start to
+    its ``nvcc``'s exit)."""
+    import shutil
+    from aphrodite_tpu_torch.ops import cuda_build
+    src = Path(__file__).resolve().parent / "aphrodite_tpu_torch" / "csrc"
+    order = ["uniform branch", "template switch", "template switch",
+             "uniform branch"]
+    for turn, design in enumerate(order):
+        d = Path("build/span_builds") / f"{turn}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in src.glob("*.cu*"):
+            shutil.copy(f, d / f.name)
+        swap = SPAN_ALIBI_DESIGNS[design]
+        if swap is not None:
+            tc = (d / "ragged_tc.cuh").read_text()
+            if tc.count(swap[0]) != 2:
+                raise ValueError(f"{swap[0]!r} not twice in ragged_tc.cuh")
+            (d / "ragged_tc.cuh").write_text(tc.replace(*swap))
+        t0 = time.perf_counter()
+        procs = {}
+        for n in KERNEL_SOURCES:  # ptxas -v's report to a file, not a pipe
+            with open(d / f"{n}.log", "w") as out:
+                procs[n] = subprocess.Popen(
+                    [cuda_build._nvcc(), *cuda_build._FLAGS, "-I", str(d),
+                     "-o", str(d / f"{n}.so"), str(d / f"{n}.cu")],
+                    stdout=out, stderr=subprocess.STDOUT)
+        took = {}
+        while len(took) < len(procs):
+            for n, proc in procs.items():
+                if n not in took and proc.poll() is not None:
+                    took[n] = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        raise RuntimeError(
+                            f"nvcc failed for {n}.cu ({design}):\n"
+                            f"{(d / f'{n}.log').read_text()[-3000:]}")
+            time.sleep(0.05)
+        slowest = max(took, key=took.get)
+        log(f"# span builds, turn {turn}, ALiBi a {design}: phase 1's "
+            f"build {max(took.values()):.1f} s (the last: {slowest}.cu); "
+            f"ragged_spans.cu {took['ragged_spans']:.1f} s, "
+            f"ragged_spans_f16.cu {took['ragged_spans_f16']:.1f} s")
+        shutil.rmtree(d, ignore_errors=True)
     return 0
 
 
@@ -4194,7 +4377,7 @@ def alibi_checks(gen, dt: str, results: dict) -> None:
     results[(name, "baichuan2-13b-bf16", dt)] = r
     line = (f"# phase 2: {name} {dt} with ALiBi at baichuan2-13b shapes: "
             f"max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dt]} x max(1, "
-            f"max|ref|)); "
+            f"max|ref row|)); "
             f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
             f"plain {r['plain_ms']:.4f} ms, sdpa with the bias as a float "
             f"mask {r['library_ms']:.4f} ms (device "
@@ -4209,7 +4392,7 @@ def alibi_checks(gen, dt: str, results: dict) -> None:
     for case, geom in ALIBI_RAGGED_CASES.items():
         err = check_ragged(gen, dt, geom, timed=False)
         log(f"# phase 2: {name} {dt} ALiBi {case}: max_abs_err {err:.3g} "
-            f"(tol {TOL[dt]} x max(1, max|ref|))")
+            f"(tol {TOL[dt]} x max(1, max|ref row|))")
 
 
 def span_rows(spans: list):
@@ -4240,7 +4423,8 @@ G3_WAVE = dict(nq=8, kvh=4, hd=256, ctx=[512] * 32, qlen=[512] * 32,
 # 300-599) or runs past the keys written so far (350-500 at a context of
 # 400); two spans in one request beside requests without any; a sliding
 # window (64) shorter than a span; a soft cap; 16-token pages; head_dim
-# 128 at group 4 and 256 at group 2 (Gemma-3-4B).
+# 128 at group 4 and 256 at group 2 (Gemma-3-4B); head_dim 32 at group 2
+# (phases 25 and 34's tiny Gemma-3: the scalar instance in 16 bits too).
 _SPAN_CTX = [600, 400, 517, 300, 45, 1000]
 _SPAN_QLEN = [300, 150, 517, 299, 44, 333]
 _SPAN_SETS = [[(250, 450)], [(350, 500)], [(5, 300), (301, 410)],
@@ -4258,6 +4442,8 @@ SPAN_RAGGED_CASES = {
                                    spans=_SPAN_SETS,
                                    opts=dict(logits_soft_cap=50.0)),
     "hd64-group1": dict(nq=4, kvh=4, hd=64, ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
+                        spans=_SPAN_SETS),
+    "hd32-group2": dict(nq=4, kvh=2, hd=32, ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
                         spans=_SPAN_SETS),
 }
 
@@ -4277,7 +4463,7 @@ def span_checks(gen, dt: str, results: dict) -> None:
             f"plain {r['plain_ms']:.4f} ms, sdpa with (causal OR span) as a "
             f"boolean mask {r['library_ms']:.4f} ms (device "
             f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']})")
+            f"ms ({r['bound_by']}); {blind_text(r)}")
     if dt == "bfloat16":
         r0 = check_ragged(gen, dt, {k: v for k, v in G3_WAVE.items()
                                     if k != "spans"})
@@ -4784,7 +4970,7 @@ def check_mla_map_key(gen) -> float:
 def fp8_tol(name: str) -> str:
     """How an fp8 MLA instance's error limit reads in the log."""
     if name == "ragged_paged_attention":
-        return f"{TOL['bfloat16']} x max(1, max|ref|)"
+        return f"{TOL['bfloat16']} x max(1, max|ref row|)"
     return tol_text(name, "bfloat16")
 
 
@@ -5122,17 +5308,18 @@ def main_path_deepseek(kv: str = "auto", dtype: str = "bfloat16") -> dict:
     window MLA instance once a layer a sub-step; the MoE on the dense
     route). In every cold and warm run exactly: ragged L and window 63 L,
     all on the MLA instances; grouped 2 (L - 1); 0 on the other
-    instances (L = 14: 14, 882, 26). Phase 27 (``kv`` "fp8_e4m3"): the
-    same at full depth (27 layers: 27, 1701, 52) on an FP8-E4M3 cache, the
-    MLA instances' fp8 ones. Phase 33 (``dtype`` "float16"): the same at
-    full depth in fp16 on an fp16 cache, every launch of the three kernels
-    on its fp16 instance (``dtype_launches``), every logprob finite. Logs
-    the KV pool's bytes a token."""
+    instances (L = 14: 14, 882, 26), the ragged ones all from the
+    library without options (``source_launches``). Phase 27 (``kv``
+    "fp8_e4m3"): the same at full depth (27 layers: 27, 1701, 52) on an
+    FP8-E4M3 cache, the MLA instances' fp8 ones. Phase 33 (``dtype``
+    "float16"): the same at 14 layers in fp16 on an fp16 cache, every
+    launch of the three kernels on its fp16 instance (``dtype_launches``),
+    every logprob finite. Logs the KV pool's bytes a token."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
     phase = ("phase 33" if dtype == "float16" else
              "phase 24" if kv == "auto" else "phase 27")
-    hf = (dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_DEPTH)
-          if phase == "phase 24" else DEEPSEEK_V2_LITE)
+    hf = (DEEPSEEK_V2_LITE if phase == "phase 27" else
+          dict(DEEPSEEK_V2_LITE, num_hidden_layers=DEEPSEEK_DEPTH))
     L, steps = hf["num_hidden_layers"], 63
     moe = L - hf["first_k_dense_replace"]
     exact = {"ragged_paged_attention": L, "ragged mla": L,
@@ -5151,16 +5338,24 @@ def main_path_deepseek(kv: str = "auto", dtype: str = "bfloat16") -> dict:
             exact[f"{k} {dt}"] = (exact[f"{k} mla"] if k != "grouped"
                                   else exact["grouped_matmul"]) \
                 if dt == dtype else 0
+    # Ragged launches by library: all on the MLA instances without options
+    # (DeepSeek's calls carry neither image spans nor ALiBi).
+    own = "mla_attention_f16" if dtype == "float16" else "mla_attention"
+    for lib in ("mla_attention", "mla_attention_f16", "mla_opts",
+                "mla_opts_f16"):
+        counted[f"ragged {lib}"] = InstanceCount(
+            counted["ragged_paged_attention"], lib, "source_launches")
+        exact[f"ragged {lib}"] = L if lib == own else 0
     log(f"# {phase}: launches a run, reckoned: {exact}")
     counts, llm, walls = serve_workload(
         phase, "deepseek-v2-lite-dummy", hf, counted, exact=exact,
         kv_cache_dtype=kv, dtype=dtype, logprobs=dtype == "float16")
     DS_WALLS[phase] = walls
-    if phase == "phase 33" and "phase 27" in DS_WALLS:
-        log(f"# {phase}: walls in fp16 against phase 27's (bf16, e4m3 "
-            f"cache, 27 layers) in this call: " + ", ".join(
-                f"{k} {walls[k]:.3f} / {DS_WALLS['phase 27'][k]:.3f} s/run "
-                f"({walls[k] / DS_WALLS['phase 27'][k]:.3f})"
+    if phase == "phase 33" and "phase 24" in DS_WALLS:
+        log(f"# {phase}: walls in fp16 against phase 24's (bf16, 14 "
+            f"layers) in this call: " + ", ".join(
+                f"{k} {walls[k]:.3f} / {DS_WALLS['phase 24'][k]:.3f} s/run "
+                f"({walls[k] / DS_WALLS['phase 24'][k]:.3f})"
                 for k in walls))
     pool = llm.engine.core.worker.runner.kv_cache
     L_, pages, _, kvh, page, hd = pool.shape
@@ -5359,31 +5554,61 @@ def g3_prompts(seed: int, images_seed: int) -> list:
     return out
 
 
-def main_path_gemma3_mm() -> dict:
+def gemma3_at_depth(layers: int) -> dict:
+    """``GEMMA3_4B_IT`` with its text decoder cut to its first ``layers``
+    layers (the published pattern of five sliding layers to one global
+    kept); the tower whole."""
+    text = GEMMA3_4B_IT["text_config"]
+    return dict(GEMMA3_4B_IT, text_config=dict(
+        text, num_hidden_layers=layers,
+        layer_types=text["layer_types"][:layers]))
+
+
+# Phase 26's text layers: half the published 34 (phase 35 serves all 34
+# in fp16, and every layer runs the same kernels).
+GEMMA3_HALF_DEPTH = 17
+G3_WALLS: dict = {}
+
+
+def main_path_gemma3_mm(dtype: str = "bfloat16",
+                        layers: int | None = None) -> dict:
     """Phase 26, the vision slice's main path: Gemma-3-4B-it bf16 at full
-    width and depth with one image a request (see the module docstring).
-    Returns a cold run's launches."""
+    width and ``layers`` of its 34 text layers (all of them where None)
+    with one image a request (see the module docstring); phase 35 (``dtype``
+    "float16"): the same at full depth in fp16, every ragged launch on the
+    fp16 span instances (``csrc/ragged_spans_f16.cu``) and every token's
+    logprob finite. Returns a cold run's launches."""
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention)
     from aphrodite_tpu_torch.worker.encoder_cache import EncoderCache
-    phase = "phase 26"
-    L = GEMMA3_4B_IT["text_config"]["num_hidden_layers"]
+    f16 = dtype == "float16"
+    phase = "phase 35" if f16 else "phase 26"
+    hf = gemma3_at_depth(layers) if layers else GEMMA3_4B_IT
+    L = hf["text_config"]["num_hidden_layers"]
     kernels = {"decode_paged_attention": decode_paged_attention,
                **attention_kernels()}
     rpa = kernels["ragged_paged_attention"]
+    lib = "ragged_spans_f16" if f16 else "ragged_spans"
     counted = {**kernels, "ragged spans": SpanCount(rpa),
-               "ragged tensor_cores": InstanceCount(rpa, "tensor_cores")}
+               "ragged tensor_cores": InstanceCount(rpa, "tensor_cores"),
+               f"ragged {lib}": InstanceCount(rpa, lib, "source_launches"),
+               **{f"ragged {dt}": InstanceCount(rpa, dt, "dtype_launches")
+                  for dt in ("bfloat16", "float16")}}
     exact = {"ragged_paged_attention": L, "ragged spans": L,
-             "ragged tensor_cores": L, "decode_paged_attention": L * 63,
+             "ragged tensor_cores": L, f"ragged {lib}": L,
+             f"ragged {dtype}": L,
+             f"ragged {'bfloat16' if f16 else 'float16'}": 0,
+             "decode_paged_attention": L * 63,
              "window_decode_attention": 0}
+    log(f"# {phase}: launches a run, reckoned: {exact}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM("gemma-3-4b-it-dummy", hf_config=GEMMA3_4B_IT,
-              tokenizer="unused", dtype="bfloat16", load_format="dummy",
+    llm = LLM("gemma-3-4b-it-dummy", hf_config=hf,
+              tokenizer="unused", dtype=dtype, load_format="dummy",
               block_size=64, max_num_seqs=32, max_num_batched_tokens=16384,
               max_model_len=704, device="cuda")
     model = llm.engine.core.worker.model
@@ -5417,7 +5642,8 @@ def main_path_gemma3_mm() -> dict:
     processor.process = timed_process
     prompts = g3_prompts(26, 27)
     others = g3_prompts(26, 28)
-    params = SamplingParams(temperature=0.0, max_tokens=64, ignore_eos=True)
+    params = SamplingParams(temperature=0.0, max_tokens=64, ignore_eos=True,
+                            logprobs=1 if f16 else None)
     V = GEMMA3_4B_IT["text_config"]["vocab_size"]
 
     def one_run(batch=prompts, cold=True):
@@ -5438,6 +5664,8 @@ def main_path_gemma3_mm() -> dict:
             raise AssertionError(f"{phase}: expected 2048 tokens")
         if not all(0 <= t < V for x in toks for t in x):
             raise AssertionError(f"{phase}: token id out of the vocabulary")
+        if f16:
+            finite_logprobs(phase, outs)
         one_run.toks = toks
         one_run.cached = sum(o.num_cached_tokens for o in outs)
         one_run.counts = {k: fn.launches for k, fn in counted.items()}
@@ -5463,23 +5691,32 @@ def main_path_gemma3_mm() -> dict:
             f"the processor's host time {host[0]:.3f} s), cached prompt "
             f"tokens {one_run.cached}, images encoded {images[0]}, launches "
             f"{one_run.counts}")
-    warm_toks = one_run.toks
-    dt = one_run(others, cold=False)
-    if one_run.cached != 0 or images[0] != 32:
-        raise AssertionError(f"{phase}: the same ids with other images hit "
-                             f"{one_run.cached} cached tokens, encoded "
-                             f"{images[0]} images")
-    differ = sum(a != b for a, b in zip(one_run.toks, warm_toks))
-    if not differ:
-        raise AssertionError(f"{phase}: other images gave the same tokens")
-    log(f"# {phase}: the same ids with other images: {dt:.3f} s, cached "
-        f"prompt tokens 0, images encoded 32, {differ} of 32 requests' "
-        f"tokens differ")
+    if not f16:  # phase 35 leaves the images' content hash to phase 26
+        warm_toks = one_run.toks
+        dt = one_run(others, cold=False)
+        if one_run.cached != 0 or images[0] != 32:
+            raise AssertionError(f"{phase}: the same ids with other images "
+                                 f"hit {one_run.cached} cached tokens, "
+                                 f"encoded {images[0]} images")
+        differ = sum(a != b for a, b in zip(one_run.toks, warm_toks))
+        if not differ:
+            raise AssertionError(f"{phase}: other images gave the same "
+                                 "tokens")
+        log(f"# {phase}: the same ids with other images: {dt:.3f} s, "
+            f"cached prompt tokens 0, images encoded 32, {differ} of 32 "
+            "requests' tokens differ")
     for label, ts in walls.items():
         s = float(np.mean(ts))
         log(f"# {phase}: {label} {s:.3f} s/run (runs {ts}); "
             f"{32 * 64 / s:.0f} decode tok/s; {32 * 576 / s:.0f} tok/s "
             "(prefill+decode)")
+    G3_WALLS[phase] = {k: float(np.mean(v)) for k, v in walls.items()}
+    if f16 and "phase 26" in G3_WALLS:
+        log(f"# {phase}: walls in fp16 at {L} layers against phase 26's "
+            f"(bf16 at {GEMMA3_HALF_DEPTH} layers) in this call: "
+            + ", ".join(f"{k} {G3_WALLS[phase][k]:.3f} / "
+                        f"{G3_WALLS['phase 26'][k]:.3f} s/run"
+                        for k in walls))
     log(f"# {phase}: peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_run(one_run, phase, spans=("vision",))
@@ -5514,6 +5751,9 @@ LLAMA2_7B = dict(  # meta-llama/Llama-2-7b-hf config.json ("float16")
     hidden_act="silu", rms_norm_eps=1e-5, rope_theta=10000.0,
     max_position_embeddings=4096, tie_word_embeddings=False,
     architectures=["LlamaForCausalLM"])
+# Phase 29's layers: half the published 32 (every layer runs the same
+# kernels), to keep the script inside its time limit.
+LLAMA2_7B_HALF = dict(LLAMA2_7B, num_hidden_layers=16)
 F16_PATH = "llama-2-7b-fp16"
 F16_SHARED_PATH = "llama-2-7b-fp16-shared-prompt"
 # Phase 29's prefill wave and decode window: 32 x 512, 32 / 32 heads of 128.
@@ -5581,7 +5821,7 @@ def fp16_checks(gen, results: dict) -> None:
                 err = fn(gen, f16, geom, timed=False, kv=kv)
                 log(f"# phase 2: {name} {f16}{kv_label(kv)} with ALiBi at "
                     f"{F16_PATH} shapes: max_abs_err {err:.3g} (tol "
-                    f"{TOL[f16]} x max(1, max|ref|))")
+                    f"{TOL[f16]} x max(1, max|ref row|))")
                 continue
             r, s = fn(gen, f16, geom, kv=kv), fn(gen, b16, geom, kv=kv)
             results[(name, path, f16, kv)] = r
@@ -5620,7 +5860,7 @@ def fp16_checks(gen, results: dict) -> None:
     for case in ("hd64-page16-mid-page", "group8-chunks-softcap30"):
         err = check_ragged(gen, f16, ALIBI_RAGGED_CASES[case], timed=False)
         log(f"# phase 2: ragged_paged_attention {f16} ALiBi {case}: "
-            f"max_abs_err {err:.3g} (tol {TOL[f16]} x max(1, max|ref|))")
+            f"max_abs_err {err:.3g} (tol {TOL[f16]} x max(1, max|ref row|))")
 
 
 class CallSpy:
@@ -5746,16 +5986,16 @@ def fp16_parity() -> dict:
 
 def main_path_llama2_fp16() -> tuple[dict, dict]:
     """Phase 29: Llama-2-7B (``meta-llama/Llama-2-7b-hf``, published in
-    fp16) at full width and depth in fp16, seeded dummy weights: phase 6's
-    traffic, cold and warm (ragged 32 and window 2016 a run, all on the
-    fp16 tensor-core instances; every logprob finite), then on the same
-    engine 32 requests that share a seeded 1024-token system prompt, each
-    with a 64-token suffix new in every run and 64 new tokens: a warm-up
-    caches the prefix, then each of 2 runs prefills one 2048-token wave
-    and decodes one 63-step window from the shared pass's state (ragged
-    32, shared pass 2016, window 2016, decode 0; 32768 cached prompt
-    tokens a run). Logs the KV bytes a token. Returns the launches of the
-    last cold run of phase 6's traffic and of the last shared-prompt
+    fp16) at full width and 16 of its 32 layers (``LLAMA2_7B_HALF``) in
+    fp16, seeded dummy weights: phase 6's traffic, cold and warm (ragged
+    16 and window 1008 a run, all on the fp16 tensor-core instances; every
+    logprob finite), then on the same engine 32 requests that share a
+    seeded 1024-token system prompt, each with a 64-token suffix new in
+    every run and 64 new tokens: a warm-up caches the prefix, then each of
+    2 runs prefills one 2048-token wave and decodes one 63-step window
+    from the shared pass's state (ragged 16, shared pass 1008, window 1008,
+    decode 0; 32768 cached prompt tokens a run). Logs the KV bytes a
+    token. Returns the launches of the last cold run of phase 6's traffic and of the last shared-prompt
     run."""
     import torch
     from aphrodite_tpu_torch import SamplingParams
@@ -5764,7 +6004,7 @@ def main_path_llama2_fp16() -> tuple[dict, dict]:
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention)
     phase = "phase 29"
-    L, steps = LLAMA2_7B["num_hidden_layers"], 63
+    L, steps = LLAMA2_7B_HALF["num_hidden_layers"], 63
     R, S, n_suf, n_dec = 32, CASCADE_S, 64, 64
     kernels = {**attention_kernels(), **instance_counts(),
                "decode_paged_attention": decode_paged_attention,
@@ -5777,7 +6017,8 @@ def main_path_llama2_fp16() -> tuple[dict, dict]:
                 for i in ("mla", "scalar")}}
     log(f"# {phase}: launches a run, reckoned: {exact}")
     counts, llm, _ = serve_workload(
-        phase, "llama-2-7b-fp16-dummy", LLAMA2_7B, kernels, exact=exact,
+        phase, "llama-2-7b-fp16-dummy", LLAMA2_7B_HALF, kernels,
+        exact=exact,
         dtype="float16", max_model_len=S + n_suf + n_dec, logprobs=True)
     pool = llm.engine.core.worker.runner.kv_cache
     L_, pages, _, kvh, page, hd = pool.shape
@@ -6423,7 +6664,7 @@ def moe_mla_fp16_checks(gen, results: dict) -> None:
                 extra = (f"device {r['device_ms']:.4f} ms" + (
                     f", host {r['host_ms']:.4f} ms a call"
                     if "host_ms" in r else ""))
-                tol = (f"{TOL[f16]} x max(1, max|ref|)"
+                tol = (f"{TOL[f16]} x max(1, max|ref row|)"
                        if kv is not None and "ragged" in name
                        else tol_text(name, f16))
                 log(f"# phase 2: {name} MLA instance {f16}{kv_label(kv)} at "
@@ -6582,6 +6823,350 @@ def moe_mla_fp16_parity() -> dict:
     return launches
 
 
+# ----------------------------------- the ragged kernel's last options
+# Phase 2 for the slice that ports what the ragged kernel still refused:
+# image spans in fp16 (``csrc/ragged_spans_f16.cu``), ALiBi beside spans on
+# the tensor-core instances (``csrc/ragged_spans.cu`` and its fp16 twin),
+# and spans and ALiBi at the MLA geometry (the MLA option instances,
+# ``csrc/mla_opts.cu`` and ``csrc/mla_opts_f16.cu``). No model has the last
+# three: phase 2 alone holds them against the plain version.
+@contextlib.contextmanager
+def only_source(lib: str, what: str):
+    """Within it, every ragged launch must come from ``csrc/<lib>.cu`` (the
+    wrapper's ``source_launches``), and at least one must."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as rpa, reset_launches)
+    reset_launches()
+    yield
+    if not 0 < rpa.source_launches[lib] == rpa.launches:
+        raise AssertionError(f"{what}: ragged launches {rpa.launches}, by "
+                             f"source {rpa.source_launches}; want all from "
+                             f"{lib}")
+
+
+@contextlib.contextmanager
+def option_instances():
+    """Within it, the ragged wrapper sends every call at the MLA geometry
+    to the MLA option instances, with or without options (their cost with
+    none set, beside the instances without options). It swaps the
+    module's ``ragged_route``, which the wrapper looks up at every call;
+    wrap it in ``only_source``, which fails if the launches did not come
+    from the option instance's library."""
+    from aphrodite_tpu_torch.ops import ragged_paged_attention as rm
+    route = rm.ragged_route
+
+    def forced(dtype, hd, spans, alibi):
+        r = route(dtype, hd, spans, alibi)
+        return route(dtype, hd, True, alibi) if r[2] == "mla" else r
+    rm.ragged_route = forced
+    try:
+        yield
+    finally:
+        rm.ragged_route = route
+
+
+# ALiBi beside image spans on the tensor-core span instances (bf16, fp16):
+# SPAN_RAGGED_CASES's requests at head_dim 64, 128 and 256, with and without
+# a soft cap (the slopes of the query heads, ``alibi_slopes(nq)``).
+ALIBI_SPAN_CASES = {
+    f"{case}{cap}": dict(SPAN_RAGGED_CASES[case], alibi=True,
+                         opts=dict(logits_soft_cap=50.0) if cap else {})
+    for case in ("hd64-group1", "hd128-group4", "hd256-group2")
+    for cap in ("", "-softcap50")}
+# Image spans at the MLA geometry (the option instances): V2-Lite's 16 and
+# V3's 128 query heads on one latent head of 576, SPAN_RAGGED_CASES's
+# requests and span sets, on pages of 64 and 16 (a 32-key tile spans two),
+# a 100-token sliding window and a soft cap; NaN in every stale slot on
+# V2-Lite's 16-token pages (``poison_stale``).
+MLA_SPAN_CASES = {
+    "v2lite-page64": dict(nq=16, kvh=1, hd=576, ctx=_SPAN_CTX,
+                          qlen=_SPAN_QLEN, spans=_SPAN_SETS,
+                          scale=MLA_SCALE, mla=True),
+    "v2lite-page16-window100-softcap30-stale": dict(
+        nq=16, kvh=1, hd=576, ctx=_SPAN_CTX, qlen=_SPAN_QLEN,
+        spans=_SPAN_SETS, page=16, scale=MLA_SCALE, mla=True, stale=True,
+        opts=dict(sliding_window=100, logits_soft_cap=30.0)),
+    "v3-page16": dict(nq=128, kvh=1, hd=576, ctx=_SPAN_CTX,
+                      qlen=_SPAN_QLEN, spans=_SPAN_SETS, page=16,
+                      scale=MLA_SCALE, mla=True),
+    "v3-page64-softcap30": dict(nq=128, kvh=1, hd=576, ctx=_SPAN_CTX,
+                                qlen=_SPAN_QLEN, spans=_SPAN_SETS,
+                                scale=MLA_SCALE, mla=True,
+                                opts=dict(logits_soft_cap=30.0)),
+}
+# ALiBi at the MLA geometry, with and without spans and a soft cap.
+MLA_ALIBI_CASES = {
+    "v2lite-alibi": dict(MLA_SPAN_CASES["v2lite-page64"], spans=None,
+                         alibi=True),
+    "v2lite-alibi-spans-softcap30-page16": dict(
+        MLA_SPAN_CASES["v2lite-page64"], page=16, alibi=True,
+        opts=dict(logits_soft_cap=30.0)),
+    "v3-alibi-softcap30-page16": dict(
+        MLA_SPAN_CASES["v3-page16"], spans=None, alibi=True,
+        opts=dict(logits_soft_cap=30.0)),
+    "v3-alibi-spans": dict(MLA_SPAN_CASES["v3-page16"], page=PAGE,
+                           alibi=True),
+}
+# V2-Lite's wave (``MLA_GEOMS``) with one 256-token image span a request
+# (phase 26's prompt layout, ``G3_SPAN``): the MLA option instance timed.
+V2L_SPAN_WAVE = dict(MLA_GEOMS["deepseek-v2-lite-bf16"],
+                     spans=[[G3_SPAN]] * 32)
+
+
+def span_fp16_checks(gen, results: dict) -> None:
+    """The fp16 span instances: phase 26's wave on fp16, e4m3 and e5m2
+    caches, each against its plain version at TOL["float16"] and timed
+    beside its bf16 self (this call's, where phase 2 ran one), SDPA in fp16
+    with (causal OR span) as a boolean mask and its bound; every case of
+    ``SPAN_RAGGED_CASES`` in fp16 (head_dim 32: the scalar instance's span
+    branch in fp16, timed for phase 34's hd-32 run). All launches from
+    ``csrc/ragged_spans_f16.cu`` but head_dim 32's. Then the decode kernel
+    at phase 35's step in fp16 (``DECODE_CASES["gemma-3-4b"]``: 8 / 4
+    heads of 256, the fp16 instance at head_dim 256, group 2), timed
+    beside its bf16 self."""
+    name, f16, b16 = "ragged_paged_attention", "float16", "bfloat16"
+    g3 = "gemma-3-4b-it-bf16"
+    for kv in (None, *KV_FP8):
+        with only_source("ragged_spans_f16", f"fp16 spans{kv_label(kv)}"):
+            r = check_ragged(gen, f16, G3_WAVE, kv=kv)
+        results[(name, g3, f16) if kv is None else (name, g3, f16, kv)] = r
+        s = results.get((name, g3, b16) if kv is None else (name, g3, b16,
+                                                              kv))
+        beside = ("" if s is None else
+                  f", its bf16 self {s['ms']:.4f} ms (device "
+                  f"{s['device_ms']:.4f} ms, fp16 / bf16 "
+                  f"{r['device_ms'] / s['device_ms']:.3f})")
+        log(f"# phase 2: {name} {f16}{kv_label(kv)} with image spans at "
+            f"gemma-3-4b-it shapes (csrc/ragged_spans_f16.cu): max_abs_err "
+            f"{r['max_abs_err']:.3g} (tol {TOL[f16]}); kernel "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms){beside}; "
+            f"plain {r['plain_ms']:.4f} ms, sdpa in fp16 with (causal OR "
+            f"span) as a boolean mask {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}); {blind_text(r)}")
+    for case, geom in SPAN_RAGGED_CASES.items():
+        lib = ("ragged_spans_f16" if geom.get("hd", HD) in (64, 128, 256)
+               else "ragged_paged_attention")
+        timed = case == "hd32-group2"
+        with only_source(lib, f"fp16 spans {case}"):
+            r = check_ragged(gen, f16, geom, timed=timed)
+        if timed:
+            results[(name, "mm-tiny-hd32", f16)] = r
+            err = r["max_abs_err"]
+            log(f"# phase 2: {name} {f16} spans {case} (the scalar "
+                f"instance): kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                f"sdpa {r['library_ms']:.4f} ms (device "
+                f"{r['library_device_ms']:.4f} ms), bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        else:
+            err = r
+        log(f"# phase 2: {name} {f16} spans {case} ({lib}): max_abs_err "
+            f"{err:.3g} (tol {TOL[f16]})")
+    case, dpa = "gemma-3-4b", "decode_paged_attention"
+    r = check_decode(gen, f16, case)
+    s = results[(dpa, case, b16)]
+    results[(dpa, case, f16)] = r
+    log(f"# phase 2: {dpa} {case} {f16} (phase 35's step): device "
+        f"{r['device_ms']:.4f} ms against its bf16 self {s['device_ms']:.4f} "
+        f"ms (fp16 / bf16 {r['device_ms'] / s['device_ms']:.3f})")
+
+
+def alibi_span_checks(gen, results: dict) -> None:
+    """ALiBi beside image spans on the tensor-core span instances, bf16
+    (``csrc/ragged_spans.cu``) and fp16 (``csrc/ragged_spans_f16.cu``): at
+    ``ALIBI_SPAN_CASES`` against the plain version (at TOL x max(1,
+    max|ref row|), as every ALiBi case: a steep slope makes an output one V
+    row), and at phase 26's wave with the slopes of its 8 heads, timed
+    beside the same wave with spans alone (this call's) and SDPA with the
+    bias as a float mask (-inf outside (causal OR span))."""
+    name, g3 = "ragged_paged_attention", "gemma-3-4b-it-bf16"
+    for dt, lib in (("bfloat16", "ragged_spans"),
+                    ("float16", "ragged_spans_f16")):
+        with only_source(lib, f"ALiBi with spans {dt}"):
+            r = check_ragged(gen, dt, dict(G3_WAVE, alibi=True))
+            for case, geom in ALIBI_SPAN_CASES.items():
+                err = check_ragged(gen, dt, geom, timed=False)
+                log(f"# phase 2: {name} {dt} ALiBi with spans {case} "
+                    f"({lib}): max_abs_err {err:.3g} (tol {TOL[dt]} x "
+                    f"max(1, max|ref row|))")
+        results[(name, "gemma-3-4b-it-alibi", dt)] = r
+        s = results[(name, g3, dt)]
+        log(f"# phase 2: {name} {dt} ALiBi with image spans at "
+            f"gemma-3-4b-it shapes ({lib}): max_abs_err "
+            f"{r['max_abs_err']:.3g} (tol {TOL[dt]} x max(1, max|ref row|)); "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+            f"spans alone {s['ms']:.4f} ms (device {s['device_ms']:.4f} "
+            f"ms): ALiBi costs {r['device_ms'] / s['device_ms'] - 1:+.1%} "
+            f"device time; plain {r['plain_ms']:.4f} ms, sdpa with the "
+            f"bias as a float mask {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']})")
+
+
+def mla_option_checks(gen, results: dict) -> None:
+    """The MLA option instances (bf16 ``csrc/mla_opts.cu``, fp16
+    ``csrc/mla_opts_f16.cu``) in bf16 and fp16 on caches of q's dtype,
+    e4m3 and e5m2: ``MLA_SPAN_CASES`` and ``MLA_ALIBI_CASES`` against the
+    plain version at TOL x max(1, max|ref row|) (a row that sees one key is one
+    V row; on fp8 caches also bit-equal to their selves on the upcast
+    cache), two launches bit-equal; V2-Lite's wave with one 256-token span
+    a request (``V2L_SPAN_WAVE``) timed beside the instances without
+    options (this call's: ``mla_checks``, ``moe_mla_fp16_checks``), SDPA on
+    expanded K/V with (causal OR span) as a boolean mask, and its bound;
+    the wave without options on the option instances
+    (``option_instances``) beside the instances without them; and in bf16
+    the wave with ALiBi."""
+    rpa, ds = "ragged_paged_attention_mla", "deepseek-v2-lite-bf16"
+    for dt, lib in (("bfloat16", "mla_opts"), ("float16", "mla_opts_f16")):
+        for kv in (None, *KV_FP8):
+            with only_source(lib, f"MLA options {dt}{kv_label(kv)}"):
+                for cases in (MLA_SPAN_CASES, MLA_ALIBI_CASES):
+                    for case, geom in cases.items():
+                        if kv is not None and cases is MLA_ALIBI_CASES \
+                                and kv != KV_FP8[0]:
+                            continue  # ALiBi on e4m3 alone of the fp8s
+                        err = check_ragged(gen, dt, geom, timed=False, kv=kv)
+                        log(f"# phase 2: ragged MLA option instance {dt}"
+                            f"{kv_label(kv)} {case}: max_abs_err {err:.3g} "
+                            f"(tol {TOL[dt]} x max(1, max|ref row|)), two "
+                            "launches bit-equal")
+        with only_source(lib, f"MLA spans wave {dt}"):
+            r = check_ragged(gen, dt, V2L_SPAN_WAVE)
+        with only_source(lib, f"MLA wave without options {dt}"), \
+                option_instances():
+            n = check_ragged(gen, dt, MLA_GEOMS[ds])
+        s = results[(rpa, ds, dt) if dt == "bfloat16" else (rpa, ds, dt,
+                                                              None)]
+        results[(rpa, "deepseek-v2-lite-spans", dt)] = r
+        results[(rpa, "deepseek-v2-lite-no-options", dt)] = n
+        log(f"# phase 2: ragged MLA option instance {dt} ({lib}) at "
+            f"DeepSeek-V2-Lite's wave with a 256-token image span a "
+            f"request: max_abs_err {r['max_abs_err']:.3g} (tol {TOL[dt]} x "
+            f"max(1, max|ref row|)); kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms); the instance without options on "
+            f"the causal wave {s['ms']:.4f} ms (device {s['device_ms']:.4f} "
+            f"ms): spans cost {r['device_ms'] / s['device_ms'] - 1:+.1%} "
+            f"device time; the option instance with no option set "
+            f"{n['ms']:.4f} ms (device {n['device_ms']:.4f} ms, "
+            f"{n['device_ms'] / s['device_ms']:.3f} x the instance without "
+            f"options); plain {r['plain_ms']:.4f} ms, sdpa on expanded K/V "
+            f"with (causal OR span) as a boolean mask {r['library_ms']:.4f} "
+            f"ms (device {r['library_device_ms']:.4f} ms), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {blind_text(r)}")
+    with only_source("mla_opts", "MLA ALiBi wave"):
+        r = check_ragged(gen, "bfloat16", dict(MLA_GEOMS[ds], alibi=True))
+    results[(rpa, "deepseek-v2-lite-alibi", "bfloat16")] = r
+    s = results[(rpa, ds, "bfloat16")]
+    log(f"# phase 2: ragged MLA option instance bfloat16 with ALiBi at "
+        f"DeepSeek-V2-Lite's wave: max_abs_err {r['max_abs_err']:.3g}; "
+        f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, "
+        f"{r['device_ms'] / s['device_ms']:.3f} x the instance without "
+        f"options), sdpa with the bias as a float mask {r['library_ms']:.4f} "
+        f"ms (device {r['library_device_ms']:.4f} ms), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def ragged_option_checks(gen, results: dict) -> None:
+    """Phase 2 for the ragged kernel's last options (see above)."""
+    span_fp16_checks(gen, results)
+    alibi_span_checks(gen, results)
+    mla_option_checks(gen, results)
+
+
+# Phase 34's tiny fp16 multimodal models: Gemma-3 at head_dim 64 (its
+# text group of 2 on the fp16 tensor-core span instances) and at 32 (the
+# scalar instance's span branch in fp16), and PaliGemma-2 (no spans).
+F16_MM_TINY = {
+    "gemma3-hd64": dict(MM_TINY["gemma3"], text_config=dict(
+        MM_TINY["gemma3"]["text_config"], head_dim=64,
+        query_pre_attn_scalar=64)),
+    "gemma3": MM_TINY["gemma3"],
+    "paligemma2": MM_TINY["paligemma2"]}
+# Phase 34's runs: (model, KV cache dtype, the ragged kernel's library).
+F16_MM_PARITY = {
+    "gemma3-hd64/auto": ("gemma3-hd64", "auto", "ragged_spans_f16"),
+    "gemma3-hd64/fp8_e4m3": ("gemma3-hd64", "fp8_e4m3", "ragged_spans_f16"),
+    "gemma3/auto": ("gemma3", "auto", "ragged_paged_attention"),
+    "paligemma2/auto": ("paligemma2", "auto", "ragged_paged_attention")}
+
+
+def mm_fp16_parity() -> dict:
+    """Phase 34: fp16 greedy runs through the port on the card and on the
+    CPU from one seed (``redraw_mm``; the CPU's weights loaded on the
+    card), ``F16_MM_PARITY``, on phase 25's batch (one image, two images, a
+    text row; 16-token chunks, one cutting an image's span; 16-step decode
+    windows). Tokens equal but where the runs part at a gap below ``GAP``
+    (``same_tokens``); chosen logprobs within ``F16_LOGPROB_TOL`` where the
+    tokens agree; every attention kernel's card launches exactly its CPU
+    twin's calls (``CallSpy``), every ragged launch in fp16 from its
+    run's library, Gemma-3's all with the spans, PaliGemma-2's none.
+    Returns each kernel's launches, keyed by (kernel, run)."""
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import reset_launches
+    kernels = {**attention_kernels(),
+               "decode_paged_attention": decode_paged_attention}
+    rpa = kernels["ragged_paged_attention"]
+    params = [SamplingParams(temperature=0.0, max_tokens=n, ignore_eos=True)
+              for n in (20, 12, 24)]
+    launches = {}
+    for run, (model, kv, lib) in F16_MM_PARITY.items():
+        arch = model.split("-")[0]
+        kw = dict(hf_config=F16_MM_TINY[model], tokenizer="unused",
+                  dtype="float16", block_size=16, num_kv_blocks=128,
+                  max_num_seqs=4, max_num_batched_tokens=16,
+                  max_model_len=256, decode_window=16, kv_cache_dtype=kv)
+        cpu = LLM("tiny-vlm-fp16", device="cpu", **kw)
+        redraw_mm(cpu.engine.core.worker.model, 34)
+        gpu = LLM("tiny-vlm-fp16", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        ps = mm_prompts(arch, 8, 16)
+        with CallSpy() as want:
+            a = traced(cpu, ps, params)
+        for fn in kernels.values():
+            fn.launches = 0
+        reset_launches()
+        with CallSpy() as calls:
+            b = traced(gpu, ps, params)
+        got = {k: fn.launches for k, fn in kernels.items()}
+        n = got["ragged_paged_attention"]
+        spans = n if arch == "gemma3" else 0
+        if any(got[k] != want.calls[k] or got[k] != calls.calls[k]
+               for k in got) or n <= 0 or rpa.span_launches != spans or \
+                rpa.source_launches[lib] != n or \
+                rpa.dtype_launches["float16"] != n:
+            raise AssertionError(
+                f"phase 34 {run}: launches {got}, with spans "
+                f"{rpa.span_launches} (want {spans}), by source "
+                f"{rpa.source_launches} (want all {lib}), by dtype "
+                f"{rpa.dtype_launches}; the card's calls {calls.calls}, the "
+                f"CPU's {want.calls}")
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"phase 34 {run}: the tokens hardly vary: "
+                                 f"{a[0]}")
+        found = same_tokens(f"phase 34 {run}", cpu, gpu, ps, a, b)
+        gaps = [abs(float(la[i][t]) - float(lb[i][t]))
+                for ta, tb, la, lb in zip(a[0], b[0], a[1], b[1])
+                for i, t in enumerate(ta) if ta[:i + 1] == tb[:i + 1]]
+        worst = max(gaps)
+        if not worst <= F16_LOGPROB_TOL:
+            raise AssertionError(f"phase 34 {run}: chosen logprobs card vs "
+                                 f"CPU up to {worst:.4g} > {F16_LOGPROB_TOL}")
+        launches.update({(k, run): v for k, v in got.items()})
+        log(f"# phase 34: {run}: cuda == cpu greedy fp16 tokens for "
+            f"{len(ps)} prompts (one image, two images, a text row) but at "
+            f"partings (request, step, cpu token, card token, gap < {GAP}) "
+            f"{found}; chosen logprobs within {worst:.4g} (tol "
+            f"{F16_LOGPROB_TOL}) over {len(gaps)} agreeing tokens; launches "
+            f"{got} (= the CPU's calls), ragged all fp16 from {lib}, with "
+            f"spans {rpa.span_launches}")
+        del cpu, gpu
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6600,6 +7185,8 @@ def main() -> int:
         return compare_serving(sys.argv[2], sys.argv[3:])
     if sys.argv[1:2] == ["--variants"]:
         return w4_variants(sys.argv[2:])
+    if sys.argv[1:2] == ["--span-builds"]:
+        return span_build_times()
     names = KERNEL_SOURCES
     log(f"# phase 1: kernels built in {cuda_build.build_all(names):.1f} s")
     for n in names:
@@ -6737,6 +7324,8 @@ def main() -> int:
     fp16_gemm_checks(gen, results)
     stamp("phase 2: the fp16 grouped GEMM and MLA instances")
     moe_mla_fp16_checks(gen, results)
+    stamp("phase 2: the ragged kernel's last options")
+    ragged_option_checks(gen, results)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
@@ -6777,7 +7366,7 @@ def main() -> int:
     stamp("phase 25")
     mm_parity_launches = mm_parity()
     stamp("phase 26")
-    gemma3_counts = main_path_gemma3_mm()
+    gemma3_counts = main_path_gemma3_mm(layers=GEMMA3_HALF_DEPTH)
     stamp("phase 28")
     f16_parity_launches = fp16_parity()
     stamp("phase 29")
@@ -6790,6 +7379,10 @@ def main() -> int:
     f16_moe_parity = moe_mla_fp16_parity()
     stamp("phase 33")
     f16_ds_counts = main_path_deepseek(dtype="float16")
+    stamp("phase 34")
+    f16_mm_parity = mm_fp16_parity()
+    stamp("phase 35")
+    f16_g3_counts = main_path_gemma3_mm(dtype="float16")
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -6876,7 +7469,7 @@ def main() -> int:
                  sum(fp8_parity_launches[("fp8_matmul", f"{q}/{k}")]
                      for q, k in FP8_PARITY), results[("fp8_matmul",
                                                        "float32")], "auto"))
-    for q, k in FP8_PARITY[:2]:
+    for q, k in FP8_PARITY:
         kv = e4 if k == "fp8_e4m3" else e5
         rows += [(name, f"qwen-2l-{q}-{k}-parity-fp32", "float32",
                   fp8_parity_launches[(name, f"{q}/{k}")],
@@ -7008,6 +7601,45 @@ def main() -> int:
                   f16_moe_parity[(name, run)],
                   results[(f"{name}_mla", ds_path, f16, kvd)], kvd)
                  for name in (rpa, wda)]
+    # The slice of the ragged kernel's last options: the fp16 decode
+    # instance at head_dim 256 on phase 35's path (phase 2's step), the
+    # fp16 span instances on phase 35's path (the tensor-core ones, phase
+    # 2's wave)
+    # and on phase 34's runs (on e4m3 at the wave; at head_dim 32 the
+    # scalar instance, timed at phase 2's hd-32 case); ALiBi beside spans
+    # and the MLA option instances, which no model's path reaches: 0
+    # launches, phase 2 alone holds them.
+    g3_f16 = "gemma-3-4b-it-fp16"
+    rows.append((dpa, g3_f16, f16, f16_g3_counts[dpa],
+                 results[(dpa, "gemma-3-4b", f16)], "auto"))
+    source_of = {}
+    for name, path, dt, launches, r, kv, src in (
+            (f"{g3_rpa}_spans", g3_f16, f16,
+             f16_g3_counts["ragged spans"],
+             results[(g3_rpa, g3_path, f16)], "auto", "ragged_spans_f16"),
+            (f"{g3_rpa}_spans", "gemma3-tiny-hd64-fp16-fp8_e4m3-parity", f16,
+             f16_mm_parity[(g3_rpa, "gemma3-hd64/fp8_e4m3")],
+             results[(g3_rpa, g3_path, f16, e4)], e4, "ragged_spans_f16"),
+            (f"{g3_rpa}_spans", "gemma3-tiny-hd32-fp16-parity", f16,
+             f16_mm_parity[(g3_rpa, "gemma3/auto")],
+             results[(g3_rpa, "mm-tiny-hd32", f16)], "auto",
+             "ragged_paged_attention"),
+            (f"{g3_rpa}_spans_alibi", "none (phase 2 only)", "bfloat16", 0,
+             results[(g3_rpa, "gemma-3-4b-it-alibi", "bfloat16")], "auto",
+             "ragged_spans"),
+            (f"{g3_rpa}_spans_alibi", "none (phase 2 only)", f16, 0,
+             results[(g3_rpa, "gemma-3-4b-it-alibi", f16)], "auto",
+             "ragged_spans_f16"),
+            (f"{g3_rpa}_mla_options", "none (phase 2 only)", "bfloat16", 0,
+             results[(f"{g3_rpa}_mla", "deepseek-v2-lite-spans",
+                      "bfloat16")], "auto", "mla_opts"),
+            (f"{g3_rpa}_mla_options", "none (phase 2 only)", f16, 0,
+             results[(f"{g3_rpa}_mla", "deepseek-v2-lite-spans", f16)],
+             "auto", "mla_opts_f16")):
+        rows.append((name, path, dt, launches, r, kv))
+        source_of[(name, path, dt)] = src
+    for name in (f"{g3_rpa}_spans_alibi", f"{g3_rpa}_mla_options"):
+        replaces[name] = replaces[g3_rpa]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS
@@ -7024,6 +7656,7 @@ def main() -> int:
         if name in ("w4a16_int4_matmul", "w4a16_packed_matmul", "fp8_matmul",
                     *BYTE_PATHS) and dt in ("bfloat16", "float16"):
             src = "w4_wgmma" if dt == "bfloat16" else "w4_wgmma_f16"
+        src = source_of.get((name, path, dt), src)
         kernels.append({
             "name": name, "path": path, "dtype": dt, "kv_cache": kv,
             "route": "cuda",

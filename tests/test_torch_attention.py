@@ -27,7 +27,7 @@ from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.attention.metadata import build_work_items
 from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    ragged_block_q, ragged_paged_attention, ragged_smem_bytes)
+    ragged_block_q, ragged_paged_attention, ragged_route, ragged_smem_bytes)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_decode_attention, window_launch_geometry, window_smem_bytes,
     window_tc_smem_bytes, window_warps)
@@ -211,10 +211,13 @@ def test_unported_kernel_options_raise():
 
 
 def test_spans_at_the_mla_geometry_raise():
-    """bf16 at head_dim 576 runs the MLA instance, which takes no image
-    spans (no MLA model has images: ROADMAP B): the wrapper refuses them on
-    every device. fp32 at 576 runs the scalar instance, which takes them;
-    so does bf16 at 576 without spans."""
+    """Image spans at the MLA geometry raise nowhere any more: bf16 and fp16
+    at head_dim 576 route them (and ALiBi) to the MLA option instances
+    (``csrc/mla_opts.cu``, ``csrc/mla_opts_f16.cu``) and keep the
+    instances without options for calls without them; fp32 at 576 runs the
+    scalar instance, which takes both. On the CPU every dtype computes the
+    plain version, which the spans move: bf16 equals fp32's result on the
+    same bf16 inputs, rounded once."""
     c = _ragged_case([(8, 8)], hd=576)
     spans = np.asarray([[[2, 6]]], np.int32)
     items = build_work_items(c["qsl"][:-1], np.diff(c["qsl"]),
@@ -225,15 +228,78 @@ def test_spans_at_the_mla_geometry_raise():
         slot_mapping=None, seq_lens=t(c["seq_lens"]),
         block_tables=t(c["bt"]), block_q=32, mm_bidir_spans=t(spans),
         **{k: t(v) for k, v in items.items()})
-    q, cache = t(c["q"]), t(c["cache"])
-    with pytest.raises(NotImplementedError, match="MLA geometry"):
-        ragged_paged_attention(q.bfloat16(), cache.bfloat16(), LAYER, md,
-                               0.1)
-    assert torch.isfinite(ragged_paged_attention(q, cache, LAYER, md,
-                                                 0.1)).all()
+    q, cache = t(c["q"]).bfloat16(), t(c["cache"]).bfloat16()
+    got = ragged_paged_attention(q, cache, LAYER, md, 0.1)
+    want = ragged_paged_attention(q.float(), cache.float(), LAYER, md, 0.1)
+    assert torch.equal(got, want.bfloat16())
     md.mm_bidir_spans = None
-    assert torch.isfinite(ragged_paged_attention(
-        q.bfloat16(), cache.bfloat16(), LAYER, md, 0.1)).all()
+    assert (got - ragged_paged_attention(q, cache, LAYER, md, 0.1)
+            ).abs().max() > 1e-3
+    for dt, suffix in ((torch.bfloat16, ""), (torch.float16, "_f16")):
+        for spans_, alibi in ((True, False), (False, True), (True, True)):
+            assert ragged_route(dt, 576, spans_, alibi) == (
+                f"mla_opts{suffix}", f"mla_ragged_opts{suffix}_launch",
+                "mla")
+        assert ragged_route(dt, 576, False, False) == (
+            f"mla_attention{suffix}", f"mla_ragged{suffix}_launch", "mla")
+    assert ragged_route(torch.float32, 576, True, True)[2] == "scalar"
+
+
+# Every (dtype, head_dim) the port serves: 576 is MLA's latent head, 32
+# and 80 the scalar instance's in 16 bits.
+ROUTE_GEOMS = [(dt, hd) for dt in ("float32", "bfloat16", "float16")
+               for hd in (32, 64, 80, 128, 256, 576)]
+
+
+@pytest.mark.parametrize("dtype,hd", ROUTE_GEOMS)
+def test_ragged_route_names_a_built_entry(dtype, hd):
+    """Each option of the TPU kernel (image spans, ALiBi, both, neither)
+    routes to a hand-written instance at every dtype and head_dim: a
+    ``csrc/<library>.cu`` of the port that defines the entry, the library
+    in the wrapper's launch counts by source; the instance as the sizing
+    predicates say (MLA, tensor cores, else scalar). None raises."""
+    from aphrodite_tpu_torch.ops import cuda_build
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_uses_mla, ragged_uses_tensor_cores)
+    dt = getattr(torch, dtype)
+    kind = ("mla" if ragged_uses_mla(dt, hd) else "tensor_cores"
+            if ragged_uses_tensor_cores(dt, hd) else "scalar")
+    seen = set()
+    for spans in (False, True):
+        for alibi in (False, True):
+            lib, sym, inst = ragged_route(dt, hd, spans, alibi)
+            src = (cuda_build._CSRC / f"{lib}.cu").read_text()
+            assert f'extern "C" int {sym}(' in src, (lib, sym)
+            assert inst == kind
+            assert lib in ragged_paged_attention.source_launches
+            seen.add(lib)
+    # The span switch and the MLA options are instances of their own;
+    # the scalar instance takes every option in one.
+    assert len(seen) == {"mla": 2, "tensor_cores": 2, "scalar": 1}[kind]
+
+
+def test_reset_launches_zeros_every_count():
+    """``reset_launches`` sets the ragged wrapper's every launch count to
+    0 (in all, by instance, library and dtype, with spans) and keeps each
+    table's keys."""
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        reset_launches)
+    f = ragged_paged_attention
+    tables = (f.instance_launches, f.source_launches, f.dtype_launches)
+    keys = [set(t) for t in tables]
+    saved = (f.launches, f.span_launches, *(dict(t) for t in tables))
+    try:
+        f.launches = f.span_launches = 3
+        for t in tables:
+            t.update(dict.fromkeys(t, 2))
+        reset_launches()
+        assert f.launches == f.span_launches == 0
+        assert [set(t) for t in tables] == keys
+        assert not any(v for t in tables for v in t.values())
+    finally:
+        f.launches, f.span_launches = saved[:2]
+        for t, old in zip(tables, saved[2:]):
+            t.update(old)
 
 
 # (group, head_dim): ragged query rows a work item, window warps, of the

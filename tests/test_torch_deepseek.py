@@ -275,7 +275,7 @@ def test_mla_instances_take_fp8_caches_and_fp16():
     and in fp16 build; fp32 runs the scalar instances, which take fp8
     too."""
     from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-        check_unported, ragged_uses_mla)
+        ragged_route, ragged_uses_mla)
     from aphrodite_tpu_torch.ops.window_decode_attention import (
         window_uses_mla)
     hf = ds_config(kv_lora_rank=512, qk_rope_head_dim=64)
@@ -286,7 +286,10 @@ def test_mla_instances_take_fp8_caches_and_fp16():
     assert runner.kv_cache.dtype == torch.float16
     for dt in (torch.bfloat16, torch.float16):
         assert ragged_uses_mla(dt, 576) and window_uses_mla(dt, 576)
-        check_unported("cuda", dt, False)
+        # DeepSeek's calls (no spans, no ALiBi) keep the instances
+        # without options.
+        assert ragged_route(dt, 576, False, False)[0] in (
+            "mla_attention", "mla_attention_f16")
         for kv in (None, torch.float8_e4m3fn, torch.float8_e5m2):
             assert ragged_work_item_tokens(dt, 16, 576, 232448, kv) == 4
     for kv in (torch.float8_e4m3fn, torch.float8_e5m2):

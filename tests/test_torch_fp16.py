@@ -20,10 +20,11 @@ versions):
 - the routing: fp16 takes the tensor-core instances at head_dim 64, 128
   and 256 and fits an H100's shared memory on every cache; fp16 at MLA's
   head_dim 576 takes the MLA instances (``test_torch_fp16_moe_mla.py``
-  holds them); on a CUDA device fp16 with image spans raises
-  ``NotImplementedError`` naming ROADMAP.md (``check_unported``, held here
-  without a card); the grouped GEMM takes the attention kernels' dtype
-  codes, fp16 among them, and the quantized GEMMs take fp16
+  holds them); fp16 with image spans takes the fp16 span instances
+  (``ragged_route``: ``csrc/ragged_spans_f16.cu`` at head_dim 64, 128 and
+  256, the MLA option instances at 576, the scalar one elsewhere), on a
+  CUDA device as on the CPU; the grouped GEMM takes the attention
+  kernels' dtype codes, fp16 among them, and the quantized GEMMs take fp16
   (``test_torch_fp16_gemm.py``);
 - ``LLM.generate`` in fp16 against ``aphrodite_tpu.LLM`` in fp16 on the
   same weights (the JAX engine's tree through ``params_from_jax``): a tiny
@@ -66,7 +67,7 @@ from aphrodite_tpu_torch.ops.cuda_build import (GEMM_DTYPE_CODES,
 from aphrodite_tpu_torch.ops.decode_paged_attention import (
     decode_launch_geometry, decode_paged_attention)
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    DTYPE_CODES, check_unported, ragged_paged_attention, ragged_uses_mla,
+    DTYPE_CODES, ragged_paged_attention, ragged_route, ragged_uses_mla,
     ragged_uses_tensor_cores, ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     tail_dtype, window_decode_attention, window_launch_geometry,
@@ -306,16 +307,27 @@ def test_fp16_takes_the_tensor_core_instances(hd):
 
 
 def test_fp16_mla_and_spans_raise_on_cuda_only():
-    # fp16 at the MLA geometry runs the MLA instances' fp16 ones and no
-    # longer raises; fp16 with image spans still raises on a CUDA device
-    # alone, at head_dim 576 too, naming ROADMAP.md.
-    f16 = torch.float16
+    # Neither raises any more, on a CUDA device or elsewhere: fp16 at the
+    # MLA geometry runs the MLA instances' fp16 ones, and fp16 with image
+    # spans the fp16 span instances (the tensor-core ones at head_dim 64,
+    # 128 and 256, with or without ALiBi; the MLA option instances at 576;
+    # the scalar instance elsewhere), each beside its bf16 self.
+    f16, b16 = torch.float16, torch.bfloat16
     assert ragged_uses_mla(f16, 576)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        check_unported("cuda", f16, True)
-    check_unported("cpu", f16, True)   # the plain version's
-    check_unported("cuda", torch.bfloat16, True)
-    check_unported("cuda", f16, False)
+    for hd in (64, 128, 256):
+        for alibi in (False, True):
+            assert ragged_route(f16, hd, True, alibi) == (
+                "ragged_spans_f16", "rpa_tc_spans_f16_launch",
+                "tensor_cores")
+            assert ragged_route(b16, hd, True, alibi) == (
+                "ragged_spans", "rpa_tc_spans_launch", "tensor_cores")
+        assert ragged_route(f16, hd, False, False)[0] == "ragged_f16"
+    assert ragged_route(f16, 576, True, False) == (
+        "mla_opts_f16", "mla_ragged_opts_f16_launch", "mla")
+    assert ragged_route(f16, 576, False, False) == (
+        "mla_attention_f16", "mla_ragged_f16_launch", "mla")
+    assert ragged_route(f16, 32, True, True) == (
+        "ragged_paged_attention", "rpa_launch", "scalar")
 
 
 def test_gemm_wrappers_refuse_fp16_naming_the_roadmap(monkeypatch):

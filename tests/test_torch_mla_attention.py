@@ -8,6 +8,15 @@ mode wants 128-lane rows, the JAX runner's zero padding to 640 is used
 (``aphrodite_tpu/attention/backend.py:33-41``) and the first 576 lanes
 compared. Tolerance: fp32, atol 1e-5 on outputs of O(0.1).
 
+The ragged kernel's options at the MLA geometry, which no JAX model
+reaches and the MLA option instances take on the card: image spans, ALiBi,
+both, and ALiBi beside a soft cap, each in bf16 and in fp16, on a cache of
+q's dtype and on e4m3 (``OPT_RUNS``). There the Pallas kernel takes both
+products in q's dtype (P rounded to it) and the plain version computes in
+fp32 and rounds once: fp16 atol 2e-3, bf16 1.6e-2, as
+``test_torch_mm_attention.py`` holds the tensor-core instances' twin
+(measured 4.9e-4 and 3.9e-3: one ulp of outputs of ~1.1).
+
 Also the launch sizing: both MLA instances fit an H100 at groups 16 and
 128 (one block an SM), their work items, window split plan and TMA page
 boxes, and the scalar instances, which sized one block for a whole group
@@ -25,6 +34,7 @@ from aphrodite_tpu.ops.ragged_paged_attention import (
     ragged_paged_attention as jax_ragged_kernel)
 from aphrodite_tpu.ops.window_decode_attention import (
     window_decode_attention as jax_window_kernel)
+from aphrodite_tpu_torch.attention.backend import alibi_slopes
 from aphrodite_tpu_torch.attention.metadata import (AttentionMetadata,
                                                     build_work_items)
 from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN, H100_SMS
@@ -35,6 +45,7 @@ from aphrodite_tpu_torch.ops.ragged_paged_attention import (
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     window_block_rows, window_decode_attention, window_launch_geometry,
     window_plan, window_smem_bytes, window_split_plan, window_warps)
+from tests.test_torch_fp8 import to_torch
 
 ATOL = 1e-5
 HD, PAD, PAGE, L, LAYER = 576, 640, 16, 2, 1
@@ -63,13 +74,39 @@ RAGGED = {  # nq: [(context, new tokens)] (chunks sit past cached keys)
     "group16-mixed": (16, [(40, 40), (37, 17), (25, 1)]),
     "group128-chunks": (128, [(21, 21), (35, 6), (9, 1)]),
 }
+# The options on "group16-mixed": two spans of the prompt across work
+# items, one of the chunk that began before it and runs past its context,
+# none on the decode row.
+_SPANS = [[(3, 14), (17, 35)], [(30, 52)], []]
+OPTS = {"spans": dict(spans=_SPANS), "alibi": dict(alibi=True),
+        "spans-alibi": dict(spans=_SPANS, alibi=True),
+        "alibi-softcap": dict(alibi=True, logits_soft_cap=30.0)}
+# name: (option, q's dtype, the cache's: q's or e4m3); each option in bf16
+# and fp16, on each cache.
+OPT_RUNS = {f"group16-{o}-{dt}-{kv}": (o, dt, kv) for o, dt, kv in (
+    ("spans", "bfloat16", "16bit"), ("spans", "float16", "e4m3"),
+    ("alibi", "float16", "16bit"), ("alibi", "bfloat16", "e4m3"),
+    ("spans-alibi", "bfloat16", "16bit"), ("spans-alibi", "float16", "e4m3"),
+    ("alibi-softcap", "float16", "16bit"),
+    ("alibi-softcap", "bfloat16", "e4m3"))}
+OPT_ATOL = {"float16": 2e-3, "bfloat16": 1.6e-2}
 
 
-def _ragged_inputs(nq, reqs, rng):
+def _span_rows(spans):
+    """[R, 2, 2] int32 image spans, -1 padding."""
+    arr = np.full((len(spans), 2, 2), -1, np.int32)
+    for r, sp in enumerate(spans):
+        for j, lohi in enumerate(sp):
+            arr[r, j] = lohi
+    return arr
+
+
+def _ragged_inputs(nq, reqs, rng, spans=None, alibi=False, **opts):
     """A mixed wave over requests of (context, new tokens) at the MLA
     geometry, drawn from ``rng``: its fp32 cache and q, the port's ragged
     wrapper and the Pallas kernel (interpret mode, 640 lanes) on them,
-    each as a function of (q, cache) in its own framework."""
+    each as a function of (q, cache) in its own framework; with the image
+    ``spans`` of each request, ALiBi's slopes of nq heads and ``opts``."""
     ctx = [c for c, _ in reqs]
     bt, P = _tables(rng, ctx)
     counts = [n for _, n in reqs]
@@ -85,40 +122,56 @@ def _ragged_inputs(nq, reqs, rng):
     cache = (rng.randn(L, P, 2, 1, PAGE, HD) * 0.3).astype(np.float32)
     q = (rng.randn(T, nq, HD) * 0.3).astype(np.float32)
     scale = 192 ** -0.5  # DeepSeek's qk_head_dim, not the latent width
+    sp = _span_rows(spans) if spans is not None else None
+    slopes = alibi_slopes(nq) if alibi else None
     t = torch.from_numpy
     items = build_work_items(qsl[:-1], np.diff(qsl), seq_lens, R, 4)
     md = AttentionMetadata(
         token_req_idx=t(tok_req), token_pos=t(tok_pos),
         slot_mapping=t(slots.astype(np.int64)), seq_lens=t(seq_lens),
-        block_tables=t(bt), block_q=4, **{k: t(v) for k, v in items.items()})
+        block_tables=t(bt), block_q=4,
+        mm_bidir_spans=None if sp is None else t(sp),
+        **{k: t(v) for k, v in items.items()})
     jmd = JaxMD(
         token_req_idx=jnp.asarray(tok_req), token_pos=jnp.asarray(tok_pos),
         slot_mapping=jnp.asarray(slots), query_start_loc=jnp.asarray(qsl),
         seq_lens=jnp.asarray(seq_lens), block_tables=jnp.asarray(bt),
         num_reqs=jnp.asarray(R, jnp.int32), num_tokens=jnp.asarray(T,
-                                                                   jnp.int32))
+                                                                   jnp.int32),
+        mm_bidir_spans=None if sp is None else jnp.asarray(sp))
     block_q = 1 if nq > 16 else 8
     jmd = dataclasses.replace(jmd, **{
         k: jnp.asarray(v) for k, v in jax_items(
             qsl[:-1], np.diff(qsl), seq_lens, R, T, block_q, R).items()})
     return dict(
         cache=cache, q=q,
-        port=lambda q_, c_: ragged_paged_attention(q_, c_, LAYER, md, scale),
+        port=lambda q_, c_: ragged_paged_attention(
+            q_, c_, LAYER, md, scale, alibi=slopes, **opts),
         pallas=lambda q_, c_: jax_ragged_kernel(
             q_, c_, jmd, scale, block_q=block_q, chunk_pages=2,
-            interpret=True, layer_idx=LAYER)[0])
+            interpret=True, layer_idx=LAYER, alibi=None if slopes is None
+            else tuple(float(x) for x in slopes), **opts)[0])
 
 
-@pytest.mark.parametrize("name", sorted(RAGGED))
+@pytest.mark.parametrize("name", sorted(RAGGED) + sorted(OPT_RUNS))
 def test_ragged_plain_matches_pallas_at_mla_geometry(name):
-    nq, reqs = RAGGED[name]
-    inp = _ragged_inputs(nq, reqs, np.random.RandomState(0))
-    t = torch.from_numpy
-    got = inp["port"](t(inp["q"]), t(inp["cache"])).numpy()
-    kern = np.asarray(inp["pallas"](jnp.asarray(_pad(inp["q"])),
-                                    jnp.asarray(_pad(inp["cache"]))))
+    if name in RAGGED:
+        (nq, reqs), opts, dt, kv = RAGGED[name], {}, "float32", "16bit"
+    else:
+        o, dt, kv = OPT_RUNS[name]
+        (nq, reqs), opts = RAGGED["group16-mixed"], OPTS[o]
+    inp = _ragged_inputs(nq, reqs, np.random.RandomState(0), **opts)
+    jq = jnp.asarray(_pad(inp["q"])).astype(getattr(jnp, dt))
+    jc = jq.dtype if kv == "16bit" else jnp.float8_e4m3fn
+    jc = jnp.asarray(_pad(inp["cache"])).astype(jc)
+    got = inp["port"](*(to_torch(np.array(a))[..., :HD].contiguous()
+                        for a in (jq, jc)))
+    assert got.dtype == getattr(torch, dt)
+    kern = np.asarray(inp["pallas"](jq, jc), np.float32)
     np.testing.assert_array_equal(kern[..., HD:], 0)
-    np.testing.assert_allclose(got, kern[..., :HD], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got.float().numpy(), kern[..., :HD], rtol=0,
+                               atol=ATOL if dt == "float32"
+                               else OPT_ATOL[dt])
 
 
 WINDOW = {  # nq: paged lengths, window step
