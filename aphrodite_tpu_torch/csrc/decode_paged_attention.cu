@@ -13,22 +13,46 @@
 //
 // Bound. At the Gemma-2-9B decode step (R 32, kvh 8, hd 256, ~545 keys) a
 // launch reads ~143 MB of bf16 K/V: bound by bytes, >= 43 us at 3.35 TB/s.
+// At BLOOM-3b's step (32 / 32 heads of 80, ALiBi) it reads ~179 MB, >= 53
+// us; at MPT-30B's (64 / 64 of 112) ~0.50 GB, >= 149 us; at Falcon-7B's
+// (71 query heads of 64 on one KV head) only ~4.5 MB, where the launch is
+// bound by how many blocks it can spread over the card's 132 SMs.
 //
-// dpa_split_tc_kernel (bf16 and fp16 at head_dim 64, 128 or 256, groups <= 16):
-// split-KV on the tensor cores, split::tc_split of csrc/split_decode.cuh
-// (shared with the window kernel; q's dtype a template parameter, fp16's
-// products f32.f16.f16.f32). A request's visible keys, from first_visible(pos)
-// to pos, are cut into tiles (64 keys; 32 at head_dim 256, so that the 2-stage
-// ring and Q take ~76 KB and three blocks share an SM) and the tiles into
-// splits: grid (request, KV head, split), split s taking tiles [s * tps, (s +
-// 1) * tps) and the last split all the rest, so a plan made from too low a
-// bound on the context costs speed, never keys. The host plan
-// (ops/decode_paged_attention.py: decode_plan) is made once a decode window by
-// the runner. Each split writes its unnormalized state to a scratch buffer and
-// dpa_merge_kernel, launched right after it, merges the splits in a fixed
-// order. The soft cap and ALiBi are template switches (a runtime option once
-// cost ~27 % of a window launch through a spill); only the tiles that hold the
-// first visible key or the query take the mask.
+// dpa_split_tc_kernel (bf16 and fp16 at any head_dim that is a multiple of 16
+// up to 256, any group): split-KV on the tensor cores, split::tc_split of
+// csrc/split_decode.cuh (shared with the window kernel; q's dtype a template
+// parameter, fp16's products f32.f16.f16.f32). A request's visible keys, from
+// first_visible(pos) to pos, are cut into tiles (64 keys; 32 at head_dim 256,
+// so that the 2-stage ring and Q take ~76 KB and three blocks share an SM) and
+// the tiles into splits: grid (request, KV head x row slice, split), split s
+// taking tiles [s * tps, (s + 1) * tps) and the last split all the rest, so a
+// plan made from too low a bound on the context costs speed, never keys. The
+// host plan (ops/decode_paged_attention.py: decode_plan) is made once a decode
+// window by the runner. Each split writes its unnormalized state to a scratch
+// buffer and dpa_merge_kernel, launched right after it, merges the splits in a
+// fixed order. The soft cap and ALiBi are template switches (a runtime option
+// once cost ~27 % of a window launch through a spill); only the tiles that hold
+// the first visible key or the query take the mask.
+//
+// Other head dims: the tiles are 64, 128 or 256 wide (the narrowest that
+// holds hd; 32-key tiles past 128) and hd a run-time stride, as in the
+// ragged kernel (csrc/ragged_paged_attention.cu): the copies past hd are
+// zero-filled, so BLOOM-3b's 80 in a 128-wide tile costs shared memory and
+// the padded columns' products, not bytes.
+// Groups past 16 (one m16n8k16 tile of query rows): the group is cut into
+// slices of 16 rows, each slice a block of its own (grid.y = KV head x
+// slice), its rows written to the scratch as a whole group's are, so the
+// merge needs no change and takes each row's splits in order. The other
+// design, several m-tiles a block sharing each staged K/V tile, would
+// read K/V once a (request, KV head, split) but needs an O fragment and
+// a softmax state per m-tile (five at Falcon-7B: past the three blocks an
+// SM that 170 registers a thread allow). The slices re-read the head's
+// tiles, from L2 (Falcon-7B's step holds ~4.5 MB of K/V, the L2 50 MB),
+// and their blocks count in the split plan (decode_plan), which at
+// Falcon-7B's 32 requests x 5 slices gives the card 800 blocks where one
+// block a (request, KV head) gave it 32. Phase 2 of chip_smoke.py times
+// the slices at Falcon-7B's step beside SDPA and the CUDA-core instance;
+// the m-tile design was not built.
 //
 // An fp8 cache (template type KV, e4m3fn or e5m2; a Gemma model with
 // kv_cache_dtype "fp8" decodes here): the TPU kernel upcasts each K/V tile
@@ -37,17 +61,16 @@
 // (split_decode.cuh); dpa_kernel stages the bytes as words and converts
 // each value as it reads it. The bytes bound halves.
 //
-// dpa_kernel (fp32, and bf16 or fp16 at other head dims or larger
-// groups): the
-// first version, in full fp32 (tensor cores would take fp32 through TF32),
-// so that the fp32 parity paths stay token-exact. One block runs one
-// (request, KV head) with its group of query rows; the visible keys are
-// cut into tiles of 32 and warp w takes tiles w, w + W, ... with its own
-// online-softmax state, merged by the block at the end. Each warp stages
-// its tile in its own shared memory in the cache's dtype, as 32-bit words,
-// K rows padded by one word so that lane j, reading key j, hits a distinct
-// bank. The wrapper picks W (4, else 2, else 1) to fit the card's shared
-// memory and passes the bytes; it raises when none fits.
+// dpa_kernel (fp32, and bf16 or fp16 at a head_dim that is not a multiple of
+// 16, or past 256): the first version, in full fp32 (tensor cores would take
+// fp32 through TF32), so that the fp32 parity paths stay token-exact. One block
+// runs one (request, KV head) with its group of query rows; the visible keys
+// are cut into tiles of 32 and warp w takes tiles w, w + W, ... with its own
+// online-softmax state, merged by the block at the end. Each warp stages its
+// tile in its own shared memory in the cache's dtype, as 32-bit words, K rows
+// padded by one word so that lane j, reading key j, hits a distinct bank. The
+// wrapper picks W (4, else 2, else 1) to fit the card's shared memory and
+// passes the bytes; it raises when none fits.
 #include "split_decode.cuh"
 
 namespace {
@@ -260,18 +283,19 @@ dpa_kernel(const T* __restrict__ q, const KV* __restrict__ cache,
 }
 
 // ------------------------------------------ tensor-core split (bf16, fp16)
-// Keys per tile of the tensor-core instance.
+// Keys per tile of the tensor-core instance (by the tiles' width HD).
 template <int HD>
 constexpr int kTcKeys = HD <= 128 ? 64 : 32;
 
 // The decode query's keys for split::tc_split: tile it of the split that
 // starts at tile ta holds positions (t0 + ta + it) * KEYS ...; the keys
-// from lo (the window's and the chunk's first) to pos are visible.
-template <int HD, int KEYS, typename KV>
+// from lo (the window's and the chunk's first) to pos are visible. Rows
+// of the cache are hd (the model's head_dim) values apart.
+template <int KEYS, typename KV>
 struct DecodeKeys {
   const KV* cache;
   const int* bt;
-  int lo, pos, kv_base, kvh, h, page_size, page_shift;
+  int lo, pos, kv_base, kvh, h, hd, page_size, page_shift;
   size_t page_elems;
 
   __device__ __forceinline__ int key(int it, int j) const {
@@ -285,7 +309,7 @@ struct DecodeKeys {
     if (p < lo || p > pos) return false;
     const int pg = page_shift >= 0 ? p >> page_shift : p / page_size;
     const KV* kr = cache + ((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-                   (size_t)(p - pg * page_size) * HD;
+                   (size_t)((p - pg * page_size) * hd);
     *k = reinterpret_cast<const uint8_t*>(kr);
     *v = reinterpret_cast<const uint8_t*>(kr + kvh * page_elems);
     return true;
@@ -302,7 +326,11 @@ struct DecodeKeys {
   }
 };
 
-// Three blocks an SM: at most 170 registers a thread.
+// Three blocks an SM: at most 170 registers a thread. Grid (request, KV
+// head x row slice, split): slice z of a KV head's group takes its query
+// rows [16 z, 16 z + 16), so a group past one mma tile (Falcon-7B's 71
+// query heads on one KV head: 5 slices) runs as that many blocks, each
+// reading the head's K/V tiles (the other slices' reads of them hit L2).
 template <typename T, int HD, bool kCap, bool kAlibi, typename KV>
 __global__ void __launch_bounds__(split::kThreads, 3)
 dpa_split_tc_kernel(const T* __restrict__ q,
@@ -312,12 +340,16 @@ dpa_split_tc_kernel(const T* __restrict__ q,
                     const int* __restrict__ seq_lens,
                     const int* __restrict__ block_tables,
                     const float* __restrict__ alibi, int max_pages, int nq,
-                    int kvh, int page_size, float scale, int sliding_window,
-                    int chunk_attn, float soft_cap, int tiles_per_split) {
+                    int kvh, int page_size, int hd, float scale,
+                    int sliding_window, int chunk_attn, float soft_cap,
+                    int tiles_per_split) {
   constexpr int KEYS = kTcKeys<HD>;
-  const int r = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int r = blockIdx.x, split = blockIdx.z;
   const int splits = gridDim.z, group = nq / kvh;
-  DecodeKeys<HD, KEYS, KV> keys;
+  const int slices = gridDim.y / kvh;
+  const int h = blockIdx.y / slices, slice = blockIdx.y - h * slices;
+  const int g0 = slice * 16, rows = min(16, group - g0);
+  DecodeKeys<KEYS, KV> keys;
   keys.cache = cache;
   keys.bt = block_tables + (size_t)r * max_pages;
   keys.pos = seq_lens[r] - 1;  // -1 for an empty row: no tile
@@ -334,15 +366,16 @@ dpa_split_tc_kernel(const T* __restrict__ q,
   keys.kv_base = (t0 + ta) * KEYS;
   keys.kvh = kvh;
   keys.h = h;
+  keys.hd = hd;
   keys.page_size = page_size;
   keys.page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
-  keys.page_elems = (size_t)page_size * HD;
+  keys.page_elems = (size_t)page_size * hd;
   const int n_my = split::my_tiles(n, ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_dpa[];
   split::tc_split<T, HD, KEYS, kCap, kAlibi, KV>(
-      q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap,
-      kAlibi ? alibi + h * group : nullptr, keys, part_acc, part_m, part_l,
-      split, splits, smem_dpa);
+      q, (size_t)r * nq + h * group + g0, rows, hd, n_my, scale, soft_cap,
+      kAlibi ? alibi + h * group + g0 : nullptr, keys, part_acc, part_m,
+      part_l, split, splits, smem_dpa);
 }
 
 // One block a query row (r * nq + query head): split::merge_row.
@@ -376,18 +409,19 @@ int split_tc(const TcArgs& a) {
   cudaError_t err =
       mma::allow_smem<dpa_split_tc_kernel<T, HD, kCap, kAlibi, KV>>(kSmem);
   if (err != cudaSuccess) return (int)err;
+  const int slices = (a.nq / a.kvh + 15) / 16;
   dpa_split_tc_kernel<T, HD, kCap, kAlibi, KV>
-      <<<dim3(a.num_reqs, a.kvh, a.splits), split::kThreads, kSmem,
+      <<<dim3(a.num_reqs, a.kvh * slices, a.splits), split::kThreads, kSmem,
          a.stream>>>(static_cast<const T*>(a.q),
                      static_cast<const KV*>(a.cache), a.part_acc,
                      a.part_m, a.part_l, a.seq_lens, a.block_tables, a.alibi,
-                     a.max_pages, a.nq, a.kvh, a.page_size, a.scale,
+                     a.max_pages, a.nq, a.kvh, a.page_size, a.hd, a.scale,
                      a.sliding_window, a.chunk_attn, a.soft_cap,
                      a.tiles_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dpa_merge_kernel<T><<<a.num_reqs * a.nq, 128, 0, a.stream>>>(
-      a.part_acc, a.part_m, a.part_l, static_cast<T*>(a.out), HD,
+      a.part_acc, a.part_m, a.part_l, static_cast<T*>(a.out), a.hd,
       a.splits);
   return (int)cudaGetLastError();
 }
@@ -401,11 +435,14 @@ int split_tc(const TcArgs& a) {
   return split_tc<T, HD, false, false, KV>(a);
 }
 
+// The tiles' width: the narrowest of 64, 128 and 256 that holds hd (a
+// multiple of 16).
 template <typename T, typename KV>
 int split_tc_hd(const TcArgs& a) {
-  if (a.hd == 64) return split_tc<T, 64, KV>(a);
-  if (a.hd == 128) return split_tc<T, 128, KV>(a);
-  if (a.hd == 256) return split_tc<T, 256, KV>(a);
+  if (a.hd < 16 || a.hd % 16) return (int)cudaErrorInvalidValue;
+  if (a.hd <= 64) return split_tc<T, 64, KV>(a);
+  if (a.hd <= 128) return split_tc<T, 128, KV>(a);
+  if (a.hd <= 256) return split_tc<T, 256, KV>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -461,7 +498,8 @@ int launch_kv(int kv_dtype, const void* q, const void* cache, void* out,
 }  // namespace
 
 // One call, on `stream`. tensor_cores: the bf16 or fp16 split instance (dtype 1
-// or 2; head_dim 64, 128 or 256, nq / kvh <= 16): the split kernel over
+// or 2; head_dim a multiple of 16 up to 256, any group, cut into slices of
+// 16 query rows): the split kernel over
 // `splits` splits of `tiles_per_split` tiles, then the merge; part_acc [R, nq,
 // splits, hd], part_m and part_l [R, nq, splits] fp32 scratch. Else dpa_kernel
 // with `warps` warps and `smem_bytes` of shared memory (computed by the
@@ -481,8 +519,7 @@ extern "C" int dpa_launch(int dtype, int kv_dtype, int tensor_cores,
   auto s = static_cast<cudaStream_t>(stream);
   if (kvh <= 0 || nq % kvh) return (int)cudaErrorInvalidValue;
   if (tensor_cores) {
-    if (nq / kvh > 16 || splits < 1 || tiles_per_split < 1)
-      return (int)cudaErrorInvalidValue;
+    if (splits < 1 || tiles_per_split < 1) return (int)cudaErrorInvalidValue;
     const TcArgs a{q, cache_layer, out, part_acc, part_m, part_l, seq_lens,
                    block_tables, alibi, num_reqs, max_pages, nq, kvh,
                    page_size, hd, scale, sliding_window, chunk_attn,

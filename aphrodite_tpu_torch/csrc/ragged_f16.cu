@@ -7,7 +7,7 @@
 #include "ragged_tc.cuh"
 
 // The fp16 tensor-core kernel without image spans (dtype must be
-// kFloat16; head_dim 64, 128 or 256; the cache fp16 or fp8, kv_dtype a
+// kFloat16; head_dim a multiple of 16 up to 256; the cache fp16 or fp8, kv_dtype a
 // KvDtype code; alibi [nq] fp32 slopes or null; spans must be null:
 // csrc/ragged_spans_f16.cu takes them).
 // block_q * (nq / kvh) must fit the instance's rows, as rpa_tc_launch's.

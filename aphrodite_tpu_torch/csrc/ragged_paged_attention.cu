@@ -20,12 +20,31 @@
 // contexts, 32 / 8 heads of 128) is ~292 GFLOP of QK^T and PV against
 // ~0.87 GB of q, K/V and output: bound by operations, >= 0.30 ms at the
 // bf16 tensor-core peak. The 8B wave (32 x 512) is ~0.34 GB against
-// ~69 GFLOP: bound by bytes, >= 0.10 ms.
+// ~69 GFLOP: bound by bytes, >= 0.10 ms. BLOOM-3b's wave (32 x 512, 32 /
+// 32 heads of 80, ALiBi) moves ~0.34 GB (q 84 MB, K/V 168 MB, output
+// 84 MB) against ~43 GFLOP: bound by bytes, >= 0.10 ms, as the 8B wave.
 //
-// rpa_tc_kernel (bf16 and fp16 at head_dim 64, 128 and 256):
+// rpa_tc_kernel (bf16 and fp16 at any head_dim that is a multiple of 16
+// up to 256: BLOOM's 80 and 96, MPT-30B's 112, tiny models' 32 and 48):
 // FlashAttention-2 on mma.sync m16n8k16 (bf16 or fp16 in, fp32
 // accumulate; the element type T a template parameter, so one source
-// serves both). A block is 4 warps and
+// serves both). The instances are built at three tile widths HD (64, 128
+// and 256); a head_dim hd runs in the narrowest that holds it. hd is a
+// run-time argument: q, the cache and the output stride by it, and the
+// 16-byte copies of Q, K and V past a row's hd columns are zero-filled
+// (cp.async with no source bytes), so the products over the padded columns
+// add zeros and the store leaves them out. The padding costs no bytes of
+// device memory; it costs shared memory, O's registers and the padded
+// columns' products (hd 80 in a 128-wide tile: 60 % more mma than the
+// head needs; the wave stays bound by bytes). Uniform branches that
+// skipped the padded k-steps and n-tiles instead (one source, no padded
+// products) cost the instances at 64, 128 and 256 4-30 % of their device
+// time (chip_smoke.py --ab, PERF.md): the loops keep their compile-time
+// bounds, so ptxas schedules the ldmatrix loads across k-steps as before;
+// the strides and the copies' tests still cost the 64- and 128-wide
+// instances 1-2 %. No instance was added (each instance set costs the parallel build
+// 15-35 s, PERF.md); a multiple of 16 because an fp8 row stages 16 values
+// a 16-byte copy and a k-step takes 16. A block is 4 warps and
 // two blocks share an SM, so that one block's loads and barriers overlap
 // the other's products. At head_dim <= 128 each warp owns 32 rows (two
 // 16-row m-tiles, so every K and V fragment read from shared memory
@@ -113,8 +132,8 @@
 // The scalar instance takes __half as one more type, where bf16 would go
 // there too.
 //
-// rpa_kernel (fp32, and bf16 or fp16 at other head dims): the first
-// version, kept
+// rpa_kernel (fp32, and bf16 or fp16 at a head_dim that is not a
+// multiple of 16, or past 256 but MLA's 576): the first version, kept
 // so that the fp32 parity paths stay exact (tensor cores would take fp32
 // through TF32): rows in shared memory as float, 32-key tiles staged by
 // all threads, one warp a row, lane j owning key j. Where one token's group
@@ -132,7 +151,7 @@
 
 namespace {
 
-// ------------------------------------ scalar kernel (fp32; other head dims)
+// -------- scalar kernel (fp32; bf16 / fp16 at head dims not a multiple of 16)
 constexpr int kWarps = 8;
 
 template <typename T, typename KV>
@@ -276,14 +295,13 @@ int launch_kv(int kv_dtype, const void* q, const void* cache_layer,
 
 }  // namespace
 
-// The scalar kernel (fp32, bf16 or fp16 q, any head_dim; the cache in q's
-// dtype
-// or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or null; spans
-// int32 [R, num_spans, 2] image spans or null). A work
-// item's block_q * (nq / kvh) rows are cut into slices of block_rows, one
-// block each (grid.z), so that a group larger than a block's rows (MLA's
-// 128 query heads on one KV head) launches
-// (ops/ragged_paged_attention.py ragged_block_rows).
+// The scalar kernel (fp32, bf16 or fp16 q, any head_dim: the wrapper sends it
+// fp32, and bf16 / fp16 only at a head_dim that is not a multiple of 16; the
+// cache in q's dtype or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or
+// null; spans int32 [R, num_spans, 2] image spans or null). A work item's
+// block_q * (nq / kvh) rows are cut into slices of block_rows, one block each
+// (grid.z), so that a group larger than a block's rows (MLA's 128 query heads
+// on one KV head) launches (ops/ragged_paged_attention.py ragged_block_rows).
 extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
                           const void* cache_layer, void* out,
                           const int* item_req, const int* item_qstart,
@@ -325,11 +343,12 @@ extern "C" int rpa_launch(int dtype, int kv_dtype, const void* q,
 }
 
 // The bf16 tensor-core kernel without image spans (dtype must be
-// kBFloat16: csrc/ragged_f16.cu takes fp16; head_dim 64, 128 or 256; the
+// kBFloat16: csrc/ragged_f16.cu takes fp16; head_dim a multiple of 16 up
+// to 256, in tiles 64, 128 or 256 wide; the
 // cache bf16 or fp8, kv_dtype a KvDtype code; alibi [nq] fp32 slopes or
 // null; spans must be null: csrc/ragged_spans.cu takes them). block_q *
-// (nq / kvh) must fit the instance's rows (128 at head_dim <= 128, 64 at
-// 256: ops/ragged_paged_attention.py ragged_tc_block_q).
+// (nq / kvh) must fit the instance's rows (128 at head_dim <= 128, 64
+// past it: ops/ragged_paged_attention.py ragged_tc_block_q).
 extern "C" int rpa_tc_launch(int dtype, int kv_dtype, const void* q,
                              const void* cache_layer, void* out,
                              const int* item_req, const int* item_qstart,

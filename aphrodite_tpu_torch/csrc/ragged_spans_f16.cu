@@ -9,8 +9,8 @@
 #include "ragged_tc.cuh"
 
 // The fp16 tensor-core kernel with image spans (dtype must be kFloat16:
-// csrc/ragged_spans.cu takes bf16; head_dim 64, 128 or 256; the cache
-// fp16 or fp8, kv_dtype a KvDtype code; spans int32 [R, num_spans, 2] (lo,
+// csrc/ragged_spans.cu takes bf16; head_dim a multiple of 16 up to 256;
+// the cache fp16 or fp8, kv_dtype a KvDtype code; spans int32 [R, num_spans, 2] (lo,
 // hi) per image, -1 padding; alibi [nq] fp32 slopes or null). block_q *
 // (nq / kvh) must fit the instance's rows.
 extern "C" int rpa_tc_spans_f16_launch(int dtype, int kv_dtype,

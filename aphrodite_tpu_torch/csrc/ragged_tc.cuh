@@ -1,5 +1,6 @@
 // The ragged kernel's tensor-core instance (rpa_tc_kernel, bf16 and fp16
-// at head_dim 64, 128 and 256), shared by the four translation units that
+// at any head_dim that is a multiple of 16 up to 256, in tiles 64, 128 or
+// 256 wide), shared by the four translation units that
 // instantiate it: csrc/ragged_paged_attention.cu (bf16 without spans; the
 // scalar instance too), csrc/ragged_f16.cu (fp16 without spans),
 // csrc/ragged_spans.cu and csrc/ragged_spans_f16.cu (the bf16 and fp16
@@ -18,7 +19,9 @@ namespace {
 // 4 warps; each owns kMT 16-row m-tiles (2 at head_dim <= 128: the B
 // fragments of K and V serve both; 1 at 256, where O alone is 128
 // registers a thread). Two blocks fit an SM's registers and shared memory.
-// An fp8 cache adds a ring of staged bytes.
+// An fp8 cache adds a ring of staged bytes. HD is the tiles' width; the
+// model's head_dim hd (a multiple of 16, at most HD) is a run-time
+// argument, and every global address strides by it.
 template <int HD, typename KV>
 struct TcCfg {
   static constexpr int kMT = HD <= 128 ? 2 : 1;       // m-tiles a warp
@@ -52,7 +55,8 @@ rpa_tc_kernel(const T* __restrict__ q,
               const int* __restrict__ item_pos,
               const int* __restrict__ seq_lens,
               const int* __restrict__ block_tables, int max_pages, int nq,
-              int kvh, int page_size, float scale, int sliding_window,
+              int kvh, int page_size, int hd, float scale,
+              int sliding_window,
               int chunk_attn, float soft_cap,
               const float* __restrict__ alibi,
               const int* __restrict__ spans, int num_spans) {
@@ -64,6 +68,14 @@ rpa_tc_kernel(const T* __restrict__ q,
   // 16-byte copies a K (or V) row takes: 8 16-bit or 16 fp8 values each.
   constexpr int KCPR = kFp8 ? HD / 16 : CPR;
   constexpr int NT = BN / 8, DT = HD / 8;  // n-tiles of S and of O
+  // The 16-byte copies of a row past the model's hd columns are
+  // zero-filled (Q, K and V alike, so the products over the padded columns
+  // add zeros) and the output's padded columns are not stored. The loops
+  // keep their compile-time bounds; what hd adds to an instance at
+  // hd == HD is its strides and these tests, 1-2 % of its device time at
+  // widths 64 and 128 and ~0 at 256 (PERF.md). A row's offset in its page
+  // is multiplied in 32 bits (it is below page_size * hd).
+  constexpr int kCopyElems = kFp8 ? 16 : 8;  // values a K/V copy moves
   const int item = blockIdx.x, h = blockIdx.y;
   const int group = nq / kvh;
   const int req = item_req[item], qstart = item_qstart[item];
@@ -77,7 +89,7 @@ rpa_tc_kernel(const T* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int* bt = block_tables + (size_t)req * max_pages;
-  const size_t page_elems = (size_t)page_size * HD;
+  const size_t page_elems = (size_t)page_size * hd;
   const int page_shift = __popc(page_size) == 1 ? __ffs(page_size) - 1 : -1;
   // Softmax units: the raw logit q.k without a cap (scale folded into the
   // exponent), the capped scaled logit with one.
@@ -91,22 +103,23 @@ rpa_tc_kernel(const T* __restrict__ q,
   uint8_t* stg = reinterpret_cast<uint8_t*>(smem_tc) + C::kRing;
 
   // Q, row r = token r / group, query head h * group + r % group; rows
-  // past the item are zero.
+  // past the item, and columns past hd, are zero.
 #pragma unroll 4
   for (int k = 0; k < C::kRows * CPR / C::kThreads; ++k) {
     const int i = tid + k * C::kThreads;
     const int r = i / CPR, c = i - r * CPR;
-    const bool ok = r < rows;
+    const bool ok = r < rows && c * 8 < hd;
     const T* src = q;
     if (ok) {
       const int t = r / group, g = r - t * group;
-      src = q + ((size_t)(qstart + t) * nq + h * group + g) * HD + c * 8;
+      src = q + ((size_t)(qstart + t) * nq + h * group + g) * hd + c * 8;
     }
     cp_async16(q_s + r * P + c * 8, src, ok);
   }
   // K/V tile t (keys t * BN ...) into ring stage `stage` (fp8: its
   // staged bytes), each thread finding its key rows' pages; keys at or
-  // past kv_limit are zero. Copy c of a row is its bytes [16 c, 16 c + 16).
+  // past kv_limit, and copies past the row's hd columns, are zero. Copy c
+  // of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int t, int stage) {
     T* ks = kv_s + (size_t)stage * 2 * BN * P;
     uint8_t* kb = stg + (size_t)stage * 2 * BN * HD;
@@ -115,12 +128,12 @@ rpa_tc_kernel(const T* __restrict__ q,
       const int i = tid + k * C::kThreads;
       const int j = i / KCPR, c = i - j * KCPR;
       const int pos = t * BN + j;
-      const bool ok = pos < kv_limit;
+      const bool ok = pos < kv_limit && c * kCopyElems < hd;
       const uint8_t* src = reinterpret_cast<const uint8_t*>(cache);
       if (ok) {
         const int pg = page_shift >= 0 ? pos >> page_shift : pos / page_size;
         src += (((size_t)bt[pg] * 2 * kvh + h) * page_elems +
-                (size_t)(pos - pg * page_size) * HD) * sizeof(KV) + c * 16;
+                (size_t)((pos - pg * page_size) * hd)) * sizeof(KV) + c * 16;
       }
       const uint8_t* vsrc = ok ? src + kvh * page_elems * sizeof(KV) : src;
       if constexpr (kFp8) {
@@ -379,11 +392,13 @@ rpa_tc_kernel(const T* __restrict__ q,
       const float inv = 1.f / fmaxf(l, 1e-20f);
       const int t = row / group, g = row - t * group;
       T* dst =
-          out + ((size_t)(qstart + t) * nq + h * group + g) * HD + 2 * tq;
+          out + ((size_t)(qstart + t) * nq + h * group + g) * hd + 2 * tq;
 #pragma unroll
-      for (int d = 0; d < DT; ++d)
+      for (int d = 0; d < DT; ++d) {
+        if (d * 8 >= hd) break;  // the hd columns stored
         *reinterpret_cast<uint32_t*>(dst + d * 8) =
             pack<T>(o[mt][d][2 * hf] * inv, o[mt][d][2 * hf + 1] * inv);
+      }
     }
 }
 
@@ -393,9 +408,10 @@ int launch_tc(const void* q, const void* cache, void* out,
               const int* item_req, const int* item_qstart,
               const int* item_qlen, const int* item_pos, const int* seq_lens,
               const int* block_tables, int num_items, int max_pages, int nq,
-              int kvh, int page_size, float scale, int sliding_window,
-              int chunk_attn, float soft_cap, const float* alibi,
-              const int* spans, int num_spans, cudaStream_t stream) {
+              int kvh, int page_size, int hd, float scale,
+              int sliding_window, int chunk_attn, float soft_cap,
+              const float* alibi, const int* spans, int num_spans,
+              cudaStream_t stream) {
   using C = TcCfg<HD, KV>;
   const cudaError_t err =
       mma::allow_smem<rpa_tc_kernel<T, HD, kCap, kAlibi, kSpans, KV>>(
@@ -405,16 +421,17 @@ int launch_tc(const void* q, const void* cache, void* out,
       <<<dim3(num_items, kvh), C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(cache),
       static_cast<T*>(out), item_req, item_qstart, item_qlen,
-      item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size, scale,
-      sliding_window, chunk_attn, soft_cap, alibi, spans, num_spans);
+      item_pos, seq_lens, block_tables, max_pages, nq, kvh, page_size, hd,
+      scale, sliding_window, chunk_attn, soft_cap, alibi, spans, num_spans);
   return (int)cudaGetLastError();
 }
 
 // The tensor-core kernel's launch for the instances of element type T
 // (q's dtype code `dtype` must name it: the entry runs no other type's
-// instance) with (kSpans) or without image spans: the switches of head_dim,
-// the cache's dtype, the soft cap and ALiBi (the span instances take the
-// slopes as a uniform branch). Returns a cudaError_t.
+// instance) with (kSpans) or without image spans: the switches of the
+// tiles' width (the narrowest of 64, 128 and 256 that holds hd, a multiple
+// of 16), the cache's dtype, the soft cap and ALiBi (the span instances
+// take the slopes as a uniform branch). Returns a cudaError_t.
 template <bool kSpans, typename T>
 int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
                     const void* cache_layer, void* out,
@@ -430,11 +447,12 @@ int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
   constexpr int kCode =
       std::is_same<T, __half>::value ? kFloat16 : kBFloat16;
   if (dtype != kCode || kvh <= 0 || nq % kvh || block_q <= 0 ||
-      (spans != nullptr) != kSpans || (kSpans && num_spans <= 0))
+      hd < 16 || hd % 16 || (spans != nullptr) != kSpans ||
+      (kSpans && num_spans <= 0))
     return (int)cudaErrorInvalidValue;
   const int rows = block_q * (nq / kvh);
 #define RPA_TC(HD, KV)                                                      \
-  if (hd == HD) {                                                           \
+  if (hd <= HD) {                                                           \
     if (rows > TcCfg<HD, KV>::kRows) return (int)cudaErrorInvalidValue;     \
     return (cap ? (ali ? launch_tc<T, HD, true, !kSpans, kSpans, KV>        \
                        : launch_tc<T, HD, true, false, kSpans, KV>)         \
@@ -442,7 +460,7 @@ int rpa_tc_dispatch(int dtype, int kv_dtype, const void* q,
                        : launch_tc<T, HD, false, false, kSpans, KV>))(      \
         q, cache_layer, out, item_req, item_qstart, item_qlen, item_pos,    \
         seq_lens, block_tables, num_items, max_pages, nq, kvh, page_size,   \
-        scale, sliding_window, chunk_attn, soft_cap, alibi, spans,          \
+        hd, scale, sliding_window, chunk_attn, soft_cap, alibi, spans,      \
         num_spans, s);                                                      \
   }
 #define RPA_TC_KV(KV) \

@@ -1,36 +1,40 @@
-// Split-KV decode attention on the tensor cores, shared by the window
-// kernel (csrc/window_decode_attention.cu) and the decode kernel
-// (csrc/decode_paged_attention.cu): one query token a request, its
-// visible keys cut into tiles and the tiles into splits, one block a
-// (request, KV head, split). Each block writes its unnormalized state
+// Split-KV decode attention on the tensor cores, shared by the window kernel
+// (csrc/window_decode_attention.cu) and the decode kernel
+// (csrc/decode_paged_attention.cu): one query token a request, its visible
+// keys cut into tiles and the tiles into splits, one block a (request, KV
+// head, split; the decode kernel also cuts a group past 16 query heads into
+// row slices of 16, a block each). Each block writes its unnormalized state
 // (acc [group, hd], m, l; m in the scaled logit's units) to a scratch
 // buffer, and a merge launched right after it on the same stream adds the
 // splits in a fixed order (an init state first where there is one): no
 // atomics, so a run is deterministic.
 //
-// The tile loop (tc_split): 4 warps stage each tile of K and V in q's
-// dtype T (bf16 or fp16, a template parameter) by 16-byte cp.async,
-// double buffered, every thread finding its key row's
-// source through the caller's key policy (pages through the block table,
-// or the window's tail). A tile of an fp8 cache (or of the window's e4m3
-// tail) is staged as its bytes in a second double-buffered ring and
-// converted into the tile of T once it lands (attn::convert_rows): the
-// products then run as on a cache of q's dtype, as the TPU kernels upcast
-// fp8 K/V to q's dtype before both products. Under fp16 queries the
-// window's bf16 tails (beside an e5m2 cache) are staged as they are and
-// converted to fp16 in place (attn::bf16_rows_to_f16: exact inside fp16's
-// range), so that both products of every tile take fp16 operands; the
-// Pallas kernel multiplies fp16 q by the bf16 tail in fp32 and rounds the
-// tail's P to bf16 (window_decode_attention.py:182-187, 127-129), which
-// this kernel rounds to fp16. The group's query rows are padded to 16 as
-// the A operand of mma.sync m16n8k16 (in registers at head_dim <= 128, re-read
-// from shared memory at 256). A tile of kKeys keys gives each of kKeys /
-// 16 warps its own 16 keys; where that leaves warps over (32-key tiles),
-// the warps that share 16 keys split the head dim of P V between them
-// and compute the same logits. The soft cap and ALiBi are template
-// switches, so an instance without them pays nothing; the mask is a
-// uniform branch taken only on the tiles the policy cannot show to be
-// wholly visible. At the end the block merges its warps' states in shared
+// The tile loop (tc_split): 4 warps stage each tile of K and V in q's dtype
+// T (bf16 or fp16, a template parameter) by 16-byte cp.async, double
+// buffered, every thread finding its key row's source through the caller's
+// key policy (pages through the block table, or the window's tail). A tile
+// of an fp8 cache (or of the window's e4m3 tail) is staged as its bytes in a
+// second double-buffered ring and converted into the tile of T once it lands
+// (attn::convert_rows): the products then run as on a cache of q's dtype, as
+// the TPU kernels upcast fp8 K/V to q's dtype before both products. Under
+// fp16 queries the window's bf16 tails (beside an e5m2 cache) are staged as
+// they are and converted to fp16 in place (attn::bf16_rows_to_f16: exact
+// inside fp16's range), so that both products of every tile take fp16
+// operands; the Pallas kernel multiplies fp16 q by the bf16 tail in fp32 and
+// rounds the tail's P to bf16 (window_decode_attention.py:182-187, 127-129),
+// which this kernel rounds to fp16. The block's query rows (at most 16) are
+// padded to 16 as the A operand of mma.sync m16n8k16 (in registers in tiles
+// up to 128 wide, re-read from shared memory at 256). The tiles are HD wide
+// (64, 128 or 256) and the model's head_dim hd (a multiple of 16, at most
+// HD) is a run-time argument: global rows stride by hd, the copies past it
+// are zero-filled and the state's padded columns not written (the window
+// kernel passes hd = HD, so its instances compile as before). A tile of
+// kKeys keys gives each of kKeys / 16 warps its own 16 keys; where that
+// leaves warps over (32-key tiles), the warps that share 16 keys split the
+// head dim of P V between them and compute the same logits. The soft cap and
+// ALiBi are template switches, so an instance without them pays nothing; the
+// mask is a uniform branch taken only on the tiles the policy cannot show to
+// be wholly visible. At the end the block merges its warps' states in shared
 // memory (the ring's space).
 #pragma once
 
@@ -65,17 +69,19 @@ __device__ __forceinline__ void write_state(float* part_acc, float* part_m,
   }
 }
 
-// Merge of W per-warp states in shared memory (acc [W][16][hd], m and l
-// [W][16], pitch 16 rows) into the block's state, written to the scratch.
+// Merge of W per-warp states in shared memory (acc [W][16][pitch], m and
+// l [W][16], pitch 16 rows) into the block's state of `group` rows and hd
+// columns, written to the scratch.
 __device__ __forceinline__ void merge_warps(const float* acc_w,
                                             const float* m_w,
                                             const float* l_w, int n_warps,
-                                            int group, int hd, size_t row0,
-                                            int split, int splits,
-                                            float* part_acc, float* part_m,
-                                            float* part_l) {
-  for (int i = threadIdx.x; i < group * hd; i += blockDim.x) {
-    const int g = i / hd, d = i - g * hd;
+                                            int group, int hd, int pitch,
+                                            size_t row0, int split,
+                                            int splits, float* part_acc,
+                                            float* part_m, float* part_l) {
+  for (int i = threadIdx.x; i < group * pitch; i += blockDim.x) {
+    const int g = i / pitch, d = i - g * pitch;
+    if (d >= hd) continue;  // a padded column
     float m = -INFINITY;
     for (int w = 0; w < n_warps; ++w) m = fmaxf(m, m_w[w * 16 + g]);
     float acc = 0.f, l = 0.f;
@@ -84,7 +90,7 @@ __device__ __forceinline__ void merge_warps(const float* acc_w,
         const float mw = m_w[w * 16 + g];
         if (mw == -INFINITY) continue;
         const float c = expf(mw - m);
-        acc += acc_w[((size_t)w * 16 + g) * hd + d] * c;
+        acc += acc_w[((size_t)w * 16 + g) * pitch + d] * c;
         l += l_w[w * 16 + g] * c;
       }
     }
@@ -149,16 +155,22 @@ struct TcCfg {
 };
 
 // One block's split on the tensor cores. Rows row0 .. row0 + group - 1 of
-// q [*, HD] (of T: __nv_bfloat16 or __half) are the group's queries; the
-// block walks n_my tiles, tile it of its split. Keys (a policy object)
+// q [*, hd] (of T: __nv_bfloat16 or __half; group at most 16, one mma
+// tile: a larger group is cut into slices of 16 rows by the caller) are
+// the queries; the block walks n_my tiles, tile it of its split. HD is the
+// tiles' width, hd (a multiple of 16, at most HD) the model's head_dim:
+// the copies of Q, K and V past hd are zero-filled (the products over the
+// padded columns add zeros) and the state's padded columns not written, so
+// the loops keep their compile-time bounds and an instance at hd == HD (the
+// window kernel's, always) compiles as before. Keys (a policy object)
 // answers, for key j of tile it:
 //   bool fp8(it): the tile's rows are fp8 of type KV (staged and
 //     converted), else 16-bit;
 //   bool recast(it): the 16-bit rows are bf16 under fp16 queries
 //     (converted in place);
 //   bool kv(it, j, const uint8_t** k, const uint8_t** v): the first bytes
-//     of its K and V rows, or false where the key is hidden (it is then
-//     not read: zeros);
+//     of its K and V rows (hd values each), or false where the key is
+//     hidden (it is then not read: zeros);
 //   bool full(it): every key of the tile is visible (the mask is skipped);
 //   bool visible(it, j): whether the key is visible;
 //   int rel_pos(it, j): its position less the query's (needed by kAlibi
@@ -169,7 +181,7 @@ struct TcCfg {
 template <typename T, int HD, int KEYS, bool kCap, bool kAlibi, typename KV,
           class Keys>
 __device__ __forceinline__ void tc_split(
-    const T* __restrict__ q, size_t row0, int group, int n_my,
+    const T* __restrict__ q, size_t row0, int group, int hd, int n_my,
     float scale, float soft_cap, const float* __restrict__ slopes,
     const Keys& keys, float* __restrict__ part_acc,
     float* __restrict__ part_m, float* __restrict__ part_l, int split,
@@ -178,6 +190,7 @@ __device__ __forceinline__ void tc_split(
   using C = TcCfg<HD, KEYS, KV>;
   constexpr int P = C::kPitch, CPR = HD / 8;
   constexpr int DW = HD / C::kDimWarps;  // head dims of a warp's P V
+  const int cpr = hd / 8;  // 16-byte copies of a row's hd columns
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
   const int kw = warp % C::kKeyWarps, dw = warp / C::kKeyWarps;
@@ -197,12 +210,12 @@ __device__ __forceinline__ void tc_split(
 
   for (int i = tid; i < 16 * CPR; i += kThreads) {
     const int g = i / CPR, c = i - g * CPR;
-    const bool ok = g < group;
-    cp_async16(q_s + g * P + c * 8, ok ? q + (row0 + g) * HD + c * 8 : q, ok);
+    const bool ok = g < group && c < cpr;
+    cp_async16(q_s + g * P + c * 8, ok ? q + (row0 + g) * hd + c * 8 : q, ok);
   }
   // Tile it into stage `stage` (an fp8 tile: its bytes into the staging
-  // ring's stage); hidden keys are not read (zeros). Copy c of a row is
-  // its bytes [16 c, 16 c + 16).
+  // ring's stage); hidden keys, and copies past hd, are not read (zeros).
+  // Copy c of a row is its bytes [16 c, 16 c + 16).
   auto load_tile = [&](int it, int stage) {
     const uint8_t *ksrc = nullptr, *vsrc = nullptr;
     if (attn::is_fp8<KV> && keys.fp8(it)) {
@@ -211,7 +224,7 @@ __device__ __forceinline__ void tc_split(
       for (int u = 0; u < KEYS * HD / 16 / kThreads; ++u) {
         const int i = tid + u * kThreads;
         const int j = i / (HD / 16), c = i - j * (HD / 16);
-        const bool ok = keys.kv(it, j, &ksrc, &vsrc);
+        const bool ok = keys.kv(it, j, &ksrc, &vsrc) && 2 * c < cpr;
         cp_async16(kb + j * HD + c * 16, ok ? ksrc + c * 16 : (const void*)q,
                    ok);
         cp_async16(kb + (KEYS + j) * HD + c * 16,
@@ -225,7 +238,7 @@ __device__ __forceinline__ void tc_split(
     for (int u = 0; u < KEYS * CPR / kThreads; ++u) {
       const int i = tid + u * kThreads;
       const int j = i / CPR, c = i - j * CPR;
-      const bool ok = keys.kv(it, j, &ksrc, &vsrc);
+      const bool ok = keys.kv(it, j, &ksrc, &vsrc) && c < cpr;
       cp_async16(ks + j * P + c * 8, ok ? ksrc + c * 16 : (const void*)q, ok);
       cp_async16(vs + j * P + c * 8, ok ? vsrc + c * 16 : (const void*)q, ok);
     }
@@ -381,8 +394,8 @@ __device__ __forceinline__ void tc_split(
     l_w[kw * 16 + gq + 8] = l_b;
   }
   __syncthreads();
-  merge_warps(acc_w, m_w, l_w, C::kKeyWarps, group, HD, row0, split, splits,
-              part_acc, part_m, part_l);
+  merge_warps(acc_w, m_w, l_w, C::kKeyWarps, group, hd, HD, row0, split,
+              splits, part_acc, part_m, part_l);
 }
 
 }  // namespace split

@@ -198,7 +198,7 @@ wd_split_tc_kernel(const T* __restrict__ q,
       my_tiles(keys.tl.n, keys.ta, tiles_per_split, split, splits);
   extern __shared__ uint4 smem_wd[];
   split::tc_split<T, HD, kKeys, kCap, false, KV>(
-      q, (size_t)r * nq + h * group, group, n_my, scale, soft_cap, nullptr,
+      q, (size_t)r * nq + h * group, group, HD, n_my, scale, soft_cap, nullptr,
       keys, part_acc, part_m, part_l, split, splits, smem_wd);
 }
 

@@ -9,14 +9,19 @@ K/V the step has already written; it attends the request's positions
 0..seq_lens[r] - 1. The runner's non-window multi-step decode
 (``worker/runner.py: _execute_multi_step``) is its caller.
 
-In bf16 and fp16 at head_dim 64, 128 or 256 (groups up to 16) the kernel
-splits each request's visible keys into tiles (``decode_tile_keys``) and
-the tiles into ``splits`` ranges, one block each, the last split taking
-whatever is left; each block writes an unnormalized (acc, m, l) state and
-a second kernel merges them in a fixed order. ``decode_plan`` makes the
-launch geometry, the split plan and the states' scratch once for all the
-layers and sub-steps of a decode window. fp32 (and other head dims or
-larger groups) runs one block a (request, KV head) on the CUDA cores.
+In bf16 and fp16 at any head_dim that is a multiple of 16 up to 256, and
+any group (``decode_uses_tensor_cores``), the kernel runs on the tensor
+cores: it splits each request's visible keys into tiles
+(``decode_tile_keys``) and the tiles into ``splits`` ranges, and a KV
+head's group of query rows into slices of 16 (one mma tile,
+``decode_row_slices``), one block a (request, KV head, slice, split), the
+last split taking whatever is left; each block writes an unnormalized
+(acc, m, l) state of its rows and a second kernel merges each row's
+splits in a fixed order (``decode_blocks`` models the grid for the CPU
+tests). ``decode_plan`` makes the launch geometry, the split plan and the
+states' scratch once for all the layers and sub-steps of a decode window.
+fp32 (and bf16 or fp16 at a head_dim that is not a multiple of 16) runs
+one block a (request, KV head) on the CUDA cores.
 fp16 computes as the TPU kernel does in q's dtype: fp16 products (K/V
 upcast from fp8 where the cache is), fp32 accumulation, P rounded to
 fp16.
@@ -29,10 +34,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from aphrodite_tpu_torch.ops import cuda_build
-from aphrodite_tpu_torch.ops.ragged_paged_attention import (DTYPE_CODES,
-                                                           KV_CODES, kv_code)
+from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+    DTYPE_CODES, KV_CODES, kv_code, tc_head_dim_ok, tc_width)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
-    window_split_plan, window_uses_tensor_cores)
+    TC_MAX_GROUP, window_split_plan)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -60,20 +65,36 @@ def decode_warps(group: int, hd: int, itemsize: int, smem_limit: int) -> int:
         smem_limit)
 
 
+def decode_uses_tensor_cores(dtype: torch.dtype, group: int,
+                             hd: int) -> bool:
+    """Whether the kernel runs its tensor-core instance
+    (``csrc/split_decode.cuh``): bf16 or fp16 at a head_dim that is a
+    multiple of 16 up to 256 (``tc_head_dim_ok``), at any group (cut into
+    ``decode_row_slices``). The window kernel keeps its own gate."""
+    return dtype in (torch.bfloat16, torch.float16) and tc_head_dim_ok(hd)
+
+
+def decode_row_slices(group: int) -> int:
+    """Slices of 16 query rows (one mma tile) that a KV head's group is cut
+    into, one block each: 1 up to 16, 5 at Falcon-7B's 71."""
+    return -(-group // TC_MAX_GROUP)
+
+
 def decode_tile_keys(hd: int) -> int:
     """Keys a tile of the tensor-core instance (the split plan's unit): 64,
-    32 at head_dim 256 (a smaller ring, so that three blocks share an
-    SM)."""
-    return 64 if hd <= 128 else 32
+    32 in 256-wide tiles (past head_dim 128: a smaller ring, so that three
+    blocks share an SM)."""
+    return 64 if tc_width(hd) <= 128 else 32
 
 
 def decode_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
-    """Shared memory of the tensor-core instance: 16 query rows and a ring
-    of 2 stages of K and V tiles, bf16 rows padded by 8; an fp8 cache adds
-    a ring of 2 stages of staged bytes."""
-    keys = decode_tile_keys(hd)
-    return (2 * (hd + 8) * (16 + 2 * 2 * keys)
-            + (2 * 2 * keys * hd if fp8 else 0))
+    """Shared memory of the tensor-core instance (by the tiles' width w =
+    ``tc_width(hd)``): 16 query rows and a ring of 2 stages of K and V
+    tiles, 16-bit rows of w values padded by 8; an fp8 cache adds a ring
+    of 2 stages of staged bytes."""
+    w, keys = tc_width(hd), decode_tile_keys(hd)
+    return (2 * (w + 8) * (16 + 2 * 2 * keys)
+            + (2 * 2 * keys * w if fp8 else 0))
 
 
 def decode_launch_geometry(dtype: torch.dtype, group: int, hd: int,
@@ -82,12 +103,12 @@ def decode_launch_geometry(dtype: torch.dtype, group: int, hd: int,
                            ) -> tuple[bool, int, int]:
     """(tensor cores, warps, shared-memory bytes) of one block for queries
     of ``dtype`` on a cache of ``kv_dtype`` (None: ``dtype``): 4 warps and
-    ``decode_tc_smem_bytes`` on the tensor-core instance (where the window
-    kernel has one: ``window_uses_tensor_cores``), else the CUDA-core
-    instance's ``decode_warps`` (its tiles in the cache's dtype). Raises,
-    naming the bytes, when nothing fits the card."""
+    ``decode_tc_smem_bytes`` on the tensor-core instance
+    (``decode_uses_tensor_cores``), else the CUDA-core instance's
+    ``decode_warps`` (its tiles in the cache's dtype). Raises, naming the
+    bytes, when nothing fits the card."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
-    if window_uses_tensor_cores(dtype, group, hd):
+    if decode_uses_tensor_cores(dtype, group, hd):
         smem = decode_tc_smem_bytes(hd, kv_dtype in KV_CODES)
         cuda_build.check_smem(
             f"decode_paged_attention (group {group}, head_dim {hd})", smem,
@@ -132,11 +153,12 @@ def decode_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
                 kv_dtype: Optional[torch.dtype] = None) -> DecodePlan:
     """The launch geometry (``decode_launch_geometry``; ``kv_dtype`` the
     cache's, None for ``dtype``), the split plan
-    for a bound on the requests' lengths (``window_split_plan``: about
-    four blocks an SM, at least two tiles a split) and the scratch of the
-    splits' states: acc [R, nq, splits, hd], then m and l [R, nq,
-    splits]. A bound below the real lengths costs speed only: the last
-    split takes the rest. The CUDA-core instance takes no split."""
+    for a bound on the requests' lengths (``window_split_plan`` over the
+    (request, KV head, row slice) blocks: about four blocks an SM, at
+    least two tiles a split) and the scratch of the splits' states: acc
+    [R, nq, splits, hd], then m and l [R, nq, splits]. A bound below the
+    real lengths costs speed only: the last split takes the rest. The
+    CUDA-core instance takes no split."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     kv_dtype = dtype if kv_dtype is None else kv_dtype
@@ -148,12 +170,58 @@ def decode_plan(dtype: torch.dtype, num_reqs: int, nq: int, kvh: int,
     if not tc:
         return DecodePlan(key, False, warps, smem, 1, 1, None, kv_dtype)
     splits, per = window_split_plan(
-        num_reqs * kvh, decode_max_tiles(max_seq_len, decode_tile_keys(hd),
-                                         sliding_window, chunk_attn),
+        num_reqs * kvh * decode_row_slices(nq // kvh),
+        decode_max_tiles(max_seq_len, decode_tile_keys(hd), sliding_window,
+                         chunk_attn),
         cuda_build.sm_count(device) if cuda else cuda_build.H100_SMS)
     part = torch.empty(num_reqs * nq * splits * (hd + 2),
                        dtype=torch.float32, device=device)
     return DecodePlan(key, True, warps, smem, splits, per, part, kv_dtype)
+
+
+class DecodeBlock(NamedTuple):
+    """One block of the tensor-core instance's grid (``decode_blocks``)."""
+    req: int
+    kv_head: int
+    row_slice: int
+    split: int
+    heads: range   # its query heads
+    tiles: range   # its tiles of ``decode_tile_keys`` keys, absolute
+
+
+def decode_blocks(plan: DecodePlan, seq_lens, sliding_window=None,
+                  chunk_attn=None) -> list[DecodeBlock]:
+    """The tensor-core instance's grid as ``dpa_split_tc_kernel`` walks it,
+    for the CPU tests: block (request r, KV head h, row slice z, split s)
+    takes query heads h * group + 16 z ... (at most 16) and, of the
+    request's tiles from the one holding its first visible key (the
+    window's and the chunk's bound) to the one holding its query, tiles
+    [s * tiles_per_split, ...) of the split (``my_tiles``: fewer at the
+    end, the last split taking the rest). The merge then adds each query
+    row's splits in the order 0, 1, ... (``split::merge_row``)."""
+    _, R, nq, kvh, hd = plan.key
+    group, keys = nq // kvh, decode_tile_keys(hd)
+    out = []
+    for r in range(R):
+        pos = int(seq_lens[r]) - 1
+        lo = 0
+        if sliding_window:
+            lo = max(lo, pos - sliding_window + 1)
+        if chunk_attn and pos >= 0:
+            lo = max(lo, pos // chunk_attn * chunk_attn)
+        t0 = lo // keys
+        n = pos // keys + 1 - t0 if pos >= 0 else 0
+        for h in range(kvh):
+            for z in range(decode_row_slices(group)):
+                g0 = h * group + TC_MAX_GROUP * z
+                heads = range(g0, min(g0 + TC_MAX_GROUP, (h + 1) * group))
+                for sp in range(plan.splits):
+                    ta = sp * plan.tiles_per_split
+                    end = (n if sp == plan.splits - 1
+                           else min(ta + plan.tiles_per_split, n))
+                    out.append(DecodeBlock(r, h, z, sp, heads, range(
+                        t0 + ta, t0 + max(end, ta))))
+    return out
 
 
 def ref_decode_paged_attention(
@@ -279,8 +347,13 @@ def decode_paged_attention(
         cuda_build.stream(q.device))
     cuda_build.check(err, "decode_paged_attention launch")
     decode_paged_attention.launches += 1
+    decode_paged_attention.instance_launches[
+        "tensor_cores" if plan.tensor_cores else "scalar"] += 1
     return out
 
 
-# Launches of the CUDA kernel (a run sets it to 0 and reads it after).
+# Launches of the CUDA kernel (a run sets it to 0 and reads it after), in
+# all and by instance: the tensor-core split ("tensor_cores") or the
+# CUDA-core ``dpa_kernel`` ("scalar").
 decode_paged_attention.launches = 0
+decode_paged_attention.instance_launches = {"tensor_cores": 0, "scalar": 0}

@@ -5,11 +5,13 @@
 ``aphrodite_tpu/ops/ragged_paged_attention.py:_rpa_kernel``) on CUDA
 tensors, and runs the plain PyTorch version ``ref_ragged_paged_attention``
 on CPU tensors. ``ragged_route`` names the library and entry that take a
-call: bf16 and fp16 at head_dim 64, 128 or 256 run the tensor-core
-instance (bf16 ``rpa_tc_launch``, fp16 ``rpa_tc_f16_launch`` of
-``csrc/ragged_f16.cu``; with image spans ``rpa_tc_spans_launch`` of
-``csrc/ragged_spans.cu`` and ``rpa_tc_spans_f16_launch`` of
-``csrc/ragged_spans_f16.cu``, with or without ALiBi), bf16 and fp16 at
+call: bf16 and fp16 at any head_dim that is a multiple of 16 up to 256
+run the tensor-core instance (in tiles 64, 128 or 256 wide, the
+narrowest that holds the head: ``tc_width``; bf16 ``rpa_tc_launch``,
+fp16 ``rpa_tc_f16_launch`` of ``csrc/ragged_f16.cu``; with image spans
+``rpa_tc_spans_launch`` of ``csrc/ragged_spans.cu`` and
+``rpa_tc_spans_f16_launch`` of ``csrc/ragged_spans_f16.cu``, with or
+without ALiBi), bf16 and fp16 at
 MLA's head_dim 576 (DeepSeek V2/V3: any group on one latent KV head, on a
 cache of q's dtype or fp8) the MLA instance (``csrc/mla_attention.cuh``:
 bf16 ``mla_ragged_launch`` of ``csrc/mla_attention.cu``, fp16
@@ -17,7 +19,8 @@ bf16 ``mla_ragged_launch`` of ``csrc/mla_attention.cu``, fp16
 spans or ALiBi its option instances, ``mla_ragged_opts_launch`` of
 ``csrc/mla_opts.cu`` and ``mla_ragged_opts_f16_launch`` of
 ``csrc/mla_opts_f16.cu``), everything else the scalar one
-(``rpa_launch``), which keeps fp32 in full fp32; each is sized by its own
+(``rpa_launch``): fp32, which it keeps in full fp32, and bf16 or fp16 at
+a head_dim that is not a multiple of 16; each is sized by its own
 function and the runner asks ``ragged_work_item_tokens`` for the one that
 the model's dtype will run. No option of the TPU kernel is refused.
 Where a work item's rows exceed an instance's block (a group of 128 query
@@ -89,7 +92,8 @@ KV_CODES = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _TILE, _WARPS = 32, 8
 # Query rows (tokens x query heads of one KV head) per work item, at most.
 _MAX_ROWS = 128
-# The head dims of the tensor-core instance.
+# The tile widths of the tensor-core instances: a head_dim that is a
+# multiple of 16 runs in the narrowest that holds it (``tc_width``).
 TC_HEAD_DIMS = (64, 128, 256)
 # MLA's latent head (kv_lora_rank 512 + rope 64): its own instances in bf16
 # and fp16.
@@ -207,34 +211,56 @@ def ragged_mla_block_q(group: int, smem_limit: int,
     return max(1, MLA_ROWS // group)
 
 
+def tc_head_dim_ok(hd: int) -> bool:
+    """Whether a head_dim runs on the tensor-core instances of the ragged
+    and decode kernels: a multiple of 16 (an fp8 cache stages 16 values a
+    16-byte copy, a k-step of mma.sync m16n8k16 takes 16) up to 256."""
+    return hd % 16 == 0 and 16 <= hd <= TC_HEAD_DIMS[-1]
+
+
+def tc_width(hd: int) -> int:
+    """The width of the tensor-core instances' tiles for a head_dim: the
+    narrowest of 64, 128 and 256 that holds it. The kernel strides by hd
+    in global memory and skips the k-steps and n-tiles past it, so the
+    padding costs shared memory and registers, not products. Raises on a
+    head_dim past 256."""
+    for w in TC_HEAD_DIMS:
+        if hd <= w:
+            return w
+    raise ValueError(f"head_dim {hd} is past the tensor-core instances' "
+                     f"widest tile, {TC_HEAD_DIMS[-1]}")
+
+
 def ragged_uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
     """Whether the kernel runs the tensor-core instance for this dtype
-    (bf16 or fp16)."""
-    return dtype in (torch.bfloat16, torch.float16) and hd in TC_HEAD_DIMS
+    (bf16 or fp16) and head_dim (``tc_head_dim_ok``)."""
+    return dtype in (torch.bfloat16, torch.float16) and tc_head_dim_ok(hd)
 
 
 def ragged_tc_rows(hd: int) -> int:
     """Query rows a block of the tensor-core instance: 4 warps of 32 rows
-    at head_dim <= 128, of 16 at 256."""
-    return 128 if hd <= 128 else 64
+    in tiles up to 128 wide, of 16 in 256-wide ones."""
+    return 128 if tc_width(hd) <= 128 else 64
 
 
 def ragged_tc_smem_bytes(hd: int, fp8: bool = False) -> int:
-    """Shared memory of the tensor-core instance (the kernel's TcCfg): the
-    block's Q rows and a ring of K and V tiles (64 keys, 32 at head_dim
-    256; 3 stages at head_dim 64, else 2), bf16 rows padded by 8; an fp8
-    cache adds a ring of the same stages of staged bytes."""
-    keys = 64 if hd <= 128 else 32
-    stages = 3 if hd <= 64 else 2
-    return (2 * (hd + 8) * (ragged_tc_rows(hd) + stages * 2 * keys)
-            + (stages * 2 * keys * hd if fp8 else 0))
+    """Shared memory of the tensor-core instance (the kernel's TcCfg, by
+    the tiles' width w = ``tc_width(hd)``): the block's Q rows and a ring of
+    K and V tiles (64 keys, 32 at width 256; 3 stages at width 64, else
+    2), 16-bit rows of w values padded by 8; an fp8 cache adds a ring of
+    the same stages of staged bytes."""
+    w = tc_width(hd)
+    keys = 64 if w <= 128 else 32
+    stages = 3 if w <= 64 else 2
+    return (2 * (w + 8) * (ragged_tc_rows(hd) + stages * 2 * keys)
+            + (stages * 2 * keys * w if fp8 else 0))
 
 
 def ragged_tc_block_q(group: int, hd: int, smem_limit: int,
                       fp8: bool = False) -> int:
     """Tokens per work item of the tensor-core instance: as many whole
-    groups of query rows as fit its rows (128 at head_dim <= 128, 64 at
-    256). Raises when a group does not fit, or the ring (with an fp8
+    groups of query rows as fit its rows (128 at head_dim <= 128, 64
+    past). Raises when a group does not fit, or the ring (with an fp8
     cache's staging ring) does not fit the card's shared memory."""
     rows = ragged_tc_rows(hd)
     what = (f"ragged_paged_attention tensor-core instance (group {group}, "
@@ -252,7 +278,9 @@ def ragged_route(dtype: torch.dtype, hd: int, spans: bool,
     the card: the library a ``csrc/<library>.cu``, the instance "mla",
     "tensor_cores" or "scalar" (``instance_launches``). Each option of the
     TPU kernel has an instance in every dtype: spans and ALiBi, alone or
-    together, at every head_dim."""
+    together, at every head_dim. The scalar instance takes fp32, and bf16
+    or fp16 at a head_dim that is not a multiple of 16 (or past 256 but
+    576)."""
     f16 = dtype == torch.float16
     if ragged_uses_mla(dtype, hd):
         if spans or alibi:

@@ -6,7 +6,8 @@ CUDA card, ``nvcc`` and nothing of JAX. ``python3 chip_smoke.py --ab
 PARENT [PART ...]`` instead runs phases 8, 12, 14, 6, 15, 16 and 24, the
 attention wrappers' host time a call, the window kernel's device time, both
 MLA instances at ``MLA_GEOMS``, the bf16 span instance at phase 26's wave
-with and without the spans, the
+with and without the spans, the attention kernels' tensor-core instances
+at head dims 64, 128 and 256 at their paths' shapes (``ATTN_PROBE``), the
 bf16 grouped GEMM at phase 8's shapes, a Llama-3.1-8B layer's four bf16 W4
 GEMMs (int4 and packed, M = 128 and 32) and a layer's four bf16 W8 and
 uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) of the checkout
@@ -61,11 +62,11 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    prefill at a 16-token budget and decode windows: greedy tokens must be
    equal and the selective scan launched.
 10. The main path of the SSM slice: Mamba-2.8B (``state-spaces/
-   mamba-2.8b-hf``) at full width, its depth cut to ``MAMBA_DEPTH`` (32 of
+   mamba-2.8b-hf``) at full width, its depth cut to ``MAMBA_DEPTH`` (16 of
    64 layers), bf16, a 4096-token batch budget, phase 6's traffic. Prefix
    caching is off for recurrent-state models, so every run is cold: one
    warm-up, 2 timed runs, one profiled run. Exactly 2048 tokens and no
-   cached prompt token a run; the scan launched 32 times (once a layer)
+   cached prompt token a run; the scan launched 16 times (once a layer)
    for every forward of the runner.
 11. Gemma parity: a tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA, linear
    rope on its global layer) in fp32 with a 16-token sliding window and
@@ -116,10 +117,8 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    shared pass's): equal but where the free runs part (``same_tokens``:
    there the two engines' logprob differences of the two tokens, read
    from both free runs at that step, lie less than ``GAP`` apart, at most
-   a tenth of the tokens part, and both go on from the CPU's token); the
-   CPU against itself with each prompt alone is logged beside it as the
-   yardstick of such partings; kFp8's fp32 twin and the fp8-cache
-   attention instances launched.
+   a tenth of the tokens part, and both go on from the CPU's token);
+   kFp8's fp32 twin and the fp8-cache attention instances launched.
 18. The main path of the FP8 slice, BASELINE config 3: Llama-3.1-8B at full
    width and half its depth (16 of 32 layers, ``LLAMA31_8B_HALF``), fp8
    weights (e4m3, a scale a column) and an fp8 e4m3 KV cache, bf16, phase
@@ -196,7 +195,7 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    ``google/gemma-3-4b-it`` config.json written out: 34 layers, 8 / 4
    heads of 256, five sliding layers to one global, a SigLIP tower of 27
    layers on 896 x 896 images, 256 image tokens) at full width and 17 of
-   its 34 text layers (``GEMMA3_HALF_DEPTH``; phase 35 serves all 34),
+   its 34 text layers (``GEMMA3_HALF_DEPTH``, as phase 35),
    bf16 dummy weights redrawn at fan-in scale on the card (``redraw_mm``),
    32 requests of 512 prompt tokens (one seeded 896 x 896 uint8 image
    each, expanded to its 256-token span between boi and eoi) + 64 decode
@@ -278,22 +277,41 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    run.
 34. fp16 multimodal parity (``mm_fp16_parity``): fp16 greedy runs on the
    card and on the CPU with the same weights (``F16_MM_TINY``, phase 25's
-   batch and settings): a tiny Gemma-3 at head_dim 64 (the fp16 span
-   instances of ``csrc/ragged_spans_f16.cu``) on fp16 and e4m3 caches, at
-   head_dim 32 (the scalar instance's span branch in fp16), and a tiny
-   PaliGemma-2. Tokens equal but where the runs part at a gap below
-   ``GAP`` (``same_tokens``; a parting's continuation keeps the images);
-   chosen logprobs within ``F16_LOGPROB_TOL``; every attention kernel's
-   card launches exactly its CPU twin's calls (``CallSpy``), every ragged
-   launch fp16 from its run's library, Gemma-3's all with the spans.
+   batch and settings): a tiny Gemma-3 at head_dim 64 (the fp16 span instances
+   of ``csrc/ragged_spans_f16.cu``) on fp16 and e4m3 caches, at head_dim 32
+   (the same instances in 64-wide tiles), and a tiny PaliGemma-2 (head_dim
+   32: ``csrc/ragged_f16.cu``). Tokens equal but where the runs part at a gap
+   below ``GAP`` (``same_tokens``; a parting's continuation keeps the images);
+   chosen logprobs within ``F16_LOGPROB_TOL``; every attention kernel's card
+   launches exactly its CPU twin's calls (``CallSpy``), every ragged launch
+   fp16 from its run's library, Gemma-3's all with the spans.
 35. The main path of the slice of the ragged kernel's last options
-   (``main_path_gemma3_mm(dtype="float16")``): Gemma-3-4B-it at full
-   width and depth (34 layers) in fp16, phase 26's traffic, images and
-   runs (not the batch with other images: phase 26 holds the content
-   hash). In every run exactly: ragged 34, all fp16 with the spans on the
-   fp16 span instances (``csrc/ragged_spans_f16.cu``), decode 2142, window
-   0; 32 images encoded a cold run and none a warm one; every logprob
-   finite; its walls beside phase 26's; a profiled run.
+   (``main_path_gemma3_mm(dtype="float16")``): Gemma-3-4B-it at full width and
+   17 of its 34 text layers (``GEMMA3_HALF_DEPTH``, which keeps the script
+   inside its time limit) in fp16, phase 26's traffic, images
+   and runs (not the batch with other images: phase 26 holds the content
+   hash). In every run exactly: ragged 17, all fp16 with the spans on the fp16
+   span instances (``csrc/ragged_spans_f16.cu``), decode 1071, window 0; 32
+   images encoded a cold run and none a warm one; every logprob finite; its
+   walls beside phase 26's; a profiled run.
+36. Parity on the tensor-core routes at other geometries
+   (``tc_route_parity``): fp16 greedy runs on the card and on the CPU with
+   the same weights (``TC23_TINY``): a tiny BLOOM at head_dim 80 (ALiBi)
+   on fp16 and e4m3 caches and a Falcon-7B-style multi-query model with 18
+   query heads of 64 on one KV head. Tokens equal but where the runs part
+   at a gap below ``GAP``; chosen logprobs within ``F16_LOGPROB_TOL``; the
+   ragged and decode kernels' card launches exactly the CPU's calls, every
+   one on the tensor-core instances.
+37. BLOOM-3b (``BLOOM_3B``, ``bigscience/bloom-3b`` config.json written
+   out: 30 layers, 32 heads of 80, ALiBi, vocab 250880) bf16 at full width
+   and depth, phase 6's traffic (``main_path_tc_route``): every cold and
+   warm run exactly ragged 30 and decode 30 x 63 = 1890, all on the
+   tensor-core instances and with the slopes, window 0; a profiled run.
+38. Falcon-7B (``FALCON_7B_HALF``: ``tiiuae/falcon-7b``, 71 query heads of
+   64 on one KV head, at 16 of its 32 layers) bf16, phase 6's traffic:
+   exactly ragged 16 and decode 16 x 63 = 1008 a run, all on the
+   tensor-core instances (the decode kernel in five row slices), none with
+   slopes, window 0; a profiled run.
 
 For the fp16 GEMM slice phase 2 (``fp16_gemm_checks``) holds each layout's
 fp16 instance (``csrc/w4_wgmma_f16.cu``) against its plain version at
@@ -473,6 +491,18 @@ and 8, head_dim 64 on 16-token pages, head_dim 256 with a cap); and the
 decode kernel at phase 22's step (``DECODE_CASES["baichuan2-13b-alibi"]``;
 every ALiBi case takes ``alibi_slopes(nq)``).
 
+For the slice of the tensor-core routes at other geometries phase 2
+(``tc_route_checks``) holds, in bf16 and fp16 on caches of q's dtype, e4m3
+and e5m2, the ragged kernel at head dims 32, 48, 80, 96 and 112
+(``TC23_RAGGED_CASES``: causal, ALiBi, image spans, a soft cap with a
+window on 16-token pages, group 18) and the decode kernel at head dims
+80, 96 and 112 and groups 18 and 71 (``TC23_DECODE_CASES``, with and
+without ALiBi), every launch on the tensor-core instances, each against
+its plain version; then times in bf16 BLOOM-3b's and MPT-30B's waves and
+steps and Falcon-7B's wave and step, each beside the same call on the
+scalar or CUDA-core instance (the "before", launched directly through
+``scalar_instances``), SDPA, the bound and the plain version.
+
 The last lines are the kernels' JSON record (one row per kernel and path
 that runs it, with that path's launches and shapes), the card line, and
 ``{"ok": true, "device": {...}}``.
@@ -628,9 +658,10 @@ MAMBA_2P8B = dict(  # state-spaces/mamba-2.8b-hf config.json
     layer_norm_epsilon=1e-5, tie_word_embeddings=True, model_type="mamba",
     architectures=["MambaForCausalLM"])
 SCAN_COLUMNS = 5120 * 16  # d_inner x d_state of a Mamba-2.8B layer
-# Phase 10's layers: half the published 64, which keeps the script's time
-# inside its limit as it grows (every layer runs the same scan).
-MAMBA_DEPTH = 32
+# Phase 10's layers: a quarter of the published 64, which keeps the
+# script's time inside its limit as it grows (every layer runs the same
+# scan).
+MAMBA_DEPTH = 16
 
 QWEN25_1P5B = dict(
     vocab_size=151936, hidden_size=1536, num_hidden_layers=28,
@@ -746,7 +777,8 @@ def dense_kv(cache_layer, bt, ctx_lens, s_max):
 
 
 def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
-                 kv: str | None = None, make_cache=None):
+                 kv: str | None = None, make_cache=None,
+                 before: bool = False):
     """Kernel A on one prefill/mixed wave (``ATTN_GEOMS``, or a case of
     ``RAGGED_MASK_CASES`` or ``ALIBI_RAGGED_CASES`` with its page size,
     masks and ALiBi), on a cache of q's dtype or of the fp8 dtype ``kv``:
@@ -764,7 +796,10 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
     a path's shapes, the plain version without them (what a kernel that
     ignored the spans would give) must break that limit, and its error is
     returned (``blind_err``, ``blind_over``: the values past the limit).
-    ``make_cache``: ``paged_cache``'s stand-in (``OneAllocation``)."""
+    ``make_cache``: ``paged_cache``'s stand-in (``OneAllocation``).
+    ``before``: also the same call on the scalar instance, launched
+    directly (``scalar_instances``), timed (``before_ms``,
+    ``before_device_ms``) and held to the same limit."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
@@ -851,6 +886,21 @@ def check_ragged(gen, dtype_name: str, geom: dict, timed: bool = True,
                                                 **opts), 20)
     dev_ms = device_ms(lambda: ragged_paged_attention(
         q, cache, layer, md, scale, **opts), 10)
+    if before:  # the scalar instance on the same items
+        with scalar_instances(), only_instance(
+                ragged_paged_attention, "scalar", "ragged before"):
+            out0 = ragged_paged_attention(q, cache, layer, md, scale, **opts)
+            torch.cuda.synchronize()
+            over0 = int(((out0.float() - ref.float()).abs() > limit).sum())
+            if over0:
+                raise AssertionError(f"ragged scalar instance: {over0} "
+                                     "values past the limit")
+            blind["before_ms"] = cuda_ms(lambda: ragged_paged_attention(
+                q, cache, layer, md, scale, **opts), 5)
+            blind["before_device_ms"] = device_ms(
+                lambda: ragged_paged_attention(q, cache, layer, md, scale,
+                                               **opts), 3)
+        del out0
     plain_ms = cuda_ms(lambda: ref_ragged_paged_attention(
         q, cache[layer], md, scale, **opts), 2)
     # Library yardstick: one SDPA call over the wave padded to a dense
@@ -1132,7 +1182,7 @@ DECODE_CASES = {
 
 
 def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
-                 timed: bool = True) -> dict:
+                 timed: bool = True, before: bool = False) -> dict:
     """The decode kernel on one case of ``DECODE_CASES``: error against
     its plain version at ``scaled_tol``, with the split plan
     (``decode_plan``) bounded by the longest context, by the block tables'
@@ -1145,14 +1195,18 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
     (ALiBi as an additive bias; SDPA has no soft cap, so it computes the
     uncapped function there). ``kv``: an fp8 cache's dtype name (the
     yardstick's K/V upcast to q's dtype outside the timing; the bound's
-    K/V bytes the cache's)."""
+    K/V bytes the cache's). ``before``: also the same call on the CUDA-core
+    instance (``dpa_kernel``, its plan made under ``scalar_instances``),
+    held to the same limit and timed (``before_ms``,
+    ``before_device_ms``)."""
     import torch
     import torch.nn.functional as F
     from aphrodite_tpu_torch.attention.backend import alibi_slopes
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention, decode_plan, ref_decode_paged_attention)
     dtype = getattr(torch, dtype_name)
-    nq, kvh, hd, ctx, opts = {**DECODE_CASES, **F16_DECODE_CASES}[case]
+    nq, kvh, hd, ctx, opts = {**DECODE_CASES, **F16_DECODE_CASES,
+                              **TC23_DECODE_CASES}[case]
     opts = dict(opts)
     if opts.pop("alibi", False):  # the model's slopes: alibi_slopes(nq)
         opts["alibi"] = alibi_slopes(nq).cuda()
@@ -1188,6 +1242,18 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
     ms = cuda_ms(dec, 200)
     dev_ms = device_ms(dec, 50)
     host = host_ms(dec)
+    prior = {}
+    if before:  # the CUDA-core instance, its own plan
+        with scalar_instances():
+            p0 = plan(max(ctx))
+        dec0 = lambda: decode_paged_attention(  # noqa: E731
+            q, cache, layer, bt, sl, scale, plan=p0, **opts)
+        e0 = (dec0().float() - ref.float()).abs().max().item()
+        if p0.tensor_cores or not e0 <= limit:
+            raise AssertionError(f"decode {case}: the CUDA-core instance's "
+                                 f"max_abs_err {e0} (limit {limit:.3g})")
+        prior = dict(before_ms=cuda_ms(dec0, 20),
+                     before_device_ms=device_ms(dec0, 10))
     plain_ms = cuda_ms(lambda: ref_decode_paged_attention(
         q, cache[layer], bt, sl, scale, **opts), 5)
     s_max = max(ctx)
@@ -1227,11 +1293,13 @@ def check_decode(gen, dtype_name: str, case: str, kv: str | None = None,
         f"{ms:.4f} ms (device {dev_ms:.4f} ms, host {host:.4f} ms a call), "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device "
         f"{lib_dev_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}, {vis} K/V "
-        f"rows), {nbytes / dev_ms / 1e6:.0f} GB/s on the device")
+        f"rows), {nbytes / dev_ms / 1e6:.0f} GB/s on the device"
+        + (f"; the CUDA-core instance (before) {prior['before_ms']:.4f} ms "
+           f"(device {prior['before_device_ms']:.4f} ms)" if prior else ""))
     del cache, k_d, v_d, ref
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
-                host_ms=host, library_device_ms=lib_dev_ms)
+                host_ms=host, library_device_ms=lib_dev_ms, **prior)
 
 
 def quant_inputs(gen, name: str, K: int, N: int, M: int, dtype):
@@ -3136,21 +3204,13 @@ def fp8_parity() -> dict:
         for k, n in got.items():
             launches[(k, run)] = n
         found = same_tokens(f"phase 17 {run}", cpu, gpu, prompts, a, b)
-        # The yardstick: the CPU against itself at another batch
-        # composition, each prompt alone.
-        cpu.engine.reset_prefix_cache()
-        solo = [traced(cpu, [p], params) for p in prompts]
-        noise = partings(cpu, cpu, prompts, a, ([t[0] for t, _ in solo],
-                                                [r[0] for _, r in solo]))
         want = {"fp8_matmul"} if quant.startswith("fp8") else set()
         if any(got[k] <= 0 for k in want | set(attention_kernels())) or any(
                 got[k] for k in qm.KERNELS if k not in want):
             raise AssertionError(f"phase 17 {run}: launches {got}")
         log(f"# phase 17: {run}: cuda == cpu greedy tokens for "
             f"{len(prompts)} prompts x 24 but at partings (request, step, "
-            f"cpu token, card token, gap < {GAP}) {found}; the cpu "
-            f"against itself, each prompt alone: {len(noise)} partings "
-            f"{noise}; launches {got}")
+            f"cpu token, card token, gap < {GAP}) {found}; launches {got}")
         del cpu, gpu
     launches[("decode_paged_attention", "gemma2/fp8_e4m3")] = gemma_parity(
         "fp8_e4m3", archs=("Gemma2ForCausalLM",))
@@ -3517,9 +3577,45 @@ print(f"# ragged_paged_attention bf16 at gemma-3-4b-it shapes: device "
 """
 
 
+# Run by each checkout in ``compare_serving``: the device time of the
+# ragged, decode and window kernels' tensor-core instances at head dims
+# 64, 128 and 256, at their paths' shapes, as that checkout's phase 2
+# holds and times them (the geometries written out where the parent's
+# script lacks them): the ragged kernel at the 8B wave (on a bf16 and an
+# e4m3 cache), Gemma-2-9B's, Baichuan2-13B's with ALiBi and Falcon-7B's
+# (71 query heads of 64 on one KV head); the decode kernel at Gemma-2-9B's,
+# the 8B heads', Baichuan2-13B's and Gemma-3-4B's steps; the window kernel
+# at the 8B, Qwen2.5-1.5B and Gemma-2-9B paths.
+ATTN_PROBE = """
+for path, geom, kv in (
+        ('llama-3.1-8b', c.ATTN_GEOMS['llama-3.1-8b-w4a16'], None),
+        ('llama-3.1-8b', c.ATTN_GEOMS['llama-3.1-8b-w4a16'],
+         'float8_e4m3fn'),
+        ('gemma-2-9b', c.ATTN_GEOMS['gemma-2-9b-bf16'], None),
+        ('baichuan2-13b-alibi', dict(c.B13_WAVE, alibi=True), None),
+        ('falcon-7b', dict(nq=71, kvh=1, hd=64, ctx=[512] * 32,
+                           qlen=[512] * 32), None)):
+    r = c.check_ragged(gen, 'bfloat16', geom, kv=kv)
+    print(f"# ragged_paged_attention bf16 at {path}'s wave, {kv or 'bf16'} "
+          f"cache: device {r['device_ms']:.4f} ms, max_abs_err "
+          f"{r['max_abs_err']:.3g}", flush=True)
+for case in ('gemma-2-9b', 'llama-3.1-8b', 'baichuan2-13b-alibi',
+             'gemma-3-4b'):
+    r = c.check_decode(gen, 'bfloat16', case)
+    print(f"# decode_paged_attention bf16 at {case}'s step: device "
+          f"{r['device_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}",
+          flush=True)
+for path in ('llama-3.1-8b-w4a16', 'qwen2.5-1.5b-bf16', 'gemma-2-9b-bf16'):
+    r = c.check_window(gen, 'bfloat16', c.ATTN_GEOMS[path])
+    print(f"# window_decode_attention bf16 at {path}: device "
+          f"{r['device_ms']:.4f} ms, max_abs_err {r['max_abs_err']:.3g}",
+          flush=True)
+"""
+
+
 # What ``--ab`` runs, in this order, each by its name on the command line.
 AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
-            "spans": SPAN_PROBE,
+            "spans": SPAN_PROBE, "attn": ATTN_PROBE,
             "quant": QUANT_PROBE, "bytes": BYTE_PROBE,
             "8": "c.main_path_moe()", "12": "c.main_path_gemma()",
             "14": "c.main_path_int4_cascade()", "6": "c.main_path_8b()",
@@ -3533,7 +3629,8 @@ AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
 def compare_serving(parent: str, parts: list[str]) -> int:
     """``python3 chip_smoke.py --ab PARENT [PART ...]``: the probes and
     phases of ``AB_PARTS`` (all, or the PARTs named: ``HOST_PROBE``,
-    ``GROUPED_PROBE``, ``MLA_PROBE``, ``SPAN_PROBE``, ``QUANT_PROBE`` and
+    ``GROUPED_PROBE``, ``MLA_PROBE``, ``SPAN_PROBE``, ``ATTN_PROBE``,
+    ``QUANT_PROBE`` and
     phases 8, 12, 14, 6, 15, 16 and 24: s/run,
     device busy and items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
@@ -4424,7 +4521,8 @@ G3_WAVE = dict(nq=8, kvh=4, hd=256, ctx=[512] * 32, qlen=[512] * 32,
 # 400); two spans in one request beside requests without any; a sliding
 # window (64) shorter than a span; a soft cap; 16-token pages; head_dim
 # 128 at group 4 and 256 at group 2 (Gemma-3-4B); head_dim 32 at group 2
-# (phases 25 and 34's tiny Gemma-3: the scalar instance in 16 bits too).
+# (phases 25 and 34's tiny Gemma-3: in 16 bits the tensor-core span
+# instances in 64-wide tiles).
 _SPAN_CTX = [600, 400, 517, 300, 45, 1000]
 _SPAN_QLEN = [300, 150, 517, 299, 44, 333]
 _SPAN_SETS = [[(250, 450)], [(350, 500)], [(5, 300), (301, 410)],
@@ -4806,13 +4904,18 @@ def instance_counts() -> dict:
 
 @contextlib.contextmanager
 def scalar_instances():
-    """Within it, bf16 at head_dim 576 sizes and launches the scalar
-    instances (the "before" of the MLA instances): the wrappers' MLA
-    predicates answer False."""
+    """Within it, bf16 and fp16 size and launch the scalar instances of
+    the ragged and window kernels and the decode kernel's CUDA-core one
+    (the "before" of the MLA instances, and of the tensor-core instances
+    at head dims other than 64, 128 and 256 and at groups past 16): the
+    wrappers' MLA and tensor-core predicates answer False (the window's
+    tensor-core gate is left as it is)."""
+    from aphrodite_tpu_torch.ops import decode_paged_attention as dm
     from aphrodite_tpu_torch.ops import ragged_paged_attention as rm
     from aphrodite_tpu_torch.ops import window_decode_attention as wm
     saved = [(m, n, getattr(m, n)) for m, n in (
-        (rm, "ragged_uses_mla"), (wm, "window_uses_mla"))]
+        (rm, "ragged_uses_mla"), (wm, "window_uses_mla"),
+        (rm, "ragged_uses_tensor_cores"), (dm, "decode_uses_tensor_cores"))]
     for m, n, _ in saved:
         setattr(m, n, lambda *a: False)
     try:
@@ -5564,8 +5667,8 @@ def gemma3_at_depth(layers: int) -> dict:
         layer_types=text["layer_types"][:layers]))
 
 
-# Phase 26's text layers: half the published 34 (phase 35 serves all 34
-# in fp16, and every layer runs the same kernels).
+# Phases 26's and 35's text layers: half the published 34 (every layer
+# runs the same kernels).
 GEMMA3_HALF_DEPTH = 17
 G3_WALLS: dict = {}
 
@@ -5575,7 +5678,7 @@ def main_path_gemma3_mm(dtype: str = "bfloat16",
     """Phase 26, the vision slice's main path: Gemma-3-4B-it bf16 at full
     width and ``layers`` of its 34 text layers (all of them where None)
     with one image a request (see the module docstring); phase 35 (``dtype``
-    "float16"): the same at full depth in fp16, every ragged launch on the
+    "float16"): the same in fp16, every ragged launch on the
     fp16 span instances (``csrc/ragged_spans_f16.cu``) and every token's
     logprob finite. Returns a cold run's launches."""
     import torch
@@ -6918,9 +7021,9 @@ def span_fp16_checks(gen, results: dict) -> None:
     caches, each against its plain version at TOL["float16"] and timed
     beside its bf16 self (this call's, where phase 2 ran one), SDPA in fp16
     with (causal OR span) as a boolean mask and its bound; every case of
-    ``SPAN_RAGGED_CASES`` in fp16 (head_dim 32: the scalar instance's span
-    branch in fp16, timed for phase 34's hd-32 run). All launches from
-    ``csrc/ragged_spans_f16.cu`` but head_dim 32's. Then the decode kernel
+    ``SPAN_RAGGED_CASES`` in fp16 (head_dim 32, in 64-wide tiles, timed for
+    phase 34's hd-32 run). All launches from ``csrc/ragged_spans_f16.cu``.
+    Then the decode kernel
     at phase 35's step in fp16 (``DECODE_CASES["gemma-3-4b"]``: 8 / 4
     heads of 256, the fp16 instance at head_dim 256, group 2), timed
     beside its bf16 self."""
@@ -6944,25 +7047,23 @@ def span_fp16_checks(gen, results: dict) -> None:
             f"span) as a boolean mask {r['library_ms']:.4f} ms (device "
             f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} "
             f"ms ({r['bound_by']}); {blind_text(r)}")
+    lib = "ragged_spans_f16"
     for case, geom in SPAN_RAGGED_CASES.items():
-        lib = ("ragged_spans_f16" if geom.get("hd", HD) in (64, 128, 256)
-               else "ragged_paged_attention")
-        timed = case == "hd32-group2"
         with only_source(lib, f"fp16 spans {case}"):
-            r = check_ragged(gen, f16, geom, timed=timed)
-        if timed:
-            results[(name, "mm-tiny-hd32", f16)] = r
-            err = r["max_abs_err"]
-            log(f"# phase 2: {name} {f16} spans {case} (the scalar "
-                f"instance): kernel {r['ms']:.4f} ms (device "
-                f"{r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                f"sdpa {r['library_ms']:.4f} ms (device "
-                f"{r['library_device_ms']:.4f} ms), bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
-        else:
-            err = r
+            err = check_ragged(gen, f16, geom, timed=False)
         log(f"# phase 2: {name} {f16} spans {case} ({lib}): max_abs_err "
             f"{err:.3g} (tol {TOL[f16]})")
+    # head_dim 32 (phase 34's tiny Gemma-3) timed, beside the scalar
+    # instance launched directly
+    r = check_ragged(gen, f16, SPAN_RAGGED_CASES["hd32-group2"], before=True)
+    results[(name, "mm-tiny-hd32", f16)] = r
+    log(f"# phase 2: {name} {f16} spans hd32-group2 (64-wide tensor-core "
+        f"tiles): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), "
+        f"the scalar instance (before) {r['before_ms']:.4f} ms (device "
+        f"{r['before_device_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+        f"sdpa {r['library_ms']:.4f} ms (device "
+        f"{r['library_device_ms']:.4f} ms), bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
     case, dpa = "gemma-3-4b", "decode_paged_attention"
     r = check_decode(gen, f16, case)
     s = results[(dpa, case, b16)]
@@ -7076,7 +7177,8 @@ def ragged_option_checks(gen, results: dict) -> None:
 
 # Phase 34's tiny fp16 multimodal models: Gemma-3 at head_dim 64 (its
 # text group of 2 on the fp16 tensor-core span instances) and at 32 (the
-# scalar instance's span branch in fp16), and PaliGemma-2 (no spans).
+# same instances in 64-wide tiles), and PaliGemma-2 (no spans, head_dim
+# 32: the fp16 tensor-core instances).
 F16_MM_TINY = {
     "gemma3-hd64": dict(MM_TINY["gemma3"], text_config=dict(
         MM_TINY["gemma3"]["text_config"], head_dim=64,
@@ -7087,8 +7189,8 @@ F16_MM_TINY = {
 F16_MM_PARITY = {
     "gemma3-hd64/auto": ("gemma3-hd64", "auto", "ragged_spans_f16"),
     "gemma3-hd64/fp8_e4m3": ("gemma3-hd64", "fp8_e4m3", "ragged_spans_f16"),
-    "gemma3/auto": ("gemma3", "auto", "ragged_paged_attention"),
-    "paligemma2/auto": ("paligemma2", "auto", "ragged_paged_attention")}
+    "gemma3/auto": ("gemma3", "auto", "ragged_spans_f16"),
+    "paligemma2/auto": ("paligemma2", "auto", "ragged_f16")}
 
 
 def mm_fp16_parity() -> dict:
@@ -7165,6 +7267,283 @@ def mm_fp16_parity() -> dict:
             f"spans {rpa.span_launches}")
         del cpu, gpu
     return launches
+
+
+# ------------------------ the tensor-core routes at other geometries
+# Phase 2 and phases 36-38 for the slice that moves bf16 and fp16 off the
+# ragged kernel's scalar instance and the decode kernel's CUDA-core one:
+# both now run their tensor-core instances at every head_dim that is a
+# multiple of 16 up to 256 (tiles 64, 128 or 256 wide, the model's head_dim
+# a run-time stride), and decode at any group (row slices of 16 query
+# heads). The served checkpoints that reach them: BLOOM-3b (32 / 32 heads
+# of 80, ALiBi), MPT-30B (64 / 64 of 112, ALiBi), Falcon-7B (71 query
+# heads of 64 on one KV head).
+BLOOM_3B = dict(  # bigscience/bloom-3b config.json
+    architectures=["BloomForCausalLM"], model_type="bloom",
+    vocab_size=250880, hidden_size=2560, n_head=32, n_layer=30,
+    layer_norm_epsilon=1e-5)
+FALCON_7B = dict(  # tiiuae/falcon-7b config.json
+    architectures=["FalconForCausalLM"], model_type="falcon",
+    vocab_size=65024, hidden_size=4544, num_attention_heads=71,
+    num_hidden_layers=32, alibi=False, bias=False, multi_query=True,
+    new_decoder_architecture=False, parallel_attn=True,
+    layer_norm_epsilon=1e-5)
+# Phase 38 serves Falcon-7B at 16 of its 32 layers, which keeps the script
+# inside its time limit (every layer runs the same kernels).
+FALCON_7B_HALF = dict(FALCON_7B, num_hidden_layers=16)
+_STEP = [513 + (37 * r) % 64 for r in range(32)]  # phase 6's decode step
+# Phase 2's timed waves (32 x 512) and decode steps (R = 32 over 513-576
+# keys) at the served geometries; MPT-30B (mosaicml/mpt-30b config.json:
+# d_model 7168, 64 heads, ALiBi) is held and timed here only.
+TC23_WAVES = {
+    "bloom-3b": dict(nq=32, kvh=32, hd=80, ctx=[512] * 32, qlen=[512] * 32,
+                     alibi=True),
+    "mpt-30b": dict(nq=64, kvh=64, hd=112, ctx=[512] * 32,
+                    qlen=[512] * 32, alibi=True),
+    "falcon-7b": dict(nq=71, kvh=1, hd=64, ctx=[512] * 32, qlen=[512] * 32),
+}
+TC23_DECODE_CASES = {
+    "bloom-3b": (32, 32, 80, _STEP, dict(alibi=True)),
+    "mpt-30b": (64, 64, 112, _STEP, dict(alibi=True)),
+    "falcon-7b": (71, 1, 64, _STEP, {}),
+    # held, not timed: head dims 80, 96 and 112 at group 2, groups 18 and
+    # 71 at head_dim 64, with and without ALiBi
+    **{f"hd{hd}{'-alibi' * a}": (16, 8, hd, _STEP, dict(alibi=True) if a
+                                 else {})
+       for hd in (80, 96, 112) for a in (False, True)},
+    **{f"group{g}{'-alibi' * a}": (g, 1, 64, _STEP, dict(alibi=True) if a
+                                   else {})
+       for g in (18, 71) for a in (False, True)},
+}
+# Held, not timed: the ragged kernel at head dims 32, 48, 80, 96 and 112
+# (the narrowest tiles that hold them: 64 and 128 wide) over
+# SPAN_RAGGED_CASES's requests (mid-tile spans, later chunks): causal at
+# group 2, ALiBi at group 3 (the slopes' interpolation branch), image
+# spans, a soft cap with a sliding window on 16-token pages, and a group
+# past 16 (18 on one KV head).
+TC23_RAGGED_CASES = {
+    f"hd{hd}-{kind}": dict(
+        dict(nq=8, kvh=4, hd=hd, ctx=_SPAN_CTX, qlen=_SPAN_QLEN), **extra)
+    for hd in (32, 48, 80, 96, 112)
+    for kind, extra in (
+        ("causal", {}), ("alibi-group3", dict(nq=9, kvh=3, alibi=True)),
+        ("spans", dict(spans=_SPAN_SETS)),
+        ("softcap30-window64-page16", dict(
+            page=16, opts=dict(logits_soft_cap=30.0, sliding_window=64))),
+        ("group18", dict(nq=18, kvh=1)))}
+
+
+@contextlib.contextmanager
+def only_instance(fn, inst: str, what: str):
+    """Within it, every launch of the attention wrapper ``fn`` must be on
+    its instance ``inst`` (its ``instance_launches``), and at least one
+    must be."""
+    fn.instance_launches = dict.fromkeys(fn.instance_launches, 0)
+    yield
+    n = fn.instance_launches
+    if not 0 < n[inst] == sum(n.values()):
+        raise AssertionError(f"{what}: launches by instance {n}; want all "
+                             f"on {inst}")
+
+
+def tc_route_checks(gen, results: dict) -> None:
+    """Phase 2 for the tensor-core routes at other geometries: in bf16 and
+    fp16, on caches of q's dtype, e4m3 and e5m2, ``TC23_RAGGED_CASES`` (the
+    ragged kernel) and ``TC23_DECODE_CASES`` (the decode kernel, three
+    plans each), every launch on the tensor-core instances, each against
+    its plain version (the ragged at TOL, or TOL x max(1, max|ref row|)
+    with ALiBi; the decode at TOL x min(1, max|ref|)); then in bf16 the
+    served geometries timed (``TC23_WAVES``, the decode steps): call and
+    device time, the same call on the scalar or CUDA-core instance
+    (launched directly, the "before"), SDPA (ALiBi as a float mask, the
+    group by expanding K/V), the bound and the plain version."""
+    import torch
+    from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_launch_geometry, decode_paged_attention as dpa)
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as rpa, ragged_route)
+    rname, dname = "ragged_paged_attention", "decode_paged_attention"
+    for dt in ("bfloat16", "float16"):
+        for kv in (None, *KV_FP8):
+            worst = {}
+            with only_instance(rpa, "tensor_cores", f"ragged {dt}{kv}"):
+                for geom in TC23_RAGGED_CASES.values():
+                    err = check_ragged(gen, dt, geom, timed=False, kv=kv)
+                    worst[geom["hd"]] = max(worst.get(geom["hd"], 0.0),
+                                            float(f"{err:.3g}"))
+            log(f"# phase 2: {rname} {dt}{kv_label(kv)} tensor-core "
+                f"instances at head dims 32-112 ({len(TC23_RAGGED_CASES)} "
+                f"cases: causal, ALiBi, spans, soft cap + window, group "
+                f"18): max_abs_err by head_dim {worst} (tol {TOL[dt]}, x "
+                "max(1, max|ref row|) with ALiBi)")
+            worst = {}
+            with only_instance(dpa, "tensor_cores", f"decode {dt}{kv}"):
+                for case in TC23_DECODE_CASES:
+                    r = check_decode(gen, dt, case, kv=kv, timed=False)
+                    worst[case] = float(f"{r['max_abs_err']:.3g}")
+            log(f"# phase 2: {dname} {dt}{kv_label(kv)} tensor-core "
+                f"instance (row slices past group 16): max_abs_err {worst} "
+                f"(tol {TOL[dt]} x min(1, max|ref|), plans bounded by the "
+                "longest context, the block tables and 0)")
+    dt = "bfloat16"
+    for path, geom in TC23_WAVES.items():
+        # the routes of the timed calls (their "before" runs the others)
+        nq, kvh, hd = geom["nq"], geom["kvh"], geom["hd"]
+        if ragged_route(torch.bfloat16, hd, False, bool(geom.get(
+                "alibi")))[2] != "tensor_cores" or not decode_launch_geometry(
+                torch.bfloat16, nq // kvh, hd, H100_SMEM_OPTIN)[0]:
+            raise AssertionError(f"{path}: not on the tensor-core routes")
+        before = path != "falcon-7b"  # head_dim 64 ran tensor cores before
+        r = check_ragged(gen, dt, geom, before=before)
+        results[(rname, path, dt)] = r
+        prior = (f"; the scalar instance (before) {r['before_ms']:.4f} ms "
+                 f"(device {r['before_device_ms']:.4f} ms, "
+                 f"{r['before_device_ms'] / r['device_ms']:.1f}x)"
+                 if before else "")
+        alibi = " with the bias as a float mask" if geom.get("alibi") else ""
+        log(f"# phase 2: {rname} {dt} at {path}'s wave ({geom['nq']} / "
+            f"{geom['kvh']} heads of {geom['hd']}"
+            f"{', ALiBi' if alibi else ''}; tensor cores): max_abs_err "
+            f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms){prior}; plain {r['plain_ms']:.4f} "
+            f"ms, sdpa{alibi} {r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms']:.4f} ms, the kernel "
+            f"{r['device_ms'] / r['library_device_ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        r = check_decode(gen, dt, path, before=True)
+        results[(dname, path, dt)] = r
+        log(f"# phase 2: {dname} {dt} at {path}'s step: the kernel "
+            f"{r['device_ms'] / r['library_device_ms']:.2f}x sdpa's device "
+            f"time, the CUDA-core instance "
+            f"{r['before_device_ms'] / r['device_ms']:.1f}x the kernel's")
+
+
+# Phase 36's tiny fp16 models on the new routes: a BLOOM at BLOOM-3b's
+# head_dim 80 (ALiBi, the ragged kernel in 128-wide tiles) and a
+# Falcon-7B-style multi-query model with 18 query heads of 64 on one KV
+# head (the decode kernel in two row slices).
+TC23_TINY = {
+    "bloom-hd80": dict(architectures=["BloomForCausalLM"],
+                       model_type="bloom", hidden_size=320, n_head=4,
+                       n_layer=2, vocab_size=512),
+    "falcon-mqa-group18": dict(
+        architectures=["FalconForCausalLM"], model_type="falcon",
+        hidden_size=1152, num_attention_heads=18, num_hidden_layers=2,
+        alibi=False, parallel_attn=True, multi_query=True, bias=False,
+        vocab_size=512),
+}
+# Phase 36's runs: (model, kv_cache_dtype).
+TC23_PARITY = {"bloom-hd80/auto": ("bloom-hd80", "auto"),
+               "bloom-hd80/fp8_e4m3": ("bloom-hd80", "fp8_e4m3"),
+               "falcon-mqa-group18/auto": ("falcon-mqa-group18", "auto")}
+
+
+def tc_route_parity() -> None:
+    """Phase 36: fp16 greedy runs of ``TC23_PARITY`` through the port on
+    the card and on the CPU from one seed (``redraw_flexible``; the CPU's
+    weights loaded on the card), a 16-token batch budget (chunked prefill)
+    and 8-step decode windows on the decode kernel. Tokens equal but where
+    the runs part at a gap below ``GAP`` (``same_tokens``); chosen logprobs
+    within ``F16_LOGPROB_TOL`` where they agree; the ragged and decode
+    kernels' card launches exactly their CPU twins' calls (``CallSpy``),
+    every one on the tensor-core instances (``instance_launches["scalar"]
+    == 0``)."""
+    from aphrodite_tpu_torch import LLM, SamplingParams
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention)
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    kernels = {"ragged_paged_attention": ragged_paged_attention,
+               "decode_paged_attention": decode_paged_attention}
+    rng = np.random.RandomState(36)
+    prompts = [rng.randint(1, 500, size=n).tolist()
+               for n in (5, 40, 17, 33, 70)]
+    params = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    for run, (model, kv) in TC23_PARITY.items():
+        kw = dict(hf_config=TC23_TINY[model], tokenizer="unused",
+                  dtype="float16", kv_cache_dtype=kv, block_size=16,
+                  num_kv_blocks=128, max_num_seqs=4,
+                  max_num_batched_tokens=16, max_model_len=256,
+                  decode_window=8)
+        cpu = LLM(f"tiny-{model}-fp16", device="cpu", **kw)
+        redraw_flexible(cpu.engine.core.worker.model, 36)
+        gpu = LLM(f"tiny-{model}-fp16", device="cuda", **kw)
+        gpu.engine.core.worker.load_params(
+            cpu.engine.core.worker.model.state_dict())
+        with CallSpy() as want:
+            a = traced(cpu, prompts, params)
+        for fn in kernels.values():
+            fn.launches = 0
+            fn.instance_launches = dict.fromkeys(fn.instance_launches, 0)
+        with CallSpy() as calls:
+            b = traced(gpu, prompts, params)
+        got = {k: fn.launches for k, fn in kernels.items()}
+        by_inst = {k: dict(fn.instance_launches)
+                   for k, fn in kernels.items()}
+        if any(got[k] != want.calls[k] or got[k] != calls.calls[k]
+               or got[k] <= 0 or by_inst[k]["scalar"]
+               or by_inst[k]["tensor_cores"] != got[k] for k in got):
+            raise AssertionError(
+                f"phase 36 {run}: launches {got}, by instance {by_inst}; "
+                f"the card's calls {calls.calls}, the CPU's {want.calls}")
+        if len({t for x in a[0] for t in x}) <= 10:
+            raise AssertionError(f"phase 36 {run}: the tokens hardly vary: "
+                                 f"{a[0]}")
+        found = same_tokens(f"phase 36 {run}", cpu, gpu, prompts, a, b)
+        gaps = [abs(float(la[i][t]) - float(lb[i][t]))
+                for ta, tb, la, lb in zip(a[0], b[0], a[1], b[1])
+                for i, t in enumerate(ta) if ta[:i + 1] == tb[:i + 1]]
+        worst = max(gaps)
+        if not worst <= F16_LOGPROB_TOL:
+            raise AssertionError(f"phase 36 {run}: chosen logprobs card vs "
+                                 f"CPU up to {worst:.4g} > {F16_LOGPROB_TOL}")
+        log(f"# phase 36: {run}: cuda == cpu greedy fp16 tokens for "
+            f"{len(prompts)} prompts x 24 but at partings (request, step, "
+            f"cpu token, card token, gap < {GAP}) {found}; chosen logprobs "
+            f"within {worst:.4g} (tol {F16_LOGPROB_TOL}) over {len(gaps)} "
+            f"agreeing tokens; launches {got} (= the CPU's calls), all on "
+            f"the tensor-core instances")
+        del cpu, gpu
+
+
+def main_path_tc_route(phase: str, name: str, hf: dict,
+                       alibi: bool) -> dict:
+    """Phase 37 (BLOOM-3b, ``BLOOM_3B``, full width and depth) or 38
+    (Falcon-7B, ``FALCON_7B_HALF``) in bf16 with seeded dummy weights,
+    phase 6's traffic: one 16384-token wave on the ragged kernel, then one
+    63-step window through the non-window multi-step path (the decode
+    kernel once a layer a sub-step). In every cold and warm run: ragged
+    exactly L and decode exactly L x 63 launches, every one on the
+    tensor-core instances (none on the scalar ones), each carrying the
+    model's ALiBi slopes (BLOOM) or none (Falcon's rope), and the window
+    kernel never."""
+    from aphrodite_tpu_torch.ops.decode_paged_attention import (
+        decode_paged_attention as dpa)
+    from aphrodite_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as rpa)
+    L = hf.get("n_layer") or hf["num_hidden_layers"]
+    steps = 63
+    with SlopeSpy("ragged_paged_attention") as rs, \
+            SlopeSpy("decode_paged_attention") as ds:
+        counts = serve_workload(
+            phase, name, hf,
+            {"decode_paged_attention": dpa, **attention_kernels(),
+             "ragged with slopes": rs, "decode with slopes": ds,
+             **{f"{k} {i}": InstanceCount(fn, i)
+                for k, fn in (("ragged", rpa), ("decode", dpa))
+                for i in ("tensor_cores", "scalar")}},
+            exact={"ragged_paged_attention": L,
+                   "decode_paged_attention": L * steps,
+                   "window_decode_attention": 0,
+                   "ragged tensor_cores": L, "ragged scalar": 0,
+                   "decode tensor_cores": L * steps, "decode scalar": 0,
+                   "ragged with slopes": L if alibi else 0,
+                   "decode with slopes": L * steps if alibi else 0})[0]
+    if alibi and (rs.without or ds.without):
+        raise AssertionError(f"{phase}: {rs.without} ragged and "
+                             f"{ds.without} decode calls without slopes")
+    return counts
 
 
 def main() -> int:
@@ -7326,6 +7705,8 @@ def main() -> int:
     moe_mla_fp16_checks(gen, results)
     stamp("phase 2: the ragged kernel's last options")
     ragged_option_checks(gen, results)
+    stamp("phase 2: the tensor-core routes at other geometries")
+    tc_route_checks(gen, results)
     tiny_parity()
     qwen_counts = main_path()
     log(f"# phase 4: attention launches per run {qwen_counts}")
@@ -7382,7 +7763,16 @@ def main() -> int:
     stamp("phase 34")
     f16_mm_parity = mm_fp16_parity()
     stamp("phase 35")
-    f16_g3_counts = main_path_gemma3_mm(dtype="float16")
+    f16_g3_counts = main_path_gemma3_mm(dtype="float16",
+                                        layers=GEMMA3_HALF_DEPTH)
+    stamp("phase 36")
+    tc_route_parity()
+    stamp("phase 37")
+    bloom_counts = main_path_tc_route("phase 37", "bloom-3b-dummy", BLOOM_3B,
+                                      alibi=True)
+    stamp("phase 38")
+    falcon_counts = main_path_tc_route("phase 38", "falcon-7b-dummy",
+                                       FALCON_7B_HALF, alibi=False)
     stamp("the kernels' record")
 
     # One row per kernel and path that runs it: that path's launches, and
@@ -7605,8 +7995,8 @@ def main() -> int:
     # instance at head_dim 256 on phase 35's path (phase 2's step), the
     # fp16 span instances on phase 35's path (the tensor-core ones, phase
     # 2's wave)
-    # and on phase 34's runs (on e4m3 at the wave; at head_dim 32 the
-    # scalar instance, timed at phase 2's hd-32 case); ALiBi beside spans
+    # and on phase 34's runs (on e4m3 at the wave; at head_dim 32 in
+    # 64-wide tiles, timed at phase 2's hd-32 case); ALiBi beside spans
     # and the MLA option instances, which no model's path reaches: 0
     # launches, phase 2 alone holds them.
     g3_f16 = "gemma-3-4b-it-fp16"
@@ -7623,7 +8013,7 @@ def main() -> int:
             (f"{g3_rpa}_spans", "gemma3-tiny-hd32-fp16-parity", f16,
              f16_mm_parity[(g3_rpa, "gemma3/auto")],
              results[(g3_rpa, "mm-tiny-hd32", f16)], "auto",
-             "ragged_paged_attention"),
+             "ragged_spans_f16"),
             (f"{g3_rpa}_spans_alibi", "none (phase 2 only)", "bfloat16", 0,
              results[(g3_rpa, "gemma-3-4b-it-alibi", "bfloat16")], "auto",
              "ragged_spans"),
@@ -7640,6 +8030,19 @@ def main() -> int:
         source_of[(name, path, dt)] = src
     for name in (f"{g3_rpa}_spans_alibi", f"{g3_rpa}_mla_options"):
         replaces[name] = replaces[g3_rpa]
+    # The slice of the tensor-core routes at other geometries: the ragged
+    # and decode kernels' tensor-core instances on phase 37's path
+    # (BLOOM-3b, head_dim 80 in 128-wide tiles, ALiBi), phase 38's
+    # (Falcon-7B: group 71, the decode kernel in row slices), and at
+    # MPT-30B's geometry (head_dim 112), which no phase serves.
+    b16 = "bfloat16"
+    for path, counts, shapes in (("bloom-3b-bf16", bloom_counts, "bloom-3b"),
+                                 ("falcon-7b-bf16", falcon_counts,
+                                  "falcon-7b")):
+        rows += [(name, path, b16, counts[name], results[(name, shapes, b16)],
+                  "auto") for name in (rpa, dpa)]
+    rows += [(name, "mpt-30b-bf16 (phase 2 only)", b16, 0,
+              results[(name, "mpt-30b", b16)], "auto") for name in (rpa, dpa)]
     kernels = []
     for name, path, dt, launches, r, kv in rows:
         src = ("quant_matmul" if name in QUANT_KERNELS

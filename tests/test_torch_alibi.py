@@ -5,7 +5,9 @@ CUDA wrapper runs on CPU tensors) against the JAX package's Pallas kernel
 in interpret mode, on the same numpy inputs: groups of 1, 4 and 8 query
 heads a KV head at head counts that are not powers of two, a mixed wave
 with chunked prefill (queries at positions past keys that earlier chunks
-cached), and ALiBi with a soft cap.
+cached), and ALiBi with a soft cap; BLOOM's and MPT's head dims (80 and
+112, which the card runs in 128-wide tensor-core tiles) and groups past
+one 16-row mma tile (18, and Falcon-7B's 71).
 
 ALiBi goes in before the soft cap, as the TPU kernel adds it
 (``ragged_paged_attention.py:201-216``); the JAX oracle adds it after
@@ -65,14 +67,16 @@ def test_slopes_equal_jax_bit_for_bit(rule):
         np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=n)
 
 
-# (query heads, KV heads): groups 1, 4 and 8, none a power of two.
-GEOMETRIES = {"group1": (3, 3), "group4": (12, 3), "group8": (24, 3)}
+# (query heads, KV heads): groups 1, 4 and 8, none a power of two; 18
+# and 71 on one KV head.
+GEOMETRIES = {"group1": (3, 3), "group4": (12, 3), "group8": (24, 3),
+              "group18": (18, 1), "group71": (71, 1)}
 # Each request: (context length, tokens scheduled now). A prefill, a later
 # chunk of a longer prompt, and a decode row; one work item each.
 REQS = [(12, 12), (60, 14), (25, 1)]
 
 
-def _case(nq, kvh, seed=0):
+def _case(nq, kvh, seed=0, hd=HD):
     rng = np.random.RandomState(seed)
     R = len(REQS)
     pages_per = [-(-c // PAGE) for c, _ in REQS]
@@ -88,9 +92,9 @@ def _case(nq, kvh, seed=0):
     tok_req = np.repeat(np.arange(R), counts).astype(np.int32)
     tok_pos = np.concatenate([np.arange(c - n, c) for c, n in REQS]
                              ).astype(np.int32)
-    cache = (rng.randn(L, sum(pages_per) + 1, 2, kvh, PAGE, HD)
+    cache = (rng.randn(L, sum(pages_per) + 1, 2, kvh, PAGE, hd)
              * 0.5).astype(np.float32)
-    q = (rng.randn(len(tok_pos), nq, HD) * 0.5).astype(np.float32)
+    q = (rng.randn(len(tok_pos), nq, hd) * 0.5).astype(np.float32)
     return dict(q=q, cache=cache, bt=bt, qsl=qsl, seq_lens=seq_lens,
                 tok_req=tok_req, tok_pos=tok_pos, R=R, T=len(tok_pos))
 
@@ -104,8 +108,9 @@ def _port(c, slopes, **kw):
         slot_mapping=None, seq_lens=t(c["seq_lens"]),
         block_tables=t(c["bt"]), block_q=BLOCK_Q,
         **{k: t(v) for k, v in items.items()})
+    hd = c["q"].shape[-1]
     return ragged_paged_attention(t(c["q"]), t(c["cache"]), LAYER, md,
-                                  HD ** -0.5, alibi=slopes, **kw).numpy()
+                                  hd ** -0.5, alibi=slopes, **kw).numpy()
 
 
 def _jax_md(c):
@@ -124,36 +129,41 @@ def _jax_md(c):
         md, **{k: jnp.asarray(v) for k, v in items.items()})
 
 
+# name: (geometry, options, head_dim).
 CASES = {
-    "group1": ("group1", {}),
-    "group4": ("group4", {}),
-    "group8": ("group8", {}),
-    "group4_soft_cap": ("group4", {"logits_soft_cap": 5.0}),
+    "group1": ("group1", {}, HD),
+    "group4": ("group4", {}, HD),
+    "group8": ("group8", {}, HD),
+    "group4_soft_cap": ("group4", {"logits_soft_cap": 5.0}, HD),
+    "group4_hd80": ("group4", {}, 80),     # BLOOM-3b's head
+    "group4_hd112": ("group4", {}, 112),   # MPT-30B's
+    "group18": ("group18", {}, HD),
+    "group71": ("group71", {}, 64),        # Falcon-7B's group and head
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_ragged_alibi_vs_pallas_interpret(name):
-    geom, kw = CASES[name]
+    geom, kw, hd = CASES[name]
     nq, kvh = GEOMETRIES[geom]
-    c = _case(nq, kvh)
+    c = _case(nq, kvh, hd=hd)
     slopes = alibi_slopes(nq)
     got = _port(c, slopes, **kw)
     md = _jax_md(c)
     q = jnp.asarray(c["q"])
     kern, _ = jax_ragged_kernel(
-        q, jnp.asarray(c["cache"]), md, HD ** -0.5, block_q=BLOCK_Q,
+        q, jnp.asarray(c["cache"]), md, hd ** -0.5, block_q=BLOCK_Q,
         chunk_pages=1, interpret=True, layer_idx=LAYER,
         alibi=tuple(float(s) for s in slopes), **kw)
     np.testing.assert_allclose(got, np.asarray(kern), rtol=0, atol=ATOL)
     without = _port(c, None, **kw)
     assert np.abs(got - without).max() > 0.1   # the bias moves the output
-    if geom != "group4":
+    if geom in ("group1", "group8"):
         return
-    # The JAX oracle (one geometry: each new one costs a compile): equal
-    # without a cap; with one, its order (the cap, then the bias) gives
-    # another result.
-    ref = jax_ref_ragged(q, jnp.asarray(c["cache"][LAYER]), md, HD ** -0.5,
+    # The JAX oracle (at group 4 and past one mma tile: each new geometry
+    # costs a compile): equal without a cap; with one, its order (the cap,
+    # then the bias) gives another result.
+    ref = jax_ref_ragged(q, jnp.asarray(c["cache"][LAYER]), md, hd ** -0.5,
                          alibi=jnp.asarray(slopes.numpy()), **kw)
     if "logits_soft_cap" not in kw:
         np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=ATOL)

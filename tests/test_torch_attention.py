@@ -27,10 +27,11 @@ from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.attention.metadata import build_work_items
 from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
-    ragged_block_q, ragged_paged_attention, ragged_route, ragged_smem_bytes)
+    ragged_block_q, ragged_paged_attention, ragged_route, ragged_smem_bytes,
+    ragged_tc_rows, ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
-    window_decode_attention, window_launch_geometry, window_smem_bytes,
-    window_tc_smem_bytes, window_warps)
+    window_block_rows, window_decode_attention, window_launch_geometry,
+    window_smem_bytes, window_tc_smem_bytes, window_warps)
 
 # The JAX oracles under jit, as the JAX package runs them (eager, each of
 # their jnp ops compiles on its own: most of these tests' time).
@@ -245,10 +246,14 @@ def test_spans_at_the_mla_geometry_raise():
     assert ragged_route(torch.float32, 576, True, True)[2] == "scalar"
 
 
-# Every (dtype, head_dim) the port serves: 576 is MLA's latent head, 32
-# and 80 the scalar instance's in 16 bits.
+# Every (dtype, head_dim) the port serves: 576 is MLA's latent head,
+# every multiple of 16 up to 256 the tensor-core instances' in 16 bits
+# (in 64-, 128- or 256-wide tiles), 72 and 216 the scalar instance's.
 ROUTE_GEOMS = [(dt, hd) for dt in ("float32", "bfloat16", "float16")
-               for hd in (32, 64, 80, 128, 256, 576)]
+               for hd in (32, 64, 80, 128, 256, 576)] + [
+    (dt, hd) for dt in ("bfloat16", "float16")
+    for hd in [*range(16, 257, 16), 72, 208 + 8]
+    if hd not in (32, 64, 80, 128, 256)]
 
 
 @pytest.mark.parametrize("dtype,hd", ROUTE_GEOMS)
@@ -264,6 +269,9 @@ def test_ragged_route_names_a_built_entry(dtype, hd):
     dt = getattr(torch, dtype)
     kind = ("mla" if ragged_uses_mla(dt, hd) else "tensor_cores"
             if ragged_uses_tensor_cores(dt, hd) else "scalar")
+    assert kind == ("scalar" if dtype == "float32" else "mla" if hd == 576
+                    else "tensor_cores" if hd % 16 == 0 and hd <= 256
+                    else "scalar")
     seen = set()
     for spans in (False, True):
         for alibi in (False, True):
@@ -304,32 +312,55 @@ def test_reset_launches_zeros_every_count():
 
 # (group, head_dim): ragged query rows a work item, window warps, of the
 # instances that fp32 runs (bf16 runs the tensor-core ones at these).
+# None: as many as fit (every multiple of 16 up to 256 at group 1; groups
+# 18, 71 and 128 at BLOOM's, Falcon's and MPT's head dims).
 LAUNCH_GEOMS = {
     (2, 256): (80, 2),    # Gemma-2-9B
     (4, 128): (128, 4),   # Llama-3.1-8B
     (6, 128): (126, 4),   # Qwen2.5-1.5B
     (8, 256): (80, 2),    # Gemma-2B (MQA)
     (1, 64): (128, 4),
+    **{(1, hd): (None, None) for hd in range(16, 257, 16) if hd != 64},
+    **{(g, hd): (None, None) for g in (18, 71, 128) for hd in (64, 80, 112)},
 }
 
 
 @pytest.mark.parametrize("group,hd", sorted(LAUNCH_GEOMS))
 def test_launches_fit_an_h100(group, hd):
+    """fp32's scalar ragged items and CUDA-core window blocks fit the
+    card's shared memory; bf16's window runs its tensor-core instance only
+    at head dims 64, 128 and 256 and groups up to 16 (its gate is
+    unchanged), and the ragged kernel's tensor-core instance at every head
+    dim that is a multiple of 16, sized by its tiles' width."""
     rows, w_warps = LAUNCH_GEOMS[(group, hd)]
     block_q = ragged_block_q(group, hd, H100_SMEM_OPTIN)
+    if rows is None:
+        rows = block_q * group
+        assert rows <= max(128, group)
     assert block_q * group == rows
     assert ragged_smem_bytes(block_q, group, hd) <= H100_SMEM_OPTIN
     if rows + group <= 128:  # the shared memory, not the row cap, binds
         assert ragged_smem_bytes(block_q + 1, group, hd) > H100_SMEM_OPTIN
+    if w_warps is None:
+        w_warps = window_warps(group, hd, H100_SMEM_OPTIN)
     assert window_warps(group, hd, H100_SMEM_OPTIN) == w_warps
-    assert window_smem_bytes(group, hd, w_warps) <= H100_SMEM_OPTIN
+    w_rows = window_block_rows(group, hd, H100_SMEM_OPTIN)
+    assert window_smem_bytes(w_rows, hd, w_warps) <= H100_SMEM_OPTIN
     assert window_launch_geometry(torch.float32, group, hd,
                                   H100_SMEM_OPTIN) == \
-        (False, w_warps, window_smem_bytes(group, hd, w_warps))
-    assert window_launch_geometry(torch.bfloat16, group, hd,
-                                  H100_SMEM_OPTIN) == \
-        (True, 4, window_tc_smem_bytes(hd))
-    assert window_tc_smem_bytes(hd) <= H100_SMEM_OPTIN
+        (False, w_warps, window_smem_bytes(w_rows, hd, w_warps))
+    if hd in (64, 128, 256) and group <= 16:
+        assert window_launch_geometry(torch.bfloat16, group, hd,
+                                      H100_SMEM_OPTIN) == \
+            (True, 4, window_tc_smem_bytes(hd))
+        assert window_tc_smem_bytes(hd) <= H100_SMEM_OPTIN
+    else:
+        assert not window_launch_geometry(torch.bfloat16, group, hd,
+                                          H100_SMEM_OPTIN)[0]
+    if group <= ragged_tc_rows(hd):
+        assert ragged_work_item_tokens(torch.bfloat16, group, hd,
+                                       H100_SMEM_OPTIN) == \
+            ragged_tc_rows(hd) // group
 
 
 def test_the_old_launch_sizes_overflow_at_head_dim_256():

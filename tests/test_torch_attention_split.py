@@ -20,7 +20,7 @@ from aphrodite_tpu.ops.window_decode_attention import (
 from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN, H100_SMS
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     ragged_block_q, ragged_tc_block_q, ragged_tc_smem_bytes,
-    ragged_uses_tensor_cores, ragged_work_item_tokens)
+    ragged_uses_tensor_cores, ragged_work_item_tokens, tc_width)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
     SPLIT_KEYS, window_launch_geometry, window_max_tiles, window_plan,
     window_split_plan, window_tc_smem_bytes)
@@ -29,19 +29,34 @@ ATOL = 1e-5
 T = torch.from_numpy
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("group", [1, 2, 4, 6, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256] + [
+    hd for hd in range(16, 257, 16) if hd not in (64, 128, 256)])
+@pytest.mark.parametrize("group", [1, 2, 4, 6, 8, 18, 71])
 def test_ragged_tensor_core_sizing(group, hd):
-    """128 rows a block at head_dim <= 128, 64 at 256, in whole groups of
-    query rows; the ring fits an H100; bf16 takes this sizing and fp32
-    keeps the scalar instance's."""
+    """At every head_dim that is a multiple of 16 up to 256: 128 rows a
+    block up to head_dim 128, 64 past it, in whole groups of query rows
+    (a group past a block's rows raises); the ring, sized by the tiles'
+    width (64, 128 or 256, the narrowest that holds the head), fits an
+    H100 with and without an fp8 cache; bf16 and fp16 take this sizing
+    and fp32 keeps the scalar instance's, as bf16 does at a head_dim that
+    is not a multiple of 16."""
     rows = 128 if hd <= 128 else 64
+    width = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    assert tc_width(hd) == width
+    assert ragged_tc_smem_bytes(hd) == ragged_tc_smem_bytes(width)
+    assert ragged_tc_smem_bytes(hd, fp8=True) <= H100_SMEM_OPTIN
+    if group > rows:
+        with pytest.raises(RuntimeError, match=f"exceed the block's {rows}"):
+            ragged_tc_block_q(group, hd, H100_SMEM_OPTIN)
+        return
     block_q = ragged_tc_block_q(group, hd, H100_SMEM_OPTIN)
     assert block_q * group == rows - rows % group
     assert ragged_tc_smem_bytes(hd) <= H100_SMEM_OPTIN
-    assert ragged_uses_tensor_cores(torch.bfloat16, hd)
-    assert ragged_work_item_tokens(torch.bfloat16, group, hd,
-                                   H100_SMEM_OPTIN) == block_q
+    for dt in (torch.bfloat16, torch.float16):
+        assert ragged_uses_tensor_cores(dt, hd)
+        assert ragged_work_item_tokens(dt, group, hd,
+                                       H100_SMEM_OPTIN) == block_q
+        assert not ragged_uses_tensor_cores(dt, hd + 8)
     assert not ragged_uses_tensor_cores(torch.float32, hd)
     assert ragged_work_item_tokens(torch.float32, group, hd,
                                    H100_SMEM_OPTIN) == \
@@ -57,11 +72,13 @@ def test_ragged_tensor_core_sizing_raises_past_its_rows():
 
 @pytest.mark.parametrize("dtype,hd,block_q", [
     ("bfloat16", 256, 32), ("bfloat16", 128, 64), ("bfloat16", 80, 64),
-    ("float32", 256, 40)])
+    ("bfloat16", 208, 32), ("bfloat16", 72, 64), ("float32", 256, 40)])
 def test_runner_sizes_block_q_for_its_dtype(dtype, hd, block_q):
     """The runner asks for the instance its model's dtype runs: 64 rows of
     group 2 at head_dim 256 in bf16 (tensor cores), 80 in fp32; bf16 at a
-    head_dim without a tensor-core instance keeps the scalar sizing."""
+    head_dim that is a multiple of 16 takes the tensor-core sizing of its
+    tiles' width (128 rows at 80, 64 at 208), at one that is not (72) the
+    scalar sizing."""
     from aphrodite_tpu_torch import LLM
     cfg = dict(vocab_size=64, hidden_size=64, num_hidden_layers=1,
                num_attention_heads=8, num_key_value_heads=4, head_dim=hd,

@@ -28,10 +28,12 @@ from aphrodite_tpu_torch.attention.backend import paged_attention
 from aphrodite_tpu_torch.attention.metadata import AttentionMetadata
 from aphrodite_tpu_torch.ops.cuda_build import H100_SMEM_OPTIN, H100_SMS
 from aphrodite_tpu_torch.ops.decode_paged_attention import (
-    decode_launch_geometry, decode_max_tiles, decode_paged_attention,
-    decode_plan, decode_smem_bytes, decode_tc_smem_bytes, decode_tile_keys,
-    decode_warps)
-from aphrodite_tpu_torch.ops.window_decode_attention import window_split_plan
+    decode_blocks, decode_launch_geometry, decode_max_tiles,
+    decode_paged_attention, decode_plan, decode_row_slices,
+    decode_smem_bytes, decode_tc_smem_bytes, decode_tile_keys,
+    decode_uses_tensor_cores, decode_warps, ref_decode_paged_attention)
+from aphrodite_tpu_torch.ops.window_decode_attention import (
+    window_split_plan, window_uses_tensor_cores)
 from tests.test_torch_attention_split import merge_states
 
 # The JAX oracles under jit, as the JAX package runs them (eager, each of
@@ -55,34 +57,47 @@ CASES = {
 }
 
 
-def _case(seq_lens, hd, seed=0):
+def _case(seq_lens, hd, seed=0, nq=NQ, kvh=KVH):
     rng = np.random.RandomState(seed)
     R = len(seq_lens)
     max_pages = -(-max(seq_lens) // PAGE) + 1
     P = R * max_pages + 1
     bt = (1 + rng.permutation(P - 1)[:R * max_pages]).reshape(
         R, max_pages).astype(np.int32)
-    cache = (rng.randn(L, P, 2, KVH, PAGE, hd) * 0.5).astype(np.float32)
-    q = (rng.randn(R, NQ, hd) * 0.5).astype(np.float32)
+    cache = (rng.randn(L, P, 2, kvh, PAGE, hd) * 0.5).astype(np.float32)
+    q = (rng.randn(R, nq, hd) * 0.5).astype(np.float32)
     return q, cache, bt, np.asarray(seq_lens, np.int32)
 
 
-def _options(kw):
+def _options(kw, nq=NQ):
     """(port kwargs, JAX kernel kwargs) of a case's options."""
     kw = dict(kw)
     if kw.pop("alibi", False):
-        slopes = np.array(alibi_slopes(NQ), np.float32)
+        slopes = np.array(alibi_slopes(nq), np.float32)
         return ({**kw, "alibi": torch.from_numpy(slopes)},
                 {**kw, "alibi": tuple(float(x) for x in slopes)})
     return kw, kw
 
 
-@pytest.mark.parametrize("hd", [64, 256])
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_decode_vs_jax_kernel_and_oracle(name, hd):
+# (case, head_dim, query heads, KV heads): every case at head dims 64 and
+# 256 (group 2); BLOOM-3b's and MPT-30B's head dims (80 and 112: 128-wide
+# tensor-core tiles on the card) with ALiBi; groups past one 16-row mma
+# tile (18, and Falcon-7B's 71 on one KV head, which the card cuts into
+# row slices) with and without ALiBi.
+DECODE_GEOMS = (
+    [pytest.param(name, hd, NQ, KVH, id=f"{name}-{hd}")
+     for hd in (64, 256) for name in sorted(CASES)]
+    + [pytest.param("alibi", hd, NQ, KVH, id=f"alibi-{hd}")
+       for hd in (80, 112)]
+    + [pytest.param(name, 64, nq, 1, id=f"{name}-64-group{nq}")
+       for name, nq in (("plain", 18), ("alibi", 71))])
+
+
+@pytest.mark.parametrize("name,hd,nq,kvh", DECODE_GEOMS)
+def test_decode_vs_jax_kernel_and_oracle(name, hd, nq, kvh):
     seq_lens, kw = CASES[name]
-    q, cache, bt, sl = _case(seq_lens, hd)
-    port_kw, jax_kw = _options(kw)
+    q, cache, bt, sl = _case(seq_lens, hd, nq=nq, kvh=kvh)
+    port_kw, jax_kw = _options(kw, nq)
     scale = hd ** -0.5
     t = torch.from_numpy
     got = decode_paged_attention(t(q), t(cache), LAYER, t(bt), t(sl), scale,
@@ -145,34 +160,115 @@ def test_backend_sends_decode_mode_to_the_decode_kernel():
 # (CUDA C Programming Guide, compute capability 9.0).
 H100_SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
-# (group, head_dim): warps of the CUDA-core instance with an fp32 cache,
-# and blocks an SM of the bf16 tensor-core instance.
+# (group, head_dim): warps of the CUDA-core instance with an fp32 cache
+# (None: as many as fit), and blocks an SM of the bf16 tensor-core
+# instance. Every head_dim it takes (multiples of 16 up to 256: 64-wide
+# tiles up to 64, five blocks an SM, 128- or 256-wide past it, three) at
+# group 1, and groups past one 16-row mma tile (18, Falcon-7B's 71, 128).
 DECODE_SIZING = {(2, 256): (2, 3), (8, 256): (2, 3), (4, 128): (4, 3),
-                 (6, 128): (4, 3), (1, 64): (4, 5)}
+                 (6, 128): (4, 3), (1, 64): (4, 5),
+                 **{(1, hd): (None, 5 if hd <= 64 else 3)
+                    for hd in range(16, 257, 16) if hd != 64},
+                 **{(g, hd): (None, 5 if hd <= 64 else 3)
+                    for g in (18, 71, 128) for hd in (64, 80, 112)}}
 
 
 @pytest.mark.parametrize("group,hd", sorted(DECODE_SIZING))
 def test_decode_launch_fits_an_h100(group, hd):
     """fp32 keeps the CUDA-core instance, sized to the card's shared
-    memory; bf16 runs the split tensor-core instance, whose ring (32-key
-    tiles at head_dim 256) leaves three blocks an SM at head_dim 128 and
-    256; a group past 16 rows takes the CUDA-core instance in bf16 too."""
+    memory; bf16 and fp16 run the split tensor-core instance at every
+    head_dim that is a multiple of 16 and any group (its ring, 32-key
+    tiles at width 256, leaves three blocks an SM past head_dim 64), and
+    the CUDA-core instance at a head_dim that is not; the window kernel's
+    gate stays at head dims 64, 128 and 256 and groups up to 16."""
     warps32, blocks = DECODE_SIZING[(group, hd)]
     tc, warps, smem = decode_launch_geometry(torch.float32, group, hd,
                                              H100_SMEM_OPTIN)
-    assert not tc and warps == warps32
+    assert not tc and warps in ((1, 2, 4) if warps32 is None else (warps32,))
     assert smem == decode_smem_bytes(group, hd, 4, warps) <= H100_SMEM_OPTIN
     if warps < 4:
         assert decode_smem_bytes(group, hd, 4, 2 * warps) > H100_SMEM_OPTIN
-    tc, warps, smem = decode_launch_geometry(torch.bfloat16, group, hd,
-                                             H100_SMEM_OPTIN)
-    assert tc and warps == 4 and smem == decode_tc_smem_bytes(hd)
-    assert H100_SMEM_PER_SM // (smem + SMEM_RESERVED) == blocks
-    tc, warps, _ = decode_launch_geometry(torch.bfloat16, 17, hd,
+    for dt in (torch.bfloat16, torch.float16):
+        assert decode_uses_tensor_cores(dt, group, hd)
+        tc, warps, smem = decode_launch_geometry(dt, group, hd,
+                                                 H100_SMEM_OPTIN)
+        assert tc and warps == 4 and smem == decode_tc_smem_bytes(hd)
+        assert H100_SMEM_PER_SM // (smem + SMEM_RESERVED) == blocks
+        assert window_uses_tensor_cores(dt, group, hd) == (
+            hd in (64, 128, 256) and group <= 16)
+    assert not decode_uses_tensor_cores(torch.float32, group, hd)
+    odd = hd + 8  # not a multiple of 16: the CUDA-core instance
+    tc, warps, _ = decode_launch_geometry(torch.bfloat16, group, odd,
                                           H100_SMEM_OPTIN)
-    assert not tc and warps == decode_warps(17, hd, 2, H100_SMEM_OPTIN)
+    assert not tc and warps == decode_warps(group, odd, 2, H100_SMEM_OPTIN)
     with pytest.raises(RuntimeError, match="the card allows 232448"):
         decode_warps(128, 640, 4, H100_SMEM_OPTIN)
+
+
+@pytest.mark.parametrize("nq,kvh", [(4, 2), (32, 2), (18, 1), (71, 1),
+                                    (128, 1)])
+@pytest.mark.parametrize("opts", [{}, {"sliding_window": 100},
+                                  {"chunk_attn": 96}], ids=str)
+def test_decode_blocks_cover_every_row_and_tile_once(opts, nq, kvh):
+    """The tensor-core grid (``decode_blocks``: request, KV head, slice of
+    at most 16 query heads of that KV head's group, split) under the plan
+    bounded by the longest context, by too low a bound and by 0 gives
+    every (request, query head, visible tile) to exactly one block; a
+    block's tiles are its split's (the split model's ``_split_ranges``),
+    so a row's states merge in the order 0, 1, ... of the splits; the
+    plan counts the row slices in its blocks."""
+    hd, group = 80, nq // kvh
+    seq_lens = [1, 37, 64, 65, 364, 517, 0]
+    keys = decode_tile_keys(hd)
+    R = len(seq_lens)
+    plans = [decode_plan(torch.bfloat16, R, nq, kvh, hd, "cpu", b, **opts)
+             for b in (max(seq_lens), 64, 0)]
+    slices = decode_row_slices(group)
+    assert slices == -(-group // 16)
+    assert plans[0].splits == window_split_plan(
+        R * kvh * slices, decode_max_tiles(max(seq_lens), keys, **opts),
+        H100_SMS)[0]
+    for plan in plans:
+        blocks = decode_blocks(plan, seq_lens, **opts)
+        assert len(blocks) == R * kvh * slices * plan.splits
+        seen = {}
+        for b in blocks:
+            assert 0 < len(b.heads) <= 16
+            assert all(hh // group == b.kv_head for hh in b.heads)
+            for hh in b.heads:
+                for t in b.tiles:
+                    key = (b.req, hh, t)
+                    assert key not in seen
+                    seen[key] = b.split
+        for r, n_seq in enumerate(seq_lens):
+            lo, t0, n = _tiles(n_seq, keys, **opts)
+            ranges = _split_ranges(n, plan.splits, plan.tiles_per_split)
+            for hh in range(nq):
+                got = sorted((t, sp) for (rr, h2, t), sp in seen.items()
+                             if rr == r and h2 == hh)
+                want = [(t0 + t, sp) for sp, (a, b_) in enumerate(ranges)
+                        for t in range(a, b_)]
+                assert got == want
+
+
+def test_decode_row_slices_merge_to_the_plain_version():
+    """At Falcon-7B's group (71 query heads on one KV head, five row
+    slices) and BLOOM-3b's head_dim 80 with ALiBi, the states of the
+    plan's blocks merged in split order equal the plain version."""
+    seq_lens, nq, kvh, hd = [300, 133, 5, 248], 71, 1, 80
+    q, cache, bt, sl = _split_case(seq_lens, 32, hd, seed=7, nq=nq, kvh=kvh)
+    port_kw, _ = _options({"alibi": True}, nq)
+    t = torch.from_numpy
+    scale = hd ** -0.5
+    plan = decode_plan(torch.bfloat16, len(sl), nq, kvh, hd, "cpu",
+                       max(seq_lens))
+    assert plan.splits > 1
+    got = merge_states(decode_split_states(
+        t(q), t(cache[LAYER]), t(bt), t(sl), scale, plan.splits,
+        plan.tiles_per_split, decode_tile_keys(hd), **port_kw))
+    want = ref_decode_paged_attention(t(q), t(cache[LAYER]), t(bt), t(sl),
+                                      scale, **port_kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
 
 
 def _tiles(seq_len, keys, sliding_window=None, chunk_attn=None):
@@ -288,15 +384,15 @@ SPLIT_CASES = {
 }
 
 
-def _split_case(seq_lens, page, hd, seed):
+def _split_case(seq_lens, page, hd, seed, nq=NQ, kvh=KVH):
     rng = np.random.RandomState(seed)
     R = len(seq_lens)
     max_pages = -(-max(seq_lens) // page) + 1
     P = R * max_pages + 1
     bt = (1 + rng.permutation(P - 1)[:R * max_pages]).reshape(
         R, max_pages).astype(np.int32)
-    cache = (rng.randn(L, P, 2, KVH, page, hd) * 0.5).astype(np.float32)
-    q = (rng.randn(R, NQ, hd) * 0.5).astype(np.float32)
+    cache = (rng.randn(L, P, 2, kvh, page, hd) * 0.5).astype(np.float32)
+    q = (rng.randn(R, nq, hd) * 0.5).astype(np.float32)
     return q, cache, bt, np.asarray(seq_lens, np.int32)
 
 

@@ -8,7 +8,11 @@ the port's side).
 
 The tiny geometry: 2 layers, hidden 96, vocab 256, 6 or 12 query heads (96
 has no power-of-two divisor that leaves 6 or 12 heads of equal width at
-64), so that ALiBi takes the slopes' interpolation branch.
+64), so that ALiBi takes the slopes' interpolation branch. Two more at the
+geometries the card's tensor-core instances reach in 128-wide tiles and in
+row slices: a BLOOM at BLOOM-3b's head_dim 80 (hidden 240, 3 heads) and a
+Falcon-7B-style multi-query model with a group past one 16-row mma tile
+(18 query heads of 16 on one KV head).
 
 Tolerance: fp32, atol 1e-4 on logits and hidden states, 1e-5 times the
 largest |value| (at least 1) on the K/V written into the cache (the
@@ -62,13 +66,23 @@ FAMILIES = {
                             intermediate_size=128, rms_norm_eps=1e-6,
                             hidden_act="silu", tie_word_embeddings=False,
                             model_max_length=512)),
+    "bloom_hd80": ("BloomForCausalLM", "BloomConfig",
+                   dict(n_head=3, n_layer=LAYERS, hidden_size=240)),
+    "falcon_7b_group18": ("FalconForCausalLM", "FalconConfig",
+                          dict(num_attention_heads=18,
+                               num_hidden_layers=LAYERS, hidden_size=288,
+                               alibi=False, parallel_attn=True,
+                               multi_query=True, bias=False)),
     "baichuan_rope": ("BaiChuanForCausalLM", None,
                       dict(num_attention_heads=6, num_hidden_layers=LAYERS,
                            intermediate_size=128, rms_norm_eps=1e-6,
                            hidden_act="silu", tie_word_embeddings=False,
                            model_max_length=512)),
 }
-ALIBI = ("bloom", "mpt_clip", "falcon_rw", "baichuan_alibi")
+ALIBI = ("bloom", "mpt_clip", "falcon_rw", "baichuan_alibi", "bloom_hd80")
+# The families held at their logits only (their geometry is what they add:
+# tests/test_torch_flexible_llm.py serves the others end to end).
+LOGITS_ONLY = ("bloom_hd80", "falcon_7b_group18")
 MODEL_TYPES = {"BloomConfig": "bloom", "MptConfig": "mpt",
                "FalconConfig": "falcon"}
 
@@ -78,7 +92,7 @@ def family_dict(name):
     (what the port reads without ``transformers``)."""
     arch, cls, fields = FAMILIES[name]
     d = dict(architectures=[arch], vocab_size=VOCAB, **fields)
-    if "d_model" not in d:
+    if "d_model" not in d and "hidden_size" not in d:
         d["hidden_size"] = H
     if cls is not None:
         d["model_type"] = MODEL_TYPES[cls]

@@ -24,8 +24,8 @@ from aphrodite_tpu_torch.loader.weights import params_from_jax
 from aphrodite_tpu_torch.ops import decode_paged_attention as decode_mod
 from aphrodite_tpu_torch.ops import ragged_paged_attention as ragged_mod
 
-from tests.test_torch_flexible import (ALIBI, FAMILIES, family_config,
-                                       perturb)
+from tests.test_torch_flexible import (ALIBI, FAMILIES, LOGITS_ONLY,
+                                       family_config, perturb)
 
 MAX_TOKENS = (12, 5, 20)
 PROMPT_LENS = (5, 40, 23)
@@ -39,7 +39,7 @@ def _kwargs(name, port=False):
                 **({} if port else {"async_scheduling": False}))
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", sorted(set(FAMILIES) - set(LOGITS_ONLY)))
 def test_greedy_tokens_identical(name, monkeypatch):
     jax_llm = JaxLLM("dummy", **_kwargs(name))
     worker = jax_llm.engine.core.worker

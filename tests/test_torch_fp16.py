@@ -281,37 +281,47 @@ def test_shared_prefix_fp16_vs_jax_kernel_and_oracle(S, kind):
 
 
 # ------------------------------------------------------------ routing
-@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("hd", [64, 128, 256] + [
+    hd for hd in range(16, 257, 16) if hd not in (64, 128, 256)])
 def test_fp16_takes_the_tensor_core_instances(hd):
     f16 = torch.float16
     assert DTYPE_CODES[f16] == 2
     assert ragged_uses_tensor_cores(f16, hd)
     for kv in (None, torch.float8_e4m3fn, torch.float8_e5m2):
         fp8 = kv is not None
-        for group in (1, 4, 16):
+        for group in (1, 4, 16, 18, 71, 128):
             tc, _, smem = window_launch_geometry(f16, group, hd,
                                                  H100_SMEM_OPTIN, fp8)
-            assert tc and window_uses_tensor_cores(f16, group, hd)
+            # The window keeps its gate: head dims 64, 128 and 256, groups
+            # up to one 16-row mma tile.
+            assert tc == window_uses_tensor_cores(f16, group, hd) == (
+                hd in (64, 128, 256) and group <= 16)
             assert smem <= H100_SMEM_OPTIN
             tc, _, smem = decode_launch_geometry(f16, group, hd,
                                                  H100_SMEM_OPTIN, kv)
             assert tc and smem <= H100_SMEM_OPTIN
-            assert ragged_work_item_tokens(f16, group, hd, H100_SMEM_OPTIN,
-                                           kv) == (128 if hd <= 128
-                                                   else 64) // group
+            rows = 128 if hd <= 128 else 64
+            if group <= rows:
+                assert ragged_work_item_tokens(
+                    f16, group, hd, H100_SMEM_OPTIN, kv) == rows // group
         plan = cascade.shared_prefix_plan(f16, 32, 32, 32, hd, 1024, "cpu",
                                           kv)
-        assert plan.tensor_cores and plan.smem <= H100_SMEM_OPTIN
-    # A group past one 16-row mma tile takes the CUDA-core instances.
-    assert not window_uses_tensor_cores(f16, 17, hd)
+        assert plan.tensor_cores == (hd in (64, 128, 256))
+        assert plan.smem <= H100_SMEM_OPTIN
+    # fp32, and fp16 at a head_dim that is not a multiple of 16, take the
+    # scalar and CUDA-core instances.
+    for dt, d in ((torch.float32, hd), (f16, hd + 8)):
+        assert not ragged_uses_tensor_cores(dt, d)
+        assert not decode_launch_geometry(dt, 4, d, H100_SMEM_OPTIN)[0]
 
 
 def test_fp16_mla_and_spans_raise_on_cuda_only():
     # Neither raises any more, on a CUDA device or elsewhere: fp16 at the
     # MLA geometry runs the MLA instances' fp16 ones, and fp16 with image
-    # spans the fp16 span instances (the tensor-core ones at head_dim 64,
-    # 128 and 256, with or without ALiBi; the MLA option instances at 576;
-    # the scalar instance elsewhere), each beside its bf16 self.
+    # spans the fp16 span instances (the tensor-core ones at every head_dim
+    # that is a multiple of 16 up to 256, with or without ALiBi; the MLA
+    # option instances at 576; the scalar instance elsewhere), each beside
+    # its bf16 self.
     f16, b16 = torch.float16, torch.bfloat16
     assert ragged_uses_mla(f16, 576)
     for hd in (64, 128, 256):
@@ -327,6 +337,8 @@ def test_fp16_mla_and_spans_raise_on_cuda_only():
     assert ragged_route(f16, 576, False, False) == (
         "mla_attention_f16", "mla_ragged_f16_launch", "mla")
     assert ragged_route(f16, 32, True, True) == (
+        "ragged_spans_f16", "rpa_tc_spans_f16_launch", "tensor_cores")
+    assert ragged_route(f16, 40, True, True) == (
         "ragged_paged_attention", "rpa_launch", "scalar")
 
 
