@@ -10,16 +10,22 @@ sampling. Every stage is self-masking on per-row parameters and
 ``greedy_sample`` alone.
 
 Two parts run as hand-written kernels on the card, where eager PyTorch
-would launch hundreds of small ops a call: the suffix match lengths of DRY
-and no-repeat-ngram (``ops/suffix_match.py``) and the Gumbel-max draw
-(``ops/gumbel_sample.py``, threefry2x32 in registers: no [R, V] noise
-tensor). On CPU tensors both run their plain versions.
+would launch tens to hundreds of small ops a call: the token-history pass
+(``ops/history_pass.py``: DRY, the penalties and no-repeat-ngram in one
+launch a draw, at the tokens of each row's history alone) and the
+Gumbel-max draw (``ops/gumbel_sample.py``, threefry2x32 in registers: no
+[R, V] noise tensor). On CPU tensors both run their plain versions.
+
+``sample_tokens`` leaves its ``logits`` as they were unless the caller
+hands them over (``donate_logits``: the decode window's sampler, which
+reads them no more); the pass then writes into them, else into a copy.
 
 Deviations from the JAX package, each with the same results:
 - sorts are ``torch.sort(stable=True)``, as ``jnp.sort``/``argsort`` are
   stable, and the top-k logprobs a stable sort's head, as
   ``jax.lax.top_k`` (equal values in index order);
-- scatters with a drop column write into a [R, V + 1] buffer and slice it;
+- scatters with a drop column write into a [R, V + 1] buffer and slice it
+  (the history pass's plain version, and min_tokens);
 - XTC's per-row uniform comes packed in the metadata for a window's
   steps (``metadata.build_sampling_arrays``), from the same keys;
 - an all-greedy batch runs the argmax alone (``SamplerFlags.all_greedy``
@@ -32,7 +38,7 @@ from typing import Optional
 import torch
 
 from aphrodite_tpu_torch.ops.gumbel_sample import gumbel_sample
-from aphrodite_tpu_torch.ops.suffix_match import MAX_MATCH, suffix_match
+from aphrodite_tpu_torch.ops.history_pass import history_pass, scatter_drop
 from aphrodite_tpu_torch.sample.metadata import SamplerFlags, SamplingMetadata
 from aphrodite_tpu_torch.sampling_params import SamplerID, SamplingParams
 
@@ -69,125 +75,8 @@ def greedy_sample(logits: torch.Tensor
     return tokens, logprob
 
 
-# --------------------------------------------------------------------------
-# token-history stages
-# --------------------------------------------------------------------------
 def _col(x: torch.Tensor) -> torch.Tensor:
     return x[:, None]
-
-
-def _scatter_drop(R: int, V: int, targets: torch.Tensor, values,
-                  reduce: str, dtype) -> torch.Tensor:
-    """[R, V] result of scattering ``values`` at ``targets`` (V = drop)
-    into zeros, through a [R, V + 1] buffer."""
-    buf = torch.zeros((R, V + 1), dtype=dtype, device=targets.device)
-    # A fill for a constant, not a copy from the host (which would wait
-    # for the device's queue).
-    src = (values.to(dtype) if isinstance(values, torch.Tensor)
-           else torch.full(targets.shape, values, dtype=dtype,
-                           device=targets.device))
-    if reduce == "sum":
-        buf.scatter_add_(1, targets.long(), src)
-    else:
-        buf.scatter_reduce_(1, targets.long(), src, "amax")
-    return buf[:, :V]
-
-
-def _match_lengths(md: SamplingMetadata, dry: bool
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(break_mask, m_plain, m_break) [R, L] of the token history: one
-    suffix-match launch serves DRY (``m_break``, stopping at the rows'
-    breakers; the mask is all False unless ``dry``) and no-repeat-ngram
-    (``m_plain``, which does not read the mask)."""
-    seq = md.token_seq
-    if dry:
-        break_mask = (seq[:, :, None] == md.dry_breakers[:, None, :]).any(-1)
-    else:
-        break_mask = torch.zeros_like(seq, dtype=torch.bool)
-    return (break_mask, *suffix_match(seq, md.total_len, break_mask))
-
-
-def _apply_dry(logits: torch.Tensor, md: SamplingMetadata,
-               break_mask: torch.Tensor, m_break: torch.Tensor
-               ) -> torch.Tensor:
-    """DRY: penalise tokens that would extend a sequence already seen.
-    ``break_mask`` and ``m_break`` come from ``_match_lengths``."""
-    R, V = logits.shape
-    seq, L = md.token_seq, md.token_seq.shape[1]
-    end = md.total_len.long() - 1
-    pos = torch.arange(L, device=seq.device)[None, :]
-
-    # How far back from the tail matching may reach before a breaker: the
-    # first i in [0, MAX_MATCH] with a break at end - i (i = 0: the last
-    # token is a breaker and DRY is off for the row).
-    i_range = torch.arange(MAX_MATCH + 1, device=seq.device)[None, :]
-    tail_idx = (_col(end) - i_range).clamp(min=0)
-    tail_brk = (torch.gather(break_mask, 1, tail_idx)
-                | (_col(end) - i_range < 0))
-    any_brk = tail_brk.any(dim=1)
-    window = (torch.argmax(tail_brk.to(torch.uint8), dim=1)
-              + torch.where(any_brk, 0, MAX_MATCH + 1))
-
-    last_tok = torch.gather(seq, 1, _col(end.clamp(min=0)))
-    range_start = _col(torch.where(md.dry_range > 0,
-                                   md.total_len - md.dry_range, 0))
-
-    m = torch.minimum(m_break, _col(window - 1).clamp(min=0))
-    is_endpoint = ((seq == last_tok) & (pos < _col(end))
-                   & (pos >= range_start) & (m > 0))
-    new_len = torch.where(is_endpoint, m + 1, 0)
-    nxt = torch.gather(seq, 1, (pos + 1).clamp(max=L - 1).expand(R, L))
-    targets = torch.where(is_endpoint, nxt, V)
-    ngram_lens = _scatter_drop(R, V, targets, new_len, "amax", torch.int32)
-
-    row_on = _col((md.dry_multiplier > 0) & (window > md.dry_allowed)
-                  & (md.total_len >= 2))
-    pen = _col(md.dry_multiplier) * torch.pow(
-        _col(md.dry_base), (ngram_lens - _col(md.dry_allowed)).float())
-    return torch.where(row_on & (ngram_lens > 0), logits - pen, logits)
-
-
-def _apply_no_repeat_ngram(logits: torch.Tensor, md: SamplingMetadata,
-                           m_plain: torch.Tensor) -> torch.Tensor:
-    """Ban tokens completing an n-gram already present in context.
-    ``m_plain`` comes from ``_match_lengths``."""
-    R, V = logits.shape
-    seq, L = md.token_seq, md.token_seq.shape[1]
-    end = md.total_len.long() - 1
-    pos = torch.arange(L, device=seq.device)[None, :]
-
-    n = _col(md.no_repeat_ngram)
-    last_tok = torch.gather(seq, 1, _col(end.clamp(min=0)))
-    hit = ((seq == last_tok) & (m_plain >= n - 2) & (pos < _col(end))
-           & (pos >= n - 2))
-    nxt = torch.gather(seq, 1, (pos + 1).clamp(max=L - 1).expand(R, L))
-    targets = torch.where(hit, nxt, V)
-    banned = _scatter_drop(R, V, targets, 1, "amax", torch.int32) > 0
-    row_on = _col((md.no_repeat_ngram > 0)
-                  & (md.total_len >= md.no_repeat_ngram))
-    return torch.where(row_on & banned, NEG_INF, logits)
-
-
-def _apply_penalties(logits: torch.Tensor,
-                     md: SamplingMetadata) -> torch.Tensor:
-    """Presence, frequency and repetition penalties."""
-    R, V = logits.shape
-    seq, L = md.token_seq, md.token_seq.shape[1]
-    pos = torch.arange(L, device=seq.device)[None, :]
-    in_prompt = pos < _col(md.prompt_len)
-    in_output = (pos >= _col(md.prompt_len)) & (pos < _col(md.total_len))
-    prompt_counts = _scatter_drop(R, V, torch.where(in_prompt, seq, V), 1,
-                                  "sum", torch.int32)
-    output_counts = _scatter_drop(R, V, torch.where(in_output, seq, V), 1,
-                                  "sum", torch.int32)
-    prompt_mask = prompt_counts > 0
-    output_mask = output_counts > 0
-    rep = torch.where(prompt_mask | output_mask,
-                      _col(md.repetition_penalty), 1.0)
-    logits = torch.where(logits > 0, logits / rep, logits * rep)
-    logits = logits - _col(md.frequency_penalty) * output_counts
-    logits = logits - _col(md.presence_penalty) * output_mask
-    return logits
 
 
 # --------------------------------------------------------------------------
@@ -356,7 +245,7 @@ def _apply_min_tokens(logits, md, step_offset):
     active = (md.out_len + step_offset) < md.min_tokens
     tgt = torch.where(_col(active), md.stop_tokens, -1)
     tgt = torch.where(tgt < 0, V, tgt)
-    mask = _scatter_drop(R, V, tgt, 1, "amax", torch.int32) > 0
+    mask = scatter_drop(R, V, tgt, 1, "amax", torch.int32) > 0
     return torch.where(mask, NEG_INF, logits)
 
 
@@ -385,7 +274,7 @@ def _apply_logit_bias(logits, md):
 # --------------------------------------------------------------------------
 def sample_tokens(logits: torch.Tensor, md: Optional[SamplingMetadata],
                   flags: SamplerFlags, max_logprobs: int = 0,
-                  step_offset: int = 0) -> dict:
+                  step_offset: int = 0, donate_logits: bool = False) -> dict:
     """Run the pipeline; returns a dict with ``tokens`` [R] int64,
     ``logprob`` [R] fp32 (of the chosen token) and, when max_logprobs > 0,
     ``topk_values`` / ``topk_indices`` [R, max_logprobs].
@@ -394,7 +283,9 @@ def sample_tokens(logits: torch.Tensor, md: Optional[SamplingMetadata],
     sub-step i of a decode window passes i, with metadata built once for
     the window (``num_steps`` > i: XTC reads its draw from
     ``md.xtc_uniform[i]``). An all-greedy batch (no stage on) runs
-    ``greedy_sample`` alone; its ``md`` may be None."""
+    ``greedy_sample`` alone; its ``md`` may be None. ``donate_logits``:
+    the caller reads ``logits`` no more, and the token-history pass may
+    write into them (else they are left unchanged)."""
     if flags.all_greedy:
         tokens, lp = greedy_sample(logits)
         out = {"tokens": tokens, "logprob": lp}
@@ -402,7 +293,7 @@ def sample_tokens(logits: torch.Tensor, md: Optional[SamplingMetadata],
             out["topk_values"], out["topk_indices"] = topk(
                 torch.log_softmax(logits.float(), dim=-1), max_logprobs)
         return out
-    logits = logits.float()
+    caller, logits = logits, logits.float()
 
     if flags.do_allowed:
         logits = _apply_allowed_tokens(logits, md)
@@ -410,14 +301,13 @@ def sample_tokens(logits: torch.Tensor, md: Optional[SamplingMetadata],
         logits = _apply_logit_bias(logits, md)
     if flags.do_min_tokens:
         logits = _apply_min_tokens(logits, md, step_offset)
-    if flags.do_dry or flags.do_ngram:
-        break_mask, m_plain, m_break = _match_lengths(md, flags.do_dry)
-    if flags.do_dry:
-        logits = _apply_dry(logits, md, break_mask, m_break)
-    if flags.do_penalties:
-        logits = _apply_penalties(logits, md)
-    if flags.do_ngram:
-        logits = _apply_no_repeat_ngram(logits, md, m_plain)
+    if flags.track_tokens:
+        # DRY -> penalties -> no-repeat-ngram, one launch; in place where
+        # the logits are the caller's to give or this function's own (and
+        # contiguous: logit_bias leaves a view).
+        own = donate_logits or logits is not caller
+        logits = history_pass(logits, md, flags,
+                              inplace=own and logits.is_contiguous())
 
     def xtc_stage(lg):
         if not flags.do_xtc:

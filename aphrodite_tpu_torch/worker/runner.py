@@ -745,7 +745,7 @@ class _WindowSampler:
         md = (replace(self.md, token_seq=self.hist, total_len=self.hlen)
               if self.track else self.md)
         out = sample_tokens(logits, md, self.flags, self.max_lp,
-                            step_offset=i)
+                            step_offset=i, donate_logits=True)
         toks = torch.where(live, out["tokens"], toks)
         if self.track:
             # A held row writes past its length, where no stage reads

@@ -10,9 +10,10 @@ with and without the spans, the attention kernels' tensor-core instances
 at head dims 64, 128 and 256 at their paths' shapes (``ATTN_PROBE``), the
 bf16 grouped GEMM at phase 8's shapes, a Llama-3.1-8B layer's four bf16 W4
 GEMMs (int4 and packed, M = 128 and 32) and a layer's four bf16 W8 and
-uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) of the checkout
-unpacked at PARENT and of this one, in turns (``compare_serving``; PARTs
-from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
+uint4 GEMMs (at phases 15's, 16's and 5's shapes, M = 32) and the
+sampler's token-history block at phase 20's draw (``HISTORY_PROBE``) of
+the checkout unpacked at PARENT and of this one, in turns
+(``compare_serving``; PARTs from ``AB_PARTS`` pick some). ``python3 chip_smoke.py --variants [LAYOUT
 ...]`` times the bf16 weight-only kernel with parts removed
 (``w4_variants``); ``python3 chip_smoke.py --span-builds`` times phase 1's
 build with ALiBi in the span instances as a uniform branch and as a
@@ -53,7 +54,7 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    one dense layer) in fp32, card vs CPU with the same weights: greedy
    tokens must be equal and the grouped GEMM launched.
 8. The main path of the MoE slice: Qwen1.5-MoE-A2.7B at full width and
-   12 of its 24 layers (``QWEN15_MOE_HALF``; 60 experts, top-4), bf16, the
+   6 of its 24 layers (``QWEN15_MOE_QUARTER``; 60 experts, top-4), bf16, the
    same traffic and runs as phase 6.
    Exactly 2048 tokens a run; the grouped GEMM and both attention kernels
    must have been launched.
@@ -74,10 +75,10 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    16-step decode windows: greedy tokens must be equal and the decode
    kernel launched.
 12. The main path of the Gemma slice: Gemma-2-9B (``google/gemma-2-9b``)
-   at full width and 21 of its 42 layers (``GEMMA2_9B_HALF``), bf16, phase
+   at full width and 11 of its 42 layers (``GEMMA2_9B_QUARTER``), bf16, phase
    6's traffic and runs. Exactly 2048 tokens a run; decode runs the
    non-window multi-step path, so in every cold and warm run the decode
-   kernel launches 21 x 63 = 1323 times, the ragged kernel 21 times and
+   kernel launches 11 x 63 = 693 times, the ragged kernel 11 times and
    the window kernel never.
 13. Int4 + cascade parity: a one-layer Llama at K = 2048 (every projection
    packs under gptq's group of 128), gptq realized to native int4
@@ -95,18 +96,18 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    and runs one 63-step window at R = 128 sharing 16 pages: exactly 4 x 16
    x 63 = 4032 int4 launches, 16 x 63 = 1008 shared-prefix passes and
    window launches, 16 ragged and 0 packed W4 launches a run.
-15. The main path of the W8 layout: Llama-3.1-8B at full width and half
-   its depth (16 of 32 layers, ``LLAMA31_8B_HALF``), W8A16 (per-column
-   int8) on seeded dummy weights, bf16, phase 6's traffic and runs.
-   Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 16 x 63 = 4032 times
+15. The main path of the W8 layout: Llama-3.1-8B at full width and a
+   quarter of its depth (8 of 32 layers, ``LLAMA31_8B_QUARTER``), W8A16
+   (per-column int8) on seeded dummy weights, bf16, phase 6's traffic and
+   runs. Exactly 2048 tokens a run, the W8 GEMM exactly 4 x 8 x 63 = 2016 times
    in every cold and warm run, the other quantized GEMMs never, both
    attention kernels launched.
 16. The main path of the uint4 layout: Qwen2.5-7B (``Qwen/Qwen2.5-7B``:
-   28 / 4 heads of 128, qkv bias, untied head) at full width and half its
-   depth (14 of 28 layers, ``QWEN25_7B_HALF``),
+   28 / 4 heads of 128, qkv bias, untied head) at full width and a quarter
+   of its depth (7 of 28 layers, ``QWEN25_7B_QUARTER``),
    gptq (group 128; no projection packs at K = 3584 and 18944) on seeded
    dummy weights, bf16, phase 6's traffic and runs. Exactly 2048 tokens a
-   run, the uint4 GEMM exactly 4 x 14 x 63 = 3528 times, the other
+   run, the uint4 GEMM exactly 4 x 7 x 63 = 1764 times, the other
    quantized GEMMs never, both attention kernels (at 7 query heads a KV
    head, held in phase 2 first) launched.
 17. FP8 parity: fp32 greedy tokens on the card and on the CPU with the
@@ -134,18 +135,20 @@ template switch (``span_build_times``). Phases, each fatal on failure:
    Mamba (the SSM window) with one preset each. Tokens equal but where a
    completion parts at a near tie (``sampled_partings``: the CPU's noisy
    scores of the two tokens within ``SAMPLE_GAP``, at most a tenth of the
-   completions); the Gumbel and suffix-match kernels launched.
+   completions); the Gumbel kernel and the token-history pass launched.
 20. The main path of the sampler slice (run right after phase 6, on its
    engine): Llama-3.1-8B W4A16, phase 6's traffic with every request
    seeded and the API, creative-chat and penalised presets of
    ``SAMPLED_PRESETS`` in rotation. Two cold and two warm runs, each
    exactly 2048 tokens and launches exactly: packed W4 8064, ragged 32,
    window 2016 (as phase 6), Gumbel 64 (the wave's draw and 63 sub-steps'),
-   suffix match 64 (one launch a draw serves DRY and no-repeat-ngram);
-   the two cold runs' tokens compared; one captured sub-step held against the
-   plain ``sample_tokens`` (every token in its row's support, the kernel's
-   token the plain one's but at gaps < ``NOISE_GAP``); walls beside phase
-   6's and a profile with the sampler's device time ("under sample").
+   the token-history pass 64 (one launch a draw: DRY, the penalties and
+   no-repeat-ngram); the two cold runs' tokens compared; one captured
+   sub-step held against the plain ``sample_tokens`` (every token in its
+   row's support, the kernel's token the plain one's but at gaps <
+   ``NOISE_GAP``); walls beside phase 6's and a profile with the
+   sampler's device time ("under sample") and the history pass's launches
+   and device time a draw.
 21. ALiBi parity: tiny BLOOM, MPT (clip_qkv), Falcon-rw / 7b / new
    architecture and Baichuan (ALiBi) in their config.json spellings
    (``FLEX_TINY``), fp32, weights redrawn (``redraw_flexible``), card vs
@@ -447,8 +450,14 @@ Gumbel values within ``GUMBEL_ULPS`` ulps, its tokens equal but at gaps
 < ``NOISE_GAP``; timed at phase 20's shape beside the plain version and
 ``torch.multinomial`` over the same probabilities (another stream), its
 bound the int32 operations at the card's INT32 rate (``int32_ops_per_s``).
-And the suffix match at R = 32, L in (1024, 2048) on random, periodic and
-phase-20-like histories with breakers: bit-equal; no library call.
+And the token-history pass (``check_history``: DRY, the penalties and
+no-repeat-ngram in one launch) at R = 32, L in (1024, 2048) on random,
+periodic and phase-20-like histories, at R = 128, at the longest L phase
+20's engine builds, with one stage on alone, and on device-memory tables
+(L = 8192 at R = 48, L = 32768): equal to the plain version bit for bit
+(or DRY's power within 1 ulp); timed at phase 20's shape beside the plain
+version, with the launches of both and the pass's peak allocation with
+the logits handed over; no library call.
 
 For the vision slice phase 2 holds the ragged kernel with image spans
 against its plain version in bf16 (the tensor-core instance's span switch)
@@ -542,10 +551,12 @@ LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B config.json
     max_position_embeddings=131072, tie_word_embeddings=False,
     architectures=["LlamaForCausalLM"])
 # Phases 14 and 18 serve Llama-3.1-8B at half its depth (16 of its 32
-# layers), which keeps the script inside its time limit as it grows:
-# phases 6 and 31 serve the same model at full depth, every layer runs the
-# same kernels, and each launch count is reckoned for the depth served.
+# layers) and phase 15 at a quarter (8), which keeps the script inside its
+# time limit as it grows: phases 6 and 31 serve the same model at full
+# depth, every layer runs the same kernels, and each launch count is
+# reckoned for the depth served.
 LLAMA31_8B_HALF = dict(LLAMA31_8B, num_hidden_layers=16)
+LLAMA31_8B_QUARTER = dict(LLAMA31_8B, num_hidden_layers=8)
 # (K, N) of a layer's four GEMMs with QKV and gate/up fused, M = 32.
 LLAMA8B_GEMMS = {"qkv": (4096, 6144), "o": (4096, 4096),
                  "gate_up": (4096, 28672), "down": (14336, 4096)}
@@ -559,7 +570,7 @@ QWEN25_7B = dict(  # Qwen/Qwen2.5-7B config.json
     architectures=["Qwen2ForCausalLM"])
 # Phase 16's layers: half the published 28, which keeps the script inside
 # its time limit (every layer runs the same kernels).
-QWEN25_7B_HALF = dict(QWEN25_7B, num_hidden_layers=14)
+QWEN25_7B_QUARTER = dict(QWEN25_7B, num_hidden_layers=7)
 # Every projection stays unpacked under gptq's group of 128 ((K/2) % 1024
 # != 0 at K = 3584 and 18944): all run the uint4 layout.
 QWEN7B_GEMMS = {"qkv": (3584, 4608), "o": (3584, 3584),
@@ -646,7 +657,7 @@ QWEN15_MOE_A27B = dict(  # Qwen/Qwen1.5-MoE-A2.7B config.json
     tie_word_embeddings=False, architectures=["Qwen2MoeForCausalLM"])
 # Phase 8's layers: half the published 24 (every layer is a MoE layer
 # with the same kernels), to keep the script inside its time limit.
-QWEN15_MOE_HALF = dict(QWEN15_MOE_A27B, num_hidden_layers=12)
+QWEN15_MOE_QUARTER = dict(QWEN15_MOE_A27B, num_hidden_layers=6)
 # (K, N) of a MoE layer's two grouped GEMMs (gate|up fused on N).
 MOE_GEMMS = {"gate_up": (2048, 2 * 1408), "down": (1408, 2048)}
 MOE_E, MOE_K = 60, 4
@@ -2705,13 +2716,13 @@ def main_path_8b() -> tuple[dict, dict, dict]:
 
 
 def main_path_moe() -> dict:
-    """Qwen1.5-MoE-A2.7B bf16 at full width and 12 of its 24 layers
-    (``QWEN15_MOE_HALF``), the same traffic: one prefill wave (65536
+    """Qwen1.5-MoE-A2.7B bf16 at full width and 6 of its 24 layers
+    (``QWEN15_MOE_QUARTER``), the same traffic: one prefill wave (65536
     sorted rows a MoE layer: the grouped GEMM), then a 63-step decode
     window (32 rows: the dense expert combine)."""
     from aphrodite_tpu_torch.ops.grouped_matmul import grouped_matmul
     return serve_workload(
-        "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_HALF,
+        "phase 8", "qwen1.5-moe-a2.7b-dummy", QWEN15_MOE_QUARTER,
         {"grouped_matmul": grouped_matmul, **attention_kernels()})[0]
 
 
@@ -2738,18 +2749,18 @@ def serve_bytes(phase: str, name: str, hf: dict, quantization: str,
 
 def main_path_w8() -> dict:
     """Llama-3.1-8B W8A16 at full width and 16 of its 32 layers
-    (``LLAMA31_8B_HALF``; phase 15): the W8 GEMM at M = 32 in every decode
+    (``LLAMA31_8B_QUARTER``; phase 15): the W8 GEMM at M = 32 in every decode
     window step (every layer runs the same GEMMs)."""
     return serve_bytes("phase 15", "llama-3.1-8b-w8a16-dummy",
-                       LLAMA31_8B_HALF, "w8a16", "w8a16_matmul")
+                       LLAMA31_8B_QUARTER, "w8a16", "w8a16_matmul")
 
 
 def main_path_qwen7b_gptq() -> dict:
     """Qwen2.5-7B GPTQ (group 128) at full width and 14 of its 28 layers
-    (``QWEN25_7B_HALF``; phase 16): no projection packs, so every decode
+    (``QWEN25_7B_QUARTER``; phase 16): no projection packs, so every decode
     GEMM is the uint4 one; 7 query heads a KV head in the ragged and
     window kernels."""
-    return serve_bytes("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B_HALF,
+    return serve_bytes("phase 16", "qwen2.5-7b-gptq-dummy", QWEN25_7B_QUARTER,
                        "gptq", "w4a16_matmul")
 
 
@@ -2861,7 +2872,7 @@ GEMMA2_9B = dict(  # google/gemma-2-9b config.json
 # Phase 12's layers: half the published 42 (every layer runs the same
 # kernels; the sliding and global layers alternate), to keep the script
 # inside its time limit.
-GEMMA2_9B_HALF = dict(GEMMA2_9B, num_hidden_layers=21)
+GEMMA2_9B_QUARTER = dict(GEMMA2_9B, num_hidden_layers=11)
 
 GEMMA_TINY = {  # phase 11: tiny Gemma-2 (head_dim 256) and Gemma-3 (MQA)
     "Gemma2ForCausalLM": dict(
@@ -2960,19 +2971,19 @@ def gemma_parity(kv: str = "auto", archs=tuple(GEMMA_TINY)) -> int:
 
 
 def main_path_gemma() -> dict:
-    """Gemma-2-9B bf16 at full width and 21 of its 42 layers
-    (``GEMMA2_9B_HALF``), phase 6's traffic: one 16384-token prefill wave
+    """Gemma-2-9B bf16 at full width and 11 of its 42 layers
+    (``GEMMA2_9B_QUARTER``), phase 6's traffic: one 16384-token prefill wave
     (the ragged kernel's tensor-core instance, 64-row items at head_dim
     256), then one 63-step decode window through the runner's non-window
-    multi-step path: the decode kernel once a layer a sub-step, 21 x 63 =
-    1323 launches a run, and the window kernel never."""
+    multi-step path: the decode kernel once a layer a sub-step, 11 x 63 =
+    693 launches a run, and the window kernel never."""
     from aphrodite_tpu_torch.ops.decode_paged_attention import (
         decode_paged_attention)
-    L = GEMMA2_9B_HALF["num_hidden_layers"]
+    L = GEMMA2_9B_QUARTER["num_hidden_layers"]
     kernels = {"decode_paged_attention": decode_paged_attention,
                **attention_kernels()}
     return serve_workload(
-        "phase 12", "gemma-2-9b-dummy", GEMMA2_9B_HALF, kernels,
+        "phase 12", "gemma-2-9b-dummy", GEMMA2_9B_QUARTER, kernels,
         exact={"decode_paged_attention": L * 63,
                "ragged_paged_attention": L,
                "window_decode_attention": 0})[0]
@@ -3333,11 +3344,12 @@ def main_path_int4_cascade() -> dict:
 
 
 def profile_run(one_run, phase: str = "phase 4",
-                spans: tuple = ("aten::bmm",)) -> None:
+                spans: tuple = ("aten::bmm",)) -> dict:
     """One more run under torch.profiler: device busy share of the wall
     time, device time by kernel family, and the device time launched under
     each host range named in ``spans`` (an op such as ``aten::bmm``, or a
-    ``record_function`` range that ``one_run`` opens)."""
+    ``record_function`` range that ``one_run`` opens). Returns the device
+    ns and launches of each kernel by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3349,7 +3361,7 @@ def profile_run(one_run, phase: str = "phase 4",
     # linked_correlation_id is the correlation_id of the host op that
     # launched it, as key_averages() itself pairs them.
     kernels: dict[str, list] = {}  # name -> [device ns, launches]
-    links: dict[int, int] = {}     # host op correlation id -> device ns
+    links: dict[int, list] = {}    # host op correlation id -> [ns, kernels]
     host_ops, span_of = [], {name: {} for name in spans}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
@@ -3359,8 +3371,9 @@ def profile_run(one_run, phase: str = "phase 4",
             k = kernels.setdefault(e.name(), [0, 0])
             k[0] += ns
             k[1] += 1
-            c = e.linked_correlation_id()
-            links[c] = links.get(c, 0) + ns
+            link = links.setdefault(e.linked_correlation_id(), [0, 0])
+            link[0] += ns
+            link[1] += 1
         elif e.linked_correlation_id() == 0:
             host_ops.append(e)
             if e.name() in span_of:
@@ -3388,7 +3401,7 @@ def profile_run(one_run, phase: str = "phase 4",
              "int4" if "q4_kernel" in n or "w4_wgmma_kernel<0" in n else
              "moe" if "gmm_" in n else
              "scan" if "scan_kernel" in n else
-             "sample" if "gumbel_" in n or "suffix_match" in n else
+             "sample" if "gumbel_" in n or "history_pass" in n else
              "gemm" if any(s in n for s in ("gemm", "cutlass", "sm90_xmma",
                                             "gemv", "nvjet")) else "other")
         fam[k] += ns / 1e9
@@ -3398,6 +3411,7 @@ def profile_run(one_run, phase: str = "phase 4",
     # the Mamba hs . C contraction (phase 10), the only bmm of the port's
     # forwards; under "sample" the sampler (phase 20).
     under, host = dict.fromkeys(spans, 0), dict.fromkeys(spans, 0)
+    launched = dict.fromkeys(spans, 0)
     for name, by_thread in span_of.items():
         for ranges in by_thread.values():
             ranges.sort()
@@ -3407,25 +3421,28 @@ def profile_run(one_run, phase: str = "phase 4",
             if ranges and e.name() != name:
                 i = bisect.bisect_right(ranges, (e.start_ns(), math.inf)) - 1
                 if i >= 0 and e.start_ns() <= ranges[i][1]:
-                    under[name] += links.get(e.correlation_id(), 0)
+                    ns, n = links.get(e.correlation_id(), (0, 0))
+                    under[name] += ns
+                    launched[name] += n
     log(f"# {phase} profile: wall {wall:.3f} s (profiled), device busy "
         f"{busy:.3f} s ({busy / wall:.1%}); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in fam.items())
         + "; of which " + ", ".join(
-            f"under {k} {v / 1e9:.3f} s (its host ranges {host[k] / 1e9:.3f}"
-            " s)" for k, v in under.items())
+            f"under {k} {v / 1e9:.3f} s in {launched[k]} kernels (its host "
+            f"ranges {host[k] / 1e9:.3f} s)" for k, v in under.items())
         + f"; trace read in {time.perf_counter() - t0:.1f} s")
     for name, (ns, count) in sorted(kernels.items(),
                                     key=lambda kv: -kv[1][0])[:8]:
         log(f"# {phase} profile: {ns / 1e6:9.1f} ms x{count:<6d} "
             f"{name[:90]}")
+    return kernels
 
 
 KERNEL_SOURCES = ["ragged_paged_attention", "ragged_spans", "ragged_f16",
                   "ragged_spans_f16", "window_decode_attention",
                   "decode_paged_attention", "quant_matmul", "grouped_matmul",
                   "selective_scan", "shared_prefix_attention", "w4_wgmma",
-                  "w4_wgmma_f16", "gumbel_sample", "suffix_match",
+                  "w4_wgmma_f16", "gumbel_sample", "history_pass",
                   "mla_attention", "mla_attention_f16", "mla_opts",
                   "mla_opts_f16", "grouped_matmul_f16"]
 
@@ -3613,9 +3630,65 @@ for path in ('llama-3.1-8b-w4a16', 'qwen2.5-1.5b-bf16', 'gemma-2-9b-bf16'):
 """
 
 
+# Run by each checkout in ``compare_serving``: the token-history block of
+# that checkout's ``sample_tokens`` (DRY, the penalties and no-repeat-ngram)
+# at phase 20's draw, built as ``phase20_history`` builds it (written out:
+# the parent's script lacks it): the history pass with the logits handed
+# over where the checkout has it, else the eager stages over the
+# suffix-match kernel, as the parent's ``sample_tokens`` ran them. Time a
+# call (CUDA events), device time (profiler), kernels a call and the peak
+# allocation of a call.
+HISTORY_PROBE = """
+import numpy as np
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from aphrodite_tpu_torch import SamplingParams
+from aphrodite_tpu_torch.sample import sampler as S
+from aphrodite_tpu_torch.sample.metadata import (SamplingMetadata,
+                                                 build_sampling_arrays)
+rng = np.random.RandomState(0)
+prompts = [rng.randint(10, 100000, size=512).tolist() for _ in range(32)]
+names = list(c.SAMPLED_PRESETS)
+reqs = []
+for i, p in enumerate(prompts):
+    out = rng.randint(10, 100000, size=int(rng.randint(0, 65))).tolist()
+    reqs.append((SamplingParams(max_tokens=64, ignore_eos=True, seed=2000 + i,
+                                **c.SAMPLED_PRESETS[names[i % 3]]),
+                 p + out, 512, len(out)))
+arrays, flags = build_sampling_arrays(reqs, 128256, 32, extra_len=65)
+md = SamplingMetadata.from_arrays(arrays, 'cuda')
+lg = 3 * torch.from_numpy(rng.randn(32, 128256).astype(np.float32)).cuda()
+if hasattr(S, 'history_pass'):
+    what = 'history pass, in place'
+    block = lambda: S.history_pass(lg, md, flags, inplace=True)
+else:
+    what = 'eager stages over the suffix-match kernel'
+    def block():
+        bm, mp, mb = S._match_lengths(md, True)
+        x = S._apply_dry(lg, md, bm, mb)
+        x = S._apply_penalties(x, md)
+        return S._apply_no_repeat_ngram(x, md, mp)
+ms, dev = c.cuda_ms(block, 50), c.device_ms(block, 20)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    block()
+    torch.cuda.synchronize()
+n = sum(1 for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+base = torch.cuda.memory_allocated()
+block()
+torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
+print(f"# history block at phase 20's draw ({what}): {ms:.4f} ms a call, "
+      f"device {dev:.4f} ms, {n} kernels a call, peak {peak} B", flush=True)
+"""
+
+
 # What ``--ab`` runs, in this order, each by its name on the command line.
 AB_PARTS = {"host": HOST_PROBE, "grouped": GROUPED_PROBE, "mla": MLA_PROBE,
             "spans": SPAN_PROBE, "attn": ATTN_PROBE,
+            "history": HISTORY_PROBE,
             "quant": QUANT_PROBE, "bytes": BYTE_PROBE,
             "8": "c.main_path_moe()", "12": "c.main_path_gemma()",
             "14": "c.main_path_int4_cascade()", "6": "c.main_path_8b()",
@@ -3630,7 +3703,7 @@ def compare_serving(parent: str, parts: list[str]) -> int:
     """``python3 chip_smoke.py --ab PARENT [PART ...]``: the probes and
     phases of ``AB_PARTS`` (all, or the PARTs named: ``HOST_PROBE``,
     ``GROUPED_PROBE``, ``MLA_PROBE``, ``SPAN_PROBE``, ``ATTN_PROBE``,
-    ``QUANT_PROBE`` and
+    ``HISTORY_PROBE``, ``QUANT_PROBE`` and
     phases 8, 12, 14, 6, 15, 16 and 24: s/run,
     device busy and items) of the checkout at PARENT (a commit
     unpacked with ``git archive``) and of this one, in turns on one card:
@@ -3646,12 +3719,14 @@ def compare_serving(parent: str, parts: list[str]) -> int:
         raise SystemExit(f"--ab: unknown parts {unknown}; known "
                          f"{list(AB_PARTS)}")
     chosen = [v for k, v in AB_PARTS.items() if not parts or k in parts]
+    # The history probe alone builds its one library at first use.
+    build = ([] if parts == ["history"] else [
+        "t = cuda_build.build_all(c.KERNEL_SOURCES)",
+        "print(f'# kernels built in {t:.1f} s', flush=True)"])
     code = "\n".join([
         "import sys", "sys.path.insert(0, '.')", "import chip_smoke as c",
         "import torch",
-        "from aphrodite_tpu_torch.ops import cuda_build",
-        "t = cuda_build.build_all(c.KERNEL_SOURCES)",
-        "print(f'# kernels built in {t:.1f} s', flush=True)",
+        "from aphrodite_tpu_torch.ops import cuda_build", *build,
         "gen = torch.Generator(device='cuda').manual_seed(0)", *chosen])
     for i, tag in enumerate(("parent", "change", "change", "parent")):
         t0 = time.perf_counter()
@@ -3903,7 +3978,11 @@ GUMBEL_ROWS, GUMBEL_VOCABS = (1, 32, 128), (151936, 128256)
 # plain version's two best noisy scores lie within NOISE_GAP (twice the
 # largest such error of a score, |g| < 17).
 GUMBEL_ULPS, NOISE_GAP = 4, 2e-5
-SUFFIX_ROWS, SUFFIX_LENS = 32, (1024, 2048)
+HISTORY_ROWS, HISTORY_LENS = 32, (1024, 2048)
+# Phase 20's engine (max_model_len 704, a 64-step decode window): its
+# sampler's longest histories, 704 tokens in next_power_of_2(704 + 65)
+# slots.
+HISTORY_LONGEST = (704, 1024)
 # Phase 20's three presets, in rotation over the 32 requests: illustrative
 # mixes that put every stage group of the path to work (top-k/top-p and top
 # logprobs; min-p, penalties, DRY and XTC; penalties, no-repeat-ngram and
@@ -4035,81 +4114,275 @@ def check_gumbel(gen) -> dict:
     return res
 
 
-def suffix_histories(gen, R: int, L: int, kind: str):
-    """[R, L] int32 histories, their lengths and a break mask. "random":
-    a 6-token alphabet (many short matches); "periodic": repeated units of
-    1-8 tokens with a few breaks (matches up to the cap); "main": phase
-    20's rows, 512 random prompt tokens of Llama-3's vocabulary and up to
-    64 generated, lengths 512-576."""
+def history_seq(gen, R: int, L: int, kind: str, lo: int, hi: int):
+    """[R, L] int32 histories padded with Llama-3's vocabulary size and
+    their lengths, drawn from [lo, hi] (the first two rows hi and lo).
+    "random": a 6-token alphabet (many short matches); "periodic":
+    repeated units of 1-8 tokens with a few breaks (matches up to the
+    cap); "vocab": tokens of Llama-3's vocabulary (phase 20's prompts)."""
     import torch
-    if kind == "main":
-        lens = torch.randint(512, 577, (R,), generator=gen, device="cuda")
-        seq = torch.randint(10, 100000, (R, L), generator=gen,
-                            device="cuda")
+    lens = torch.randint(lo, hi + 1, (R,), generator=gen, device="cuda")
+    lens[:2] = torch.tensor([hi, lo])
+    if kind == "vocab":
+        seq = torch.randint(10, 100000, (R, L), generator=gen, device="cuda")
+    elif kind == "random":
+        seq = torch.randint(0, 6, (R, L), generator=gen, device="cuda")
     else:
-        lens = torch.randint(0, L + 1, (R,), generator=gen, device="cuda")
-        lens[:2] = torch.tensor([L, 1])
-        if kind == "random":
-            seq = torch.randint(0, 6, (R, L), generator=gen, device="cuda")
-        else:
-            seq = torch.empty((R, L), dtype=torch.int64, device="cuda")
-            for r in range(R):
-                n = int(torch.randint(1, 9, (1,), generator=gen,
-                                      device="cuda"))
-                unit = torch.randint(0, 5, (n,), generator=gen,
-                                     device="cuda")
-                seq[r] = unit.repeat(L // n + 1)[:L]
-            seq[torch.rand((R, L), generator=gen, device="cuda") < 0.02] = 7
+        seq = torch.empty((R, L), dtype=torch.int64, device="cuda")
+        for r in range(R):
+            n = int(torch.randint(1, 9, (1,), generator=gen, device="cuda"))
+            unit = torch.randint(0, 5, (n,), generator=gen, device="cuda")
+            seq[r] = unit.repeat(L // n + 1)[:L]
+        seq[torch.rand((R, L), generator=gen, device="cuda") < 0.02] = 7
     pos = torch.arange(L, device="cuda")[None, :]
     seq = torch.where(pos < lens[:, None], seq, 128256).to(torch.int32)
-    brk = torch.rand((R, L), generator=gen, device="cuda") < 0.05
-    return seq, lens.to(torch.int32), brk
+    return seq, lens.to(torch.int32)
 
 
-def check_suffix(gen) -> dict:
-    """DRY's and no-repeat-ngram's suffix match lengths at R = 32, L in
-    SUFFIX_LENS, on random, periodic and phase-20-like histories with
-    breakers: bit-equal to the plain version. Times at phase 20's shape (L
-    = 1024, "main"); the bound counts 13 bytes a position (the history
-    and the mask read, two counts written) and 4 int32 operations a
-    comparison the data needs (min(m_plain + 1, 64) a position); no
-    PyTorch call computes it."""
+def history_metadata(gen, seq, lens):
+    """The fields the token-history pass reads, drawn on the card, each
+    stage off in about a quarter of the rows: prompt lengths 0-T, DRY
+    (multiplier 0.2-1.2, base 1.2-2, allowed 0-4, a range in a third of
+    the rows, 0-16 breakers of tokens 0-7), no-repeat-ngram 1-5,
+    repetition 0.8-1.5, frequency and presence -0.5-1."""
+    import types
     import torch
+    R, L = seq.shape
+    dev = seq.device
+    u = lambda: torch.rand((R,), generator=gen, device=dev)  # noqa: E731
+    on = lambda: u() >= 0.25  # noqa: E731
+    ints = lambda lo, hi, shape=(R,): torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    nbrk = ints(0, 17)
+    brk = torch.where(torch.arange(16, device=dev)[None, :] < nbrk[:, None],
+                      ints(0, 8, (R, 16)), -1).to(torch.int32)
+    zero = torch.zeros((R,), device=dev)
+    return types.SimpleNamespace(
+        token_seq=seq, total_len=lens,
+        prompt_len=(u() * (lens + 1)).floor().to(torch.int32),
+        dry_multiplier=torch.where(on(), 0.2 + u(), zero),
+        dry_base=1.2 + 0.8 * u(), dry_allowed=ints(0, 5),
+        dry_range=torch.where(u() < 0.3, ints(1, L + 1), 0).to(torch.int32),
+        dry_breakers=brk,
+        no_repeat_ngram=torch.where(on(), ints(1, 6), 0).to(torch.int32),
+        repetition_penalty=torch.where(on(), 0.8 + 0.7 * u(), zero + 1),
+        frequency_penalty=torch.where(on(), 1.5 * u() - 0.5, zero),
+        presence_penalty=torch.where(on(), 1.5 * u() - 0.5, zero))
+
+
+def phase20_history(V: int = 128256):
+    """Phase 20's draw of the window's tenth sub-step, built as its runner
+    builds it: the 32 requests of phase 6 (seeded 512-token prompts) with
+    0-64 generated tokens each and ``SAMPLED_PRESETS`` in rotation, packed
+    by ``build_sampling_arrays`` with the window's room (L = 1024) and
+    moved to the card; fp32 logits of 3 x N(0, 1). Returns (logits, md,
+    flags)."""
+    import torch
+    from aphrodite_tpu_torch import SamplingParams
+    from aphrodite_tpu_torch.sample.metadata import (SamplingMetadata,
+                                                     build_sampling_arrays)
+    rng = np.random.RandomState(0)  # phase 6's prompts
+    prompts = [rng.randint(10, 100000, size=512).tolist() for _ in range(32)]
+    names = list(SAMPLED_PRESETS)
+    reqs = []
+    for i, p in enumerate(prompts):
+        out = rng.randint(10, 100000, size=int(rng.randint(0, 65))).tolist()
+        params = SamplingParams(max_tokens=64, ignore_eos=True, seed=2000 + i,
+                                **SAMPLED_PRESETS[names[i % 3]])
+        reqs.append((params, p + out, 512, len(out)))
+    arrays, flags = build_sampling_arrays(reqs, V, 32, extra_len=65)
+    md = SamplingMetadata.from_arrays(arrays, "cuda")
+    logits = 3 * torch.from_numpy(rng.randn(32, V).astype(np.float32)).cuda()
+    return logits, md, flags
+
+
+def kernels_a_call(fn) -> int:
+    """The device kernels one call of ``fn`` launches (a profiler trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def peak_bytes(fn) -> int:
+    """The bytes one call of ``fn`` allocates on the card at its peak,
+    beyond what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def history_parts(got, want, dry_moved, what: str) -> int:
+    """The entries where the pass's logits differ from the plain
+    version's; fails unless each is one that DRY penalised and lies within
+    1 ulp (CUDA's powf against torch.pow's)."""
+    import torch
+    diff = got != want  # -inf equals -inf; the inputs hold no NaN
+    n = int(diff.sum())
+    if n:
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, math.inf)) \
+            - want.abs()
+        ok = dry_moved & ((got - want).abs() <= ulp)
+        if bool((diff & ~ok).any()):
+            bad = (diff & ~ok).nonzero()[:4].tolist()
+            raise AssertionError(f"history_pass {what}: {n} entries differ "
+                                 f"from the plain version, at {bad} past 1 "
+                                 "ulp or not DRY's")
+    return n
+
+
+def check_history(gen) -> dict:
+    """The token-history pass (DRY, the penalties and no-repeat-ngram in
+    one launch) against its plain version on the card, V = 128256: at R =
+    32 on random, periodic and Llama-vocabulary histories at L in
+    HISTORY_LENS with every stage's parameters drawn per row (some rows
+    off), at R = 128, at the longest L phase 20's engine builds (rows of
+    704 tokens at L = 1024), with one stage on alone, on device-memory
+    tables (L = 8192 at R = 48, more rows than blocks; L = 32768) and at
+    phase 20's own draw (``phase20_history``). Each: equal bit for bit but
+    where DRY's power parts by 1 ulp (``history_parts``), the caller's
+    logits untouched, a second launch in place equal to the first, the
+    device-memory tables zero after it. Times at phase 20's draw: the pass
+    in place (as the window hands its logits over) and with its copy, the
+    plain version (the sampler's eager stages over the plain suffix
+    match), the kernels a call of each and their peak allocations; the
+    bound is the larger of the bytes (each row's history read once, 8
+    bytes a distinct token, 112 bytes of parameters a row) and the int32
+    operations the data needs (2 a position, 4 a step of each match the
+    kernel extends); no PyTorch call computes it."""
+    import torch
+    from aphrodite_tpu_torch.ops import history_pass as H
     from aphrodite_tpu_torch.ops.suffix_match import (MAX_MATCH,
-                                                      ref_suffix_match,
-                                                      suffix_match)
-    rate = int32_ops_per_s()
+                                                      ref_suffix_match)
+    from aphrodite_tpu_torch.sample.metadata import SamplerFlags
+    V = 128256
+    every = SamplerFlags(all_greedy=False, do_dry=True, do_penalties=True,
+                         do_ngram=True)
+    dry_only = every._replace(do_penalties=False, do_ngram=False)
+    cases = [(f"R={HISTORY_ROWS} L={L} {kind}", HISTORY_ROWS, L, kind, 0, L,
+              every) for L in HISTORY_LENS
+             for kind in ("random", "periodic", "vocab")]
+    cases += [("R=128 L=1024 periodic", 128, 1024, "periodic", 0, 1024,
+               every),
+              (f"R=32 L={HISTORY_LONGEST[1]} rows of {HISTORY_LONGEST[0]} "
+               "(phase 20's longest)", 32, HISTORY_LONGEST[1], "periodic",
+               HISTORY_LONGEST[0], HISTORY_LONGEST[0], every)]
+    cases += [(f"R=32 L=1024 periodic, {name} alone", 32, 1024, "periodic",
+               0, 1024, SamplerFlags(all_greedy=False, **{flag: True}))
+              for name, flag in (("DRY", "do_dry"),
+                                 ("penalties", "do_penalties"),
+                                 ("no-repeat-ngram", "do_ngram"))]
+    cases += [("R=48 L=8192 periodic (device-memory tables)", 48, 8192,
+               "periodic", 0, 8192, every),
+              ("R=8 L=32768 random (device-memory tables)", 8, 32768,
+               "random", 0, 32768, every)]
+    cases.append(("phase 20's draw", None, 1024, None, 0, 0, None))
     res = {}
-    for L in SUFFIX_LENS:
-        for kind in ("random", "periodic", "main"):
-            seq, lens, brk = suffix_histories(gen, SUFFIX_ROWS, L, kind)
-            got = suffix_match(seq, lens, brk)
-            want = ref_suffix_match(seq, lens, brk)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"suffix_match L={L} {kind}: differs "
-                                     "from the plain version")
-            line = (f"# phase 2: suffix_match R={SUFFIX_ROWS} L={L} {kind}: "
-                    f"equal to the plain version (longest match "
-                    f"{int(want[0].max())})")
-            if (L, kind) == (1024, "main"):
-                ms = cuda_ms(lambda: suffix_match(seq, lens, brk), 50)
-                dev = device_ms(lambda: suffix_match(seq, lens, brk), 20)
-                plain_ms = cuda_ms(lambda: ref_suffix_match(seq, lens, brk),
-                                   3)
-                ops = 4.0 * float(torch.clamp(want[0] + 1,
-                                              max=MAX_MATCH).sum())
-                t_ops = ops / rate * 1e3
-                t_bytes = 13.0 * SUFFIX_ROWS * L / HBM_BYTES_PER_S * 1e3
-                b_ms, b_by = ((t_ops, "operations") if t_ops >= t_bytes
-                              else (t_bytes, "bytes"))
-                line += (f"; kernel {ms:.4f} ms (device {dev:.4f} ms), "
-                         f"plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-                         f"({b_by}); no library call")
-                res = dict(max_abs_err=0.0, ms=ms, device_ms=dev,
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           library_ms=None)
-            log(line)
+    for what, R, L, kind, lo, hi, flags in cases:
+        if R is None:
+            lg, md, flags = phase20_history(V)
+        else:
+            seq, lens = history_seq(gen, R, L, kind, lo, hi)
+            md = history_metadata(gen, seq, lens)
+            lg = 3 * torch.randn((R, V), generator=gen, device="cuda")
+        plan = H.history_plan(lg.shape[0], L, V)
+        before = lg.clone()
+        got = H.history_pass(lg, md, flags)
+        want = H.ref_history_pass(lg, md, flags)
+        moved = (H.ref_history_pass(lg, md, dry_only) != lg
+                 if flags.do_dry else torch.zeros_like(lg, dtype=torch.bool))
+        again = lg.clone()
+        H.history_pass(again, md, flags, inplace=True)
+        torch.cuda.synchronize()
+        if not torch.equal(lg, before):
+            raise AssertionError(f"history_pass {what}: the caller's logits "
+                                 "changed")
+        if not torch.equal(again, got):
+            raise AssertionError(f"history_pass {what}: two launches differ")
+        if plan.table_ints and int(H._TABLES[torch.cuda.current_device()]
+                                   .count_nonzero()):
+            raise AssertionError(f"history_pass {what}: the device-memory "
+                                 "tables are not zero after the launch")
+        n = history_parts(got, want, moved, what)
+        if bool(torch.equal(want, lg)):
+            raise AssertionError(f"history_pass {what}: no stage moved a "
+                                 "logit (a vacuous case)")
+        line = (f"# phase 2: history_pass {what}: "
+                + ("equal to the plain version" if not n else
+                   f"equal to the plain version but {n} DRY entries within "
+                   "1 ulp")
+                + f" ({int((want != lg).sum())} logits moved, "
+                f"{int(torch.isneginf(want).sum())} banned; "
+                + (f"shared-memory tables, {plan.shared_bytes} B a block"
+                   if not plan.table_ints else
+                   f"device-memory tables, {plan.blocks} blocks x "
+                   f"{4 * plan.table_ints // plan.blocks} B") + ")")
+        if R is None:
+            R = lg.shape[0]
+            own = lg.clone()
+            ms = cuda_ms(lambda: H.history_pass(own, md, flags,
+                                                inplace=True), 50)
+            copy_ms = cuda_ms(lambda: H.history_pass(lg, md, flags), 50)
+            dev = device_ms(lambda: H.history_pass(own, md, flags,
+                                                   inplace=True), 20)
+            plain_ms = cuda_ms(lambda: H.ref_history_pass(lg, md, flags), 3)
+            plain_dev = device_ms(
+                lambda: H.ref_history_pass(lg, md, flags), 3)
+            n_pass = kernels_a_call(
+                lambda: H.history_pass(own, md, flags, inplace=True))
+            n_plain = kernels_a_call(
+                lambda: H.ref_history_pass(lg, md, flags))
+            peak = peak_bytes(
+                lambda: H.history_pass(own, md, flags, inplace=True))
+            peak_copy = peak_bytes(lambda: H.history_pass(lg, md, flags))
+            peak_plain = peak_bytes(
+                lambda: H.ref_history_pass(lg, md, flags))
+            # What the kernel reads and does on these rows.
+            T, P = md.total_len.long(), md.prompt_len.long()
+            n_pos = torch.maximum(T, P).clamp(max=L)
+            distinct = sum(int(torch.unique(md.token_seq[r, :int(n_pos[r])])
+                               .numel()) for r in range(R))
+            m_plain, _ = ref_suffix_match(md.token_seq, md.total_len,
+                                          torch.zeros_like(md.token_seq,
+                                                           dtype=torch.bool))
+            pos = torch.arange(L, device="cuda")[None, :]
+            end = T[:, None] - 1
+            last = md.token_seq.gather(1, end.clamp(min=0))
+            cand = (md.token_seq == last) & (pos < end)
+            steps = torch.clamp(m_plain + 1, max=MAX_MATCH)[cand].sum()
+            ops = 2.0 * float(n_pos.sum()) + 4.0 * float(steps)
+            t_ops = ops / int32_ops_per_s() * 1e3
+            t_bytes = (4.0 * float(n_pos.sum()) + 8.0 * distinct
+                       + 112.0 * R) / HBM_BYTES_PER_S * 1e3
+            b_ms, b_by = ((t_ops, "operations") if t_ops >= t_bytes
+                          else (t_bytes, "bytes"))
+            line += (f"; in place {ms:.4f} ms (device {dev:.4f} ms, "
+                     f"{n_pass} kernel a call), with its copy "
+                     f"{copy_ms:.4f} ms; plain {plain_ms:.4f} ms (device "
+                     f"{plain_dev:.4f} ms, {n_plain} kernels a call); bound "
+                     f"{b_ms:.6f} ms ({b_by}: {distinct} distinct tokens, "
+                     f"{ops:.0f} int32 ops; bytes {t_bytes:.6f} ms); peak "
+                     f"allocation in place {peak} B, with its copy "
+                     f"{peak_copy} B, plain {peak_plain} B, against R x V x "
+                     f"4 = {R * V * 4} B; no library call")
+            if peak >= R * V * 4:
+                raise AssertionError(f"history_pass: {peak} B allocated with "
+                                     "the logits handed over")
+            res = dict(max_abs_err=float((got - want).abs().nan_to_num()
+                                         .max()),
+                       ms=ms, device_ms=dev, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(line)
     return res
 
 
@@ -4194,10 +4467,10 @@ def sample_parity() -> dict:
     import torch
     from aphrodite_tpu_torch import LLM, SamplingParams
     from aphrodite_tpu_torch.ops.gumbel_sample import gumbel_sample
-    from aphrodite_tpu_torch.ops.suffix_match import suffix_match
+    from aphrodite_tpu_torch.ops.history_pass import history_pass
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {"gumbel_sample": gumbel_sample, "suffix_match": suffix_match}
+    kernels = {"gumbel_sample": gumbel_sample, "history_pass": history_pass}
     total = dict.fromkeys(kernels, 0)
     presets = list(SAMPLED_PRESETS.values())
     qwen = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
@@ -4283,14 +4556,16 @@ def main_path_sampled(llm, greedy: dict) -> dict:
     ``SAMPLED_PRESETS`` in rotation. Every cold and warm run: exactly 2048
     tokens, the packed W4 kernel 8064, ragged 32 and window 2016 times (as
     phase 6), the Gumbel kernel 64 times (one draw for the wave and one
-    for each of the window's 63 sub-steps) and the suffix match 64 (one
-    launch at each of those draws serves DRY and no-repeat-ngram). Two
+    for each of the window's 63 sub-steps) and the token-history pass 64
+    (one launch at each of those draws: DRY, the penalties and
+    no-repeat-ngram). Two
     cold runs' tokens are compared (the noise is fixed by the seeds, so only the model's own
     run-to-run numerics can part them). One captured sub-step (the
     window's tenth): every token in the support the plain ``sample_tokens``
     keeps for its row, and the kernel's token the plain version's but at
     gaps < NOISE_GAP. Walls beside phase 6's greedy walls (``greedy``) and
-    a profiled run with the sampler's device time as a "sample" item."""
+    a profiled run with the sampler's device time as a "sample" item and
+    the history pass's launches and device time a draw."""
     import dataclasses
     import torch
     import aphrodite_tpu_torch.sample.sampler as sampler_mod
@@ -4299,8 +4574,8 @@ def main_path_sampled(llm, greedy: dict) -> dict:
     from aphrodite_tpu_torch.ops import quant_matmul as qm
     from aphrodite_tpu_torch.ops.gumbel_sample import (gumbel_sample,
                                                        ref_gumbel_sample)
-    from aphrodite_tpu_torch.ops.suffix_match import (ref_suffix_match,
-                                                      suffix_match)
+    from aphrodite_tpu_torch.ops.history_pass import (history_pass,
+                                                      ref_history_pass)
     from aphrodite_tpu_torch.sample import rng as trng
     phase, layers, steps = "phase 20", LLAMA31_8B["num_hidden_layers"], 63
     num_prompts, prompt_len, decode_len = 32, 512, 64
@@ -4314,11 +4589,11 @@ def main_path_sampled(llm, greedy: dict) -> dict:
               for i in range(num_prompts)]
     counted = {"w4a16_packed_matmul": qm.w4a16_packed_matmul,
                **attention_kernels(), "gumbel_sample": gumbel_sample,
-               "suffix_match": suffix_match}
+               "history_pass": history_pass}
     exact = {"w4a16_packed_matmul": 4 * layers * steps,
              "ragged_paged_attention": layers,
              "window_decode_attention": layers * steps,
-             "gumbel_sample": 1 + steps, "suffix_match": 1 + steps}
+             "gumbel_sample": 1 + steps, "history_pass": 1 + steps}
     log(f"# {phase}: launches a run, reckoned: {exact}")
 
     def one_run() -> float:
@@ -4370,13 +4645,15 @@ def main_path_sampled(llm, greedy: dict) -> dict:
     # One captured sub-step against the plain pipeline on the same tensors.
     sample, cap = runner_mod.sample_tokens, {}
 
-    def capture(logits, md, flags, max_lp=0, step_offset=0):
-        out = sample(logits, md, flags, max_lp, step_offset)
+    def capture(logits, md, flags, max_lp=0, step_offset=0, **kw):
+        # Before the call: the window hands its logits over to the pass.
+        before = (logits.clone(), dataclasses.replace(
+            md, **{f.name: getattr(md, f.name).clone()
+                   for f in dataclasses.fields(md)}))
+        out = sample(logits, md, flags, max_lp, step_offset, **kw)
         if step_offset == 10 and not cap:
-            cap.update(logits=logits.clone(), md=dataclasses.replace(
-                md, **{f.name: getattr(md, f.name).clone()
-                       for f in dataclasses.fields(md)}),
-                flags=flags, max_lp=max_lp, tokens=out["tokens"].clone())
+            cap.update(logits=before[0], md=before[1], flags=flags,
+                       max_lp=max_lp, tokens=out["tokens"].clone())
         return out
     runner_mod.sample_tokens = capture
     try:
@@ -4391,14 +4668,17 @@ def main_path_sampled(llm, greedy: dict) -> dict:
         kept["noisy"] = torch.where(torch.isfinite(lp), lp + trng.gumbel(
             key, lp.shape[-1:]), float("-inf"))
         return ref_gumbel_sample(lp, seeds, out_len, step_offset)
-    draw, match = sampler_mod.gumbel_sample, sampler_mod.suffix_match
-    sampler_mod.gumbel_sample, sampler_mod.suffix_match = (plain_draw,
-                                                           ref_suffix_match)
+
+    def plain_history(logits, md, flags, inplace=False):
+        return ref_history_pass(logits, md, flags)
+    draw, hist = sampler_mod.gumbel_sample, sampler_mod.history_pass
+    sampler_mod.gumbel_sample, sampler_mod.history_pass = (plain_draw,
+                                                           plain_history)
     try:
         plain = sample(cap["logits"], cap["md"], cap["flags"],
                        cap["max_lp"], 10)["tokens"]
     finally:
-        sampler_mod.gumbel_sample, sampler_mod.suffix_match = draw, match
+        sampler_mod.gumbel_sample, sampler_mod.history_pass = draw, hist
     noisy, tok = kept["noisy"], cap["tokens"]
     support = torch.isfinite(noisy).sum(-1)
     in_support = torch.isfinite(noisy.gather(1, tok[:, None]))[:, 0]
@@ -4421,13 +4701,24 @@ def main_path_sampled(llm, greedy: dict) -> dict:
         def spanned(*a, **kw):
             with record_function("sample"):
                 return sample(*a, **kw)
+
         runner_mod.sample_tokens = spanned
         try:
             return one_run()
         finally:
             runner_mod.sample_tokens = sample
     llm.engine.reset_prefix_cache()
-    profile_run(profiled, phase, spans=("aten::bmm", "sample"))
+    # The pass's kernel by name: a ctypes launch has no torch op that a
+    # host range could hold.
+    kernels = profile_run(profiled, phase, spans=("aten::bmm", "sample"))
+    ns, n = [sum(v[i] for k, v in kernels.items() if "history_pass" in k)
+             for i in (0, 1)]
+    if n != 1 + steps:
+        raise AssertionError(f"{phase}: {n} history-pass kernels in the "
+                             f"profiled run, want {1 + steps}")
+    log(f"# {phase}: the history pass a draw: {n / (1 + steps):.0f} "
+        f"launch, device {ns / 1e6 / (1 + steps):.4f} ms ({1 + steps} "
+        "draws a run)")
     return {k: exact[k] for k in counted}
 
 
@@ -7694,7 +7985,7 @@ def main() -> int:
     mla_checks(gen, results)
     stamp("phase 2: the sampler's kernels")
     results[("gumbel_sample", "float32")] = check_gumbel(gen)
-    results[("suffix_match", "int32")] = check_suffix(gen)
+    results[("history_pass", "float32")] = check_history(gen)
     stamp("phase 2: the W4 prefill product")
     check_prefill_w4(gen)
     stamp("phase 2: the fp16 instances")
@@ -7880,9 +8171,11 @@ def main() -> int:
     rows += [(name, "llama-3.1-8b-w4a16-sampled", dt,
               sampled_counts[name], results[(name, dt)], "auto")
              for name, dt in (("gumbel_sample", "float32"),
-                              ("suffix_match", "int32"))]
+                              ("history_pass", "float32"))]
     replaces["gumbel_sample"] = "aphrodite_tpu/sample/sampler.py:494"
-    replaces["suffix_match"] = "aphrodite_tpu/sample/sampler.py:38"
+    # _suffix_match_lengths, _apply_dry, _apply_no_repeat_ngram and
+    # _apply_penalties (sampler.py:38-167), which XLA fuses in JAX.
+    replaces["history_pass"] = "aphrodite_tpu/sample/sampler.py:38"
     # The ALiBi slice: both attention kernels with the slopes on phase 22's
     # path, and their fp32 instances on phase 21's (timed at phase 22's
     # shapes, as the other fp32 parity rows are at a full-width path's).

@@ -1,22 +1,19 @@
-"""fp16 queries in the port's four paged-attention wrappers and through
-``LLM.generate``, against the JAX package in fp16 on the same numpy inputs
+"""fp16 queries in the port's ragged wrapper and the routing of every
+fp16 kernel, against the JAX package in fp16 on the same numpy inputs
 (the CUDA kernels' fp16 instances run only on the card, where
 ``chip_smoke.py`` phases 2, 28 and 29 hold them against these plain
-versions):
+versions). The window, decode and shared-prefix wrappers are in
+``test_torch_fp16_decode.py``, ``LLM.generate`` in
+``test_torch_fp16_llm.py`` (three files that the Tier-1 workers spread).
 
-- the plain versions of the ragged (mixed, chunked, sliding window, soft
-  cap, ALiBi), window (with and without the cascade's init state), decode
-  (ALiBi) and shared-prefix (S = 0, 64, 1000) wrappers on fp16, e4m3 and
-  e5m2 caches, against the Pallas kernels in interpret mode and the JAX
-  oracles, both run in fp16. Tolerances: the port's plain versions compute
-  in fp32 and round the output to fp16 once; the Pallas kernels take both
-  products on fp16 operands (P rounded to fp16) and the oracles round at
-  their own points, so outputs of magnitude below 1 differ by a few fp16
-  ulps (2^-11 = 4.9e-4 at 1): atol 2e-3 (measured 4.9e-4 on ragged
-  "mixed"). The window kernel rounds the tail's P to the tails' dtype (e4m3
-  beside an e4m3 cache, bf16 beside e5m2), as ``test_torch_fp8.py``'s
-  ``test_window_fp8`` states: 5e-3 there. The shared pass's state is fp32:
-  acc and l rtol 2e-3 (P in fp16 in the kernel), m 1e-3;
+- the plain version of the ragged wrapper (mixed, chunked, sliding
+  window, soft cap, ALiBi) on fp16, e4m3 and e5m2 caches, against the
+  Pallas kernel in interpret mode and the JAX oracle, both run in fp16.
+  Tolerances: the port's plain versions compute in fp32 and round the
+  output to fp16 once; the Pallas kernels take both products on fp16
+  operands (P rounded to fp16) and the oracles round at their own points,
+  so outputs of magnitude below 1 differ by a few fp16 ulps (2^-11 =
+  4.9e-4 at 1): atol 2e-3 (measured 4.9e-4 on ragged "mixed");
 - the routing: fp16 takes the tensor-core instances at head_dim 64, 128
   and 256 and fits an H100's shared memory on every cache; fp16 at MLA's
   head_dim 576 takes the MLA instances (``test_torch_fp16_moe_mla.py``
@@ -25,15 +22,7 @@ versions):
   256, the MLA option instances at 576, the scalar one elsewhere), on a
   CUDA device as on the CPU; the grouped GEMM takes the attention
   kernels' dtype codes, fp16 among them, and the quantized GEMMs take fp16
-  (``test_torch_fp16_gemm.py``);
-- ``LLM.generate`` in fp16 against ``aphrodite_tpu.LLM`` in fp16 on the
-  same weights (the JAX engine's tree through ``params_from_jax``): a tiny
-  Llama with chunked prefill, decode windows and a shared prompt (the
-  cascade), on fp16, e4m3 and e5m2 caches, and a tiny BLOOM (ALiBi, the
-  decode kernel's plain version). Greedy tokens identical but, on the fp8
-  caches, at ties below ``TIE`` (``test_torch_fp8_llm.py``'s rule, pinned
-  in ``TIES``); chosen logprobs within ``LOGPROB_ATOL`` where the tokens
-  agree.
+  (``test_torch_fp16_gemm.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -43,21 +32,9 @@ import torch
 
 from aphrodite_tpu.attention.backend import (
     ref_ragged_paged_attention as jax_ref_ragged)
-from aphrodite_tpu.attention.metadata import AttentionMetadata as JaxMD
-from aphrodite_tpu.entrypoints.llm import LLM as JaxLLM
-from aphrodite_tpu.ops import cascade_attention as jcascade
-from aphrodite_tpu.ops.decode_paged_attention import (
-    decode_paged_attention as jax_decode_kernel)
 from aphrodite_tpu.ops.ragged_paged_attention import (
     ragged_paged_attention as jax_ragged_kernel)
-from aphrodite_tpu.ops.window_decode_attention import (
-    ref_window_decode_attention as jax_ref_window)
-from aphrodite_tpu.ops.window_decode_attention import (
-    window_decode_attention as jax_window_kernel)
-from aphrodite_tpu.sampling_params import SamplingParams as JaxParams
-from aphrodite_tpu_torch import LLM, SamplingParams
 from aphrodite_tpu_torch.attention.backend import alibi_slopes
-from aphrodite_tpu_torch.loader.weights import params_from_jax
 from aphrodite_tpu_torch.ops import cascade_attention as cascade
 from aphrodite_tpu_torch.ops import grouped_matmul as gm
 from aphrodite_tpu_torch.ops import quant_matmul as qm
@@ -65,30 +42,24 @@ from aphrodite_tpu_torch.ops import w4_wgmma as w
 from aphrodite_tpu_torch.ops.cuda_build import (GEMM_DTYPE_CODES,
                                              H100_SMEM_OPTIN)
 from aphrodite_tpu_torch.ops.decode_paged_attention import (
-    decode_launch_geometry, decode_paged_attention)
+    decode_launch_geometry)
 from aphrodite_tpu_torch.ops.ragged_paged_attention import (
     DTYPE_CODES, ragged_paged_attention, ragged_route, ragged_uses_mla,
     ragged_uses_tensor_cores, ragged_work_item_tokens)
 from aphrodite_tpu_torch.ops.window_decode_attention import (
-    tail_dtype, window_decode_attention, window_launch_geometry,
-    window_uses_tensor_cores)
-from tests.test_torch_attention import (KVH, LAYER, NQ, PAGE, RAGGED_CASES,
-                                        _jax_md, _ragged_case)
-from tests.test_torch_flexible import family_config, perturb
+    window_launch_geometry, window_uses_tensor_cores)
+from tests.test_torch_attention import (LAYER, NQ, RAGGED_CASES, _jax_md,
+                                        _ragged_case)
 from tests.test_torch_fp8 import _port_md, to_torch
-from tests.test_torch_fp8_llm import _margin, assert_tokens_match
 
-# The JAX oracles under jit, as the JAX package runs them (eager, each of
-# their jnp ops compiles on its own: most of these tests' time).
+# The JAX oracle under jit (eager, each of its jnp ops compiles on its
+# own: most of these tests' time); test_torch_fp16_decode.py reuses it.
 jax_ref_ragged = jax.jit(jax_ref_ragged, static_argnames=(
     "scale", "sliding_window", "logits_soft_cap", "chunk_attn",
     "blocksparse"))
-jax_ref_window = jax.jit(jax_ref_window, static_argnames=(
-    "scale", "sliding_window", "chunk_attn", "logits_soft_cap"))
 
 T = torch.from_numpy
 ATOL = 2e-3
-TAIL_ATOL = 5e-3  # the window kernel's tail P in the tails' dtype
 L = 2
 # Caches: q's own dtype (fp16), e4m3fn and e5m2.
 CACHES = {"fp16": (jnp.float16, torch.float16),
@@ -143,141 +114,6 @@ def test_ragged_fp16_vs_jax_kernel_and_oracle(name, kind):
                          **({"alibi": jnp.asarray(slopes.numpy())}
                             if slopes is not None else {}))
     _close(got, ref)
-
-
-# ------------------------------------------------------------ window
-def _window_case(kind, seed=1, hd=64, kw=4, plens=(40, 13, 70, 0)):
-    """A window on a cache of ``kind`` with fp16 queries and tails in the
-    JAX runner's tail dtype beside it (fp16, e4m3, or bf16 beside e5m2),
-    the same values in both packages."""
-    rng = np.random.RandomState(seed)
-    R, mp = len(plens), 6
-    cache = (rng.randn(L, R * mp + 1, 2, KVH, PAGE, hd) * 0.3).astype(
-        np.float32)
-    jc, tc = _cache(cache, kind)
-    bt = np.arange(1, R * mp + 1).reshape(R, mp).astype(np.int32)
-    td = tail_dtype(CACHES[kind][1] if kind != "fp16" else torch.float16)
-    jtd = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16,
-           torch.float8_e4m3fn: jnp.float8_e4m3fn}[td]
-    tails = [jnp.asarray((rng.randn(L, R, KVH, kw, hd) * 0.3).astype(
-        np.float32)).astype(jtd) for _ in range(2)]
-    jq, tq = _f16((rng.randn(R, NQ, hd) * 0.3).astype(np.float32))
-    return (jq, tq, jc, tc, tails, [to_torch(t) for t in tails], bt,
-            np.asarray(plens, np.int32))
-
-
-# (cache, with the cascade's init state): both on fp16, the e4m3 tails
-# alone, the bf16 tails beside e5m2 after the cascade's state.
-WINDOW_RUNS = [("fp16", False), ("fp16", True), ("e4m3", False),
-               ("e5m2", True)]
-
-
-@pytest.mark.parametrize("kind,cascade_init", WINDOW_RUNS)
-def test_window_fp16_vs_jax_kernel_and_oracle(kind, cascade_init):
-    jq, tq, jc, tc, jt, tt, bt, pl = _window_case(kind)
-    assert tt[0].dtype == {"fp16": torch.float16,
-                           "e4m3": torch.float8_e4m3fn,
-                           "e5m2": torch.bfloat16}[kind]
-    step, scale = 3, 0.125
-    init = j_init = None
-    extra, jextra = {}, {}
-    if cascade_init:  # the first page of every request, shared
-        S, pages = PAGE, np.asarray([1], np.int32)
-        bt = bt.copy()
-        bt[:, 0] = 1
-        pl = np.maximum(pl, PAGE + 1)
-        init = cascade.shared_prefix_attention(tq, tc, LAYER, T(pages), S,
-                                               scale)
-        extra = dict(cascade_init=init, shared_len=S)
-        j_init = jcascade.shared_prefix_attention(
-            jq, jc, jnp.asarray(LAYER), jnp.asarray([1, 0], jnp.int32),
-            jnp.asarray(S), scale, chunk_pages=1, interpret=True)
-        jextra = dict(cascade_init=j_init, shared_len=jnp.asarray(S))
-    got = window_decode_attention(tq, tc, tt[0], tt[1], LAYER, step, T(pl),
-                                  T(bt), scale, **extra)
-    kern = jax_window_kernel(jq, jc, jt[0], jt[1], jnp.int32(LAYER),
-                             jnp.int32(step), jnp.asarray(pl),
-                             jnp.asarray(bt), scale, chunk_pages=2,
-                             interpret=True, **jextra)
-    live = pl > 0
-    atol = ATOL if kind == "fp16" else TAIL_ATOL
-    _close(got[T(live)], np.asarray(kern)[live], atol)
-    if cascade_init:
-        ref = jcascade.ref_cascade_window_decode(
-            jq, jc[LAYER], jt[0][LAYER], jt[1][LAYER], jnp.asarray(step),
-            jnp.asarray(pl), jnp.asarray(bt), jnp.asarray([1, 0], jnp.int32),
-            jnp.asarray(PAGE), scale)
-    else:
-        ref = jax_ref_window(jq, jc[LAYER], jt[0][LAYER], jt[1][LAYER],
-                             jnp.int32(step), jnp.asarray(pl),
-                             jnp.asarray(bt), scale)
-    _close(got, ref)
-
-
-# ------------------------------------------------------------ decode
-@pytest.mark.parametrize("kind", sorted(CACHES))
-def test_decode_alibi_fp16_vs_jax_kernel_and_oracle(kind):
-    rng = np.random.RandomState(2)
-    sl = np.asarray([37, 1, 16, 70], np.int32)
-    R, hd, mp = len(sl), 64, 6
-    cache = (rng.randn(L, R * mp + 1, 2, KVH, PAGE, hd) * 0.5).astype(
-        np.float32)
-    jc, tc = _cache(cache, kind)
-    bt = (1 + rng.permutation(R * mp)).reshape(R, mp).astype(np.int32)
-    jq, tq = _f16((rng.randn(R, NQ, hd) * 0.5).astype(np.float32))
-    slopes = alibi_slopes(NQ)
-    got = decode_paged_attention(tq, tc, LAYER, T(bt), T(sl), hd ** -0.5,
-                                 alibi=slopes)
-    kern, _ = jax_decode_kernel(jq, jc, jnp.asarray(bt), jnp.asarray(sl),
-                                hd ** -0.5, chunk_pages=2, interpret=True,
-                                layer_idx=LAYER,
-                                alibi=tuple(float(s) for s in slopes))
-    _close(got, kern)
-    md = JaxMD(
-        token_req_idx=jnp.arange(R, dtype=jnp.int32),
-        token_pos=jnp.asarray(sl - 1), slot_mapping=jnp.full((R,), -1),
-        query_start_loc=jnp.arange(R + 1, dtype=jnp.int32),
-        seq_lens=jnp.asarray(sl), block_tables=jnp.asarray(bt),
-        num_reqs=jnp.asarray(R, jnp.int32),
-        num_tokens=jnp.asarray(R, jnp.int32), decode_mode=True)
-    ref = jax_ref_ragged(jq, jc[LAYER], md, hd ** -0.5,
-                         alibi=jnp.asarray(slopes.numpy()))
-    _close(got, ref)
-
-
-# ------------------------------------------------------ shared prefix
-SHARED_RUNS = [(0, "fp16"), (64, "fp16"), (64, "e4m3"), (1000, "e5m2")]
-
-
-@pytest.mark.parametrize("S,kind", SHARED_RUNS)
-def test_shared_prefix_fp16_vs_jax_kernel_and_oracle(S, kind):
-    rng = np.random.RandomState(S + 3)
-    hd, R, n_pages = 64, 3, 64
-    cache = (rng.randn(L, n_pages + 1, 2, KVH, PAGE, hd) * 0.3).astype(
-        np.float32)
-    jc, tc = _cache(cache, kind)
-    jq, tq = _f16((rng.randn(R, NQ, hd) * 0.3).astype(np.float32))
-    pages = (1 + rng.permutation(n_pages)).astype(np.int32)
-    acc, m, lsum = cascade.shared_prefix_attention(tq, tc, 1, T(pages), S,
-                                                   0.1)
-    if S == 0:
-        assert torch.isneginf(m).all() and not lsum.any() and not acc.any()
-        return
-    jp = jnp.asarray(pages)
-    acc_k, m_k, l_k = jcascade.shared_prefix_attention(
-        jq, jc, jnp.asarray(1), jp, jnp.asarray(S), 0.1, chunk_pages=2,
-        interpret=True)
-    acc_r, m_r, l_r = jcascade.ref_shared_prefix_attention(jq, jc[1], jp, S,
-                                                          0.1)
-    for a, mm, ll in ((acc_k, m_k[..., 0], l_k[..., 0]), (acc_r, m_r, l_r)):
-        scale = np.asarray(ll, np.float32)[..., None]
-        np.testing.assert_allclose(acc.numpy() / scale,
-                                   np.asarray(a, np.float32) / scale,
-                                   rtol=0, atol=ATOL)
-        np.testing.assert_allclose(m.numpy(), np.asarray(mm, np.float32),
-                                   rtol=0, atol=1e-3)
-        np.testing.assert_allclose(lsum.numpy(), np.asarray(ll, np.float32),
-                                   rtol=ATOL, atol=0)
 
 
 # ------------------------------------------------------------ routing
@@ -372,98 +208,3 @@ def test_gemm_wrappers_refuse_fp16_naming_the_roadmap(monkeypatch):
         or torch.empty((x.shape[0], 32), dtype=x.dtype, **meta)))
     assert qm.w8a16_matmul(x, q, s).dtype == torch.float16
     assert routed == [("w8", torch.float16)]
-
-
-# ------------------------------------------------------- LLM.generate
-TIE = 5e-2
-# Where the tokens may part, at ties below TIE (test_torch_fp8_llm.py's
-# rule): the counts observed, per case.
-TIES = {"llama-fp16": 0, "llama-e4m3": 0, "llama-e5m2": 0, "bloom-fp16": 0}
-# Chosen logprobs, the port against the JAX engine where the tokens agree:
-# both engines run fp16 weights and activations with roundings at their
-# own points (XLA's and PyTorch's CPU products). Measured: 7e-4 on the
-# Llama, 2.9e-2 on BLOOM, whose weights redrawn at 3x fan-in scale give
-# logits of tens, where one fp16 ulp is 8e-3 to 1.6e-2.
-LOGPROB_ATOL = 5e-2
-LLM_CASES = {"llama-fp16": ("llama", "auto"),
-             "llama-e4m3": ("llama", "fp8_e4m3"),
-             "llama-e5m2": ("llama", "fp8_e5m2"),
-             "bloom-fp16": ("bloom", "auto")}
-LLAMA = dict(vocab_size=256, hidden_size=128, num_hidden_layers=2,
-             num_attention_heads=2, num_key_value_heads=1,
-             intermediate_size=256, max_position_embeddings=512,
-             rms_norm_eps=1e-5, tie_word_embeddings=False,
-             architectures=["LlamaForCausalLM"])
-MAX_TOKENS = 10
-
-
-def _kwargs(model, kv, port=False):
-    if model == "llama":  # 48-token chunks over a 5-page shared prompt
-        from transformers import LlamaConfig
-        kw = dict(hf_config=LlamaConfig(**LLAMA), block_size=16,
-                  num_kv_blocks=128, max_num_seqs=4, max_num_batched_tokens=48,
-                  max_model_len=256)
-    else:
-        kw = dict(hf_config=family_config("bloom"), block_size=16,
-                  num_kv_blocks=64, max_num_seqs=4,
-                  max_num_batched_tokens=16, max_model_len=128,
-                  **({"decode_window": 8} if port else {}))
-    return dict(kw, tokenizer="unused", dtype="float16", load_format="dummy",
-                device="cpu", kv_cache_dtype=kv,
-                **({} if port else {"async_scheduling": False}))
-
-
-def _prompts(model):
-    rng = np.random.RandomState(0)
-    if model == "llama":
-        shared = rng.randint(1, 250, size=80).tolist()   # 5 whole pages
-        return [shared + rng.randint(1, 250, size=n).tolist()
-                for n in (3, 17, 40)]
-    return [rng.randint(1, 250, size=n).tolist() for n in (5, 40, 23)]
-
-
-def _chosen(outs):
-    return ([o.outputs[0].token_ids for o in outs],
-            [[lp[t].logprob for t, lp in zip(o.outputs[0].token_ids,
-                                              o.outputs[0].logprobs)]
-             for o in outs])
-
-
-@pytest.mark.parametrize("case", sorted(LLM_CASES))
-def test_fp16_greedy_tokens_match_jax(case, monkeypatch):
-    model, kv = LLM_CASES[case]
-    jax_llm = JaxLLM("dummy", **_kwargs(model, kv))
-    worker = jax_llm.engine.core.worker
-    if model == "bloom":
-        tree = perturb(worker.params, 11)
-        worker.params = worker.runner.params = jax.tree.map(jnp.asarray,
-                                                            tree)
-    tree = worker.params
-    prompts = _prompts(model)
-    outs = jax_llm.generate(prompts, JaxParams(
-        temperature=0.0, max_tokens=MAX_TOKENS, ignore_eos=True,
-        logprobs=2))
-    want, want_lp = _chosen(outs)
-    margins = [[_margin(s) for s in o.outputs[0].logprobs] for o in outs]
-    port = LLM("dummy", **_kwargs(model, kv, port=True))
-    port.engine.core.worker.load_params(params_from_jax(tree))
-    runner = port.engine.core.worker.runner
-    assert runner.kv_cache.dtype == {
-        "auto": torch.float16, "fp8_e4m3": torch.float8_e4m3fn,
-        "fp8_e5m2": torch.float8_e5m2}[kv]
-    passes = []
-    spa = cascade.shared_prefix_attention
-    monkeypatch.setattr(
-        "aphrodite_tpu_torch.attention.backend.shared_prefix_attention",
-        lambda *a: passes.append(a[4]) or spa(*a))
-    got, got_lp = _chosen(port.generate(prompts, SamplingParams(
-        temperature=0.0, max_tokens=MAX_TOKENS, ignore_eos=True,
-        logprobs=1)))
-    if model == "llama":
-        assert passes and set(passes) == {80}  # the cascade branch ran
-    assert len({t for x in want for t in x}) > 5  # the tokens vary
-    gaps = [abs(a - b) for wt, gt, wl, gl in zip(want, got, want_lp, got_lp)
-            for i, (a, b) in enumerate(zip(wl, gl)) if wt[:i + 1]
-            == gt[:i + 1]]
-    assert max(gaps) <= LOGPROB_ATOL, max(gaps)
-    assert_tokens_match(port, prompts, want, margins, got, TIES[case])

@@ -7,7 +7,8 @@
 - Each stage on mixed per-row parameters (some rows on, some off):
   the same -inf mask and the finite values within rtol = atol = 2e-5
   (float32 reductions in another order; DRY's power).
-- The suffix match lengths: the plain version bit-equal to the JAX one.
+- The suffix match lengths: the plain version bit-equal to the JAX one
+  (the token-history pass: ``test_torch_history_pass.py``).
 - ``sample_tokens`` under each flag group, a ``sampler_priority`` order,
   skew, ``temperature_last`` and top-k logprobs, at step offsets 0-2:
   tokens equal (random float logits, so no near ties: the noise differs
@@ -27,8 +28,8 @@ from aphrodite_tpu.sample import sampler as J
 from aphrodite_tpu.sample.metadata import (SamplingMetadata as JaxMD,
                                            build_sampling_arrays as jax_build)
 from aphrodite_tpu.sampling_params import SamplingParams as JaxParams
-from aphrodite_tpu_torch.ops.suffix_match import (ref_suffix_match,
-                                                  suffix_match)
+from aphrodite_tpu_torch.ops import history_pass as H
+from aphrodite_tpu_torch.ops.suffix_match import ref_suffix_match
 from aphrodite_tpu_torch.sample import sampler as T
 from aphrodite_tpu_torch.sample.metadata import (SamplerFlags,
                                                  SamplingMetadata,
@@ -148,12 +149,12 @@ def test_unseeded_seed_rule():
 
 
 STAGES = {
-    "dry": (J._apply_dry, lambda lg, md: T._apply_dry(
-        lg, md, *T._match_lengths(md, True)[::2])),
+    "dry": (J._apply_dry, lambda lg, md: H._apply_dry(
+        lg, md, *H._match_lengths(md, True)[::2])),
     "no_repeat_ngram": (J._apply_no_repeat_ngram,
-                        lambda lg, md: T._apply_no_repeat_ngram(
-                            lg, md, T._match_lengths(md, False)[1])),
-    "penalties": (J._apply_penalties, T._apply_penalties),
+                        lambda lg, md: H._apply_no_repeat_ngram(
+                            lg, md, H._match_lengths(md, False)[1])),
+    "penalties": (J._apply_penalties, H._apply_penalties),
     "temperature": (lambda lg, md: J._apply_temperature(lg, md, False),
                     lambda lg, md: T._apply_temperature(lg, md, False)),
     "dynatemp": (lambda lg, md: J._apply_temperature(lg, md, True),
@@ -174,12 +175,17 @@ STAGES = {
 }
 
 
+# The JAX stages under jit (eager, each of their jnp ops compiles on its
+# own).
+JAX_STAGES = {name: jax.jit(fj) for name, (fj, _) in STAGES.items()}
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("stage", sorted(STAGES))
 def test_stage_matches_jax(stage, seed):
     jmd, _, tmd, _ = _mds(ROWS, seed=seed)
     logits = _logits(len(ROWS), seed + 10)
-    fj, ft = STAGES[stage]
+    fj, ft = JAX_STAGES[stage], STAGES[stage][1]
     want = fj(jnp.asarray(logits), jmd)
     got = ft(torch.from_numpy(logits), tmd)
     _assert_same(got, want)
@@ -223,11 +229,8 @@ def test_suffix_match_bit_equal(L, periodic):
                                    jnp.asarray(brk))
     got = ref_suffix_match(torch.from_numpy(seq), torch.from_numpy(lens),
                            torch.from_numpy(brk))
-    cpu = suffix_match(torch.from_numpy(seq), torch.from_numpy(lens),
-                       torch.from_numpy(brk))
-    for g, c, w in zip(got, cpu, want):
+    for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        np.testing.assert_array_equal(c.numpy(), np.asarray(w))
     if periodic and L > 64:
         assert int(got[0].max()) == 64  # the MAX_MATCH cap is reached
 
